@@ -1,0 +1,1 @@
+"""core of hugectr_tpu_torch (see the package docstring)."""

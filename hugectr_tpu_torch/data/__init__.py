@@ -1,0 +1,1 @@
+"""data of hugectr_tpu_torch (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""embedding of hugectr_tpu_torch (see the package docstring)."""

@@ -1,0 +1,47 @@
+"""DCN MultiCross (counterpart of hugectr_tpu/layers/interaction.py
+`_mc_apply` :75): x_{l+1} = x0 * (x_l W_l + b_l) + x_l, with W_l = U_l V_l
+for DCNv2's low-rank projection, or x0 * (x_l . w_l) + b_l + x_l for DCNv1.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..core.config import DenseLayer
+from .base import Layer, make_initializer, register
+from .gemm import dense
+
+
+@register("MultiCross")
+class MultiCross(Layer):
+    def __init__(self, cfg: DenseLayer, in_shapes, gen: torch.Generator, device):
+        super().__init__()
+        n = in_shapes[0][-1]
+        self.k = cfg.projection_dim
+        self.num_layers = cfg.num_layers
+        for i in range(cfg.num_layers):
+            if self.k and self.k > 0:
+                u = make_initializer(cfg.weight_init_type, n, self.k)(gen, (n, self.k), device)
+                v = make_initializer(cfg.weight_init_type, self.k, n)(gen, (self.k, n), device)
+                self.register_parameter(f"U_{i}", nn.Parameter(u))
+                self.register_parameter(f"V_{i}", nn.Parameter(v))
+            else:
+                w = make_initializer(cfg.weight_init_type, n, 1)(gen, (n,), device)
+                self.register_parameter(f"w_{i}", nn.Parameter(w))
+            b = make_initializer(cfg.bias_init_type, n, n, is_bias=True)(gen, (n,), device)
+            self.register_parameter(f"b_{i}", nn.Parameter(b))
+        self.out_shapes = [in_shapes[0]]
+
+    def forward(self, ins, compute_dtype):
+        x0 = ins[0].to(compute_dtype)
+        x = x0
+        for i in range(self.num_layers):
+            b = getattr(self, f"b_{i}")
+            if self.k and self.k > 0:
+                xv = dense(x, getattr(self, f"U_{i}"), None, compute_dtype).to(compute_dtype)
+                wx = dense(xv, getattr(self, f"V_{i}"), b, compute_dtype)
+                x = (x0 * wx.to(compute_dtype) + x).to(compute_dtype)
+            else:
+                xw = torch.matmul(x, getattr(self, f"w_{i}").to(compute_dtype)).float()
+                x = (x0 * xw.unsqueeze(1).to(compute_dtype) + b.to(compute_dtype) + x).to(compute_dtype)
+        return [x]

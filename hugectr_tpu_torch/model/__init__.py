@@ -1,0 +1,1 @@
+"""model of hugectr_tpu_torch (see the package docstring)."""

@@ -1,0 +1,270 @@
+"""High-level Model API: add / compile / train (counterpart of
+hugectr_tpu/model/model.py: `Model.__init__`/`add`/`compile` :152-498,
+`train_step` :787-883, `train`/`train_async` :1253/:1257).
+
+The JAX package jits the whole iteration; here the step runs eagerly:
+
+1. the embedding forward under `no_grad`;
+2. the dense network on detached embedding outputs that require grad;
+   `loss.backward()` gives the dense gradients and, as the outputs'
+   `.grad`, the embedding cotangents (the JAX package's `value_and_grad`
+   with respect to both, model.py:846);
+3. the dense AdaGrad update, in place;
+4. the fused embedding backward and sparse update, in place.
+
+Eval, fit, snapshots, i64 key folding, callbacks and the file readers wait
+for later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.config import DataReaderParams, DenseLayer, Input, Solver
+from ..core.mesh import DeviceLike, ResourceManager
+from ..core.types import DataReaderType_t
+from ..data.reader import BatchSpec, SparseFeatureSpec, SyntheticReader
+from ..embedding.collection import EmbeddingCollection
+from ..embedding.config import EmbeddingCollectionConfig
+from ..layers.network import Network
+from ..optim.dense import DenseOptimizer
+from ..optim.lr_schedule import LearningRateScheduler
+from ..optim.params import OptParams
+from ..parallel.plan import LookupConfig, ShardingPlan, compile_plan
+
+
+@dataclasses.dataclass
+class _KeySource:
+    param_name: str
+    col_begin: int
+    col_end: int
+
+
+class Model:
+    """add() / compile() / train() (model.py:149). The model lives on
+    `resource_manager.device`, or on `device` (default: the card)."""
+
+    def __init__(
+        self,
+        solver: Solver,
+        reader_params: Optional[DataReaderParams],
+        optimizer: OptParams,
+        resource_manager: Optional[ResourceManager] = None,
+        device: DeviceLike = None,
+    ):
+        self.solver = solver
+        self.reader_params = reader_params
+        self.opt_params = optimizer
+        self.rm = resource_manager or ResourceManager.create(device=device)
+        self.device = self.rm.device
+        self.input: Optional[Input] = None
+        self.dense_layers: List[DenseLayer] = []
+        self.ebc_configs: List[EmbeddingCollectionConfig] = []
+        self._step = 0
+        self.lr_sch = LearningRateScheduler(
+            base_lr=solver.lr,
+            warmup_steps=solver.warmup_steps,
+            decay_start=solver.decay_start,
+            decay_steps=solver.decay_steps,
+            decay_power=solver.decay_power,
+            end_lr=solver.end_lr,
+        )
+
+    def add(self, obj: Any) -> None:
+        if isinstance(obj, Input):
+            if self.input is not None:
+                raise ValueError("only one Input supported")
+            self.input = obj
+        elif isinstance(obj, EmbeddingCollectionConfig):
+            self.ebc_configs.append(obj)
+        elif isinstance(obj, DenseLayer):
+            self.dense_layers.append(obj)
+        else:
+            raise TypeError(f"cannot add {type(obj)}")
+
+    # -------------------------------------------------------------- compile
+    def compile(self) -> None:
+        if self.input is None:
+            raise ValueError("model needs an Input")
+        s = self.solver
+        if s.use_mixed_precision or s.embedding_vec_dtype not in ("float32", "fp32"):
+            raise NotImplementedError("bf16 and mixed precision are not ported yet (ROADMAP Queue 1 item 2)")
+        if s.i64_input_key:
+            raise NotImplementedError("i64 input keys are not ported yet")
+        inp = self.input
+        sparse_specs = tuple(
+            SparseFeatureSpec(name=p.top_name, slot_nnz=tuple(p.per_slot_nnz()))
+            for p in inp.data_reader_sparse_param_array
+        )
+        self.batch_spec = BatchSpec(
+            batch_size=s.batchsize,
+            label_dims=tuple(inp.label_dims()),
+            label_names=tuple(inp.label_names()),
+            dense_dim=inp.dense_dim,
+            dense_name=inp.dense_name,
+            sparse=sparse_specs,
+        )
+        self._sparse_by_name = {f.name: f for f in sparse_specs}
+
+        # ---- embedding plan (model.py:242-411)
+        lookup_cfgs: List[LookupConfig] = []
+        self._key_sources: Dict[str, _KeySource] = {}
+        self._user_tops: Dict[str, List[str]] = {}
+        strategy: List[Tuple[str, List[str]]] = []
+        shard_counts: Dict[str, int] = {}
+        for ebc in self.ebc_configs:
+            for decl in ebc.lookup_decls:
+                feat = self._sparse_by_name.get(decl.bottom_name)
+                if feat is None:
+                    raise ValueError(f"EBC lookup bottom {decl.bottom_name!r} has no sparse input")
+                lid = len(lookup_cfgs)
+                top = f"{decl.top_name}:{lid}"
+                lookup_cfgs.append(
+                    LookupConfig(
+                        lookup_id=lid, table=decl.table, bottom_name=top, top_name=top,
+                        combiner=decl.combiner, max_hotness=feat.total_nnz,
+                    )
+                )
+                self._key_sources[top] = _KeySource(feat.name, 0, feat.total_nnz)
+                self._user_tops.setdefault(decl.top_name, []).append(top)
+            strategy.extend(ebc.sharding_plan().strategy)
+            for name in {n for row in ebc.shard_matrix or [] for n in row}:
+                shard_counts[name] = sum(1 for row in ebc.shard_matrix if name in row)
+        self.ec: Optional[EmbeddingCollection] = None
+        if lookup_cfgs:
+            plan = compile_plan(
+                lookup_cfgs, ShardingPlan(strategy=strategy), num_shards=1,
+                shard_counts=shard_counts, onehot_vocab=s.onehot_vocab, split_vocab=s.split_vocab,
+            )
+            self.ec = EmbeddingCollection(
+                plan, self.rm, self.opt_params, dtype=torch.float32,
+                dense_update_rows=s.dense_update_rows, dense_key_ratio=s.dense_key_ratio,
+            )
+
+        # ---- dense network (model.py:413-435)
+        b = s.batchsize
+        input_shapes: Dict[str, Tuple[int, ...]] = {
+            name: (b, dim) for name, dim in zip(self.batch_spec.label_names, self.batch_spec.label_dims)
+        }
+        input_shapes[inp.dense_name] = (b, inp.dense_dim)
+        if self.ec is not None:
+            for user_top, tops in self._user_tops.items():
+                width = 0
+                for t in tops:
+                    _, lm = self.ec.plan.group_of_lookup(int(t.rsplit(":", 1)[1]))
+                    width += lm.out_end - lm.out_begin
+                input_shapes[user_top] = (b, width)
+        gen = self.rm.generator(s.seed)
+        self.network = Network(
+            self.dense_layers, input_shapes, gen, self.device, label_weights=inp.label_weights
+        )
+
+        # ---- state (model.py:437-460)
+        self.dense_opt = DenseOptimizer(self.opt_params)
+        self.dopt = self.dense_opt.init(self.network.param_tree())
+        self.tables: Dict[str, torch.Tensor] = {}
+        self.eopt: Dict[str, Dict[str, torch.Tensor]] = {}
+        if self.ec is not None:
+            self.tables = self.ec.init(gen)
+            self.eopt = self.ec.init_optimizer(self.tables)
+        self.train_reader = self._make_reader()
+        self._train_iter = None
+
+    def _make_reader(self) -> Optional[SyntheticReader]:
+        rp = self.reader_params
+        if rp is None:
+            return None
+        if rp.data_reader_type != DataReaderType_t.Synthetic:
+            raise NotImplementedError(
+                f"reader {rp.data_reader_type.value} is not ported yet (ROADMAP Queue 1 item 7)"
+            )
+        return SyntheticReader(
+            self.batch_spec,
+            self._slot_vocabs(),
+            num_batches=rp.synthetic_num_batches,
+            alpha=rp.synthetic_alpha,
+            seed=(self.solver.seed or 1234),
+        )
+
+    def _slot_vocabs(self) -> Dict[str, List[int]]:
+        """Per-slot key bounds of the synthetic reader (model.py:639)."""
+        vocabs = {f.name: [1000] * f.slot_num for f in self.batch_spec.sparse}
+        if self.ec is not None:
+            for top, ks in self._key_sources.items():
+                vocab = int(self.ec.plan.lookups[int(top.rsplit(":", 1)[1])].table.vocabulary_size)
+                f = self._sparse_by_name[ks.param_name]
+                col = 0
+                for si, nnz in enumerate(f.slot_nnz):
+                    if col == ks.col_begin:
+                        vocabs[f.name][si] = max(vocab, 2)
+                        break
+                    col += nnz
+        return vocabs
+
+    # ------------------------------------------------------------ training
+    def _put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for k, v in batch.items()}
+
+    def start_data_reading(self) -> None:
+        """Synthetic batches are made once, kept on the device and cycled,
+        as the JAX package does (model.py:1213-1228)."""
+        if self._train_iter is not None:
+            return
+        if self.train_reader is None:
+            raise ValueError("model has no reader")
+        it = iter(self.train_reader)
+        batches = [self._put_batch(next(it)) for _ in range(self.train_reader.num_batches)]
+        self._train_iter = itertools.cycle(batches)
+
+    def _feature_keys(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {
+            top: batch[ks.param_name][:, ks.col_begin : ks.col_end]
+            for top, ks in self._key_sources.items()
+        }
+
+    def _user_tensors(self, emb_outs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {
+            user_top: emb_outs[tops[0]] if len(tops) == 1 else torch.cat([emb_outs[t] for t in tops], dim=1)
+            for user_top, tops in self._user_tops.items()
+        }
+
+    def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One iteration on a device batch; returns the loss tensor without
+        waiting for the device (model.py:787-883)."""
+        ec = self.ec
+        step = self._step + 1
+        lr = torch.tensor(float(self.lr_sch(step)), dtype=torch.float32, device=self.device)
+        feature_keys = self._feature_keys(batch) if ec is not None else {}
+        emb_in: Dict[str, torch.Tensor] = {}
+        if ec is not None:
+            with torch.no_grad():
+                emb_outs = ec.forward(self.tables, feature_keys)
+            emb_in = {k: v.detach().requires_grad_(True) for k, v in emb_outs.items()}
+        tensors = {
+            n: batch[n] for n in (*self.batch_spec.label_names, self.batch_spec.dense_name)
+        }
+        tensors.update(self._user_tensors(emb_in))
+        loss, _ = self.network.forward_with_loss(tensors, self.solver.compute_dtype)
+        loss.backward()
+        params = self.network.param_tree()
+        self.dense_opt.update(params, self.dopt, lr)
+        self.network.zero_grad(set_to_none=True)
+        if ec is not None:
+            egrads = {k: v.grad for k, v in emb_in.items()}
+            with torch.no_grad():
+                ec.backward_and_update(self.tables, self.eopt, feature_keys, egrads, lr, step)
+        self._step = step
+        return loss.detach()
+
+    def train_async(self) -> torch.Tensor:
+        """One training iteration; returns the device loss (model.py:1257)."""
+        self.start_data_reading()
+        return self.train_step(next(self._train_iter))
+
+    def train(self) -> float:
+        """One training iteration; returns the loss (model.py:1253)."""
+        return float(self.train_async())

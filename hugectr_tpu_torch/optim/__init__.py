@@ -1,0 +1,1 @@
+"""optim of hugectr_tpu_torch (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""parallel of hugectr_tpu_torch (see the package docstring)."""

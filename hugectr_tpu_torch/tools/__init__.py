@@ -1,0 +1,1 @@
+"""tools of hugectr_tpu_torch (see the package docstring)."""

@@ -1,0 +1,102 @@
+"""Trace the flagship training step on the card and break its time down.
+
+Usage (on a machine with a card, from the repo root):
+
+    python -m hugectr_tpu_torch.tools.trace_step [--batch 16384] [--steps 3] [--out DIR]
+
+Builds the full-width DLRM-DCNv2 (`build_dlrm_dcnv2`, 26 tables, ev 128,
+vocab_cap 2M, rowwise AdaGrad), runs 2 warm-up steps, then traces `--steps`
+steps with `torch.profiler`. Prints one JSON line: ms per step (host clock
+around synchronised steps), device busy ms per step (sum of kernel and copy
+times), the device idle share, and device ms per step by category and by
+kernel name (top 25). With `--out`, also writes the Chrome trace there.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import time
+
+import torch
+
+CATEGORIES = (
+    ("onehot_fwd", ("onehot_fwd",)),
+    ("onehot_bwd", ("onehot_bwd", "cast_to_bf16")),
+    ("segscan", ("chunk_scan", "carry_scan", "chunk_fixup")),
+    ("gemm", ("gemm", "sm90", "sm80", "cutlass", "cublas", "splitk", "xmma")),
+    ("sort", ("sort", "radix")),
+    ("index", ("index", "scatter", "gather", "embedding")),
+    ("reduce", ("reduce",)),
+    ("copy", ("memcpy", "memset", "copy")),
+)
+
+
+def category(name: str) -> str:
+    low = name.lower()
+    for cat, keys in CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "elementwise/other"
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=16384)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--out", default="")
+    args = ap.parse_args()
+
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools.flagship import build_dlrm_dcnv2
+
+    model = build_dlrm_dcnv2(
+        ResourceManager.create(), batchsize=args.batch, vocab_cap=2_000_000,
+        synthetic_batches=args.steps + 2,
+    )
+    for _ in range(2):
+        model.train()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            model.train()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    # device-side rows only (kernels, copies, memsets): the CPU-side rows
+    # carry the same device time again as the kernels they launched
+    kernels = collections.Counter()
+    n_events = 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[evt.key] += evt.self_device_time_total / 1e3 / args.steps
+            n_events += evt.count
+    busy = sum(kernels.values())
+    cats = collections.Counter()
+    for name, ms in kernels.items():
+        cats[category(name)] += ms
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    ).stdout.strip()
+    out = dict(
+        card=card, batch=args.batch, steps=args.steps, ms_per_step=wall_ms,
+        device_events=n_events, device_busy_ms_per_step=busy,
+        device_idle_share=max(0.0, 1.0 - busy / wall_ms),
+        by_category_ms=dict(cats.most_common()),
+        top_kernels_ms=dict(kernels.most_common(25)),
+        routes=dict(model.ec.group_routes),
+    )
+    print(json.dumps(out), flush=True)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.out, "trace_step.json"))
+        with open(os.path.join(args.out, "trace_step_summary.json"), "w") as f:
+            json.dump(out, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()
