@@ -14,7 +14,14 @@ Each phase prints one JSON line with its own seconds:
    tolerance, and the kernel's, the plain version's and one PyTorch library
    call's times (CUDA events, median of 20 samples of 5 calls, after
    warm-up), with the bound the card's memory rate or float32 rate puts on
-   the same work.
+   the same work. `device_ms` is the kernel's device time per call from
+   `torch.profiler` over 20 calls, summing the kernel's own launches
+   (`hugectr_tpu_torch/tools/devtime.py`); the fraction of the bound is
+   judged on it. Then
+   the edge cases of the designs: every one-hot key on one row, V at the
+   backward's shared-memory tile edges, all padding, accumulation into a
+   caller's buffers; segscan over one segment, all heads, K at a tile's
+   edges, K below a tile and K = 0, and two runs compared bitwise.
 3. "tiny_parity": the tiny DLRM-DCNv2 trained 3 steps on the card (kernels)
    and on the CPU (plain versions) from the same state: losses and tables
    must agree.
@@ -26,7 +33,8 @@ Each phase prints one JSON line with its own seconds:
    (median of steps 2-6), peak device memory and each group's update route.
 
 Then a "kernels" JSON line (per kernel: source, the TPU kernel it replaces,
-main-path launches, error, ms, plain_ms, bound_ms, bound_by, library_ms), a
+main-path launches, error, ms, device_ms, plain_ms, bound_ms, bound_by,
+library_ms, for the float32 flagship case with the most device time), a
 line with the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that line;
 so does a machine without CUDA.
@@ -50,8 +58,6 @@ ALPHA = 1.05
 # float32 sums in another order (atomics for the backward); bfloat16 adds
 # one rounding of the output (2^-8 relative)
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
-
-
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -107,7 +113,10 @@ def power_law(rng, vocab, size):
 
 def kernel_checks(torch, results):
     """Phase 2: each kernel against its plain version at the flagship's
-    shapes (one-hot: tables 3, 24 and 5; segscan: table 21's K)."""
+    shapes (one-hot: tables 3, 24 and 5; segscan: table 21's K), then the
+    edge cases of the designs."""
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+
     import numpy as np
     import torch.nn.functional as F
 
@@ -134,14 +143,16 @@ def kernel_checks(torch, results):
             abs_err = float((got.float() - want.float()).abs().max())
             keys_l = keys.long()
             b_ms, b_by = bound(keys.numel() * 4 + uniq * E * isz + B * E * isz, B * h * E)
+            dms, per_call = device_ms(lambda: oh.onehot_matmul_fwd(keys, table), KERNEL_NAMES["onehot_fwd"])
             rec = dict(
                 kernel="onehot_fwd", case=name, dtype=dname, B=B, V=v, h=h, E=E,
                 scaled_err=err, max_abs_err=abs_err, tol=TOL[dname],
                 ms=time_ms(lambda: oh.onehot_matmul_fwd(keys, table)),
+                device_ms=dms, device_launches_per_call=per_call,
                 plain_ms=time_ms(lambda: oh.onehot_matmul_fwd_plain(keys, table)),
                 library_ms=time_ms(lambda: F.embedding_bag(keys_l, table, mode="sum")),
                 library="torch.nn.functional.embedding_bag(mode='sum')",
-                bound_ms=b_ms, bound_by=b_by,
+                bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms,
             )
             results.append(rec)
             # backward
@@ -153,18 +164,24 @@ def kernel_checks(torch, results):
             d_rep = d.repeat_interleave(h, dim=0)
             flat = keys_l.reshape(-1)
             b_ms, b_by = bound(keys.numel() * 4 + B * E * isz + v * E * isz + v * 4, B * h * E)
+            dms, per_call = device_ms(lambda: oh.onehot_matmul_bwd(keys, d, v, dt), KERNEL_NAMES["onehot_bwd"])
+
+            def library():
+                return torch.zeros((v, E), dtype=dt, device=dev).index_add_(0, flat, d_rep)
+
             rec2 = dict(
                 kernel="onehot_bwd", case=name, dtype=dname, B=B, V=v, h=h, E=E,
+                route=oh.bwd_route(B, h, v, E, dev),
                 scaled_err=scaled_err(grad, want_g, scale_g),
                 max_abs_err=float((grad.float() - want_g.float()).abs().max()),
                 counts_exact=cnt_ok, tol=TOL[dname],
                 ms=time_ms(lambda: oh.onehot_matmul_bwd(keys, d, v, dt)),
+                device_ms=dms, device_launches_per_call=per_call,
                 plain_ms=time_ms(lambda: oh.onehot_matmul_bwd_plain(keys, d, v, dt)),
-                library_ms=time_ms(
-                    lambda: torch.zeros((v, E), dtype=dt, device=dev).index_add_(0, flat, d_rep)
-                ),
-                library="Tensor.index_add_ (grad only)",
-                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(library),
+                library_device_ms=device_ms(library, KERNEL_NAMES["index_add_"])[0],
+                library="Tensor.index_add_ (grad only; library_device_ms: the index_add_ kernel)",
+                bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms,
             )
             results.append(rec2)
             rec2["seconds"] = rec["seconds"] = time.perf_counter() - t0
@@ -190,8 +207,70 @@ def kernel_checks(torch, results):
                   counts_exact=bool(torch.equal(c, wc))))
         if not (e1 <= TOL["float32"] and e2 <= TOL["float32"] and torch.equal(c, wc)):
             raise AssertionError(f"one-hot kernel disagrees on padded keys (V={v}, h={h})")
+    onehot_bwd_edges(torch, np, rng, oh, dev)
+    segscan_checks(torch, np, rng, ss, dev, results)
 
-    # segmented scan at the largest sorted-route K (table 21: 16384 x 27)
+
+def onehot_bwd_edges(torch, np, rng, oh, dev):
+    """The backward's edge cases: every key on one row, V one below, at and
+    one above the privatised route's shared-memory limit, the engine's
+    largest table, all padding, bfloat16 output, accumulation into a
+    caller's buffers."""
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+
+    vt = oh.bwd_tile_rows(E, dev)
+    cases = [("one_row", np.full((B, 40), 5, np.int32), 108, torch.float32)]
+    # V one below and at the most rows the privatised route holds in shared
+    # memory, and one above (global route)
+    for v in (vt - 1, vt, vt + 1):
+        cases.append((f"V{v}_h40", power_law(rng, v, (B, 40)).astype(np.int32), v, torch.float32))
+    # the engine's largest table (global route) at high and low hotness
+    for hh in (128, 2):
+        cases.append((f"V8192_h{hh}", power_law(rng, 8192, (B, hh)).astype(np.int32), 8192,
+                      torch.float32))
+    cases.append(("all_padding", np.full((B, 3), -1, np.int32), 100, torch.float32))
+    cases.append(("one_row_bf16", np.full((B, 40), 5, np.int32), 108, torch.bfloat16))
+    for name, keys_np, v, dt in cases:
+        keys = torch.as_tensor(keys_np, device=dev)
+        d = torch.as_tensor(rng.standard_normal((B, E), dtype=np.float32), device=dev).to(dt)
+        g, c = oh.onehot_matmul_bwd(keys, d, v, dt)
+        wg, wc = oh.onehot_matmul_bwd_plain(keys, d, v, dt)
+        sg, _ = oh.onehot_matmul_bwd_plain(keys, d.float().abs(), v, torch.float32)
+        dname = str(dt).split(".")[1]
+        rec = dict(kernel="onehot_bwd", case=name, dtype=dname, B=B, V=v, h=keys_np.shape[1],
+                   tile_rows=vt, route=oh.bwd_route(B, keys_np.shape[1], v, E, dev),
+                   scaled_err=scaled_err(g, wg, sg), tol=TOL[dname],
+                   counts_exact=bool(torch.equal(c, wc)), dtype_ok=g.dtype == dt,
+                   device_ms=device_ms(lambda: oh.onehot_matmul_bwd(keys, d, v, dt),
+                                       KERNEL_NAMES["onehot_bwd"])[0])
+        emit(rec)
+        if not (rec["scaled_err"] <= TOL[dname] and rec["counts_exact"] and rec["dtype_ok"]):
+            raise AssertionError(f"onehot_bwd edge case disagrees: {rec}")
+    # accumulation into slices of a caller's buffers, as the collection does
+    v, off = 3000, 500
+    keys = torch.as_tensor(power_law(rng, v, (B, 6)).astype(np.int32), device=dev)
+    d = torch.as_tensor(rng.standard_normal((B, E), dtype=np.float32), device=dev)
+    base = torch.as_tensor(rng.standard_normal((off + v + 9, E), dtype=np.float32), device=dev)
+    cbase = torch.arange(off + v + 9, dtype=torch.float32, device=dev)
+    grad, cnt = base.clone(), cbase.clone()
+    oh.onehot_matmul_bwd(keys, d, v, torch.float32, out=grad[off : off + v], cnt_out=cnt[off : off + v])
+    wg, wc = oh.onehot_matmul_bwd_plain(keys, d, v, torch.float32)
+    sg, _ = oh.onehot_matmul_bwd_plain(keys, d.abs(), v, torch.float32)
+    err = scaled_err(grad[off : off + v] - base[off : off + v], wg, sg + base[off : off + v].abs())
+    untouched = bool(torch.equal(grad[:off], base[:off]) and torch.equal(grad[off + v :], base[off + v :]))
+    cnt_ok = bool(torch.equal(cnt[off : off + v], cbase[off : off + v] + wc)
+                  and torch.equal(cnt[:off], cbase[:off]))
+    emit(dict(kernel="onehot_bwd", case="accumulate_into_slice", V=v, scaled_err=err,
+              counts_exact=cnt_ok, rest_untouched=untouched))
+    if not (err <= TOL["float32"] and cnt_ok and untouched):
+        raise AssertionError("onehot_bwd accumulation into a caller's slice disagrees")
+
+
+def segscan_checks(torch, np, rng, ss, dev, results):
+    """segscan at the largest sorted-route K (table 21: 16384 x 27), then
+    its edge cases and two runs compared bitwise."""
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+
     k = B * 27
     seg = np.sort(power_law(rng, 2_000_000, k))
     heads = torch.as_tensor(np.concatenate([[True], seg[1:] != seg[:-1]]), device=dev)
@@ -205,19 +284,45 @@ def kernel_checks(torch, results):
         torch.cuda.synchronize()
         isz = vals.element_size()
         b_ms, b_by = bound(2 * k * E * isz + k, k * E)
+        dms, per_call = device_ms(lambda: ss.segmented_sum_sorted(vals, heads), KERNEL_NAMES["segscan"])
+        repeat_equal = all(torch.equal(ss.segmented_sum_sorted(vals, heads), got) for _ in range(2))
         rec = dict(
             kernel="segscan", case="K442368", dtype=dname, K=k, E=E,
             segments=int(heads.sum()), scaled_err=scaled_err(got, want, scale),
             max_abs_err=float((got.float() - want.float()).abs().max()), tol=TOL[dname],
+            bitwise_repeat=repeat_equal,
             ms=time_ms(lambda: ss.segmented_sum_sorted(vals, heads)),
+            device_ms=dms, device_launches_per_call=per_call,
             plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(vals, heads)),
             library_ms=None, library="none: no single PyTorch call computes a segmented scan",
-            bound_ms=b_ms, bound_by=b_by, seconds=time.perf_counter() - t0,
+            bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms,
+            seconds=time.perf_counter() - t0,
         )
         results.append(rec)
         emit(rec)
-        if not rec["scaled_err"] <= TOL[dname]:
+        if not (rec["scaled_err"] <= TOL[dname] and repeat_equal):
             raise AssertionError(f"segscan disagrees with its plain version: {rec}")
+    t = ss.tile_rows()
+    one_seg = np.zeros(k, bool)
+    one_seg[0] = True
+    cases = [("one_segment", one_seg), ("all_heads", np.ones(k, bool))]
+    for kk in (t - 1, t + 1, 17, 0):
+        seg = np.sort(rng.integers(0, max(kk // 3, 1), kk))
+        cases.append((f"K{kk}", np.concatenate([[True], seg[1:] != seg[:-1]])[:kk]))
+    for name, heads_np in cases:
+        hd = torch.as_tensor(heads_np, device=dev)
+        vals = torch.as_tensor(rng.standard_normal((len(heads_np), E), dtype=np.float32), device=dev)
+        got = ss.segmented_sum_sorted(vals, hd)
+        err = scaled_err(got, ss.segmented_sum_sorted_plain(vals, hd),
+                         ss.segmented_sum_sorted_plain(vals.abs(), hd))
+        rec = dict(kernel="segscan", case=name, K=len(heads_np), E=E, scaled_err=err,
+                   tol=TOL["float32"], shape_ok=tuple(got.shape) == tuple(vals.shape),
+                   bitwise_repeat=bool(torch.equal(ss.segmented_sum_sorted(vals, hd), got)))
+        if len(heads_np) == k:
+            rec["device_ms"] = device_ms(lambda: ss.segmented_sum_sorted(vals, hd), KERNEL_NAMES["segscan"])[0]
+        emit(rec)
+        if not (err <= TOL["float32"] and rec["shape_ok"] and rec["bitwise_repeat"]):
+            raise AssertionError(f"segscan edge case disagrees: {rec}")
 
 
 def tiny_parity(torch):
@@ -318,13 +423,14 @@ def main() -> int:
     }
     kernels = []
     for name, (src, replaces) in sources.items():
-        # the line reports the float32 case with the largest working set
-        r = next(x for x in results if x["kernel"] == name and x["dtype"] == "float32")
+        # the float32 flagship case that costs the step most device time
+        r = max((x for x in results if x["kernel"] == name and x["dtype"] == "float32"),
+                key=lambda x: x["device_ms"])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=launches[name],
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
-            case=r["case"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], case=r["case"],
         ))
     emit({"kernels": kernels})
     print(card, flush=True)

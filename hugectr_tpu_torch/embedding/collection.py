@@ -253,10 +253,12 @@ class EmbeddingCollection:
     def _onehot_grad(
         self, gname: str, table_dtype, keys: torch.Tensor, d_group: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Dense [R, E] gradient + [R] touch counts (collection.py:1407)."""
+        """Dense [R, E] gradient + [R] touch counts (collection.py:1407).
+        Each table's kernel adds into its rows of the group's float32
+        buffers, which are zeroed once per group."""
         g = self._meta[gname].plan
         valid, local_row = self._slot_placement(gname, keys)
-        grad = torch.zeros((g.total_local_rows, g.ev_size), dtype=table_dtype, device=self.device)
+        grad = torch.zeros((g.total_local_rows, g.ev_size), dtype=torch.float32, device=self.device)
         colsum = torch.zeros((g.total_local_rows,), dtype=torch.float32, device=self.device)
         for lm in g.lookups:
             off = int(g.local_offsets[lm.table_index])
@@ -265,10 +267,11 @@ class EmbeddingCollection:
             d = d_group[:, lm.out_begin : lm.out_end].to(table_dtype)
             if lm.combiner == Combiner_t.Mean:
                 d = d / self._count(valid[:, lm.slot_begin : lm.slot_end], d.dtype)
-            ge, cnt = onehot_matmul_bwd(k_rel, d.contiguous(), v, table_dtype)
-            grad[off : off + v] += ge
-            colsum[off : off + v] += cnt
-        return grad, colsum
+            onehot_matmul_bwd(
+                k_rel, d.contiguous(), v, torch.float32,
+                out=grad[off : off + v], cnt_out=colsum[off : off + v],
+            )
+        return grad.to(table_dtype), colsum
 
     def _grad_source(self, g: GroupPlan, d_out: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         """[B, W] output grads -> compact gradient source [B*S, E]: one row

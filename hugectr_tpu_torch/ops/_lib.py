@@ -31,13 +31,22 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_I64 = ctypes.c_int64
+# name: (argument types, return type)
 _SIGNATURES = {
-    # dtype, vals, heads, out, carry, carry_in, has_head, k, e, chunk, stream
-    "hctr_segscan": [_I, _P, _P, _P, _P, _P, _P, ctypes.c_int64, _I, _I, _P],
+    # dtype, vals, heads, out, scratch, k, e, vec, stream
+    "hctr_segscan": ([_I, _P, _P, _P, _P, _I64, _I, _I, _P], _I),
+    # k, e -> scratch bytes (-1: e too wide)
+    "hctr_segscan_scratch_bytes": ([_I64, _I], _I64),
+    "hctr_segscan_tile_rows": ([], _I),
     # dtype, keys, table, out, b, h, v, e, vec, stream
-    "hctr_onehot_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # d_dtype, keys, d, grad32, cnt, out_bf16, b, h, v, e, vec, stream
-    "hctr_onehot_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "hctr_onehot_fwd": ([_I, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    # d_dtype, keys, d, grad32, cnt, out_bf16, b, h, v, e, accumulate, stream
+    "hctr_onehot_bwd": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    # e -> rows of one backward tile
+    "hctr_onehot_bwd_tile_rows": ([_I], _I),
+    # b, h, v, e -> 1 when the backward takes its privatised route
+    "hctr_onehot_bwd_privatised": ([_I, _I, _I, _I], _I),
 }
 
 _lock = threading.Lock()
@@ -102,10 +111,10 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
+            for name, (argtypes, restype) in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = restype
             _lib = lib
     return _lib
 
@@ -118,6 +127,13 @@ def check(rc: int, what: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def vec_width(e: int, *tensors: torch.Tensor) -> int:
+    """4 when every row starts on a 4-element boundary (one 16-byte f32 or
+    8-byte bf16 access per lane), else 1."""
+    ok = e % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
+    return 4 if ok else 1
 
 
 def require(cond: bool, msg: str) -> None:

@@ -6,7 +6,8 @@ unit; on the card the same functions are a gather-pool and a scatter-add
 (csrc/onehot_matmul.cu; see its note for bounds and design). Keys are
 table-local rows; a key outside [0, V) is padding. The plain PyTorch versions
 beside the kernels serve the CPU and the checks on the card; a CUDA tensor
-always takes the kernel.
+always takes the kernel. The backward can add into a caller's float32
+buffers (`out=`, `cnt_out=`), so a group of tables zeroes its gradient once.
 
     forward:   out[b, :] = sum_h [0 <= keys[b,h] < V] * table[keys[b,h], :]
     backward:  grad[v, :] = sum_{b,h} [keys[b,h] == v] * d[b, :]
@@ -14,7 +15,7 @@ always takes the kernel.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,7 +33,8 @@ def onehot_matmul_fwd_plain(keys: torch.Tensor, table: torch.Tensor) -> torch.Te
 
 
 def onehot_matmul_bwd_plain(
-    keys: torch.Tensor, d: torch.Tensor, vocab: int, out_dtype: torch.dtype
+    keys: torch.Tensor, d: torch.Tensor, vocab: int, out_dtype: torch.dtype,
+    out: Optional[torch.Tensor] = None, cnt_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, h = keys.shape
     flat = keys.reshape(-1)
@@ -42,14 +44,9 @@ def onehot_matmul_bwd_plain(
     grad = torch.zeros((vocab, d.shape[1]), dtype=torch.float32, device=d.device)
     grad.index_add_(0, kk, d.float()[src])
     cnt = torch.bincount(kk, minlength=vocab).float()
-    return grad.to(out_dtype), cnt
-
-
-def _vec(e: int, *tensors: torch.Tensor) -> int:
-    """4 when every row starts on a 4-element boundary (one 16-byte f32 or
-    8-byte bf16 access per lane), else 1."""
-    ok = e % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
-    return 4 if ok else 1
+    if out is None:
+        return grad.to(out_dtype), cnt
+    return out.add_(grad), cnt_out.add_(cnt)
 
 
 def _check_keys(keys: torch.Tensor) -> None:
@@ -78,18 +75,34 @@ def onehot_matmul_fwd(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(table.device):
         rc = lib.hctr_onehot_fwd(
             _lib.DTYPE_CODE[table.dtype], keys.data_ptr(), table.data_ptr(), out.data_ptr(),
-            b, h, v, e, _vec(e, table, out), _lib.stream_of(table),
+            b, h, v, e, _lib.vec_width(e, table, out), _lib.stream_of(table),
         )
     _lib.check(rc, "onehot_fwd")
     LAUNCHES["onehot_fwd"] += 1
     return out
 
 
+
+
+def bwd_tile_rows(e: int, device: torch.device) -> int:
+    """Table rows one block of the CUDA backward holds at width `e`."""
+    with torch.cuda.device(device):
+        return _lib.library().hctr_onehot_bwd_tile_rows(e)
+
+
+def bwd_route(b: int, h: int, vocab: int, e: int, device: torch.device) -> str:
+    """The CUDA backward's route for a shape: "privatised" or "global"."""
+    with torch.cuda.device(device):
+        return "privatised" if _lib.library().hctr_onehot_bwd_privatised(b, h, vocab, e) else "global"
+
+
 def onehot_matmul_bwd(
-    keys: torch.Tensor, d: torch.Tensor, vocab: int, out_dtype: torch.dtype
+    keys: torch.Tensor, d: torch.Tensor, vocab: int, out_dtype: torch.dtype,
+    out: Optional[torch.Tensor] = None, cnt_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weight gradient and touch counts: [B, h] keys x [B, E] cotangents ->
-    (grad [V, E] in `out_dtype`, cnt [V] f32)."""
+    (grad [V, E] in `out_dtype`, cnt [V] f32). Given `out` and `cnt_out`
+    (contiguous float32 [V, E] and [V]), adds into them and returns them."""
     _check_keys(keys)
     _lib.require(
         d.dim() == 2 and d.shape[0] == keys.shape[0] and d.dtype in _lib.DTYPE_CODE,
@@ -97,25 +110,36 @@ def onehot_matmul_bwd(
     )
     _lib.require(out_dtype in _lib.DTYPE_CODE, f"out_dtype {out_dtype} not f32/bf16")
     _lib.require(keys.device == d.device, "keys and d on different devices")
+    e = d.shape[1]
+    _lib.require((out is None) == (cnt_out is None), "give both out and cnt_out, or neither")
+    if out is not None:
+        _lib.require(
+            out_dtype == torch.float32 and out.dtype == torch.float32
+            and tuple(out.shape) == (vocab, e) and out.is_contiguous()
+            and cnt_out.dtype == torch.float32 and tuple(cnt_out.shape) == (vocab,)
+            and cnt_out.is_contiguous() and out.device == d.device == cnt_out.device,
+            f"out/cnt_out must be contiguous float32 [{vocab}, {e}] / [{vocab}] on {d.device}",
+        )
     if d.device.type == "cpu":
         PLAIN_CALLS["onehot_bwd"] += 1
-        return onehot_matmul_bwd_plain(keys, d, vocab, out_dtype)
+        return onehot_matmul_bwd_plain(keys, d, vocab, out_dtype, out, cnt_out)
     _lib.require(d.device.type == "cuda", f"unsupported device {d.device}")
     _lib.require(keys.is_contiguous() and d.is_contiguous(), "inputs must be contiguous")
     b, h = keys.shape
-    e = d.shape[1]
-    grad32 = torch.zeros((vocab, e), dtype=torch.float32, device=d.device)
-    cnt = torch.zeros((vocab,), dtype=torch.float32, device=d.device)
-    out = grad32
+    accumulate = out is not None
+    if not accumulate:  # the launcher zeroes them
+        out = torch.empty((vocab, e), dtype=torch.float32, device=d.device)
+        cnt_out = torch.empty((vocab,), dtype=torch.float32, device=d.device)
+    grad = out
     if out_dtype == torch.bfloat16:
-        out = torch.empty((vocab, e), dtype=torch.bfloat16, device=d.device)
+        grad = torch.empty((vocab, e), dtype=torch.bfloat16, device=d.device)
     lib = _lib.library()
     with torch.cuda.device(d.device):
         rc = lib.hctr_onehot_bwd(
-            _lib.DTYPE_CODE[d.dtype], keys.data_ptr(), d.data_ptr(), grad32.data_ptr(),
-            cnt.data_ptr(), out.data_ptr() if out is not grad32 else None,
-            b, h, vocab, e, _vec(e, d), _lib.stream_of(d),
+            _lib.DTYPE_CODE[d.dtype], keys.data_ptr(), d.data_ptr(), out.data_ptr(),
+            cnt_out.data_ptr(), grad.data_ptr() if grad is not out else None,
+            b, h, vocab, e, int(accumulate), _lib.stream_of(d),
         )
     _lib.check(rc, "onehot_bwd")
     LAUNCHES["onehot_bwd"] += 1
-    return out, cnt
+    return grad, cnt_out

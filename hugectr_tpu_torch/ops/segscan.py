@@ -1,9 +1,10 @@
 """Segmented running sum over rows sorted by segment.
 
 Counterpart of hugectr_tpu/ops/pallas/segscan.py::segmented_sum_sorted. The
-kernel is csrc/segscan.cu (three-phase scan; see its note for the bound and
-design). The plain PyTorch version beside it serves the CPU and the checks on
-the card; a CUDA tensor always takes the kernel.
+kernel is csrc/segscan.cu (single pass with decoupled look-back, bitwise
+deterministic; see its note for the bound and design). The plain PyTorch
+version beside it serves the CPU and the checks on the card; a CUDA tensor
+always takes the kernel.
 
 Contract: ``out[i] = sum(vals[s..i])`` with ``s`` the last head at or before
 ``i`` (row 0 always starts a segment), summed in float32 and stored in
@@ -15,10 +16,6 @@ from __future__ import annotations
 import torch
 
 from . import _lib
-
-# rows per chunk of the kernel's phase (a): K / CHUNK chunk carries go
-# through phase (b)
-CHUNK = 128
 
 LAUNCHES = {"segscan": 0}  # kernel launches (CUDA tensors)
 PLAIN_CALLS = {"segscan": 0}  # plain-version calls (CPU tensors)
@@ -57,17 +54,21 @@ def segmented_sum_sorted(vals: torch.Tensor, heads: torch.Tensor) -> torch.Tenso
     out = torch.empty_like(vals)
     if k == 0 or e == 0:
         return out
-    nc = -(-k // CHUNK)
-    carry = torch.empty((nc, e), dtype=torch.float32, device=vals.device)
-    carry_in = torch.empty_like(carry)
-    has_head = torch.empty((nc,), dtype=torch.uint8, device=vals.device)
     lib = _lib.library()
     with torch.cuda.device(vals.device):
+        nbytes = lib.hctr_segscan_scratch_bytes(k, e)
+        _lib.require(nbytes >= 0, f"segscan: E = {e} is too wide for one tile in shared memory")
+        # tile status flags, aggregates and prefixes; the kernel zeroes the flags
+        scratch = torch.empty((nbytes,), dtype=torch.uint8, device=vals.device)
         rc = lib.hctr_segscan(
             _lib.DTYPE_CODE[vals.dtype], vals.data_ptr(), heads.data_ptr(), out.data_ptr(),
-            carry.data_ptr(), carry_in.data_ptr(), has_head.data_ptr(),
-            k, e, CHUNK, _lib.stream_of(vals),
+            scratch.data_ptr(), k, e, _lib.vec_width(e, vals, out), _lib.stream_of(vals),
         )
     _lib.check(rc, "segscan")
     LAUNCHES["segscan"] += 1
     return out
+
+
+def tile_rows() -> int:
+    """Rows per tile of the CUDA kernel (the card's edge cases are set by it)."""
+    return _lib.library().hctr_segscan_tile_rows()

@@ -22,10 +22,12 @@ import time
 
 import torch
 
+from .devtime import KERNEL_NAMES
+
 CATEGORIES = (
-    ("onehot_fwd", ("onehot_fwd",)),
-    ("onehot_bwd", ("onehot_bwd", "cast_to_bf16")),
-    ("segscan", ("chunk_scan", "carry_scan", "chunk_fixup")),
+    ("onehot_fwd", KERNEL_NAMES["onehot_fwd"]),
+    ("onehot_bwd", KERNEL_NAMES["onehot_bwd"]),
+    ("segscan", KERNEL_NAMES["segscan"]),
     ("gemm", ("gemm", "sm90", "sm80", "cutlass", "cublas", "splitk", "xmma")),
     ("sort", ("sort", "radix")),
     ("index", ("index", "scatter", "gather", "embedding")),

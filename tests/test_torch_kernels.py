@@ -141,6 +141,30 @@ def test_onehot_bwd_plain_matches_pallas_and_xla(b, v, h):
     np.testing.assert_array_equal(cnt.numpy(), xc)
 
 
+@pytest.mark.parametrize("b,v,h", ONEHOT_CASES)
+def test_onehot_bwd_plain_accumulates_into_caller_buffers(b, v, h):
+    """out=/cnt_out=: the Pallas gradient and counts are added into slices of
+    a caller's float32 buffers; the rest of the buffers stays as it was."""
+    rng = np.random.default_rng(20 * v + h)
+    keys = _keys(rng, b, h, v)
+    d = rng.normal(size=(b, 16)).astype(np.float32)
+    pg, pc = j_bwd(jnp.asarray(keys), jnp.asarray(d), v, jnp.float32, vb=min(512, ((v + 127) // 128) * 128))
+    off = 5
+    base = rng.normal(size=(off + v + 3, 16)).astype(np.float32)
+    cbase = np.arange(off + v + 3, dtype=np.float32)
+    grad, cnt = torch.from_numpy(base.copy()), torch.from_numpy(cbase.copy())
+    g, c = oh.onehot_matmul_bwd(torch.from_numpy(keys), torch.from_numpy(d), v, torch.float32,
+                                out=grad[off : off + v], cnt_out=cnt[off : off + v])
+    assert g.data_ptr() == grad[off].data_ptr() and c.data_ptr() == cnt[off].data_ptr()
+    np.testing.assert_allclose(grad.numpy()[off : off + v] - base[off : off + v], np.asarray(pg), **OH_TOL)
+    np.testing.assert_array_equal(cnt.numpy()[off : off + v], cbase[off : off + v] + np.asarray(pc))
+    np.testing.assert_array_equal(grad.numpy()[:off], base[:off])
+    np.testing.assert_array_equal(grad.numpy()[off + v :], base[off + v :])
+    with pytest.raises(ValueError, match="out/cnt_out"):
+        oh.onehot_matmul_bwd(torch.from_numpy(keys), torch.from_numpy(d), v, torch.bfloat16,
+                             out=grad[off : off + v], cnt_out=cnt[off : off + v])
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="int32"):
         oh.onehot_matmul_fwd(torch.zeros((4, 2), dtype=torch.int64), torch.zeros((3, 8)))

@@ -253,6 +253,39 @@ def test_collection_forward_and_update_match_jax(mesh1, monkeypatch, route):
         np.testing.assert_allclose(ts[g]["accum"].numpy(), np.asarray(js[g]["accum"]), **TOL)
 
 
+def test_onehot_grad_accumulates_like_jax_pallas(mesh1, monkeypatch):
+    """The one-hot group's gradient and counts, each table's backward adding
+    into the group's buffers (out=, cnt_out=), against the JAX package's
+    Pallas form (`_onehot_grad_pallas`, interpret mode), sum and mean
+    lookups."""
+    monkeypatch.setenv("HCTR_TPU_ONEHOT_VOCAB", "128")
+    rng = np.random.default_rng(21)
+    b = 64
+    feats = {}
+    for f, (h, v) in {"f0": (3, 57), "f1": (2, 100), "f2": (4, 3000), "f3": (2, 700), "f4": (1, 3000)}.items():
+        k = rng.integers(0, v, size=(b, h)).astype(np.int32)
+        k[rng.random((b, h)) < 0.2] = -1
+        feats[f] = k
+    jpl = jplan.compile_plan(_ec_lookups(jplan, JComb), jplan.ShardingPlan([]), 1)
+    jec = JEC(jpl, mesh1, JOptParams(JOpt.RowWiseAdaGrad))
+    tpl = tplan.compile_plan(_ec_lookups(tplan, TComb), tplan.ShardingPlan([]), 1, onehot_vocab=128)
+    tec = TEC(tpl, CPU, TOptParams(TOpt.RowWiseAdaGrad))
+    jg = next(g for g in jpl.groups if g.compute_kind == "onehot")
+    tg = next(g for g in tpl.groups if g.compute_kind == "onehot")
+    d_group = rng.normal(size=(b, tg.out_width)).astype(np.float32)
+    jgrad, jcnt = jec._onehot_grad_pallas(
+        jg.name, jnp.float32, jec._group_keys(jg, feats), jnp.asarray(d_group)
+    )
+    ops.reset_counts()
+    tgrad, tcnt = tec._onehot_grad(
+        tg.name, torch.float32, tec._group_keys(tg, {k: torch.from_numpy(v) for k, v in feats.items()}),
+        torch.from_numpy(d_group),
+    )
+    assert ops.plain_counts()["onehot_bwd"] == len(tg.lookups) == 2
+    np.testing.assert_allclose(tgrad.numpy(), np.asarray(jgrad), **TOL)
+    np.testing.assert_array_equal(tcnt.numpy(), np.asarray(jcnt))
+
+
 # ---------------------------------------------------------------- layers
 def _port_layer(cfg, in_shapes, params):
     layer = TLAYERS[cfg.layer_type](cfg, in_shapes, CPU.generator(0), CPU.device)
