@@ -17,8 +17,13 @@ Each phase prints one JSON line with its own seconds:
    the same work. `device_ms` is the kernel's device time per call from
    `torch.profiler` over 20 calls, summing the kernel's own launches
    (`hugectr_tpu_torch/tools/devtime.py`); the fraction of the bound is
-   judged on it. Then
-   the edge cases of the designs: every one-hot key on one row, V at the
+   judged on it. The grouped one-hot forward at the flagship's 13-table
+   group (keys as int32 column views of one [B, 62] tensor): one launch per
+   call, its times beside the bound and one `embedding_bag` call over the
+   group storage. Then the edge cases of the designs: grouped forward with Sum and Mean
+   lookups, negative and >= V keys, int64 keys >= 2^31, all padding, h 1
+   beside h 128, a one-lookup group against the per-table forward; every
+   one-hot key on one row, V at the
    backward's shared-memory tile edges, all padding, accumulation into a
    caller's buffers; segscan over one segment, all heads, K at a tile's
    edges, K below a tile and K = 0, and two runs compared bitwise.
@@ -29,12 +34,14 @@ Each phase prints one JSON line with its own seconds:
    ev 128, vocab_cap 2,000,000, batch 16,384, rowwise AdaGrad, fp32) built
    with `build_dlrm_dcnv2` and trained 6 `Model.train()` steps. Launch
    counters are set to 0 just before the steps and read just after; every
-   kernel must have launched. Reports the losses (finite), ms/step and ex/s
+   kernel must have launched, `onehot_fwd` exactly once per step (one
+   launch for the one-hot group). Reports the losses (finite), ms/step and ex/s
    (median of steps 2-6), peak device memory and each group's update route.
 
 Then a "kernels" JSON line (per kernel: source, the TPU kernel it replaces,
 main-path launches, error, ms, device_ms, plain_ms, bound_ms, bound_by,
-library_ms, for the float32 flagship case with the most device time), a
+library_ms, for the float32 flagship case with the most device time; for
+`onehot_fwd`, the 13-table group), a
 line with the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that line;
 so does a machine without CUDA.
@@ -207,8 +214,126 @@ def kernel_checks(torch, results):
                   counts_exact=bool(torch.equal(c, wc))))
         if not (e1 <= TOL["float32"] and e2 <= TOL["float32"] and torch.equal(c, wc)):
             raise AssertionError(f"one-hot kernel disagrees on padded keys (V={v}, h={h})")
+    onehot_fwd_group_checks(torch, np, oh, dev, results)
     onehot_bwd_edges(torch, np, rng, oh, dev)
     segscan_checks(torch, np, rng, ss, dev, results)
+
+
+def group_err(torch, oh, keys, lookups, table, width):
+    """Scaled error of one grouped launch against the plain version, and
+    the launches it made."""
+    from hugectr_tpu_torch import ops
+
+    before = ops.launch_counts()["onehot_fwd"]
+    got = oh.onehot_fwd_group(keys, lookups, table, width)
+    launches = ops.launch_counts()["onehot_fwd"] - before
+    want = oh.onehot_fwd_group_plain(keys, lookups, table, width)
+    scale = oh.onehot_fwd_group_plain(keys, lookups, table.float().abs(), width)
+    torch.cuda.synchronize()
+    ok_shape = got.dtype == table.dtype and tuple(got.shape) == (keys[0].shape[0], width)
+    return scaled_err(got, want, scale), float((got.float() - want.float()).abs().max()), launches, ok_shape
+
+
+def onehot_fwd_group_checks(torch, np, oh, dev, results):
+    """The grouped forward at the flagship's one-hot group (13 tables, keys
+    as int32 column views of one [B, 62] tensor), f32 and bf16: error,
+    launches per call (1), times beside the bound and one embedding_bag
+    call over the group; then the edge cases."""
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+    from hugectr_tpu_torch.tools.flagship import onehot_group_inputs
+    from hugectr_tpu_torch.tools.kernel_sweep import embedding_bag_call, group_bytes
+
+    for dt in (torch.float32, torch.bfloat16):
+        t0 = time.perf_counter()
+        dname = str(dt).split(".")[1]
+        keys, lookups, table, width = onehot_group_inputs(np.random.default_rng(11), B, E, dt, dev)
+        err, abs_err, launches, ok_shape = group_err(torch, oh, keys, lookups, table, width)
+        b_ms, b_by = bound(group_bytes(keys, lookups, table, width), B * sum(k.shape[1] for k in keys) * E)
+        call = lambda: oh.onehot_fwd_group(keys, lookups, table, width)  # noqa: E731
+        dms, per_call = device_ms(call, KERNEL_NAMES["onehot_fwd"])
+        lib = embedding_bag_call(keys, lookups, table)
+        rec = dict(
+            kernel="onehot_fwd", case="group13", dtype=dname, B=B, lookups=len(lookups), width=width,
+            routes=[oh.fwd_route(lk.vocab, k.shape[1], E, dev) for k, lk in zip(keys, lookups)],
+            scaled_err=err, max_abs_err=abs_err, tol=TOL[dname], launches_per_call=launches,
+            ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
+            plain_ms=time_ms(lambda: oh.onehot_fwd_group_plain(keys, lookups, table, width)),
+            library_ms=time_ms(lib), library_device_ms=device_ms(lib, KERNEL_NAMES["embedding_bag"])[0],
+            library="one torch.nn.functional.embedding_bag(mode='sum') over the group storage",
+            bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms,
+            seconds=time.perf_counter() - t0,
+        )
+        results.append(rec)
+        emit(rec)
+        if not (err <= TOL[dname] and launches == 1 and per_call == 1 and ok_shape):
+            raise AssertionError(f"grouped one-hot forward disagrees or launched more than once: {rec}")
+    onehot_fwd_group_edges(torch, np, oh, dev)
+
+
+def onehot_fwd_group_edges(torch, np, oh, dev):
+    """Sum and Mean lookups; negative and >= V keys; int64 keys >= 2^31;
+    all padding; h 1 beside h 128; a one-lookup group against the
+    per-table forward; each in f32 and bf16. Every group but h 1 beside
+    h 128 has a lookup on the counts matmul (V <= 128, h >= 16) beside
+    gathered ones; h 1 beside h 128 gathers both (V 1,000)."""
+    rng = np.random.default_rng(5)
+    b = 4096
+
+    def group(spec, int64=False, pad_all=False):
+        cols, lookups, row = [], [], 0
+        for i, (v, h, mean) in enumerate(spec):
+            k = rng.integers(0, v, size=(b, h)).astype(np.int64)
+            r = rng.random((b, h))
+            k[r < 0.1] = -1
+            neg = (r >= 0.1) & (r < 0.2)
+            k[neg] = -rng.integers(2, 5 * v, size=int(neg.sum()))
+            k[(r >= 0.2) & (r < 0.3)] += 3 * v
+            if int64:
+                wide = (r >= 0.3) & (r < 0.45)
+                k[wide] = 2**31 + rng.integers(0, 2**31, size=int(wide.sum()))
+                k[(r >= 0.45) & (r < 0.5)] = 2**32 - 1
+            if pad_all:
+                k[:] = -1
+            cols.append(k)
+            lookups.append(oh.GroupLookup(row, v, i * E, mean))
+            row += v
+        allk = torch.as_tensor(np.concatenate(cols, 1).astype(np.int64 if int64 else np.int32), device=dev)
+        keys, c = [], 0
+        for _v, h, _m in spec:
+            keys.append(allk[:, c : c + h])
+            c += h
+        return keys, lookups, row, len(spec) * E
+
+    cases = {
+        "sum_and_mean": ([(108, 40, True), (7424, 2, False), (3, 1, True), (155, 5, True)], False, False),
+        "negative_and_ge_v": ([(57, 16, False), (2209, 6, True)], False, False),
+        "int64_ge_2^31": ([(108, 40, True), (7424, 2, False), (10, 1, False)], True, False),
+        "all_padding": ([(108, 40, True), (63, 1, False)], False, True),
+        "h1_beside_h128": ([(63, 1, False), (1000, 128, True)], False, False),
+    }
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        for name, (spec, int64, pad_all) in cases.items():
+            keys, lookups, rows, width = group(spec, int64, pad_all)
+            table = torch.as_tensor(rng.standard_normal((rows, E), dtype=np.float32), device=dev).to(dt)
+            err, _a, launches, ok_shape = group_err(torch, oh, keys, lookups, table, width)
+            rec = dict(kernel="onehot_fwd", case=name, dtype=dname,
+                       routes=[oh.fwd_route(lk.vocab, k.shape[1], E, dev) for k, lk in zip(keys, lookups)],
+                       scaled_err=err, tol=TOL[dname], launches=launches, shape_ok=ok_shape)
+            emit(rec)
+            if not (err <= TOL[dname] and launches == 1 and ok_shape):
+                raise AssertionError(f"grouped one-hot forward edge case disagrees: {rec}")
+            if pad_all and not bool((oh.onehot_fwd_group(keys, lookups, table, width) == 0).all()):
+                raise AssertionError("all-padding group is not zero")
+        # a one-lookup group equals the per-table forward (local keys in [-1, V))
+        keys = torch.as_tensor(rng.integers(-1, 108, size=(B, 40)).astype(np.int32), device=dev)
+        table = torch.as_tensor(rng.standard_normal((108, E), dtype=np.float32), device=dev).to(dt)
+        g1 = oh.onehot_fwd_group([keys], [oh.GroupLookup(0, 108, 0, False)], table, E)
+        err = scaled_err(oh.onehot_matmul_fwd(keys, table), g1,
+                         oh.onehot_matmul_fwd_plain(keys, table.float().abs()))
+        emit(dict(kernel="onehot_fwd", case="one_lookup_vs_per_table", dtype=dname, scaled_err=err))
+        if not err <= TOL[dname]:
+            raise AssertionError(f"one-lookup group != per-table forward: {err}")
 
 
 def onehot_bwd_edges(torch, np, rng, oh, dev):
@@ -389,6 +514,8 @@ def main_path(torch):
     missing = [k for k, n in launches.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    if launches["onehot_fwd"] != 6:  # one grouped launch per step
+        raise AssertionError(f"onehot_fwd launched {launches['onehot_fwd']} times in 6 steps, not 6")
     return launches
 
 
@@ -423,8 +550,10 @@ def main() -> int:
     }
     kernels = []
     for name, (src, replaces) in sources.items():
-        # the float32 flagship case that costs the step most device time
-        r = max((x for x in results if x["kernel"] == name and x["dtype"] == "float32"),
+        # the float32 flagship case that costs the step most device time;
+        # for onehot_fwd the step's one launch, the 13-table group
+        r = max((x for x in results if x["kernel"] == name and x["dtype"] == "float32"
+                 and (name != "onehot_fwd" or x["case"] == "group13")),
                 key=lambda x: x["device_ms"])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=launches[name],

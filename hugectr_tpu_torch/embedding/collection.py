@@ -3,8 +3,9 @@ hugectr_tpu/embedding/collection.py, single-device paths).
 
 Each plan group owns one [R, E] storage tensor. Per group:
 
-* "onehot" groups (small tables): the forward pools each lookup with the
-  one-hot forward kernel (`_onehot_fwd`, collection.py:1311-1337); the
+* "onehot" groups (small tables): the forward pools every lookup of the
+  group in one launch of the one-hot forward kernel, placement included
+  (`_onehot_fwd`, collection.py:1311-1337); the
   backward builds the dense gradient and touch counts with the one-hot
   backward kernel (`_onehot_grad_pallas`, :1407-1435) and runs the dense
   optimizer sweep over touched rows (`_onehot_bwd_local`, :1437-1452);
@@ -31,8 +32,8 @@ import numpy as np
 import torch
 
 from ..core.mesh import ResourceManager
-from ..core.types import Combiner_t, INVALID_KEY
-from ..ops.onehot_matmul import onehot_matmul_bwd, onehot_matmul_fwd
+from ..core.types import Combiner_t
+from ..ops.onehot_matmul import GroupLookup, onehot_fwd_group, onehot_matmul_bwd, place_keys
 from ..optim.params import OptParams
 from ..parallel.plan import CompiledEmbeddingPlan, GroupPlan
 from . import sparse_optimizer
@@ -50,6 +51,18 @@ class _GroupMeta:
         self.slot_local_offset = torch.as_tensor(g.slot_local_offset, dtype=torch.int64, device=device)
         self.slot_vocab = torch.as_tensor(g.slot_vocab, dtype=torch.int64, device=device)
         self.gsrc = torch.as_tensor(_fwd_gsrc(g), dtype=torch.int64, device=device)
+        self.fwd_lookups = onehot_fwd_lookups(g)
+
+
+def onehot_fwd_lookups(g: GroupPlan) -> List[GroupLookup]:
+    """Descriptors of a one-hot group's forward, one per lookup."""
+    return [
+        GroupLookup(
+            int(g.local_offsets[lm.table_index]), int(g.table_vocab[lm.table_index]),
+            lm.out_begin, lm.combiner == Combiner_t.Mean,
+        )
+        for lm in g.lookups
+    ]
 
 
 def _fwd_gsrc(g: GroupPlan) -> np.ndarray:
@@ -134,8 +147,10 @@ class EmbeddingCollection:
         }
 
     # ------------------------------------------------------------- helpers
-    def _group_keys(self, g: GroupPlan, feature_keys: Dict[str, torch.Tensor]) -> torch.Tensor:
-        cols = []
+    @staticmethod
+    def _lookup_keys(g: GroupPlan, feature_keys: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+        """Each lookup's [B, hotness] keys, as given (views, any int type)."""
+        out = []
         for lm in g.lookups:
             k = feature_keys[lm.bottom_name]
             if k.dim() == 1:
@@ -144,15 +159,19 @@ class EmbeddingCollection:
                 raise ValueError(
                     f"feature {lm.bottom_name}: hotness {k.shape[1]} != lookup max_hotness {lm.hotness}"
                 )
-            cols.append(k)
-        return torch.cat(cols, dim=1).long()
+            out.append(k)
+        return out
+
+    def _group_keys(self, g: GroupPlan, feature_keys: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return torch.cat(self._lookup_keys(g, feature_keys), dim=1).long()
 
     def _slot_placement(self, gname: str, keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(valid, local storage row) of [B, H] keys (collection.py:427);
-        out-of-range static keys wrap, as there."""
+        """(valid, local storage row) of [B, H] keys (collection.py:427):
+        keys are cut to int32 first, as there (`keys.astype(jnp.int32)`,
+        JAX without x64), then -1 is padding and other keys wrap by floor
+        modulo."""
         meta = self._meta[gname]
-        valid = keys != INVALID_KEY
-        k = torch.where(valid, keys % meta.slot_vocab.unsqueeze(0), 0)
+        valid, k = place_keys(keys, meta.slot_vocab.unsqueeze(0))
         return valid, k + meta.slot_local_offset.unsqueeze(0)
 
     @staticmethod
@@ -165,11 +184,10 @@ class EmbeddingCollection:
         (collection.py:647)."""
         outs: Dict[str, torch.Tensor] = {}
         for g in self.plan.groups:
-            keys = self._group_keys(g, feature_keys)
             if g.compute_kind == "onehot":
-                go = self._onehot_fwd(g.name, tables[g.name], keys)
+                go = self._onehot_fwd(g.name, tables[g.name], self._lookup_keys(g, feature_keys))
             else:
-                go = self._dp_fwd(g.name, tables[g.name], keys)
+                go = self._dp_fwd(g.name, tables[g.name], self._group_keys(g, feature_keys))
             for lm in g.lookups:
                 outs[lm.top_name] = go[:, lm.out_begin : lm.out_end]
         return outs
@@ -181,19 +199,12 @@ class EmbeddingCollection:
         k = local_row[:, lm.slot_begin : lm.slot_end] - off
         return torch.where(valid[:, lm.slot_begin : lm.slot_end], k, -1).to(torch.int32).contiguous()
 
-    def _onehot_fwd(self, gname: str, table: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    def _onehot_fwd(self, gname: str, table: torch.Tensor, keys: List[torch.Tensor]) -> torch.Tensor:
+        """Every lookup of the group in one call on the raw feature keys
+        (collection.py:1311-1337): the kernel does the placement, the Mean
+        division and writes each lookup into its output columns."""
         g = self._meta[gname].plan
-        valid, local_row = self._slot_placement(gname, keys)
-        outs: List[torch.Tensor] = []
-        for lm in g.lookups:
-            off = int(g.local_offsets[lm.table_index])
-            v = int(g.table_vocab[lm.table_index])
-            k_rel = self._onehot_local_keys(g, lm, valid, local_row)
-            o = onehot_matmul_fwd(k_rel, table[off : off + v])
-            if lm.combiner == Combiner_t.Mean:
-                o = o / self._count(valid[:, lm.slot_begin : lm.slot_end], o.dtype)
-            outs.append(o)
-        return torch.cat(outs, dim=1)
+        return onehot_fwd_group(keys, self._meta[gname].fwd_lookups, table, g.out_width)
 
     def _dp_fwd(self, gname: str, table: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
         """Masked gather + per-lookup pooling (collection.py:1474-1485, :596);

@@ -39,8 +39,12 @@ _SIGNATURES = {
     # k, e -> scratch bytes (-1: e too wide)
     "hctr_segscan_scratch_bytes": ([_I64, _I], _I64),
     "hctr_segscan_tile_rows": ([], _I),
-    # dtype, keys, table, out, b, h, v, e, vec, stream
-    "hctr_onehot_fwd": ([_I, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    # dtype, keys, table, out, b, h, v, e, stream
+    "hctr_onehot_fwd": ([_I, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    # dtype, lookups (hctr_fwd_lookup array), n, table, out, b, e, ld, stream
+    "hctr_onehot_fwd_group": ([_I, _P, _I, _P, _P, _I, _I, _I, _P], _I),
+    # v, h, e -> the forward's route (0 gather, 1 counts matmul)
+    "hctr_onehot_fwd_route": ([_I, _I, _I], _I),
     # d_dtype, keys, d, grad32, cnt, out_bf16, b, h, v, e, accumulate, stream
     "hctr_onehot_bwd": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     # e -> rows of one backward tile
@@ -100,6 +104,7 @@ def build() -> Path:
     )
     if link.returncode:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    so.with_suffix(".log").write_text(log)  # ptxas' registers and spills
     os.replace(tmp, so)
     build_info.update(seconds=time.perf_counter() - t0, path=str(so), log=log, reused=False)
     return so

@@ -2,12 +2,22 @@
 
 Counterparts of hugectr_tpu/ops/pallas/onehot_matmul.py::onehot_matmul_fwd
 and ::onehot_matmul_bwd. The TPU kernels build one-hot tiles for the matrix
-unit; on the card the same functions are a gather-pool and a scatter-add
-(csrc/onehot_matmul.cu; see its note for bounds and design). Keys are
-table-local rows; a key outside [0, V) is padding. The plain PyTorch versions
-beside the kernels serve the CPU and the checks on the card; a CUDA tensor
-always takes the kernel. The backward can add into a caller's float32
-buffers (`out=`, `cnt_out=`), so a group of tables zeroes its gradient once.
+unit; on the card the backward is a scatter-add and the forward a
+gather-pool or, for small tables of high hotness, the counts matmul on the
+tensor cores (csrc/onehot_matmul.cu; see its note for bounds and design).
+The plain PyTorch versions beside the kernels serve the CPU and the checks
+on the card; a CUDA tensor always takes the kernel. The backward can add
+into a caller's float32 buffers (`out=`, `cnt_out=`), so a group of tables
+zeroes its gradient once.
+
+`onehot_fwd_group` pools every lookup of a one-hot group in one launch from
+the raw feature keys (int32 or int64, any row stride): keys are cut to
+int32, -1 is padding, other keys wrap by floor modulo into the table's
+vocabulary (the JAX package's `_slot_placement`), and each lookup is
+written into its columns of the group's [B, W] output. The per-table
+`onehot_matmul_fwd` keeps the Pallas kernel's contract (table-local keys; a
+key outside [0, V) is padding) and runs the same kernel as a one-lookup
+group.
 
     forward:   out[b, :] = sum_h [0 <= keys[b,h] < V] * table[keys[b,h], :]
     backward:  grad[v, :] = sum_{b,h} [keys[b,h] == v] * d[b, :]
@@ -15,14 +25,40 @@ buffers (`out=`, `cnt_out=`), so a group of tables zeroes its gradient once.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..core.types import INVALID_KEY
 from . import _lib
 
 LAUNCHES = {"onehot_fwd": 0, "onehot_bwd": 0}  # kernel launches (CUDA tensors)
 PLAIN_CALLS = {"onehot_fwd": 0, "onehot_bwd": 0}  # plain-version calls (CPU)
+
+MAX_GROUP_LOOKUPS = 48  # kMaxLookups of csrc/onehot_matmul.cu
+FWD_ROUTES = ("gather", "mma")  # FwdRoute of csrc/onehot_matmul.cu, by code
+
+
+class GroupLookup(NamedTuple):
+    """One lookup of a one-hot group: its table's rows [row_off, row_off +
+    vocab) of the group storage, its output columns [out_begin, out_begin +
+    E) and whether it averages (Mean) or sums."""
+
+    row_off: int
+    vocab: int
+    out_begin: int
+    mean: bool
+
+
+class _CLookup(ctypes.Structure):
+    """hctr_fwd_lookup of csrc/onehot_matmul.cu."""
+
+    _fields_ = [
+        ("keys", ctypes.c_void_p), ("key_stride", ctypes.c_int64), ("row_off", ctypes.c_int64),
+        ("h", ctypes.c_int), ("v", ctypes.c_int), ("out_col", ctypes.c_int),
+        ("mean", ctypes.c_int), ("key64", ctypes.c_int),
+    ]
 
 
 def onehot_matmul_fwd_plain(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -30,6 +66,91 @@ def onehot_matmul_fwd_plain(keys: torch.Tensor, table: torch.Tensor) -> torch.Te
     valid = (keys >= 0) & (keys < v)
     rows = table[torch.where(valid, keys, 0).long()].float()
     return (rows * valid.unsqueeze(-1)).sum(dim=1).to(table.dtype)
+
+
+def place_keys(keys: torch.Tensor, vocab) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(valid, table-local row) of static keys, as the JAX package places
+    them: cut to int32 (its astype without x64), -1 is padding, any other
+    key wraps by floor modulo into [0, vocab). `vocab` is an int or a
+    tensor that broadcasts against `keys`; padding gets row 0."""
+    k32 = keys.to(torch.int32)
+    valid = k32 != INVALID_KEY
+    return valid, torch.where(valid, torch.remainder(k32, vocab), 0).long()
+
+
+def onehot_fwd_group_plain(
+    keys: Sequence[torch.Tensor], lookups: Sequence[GroupLookup], table: torch.Tensor,
+    out_width: int,
+) -> torch.Tensor:
+    """Per lookup: the placement (int32 cut, -1 padding, floor-mod wrap),
+    the pooled sum in float32, the Mean division, one rounding."""
+    e = table.shape[1]
+    out = torch.zeros((keys[0].shape[0], out_width), dtype=table.dtype, device=table.device)
+    for k, lk in zip(keys, lookups):
+        valid, local = place_keys(k, lk.vocab)
+        rows = table[lk.row_off : lk.row_off + lk.vocab].float()[local]
+        o = (rows * valid.unsqueeze(-1)).sum(dim=1)
+        if lk.mean:
+            o = o / torch.clamp(valid.sum(dim=1, keepdim=True), min=1).float()
+        out[:, lk.out_begin : lk.out_begin + e] = o.to(table.dtype)
+    return out
+
+
+def fwd_route(vocab: int, h: int, e: int, device: torch.device) -> str:
+    """The CUDA forward's route for a lookup: "gather" or "mma"."""
+    with torch.cuda.device(device):
+        code = _lib.library().hctr_onehot_fwd_route(vocab, h, e)
+    return FWD_ROUTES[code]
+
+
+def onehot_fwd_group(
+    keys: Sequence[torch.Tensor], lookups: Sequence[GroupLookup], table: torch.Tensor,
+    out_width: int,
+) -> torch.Tensor:
+    """Pooled lookups of a one-hot group in one launch: keys[i] ([B, h_i]
+    int32/int64, unit column stride) of lookup i into `table` (the group
+    storage [R, E]) -> [B, out_width], lookup i in columns
+    [out_begin, out_begin + E); on the card, columns no lookup covers are
+    left as allocated. The launcher picks each lookup's route (`fwd_route`)."""
+    _lib.require(len(keys) == len(lookups) >= 1, "give one key tensor per lookup")
+    _lib.require(
+        table.dim() == 2 and table.dtype in _lib.DTYPE_CODE,
+        f"table must be f32/bf16 [R, E], got {table.dtype} {tuple(table.shape)}",
+    )
+    b, e = keys[0].shape[0], table.shape[1]
+    for k, lk in zip(keys, lookups):  # messages formatted only on failure: this runs every step
+        if not (k.dim() == 2 and k.shape[0] == b and k.shape[1] >= 1
+                and k.dtype in (torch.int32, torch.int64)):
+            raise ValueError(f"keys must be int32/int64 [{b}, h], got {k.dtype} {tuple(k.shape)}")
+        if k.device != table.device:
+            raise ValueError("keys and table on different devices")
+        if not (0 <= lk.row_off and lk.vocab >= 1 and lk.row_off + lk.vocab <= table.shape[0]
+                and 0 <= lk.out_begin and lk.out_begin + e <= out_width):
+            raise ValueError(f"lookup {lk} outside table rows {table.shape[0]} or width {out_width}")
+    if table.device.type == "cpu":
+        PLAIN_CALLS["onehot_fwd"] += 1
+        return onehot_fwd_group_plain(keys, lookups, table, out_width)
+    _lib.require(table.device.type == "cuda", f"unsupported device {table.device}")
+    _lib.require(table.is_contiguous(), "table must be contiguous")
+    _lib.require(len(lookups) <= MAX_GROUP_LOOKUPS,
+                 f"{len(lookups)} lookups: the kernel takes at most {MAX_GROUP_LOOKUPS}")
+    if not all(k.shape[1] == 1 or k.stride(1) == 1 for k in keys):
+        raise ValueError("keys need a unit column stride")
+    descs = (_CLookup * len(lookups))(*[
+        _CLookup(k.data_ptr(), k.stride(0), lk.row_off, k.shape[1], lk.vocab, lk.out_begin,
+                 int(lk.mean), int(k.dtype == torch.int64))
+        for k, lk in zip(keys, lookups)
+    ])
+    out = torch.empty((b, out_width), dtype=table.dtype, device=table.device)
+    lib = _lib.library()
+    with torch.cuda.device(table.device):
+        rc = lib.hctr_onehot_fwd_group(
+            _lib.DTYPE_CODE[table.dtype], descs, len(lookups), table.data_ptr(), out.data_ptr(),
+            b, e, out_width, _lib.stream_of(table),
+        )
+    _lib.check(rc, "onehot_fwd_group")
+    LAUNCHES["onehot_fwd"] += 1
+    return out
 
 
 def onehot_matmul_bwd_plain(
@@ -57,7 +178,8 @@ def _check_keys(keys: torch.Tensor) -> None:
 
 
 def onehot_matmul_fwd(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Pooled (sum) lookup: [B, h] local keys x [V, E] table -> [B, E]."""
+    """Pooled (sum) lookup: [B, h] local keys x [V, E] table -> [B, E]; the
+    group kernel with one lookup, in local-keys mode."""
     _check_keys(keys)
     _lib.require(
         table.dim() == 2 and table.dtype in _lib.DTYPE_CODE,
@@ -75,13 +197,11 @@ def onehot_matmul_fwd(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(table.device):
         rc = lib.hctr_onehot_fwd(
             _lib.DTYPE_CODE[table.dtype], keys.data_ptr(), table.data_ptr(), out.data_ptr(),
-            b, h, v, e, _lib.vec_width(e, table, out), _lib.stream_of(table),
+            b, h, v, e, _lib.stream_of(table),
         )
     _lib.check(rc, "onehot_fwd")
     LAUNCHES["onehot_fwd"] += 1
     return out
-
-
 
 
 def bwd_tile_rows(e: int, device: torch.device) -> int:

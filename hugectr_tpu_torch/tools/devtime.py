@@ -15,7 +15,8 @@ import torch
 
 # device kernels of each wrapper (and of the library call beside it), by name
 KERNEL_NAMES = {
-    "onehot_fwd": ("onehot_fwd",),
+    "onehot_fwd": ("onehot_fwd",),  # onehot_fwd_group, every forward launch
+    "embedding_bag": ("",),  # every device kernel of the call (its fills included)
     "onehot_bwd": ("onehot_bwd", "cast_to_bf16"),
     "segscan": ("segscan_init", "segscan_lookback"),
     "index_add_": ("index",),

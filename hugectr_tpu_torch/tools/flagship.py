@@ -118,6 +118,43 @@ def build_dlrm_dcnv2(
     return model
 
 
+def flagship_plan(vocab_cap: int = 2_000_000, ev_size: int = 128, onehot_vocab: int = 8192):
+    """The flagship's embedding plan on one card, compiled as `Model` does
+    for `build_dlrm_dcnv2` (the engine's default thresholds)."""
+    from ..core.types import Combiner_t
+    from ..parallel.plan import EmbeddingTableConfig, LookupConfig, ShardingPlan, compile_plan
+
+    names = [str(i) for i in range(NUM_TABLE)]
+    lookups = [
+        LookupConfig(i, EmbeddingTableConfig(names[i], min(v, vocab_cap), ev_size), f"data{i}",
+                     f"sparse_embedding:{i}", Combiner_t.Sum, MLPERF_MULTI_HOT_SIZES[i])
+        for i, v in enumerate(MLPERF_TABLE_SIZES)
+    ]
+    return compile_plan(lookups, ShardingPlan([("mp", names)]), 1, {n: 1 for n in names},
+                        onehot_vocab=onehot_vocab)
+
+
+def onehot_group_inputs(rng, batch: int, ev_size: int, dtype, device, alpha: float = 1.05):
+    """The flagship's one-hot group forward as the step gives it: the group
+    of `flagship_plan`, power-law keys as int32 column views of one
+    [batch, sum h] tensor, the group's forward descriptors, a random group
+    storage and the output width. Returns (keys, lookups, storage, width)."""
+    import numpy as np
+    import torch
+
+    from ..data.generator import power_law_keys
+    from ..embedding.collection import onehot_fwd_lookups
+
+    g = next(g for g in flagship_plan(ev_size=ev_size).groups if g.compute_kind == "onehot")
+    allk = np.concatenate([power_law_keys(rng, int(g.table_vocab[lm.table_index]), (batch, lm.hotness), alpha)
+                           for lm in g.lookups], axis=1)
+    allk = torch.as_tensor(allk.astype(np.int32), device=device)
+    keys = [allk[:, lm.slot_begin : lm.slot_end] for lm in g.lookups]
+    storage = torch.as_tensor(rng.standard_normal((g.total_storage_rows, ev_size), dtype=np.float32),
+                              device=device)
+    return keys, onehot_fwd_lookups(g), storage.to(dtype), g.out_width
+
+
 def build_tiny_dlrm(rm, batchsize: int = 32, **kwargs):
     """Tiny-shape variant (flagship.py:168)."""
     params = dict(

@@ -116,6 +116,93 @@ def test_onehot_bwd_accumulates_into_caller_buffers(cuda):
     assert torch.equal(cnt[:off], cbase[:off])
 
 
+def _check_group(keys, lookups, table, width):
+    ops.reset_counts()
+    got = oh.onehot_fwd_group(keys, lookups, table, width)
+    assert ops.launch_counts()["onehot_fwd"] == 1
+    assert got.dtype == table.dtype and got.shape == (keys[0].shape[0], width)
+    want = oh.onehot_fwd_group_plain(keys, lookups, table, width)
+    scale = oh.onehot_fwd_group_plain(keys, lookups, table.float().abs(), width)
+    err = _scaled(got, want, scale)
+    assert err <= TOL[table.dtype], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_onehot_fwd_group_at_the_flagship_group(cuda, dtype):
+    """The flagship's 13-table group at batch 16,384, power-law keys as
+    int32 column views of one [B, 62] tensor, one launch per call: table
+    24 on the counts matmul, the other 12 gathered."""
+    from hugectr_tpu_torch.tools.flagship import onehot_group_inputs
+
+    keys, lookups, table, width = onehot_group_inputs(np.random.default_rng(3), 16384, 128, dtype, cuda)
+    assert keys[0].stride(1) == 1 and keys[0].stride(0) == 62
+    routes = [oh.fwd_route(lk.vocab, k.shape[1], 128, cuda) for k, lk in zip(keys, lookups)]
+    assert routes.count("mma") == 1 and routes.count("gather") == 12
+    _check_group(keys, lookups, table, width)
+
+
+def _edge_group(rng, b, spec, e, dtype, cuda, int64=False):
+    """spec: (V, h, mean) per lookup. Keys: -1 padding, negative, >= V and,
+    as int64, >= 2^31; sample 0 all padding."""
+    cols, lookups, row = [], [], 0
+    for i, (v, h, mean) in enumerate(spec):
+        k = rng.integers(0, v, size=(b, h)).astype(np.int64)
+        r = rng.random((b, h))
+        k[r < 0.1] = -1
+        k[(r >= 0.1) & (r < 0.2)] = -rng.integers(2, 5 * v, size=int(((r >= 0.1) & (r < 0.2)).sum()))
+        k[(r >= 0.2) & (r < 0.3)] += v * rng.integers(1, 4)
+        if int64:
+            k[(r >= 0.3) & (r < 0.4)] = 2**31 + rng.integers(0, 2**31, size=int(((r >= 0.3) & (r < 0.4)).sum()))
+            k[(r >= 0.4) & (r < 0.45)] = 2**32 - 1
+        k[0] = -1
+        cols.append(k)
+        lookups.append(oh.GroupLookup(row + 3, v, i * e, mean))
+        row += v
+    allk = torch.from_numpy(np.concatenate(cols, axis=1).astype(np.int64 if int64 else np.int32)).to(cuda)
+    keys, c = [], 0
+    for v, h, _m in spec:
+        keys.append(allk[:, c : c + h])
+        c += h
+    table = torch.from_numpy(rng.normal(size=(row + 5, e)).astype(np.float32)).to(cuda, dtype)
+    return keys, lookups, table, len(spec) * e
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_onehot_fwd_group_edge_cases(cuda, dtype):
+    """Sum and Mean lookups on both routes; negative and >= V keys; int64
+    keys >= 2^31; h 1 beside h 128; a width that is no multiple of 4; all
+    padding; a group of small tables only; a one-lookup group equal to the
+    per-table forward."""
+    rng = np.random.default_rng(14)
+    mixed = [(108, 40, True), (7424, 2, False), (3, 1, True), (100, 128, False), (63, 1, False),
+             (57, 16, True)]
+    for int64 in (False, True):
+        keys, lookups, table, width = _edge_group(rng, 3000, mixed, 128, dtype, cuda, int64)
+        _check_group(keys, lookups, table, width)
+    assert [oh.fwd_route(v, h, 128, cuda) for v, h, _m in mixed] == [
+        "mma", "gather", "gather", "mma", "gather", "mma"]
+    small = [(108, 40, True), (3, 1, False), (120, 20, False)]
+    keys, lookups, table, width = _edge_group(rng, 1000, small, 128, dtype, cuda)
+    _check_group(keys, lookups, table, width)
+    keys, lookups, table, width = _edge_group(rng, 777, [(100, 5, True), (40, 17, False)], 37, dtype, cuda)
+    _check_group(keys, lookups, table, width)
+    # counts matmul at a width that is no multiple of its 32-column slices
+    keys, lookups, table, width = _edge_group(rng, 500, [(100, 20, True), (7, 1, False)], 40, dtype, cuda)
+    assert oh.fwd_route(100, 20, 40, cuda) == "mma"
+    _check_group(keys, lookups, table, width)
+    pad = [torch.full((500, 3), -1, dtype=torch.int32, device=cuda)] * 2
+    lk = [oh.GroupLookup(0, 50, 0, False), oh.GroupLookup(0, 50, 128, True)]
+    table = torch.ones((50, 128), device=cuda, dtype=dtype)
+    assert torch.equal(oh.onehot_fwd_group(pad, lk, table, 256), torch.zeros((500, 256), device=cuda, dtype=dtype))
+    k1 = torch.from_numpy(_keys(rng, 2000, 40, 108)).to(cuda)
+    t1 = torch.from_numpy(rng.normal(size=(108, 128)).astype(np.float32)).to(cuda, dtype)
+    g1 = oh.onehot_fwd_group([k1], [oh.GroupLookup(0, 108, 0, False)], t1, 128)
+    assert _scaled(oh.onehot_matmul_fwd(k1, t1), g1,
+                   oh.onehot_matmul_fwd_plain(k1, t1.float().abs())) <= TOL[dtype]
+
+
 def _heads(rng, k, nseg):
     seg = np.sort(rng.integers(0, nseg, k))
     return np.concatenate([[True], seg[1:] != seg[:-1]])[:k]

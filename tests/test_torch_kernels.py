@@ -165,6 +165,47 @@ def test_onehot_bwd_plain_accumulates_into_caller_buffers(b, v, h):
                              out=grad[off : off + v], cnt_out=cnt[off : off + v])
 
 
+@pytest.mark.parametrize("b,v,h", ONEHOT_CASES)
+def test_onehot_fwd_group_of_one_lookup_matches_pallas(b, v, h):
+    """A one-lookup group on table-local keys (-1 padding, the rest in
+    [0, V)) is the per-table forward: both against the Pallas kernel; in
+    the group the table sits at a row offset of the storage and the lookup
+    at a column offset of the output."""
+    rng = np.random.default_rng(40 + v + h)
+    keys = _keys(rng, b, h, v)
+    table = rng.normal(size=(v, 16)).astype(np.float32)
+    vb = min(512, ((v + 127) // 128) * 128)
+    pallas = np.asarray(j_fwd(jnp.asarray(keys), jnp.asarray(table), vb=vb))
+    storage = np.concatenate([rng.normal(size=(7, 16)).astype(np.float32), table])
+    ops.reset_counts()
+    got = oh.onehot_fwd_group([torch.from_numpy(keys)], [oh.GroupLookup(7, v, 16, False)],
+                              torch.from_numpy(storage), 48).numpy()
+    assert ops.plain_counts()["onehot_fwd"] == 1
+    np.testing.assert_allclose(got[:, 16:32], pallas, **OH_TOL)
+    np.testing.assert_allclose(got[:, 16:32], oh.onehot_matmul_fwd(
+        torch.from_numpy(keys), torch.from_numpy(table)).numpy(), **OH_TOL)
+    np.testing.assert_array_equal(got[:, :16], 0.0)
+    np.testing.assert_array_equal(got[:, 32:], 0.0)
+
+
+def test_onehot_fwd_group_rejects_what_the_kernel_does_not_take():
+    table = torch.zeros((10, 8))
+    keys = torch.zeros((4, 2), dtype=torch.int32)
+    lk = oh.GroupLookup(0, 10, 0, False)
+    with pytest.raises(ValueError, match="int32/int64"):
+        oh.onehot_fwd_group([keys.float()], [lk], table, 8)
+    with pytest.raises(ValueError, match="outside table rows"):
+        oh.onehot_fwd_group([keys], [oh.GroupLookup(5, 10, 0, False)], table, 8)
+    with pytest.raises(ValueError, match="outside table rows"):
+        oh.onehot_fwd_group([keys], [oh.GroupLookup(0, 10, 4, False)], table, 8)
+    with pytest.raises(ValueError, match="one key tensor per lookup"):
+        oh.onehot_fwd_group([keys, keys], [lk], table, 8)
+    with pytest.raises(ValueError, match=r"int32/int64 \[4, h\]"):
+        oh.onehot_fwd_group([keys, keys[:3]], [lk, lk], table, 8)
+    with pytest.raises(ValueError, match="f32/bf16"):
+        oh.onehot_fwd_group([keys], [lk], table.double(), 8)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="int32"):
         oh.onehot_matmul_fwd(torch.zeros((4, 2), dtype=torch.int64), torch.zeros((3, 8)))

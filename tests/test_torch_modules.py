@@ -33,6 +33,7 @@ from hugectr_tpu_torch.data import reader as treader
 from hugectr_tpu_torch.embedding import sparse_optimizer as tso
 from hugectr_tpu_torch.embedding.collection import EmbeddingCollection as TEC
 from hugectr_tpu_torch.layers.base import LAYER_REGISTRY as TLAYERS
+from hugectr_tpu_torch.ops import onehot_matmul as oh
 from hugectr_tpu_torch.optim.dense import DenseOptimizer as TDenseOpt
 from hugectr_tpu_torch.optim.params import OptParams as TOptParams
 from hugectr_tpu_torch.parallel import plan as tplan
@@ -191,11 +192,83 @@ def _ec_lookups(pkg, comb):
     ]
 
 
+EC_HOT = {"f0": (3, 57), "f1": (2, 100), "f2": (4, 3000), "f3": (2, 700), "f4": (1, 3000)}
+
+
+def _edge_keys(rng, b, hot=EC_HOT, int64=False):
+    """Keys with -1 padding, negative keys, keys >= V and, as int64, keys
+    >= 2^31 (2^32 - 1 cuts to -1, padding in the JAX package). Sample 0 is
+    all padding. Returns numpy views: column slices of one [B, sum h]
+    array, as the batch's key tensor is cut."""
+    cols = []
+    for h, v in hot.values():
+        k = rng.integers(0, v, size=(b, h)).astype(np.int64)
+        r = rng.random((b, h))
+        k[r < 0.15] = -1
+        neg = (r >= 0.15) & (r < 0.25)
+        k[neg] = -rng.integers(2, 3 * v, size=int(neg.sum()))
+        big = (r >= 0.25) & (r < 0.32)
+        k[big] = v + rng.integers(0, 3 * v, size=int(big.sum()))
+        if int64:
+            wide = (r >= 0.32) & (r < 0.42)
+            k[wide] = 2**31 + rng.integers(0, 2**31, size=int(wide.sum()))
+            k[(r >= 0.42) & (r < 0.45)] = 2**32 - 1
+            k[:4, 0] = [2**31 + 5, 2**32 - 1, -7, v + 5]
+        k[0] = -1
+        cols.append(k)
+    allk = np.concatenate(cols, axis=1)
+    if not int64:
+        allk = allk.astype(np.int32)
+    feats, c = {}, 0
+    for f, (h, _v) in hot.items():
+        feats[f] = allk[:, c : c + h]
+        c += h
+    return allk, feats
+
+
+def _torch_views(allk, hot=EC_HOT):
+    """The same column views, of one torch tensor."""
+    t = torch.from_numpy(allk)
+    out, c = {}, 0
+    for f, (h, _v) in hot.items():
+        out[f] = t[:, c : c + h]
+        c += h
+    return out
+
+
 @pytest.mark.parametrize("route", ["sorted", "dense"])
 def test_collection_forward_and_update_match_jax(mesh1, monkeypatch, route):
     """forward + backward_and_update on one device with one-hot groups and
     rowop groups sent to (a) the sorted segscan route or (b) the dense
     sweep."""
+    rng = np.random.default_rng(11)
+    b = 48
+    feats = {}
+    for f, (h, v) in EC_HOT.items():
+        k = rng.integers(0, v, size=(b, h)).astype(np.int32)
+        k[rng.random((b, h)) < 0.2] = -1
+        feats[f] = k
+    counts = _collection_matches_jax(mesh1, monkeypatch, route, rng, feats,
+                                     {k: torch.from_numpy(v) for k, v in feats.items()})
+    assert counts["onehot_fwd"] == 1 and counts["onehot_bwd"] == 2
+    assert counts["segscan"] == (1 if route == "sorted" else 0)
+
+
+@pytest.mark.parametrize("route", ["sorted", "dense"])
+def test_int64_keys_placed_as_jax(mesh1, monkeypatch, route):
+    """int64 keys >= 2^31 (2^31 + 5, 2^32 - 1, ...), negative keys and keys
+    >= V land on the JAX package's rows, which casts keys to int32 before
+    the wrap (collection.py:433), in the one-hot group and the rowop group:
+    forward outputs, updated tables and optimizer state."""
+    rng = np.random.default_rng(12)
+    allk, feats = _edge_keys(rng, 40, int64=True)
+    _collection_matches_jax(mesh1, monkeypatch, route, rng, feats, _torch_views(allk))
+
+
+def _collection_matches_jax(mesh1, monkeypatch, route, rng, feats, tfeats):
+    """Runs forward + backward_and_update in both packages from the same
+    tables on `feats` (numpy, for JAX) and `tfeats` (torch, for the port),
+    asserts they agree, and returns the port's plain-version call counts."""
     env = {
         "HCTR_TPU_ONEHOT_VOCAB": "128", "HCTR_TPU_SEGSUM": "scan", "HCTR_TPU_ONEHOT_KERNEL": "pallas",
         "HCTR_TPU_DENSE_UPDATE_ROWS": "0" if route == "sorted" else "262144",
@@ -203,14 +276,7 @@ def test_collection_forward_and_update_match_jax(mesh1, monkeypatch, route):
     }
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    rng = np.random.default_rng(11)
-    b = 48
-    hot = {"f0": (3, 57), "f1": (2, 100), "f2": (4, 3000), "f3": (2, 700), "f4": (1, 3000)}
-    feats = {}
-    for f, (h, v) in hot.items():
-        k = rng.integers(0, v, size=(b, h)).astype(np.int32)
-        k[rng.random((b, h)) < 0.2] = -1
-        feats[f] = k
+    b = next(iter(feats.values())).shape[0]
     values = {n: rng.normal(size=(v, 8)).astype(np.float32) * 0.1
               for n, v in (("t0", 57), ("t1", 100), ("t2", 3000), ("t3", 700))}
     d_outs = {f"e{i}": rng.normal(size=(b, 8)).astype(np.float32) for i in range(5)}
@@ -236,7 +302,6 @@ def test_collection_forward_and_update_match_jax(mesh1, monkeypatch, route):
     for n, v in values.items():
         tt = tec.import_table(tt, n, v)
     ts = tec.init_optimizer(tt)
-    tfeats = {k: torch.from_numpy(v) for k, v in feats.items()}
     ops.reset_counts()
     tout = tec.forward(tt, tfeats)
     for k in jout:
@@ -244,13 +309,46 @@ def test_collection_forward_and_update_match_jax(mesh1, monkeypatch, route):
     tec.backward_and_update(tt, ts, tfeats, {k: torch.from_numpy(v) for k, v in d_outs.items()},
                             torch.tensor(0.3))
     assert tec.group_routes == {"onehot_ev8": "onehot", "mp_ev8": route}
-    counts = ops.plain_counts()
-    assert counts["onehot_fwd"] == 2 and counts["onehot_bwd"] == 2
-    assert counts["segscan"] == (1 if route == "sorted" else 0)
     for n in values:
         np.testing.assert_allclose(tec.export_table(tt, n), jec.export_table(jt, n), **TOL, err_msg=n)
     for g in ts:
         np.testing.assert_allclose(ts[g]["accum"].numpy(), np.asarray(js[g]["accum"]), **TOL)
+    return ops.plain_counts()
+
+
+@pytest.mark.parametrize("keys", ["int32_views", "int64"])
+@pytest.mark.parametrize("kernel", ["pallas", "xla"])
+def test_onehot_fwd_group_plain_matches_jax(mesh1, monkeypatch, kernel, keys):
+    """`onehot_fwd_group_plain` (and the wrapper, one call per group) on the
+    raw feature keys against the JAX package's `_onehot_fwd` with the
+    Pallas kernel (interpret mode) or the XLA counts form, on a group with
+    Sum and Mean lookups, -1 padding, negative keys, keys >= V, strided
+    int32 column views or int64 keys >= 2^31."""
+    monkeypatch.setenv("HCTR_TPU_ONEHOT_VOCAB", "128")
+    monkeypatch.setenv("HCTR_TPU_ONEHOT_KERNEL", kernel)
+    rng = np.random.default_rng(31)
+    allk, feats = _edge_keys(rng, 64, int64=keys == "int64")
+    jpl = jplan.compile_plan(_ec_lookups(jplan, JComb), jplan.ShardingPlan([]), 1)
+    jec = JEC(jpl, mesh1, JOptParams(JOpt.RowWiseAdaGrad))
+    tpl = tplan.compile_plan(_ec_lookups(tplan, TComb), tplan.ShardingPlan([]), 1, onehot_vocab=128)
+    tec = TEC(tpl, CPU, TOptParams(TOpt.RowWiseAdaGrad))
+    jg = next(g for g in jpl.groups if g.compute_kind == "onehot")
+    tg = next(g for g in tpl.groups if g.compute_kind == "onehot")
+    assert [lm.combiner for lm in tg.lookups] == [TComb.Sum, TComb.Mean]
+    table = rng.normal(size=(tg.total_storage_rows, 8)).astype(np.float32)
+    want = np.asarray(jec._onehot_fwd(
+        jg.name, jnp.asarray(table), jec._group_keys(jg, {k: jnp.asarray(v) for k, v in feats.items()})
+    ))
+    tkeys = tec._lookup_keys(tg, _torch_views(allk))
+    assert tkeys[0].stride() == (allk.shape[1], 1)  # column views, not copies
+    lookups = tec._meta[tg.name].fwd_lookups
+    got = oh.onehot_fwd_group_plain(tkeys, lookups, torch.from_numpy(table), tg.out_width)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    ops.reset_counts()
+    got = oh.onehot_fwd_group(tkeys, lookups, torch.from_numpy(table), tg.out_width)
+    assert ops.plain_counts()["onehot_fwd"] == 1
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_array_equal(got.numpy()[0], 0.0)  # all padding, Mean divides by 1
 
 
 def test_onehot_grad_accumulates_like_jax_pallas(mesh1, monkeypatch):
