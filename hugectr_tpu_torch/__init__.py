@@ -26,6 +26,7 @@ from .core.types import (
     Combiner_t,
     DataReaderType_t,
     Initializer_t,
+    Metric_t,
     Optimizer_t,
 )
 from .embedding.config import EmbeddingCollectionConfig, EmbeddingTableConfig
@@ -69,6 +70,7 @@ __all__ = [
     "Initializer_t",
     "Input",
     "Layer_t",
+    "Metric_t",
     "Model",
     "OptParams",
     "Optimizer_t",

@@ -4,13 +4,16 @@
 package's defaults (config.py:24-139). Nothing here reads the environment:
 the JAX package exports these fields to HCTR_TPU_* variables around
 `compile`; the port hands them to the plan and the collection directly.
+The environment-only settings of the JAX package (the superhot and warm
+tiers, the optimizer state's dtype, the exact-AUC limit) are fields here
+too, with the environment's defaults.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, List, Optional
 
-from .types import Activation_t, DataReaderType_t, Initializer_t, Regularizer_t
+from .types import Activation_t, DataReaderType_t, Initializer_t, Metric_t, Regularizer_t
 
 
 @dataclasses.dataclass
@@ -24,11 +27,23 @@ class Solver:
     decay_steps: int = 1
     decay_power: float = 2.0
     end_lr: float = 0.0
+    max_eval_batches: int = 100
+    batchsize_eval: int = 2048
     batchsize: int = 2048
-    # accepted so that reference scripts fail loudly: not ported yet
+    # bf16 inputs and weights in the dense network's products, f32 sums
     use_mixed_precision: bool = False
+    metrics_spec: Dict[Metric_t, float] = dataclasses.field(
+        default_factory=lambda: {Metric_t.AUC: 1.0}
+    )
+    # accepted so that reference scripts fail loudly: not ported yet
     i64_input_key: bool = False
+    # eval cycles a shorter eval set to fill max_eval_batches
+    repeat_dataset: bool = True
+    # "float32" or "bfloat16" embedding tables
     embedding_vec_dtype: str = "float32"
+    # "float32" or "bfloat16" sparse optimizer state (JAX:
+    # HCTR_TPU_EMB_STATE_DTYPE, collection.py:130)
+    embedding_state_dtype: str = "float32"
     # ---- embedding engine settings (JAX: HCTR_TPU_* environment knobs)
     # small static sum/mean tables at or below this vocab take the one-hot
     # engine (plan.py:486 onehot_vocab_threshold); 0 turns it off
@@ -42,12 +57,43 @@ class Solver:
     # bigger shards take the dense sweep too when keys >= ratio * rows
     # (sparse_optimizer.py:188 dense_key_ratio); 0 turns it off
     dense_key_ratio: float = 0.3
+    # the hot/cold split (plan.py:311-352): tables of at least
+    # max(4 * hot_rows, 2 * onehot_vocab) rows split at hot_rows (0: off);
+    # their first superhot_rows rows join the one-hot group (0: off) and
+    # rows [hot_rows, warm_rows) make a warm tier (0: off)
+    hot_rows: int = 0
+    superhot_rows: int = 0
+    warm_rows: int = 0
+    # eval buffers of at most this many samples take the exact AUC, larger
+    # ones the binned one (metrics.py:118, HCTR_TPU_AUC_EXACT_MAX)
+    auc_exact_max: int = 8 * 1024 * 1024
+
+    def __post_init__(self):
+        self.metrics_spec = {Metric_t(k): v for k, v in self.metrics_spec.items()}
 
     @property
     def compute_dtype(self):
         import torch
 
         return torch.bfloat16 if self.use_mixed_precision else torch.float32
+
+    @staticmethod
+    def _dtype(name: str, what: str):
+        import torch
+
+        if name in ("float32", "fp32"):
+            return torch.float32
+        if name in ("bfloat16", "bf16"):
+            return torch.bfloat16
+        raise ValueError(f"{what} must be float32 or bfloat16, got {name!r}")
+
+    @property
+    def emb_dtype(self):
+        return self._dtype(self.embedding_vec_dtype, "embedding_vec_dtype")
+
+    @property
+    def emb_state_dtype(self):
+        return self._dtype(self.embedding_state_dtype, "embedding_state_dtype")
 
 
 @dataclasses.dataclass
@@ -58,6 +104,8 @@ class DataReaderParams:
     data_reader_type: DataReaderType_t = DataReaderType_t.Synthetic
     synthetic_num_batches: int = 64
     synthetic_alpha: float = 0.0
+    # labels from the keys' parities, so that eval can see learning
+    synthetic_learnable: bool = False
 
     def __post_init__(self):
         self.data_reader_type = DataReaderType_t(self.data_reader_type)

@@ -69,6 +69,16 @@ class TablePlacementStrategy(str, enum.Enum):
     ModelParallel = "mp"
 
 
+class Metric_t(str, enum.Enum):
+    """Eval metrics (types.py:111)."""
+
+    AUC = "auc"
+    AverageLoss = "average_loss"
+    HitRate = "hit_rate"
+    SMAPE = "smape"
+    NDCG = "ndcg"
+
+
 class DataReaderType_t(str, enum.Enum):
     Norm = "norm"
     Raw = "raw"

@@ -21,10 +21,14 @@
 // kernel's parameters (FwdGroup; no host-to-device copy): its keys' pointer
 // (a column view of the batch's key tensor), row stride and type (int32, or
 // int64 cut to int32 as the JAX package's astype does), h, V, the table's
-// first row in the group storage, the output column and the combiner. In
-// group mode a key of -1 is padding and any other key wraps by floor modulo
-// into [0, V); in "local keys" mode (the per-table entry, hctr_onehot_fwd,
-// the Pallas kernel's contract) any key outside [0, V) is padding. Sums are
+// first row in the group storage, the output column, the combiner and the
+// key window. In group mode a key is placed as the JAX package's
+// _group_keys and _slot_placement place it: a windowed lookup (a tier of a
+// split table, [key_lo, key_hi)) takes a key outside its window as padding
+// and shifts one inside down by key_lo; then -1 is padding and any other
+// key wraps by floor modulo into [0, V). In "local keys" mode (the per-table
+// entry, hctr_onehot_fwd, the Pallas kernel's contract) any key outside
+// [0, V) is padding. Sums are
 // taken in float32, a Mean lookup divides by its count of non-padding keys
 // (at least 1), and the output is rounded once to the table's type.
 // Bound: memory, each lookup's keys (B * h * key bytes), the touched table
@@ -106,17 +110,19 @@ struct hctr_fwd_lookup {
   int h, v, out_col;
   int mean;            // 1: divide by the count of non-padding keys
   int key64;           // 1: int64 keys (cut to int32), 0: int32
+  int key_lo, key_hi;  // the window; windowed iff key_lo > 0 or key_hi >= 0 (-1: no upper bound)
 };
 
 namespace hctr {
 namespace {
 
 enum FwdRoute { kGather = 0, kMma = 1 };
-constexpr int kMaxLookups = 48;  // FwdGroup stays under 4 KB of kernel parameters
+constexpr int kMaxLookups = 48;  // FwdGroup stays under 4 KB of kernel parameters (3.5 KB)
 
 struct FwdLookup {
   const void* keys;
   int64_t key_stride, row_off;
+  int key_lo, key_last;  // keys outside [key_lo, key_last] are padding (INT32_MIN, INT32_MAX: none)
   int h, v, out_col, mean, key64, route;
   int first_block, samples_per_block;
   int mma_slices;  // counts matmul: kMmaCols-column slices per block
@@ -128,6 +134,7 @@ struct FwdGroup {
   void* out;          // [b, ld]
   int n, b, e, ld, local_keys;
 };
+static_assert(sizeof(FwdGroup) <= 4096, "FwdGroup must fit the 4 KB of kernel parameters");
 
 // The forward's constants were chosen by measuring variants of each on the
 // flagship's group (PERF.md).
@@ -160,8 +167,12 @@ __device__ __forceinline__ int32_t raw_key(const FwdLookup& L, int64_t sample, i
                  : __ldg(static_cast<const int32_t*>(L.keys) + i);
 }
 
-// Table-local row of key k, or -1 for padding.
-__device__ __forceinline__ int place_key(int32_t k, int v, int local) {
+// Table-local row of key k, or -1 for padding: the window, then the
+// shift by key_lo (the window's first key is row 0), then the wrap.
+__device__ __forceinline__ int place_key(int32_t k, const FwdLookup& L, int local) {
+  if (k < L.key_lo || k > L.key_last) return -1;
+  if (L.key_lo > 0) k -= L.key_lo;
+  const int v = L.v;
   if (static_cast<uint32_t>(k) < static_cast<uint32_t>(v)) return k;  // no division
   if (local || k == -1) return -1;  // local: outside [0, v); group: INVALID_KEY
   const int m = k % v;  // % truncates toward zero; the wrap is a floor modulo
@@ -206,7 +217,7 @@ __device__ void gather_samples(const FwdGroup& p, const FwdLookup& L, const T* t
     int32_t next_key = load(lane, next_smp);
     for (int p0 = 0; p0 < npairs; p0 += 32) {
       const int smp = next_smp;
-      const int row = smp < 0 ? -1 : place_key(next_key, L.v, p.local_keys);
+      const int row = smp < 0 ? -1 : place_key(next_key, L, p.local_keys);
       next_key = load(p0 + 32 + lane, next_smp);
       const int m = npairs - p0 < 32 ? npairs - p0 : 32;
       for (int q0 = 0; q0 < m; q0 += kInFlight) {
@@ -342,7 +353,7 @@ __device__ void mma_block(const FwdGroup& p, const FwdLookup& L, unsigned char* 
   for (int p0 = 0; p0 < npairs; p0 += kLoads * kFwdWarps * 32) {
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
-      const int r = sm[u] < 0 ? -1 : place_key(key[u], v, p.local_keys);
+      const int r = sm[u] < 0 ? -1 : place_key(key[u], L, p.local_keys);
       if (r >= 0) {
         atomicAdd(cw + (sm[u] * ks + r) / 2, 1u << (16 * (r & 1)));
         if (L.mean) atomicAdd(nval + sm[u], 1);
@@ -618,6 +629,9 @@ int fwd_group(const hctr_fwd_lookup* in, int n, const void* table, void* out, in
     L.out_col = x.out_col;
     L.mean = x.mean;
     L.key64 = x.key64;
+    const bool windowed = x.key_lo > 0 || x.key_hi >= 0;
+    L.key_lo = windowed ? x.key_lo : INT32_MIN;
+    L.key_last = !windowed ? INT32_MAX : x.key_hi >= 0 ? x.key_hi - 1 : INT32_MAX - 1;
     L.route = route[i];
     int64_t nblk;
     if (L.route == kMma) {
@@ -722,7 +736,7 @@ extern "C" int hctr_onehot_fwd_group(int dtype, const hctr_fwd_lookup* lookups, 
 extern "C" int hctr_onehot_fwd(int dtype, const void* keys, const void* table, void* out, int b,
                                int h, int v, int e, void* stream) {
   if (b == 0) return cudaSuccess;
-  const hctr_fwd_lookup lk{keys, h, 0, h, v, 0, 0, 0};
+  const hctr_fwd_lookup lk{keys, h, 0, h, v, 0, 0, 0, 0, -1};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == hctr::kF32) return hctr::fwd_group<float>(&lk, 1, table, out, b, e, e, 1, s);
   if (dtype == hctr::kBF16)

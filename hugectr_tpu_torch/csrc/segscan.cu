@@ -7,11 +7,13 @@
 //   out[i, :] = sum of vals[s .. i, :], s = the last head at or before i
 //
 // so the TAIL row of each segment holds the segment's full sum. Row 0 always
-// starts a segment. Sums are taken in float32 and stored in the type of vals
-// (float32 or bfloat16). K needs no padding.
+// starts a segment. Sums are taken in float32 and stored as float32 or
+// bfloat16, whichever the caller asks (the sorted update of bfloat16 tables
+// reads bfloat16 rows and keeps float32 sums, as the JAX package's
+// segment_sum route does). K needs no padding.
 //
 // Bound on an H100: memory. The function reads vals and heads once and
-// writes out once: (2 * K * E * itemsize + K) bytes at 3.35 TB/s (about
+// writes out once: (K * E * (in + out itemsize) + K) bytes at 3.35 TB/s (about
 // 135 us for the flagship's K = 442,368 rows of E = 128 float32). Its
 // K * E additions are nothing beside that.
 //
@@ -100,10 +102,10 @@ __global__ void segscan_init(int* counter_and_flags, int64_t n) {
     counter_and_flags[i] = 0;
 }
 
-template <typename T, int kVec>
+template <typename T, typename TO, int kVec>
 __global__ void __launch_bounds__(kThreads)
 segscan_lookback(const T* __restrict__ vals, const uint8_t* __restrict__ heads,
-                 T* __restrict__ out, Scratch sc, int64_t k, int e) {
+                 TO* __restrict__ out, Scratch sc, int64_t k, int e) {
   extern __shared__ float sm[];
   float* tile = sm;                         // [kTileRows, e] scanned rows
   float* wsum = tile + kTileRows * e;       // [kWarps, e] sums, then carry-ins
@@ -251,16 +253,16 @@ segscan_lookback(const T* __restrict__ vals, const uint8_t* __restrict__ heads,
   }
 }
 
-template <typename T, int kVec>
+template <typename T, typename TO, int kVec>
 int launch(const void* vals, const void* heads, void* out, const Scratch& sc, int64_t tiles,
            int e, int64_t k, cudaStream_t stream) {
   const size_t smem = smem_bytes(e);
-  auto kernel = segscan_lookback<T, kVec>;
+  auto kernel = segscan_lookback<T, TO, kVec>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(
-      static_cast<const T*>(vals), static_cast<const uint8_t*>(heads), static_cast<T*>(out), sc,
+      static_cast<const T*>(vals), static_cast<const uint8_t*>(heads), static_cast<TO*>(out), sc,
       k, e);
   return cudaGetLastError();
 }
@@ -281,12 +283,12 @@ extern "C" int64_t hctr_segscan_scratch_bytes(int64_t k, int e) {
   return hctr::scratch_bytes((k + hctr::kTileRows - 1) / hctr::kTileRows, e);
 }
 
-// vals [k, e] and out [k, e] of `dtype`; heads [k] uint8 (0/1); scratch of
-// hctr_segscan_scratch_bytes(k, e) bytes, 16-byte aligned, any contents.
-// `vec` is 4 when e % 4 == 0 and vals and out are aligned to 4 elements,
-// else 1. Returns cudaGetLastError().
-extern "C" int hctr_segscan(int dtype, const void* vals, const void* heads, void* out,
-                            void* scratch, int64_t k, int e, int vec, void* stream) {
+// vals [k, e] of `dtype` and out [k, e] of `out_dtype`; heads [k] uint8
+// (0/1); scratch of hctr_segscan_scratch_bytes(k, e) bytes, 16-byte aligned,
+// any contents. `vec` is 4 when e % 4 == 0 and vals and out are aligned to 4
+// elements, else 1. Returns cudaGetLastError().
+extern "C" int hctr_segscan(int dtype, int out_dtype, const void* vals, const void* heads,
+                            void* out, void* scratch, int64_t k, int e, int vec, void* stream) {
   if (k == 0 || e == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t tiles = (k + hctr::kTileRows - 1) / hctr::kTileRows;
@@ -296,11 +298,17 @@ extern "C" int hctr_segscan(int dtype, const void* vals, const void* heads, void
   hctr::segscan_init<<<static_cast<unsigned>(want < 1024 ? want : 1024), 256, 0, s>>>(sc.counter, n);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (dtype == hctr::kF32)
-    return vec == 4 ? hctr::launch<float, 4>(vals, heads, out, sc, tiles, e, k, s)
-                    : hctr::launch<float, 1>(vals, heads, out, sc, tiles, e, k, s);
-  if (dtype == hctr::kBF16)
-    return vec == 4 ? hctr::launch<__nv_bfloat16, 4>(vals, heads, out, sc, tiles, e, k, s)
-                    : hctr::launch<__nv_bfloat16, 1>(vals, heads, out, sc, tiles, e, k, s);
+  using hctr::launch;
+  using bf16 = __nv_bfloat16;
+  const bool v4 = vec == 4;
+  if (dtype == hctr::kF32 && out_dtype == hctr::kF32)
+    return v4 ? launch<float, float, 4>(vals, heads, out, sc, tiles, e, k, s)
+              : launch<float, float, 1>(vals, heads, out, sc, tiles, e, k, s);
+  if (dtype == hctr::kBF16 && out_dtype == hctr::kBF16)
+    return v4 ? launch<bf16, bf16, 4>(vals, heads, out, sc, tiles, e, k, s)
+              : launch<bf16, bf16, 1>(vals, heads, out, sc, tiles, e, k, s);
+  if (dtype == hctr::kBF16 && out_dtype == hctr::kF32)
+    return v4 ? launch<bf16, float, 4>(vals, heads, out, sc, tiles, e, k, s)
+              : launch<bf16, float, 1>(vals, heads, out, sc, tiles, e, k, s);
   return cudaErrorInvalidValue;
 }

@@ -63,6 +63,7 @@ class SyntheticReader(BaseReader):
         alpha: float = 0.0,
         seed: int = 1234,
         repeat: bool = True,
+        learnable_labels: bool = False,
     ):
         self.spec = spec
         self.slot_vocabs = {k: list(v) for k, v in slot_vocabs.items()}
@@ -70,6 +71,8 @@ class SyntheticReader(BaseReader):
         self.alpha = alpha
         self.seed = seed
         self.repeat = repeat
+        # labels drawn from the keys' parities and dense[0] (reader.py:154)
+        self.learnable_labels = learnable_labels
         for f in spec.sparse:
             if len(self.slot_vocabs[f.name]) != f.slot_num:
                 raise ValueError(f"{f.name}: need one vocab per slot")
@@ -101,4 +104,14 @@ class SyntheticReader(BaseReader):
                     k = rng.integers(0, vocab, size=(s.batch_size, nnz))
                 cols.append(k)
             b[f.name] = np.concatenate(cols, axis=1).astype(s.key_dtype)
+        if self.learnable_labels:
+            # logit: the first slot's key parities summed over the features,
+            # centred, plus dense[0]; then one more draw from the stream
+            sig = np.zeros(s.batch_size, np.float32)
+            for f in s.sparse:
+                sig += (b[f.name][:, 0] % 2).astype(np.float32)
+            sig = sig - sig.mean() + 2.0 * (b[s.dense_name][:, 0] - 0.5)
+            prob = 1.0 / (1.0 + np.exp(-2.0 * sig))
+            lab = (rng.random(s.batch_size) < prob).astype(np.float32)
+            b[s.label_names[0]] = np.repeat(lab[:, None], s.label_dims[0], axis=1)
         return b

@@ -19,6 +19,20 @@ The embedding backward is not autograd, as in the JAX package: the dense
 network's gradient with respect to the embedding outputs is taken first and
 `backward_and_update` applies the fused update, in place.
 
+Split tables (the plan's hot/cold tiers): each tier lookup reads the raw
+keys through its window [key_lo, key_hi) (`_group_keys`, collection.py:741;
+in the one-hot kernel for the superhot tier), the forward sums the tiers'
+outputs into the user's top and a Mean merge divides by the count of the
+raw valid keys (`_merge_outputs`, :768); the backward hands the user's
+cotangent to every tier (`_expand_d_outs`, :788). Each tier group sorts its
+own keys: the JAX package's shared sort of a split table's raw keys
+(`_tier_sorted_rows`, :1758) lets XLA merge identical sorts and gives the
+same rows.
+
+Tables are float32 or bfloat16 and the optimizer state float32 or bfloat16
+(`state_dtype`, collection.py:130); the optimizers compute in float32 and
+round once to each array's type.
+
 `route_counts` counts, per route ("onehot", "dense", "sorted"), the groups
 updated since the collection was built; `group_routes` holds each group's
 route in the last backward.
@@ -32,8 +46,14 @@ import numpy as np
 import torch
 
 from ..core.mesh import ResourceManager
-from ..core.types import Combiner_t
-from ..ops.onehot_matmul import GroupLookup, onehot_fwd_group, onehot_matmul_bwd, place_keys
+from ..core.types import INVALID_KEY, Combiner_t
+from ..ops.onehot_matmul import (
+    GroupLookup,
+    onehot_fwd_group,
+    onehot_matmul_bwd,
+    place_keys,
+    window_keys,
+)
 from ..optim.params import OptParams
 from ..parallel.plan import CompiledEmbeddingPlan, GroupPlan
 from . import sparse_optimizer
@@ -55,11 +75,12 @@ class _GroupMeta:
 
 
 def onehot_fwd_lookups(g: GroupPlan) -> List[GroupLookup]:
-    """Descriptors of a one-hot group's forward, one per lookup."""
+    """Descriptors of a one-hot group's forward, one per lookup (the split
+    shifts a window by its key_lo)."""
     return [
         GroupLookup(
             int(g.local_offsets[lm.table_index]), int(g.table_vocab[lm.table_index]),
-            lm.out_begin, lm.combiner == Combiner_t.Mean,
+            lm.out_begin, lm.combiner == Combiner_t.Mean, lm.key_lo, lm.key_hi,
         )
         for lm in g.lookups
     ]
@@ -92,15 +113,17 @@ class EmbeddingCollection:
         dtype=torch.float32,
         dense_update_rows: int = 262144,
         dense_key_ratio: float = 0.3,
+        state_dtype=torch.float32,
     ):
-        if dtype != torch.float32:
-            raise NotImplementedError("bf16 tables are not ported yet (ROADMAP Queue 1 item 2)")
+        for what, dt in (("tables", dtype), ("optimizer state", state_dtype)):
+            if dt not in (torch.float32, torch.bfloat16):
+                raise ValueError(f"{what} must be float32 or bfloat16, got {dt}")
         self.plan = plan
         self.rm = rm
         self.device = rm.device
         self.opt = opt
         self.dtype = dtype
-        self.state_dtype = torch.float32
+        self.state_dtype = state_dtype
         self.dense_update_rows = dense_update_rows
         self.dense_key_ratio = dense_key_ratio
         self._meta = {g.name: _GroupMeta(g, self.device) for g in plan.groups}
@@ -163,7 +186,13 @@ class EmbeddingCollection:
         return out
 
     def _group_keys(self, g: GroupPlan, feature_keys: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return torch.cat(self._lookup_keys(g, feature_keys), dim=1).long()
+        """[B, H] int32 keys of the group, each lookup's through its window
+        (collection.py:730-747)."""
+        return torch.cat(
+            [window_keys(k, lm.key_lo, lm.key_hi)
+             for k, lm in zip(self._lookup_keys(g, feature_keys), g.lookups)],
+            dim=1,
+        )
 
     def _slot_placement(self, gname: str, keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(valid, local storage row) of [B, H] keys (collection.py:427):
@@ -190,7 +219,41 @@ class EmbeddingCollection:
                 go = self._dp_fwd(g.name, tables[g.name], self._group_keys(g, feature_keys))
             for lm in g.lookups:
                 outs[lm.top_name] = go[:, lm.out_begin : lm.out_end]
+        return self._merge_outputs(outs, feature_keys)
+
+    def _merge_denom(self, m, feature_keys: Dict[str, torch.Tensor], dtype) -> torch.Tensor:
+        """[B, 1] count of a split lookup's raw valid keys, at least 1
+        (collection.py:749)."""
+        k = feature_keys[m.bottom_name]
+        if k.dim() == 1:
+            k = k.unsqueeze(1)
+        return self._count(k.to(torch.int32) != INVALID_KEY, dtype)
+
+    def _merge_outputs(self, outs, feature_keys) -> Dict[str, torch.Tensor]:
+        """Each split lookup's top is the sum of its tiers' tops; Mean
+        divides by the raw valid count (collection.py:768)."""
+        for m in self.plan.merges:
+            o = outs.pop(m.sub_tops[0])
+            for sub in m.sub_tops[1:]:
+                o = o + outs.pop(sub)
+            if m.combiner == Combiner_t.Mean:
+                o = o / self._merge_denom(m, feature_keys, o.dtype)
+            outs[m.top_name] = o
         return outs
+
+    def _expand_d_outs(self, d_outs, feature_keys) -> Dict[str, torch.Tensor]:
+        """The user top's cotangent to each tier's top; Mean divides it by
+        the raw valid count (collection.py:788)."""
+        if not self.plan.merges:
+            return d_outs
+        d_outs = dict(d_outs)
+        for m in self.plan.merges:
+            d = d_outs.pop(m.top_name)
+            if m.combiner == Combiner_t.Mean:
+                d = d / self._merge_denom(m, feature_keys, d.dtype)
+            for sub in m.sub_tops:
+                d_outs[sub] = d
+        return d_outs
 
     def _onehot_local_keys(self, g: GroupPlan, lm, valid, local_row) -> torch.Tensor:
         """Table-local int32 rows of one lookup, -1 for padding
@@ -241,6 +304,7 @@ class EmbeddingCollection:
         (collection.py:1567). d_outs: {top_name: [B, out_width]} cotangents
         from the dense network. Returns the (updated) inputs."""
         lr = torch.as_tensor(lr, dtype=self.dtype, device=self.device)
+        d_outs = self._expand_d_outs(d_outs, feature_keys)
         for g in self.plan.groups:
             keys = self._group_keys(g, feature_keys)
             d_group = torch.cat([d_outs[lm.top_name].to(self.dtype) for lm in g.lookups], dim=1)
@@ -253,9 +317,14 @@ class EmbeddingCollection:
                 route = "onehot"
             else:
                 idx, src, dsrc = self._row_grads(g.name, keys, d_group)
+                # the key-ratio rule counts valid keys; a tier's key list is
+                # mostly padding, and without a measured count the JAX
+                # package turns the rule off for it (collection.py:1970)
+                windowed = any(lm.windowed for lm in g.lookups)
                 route = sparse_optimizer.apply_sparse(
                     opt, tables[g.name], opt_state[g.name], idx, src, dsrc, lr,
-                    dense_rows=self.dense_update_rows, dense_ratio=self.dense_key_ratio,
+                    dense_rows=self.dense_update_rows,
+                    dense_ratio=0.0 if windowed else self.dense_key_ratio,
                 )
             self.route_counts[route] += 1
             self.group_routes[g.name] = route
@@ -327,13 +396,26 @@ class EmbeddingCollection:
         raise KeyError(name)
 
     def export_table(self, tables: Tables, table_name: str) -> np.ndarray:
-        """One table as a [vocab, ev] host array (collection.py:2101)."""
+        """One table as a [vocab, ev] host array, a split table put back
+        together from its tiers (collection.py:2101); float32 for bfloat16
+        tables (numpy has no bfloat16)."""
+        if table_name in self.plan.table_splits:
+            return np.concatenate(
+                [self.export_table(tables, sub) for sub, _off in self.plan.table_splits[table_name]]
+            )
         g, ti = self._find_table(table_name)
         off, vocab = int(g.local_offsets[ti]), int(g.table_vocab[ti])
-        return tables[g.name][off : off + vocab].detach().cpu().numpy()
+        return tables[g.name][off : off + vocab].detach().float().cpu().numpy()
 
     def import_table(self, tables: Tables, table_name: str, values: np.ndarray) -> Tables:
-        """Write one table from a [vocab, ev] array (collection.py:2124)."""
+        """Write one table from a [vocab, ev] array, a split table's rows
+        into its tiers (collection.py:2124)."""
+        if table_name in self.plan.table_splits:
+            subs = self.plan.table_splits[table_name]
+            for i, (sub, off) in enumerate(subs):
+                end = subs[i + 1][1] if i + 1 < len(subs) else values.shape[0]
+                self.import_table(tables, sub, values[off:end])
+            return tables
         g, ti = self._find_table(table_name)
         off, vocab = int(g.local_offsets[ti]), int(g.table_vocab[ti])
         if values.shape != (vocab, g.ev_size):
@@ -341,5 +423,5 @@ class EmbeddingCollection:
                 f"table {table_name}: expected {(vocab, g.ev_size)}, got {values.shape}"
             )
         with torch.no_grad():
-            tables[g.name][off : off + vocab].copy_(torch.as_tensor(np.asarray(values)))
+            tables[g.name][off : off + vocab].copy_(torch.as_tensor(np.asarray(values, np.float32)))
         return tables

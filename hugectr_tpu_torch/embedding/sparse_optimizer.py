@@ -7,10 +7,15 @@ routes of the training slice:
   shards, or big shards whose key count reaches `dense_ratio` x rows, add
   their row gradients into a dense [R, E] buffer and run one element-wise
   pass (`apply_dense`, :254);
-* the sorted route (:623-643): sort (row, grad-source) pairs, gather the
-  gradient rows, take segmented running sums with the segscan kernel
-  (`dedup_rows` scan contract, :127-149) and update the segment tails
-  (`_apply_rows`, :752).
+* the sorted route (:506-621): sort (row, grad-source) pairs, keep the
+  valid prefix (invalid keys carry the sentinel row and sort last, :607),
+  gather its gradient rows, take segmented running sums in float32 with the
+  segscan kernel (`dedup_rows` scan contract, :127-149) and update the
+  segment tails, which are the unique rows (`_apply_rows`, :752).
+
+Tables may be bfloat16 and the state bfloat16: the update math runs in
+float32 and each result is rounded once to its array's type (:272-303,
+:835-844).
 
 The JAX package returns new arrays; the port updates tables and state in
 place, which saves a table-sized copy per group and step. Out-of-range
@@ -21,7 +26,7 @@ Only AdaGrad and RowWiseAdaGrad are ported; the others raise.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -53,22 +58,28 @@ def init_state(
 
 
 def dedup_rows(
-    idx: torch.Tensor, src: torch.Tensor, dsrc: torch.Tensor
+    idx: torch.Tensor, src: torch.Tensor, dsrc: torch.Tensor, rows: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Scan contract of `dedup_rows` (sparse_optimizer.py:127-149).
 
     idx [K] row ids (invalid entries carry the sentinel R, which sorts
     last); src [K] row of `dsrc` [S, E] holding each key's gradient.
-    Returns (sorted row ids with duplicates, inclusive segmented sums, tail
-    mask): the tail row of each run of equal ids holds the run's full sum.
-    The sort is stable, like lax.sort, so sums are taken in the same order.
+    Returns (sorted row ids with duplicates, inclusive segmented sums in
+    float32 for float32 or bfloat16 `dsrc`, tail mask): the tail row of
+    each run of equal ids holds the run's full sum. The sort is stable, like
+    lax.sort, so sums are taken in the same order. Given `rows` (= R), only
+    the valid prefix (ids < R) is kept: the same sums for the valid rows,
+    without gathering and scanning the padding (sparse_optimizer.py:607).
     """
     sidx, perm = torch.sort(idx, stable=True)
+    if rows is not None:
+        n = int(torch.count_nonzero(sidx < rows))
+        sidx, perm = sidx[:n], perm[:n]
     sgrads = dsrc[src[perm]]
     k = sidx.shape[0]
     head = torch.ones(k, dtype=torch.bool, device=idx.device)
     head[1:] = sidx[1:] != sidx[:-1]
-    summed = segmented_sum_sorted(sgrads.contiguous(), head)
+    summed = segmented_sum_sorted(sgrads.contiguous(), head, torch.float32)
     tail = torch.ones_like(head)
     tail[:-1] = head[1:]
     return sidx, summed, tail
@@ -83,19 +94,20 @@ def apply_dense(
     lr: torch.Tensor,
 ) -> None:
     """Full-table update with lazy-row semantics, in place
-    (sparse_optimizer.py:254): untouched rows keep table and state."""
+    (sparse_optimizer.py:254): untouched rows keep table and state. The new
+    rows are table + delta in float32, rounded once to the table's type."""
     kind = opt.optimizer
     _require_ported(kind)
     g = grad.float()
     if kind == Optimizer_t.AdaGrad:
         accum = state["accum"] + g * g
-        table.add_((-lr * g / (torch.sqrt(accum) + opt.epsilon)).to(table.dtype))
+        table.copy_(table + (-lr * g / (torch.sqrt(accum) + opt.epsilon)))
         state["accum"].copy_(accum)
         return
     # RowWiseAdaGrad: the sqrt stays float32 here (:297-303)
     g2 = torch.mean(g * g, dim=1, keepdim=True)
     accum = state["accum"].float() + g2
-    table.add_((-lr * g / (torch.sqrt(accum) + opt.epsilon)).to(table.dtype))
+    table.copy_(table + (-lr * g / (torch.sqrt(accum) + opt.epsilon)))
     state["accum"].copy_(torch.where(touched.unsqueeze(1), accum, state["accum"].float()))
 
 
@@ -107,8 +119,10 @@ def _apply_rows(
     uidx: torch.Tensor,
     g: torch.Tensor,
 ) -> None:
-    """Per-row update of unique rows `uidx` with summed gradients `g`, in
-    add form like the JAX dup-mode scatters (sparse_optimizer.py:752-844)."""
+    """Per-row update of unique rows `uidx` with float32 summed gradients
+    `g`, as the JAX package's unique-row route (sparse_optimizer.py:752-844):
+    the table adds the delta rounded to its type, the state is set to the
+    new value rounded to its type."""
     kind = opt.optimizer
     _require_ported(kind)
     acc = state["accum"]
@@ -122,7 +136,7 @@ def _apply_rows(
         accum = accum_old.float() + g2
         delta = -lr * g / (torch.sqrt(accum).to(g.dtype) + opt.epsilon)
     table.index_add_(0, uidx, delta.to(table.dtype))
-    acc.index_add_(0, uidx, (accum - accum_old).to(acc.dtype))
+    acc.index_copy_(0, uidx, accum.to(acc.dtype))
 
 
 def update_route(rows: int, k: int, dense_rows: int, dense_ratio: float) -> str:
@@ -159,8 +173,7 @@ def apply_sparse(
         touched = torch.any(grad != 0, dim=1)
         apply_dense(opt, table, state, grad, touched, lr)
         return route
-    sidx, summed, tail = dedup_rows(idx, src, dsrc.to(table.dtype))
+    sidx, summed, tail = dedup_rows(idx, src, dsrc.to(table.dtype), rows)
     # only tails carry full sums; keeping them makes the rows unique
-    keep = tail & (sidx < rows)
-    _apply_rows(opt, table, state, lr, sidx[keep], summed[keep])
+    _apply_rows(opt, table, state, lr, sidx[tail], summed[tail])
     return route

@@ -1,7 +1,14 @@
 """Fused MLP (counterpart of hugectr_tpu/layers/gemm.py `_mlp_apply` :95).
 
-GEMMs stay `torch.addmm` / `torch.matmul`, as the JAX package leaves them to
-XLA; with TF32 off they run in full fp32.
+Each product takes its inputs and weights in the compute dtype and sums in
+float32 into a float32 result (`preferred_element_type=f32`, gemm.py:34);
+the bias is added in float32 and the layer's output is cast back to the
+compute dtype. In float32 the GEMMs are `torch.addmm` / `torch.matmul` with
+TF32 off. Under mixed precision (bf16) they run on the card's tensor cores
+with float32 output (`torch.mm(..., out_dtype=torch.float32)`); on the CPU
+the bf16 operands are widened to float32 first, which computes the same
+sums. Parameters stay float32: autograd takes their gradients through the
+casts.
 """
 from __future__ import annotations
 
@@ -25,11 +32,39 @@ def _act(kind: Activation_t, x: torch.Tensor) -> torch.Tensor:
     raise NotImplementedError(f"activation {kind.value} is not ported yet")
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """a @ b of bf16-valued operands, float32 sums, `out_dtype` result."""
+    if a.is_cuda:
+        return torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16), out_dtype=out_dtype)
+    return torch.mm(a.float(), b.float()).to(out_dtype)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """[M, K] @ [K, N] of bf16 operands with a float32 result; the
+    gradients take the operands' dtype (the JAX transpose rule of a dot with
+    preferred_element_type)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm(a, b, torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = _mm(g, b.t(), a.dtype) if ctx.needs_input_grad[0] else None
+        gb = _mm(a.t(), g, b.dtype) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, b, dtype: torch.dtype) -> torch.Tensor:
-    """x @ w (+ b), accumulated in fp32 (gemm.py:34)."""
-    if b is None:
-        return torch.matmul(x.to(dtype), w.to(dtype)).float()
-    return torch.addmm(b.float(), x.to(dtype), w.to(dtype)).float()
+    """x @ w (+ b) in float32 from operands in `dtype` (gemm.py:34)."""
+    if dtype == torch.float32:
+        if b is None:
+            return torch.matmul(x.float(), w)
+        return torch.addmm(b, x.float(), w)
+    y = _MatmulF32.apply(x.to(dtype), w.to(dtype))
+    return y if b is None else y + b.float()
 
 
 @register("MLP")

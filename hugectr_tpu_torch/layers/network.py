@@ -88,6 +88,14 @@ class Network(nn.Module):
                 tensors[t] = o
         return tensors
 
+    def predictions(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Per loss layer, the sigmoid of its logits in float32, under its
+        label's name: the eval predictions (network.py:204)."""
+        return {
+            spec.label_name: torch.sigmoid(tensors[spec.pred_name].float())
+            for spec in self.loss_specs
+        }
+
     def forward_with_loss(
         self, tensors: Dict[str, torch.Tensor], compute_dtype: torch.dtype
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

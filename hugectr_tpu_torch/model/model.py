@@ -1,6 +1,11 @@
-"""High-level Model API: add / compile / train (counterpart of
+"""High-level Model API: add / compile / train / eval / fit (counterpart of
 hugectr_tpu/model/model.py: `Model.__init__`/`add`/`compile` :152-498,
-`train_step` :787-883, `train`/`train_async` :1253/:1257).
+`train_step` :787-883, `train`/`train_async` :1253/:1257, `eval` :1390,
+`fit` :1441).
+
+`compile` takes the Solver's embedding dtype (float32 or bfloat16 tables
+and optimizer state), mixed precision (bf16 products in the dense network)
+and the hot/cold/superhot split of big tables.
 
 The JAX package jits the whole iteration; here the step runs eagerly:
 
@@ -12,25 +17,34 @@ The JAX package jits the whole iteration; here the step runs eagerly:
 3. the dense AdaGrad update, in place;
 4. the fused embedding backward and sparse update, in place.
 
-Eval, fit, snapshots, i64 key folding, callbacks and the file readers wait
-for later slices.
+`eval` runs one eager forward under `no_grad` per batch of the eval set
+(synthetic eval batches made once and kept on the device, cycled to fill
+`max_eval_batches` when `repeat_dataset` is set) into a `MetricAccumulator`,
+with no host sync per batch. The JAX package's scanned eval (many batches in
+one XLA dispatch) is a device of XLA's and is not ported.
+
+Snapshots, i64 key folding, callbacks and the file readers wait for later
+slices.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.config import DataReaderParams, DenseLayer, Input, Solver
+from ..core.logger import get_logger
 from ..core.mesh import DeviceLike, ResourceManager
 from ..core.types import DataReaderType_t
 from ..data.reader import BatchSpec, SparseFeatureSpec, SyntheticReader
 from ..embedding.collection import EmbeddingCollection
 from ..embedding.config import EmbeddingCollectionConfig
 from ..layers.network import Network
+from ..metrics.metrics import MetricAccumulator
 from ..optim.dense import DenseOptimizer
 from ..optim.lr_schedule import LearningRateScheduler
 from ..optim.params import OptParams
@@ -91,8 +105,6 @@ class Model:
         if self.input is None:
             raise ValueError("model needs an Input")
         s = self.solver
-        if s.use_mixed_precision or s.embedding_vec_dtype not in ("float32", "fp32"):
-            raise NotImplementedError("bf16 and mixed precision are not ported yet (ROADMAP Queue 1 item 2)")
         if s.i64_input_key:
             raise NotImplementedError("i64 input keys are not ported yet")
         inp = self.input
@@ -108,6 +120,7 @@ class Model:
             dense_name=inp.dense_name,
             sparse=sparse_specs,
         )
+        self.eval_batch_spec = dataclasses.replace(self.batch_spec, batch_size=s.batchsize_eval)
         self._sparse_by_name = {f.name: f for f in sparse_specs}
 
         # ---- embedding plan (model.py:242-411)
@@ -139,10 +152,12 @@ class Model:
             plan = compile_plan(
                 lookup_cfgs, ShardingPlan(strategy=strategy), num_shards=1,
                 shard_counts=shard_counts, onehot_vocab=s.onehot_vocab, split_vocab=s.split_vocab,
+                hot_rows=s.hot_rows, superhot_rows=s.superhot_rows, warm_rows=s.warm_rows,
             )
             self.ec = EmbeddingCollection(
-                plan, self.rm, self.opt_params, dtype=torch.float32,
+                plan, self.rm, self.opt_params, dtype=s.emb_dtype,
                 dense_update_rows=s.dense_update_rows, dense_key_ratio=s.dense_key_ratio,
+                state_dtype=s.emb_state_dtype,
             )
 
         # ---- dense network (model.py:413-435)
@@ -153,11 +168,10 @@ class Model:
         input_shapes[inp.dense_name] = (b, inp.dense_dim)
         if self.ec is not None:
             for user_top, tops in self._user_tops.items():
-                width = 0
-                for t in tops:
-                    _, lm = self.ec.plan.group_of_lookup(int(t.rsplit(":", 1)[1]))
-                    width += lm.out_end - lm.out_begin
-                input_shapes[user_top] = (b, width)
+                # the user's lookups, before the split merges its tiers back
+                input_shapes[user_top] = (
+                    b, sum(self.ec.plan.lookups[int(t.rsplit(":", 1)[1])].out_width for t in tops)
+                )
         gen = self.rm.generator(s.seed)
         self.network = Network(
             self.dense_layers, input_shapes, gen, self.device, label_weights=inp.label_weights
@@ -171,10 +185,23 @@ class Model:
         if self.ec is not None:
             self.tables = self.ec.init(gen)
             self.eopt = self.ec.init_optimizer(self.tables)
-        self.train_reader = self._make_reader()
+        self.train_reader = self._make_reader(train=True)
+        self.eval_reader = self._make_reader(train=False)
         self._train_iter = None
+        self._eval_cache: Optional[List[Dict[str, torch.Tensor]]] = None
+        self._last_eval_metrics: Dict[str, float] = {}
+        label_dims = dict(zip(self.batch_spec.label_names, self.batch_spec.label_dims))
+        if len(self.network.loss_specs) != 1:
+            raise NotImplementedError("eval of multi-task models is not ported yet")
+        self.metrics = MetricAccumulator(
+            s.metrics_spec, batch_size=s.batchsize_eval, max_batches=s.max_eval_batches,
+            device=self.device, label_dim=label_dims.get(self.network.loss_specs[0].label_name, 1),
+            auc_exact_max=s.auc_exact_max,
+        )
 
-    def _make_reader(self) -> Optional[SyntheticReader]:
+    def _make_reader(self, train: bool) -> Optional[SyntheticReader]:
+        """The train or the eval reader (model.py:501); the eval reader
+        takes the eval batch size and the seed + 99991."""
         rp = self.reader_params
         if rp is None:
             return None
@@ -183,11 +210,12 @@ class Model:
                 f"reader {rp.data_reader_type.value} is not ported yet (ROADMAP Queue 1 item 7)"
             )
         return SyntheticReader(
-            self.batch_spec,
+            self.batch_spec if train else self.eval_batch_spec,
             self._slot_vocabs(),
             num_batches=rp.synthetic_num_batches,
             alpha=rp.synthetic_alpha,
-            seed=(self.solver.seed or 1234),
+            seed=(self.solver.seed or 1234) + (0 if train else 99991),
+            learnable_labels=rp.synthetic_learnable,
         )
 
     def _slot_vocabs(self) -> Dict[str, List[int]]:
@@ -268,3 +296,83 @@ class Model:
     def train(self) -> float:
         """One training iteration; returns the loss (model.py:1253)."""
         return float(self.train_async())
+
+    # ---------------------------------------------------------------- eval
+    def _eval_batches(self):
+        """The eval batches (model.py:1292): the synthetic eval set's first
+        min(num_batches, max_eval_batches) batches, made once and kept on
+        the device; cycled to cover max_eval_batches when repeat_dataset is
+        set."""
+        if self.eval_reader is None:
+            raise ValueError("model has no reader")
+        n = self.solver.max_eval_batches
+        if self._eval_cache is None:
+            it = iter(self.eval_reader)
+            self._eval_cache = [self._put_batch(next(it))
+                                for _ in range(min(self.eval_reader.num_batches, n))]
+        if self.solver.repeat_dataset and len(self._eval_cache) < n:
+            return itertools.islice(itertools.cycle(self._eval_cache), n)
+        return iter(self._eval_cache)
+
+    @torch.no_grad()
+    def _eval_step(self, batch: Dict[str, torch.Tensor]):
+        """The forward of one eval batch: (loss, predictions, labels) of the
+        loss layer, on the device (model.py:885)."""
+        ec = self.ec
+        emb_outs = ec.forward(self.tables, self._feature_keys(batch)) if ec is not None else {}
+        tensors = {n: batch[n] for n in (*self.batch_spec.label_names, self.batch_spec.dense_name)}
+        tensors.update(self._user_tensors(emb_outs))
+        loss, out = self.network.forward_with_loss(tensors, self.solver.compute_dtype)
+        spec = self.network.loss_specs[0]
+        return loss, self.network.predictions(out)[spec.label_name], tensors[spec.label_name]
+
+    def eval(self) -> Dict[str, float]:
+        """One pass over max_eval_batches eval batches; returns the metrics
+        (model.py:1390). Losses, predictions and labels stay on the device
+        until the metrics are finalized."""
+        self.metrics.reset()
+        for batch in self._eval_batches():
+            loss, preds, labels = self._eval_step(batch)
+            self.metrics.update(preds, labels, loss=loss)
+        self._last_eval_metrics = self.metrics.finalize()
+        return self._last_eval_metrics
+
+    def get_eval_metrics(self) -> List[Tuple[str, float]]:
+        """The last eval's metrics as (name, value) pairs (model.py:1929)."""
+        return list(self._last_eval_metrics.items())
+
+    def fit(self, num_epochs: int = 0, max_iter: int = 1000, display: int = 200,
+            eval_interval: int = 1000, snapshot: int = 0, snapshot_prefix: str = "") -> None:
+        """The training loop (model.py:1441): `max_iter` iterations (or
+        `num_epochs` passes over the train reader), the loss checked and
+        logged every `display` iterations (a non-finite loss raises), an
+        eval every `eval_interval` iterations, stopping early once a metric
+        passes its threshold in `metrics_spec`. Snapshots are not ported."""
+        if snapshot:
+            raise NotImplementedError("snapshots are not ported yet (ROADMAP Queue 1 item 9)")
+        log = get_logger()
+        self.start_data_reading()
+        if num_epochs > 0:
+            max_iter = num_epochs * max(self.train_reader.num_batches, 1)
+        t0 = window_t0 = time.time()
+        window_iter = 0
+        for it in range(1, max_iter + 1):
+            loss_dev = self.train_async()
+            if display and it % display == 0:
+                loss = float(loss_dev)  # one host sync per display window
+                if not np.isfinite(loss):
+                    raise RuntimeError(f"NaN/Inf loss at iter {it}: training stopped")
+                dt = time.time() - window_t0
+                ips = (it - window_iter) * self.solver.batchsize / max(dt, 1e-9)
+                log.info(f"Iter: {it} Time: {dt:.3f}s Loss: {loss:.6f} "
+                         f"lr: {self.lr_sch(it):.6f} ({ips:,.0f} ex/s)")
+                window_t0, window_iter = time.time(), it
+            if eval_interval and it % eval_interval == 0:
+                vals = self.eval()
+                log.info(f"Evaluation at iter {it}: {vals}")
+                if self.metrics.check_earlystop(vals):
+                    log.info(f"Hit target metric at iter {it}: {vals}; early stop")
+                    break
+        total = time.time() - t0
+        log.info(f"fit done: {self._step} iters in {total:.1f}s "
+                 f"({self._step * self.solver.batchsize / max(total, 1e-9):,.0f} ex/s)")

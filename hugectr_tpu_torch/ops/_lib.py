@@ -34,8 +34,8 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 # name: (argument types, return type)
 _SIGNATURES = {
-    # dtype, vals, heads, out, scratch, k, e, vec, stream
-    "hctr_segscan": ([_I, _P, _P, _P, _P, _I64, _I, _I, _P], _I),
+    # dtype, out_dtype, vals, heads, out, scratch, k, e, vec, stream
+    "hctr_segscan": ([_I, _I, _P, _P, _P, _P, _I64, _I, _I, _P], _I),
     # k, e -> scratch bytes (-1: e too wide)
     "hctr_segscan_scratch_bytes": ([_I64, _I], _I64),
     "hctr_segscan_tile_rows": ([], _I),

@@ -11,10 +11,13 @@ into a caller's float32 buffers (`out=`, `cnt_out=`), so a group of tables
 zeroes its gradient once.
 
 `onehot_fwd_group` pools every lookup of a one-hot group in one launch from
-the raw feature keys (int32 or int64, any row stride): keys are cut to
-int32, -1 is padding, other keys wrap by floor modulo into the table's
-vocabulary (the JAX package's `_slot_placement`), and each lookup is
-written into its columns of the group's [B, W] output. The per-table
+the raw feature keys (int32 or int64, any row stride). Each key is placed as
+the JAX package's `_group_keys` and `_slot_placement` place it: cut to
+int32; -1, and for a windowed lookup (a tier of a split table) any key
+outside its window [key_lo, key_hi), is padding; a key in the window is
+shifted down by key_lo; any other key wraps by floor modulo into the
+table's vocabulary. Each lookup is written into its columns of the group's
+[B, W] output. The per-table
 `onehot_matmul_fwd` keeps the Pallas kernel's contract (table-local keys; a
 key outside [0, V) is padding) and runs the same kernel as a one-lookup
 group.
@@ -40,15 +43,26 @@ MAX_GROUP_LOOKUPS = 48  # kMaxLookups of csrc/onehot_matmul.cu
 FWD_ROUTES = ("gather", "mma")  # FwdRoute of csrc/onehot_matmul.cu, by code
 
 
+INT32_MAX = 2**31 - 1
+
+
 class GroupLookup(NamedTuple):
     """One lookup of a one-hot group: its table's rows [row_off, row_off +
     vocab) of the group storage, its output columns [out_begin, out_begin +
-    E) and whether it averages (Mean) or sums."""
+    E), whether it averages (Mean) or sums, and its key window (plan.py:81
+    with key_shift = key_lo, as the split makes it): windowed iff key_lo > 0
+    or key_hi >= 0; key_hi -1 has no upper bound."""
 
     row_off: int
     vocab: int
     out_begin: int
     mean: bool
+    key_lo: int = 0
+    key_hi: int = -1
+
+    @property
+    def windowed(self) -> bool:
+        return self.key_lo > 0 or self.key_hi >= 0
 
 
 class _CLookup(ctypes.Structure):
@@ -57,7 +71,8 @@ class _CLookup(ctypes.Structure):
     _fields_ = [
         ("keys", ctypes.c_void_p), ("key_stride", ctypes.c_int64), ("row_off", ctypes.c_int64),
         ("h", ctypes.c_int), ("v", ctypes.c_int), ("out_col", ctypes.c_int),
-        ("mean", ctypes.c_int), ("key64", ctypes.c_int),
+        ("mean", ctypes.c_int), ("key64", ctypes.c_int), ("key_lo", ctypes.c_int),
+        ("key_hi", ctypes.c_int),
     ]
 
 
@@ -66,6 +81,17 @@ def onehot_matmul_fwd_plain(keys: torch.Tensor, table: torch.Tensor) -> torch.Te
     valid = (keys >= 0) & (keys < v)
     rows = table[torch.where(valid, keys, 0).long()].float()
     return (rows * valid.unsqueeze(-1)).sum(dim=1).to(table.dtype)
+
+
+def window_keys(keys: torch.Tensor, key_lo: int = 0, key_hi: int = -1) -> torch.Tensor:
+    """int32 keys of a lookup with its window applied (collection.py:741):
+    cut to int32; for a windowed lookup, keys outside [key_lo, key_hi)
+    become -1 (padding) and the others are shifted down by key_lo."""
+    k32 = keys.to(torch.int32)
+    if not (key_lo > 0 or key_hi >= 0):
+        return k32
+    hi = key_hi if key_hi >= 0 else INT32_MAX
+    return torch.where((k32 >= key_lo) & (k32 < hi), k32 - key_lo, INVALID_KEY)
 
 
 def place_keys(keys: torch.Tensor, vocab) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -82,12 +108,12 @@ def onehot_fwd_group_plain(
     keys: Sequence[torch.Tensor], lookups: Sequence[GroupLookup], table: torch.Tensor,
     out_width: int,
 ) -> torch.Tensor:
-    """Per lookup: the placement (int32 cut, -1 padding, floor-mod wrap),
-    the pooled sum in float32, the Mean division, one rounding."""
+    """Per lookup: the placement (int32 cut, window, -1 padding, floor-mod
+    wrap), the pooled sum in float32, the Mean division, one rounding."""
     e = table.shape[1]
     out = torch.zeros((keys[0].shape[0], out_width), dtype=table.dtype, device=table.device)
     for k, lk in zip(keys, lookups):
-        valid, local = place_keys(k, lk.vocab)
+        valid, local = place_keys(window_keys(k, lk.key_lo, lk.key_hi), lk.vocab)
         rows = table[lk.row_off : lk.row_off + lk.vocab].float()[local]
         o = (rows * valid.unsqueeze(-1)).sum(dim=1)
         if lk.mean:
@@ -125,8 +151,10 @@ def onehot_fwd_group(
         if k.device != table.device:
             raise ValueError("keys and table on different devices")
         if not (0 <= lk.row_off and lk.vocab >= 1 and lk.row_off + lk.vocab <= table.shape[0]
-                and 0 <= lk.out_begin and lk.out_begin + e <= out_width):
-            raise ValueError(f"lookup {lk} outside table rows {table.shape[0]} or width {out_width}")
+                and 0 <= lk.out_begin and lk.out_begin + e <= out_width
+                and 0 <= lk.key_lo <= INT32_MAX and -1 <= lk.key_hi <= INT32_MAX):
+            raise ValueError(f"lookup {lk} outside table rows {table.shape[0]}, width {out_width} "
+                             "or the int32 keys")
     if table.device.type == "cpu":
         PLAIN_CALLS["onehot_fwd"] += 1
         return onehot_fwd_group_plain(keys, lookups, table, out_width)
@@ -138,7 +166,7 @@ def onehot_fwd_group(
         raise ValueError("keys need a unit column stride")
     descs = (_CLookup * len(lookups))(*[
         _CLookup(k.data_ptr(), k.stride(0), lk.row_off, k.shape[1], lk.vocab, lk.out_begin,
-                 int(lk.mean), int(k.dtype == torch.int64))
+                 int(lk.mean), int(k.dtype == torch.int64), lk.key_lo, lk.key_hi)
         for k, lk in zip(keys, lookups)
     ])
     out = torch.empty((b, out_width), dtype=table.dtype, device=table.device)

@@ -6,9 +6,15 @@ group, and where each lookup's slots and outputs sit. numpy only, as in the
 JAX package. The engine thresholds are arguments (`Solver` fields) instead of
 environment variables.
 
-Left out of this slice: the hot/cold/superhot split (plan.py:355, off by
-default there), row-capped group binning (plan.py:468, off by default) and
-the scatter-counts one-hot rule (plan.py:499, off by default).
+The hot/cold split (`_split_hot_cold`, plan.py:355) rewrites each big static
+sum/mean table into sub-tables `name::shot|hot|warm|cold` over key windows
+[key_lo, key_hi): the superhot prefix joins the one-hot group, the other
+tiers are rowop groups of their own, and a `MergeMeta` sums the sub-lookups
+back into the user's top. `table_splits` maps a split table to its
+sub-tables and their first rows.
+
+Left out: row-capped group binning (plan.py:468, off by default) and the
+scatter-counts one-hot rule (plan.py:499, off by default).
 """
 from __future__ import annotations
 
@@ -51,6 +57,12 @@ class LookupConfig:
     top_name: str
     combiner: Combiner_t
     max_hotness: int
+    # key window (plan.py:81): a key k takes part iff key_lo <= k < key_hi
+    # (key_hi -1: no upper bound) and is looked up as k - key_shift; other
+    # keys are padding for this lookup
+    key_lo: int = 0
+    key_hi: int = -1
+    key_shift: int = 0
 
     @property
     def out_width(self) -> int:
@@ -66,8 +78,9 @@ class ShardingPlan:
     strategy: List[Tuple[str, List[str]]]
 
     def placement_of(self, table_name: str) -> TablePlacementStrategy:
+        base = table_name.split("::", 1)[0]  # split sub-tables inherit
         for kind, names in self.strategy:
-            if table_name in names:
+            if base in names:
                 return TablePlacementStrategy(kind)
         return TablePlacementStrategy.ModelParallel
 
@@ -85,6 +98,24 @@ class LookupMeta:
     out_begin: int
     out_end: int
     top_name: str
+    bottom_name: str
+    key_lo: int = 0
+    key_hi: int = -1
+    key_shift: int = 0
+
+    @property
+    def windowed(self) -> bool:
+        return self.key_lo > 0 or self.key_hi >= 0 or self.key_shift != 0
+
+
+@dataclasses.dataclass
+class MergeMeta:
+    """A split lookup's user top: the sum of its sub-lookups' tops; Mean
+    divides by the count of the raw valid keys (plan.py:159)."""
+
+    top_name: str
+    sub_tops: List[str]
+    combiner: Combiner_t
     bottom_name: str
 
 
@@ -139,8 +170,11 @@ class GroupPlan:
 @dataclasses.dataclass
 class CompiledEmbeddingPlan:
     groups: List[GroupPlan]
-    lookups: List[LookupConfig]
+    lookups: List[LookupConfig]  # the user's lookups, before any split
     num_shards: int
+    merges: List[MergeMeta] = dataclasses.field(default_factory=list)
+    # split table -> [(sub-table name, its first row in the table)]
+    table_splits: Dict[str, List[Tuple[str, int]]] = dataclasses.field(default_factory=dict)
 
     def group_of_lookup(self, lookup_id: int) -> Tuple[GroupPlan, LookupMeta]:
         for g in self.groups:
@@ -178,13 +212,74 @@ def _onehot_eligible(
     return out
 
 
+def _split_hot_cold(
+    lookups: Sequence[LookupConfig], hot: int, superhot: int, warm: int, onehot_vocab: int
+) -> Tuple[List[LookupConfig], List[MergeMeta], Dict[str, List[Tuple[str, int]]]]:
+    """Rewrite the lookups of eligible tables into sub-lookups, one per tier
+    (plan.py:355). A table is eligible when it holds at least
+    max(4 * hot, 2 * onehot_vocab) rows and every lookup into it is Sum or
+    Mean. Tiers: [0, superhot) when 0 < superhot < hot and superhot <=
+    onehot_vocab, [superhot, hot), [hot, warm) when warm > hot, and the rest;
+    tiers at or past the table's vocabulary are dropped. Sub-lookups sum;
+    the first keeps the lookup's id, the others take new ids after the
+    largest."""
+    if not hot:
+        return list(lookups), [], {}
+    by_table: Dict[str, List[LookupConfig]] = {}
+    for lk in lookups:
+        by_table.setdefault(lk.table.name, []).append(lk)
+
+    def eligible(t: EmbeddingTableConfig) -> bool:
+        return t.vocabulary_size >= max(4 * hot, 2 * onehot_vocab) and all(
+            lk.combiner in (Combiner_t.Sum, Combiner_t.Mean) for lk in by_table[t.name]
+        )
+
+    shot = superhot if 0 < superhot < hot and superhot <= onehot_vocab else 0
+    bounds = [0, shot, hot] if shot else [0, hot]
+    suffixes = ["shot", "hot", "cold"] if shot else ["hot", "cold"]
+    if warm > hot:
+        bounds.append(warm)
+        suffixes.insert(-1, "warm")
+
+    out: List[LookupConfig] = []
+    merges: List[MergeMeta] = []
+    splits: Dict[str, List[Tuple[str, int]]] = {}
+    sub_tables: Dict[str, List[EmbeddingTableConfig]] = {}
+    next_id = max(lk.lookup_id for lk in lookups) + 1 if lookups else 0
+    for lk in lookups:
+        t = lk.table
+        if not eligible(t):
+            out.append(lk)
+            continue
+        tiers = [(lo, sfx) for lo, sfx in zip(bounds, suffixes) if lo < t.vocabulary_size]
+        his = [lo for lo, _ in tiers[1:]] + [t.vocabulary_size]
+        if t.name not in sub_tables:
+            sub_tables[t.name] = [
+                dataclasses.replace(t, name=f"{t.name}::{sfx}", max_vocabulary_size=hi - lo)
+                for (lo, sfx), hi in zip(tiers, his)
+            ]
+            splits[t.name] = [(s.name, lo) for s, (lo, _) in zip(sub_tables[t.name], tiers)]
+        subs = [
+            dataclasses.replace(
+                lk, lookup_id=lk.lookup_id if i == 0 else next_id + i - 1, table=sub_t,
+                top_name=f"{lk.top_name}::{sfx}", combiner=Combiner_t.Sum,
+                key_lo=lo, key_hi=hi, key_shift=lo,
+            )
+            for i, (sub_t, (lo, sfx), hi) in enumerate(zip(sub_tables[t.name], tiers, his))
+        ]
+        next_id += len(subs) - 1
+        out.extend(subs)
+        merges.append(MergeMeta(lk.top_name, [s.top_name for s in subs], lk.combiner, lk.bottom_name))
+    return out, merges, splits
+
+
 def _shard_count_of(
     table: EmbeddingTableConfig, shard_counts: Optional[Dict[str, int]], num_shards: int
 ) -> int:
     """Per-table logical shard count (plan.py:566)."""
     if not shard_counts:
         return num_shards
-    f = int(shard_counts.get(table.name, 0) or num_shards)
+    f = int(shard_counts.get(table.name.split("::", 1)[0], 0) or num_shards)
     f = max(1, min(f, num_shards))
     while num_shards % f:
         f += 1
@@ -198,13 +293,19 @@ def compile_plan(
     shard_counts: Optional[Dict[str, int]] = None,
     onehot_vocab: int = 8192,
     split_vocab: int = 256 * 1024,
+    hot_rows: int = 0,
+    superhot_rows: int = 0,
+    warm_rows: int = 0,
 ) -> CompiledEmbeddingPlan:
-    """Group lookups by (placement, ev_size, engine, private split, shard
-    count) in first-appearance order and lay out each group's storage
-    (plan.py:584)."""
+    """Split the big tables into tiers (`hot_rows` > 0), then group lookups
+    by (placement, ev_size, engine, private split, shard count) in
+    first-appearance order and lay out each group's storage (plan.py:584)."""
     if num_shards < 1:
         raise ValueError("num_shards must be >= 1")
-    lookups = list(lookups)
+    orig_lookups = list(lookups)
+    lookups, merges, table_splits = _split_hot_cold(
+        orig_lookups, hot_rows, superhot_rows, warm_rows, onehot_vocab
+    )
     eligible = _onehot_eligible(lookups, onehot_vocab)
     group_keys: List[Tuple] = []
     group_lookups: Dict[Tuple, List[LookupConfig]] = {}
@@ -268,6 +369,9 @@ def compile_plan(
                     out_end=out_cursor + lk.out_width,
                     top_name=lk.top_name,
                     bottom_name=lk.bottom_name,
+                    key_lo=lk.key_lo,
+                    key_hi=lk.key_hi,
+                    key_shift=lk.key_shift,
                 )
             )
             slot_table.extend([ti] * lk.max_hotness)
@@ -303,4 +407,7 @@ def compile_plan(
                 compute_kind=kind,
             )
         )
-    return CompiledEmbeddingPlan(groups=groups, lookups=lookups, num_shards=num_shards)
+    return CompiledEmbeddingPlan(
+        groups=groups, lookups=orig_lookups, num_shards=num_shards, merges=merges,
+        table_splits=table_splits,
+    )

@@ -12,9 +12,13 @@ JAX. The tree holds:
 
 The two packages name groups and layers alike and keep the same layouts
 (MLP weights [fan_in, fan_out], row-wise accumulators [R, 1]), so no array
-is transposed; shapes are checked. `export_state` writes a port model's
-state as the same tree, so one port model can be copied into another (on
-another device).
+is transposed; shapes are checked. A split table's tiers are groups of
+their own in both (`mp_ev128_20::cold`, the superhot tier's rows inside the
+one-hot group's storage), so they carry like any group. bfloat16 arrays
+(numpy's from the JAX package, or torch's) go through float32, which holds
+every bfloat16 value, and are rounded back exactly. `export_state` writes a
+port model's state as the same tree (bfloat16 as float32), so one port
+model can be copied into another (on another device).
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ def _copy(dst: torch.Tensor, src: Any, what: str) -> None:
     arr = np.array(src)
     if tuple(arr.shape) != tuple(dst.shape):
         raise ValueError(f"{what}: shape {arr.shape} != {tuple(dst.shape)}")
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' type, which torch does not read
+        arr = arr.astype(np.float32)
     dst.copy_(torch.from_numpy(arr).to(dst.dtype))
 
 
@@ -53,7 +59,8 @@ def export_state(model) -> Dict[str, Any]:
     """`model`'s state as the numpy tree `load_jax_state` reads."""
 
     def host(t: torch.Tensor) -> np.ndarray:
-        return t.detach().cpu().numpy()
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
     return {
         "emb_tables": {g: host(t) for g, t in model.tables.items()},

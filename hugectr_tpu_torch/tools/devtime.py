@@ -2,14 +2,20 @@
 
 `device_ms(fn, names)` runs `fn` once to warm up, then 20 times under the
 profiler, and returns the device time per call summed over the kernels
-whose names hold one of `names`, and their launches per call. A profile
-that records no device activity at all is taken again, up to three times.
-A CUDA-event time around a 3 us kernel measures the host's enqueue rate
-instead.
+whose names hold one of `names`, and their launches per call. A CUDA-event
+time around a 3 us kernel measures the host's enqueue rate instead.
+
+Now and then a profile records no device activity at all, and in some
+processes several in a row do. Such a profile is taken again, up to five
+times; if every one is empty, the time is that of CUDA events around 20
+back-to-back calls (an upper bound on the device time), the launches per
+call are None (unknown), and the measurement is listed in `FALLBACKS`.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+import sys
+import time
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,12 +28,31 @@ KERNEL_NAMES = {
     "index_add_": ("index",),
 }
 
+# the kernel names of each measurement that fell back to CUDA events
+FALLBACKS: List[Tuple[str, ...]] = []
 
-def device_ms(fn: Callable[[], object], names: Sequence[str], n: int = 20) -> Tuple[float, float]:
+
+def events_ms(fn: Callable[[], object], n: int = 20) -> float:
+    """Milliseconds per call between CUDA events around `n` back-to-back calls."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def device_ms(fn: Callable[[], object], names: Sequence[str], n: int = 20) -> Tuple[float, Optional[float]]:
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _attempt in range(3):
+    for attempt in range(5):
+        if attempt:
+            print(f"devtime: empty profile for {tuple(names)} (attempt {attempt})", file=sys.stderr)
+            time.sleep(0.2)
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(n):
                 fn()
@@ -39,8 +64,13 @@ def device_ms(fn: Callable[[], object], names: Sequence[str], n: int = 20) -> Tu
                 if any(k in evt.key for k in names):
                     us += evt.self_device_time_total
                     count += evt.count
-        if seen:  # now and then a profile records no device activity at all
+        if seen:
             break
+    if not seen:
+        FALLBACKS.append(tuple(names))
+        print(f"devtime: no device activity in 5 profiles for {tuple(names)}; CUDA events instead",
+              file=sys.stderr)
+        return events_ms(fn, n), None
     if count == 0:
         raise AssertionError(f"the profiler saw no device kernel named {names}; it saw {seen}")
     return us / 1e3 / n, count / n

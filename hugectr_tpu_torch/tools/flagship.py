@@ -4,13 +4,15 @@ DLRM-DCNv2 in the MLPerf v3.1 shape: 26 tables with the MLPerf multi-hot
 sizes, ev 128, bottom MLP 512/256/128, Concat, DCNv2 MultiCross (projection
 512, 3 layers), top MLP 1024/1024/512/256/1, BCE. `vocab_cap` caps each
 table's vocabulary. The JAX package's `build_dlrm_dcnv2` picks its sparse
-optimizer from the environment; here it is the `optimizer` argument, and
-engine settings go to the `Solver` as keyword arguments (`onehot_vocab=...`).
+optimizer and dtypes from the environment; here they are the `optimizer`
+argument and `Solver` fields passed as keyword arguments, as are the engine
+settings (`onehot_vocab=...`). `bench_settings()` names the values bench.py
+gives the JAX package.
 """
 from __future__ import annotations
 
 import hugectr_tpu_torch as hugectr
-from hugectr_tpu_torch.core.types import DataReaderType_t
+from hugectr_tpu_torch.core.types import DataReaderType_t, Metric_t
 
 MLPERF_TABLE_SIZES = [
     40000000, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63, 40000000,
@@ -23,6 +25,29 @@ MLPERF_MULTI_HOT_SIZES = [
 ]
 NUM_TABLE = 26
 NUM_DENSE = 13
+
+
+def bench_settings() -> dict:
+    """The flagship as bench.py configures the JAX package on its chip
+    (bench.py:22-61, 83-100), as `build_dlrm_dcnv2` keyword arguments:
+    batch 16,384, vocab_cap 2,000,000, ev 128; bf16 tables and bf16
+    rowwise-AdaGrad state; bf16 products in the dense network; the split of
+    each big table at 131,072 rows with a 1,024-row superhot tier in the
+    one-hot group, and a storage group of its own for every rowop table of
+    16,384 rows or more; eval over 320 batches of 16,384, the binned AUC
+    past 1,048,576 samples. bench.py's XLA settings (HCTR_TPU_SEGSUM,
+    HCTR_TPU_UCAP_FACTOR, HCTR_TPU_UCAP_HEADROOM) have no counterpart: the
+    port's eager shapes are exact."""
+    return dict(
+        batchsize=16384, vocab_cap=2_000_000, ev_size=128, use_mixed_precision=True,
+        embedding_vec_dtype="bfloat16", embedding_state_dtype="bfloat16",
+        optimizer="rowwise_adagrad", hot_rows=131072, superhot_rows=1024, split_vocab=16384,
+        max_eval_batches=320, auc_exact_max=1048576,
+    )
+
+
+# the plan settings of bench_settings(), as flagship_plan keyword arguments
+BENCH_PLAN = dict(split_vocab=16384, hot_rows=131072, superhot_rows=1024)
 
 
 def build_dlrm_dcnv2(
@@ -39,19 +64,25 @@ def build_dlrm_dcnv2(
     num_cross_layers: int = 3,
     multi_hot_sizes=None,
     optimizer: str = "rowwise_adagrad",
+    max_eval_batches: int = 8,
+    synthetic_learnable: bool = False,
     **solver_kwargs,
 ):
-    """DLRM-DCNv2 (flagship.py:28); returns a compiled Model on `rm.device`."""
+    """DLRM-DCNv2 (flagship.py:28); returns a compiled Model on `rm.device`.
+    `solver_kwargs` are `Solver` fields (dtypes, split, engine settings)."""
     table_sizes = [min(v, vocab_cap) for v in MLPERF_TABLE_SIZES]
     if multi_hot_sizes is None:
         multi_hot_sizes = MLPERF_MULTI_HOT_SIZES
+    solver_kwargs.setdefault("metrics_spec", {Metric_t.AUC: 0.80275})
     solver = hugectr.CreateSolver(
-        batchsize=batchsize, lr=lr, use_mixed_precision=use_mixed_precision, **solver_kwargs
+        batchsize=batchsize, batchsize_eval=batchsize, max_eval_batches=max_eval_batches, lr=lr,
+        use_mixed_precision=use_mixed_precision, repeat_dataset=True, **solver_kwargs,
     )
     reader = hugectr.DataReaderParams(
         data_reader_type=DataReaderType_t.Synthetic,
         synthetic_num_batches=synthetic_batches,
         synthetic_alpha=1.05,
+        synthetic_learnable=synthetic_learnable,
     )
     opt = hugectr.CreateOptimizer(
         optimizer_type=hugectr.Optimizer_t(optimizer), initial_accu_value=0.0
@@ -118,9 +149,11 @@ def build_dlrm_dcnv2(
     return model
 
 
-def flagship_plan(vocab_cap: int = 2_000_000, ev_size: int = 128, onehot_vocab: int = 8192):
+def flagship_plan(vocab_cap: int = 2_000_000, ev_size: int = 128, onehot_vocab: int = 8192,
+                  split_vocab: int = 256 * 1024, hot_rows: int = 0, superhot_rows: int = 0):
     """The flagship's embedding plan on one card, compiled as `Model` does
-    for `build_dlrm_dcnv2` (the engine's default thresholds)."""
+    for `build_dlrm_dcnv2` (the engine's default thresholds, or those
+    given: `flagship_plan(**BENCH_PLAN)` is the plan of `bench_settings()`)."""
     from ..core.types import Combiner_t
     from ..parallel.plan import EmbeddingTableConfig, LookupConfig, ShardingPlan, compile_plan
 
@@ -131,22 +164,33 @@ def flagship_plan(vocab_cap: int = 2_000_000, ev_size: int = 128, onehot_vocab: 
         for i, v in enumerate(MLPERF_TABLE_SIZES)
     ]
     return compile_plan(lookups, ShardingPlan([("mp", names)]), 1, {n: 1 for n in names},
-                        onehot_vocab=onehot_vocab)
+                        onehot_vocab=onehot_vocab, split_vocab=split_vocab, hot_rows=hot_rows,
+                        superhot_rows=superhot_rows)
 
 
-def onehot_group_inputs(rng, batch: int, ev_size: int, dtype, device, alpha: float = 1.05):
+def raw_vocab(plan, lm) -> int:
+    """The vocabulary a group lookup's raw keys come from: its user table's,
+    before any split."""
+    top = lm.top_name.split("::", 1)[0]
+    return int(next(lk for lk in plan.lookups if lk.top_name == top).table.vocabulary_size)
+
+
+def onehot_group_inputs(rng, batch: int, ev_size: int, dtype, device, alpha: float = 1.05, **plan_kw):
     """The flagship's one-hot group forward as the step gives it: the group
-    of `flagship_plan`, power-law keys as int32 column views of one
-    [batch, sum h] tensor, the group's forward descriptors, a random group
-    storage and the output width. Returns (keys, lookups, storage, width)."""
+    of `flagship_plan(**plan_kw)`, power-law keys over each user table's
+    vocabulary as int32 column views of one [batch, sum h] tensor (a
+    superhot tier reads the raw keys through its window), the group's
+    forward descriptors, a random group storage and the output width.
+    Returns (keys, lookups, storage, width)."""
     import numpy as np
     import torch
 
     from ..data.generator import power_law_keys
     from ..embedding.collection import onehot_fwd_lookups
 
-    g = next(g for g in flagship_plan(ev_size=ev_size).groups if g.compute_kind == "onehot")
-    allk = np.concatenate([power_law_keys(rng, int(g.table_vocab[lm.table_index]), (batch, lm.hotness), alpha)
+    plan = flagship_plan(ev_size=ev_size, **plan_kw)
+    g = next(g for g in plan.groups if g.compute_kind == "onehot")
+    allk = np.concatenate([power_law_keys(rng, raw_vocab(plan, lm), (batch, lm.hotness), alpha)
                            for lm in g.lookups], axis=1)
     allk = torch.as_tensor(allk.astype(np.int32), device=device)
     keys = [allk[:, lm.slot_begin : lm.slot_end] for lm in g.lookups]

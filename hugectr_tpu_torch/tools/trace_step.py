@@ -2,12 +2,15 @@
 
 Usage (on a machine with a card, from the repo root):
 
-    python -m hugectr_tpu_torch.tools.trace_step [--batch 16384] [--steps 3] [--out DIR]
+    python -m hugectr_tpu_torch.tools.trace_step [--batch 16384] [--steps 3] [--bench] [--eval] [--out DIR]
 
 Builds the full-width DLRM-DCNv2 (`build_dlrm_dcnv2`, 26 tables, ev 128,
-vocab_cap 2M, rowwise AdaGrad), runs 2 warm-up steps, then traces `--steps`
-steps with `torch.profiler`. Prints one JSON line: ms per step (host clock
-around synchronised steps), device busy ms per step (sum of kernel and copy
+vocab_cap 2M, rowwise AdaGrad, float32; with `--bench`, as bench.py
+configures it: `bench_settings()`, bf16 tables and state, mixed precision,
+the hot/cold/superhot split), runs 2 warm-up steps, then traces `--steps`
+training steps (with `--eval`: eval batches, the forward of `Model.eval`)
+with `torch.profiler`. Prints one JSON line: ms per step (host clock around
+synchronised steps), device busy ms per step (sum of kernel and copy
 times), the device idle share, and device ms per step by category and by
 kernel name (top 25). With `--out`, also writes the Chrome trace there.
 """
@@ -28,7 +31,7 @@ CATEGORIES = (
     ("onehot_fwd", KERNEL_NAMES["onehot_fwd"]),
     ("onehot_bwd", KERNEL_NAMES["onehot_bwd"]),
     ("segscan", KERNEL_NAMES["segscan"]),
-    ("gemm", ("gemm", "sm90", "sm80", "cutlass", "cublas", "splitk", "xmma")),
+    ("gemm", ("gemm", "sm90", "sm80", "cutlass", "cublas", "splitk", "xmma", "nvjet")),
     ("sort", ("sort", "radix")),
     ("index", ("index", "scatter", "gather", "embedding")),
     ("reduce", ("reduce",)),
@@ -49,23 +52,35 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=16384)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default="")
+    ap.add_argument("--bench", action="store_true", help="the flagship as bench.py configures it")
+    ap.add_argument("--eval", action="store_true", help="trace eval batches instead of training steps")
     args = ap.parse_args()
 
     from hugectr_tpu_torch.core.mesh import ResourceManager
-    from hugectr_tpu_torch.tools.flagship import build_dlrm_dcnv2
+    from hugectr_tpu_torch.tools.flagship import bench_settings, build_dlrm_dcnv2
 
-    model = build_dlrm_dcnv2(
-        ResourceManager.create(), batchsize=args.batch, vocab_cap=2_000_000,
-        synthetic_batches=args.steps + 2,
-    )
+    kw = bench_settings() if args.bench else dict(vocab_cap=2_000_000)
+    kw.update(batchsize=args.batch, synthetic_batches=args.steps + 2, max_eval_batches=args.steps + 2)
+    model = build_dlrm_dcnv2(ResourceManager.create(), **kw)
     for _ in range(2):
         model.train()
+    if args.eval:
+        batches = list(model._eval_batches())
+
+        def step(i):
+            loss, preds, labels = model._eval_step(batches[i % len(batches)])
+            model.metrics.update(preds, labels, loss=loss)
+        model.metrics.reset()
+        step(0)
+    else:
+        def step(i):
+            model.train()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
-            model.train()
+        for i in range(args.steps):
+            step(i + 1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     # device-side rows only (kernels, copies, memsets): the CPU-side rows
@@ -85,7 +100,8 @@ def main() -> None:
         capture_output=True, text=True,
     ).stdout.strip()
     out = dict(
-        card=card, batch=args.batch, steps=args.steps, ms_per_step=wall_ms,
+        card=card, batch=args.batch, bench=args.bench, traced="eval" if args.eval else "train",
+        steps=args.steps, ms_per_step=wall_ms,
         device_events=n_events, device_busy_ms_per_step=busy,
         device_idle_share=max(0.0, 1.0 - busy / wall_ms),
         by_category_ms=dict(cats.most_common()),

@@ -256,3 +256,82 @@ def test_segscan_is_bitwise_deterministic(cuda):
         first = ss.segmented_sum_sorted(vals, heads)
         for _ in range(3):
             assert torch.equal(ss.segmented_sum_sorted(vals, heads), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_onehot_fwd_group_key_windows(cuda, dtype):
+    """Windowed lookups (tiers of a split table) beside unwindowed ones in
+    one launch: keys lo - 1, lo, hi - 1, hi, past the table and below -1
+    are dropped by a tier and wrapped by an unsplit lookup; int32 and int64
+    keys; the bench plan's 20-lookup group at batch 16,384 (seven superhot
+    tiers on the gather route, table 24 on the counts matmul)."""
+    from hugectr_tpu_torch.tools.flagship import BENCH_PLAN, onehot_group_inputs
+
+    rng = np.random.default_rng(21)
+    b = 3000
+    spec = [(1024, 100, False, 0, 1024), (108, 40, True, 0, -1), (1024, 7, True, 0, 1024),
+            (130048, 3, False, 1024, 131072), (57, 16, True, 0, -1), (3, 1, False, 0, -1)]
+    for int64 in (False, True):
+        cols, lookups, row = [], [], 0
+        for i, (v, h, mean, lo, hi) in enumerate(spec):
+            top = 3 * hi if hi >= 0 else 3 * v
+            k = rng.integers(-5 * v, top, size=(b, h)).astype(np.int64)
+            k[rng.random((b, h)) < 0.1] = -1
+            edges = [lo - 1, lo, (hi if hi >= 0 else v) - 1, hi if hi >= 0 else v, -2, 2**31 - 1]
+            k[1 : 1 + len(edges), 0] = edges
+            if int64:
+                k[-5:, 0] = [2**31 + 5, 2**32 - 1, 2**32 + lo, -(2**33), 2**40 + 3]
+            k[0] = -1
+            cols.append(k)
+            lookups.append(oh.GroupLookup(row, v, i * 128, mean, lo, hi))
+            row += v
+        allk = torch.from_numpy(np.concatenate(cols, axis=1).astype(np.int64 if int64 else np.int32)).to(cuda)
+        keys, c = [], 0
+        for _v, h, *_ in spec:
+            keys.append(allk[:, c : c + h])
+            c += h
+        table = torch.from_numpy(rng.normal(size=(row, 128)).astype(np.float32)).to(cuda, dtype)
+        _check_group(keys, lookups, table, len(spec) * 128)
+    keys, lookups, table, width = onehot_group_inputs(np.random.default_rng(3), 16384, 128, dtype, cuda,
+                                                      **BENCH_PLAN)
+    assert len(lookups) == 20 and sum(lk.windowed for lk in lookups) == 7
+    assert [oh.fwd_route(lk.vocab, k.shape[1], 128, cuda) for k, lk in zip(keys, lookups)].count("mma") == 1
+    _check_group(keys, lookups, table, width)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [100, 3])
+def test_onehot_bwd_superhot_power_law(cuda, h):
+    """The superhot tier's backward: V 1,024 (the global-atomic route),
+    power-law keys of a 2M-row table through the window [0, 1024) (about
+    57% valid, 4% on row 0), bf16 d and float32 sums, as the step gives it."""
+    from hugectr_tpu_torch.data.generator import power_law_keys
+
+    rng = np.random.default_rng(22)
+    raw = torch.from_numpy(power_law_keys(rng, 2_000_000, (16384, h), 1.05).astype(np.int32)).to(cuda)
+    ok, local = oh.place_keys(oh.window_keys(raw, 0, 1024), 1024)
+    keys = torch.where(ok, local, -1).to(torch.int32)
+    assert oh.bwd_route(16384, h, 1024, 128, cuda) == "global"
+    d = torch.from_numpy(rng.normal(size=(16384, 128)).astype(np.float32)).to(cuda, torch.bfloat16)
+    _check_bwd(keys, d, 1024, torch.float32)
+    g, c = oh.onehot_matmul_bwd(keys, d, 1024, torch.float32)
+    assert float(c.sum()) == float(ok.sum())
+
+
+@pytest.mark.gpu
+def test_segscan_bf16_rows_float32_sums(cuda):
+    """bf16 rows summed into float32 outputs (the sorted update of bf16
+    tables), within the float32 tolerance; f32 rows into bf16 sums refused."""
+    rng = np.random.default_rng(23)
+    t = ss.tile_rows()
+    for k, nseg in ((229_001, 60_000), (t + 1, 3), (17, 17)):
+        heads = torch.from_numpy(_heads(rng, k, nseg)).to(cuda)
+        vals = torch.from_numpy(rng.normal(size=(k, 128)).astype(np.float32)).to(cuda, torch.bfloat16)
+        got = ss.segmented_sum_sorted(vals, heads, torch.float32)
+        assert got.dtype == torch.float32
+        scale = ss.segmented_sum_sorted_plain(vals.float().abs(), heads)
+        assert _scaled(got, ss.segmented_sum_sorted_plain(vals, heads, torch.float32), scale) <= 1e-4
+        assert torch.equal(ss.segmented_sum_sorted(vals, heads, torch.float32), got)
+    with pytest.raises(ValueError):
+        ss.segmented_sum_sorted(vals.float(), heads, torch.bfloat16)
