@@ -17,7 +17,8 @@ Each phase prints one JSON line with its own seconds:
    the same work. `device_ms` is the kernel's device time per call from
    `torch.profiler` over 20 calls, summing the kernel's own launches
    (`hugectr_tpu_torch/tools/devtime.py`; CUDA events around 20 calls
-   where five profiles in a row record no device activity, listed in a
+   where five profiles in a row record no device activity or only part of
+   the launches, listed in a
    "profiler" line at the end); the fraction of the bound is judged on it. The grouped one-hot forward at the flagship's 13-table
    group (keys as int32 column views of one [B, 62] tensor): one launch per
    call, its times beside the bound and one `embedding_bag` call over the
@@ -34,12 +35,17 @@ Each phase prints one JSON line with its own seconds:
    keys past V and below -1, dropped by a tier and wrapped beside it by an
    unsplit lookup); the seven superhot backwards (V 1,024, h 3 to 100) with
    the `index_add_` time beside them; the bf16 segscan of table 20's cold
-   tier (bf16 rows, float32 sums).
+   tier (bf16 rows, float32 sums). Then the shapes of DLRM with FTRL: the
+   grouped forward at its 13-lookup hotness-1 group beside one
+   `embedding_bag`, the 13 backwards at hotness 1 beside `index_add_`, and
+   segscan at K 16,384.
 3. "tiny_parity": the tiny DLRM-DCNv2 trained 3 steps on the card (kernels)
    and on the CPU (plain versions) from the same state: losses and tables
    must agree. Then the same with bench.py's settings scaled down (bf16,
    mixed precision, the split with a superhot tier): losses and the eval's
-   AUC and AverageLoss.
+   AUC and AverageLoss. Then the tiny DLRM-FTRL, static and with exact
+   dynamic tables: losses, tables, dense parameters and FTRL state, key
+   stores bitwise.
 4. "main_path": the flagship DLRM-DCNv2 at full width (26 MLPerf tables,
    ev 128, vocab_cap 2,000,000, batch 16,384, rowwise AdaGrad, fp32) built
    with `build_dlrm_dcnv2` and trained 6 `Model.train()` steps. Launch
@@ -57,12 +63,22 @@ Each phase prints one JSON line with its own seconds:
    every loss must be finite and the eval's binned AUC within 1e-4 of the
    exact AUC of the same buffers. Reports ms/step, train and eval ex/s,
    peak memory, the routes and the launch counts.
+6. "ftrl_path": DLRM with FTRL at full width (`build_dlrm_ftrl`: 26
+   tables capped at 400,000 rows, ev 128, hotness 1, batch 16,384), 6
+   steps and a 20-batch eval, counters read around each: `onehot_fwd` once
+   per step and per eval batch, `onehot_bwd` 13 per step, `segscan` in the
+   steps, the route map as planned, finite losses.
+7. "ftrl_dynamic_path": the same on exact dynamic tables (4,096 rows
+   each, no hand-written kernel on this path): the key store's fill and
+   the keys dropped after each step; run twice from one seed, the stores
+   must be bitwise equal.
 
 Then a "kernels" JSON line (per kernel: source, the TPU kernel it replaces,
 main-path launches, error, ms, device_ms, plain_ms, bound_ms, bound_by,
 library_ms, for the float32 flagship case with the most device time; for
 `onehot_fwd`, the 13-table group; beside them the bench path's launches and
-the same numbers for its bf16 case with the most device time), a
+the same numbers for its bf16 case with the most device time, and the FTRL
+path's launches and its case with the most device time), a
 line with the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that line;
 so does a machine without CUDA.
@@ -239,6 +255,99 @@ def kernel_checks(torch, results):
     onehot_bwd_edges(torch, np, rng, oh, dev)
     segscan_checks(torch, np, rng, ss, dev, results)
     bench_shape_checks(torch, np, oh, ss, dev, results)
+    ftrl_shape_checks(torch, np, oh, ss, dev, results)
+
+
+def ftrl_shape_checks(torch, np, oh, ss, dev, results):
+    """The shapes the DLRM-FTRL path gives the kernels (`ftrl_plan()`,
+    hotness 1, float32): the grouped forward of its 13-table one-hot group
+    beside one embedding_bag call, the backward of each of the 13 tables
+    (h 1) beside index_add_, and segscan at K 16,384 (the sorted keys of a
+    400,000-row table, one key per sample)."""
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+    from hugectr_tpu_torch.tools.flagship import ftrl_plan, onehot_group_inputs
+    from hugectr_tpu_torch.tools.kernel_sweep import embedding_bag_call, group_bytes
+
+    plan = ftrl_plan(ev_size=E)
+    rng = np.random.default_rng(17)
+    dt = torch.float32
+    t0 = time.perf_counter()
+    keys, lookups, table, width = onehot_group_inputs(rng, B, E, dt, dev, plan=plan)
+    err, abs_err, launches, ok_shape = group_err(torch, oh, keys, lookups, table, width)
+    b_ms, b_by = bound(group_bytes(keys, lookups, table, width), B * sum(k.shape[1] for k in keys) * E)
+    call = lambda: oh.onehot_fwd_group(keys, lookups, table, width)  # noqa: E731
+    dms, per_call = device_ms(call, KERNEL_NAMES["onehot_fwd"])
+    lib = embedding_bag_call(keys, lookups, table)
+    rec = dict(
+        kernel="onehot_fwd", case=f"ftrl_group{len(lookups)}", dtype="float32", B=B, lookups=len(lookups),
+        width=width, routes=[oh.fwd_route(lk.vocab, k.shape[1], E, dev) for k, lk in zip(keys, lookups)],
+        scaled_err=err, max_abs_err=abs_err, tol=TOL["float32"], launches_per_call=launches,
+        ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
+        plain_ms=time_ms(lambda: oh.onehot_fwd_group_plain(keys, lookups, table, width)),
+        library_ms=time_ms(lib), library_device_ms=device_ms(lib, KERNEL_NAMES["embedding_bag"])[0],
+        library="one torch.nn.functional.embedding_bag(mode='sum') over the group storage",
+        bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
+    )
+    results.append(rec)
+    emit(rec)
+    if not (err <= TOL["float32"] and launches == 1 and per_call in (1, None) and ok_shape and len(lookups) == 13):
+        raise AssertionError(f"DLRM-FTRL group forward disagrees or launched more than once: {rec}")
+    g = next(x for x in plan.groups if x.compute_kind == "onehot")
+    for lm in g.lookups:
+        t0 = time.perf_counter()
+        v = int(g.table_vocab[lm.table_index])
+        keys = torch.as_tensor(power_law(rng, v, (B, 1)).astype(np.int32), device=dev)
+        d = torch.as_tensor(rng.standard_normal((B, E), dtype=np.float32), device=dev)
+        call = lambda: oh.onehot_matmul_bwd(keys, d, v, dt)  # noqa: E731
+        grad, cnt = call()
+        want_g, want_c = oh.onehot_matmul_bwd_plain(keys, d, v, dt)
+        scale_g, _ = oh.onehot_matmul_bwd_plain(keys, d.abs(), v, dt)
+        torch.cuda.synchronize()
+        flat = keys.long().reshape(-1)
+
+        def library():
+            return torch.zeros((v, E), device=dev).index_add_(0, flat, d)
+
+        b_ms, b_by = bound(B * 4 + B * E * 4 + v * E * 4 + v * 4, B * E)
+        dms, per_call = device_ms(call, KERNEL_NAMES["onehot_bwd"])
+        rec = dict(
+            kernel="onehot_bwd", case=f"ftrl_table{g.tables[lm.table_index].name}", dtype="float32", B=B, V=v,
+            h=1, E=E, route=oh.bwd_route(B, 1, v, E, dev), scaled_err=scaled_err(grad, want_g, scale_g),
+            max_abs_err=float((grad - want_g).abs().max()), counts_exact=bool(torch.equal(cnt, want_c)),
+            tol=TOL["float32"], ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
+            plain_ms=time_ms(lambda: oh.onehot_matmul_bwd_plain(keys, d, v, dt)),
+            library_ms=time_ms(library), library_device_ms=device_ms(library, KERNEL_NAMES["index_add_"])[0],
+            library="Tensor.index_add_ (grad only)", bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms,
+            seconds=time.perf_counter() - t0,
+        )
+        results.append(rec)
+        emit(rec)
+        if not (rec["scaled_err"] <= TOL["float32"] and rec["counts_exact"]):
+            raise AssertionError(f"DLRM-FTRL onehot_bwd disagrees with its plain version: {rec}")
+    t0 = time.perf_counter()
+    seg = np.sort(power_law(rng, 400_000, B))
+    heads = torch.as_tensor(np.concatenate([[True], seg[1:] != seg[:-1]]), device=dev)
+    vals = torch.as_tensor(rng.standard_normal((B, E), dtype=np.float32), device=dev)
+    call = lambda: ss.segmented_sum_sorted(vals, heads)  # noqa: E731
+    got = call()
+    want = ss.segmented_sum_sorted_plain(vals, heads)
+    scale = ss.segmented_sum_sorted_plain(vals.abs(), heads)
+    torch.cuda.synchronize()
+    b_ms, b_by = bound(2 * B * E * 4 + B, B * E)
+    dms, per_call = device_ms(call, KERNEL_NAMES["segscan"])
+    rec = dict(
+        kernel="segscan", case=f"ftrl_K{B}", dtype="float32", K=B, E=E, segments=int(heads.sum()),
+        scaled_err=scaled_err(got, want, scale), max_abs_err=float((got - want).abs().max()),
+        tol=TOL["float32"], bitwise_repeat=bool(torch.equal(call(), got)), ms=time_ms(call), device_ms=dms,
+        device_launches_per_call=per_call,
+        plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(vals, heads)),
+        library_ms=None, library="none: no single PyTorch call computes a segmented scan",
+        bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
+    )
+    results.append(rec)
+    emit(rec)
+    if not (rec["scaled_err"] <= TOL["float32"] and rec["bitwise_repeat"]):
+        raise AssertionError(f"DLRM-FTRL segscan disagrees with its plain version: {rec}")
 
 
 def bench_shape_checks(torch, np, oh, ss, dev, results):
@@ -600,6 +709,74 @@ def tiny_parity(torch):
     if not table_err <= 1e-5:
         raise AssertionError(f"tiny DLRM tables differ by {table_err}")
     tiny_bench_parity(torch)
+    tiny_ftrl_parity(torch)
+
+
+def ftrl_excess(np, got, want, z, lambda1, rtol=1e-4, atol=1e-5, band=1e-6):
+    """(largest |got - want| beyond atol + rtol |want|, elements left out):
+    FTRL weights whose z lies within `band` of lambda1 may take either side
+    of the threshold, so they are left out and counted."""
+    near = np.zeros(want.shape, bool) if z is None else np.abs(np.abs(z) - lambda1) <= band
+    excess = np.abs(got - want) - atol - rtol * np.abs(want)
+    return float(np.where(near, -np.inf, excess).max(initial=-np.inf)), int(near.sum())
+
+
+def tiny_ftrl_parity(torch):
+    """The tiny DLRM-FTRL (`build_tiny_dlrm_ftrl`), static (kernels on the
+    card) and with exact dynamic tables, on the card and on the CPU from
+    the same state, 3 steps. Tolerances: loss rtol 1e-4; tables, dense
+    parameters and the FTRL state z and n rtol 1e-4 / atol 1e-5 (float32
+    sums in another order), weights whose z lies within 1e-6 of lambda1
+    left out, counted, and at most 1% of them; key stores bitwise equal."""
+    import numpy as np
+
+    from hugectr_tpu_torch import ops
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools.carry import export_state, load_jax_state
+    from hugectr_tpu_torch.tools.flagship import build_tiny_dlrm_ftrl
+
+    for dynamic in (False, True):
+        t0 = time.perf_counter()
+        gpu = build_tiny_dlrm_ftrl(ResourceManager.create(), dynamic=dynamic)
+        cpu = build_tiny_dlrm_ftrl(ResourceManager.create(device="cpu"), dynamic=dynamic)
+        load_jax_state(cpu, export_state(gpu))
+        ops.reset_counts()
+        losses = [(gpu.train(), cpu.train()) for _ in range(3)]
+        launches = ops.launch_counts()
+        g_state, c_state = export_state(gpu), export_state(cpu)
+        lambda1 = gpu.opt_params.lambda1
+        worst, left_out, total, keys_equal = -math.inf, 0, 0, True
+        for g, want in c_state["emb_tables"].items():
+            got = g_state["emb_tables"][g]
+            if g.endswith("#keys"):
+                keys_equal = keys_equal and bool(np.array_equal(got, want))
+                continue
+            e, n = ftrl_excess(np, got, want, c_state["eopt"][g]["z"], lambda1)
+            worst, left_out, total = max(worst, e), left_out + n, total + want.size
+            for k in ("z", "n"):
+                worst = max(worst, ftrl_excess(np, g_state["eopt"][g][k], c_state["eopt"][g][k], None, lambda1)[0])
+        for layer, ps in c_state["dense_params"].items():
+            for k, want in ps.items():
+                e, n = ftrl_excess(np, g_state["dense_params"][layer][k], want, c_state["dopt"]["z"][layer][k],
+                                   lambda1)
+                worst, left_out, total = max(worst, e), left_out + n, total + want.size
+                for s in ("z", "n"):
+                    worst = max(worst, ftrl_excess(np, g_state["dopt"][s][layer][k], c_state["dopt"][s][layer][k],
+                                                   None, lambda1)[0])
+        rec = dict(phase="tiny_ftrl_parity", dynamic=dynamic, losses=losses, routes=dict(gpu.ec.group_routes),
+                   launches=launches, worst_excess_over_tolerance=worst, threshold_elements_left_out=left_out,
+                   elements=total, key_stores_equal=keys_equal,
+                   key_store_fill=[int((t != 2**31 - 1).sum()) for g, t in g_state["emb_tables"].items()
+                                   if g.endswith("#keys")],
+                   seconds=time.perf_counter() - t0)
+        emit(rec)
+        for lg, lc in losses:
+            if not (math.isfinite(lg) and abs(lg - lc) <= 1e-4 * abs(lc)):
+                raise AssertionError(f"tiny DLRM-FTRL (dynamic={dynamic}) loss on the card {lg} != CPU {lc}")
+        if not (worst <= 0 and left_out <= total // 100 and keys_equal):
+            raise AssertionError(f"tiny DLRM-FTRL (dynamic={dynamic}) on the card differs from the CPU: {rec}")
+        if not dynamic and min(launches.values()) <= 0:
+            raise AssertionError(f"tiny DLRM-FTRL on the card launched no {launches}")
 
 
 TINY_BENCH = dict(ev_size=16, vocab_cap=4000, synthetic_batches=3, bottom_mlp=(32, 16), top_mlp=(32, 16, 1),
@@ -758,6 +935,117 @@ def bench_path(torch):
     return {k: train_launches[k] + eval_launches[k] for k in train_launches}
 
 
+FTRL_ROUTES = {"static": {"onehot_ev128": "onehot", "mp_ev128": "dense", "mp_ev128_10": "sorted",
+                          "mp_ev128_11": "sorted", "mp_ev128_20": "sorted", "mp_ev128_21": "sorted",
+                          "mp_ev128_22": "sorted"},
+               "dynamic": {"mp_ev128": "dense"}}
+
+
+def ftrl_run(torch, dynamic: bool, steps: int = 6, eval_batches: int = 20):
+    """DLRM with FTRL at full width (`build_dlrm_ftrl`: 26 tables capped at
+    400,000 rows or dynamic with 4,096 rows each, ev 128, batch 16,384):
+    `steps` training steps with launch counters set to 0 just before them
+    and read just after, a warm-up `eval()` and a timed one over
+    `eval_batches` batches with the counters read around the timed one.
+    A dynamic run also records, after each step, the key store's fill and
+    the count of the batch's distinct keys that found no row (dropped)."""
+    from hugectr_tpu_torch import ops
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.embedding.collection import EMPTY_KEY
+    from hugectr_tpu_torch.tools.flagship import build_dlrm_ftrl
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_dlrm_ftrl(ResourceManager.create(), batchsize=B, dynamic=dynamic, ev_size=E,
+                            synthetic_batches=steps, max_eval_batches=eval_batches, metrics_spec=METRICS)
+    model.start_data_reading()
+    # one pass over the cycled batches, which leaves the cycle at batch 0
+    batches = [next(model._train_iter) for _ in range(steps)]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ec = model.ec
+    ops.reset_counts()
+    losses, step_s, fill, dropped = [], [], [], []
+    for i in range(steps):
+        t = time.perf_counter()
+        losses.append(model.train())
+        step_s.append(time.perf_counter() - t)
+        if dynamic:  # outside the timed step
+            g = ec.plan.groups[0]
+            store = model.tables[f"{g.name}#keys"]
+            keys = ec._group_keys(g, model._feature_keys(batches[i]))
+            _row, found = ec._dynamic_probe(ec._meta[g.name], keys, store)
+            miss = keys[(keys != -1) & ~found]
+            fill.append(int((store != EMPTY_KEY).sum()))
+            dropped.append(int(torch.unique(miss).numel()))
+    train_launches = ops.launch_counts()
+    steady = statistics.median(step_s[1:])
+    t = time.perf_counter()
+    model.eval()  # warm-up: makes the eval batches and puts them on the card
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    ops.reset_counts()
+    t = time.perf_counter()
+    vals = model.eval()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    eval_launches = ops.launch_counts()
+    rec = dict(
+        phase="ftrl_dynamic_path" if dynamic else "ftrl_path", tables=26, ev=E, batch=B, steps=steps,
+        rows=sum(g.total_storage_rows for g in ec.plan.groups), losses=losses,
+        step_ms=[x * 1e3 for x in step_s], median_ms_per_step=steady * 1e3, train_examples_per_s=B / steady,
+        eval_batches=eval_batches, eval_seconds=eval_s, warmup_eval_seconds=warm_s,
+        eval_examples_per_s=eval_batches * B / eval_s, eval=vals,
+        max_memory_allocated=torch.cuda.max_memory_allocated(), routes=dict(ec.group_routes),
+        train_launches=train_launches, launches_per_step={k: n / steps for k, n in train_launches.items()},
+        eval_launches=eval_launches, build_seconds=build_s, seconds=time.perf_counter() - t0,
+    )
+    if dynamic:
+        rec.update(key_store_rows=int(model.tables["mp_ev128#keys"].numel()), key_store_fill=fill,
+                   dropped_keys=dropped)
+    return model, rec
+
+
+def ftrl_path(torch):
+    """DLRM with FTRL, static tables: 6 steps and eval over 20 batches.
+    Every kernel launches in the steps; `onehot_fwd` once per step and per
+    eval batch, `onehot_bwd` 13 times per step (one per one-hot table)."""
+    model, rec = ftrl_run(torch, dynamic=False)
+    emit(rec)
+    tl, el = rec["train_launches"], rec["eval_launches"]
+    if not all(math.isfinite(x) for x in rec["losses"]):
+        raise AssertionError(f"non-finite loss on the FTRL path: {rec['losses']}")
+    if rec["routes"] != FTRL_ROUTES["static"]:
+        raise AssertionError(f"FTRL path routes {rec['routes']}")
+    if not (tl["onehot_fwd"] == 6 and tl["onehot_bwd"] == 13 * 6 and tl["segscan"] > 0):
+        raise AssertionError(f"FTRL path launches in 6 steps: {tl}")
+    if not (el["onehot_fwd"] == 20 and el["onehot_bwd"] == 0 and el["segscan"] == 0):
+        raise AssertionError(f"FTRL path launches in 20 eval batches: {el}")
+    return {k: tl[k] + el[k] for k in tl}
+
+
+def ftrl_dynamic_path(torch):
+    """DLRM with FTRL on exact dynamic tables: 6 steps and eval over 20
+    batches, twice from the same seed; the key stores of the two runs must
+    be bitwise equal (the insert's scatter-min does not depend on the order
+    of its writes). No hand-written kernel is on this path: every table is
+    dynamic, so none takes the one-hot engine, and the one group of 106,496
+    rows takes the dense sweep."""
+    model, rec = ftrl_run(torch, dynamic=True)
+    first = model.tables["mp_ev128#keys"].clone()
+    del model
+    again, _ = ftrl_run(torch, dynamic=True, eval_batches=1)
+    rec["key_store_repeat_equal"] = bool(torch.equal(again.tables["mp_ev128#keys"], first))
+    del again
+    emit(rec)
+    if not all(math.isfinite(x) for x in rec["losses"]):
+        raise AssertionError(f"non-finite loss on the dynamic FTRL path: {rec['losses']}")
+    if rec["routes"] != FTRL_ROUTES["dynamic"]:
+        raise AssertionError(f"dynamic FTRL path routes {rec['routes']}")
+    if not (rec["key_store_repeat_equal"] and 0 < rec["key_store_fill"][-1] <= rec["key_store_rows"]):
+        raise AssertionError(f"dynamic FTRL key store: {rec}")
+
+
 def main() -> int:
     import torch
 
@@ -782,6 +1070,10 @@ def main() -> int:
     launches = main_path(torch)
     torch.cuda.empty_cache()
     bench_launches = bench_path(torch)
+    torch.cuda.empty_cache()
+    ftrl_launches = ftrl_path(torch)
+    torch.cuda.empty_cache()
+    ftrl_dynamic_path(torch)
 
     sources = {
         "onehot_fwd": ("hugectr_tpu_torch/csrc/onehot_matmul.cu",
@@ -802,10 +1094,14 @@ def main() -> int:
         # beside it, the bench path's bf16 case with the most device time
         rb = max((x for x in results if x["kernel"] == name and x["dtype"] == "bfloat16"
                   and x["case"].startswith(bench_cases[name])), key=lambda x: x["device_ms"])
+        # and the DLRM-FTRL path's launches and its case with the most device time
+        rf = max((x for x in results if x["kernel"] == name and x["case"].startswith("ftrl_")),
+                 key=lambda x: x["device_ms"])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=launches[name],
             **{k: r[k] for k in keys}, bench_path_launches=bench_launches[name],
-            bench_case={k: rb[k] for k in keys},
+            bench_case={k: rb[k] for k in keys}, ftrl_path_launches=ftrl_launches[name],
+            ftrl_case={k: rf[k] for k in keys},
         ))
     # device times taken by CUDA events because the profiler recorded nothing
     emit(dict(phase="profiler", event_fallbacks=[list(x) for x in devtime.FALLBACKS]))

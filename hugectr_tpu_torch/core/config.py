@@ -168,6 +168,12 @@ class DenseLayer:
     projection_dim: int = 0
     # Concat
     axis: int = 1
+    # Reshape
+    leading_dim: int = 0
+    time_step: int = 0
+    selected: bool = False
+    selected_slots: List[int] = dataclasses.field(default_factory=list)
+    shape: List[int] = dataclasses.field(default_factory=list)
     # Losses
     use_regularizer: bool = False
     regularizer_type: Regularizer_t = Regularizer_t.L1
@@ -186,6 +192,7 @@ class Layer_t:
     MLP = "MLP"
     MultiCross = "MultiCross"
     Concat = "Concat"
+    Reshape = "Reshape"
     Interaction = "Interaction"
     BinaryCrossEntropyLoss = "BinaryCrossEntropyLoss"
     CrossEntropyLoss = "CrossEntropyLoss"

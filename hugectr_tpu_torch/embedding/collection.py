@@ -33,9 +33,19 @@ Tables are float32 or bfloat16 and the optimizer state float32 or bfloat16
 (`state_dtype`, collection.py:130); the optimizers compute in float32 and
 round once to each array's type.
 
-`route_counts` counts, per route ("onehot", "dense", "sorted"), the groups
-updated since the collection was built; `group_routes` holds each group's
-route in the last backward.
+Dynamic tables (`max_vocabulary_size` -1, collection.py:465-535): each
+rowop group holding one keeps an exact key store `"{group}#keys"` in the
+tables dict, int32 [R] and row-aligned with the storage, EMPTY (2^31 - 1)
+where no key lives. A key probes NUM_PROBES consecutive rows of its table
+from the murmur3 finalizer's hash; the forward reads a key that was not
+found as padding, and the backward first inserts the batch's unplaced keys
+(scatter-min arbitration per probe round), then updates their rows. Keys
+still unplaced after NUM_PROBES rounds are dropped for the step. Eviction,
+capacity growth and key-store export are not ported (ROADMAP Queue 1).
+
+`route_counts` counts, per route ("onehot", "dense", "sorted", "scatter"),
+the groups updated since the collection was built; `group_routes` holds
+each group's route in the last backward.
 """
 from __future__ import annotations
 
@@ -60,6 +70,34 @@ from . import sparse_optimizer
 
 Tables = Dict[str, torch.Tensor]
 
+NUM_PROBES = 8  # probe depth of the dynamic key store (collection.py:465)
+EMPTY_KEY = 2**31 - 1  # a free row of the key store (collection.py:466)
+_U32 = 0xFFFFFFFF
+
+
+def _mul_u32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """h * c mod 2^32 for h in [0, 2^32) held in int64, without overflow:
+    c is split into 16-bit halves so every product stays below 2^49."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _U32
+
+
+def hash_mix(k: torch.Tensor) -> torch.Tensor:
+    """Murmur3 finalizer of int32 keys as uint32 values, held in int64
+    (collection.py:53 `_hash_mix`; torch has few uint32 ops on the card)."""
+    h = k.to(torch.int64) & _U32
+    h = h ^ (h >> 16)
+    h = _mul_u32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul_u32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def fold_reserved_key(k32: torch.Tensor) -> torch.Tensor:
+    """The int32 key 2^31 - 1 is the store's EMPTY marker: it behaves as
+    2^31 - 2 (collection.py:76)."""
+    return torch.where(k32 == EMPTY_KEY, EMPTY_KEY - 1, k32)
+
 
 class _GroupMeta:
     """Device-side constants of one group."""
@@ -70,6 +108,9 @@ class _GroupMeta:
         self.plan = g
         self.slot_local_offset = torch.as_tensor(g.slot_local_offset, dtype=torch.int64, device=device)
         self.slot_vocab = torch.as_tensor(g.slot_vocab, dtype=torch.int64, device=device)
+        self.slot_rows = torch.as_tensor(g.rows_per_shard[g.slot_table], dtype=torch.int64, device=device)
+        self.slot_dynamic = torch.as_tensor(g.slot_is_dynamic, device=device)
+        self.any_dynamic = bool(g.slot_is_dynamic.any())
         self.gsrc = torch.as_tensor(_fwd_gsrc(g), dtype=torch.int64, device=device)
         self.fwd_lookups = onehot_fwd_lookups(g)
 
@@ -142,13 +183,18 @@ class EmbeddingCollection:
     def init(self, generator: torch.Generator) -> Tables:
         """Uniform(-1, 1) rows scaled per table (default 1/sqrt(ev)), as the
         JAX package draws them (collection.py:289); distributions match,
-        bits do not."""
+        bits do not. A group with dynamic tables also gets its empty key
+        store `"{group}#keys"` (collection.py:329-341)."""
         tables = {}
         for g in self.plan.groups:
             t = torch.empty((g.total_storage_rows, g.ev_size), dtype=self.dtype, device=self.device)
             t.uniform_(-1.0, 1.0, generator=generator)
             scales = torch.as_tensor(self._row_init_scales(g), device=self.device)
             tables[g.name] = t.mul_(scales.unsqueeze(1).to(self.dtype))
+            if self._meta[g.name].any_dynamic:
+                tables[f"{g.name}#keys"] = torch.full(
+                    (g.total_storage_rows,), EMPTY_KEY, dtype=torch.int32, device=self.device
+                )
         return tables
 
     def _row_init_scales(self, g: GroupPlan) -> np.ndarray:
@@ -194,14 +240,72 @@ class EmbeddingCollection:
             dim=1,
         )
 
-    def _slot_placement(self, gname: str, keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _slot_placement(
+        self, gname: str, keys: torch.Tensor, key_store=None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(valid, local storage row) of [B, H] keys (collection.py:427):
         keys are cut to int32 first, as there (`keys.astype(jnp.int32)`,
         JAX without x64), then -1 is padding and other keys wrap by floor
-        modulo."""
+        modulo. A dynamic slot's key takes the row where the store holds
+        it, and is padding where it holds it nowhere (:441-454)."""
         meta = self._meta[gname]
         valid, k = place_keys(keys, meta.slot_vocab.unsqueeze(0))
+        if meta.any_dynamic:
+            dyn = meta.slot_dynamic.unsqueeze(0)
+            row, found = self._dynamic_probe(meta, keys, key_store)
+            k = torch.where(dyn, row, k)
+            valid = valid & (~dyn | found)
         return valid, k + meta.slot_local_offset.unsqueeze(0)
+
+    # ----------------------------------------------- exact dynamic tables
+    @staticmethod
+    def _probe_base(meta: _GroupMeta, keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(int32 key as stored, first probed table row) of [B, H] keys."""
+        k32 = fold_reserved_key(keys.to(torch.int32))
+        return k32, hash_mix(k32) % meta.slot_rows.unsqueeze(0)
+
+    def _dynamic_probe(
+        self, meta: _GroupMeta, keys: torch.Tensor, key_store: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(table row, found) of [B, H] keys: the first of NUM_PROBES
+        consecutive rows (mod the table's rows) whose stored key equals the
+        key (collection.py:468-495)."""
+        k32, base = self._probe_base(meta, keys)
+        rows_t = meta.slot_rows.unsqueeze(0)
+        off = meta.slot_local_offset.unsqueeze(0)
+        row = base
+        found = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+        for j in range(NUM_PROBES):
+            cand = (base + j) % rows_t
+            hit = ~found & (key_store[cand + off] == k32)
+            row = torch.where(hit, cand, row)
+            found = found | hit
+        return row, found
+
+    def _dynamic_insert(self, meta: _GroupMeta, key_store: torch.Tensor, keys: torch.Tensor) -> None:
+        """Claim store rows for the batch's valid dynamic keys that are not
+        in the store yet, in place (collection.py:497-535): a full probe
+        first, then per probe round each unplaced key writes itself into
+        its candidate row if that row was empty, with `amin` arbitration
+        (the smallest contending key wins, whatever the order), re-reads,
+        and the losers probe on. The writes go to a copy one row longer
+        whose last row takes the keys that write nowhere."""
+        k32, base = self._probe_base(meta, keys)
+        rows_t = meta.slot_rows.unsqueeze(0)
+        off = meta.slot_local_offset.unsqueeze(0)
+        _row, already = self._dynamic_probe(meta, keys, key_store)
+        need = (keys.to(torch.int32) != INVALID_KEY) & meta.slot_dynamic.unsqueeze(0) & ~already
+        sentinel = key_store.shape[0]
+        ext = torch.cat([key_store, key_store.new_full((1,), EMPTY_KEY)])
+        flat_keys = k32.reshape(-1)
+        for j in range(NUM_PROBES):
+            slot = (base + j) % rows_t + off
+            stored = ext[slot]
+            need = need & (stored != k32)  # already resident here
+            tryslot = torch.where(need & (stored == EMPTY_KEY), slot, sentinel).reshape(-1)
+            ext.scatter_reduce_(0, tryslot, flat_keys, "amin")
+            need = need & (ext[slot] != k32)
+        key_store.copy_(ext[:-1])
 
     @staticmethod
     def _count(valid: torch.Tensor, dtype) -> torch.Tensor:
@@ -216,7 +320,8 @@ class EmbeddingCollection:
             if g.compute_kind == "onehot":
                 go = self._onehot_fwd(g.name, tables[g.name], self._lookup_keys(g, feature_keys))
             else:
-                go = self._dp_fwd(g.name, tables[g.name], self._group_keys(g, feature_keys))
+                go = self._dp_fwd(g.name, tables[g.name], self._group_keys(g, feature_keys),
+                                  tables.get(f"{g.name}#keys"))
             for lm in g.lookups:
                 outs[lm.top_name] = go[:, lm.out_begin : lm.out_end]
         return self._merge_outputs(outs, feature_keys)
@@ -269,12 +374,14 @@ class EmbeddingCollection:
         g = self._meta[gname].plan
         return onehot_fwd_group(keys, self._meta[gname].fwd_lookups, table, g.out_width)
 
-    def _dp_fwd(self, gname: str, table: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    def _dp_fwd(self, gname: str, table: torch.Tensor, keys: torch.Tensor, key_store=None) -> torch.Tensor:
         """Masked gather + per-lookup pooling (collection.py:1474-1485, :596);
         each lookup gathers its own slots, so no [B, H, E] temp of the whole
-        group is built."""
+        group is built. Mean divides by the count of the raw valid keys, a
+        dynamic key missing from the store included (:1484)."""
         g = self._meta[gname].plan
-        valid, local_row = self._slot_placement(gname, keys)
+        valid, local_row = self._slot_placement(gname, keys, key_store)
+        raw_valid = keys != INVALID_KEY
         safe = torch.where(valid, local_row, 0)
         b = keys.shape[0]
         outs: List[torch.Tensor] = []
@@ -286,7 +393,7 @@ class EmbeddingCollection:
                 continue
             s = rows.sum(dim=1)
             if lm.combiner == Combiner_t.Mean:
-                s = s / self._count(valid[:, sl], s.dtype)
+                s = s / self._count(raw_valid[:, sl], s.dtype)
             outs.append(s)
         return torch.cat(outs, dim=1)
 
@@ -298,11 +405,14 @@ class EmbeddingCollection:
         feature_keys: Dict[str, torch.Tensor],
         d_outs: Dict[str, torch.Tensor],
         lr: torch.Tensor,
-        step: int = 0,
+        step: int = 1,
     ) -> Tuple[Tables, Dict[str, Dict[str, torch.Tensor]]]:
         """Fused embedding backward + sparse optimizer update, in place
         (collection.py:1567). d_outs: {top_name: [B, out_width]} cotangents
-        from the dense network. Returns the (updated) inputs."""
+        from the dense network; `step` is the 1-based global step (Adam's
+        bias corrections). A dynamic group inserts the batch's new keys into
+        its key store before its rows are updated (`_bwd_single`, :1942).
+        Returns the (updated) inputs."""
         lr = torch.as_tensor(lr, dtype=self.dtype, device=self.device)
         d_outs = self._expand_d_outs(d_outs, feature_keys)
         for g in self.plan.groups:
@@ -311,12 +421,17 @@ class EmbeddingCollection:
             opt = self.group_opt[g.name]
             if g.compute_kind == "onehot":
                 grad, colsum = self._onehot_grad(g.name, tables[g.name].dtype, keys, d_group)
+                # every row a valid key lands on is touched, for every
+                # optimizer (`_onehot_bwd_local`, collection.py:1437-1452)
                 sparse_optimizer.apply_dense(
-                    opt, tables[g.name], opt_state[g.name], grad, colsum > 0, lr
+                    opt, tables[g.name], opt_state[g.name], grad, colsum > 0, lr, step
                 )
                 route = "onehot"
             else:
-                idx, src, dsrc = self._row_grads(g.name, keys, d_group)
+                key_store = tables.get(f"{g.name}#keys")
+                if key_store is not None:
+                    self._dynamic_insert(self._meta[g.name], key_store, keys)
+                idx, src, dsrc = self._row_grads(g.name, keys, d_group, key_store)
                 # the key-ratio rule counts valid keys; a tier's key list is
                 # mostly padding, and without a measured count the JAX
                 # package turns the rule off for it (collection.py:1970)
@@ -324,7 +439,7 @@ class EmbeddingCollection:
                 route = sparse_optimizer.apply_sparse(
                     opt, tables[g.name], opt_state[g.name], idx, src, dsrc, lr,
                     dense_rows=self.dense_update_rows,
-                    dense_ratio=0.0 if windowed else self.dense_key_ratio,
+                    dense_ratio=0.0 if windowed else self.dense_key_ratio, step=step,
                 )
             self.route_counts[route] += 1
             self.group_routes[g.name] = route
@@ -355,7 +470,8 @@ class EmbeddingCollection:
 
     def _grad_source(self, g: GroupPlan, d_out: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         """[B, W] output grads -> compact gradient source [B*S, E]: one row
-        per sample for each sum/mean lookup (collection.py:616)."""
+        per sample for each sum/mean lookup (collection.py:616); Mean
+        divides by the count of `valid`, the raw valid keys (:1827)."""
         b = d_out.shape[0]
         parts = []
         for lm in g.lookups:
@@ -371,14 +487,14 @@ class EmbeddingCollection:
         return torch.cat(parts, dim=1).reshape(-1, g.ev_size)
 
     def _row_grads(
-        self, gname: str, keys: torch.Tensor, d_group: torch.Tensor
+        self, gname: str, keys: torch.Tensor, d_group: torch.Tensor, key_store=None
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(flat row ids with sentinel R, grad-source rows, compact grad
         source) (collection.py:1801)."""
         meta = self._meta[gname]
         g = meta.plan
-        valid, local_row = self._slot_placement(gname, keys)
-        dsrc = self._grad_source(g, d_group, valid)
+        valid, local_row = self._slot_placement(gname, keys, key_store)
+        dsrc = self._grad_source(g, d_group, keys != INVALID_KEY)
         b = keys.shape[0]
         idx = torch.where(valid, local_row, g.total_local_rows).reshape(-1)
         src = (
@@ -425,3 +541,24 @@ class EmbeddingCollection:
         with torch.no_grad():
             tables[g.name][off : off + vocab].copy_(torch.as_tensor(np.asarray(values, np.float32)))
         return tables
+
+    # ------------------------------------- dynamic-table upkeep, not ported
+    @staticmethod
+    def _dynamic_upkeep(what: str):
+        raise NotImplementedError(f"{what} of dynamic tables is not ported yet (ROADMAP Queue 1 item 6)")
+
+    def export_key_store(self, tables: Tables, table_name: str):
+        """collection.py:2164; not ported."""
+        self._dynamic_upkeep("key-store export")
+
+    def import_key_store(self, tables: Tables, table_name: str, keys):
+        """collection.py:2184; not ported."""
+        self._dynamic_upkeep("key-store import")
+
+    def evict(self, tables: Tables, opt_state, table_name: str, keys):
+        """collection.py:2220; not ported."""
+        self._dynamic_upkeep("eviction")
+
+    def grow_dynamic_capacity(self, tables: Tables, opt_state, table_name: str, new_capacity: int):
+        """collection.py:2495; not ported."""
+        self._dynamic_upkeep("capacity growth")

@@ -1,15 +1,50 @@
-"""DCN MultiCross (counterpart of hugectr_tpu/layers/interaction.py
-`_mc_apply` :75): x_{l+1} = x0 * (x_l W_l + b_l) + x_l, with W_l = U_l V_l
-for DCNv2's low-rank projection, or x0 * (x_l . w_l) + b_l + x_l for DCNv1.
+"""DLRM Interaction and DCN MultiCross (counterparts of
+hugectr_tpu/layers/interaction.py `_interaction_apply` :20-52 and
+`_mc_apply` :75).
+
+Interaction: [dense; embeddings] as X [B, F+1, E], the pairwise dots X Xᵀ
+summed in float32 (a batched `torch.bmm`; the JAX package's einsum runs
+outside any Pallas kernel), their strictly lower triangle in
+`np.tril_indices` order, then [dense | dots | 0]: width E + F(F+1)/2 + 1.
+A second top is an alias of the first (network.py:68).
+
+MultiCross: x_{l+1} = x0 * (x_l W_l + b_l) + x_l, with W_l = U_l V_l for
+DCNv2's low-rank projection, or x0 * (x_l . w_l) + b_l + x_l for DCNv1.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..core.config import DenseLayer
 from .base import Layer, make_initializer, register
 from .gemm import dense
+
+
+@register("Interaction")
+class Interaction(Layer):
+    def __init__(self, cfg: DenseLayer, in_shapes, gen: torch.Generator, device):
+        super().__init__()
+        (b, e), (_, f, e2) = in_shapes[0], in_shapes[1]
+        if e != e2:
+            raise ValueError(f"Interaction: dense dim {e} != emb dim {e2}")
+        iu, ju = np.tril_indices(f + 1, k=-1)
+        # flat positions of the strictly lower triangle in the [F+1, F+1] dots
+        self.register_buffer("tri", torch.as_tensor(iu * (f + 1) + ju, dtype=torch.int64, device=device),
+                             persistent=False)
+        width = e + (f + 1) * f // 2 + 1
+        self.out_shapes = [(b, width)] * len(cfg.top_names)
+
+    def forward(self, ins, compute_dtype):
+        d, emb = ins
+        b = d.shape[0]
+        x = torch.cat([d.unsqueeze(1), emb], dim=1).to(compute_dtype).float()
+        dots = torch.bmm(x, x.transpose(1, 2)).reshape(b, -1)
+        flat = dots.index_select(1, self.tri).to(compute_dtype)
+        pad = torch.zeros((b, 1), dtype=compute_dtype, device=d.device)
+        out = torch.cat([d.to(compute_dtype), flat, pad], dim=1)
+        return [out] * len(self.out_shapes)
 
 
 @register("MultiCross")

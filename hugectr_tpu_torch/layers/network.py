@@ -2,7 +2,9 @@
 hugectr_tpu/layers/network.py: `Network` :41, `forward_with_loss` :188).
 
 Layers run in add order over a dict of named tensors; each is an
-`nn.Module` under its JAX layer name (`l{i}_{type}`).
+`nn.Module` under its JAX layer name (`l{i}_{type}`). An Interaction's
+second top is an alias of its first; an MLP given both reads it once
+(network.py:62-99).
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..core.config import DenseLayer, LOSS_LAYER_TYPES
+from ..core.config import DenseLayer, LOSS_LAYER_TYPES, Layer_t
 from . import core_layers, gemm, interaction, losses  # noqa: F401 (registry)
 from .base import LAYER_REGISTRY
 
@@ -39,6 +41,8 @@ class Network(nn.Module):
         self.configs = list(layers)
         self.layer_names: List[str] = []
         self.loss_specs: List[LossSpec] = []
+        self.aliases: Dict[str, str] = {}  # alias top -> real top
+        self.bottoms: List[List[str]] = []  # each layer's, aliases resolved
         self.layers = nn.ModuleDict()
         shapes = dict(input_shapes)
         label_weights = label_weights or {}
@@ -49,25 +53,38 @@ class Network(nn.Module):
                 raise NotImplementedError(f"layer type {cfg.layer_type} is not ported yet")
             if cfg.layer_type in LOSS_LAYER_TYPES and cfg.use_regularizer and cfg.lambda_:
                 raise NotImplementedError("loss regularizers are not ported yet")
-            for b in cfg.bottom_names:
+            if cfg.layer_type == Layer_t.Interaction and len(cfg.top_names) > 1:
+                self.aliases[cfg.top_names[1]] = cfg.top_names[0]
+            bottoms = self._bottoms(cfg)
+            for b in bottoms:
                 if b not in shapes:
                     raise ValueError(f"layer {name}: unknown bottom tensor {b!r}")
-            layer = cls(cfg, [shapes[b] for b in cfg.bottom_names], generator, device)
+            layer = cls(cfg, [shapes[b] for b in bottoms], generator, device)
             for t, s in zip(cfg.top_names, layer.out_shapes):
                 shapes[t] = s
             self.layers[name] = layer
             self.layer_names.append(name)
+            self.bottoms.append(bottoms)
             if cfg.layer_type in LOSS_LAYER_TYPES:
                 self.loss_specs.append(
                     LossSpec(
                         layer_name=name,
                         loss_type=cfg.layer_type,
-                        pred_name=cfg.bottom_names[0],
+                        pred_name=self.aliases.get(cfg.bottom_names[0], cfg.bottom_names[0]),
                         label_name=cfg.bottom_names[1],
                         weight=label_weights.get(cfg.bottom_names[1], 1.0),
                     )
                 )
         self.tensor_shapes = shapes
+
+    def _bottoms(self, cfg: DenseLayer) -> List[str]:
+        """The bottoms with aliases resolved; an MLP reads a repeated
+        bottom once (network.py:88)."""
+        out: List[str] = []
+        for b in (self.aliases.get(b, b) for b in cfg.bottom_names):
+            if not (b in out and cfg.layer_type == Layer_t.MLP):
+                out.append(b)
+        return out
 
     def param_tree(self) -> Dict[str, Dict[str, nn.Parameter]]:
         """{layer name: {param name: parameter}}, the JAX package's
@@ -82,8 +99,8 @@ class Network(nn.Module):
         self, tensors: Dict[str, torch.Tensor], compute_dtype: torch.dtype
     ) -> Dict[str, torch.Tensor]:
         tensors = dict(tensors)
-        for name, cfg in zip(self.layer_names, self.configs):
-            outs = self.layers[name]([tensors[b] for b in cfg.bottom_names], compute_dtype)
+        for name, cfg, bottoms in zip(self.layer_names, self.configs, self.bottoms):
+            outs = self.layers[name]([tensors[b] for b in bottoms], compute_dtype)
             for t, o in zip(cfg.top_names, outs):
                 tensors[t] = o
         return tensors

@@ -14,8 +14,13 @@ The JAX package jits the whole iteration; here the step runs eagerly:
    `loss.backward()` gives the dense gradients and, as the outputs'
    `.grad`, the embedding cotangents (the JAX package's `value_and_grad`
    with respect to both, model.py:846);
-3. the dense AdaGrad update, in place;
-4. the fused embedding backward and sparse update, in place.
+3. the dense optimizer's update, in place;
+4. the fused embedding backward and sparse update, in place (a dynamic
+   table's new keys are inserted into its key store first).
+
+Both optimizers get the 1-based global step (Adam's bias corrections).
+Dynamic tables' key stores live in `tables` under `"{group}#keys"`; their
+synthetic keys are drawn below each table's capacity (`_slot_vocabs`).
 
 `eval` runs one eager forward under `no_grad` per batch of the eval set
 (synthetic eval batches made once and kept on the device, cycled to fill
@@ -106,7 +111,7 @@ class Model:
             raise ValueError("model needs an Input")
         s = self.solver
         if s.i64_input_key:
-            raise NotImplementedError("i64 input keys are not ported yet")
+            raise NotImplementedError("i64 input keys are not ported yet (ROADMAP Queue 1 item 6d)")
         inp = self.input
         sparse_specs = tuple(
             SparseFeatureSpec(name=p.top_name, slot_nnz=tuple(p.per_slot_nnz()))
@@ -219,7 +224,8 @@ class Model:
         )
 
     def _slot_vocabs(self) -> Dict[str, List[int]]:
-        """Per-slot key bounds of the synthetic reader (model.py:639)."""
+        """Per-slot key bounds of the synthetic reader (model.py:639): each
+        table's vocabulary, a dynamic table's capacity."""
         vocabs = {f.name: [1000] * f.slot_num for f in self.batch_spec.sparse}
         if self.ec is not None:
             for top, ks in self._key_sources.items():
@@ -279,7 +285,7 @@ class Model:
         loss, _ = self.network.forward_with_loss(tensors, self.solver.compute_dtype)
         loss.backward()
         params = self.network.param_tree()
-        self.dense_opt.update(params, self.dopt, lr)
+        self.dense_opt.update(params, self.dopt, lr, step)
         self.network.zero_grad(set_to_none=True)
         if ec is not None:
             egrads = {k: v.grad for k, v in emb_in.items()}

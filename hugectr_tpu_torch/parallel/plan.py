@@ -28,23 +28,24 @@ from ..core.types import Combiner_t, TablePlacementStrategy
 
 @dataclasses.dataclass
 class EmbeddingTableConfig:
-    """User-facing table config (plan.py:42)."""
+    """User-facing table config (plan.py:42). `max_vocabulary_size` -1 makes
+    a dynamic table: an exact key store of `dynamic_capacity` rows whose
+    rows are claimed on first touch (`EmbeddingCollection`)."""
 
     name: str
-    max_vocabulary_size: int
+    max_vocabulary_size: int  # -1: dynamic
     ev_size: int
     opt_params: Optional[object] = None
     init_scale: Optional[float] = None
+    dynamic_capacity: int = 2**22
 
-    def __post_init__(self):
-        if self.max_vocabulary_size is None or self.max_vocabulary_size < 0:
-            raise NotImplementedError(
-                f"table {self.name}: dynamic tables are not ported yet (ROADMAP Queue 1)"
-            )
+    @property
+    def is_dynamic(self) -> bool:
+        return self.max_vocabulary_size is None or self.max_vocabulary_size < 0
 
     @property
     def vocabulary_size(self) -> int:
-        return self.max_vocabulary_size
+        return self.dynamic_capacity if self.is_dynamic else self.max_vocabulary_size
 
 
 @dataclasses.dataclass
@@ -138,6 +139,7 @@ class GroupPlan:
     slot_table: np.ndarray
     slot_local_offset: np.ndarray
     slot_vocab: np.ndarray
+    slot_is_dynamic: np.ndarray  # [H] slots of dynamic tables (plan.py:201)
     hotness_total: int
     out_width: int
     compute_kind: str = "rowop"
@@ -193,7 +195,8 @@ def _onehot_eligible(
 ) -> Dict[str, bool]:
     """A static table takes the one-hot engine iff it is small
     (0 < vocab <= threshold) and every lookup into it pools (sum/mean, or
-    concat with hotness 1) (plan.py:525)."""
+    concat with hotness 1) (plan.py:525); a dynamic table never does
+    (plan.py:551)."""
     by_table: Dict[str, List[LookupConfig]] = {}
     for lk in lookups:
         by_table.setdefault(lk.table.name, []).append(lk)
@@ -202,6 +205,7 @@ def _onehot_eligible(
         t = lks[0].table
         out[name] = (
             threshold > 0
+            and not t.is_dynamic
             and 0 < t.vocabulary_size <= threshold
             and all(
                 lk.combiner in (Combiner_t.Sum, Combiner_t.Mean)
@@ -218,7 +222,7 @@ def _split_hot_cold(
     """Rewrite the lookups of eligible tables into sub-lookups, one per tier
     (plan.py:355). A table is eligible when it holds at least
     max(4 * hot, 2 * onehot_vocab) rows and every lookup into it is Sum or
-    Mean. Tiers: [0, superhot) when 0 < superhot < hot and superhot <=
+    Mean; dynamic tables are never split (plan.py:368). Tiers: [0, superhot) when 0 < superhot < hot and superhot <=
     onehot_vocab, [superhot, hot), [hot, warm) when warm > hot, and the rest;
     tiers at or past the table's vocabulary are dropped. Sub-lookups sum;
     the first keeps the lookup's id, the others take new ids after the
@@ -230,7 +234,7 @@ def _split_hot_cold(
         by_table.setdefault(lk.table.name, []).append(lk)
 
     def eligible(t: EmbeddingTableConfig) -> bool:
-        return t.vocabulary_size >= max(4 * hot, 2 * onehot_vocab) and all(
+        return not t.is_dynamic and t.vocabulary_size >= max(4 * hot, 2 * onehot_vocab) and all(
             lk.combiner in (Combiner_t.Sum, Combiner_t.Mean) for lk in by_table[t.name]
         )
 
@@ -311,6 +315,8 @@ def compile_plan(
     group_lookups: Dict[Tuple, List[LookupConfig]] = {}
     for lk in lookups:
         placement = plan.placement_of(lk.table.name)
+        if placement == TablePlacementStrategy.DataParallel and lk.table.is_dynamic:
+            raise ValueError(f"dynamic table {lk.table.name} cannot be data-parallel")
         if eligible[lk.table.name]:
             placement = TablePlacementStrategy.DataParallel
             kind, split, f = "onehot", "", 1
@@ -402,6 +408,7 @@ def compile_plan(
                 slot_table=slot_table_arr,
                 slot_local_offset=local_offsets[slot_table_arr].astype(np.int64),
                 slot_vocab=table_vocab[slot_table_arr],
+                slot_is_dynamic=np.array([tables[ti].is_dynamic for ti in slot_table_arr], dtype=bool),
                 hotness_total=slot_cursor,
                 out_width=out_cursor,
                 compute_kind=kind,

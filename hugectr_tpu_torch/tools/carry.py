@@ -4,10 +4,11 @@
 tree of numpy arrays (e.g. with `jax.device_get`); this module imports no
 JAX. The tree holds:
 
-* `emb_tables` {group name: [R, E]} -> `model.tables`;
-* `eopt` {group name: {"accum": ...}} -> `model.eopt`;
+* `emb_tables` {group name: [R, E]} -> `model.tables`, with each dynamic
+  group's int32 key store `"{group}#keys"` [R], copied bit for bit;
+* `eopt` {group name: {"accum" | "m" | "v" | "z" | "n": ...}} -> `model.eopt`;
 * `dense_params` {layer: {weight_i, bias_i, U_i, V_i, b_i}} -> the network;
-* `dopt` {"accum": {layer: {key: ...}}} -> `model.dopt`;
+* `dopt` {"accum" | "m" | "v" | "z" | "n": {layer: {key: ...}}} -> `model.dopt`;
 * `step` -> the model's step counter.
 
 The two packages name groups and layers alike and keep the same layouts
@@ -49,9 +50,10 @@ def load_jax_state(model, state: Dict[str, Any]) -> None:
     for layer, ps in state["dense_params"].items():
         for k, arr in ps.items():
             _copy(params[layer][k], arr, f"dense param {layer}/{k}")
-    for layer, ps in state["dopt"]["accum"].items():
-        for k, arr in ps.items():
-            _copy(model.dopt["accum"][layer][k], arr, f"dense state {layer}/{k}")
+    for kind, tree in state["dopt"].items():
+        for layer, ps in tree.items():
+            for k, arr in ps.items():
+                _copy(model.dopt[kind][layer][k], arr, f"dense state {kind}/{layer}/{k}")
     model._step = int(np.asarray(state["step"]))
 
 
@@ -70,10 +72,8 @@ def export_state(model) -> Dict[str, Any]:
             for layer, ps in model.network.param_tree().items()
         },
         "dopt": {
-            "accum": {
-                layer: {k: host(t) for k, t in ps.items()}
-                for layer, ps in model.dopt["accum"].items()
-            }
+            kind: {layer: {k: host(t) for k, t in ps.items()} for layer, ps in tree.items()}
+            for kind, tree in model.dopt.items()
         },
         "step": model._step,
     }

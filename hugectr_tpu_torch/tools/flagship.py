@@ -8,6 +8,16 @@ optimizer and dtypes from the environment; here they are the `optimizer`
 argument and `Solver` fields passed as keyword arguments, as are the engine
 settings (`onehot_vocab=...`). `bench_settings()` names the values bench.py
 gives the JAX package.
+
+DLRM with FTRL (`build_dlrm_ftrl`) is the graph of samples/dlrm_ftrl.py
+(reference: samples/ftrl/dlrm_train_ftrl.py): 26 tables with the sample's
+slot sizes capped at `vocab_cap`, ev 128, hotness 1, sum, all
+model-parallel; a Reshape to [B, 26, ev]; bottom MLP 512/256/ev; the DLRM
+Interaction; top MLP 1024/1024/512/256/1; BCE; FTRL (lambda1 = lambda2 =
+0.01, beta 0) for the tables and the dense network. `dynamic=True` makes
+every table dynamic (`max_vocabulary_size` -1) with `dynamic_capacity`
+rows. The sample reads Parquet files; the port reads synthetic power-law
+keys.
 """
 from __future__ import annotations
 
@@ -25,6 +35,21 @@ MLPERF_MULTI_HOT_SIZES = [
 ]
 NUM_TABLE = 26
 NUM_DENSE = 13
+# samples/dlrm_ftrl.py:15-19, the reference's Criteo slot sizes
+FTRL_SLOT_SIZES = [
+    39884, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532, 2953546,
+    403346, 10, 2208, 11938, 155, 4, 976, 14, 39979, 25641295, 39664984,
+    585935, 12972, 108, 36,
+]
+# the tiny DLRM-FTRL of the tests: the sample's dense widths, tables capped
+# at 200 rows (dynamic: 200 rows each), batch 32. Six tables of <= 64 rows
+# take the one-hot engine, the 18 tables capped at 200 rows a storage group
+# each and the dense sweep, tables 15 and 24 (155 and 108 rows) one shared
+# group and the sorted route. The dynamic variant keeps its 26 tables in one
+# group (no storage group of their own) on the dense sweep, as at full size
+TINY_FTRL = dict(batchsize=32, vocab_cap=200, dynamic_capacity=200, synthetic_batches=3,
+                 onehot_vocab=64, split_vocab=200, dense_update_rows=200)
+TINY_FTRL_DYNAMIC = dict(split_vocab=0, dense_update_rows=8192)
 
 
 def bench_settings() -> dict:
@@ -168,6 +193,24 @@ def flagship_plan(vocab_cap: int = 2_000_000, ev_size: int = 128, onehot_vocab: 
                         superhot_rows=superhot_rows)
 
 
+def ftrl_plan(dynamic: bool = False, vocab_cap: int = 400_000, ev_size: int = 128,
+              dynamic_capacity: int = 4096, onehot_vocab: int = 8192, split_vocab: int = 256 * 1024):
+    """The embedding plan `Model` compiles for `build_dlrm_ftrl` on one card
+    (the engine's default thresholds, or those given)."""
+    from ..core.types import Combiner_t
+    from ..parallel.plan import EmbeddingTableConfig, LookupConfig, ShardingPlan, compile_plan
+
+    names = [str(i) for i in range(NUM_TABLE)]
+    lookups = [
+        LookupConfig(i, EmbeddingTableConfig(names[i], -1 if dynamic else min(v, vocab_cap), ev_size,
+                                             dynamic_capacity=dynamic_capacity),
+                     f"sparse_embedding1:{i}", f"sparse_embedding1:{i}", Combiner_t.Sum, 1)
+        for i, v in enumerate(FTRL_SLOT_SIZES)
+    ]
+    return compile_plan(lookups, ShardingPlan([("mp", names)]), 1, {n: 1 for n in names},
+                        onehot_vocab=onehot_vocab, split_vocab=split_vocab)
+
+
 def raw_vocab(plan, lm) -> int:
     """The vocabulary a group lookup's raw keys come from: its user table's,
     before any split."""
@@ -175,9 +218,10 @@ def raw_vocab(plan, lm) -> int:
     return int(next(lk for lk in plan.lookups if lk.top_name == top).table.vocabulary_size)
 
 
-def onehot_group_inputs(rng, batch: int, ev_size: int, dtype, device, alpha: float = 1.05, **plan_kw):
+def onehot_group_inputs(rng, batch: int, ev_size: int, dtype, device, alpha: float = 1.05, plan=None,
+                        **plan_kw):
     """The flagship's one-hot group forward as the step gives it: the group
-    of `flagship_plan(**plan_kw)`, power-law keys over each user table's
+    of `plan` (default `flagship_plan(**plan_kw)`), power-law keys over each user table's
     vocabulary as int32 column views of one [batch, sum h] tensor (a
     superhot tier reads the raw keys through its window), the group's
     forward descriptors, a random group storage and the output width.
@@ -188,7 +232,7 @@ def onehot_group_inputs(rng, batch: int, ev_size: int, dtype, device, alpha: flo
     from ..data.generator import power_law_keys
     from ..embedding.collection import onehot_fwd_lookups
 
-    plan = flagship_plan(ev_size=ev_size, **plan_kw)
+    plan = plan or flagship_plan(ev_size=ev_size, **plan_kw)
     g = next(g for g in plan.groups if g.compute_kind == "onehot")
     allk = np.concatenate([power_law_keys(rng, raw_vocab(plan, lm), (batch, lm.hotness), alpha)
                            for lm in g.lookups], axis=1)
@@ -207,3 +251,76 @@ def build_tiny_dlrm(rm, batchsize: int = 32, **kwargs):
     )
     params.update(kwargs)
     return build_dlrm_dcnv2(rm, batchsize=batchsize, **params)
+
+
+def build_dlrm_ftrl(
+    rm,
+    batchsize: int = 2048,
+    dynamic: bool = False,
+    vocab_cap: int = 400_000,
+    ev_size: int = 128,
+    dynamic_capacity: int = 4096,
+    synthetic_batches: int = 64,
+    lr: float = 0.001,
+    max_eval_batches: int = 50,
+    synthetic_alpha: float = 1.05,
+    **solver_kwargs,
+):
+    """DLRM with FTRL, samples/dlrm_ftrl.py:15-114, compiled on `rm.device`.
+    `solver_kwargs` are `Solver` fields (engine settings, dtypes)."""
+    sizes = [min(v, vocab_cap) for v in FTRL_SLOT_SIZES]
+    solver = hugectr.CreateSolver(
+        max_eval_batches=max_eval_batches, batchsize_eval=batchsize, batchsize=batchsize, lr=lr,
+        repeat_dataset=True, **solver_kwargs,
+    )
+    reader = hugectr.DataReaderParams(
+        data_reader_type=DataReaderType_t.Synthetic, synthetic_num_batches=synthetic_batches,
+        synthetic_alpha=synthetic_alpha,
+    )
+    opt = hugectr.CreateOptimizer(
+        optimizer_type=hugectr.Optimizer_t.FTRL, lr=lr, beta=0.0, lambda1=0.01, lambda2=0.01
+    )
+    model = hugectr.Model(solver, reader, opt, resource_manager=rm)
+    model.add(
+        hugectr.Input(
+            label_dim=1, label_name="label", dense_dim=NUM_DENSE, dense_name="dense",
+            data_reader_sparse_param_array=[
+                hugectr.DataReaderSparseParam(f"data{i}", 1, True, 1) for i in range(NUM_TABLE)
+            ],
+        )
+    )
+    tables = [
+        hugectr.EmbeddingTableConfig(
+            name=str(i), max_vocabulary_size=-1 if dynamic else sizes[i], ev_size=ev_size,
+            dynamic_capacity=dynamic_capacity,
+        )
+        for i in range(NUM_TABLE)
+    ]
+    ebc = hugectr.EmbeddingCollectionConfig()
+    ebc.embedding_lookup(tables, [f"data{i}" for i in range(NUM_TABLE)], "sparse_embedding1",
+                         ["sum"] * NUM_TABLE)
+    names = [t.name for t in tables]
+    ebc.shard(shard_matrix=[names] * rm.num_devices, shard_strategy=[("mp", names)])
+    model.add(ebc)
+    model.add(hugectr.DenseLayer(layer_type=hugectr.Layer_t.Reshape, bottom_names=["sparse_embedding1"],
+                                 top_names=["emb3d"], shape=[-1, NUM_TABLE, ev_size]))
+    model.add(hugectr.DenseLayer(layer_type=hugectr.Layer_t.MLP, bottom_names=["dense"],
+                                 top_names=["bottom_mlp"], num_outputs=[512, 256, ev_size],
+                                 activations=[hugectr.Activation_t.Relu] * 3))
+    model.add(hugectr.DenseLayer(layer_type=hugectr.Layer_t.Interaction, bottom_names=["bottom_mlp", "emb3d"],
+                                 top_names=["interaction1"]))
+    model.add(hugectr.DenseLayer(layer_type=hugectr.Layer_t.MLP, bottom_names=["interaction1"],
+                                 top_names=["top_mlp"], num_outputs=[1024, 1024, 512, 256, 1],
+                                 activations=[hugectr.Activation_t.Relu] * 4 + [hugectr.Activation_t.Non]))
+    model.add(hugectr.DenseLayer(layer_type=hugectr.Layer_t.BinaryCrossEntropyLoss,
+                                 bottom_names=["top_mlp", "label"], top_names=["loss"]))
+    model.compile()
+    return model
+
+
+def build_tiny_dlrm_ftrl(rm, dynamic: bool = False, **kwargs):
+    """The tiny DLRM-FTRL of the tests (`TINY_FTRL`, and `TINY_FTRL_DYNAMIC`
+    for the dynamic variant)."""
+    params = dict(TINY_FTRL, **(TINY_FTRL_DYNAMIC if dynamic else {}))
+    params.update(kwargs)
+    return build_dlrm_ftrl(rm, dynamic=dynamic, **params)

@@ -1,13 +1,16 @@
-"""Trace the flagship training step on the card and break its time down.
+"""Trace a full-width training step on the card and break its time down.
 
 Usage (on a machine with a card, from the repo root):
 
-    python -m hugectr_tpu_torch.tools.trace_step [--batch 16384] [--steps 3] [--bench] [--eval] [--out DIR]
+    python -m hugectr_tpu_torch.tools.trace_step [--model dlrm_dcnv2 | dlrm_ftrl] [--dynamic]
+        [--batch 16384] [--steps 3] [--bench] [--eval] [--out DIR]
 
 Builds the full-width DLRM-DCNv2 (`build_dlrm_dcnv2`, 26 tables, ev 128,
 vocab_cap 2M, rowwise AdaGrad, float32; with `--bench`, as bench.py
 configures it: `bench_settings()`, bf16 tables and state, mixed precision,
-the hot/cold/superhot split), runs 2 warm-up steps, then traces `--steps`
+the hot/cold/superhot split) or, with `--model dlrm_ftrl`, DLRM with FTRL
+(`build_dlrm_ftrl`, 26 tables capped at 400,000 rows, hotness 1; with
+`--dynamic`, exact dynamic tables of 4,096 rows each), runs 2 warm-up steps, then traces `--steps`
 training steps (with `--eval`: eval batches, the forward of `Model.eval`)
 with `torch.profiler`. Prints one JSON line: ms per step (host clock around
 synchronised steps), device busy ms per step (sum of kernel and copy
@@ -54,14 +57,21 @@ def main() -> None:
     ap.add_argument("--out", default="")
     ap.add_argument("--bench", action="store_true", help="the flagship as bench.py configures it")
     ap.add_argument("--eval", action="store_true", help="trace eval batches instead of training steps")
+    ap.add_argument("--model", choices=("dlrm_dcnv2", "dlrm_ftrl"), default="dlrm_dcnv2")
+    ap.add_argument("--dynamic", action="store_true", help="dlrm_ftrl with exact dynamic tables")
     args = ap.parse_args()
+    if (args.bench and args.model != "dlrm_dcnv2") or (args.dynamic and args.model != "dlrm_ftrl"):
+        ap.error("--bench is a dlrm_dcnv2 setting, --dynamic a dlrm_ftrl one")
 
     from hugectr_tpu_torch.core.mesh import ResourceManager
-    from hugectr_tpu_torch.tools.flagship import bench_settings, build_dlrm_dcnv2
+    from hugectr_tpu_torch.tools.flagship import bench_settings, build_dlrm_dcnv2, build_dlrm_ftrl
 
-    kw = bench_settings() if args.bench else dict(vocab_cap=2_000_000)
-    kw.update(batchsize=args.batch, synthetic_batches=args.steps + 2, max_eval_batches=args.steps + 2)
-    model = build_dlrm_dcnv2(ResourceManager.create(), **kw)
+    n = dict(batchsize=args.batch, synthetic_batches=args.steps + 2, max_eval_batches=args.steps + 2)
+    if args.model == "dlrm_ftrl":
+        model = build_dlrm_ftrl(ResourceManager.create(), dynamic=args.dynamic, **n)
+    else:
+        kw = bench_settings() if args.bench else dict(vocab_cap=2_000_000)
+        model = build_dlrm_dcnv2(ResourceManager.create(), **dict(kw, **n))
     for _ in range(2):
         model.train()
     if args.eval:
@@ -100,7 +110,8 @@ def main() -> None:
         capture_output=True, text=True,
     ).stdout.strip()
     out = dict(
-        card=card, batch=args.batch, bench=args.bench, traced="eval" if args.eval else "train",
+        card=card, model=args.model, dynamic=args.dynamic, batch=args.batch, bench=args.bench,
+        traced="eval" if args.eval else "train",
         steps=args.steps, ms_per_step=wall_ms,
         device_events=n_events, device_busy_ms_per_step=busy,
         device_idle_share=max(0.0, 1.0 - busy / wall_ms),
