@@ -72,14 +72,22 @@ Each phase prints one JSON line with its own seconds:
    each, no hand-written kernel on this path): the key store's fill and
    the keys dropped after each step; run twice from one seed, the stores
    must be bitwise equal.
+8. "hybrid_parity": the tiny DLRM-DCNv2 on 2 spawned ranks against one
+   card from one carried state, 3 steps and an eval
+   (`tools/hybrid.py::parity_runs`): NCCL with a card per rank, or gloo
+   with both ranks on one card.
+9. "hybrid_path": the full-width flagship (f32, global batch 16,384)
+   trained hybrid-parallel on W = max(2, cards) ranks, at most 8: launch
+   counts per rank, the bytes of each collective a step, replicas bitwise
+   equal across the ranks.
 
 Then a "kernels" JSON line (per kernel: source, the TPU kernel it replaces,
 main-path launches, error, ms, device_ms, plain_ms, bound_ms, bound_by,
 library_ms, for the float32 flagship case with the most device time; for
 `onehot_fwd`, the 13-table group; beside them the bench path's launches and
 the same numbers for its bf16 case with the most device time, and the FTRL
-path's launches and its case with the most device time), a
-line with the card's name and power limit, and last
+path's launches and its case with the most device time, and each rank's
+launches on the hybrid path), a line with the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that line;
 so does a machine without CUDA.
 """
@@ -1046,6 +1054,89 @@ def ftrl_dynamic_path(torch):
         raise AssertionError(f"dynamic FTRL key store: {rec}")
 
 
+def hybrid_parity(torch):
+    """The tiny DLRM-DCNv2 (rowwise AdaGrad, sorted route on) trained 3 steps
+    and evaluated on one card in this process and on 2 spawned ranks, both
+    from one carried state (`tools/hybrid.py::parity_runs`): NCCL with a
+    card per rank where the machine has 2, else gloo with both ranks on one
+    card. Losses rtol 1e-4; every table in key order and the dense
+    parameters rtol 1e-4 / atol 1e-5; AUC within 1e-4 (the same examples,
+    predictions summed in another order); every replicated array (dense
+    parameters and state, the one-hot table and state) bitwise equal across
+    the ranks; every kernel launched on each rank."""
+    from hugectr_tpu_torch.tools import hybrid
+
+    t0 = time.perf_counter()
+    backend = hybrid.default_backend(2)
+    one, ranks = hybrid.parity_runs(2, backend)
+    rep = hybrid.parity_report(one, ranks)
+    rec = dict(phase="hybrid_parity", world=2, backend=backend, device_count=torch.cuda.device_count(),
+               staged_through_host=backend == "gloo", losses_one_card=one["losses"].tolist(),
+               losses_ranks=[r["losses"].tolist() for r in ranks],
+               auc=[one["eval"]["auc"]] + [r["eval"]["auc"] for r in ranks], routes=ranks[0]["routes"],
+               launches=[r["launches"] for r in ranks], **rep, seconds=time.perf_counter() - t0)
+    emit(rec)
+    if not (rep["loss_rel_diff"] <= 1e-4 and rep["worst_excess"] <= 0 and rep["auc_diff"] <= 1e-4
+            and rep["replicas_equal"]):
+        raise AssertionError(f"2 ranks differ from one card: {rep}")
+    if any(min(r["launches"].values()) <= 0 for r in ranks):
+        raise AssertionError(f"a kernel never launched on a rank: {rec['launches']}")
+
+
+def hybrid_path(torch):
+    """The full-width flagship (f32, global batch 16,384, rowwise AdaGrad)
+    trained hybrid-parallel on W = max(2, cards) ranks, at most 8
+    (`tools/hybrid.py::train_model`): 6 steps and a 20-batch eval with NCCL
+    and a card per rank; with gloo, W ranks sharing the card(s), 4 steps and
+    4 eval batches, since every collective is staged through the host (its
+    ms/step is then no speed number). Counters are set to 0 on every rank
+    just before the steps and read just after, and again around the eval.
+    Every rank must launch `onehot_fwd` once a step and once an eval batch,
+    `onehot_bwd` and `segscan` in the steps; losses finite; every replicated
+    array bitwise equal across the ranks (SHA-256)."""
+    from hugectr_tpu_torch.tools import hybrid
+
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    w = min(8, max(2, n))
+    backend = hybrid.default_backend(w)
+    staged = backend == "gloo"
+    steps, eval_batches = (4, 4) if staged else (6, 20)
+    cfg = dict(builder="build_dlrm_dcnv2", steps=steps, eval=True, export=False, digest=True,
+               kwargs=dict(batchsize=B, ev_size=E, vocab_cap=2_000_000, synthetic_batches=steps,
+                           optimizer="rowwise_adagrad", max_eval_batches=eval_batches, metrics_spec=METRICS))
+    ranks = hybrid.run(hybrid.train_model, w, {"config": json.dumps(cfg)}, backend=backend, timeout=900.0)
+    r0 = ranks[0]
+    secs = r0["step_seconds"].tolist()
+    steady = statistics.median(secs[1:])
+    rec = dict(
+        phase="hybrid_path", world=w, backend=backend, device_count=n, staged_through_host=staged,
+        batch=B, per_rank_batch=B // w, steps=steps, eval_batches=eval_batches, losses=r0["losses"].tolist(),
+        step_ms=[x * 1e3 for x in secs], median_ms_per_step=steady * 1e3, examples_per_s=B / steady,
+        eval_seconds=r0["eval_seconds"], eval_examples_per_s=eval_batches * B / r0["eval_seconds"],
+        eval=r0["eval"], max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+        routes=r0["routes"], launches=[r["launches"] for r in ranks],
+        eval_launches=[r["eval_counts"]["launches"] for r in ranks],
+        collective_calls_per_step={k: v / steps for k, v in r0["collective_calls"].items()},
+        collective_bytes_per_step={k: v / steps for k, v in r0["collective_bytes"].items()},
+        eval_collective_bytes_per_batch={k: v / eval_batches
+                                         for k, v in r0["eval_counts"]["collective_bytes"].items()},
+        replicated_arrays=len(r0["replicated"]),
+        replicas_equal=all(r["replicated"] == r0["replicated"] for r in ranks[1:]),
+        seconds=time.perf_counter() - t0,
+    )
+    emit(rec)
+    if not all(math.isfinite(x) for r in ranks for x in r["losses"]):
+        raise AssertionError(f"non-finite loss on the hybrid path: {[r['losses'] for r in ranks]}")
+    for r, (tl, el) in enumerate(zip(rec["launches"], rec["eval_launches"])):
+        if not (tl["onehot_fwd"] == steps and tl["onehot_bwd"] > 0 and tl["segscan"] > 0
+                and el["onehot_fwd"] == eval_batches):
+            raise AssertionError(f"hybrid path launches on rank {r}: train {tl}, eval {el}")
+    if not rec["replicas_equal"]:
+        raise AssertionError("replicated arrays differ across the ranks of the hybrid path")
+    return [{k: tl[k] + el[k] for k in tl} for tl, el in zip(rec["launches"], rec["eval_launches"])]
+
+
 def main() -> int:
     import torch
 
@@ -1053,6 +1144,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from hugectr_tpu_torch.core import mesh
     from hugectr_tpu_torch.ops import _lib
     from hugectr_tpu_torch.tools import devtime
 
@@ -1062,7 +1154,7 @@ def main() -> int:
     ptxas = [ln.strip() for ln in _lib.build_info["log"].splitlines() if "Used" in ln or "spill" in ln]
     emit(dict(phase="card", card=card, torch=torch.__version__, cuda=torch.version.cuda,
               device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-              nvcc_seconds=_lib.build_info["seconds"], ptxas=ptxas, seconds=time.perf_counter() - t0))
+              collectives=mesh.COLLECTIVE_NAMES, nvcc_seconds=_lib.build_info["seconds"], ptxas=ptxas, seconds=time.perf_counter() - t0))
 
     results = []
     kernel_checks(torch, results)
@@ -1074,6 +1166,9 @@ def main() -> int:
     ftrl_launches = ftrl_path(torch)
     torch.cuda.empty_cache()
     ftrl_dynamic_path(torch)
+    torch.cuda.empty_cache()
+    hybrid_parity(torch)
+    hybrid_launches = hybrid_path(torch)
 
     sources = {
         "onehot_fwd": ("hugectr_tpu_torch/csrc/onehot_matmul.cu",
@@ -1102,6 +1197,7 @@ def main() -> int:
             **{k: r[k] for k in keys}, bench_path_launches=bench_launches[name],
             bench_case={k: rb[k] for k in keys}, ftrl_path_launches=ftrl_launches[name],
             ftrl_case={k: rf[k] for k in keys},
+            hybrid_path_launches=[x[name] for x in hybrid_launches],
         ))
     # device times taken by CUDA events because the profiler recorded nothing
     emit(dict(phase="profiler", event_fallbacks=[list(x) for x in devtime.FALLBACKS]))

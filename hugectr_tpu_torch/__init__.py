@@ -6,6 +6,8 @@ nothing of it and no JAX. It keeps the reference-parity API the flagship
 uses (`CreateSolver`, `CreateOptimizer`, `Model`, ...). Entry points run on
 the card unless the caller passes `device="cpu"`; the one-hot and segmented
 scan kernels are hand-written CUDA for sm_90a (`csrc/`), built at first use.
+Over several cards each rank is a process: `init_distributed()` (under
+torchrun, or `tools/hybrid.py`) and then the same API train hybrid-parallel.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from .core.config import (
     Solver,
 )
 from .core.logger import get_logger
-from .core.mesh import ResourceManager
+from .core.mesh import ResourceManager, init_distributed
 from .core.types import (
     Activation_t,
     Combiner_t,
@@ -76,4 +78,5 @@ __all__ = [
     "Optimizer_t",
     "ResourceManager",
     "Solver",
+    "init_distributed",
 ]

@@ -67,6 +67,9 @@ class Solver:
     # eval buffers of at most this many samples take the exact AUC, larger
     # ones the binned one (metrics.py:118, HCTR_TPU_AUC_EXACT_MAX)
     auc_exact_max: int = 8 * 1024 * 1024
+    # model-parallel key k lives on shard (k + crc32(table)) % f; False
+    # places it on k % f (plan.py:295, HCTR_TPU_SHARD_ROTATION=0)
+    shard_rotation: bool = True
 
     def __post_init__(self):
         self.metrics_spec = {Metric_t(k): v for k, v in self.metrics_spec.items()}

@@ -69,6 +69,13 @@ class TablePlacementStrategy(str, enum.Enum):
     ModelParallel = "mp"
 
 
+class CommunicationStrategy(str, enum.Enum):
+    """How the embedding's collectives run (types.py:133)."""
+
+    Uniform = "uniform"
+    Hierarchical = "hierarchical"
+
+
 class Metric_t(str, enum.Enum):
     """Eval metrics (types.py:111)."""
 

@@ -5,6 +5,11 @@ Readers yield numpy batches ``{label: [B, dim] f32, dense: [B, D] f32,
 sparse name: [B, hotness] int}``; the model moves them to its device. Batches
 are bit-identical to the JAX package's for the same seed. The file readers
 wait for a later slice.
+
+Over W ranks, rank r reads the block [r * B / W, (r + 1) * B / W) of each
+global batch (`block=(r, W)`): the block a one-process JAX mesh of W devices
+puts on device r (`P(data_axes)`, model.py:1202-1210), so one rank and W
+ranks train on the same examples.
 """
 from __future__ import annotations
 
@@ -53,7 +58,9 @@ class BaseReader:
 
 
 class SyntheticReader(BaseReader):
-    """Seeded power-law or uniform batches (reader.py:102)."""
+    """Seeded power-law or uniform batches (reader.py:102); with `block`
+    (r, W), rows [r * B / W, (r + 1) * B / W) of each global batch of
+    `spec.batch_size` rows."""
 
     def __init__(
         self,
@@ -64,7 +71,11 @@ class SyntheticReader(BaseReader):
         seed: int = 1234,
         repeat: bool = True,
         learnable_labels: bool = False,
+        block: Tuple[int, int] = (0, 1),
     ):
+        if spec.batch_size % block[1]:
+            raise ValueError(f"global batch {spec.batch_size} does not split over {block[1]} ranks")
+        self.block = block
         self.spec = spec
         self.slot_vocabs = {k: list(v) for k, v in slot_vocabs.items()}
         self.num_batches = num_batches
@@ -81,8 +92,11 @@ class SyntheticReader(BaseReader):
         epoch = 0
         while True:
             rng = np.random.default_rng(self.seed + epoch)
+            r, w = self.block
+            n = self.spec.batch_size // w
             for _ in range(self.num_batches):
-                yield self._batch(rng)
+                b = self._batch(rng)
+                yield b if w == 1 else {k: v[r * n : (r + 1) * n] for k, v in b.items()}
             epoch += 1
             if not self.repeat:
                 return

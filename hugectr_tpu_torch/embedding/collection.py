@@ -1,5 +1,5 @@
-"""Embedding collection on one device (counterpart of
-hugectr_tpu/embedding/collection.py, single-device paths).
+"""Embedding collection on one device or over W ranks (counterpart of
+hugectr_tpu/embedding/collection.py).
 
 Each plan group owns one [R, E] storage tensor. Per group:
 
@@ -43,6 +43,41 @@ found as padding, and the backward first inserts the batch's unplaced keys
 still unplaced after NUM_PROBES rounds are dropped for the step. Eviction,
 capacity growth and key-store export are not ported (ROADMAP Queue 1).
 
+Over W ranks (`rm.data_parallel_size` > 1, one process per device), each
+rank holds the batch's block of B/W samples (hybrid parallelism,
+collection.py:668-721, :1567-1726):
+
+* one-hot groups are replicated: the forward kernel runs on the rank's
+  rows; the backward kernels write the group's float32 gradient and touch
+  counts from the rank's rows, and one `all_reduce` of each gives every
+  rank the same update (`_onehot_bwd_local`, :1437);
+* model-parallel rowop groups are row-sharded, key k of a table on rank
+  (k' + rot) % W at local row k' // W (k' = k % vocab, `_slot_placement`,
+  :427). The forward all-gathers the keys, pools the rows this rank owns
+  with the masked gather of `_dp_fwd` (other ranks' keys read as padding)
+  and reduce-scatters the float32 partial pools over the batch
+  (`_mp_fwd_local`, :808-865; the JAX package's owner-partitioned gather of
+  the sorted owned prefix, `_mp_fwd_partitioned`, :867-936, is not ported);
+  the backward all-gathers the keys and the cotangents and updates the
+  owned rows (`_mp_bwd_local`, :1844), whose key-ratio rule asks W x the
+  keys (`_opt_knobs`, :1976);
+* data-parallel rowop groups are replicated: the forward is local, the
+  backward all-gathers keys and cotangents and every rank applies the
+  update (`_dp_bwd_local`, :1896). On the card `index_add_` sums with
+  atomics, in an order that differs from rank to rank, so rank 0's updated
+  table and state are then broadcast: the replicas stay bitwise equal.
+
+The collectives are `core/mesh.py`'s. `export_table` and `import_table`
+read and write a table in key order whatever W is (collectives on every
+rank). Not ported over W > 1 ranks (ROADMAP Queue 1 item 1), each of
+these raises: partial placement (a table on fewer shards than ranks, 1c),
+dynamic tables (1d), bfloat16 tables or state and the hot/cold split (1e),
+hierarchical communication (1g). Nor is the unique-key dense exchange
+(1f): the JAX package takes it only for all-Concat groups with caps
+measured and set in HCTR_TPU_DENSE_EXCHANGE_CAP (`_dense_exchange_ok`,
+:953), and the port has no such setting yet, so every group takes the
+exact path above.
+
 `route_counts` counts, per route ("onehot", "dense", "sorted", "scatter"),
 the groups updated since the collection was built; `group_routes` holds
 each group's route in the last backward.
@@ -50,12 +85,12 @@ each group's route in the last backward.
 from __future__ import annotations
 
 import collections
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core.mesh import ResourceManager
+from ..core.mesh import ResourceManager, all_gather, all_reduce, broadcast, reduce_scatter
 from ..core.types import INVALID_KEY, Combiner_t
 from ..ops.onehot_matmul import (
     GroupLookup,
@@ -102,10 +137,22 @@ def fold_reserved_key(k32: torch.Tensor) -> torch.Tensor:
 class _GroupMeta:
     """Device-side constants of one group."""
 
-    def __init__(self, g: GroupPlan, device: torch.device):
-        if g.num_shards != 1 or g.mesh_size != 1:
-            raise NotImplementedError("multi-GPU groups are not ported yet (ROADMAP Queue 1)")
+    def __init__(self, g: GroupPlan, device: torch.device, world: int):
+        if g.is_model_parallel and (g.num_shards != world or g.num_replicas != 1):
+            raise NotImplementedError(
+                f"group {g.name}: {g.num_shards} shard(s) over {world} rank(s); partial placement "
+                "is not ported yet (ROADMAP Queue 1 item 1c)"
+            )
+        if world > 1 and g.slot_is_dynamic.any():
+            raise NotImplementedError(
+                f"group {g.name}: dynamic tables over more than one rank are not ported yet "
+                "(ROADMAP Queue 1 item 1d)"
+            )
         self.plan = g
+        self.num_shards = g.num_shards if g.is_model_parallel else 1
+        self.slot_rotation = torch.as_tensor(
+            g.slot_rotation % self.num_shards, dtype=torch.int64, device=device
+        )
         self.slot_local_offset = torch.as_tensor(g.slot_local_offset, dtype=torch.int64, device=device)
         self.slot_vocab = torch.as_tensor(g.slot_vocab, dtype=torch.int64, device=device)
         self.slot_rows = torch.as_tensor(g.rows_per_shard[g.slot_table], dtype=torch.int64, device=device)
@@ -162,12 +209,19 @@ class EmbeddingCollection:
         self.plan = plan
         self.rm = rm
         self.device = rm.device
+        self.world = rm.data_parallel_size
+        self.rank = rm.rank
+        if self.world > 1 and (dtype != torch.float32 or state_dtype != torch.float32 or plan.merges):
+            raise NotImplementedError(
+                "bfloat16 tables or state and the hot/cold split over more than one rank are not "
+                "ported yet (ROADMAP Queue 1 item 1e)"
+            )
         self.opt = opt
         self.dtype = dtype
         self.state_dtype = state_dtype
         self.dense_update_rows = dense_update_rows
         self.dense_key_ratio = dense_key_ratio
-        self._meta = {g.name: _GroupMeta(g, self.device) for g in plan.groups}
+        self._meta = {g.name: _GroupMeta(g, self.device, self.world) for g in plan.groups}
         self.group_opt: Dict[str, OptParams] = {}
         for g in plan.groups:
             opts = {id(t.opt_params): t.opt_params for t in g.tables if t.opt_params}
@@ -183,23 +237,30 @@ class EmbeddingCollection:
     def init(self, generator: torch.Generator) -> Tables:
         """Uniform(-1, 1) rows scaled per table (default 1/sqrt(ev)), as the
         JAX package draws them (collection.py:289); distributions match,
-        bits do not. A group with dynamic tables also gets its empty key
-        store `"{group}#keys"` (collection.py:329-341)."""
+        bits do not. Each rank holds its shard of a model-parallel group
+        ([total_local_rows, E]) and draws only that, from a stream of its
+        own; replicated groups come from `generator`, alike on every rank.
+        A group with dynamic tables also gets its empty key store
+        `"{group}#keys"` (collection.py:329-341)."""
+        shard_gen = generator
+        if self.world > 1:
+            seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
+            shard_gen = torch.Generator(device=self.device).manual_seed(seed + self.rank)
         tables = {}
         for g in self.plan.groups:
-            t = torch.empty((g.total_storage_rows, g.ev_size), dtype=self.dtype, device=self.device)
-            t.uniform_(-1.0, 1.0, generator=generator)
+            t = torch.empty((g.total_local_rows, g.ev_size), dtype=self.dtype, device=self.device)
+            t.uniform_(-1.0, 1.0, generator=shard_gen if g.is_model_parallel else generator)
             scales = torch.as_tensor(self._row_init_scales(g), device=self.device)
             tables[g.name] = t.mul_(scales.unsqueeze(1).to(self.dtype))
             if self._meta[g.name].any_dynamic:
                 tables[f"{g.name}#keys"] = torch.full(
-                    (g.total_storage_rows,), EMPTY_KEY, dtype=torch.int32, device=self.device
+                    (g.total_local_rows,), EMPTY_KEY, dtype=torch.int32, device=self.device
                 )
         return tables
 
     def _row_init_scales(self, g: GroupPlan) -> np.ndarray:
-        """Per-row init scale (collection.py:344)."""
-        scales = np.zeros(g.total_storage_rows, dtype=np.float32)
+        """Per-row init scale of the rank's storage (collection.py:344)."""
+        scales = np.zeros(g.total_local_rows, dtype=np.float32)
         for ti, t in enumerate(g.tables):
             s = t.init_scale if t.init_scale is not None else 1.0 / np.sqrt(t.ev_size)
             off = int(g.local_offsets[ti])
@@ -209,7 +270,7 @@ class EmbeddingCollection:
     def init_optimizer(self, tables: Tables) -> Dict[str, Dict[str, torch.Tensor]]:
         return {
             g.name: sparse_optimizer.init_state(
-                self.group_opt[g.name], g.total_storage_rows, g.ev_size,
+                self.group_opt[g.name], g.total_local_rows, g.ev_size,
                 self.state_dtype, self.device,
             )
             for g in self.plan.groups
@@ -242,20 +303,28 @@ class EmbeddingCollection:
 
     def _slot_placement(
         self, gname: str, keys: torch.Tensor, key_store=None
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(valid, local storage row) of [B, H] keys (collection.py:427):
-        keys are cut to int32 first, as there (`keys.astype(jnp.int32)`,
-        JAX without x64), then -1 is padding and other keys wrap by floor
-        modulo. A dynamic slot's key takes the row where the store holds
-        it, and is padding where it holds it nowhere (:441-454)."""
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+        """(valid, owner rank, local storage row) of [B, H] keys
+        (collection.py:427): keys are cut to int32 first, as there
+        (`keys.astype(jnp.int32)`, JAX without x64), then -1 is padding and
+        other keys wrap by floor modulo into k'. Over f shards (a
+        model-parallel group) k' lives on (k' + rot) % f at row k' // f;
+        otherwise every key is local and the owner is None. A dynamic
+        slot's key (one rank only) takes the row where the store holds it,
+        and is padding where it holds it nowhere (:441-454)."""
         meta = self._meta[gname]
         valid, k = place_keys(keys, meta.slot_vocab.unsqueeze(0))
+        f = meta.num_shards
+        owner = None
+        if f > 1:
+            owner = torch.remainder(k + meta.slot_rotation.unsqueeze(0), f)
+            k = torch.div(k, f, rounding_mode="floor")
         if meta.any_dynamic:
             dyn = meta.slot_dynamic.unsqueeze(0)
             row, found = self._dynamic_probe(meta, keys, key_store)
             k = torch.where(dyn, row, k)
             valid = valid & (~dyn | found)
-        return valid, k + meta.slot_local_offset.unsqueeze(0)
+        return valid, owner, k + meta.slot_local_offset.unsqueeze(0)
 
     # ----------------------------------------------- exact dynamic tables
     @staticmethod
@@ -319,6 +388,11 @@ class EmbeddingCollection:
         for g in self.plan.groups:
             if g.compute_kind == "onehot":
                 go = self._onehot_fwd(g.name, tables[g.name], self._lookup_keys(g, feature_keys))
+            elif g.is_model_parallel and self.world > 1:
+                # the batch's keys, this rank's rows of them pooled in
+                # float32, the pools summed over the ranks and scattered
+                keys = all_gather(self._group_keys(g, feature_keys))
+                go = reduce_scatter(self._dp_fwd(g.name, tables[g.name], keys))
             else:
                 go = self._dp_fwd(g.name, tables[g.name], self._group_keys(g, feature_keys),
                                   tables.get(f"{g.name}#keys"))
@@ -378,9 +452,13 @@ class EmbeddingCollection:
         """Masked gather + per-lookup pooling (collection.py:1474-1485, :596);
         each lookup gathers its own slots, so no [B, H, E] temp of the whole
         group is built. Mean divides by the count of the raw valid keys, a
-        dynamic key missing from the store included (:1484)."""
+        dynamic key missing from the store included (:1484). Over f shards
+        (a model-parallel group's all-gathered keys) the keys other ranks
+        own read as padding, and Mean still divides by every raw valid key."""
         g = self._meta[gname].plan
-        valid, local_row = self._slot_placement(gname, keys, key_store)
+        valid, owner, local_row = self._slot_placement(gname, keys, key_store)
+        if owner is not None:
+            valid = valid & (owner == self.rank)
         raw_valid = keys != INVALID_KEY
         safe = torch.where(valid, local_row, 0)
         b = keys.shape[0]
@@ -412,7 +490,9 @@ class EmbeddingCollection:
         from the dense network; `step` is the 1-based global step (Adam's
         bias corrections). A dynamic group inserts the batch's new keys into
         its key store before its rows are updated (`_bwd_single`, :1942).
-        Returns the (updated) inputs."""
+        Over W ranks, `feature_keys` and `d_outs` are the rank's block of
+        the batch, the cotangents of the global-batch loss; every rank
+        calls this together (collectives). Returns the (updated) inputs."""
         lr = torch.as_tensor(lr, dtype=self.dtype, device=self.device)
         d_outs = self._expand_d_outs(d_outs, feature_keys)
         for g in self.plan.groups:
@@ -421,38 +501,56 @@ class EmbeddingCollection:
             opt = self.group_opt[g.name]
             if g.compute_kind == "onehot":
                 grad, colsum = self._onehot_grad(g.name, tables[g.name].dtype, keys, d_group)
+                # the ranks' rows summed: one all_reduce of each buffer
+                all_reduce(grad)
+                all_reduce(colsum)
                 # every row a valid key lands on is touched, for every
                 # optimizer (`_onehot_bwd_local`, collection.py:1437-1452)
                 sparse_optimizer.apply_dense(
-                    opt, tables[g.name], opt_state[g.name], grad, colsum > 0, lr, step
+                    opt, tables[g.name], opt_state[g.name], grad.to(tables[g.name].dtype), colsum > 0,
+                    lr, step,
                 )
                 route = "onehot"
             else:
+                if self.world > 1:
+                    # model-parallel: this rank's shard of the global batch's
+                    # update; data-parallel: every rank the same update
+                    keys, d_group = all_gather(keys), all_gather(d_group)
                 key_store = tables.get(f"{g.name}#keys")
                 if key_store is not None:
                     self._dynamic_insert(self._meta[g.name], key_store, keys)
                 idx, src, dsrc = self._row_grads(g.name, keys, d_group, key_store)
-                # the key-ratio rule counts valid keys; a tier's key list is
-                # mostly padding, and without a measured count the JAX
-                # package turns the rule off for it (collection.py:1970)
-                windowed = any(lm.windowed for lm in g.lookups)
                 route = sparse_optimizer.apply_sparse(
                     opt, tables[g.name], opt_state[g.name], idx, src, dsrc, lr,
-                    dense_rows=self.dense_update_rows,
-                    dense_ratio=0.0 if windowed else self.dense_key_ratio, step=step,
+                    dense_rows=self.dense_update_rows, dense_ratio=self._dense_ratio(g), step=step,
                 )
+                if self.world > 1 and not g.is_model_parallel:
+                    # atomic sums differ in their last bits from rank to
+                    # rank: rank 0's update is every replica's
+                    for t in (tables[g.name], *opt_state[g.name].values()):
+                        broadcast(t)
             self.route_counts[route] += 1
             self.group_routes[g.name] = route
         return tables, opt_state
 
+    def _dense_ratio(self, g: GroupPlan) -> float:
+        """The key-ratio rule's ratio for a rowop group (`_opt_knobs`,
+        collection.py:1962-1980): off for a windowed group, whose key list
+        is mostly padding; a model-parallel group over f shards sees the
+        global key list but owns about 1/f of it, so it asks f x the keys."""
+        if any(lm.windowed for lm in g.lookups):
+            return 0.0
+        return self.dense_key_ratio * self._meta[g.name].num_shards
+
     def _onehot_grad(
         self, gname: str, table_dtype, keys: torch.Tensor, d_group: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Dense [R, E] gradient + [R] touch counts (collection.py:1407).
-        Each table's kernel adds into its rows of the group's float32
-        buffers, which are zeroed once per group."""
+        """Dense float32 [R, E] gradient + [R] touch counts of the rank's
+        rows (collection.py:1407). Each table's kernel adds into its rows of
+        the group's float32 buffers, which are zeroed once per group; `d`
+        enters in the table's type."""
         g = self._meta[gname].plan
-        valid, local_row = self._slot_placement(gname, keys)
+        valid, _owner, local_row = self._slot_placement(gname, keys)
         grad = torch.zeros((g.total_local_rows, g.ev_size), dtype=torch.float32, device=self.device)
         colsum = torch.zeros((g.total_local_rows,), dtype=torch.float32, device=self.device)
         for lm in g.lookups:
@@ -466,7 +564,7 @@ class EmbeddingCollection:
                 k_rel, d.contiguous(), v, torch.float32,
                 out=grad[off : off + v], cnt_out=colsum[off : off + v],
             )
-        return grad.to(table_dtype), colsum
+        return grad, colsum
 
     def _grad_source(self, g: GroupPlan, d_out: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         """[B, W] output grads -> compact gradient source [B*S, E]: one row
@@ -490,10 +588,13 @@ class EmbeddingCollection:
         self, gname: str, keys: torch.Tensor, d_group: torch.Tensor, key_store=None
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(flat row ids with sentinel R, grad-source rows, compact grad
-        source) (collection.py:1801)."""
+        source) (collection.py:1801); over f shards the keys another rank
+        owns take the sentinel too."""
         meta = self._meta[gname]
         g = meta.plan
-        valid, local_row = self._slot_placement(gname, keys, key_store)
+        valid, owner, local_row = self._slot_placement(gname, keys, key_store)
+        if owner is not None:
+            valid = valid & (owner == self.rank)
         dsrc = self._grad_source(g, d_group, keys != INVALID_KEY)
         b = keys.shape[0]
         idx = torch.where(valid, local_row, g.total_local_rows).reshape(-1)
@@ -511,16 +612,30 @@ class EmbeddingCollection:
                     return g, ti
         raise KeyError(name)
 
+    def _sharded_rows(self, g: GroupPlan, ti: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(owner shard, row in the shard's block of the table) of each key
+        of a model-parallel table, in key order (`_table_storage_rows`,
+        collection.py:2729)."""
+        f = self._meta[g.name].num_shards
+        keys = np.arange(int(g.table_vocab[ti]), dtype=np.int64)
+        return (keys + int(g.table_rotation[ti]) % f) % f, keys // f
+
     def export_table(self, tables: Tables, table_name: str) -> np.ndarray:
-        """One table as a [vocab, ev] host array, a split table put back
-        together from its tiers (collection.py:2101); float32 for bfloat16
-        tables (numpy has no bfloat16)."""
+        """One table as a [vocab, ev] host array in key order, a split table
+        put back together from its tiers (collection.py:2101); float32 for
+        bfloat16 tables (numpy has no bfloat16). A sharded table is
+        all-gathered: every rank calls this together."""
         if table_name in self.plan.table_splits:
             return np.concatenate(
                 [self.export_table(tables, sub) for sub, _off in self.plan.table_splits[table_name]]
             )
         g, ti = self._find_table(table_name)
         off, vocab = int(g.local_offsets[ti]), int(g.table_vocab[ti])
+        if self._meta[g.name].num_shards > 1:
+            rps = int(g.rows_per_shard[ti])
+            shards = all_gather(tables[g.name][off : off + rps].detach().float()).cpu().numpy()
+            shard, row = self._sharded_rows(g, ti)
+            return shards[shard * rps + row]
         return tables[g.name][off : off + vocab].detach().float().cpu().numpy()
 
     def import_table(self, tables: Tables, table_name: str, values: np.ndarray) -> Tables:
@@ -538,8 +653,15 @@ class EmbeddingCollection:
             raise ValueError(
                 f"table {table_name}: expected {(vocab, g.ev_size)}, got {values.shape}"
             )
+        values = np.asarray(values, np.float32)
         with torch.no_grad():
-            tables[g.name][off : off + vocab].copy_(torch.as_tensor(np.asarray(values, np.float32)))
+            if self._meta[g.name].num_shards > 1:  # this rank's keys only
+                shard, row = self._sharded_rows(g, ti)
+                mine = shard == self.rank
+                rows = torch.as_tensor(off + row[mine], device=self.device)
+                tables[g.name][rows] = torch.as_tensor(values[mine]).to(self.device, self.dtype)
+            else:
+                tables[g.name][off : off + vocab].copy_(torch.as_tensor(values))
         return tables
 
     # ------------------------------------- dynamic-table upkeep, not ported

@@ -8,7 +8,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple, Union
 
-from ..core.types import Combiner_t
+from ..core.types import Combiner_t, CommunicationStrategy
 from ..parallel.plan import EmbeddingTableConfig, ShardingPlan
 
 __all__ = ["EmbeddingTableConfig", "EmbeddingCollectionConfig"]
@@ -31,7 +31,12 @@ class _LookupDecl:
 class EmbeddingCollectionConfig:
     """`ebc.embedding_lookup(...)`; `ebc.shard(...)` (config.py:49)."""
 
-    def __init__(self):
+    def __init__(self, comm_strategy: CommunicationStrategy = CommunicationStrategy.Uniform):
+        if CommunicationStrategy(comm_strategy) != CommunicationStrategy.Uniform:
+            raise NotImplementedError(
+                "hierarchical communication is not ported yet (ROADMAP Queue 1 item 1g)"
+            )
+        self.comm_strategy = CommunicationStrategy.Uniform
         self.lookup_decls: List[_LookupDecl] = []
         self.shard_matrix: Optional[List[List[str]]] = None
         self.shard_strategy: Optional[List[Tuple[str, List[str]]]] = None

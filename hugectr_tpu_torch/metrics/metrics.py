@@ -15,13 +15,22 @@ rank sum over the bins; it differs from the exact AUC only where one bin
 holds positives and negatives of unequal predictions (< 1e-4 at 1M uniform
 samples, tests/test_metrics.py:129). Sums are float32, as in the JAX
 package.
+
+Over W ranks each rank's buffers hold its block of every eval batch, and
+`finalize` (called on every rank together) computes each metric over the
+global eval set, as the JAX package does over its sharded buffers: the
+exact AUC and the other metrics on the buffers all-gathered into the
+global batch order, the binned AUC on all-reduced histograms, the choice
+between them by the global sample count, and AverageLoss as the mean of
+the global batch losses.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ..core.mesh import all_gather, all_reduce
 from ..core.types import Metric_t
 
 AUC_EXACT_MAX = 8 * 1024 * 1024  # metrics.py:118
@@ -54,10 +63,12 @@ def auc_score(preds: torch.Tensor, labels: torch.Tensor, valid: Optional[torch.T
 
 
 def auc_score_large(
-    preds: torch.Tensor, labels: torch.Tensor, valid: Optional[torch.Tensor] = None
+    preds: torch.Tensor, labels: torch.Tensor, valid: Optional[torch.Tensor] = None,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Binned rank-sum AUC (metrics.py:123): predictions tied within each of
-    2^20 bins of the order-preserving map of their float32 bits."""
+    2^20 bins of the order-preserving map of their float32 bits. `reduce`
+    sums the [2, bins] histograms over ranks (one all_reduce)."""
     p, lab, v = _flat(preds, labels, valid)
     b = p.view(torch.int32).long()
     # IEEE-754 order onto [0, 2^32): positive floats above negative ones
@@ -66,8 +77,12 @@ def auc_score_large(
     n_bins = 1 << AUC_BINS_BITS
     lab = torch.where(v, lab, 0.0)
     vf = v.float()
-    hist_pos = torch.zeros(n_bins, device=p.device).index_add_(0, bins, lab * vf)
-    hist_neg = torch.zeros(n_bins, device=p.device).index_add_(0, bins, (1.0 - lab) * vf)
+    hist = torch.zeros((2, n_bins), device=p.device)
+    hist[0].index_add_(0, bins, lab * vf)
+    hist[1].index_add_(0, bins, (1.0 - lab) * vf)
+    if reduce is not None:
+        hist = reduce(hist)
+    hist_pos, hist_neg = hist[0], hist[1]
     neg_below = torch.cumsum(hist_neg, 0) - hist_neg
     pos, neg = hist_pos.sum(), hist_neg.sum()
     r = torch.sum(hist_pos * (neg_below + 0.5 * hist_neg))
@@ -120,7 +135,8 @@ _FINALIZERS = {
 
 class MetricAccumulator:
     """Eval predictions and labels in [max_batches x batch_size x label_dim]
-    device buffers, finalized on demand (metrics.py:190)."""
+    device buffers, finalized on demand (metrics.py:190). Over `world`
+    ranks, `batch_size` is the rank's block of an eval batch."""
 
     def __init__(
         self,
@@ -130,7 +146,9 @@ class MetricAccumulator:
         device: torch.device,
         label_dim: int = 1,
         auc_exact_max: int = AUC_EXACT_MAX,
+        world: int = 1,
     ):
+        self.world = world
         self.metrics = {Metric_t(k): v for k, v in metrics.items()}
         self.batch_size = batch_size
         self.max_batches = max_batches
@@ -161,19 +179,35 @@ class MetricAccumulator:
         if loss is not None:
             self._loss_vals.append(torch.as_tensor(loss, dtype=torch.float32, device=self.device))
 
+    def _global(self, t: torch.Tensor) -> torch.Tensor:
+        """A buffer of every rank, in the global eval batches' order: batch
+        i's blocks of ranks 0..W-1, then batch i + 1's."""
+        if self.world == 1:
+            return t
+        g = all_gather(t.to(torch.uint8) if t.dtype == torch.bool else t)
+        g = g.reshape(self.world, self.max_batches, -1).transpose(0, 1).reshape(-1)
+        return g.bool() if t.dtype == torch.bool else g
+
     def finalize(self) -> Dict[str, float]:
+        """The metrics over the global eval set; over W ranks every rank
+        calls this together (collectives)."""
         out: Dict[str, float] = {}
+        buffers = None
         for m in self.metrics:
             if m == Metric_t.AverageLoss:
-                out[m.value] = (
-                    float(torch.stack([v.reshape(()) for v in self._loss_vals]).mean())
-                    if self._loss_vals else 0.0
-                )
-            elif m == Metric_t.AUC:
-                out[m.value] = float(auc_score_auto(self._preds, self._labels, self._valid,
-                                                    self.auc_exact_max))
-            else:
-                out[m.value] = float(_FINALIZERS[m](self._preds, self._labels, self._valid))
+                if self._loss_vals:
+                    losses = all_reduce(torch.stack([v.reshape(()) for v in self._loss_vals]))
+                    out[m.value] = float(losses.mean() / self.world)
+                else:
+                    out[m.value] = 0.0
+                continue
+            if m == Metric_t.AUC and self.capacity * self.world > self.auc_exact_max:
+                out[m.value] = float(auc_score_large(self._preds, self._labels, self._valid, all_reduce))
+                continue
+            if buffers is None:
+                buffers = [self._global(t) for t in (self._preds, self._labels, self._valid)]
+            fn = auc_score if m == Metric_t.AUC else _FINALIZERS[m]
+            out[m.value] = float(fn(*buffers))
         return out
 
     def check_earlystop(self, values: Dict[str, float]) -> bool:

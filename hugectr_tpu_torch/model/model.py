@@ -22,6 +22,21 @@ Both optimizers get the 1-based global step (Adam's bias corrections).
 Dynamic tables' key stores live in `tables` under `"{group}#keys"`; their
 synthetic keys are drawn below each table's capacity (`_slot_vocabs`).
 
+Over W ranks (`ResourceManager` over a process group, one process per
+device) the model is hybrid-parallel, as the JAX package's step over a mesh
+of W devices: the plan is compiled for W shards (model.py:393-397), each
+rank reads its block of B/W rows of every global batch, the embedding
+tables are model-parallel or replicated (`EmbeddingCollection`), and the
+dense network is replicated. The local loss is a mean over B/W rows, so
+the step differentiates loss / W: the dense gradients and the embedding
+cotangents are then those of the global-batch mean. The dense gradients
+and the loss go into one flat float32 bucket and one `all_reduce` a step;
+then every rank runs the same dense update. No
+`DistributedDataParallel`: the update is the port's `DenseOptimizer`, as
+the JAX step is a plain sum. `train()` returns the global mean loss, and
+`eval` the metrics of the global eval set. Every rank calls `train`,
+`eval` and `fit` together.
+
 `eval` runs one eager forward under `no_grad` per batch of the eval set
 (synthetic eval batches made once and kept on the device, cycled to fill
 `max_eval_batches` when `repeat_dataset` is set) into a `MetricAccumulator`,
@@ -43,7 +58,7 @@ import torch
 
 from ..core.config import DataReaderParams, DenseLayer, Input, Solver
 from ..core.logger import get_logger
-from ..core.mesh import DeviceLike, ResourceManager
+from ..core.mesh import DeviceLike, ResourceManager, all_reduce
 from ..core.types import DataReaderType_t
 from ..data.reader import BatchSpec, SparseFeatureSpec, SyntheticReader
 from ..embedding.collection import EmbeddingCollection
@@ -126,6 +141,16 @@ class Model:
             sparse=sparse_specs,
         )
         self.eval_batch_spec = dataclasses.replace(self.batch_spec, batch_size=s.batchsize_eval)
+        self.world = w = self.rm.data_parallel_size
+        if w > 1 and (s.use_mixed_precision or s.emb_dtype != torch.float32
+                      or s.emb_state_dtype != torch.float32 or s.hot_rows):
+            raise NotImplementedError(
+                "bf16 tables or state, mixed precision and the hot/cold split over more than one "
+                "rank are not ported yet (ROADMAP Queue 1 item 1e)"
+            )
+        for what, n in (("batchsize", s.batchsize), ("batchsize_eval", s.batchsize_eval)):
+            if n % w:
+                raise ValueError(f"{what} {n} does not split over {w} ranks")
         self._sparse_by_name = {f.name: f for f in sparse_specs}
 
         # ---- embedding plan (model.py:242-411)
@@ -155,9 +180,10 @@ class Model:
         self.ec: Optional[EmbeddingCollection] = None
         if lookup_cfgs:
             plan = compile_plan(
-                lookup_cfgs, ShardingPlan(strategy=strategy), num_shards=1,
+                lookup_cfgs, ShardingPlan(strategy=strategy), num_shards=w,
                 shard_counts=shard_counts, onehot_vocab=s.onehot_vocab, split_vocab=s.split_vocab,
                 hot_rows=s.hot_rows, superhot_rows=s.superhot_rows, warm_rows=s.warm_rows,
+                shard_rotation=s.shard_rotation,
             )
             self.ec = EmbeddingCollection(
                 plan, self.rm, self.opt_params, dtype=s.emb_dtype,
@@ -165,8 +191,8 @@ class Model:
                 state_dtype=s.emb_state_dtype,
             )
 
-        # ---- dense network (model.py:413-435)
-        b = s.batchsize
+        # ---- dense network (model.py:413-435), on the rank's rows
+        b = s.batchsize // w
         input_shapes: Dict[str, Tuple[int, ...]] = {
             name: (b, dim) for name, dim in zip(self.batch_spec.label_names, self.batch_spec.label_dims)
         }
@@ -199,20 +225,28 @@ class Model:
         if len(self.network.loss_specs) != 1:
             raise NotImplementedError("eval of multi-task models is not ported yet")
         self.metrics = MetricAccumulator(
-            s.metrics_spec, batch_size=s.batchsize_eval, max_batches=s.max_eval_batches,
+            s.metrics_spec, batch_size=s.batchsize_eval // w, max_batches=s.max_eval_batches,
             device=self.device, label_dim=label_dims.get(self.network.loss_specs[0].label_name, 1),
-            auc_exact_max=s.auc_exact_max,
+            auc_exact_max=s.auc_exact_max, world=w,
         )
 
     def _make_reader(self, train: bool) -> Optional[SyntheticReader]:
         """The train or the eval reader (model.py:501); the eval reader
-        takes the eval batch size and the seed + 99991."""
+        takes the eval batch size and the seed + 99991. Over W ranks, rank r
+        reads its block of each global batch from the same seed; ranks on
+        more than one host would take the JAX package's multi-host rule
+        (seed + 7919 * process, model.py:506-527), which is not ported."""
         rp = self.reader_params
         if rp is None:
             return None
         if rp.data_reader_type != DataReaderType_t.Synthetic:
             raise NotImplementedError(
                 f"reader {rp.data_reader_type.value} is not ported yet (ROADMAP Queue 1 item 7)"
+            )
+        if self.rm.local_world_size < self.world:
+            raise NotImplementedError(
+                "ranks on more than one host: the multi-host reader is not ported yet "
+                "(ROADMAP Queue 1 item 1h)"
             )
         return SyntheticReader(
             self.batch_spec if train else self.eval_batch_spec,
@@ -221,6 +255,7 @@ class Model:
             alpha=rp.synthetic_alpha,
             seed=(self.solver.seed or 1234) + (0 if train else 99991),
             learnable_labels=rp.synthetic_learnable,
+            block=(self.rm.rank, self.world),
         )
 
     def _slot_vocabs(self) -> Dict[str, List[int]]:
@@ -267,8 +302,9 @@ class Model:
         }
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """One iteration on a device batch; returns the loss tensor without
-        waiting for the device (model.py:787-883)."""
+        """One iteration on a device batch (the rank's block over W ranks);
+        returns the global mean loss as a device tensor without waiting for
+        the device (model.py:787-883)."""
         ec = self.ec
         step = self._step + 1
         lr = torch.tensor(float(self.lr_sch(step)), dtype=torch.float32, device=self.device)
@@ -283,8 +319,14 @@ class Model:
         }
         tensors.update(self._user_tensors(emb_in))
         loss, _ = self.network.forward_with_loss(tensors, self.solver.compute_dtype)
-        loss.backward()
         params = self.network.param_tree()
+        if self.world > 1:
+            # the global-batch mean: loss / W on every rank, summed below
+            loss = loss / self.world
+            loss.backward()
+            loss = self._all_reduce_grads(params, loss.detach())
+        else:
+            loss.backward()
         self.dense_opt.update(params, self.dopt, lr, step)
         self.network.zero_grad(set_to_none=True)
         if ec is not None:
@@ -293,6 +335,20 @@ class Model:
                 ec.backward_and_update(self.tables, self.eopt, feature_keys, egrads, lr, step)
         self._step = step
         return loss.detach()
+
+    @staticmethod
+    def _all_reduce_grads(params, loss: torch.Tensor) -> torch.Tensor:
+        """One flat float32 bucket of every dense gradient and the loss, one
+        `all_reduce` of it, and the sums copied back. Returns the summed
+        loss."""
+        grads = [p.grad for ps in params.values() for p in ps.values() if p.grad is not None]
+        flat = torch.cat([g.reshape(-1).float() for g in grads] + [loss.reshape(1).float()])
+        all_reduce(flat)
+        off = 0
+        for g in grads:
+            g.copy_(flat[off : off + g.numel()].view_as(g))
+            off += g.numel()
+        return flat[-1]
 
     def train_async(self) -> torch.Tensor:
         """One training iteration; returns the device loss (model.py:1257)."""
@@ -353,10 +409,11 @@ class Model:
         `num_epochs` passes over the train reader), the loss checked and
         logged every `display` iterations (a non-finite loss raises), an
         eval every `eval_interval` iterations, stopping early once a metric
-        passes its threshold in `metrics_spec`. Snapshots are not ported."""
+        passes its threshold in `metrics_spec`. Snapshots are not ported.
+        Over W ranks every rank runs the loop and rank 0 logs."""
         if snapshot:
             raise NotImplementedError("snapshots are not ported yet (ROADMAP Queue 1 item 9)")
-        log = get_logger()
+        say = get_logger().info if self.rm.is_master_process() else (lambda msg: None)
         self.start_data_reading()
         if num_epochs > 0:
             max_iter = num_epochs * max(self.train_reader.num_batches, 1)
@@ -370,15 +427,15 @@ class Model:
                     raise RuntimeError(f"NaN/Inf loss at iter {it}: training stopped")
                 dt = time.time() - window_t0
                 ips = (it - window_iter) * self.solver.batchsize / max(dt, 1e-9)
-                log.info(f"Iter: {it} Time: {dt:.3f}s Loss: {loss:.6f} "
+                say(f"Iter: {it} Time: {dt:.3f}s Loss: {loss:.6f} "
                          f"lr: {self.lr_sch(it):.6f} ({ips:,.0f} ex/s)")
                 window_t0, window_iter = time.time(), it
             if eval_interval and it % eval_interval == 0:
                 vals = self.eval()
-                log.info(f"Evaluation at iter {it}: {vals}")
+                say(f"Evaluation at iter {it}: {vals}")
                 if self.metrics.check_earlystop(vals):
-                    log.info(f"Hit target metric at iter {it}: {vals}; early stop")
+                    say(f"Hit target metric at iter {it}: {vals}; early stop")
                     break
         total = time.time() - t0
-        log.info(f"fit done: {self._step} iters in {total:.1f}s "
+        say(f"fit done: {self._step} iters in {total:.1f}s "
                  f"({self._step * self.solver.batchsize / max(total, 1e-9):,.0f} ex/s)")

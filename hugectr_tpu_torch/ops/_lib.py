@@ -84,7 +84,8 @@ def build() -> Path:
     t0 = time.perf_counter()
     jobs = []
     for cu in cus:
-        obj = BUILD_DIR / f"{cu.stem}_{tag}.o"
+        # objects named by process: ranks that start together may each build
+        obj = BUILD_DIR / f"{cu.stem}_{tag}.{os.getpid()}.o"
         cmd = [nvcc, *FLAGS, "-c", str(cu), "-o", str(obj)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((cu, obj, proc))
@@ -106,6 +107,8 @@ def build() -> Path:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
     so.with_suffix(".log").write_text(log)  # ptxas' registers and spills
     os.replace(tmp, so)
+    for _c, o, _p in jobs:
+        o.unlink()
     build_info.update(seconds=time.perf_counter() - t0, path=str(so), log=log, reused=False)
     return so
 

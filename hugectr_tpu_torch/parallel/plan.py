@@ -13,12 +13,18 @@ tiers are rowop groups of their own, and a `MergeMeta` sums the sub-lookups
 back into the user's top. `table_splits` maps a split table to its
 sub-tables and their first rows.
 
+A model-parallel group's tables are row-sharded over `num_shards` ranks:
+key k of a table (k' = k % vocab) lives on shard (k' + rot) % f at local row
+k' // f, with `rot` from `table_shard_rotation` (plan.py:295), so that the
+power-law heads of the tables do not all land on shard 0.
+
 Left out: row-capped group binning (plan.py:468, off by default) and the
 scatter-counts one-hot rule (plan.py:499, off by default).
 """
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -144,14 +150,27 @@ class GroupPlan:
     out_width: int
     compute_kind: str = "rowop"
     mesh_size: int = 0
+    # [T] / [H] owner rotation of each table / slot (plan.py:218)
+    table_rotation: Optional[np.ndarray] = None
+    slot_rotation: Optional[np.ndarray] = None
 
     def __post_init__(self):
         if not self.mesh_size:
             self.mesh_size = self.num_shards
+        if self.table_rotation is None:
+            self.table_rotation = np.array([table_shard_rotation(t.name) for t in self.tables], np.int64)
+        if self.slot_rotation is None:
+            self.slot_rotation = self.table_rotation[self.slot_table]
 
     @property
     def is_model_parallel(self) -> bool:
         return self.placement == TablePlacementStrategy.ModelParallel
+
+    @property
+    def num_replicas(self) -> int:
+        """Replicas of each shard on the mesh (plan.py:236); 1 unless a
+        partial placement gives the group fewer shards than ranks."""
+        return self.mesh_size // self.num_shards if self.is_model_parallel else 1
 
     @property
     def total_storage_rows(self) -> int:
@@ -188,6 +207,17 @@ class CompiledEmbeddingPlan:
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def table_shard_rotation(name: str, rotate: bool = True) -> int:
+    """Owner rotation of a table (plan.py:295): crc32 of its base name (a
+    split tier's `::tier` and a column's `#col` stripped, so that sub-tables
+    place rows as their parent does); 0 with `rotate` off (JAX:
+    HCTR_TPU_SHARD_ROTATION=0, plain k % f)."""
+    if not rotate:
+        return 0
+    base = name.split("::", 1)[0].split("#col", 1)[0]
+    return zlib.crc32(base.encode()) & 0x7FFFFFFF
 
 
 def _onehot_eligible(
@@ -283,7 +313,7 @@ def _shard_count_of(
     """Per-table logical shard count (plan.py:566)."""
     if not shard_counts:
         return num_shards
-    f = int(shard_counts.get(table.name.split("::", 1)[0], 0) or num_shards)
+    f = int(shard_counts.get(table.name.split("::", 1)[0].split("#col", 1)[0], 0) or num_shards)
     f = max(1, min(f, num_shards))
     while num_shards % f:
         f += 1
@@ -300,10 +330,12 @@ def compile_plan(
     hot_rows: int = 0,
     superhot_rows: int = 0,
     warm_rows: int = 0,
+    shard_rotation: bool = True,
 ) -> CompiledEmbeddingPlan:
     """Split the big tables into tiers (`hot_rows` > 0), then group lookups
     by (placement, ev_size, engine, private split, shard count) in
-    first-appearance order and lay out each group's storage (plan.py:584)."""
+    first-appearance order and lay out each group's storage (plan.py:584).
+    `num_shards` is the ranks' count (the data-parallel size)."""
     if num_shards < 1:
         raise ValueError("num_shards must be >= 1")
     orig_lookups = list(lookups)
@@ -384,6 +416,7 @@ def compile_plan(
             slot_cursor += lk.max_hotness
             out_cursor += lk.out_width
         slot_table_arr = np.array(slot_table, dtype=np.int32)
+        rotation = np.array([table_shard_rotation(t.name, shard_rotation) for t in tables], np.int64)
         if kind == "onehot":
             name = f"onehot_ev{ev_size}"
         else:
@@ -412,6 +445,8 @@ def compile_plan(
                 hotness_total=slot_cursor,
                 out_width=out_cursor,
                 compute_kind=kind,
+                table_rotation=rotation,
+                slot_rotation=rotation[slot_table_arr],
             )
         )
     return CompiledEmbeddingPlan(

@@ -7,15 +7,18 @@ time around a 3 us kernel measures the host's enqueue rate instead.
 
 Now and then a profile records no device activity at all, and in some
 processes several in a row do; now and then one records only part of the
-calls' launches (17 of 20). Each wrapper launches the same kernels on
-every call of the same inputs, so a profile whose launch count is not a
-multiple of the calls is partial. Three short spin kernels run before and
+calls' launches (17 of 20), or none of them beside the spin kernels
+below. Each wrapper launches the same kernels on every call of the same
+inputs, so a profile whose launch count is 0 or not a multiple of the
+calls is partial. Three short spin kernels run before and
 after the calls inside each profile, and are left out of the sums, so that
 launches lost at a profile's edges are theirs. A profile that is still
 empty or partial is taken again, up to five times; if every one is, the
 time is that of CUDA events around 20
 back-to-back calls (an upper bound on the device time), the launches per
-call are None (unknown), and the measurement is listed in `FALLBACKS`.
+call are None (unknown), and the measurement is listed in `FALLBACKS`;
+but if the last profile saw device kernels and none of `names`, `fn`
+launches none of them, and `device_ms` raises.
 """
 from __future__ import annotations
 
@@ -80,12 +83,12 @@ def device_ms(fn: Callable[[], object], names: Sequence[str], n: int = 20) -> Tu
                 if _SPIN not in evt.key and any(k in evt.key for k in names):
                     us += evt.self_device_time_total
                     count += evt.count
-        if seen and count % n == 0:
+        if seen and count and count % n == 0:
             break
+    if seen and count == 0:
+        raise AssertionError(f"the profiler saw no device kernel named {names}; it saw {seen}")
     if not seen or count % n:
         FALLBACKS.append(tuple(names))
         print(f"devtime: no whole profile in 5 for {tuple(names)}; CUDA events instead", file=sys.stderr)
         return events_ms(fn, n), None
-    if count == 0:
-        raise AssertionError(f"the profiler saw no device kernel named {names}; it saw {seen}")
     return us / 1e3 / n, count / n

@@ -93,8 +93,10 @@ def build_dlrm_dcnv2(
     synthetic_learnable: bool = False,
     **solver_kwargs,
 ):
-    """DLRM-DCNv2 (flagship.py:28); returns a compiled Model on `rm.device`.
-    `solver_kwargs` are `Solver` fields (dtypes, split, engine settings)."""
+    """DLRM-DCNv2 (flagship.py:28); returns a compiled Model on `rm.device`,
+    over `rm.num_devices` ranks (`batchsize` is the global batch; the
+    tables not on the one-hot engine are model-parallel). `solver_kwargs`
+    are `Solver` fields (dtypes, split, engine settings)."""
     table_sizes = [min(v, vocab_cap) for v in MLPERF_TABLE_SIZES]
     if multi_hot_sizes is None:
         multi_hot_sizes = MLPERF_MULTI_HOT_SIZES
@@ -175,10 +177,12 @@ def build_dlrm_dcnv2(
 
 
 def flagship_plan(vocab_cap: int = 2_000_000, ev_size: int = 128, onehot_vocab: int = 8192,
-                  split_vocab: int = 256 * 1024, hot_rows: int = 0, superhot_rows: int = 0):
-    """The flagship's embedding plan on one card, compiled as `Model` does
-    for `build_dlrm_dcnv2` (the engine's default thresholds, or those
-    given: `flagship_plan(**BENCH_PLAN)` is the plan of `bench_settings()`)."""
+                  split_vocab: int = 256 * 1024, hot_rows: int = 0, superhot_rows: int = 0,
+                  num_shards: int = 1):
+    """The flagship's embedding plan on `num_shards` ranks (one card by
+    default), compiled as `Model` does for `build_dlrm_dcnv2` (the engine's
+    default thresholds, or those given: `flagship_plan(**BENCH_PLAN)` is
+    the plan of `bench_settings()`)."""
     from ..core.types import Combiner_t
     from ..parallel.plan import EmbeddingTableConfig, LookupConfig, ShardingPlan, compile_plan
 
@@ -188,15 +192,17 @@ def flagship_plan(vocab_cap: int = 2_000_000, ev_size: int = 128, onehot_vocab: 
                      f"sparse_embedding:{i}", Combiner_t.Sum, MLPERF_MULTI_HOT_SIZES[i])
         for i, v in enumerate(MLPERF_TABLE_SIZES)
     ]
-    return compile_plan(lookups, ShardingPlan([("mp", names)]), 1, {n: 1 for n in names},
+    return compile_plan(lookups, ShardingPlan([("mp", names)]), num_shards, {n: num_shards for n in names},
                         onehot_vocab=onehot_vocab, split_vocab=split_vocab, hot_rows=hot_rows,
                         superhot_rows=superhot_rows)
 
 
 def ftrl_plan(dynamic: bool = False, vocab_cap: int = 400_000, ev_size: int = 128,
-              dynamic_capacity: int = 4096, onehot_vocab: int = 8192, split_vocab: int = 256 * 1024):
-    """The embedding plan `Model` compiles for `build_dlrm_ftrl` on one card
-    (the engine's default thresholds, or those given)."""
+              dynamic_capacity: int = 4096, onehot_vocab: int = 8192, split_vocab: int = 256 * 1024,
+              num_shards: int = 1):
+    """The embedding plan `Model` compiles for `build_dlrm_ftrl` on
+    `num_shards` ranks (one card by default; the engine's default
+    thresholds, or those given)."""
     from ..core.types import Combiner_t
     from ..parallel.plan import EmbeddingTableConfig, LookupConfig, ShardingPlan, compile_plan
 
@@ -207,7 +213,7 @@ def ftrl_plan(dynamic: bool = False, vocab_cap: int = 400_000, ev_size: int = 12
                      f"sparse_embedding1:{i}", f"sparse_embedding1:{i}", Combiner_t.Sum, 1)
         for i, v in enumerate(FTRL_SLOT_SIZES)
     ]
-    return compile_plan(lookups, ShardingPlan([("mp", names)]), 1, {n: 1 for n in names},
+    return compile_plan(lookups, ShardingPlan([("mp", names)]), num_shards, {n: num_shards for n in names},
                         onehot_vocab=onehot_vocab, split_vocab=split_vocab)
 
 
@@ -266,7 +272,8 @@ def build_dlrm_ftrl(
     synthetic_alpha: float = 1.05,
     **solver_kwargs,
 ):
-    """DLRM with FTRL, samples/dlrm_ftrl.py:15-114, compiled on `rm.device`.
+    """DLRM with FTRL, samples/dlrm_ftrl.py:15-114, compiled on `rm.device`
+    over `rm.num_devices` ranks (static tables only over more than one).
     `solver_kwargs` are `Solver` fields (engine settings, dtypes)."""
     sizes = [min(v, vocab_cap) for v in FTRL_SLOT_SIZES]
     solver = hugectr.CreateSolver(

@@ -1,0 +1,245 @@
+"""The pieces of hybrid parallelism that need no group, or one: the owner
+rotation and the compiled plans at 2, 4 and 8 shards against the JAX
+package's, the owner and row of a key against JAX's `_slot_placement`, the
+collectives of `core/mesh.py` over a gloo group of 2 spawned ranks and
+without a group, the route rule of a sharded group, each rank's block of a
+batch, and what over more than one rank still raises. All exact.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import torch_rank_fns as fns
+from hugectr_tpu.core.mesh import ResourceManager as JaxResourceManager
+from hugectr_tpu.core.types import Combiner_t as JComb
+from hugectr_tpu.core.types import Optimizer_t as JOpt
+from hugectr_tpu.embedding.collection import EmbeddingCollection as JEC
+from hugectr_tpu.optim.params import OptParams as JOptParams
+from hugectr_tpu.parallel import plan as jplan
+from hugectr_tpu.tools.flagship import MLPERF_MULTI_HOT_SIZES, MLPERF_TABLE_SIZES
+import hugectr_tpu_torch as hugectr
+from hugectr_tpu_torch.core import mesh
+from hugectr_tpu_torch.core.mesh import ResourceManager
+from hugectr_tpu_torch.core.types import Combiner_t as TComb
+from hugectr_tpu_torch.core.types import Optimizer_t as TOpt
+from hugectr_tpu_torch.data import reader as treader
+from hugectr_tpu_torch.embedding.collection import EmbeddingCollection as TEC
+from hugectr_tpu_torch.optim.params import OptParams as TOptParams
+from hugectr_tpu_torch.parallel import plan as tplan
+from hugectr_tpu_torch.tools import flagship as tflagship
+from hugectr_tpu_torch.tools import hybrid
+
+
+def _rm(world, rank=0, local=None):
+    """A manager of `world` ranks without a group: plans, placement and
+    configuration checks make no collective."""
+    return ResourceManager(torch.device("cpu"), rank, world, local)
+
+
+@pytest.mark.parametrize("name", ["0", "20", "20::cold", "20::shot", "t3#col1", "big::hot#col0", "user_id"])
+def test_table_shard_rotation_matches_jax(name, monkeypatch):
+    assert tplan.table_shard_rotation(name) == jplan.table_shard_rotation(name)
+    monkeypatch.setenv("HCTR_TPU_SHARD_ROTATION", "0")
+    assert tplan.table_shard_rotation(name, rotate=False) == jplan.table_shard_rotation(name) == 0
+
+
+# (vocab cap, ev, one-hot threshold, hotness) of the flagship, the tiny
+# DLRM-DCNv2 of the tests and DLRM-FTRL (hotness 1, its slot sizes)
+MODELS = {
+    "flagship": (2_000_000, 128, 8192, MLPERF_TABLE_SIZES, MLPERF_MULTI_HOT_SIZES),
+    "tiny": (1000, 16, 100, MLPERF_TABLE_SIZES, MLPERF_MULTI_HOT_SIZES),
+    "ftrl": (400_000, 128, 8192, tflagship.FTRL_SLOT_SIZES, [1] * 26),
+}
+
+
+def _lookups(pkg, comb, model):
+    cap, ev, _oh, sizes, hot = MODELS[model]
+    return [
+        pkg.LookupConfig(i, pkg.EmbeddingTableConfig(str(i), min(v, cap), ev), f"data{i}",
+                         f"sparse_embedding:{i}", comb.Sum, hot[i])
+        for i, v in enumerate(sizes)
+    ]
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8])
+@pytest.mark.parametrize("model", list(MODELS))
+def test_compiled_plans_match_jax(monkeypatch, model, shards):
+    """Group names (`_x{f}` only for partial placement), kinds, rows per
+    shard, offsets and rotations, as `Model` compiles them over W ranks
+    (every table on every rank: shard counts W)."""
+    onehot = MODELS[model][2]
+    monkeypatch.setenv("HCTR_TPU_ONEHOT_VOCAB", str(onehot))
+    monkeypatch.setenv("HCTR_TPU_SPLIT_VOCAB", str(256 * 1024))
+    names = [str(i) for i in range(26)]
+    counts = {n: shards for n in names}
+    jp = jplan.compile_plan(_lookups(jplan, JComb, model), jplan.ShardingPlan([("mp", names)]), shards, counts)
+    tp = tplan.compile_plan(_lookups(tplan, TComb, model), tplan.ShardingPlan([("mp", names)]), shards, counts,
+                            onehot_vocab=onehot)
+    assert [g.name for g in tp.groups] == [g.name for g in jp.groups]
+    assert not any("_x" in g.name for g in tp.groups)
+    for jg, tg in zip(jp.groups, tp.groups):
+        assert (tg.compute_kind, tg.placement.value) == (jg.compute_kind, jg.placement.value)
+        for f in ("num_shards", "mesh_size", "num_replicas", "total_local_rows", "total_storage_rows"):
+            assert getattr(tg, f) == getattr(jg, f), f
+        for f in ("rows_per_shard", "local_offsets", "table_rotation", "slot_rotation", "slot_local_offset"):
+            np.testing.assert_array_equal(getattr(tg, f), getattr(jg, f), err_msg=f)
+    if model == "flagship":
+        assert [g.name for g in tflagship.flagship_plan(num_shards=shards).groups] == [g.name for g in tp.groups]
+
+
+@pytest.mark.parametrize("int64", [False, True])
+def test_slot_placement_owner_and_row_match_jax(monkeypatch, int64):
+    """Owner and local row of every key at f = 4, -1 padding, negative keys,
+    keys >= V and, as int64, keys >= 2^31 (cut to int32 first)."""
+    for k, v in fns.EC_ENV.items():
+        monkeypatch.setenv(k, v)
+    jp = jplan.compile_plan(fns.ec_lookups(jplan, JComb), jplan.ShardingPlan(fns.EC_STRATEGY), 4)
+    jec = JEC(jp, JaxResourceManager.create(num_devices=4), JOptParams(JOpt.RowWiseAdaGrad))
+    tp = tplan.compile_plan(fns.ec_lookups(tplan, TComb), tplan.ShardingPlan(fns.EC_STRATEGY), 4,
+                            onehot_vocab=128, split_vocab=4000)
+    tec = TEC(tp, _rm(4), TOptParams(TOpt.RowWiseAdaGrad))
+    rng = np.random.default_rng(41)
+    for g in (g for g in tp.groups if g.is_model_parallel):
+        v = int(g.slot_vocab.max())
+        keys = rng.integers(-3 * v, 3 * v, size=(64, g.hotness_total))
+        keys[rng.random(keys.shape) < 0.2] = -1
+        if int64:
+            keys[:8] = 2**31 + rng.integers(0, 2**31, size=(8, g.hotness_total))
+            keys[8, :] = 2**32 - 1
+        keys = keys.astype(np.int64 if int64 else np.int32)
+        jv, jo, jr = jec._slot_placement(jec._meta[g.name], jnp.asarray(keys.astype(np.int32)), 4)
+        tv, to, tr = tec._slot_placement(g.name, torch.from_numpy(keys))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        valid = tv.numpy()
+        np.testing.assert_array_equal(to.numpy()[valid], np.asarray(jo)[valid])
+        np.testing.assert_array_equal(tr.numpy()[valid], np.asarray(jr)[valid])
+
+
+def test_sharded_group_key_ratio_matches_jax(monkeypatch):
+    """A model-parallel group over f shards asks f x the keys of the
+    key-ratio rule; windowed groups turn it off (`_opt_knobs`)."""
+    env = dict(fns.EC_ENV, HCTR_TPU_DENSE_KEY_RATIO="0.3")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    jp = jplan.compile_plan(fns.ec_lookups(jplan, JComb), jplan.ShardingPlan(fns.EC_STRATEGY), 4)
+    jec = JEC(jp, JaxResourceManager.create(num_devices=4), JOptParams(JOpt.RowWiseAdaGrad))
+    tp = tplan.compile_plan(fns.ec_lookups(tplan, TComb), tplan.ShardingPlan(fns.EC_STRATEGY), 4,
+                            onehot_vocab=128, split_vocab=4000)
+    tec = TEC(tp, _rm(4), TOptParams(TOpt.RowWiseAdaGrad), dense_key_ratio=0.3)
+    for g in tp.groups:
+        if g.compute_kind == "rowop":
+            assert tec._dense_ratio(g) == pytest.approx(jec._opt_knobs(g.name)["dense_ratio"]), g.name
+
+
+@pytest.fixture(scope="module")
+def gloo2():
+    x = np.arange(24, dtype=np.float32).reshape(8, 3) - 5.0
+    return x, hybrid.run(fns.collectives, 2, {"x": x}, device="cpu")
+
+
+@pytest.mark.parametrize("op", ["all_gather", "reduce_scatter", "all_reduce", "broadcast"])
+def test_collectives_over_gloo_match_numpy(gloo2, op):
+    """Rank r holds rows [4r, 4r + 4) (all_gather) or the whole x times
+    r + 1 (reduce_scatter, all_reduce, broadcast)."""
+    x, ranks = gloo2
+    for r, res in enumerate(ranks):
+        assert res["backend"] == "gloo"
+        if op == "all_gather":
+            np.testing.assert_array_equal(res["all_gather_i64"], x.astype(np.int64))
+            np.testing.assert_array_equal(res["all_gather_f32"], x)
+        elif op == "reduce_scatter":
+            np.testing.assert_array_equal(res["reduce_scatter"], 3 * x[4 * r : 4 * r + 4])
+        elif op == "all_reduce":
+            np.testing.assert_array_equal(res["all_reduce"], 3 * x)
+        else:
+            np.testing.assert_array_equal(res["broadcast"], x)
+        # the whole buffer each covers on the rank: the int64 and float32
+        # gathers' outputs, one scatter's input, one reduce's and one
+        # broadcast's tensor
+        assert res["bytes"] == {"all_gather": x.size * 8 + x.nbytes, "reduce_scatter": x.nbytes,
+                                "all_reduce": x.nbytes, "broadcast": x.nbytes}
+
+
+def test_collectives_are_identities_without_a_group():
+    t = torch.arange(6.0).reshape(3, 2)
+    assert mesh.group_size() == 1 and mesh.backend() is None
+    for op in (mesh.all_gather, mesh.reduce_scatter, mesh.all_reduce, mesh.broadcast):
+        assert op(t) is t
+    np.testing.assert_array_equal(t.numpy(), np.arange(6.0).reshape(3, 2))
+    assert set(mesh.COLLECTIVE_NAMES) == {"all_gather", "reduce_scatter", "all_reduce", "broadcast"}
+
+
+def test_resource_manager_without_a_group():
+    rm = ResourceManager.create(device="cpu")
+    assert (rm.num_devices, rm.data_parallel_size, rm.rank, rm.is_master_process()) == (1, 1, 0, True)
+    assert ResourceManager.create(num_devices=1, device="cpu").num_devices == 1
+    with pytest.raises(ValueError, match="process group has 1 rank"):
+        ResourceManager.create(num_devices=2, device="cpu")
+    a, b = rm.generator(5), rm.generator(5)
+    assert torch.equal(torch.rand(4, generator=a), torch.rand(4, generator=b))
+
+
+def test_reader_blocks_are_rows_of_the_global_batch():
+    spec = treader.BatchSpec(batch_size=12, label_dims=(1,), label_names=("label",), dense_dim=3,
+                             dense_name="dense", sparse=(treader.SparseFeatureSpec("data0", (2, 1)),))
+    vocabs = {"data0": [50, 7]}
+    whole = iter(treader.SyntheticReader(spec, vocabs, num_batches=2, alpha=1.05, seed=3))
+    blocks = [iter(treader.SyntheticReader(spec, vocabs, num_batches=2, alpha=1.05, seed=3, block=(r, 3)))
+              for r in range(3)]
+    for _ in range(3):  # across the epoch boundary
+        b = next(whole)
+        parts = [next(it) for it in blocks]
+        for k in b:
+            np.testing.assert_array_equal(np.concatenate([p[k] for p in parts]), b[k])
+
+
+def _tiny(rm, **kw):
+    return tflagship.build_tiny_dlrm(rm, batchsize=8, **kw)
+
+
+def _partial_placement():
+    lk = [tplan.LookupConfig(0, tplan.EmbeddingTableConfig("t", 100, 8), "f", "e", TComb.Sum, 2)]
+    plan = tplan.compile_plan(lk, tplan.ShardingPlan([("mp", ["t"])]), 2, {"t": 1}, onehot_vocab=0)
+    assert plan.groups[0].name == "mp_ev8_x1"
+    TEC(plan, _rm(2), TOptParams(TOpt.RowWiseAdaGrad))
+
+
+def _dynamic():
+    lk = [tplan.LookupConfig(0, tplan.EmbeddingTableConfig("t", -1, 8, dynamic_capacity=64), "f", "e", TComb.Sum, 1)]
+    TEC(tplan.compile_plan(lk, tplan.ShardingPlan([]), 2), _rm(2), TOptParams(TOpt.FTRL))
+
+
+DEFERRED = {
+    "partial_placement": ("1c", _partial_placement),
+    "dynamic_tables": ("1d", _dynamic),
+    "bf16_tables": ("1e", lambda: _tiny(_rm(2), embedding_vec_dtype="bfloat16")),
+    "mixed_precision": ("1e", lambda: _tiny(_rm(2), use_mixed_precision=True)),
+    "hot_cold_split": ("1e", lambda: _tiny(_rm(2), hot_rows=256, onehot_vocab=64)),
+    "hierarchical_mesh": ("1g", lambda: ResourceManager.create(device="cpu", num_slices=2)),
+    "hierarchical_comm": ("1g", lambda: hugectr.EmbeddingCollectionConfig(comm_strategy="hierarchical")),
+    "multi_host_reader": ("1h", lambda: _tiny(_rm(2, local=1))),
+}
+
+
+@pytest.mark.parametrize("what", list(DEFERRED))
+def test_deferred_over_ranks_raise(what):
+    """What the port does not do over more than one rank yet raises and
+    names its ROADMAP item."""
+    item, fn = DEFERRED[what]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+        fn()
+
+
+def test_two_rank_tiny_model_compiles_without_a_group():
+    """The tiny model's layout at W = 2: the plan at 2 shards, each rank's
+    storage its shard of a model-parallel group, the dense network and the
+    metrics on the rank's half of the batch."""
+    m = _tiny(_rm(2, rank=1), onehot_vocab=100)
+    g = next(g for g in m.ec.plan.groups if g.is_model_parallel)
+    assert g.num_shards == 2 and m.tables[g.name].shape[0] == g.total_local_rows
+    assert m.eopt[g.name]["accum"].shape[0] == g.total_local_rows
+    assert m.metrics.batch_size == 4 and m.train_reader.block == (1, 2)
+    assert dataclasses.asdict(m.ec.plan.groups[-1])["num_shards"] == 1  # the one-hot group

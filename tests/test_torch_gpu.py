@@ -8,7 +8,9 @@ machine has no JAX, so run this file without the suite's conftest:
 Tolerance: |kernel - plain| / (sum of |inputs| into the element) <= 1e-4 in
 float32 (sums in another order, with atomics in the backward) and 1e-2 in
 bfloat16 (one more rounding of the output). Touch counts are exact, and the
-segmented scan is bitwise the same from run to run.
+segmented scan is bitwise the same from run to run. The last tests run
+the embedding collection and train the tiny model on 2 spawned ranks
+against one card.
 """
 import numpy as np
 import pytest
@@ -335,3 +337,52 @@ def test_segscan_bf16_rows_float32_sums(cuda):
         assert torch.equal(ss.segmented_sum_sorted(vals, heads, torch.float32), got)
     with pytest.raises(ValueError):
         ss.segmented_sum_sorted(vals.float(), heads, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_tiny_hybrid_model_matches_one_card(cuda, backend):
+    """The tiny DLRM-DCNv2 (sorted route on) at W = 2 against one card from
+    one carried state, 3 steps and an eval (`tools/hybrid.py::parity_runs`):
+    NCCL with a card per rank, or gloo with both ranks on one card (every
+    collective staged through the host). Losses rtol 1e-4, tables and dense
+    parameters rtol 1e-4 / atol 1e-5, AUC within 1e-4, replicas bitwise
+    equal across the ranks, every kernel launched on each rank."""
+    from hugectr_tpu_torch.tools import hybrid
+
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip(f"NCCL over 2 ranks needs 2 cards; this machine has {torch.cuda.device_count()}")
+    one, ranks = hybrid.parity_runs(2, backend)
+    rep = hybrid.parity_report(one, ranks)
+    assert rep["loss_rel_diff"] <= 1e-4 and rep["worst_excess"] <= 0 and rep["auc_diff"] <= 1e-4, rep
+    assert rep["replicas_equal"]
+    assert ranks[0]["routes"] == {"mp_ev16": "sorted", "onehot_ev16": "onehot"}
+    for r in ranks:
+        assert min(r["launches"].values()) > 0, r["launches"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_collection_replicas_bitwise_on_two_ranks(cuda, backend):
+    """The collection of `tests/torch_rank_fns.py` (one-hot, model-parallel
+    sorted and dense sweep, data-parallel rowop) at W = 2 on the card, a
+    global batch of 4,096 so that `index_add_`'s atomics meet on every
+    row of the data-parallel table: the replicated groups' storage and
+    state hold the same bits on both ranks after 2 updates, and the tables
+    agree with one card (rtol 1e-4 / atol 1e-5)."""
+    import torch_rank_fns as fns
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools import hybrid
+
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip(f"NCCL over 2 ranks needs 2 cards; this machine has {torch.cuda.device_count()}")
+    inputs = fns.ec_inputs("rowwise_adagrad", 4096, 2, 0.3)
+    one = fns.collection_steps(ResourceManager.create(), inputs)
+    ranks = hybrid.run(fns.collection_steps, 2, inputs, backend=backend)
+    for g in ("onehot_ev8", "dp_ev8"):
+        np.testing.assert_array_equal(ranks[1]["storage"][g], ranks[0]["storage"][g], err_msg=g)
+        for k, v in ranks[0]["state"][g].items():
+            np.testing.assert_array_equal(ranks[1]["state"][g][k], v, err_msg=f"{g}/{k}")
+    for res in ranks:
+        for t, want in one["tables"].items():
+            np.testing.assert_allclose(res["tables"][t], want, rtol=1e-4, atol=1e-5, err_msg=t)
