@@ -38,7 +38,10 @@ Each phase prints one JSON line with its own seconds:
    tier (bf16 rows, float32 sums). Then the shapes of DLRM with FTRL: the
    grouped forward at its 13-lookup hotness-1 group beside one
    `embedding_bag`, the 13 backwards at hotness 1 beside `index_add_`, and
-   segscan at K 16,384.
+   segscan at K 16,384. Then the bench shapes of one of the W ranks of the
+   hybrid phases (cases `_w{W}`): the 20-lookup group and the superhot
+   backwards on B/W rows, the cold tier's segscan over the keys rank 0
+   owns.
 3. "tiny_parity": the tiny DLRM-DCNv2 trained 3 steps on the card (kernels)
    and on the CPU (plain versions) from the same state: losses and tables
    must agree. Then the same with bench.py's settings scaled down (bf16,
@@ -76,18 +79,30 @@ Each phase prints one JSON line with its own seconds:
    card from one carried state, 3 steps and an eval
    (`tools/hybrid.py::parity_runs`): NCCL with a card per rank, or gloo
    with both ranks on one card.
+   Then "hybrid_bench_parity": the tiny bench-configured model the same
+   way, the ranks also evaluating the card's trained weights; and
+   "hybrid_partial_parity": the tiny model with a partial placement
+   (tables on 2 shards and on 1) on 4 ranks against one card, each shard's
+   replicas bitwise equal.
 9. "hybrid_path": the full-width flagship (f32, global batch 16,384)
    trained hybrid-parallel on W = max(2, cards) ranks, at most 8: launch
    counts per rank, the bytes of each collective a step, replicas bitwise
-   equal across the ranks.
+   equal across the ranks. "hybrid_bench_path": the same with
+   `bench_settings()`, and each kernel held against its plain version on
+   every rank's own inputs, the binned AUC beside the exact one.
+   "hybrid_ftrl_dynamic_path": full-width DLRM-FTRL on dynamic tables over
+   the W ranks, twice from one seed: each shard's store fill and dropped
+   keys a step, no key in two shards' stores, each store bitwise equal
+   across the runs.
 
 Then a "kernels" JSON line (per kernel: source, the TPU kernel it replaces,
 main-path launches, error, ms, device_ms, plain_ms, bound_ms, bound_by,
 library_ms, for the float32 flagship case with the most device time; for
 `onehot_fwd`, the 13-table group; beside them the bench path's launches and
 the same numbers for its bf16 case with the most device time, and the FTRL
-path's launches and its case with the most device time, and each rank's
-launches on the hybrid path), a line with the card's name and power limit, and last
+path's launches and its case with the most device time, each rank's
+launches on the hybrid and hybrid bench paths, and the per-rank bench case
+with the most device time), a line with the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that line;
 so does a machine without CUDA.
 """
@@ -263,6 +278,7 @@ def kernel_checks(torch, results):
     onehot_bwd_edges(torch, np, rng, oh, dev)
     segscan_checks(torch, np, rng, ss, dev, results)
     bench_shape_checks(torch, np, oh, ss, dev, results)
+    bench_shape_checks(torch, np, oh, ss, dev, results, world=hybrid_world(torch))
     ftrl_shape_checks(torch, np, oh, ss, dev, results)
 
 
@@ -358,28 +374,35 @@ def ftrl_shape_checks(torch, np, oh, ss, dev, results):
         raise AssertionError(f"DLRM-FTRL segscan disagrees with its plain version: {rec}")
 
 
-def bench_shape_checks(torch, np, oh, ss, dev, results):
+def bench_shape_checks(torch, np, oh, ss, dev, results, world: int = 1):
     """The shapes only bench.py's configuration gives the kernels: the seven
     superhot backwards (V 1,024 of the split tables' first rows, h 3 to
     100, power-law keys through the window [0, 1024), d in bf16 as the step
     gives it, float32 sums) and the bf16 segscan of table 20's cold tier
     (the valid keys of [131072, 2M) of 16,384 x 100 power-law keys: bf16
-    rows, float32 sums)."""
+    rows, float32 sums). With `world` W > 1, the shapes of one of W ranks
+    (case names end in `_w{W}`): the 20-lookup group forward and the
+    superhot backwards on B/W rows, and the cold tier's segscan over the
+    keys rank 0's shard owns among the 16,384 x 100 gathered ones."""
     from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
     from hugectr_tpu_torch.tools.flagship import BENCH_PLAN, flagship_plan, raw_vocab
 
-    plan = flagship_plan(ev_size=E, **BENCH_PLAN)
+    plan = flagship_plan(ev_size=E, num_shards=world, **BENCH_PLAN)
     g = plan.groups[0]
-    rng = np.random.default_rng(13)
+    rng = np.random.default_rng(13 + world)
+    b = B // world
+    sfx = f"_w{world}" if world > 1 else ""
+    if world > 1:
+        bench_group_check(torch, np, oh, dev, results, plan, b, sfx)
     for lm in g.lookups:
         if not lm.windowed:
             continue
         t0 = time.perf_counter()
         v, h = int(g.table_vocab[lm.table_index]), lm.hotness
-        raw = torch.as_tensor(power_law(rng, raw_vocab(plan, lm), (B, h)).astype(np.int32), device=dev)
+        raw = torch.as_tensor(power_law(rng, raw_vocab(plan, lm), (b, h)).astype(np.int32), device=dev)
         ok, local = oh.place_keys(oh.window_keys(raw, lm.key_lo, lm.key_hi), v)
         keys = torch.where(ok, local, -1).to(torch.int32)
-        d = torch.as_tensor(rng.standard_normal((B, E), dtype=np.float32), device=dev).to(torch.bfloat16)
+        d = torch.as_tensor(rng.standard_normal((b, E), dtype=np.float32), device=dev).to(torch.bfloat16)
         grad, cnt = oh.onehot_matmul_bwd(keys, d, v, torch.float32)
         want_g, want_c = oh.onehot_matmul_bwd_plain(keys, d, v, torch.float32)
         scale_g, _ = oh.onehot_matmul_bwd_plain(keys, d.float().abs(), v, torch.float32)
@@ -393,11 +416,11 @@ def bench_shape_checks(torch, np, oh, ss, dev, results):
             return torch.zeros((v, E), device=dev).index_add_(0, flat, d_rep)
 
         call = lambda: oh.onehot_matmul_bwd(keys, d, v, torch.float32)  # noqa: E731
-        b_ms, b_by = bound(keys.numel() * 4 + B * E * 2 + v * E * 4 + v * 4, nkeys * E)
+        b_ms, b_by = bound(keys.numel() * 4 + b * E * 2 + v * E * 4 + v * 4, nkeys * E)
         dms, per_call = device_ms(call, KERNEL_NAMES["onehot_bwd"])
         rec = dict(
-            kernel="onehot_bwd", case=f"superhot_{g.tables[lm.table_index].name}", dtype="bfloat16",
-            B=B, V=v, h=h, E=E, keys=nkeys, route=oh.bwd_route(B, h, v, E, dev),
+            kernel="onehot_bwd", case=f"superhot_{g.tables[lm.table_index].name}{sfx}", dtype="bfloat16",
+            B=b, V=v, h=h, E=E, keys=nkeys, route=oh.bwd_route(b, h, v, E, dev),
             scaled_err=scaled_err(grad, want_g, scale_g),
             max_abs_err=float((grad - want_g).abs().max()), counts_exact=bool(torch.equal(cnt, want_c)),
             tol=TOL["float32"], ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
@@ -411,13 +434,17 @@ def bench_shape_checks(torch, np, oh, ss, dev, results):
         # float32 sums of bf16 values: the float32 tolerance
         if not (rec["scaled_err"] <= TOL["float32"] and rec["counts_exact"]):
             raise AssertionError(f"superhot onehot_bwd disagrees with its plain version: {rec}")
-    # the cold tier of table 20: the valid keys of its window, sorted
+    # the cold tier of table 20: the valid keys of its window (of rank 0's
+    # shard over W ranks, as rows of that shard), sorted
     t0 = time.perf_counter()
     cold = next(x for x in plan.groups if x.name == "mp_ev128_20::cold")
     lm = cold.lookups[0]
     raw = torch.as_tensor(power_law(rng, raw_vocab(plan, lm), (B, lm.hotness)), device=dev)
     wk = oh.window_keys(raw, lm.key_lo, lm.key_hi)
-    ids = torch.sort(wk[wk >= 0]).values
+    wk = wk[wk >= 0]
+    if world > 1:
+        wk = wk[(wk + int(cold.table_rotation[0])) % world == 0] // world
+    ids = torch.sort(wk).values
     k = ids.numel()
     heads = torch.ones(k, dtype=torch.bool, device=dev)
     heads[1:] = ids[1:] != ids[:-1]
@@ -430,7 +457,7 @@ def bench_shape_checks(torch, np, oh, ss, dev, results):
     b_ms, b_by = bound(k * E * (2 + 4) + k, k * E)
     dms, per_call = device_ms(call, KERNEL_NAMES["segscan"])
     rec = dict(
-        kernel="segscan", case="cold_tier_20", dtype="bfloat16", out_dtype="float32", K=k,
+        kernel="segscan", case=f"cold_tier_20{sfx}", dtype="bfloat16", out_dtype="float32", K=k,
         list_len=B * lm.hotness, E=E, segments=int(heads.sum()), scaled_err=scaled_err(got, want, scale),
         max_abs_err=float((got - want).abs().max()), tol=TOL["float32"], out_ok=got.dtype == torch.float32,
         bitwise_repeat=bool(torch.equal(call(), got)), ms=time_ms(call), device_ms=dms,
@@ -442,6 +469,37 @@ def bench_shape_checks(torch, np, oh, ss, dev, results):
     emit(rec)
     if not (rec["scaled_err"] <= TOL["float32"] and rec["out_ok"] and rec["bitwise_repeat"]):
         raise AssertionError(f"bf16 cold-tier segscan disagrees with its plain version: {rec}")
+
+
+def bench_group_check(torch, np, oh, dev, results, plan, batch: int, sfx: str):
+    """The bench plan's 20-lookup one-hot group forward in bf16 on `batch`
+    rows (one rank's block), beside one embedding_bag call."""
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+    from hugectr_tpu_torch.tools.flagship import onehot_group_inputs
+    from hugectr_tpu_torch.tools.kernel_sweep import embedding_bag_call, group_bytes
+
+    t0 = time.perf_counter()
+    keys, lookups, table, width = onehot_group_inputs(np.random.default_rng(11), batch, E, torch.bfloat16, dev,
+                                                      plan=plan)
+    err, abs_err, launches, ok_shape = group_err(torch, oh, keys, lookups, table, width)
+    b_ms, b_by = bound(group_bytes(keys, lookups, table, width), batch * sum(k.shape[1] for k in keys) * E)
+    call = lambda: oh.onehot_fwd_group(keys, lookups, table, width)  # noqa: E731
+    dms, per_call = device_ms(call, KERNEL_NAMES["onehot_fwd"])
+    lib = embedding_bag_call(keys, lookups, table)
+    rec = dict(
+        kernel="onehot_fwd", case=f"group{len(lookups)}{sfx}", dtype="bfloat16", B=batch, lookups=len(lookups),
+        windowed=sum(lk.windowed for lk in lookups), width=width, scaled_err=err, max_abs_err=abs_err,
+        tol=TOL["bfloat16"], launches_per_call=launches, ms=time_ms(call), device_ms=dms,
+        device_launches_per_call=per_call,
+        plain_ms=time_ms(lambda: oh.onehot_fwd_group_plain(keys, lookups, table, width)),
+        library_ms=time_ms(lib), library_device_ms=device_ms(lib, KERNEL_NAMES["embedding_bag"])[0],
+        library="one torch.nn.functional.embedding_bag(mode='sum') over the group storage",
+        bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
+    )
+    results.append(rec)
+    emit(rec)
+    if not (err <= TOL["bfloat16"] and launches == 1 and per_call in (1, None) and ok_shape and len(lookups) == 20):
+        raise AssertionError(f"bench group forward on one rank's rows disagrees: {rec}")
 
 
 def group_err(torch, oh, keys, lookups, table, width):
@@ -787,14 +845,6 @@ def tiny_ftrl_parity(torch):
             raise AssertionError(f"tiny DLRM-FTRL on the card launched no {launches}")
 
 
-TINY_BENCH = dict(ev_size=16, vocab_cap=4000, synthetic_batches=3, bottom_mlp=(32, 16), top_mlp=(32, 16, 1),
-                  projection_dim=8, num_cross_layers=2, batchsize=64, max_eval_batches=5, onehot_vocab=64,
-                  hot_rows=256, superhot_rows=32, split_vocab=512, auc_exact_max=100, dense_update_rows=1024,
-                  synthetic_learnable=True)
-# AUC with the threshold build_dlrm_dcnv2 sets, and AverageLoss
-METRICS = {"auc": 0.80275, "average_loss": 0.0}
-
-
 def tiny_bench_parity(torch):
     """The tiny DLRM-DCNv2 with bench.py's settings scaled down (bf16
     tables and state, mixed precision, a split with a superhot tier,
@@ -808,7 +858,8 @@ def tiny_bench_parity(torch):
     rtol 1e-3."""
     from hugectr_tpu_torch.core.mesh import ResourceManager
     from hugectr_tpu_torch.tools.carry import export_state, load_jax_state
-    from hugectr_tpu_torch.tools.flagship import bench_settings, build_dlrm_dcnv2
+    from hugectr_tpu_torch.tools.flagship import TINY_BENCH, bench_settings, build_dlrm_dcnv2
+    from hugectr_tpu_torch.tools.hybrid import METRICS
 
     t0 = time.perf_counter()
     kw = dict(bench_settings(), **TINY_BENCH, metrics_spec=METRICS)
@@ -883,6 +934,7 @@ def bench_path(torch):
     from hugectr_tpu_torch.core.mesh import ResourceManager
     from hugectr_tpu_torch.metrics.metrics import auc_score, auc_score_large
     from hugectr_tpu_torch.tools.flagship import bench_settings, build_dlrm_dcnv2
+    from hugectr_tpu_torch.tools.hybrid import METRICS
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -959,8 +1011,8 @@ def ftrl_run(torch, dynamic: bool, steps: int = 6, eval_batches: int = 20):
     the count of the batch's distinct keys that found no row (dropped)."""
     from hugectr_tpu_torch import ops
     from hugectr_tpu_torch.core.mesh import ResourceManager
-    from hugectr_tpu_torch.embedding.collection import EMPTY_KEY
     from hugectr_tpu_torch.tools.flagship import build_dlrm_ftrl
+    from hugectr_tpu_torch.tools.hybrid import METRICS
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -979,13 +1031,9 @@ def ftrl_run(torch, dynamic: bool, steps: int = 6, eval_batches: int = 20):
         losses.append(model.train())
         step_s.append(time.perf_counter() - t)
         if dynamic:  # outside the timed step
-            g = ec.plan.groups[0]
-            store = model.tables[f"{g.name}#keys"]
-            keys = ec._group_keys(g, model._feature_keys(batches[i]))
-            _row, found = ec._dynamic_probe(ec._meta[g.name], keys, store)
-            miss = keys[(keys != -1) & ~found]
-            fill.append(int((store != EMPTY_KEY).sum()))
-            dropped.append(int(torch.unique(miss).numel()))
+            n_fill, n_dropped = ec.dynamic_stats(model.tables, model._feature_keys(batches[i]))["mp_ev128"]
+            fill.append(n_fill)
+            dropped.append(n_dropped)
     train_launches = ops.launch_counts()
     steady = statistics.median(step_s[1:])
     t = time.perf_counter()
@@ -1054,87 +1102,192 @@ def ftrl_dynamic_path(torch):
         raise AssertionError(f"dynamic FTRL key store: {rec}")
 
 
-def hybrid_parity(torch):
-    """The tiny DLRM-DCNv2 (rowwise AdaGrad, sorted route on) trained 3 steps
-    and evaluated on one card in this process and on 2 spawned ranks, both
-    from one carried state (`tools/hybrid.py::parity_runs`): NCCL with a
-    card per rank where the machine has 2, else gloo with both ranks on one
-    card. Losses rtol 1e-4; every table in key order and the dense
-    parameters rtol 1e-4 / atol 1e-5; AUC within 1e-4 (the same examples,
-    predictions summed in another order); every replicated array (dense
-    parameters and state, the one-hot table and state) bitwise equal across
-    the ranks; every kernel launched on each rank."""
+def parity_phase(torch, phase: str, world: int, model: str, eval_carried: bool = False):
+    """A tiny model (`tools/hybrid.py::tiny_config`) trained 3 steps and
+    evaluated on one card in this process and on `world` spawned ranks from
+    one state (`parity_runs`): NCCL with a card per rank, else gloo with the
+    ranks sharing the card. Emits the record; fails if a kernel never
+    launched on a rank, or if a replicated array, or a shard on the ranks
+    that hold it, differs across the ranks. Returns the report."""
     from hugectr_tpu_torch.tools import hybrid
 
     t0 = time.perf_counter()
-    backend = hybrid.default_backend(2)
-    one, ranks = hybrid.parity_runs(2, backend)
+    backend = hybrid.default_backend(world)
+    one, ranks = hybrid.parity_runs(world, backend, config=hybrid.tiny_config(model), eval_carried=eval_carried)
     rep = hybrid.parity_report(one, ranks)
-    rec = dict(phase="hybrid_parity", world=2, backend=backend, device_count=torch.cuda.device_count(),
+    rec = dict(phase=phase, world=world, backend=backend, device_count=torch.cuda.device_count(),
                staged_through_host=backend == "gloo", losses_one_card=one["losses"].tolist(),
                losses_ranks=[r["losses"].tolist() for r in ranks],
                auc=[one["eval"]["auc"]] + [r["eval"]["auc"] for r in ranks], routes=ranks[0]["routes"],
                launches=[r["launches"] for r in ranks], **rep, seconds=time.perf_counter() - t0)
     emit(rec)
-    if not (rep["loss_rel_diff"] <= 1e-4 and rep["worst_excess"] <= 0 and rep["auc_diff"] <= 1e-4
-            and rep["replicas_equal"]):
-        raise AssertionError(f"2 ranks differ from one card: {rep}")
+    if not (rep["replicas_equal"] and rep["shard_replicas_equal"]):
+        raise AssertionError(f"{phase}: replicas differ across the ranks: {rep}")
     if any(min(r["launches"].values()) <= 0 for r in ranks):
-        raise AssertionError(f"a kernel never launched on a rank: {rec['launches']}")
+        raise AssertionError(f"{phase}: a kernel never launched on a rank: {rec['launches']}")
+    return rep, ranks
+
+
+def hybrid_parity(torch):
+    """The tiny DLRM-DCNv2 (rowwise AdaGrad, sorted route on) on 2 ranks
+    against one card (`parity_phase`). Losses rtol 1e-4; every table in key
+    order and the dense parameters rtol 1e-4 / atol 1e-5; AUC within 1e-4
+    (the same examples, predictions summed in another order)."""
+    rep, _ranks = parity_phase(torch, "hybrid_parity", 2, "tiny")
+    if not (rep["loss_rel_diff"] <= 1e-4 and rep["worst_excess"] <= 0 and rep["auc_diff"] <= 1e-4):
+        raise AssertionError(f"2 ranks differ from one card: {rep}")
+
+
+def hybrid_bench_parity(torch):
+    """The tiny bench-configured DLRM-DCNv2 (`tiny_bench_parity`'s model)
+    on 2 ranks against one card (`parity_phase`); the ranks also evaluate
+    the one card's trained weights. The tolerances of `tiny_bench_parity`:
+    step 1 loss rtol 1e-3, steps 2-3 rtol 2e-2; the eval of the same
+    weights AUC within 1e-3, AverageLoss rtol 1e-3."""
+    rep, _ranks = parity_phase(torch, "hybrid_bench_parity", 2, "tiny_bench", eval_carried=True)
+    d = rep["loss_rel_diffs"]
+    if not (d[0] <= 1e-3 and max(d[1:]) <= 2e-2 and rep["carried_auc_diff"] <= 1e-3
+            and rep["carried_average_loss_rel_diff"] <= 1e-3):
+        raise AssertionError(f"bench-configured tiny model on 2 ranks differs from one card: {rep}")
+
+
+def hybrid_partial_parity(torch):
+    """The tiny DLRM-DCNv2 with a partial placement
+    (`tools/flagship.py::build_tiny_partial`: tables 0 and 9 on 2 shards,
+    21 and 22 on 1) on 4 ranks against one card (`parity_phase`), the state
+    carried by table. `hybrid_parity`'s tolerances, the 6 shard arrays
+    (`shard_replicas`) bitwise equal on the ranks that hold them."""
+    rep, ranks = parity_phase(torch, "hybrid_partial_parity", 4, "tiny_partial")
+    if not (rep["loss_rel_diff"] <= 1e-4 and rep["worst_excess"] <= 0 and rep["auc_diff"] <= 1e-4
+            and rep["shard_replicas"] == 6):
+        raise AssertionError(f"partial placement on 4 ranks differs from one card: {rep}")
+    if ranks[0]["routes"] != {"mp_ev16_x2": "dense", "mp_ev16": "sorted", "onehot_ev16": "onehot",
+                              "mp_ev16_x1": "sorted"}:
+        raise AssertionError(f"partial placement routes {ranks[0]['routes']}")
+
+
+def hybrid_world(torch) -> int:
+    """The ranks of the full-width hybrid phases: a card each, at least 2
+    (sharing one card over gloo), at most 8."""
+    return min(8, max(2, torch.cuda.device_count()))
+
+
+def hybrid_run(torch, model: str, dynamic: bool = False, **extra):
+    """A full-width model (`tools/hybrid.py::full_width_config`) trained on
+    W = `hybrid_world` ranks: 6 steps and a 20-batch eval over NCCL with a
+    card per rank; over gloo, W ranks sharing the card(s), 4 steps and 4
+    eval batches, since every collective is staged through the host (its
+    ms/step is then no speed number). Counters are set to 0 on every rank
+    just before the steps and read just after, and again around the eval.
+    Returns (the phase's record, the ranks' results)."""
+    from hugectr_tpu_torch.tools import hybrid
+
+    t0 = time.perf_counter()
+    w = hybrid_world(torch)
+    backend = hybrid.default_backend(w)
+    cfg = dict(hybrid.full_width_config(model, backend == "gloo", B, dynamic), **extra)
+    ranks = hybrid.run(hybrid.train_model, w, {"config": json.dumps(cfg)}, backend=backend, timeout=900.0)
+    rec = dict(backend=backend, device_count=torch.cuda.device_count(), staged_through_host=backend == "gloo",
+               **hybrid.path_summary(ranks, cfg), seconds=time.perf_counter() - t0)
+    return rec, ranks
+
+
+def check_path_launches(rec, per_step: dict, eval_fwd: bool = True):
+    """Every rank's launches: `per_step` {kernel: n} a step exactly (None:
+    at least once in the steps), `onehot_fwd` once an eval batch and no
+    backward kernel in the eval."""
+    steps, eval_batches = rec["steps"], rec["eval_batches"]
+    for r, (tl, el) in enumerate(zip(rec["launches"], rec["eval_launches"])):
+        ok = all(tl[k] > 0 if n is None else tl[k] == n * steps for k, n in per_step.items())
+        ok = ok and el["onehot_bwd"] == 0 and el["segscan"] == 0
+        ok = ok and el["onehot_fwd"] == (eval_batches if eval_fwd else 0)
+        if not ok:
+            raise AssertionError(f"{rec['phase']} launches on rank {r}: train {tl}, eval {el}")
 
 
 def hybrid_path(torch):
     """The full-width flagship (f32, global batch 16,384, rowwise AdaGrad)
-    trained hybrid-parallel on W = max(2, cards) ranks, at most 8
-    (`tools/hybrid.py::train_model`): 6 steps and a 20-batch eval with NCCL
-    and a card per rank; with gloo, W ranks sharing the card(s), 4 steps and
-    4 eval batches, since every collective is staged through the host (its
-    ms/step is then no speed number). Counters are set to 0 on every rank
-    just before the steps and read just after, and again around the eval.
-    Every rank must launch `onehot_fwd` once a step and once an eval batch,
-    `onehot_bwd` and `segscan` in the steps; losses finite; every replicated
-    array bitwise equal across the ranks (SHA-256)."""
-    from hugectr_tpu_torch.tools import hybrid
-
-    t0 = time.perf_counter()
-    n = torch.cuda.device_count()
-    w = min(8, max(2, n))
-    backend = hybrid.default_backend(w)
-    staged = backend == "gloo"
-    steps, eval_batches = (4, 4) if staged else (6, 20)
-    cfg = dict(builder="build_dlrm_dcnv2", steps=steps, eval=True, export=False, digest=True,
-               kwargs=dict(batchsize=B, ev_size=E, vocab_cap=2_000_000, synthetic_batches=steps,
-                           optimizer="rowwise_adagrad", max_eval_batches=eval_batches, metrics_spec=METRICS))
-    ranks = hybrid.run(hybrid.train_model, w, {"config": json.dumps(cfg)}, backend=backend, timeout=900.0)
-    r0 = ranks[0]
-    secs = r0["step_seconds"].tolist()
-    steady = statistics.median(secs[1:])
-    rec = dict(
-        phase="hybrid_path", world=w, backend=backend, device_count=n, staged_through_host=staged,
-        batch=B, per_rank_batch=B // w, steps=steps, eval_batches=eval_batches, losses=r0["losses"].tolist(),
-        step_ms=[x * 1e3 for x in secs], median_ms_per_step=steady * 1e3, examples_per_s=B / steady,
-        eval_seconds=r0["eval_seconds"], eval_examples_per_s=eval_batches * B / r0["eval_seconds"],
-        eval=r0["eval"], max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
-        routes=r0["routes"], launches=[r["launches"] for r in ranks],
-        eval_launches=[r["eval_counts"]["launches"] for r in ranks],
-        collective_calls_per_step={k: v / steps for k, v in r0["collective_calls"].items()},
-        collective_bytes_per_step={k: v / steps for k, v in r0["collective_bytes"].items()},
-        eval_collective_bytes_per_batch={k: v / eval_batches
-                                         for k, v in r0["eval_counts"]["collective_bytes"].items()},
-        replicated_arrays=len(r0["replicated"]),
-        replicas_equal=all(r["replicated"] == r0["replicated"] for r in ranks[1:]),
-        seconds=time.perf_counter() - t0,
-    )
+    trained hybrid-parallel (`hybrid_run`). Every rank must launch
+    `onehot_fwd` once a step and once an eval batch, `onehot_bwd` and
+    `segscan` in the steps; losses finite; every replicated array bitwise
+    equal across the ranks (SHA-256)."""
+    rec, _ranks = hybrid_run(torch, "dlrm_dcnv2")
+    rec = dict(phase="hybrid_path", **rec)
     emit(rec)
-    if not all(math.isfinite(x) for r in ranks for x in r["losses"]):
-        raise AssertionError(f"non-finite loss on the hybrid path: {[r['losses'] for r in ranks]}")
-    for r, (tl, el) in enumerate(zip(rec["launches"], rec["eval_launches"])):
-        if not (tl["onehot_fwd"] == steps and tl["onehot_bwd"] > 0 and tl["segscan"] > 0
-                and el["onehot_fwd"] == eval_batches):
-            raise AssertionError(f"hybrid path launches on rank {r}: train {tl}, eval {el}")
+    if not rec["finite"]:
+        raise AssertionError(f"non-finite loss on the hybrid path: {rec['losses']}")
+    check_path_launches(rec, {"onehot_fwd": 1, "onehot_bwd": None, "segscan": None})
     if not rec["replicas_equal"]:
         raise AssertionError("replicated arrays differ across the ranks of the hybrid path")
     return [{k: tl[k] + el[k] for k in tl} for tl, el in zip(rec["launches"], rec["eval_launches"])]
+
+
+# per-rank kernel checks against the plain versions: the forward in the
+# tables' type (bf16), the backward's and segscan's float32 sums
+RANK_TOL = {"onehot_fwd": TOL["bfloat16"], "onehot_bwd": TOL["float32"], "segscan": TOL["float32"]}
+
+
+def hybrid_bench_path(torch):
+    """The full-width flagship with `bench_settings()` (bf16 tables and
+    state, mixed precision, the hot/cold/superhot split) trained
+    hybrid-parallel (`hybrid_run`). Every rank launches `onehot_fwd` once a
+    step and once an eval batch, `onehot_bwd` 20 times a step (13 tables, 7
+    superhot tiers), `segscan` in the steps (the 7 cold tiers' owned
+    prefixes); then each rank holds each kernel against its plain version
+    on its own inputs of the step (`tools/hybrid.py::kernel_parity`,
+    `RANK_TOL`). Losses finite; every replicated array bitwise equal (SHA-256);
+    the binned AUC of the eval's buffers within 1e-4 of the exact one."""
+    from hugectr_tpu_torch.tools import hybrid
+
+    rec, ranks = hybrid_run(torch, "bench", kernel_check=True, auc_both=True)
+    parity = [hybrid.jsonable(r["kernel_parity"]) for r in ranks]
+    rec = dict(phase="hybrid_bench_path", **rec, auc_binned=ranks[0]["auc_binned"], auc_exact=ranks[0]["auc_exact"],
+               kernel_parity=parity)
+    emit(rec)
+    if not rec["finite"]:
+        raise AssertionError(f"non-finite loss on the hybrid bench path: {rec['losses']}")
+    check_path_launches(rec, {"onehot_fwd": 1, "onehot_bwd": 20, "segscan": None})
+    if not rec["replicas_equal"]:
+        raise AssertionError("replicated arrays differ across the ranks of the hybrid bench path")
+    for r, p in enumerate(parity):
+        if set(p) != set(RANK_TOL) or any(p[k]["scaled_err"] > tol for k, tol in RANK_TOL.items()):
+            raise AssertionError(f"a kernel disagrees with its plain version on rank {r}: {p}")
+    if not abs(rec["auc_binned"] - rec["auc_exact"]) <= 1e-4:
+        raise AssertionError(f"binned AUC {rec['auc_binned']} vs exact {rec['auc_exact']}")
+    return [{k: tl[k] + el[k] for k in tl} for tl, el in zip(rec["launches"], rec["eval_launches"])]
+
+
+def hybrid_ftrl_dynamic_path(torch):
+    """Full-width DLRM-FTRL on exact dynamic tables (4,096 rows each)
+    trained hybrid-parallel (`hybrid_run`), twice from one seed: each
+    shard's store fill and dropped keys a step; every key of a table in at
+    most one shard's store; each shard's store bitwise equal across the two
+    runs; losses finite; replicas bitwise equal. No hand-written kernel is
+    on this path (no table takes the one-hot engine)."""
+    import numpy as np
+
+    rec, ranks = hybrid_run(torch, "dlrm_ftrl", dynamic=True)
+    again, again_ranks = hybrid_run(torch, "dlrm_ftrl", dynamic=True)
+    stores = [r["key_stores"]["mp_ev128#keys"] for r in ranks]
+    overlap = 0
+    # the 26 tables' stores, each the same number of rows a shard, in order
+    for parts in zip(*(np.split(s, 26) for s in stores)):
+        held = np.concatenate([p[p != 2**31 - 1] for p in parts])
+        overlap += held.size - np.unique(held).size
+    rec = dict(phase="hybrid_ftrl_dynamic_path", **rec, key_store_rows_per_rank=int(stores[0].size),
+               keys_in_two_shards=int(overlap),
+               key_store_repeat_equal=all(np.array_equal(a["key_stores"]["mp_ev128#keys"], s)
+                                          for a, s in zip(again_ranks, stores)),
+               repeat_losses=again["losses"])
+    emit(rec)
+    if not rec["finite"]:
+        raise AssertionError(f"non-finite loss on the hybrid dynamic FTRL path: {rec['losses']}")
+    if rec["routes"] != FTRL_ROUTES["dynamic"]:
+        raise AssertionError(f"hybrid dynamic FTRL path routes {rec['routes']}")
+    check_path_launches(rec, {"onehot_fwd": 0, "onehot_bwd": 0, "segscan": 0}, eval_fwd=False)
+    if not (overlap == 0 and rec["key_store_repeat_equal"] and rec["replicas_equal"]
+            and min(f["mp_ev128"][-1] for f in rec["store_fill"]) > 0):
+        raise AssertionError(f"hybrid dynamic FTRL key stores: {rec}")
 
 
 def main() -> int:
@@ -1168,7 +1321,11 @@ def main() -> int:
     ftrl_dynamic_path(torch)
     torch.cuda.empty_cache()
     hybrid_parity(torch)
+    hybrid_bench_parity(torch)
+    hybrid_partial_parity(torch)
     hybrid_launches = hybrid_path(torch)
+    hybrid_bench_launches = hybrid_bench_path(torch)
+    hybrid_ftrl_dynamic_path(torch)
 
     sources = {
         "onehot_fwd": ("hugectr_tpu_torch/csrc/onehot_matmul.cu",
@@ -1180,6 +1337,7 @@ def main() -> int:
     kernels = []
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "case")
     bench_cases = {"onehot_fwd": "group20", "onehot_bwd": "superhot_", "segscan": "cold_tier_20"}
+    rank_sfx = f"_w{hybrid_world(torch)}"
     for name, (src, replaces) in sources.items():
         # the float32 flagship case that costs the step most device time;
         # for onehot_fwd the step's one launch, the 13-table group
@@ -1188,7 +1346,12 @@ def main() -> int:
                 key=lambda x: x["device_ms"])
         # beside it, the bench path's bf16 case with the most device time
         rb = max((x for x in results if x["kernel"] == name and x["dtype"] == "bfloat16"
-                  and x["case"].startswith(bench_cases[name])), key=lambda x: x["device_ms"])
+                  and x["case"].startswith(bench_cases[name]) and not x["case"].endswith(rank_sfx)),
+                 key=lambda x: x["device_ms"])
+        # and the hybrid bench path's per-rank shapes (B/W rows; segscan over
+        # one rank's owned keys)
+        rh = max((x for x in results if x["kernel"] == name and x["case"].startswith(bench_cases[name])
+                  and x["case"].endswith(rank_sfx)), key=lambda x: x["device_ms"])
         # and the DLRM-FTRL path's launches and its case with the most device time
         rf = max((x for x in results if x["kernel"] == name and x["case"].startswith("ftrl_")),
                  key=lambda x: x["device_ms"])
@@ -1198,6 +1361,8 @@ def main() -> int:
             bench_case={k: rb[k] for k in keys}, ftrl_path_launches=ftrl_launches[name],
             ftrl_case={k: rf[k] for k in keys},
             hybrid_path_launches=[x[name] for x in hybrid_launches],
+            hybrid_bench_path_launches=[x[name] for x in hybrid_bench_launches],
+            hybrid_bench_case={k: rh[k] for k in keys},
         ))
     # device times taken by CUDA events because the profiler recorded nothing
     emit(dict(phase="profiler", event_fallbacks=[list(x) for x in devtime.FALLBACKS]))

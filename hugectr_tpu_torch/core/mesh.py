@@ -13,15 +13,21 @@ device, as before.
 Every collective of the port is here: `all_gather` and `reduce_scatter`
 (tiled on dim 0, as `jax.lax.all_gather(tiled=True)` and
 `jax.lax.psum_scatter(tiled=True)`), `all_reduce` (sum, `jax.lax.psum`) and
-`broadcast` (rank 0's tensor on every rank; the JAX package needs none, as
-XLA's replicated computations give equal bits). At world size 1 they are identities and need no group. gloo is a host
+`broadcast` (one rank's tensor on every rank of a group; the JAX package
+needs none, as XLA's replicated computations give equal bits). At world
+size 1 they are identities and need no group. `replica_group(f)` is the
+sub-group of the ranks that hold the same shard of an f-shard table
+(ranks r with equal r % f, `broadcast`'s group for partial placement).
+Every collective takes float32, bfloat16 and integer tensors alike,
+through NCCL and through gloo. gloo is a host
 backend: a CUDA tensor under gloo goes through an explicit host copy here
 (W ranks sharing one card); NCCL never stages, and a CPU tensor under NCCL
 raises. No collective changes backend. `COLLECTIVE_CALLS` counts each
 collective's calls and `COLLECTIVE_BYTES` adds up the bytes of the whole
 buffer it covers on this rank (the all-gathered output, the
-reduce-scattered input, the all-reduced or broadcast tensor); a ring moves (W - 1) / W
-of that into and out of each rank (twice for all_reduce).
+reduce-scattered input, the all-reduced or broadcast tensor) at its
+element size (2 bytes for bfloat16); a ring moves (W - 1) / W of that into
+and out of each rank (twice for all_reduce).
 
 Not ported: the hierarchical ("dcn", "ici") mesh (`num_slices` > 1,
 mesh.py:82; ROADMAP Queue 1 item 1g) and column-wise sharding
@@ -32,7 +38,7 @@ from __future__ import annotations
 import collections
 import datetime
 import os
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -93,6 +99,7 @@ def init_distributed(
         backend, init_method=init_method or "env://", rank=rank, world_size=world_size,
         timeout=datetime.timedelta(minutes=10),
     )
+    _REPLICA_GROUPS.clear()  # sub-groups of an earlier group are gone
 
 
 def group_size() -> int:
@@ -182,13 +189,34 @@ def all_reduce(t: torch.Tensor) -> torch.Tensor:
     return _in_place("all_reduce", op, t)
 
 
-def broadcast(t: torch.Tensor) -> torch.Tensor:
-    """Rank 0's `t` (contiguous) on every rank, in place, returned."""
+def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """Rank `src`'s `t` (contiguous) on every rank of `group` (default: all
+    ranks), in place, returned. `src` is a rank of the whole group."""
     def op(x):
-        dist.broadcast(x, src=0)
+        dist.broadcast(x, src=src, group=group)
         return x
 
     return _in_place("broadcast", op, t)
+
+
+_REPLICA_GROUPS: Dict[int, list] = {}
+
+
+def replica_group(f: int):
+    """(the lowest rank, the process group) of this rank's replicas under
+    f shards: the ranks r with r % f equal to this rank's, W / f of them.
+    f = 1 is the whole group. The first call for an f creates the group of
+    every shard (`torch.distributed.new_group` asks every rank to create
+    every group, in the same order), so every rank calls this with the
+    same f's in the same order, as every rank builds the same collection."""
+    w, r = group_size(), group_rank()
+    if w % f:
+        raise ValueError(f"{f} shards do not divide {w} ranks")
+    if f == 1:
+        return 0, None
+    if f not in _REPLICA_GROUPS:
+        _REPLICA_GROUPS[f] = [dist.new_group(list(range(s, w, f))) for s in range(f)]
+    return r % f, _REPLICA_GROUPS[f][r % f]
 
 
 class ResourceManager:

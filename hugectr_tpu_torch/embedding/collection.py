@@ -49,34 +49,54 @@ collection.py:668-721, :1567-1726):
 
 * one-hot groups are replicated: the forward kernel runs on the rank's
   rows; the backward kernels write the group's float32 gradient and touch
-  counts from the rank's rows, and one `all_reduce` of each gives every
-  rank the same update (`_onehot_bwd_local`, :1437);
-* model-parallel rowop groups are row-sharded, key k of a table on rank
-  (k' + rot) % W at local row k' // W (k' = k % vocab, `_slot_placement`,
-  :427). The forward all-gathers the keys, pools the rows this rank owns
-  with the masked gather of `_dp_fwd` (other ranks' keys read as padding)
-  and reduce-scatters the float32 partial pools over the batch
-  (`_mp_fwd_local`, :808-865; the JAX package's owner-partitioned gather of
-  the sorted owned prefix, `_mp_fwd_partitioned`, :867-936, is not ported);
-  the backward all-gathers the keys and the cotangents and updates the
-  owned rows (`_mp_bwd_local`, :1844), whose key-ratio rule asks W x the
+  counts from the rank's rows, the gradient is rounded once to the table's
+  type and one `all_reduce` of each gives every rank the same update
+  (`_onehot_bwd_local`, :1437);
+* model-parallel rowop groups are row-sharded over the group's f shards
+  (f = W, or fewer for a partial placement, `shard_matrix`): key k of a
+  static table on shard (k' + rot) % f at local row k' // f (k' = k %
+  vocab, `_slot_placement`, :427), a dynamic key on shard h % f of its
+  hash h, probing from row (h // f) % rows of that shard's key store
+  (`_dynamic_probe`, :468-495). Rank r holds shard r % f, so each shard has
+  W / f replicas, drawn from one stream and kept equal. The forward
+  all-gathers the keys, pools the rows of this rank's shard with the masked
+  gather of `_dp_fwd` (other shards' keys read as padding; a replica
+  serves only its block r // f of the gathered batch, so the ranks'
+  contributions are disjoint) and reduce-scatters the pools over the batch
+  (`_mp_fwd_local`, :808-865; the owner-partitioned gather of the sorted
+  owned prefix, `_mp_fwd_partitioned`, :867-936, the JAX package's default
+  at W > 1, is not ported: ROADMAP Queue 1 item 1f2); the backward
+  all-gathers the keys and the cotangents, inserts a dynamic group's new
+  keys of this rank's shard, and every replica applies the whole update of
+  its shard (`_mp_bwd_local`, :1844-1894), whose key-ratio rule asks f x the
   keys (`_opt_knobs`, :1976);
 * data-parallel rowop groups are replicated: the forward is local, the
   backward all-gathers keys and cotangents and every rank applies the
-  update (`_dp_bwd_local`, :1896). On the card `index_add_` sums with
-  atomics, in an order that differs from rank to rank, so rank 0's updated
-  table and state are then broadcast: the replicas stay bitwise equal.
+  update (`_dp_bwd_local`, :1896).
+
+On the card `index_add_` sums with atomics, in an order that differs from
+rank to rank: after an update on the dense sweep or the scatter route
+(`sparse_optimizer.ATOMIC_ROUTES`) a group held by several ranks takes the
+table and state of the lowest of them by a `broadcast` in its replica
+group (`core/mesh.py::replica_group`), so replicas stay bitwise equal. The
+sorted route is deterministic and needs none.
+
+The dtype each collective carries: the forward's all_gather of keys int32,
+its reduce_scatter of pools the table's type (float32 sums rounded once);
+the backward's all_gather of keys int32 and of cotangents the table's type
+(the JAX package's `d_outs.astype(self.dtype)`); the one-hot all_reduce of
+the gradient the table's type and of the touch counts float32; the replica
+broadcasts each array's own type (tables, float32 or bfloat16 state).
+`Model` adds one float32 all_reduce of the dense gradients and the loss.
 
 The collectives are `core/mesh.py`'s. `export_table` and `import_table`
-read and write a table in key order whatever W is (collectives on every
-rank). Not ported over W > 1 ranks (ROADMAP Queue 1 item 1), each of
-these raises: partial placement (a table on fewer shards than ranks, 1c),
-dynamic tables (1d), bfloat16 tables or state and the hot/cold split (1e),
-hierarchical communication (1g). Nor is the unique-key dense exchange
-(1f): the JAX package takes it only for all-Concat groups with caps
-measured and set in HCTR_TPU_DENSE_EXCHANGE_CAP (`_dense_exchange_ok`,
-:953), and the port has no such setting yet, so every group takes the
-exact path above.
+read and write a table (or any per-row array laid out as the storage, such
+as a state) in key order whatever W and f are (collectives on every rank).
+Not ported over W > 1 ranks (ROADMAP Queue 1 item 1): hierarchical
+communication (1g), which raises, and the unique-key dense exchange (1f):
+the JAX package takes it only for all-Concat groups with caps measured and
+set in HCTR_TPU_DENSE_EXCHANGE_CAP (`_dense_exchange_ok`, :953), and the
+port has no such setting yet, so every group takes the exact path above.
 
 `route_counts` counts, per route ("onehot", "dense", "sorted", "scatter"),
 the groups updated since the collection was built; `group_routes` holds
@@ -90,7 +110,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.mesh import ResourceManager, all_gather, all_reduce, broadcast, reduce_scatter
+from ..core.mesh import ResourceManager, all_gather, all_reduce, broadcast, reduce_scatter, replica_group
 from ..core.types import INVALID_KEY, Combiner_t
 from ..ops.onehot_matmul import (
     GroupLookup,
@@ -135,21 +155,14 @@ def fold_reserved_key(k32: torch.Tensor) -> torch.Tensor:
 
 
 class _GroupMeta:
-    """Device-side constants of one group."""
+    """Device-side constants of one group, and this rank's place in it: a
+    model-parallel group over f shards puts shard r % f on rank r, so W / f
+    ranks (its replicas) hold each shard."""
 
-    def __init__(self, g: GroupPlan, device: torch.device, world: int):
-        if g.is_model_parallel and (g.num_shards != world or g.num_replicas != 1):
-            raise NotImplementedError(
-                f"group {g.name}: {g.num_shards} shard(s) over {world} rank(s); partial placement "
-                "is not ported yet (ROADMAP Queue 1 item 1c)"
-            )
-        if world > 1 and g.slot_is_dynamic.any():
-            raise NotImplementedError(
-                f"group {g.name}: dynamic tables over more than one rank are not ported yet "
-                "(ROADMAP Queue 1 item 1d)"
-            )
+    def __init__(self, g: GroupPlan, device: torch.device, rank: int):
         self.plan = g
         self.num_shards = g.num_shards if g.is_model_parallel else 1
+        self.shard = rank % self.num_shards
         self.slot_rotation = torch.as_tensor(
             g.slot_rotation % self.num_shards, dtype=torch.int64, device=device
         )
@@ -211,17 +224,12 @@ class EmbeddingCollection:
         self.device = rm.device
         self.world = rm.data_parallel_size
         self.rank = rm.rank
-        if self.world > 1 and (dtype != torch.float32 or state_dtype != torch.float32 or plan.merges):
-            raise NotImplementedError(
-                "bfloat16 tables or state and the hot/cold split over more than one rank are not "
-                "ported yet (ROADMAP Queue 1 item 1e)"
-            )
         self.opt = opt
         self.dtype = dtype
         self.state_dtype = state_dtype
         self.dense_update_rows = dense_update_rows
         self.dense_key_ratio = dense_key_ratio
-        self._meta = {g.name: _GroupMeta(g, self.device, self.world) for g in plan.groups}
+        self._meta = {g.name: _GroupMeta(g, self.device, self.rank) for g in plan.groups}
         self.group_opt: Dict[str, OptParams] = {}
         for g in plan.groups:
             opts = {id(t.opt_params): t.opt_params for t in g.tables if t.opt_params}
@@ -237,19 +245,24 @@ class EmbeddingCollection:
     def init(self, generator: torch.Generator) -> Tables:
         """Uniform(-1, 1) rows scaled per table (default 1/sqrt(ev)), as the
         JAX package draws them (collection.py:289); distributions match,
-        bits do not. Each rank holds its shard of a model-parallel group
-        ([total_local_rows, E]) and draws only that, from a stream of its
-        own; replicated groups come from `generator`, alike on every rank.
-        A group with dynamic tables also gets its empty key store
+        bits do not. Over W ranks a model-parallel group's storage is the
+        rank's shard ([total_local_rows, E]), drawn from a stream of that
+        shard's own, so every replica of a shard holds the same rows (JAX
+        tiles the f shards' base rows over the replicas, :305-318);
+        replicated groups come from `generator`, alike on every rank. A
+        group with dynamic tables also gets its empty key store
         `"{group}#keys"` (collection.py:329-341)."""
-        shard_gen = generator
+        seed = None
         if self.world > 1:
             seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
-            shard_gen = torch.Generator(device=self.device).manual_seed(seed + self.rank)
         tables = {}
-        for g in self.plan.groups:
+        for gi, g in enumerate(self.plan.groups):
+            gen = generator
+            if seed is not None and g.is_model_parallel:
+                shard_seed = seed + gi * self.world + self._meta[g.name].shard
+                gen = torch.Generator(device=self.device).manual_seed(shard_seed)
             t = torch.empty((g.total_local_rows, g.ev_size), dtype=self.dtype, device=self.device)
-            t.uniform_(-1.0, 1.0, generator=shard_gen if g.is_model_parallel else generator)
+            t.uniform_(-1.0, 1.0, generator=gen)
             scales = torch.as_tensor(self._row_init_scales(g), device=self.device)
             tables[g.name] = t.mul_(scales.unsqueeze(1).to(self.dtype))
             if self._meta[g.name].any_dynamic:
@@ -304,14 +317,15 @@ class EmbeddingCollection:
     def _slot_placement(
         self, gname: str, keys: torch.Tensor, key_store=None
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
-        """(valid, owner rank, local storage row) of [B, H] keys
+        """(valid, owner shard, local storage row) of [B, H] keys
         (collection.py:427): keys are cut to int32 first, as there
         (`keys.astype(jnp.int32)`, JAX without x64), then -1 is padding and
         other keys wrap by floor modulo into k'. Over f shards (a
-        model-parallel group) k' lives on (k' + rot) % f at row k' // f;
-        otherwise every key is local and the owner is None. A dynamic
-        slot's key (one rank only) takes the row where the store holds it,
-        and is padding where it holds it nowhere (:441-454)."""
+        model-parallel group) k' lives on shard (k' + rot) % f at row
+        k' // f; on one shard every key is local and the owner is None. A
+        dynamic slot's key lives on shard h % f of its hash h and takes the
+        row where that shard's store holds it; it is padding where the
+        store (this rank's shard of it) holds it nowhere (:441-454)."""
         meta = self._meta[gname]
         valid, k = place_keys(keys, meta.slot_vocab.unsqueeze(0))
         f = meta.num_shards
@@ -321,25 +335,32 @@ class EmbeddingCollection:
             k = torch.div(k, f, rounding_mode="floor")
         if meta.any_dynamic:
             dyn = meta.slot_dynamic.unsqueeze(0)
-            row, found = self._dynamic_probe(meta, keys, key_store)
+            owner_d, row, found = self._dynamic_probe(meta, keys, key_store)
             k = torch.where(dyn, row, k)
+            if owner is not None:
+                owner = torch.where(dyn, owner_d, owner)
             valid = valid & (~dyn | found)
         return valid, owner, k + meta.slot_local_offset.unsqueeze(0)
 
     # ----------------------------------------------- exact dynamic tables
     @staticmethod
-    def _probe_base(meta: _GroupMeta, keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(int32 key as stored, first probed table row) of [B, H] keys."""
+    def _probe_base(meta: _GroupMeta, keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(int32 key as stored, owner shard, first probed table row) of
+        [B, H] keys: over f shards the hash h gives shard h % f and row
+        (h // f) % rows (collection.py:481-483)."""
         k32 = fold_reserved_key(keys.to(torch.int32))
-        return k32, hash_mix(k32) % meta.slot_rows.unsqueeze(0)
+        h = hash_mix(k32)
+        f = meta.num_shards
+        return k32, h % f, torch.div(h, f, rounding_mode="floor") % meta.slot_rows.unsqueeze(0)
 
     def _dynamic_probe(
         self, meta: _GroupMeta, keys: torch.Tensor, key_store: torch.Tensor
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(table row, found) of [B, H] keys: the first of NUM_PROBES
-        consecutive rows (mod the table's rows) whose stored key equals the
-        key (collection.py:468-495)."""
-        k32, base = self._probe_base(meta, keys)
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(owner shard, table row, found) of [B, H] keys: the first of
+        NUM_PROBES consecutive rows (mod the table's rows) of this rank's
+        store whose stored key equals the key (collection.py:468-495). A
+        key of another shard is never in this rank's store."""
+        k32, owner, base = self._probe_base(meta, keys)
         rows_t = meta.slot_rows.unsqueeze(0)
         off = meta.slot_local_offset.unsqueeze(0)
         row = base
@@ -349,21 +370,26 @@ class EmbeddingCollection:
             hit = ~found & (key_store[cand + off] == k32)
             row = torch.where(hit, cand, row)
             found = found | hit
-        return row, found
+        return owner, row, found
 
     def _dynamic_insert(self, meta: _GroupMeta, key_store: torch.Tensor, keys: torch.Tensor) -> None:
-        """Claim store rows for the batch's valid dynamic keys that are not
-        in the store yet, in place (collection.py:497-535): a full probe
-        first, then per probe round each unplaced key writes itself into
-        its candidate row if that row was empty, with `amin` arbitration
-        (the smallest contending key wins, whatever the order), re-reads,
-        and the losers probe on. The writes go to a copy one row longer
-        whose last row takes the keys that write nowhere."""
-        k32, base = self._probe_base(meta, keys)
+        """Claim store rows for the batch's valid dynamic keys of this
+        rank's shard that are not in the store yet, in place
+        (collection.py:497-535): a full probe first, then per probe round
+        each unplaced key writes itself into its candidate row if that row
+        was empty, with `amin` arbitration (the smallest contending key
+        wins, whatever the order), re-reads, and the losers probe on. The
+        writes go to a copy one row longer whose last row takes the keys
+        that write nowhere. The shard comes from the probe's hash of the
+        reserved-key-folded key (:1862-1871), so insert and lookup agree,
+        and every replica of a shard inserts the same keys."""
+        k32, _owner, base = self._probe_base(meta, keys)
         rows_t = meta.slot_rows.unsqueeze(0)
         off = meta.slot_local_offset.unsqueeze(0)
-        _row, already = self._dynamic_probe(meta, keys, key_store)
+        owner, _row, already = self._dynamic_probe(meta, keys, key_store)
         need = (keys.to(torch.int32) != INVALID_KEY) & meta.slot_dynamic.unsqueeze(0) & ~already
+        if meta.num_shards > 1:
+            need = need & (owner == meta.shard)
         sentinel = key_store.shape[0]
         ext = torch.cat([key_store, key_store.new_full((1,), EMPTY_KEY)])
         flat_keys = k32.reshape(-1)
@@ -375,6 +401,27 @@ class EmbeddingCollection:
             ext.scatter_reduce_(0, tryslot, flat_keys, "amin")
             need = need & (ext[slot] != k32)
         key_store.copy_(ext[:-1])
+
+    def dynamic_stats(self, tables: Tables, feature_keys: Dict[str, torch.Tensor]) -> Dict[str, Tuple[int, int]]:
+        """{group: (filled rows of this rank's store, distinct valid keys of
+        this rank's shard in the batch that the store does not hold)} of
+        every group with dynamic tables; `feature_keys` is the rank's block
+        of a batch (all-gathered over W ranks: every rank calls this
+        together). After a step on that batch, the second count is the keys
+        the insert dropped (capacity pressure)."""
+        out = {}
+        for g in self.plan.groups:
+            meta = self._meta[g.name]
+            if not meta.any_dynamic:
+                continue
+            store = tables[f"{g.name}#keys"]
+            keys = self._group_keys(g, feature_keys)
+            if self.world > 1:
+                keys = all_gather(keys)
+            owner, _row, found = self._dynamic_probe(meta, keys, store)
+            miss = (keys != INVALID_KEY) & meta.slot_dynamic.unsqueeze(0) & (owner == meta.shard) & ~found
+            out[g.name] = (int((store != EMPTY_KEY).sum()), int(torch.unique(keys[miss]).numel()))
+        return out
 
     @staticmethod
     def _count(valid: torch.Tensor, dtype) -> torch.Tensor:
@@ -389,10 +436,11 @@ class EmbeddingCollection:
             if g.compute_kind == "onehot":
                 go = self._onehot_fwd(g.name, tables[g.name], self._lookup_keys(g, feature_keys))
             elif g.is_model_parallel and self.world > 1:
-                # the batch's keys, this rank's rows of them pooled in
-                # float32, the pools summed over the ranks and scattered
+                # the batch's keys; the rows of this rank's keys pooled with
+                # float32 sums rounded once to the table's type; the pools
+                # summed over the ranks in that type and scattered
                 keys = all_gather(self._group_keys(g, feature_keys))
-                go = reduce_scatter(self._dp_fwd(g.name, tables[g.name], keys))
+                go = reduce_scatter(self._dp_fwd(g.name, tables[g.name], keys, tables.get(f"{g.name}#keys")))
             else:
                 go = self._dp_fwd(g.name, tables[g.name], self._group_keys(g, feature_keys),
                                   tables.get(f"{g.name}#keys"))
@@ -451,14 +499,25 @@ class EmbeddingCollection:
     def _dp_fwd(self, gname: str, table: torch.Tensor, keys: torch.Tensor, key_store=None) -> torch.Tensor:
         """Masked gather + per-lookup pooling (collection.py:1474-1485, :596);
         each lookup gathers its own slots, so no [B, H, E] temp of the whole
-        group is built. Mean divides by the count of the raw valid keys, a
-        dynamic key missing from the store included (:1484). Over f shards
-        (a model-parallel group's all-gathered keys) the keys other ranks
-        own read as padding, and Mean still divides by every raw valid key."""
-        g = self._meta[gname].plan
+        group is built; sums in float32, rounded once to the table's type.
+        Mean divides by the count of the raw valid keys, a dynamic key
+        missing from the store included (:1484). Over W ranks (a
+        model-parallel group's all-gathered keys, `_mp_fwd_local`,
+        :808-865) the rank pools its shard's keys only, the others read as
+        padding, and Mean still divides by every raw valid key; with
+        replicas (f < W shards) the replica r // f of a shard serves only
+        block r // f of the gathered batch, so the ranks' pools are
+        disjoint and their sum is the batch's (:829-837)."""
+        meta = self._meta[gname]
+        g = meta.plan
         valid, owner, local_row = self._slot_placement(gname, keys, key_store)
-        if owner is not None:
-            valid = valid & (owner == self.rank)
+        if self.world > 1 and g.is_model_parallel:
+            if owner is not None:
+                valid = valid & (owner == meta.shard)
+            if g.num_replicas > 1:
+                block = keys.shape[0] // g.num_replicas
+                mine = torch.arange(keys.shape[0], device=keys.device) // block == self.rank // meta.num_shards
+                valid = valid & mine.unsqueeze(1)
         raw_valid = keys != INVALID_KEY
         safe = torch.where(valid, local_row, 0)
         b = keys.shape[0]
@@ -469,7 +528,7 @@ class EmbeddingCollection:
             if lm.combiner == Combiner_t.Concat:
                 outs.append(rows.reshape(b, -1))
                 continue
-            s = rows.sum(dim=1)
+            s = rows.sum(dim=1, dtype=torch.float32).to(table.dtype)
             if lm.combiner == Combiner_t.Mean:
                 s = s / self._count(raw_valid[:, sl], s.dtype)
             outs.append(s)
@@ -501,20 +560,23 @@ class EmbeddingCollection:
             opt = self.group_opt[g.name]
             if g.compute_kind == "onehot":
                 grad, colsum = self._onehot_grad(g.name, tables[g.name].dtype, keys, d_group)
-                # the ranks' rows summed: one all_reduce of each buffer
-                all_reduce(grad)
+                # the ranks' rows summed: the gradient rounded once to the
+                # table's type, then one all_reduce of it in that type; the
+                # touch counts in float32 (`_onehot_bwd_local`, :1437-1446)
+                grad = all_reduce(grad.to(tables[g.name].dtype))
                 all_reduce(colsum)
                 # every row a valid key lands on is touched, for every
                 # optimizer (`_onehot_bwd_local`, collection.py:1437-1452)
                 sparse_optimizer.apply_dense(
-                    opt, tables[g.name], opt_state[g.name], grad.to(tables[g.name].dtype), colsum > 0,
-                    lr, step,
+                    opt, tables[g.name], opt_state[g.name], grad, colsum > 0, lr, step,
                 )
                 route = "onehot"
             else:
                 if self.world > 1:
-                    # model-parallel: this rank's shard of the global batch's
-                    # update; data-parallel: every rank the same update
+                    # model-parallel: the update of this rank's shard for the
+                    # whole global batch (every replica of a shard the same,
+                    # `_mp_bwd_local`, :1844-1894); data-parallel: every
+                    # rank the same update (`_dp_bwd_local`, :1896)
                     keys, d_group = all_gather(keys), all_gather(d_group)
                 key_store = tables.get(f"{g.name}#keys")
                 if key_store is not None:
@@ -524,14 +586,23 @@ class EmbeddingCollection:
                     opt, tables[g.name], opt_state[g.name], idx, src, dsrc, lr,
                     dense_rows=self.dense_update_rows, dense_ratio=self._dense_ratio(g), step=step,
                 )
-                if self.world > 1 and not g.is_model_parallel:
+                if route in sparse_optimizer.ATOMIC_ROUTES and self._replicated(g):
                     # atomic sums differ in their last bits from rank to
-                    # rank: rank 0's update is every replica's
+                    # rank: the lowest replica's update is every replica's
+                    src_rank, group = replica_group(self._meta[g.name].num_shards)
                     for t in (tables[g.name], *opt_state[g.name].values()):
-                        broadcast(t)
+                        broadcast(t, src_rank, group)
             self.route_counts[route] += 1
             self.group_routes[g.name] = route
         return tables, opt_state
+
+    def _replicated(self, g: GroupPlan) -> bool:
+        """Whether more than one rank holds the group's storage (or a shard
+        of it): a data-parallel rowop group over W ranks, or a model-parallel
+        group over fewer shards than ranks."""
+        if self.world == 1 or g.compute_kind == "onehot":
+            return False
+        return not g.is_model_parallel or g.num_replicas > 1
 
     def _dense_ratio(self, g: GroupPlan) -> float:
         """The key-ratio rule's ratio for a rowop group (`_opt_knobs`,
@@ -588,13 +659,13 @@ class EmbeddingCollection:
         self, gname: str, keys: torch.Tensor, d_group: torch.Tensor, key_store=None
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(flat row ids with sentinel R, grad-source rows, compact grad
-        source) (collection.py:1801); over f shards the keys another rank
-        owns take the sentinel too."""
+        source) (collection.py:1801); over f shards the keys of the other
+        shards take the sentinel too."""
         meta = self._meta[gname]
         g = meta.plan
         valid, owner, local_row = self._slot_placement(gname, keys, key_store)
         if owner is not None:
-            valid = valid & (owner == self.rank)
+            valid = valid & (owner == meta.shard)
         dsrc = self._grad_source(g, d_group, keys != INVALID_KEY)
         b = keys.shape[0]
         idx = torch.where(valid, local_row, g.total_local_rows).reshape(-1)
@@ -621,10 +692,12 @@ class EmbeddingCollection:
         return (keys + int(g.table_rotation[ti]) % f) % f, keys // f
 
     def export_table(self, tables: Tables, table_name: str) -> np.ndarray:
-        """One table as a [vocab, ev] host array in key order, a split table
+        """One table as a [vocab, ...] host array in key order, a split table
         put back together from its tiers (collection.py:2101); float32 for
-        bfloat16 tables (numpy has no bfloat16). A sharded table is
-        all-gathered: every rank calls this together."""
+        bfloat16 tables (numpy has no bfloat16). `tables` may be any
+        {group: [rows, ...]} arrays laid out as the storage, such as one
+        kind of optimizer state. A sharded table is all-gathered: every
+        rank calls this together; ranks 0..f-1 hold its f shards."""
         if table_name in self.plan.table_splits:
             return np.concatenate(
                 [self.export_table(tables, sub) for sub, _off in self.plan.table_splits[table_name]]
@@ -639,8 +712,10 @@ class EmbeddingCollection:
         return tables[g.name][off : off + vocab].detach().float().cpu().numpy()
 
     def import_table(self, tables: Tables, table_name: str, values: np.ndarray) -> Tables:
-        """Write one table from a [vocab, ev] array, a split table's rows
-        into its tiers (collection.py:2124)."""
+        """Write one table from a [vocab, ...] array, a split table's rows
+        into its tiers (collection.py:2124); `tables` as for `export_table`.
+        A sharded table's rank writes its shard's keys: every replica of a
+        shard the same rows (:2142-2148)."""
         if table_name in self.plan.table_splits:
             subs = self.plan.table_splits[table_name]
             for i, (sub, off) in enumerate(subs):
@@ -649,19 +724,21 @@ class EmbeddingCollection:
             return tables
         g, ti = self._find_table(table_name)
         off, vocab = int(g.local_offsets[ti]), int(g.table_vocab[ti])
-        if values.shape != (vocab, g.ev_size):
+        dst = tables[g.name]
+        if values.shape != (vocab, *dst.shape[1:]):
             raise ValueError(
-                f"table {table_name}: expected {(vocab, g.ev_size)}, got {values.shape}"
+                f"table {table_name}: expected {(vocab, *dst.shape[1:])}, got {values.shape}"
             )
         values = np.asarray(values, np.float32)
         with torch.no_grad():
-            if self._meta[g.name].num_shards > 1:  # this rank's keys only
+            meta = self._meta[g.name]
+            if meta.num_shards > 1:  # this rank's shard's keys only
                 shard, row = self._sharded_rows(g, ti)
-                mine = shard == self.rank
+                mine = shard == meta.shard
                 rows = torch.as_tensor(off + row[mine], device=self.device)
-                tables[g.name][rows] = torch.as_tensor(values[mine]).to(self.device, self.dtype)
+                dst[rows] = torch.as_tensor(values[mine]).to(self.device, dst.dtype)
             else:
-                tables[g.name][off : off + vocab].copy_(torch.as_tensor(values))
+                dst[off : off + vocab].copy_(torch.as_tensor(values))
         return tables
 
     # ------------------------------------- dynamic-table upkeep, not ported

@@ -48,6 +48,10 @@ State = Dict[str, torch.Tensor]
 
 # exact no-ops on a zero summed gradient (sparse_optimizer.py:471)
 ADAGRAD_FAMILY = (Optimizer_t.AdaGrad, Optimizer_t.RowWiseAdaGrad)
+# the routes that sum duplicate rows with `index_add_`, whose atomics on
+# the card sum in an order that differs from run to run; the sorted route
+# is deterministic
+ATOMIC_ROUTES = ("scatter", "dense")
 
 
 def init_state(

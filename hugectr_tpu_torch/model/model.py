@@ -29,8 +29,12 @@ rank reads its block of B/W rows of every global batch, the embedding
 tables are model-parallel or replicated (`EmbeddingCollection`), and the
 dense network is replicated. The local loss is a mean over B/W rows, so
 the step differentiates loss / W: the dense gradients and the embedding
-cotangents are then those of the global-batch mean. The dense gradients
-and the loss go into one flat float32 bucket and one `all_reduce` a step;
+cotangents are then those of the global-batch mean. For W a power of two
+the scaling is exact and commutes with the bfloat16 roundings of mixed
+precision and of bfloat16 tables (the cotangents are all-gathered in the
+tables' type); another W adds one float32 rounding. The dense parameters
+stay float32 under mixed precision; their gradients and the loss go into
+one flat float32 bucket and one `all_reduce` a step;
 then every rank runs the same dense update. No
 `DistributedDataParallel`: the update is the port's `DenseOptimizer`, as
 the JAX step is a plain sum. `train()` returns the global mean loss, and
@@ -142,12 +146,6 @@ class Model:
         )
         self.eval_batch_spec = dataclasses.replace(self.batch_spec, batch_size=s.batchsize_eval)
         self.world = w = self.rm.data_parallel_size
-        if w > 1 and (s.use_mixed_precision or s.emb_dtype != torch.float32
-                      or s.emb_state_dtype != torch.float32 or s.hot_rows):
-            raise NotImplementedError(
-                "bf16 tables or state, mixed precision and the hot/cold split over more than one "
-                "rank are not ported yet (ROADMAP Queue 1 item 1e)"
-            )
         for what, n in (("batchsize", s.batchsize), ("batchsize_eval", s.batchsize_eval)):
             if n % w:
                 raise ValueError(f"{what} {n} does not split over {w} ranks")

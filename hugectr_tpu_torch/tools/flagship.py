@@ -71,8 +71,26 @@ def bench_settings() -> dict:
     )
 
 
+# bench_settings() scaled down for the tiny parity runs: ev 16, tables of
+# >= 1,024 rows split at 256 rows with a 32-row superhot tier, one-hot for
+# vocab <= 64, groups of more than 1,024 rows on the sorted route, the eval
+# buffer (5 x 64 samples) past the exact AUC's limit, learnable labels
+TINY_BENCH = dict(ev_size=16, vocab_cap=4000, synthetic_batches=3, bottom_mlp=(32, 16), top_mlp=(32, 16, 1),
+                  projection_dim=8, num_cross_layers=2, batchsize=64, max_eval_batches=5, onehot_vocab=64,
+                  hot_rows=256, superhot_rows=32, split_vocab=512, auc_exact_max=100, dense_update_rows=1024,
+                  synthetic_learnable=True)
+
 # the plan settings of bench_settings(), as flagship_plan keyword arguments
 BENCH_PLAN = dict(split_vocab=16384, hot_rows=131072, superhot_rows=1024)
+
+
+def shard_matrix(names, world: int, shard_counts=None):
+    """The `shard_matrix` (one row of table names per rank) that puts table
+    n on `shard_counts[n]` ranks (the first ones) and every other table on
+    all `world` ranks; the plan widens a count to the next divisor of the
+    rank count (plan.py:566-581)."""
+    counts = shard_counts or {}
+    return [[n for n in names if r < counts.get(n, world)] for r in range(world)]
 
 
 def build_dlrm_dcnv2(
@@ -91,12 +109,14 @@ def build_dlrm_dcnv2(
     optimizer: str = "rowwise_adagrad",
     max_eval_batches: int = 8,
     synthetic_learnable: bool = False,
+    shard_counts=None,
     **solver_kwargs,
 ):
     """DLRM-DCNv2 (flagship.py:28); returns a compiled Model on `rm.device`,
     over `rm.num_devices` ranks (`batchsize` is the global batch; the
-    tables not on the one-hot engine are model-parallel). `solver_kwargs`
-    are `Solver` fields (dtypes, split, engine settings)."""
+    tables not on the one-hot engine are model-parallel, table n on
+    `shard_counts[n]` of the ranks where given, else on all of them).
+    `solver_kwargs` are `Solver` fields (dtypes, split, engine settings)."""
     table_sizes = [min(v, vocab_cap) for v in MLPERF_TABLE_SIZES]
     if multi_hot_sizes is None:
         multi_hot_sizes = MLPERF_MULTI_HOT_SIZES
@@ -139,7 +159,7 @@ def build_dlrm_dcnv2(
         combiner=["sum"] * NUM_TABLE,
     )
     names = [str(i) for i in range(NUM_TABLE)]
-    ebc.shard(shard_matrix=[names] * rm.num_devices, shard_strategy=[("mp", names)])
+    ebc.shard(shard_matrix=shard_matrix(names, rm.num_devices, shard_counts), shard_strategy=[("mp", names)])
     model.add(ebc)
     model.add(
         hugectr.DenseLayer(
@@ -259,6 +279,23 @@ def build_tiny_dlrm(rm, batchsize: int = 32, **kwargs):
     return build_dlrm_dcnv2(rm, batchsize=batchsize, **params)
 
 
+# partial placement in the tiny DLRM-DCNv2 (after
+# tests/test_partial_placement.py:57, t0 on 2 of 8 devices): tables 0 and 9
+# on 2 ranks, 21 and 22 on one (so on every rank), the other rowop tables
+# on all. With the one-hot engine for vocab <= 100 and the dense sweep for
+# shards of <= 1,000 rows, over 4 ranks the f = 2 group (`mp_ev16_x2`,
+# 1,000 rows a shard, 2 replicas) takes the dense sweep, the f = 1 group
+# (`mp_ev16_x1`, 2,000 rows, 4 replicas) and the full one (3,560 rows a
+# shard) the sorted route
+TINY_PARTIAL = dict(batchsize=64, onehot_vocab=100, dense_update_rows=1000, dense_key_ratio=0.0,
+                    shard_counts={"0": 2, "9": 2, "21": 1, "22": 1})
+
+
+def build_tiny_partial(rm, **kwargs):
+    """The tiny DLRM-DCNv2 with a partial `shard_matrix` (`TINY_PARTIAL`)."""
+    return build_tiny_dlrm(rm, **dict(TINY_PARTIAL, **kwargs))
+
+
 def build_dlrm_ftrl(
     rm,
     batchsize: int = 2048,
@@ -273,8 +310,9 @@ def build_dlrm_ftrl(
     **solver_kwargs,
 ):
     """DLRM with FTRL, samples/dlrm_ftrl.py:15-114, compiled on `rm.device`
-    over `rm.num_devices` ranks (static tables only over more than one).
-    `solver_kwargs` are `Solver` fields (engine settings, dtypes)."""
+    over `rm.num_devices` ranks, every table on every rank as the sample's
+    `shard_matrix` puts them (samples/dlrm_ftrl.py:69-72). `solver_kwargs`
+    are `Solver` fields (engine settings, dtypes)."""
     sizes = [min(v, vocab_cap) for v in FTRL_SLOT_SIZES]
     solver = hugectr.CreateSolver(
         max_eval_batches=max_eval_batches, batchsize_eval=batchsize, batchsize=batchsize, lr=lr,

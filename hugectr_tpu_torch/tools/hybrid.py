@@ -22,12 +22,16 @@ are enough cards.
 
 `train_model` is such a function: it builds one of `tools/flagship.py`'s
 models at W ranks, loads a carried state, trains and evaluates, and
-returns what a comparison with another run needs. `parity_runs` trains the
-tiny DLRM-DCNv2 on one device and on W ranks from one state, and
-`parity_report` says how far apart they are.
+returns what a comparison with another run needs. `parity_runs` trains a
+tiny model (`tiny_config`) on one device and on W ranks from one state,
+and `parity_report` says how far apart they are; `full_width_config` and
+`path_summary` run and describe a full-width model over W ranks.
 
 On the command line, `python -m hugectr_tpu_torch.tools.hybrid --world 2
-[--device cpu] [--backend gloo]` prints that report.
+[--model tiny | tiny_bench | tiny_partial] [--device cpu] [--backend
+gloo]` prints that report; `--model dlrm_dcnv2 | bench | dlrm_ftrl
+[--dynamic]` trains that full-width model over the ranks and prints its
+summary (on the card).
 """
 from __future__ import annotations
 
@@ -119,6 +123,13 @@ def run(fn: Callable, world: int, inputs: Tree = None, backend: str = None, devi
         return [load_tree(os.path.join(tmp, f"result_{r}.npz")) for r in range(world)]
 
 
+def jsonable(node: Any) -> Any:
+    """A result tree with its arrays as (nested) lists, for `json.dumps`."""
+    if isinstance(node, dict):
+        return {k: jsonable(v) for k, v in node.items()}
+    return node.tolist() if isinstance(node, (np.ndarray, np.generic)) else node
+
+
 def replicated_arrays(model) -> Dict[str, np.ndarray]:
     """Every array that is whole on every rank (dense parameters and their
     state, the replicated groups' tables and state), by name, as this rank
@@ -141,6 +152,23 @@ def replicated_arrays(model) -> Dict[str, np.ndarray]:
     return out
 
 
+def shard_replicas(model) -> Dict[str, np.ndarray]:
+    """The storage and state of this rank's shard of each model-parallel
+    group that has replicas (a partial placement), keyed by group and shard
+    (`"table:{group}@{shard}"`): ranks that hold the same shard must hold
+    the same bits."""
+    out = {}
+    if model.ec is None or model.rm.data_parallel_size == 1:
+        return out
+    for g in model.ec.plan.groups:
+        if g.is_model_parallel and g.num_replicas > 1:
+            s = model.ec._meta[g.name].shard
+            out[f"table:{g.name}@{s}"] = model.tables[g.name].detach().float().cpu().numpy()
+            for k, t in model.eopt[g.name].items():
+                out[f"eopt:{g.name}.{k}@{s}"] = t.float().cpu().numpy()
+    return out
+
+
 def _sync(rm) -> None:
     if rm.device.type == "cuda":
         torch.cuda.synchronize(rm.device)
@@ -151,19 +179,31 @@ def train_model(rm, inputs: Tree) -> Tree:
     `tools/flagship.py` and its keyword arguments (`kwargs`), the training
     `steps`, whether to `eval`, and with `export` false leaves the tables
     and dense parameters out of the result; `inputs["state"]`, if given, is
-    a carried state (`tools/carry.py`, global arrays laid out for
-    `state_shards` shards, default W). Launch counts and the collectives'
-    calls and bytes are set to 0 just before the steps and read just after,
-    and again around the eval. Returns the losses, each step's seconds
+    a carried state (`tools/carry.py`, global arrays of `state_shards`
+    ranks, default W), and `inputs["table_state"]` one carried by table
+    (`export_table_state`). Launch counts and the collectives' calls and
+    bytes are set to 0 just before the steps and read just after, and again
+    around the eval. Returns the losses, each step's seconds
     (synchronised), the eval's metrics and seconds, the launch and
     plain-call counts, the collectives' calls and bytes, the update routes,
     the peak device memory, every user table in key order and the dense
-    parameters (`export`), and this rank's replicated arrays
-    (`replicated_arrays`) or, with `digest`, their SHA-256."""
+    parameters (`export`), this rank's replicated arrays
+    (`replicated_arrays`) or, with `digest`, their SHA-256; with
+    `storage`, this rank's storage, key stores and state; for dynamic
+    tables, each step's store fill and dropped keys of this rank's shard
+    (`EmbeddingCollection.dynamic_stats`) and its key stores; with
+    `kernel_check`, each kernel held against its plain version at this
+    rank's shapes after the run (`kernel_parity`); with `auc_both`, the
+    binned and the exact AUC of the eval's buffers; with `carry_out`, the
+    trained state (`export_state`, `final_state`); given
+    `inputs["eval_state"]` (a state of `eval_state_shards` ranks), the eval
+    of those weights last (`eval_carried`). `shards` holds this rank's
+    shard of each group with replicas (`shard_replicas`, digests with
+    `digest`)."""
     from .. import ops
     from ..core import mesh
     from . import flagship
-    from .carry import load_jax_state
+    from .carry import export_state, load_jax_state, load_table_state
 
     cfg = json.loads(inputs["config"])
     if rm.device.type == "cuda":
@@ -171,7 +211,13 @@ def train_model(rm, inputs: Tree) -> Tree:
     model = getattr(flagship, cfg["builder"])(rm, **cfg.get("kwargs", {}))
     if "state" in inputs:
         load_jax_state(model, inputs["state"], cfg.get("state_shards", 0))
+    if "table_state" in inputs:
+        load_table_state(model, inputs["table_state"])
     model.start_data_reading()
+    # one pass over the cached batches leaves their cycle where it was
+    batches = [next(model._train_iter) for _ in range(model.train_reader.num_batches)]
+    ec = model.ec
+    dynamic = ec is not None and any(g.slot_is_dynamic.any() for g in ec.plan.groups)
     _sync(rm)
 
     def counted(fn):
@@ -190,8 +236,15 @@ def train_model(rm, inputs: Tree) -> Tree:
             losses.append(model.train())  # float(): waits for the step
             _sync(rm)
             secs.append(time.perf_counter() - t)
+            if dynamic:  # outside the timed step and the collectives' counts
+                kept = dict(mesh.COLLECTIVE_CALLS), dict(mesh.COLLECTIVE_BYTES)
+                stats.append(ec.dynamic_stats(model.tables, model._feature_keys(batches[len(stats) % len(batches)])))
+                for counter, before in zip((mesh.COLLECTIVE_CALLS, mesh.COLLECTIVE_BYTES), kept):
+                    counter.clear()
+                    counter.update(before)
         return losses, secs
 
+    stats: List[Dict] = []
     (losses, secs), counts = counted(steps)
     out: Tree = {"losses": np.asarray(losses), "step_seconds": np.asarray(secs), **counts}
     if cfg.get("eval"):
@@ -199,50 +252,228 @@ def train_model(rm, inputs: Tree) -> Tree:
         out["eval"], out["eval_counts"] = counted(model.eval)
         _sync(rm)
         out["eval_seconds"] = time.perf_counter() - t
-    out["routes"] = dict(model.ec.group_routes)
+        if cfg.get("auc_both"):  # the binned and the exact AUC of the same buffers
+            from ..metrics.metrics import auc_score, auc_score_large
+
+            m = model.metrics
+            out["auc_binned"] = float(auc_score_large(m._preds, m._labels, m._valid, mesh.all_reduce))
+            out["auc_exact"] = float(auc_score(*(m._global(x) for x in (m._preds, m._labels, m._valid))))
+    out["routes"] = dict(ec.group_routes)
+    if cfg.get("storage"):
+        out["storage"] = {k: (t.float() if t.is_floating_point() else t).cpu().numpy() for k, t in model.tables.items()}
+        out["state"] = {g: {k: t.float().cpu().numpy() for k, t in st.items()} for g, st in model.eopt.items()}
     if rm.device.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(rm.device)
+    if dynamic:
+        out["store_fill"] = {g: np.asarray([s[g][0] for s in stats]) for g in stats[0]}
+        out["dropped_keys"] = {g: np.asarray([s[g][1] for s in stats]) for g in stats[0]}
+        out["key_stores"] = {k: t.cpu().numpy() for k, t in model.tables.items() if k.endswith("#keys")}
     if cfg.get("export", True):
-        out["tables"] = {lk.table.name: model.ec.export_table(model.tables, lk.table.name)
-                         for lk in model.ec.plan.lookups}
+        out["tables"] = {lk.table.name: ec.export_table(model.tables, lk.table.name) for lk in ec.plan.lookups}
         out["dense"] = {f"{layer}.{k}": p.detach().cpu().numpy()
                         for layer, ps in model.network.param_tree().items() for k, p in ps.items()}
-    rep = replicated_arrays(model)
-    if cfg.get("digest"):
-        rep = {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest() for k, v in rep.items()}
-    out["replicated"] = rep
+    for key, arrays in (("replicated", replicated_arrays(model)), ("shards", shard_replicas(model))):
+        if cfg.get("digest"):
+            arrays = {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest() for k, v in arrays.items()}
+        out[key] = arrays
+    if cfg.get("kernel_check"):
+        out["kernel_parity"] = kernel_parity(model, batches[0])
+    if cfg.get("carry_out"):
+        out["final_state"] = export_state(model)
+    if "eval_state" in inputs:  # another run's weights, evaluated here
+        load_jax_state(model, inputs["eval_state"], cfg.get("eval_state_shards", 0))
+        out["eval_carried"] = model.eval()
     return out
+
+
+def _scaled_err(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor) -> float:
+    """max |got - want| / (the sum of |inputs| that went into the element)."""
+    d = (got.double() - want.double()).abs() / (scale.double() + 1e-30)
+    return float(torch.nan_to_num(d, nan=float("inf")).max()) if d.numel() else 0.0
+
+
+def kernel_parity(model, batch: Dict[str, torch.Tensor], seed: int = 5) -> Tree:
+    """Each hand-written kernel against its plain version on this rank's
+    inputs of the step (on the card; on the CPU both sides are the plain
+    version): the one-hot group's forward on the rank's block of `batch`,
+    each one-hot lookup's backward from those keys with a cotangent drawn
+    in the table's type, and segscan over the owned prefix of each
+    sorted-route group's gathered keys (bf16 rows with float32 sums for
+    bf16 tables, as the step gives them). Every rank calls this together
+    (the keys are all-gathered). Returns, per kernel, the largest error
+    scaled by the sum of |inputs| into an element, the largest absolute
+    error and the shapes."""
+    from ..core.mesh import all_gather
+    from ..ops import onehot_matmul as oh
+    from ..ops import segscan as ss
+
+    ec, dev = model.ec, model.device
+    fk = model._feature_keys(batch)
+    gen = torch.Generator(device=dev).manual_seed(seed + model.rm.rank)
+    res: Tree = {}
+
+    def note(name, got, want, scale, shape):
+        r = res.setdefault(name, {"scaled_err": 0.0, "max_abs_err": 0.0, "shapes": []})
+        r["scaled_err"] = max(r["scaled_err"], _scaled_err(got, want, scale))
+        if got.numel():
+            r["max_abs_err"] = max(r["max_abs_err"], float((got.float() - want.float()).abs().max()))
+        r["shapes"].append(shape)
+
+    with torch.no_grad():
+        for g in ec.plan.groups:
+            table = model.tables[g.name]
+            if g.compute_kind == "onehot":
+                meta = ec._meta[g.name]
+                keys = ec._lookup_keys(g, fk)
+                got = oh.onehot_fwd_group(keys, meta.fwd_lookups, table, g.out_width)
+                want = oh.onehot_fwd_group_plain(keys, meta.fwd_lookups, table, g.out_width)
+                scale = oh.onehot_fwd_group_plain(keys, meta.fwd_lookups, table.float().abs(), g.out_width)
+                note("onehot_fwd", got, want, scale, [int(keys[0].shape[0]), len(keys)])
+                gkeys = ec._group_keys(g, fk)
+                valid, _owner, local_row = ec._slot_placement(g.name, gkeys)
+                for lm in g.lookups:
+                    v = int(g.table_vocab[lm.table_index])
+                    k_rel = ec._onehot_local_keys(g, lm, valid, local_row)
+                    d = torch.randn((k_rel.shape[0], g.ev_size), generator=gen, device=dev).to(table.dtype)
+                    got, cnt = oh.onehot_matmul_bwd(k_rel, d, v, torch.float32)
+                    want, want_c = oh.onehot_matmul_bwd_plain(k_rel, d, v, torch.float32)
+                    scale, _ = oh.onehot_matmul_bwd_plain(k_rel, d.float().abs(), v, torch.float32)
+                    if not torch.equal(cnt, want_c):
+                        raise AssertionError(f"onehot_bwd counts differ from the plain version ({g.name})")
+                    note("onehot_bwd", got, want, scale, [int(k_rel.shape[0]), int(k_rel.shape[1]), v])
+            elif ec.group_routes.get(g.name) == "sorted":
+                keys = ec._group_keys(g, fk)
+                if ec.world > 1:
+                    keys = all_gather(keys)
+                valid, owner, local_row = ec._slot_placement(g.name, keys, model.tables.get(f"{g.name}#keys"))
+                if owner is not None:
+                    valid = valid & (owner == ec._meta[g.name].shard)
+                sidx = torch.sort(local_row[valid]).values  # the owned prefix of the sorted keys
+                heads = torch.ones(sidx.shape[0], dtype=torch.bool, device=dev)
+                heads[1:] = sidx[1:] != sidx[:-1]
+                vals = torch.randn((sidx.shape[0], g.ev_size), generator=gen, device=dev).to(table.dtype)
+                got = ss.segmented_sum_sorted(vals, heads, torch.float32)
+                want = ss.segmented_sum_sorted_plain(vals, heads, torch.float32)
+                scale = ss.segmented_sum_sorted_plain(vals.float().abs(), heads, torch.float32)
+                note("segscan", got, want, scale, [int(sidx.shape[0]), int(keys.numel())])
+    return res
 
 
 # the tiny DLRM-DCNv2 of the parity checks: one-hot for vocab <= 100, the
 # other tables one model-parallel group on the sorted (segscan) route
 TINY_PARITY = dict(builder="build_tiny_dlrm", steps=3, eval=True,
                    kwargs=dict(batchsize=64, onehot_vocab=100, dense_update_rows=0, dense_key_ratio=0.0))
+# AUC with the threshold build_dlrm_dcnv2 sets, and AverageLoss
+METRICS = {"auc": 0.80275, "average_loss": 0.0}
 
 
-def parity_runs(world: int, backend: str, device: str = "cuda", config: Tree = None) -> tuple:
+def tiny_config(model: str = "tiny", steps: int = 3) -> Tree:
+    """The tiny models of the parity checks as `train_model` configs:
+    "tiny" (`TINY_PARITY`), "tiny_bench" (`bench_settings()` at
+    `flagship.TINY_BENCH`'s size) and "tiny_partial"
+    (`flagship.build_tiny_partial`)."""
+    from . import flagship
+
+    if model == "tiny":
+        return dict(TINY_PARITY, steps=steps)
+    if model == "tiny_bench":
+        kw = dict(flagship.bench_settings(), **flagship.TINY_BENCH, metrics_spec=METRICS)
+        return dict(builder="build_dlrm_dcnv2", steps=steps, eval=True, kwargs=kw)
+    if model == "tiny_partial":
+        return dict(builder="build_tiny_partial", steps=steps, eval=True, kwargs={})
+    raise ValueError(f"unknown tiny model {model!r}")
+
+
+def full_width_config(model: str, staged: bool, batch: int = 16384, dynamic: bool = False) -> Tree:
+    """A full-width model of `tools/flagship.py` over W ranks as a
+    `train_model` config: "dlrm_dcnv2" (float32), "bench" (with
+    `bench_settings()`) or "dlrm_ftrl" (`dynamic`: exact dynamic tables).
+    6 steps and a 20-batch eval; 4 and 4 where the collectives are staged
+    through the host (`staged`), whose times are then no speed numbers.
+    Scalars only (no tables or parameters), replicas as SHA-256 digests."""
+    from . import flagship
+
+    steps, eval_batches = (4, 4) if staged else (6, 20)
+    kw = dict(batchsize=batch, synthetic_batches=steps, max_eval_batches=eval_batches, metrics_spec=METRICS)
+    if model == "dlrm_dcnv2":
+        builder, kw = "build_dlrm_dcnv2", dict(kw, vocab_cap=2_000_000, optimizer="rowwise_adagrad")
+    elif model == "bench":
+        builder, kw = "build_dlrm_dcnv2", dict(flagship.bench_settings(), **kw)
+    elif model == "dlrm_ftrl":
+        builder, kw = "build_dlrm_ftrl", dict(kw, dynamic=dynamic)
+    else:
+        raise ValueError(f"unknown model {model!r}")
+    return dict(builder=builder, steps=steps, eval=True, export=False, digest=True, kwargs=kw)
+
+
+def path_summary(ranks: List[Tree], cfg: Tree) -> Tree:
+    """What a full-width run over W ranks shows (`full_width_config`):
+    rank 0's losses, step times (median of steps 2 on), eval; each rank's
+    peak memory, launches in the steps and in the eval; the collectives'
+    calls and bytes a step and an eval batch (rank 0); whether every
+    replicated array has the same digest on every rank; for dynamic
+    tables, each rank's store fill and dropped keys a step."""
+    import statistics
+
+    r0 = ranks[0]
+    steps, batch = cfg["steps"], cfg["kwargs"]["batchsize"]
+    eval_batches = cfg["kwargs"]["max_eval_batches"]
+    secs = r0["step_seconds"].tolist()
+    steady = statistics.median(secs[1:])
+    out = dict(
+        world=len(ranks), batch=batch, per_rank_batch=batch // len(ranks), steps=steps,
+        eval_batches=eval_batches, losses=r0["losses"].tolist(),
+        step_ms=[x * 1e3 for x in secs], median_ms_per_step=steady * 1e3, examples_per_s=batch / steady,
+        eval_seconds=r0["eval_seconds"], eval_examples_per_s=eval_batches * batch / r0["eval_seconds"],
+        eval=r0["eval"], max_memory_allocated=[r.get("max_memory_allocated") for r in ranks],
+        routes=r0["routes"], launches=[r["launches"] for r in ranks],
+        eval_launches=[r["eval_counts"]["launches"] for r in ranks],
+        collective_calls_per_step={k: v / steps for k, v in r0["collective_calls"].items()},
+        collective_bytes_per_step={k: v / steps for k, v in r0["collective_bytes"].items()},
+        eval_collective_bytes_per_batch={k: v / eval_batches
+                                         for k, v in r0["eval_counts"]["collective_bytes"].items()},
+        replicated_arrays=len(r0["replicated"]),
+        replicas_equal=all(r["replicated"] == r0["replicated"] for r in ranks[1:]),
+        finite=all(bool(np.isfinite(r["losses"]).all()) for r in ranks),
+    )
+    if "store_fill" in r0:
+        out["store_fill"] = [{g: v.tolist() for g, v in r["store_fill"].items()} for r in ranks]
+        out["dropped_keys"] = [{g: v.tolist() for g, v in r["dropped_keys"].items()} for r in ranks]
+    return out
+
+
+def parity_runs(world: int, backend: str, device: str = "cuda", config: Tree = None,
+                eval_carried: bool = False) -> tuple:
     """`config` (default `TINY_PARITY`) trained by `train_model` in this
-    process on one device and on `world` spawned ranks, both from one
-    carried state (this process's model's initial state). Returns (the
+    process on one device and on `world` spawned ranks, both from one state
+    carried by table (this process's model's initial state,
+    `export_table_state`: any placement). With `eval_carried`, the ranks
+    then also evaluate the one device's trained weights (`eval_carried`),
+    so that one eval set meets the same weights on both. Returns (the
     one-device result, the ranks' results)."""
     from ..core.mesh import ResourceManager
     from . import flagship
-    from .carry import export_state
+    from .carry import export_table_state
 
-    cfg = dict(config or TINY_PARITY, state_shards=1)
+    cfg = dict(config or TINY_PARITY)
     rm = ResourceManager.create(device=device)
-    state = export_state(getattr(flagship, cfg["builder"])(rm, **cfg["kwargs"]))
-    inputs = {"config": json.dumps(cfg), "state": state}
-    one = train_model(rm, inputs)
+    state = export_table_state(getattr(flagship, cfg["builder"])(rm, **cfg["kwargs"]))
+    one = train_model(rm, {"config": json.dumps(dict(cfg, carry_out=eval_carried)), "table_state": state})
+    inputs = {"config": json.dumps(dict(cfg, eval_state_shards=1)), "table_state": state}
+    if eval_carried:
+        inputs["eval_state"] = one.pop("final_state")
     return one, run(train_model, world, inputs, backend=backend, device=device)
 
 
 def parity_report(one: Tree, ranks: List[Tree], rtol: float = 1e-4, atol: float = 1e-5) -> Tree:
-    """How far W ranks are from one device (`parity_runs`): the largest
-    |loss| relative difference, the largest excess over atol + rtol |want|
-    of the tables and dense parameters (at most 0 passes), the AUC
-    difference, and whether every replicated array holds the same bits on
-    every rank."""
+    """How far W ranks are from one device (`parity_runs`): each step's
+    largest |loss| relative difference over the ranks and the largest of
+    them, the largest excess over atol + rtol |want| of the tables and
+    dense parameters (at most 0 passes), the AUC difference (and, after an
+    eval of the one device's weights, that AUC's and AverageLoss's
+    difference), whether every replicated array holds the same bits on
+    every rank, and whether the ranks that hold a shard of a partial
+    placement hold the same bits (`shard_replicas`)."""
     def excess(got, want):
         return float(np.max(np.abs(got - want) - atol - rtol * np.abs(want), initial=-np.inf))
 
@@ -252,15 +483,29 @@ def parity_report(one: Tree, ranks: List[Tree], rtol: float = 1e-4, atol: float 
             for k, want in one[part].items():
                 worst = max(worst, excess(res[part][k], want))
     r0 = ranks[0]["replicated"]
-    return dict(
-        loss_rel_diff=max(float(np.max(np.abs(r["losses"] - one["losses"]) / np.abs(one["losses"])))
-                          for r in ranks),
+    per_step = np.max([np.abs(r["losses"] - one["losses"]) / np.abs(one["losses"]) for r in ranks], axis=0)
+    shards: Dict[str, List] = {}
+    for r in ranks:
+        for k, v in r.get("shards", {}).items():
+            shards.setdefault(k, []).append(v)
+    out = dict(
+        loss_rel_diffs=per_step.tolist(), loss_rel_diff=float(per_step.max()),
         worst_excess=worst,
         auc_diff=max(abs(r["eval"]["auc"] - one["eval"]["auc"]) for r in ranks) if "eval" in one else None,
         replicas_equal=all(set(r["replicated"]) == set(r0)
                            and all(np.array_equal(r["replicated"][k], v) for k, v in r0.items())
                            for r in ranks[1:]),
+        shard_replicas=len(shards),
+        shard_replicas_equal=all(all(np.array_equal(v, vs[0]) for v in vs[1:]) for vs in shards.values()),
     )
+    if "eval_carried" in ranks[0]:
+        ev = one["eval"]
+        out["carried_auc_diff"] = max(abs(r["eval_carried"]["auc"] - ev["auc"]) for r in ranks)
+        if "average_loss" in ev:
+            out["carried_average_loss_rel_diff"] = max(
+                abs(r["eval_carried"]["average_loss"] - ev["average_loss"]) / abs(ev["average_loss"])
+                for r in ranks)
+    return out
 
 
 def main() -> None:
@@ -268,14 +513,27 @@ def main() -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--world", type=int, default=2)
-    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--model", default="tiny",
+                    choices=("tiny", "tiny_bench", "tiny_partial", "dlrm_dcnv2", "bench", "dlrm_ftrl"))
+    ap.add_argument("--dynamic", action="store_true", help="dlrm_ftrl with exact dynamic tables")
+    ap.add_argument("--steps", type=int, default=3, help="training steps of a tiny model")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default=None)
     args = ap.parse_args()
+    if args.dynamic and args.model != "dlrm_ftrl":
+        ap.error("--dynamic is a dlrm_ftrl setting")
     backend = args.backend or default_backend(args.world, args.device)
-    one, ranks = parity_runs(args.world, backend, args.device, dict(TINY_PARITY, steps=args.steps))
-    print(json.dumps({"world": args.world, "backend": backend, "losses": ranks[0]["losses"].tolist(),
-                      "eval": ranks[0]["eval"], **parity_report(one, ranks)}))
+    head = {"world": args.world, "backend": backend, "model": args.model}
+    if args.model.startswith("tiny"):
+        one, ranks = parity_runs(args.world, backend, args.device, tiny_config(args.model, args.steps))
+        print(json.dumps({**head, "losses": ranks[0]["losses"].tolist(), "eval": ranks[0]["eval"],
+                          **parity_report(one, ranks)}))
+        return
+    cfg = full_width_config(args.model, backend == "gloo" and args.device == "cuda", dynamic=args.dynamic)
+    ranks = run(train_model, args.world, {"config": json.dumps(cfg)}, backend=backend, device=args.device,
+                timeout=1800.0)
+    print(json.dumps({**head, "dynamic": args.dynamic, "staged_through_host": backend == "gloo",
+                      **path_summary(ranks, cfg)}))
 
 
 if __name__ == "__main__":

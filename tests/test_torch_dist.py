@@ -3,7 +3,9 @@ rotation and the compiled plans at 2, 4 and 8 shards against the JAX
 package's, the owner and row of a key against JAX's `_slot_placement`, the
 collectives of `core/mesh.py` over a gloo group of 2 spawned ranks and
 without a group, the route rule of a sharded group, each rank's block of a
-batch, and what over more than one rank still raises. All exact.
+batch, and what over more than one rank still raises; the plans of a
+partial placement (`shard_matrix` giving tables fewer shards than ranks) at
+2, 4 and 8 shards, with and without bench.py's split. All exact.
 """
 import dataclasses
 
@@ -88,6 +90,50 @@ def test_compiled_plans_match_jax(monkeypatch, model, shards):
             np.testing.assert_array_equal(getattr(tg, f), getattr(jg, f), err_msg=f)
     if model == "flagship":
         assert [g.name for g in tflagship.flagship_plan(num_shards=shards).groups] == [g.name for g in tp.groups]
+
+
+# shard counts of a partial placement: table 0 on one shard, 9 on 3 (the
+# plan widens it to the next divisor of W), 20 on 2 and 21 on 5; the others
+# on every rank
+PARTIAL_COUNTS = {"0": 1, "9": 3, "20": 2, "21": 5}
+
+
+@pytest.mark.parametrize("bench", [False, True], ids=["plain", "bench_plan"])
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_partial_plans_match_jax(monkeypatch, shards, bench):
+    """The flagship's plan with a partial placement (`PARTIAL_COUNTS`)
+    against the JAX package's `compile_plan` (plan.py:584) and
+    `_shard_count_of` (:566-581): group names (`_x{f}`), the tables of each
+    group, shards, replicas, rows per shard, offsets, rotations; with
+    `BENCH_PLAN`, the split's sub-tables on their parents' shard counts,
+    the merges and the splits."""
+    plan_kw = tflagship.BENCH_PLAN if bench else {}
+    for k, v in {"HCTR_TPU_ONEHOT_VOCAB": 8192, "HCTR_TPU_SPLIT_VOCAB": plan_kw.get("split_vocab", 256 * 1024),
+                 "HCTR_TPU_HOT_ROWS": plan_kw.get("hot_rows", 0),
+                 "HCTR_TPU_SUPERHOT_ROWS": plan_kw.get("superhot_rows", 0)}.items():
+        monkeypatch.setenv(k, str(v))
+    names = [str(i) for i in range(26)]
+    matrix = tflagship.shard_matrix(names, shards, PARTIAL_COUNTS)
+    counts = {n: sum(n in row for row in matrix) for n in names}
+    assert counts["0"] == 1 and counts["9"] == min(3, shards) and counts["1"] == shards
+    jp = jplan.compile_plan(_lookups(jplan, JComb, "flagship"), jplan.ShardingPlan([("mp", names)]), shards, counts)
+    tp = tplan.compile_plan(_lookups(tplan, TComb, "flagship"), tplan.ShardingPlan([("mp", names)]), shards, counts,
+                            onehot_vocab=8192, **plan_kw)
+    assert [g.name for g in tp.groups] == [g.name for g in jp.groups]
+    assert any(g.num_replicas > 1 and "_x" in g.name for g in tp.groups)
+    for jg, tg in zip(jp.groups, tp.groups):
+        assert [t.name for t in tg.tables] == [t.name for t in jg.tables]
+        for f in ("num_shards", "mesh_size", "num_replicas", "total_local_rows", "total_storage_rows"):
+            assert getattr(tg, f) == getattr(jg, f), f
+        for f in ("rows_per_shard", "local_offsets", "table_rotation", "slot_rotation", "slot_local_offset",
+                  "slot_vocab"):
+            np.testing.assert_array_equal(getattr(tg, f), getattr(jg, f), err_msg=f)
+        if tg.is_model_parallel:
+            f = tg.num_shards
+            assert shards % f == 0 and tg.num_replicas == shards // f
+            assert tg.name.endswith(f"_x{f}") == (f != shards)
+    assert [(m.top_name, m.sub_tops) for m in tp.merges] == [(m.top_name, m.sub_tops) for m in jp.merges]
+    assert tp.table_splits == jp.table_splits and bool(tp.table_splits) == bench
 
 
 @pytest.mark.parametrize("int64", [False, True])
@@ -200,24 +246,7 @@ def _tiny(rm, **kw):
     return tflagship.build_tiny_dlrm(rm, batchsize=8, **kw)
 
 
-def _partial_placement():
-    lk = [tplan.LookupConfig(0, tplan.EmbeddingTableConfig("t", 100, 8), "f", "e", TComb.Sum, 2)]
-    plan = tplan.compile_plan(lk, tplan.ShardingPlan([("mp", ["t"])]), 2, {"t": 1}, onehot_vocab=0)
-    assert plan.groups[0].name == "mp_ev8_x1"
-    TEC(plan, _rm(2), TOptParams(TOpt.RowWiseAdaGrad))
-
-
-def _dynamic():
-    lk = [tplan.LookupConfig(0, tplan.EmbeddingTableConfig("t", -1, 8, dynamic_capacity=64), "f", "e", TComb.Sum, 1)]
-    TEC(tplan.compile_plan(lk, tplan.ShardingPlan([]), 2), _rm(2), TOptParams(TOpt.FTRL))
-
-
 DEFERRED = {
-    "partial_placement": ("1c", _partial_placement),
-    "dynamic_tables": ("1d", _dynamic),
-    "bf16_tables": ("1e", lambda: _tiny(_rm(2), embedding_vec_dtype="bfloat16")),
-    "mixed_precision": ("1e", lambda: _tiny(_rm(2), use_mixed_precision=True)),
-    "hot_cold_split": ("1e", lambda: _tiny(_rm(2), hot_rows=256, onehot_vocab=64)),
     "hierarchical_mesh": ("1g", lambda: ResourceManager.create(device="cpu", num_slices=2)),
     "hierarchical_comm": ("1g", lambda: hugectr.EmbeddingCollectionConfig(comm_strategy="hierarchical")),
     "multi_host_reader": ("1h", lambda: _tiny(_rm(2, local=1))),
@@ -231,6 +260,48 @@ def test_deferred_over_ranks_raise(what):
     item, fn = DEFERRED[what]
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
         fn()
+
+
+def test_table_state_carries_between_placements():
+    """`export_table_state` / `load_table_state` (carry by user table, in
+    key order): a tiny partial-placement model's tables, sparse state and
+    dense parameters land in another model bit for bit; at 4 ranks its
+    groups differ from one card's, so the group-level carry refuses it."""
+    from hugectr_tpu_torch.tools.carry import export_state, export_table_state, load_jax_state, load_table_state
+
+    cpu = ResourceManager.create(device="cpu")
+    a = tflagship.build_tiny_partial(cpu, seed=1)
+    a.train()
+    b = tflagship.build_tiny_partial(cpu, seed=2)
+    load_table_state(b, export_table_state(a))
+    sa, sb = export_state(a), export_state(b)
+    for part in ("emb_tables", "eopt", "dense_params", "dopt"):
+        assert repr(sorted(sa[part])) == repr(sorted(sb[part]))
+    for g, arr in sa["emb_tables"].items():
+        np.testing.assert_array_equal(sb["emb_tables"][g], arr)
+        for k, v in sa["eopt"][g].items():
+            np.testing.assert_array_equal(sb["eopt"][g][k], v)
+    assert sb["step"] == sa["step"] == 1
+    four = tflagship.build_tiny_partial(_rm(4))
+    assert {g.name for g in four.ec.plan.groups} == {"mp_ev16_x2", "mp_ev16", "onehot_ev16", "mp_ev16_x1"}
+    with pytest.raises(ValueError, match="carry it by table"):
+        load_jax_state(four, sa, num_shards=1)
+
+
+def test_dynamic_state_loads_at_its_own_rank_count():
+    """A dynamic table's rows follow its hash over the shards: its state
+    does not load at another rank count, and has no key order to carry by
+    table."""
+    from hugectr_tpu_torch.tools.carry import export_state, export_table_state, load_jax_state
+
+    cpu = ResourceManager.create(device="cpu")
+    m = tflagship.build_tiny_dlrm_ftrl(cpu, dynamic=True)
+    state = export_state(m)
+    load_jax_state(m, state)  # its own rank count
+    with pytest.raises(ValueError, match="follow its hash"):
+        load_jax_state(m, state, num_shards=2)
+    with pytest.raises(ValueError, match="no key order"):
+        export_table_state(m)
 
 
 def test_two_rank_tiny_model_compiles_without_a_group():

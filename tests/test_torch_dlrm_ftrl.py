@@ -46,8 +46,9 @@ def _jax_env(dynamic: bool) -> dict:
             "HCTR_TPU_ONEHOT_KERNEL": "pallas", "HCTR_TPU_HOT_ROWS": "0"}
 
 
-def _sample_model(monkeypatch, dynamic: bool):
-    """samples/dlrm_ftrl.py as a JAX model at the tiny size."""
+def _sample_model(monkeypatch, dynamic: bool, num_devices: int = 1):
+    """samples/dlrm_ftrl.py as a JAX model at the tiny size, on a mesh of
+    `num_devices` devices."""
     for k, v in _jax_env(dynamic).items():
         monkeypatch.setenv(k, v)
     monkeypatch.delenv("HCTR_TPU_EMB_DTYPE", raising=False)
@@ -68,7 +69,7 @@ def _sample_model(monkeypatch, dynamic: bool):
         hugectr_tpu.DataReaderParams(data_reader_type="synthetic",
                                      synthetic_num_batches=tflagship.TINY_FTRL["synthetic_batches"],
                                      synthetic_alpha=1.05)))
-    argv = ["dlrm_ftrl", "--batchsize", str(tflagship.TINY_FTRL["batchsize"]), "--num_devices", "1"]
+    argv = ["dlrm_ftrl", "--batchsize", str(tflagship.TINY_FTRL["batchsize"]), "--num_devices", str(num_devices)]
     monkeypatch.setattr(sys, "argv", argv + (["--use_dynamic_hash_table"] if dynamic else []))
     model = runpy.run_path(os.path.join(SAMPLES, "dlrm_ftrl.py"), run_name="not_main")["model"]
     model.compile()

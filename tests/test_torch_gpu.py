@@ -386,3 +386,30 @@ def test_collection_replicas_bitwise_on_two_ranks(cuda, backend):
     for res in ranks:
         for t, want in one["tables"].items():
             np.testing.assert_allclose(res["tables"][t], want, rtol=1e-4, atol=1e-5, err_msg=t)
+
+
+@pytest.mark.gpu
+def test_partial_placement_replicas_bitwise_on_four_ranks(cuda):
+    """The partial placement of `tests/torch_rank_fns.py` (t0 on 2 shards,
+    each on 2 ranks, on the dense sweep; t1 on 1 shard, on all 4 ranks, on
+    the sorted route) on 4 gloo ranks sharing the card, 3 steps of a global
+    batch of 4,096, so that `index_add_`'s atomics meet on every row: every
+    replica of a shard holds the same bits as the others (the lowest
+    replica's update is broadcast), and the tables agree with one card
+    (rtol 1e-4 / atol 1e-5)."""
+    import torch_rank_fns as fns
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools import hybrid
+
+    inputs = fns.ec_inputs("rowwise_adagrad", 4096, 3, 0.3, case="partial")
+    one = fns.collection_steps(ResourceManager.create(), inputs)
+    ranks = hybrid.run(fns.collection_steps, 4, inputs, backend="gloo")
+    assert ranks[0]["routes"] == {"mp_ev8_x2": "dense", "mp_ev8_x1": "sorted"}
+    for g, f in (("mp_ev8_x2", 2), ("mp_ev8_x1", 1)):
+        for r in range(f, 4):
+            np.testing.assert_array_equal(ranks[r]["storage"][g], ranks[r % f]["storage"][g], err_msg=f"{g} {r}")
+            for k, v in ranks[r % f]["state"][g].items():
+                np.testing.assert_array_equal(ranks[r]["state"][g][k], v, err_msg=f"{g}/{k} {r}")
+    for res in ranks:
+        for t, want in one["tables"].items():
+            np.testing.assert_allclose(res["tables"][t], want, rtol=1e-4, atol=1e-5, err_msg=t)

@@ -41,43 +41,107 @@ EC_ENV = {"HCTR_TPU_ONEHOT_VOCAB": "128", "HCTR_TPU_SPLIT_VOCAB": "4000",
 # every term of FTRL counts; its threshold zeroes part of the rows
 OPT_HYPER = dict(initial_accu_value=0.1, lambda1=0.01, lambda2=0.01, ftrl_beta=0.1)
 
+# the other collections of the multi-rank tests, each a dict of: `spec`
+# (rows as EC_SPEC's; a vocab -c makes a dynamic table of capacity c),
+# `strategy`, `shard_counts`, the port's `engine` settings and the JAX
+# package's `env`, the tables' and the state's `dtype`.
+# * "split": bf16 tables and state; "big" (3,000 rows, Sum and Mean
+#   lookups) split into a superhot tier [0, 64) in the one-hot group
+#   beside "small", a hot tier [64, 256) sharing the dense sweep with
+#   "mid", and a cold tier [256, 3,000) on the sorted route
+#   (tests/test_torch_split.py's collection);
+# * "dynamic": a dynamic table of 96 rows (Sum and Mean lookups, keys below
+#   200, so the shards' stores fill and drop keys) beside a static one in
+#   one model-parallel group, and a one-hot table;
+# * "partial": tests/test_partial_placement.py:57's tables, t0 on 2 of the
+#   ranks (replicas over 4) on the dense sweep, t1 on one (on every rank) on
+#   the sorted route.
+CASES = {
+    "base": dict(spec=EC_SPEC, strategy=EC_STRATEGY, shard_counts=None, engine=EC_ENGINE, env=EC_ENV,
+                 dtype="float32"),
+    "split": dict(
+        spec=[("big", 3000, "f0", "e0", "mean", 6), ("small", 57, "f1", "e1", "sum", 3),
+              ("mid", 700, "f2", "e2", "sum", 2), ("big", 3000, "f3", "e3", "sum", 2)],
+        strategy=[("mp", ["big", "small", "mid"])], shard_counts=None,
+        engine=dict(onehot_vocab=128, split_vocab=1024, hot_rows=256, superhot_rows=64, dense_update_rows=1000,
+                    dense_key_ratio=0.3),
+        env={"HCTR_TPU_ONEHOT_VOCAB": "128", "HCTR_TPU_HOT_ROWS": "256", "HCTR_TPU_SUPERHOT_ROWS": "64",
+             "HCTR_TPU_SPLIT_VOCAB": "1024", "HCTR_TPU_SEGSUM": "xla", "HCTR_TPU_UCAP_FACTOR": "0",
+             "HCTR_TPU_DENSE_UPDATE_ROWS": "1000", "HCTR_TPU_DENSE_KEY_RATIO": "0.3",
+             "HCTR_TPU_EMB_STATE_DTYPE": "bfloat16", "HCTR_TPU_ONEHOT_KERNEL": "xla"},
+        dtype="bfloat16"),
+    "dynamic": dict(
+        spec=[("dyn", -96, "f0", "e0", "sum", 3), ("dyn", -96, "f1", "e1", "mean", 2),
+              ("st", 50, "f2", "e2", "sum", 2), ("oh", 40, "f3", "e3", "sum", 2)],
+        strategy=[("mp", ["dyn", "st", "oh"])], shard_counts=None,
+        engine=dict(onehot_vocab=64, split_vocab=0, dense_update_rows=1000, dense_key_ratio=0.0),
+        env={"HCTR_TPU_ONEHOT_VOCAB": "64", "HCTR_TPU_SPLIT_VOCAB": "0", "HCTR_TPU_DENSE_UPDATE_ROWS": "1000",
+             "HCTR_TPU_DENSE_KEY_RATIO": "0", "HCTR_TPU_SEGSUM": "scan", "HCTR_TPU_ONEHOT_KERNEL": "xla",
+             "HCTR_TPU_HOT_ROWS": "0"},
+        dtype="float32"),
+    "partial": dict(
+        spec=[("t0", 96, "f0", "e0", "sum", 4), ("t1", 64, "f1", "e1", "mean", 3)],
+        strategy=[("mp", ["t0", "t1"])], shard_counts={"t0": 2, "t1": 1},
+        engine=dict(onehot_vocab=0, split_vocab=0, dense_update_rows=50, dense_key_ratio=0.0),
+        env={"HCTR_TPU_ONEHOT_VOCAB": "0", "HCTR_TPU_SPLIT_VOCAB": "0", "HCTR_TPU_DENSE_UPDATE_ROWS": "50",
+             "HCTR_TPU_DENSE_KEY_RATIO": "0", "HCTR_TPU_SEGSUM": "scan", "HCTR_TPU_HOT_ROWS": "0"},
+        dtype="float32"),
+}
+# the sorted route of a dynamic group, and of W = 4's: no dense sweep
+CASES["dynamic_sorted"] = dict(CASES["dynamic"], engine=dict(CASES["dynamic"]["engine"], dense_update_rows=0),
+                               env=dict(CASES["dynamic"]["env"], HCTR_TPU_DENSE_UPDATE_ROWS="0"))
 
-def ec_lookups(pkg, comb):
+
+def ec_lookups(pkg, comb, case="base"):
     """The collection's lookups in `pkg` (either package's plan module)."""
     tables = {}
     out = []
-    for i, (t, v, f, top, c, h) in enumerate(EC_SPEC):
-        tables.setdefault(t, pkg.EmbeddingTableConfig(t, v, 8))
+    for i, (t, v, f, top, c, h) in enumerate(CASES[case]["spec"]):
+        cfg = pkg.EmbeddingTableConfig(t, v, 8) if v > 0 else pkg.EmbeddingTableConfig(t, -1, 8, dynamic_capacity=-v)
+        tables.setdefault(t, cfg)
         out.append(pkg.LookupConfig(i, tables[t], f, top, comb(c), h))
     return out
 
 
-def ec_keys(rng, b):
+def ec_keys(rng, b, case="base"):
     """Every lookup's [B, h] keys: -1 padding, negative keys and keys >= V
-    beside valid ones; sample 0 all padding."""
+    beside valid ones (a dynamic table's keys below twice its capacity);
+    sample 0 all padding."""
     feats = {}
-    for _t, v, f, _top, _c, h in EC_SPEC:
+    for _t, v, f, _top, _c, h in CASES[case]["spec"]:
+        if v < 0:
+            k = rng.integers(0, -2 * v, size=(b, h)).astype(np.int32)
+            k[rng.random((b, h)) < 0.15] = -1
+            k[0] = -1
+            feats[f] = k
+            continue
         k = rng.integers(0, v, size=(b, h)).astype(np.int32)
         r = rng.random((b, h))
         k[r < 0.15] = -1
         k[(r >= 0.15) & (r < 0.22)] = -rng.integers(2, 3 * v, size=int(((r >= 0.15) & (r < 0.22)).sum()))
         k[(r >= 0.22) & (r < 0.3)] += v
+        if case == "split":  # keys of the superhot and hot tiers' windows
+            low = (r >= 0.3) & (r < 0.55)
+            k[low] = rng.integers(0, 300, size=int(low.sum()))
         k[0] = -1
         feats[f] = k
     return feats
 
 
-def ec_inputs(optimizer, b, steps, lr):
-    """Inputs of `collection_steps`: tables, a global batch of `b` keys and
-    each step's cotangents, made from a seed of the optimizer."""
-    rng = np.random.default_rng(23 if optimizer == "ftrl" else 29)
-    tables = {t: (rng.normal(size=(v, 8)) * 0.1).astype(np.float32) for t, v, *_ in EC_SPEC}
+def ec_inputs(optimizer, b, steps, lr, case="base"):
+    """Inputs of `collection_steps`: the static tables, a global batch of
+    `b` keys and each step's cotangents, made from a seed of the optimizer
+    and the case."""
+    seed = {"base": 0, "split": 31, "dynamic": 37, "dynamic_sorted": 41, "partial": 43}[case]
+    rng = np.random.default_rng(seed + (23 if optimizer == "ftrl" else 29))
+    spec = CASES[case]["spec"]
+    tables = {t: (rng.normal(size=(v, 8)) * 0.1).astype(np.float32) for t, v, *_ in spec if v > 0}
     # a Concat lookup's output holds one ev-wide column block per slot
     d = {str(s): {top: rng.normal(size=(b, 8 * (h if c == "concat" else 1))).astype(np.float32)
-                  for _t, _v, _f, top, c, h in EC_SPEC}
+                  for _t, _v, _f, top, c, h in spec}
          for s in range(1, steps + 1)}
-    cfg = dict(optimizer=optimizer, steps=steps, lr=lr)
-    return {"config": json.dumps(cfg), "tables": tables, "keys": ec_keys(rng, b), "d": d}
+    cfg = dict(optimizer=optimizer, steps=steps, lr=lr, case=case)
+    return {"config": json.dumps(cfg), "tables": tables, "keys": ec_keys(rng, b, case), "d": d}
 
 
 def block(arr: np.ndarray, rank: int, world: int) -> np.ndarray:
@@ -101,21 +165,30 @@ def collectives(rm, inputs):
 
 
 def collection_steps(rm, inputs):
-    """The collection of `EC_SPEC` over the group: the tables imported from
+    """A collection of `CASES` (inputs["config"]["case"]) over the group:
+    dynamic groups' storage zeroed, the static tables imported from
     inputs["tables"], then per step the forward of this rank's block of the
     global batch inputs["keys"][f] and the fused update with its block of
-    inputs["d"][step][top]. Returns each step's outputs, every table in key
-    order, this rank's storage and state, and the routes."""
+    inputs["d"][step][top]. Returns each step's outputs, every static table
+    in key order, this rank's storage (key stores too) and state, and the
+    routes."""
     cfg = json.loads(inputs["config"])
+    case = CASES[cfg.get("case", "base")]
+    eng = case["engine"]
     plan = tplan.compile_plan(
-        ec_lookups(tplan, Combiner_t), tplan.ShardingPlan(EC_STRATEGY), rm.num_devices,
-        onehot_vocab=EC_ENGINE["onehot_vocab"], split_vocab=EC_ENGINE["split_vocab"],
+        ec_lookups(tplan, Combiner_t, cfg.get("case", "base")), tplan.ShardingPlan(case["strategy"]),
+        rm.num_devices, case["shard_counts"], onehot_vocab=eng["onehot_vocab"], split_vocab=eng["split_vocab"],
+        hot_rows=eng.get("hot_rows", 0), superhot_rows=eng.get("superhot_rows", 0),
     )
     opt = OptParams(Optimizer_t(cfg["optimizer"]), **OPT_HYPER)
-    ec = EmbeddingCollection(plan, rm, opt, dense_update_rows=EC_ENGINE["dense_update_rows"],
-                             dense_key_ratio=EC_ENGINE["dense_key_ratio"])
+    dt = getattr(torch, case["dtype"])
+    ec = EmbeddingCollection(plan, rm, opt, dtype=dt, state_dtype=dt, dense_update_rows=eng["dense_update_rows"],
+                             dense_key_ratio=eng["dense_key_ratio"])
     tables = ec.init(rm.generator(0))
-    for name, values in inputs["tables"].items():
+    for g in plan.groups:
+        if g.slot_is_dynamic.any():
+            tables[g.name].zero_()  # a fresh row's value depends on the layout
+    for name, values in inputs.get("tables", {}).items():
         ec.import_table(tables, name, values)
     state = ec.init_optimizer(tables)
     w, r = rm.num_devices, rm.rank
@@ -123,12 +196,12 @@ def collection_steps(rm, inputs):
     out = {"fwd": {}}
     for step in range(1, cfg["steps"] + 1):
         outs = ec.forward(tables, feats)
-        out["fwd"][str(step)] = {k: v.cpu().numpy() for k, v in outs.items()}
-        d = {k: torch.from_numpy(block(v, r, w)).to(rm.device) for k, v in inputs["d"][str(step)].items()}
+        out["fwd"][str(step)] = {k: v.float().cpu().numpy() for k, v in outs.items()}
+        d = {k: torch.from_numpy(block(v, r, w)).to(rm.device, dt) for k, v in inputs["d"][str(step)].items()}
         ec.backward_and_update(tables, state, feats, d, torch.tensor(cfg["lr"]), step)
-    out["tables"] = {t: ec.export_table(tables, t) for t in sorted({s[0] for s in EC_SPEC})}
-    out["storage"] = {g: t.cpu().numpy() for g, t in tables.items()}
-    out["state"] = {g: {k: t.cpu().numpy() for k, t in st.items()} for g, st in state.items()}
+    out["tables"] = {t: ec.export_table(tables, t) for t in sorted(inputs.get("tables", {}))}
+    out["storage"] = {g: (t.float() if t.is_floating_point() else t).cpu().numpy() for g, t in tables.items()}
+    out["state"] = {g: {k: t.float().cpu().numpy() for k, t in st.items()} for g, st in state.items()}
     out["routes"] = dict(ec.group_routes)
     return out
 
