@@ -95,6 +95,19 @@ Each phase prints one JSON line with its own seconds:
    keys a step, no key in two shards' stores, each store bitwise equal
    across the runs.
 
+10. The samples (`hugectr_tpu_torch/tools/samples.py`, the graphs of the
+   JAX package's samples/*.py): "sample_kernels" holds each kernel against
+   its plain version at the samples' widths and batch 2,048 (one-hot
+   forward and backward on BST's category group at E 1, 11, 16, 18 and 32;
+   segscan at the sorted-route K of WDL's wide table, DeepFM, DCN and DIN's
+   item table, E 1 to 18), f32 and bf16, with times, bound and library
+   call. "samples_parity": the tiny DeepFM (E 11, sorted route) and the
+   tiny DIN (Dice, one-hot at E 18) on the card against the CPU from one
+   state. "samples_path": each of the eleven graphs at its sample's own
+   sizes, 6 steps and a 20-batch eval: ms/step, ex/s, peak memory, routes,
+   launches a step, the step-1 and step-6 losses, the eval (both tasks'
+   AUC for MMoE).
+
 Then a "kernels" JSON line (per kernel: source, the TPU kernel it replaces,
 main-path launches, error, ms, device_ms, plain_ms, bound_ms, bound_by,
 library_ms, for the float32 flagship case with the most device time; for
@@ -102,7 +115,9 @@ library_ms, for the float32 flagship case with the most device time; for
 the same numbers for its bf16 case with the most device time, and the FTRL
 path's launches and its case with the most device time, each rank's
 launches on the hybrid and hybrid bench paths, and the per-rank bench case
-with the most device time), a line with the card's name and power limit, and last
+with the most device time, each sample graph's launches and the
+sample-width case with the most device time), a line with the card's name
+and power limit, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that line;
 so does a machine without CUDA.
 """
@@ -748,6 +763,291 @@ def segscan_checks(torch, np, rng, ss, dev, results):
             raise AssertionError(f"segscan edge case disagrees: {rec}")
 
 
+# ---------------------------------------------------------------- samples
+SAMPLE_B = 2048  # the samples' default batch (samples/common.py:26)
+SAMPLE_WIDTHS = (1, 11, 16, 18, 32)  # WDL wide, DeepFM, most tables, DIN and BST users, NeuMF
+
+
+def sample_sorted_rows(np, rng, slots, nnz: int = 1):
+    """The sorted-route keys of a SparseEmbedding table in one step, as the
+    synthetic reader draws them (power-law keys below the table's rows less
+    the slot's offset, plus the offset): the sorted rows and their heads."""
+    vocab = sum(slots)
+    offsets = np.concatenate([[0], np.cumsum(slots)[:-1]])
+    rows = np.concatenate([power_law(rng, vocab - off, (SAMPLE_B, nnz)) + off for off in offsets], axis=1)
+    seg = np.sort(rows.reshape(-1))
+    return seg, np.concatenate([[True], seg[1:] != seg[:-1]])
+
+
+def bst_onehot_group(torch, np, rng, oh, e: int, dt, dev):
+    """BST's one-hot group at width `e` (at e 16 the one its step runs):
+    the history-category table (8,010 rows, one lookup of h 1 for each of
+    its 10 slots, keys offset by 801 a slot) and the target-category table
+    (801 rows). Returns (raw keys, lookups, storage, width)."""
+    from hugectr_tpu_torch.tools.samples import CATE_VOCAB, SEQ
+
+    hist = CATE_VOCAB * SEQ
+    cols = [power_law(rng, hist - CATE_VOCAB * i, (SAMPLE_B, 1)) + CATE_VOCAB * i for i in range(SEQ)]
+    cols.append(power_law(rng, CATE_VOCAB, (SAMPLE_B, 1)))
+    allk = torch.as_tensor(np.concatenate(cols, axis=1).astype(np.int32), device=dev)
+    keys = [allk[:, i : i + 1] for i in range(SEQ + 1)]
+    lookups = [oh.GroupLookup(0, hist, i * e, False) for i in range(SEQ)]
+    lookups.append(oh.GroupLookup(hist, CATE_VOCAB, SEQ * e, False))
+    table = torch.as_tensor(rng.standard_normal((hist + CATE_VOCAB, e), dtype=np.float32), device=dev).to(dt)
+    return keys, lookups, table, (SEQ + 1) * e
+
+
+def sample_kernel_checks(torch, results):
+    """Phase "sample_kernels": each kernel against its plain version at the
+    samples' widths and batch 2,048, in float32 and bfloat16. The grouped
+    one-hot forward and the backward of its 8,010-row table on BST's
+    category group at E 1, 11, 16, 18 and 32 (E 16 is BST's own step; E
+    1, 11 and 18 take the one-element lanes, and only E 16 and 32 may take
+    the counts matmul); segscan at the sorted-route K of WDL's wide table
+    (E 1, K 4,096), DeepFM's table (E 11, K 53,248), DCN's (E 16, K 106,496:
+    two keys a slot) and DIN's item table (E 18, K 22,528). Limits as in
+    `kernel_checks`; times, bound and library call for each case."""
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+    from hugectr_tpu_torch.tools.kernel_sweep import embedding_bag_call, group_bytes
+    from hugectr_tpu_torch.tools.samples import CRITEO_SLOTS, DCN_SLOTS, GOOD_VOCAB, SEQ, WDL_WIDE_SLOTS
+
+    import numpy as np
+
+    from hugectr_tpu_torch.ops import onehot_matmul as oh
+    from hugectr_tpu_torch.ops import segscan as ss
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    for e in SAMPLE_WIDTHS:
+        for dt in (torch.float32, torch.bfloat16):
+            t0 = time.perf_counter()
+            dname = str(dt).split(".")[1]
+            keys, lookups, table, width = bst_onehot_group(torch, np, rng, oh, e, dt, dev)
+            err, abs_err, launches, ok_shape = group_err(torch, oh, keys, lookups, table, width)
+            call = lambda: oh.onehot_fwd_group(keys, lookups, table, width)  # noqa: E731
+            dms, per_call = device_ms(call, KERNEL_NAMES["onehot_fwd"])
+            b_ms, b_by = bound(group_bytes(keys, lookups, table, width), SAMPLE_B * len(keys) * e)
+            lib = embedding_bag_call(keys, lookups, table)
+            rec = dict(
+                phase="sample_kernels", kernel="onehot_fwd", case=f"sample_bst_group_E{e}", dtype=dname,
+                B=SAMPLE_B, lookups=len(lookups), E=e, width=width,
+                routes=sorted({oh.fwd_route(lk.vocab, k.shape[1], e, dev) for k, lk in zip(keys, lookups)}),
+                scaled_err=err, max_abs_err=abs_err, tol=TOL[dname], launches_per_call=launches,
+                ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
+                plain_ms=time_ms(lambda: oh.onehot_fwd_group_plain(keys, lookups, table, width)),
+                library_ms=time_ms(lib), library_device_ms=device_ms(lib, KERNEL_NAMES["embedding_bag"])[0],
+                library="one torch.nn.functional.embedding_bag(mode='sum') over the group",
+                bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms,
+            )
+            # the backward of the history table: its 10 lookups' keys, local
+            valid, local = oh.place_keys(torch.cat(keys[:SEQ], dim=1), lookups[0].vocab)
+            k_rel = torch.where(valid, local, -1).to(torch.int32).contiguous()
+            v = lookups[0].vocab
+            d = torch.as_tensor(rng.standard_normal((SAMPLE_B, e), dtype=np.float32), device=dev).to(dt)
+            grad, cnt = oh.onehot_matmul_bwd(k_rel, d, v, dt)
+            want_g, want_c = oh.onehot_matmul_bwd_plain(k_rel, d, v, dt)
+            scale_g, _ = oh.onehot_matmul_bwd_plain(k_rel, d.float().abs(), v, torch.float32)
+            torch.cuda.synchronize()
+            cnt_ok = bool(torch.equal(cnt, want_c))
+            flat = k_rel.reshape(-1).long()
+            keep = flat >= 0
+            d_rep = d.repeat_interleave(k_rel.shape[1], dim=0)[keep]
+            isz = d.element_size()
+
+            def library():
+                return torch.zeros((v, e), dtype=dt, device=dev).index_add_(0, flat[keep], d_rep)
+
+            b_ms2, b_by2 = bound(k_rel.numel() * 4 + SAMPLE_B * e * isz + v * e * isz + v * 4,
+                                 k_rel.numel() * e)
+            dms2, per_call2 = device_ms(lambda: oh.onehot_matmul_bwd(k_rel, d, v, dt), KERNEL_NAMES["onehot_bwd"])
+            rec2 = dict(
+                phase="sample_kernels", kernel="onehot_bwd", case=f"sample_bst_hist_E{e}", dtype=dname,
+                B=SAMPLE_B, V=v, h=k_rel.shape[1], E=e, route=oh.bwd_route(SAMPLE_B, k_rel.shape[1], v, e, dev),
+                scaled_err=scaled_err(grad, want_g, scale_g),
+                max_abs_err=float((grad.float() - want_g.float()).abs().max()), counts_exact=cnt_ok,
+                tol=TOL[dname], ms=time_ms(lambda: oh.onehot_matmul_bwd(k_rel, d, v, dt)), device_ms=dms2,
+                device_launches_per_call=per_call2,
+                plain_ms=time_ms(lambda: oh.onehot_matmul_bwd_plain(k_rel, d, v, dt)),
+                library_ms=time_ms(library), library_device_ms=device_ms(library, KERNEL_NAMES["index_add_"])[0],
+                library="Tensor.index_add_ (grad only; library_device_ms: the index_add_ kernel)",
+                bound_ms=b_ms2, bound_by=b_by2, bound_fraction=b_ms2 / dms2,
+            )
+            rec2["seconds"] = rec["seconds"] = time.perf_counter() - t0
+            results += [rec, rec2]
+            emit(rec)
+            emit(rec2)
+            if not (err <= TOL[dname] and launches == 1 and per_call in (1, None) and ok_shape
+                    and rec2["scaled_err"] <= TOL[dname] and cnt_ok):
+                raise AssertionError(f"one-hot kernels disagree at the samples' width E {e}: {rec} {rec2}")
+    cases = (("wdl_wide", 1, WDL_WIDE_SLOTS, 1), ("deepfm", 11, CRITEO_SLOTS, 1), ("dcn", 16, DCN_SLOTS, 2),
+             ("din_good", 18, [GOOD_VOCAB] * 11, 1))
+    for name, e, slots, nnz in cases:
+        seg, heads_np = sample_sorted_rows(np, rng, slots, nnz)
+        heads = torch.as_tensor(heads_np, device=dev)
+        k = len(seg)
+        for dt in (torch.float32, torch.bfloat16):
+            t0 = time.perf_counter()
+            dname = str(dt).split(".")[1]
+            vals = torch.as_tensor(rng.standard_normal((k, e), dtype=np.float32), device=dev).to(dt)
+            got = ss.segmented_sum_sorted(vals, heads)
+            want = ss.segmented_sum_sorted_plain(vals, heads)
+            scale = ss.segmented_sum_sorted_plain(vals.float().abs(), heads)
+            torch.cuda.synchronize()
+            repeat_equal = all(torch.equal(ss.segmented_sum_sorted(vals, heads), got) for _ in range(2))
+            isz = vals.element_size()
+            b_ms, b_by = bound(2 * k * e * isz + k, k * e)
+            dms, per_call = device_ms(lambda: ss.segmented_sum_sorted(vals, heads), KERNEL_NAMES["segscan"])
+            rec = dict(
+                phase="sample_kernels", kernel="segscan", case=f"sample_{name}_E{e}", dtype=dname, K=k, E=e,
+                segments=int(heads_np.sum()), scaled_err=scaled_err(got, want, scale),
+                max_abs_err=float((got.float() - want.float()).abs().max()), tol=TOL[dname],
+                bitwise_repeat=repeat_equal, ms=time_ms(lambda: ss.segmented_sum_sorted(vals, heads)),
+                device_ms=dms, device_launches_per_call=per_call,
+                plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(vals, heads)),
+                library_ms=None, library="none: no single PyTorch call computes a segmented scan",
+                bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
+            )
+            results.append(rec)
+            emit(rec)
+            if not (rec["scaled_err"] <= TOL[dname] and repeat_equal):
+                raise AssertionError(f"segscan disagrees at the samples' width E {e}: {rec}")
+
+
+def adam_excess(np, got, want, v, lr, rtol=1e-4, atol=1e-5):
+    """(weights beyond rtol / atol, the largest difference among them):
+    those whose gradient is rounding (sqrt(v) < 1e-9) must stay within 3
+    lr, and at most one in 10,000 of the others (at least one) within 0.1
+    lr, as tests/test_torch_samples.py holds the port to the JAX package
+    (Adam divides a gradient by its own size)."""
+    diff = np.abs(got - want)
+    bad = diff > atol + rtol * np.abs(want)
+    noise = np.zeros(want.shape, bool) if v is None else np.sqrt(v) < 1e-9
+    rest = bad & ~noise
+    ok = (np.isfinite(got).all() and (diff[noise] <= 3 * lr).all() and rest.sum() <= max(1, want.size // 10000)
+          and (diff[rest] <= 0.1 * lr).all())
+    return ok, int(bad.sum()), float(diff.max(initial=0.0))
+
+
+def samples_parity(torch):
+    """Phase "samples_parity": the tiny DeepFM (E 11, on the sorted route:
+    segscan) and the tiny DIN (Dice, FusedReshapeConcat; its user table in
+    the one-hot group at E 18, its item tables sorted) trained 3 steps on
+    the card and on the CPU from the same state, then each evaluating the
+    card's weights. Limits: loss rtol 1e-4; tables and dense parameters
+    rtol 1e-4 / atol 1e-5 with the Adam exceptions of `adam_excess`; the
+    eval AUC within 1e-4 (the card's sums in another order may swap
+    predictions that tie to 1e-7)."""
+    import numpy as np
+
+    from hugectr_tpu_torch import ops
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools.carry import export_state, load_jax_state
+    from hugectr_tpu_torch.tools.samples import build_tiny_sample
+
+    for name, kw in (("deepfm", dict(dense_update_rows=0)), ("din", {})):
+        t0 = time.perf_counter()
+        gpu = build_tiny_sample(name, ResourceManager.create(), **kw)
+        cpu = build_tiny_sample(name, ResourceManager.create(device="cpu"), **kw)
+        load_jax_state(cpu, export_state(gpu))
+        ops.reset_counts()
+        losses = [(gpu.train(), cpu.train()) for _ in range(3)]
+        launches = ops.launch_counts()
+        g_state, c_state = export_state(gpu), export_state(cpu)
+        lr = gpu.solver.lr
+        checks = {}
+        for g, want in c_state["emb_tables"].items():
+            checks[f"table {g}"] = adam_excess(np, g_state["emb_tables"][g], want,
+                                               c_state["eopt"][g].get("v"), lr)
+        for layer, ps in c_state["dense_params"].items():
+            for k, want in ps.items():
+                checks[f"{layer}/{k}"] = adam_excess(np, g_state["dense_params"][layer][k], want,
+                                                     c_state["dopt"]["v"][layer][k], lr)
+        load_jax_state(cpu, g_state)
+        ev = (gpu.eval(), cpu.eval())
+        rec = dict(phase="samples_parity", sample=name, losses=losses, routes=dict(gpu.ec.group_routes),
+                   launches=launches, beyond_tolerance={k: c[1:] for k, c in checks.items() if c[1]},
+                   eval=ev, seconds=time.perf_counter() - t0)
+        emit(rec)
+        for lg, lc in losses:
+            if not (math.isfinite(lg) and abs(lg - lc) <= 1e-4 * abs(lc)):
+                raise AssertionError(f"tiny {name} loss on the card {lg} != CPU {lc}")
+        bad = [k for k, c in checks.items() if not c[0]]
+        if bad or abs(ev[0]["auc"] - ev[1]["auc"]) > 1e-4:
+            raise AssertionError(f"tiny {name} on the card differs from the CPU in {bad}: {rec}")
+        if launches["segscan"] <= 0 or (name == "din" and min(launches.values()) <= 0):
+            raise AssertionError(f"tiny {name} on the card launched {launches}")
+
+
+def samples_path(torch):
+    """Phase "samples_path": each graph of `tools/samples.py::GRAPHS` at
+    its sample's own sizes (slot sizes, widths, optimizer, batch 2,048,
+    dropout 0.5) on synthetic learnable data: 6 steps, then a warm-up eval
+    and a timed one over 20 batches, launch counters set to 0 just before
+    the steps and the timed eval and read just after. One line per graph:
+    median ms/step of steps 2-6, train and eval ex/s, peak memory, routes,
+    each kernel's launches a step, the step-1 and step-6 losses (a loss
+    that does not fall is printed, not failed), the eval (each task's AUC
+    for MMoE). Non-finite losses fail; so does a kernel that no graph
+    launches, and BST's one-hot group if it is not the one
+    `bst_onehot_group` checks."""
+    from hugectr_tpu_torch import ops
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.embedding.collection import onehot_fwd_lookups
+    from hugectr_tpu_torch.tools.samples import CATE_VOCAB, GRAPHS, SEQ, build_sample
+
+    out = {}
+    for name, variant in GRAPHS:
+        graph = variant or name
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_sample(name, ResourceManager.create(), variant=variant, synthetic_batches=6,
+                             synthetic_learnable=True, max_eval_batches=20)
+        model.start_data_reading()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ops.reset_counts()
+        losses, step_s = [], []
+        for _ in range(6):
+            t = time.perf_counter()
+            losses.append(model.train())
+            step_s.append(time.perf_counter() - t)
+        train_launches = ops.launch_counts()
+        model.eval()  # warm-up: makes the eval batches and puts them on the card
+        ops.reset_counts()
+        t = time.perf_counter()
+        vals = model.eval()
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t
+        eval_launches = ops.launch_counts()
+        steady = statistics.median(step_s[1:])
+        onehot = [g for g in model.ec.plan.groups if g.compute_kind == "onehot"]
+        rec = dict(
+            phase="samples_path", graph=graph, batch=SAMPLE_B, steps=6,
+            tables={g.name: [g.total_storage_rows, g.ev_size] for g in model.ec.plan.groups},
+            median_ms_per_step=steady * 1e3, train_examples_per_s=SAMPLE_B / steady,
+            eval_batches=20, eval_seconds=eval_s, eval_examples_per_s=20 * SAMPLE_B / eval_s,
+            max_memory_allocated=torch.cuda.max_memory_allocated(), routes=dict(model.ec.group_routes),
+            launches_per_step={k: n / 6 for k, n in train_launches.items()}, eval_launches=eval_launches,
+            loss_step1=losses[0], loss_step6=losses[-1], loss_fell=losses[-1] < losses[0], eval=vals,
+            build_seconds=build_s, seconds=time.perf_counter() - t0,
+        )
+        emit(rec)
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite loss on the {graph} path: {losses}")
+        if graph == "bst":
+            got = sorted((lk.row_off, lk.vocab) for g in onehot if g.ev_size == 16 for lk in onehot_fwd_lookups(g))
+            want = sorted([(0, CATE_VOCAB * SEQ)] * SEQ + [(CATE_VOCAB * SEQ, CATE_VOCAB)])
+            if got != want or train_launches["onehot_fwd"] != 6 * len(onehot):
+                raise AssertionError(f"BST's one-hot group {got}, {train_launches['onehot_fwd']} launches in 6 steps")
+        out[graph] = {k: train_launches[k] + eval_launches[k] for k in train_launches}
+        del model
+        torch.cuda.empty_cache()
+    missing = [k for k in ops.launch_counts() if not any(x[k] for x in out.values())]
+    if missing:
+        raise AssertionError(f"no sample launched {missing}")
+    return out
+
+
 def tiny_parity(torch):
     """Phase 3: the port's tiny DLRM on the card (kernels) and on the CPU
     (plain versions) from the same state, 3 steps."""
@@ -1309,9 +1609,11 @@ def main() -> int:
               device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
               collectives=mesh.COLLECTIVE_NAMES, nvcc_seconds=_lib.build_info["seconds"], ptxas=ptxas, seconds=time.perf_counter() - t0))
 
-    results = []
+    results, sample_results = [], []
     kernel_checks(torch, results)
+    sample_kernel_checks(torch, sample_results)
     tiny_parity(torch)
+    samples_parity(torch)
     launches = main_path(torch)
     torch.cuda.empty_cache()
     bench_launches = bench_path(torch)
@@ -1320,6 +1622,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ftrl_dynamic_path(torch)
     torch.cuda.empty_cache()
+    samples_launches = samples_path(torch)
     hybrid_parity(torch)
     hybrid_bench_parity(torch)
     hybrid_partial_parity(torch)
@@ -1355,6 +1658,11 @@ def main() -> int:
         # and the DLRM-FTRL path's launches and its case with the most device time
         rf = max((x for x in results if x["kernel"] == name and x["case"].startswith("ftrl_")),
                  key=lambda x: x["device_ms"])
+        # and the samples' widths: each graph's launches and the case with the most device time
+        # (among the profiled ones: CUDA events at these sizes time the launch)
+        cases = [x for x in sample_results if x["kernel"] == name]
+        rs = max([x for x in cases if x["device_launches_per_call"] is not None] or cases,
+                 key=lambda x: x["device_ms"])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=launches[name],
             **{k: r[k] for k in keys}, bench_path_launches=bench_launches[name],
@@ -1363,6 +1671,8 @@ def main() -> int:
             hybrid_path_launches=[x[name] for x in hybrid_launches],
             hybrid_bench_path_launches=[x[name] for x in hybrid_bench_launches],
             hybrid_bench_case={k: rh[k] for k in keys},
+            samples_path_launches={g: x[name] for g, x in samples_launches.items()},
+            samples_case={**{k: rs[k] for k in keys}, "dtype": rs["dtype"]},
         ))
     # device times taken by CUDA events because the profiler recorded nothing
     emit(dict(phase="profiler", event_fallbacks=[list(x) for x in devtime.FALLBACKS]))

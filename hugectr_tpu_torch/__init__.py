@@ -31,7 +31,12 @@ from .core.types import (
     Metric_t,
     Optimizer_t,
 )
-from .embedding.config import EmbeddingCollectionConfig, EmbeddingTableConfig
+from .embedding.config import (
+    EmbeddingCollectionConfig,
+    EmbeddingTableConfig,
+    Embedding_t,
+    SparseEmbedding,
+)
 from .model.model import Model
 from .optim.params import OptParams
 
@@ -69,6 +74,7 @@ __all__ = [
     "DenseLayer",
     "EmbeddingCollectionConfig",
     "EmbeddingTableConfig",
+    "Embedding_t",
     "Initializer_t",
     "Input",
     "Layer_t",
@@ -78,5 +84,6 @@ __all__ = [
     "Optimizer_t",
     "ResourceManager",
     "Solver",
+    "SparseEmbedding",
     "init_distributed",
 ]

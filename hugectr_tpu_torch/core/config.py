@@ -11,7 +11,7 @@ too, with the environment's defaults.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from .types import Activation_t, DataReaderType_t, Initializer_t, Metric_t, Regularizer_t
 
@@ -153,12 +153,14 @@ class Input:
 
 @dataclasses.dataclass
 class DenseLayer:
-    """Dense layer declaration (config.py:341), the fields the slice's
-    layers read."""
+    """Dense layer declaration (config.py:341), the fields the port's
+    layers read, with the JAX package's defaults."""
 
     layer_type: str
     bottom_names: List[str]
     top_names: List[str]
+    # InnerProduct / MLP
+    num_output: int = 1
     num_outputs: List[int] = dataclasses.field(default_factory=list)
     use_bias: bool = True
     biases: List[bool] = dataclasses.field(default_factory=list)
@@ -169,34 +171,91 @@ class DenseLayer:
     # MultiCross
     num_layers: int = 0
     projection_dim: int = 0
-    # Concat
-    axis: int = 1
+    # FmOrder2
+    out_dim: int = 0
+    # WeightMultiply
+    weight_dims: List[int] = dataclasses.field(default_factory=list)
+    # LayerNorm / PReLU_Dice (Scale: the repeat count)
+    factor: float = 1.0
+    eps: float = 1e-5
+    # Dropout
+    dropout_rate: float = 0.5
+    # PReLU_Dice
+    elu_alpha: float = 1.0
     # Reshape
     leading_dim: int = 0
     time_step: int = 0
     selected: bool = False
     selected_slots: List[int] = dataclasses.field(default_factory=list)
     shape: List[int] = dataclasses.field(default_factory=list)
+    # Slice
+    ranges: List[Tuple[int, int]] = dataclasses.field(default_factory=list)
+    # Concat / ReduceSum / ReduceMean / Scale
+    axis: int = 1
+    # MultiHeadAttention
+    num_attention_heads: int = 1
+    # SequenceMask
+    max_sequence_len_from: int = 1
+    max_sequence_len_to: int = 1
     # Losses
     use_regularizer: bool = False
     regularizer_type: Regularizer_t = Regularizer_t.L1
     lambda_: float = 0.0
+    # MultiCrossEntropyLoss
+    target_weight_vec: List[float] = dataclasses.field(default_factory=list)
 
     def __post_init__(self):
         self.act_type = Activation_t(self.act_type)
         self.activations = [Activation_t(a) for a in self.activations]
 
 
+# The JAX package's DenseLayer fields of the layers the port does not build
+# (BatchNorm, Select, Gather, GRU, MatrixMultiply) and its no-op
+# compute_config, at that package's defaults (config.py:341-420). A graph
+# file (`Model.graph_to_json`) carries them so that it has the JAX
+# package's layout; a graph that sets one otherwise does not load here.
+UNPORTED_LAYER_FIELDS: Dict[str, Any] = dict(
+    compute_config={"async_wgrad": False, "fuse_wb": False},
+    gamma_init_type=Initializer_t.Default.value, beta_init_type=Initializer_t.Default.value,
+    dim=1, index=[], indices=[], batchsize=0, SeqLength=0, vector_size=0, transpose_b=False,
+    pos_type=None,
+)
+
+# Solver fields of the port that the JAX package keeps in its environment
+# (HCTR_TPU_EMB_STATE_DTYPE, _SUPERHOT_ROWS, _WARM_ROWS, _AUC_EXACT_MAX,
+# _SHARD_ROTATION); a graph file holds them apart from the solver's
+PORT_SOLVER_SETTINGS = ("embedding_state_dtype", "superhot_rows", "warm_rows", "auc_exact_max",
+                        "shard_rotation")
+
+
 class Layer_t:
-    """`hugectr.Layer_t.*` names (config.py:418). Only the slice's layers
-    are built; the others raise NotImplementedError at compile."""
+    """`hugectr.Layer_t.*` names (config.py:418) of the layers the port
+    builds; any other type raises NotImplementedError at compile."""
 
     InnerProduct = "InnerProduct"
     MLP = "MLP"
+    Interaction = "Interaction"
     MultiCross = "MultiCross"
+    FmOrder2 = "FmOrder2"
+    WeightMultiply = "WeightMultiply"
+    ElementwiseMultiply = "ElementwiseMultiply"
+    LayerNorm = "LayerNorm"
     Concat = "Concat"
     Reshape = "Reshape"
-    Interaction = "Interaction"
+    Slice = "Slice"
+    Dropout = "Dropout"
+    ReLU = "ReLU"
+    ReLUHalf = "ReLU"  # the reference's fp16 ReLU: the same op in the compute dtype
+    Softmax = "Softmax"
+    PReLU_Dice = "PReLU_Dice"
+    Scale = "Scale"
+    Sub = "Sub"
+    Add = "Add"
+    ReduceSum = "ReduceSum"
+    ReduceMean = "ReduceMean"
+    FusedReshapeConcat = "FusedReshapeConcat"
+    MultiHeadAttention = "MultiHeadAttention"
+    SequenceMask = "SequenceMask"
     BinaryCrossEntropyLoss = "BinaryCrossEntropyLoss"
     CrossEntropyLoss = "CrossEntropyLoss"
     MultiCrossEntropyLoss = "MultiCrossEntropyLoss"

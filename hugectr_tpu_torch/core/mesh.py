@@ -12,7 +12,8 @@ device, as before.
 
 Every collective of the port is here: `all_gather` and `reduce_scatter`
 (tiled on dim 0, as `jax.lax.all_gather(tiled=True)` and
-`jax.lax.psum_scatter(tiled=True)`), `all_reduce` (sum, `jax.lax.psum`) and
+`jax.lax.psum_scatter(tiled=True)`), `all_reduce` (sum, `jax.lax.psum`;
+`all_reduce_autograd` is the same sum under autograd) and
 `broadcast` (one rank's tensor on every rank of a group; the JAX package
 needs none, as XLA's replicated computations give equal bits). At world
 size 1 they are identities and need no group. `replica_group(f)` is the
@@ -187,6 +188,27 @@ def all_reduce(t: torch.Tensor) -> torch.Tensor:
         return x
 
     return _in_place("all_reduce", op, t)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over ranks of a tensor each rank computed; its gradient on
+    each rank is the sum over ranks of the gradients (every rank's loss
+    reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return all_reduce(t.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone())
+
+
+def all_reduce_autograd(t: torch.Tensor) -> torch.Tensor:
+    """`all_reduce` as a new tensor that autograd differentiates (the
+    batch statistics of PReLU_Dice over W ranks); `t` itself at world size
+    1."""
+    return t if group_size() == 1 else _AllReduceSum.apply(t)
 
 
 def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:

@@ -744,7 +744,7 @@ class EmbeddingCollection:
     # ------------------------------------- dynamic-table upkeep, not ported
     @staticmethod
     def _dynamic_upkeep(what: str):
-        raise NotImplementedError(f"{what} of dynamic tables is not ported yet (ROADMAP Queue 1 item 6)")
+        raise NotImplementedError(f"{what} of dynamic tables is not ported yet (ROADMAP Queue 1 item 5)")
 
     def export_key_store(self, tables: Tables, table_name: str):
         """collection.py:2164; not ported."""

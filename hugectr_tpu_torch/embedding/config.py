@@ -1,7 +1,6 @@
 """User-facing embedding configuration (counterpart of
-hugectr_tpu/embedding/config.py): `EmbeddingTableConfig` and
-`EmbeddingCollectionConfig`. The legacy `SparseEmbedding` waits for a later
-slice.
+hugectr_tpu/embedding/config.py): `EmbeddingTableConfig`,
+`EmbeddingCollectionConfig` and the legacy `SparseEmbedding`.
 """
 from __future__ import annotations
 
@@ -11,7 +10,14 @@ from typing import List, Optional, Sequence, Tuple, Union
 from ..core.types import Combiner_t, CommunicationStrategy
 from ..parallel.plan import EmbeddingTableConfig, ShardingPlan
 
-__all__ = ["EmbeddingTableConfig", "EmbeddingCollectionConfig"]
+__all__ = ["EmbeddingTableConfig", "EmbeddingCollectionConfig", "SparseEmbedding", "Embedding_t"]
+
+
+class Embedding_t:
+    """Legacy embedding kinds (config.py:27-31)."""
+
+    DistributedSlotSparseEmbeddingHash = "DistributedSlotSparseEmbeddingHash"
+    LocalizedSlotSparseEmbeddingHash = "LocalizedSlotSparseEmbeddingHash"
 
 
 def _as_list(x, n: Optional[int] = None) -> List:
@@ -89,3 +95,33 @@ class EmbeddingCollectionConfig:
 
     def sharding_plan(self) -> ShardingPlan:
         return ShardingPlan(strategy=[(k, v) for k, v in (self.shard_strategy or [])])
+
+
+@dataclasses.dataclass
+class SparseEmbedding:
+    """The legacy embedding declaration (config.py:185-215). `Model.compile`
+    lowers it onto the collection as the JAX package does: one table
+    `sparse_table_<name>` with one lookup per slot, model-parallel, and a
+    [batch, slots, ev] top. The distributed and localized kinds differ only
+    in how the reference's GPUs partition rows; both lower alike."""
+
+    embedding_type: str
+    workspace_size_per_gpu_in_mb: int
+    embedding_vec_size: int
+    combiner: str
+    sparse_embedding_name: str
+    bottom_name: str
+    optimizer: Optional[object] = None  # OptParams of the table
+    slot_size_array: List[int] = dataclasses.field(default_factory=list)
+    max_vocabulary_size: int = 0  # an explicit vocabulary
+
+    def vocabulary_for(self, num_devices: int) -> int:
+        """The table's rows: `max_vocabulary_size`, else the sum of
+        `slot_size_array`, else the workspace of `num_devices` devices at
+        four bytes an element."""
+        if self.max_vocabulary_size > 0:
+            return self.max_vocabulary_size
+        if self.slot_size_array:
+            return int(sum(self.slot_size_array))
+        bytes_total = self.workspace_size_per_gpu_in_mb * (1 << 20) * num_devices
+        return max(bytes_total // (4 * self.embedding_vec_size), 1)

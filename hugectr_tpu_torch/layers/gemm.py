@@ -1,4 +1,5 @@
-"""Fused MLP (counterpart of hugectr_tpu/layers/gemm.py `_mlp_apply` :95).
+"""InnerProduct and the fused MLP (counterparts of
+hugectr_tpu/layers/gemm.py `_ip_apply` :44-70 and `_mlp_apply` :95).
 
 Each product takes its inputs and weights in the compute dtype and sums in
 float32 into a float32 result (`preferred_element_type=f32`, gemm.py:34);
@@ -8,7 +9,9 @@ TF32 off. Under mixed precision (bf16) they run on the card's tensor cores
 with float32 output (`torch.mm(..., out_dtype=torch.float32)`); on the CPU
 the bf16 operands are widened to float32 first, which computes the same
 sums. Parameters stay float32: autograd takes their gradients through the
-casts.
+casts. InnerProduct takes [B, I] (or any [B, ...], flattened) to [B, O]
+and [B, S, I] to [B, S, O], the same product on the [B S, I] rows; it
+applies no activation (`act_type` is not read, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -95,3 +98,26 @@ class MLP(Layer):
             x = _act(act_i, dense(x, getattr(self, f"weight_{i}"), b, compute_dtype))
             x = x.to(compute_dtype)
         return [x]
+
+
+@register("InnerProduct")
+class InnerProduct(Layer):
+    def __init__(self, cfg: DenseLayer, in_shapes, gen: torch.Generator, device):
+        super().__init__()
+        shape = in_shapes[0]
+        fan_in = shape[-1] if len(shape) == 3 else feature_size(shape)
+        fan_out = cfg.num_output
+        w = make_initializer(cfg.weight_init_type, fan_in, fan_out)(gen, (fan_in, fan_out), device)
+        self.weight = nn.Parameter(w)
+        self.bias = None
+        if cfg.use_bias:
+            b = make_initializer(cfg.bias_init_type, fan_in, fan_out, is_bias=True)(gen, (fan_out,), device)
+            self.bias = nn.Parameter(b)
+        self.out_shapes = [(shape[0], shape[1], fan_out) if len(shape) == 3 else (shape[0], fan_out)]
+
+    def forward(self, ins, compute_dtype):
+        x = ins[0]
+        lead = x.shape[:2] if x.dim() == 3 else x.shape[:1]
+        y = dense(x.reshape(-1, x.shape[-1]) if x.dim() == 3 else x.reshape(x.shape[0], -1),
+                  self.weight, self.bias, compute_dtype)
+        return [y.reshape(*lead, -1).to(compute_dtype)]

@@ -4,7 +4,8 @@ hugectr_tpu/layers/network.py: `Network` :41, `forward_with_loss` :188).
 Layers run in add order over a dict of named tensors; each is an
 `nn.Module` under its JAX layer name (`l{i}_{type}`). An Interaction's
 second top is an alias of its first; an MLP given both reads it once
-(network.py:62-99).
+(network.py:62-99). The module's training mode (`train()` / `eval()`) is
+the JAX package's `LayerCtx.training`: Dropout drops only in training.
 """
 from __future__ import annotations
 
@@ -106,12 +107,17 @@ class Network(nn.Module):
         return tensors
 
     def predictions(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Per loss layer, the sigmoid of its logits in float32, under its
-        label's name: the eval predictions (network.py:204)."""
-        return {
-            spec.label_name: torch.sigmoid(tensors[spec.pred_name].float())
-            for spec in self.loss_specs
-        }
+        """Per loss layer, under its label's name, the eval predictions in
+        float32 (network.py:204): the sigmoid of its logits, or for a
+        CrossEntropyLoss the softmax's first class."""
+        out = {}
+        for spec in self.loss_specs:
+            logits = tensors[spec.pred_name].float()
+            if spec.loss_type == Layer_t.CrossEntropyLoss:
+                out[spec.label_name] = torch.softmax(logits, dim=-1)[..., :1]
+            else:
+                out[spec.label_name] = torch.sigmoid(logits)
+        return out
 
     def forward_with_loss(
         self, tensors: Dict[str, torch.Tensor], compute_dtype: torch.dtype

@@ -5,7 +5,12 @@ hugectr_tpu/model/model.py: `Model.__init__`/`add`/`compile` :152-498,
 
 `compile` takes the Solver's embedding dtype (float32 or bfloat16 tables
 and optimizer state), mixed precision (bf16 products in the dense network)
-and the hot/cold/superhot split of big tables.
+and the hot/cold/superhot split of big tables. A legacy `SparseEmbedding`
+lowers onto the collection as in the JAX package (model.py:339-386): one
+table `sparse_table_<name>` with one lookup per slot, each slot's keys
+shifted by the slot's offset in `slot_size_array`, model-parallel, and a
+[B, slots, ev] top. `compile(loss_names, loss_weights)` sets the tasks'
+label weights (model.py:207-221).
 
 The JAX package jits the whole iteration; here the step runs eagerly:
 
@@ -43,9 +48,15 @@ the JAX step is a plain sum. `train()` returns the global mean loss, and
 
 `eval` runs one eager forward under `no_grad` per batch of the eval set
 (synthetic eval batches made once and kept on the device, cycled to fill
-`max_eval_batches` when `repeat_dataset` is set) into a `MetricAccumulator`,
-with no host sync per batch. The JAX package's scanned eval (many batches in
-one XLA dispatch) is a device of XLA's and is not ported.
+`max_eval_batches` when `repeat_dataset` is set) into a `MetricAccumulator`
+per loss layer, with no host sync per batch (model.py:466-490): the first
+task's metrics under their plain names, the loss on it, and each other
+task's as `"<metric>_<label>"`. The JAX package's scanned eval (many batches
+in one XLA dispatch) is a device of XLA's and is not ported.
+
+`graph_to_json` / `construct_from_json` (model.py:2076-2202) write and
+read the JAX package's graph layout, so a graph written by either package
+loads in the other.
 
 Snapshots, i64 key folding, callbacks and the file readers wait for later
 slices.
@@ -54,19 +65,28 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core.config import DataReaderParams, DenseLayer, Input, Solver
+from ..core.config import (
+    PORT_SOLVER_SETTINGS,
+    UNPORTED_LAYER_FIELDS,
+    DataReaderParams,
+    DataReaderSparseParam,
+    DenseLayer,
+    Input,
+    Solver,
+)
 from ..core.logger import get_logger
 from ..core.mesh import DeviceLike, ResourceManager, all_reduce
-from ..core.types import DataReaderType_t
+from ..core.types import Combiner_t, DataReaderType_t, Metric_t
 from ..data.reader import BatchSpec, SparseFeatureSpec, SyntheticReader
 from ..embedding.collection import EmbeddingCollection
-from ..embedding.config import EmbeddingCollectionConfig
+from ..embedding.config import EmbeddingCollectionConfig, EmbeddingTableConfig, SparseEmbedding
 from ..layers.network import Network
 from ..metrics.metrics import MetricAccumulator
 from ..optim.dense import DenseOptimizer
@@ -80,6 +100,7 @@ class _KeySource:
     param_name: str
     col_begin: int
     col_end: int
+    key_offset: int = 0  # a SparseEmbedding slot's first row in its table
 
 
 class Model:
@@ -102,6 +123,7 @@ class Model:
         self.input: Optional[Input] = None
         self.dense_layers: List[DenseLayer] = []
         self.ebc_configs: List[EmbeddingCollectionConfig] = []
+        self.sparse_embeddings: List[SparseEmbedding] = []
         self._step = 0
         self.lr_sch = LearningRateScheduler(
             base_lr=solver.lr,
@@ -119,19 +141,25 @@ class Model:
             self.input = obj
         elif isinstance(obj, EmbeddingCollectionConfig):
             self.ebc_configs.append(obj)
+        elif isinstance(obj, SparseEmbedding):
+            self.sparse_embeddings.append(obj)
         elif isinstance(obj, DenseLayer):
             self.dense_layers.append(obj)
         else:
             raise TypeError(f"cannot add {type(obj)}")
 
     # -------------------------------------------------------------- compile
-    def compile(self) -> None:
+    def compile(self, loss_names: Optional[List[str]] = None, loss_weights: Optional[List[float]] = None) -> None:
+        """Plan the tables, build the network and the state; `loss_names`
+        with `loss_weights` set the tasks' label weights (model.py:207)."""
         if self.input is None:
             raise ValueError("model needs an Input")
         s = self.solver
         if s.i64_input_key:
-            raise NotImplementedError("i64 input keys are not ported yet (ROADMAP Queue 1 item 6d)")
+            raise NotImplementedError("i64 input keys are not ported yet (ROADMAP Queue 1 item 4)")
         inp = self.input
+        if loss_names and loss_weights:
+            inp.label_weights = dict(zip(loss_names, loss_weights))
         sparse_specs = tuple(
             SparseFeatureSpec(name=p.top_name, slot_nnz=tuple(p.per_slot_nnz()))
             for p in inp.data_reader_sparse_param_array
@@ -155,6 +183,7 @@ class Model:
         lookup_cfgs: List[LookupConfig] = []
         self._key_sources: Dict[str, _KeySource] = {}
         self._user_tops: Dict[str, List[str]] = {}
+        self._top3d: Dict[str, Tuple[int, int]] = {}  # a SparseEmbedding's top: (slots, ev)
         strategy: List[Tuple[str, List[str]]] = []
         shard_counts: Dict[str, int] = {}
         for ebc in self.ebc_configs:
@@ -175,6 +204,8 @@ class Model:
             strategy.extend(ebc.sharding_plan().strategy)
             for name in {n for row in ebc.shard_matrix or [] for n in row}:
                 shard_counts[name] = sum(1 for row in ebc.shard_matrix if name in row)
+        for se in self.sparse_embeddings:
+            strategy.append(("mp", [self._lower_sparse_embedding(se, lookup_cfgs)]))
         self.ec: Optional[EmbeddingCollection] = None
         if lookup_cfgs:
             plan = compile_plan(
@@ -199,7 +230,8 @@ class Model:
             for user_top, tops in self._user_tops.items():
                 # the user's lookups, before the split merges its tiers back
                 input_shapes[user_top] = (
-                    b, sum(self.ec.plan.lookups[int(t.rsplit(":", 1)[1])].out_width for t in tops)
+                    (b, *self._top3d[user_top]) if user_top in self._top3d else
+                    (b, sum(self.ec.plan.lookups[int(t.rsplit(":", 1)[1])].out_width for t in tops))
                 )
         gen = self.rm.generator(s.seed)
         self.network = Network(
@@ -219,14 +251,46 @@ class Model:
         self._train_iter = None
         self._eval_cache: Optional[List[Dict[str, torch.Tensor]]] = None
         self._last_eval_metrics: Dict[str, float] = {}
+        # one accumulator per loss layer (model.py:466-490): the first
+        # task's under the plain metric names, the others' by label
         label_dims = dict(zip(self.batch_spec.label_names, self.batch_spec.label_dims))
-        if len(self.network.loss_specs) != 1:
-            raise NotImplementedError("eval of multi-task models is not ported yet")
-        self.metrics = MetricAccumulator(
-            s.metrics_spec, batch_size=s.batchsize_eval // w, max_batches=s.max_eval_batches,
-            device=self.device, label_dim=label_dims.get(self.network.loss_specs[0].label_name, 1),
-            auc_exact_max=s.auc_exact_max, world=w,
+        accs = {
+            spec.label_name: MetricAccumulator(
+                s.metrics_spec, batch_size=s.batchsize_eval // w, max_batches=s.max_eval_batches,
+                device=self.device, label_dim=label_dims.get(spec.label_name, 1),
+                auc_exact_max=s.auc_exact_max, world=w,
+            )
+            for spec in self.network.loss_specs
+        }
+        self.metrics = accs.pop(self.network.loss_specs[0].label_name)
+        self._task_metrics: Dict[str, MetricAccumulator] = accs
+
+    def _lower_sparse_embedding(self, se: SparseEmbedding, lookup_cfgs: List[LookupConfig]) -> str:
+        """A SparseEmbedding as one table of `vocabulary_for(W)` rows and one
+        lookup per slot (model.py:339-386); returns the table's name."""
+        feat = self._sparse_by_name.get(se.bottom_name)
+        if feat is None:
+            raise ValueError(f"SparseEmbedding bottom {se.bottom_name!r} has no sparse input")
+        table = EmbeddingTableConfig(
+            name=f"sparse_table_{se.sparse_embedding_name}",
+            max_vocabulary_size=se.vocabulary_for(self.rm.num_devices),
+            ev_size=se.embedding_vec_size, opt_params=se.optimizer,
         )
+        offsets = np.concatenate([[0], np.cumsum(se.slot_size_array)[:-1]]).astype(int) \
+            if se.slot_size_array else np.zeros(feat.slot_num, dtype=int)
+        col, tops = 0, []
+        for si, nnz in enumerate(feat.slot_nnz):
+            lid = len(lookup_cfgs)
+            top = f"{se.sparse_embedding_name}:{lid}"
+            lookup_cfgs.append(LookupConfig(lookup_id=lid, table=table, bottom_name=top, top_name=top,
+                                            combiner=Combiner_t(se.combiner), max_hotness=nnz))
+            self._key_sources[top] = _KeySource(feat.name, col, col + nnz,
+                                                int(offsets[si]) if si < len(offsets) else 0)
+            tops.append(top)
+            col += nnz
+        self._user_tops[se.sparse_embedding_name] = tops
+        self._top3d[se.sparse_embedding_name] = (feat.slot_num, se.embedding_vec_size)
+        return table.name
 
     def _make_reader(self, train: bool) -> Optional[SyntheticReader]:
         """The train or the eval reader (model.py:501); the eval reader
@@ -239,7 +303,7 @@ class Model:
             return None
         if rp.data_reader_type != DataReaderType_t.Synthetic:
             raise NotImplementedError(
-                f"reader {rp.data_reader_type.value} is not ported yet (ROADMAP Queue 1 item 7)"
+                f"reader {rp.data_reader_type.value} is not ported yet (ROADMAP Queue 1 item 4)"
             )
         if self.rm.local_world_size < self.world:
             raise NotImplementedError(
@@ -258,7 +322,8 @@ class Model:
 
     def _slot_vocabs(self) -> Dict[str, List[int]]:
         """Per-slot key bounds of the synthetic reader (model.py:639): each
-        table's vocabulary, a dynamic table's capacity."""
+        table's vocabulary, a dynamic table's capacity, less a
+        SparseEmbedding slot's key offset."""
         vocabs = {f.name: [1000] * f.slot_num for f in self.batch_spec.sparse}
         if self.ec is not None:
             for top, ks in self._key_sources.items():
@@ -267,7 +332,7 @@ class Model:
                 col = 0
                 for si, nnz in enumerate(f.slot_nnz):
                     if col == ks.col_begin:
-                        vocabs[f.name][si] = max(vocab, 2)
+                        vocabs[f.name][si] = max(vocab - ks.key_offset, 2)
                         break
                     col += nnz
         return vocabs
@@ -288,16 +353,24 @@ class Model:
         self._train_iter = itertools.cycle(batches)
 
     def _feature_keys(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return {
-            top: batch[ks.param_name][:, ks.col_begin : ks.col_end]
-            for top, ks in self._key_sources.items()
-        }
+        """Each lookup's key columns of the batch (model.py:741); a
+        SparseEmbedding slot's keys (not -1) shifted by its offset."""
+        out = {}
+        for top, ks in self._key_sources.items():
+            k = batch[ks.param_name][:, ks.col_begin : ks.col_end]
+            out[top] = torch.where(k >= 0, k + ks.key_offset, k) if ks.key_offset else k
+        return out
 
     def _user_tensors(self, emb_outs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return {
-            user_top: emb_outs[tops[0]] if len(tops) == 1 else torch.cat([emb_outs[t] for t in tops], dim=1)
-            for user_top, tops in self._user_tops.items()
-        }
+        """The lookups' outputs as the user's tops (model.py:758-772): a
+        concatenation, or [B, slots, ev] for a SparseEmbedding."""
+        out = {}
+        for user_top, tops in self._user_tops.items():
+            t = emb_outs[tops[0]] if len(tops) == 1 else torch.cat([emb_outs[t] for t in tops], dim=1)
+            if user_top in self._top3d:
+                t = t.reshape(t.shape[0], *self._top3d[user_top])
+            out[user_top] = t
+        return out
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One iteration on a device batch (the rank's block over W ranks);
@@ -316,6 +389,7 @@ class Model:
             n: batch[n] for n in (*self.batch_spec.label_names, self.batch_spec.dense_name)
         }
         tensors.update(self._user_tensors(emb_in))
+        self.network.train()
         loss, _ = self.network.forward_with_loss(tensors, self.solver.compute_dtype)
         params = self.network.param_tree()
         if self.world > 1:
@@ -376,30 +450,138 @@ class Model:
 
     @torch.no_grad()
     def _eval_step(self, batch: Dict[str, torch.Tensor]):
-        """The forward of one eval batch: (loss, predictions, labels) of the
-        loss layer, on the device (model.py:885)."""
+        """The forward of one eval batch: (loss, {label: predictions},
+        {label: labels}) of the loss layers, on the device (model.py:885)."""
         ec = self.ec
         emb_outs = ec.forward(self.tables, self._feature_keys(batch)) if ec is not None else {}
         tensors = {n: batch[n] for n in (*self.batch_spec.label_names, self.batch_spec.dense_name)}
         tensors.update(self._user_tensors(emb_outs))
+        self.network.eval()
         loss, out = self.network.forward_with_loss(tensors, self.solver.compute_dtype)
-        spec = self.network.loss_specs[0]
-        return loss, self.network.predictions(out)[spec.label_name], tensors[spec.label_name]
+        labels = {spec.label_name: tensors[spec.label_name] for spec in self.network.loss_specs}
+        return loss, self.network.predictions(out), labels
+
+    def _reset_metrics(self) -> None:
+        self.metrics.reset()
+        for acc in self._task_metrics.values():
+            acc.reset()
+
+    def _eval_update(self, batch: Dict[str, torch.Tensor]) -> None:
+        """One eval batch into the accumulators: the first task's with the
+        loss, each other task's by its label."""
+        loss, preds, labels = self._eval_step(batch)
+        first = self.network.loss_specs[0].label_name
+        self.metrics.update(preds[first], labels[first], loss=loss)
+        for name, acc in self._task_metrics.items():
+            acc.update(preds[name], labels[name])
 
     def eval(self) -> Dict[str, float]:
         """One pass over max_eval_batches eval batches; returns the metrics
-        (model.py:1390). Losses, predictions and labels stay on the device
-        until the metrics are finalized."""
-        self.metrics.reset()
+        (model.py:1390), each other task's as `"<metric>_<label>"`. Losses,
+        predictions and labels stay on the device until the metrics are
+        finalized."""
+        self._reset_metrics()
         for batch in self._eval_batches():
-            loss, preds, labels = self._eval_step(batch)
-            self.metrics.update(preds, labels, loss=loss)
-        self._last_eval_metrics = self.metrics.finalize()
-        return self._last_eval_metrics
+            self._eval_update(batch)
+        vals = self.metrics.finalize()
+        for name, acc in self._task_metrics.items():
+            vals.update({f"{m}_{name}": v for m, v in acc.finalize().items()})
+        self._last_eval_metrics = vals
+        return vals
 
     def get_eval_metrics(self) -> List[Tuple[str, float]]:
         """The last eval's metrics as (name, value) pairs (model.py:1929)."""
         return list(self._last_eval_metrics.items())
+
+    # ---------------------------------------------------------------- graph
+    def graph_to_json(self, path: str) -> None:
+        """Write the graph (model.py:2076-2130) in the JAX package's layout:
+        the solver, the Input, the dense layers, the SparseEmbeddings and
+        the embedding collections. `PORT_SOLVER_SETTINGS` go under
+        "solver_settings", which the JAX package does not read; each dense
+        layer also holds `UNPORTED_LAYER_FIELDS`."""
+        solver = dataclasses.asdict(self.solver)
+        settings = {k: solver.pop(k) for k in PORT_SOLVER_SETTINGS}
+        ebcs = []
+        for ebc in self.ebc_configs:
+            tables = {d.table.name: {"name": d.table.name, "max_vocabulary_size": d.table.max_vocabulary_size,
+                                     "ev_size": d.table.ev_size, "dynamic_capacity": d.table.dynamic_capacity}
+                      for d in ebc.lookup_decls}
+            lookups = [{"table": d.table.name, "bottom_name": d.bottom_name, "top_name": d.top_name,
+                        "combiner": d.combiner.value} for d in ebc.lookup_decls]
+            ebcs.append({"tables": list(tables.values()), "lookups": lookups,
+                         "shard_matrix": ebc.shard_matrix, "shard_strategy": ebc.shard_strategy})
+        graph = {
+            "solver": solver,
+            "solver_settings": settings,
+            "input": dataclasses.asdict(self.input),
+            "dense_layers": [dict(dataclasses.asdict(d), **UNPORTED_LAYER_FIELDS) for d in self.dense_layers],
+            "sparse_embeddings": [dataclasses.asdict(se) for se in self.sparse_embeddings],
+            "embedding_collections": ebcs,
+        }
+        with open(path, "w") as f:
+            json.dump(graph, f, default=lambda o: o.item() if isinstance(o, np.generic) else str(o), indent=2)
+
+    @classmethod
+    def construct_from_json(cls, graph_path: str, reader_params=None, optimizer: Optional[OptParams] = None,
+                            resource_manager: Optional[ResourceManager] = None, compile_model: bool = True,
+                            device: DeviceLike = None) -> "Model":
+        """A Model from a graph file of either package (model.py:2132-2202).
+        The JAX package's Solver fields that the port lacks (its mesh, XLA
+        and reference-parity settings) are not read, nor are its engine
+        settings left unset (None: the port's defaults hold). A dense
+        layer's `UNPORTED_LAYER_FIELDS` must be at their defaults. Equal
+        SparseEmbedding optimizers become one `OptParams`, as one object
+        passed to each."""
+        with open(graph_path) as f:
+            graph = json.load(f)
+        known = {fl.name for fl in dataclasses.fields(Solver)}
+        sol = {k: v for k, v in graph["solver"].items() if k in known and v is not None}
+        sol.update(graph.get("solver_settings", {}))
+        sol["metrics_spec"] = {Metric_t(k): v for k, v in sol.get("metrics_spec", {}).items()}
+        model = cls(Solver(**sol), reader_params, optimizer or OptParams(), resource_manager=resource_manager,
+                    device=device)
+        inp = dict(graph["input"])
+        inp["data_reader_sparse_param_array"] = [
+            DataReaderSparseParam(top_name=p["top_name"], nnz_per_slot=p["nnz_per_slot"],
+                                  is_fixed_length=p.get("is_fixed_length", True), slot_num=p["slot_num"])
+            for p in inp["data_reader_sparse_param_array"]
+        ]
+        model.add(Input(**inp))
+        for e in graph.get("embedding_collections", []):
+            tbls = {t["name"]: EmbeddingTableConfig(name=t["name"], max_vocabulary_size=t["max_vocabulary_size"],
+                                                    ev_size=t["ev_size"],
+                                                    dynamic_capacity=t.get("dynamic_capacity", 2**22))
+                    for t in e["tables"]}
+            ebc = EmbeddingCollectionConfig()
+            for lk in e["lookups"]:
+                ebc.embedding_lookup(tbls[lk["table"]], lk["bottom_name"], lk["top_name"], lk["combiner"])
+            if e.get("shard_strategy"):
+                ebc.shard(shard_matrix=e.get("shard_matrix") or [list(tbls)] * model.rm.num_devices,
+                          shard_strategy=[(k, v) for k, v in e["shard_strategy"]])
+            model.add(ebc)
+        opts: List[OptParams] = []
+        for se in graph.get("sparse_embeddings", []):
+            se = dict(se)
+            if isinstance(se.get("optimizer"), dict):
+                opt = OptParams(**se["optimizer"])
+                se["optimizer"] = next((o for o in opts if o == opt), opt)
+                if se["optimizer"] is opt:
+                    opts.append(opt)
+            model.add(SparseEmbedding(**se))
+        for d in graph["dense_layers"]:
+            d = dict(d)
+            d.pop("compute_config", None)
+            for k, default in UNPORTED_LAYER_FIELDS.items():
+                if k in d and d.pop(k) != default:
+                    raise NotImplementedError(f"layer {d['layer_type']}: {k} belongs to a layer that is not "
+                                              "ported yet (ROADMAP Queue 1 item 7)")
+            if d.get("ranges"):
+                d["ranges"] = [tuple(r) for r in d["ranges"]]
+            model.add(DenseLayer(**d))
+        if compile_model:
+            model.compile()
+        return model
 
     def fit(self, num_epochs: int = 0, max_iter: int = 1000, display: int = 200,
             eval_interval: int = 1000, snapshot: int = 0, snapshot_prefix: str = "") -> None:
@@ -410,7 +592,7 @@ class Model:
         passes its threshold in `metrics_spec`. Snapshots are not ported.
         Over W ranks every rank runs the loop and rank 0 logs."""
         if snapshot:
-            raise NotImplementedError("snapshots are not ported yet (ROADMAP Queue 1 item 9)")
+            raise NotImplementedError("snapshots are not ported yet (ROADMAP Queue 1 item 3)")
         say = get_logger().info if self.rm.is_master_process() else (lambda msg: None)
         self.start_data_reading()
         if num_epochs > 0:

@@ -7,13 +7,17 @@ JAX. The tree holds:
 * `emb_tables` {group name: [R, E]} -> `model.tables`, with each dynamic
   group's int32 key store `"{group}#keys"` [R], copied bit for bit;
 * `eopt` {group name: {"accum" | "m" | "v" | "z" | "n": ...}} -> `model.eopt`;
-* `dense_params` {layer: {weight_i, bias_i, U_i, V_i, b_i}} -> the network;
+* `dense_params` {layer: {weight_i, bias_i, U_i, V_i, b_i, w_i, weight,
+  bias, gamma, beta}} -> the network (MLP, MultiCross, InnerProduct,
+  WeightMultiply, LayerNorm);
 * `dopt` {"accum" | "m" | "v" | "z" | "n": {layer: {key: ...}}} -> `model.dopt`;
 * `step` -> the model's step counter.
 
 The two packages name groups and layers alike and keep the same layouts
 (MLP weights [fan_in, fan_out], row-wise accumulators [R, 1]), so no array
-is transposed; shapes are checked. A split table's tiers are groups of
+is transposed; shapes are checked. A SparseEmbedding's table
+`sparse_table_<name>` sits in its group like any table. An optimizer
+without state (SGD) has no `eopt` / `dopt` entries. A split table's tiers are groups of
 their own in both (`mp_ev128_20::cold`, the superhot tier's rows inside the
 one-hot group's storage), so they carry like any group. bfloat16 arrays
 (numpy's from the JAX package, or torch's) go through float32, which holds
@@ -124,7 +128,7 @@ def load_jax_state(model, state: Dict[str, Any], num_shards: int = 0) -> None:
                          "placement's groups change with the rank count; carry it by table (export_table_state)")
     for gname, arr in state["emb_tables"].items():
         _copy(model.tables[gname], _rows(model, gname, arr, w_src), f"table {gname}")
-    for gname, st in state["eopt"].items():
+    for gname, st in state.get("eopt", {}).items():
         for k, arr in st.items():
             _copy(model.eopt[gname][k], _rows(model, gname, arr, w_src), f"sparse state {gname}/{k}")
     _load_dense(model, state)
@@ -135,7 +139,7 @@ def _load_dense(model, state: Dict[str, Any]) -> None:
     for layer, ps in state["dense_params"].items():
         for k, arr in ps.items():
             _copy(params[layer][k], arr, f"dense param {layer}/{k}")
-    for kind, tree in state["dopt"].items():
+    for kind, tree in state.get("dopt", {}).items():
         for layer, ps in tree.items():
             for k, arr in ps.items():
                 _copy(model.dopt[kind][layer][k], arr, f"dense state {kind}/{layer}/{k}")

@@ -36,6 +36,7 @@ summary (on the card).
 from __future__ import annotations
 
 import hashlib
+import importlib
 import json
 import os
 import tempfile
@@ -176,7 +177,8 @@ def _sync(rm) -> None:
 
 def train_model(rm, inputs: Tree) -> Tree:
     """Rank function: `inputs["config"]` (JSON) names a builder of
-    `tools/flagship.py` and its keyword arguments (`kwargs`), the training
+    `tools/flagship.py` (or of the tools module `module`, e.g. "samples")
+    and its keyword arguments (`kwargs`), the training
     `steps`, whether to `eval`, and with `export` false leaves the tables
     and dense parameters out of the result; `inputs["state"]`, if given, is
     a carried state (`tools/carry.py`, global arrays of `state_shards`
@@ -202,13 +204,13 @@ def train_model(rm, inputs: Tree) -> Tree:
     `digest`)."""
     from .. import ops
     from ..core import mesh
-    from . import flagship
     from .carry import export_state, load_jax_state, load_table_state
 
     cfg = json.loads(inputs["config"])
     if rm.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(rm.device)
-    model = getattr(flagship, cfg["builder"])(rm, **cfg.get("kwargs", {}))
+    builders = importlib.import_module(f"{__package__}.{cfg.get('module', 'flagship')}")
+    model = getattr(builders, cfg["builder"])(rm=rm, **cfg.get("kwargs", {}))
     if "state" in inputs:
         load_jax_state(model, inputs["state"], cfg.get("state_shards", 0))
     if "table_state" in inputs:

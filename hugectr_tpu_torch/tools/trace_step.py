@@ -2,7 +2,7 @@
 
 Usage (on a machine with a card, from the repo root):
 
-    python -m hugectr_tpu_torch.tools.trace_step [--model dlrm_dcnv2 | dlrm_ftrl] [--dynamic]
+    python -m hugectr_tpu_torch.tools.trace_step [--model dlrm_dcnv2 | dlrm_ftrl | GRAPH] [--dynamic]
         [--batch 16384] [--steps 3] [--bench] [--eval] [--world W] [--out DIR]
 
 Builds the full-width DLRM-DCNv2 (`build_dlrm_dcnv2`, 26 tables, ev 128,
@@ -10,7 +10,9 @@ vocab_cap 2M, rowwise AdaGrad, float32; with `--bench`, as bench.py
 configures it: `bench_settings()`, bf16 tables and state, mixed precision,
 the hot/cold/superhot split) or, with `--model dlrm_ftrl`, DLRM with FTRL
 (`build_dlrm_ftrl`, 26 tables capped at 400,000 rows, hotness 1; with
-`--dynamic`, exact dynamic tables of 4,096 rows each), runs 2 warm-up steps, then traces `--steps`
+`--dynamic`, exact dynamic tables of 4,096 rows each) or a sample's graph
+(`GRAPH`: a name of `tools/samples.py::GRAPHS`, e.g. `bst` or `neumf`, at
+its own sizes; `--batch 2048` is the samples' batch), runs 2 warm-up steps, then traces `--steps`
 training steps (with `--eval`: eval batches, the forward of `Model.eval`)
 with `torch.profiler`. Prints one JSON line: ms per step (host clock around
 synchronised steps), device busy ms per step (sum of kernel and copy
@@ -36,6 +38,9 @@ import time
 import torch
 
 from .devtime import KERNEL_NAMES
+from .samples import GRAPHS
+
+SAMPLE_GRAPHS = {variant or name: (name, variant) for name, variant in GRAPHS}
 
 CATEGORIES = (
     ("collective", ("nccl",)),
@@ -67,11 +72,15 @@ def trace(rm, inputs) -> dict:
 
     from hugectr_tpu_torch.core import mesh
     from hugectr_tpu_torch.tools.flagship import bench_settings, build_dlrm_dcnv2, build_dlrm_ftrl
+    from hugectr_tpu_torch.tools.samples import build_sample
 
     args = SimpleNamespace(**json.loads(inputs["args"]))
     n = dict(batchsize=args.batch, synthetic_batches=args.steps + 2, max_eval_batches=args.steps + 2)
     if args.model == "dlrm_ftrl":
         model = build_dlrm_ftrl(rm, dynamic=args.dynamic, **n)
+    elif args.model in SAMPLE_GRAPHS:
+        name, variant = SAMPLE_GRAPHS[args.model]
+        model = build_sample(name, rm, variant=variant, **n)
     else:
         kw = bench_settings() if args.bench else dict(vocab_cap=2_000_000)
         model = build_dlrm_dcnv2(rm, **dict(kw, **n))
@@ -81,9 +90,8 @@ def trace(rm, inputs) -> dict:
         batches = list(model._eval_batches())
 
         def step(i):
-            loss, preds, labels = model._eval_step(batches[i % len(batches)])
-            model.metrics.update(preds, labels, loss=loss)
-        model.metrics.reset()
+            model._eval_update(batches[i % len(batches)])
+        model._reset_metrics()
         step(0)
     else:
         def step(i):
@@ -142,7 +150,7 @@ def main() -> None:
     ap.add_argument("--out", default="")
     ap.add_argument("--bench", action="store_true", help="the flagship as bench.py configures it")
     ap.add_argument("--eval", action="store_true", help="trace eval batches instead of training steps")
-    ap.add_argument("--model", choices=("dlrm_dcnv2", "dlrm_ftrl"), default="dlrm_dcnv2")
+    ap.add_argument("--model", choices=("dlrm_dcnv2", "dlrm_ftrl", *SAMPLE_GRAPHS), default="dlrm_dcnv2")
     ap.add_argument("--dynamic", action="store_true", help="dlrm_ftrl with exact dynamic tables")
     ap.add_argument("--world", type=int, default=1, help="ranks (one process each); rank 0 is traced")
     args = ap.parse_args()

@@ -23,7 +23,9 @@ def test_fresh_process_imports_every_port_module_without_jax():
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in %r)\n"
         "print(sum(n.startswith('hugectr_tpu_torch') for n in sys.modules))\n"
-        "assert not bad, bad\n" % (FORBIDDEN,)
+        "assert not bad, bad\n"
+        "assert {'hugectr_tpu_torch.tools.samples', 'hugectr_tpu_torch.layers.core_layers'} <= set(sys.modules)\n"
+        % (FORBIDDEN,)
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run(
