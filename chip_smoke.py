@@ -108,12 +108,34 @@ Each phase prints one JSON line with its own seconds:
    launches a step, the step-1 and step-6 losses, the eval (both tasks'
    AUC for MMoE).
 
+11. Snapshots and freezing (run after "ftrl_dynamic_path"; the last one
+   after the hybrid phases), each with the card line: "snapshot_path" (the
+   full-width static DLRM-FTRL after 3 steps written with
+   `download_params_to_files` into a temporary directory and loaded by a
+   model from another seed: every table, the FTRL state, the dense
+   parameters and their state and the step bitwise; 3 more steps of both on
+   the same batches within 1e-6 relative; the bytes written beside the
+   plan's prediction, the seconds to write and to load, peak memory);
+   "snapshot_dynamic_path" (the same on dynamic tables, key stores bitwise,
+   then `embedding_dump` / `embedding_load` of table 3 with its
+   key_store.npy: the same rows for the same keys); "snapshot_bf16" (the
+   tiny bench-configured model: bf16 files as the JAX package writes them,
+   2-byte voids, the split tables' merged views, a bitwise reload);
+   "freeze_path" (the full-width static DLRM-FTRL with table 5 (one-hot),
+   table 20 (a sorted group of its own) and the dense network frozen, 2
+   steps: `onehot_bwd` 12 a step, segscan's K per group against the keys
+   less the frozen slots, frozen rows and dense weights bitwise, each
+   kernel against its plain version on these inputs; unfrozen, 1 step);
+   "hybrid_snapshot" (the tiny DLRM-DCNv2 on 2 ranks: rank 0 alone writes,
+   both reload bitwise).
+
 Then a "kernels" JSON line (per kernel: source, the TPU kernel it replaces,
 main-path launches, error, ms, device_ms, plain_ms, bound_ms, bound_by,
 library_ms, for the float32 flagship case with the most device time; for
 `onehot_fwd`, the 13-table group; beside them the bench path's launches and
 the same numbers for its bf16 case with the most device time, and the FTRL
-path's launches and its case with the most device time, each rank's
+path's launches and its case with the most device time, the freeze
+path's launches, each rank's
 launches on the hybrid and hybrid bench paths, and the per-rank bench case
 with the most device time, each sample graph's launches and the
 sample-width case with the most device time), a line with the card's name
@@ -1590,6 +1612,281 @@ def hybrid_ftrl_dynamic_path(torch):
         raise AssertionError(f"hybrid dynamic FTRL key stores: {rec}")
 
 
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _dirs, names in os.walk(path) for f in names)
+
+
+def snapshot_bytes_predicted(model) -> int:
+    """The bytes a snapshot of a one-card model must hold, from its plan:
+    each table's rows once (`sparse_<table>`, a split table's merged view
+    again), each group's optimizer state as its storage, the key stores,
+    the dense parameters and their state."""
+    ec = model.ec
+    item = ec.dtype.itemsize
+    rows = sum(int(v) for g in ec.plan.groups for v in g.table_vocab)
+    rows += sum(int(v) for g in ec.plan.groups for t, v in zip(g.tables, g.table_vocab) if "::" in t.name)
+    n = rows * ec.plan.groups[0].ev_size * item
+    n += sum(t.numel() * t.element_size() for st in model.eopt.values() for t in st.values())
+    n += sum(t.numel() * t.element_size() for k, t in model.tables.items() if k.endswith("#keys"))
+    n += sum(p.numel() * 4 for ps in model.network.param_tree().values() for p in ps.values())
+    n += sum(t.numel() * 4 for tree in model.dopt.values() for ps in tree.values() for t in ps.values())
+    return n
+
+
+def snapshot_run(torch, dynamic: bool):
+    """Full-width DLRM-FTRL (`ftrl_path`'s model, or the dynamic one):
+    3 steps, a snapshot into a temporary directory, a second model from
+    another seed that loads it, the arrays that differ bitwise, then both
+    models trained on the same 3 cached batches. Returns (the record, the
+    first model, its cached batches, the snapshot dir's context)."""
+    import tempfile
+
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools.flagship import build_dlrm_ftrl
+    from hugectr_tpu_torch.tools.hybrid import model_state, state_differs
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    build = lambda seed: build_dlrm_ftrl(ResourceManager.create(), batchsize=B, dynamic=dynamic, ev_size=E,
+                                         synthetic_batches=6, max_eval_batches=1, seed=seed)
+    a = build(0)
+    a.start_data_reading()
+    batches = [next(a._train_iter) for _ in range(6)]  # one pass: the cycle is back at batch 0
+    losses = [a.train() for _ in range(3)]
+    tmp = tempfile.TemporaryDirectory(prefix="hctr_snapshot_")
+    prefix = os.path.join(tmp.name, "snap")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    a.download_params_to_files(prefix, 3)
+    write_s = time.perf_counter() - t
+    written = model_state(a)
+    b = build(7)
+    differ_before = state_differs(written, model_state(b))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    b.load_params_from_files(f"{prefix}_iter3")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    differ = state_differs(written, model_state(b))
+    resumed = [(float(a.train_step(x)), float(b.train_step(x))) for x in batches[3:6]]
+    rel = max(abs(la - lb) / max(abs(la), 1e-30) for la, lb in resumed)
+    del b
+    rec = dict(phase="snapshot_dynamic_path" if dynamic else "snapshot_path", card=card_line(), tables=26, ev=E,
+               batch=B, losses=losses, bytes_written=dir_bytes(f"{prefix}_iter3"),
+               bytes_predicted=snapshot_bytes_predicted(a), files=sum(len(f) for _d, _s, f in os.walk(prefix + "_iter3")),
+               write_seconds=write_s, load_seconds=load_s, arrays_differing_before_load=len(differ_before),
+               arrays_differing_after_load=differ, resumed_losses=resumed, resumed_loss_max_rel_diff=rel,
+               max_memory_allocated=torch.cuda.max_memory_allocated(), seconds=time.perf_counter() - t0)
+    return rec, a, batches, tmp
+
+
+def check_snapshot_run(rec):
+    if rec["arrays_differing_after_load"] or not rec["arrays_differing_before_load"]:
+        raise AssertionError(f"{rec['phase']}: the reloaded state is not bitwise the written one: {rec}")
+    if not (rec["resumed_loss_max_rel_diff"] <= 1e-6 and all(math.isfinite(x) for p in rec["resumed_losses"] for x in p)):
+        raise AssertionError(f"{rec['phase']}: the resumed losses differ: {rec['resumed_losses']}")
+
+
+def snapshot_path(torch):
+    """The full-width static DLRM-FTRL saved after 3 steps and reloaded into
+    a model from another seed (`snapshot_run`): every table, the FTRL state
+    z and n, the dense parameters and their state and the step bitwise
+    equal; 3 more steps of both on the same batches agree within 1e-6
+    relative (the one-hot backward's global atomics promise no bitwise
+    sums). Reports the bytes written beside the plan's prediction, the
+    seconds to write and to load and the peak memory."""
+    rec, a, _batches, tmp = snapshot_run(torch, dynamic=False)
+    tmp.cleanup()
+    del a
+    emit(rec)
+    check_snapshot_run(rec)
+
+
+def snapshot_dynamic_path(torch):
+    """The full-width dynamic DLRM-FTRL (`snapshot_run`): key stores and
+    tables bitwise after the reload; then `embedding_dump` of table 3 with
+    its key_store.npy and `embedding_load` into a third model: its lookup
+    of table 3 gives the first model's rows for the same keys."""
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools.flagship import build_dlrm_ftrl
+
+    rec, a, batches, tmp = snapshot_run(torch, dynamic=True)
+    dump = os.path.join(tmp.name, "dump")
+    a.embedding_dump(dump, ["3"])
+    c = build_dlrm_ftrl(ResourceManager.create(), batchsize=B, dynamic=True, ev_size=E, synthetic_batches=1,
+                        max_eval_batches=1, seed=8)
+    c.embedding_load(dump)
+    g, _ti = a.ec._find_table("3")
+    top = next(lm.top_name for lm in g.lookups if g.tables[lm.table_index].name == "3")
+    with torch.no_grad():
+        fk = a._feature_keys(batches[0])
+        same = torch.equal(a.ec.forward(a.tables, fk)[top], c.ec.forward(c.tables, fk)[top])
+    rec.update(dumped_files=sorted(os.listdir(os.path.join(dump, "3"))), dump_load_rows_equal=same,
+               key_store_fill={k: int((t != 2**31 - 1).sum()) for k, t in a.tables.items() if k.endswith("#keys")})
+    tmp.cleanup()
+    del a, c
+    emit(rec)
+    check_snapshot_run(rec)
+    if not (same and rec["dumped_files"] == ["emb_vector.npy", "key_store.npy"] and rec["key_store_fill"]
+            and min(rec["key_store_fill"].values()) > 0):
+        raise AssertionError(f"snapshot_dynamic_path: embedding_dump / embedding_load: {rec}")
+
+
+def snapshot_bf16(torch):
+    """The tiny bench-configured model (bf16 tables and state, the split)
+    on the card: 3 steps, a snapshot whose bf16 arrays are 2-byte void
+    files as the JAX package writes them, with the merged view of each
+    split table; a model from another seed reloads it bitwise."""
+    import tempfile
+
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools.flagship import TINY_BENCH, bench_settings, build_dlrm_dcnv2
+    from hugectr_tpu_torch.tools.hybrid import model_state, state_differs
+
+    t0 = time.perf_counter()
+    kw = dict(bench_settings(), **TINY_BENCH)
+    a = build_dlrm_dcnv2(ResourceManager.create(), **kw)
+    losses = [a.train() for _ in range(3)]
+    with tempfile.TemporaryDirectory(prefix="hctr_snapshot_") as tmp:
+        a.download_params_to_files(os.path.join(tmp, "snap"), 3)
+        snap = os.path.join(tmp, "snap_iter3")
+        b = build_dlrm_dcnv2(ResourceManager.create(), **dict(kw, seed=1))
+        b.load_params_from_files(snap)
+        names = sorted(os.listdir(snap))
+        descr = {}
+        for rel in (os.path.join("emb_opt_states", f"{a.ec.plan.groups[0].name}.accum.npy"),
+                    os.path.join(f"sparse_{next(iter(a.ec.plan.table_splits))}", "emb_vector.npy")):
+            with open(os.path.join(snap, rel), "rb") as f:
+                descr[rel] = "'descr': '<V2'" in f.read(128).decode("latin-1")
+    wa = model_state(a)
+    differ = state_differs(wa, model_state(b))
+    merged = [u for u in a.ec.plan.table_splits if f"sparse_{u}" in names]
+    rec = dict(phase="snapshot_bf16", card=card_line(), losses=losses, bf16_void_files=descr,
+               split_tables=sorted(a.ec.plan.table_splits), merged_views_written=merged,
+               arrays=len(wa), arrays_differing_after_load=differ, seconds=time.perf_counter() - t0)
+    emit(rec)
+    if differ or not all(descr.values()) or len(merged) != len(a.ec.plan.table_splits) or not merged:
+        raise AssertionError(f"snapshot_bf16: {rec}")
+
+
+def freeze_path(torch):
+    """The full-width static DLRM-FTRL with a one-hot table (5), a table
+    with a sorted-route group of its own (20) and the dense network frozen:
+    2 steps in which `onehot_bwd` launches 12 times a step (not 13) and
+    table 20's group hands segscan no key (its K drops by the frozen slots,
+    to 0: no launch), the frozen rows and dense weights bitwise unchanged
+    and the other tables moved; each kernel against its plain version on
+    these inputs (`tools/hybrid.py::kernel_parity`, which leaves out the
+    frozen lookups and slots as the step does); then unfrozen, 1 step, and
+    the frozen rows and dense weights move."""
+    from hugectr_tpu_torch import ops
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.embedding import sparse_optimizer
+    from hugectr_tpu_torch.tools.flagship import build_dlrm_ftrl
+    from hugectr_tpu_torch.tools.hybrid import kernel_parity
+
+    t0 = time.perf_counter()
+    model = build_dlrm_ftrl(ResourceManager.create(), batchsize=B, ev_size=E, synthetic_batches=3, max_eval_batches=1)
+    model.start_data_reading()
+    batches = [next(model._train_iter) for _ in range(3)]
+    ec = model.ec
+    frozen = ["5", "20"]
+    model.freeze_dense()
+    for n in frozen:
+        model.freeze_embedding(n)
+    views = lambda names: {n: model.ec.export_rows(model.tables, n) for n in names}
+    dense = lambda: {f"{layer}.{k}": p.detach().clone() for layer, ps in model.network.param_tree().items()
+                     for k, p in ps.items()}
+    others = ["0", "10", "8"]  # a dense-sweep, a sorted and a one-hot table
+    before_t, before_d = views(frozen + others), dense()
+    # each rowop group's keys a step: (valid, valid less the frozen slots);
+    # the second is K of a group on the sorted route
+    expected = []
+    for x in batches[:2]:
+        fk = model._feature_keys(x)
+        row = {}
+        for g in ec.plan.groups:
+            if g.compute_kind == "rowop":
+                valid = ec._slot_placement(g.name, ec._group_keys(g, fk))[0]
+                live = torch.as_tensor([not ec._is_frozen(g.tables[ti].name) for ti in g.slot_table],
+                                       device=valid.device)
+                row[g.name] = (int(valid.sum()), int((valid & live).sum()))
+        expected.append(row)
+    ks = []
+    scan = sparse_optimizer.segmented_sum_sorted
+    sparse_optimizer.segmented_sum_sorted = lambda v, *a: ks.append(int(v.shape[0])) or scan(v, *a)
+    try:
+        ops.reset_counts()
+        losses = [model.train() for _ in range(2)]
+        launches = ops.launch_counts()
+    finally:
+        sparse_optimizer.segmented_sum_sorted = scan
+    sorted_groups = [g.name for g in ec.plan.groups if ec.group_routes.get(g.name) == "sorted"]
+    after_t, after_d = views(frozen + others), dense()
+    frozen_same = all(torch.equal(after_t[n], before_t[n]) for n in frozen)
+    dense_same = all(torch.equal(after_d[k], v) for k, v in before_d.items())
+    others_moved = all(not torch.equal(after_t[n], before_t[n]) for n in others)
+    want_ks = [row[g][1] for row in expected for g in sorted_groups]
+    parity = kernel_parity(model, {k: v for k, v in batches[0].items()})
+    model.unfreeze_dense()
+    model.unfreeze_embedding()
+    ops.reset_counts()
+    losses.append(model.train())
+    unfrozen_launches = ops.launch_counts()
+    moved_t, moved_d = views(frozen), dense()
+    rec = dict(phase="freeze_path", card=card_line(), frozen_tables=frozen, frozen_dense=True, losses=losses,
+               launches=launches, launches_per_step={k: n / 2 for k, n in launches.items()},
+               unfrozen_step_launches=unfrozen_launches, segscan_k=ks, segscan_k_expected=want_ks,
+               sorted_group_keys={g: [row[g] for row in expected] for g in sorted_groups},
+               frozen_rows_unchanged=frozen_same, dense_unchanged=dense_same, other_tables_moved=others_moved,
+               kernel_parity={k: {"scaled_err": v["scaled_err"], "max_abs_err": v["max_abs_err"],
+                                  "calls": len(v["shapes"])} for k, v in parity.items()},
+               frozen_rows_moved_after_unfreeze=all(not torch.equal(moved_t[n], before_t[n]) for n in frozen),
+               dense_moved_after_unfreeze=any(not torch.equal(moved_d[k], v) for k, v in before_d.items()),
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    n_onehot = len(next(g for g in ec.plan.groups if g.compute_kind == "onehot").lookups)
+    if not (launches["onehot_fwd"] == 2 and launches["onehot_bwd"] == 2 * (n_onehot - 1) and n_onehot == 13
+            and launches["segscan"] == 2 * (len(sorted_groups) - 1) and unfrozen_launches["onehot_bwd"] == 13):
+        raise AssertionError(f"freeze_path launches: {rec}")
+    if ks != want_ks or 0 not in want_ks:
+        raise AssertionError(f"freeze_path segscan K: {ks} against {want_ks}")
+    if not (frozen_same and dense_same and others_moved and rec["frozen_rows_moved_after_unfreeze"]
+            and rec["dense_moved_after_unfreeze"] and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"freeze_path: {rec}")
+    if not (parity["onehot_fwd"]["scaled_err"] <= TOL["float32"] and parity["onehot_bwd"]["scaled_err"] <= TOL["float32"]
+            and parity["segscan"]["scaled_err"] <= TOL["float32"] and len(parity["onehot_bwd"]["shapes"]) == 12):
+        raise AssertionError(f"freeze_path kernels against their plain versions: {rec['kernel_parity']}")
+    return launches
+
+
+def hybrid_snapshot(torch):
+    """The tiny DLRM-DCNv2 on 2 spawned ranks (gloo on one card, NCCL with a
+    card each, as `hybrid_parity`): 3 steps, a snapshot that rank 0 alone
+    writes, then a model from another seed on each rank reloads it
+    bitwise (`tools/hybrid.py::snapshot_round_trip`)."""
+    import tempfile
+
+    from hugectr_tpu_torch.tools import hybrid
+
+    t0 = time.perf_counter()
+    backend = hybrid.default_backend(2)
+    with tempfile.TemporaryDirectory(prefix="hctr_snapshot_") as tmp:
+        cfg = dict(builder=hybrid.TINY_PARITY["builder"], kwargs=hybrid.TINY_PARITY["kwargs"], before=3,
+                   prefix=os.path.join(tmp, "snap"), iteration=3, after=1)
+        ranks = hybrid.run(hybrid.snapshot_round_trip, 2, {"config": json.dumps(cfg)}, backend=backend)
+    rec = dict(phase="hybrid_snapshot", card=card_line(), world=2, backend=backend,
+               writes=[r["writes"] for r in ranks], arrays=[r["arrays"] for r in ranks],
+               arrays_differing_after_load=[json.loads(r["differ"]) for r in ranks],
+               steps=[r["step"] for r in ranks], bytes_written=ranks[0]["bytes"],
+               write_seconds=[r["write_seconds"] for r in ranks], load_seconds=[r["load_seconds"] for r in ranks],
+               losses_after=[r["losses"].tolist() for r in ranks], seconds=time.perf_counter() - t0)
+    emit(rec)
+    if not (rec["writes"][0] > 0 and rec["writes"][1] == 0 and rec["arrays_differing_after_load"] == [[], []]
+            and rec["steps"] == [3, 3]):
+        raise AssertionError(f"hybrid_snapshot: {rec}")
+
+
 def main() -> int:
     import torch
 
@@ -1622,6 +1919,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     ftrl_dynamic_path(torch)
     torch.cuda.empty_cache()
+    snapshot_path(torch)
+    torch.cuda.empty_cache()
+    snapshot_dynamic_path(torch)
+    torch.cuda.empty_cache()
+    snapshot_bf16(torch)
+    freeze_launches = freeze_path(torch)
+    torch.cuda.empty_cache()
     samples_launches = samples_path(torch)
     hybrid_parity(torch)
     hybrid_bench_parity(torch)
@@ -1629,6 +1933,7 @@ def main() -> int:
     hybrid_launches = hybrid_path(torch)
     hybrid_bench_launches = hybrid_bench_path(torch)
     hybrid_ftrl_dynamic_path(torch)
+    hybrid_snapshot(torch)
 
     sources = {
         "onehot_fwd": ("hugectr_tpu_torch/csrc/onehot_matmul.cu",
@@ -1667,7 +1972,7 @@ def main() -> int:
             name=name, route="cuda", source=src, replaces=replaces, launches=launches[name],
             **{k: r[k] for k in keys}, bench_path_launches=bench_launches[name],
             bench_case={k: rb[k] for k in keys}, ftrl_path_launches=ftrl_launches[name],
-            ftrl_case={k: rf[k] for k in keys},
+            ftrl_case={k: rf[k] for k in keys}, freeze_path_launches=freeze_launches[name],
             hybrid_path_launches=[x[name] for x in hybrid_launches],
             hybrid_bench_path_launches=[x[name] for x in hybrid_bench_launches],
             hybrid_bench_case={k: rh[k] for k in keys},

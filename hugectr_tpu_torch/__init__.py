@@ -37,7 +37,7 @@ from .embedding.config import (
     Embedding_t,
     SparseEmbedding,
 )
-from .model.model import Model
+from .model.model import Model, TrainingCallback
 from .optim.params import OptParams
 
 
@@ -85,5 +85,6 @@ __all__ = [
     "ResourceManager",
     "Solver",
     "SparseEmbedding",
+    "TrainingCallback",
     "init_distributed",
 ]

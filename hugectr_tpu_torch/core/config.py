@@ -39,6 +39,10 @@ class Solver:
     i64_input_key: bool = False
     # eval cycles a shorter eval set to fill max_eval_batches
     repeat_dataset: bool = True
+    # `fit` logs MLPerf-style ":::MLLOG" events (config.py:49)
+    perf_logging: bool = False
+    # `TrainingCallback`s that `fit` calls (config.py:70-71)
+    training_callbacks: List[Any] = dataclasses.field(default_factory=list)
     # "float32" or "bfloat16" embedding tables
     embedding_vec_dtype: str = "float32"
     # "float32" or "bfloat16" sparse optimizer state (JAX:

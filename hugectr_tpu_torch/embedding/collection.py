@@ -40,8 +40,16 @@ where no key lives. A key probes NUM_PROBES consecutive rows of its table
 from the murmur3 finalizer's hash; the forward reads a key that was not
 found as padding, and the backward first inserts the batch's unplaced keys
 (scatter-min arbitration per probe round), then updates their rows. Keys
-still unplaced after NUM_PROBES rounds are dropped for the step. Eviction,
-capacity growth and key-store export are not ported (ROADMAP Queue 1).
+still unplaced after NUM_PROBES rounds are dropped for the step. The key
+store is written and read beside a table's rows (`export_key_store`,
+`import_key_store`); eviction and capacity growth are not ported (ROADMAP
+Queue 1 item 5).
+
+Frozen tables (`frozen_tables`, collection.py:247-248; a split table's
+user name freezes its tiers, `_is_frozen`, :2095-2099) take no update: a
+one-hot group launches no backward for a frozen lookup (:1373-1375,
+:1420-1422), and a rowop group masks the frozen slots out of its row list
+before the sort (:1818-1825), so the sorted route scans fewer keys.
 
 Over W ranks (`rm.data_parallel_size` > 1, one process per device), each
 rank holds the batch's block of B/W samples (hybrid parallelism,
@@ -91,7 +99,9 @@ broadcasts each array's own type (tables, float32 or bfloat16 state).
 
 The collectives are `core/mesh.py`'s. `export_table` and `import_table`
 read and write a table (or any per-row array laid out as the storage, such
-as a state) in key order whatever W and f are (collectives on every rank).
+as a state, or a key store) in key order whatever W and f are (collectives
+on every rank); `export_rows` keeps the storage's dtype (bfloat16 tables
+in snapshots).
 Not ported over W > 1 ranks (ROADMAP Queue 1 item 1): hierarchical
 communication (1g), which raises, and the unique-key dense exchange (1f):
 the JAX package takes it only for all-Concat groups with caps measured and
@@ -240,6 +250,13 @@ class EmbeddingCollection:
             self.group_opt[g.name] = next(iter(opts.values())) if opts else opt
         self.route_counts: Dict[str, int] = collections.Counter()
         self.group_routes: Dict[str, str] = {}
+        # tables that take no update (`Model.freeze_embedding`)
+        self.frozen_tables: set = set()
+
+    def _is_frozen(self, table_name: str) -> bool:
+        """A frozen table, or a tier `name::tier` of a frozen split table
+        (collection.py:2095-2099)."""
+        return table_name in self.frozen_tables or table_name.split("::", 1)[0] in self.frozen_tables
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator) -> Tables:
@@ -572,6 +589,12 @@ class EmbeddingCollection:
                 )
                 route = "onehot"
             else:
+                # the unique-key dense exchange (ROADMAP Queue 1 item 1f) goes
+                # here; the JAX package's gate refuses it for a group with a
+                # frozen table (`_dense_exchange_ok`, collection.py:975), and
+                # so must the port's. The shared sort of a split table's tiers
+                # (Queue 2, "split tables") is refused with frozen tables too
+                # (`_tier_shared_ok`, :1741).
                 if self.world > 1:
                     # model-parallel: the update of this rank's shard for the
                     # whole global batch (every replica of a shard the same,
@@ -619,12 +642,15 @@ class EmbeddingCollection:
         """Dense float32 [R, E] gradient + [R] touch counts of the rank's
         rows (collection.py:1407). Each table's kernel adds into its rows of
         the group's float32 buffers, which are zeroed once per group; `d`
-        enters in the table's type."""
+        enters in the table's type. A frozen table's lookups launch nothing
+        (:1420-1422)."""
         g = self._meta[gname].plan
         valid, _owner, local_row = self._slot_placement(gname, keys)
         grad = torch.zeros((g.total_local_rows, g.ev_size), dtype=torch.float32, device=self.device)
         colsum = torch.zeros((g.total_local_rows,), dtype=torch.float32, device=self.device)
         for lm in g.lookups:
+            if self._is_frozen(g.tables[lm.table_index].name):
+                continue  # no gradient, no touch: the rows keep table and state
             off = int(g.local_offsets[lm.table_index])
             v = int(g.table_vocab[lm.table_index])
             k_rel = self._onehot_local_keys(g, lm, valid, local_row)
@@ -660,12 +686,16 @@ class EmbeddingCollection:
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(flat row ids with sentinel R, grad-source rows, compact grad
         source) (collection.py:1801); over f shards the keys of the other
-        shards take the sentinel too."""
+        shards take the sentinel too, and so do a frozen table's slots
+        (:1818-1825)."""
         meta = self._meta[gname]
         g = meta.plan
         valid, owner, local_row = self._slot_placement(gname, keys, key_store)
         if owner is not None:
             valid = valid & (owner == meta.shard)
+        if self.frozen_tables:
+            unfrozen = [not self._is_frozen(g.tables[ti].name) for ti in g.slot_table]
+            valid = valid & torch.as_tensor(unfrozen, device=valid.device).unsqueeze(0)
         dsrc = self._grad_source(g, d_group, keys != INVALID_KEY)
         b = keys.shape[0]
         idx = torch.where(valid, local_row, g.total_local_rows).reshape(-1)
@@ -691,31 +721,38 @@ class EmbeddingCollection:
         keys = np.arange(int(g.table_vocab[ti]), dtype=np.int64)
         return (keys + int(g.table_rotation[ti]) % f) % f, keys // f
 
-    def export_table(self, tables: Tables, table_name: str) -> np.ndarray:
-        """One table as a [vocab, ...] host array in key order, a split table
-        put back together from its tiers (collection.py:2101); float32 for
-        bfloat16 tables (numpy has no bfloat16). `tables` may be any
-        {group: [rows, ...]} arrays laid out as the storage, such as one
-        kind of optimizer state. A sharded table is all-gathered: every
-        rank calls this together; ranks 0..f-1 hold its f shards."""
+    def export_rows(self, tables: Tables, table_name: str) -> torch.Tensor:
+        """One table as a [vocab, ...] host tensor (a copy) in key order, in
+        the storage's dtype, a split table put back together from its tiers
+        (collection.py:2101). `tables` may be any {group: [rows, ...]}
+        arrays laid out as the storage: a kind of optimizer state, or the
+        key stores under their groups' names. A sharded table is
+        all-gathered: every rank calls this together; ranks 0..f-1 hold its
+        f shards."""
         if table_name in self.plan.table_splits:
-            return np.concatenate(
-                [self.export_table(tables, sub) for sub, _off in self.plan.table_splits[table_name]]
-            )
+            return torch.cat([self.export_rows(tables, sub) for sub, _off in self.plan.table_splits[table_name]])
         g, ti = self._find_table(table_name)
         off, vocab = int(g.local_offsets[ti]), int(g.table_vocab[ti])
+        src = tables[g.name].detach()
         if self._meta[g.name].num_shards > 1:
             rps = int(g.rows_per_shard[ti])
-            shards = all_gather(tables[g.name][off : off + rps].detach().float()).cpu().numpy()
+            shards = all_gather(src[off : off + rps].contiguous()).cpu()
             shard, row = self._sharded_rows(g, ti)
-            return shards[shard * rps + row]
-        return tables[g.name][off : off + vocab].detach().float().cpu().numpy()
+            return shards[torch.from_numpy(shard * rps + row)]
+        return src[off : off + vocab].to("cpu", copy=True)
 
-    def import_table(self, tables: Tables, table_name: str, values: np.ndarray) -> Tables:
-        """Write one table from a [vocab, ...] array, a split table's rows
-        into its tiers (collection.py:2124); `tables` as for `export_table`.
-        A sharded table's rank writes its shard's keys: every replica of a
-        shard the same rows (:2142-2148)."""
+    def export_table(self, tables: Tables, table_name: str) -> np.ndarray:
+        """`export_rows` as a numpy array; float32 for bfloat16 tables
+        (numpy has no bfloat16)."""
+        t = self.export_rows(tables, table_name)
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def import_table(self, tables: Tables, table_name: str, values) -> Tables:
+        """Write one table from a [vocab, ...] array or host tensor (a float
+        array through float32, then rounded to the storage's type), a split
+        table's rows into its tiers (collection.py:2124); `tables` as for
+        `export_rows`. A sharded table's rank writes its shard's keys: every
+        replica of a shard the same rows (:2142-2148)."""
         if table_name in self.plan.table_splits:
             subs = self.plan.table_splits[table_name]
             for i, (sub, off) in enumerate(subs):
@@ -725,34 +762,67 @@ class EmbeddingCollection:
         g, ti = self._find_table(table_name)
         off, vocab = int(g.local_offsets[ti]), int(g.table_vocab[ti])
         dst = tables[g.name]
-        if values.shape != (vocab, *dst.shape[1:]):
+        if tuple(values.shape) != (vocab, *dst.shape[1:]):
             raise ValueError(
-                f"table {table_name}: expected {(vocab, *dst.shape[1:])}, got {values.shape}"
+                f"table {table_name}: expected {(vocab, *dst.shape[1:])}, got {tuple(values.shape)}"
             )
-        values = np.asarray(values, np.float32)
+        if not isinstance(values, torch.Tensor):
+            values = np.asarray(values)
+            values = torch.from_numpy(values.astype(np.float32) if values.dtype.kind == "f" else values)
+        values = values.to(dst.dtype)
         with torch.no_grad():
             meta = self._meta[g.name]
             if meta.num_shards > 1:  # this rank's shard's keys only
                 shard, row = self._sharded_rows(g, ti)
                 mine = shard == meta.shard
                 rows = torch.as_tensor(off + row[mine], device=self.device)
-                dst[rows] = torch.as_tensor(values[mine]).to(self.device, dst.dtype)
+                dst[rows] = values[torch.from_numpy(mine)].to(self.device)
             else:
-                dst[off : off + vocab].copy_(torch.as_tensor(values))
+                dst[off : off + vocab].copy_(values)
+        return tables
+
+    def _key_store(self, tables: Tables, table_name: str):
+        """(group, the group's key store) of a dynamic table; None for a
+        static or split table, whose key -> row map is positional."""
+        if table_name in self.plan.table_splits:
+            return None
+        g, ti = self._find_table(table_name)
+        ks = tables.get(f"{g.name}#keys")
+        return None if ks is None or not g.tables[ti].is_dynamic else (g, ks)
+
+    def export_key_store(self, tables: Tables, table_name: str) -> Optional[np.ndarray]:
+        """A dynamic table's int32 key store [vocab], row-aligned with
+        `export_table`'s rows (collection.py:2164); None for a static table.
+        A sharded store is all-gathered (every rank calls this together)."""
+        found = self._key_store(tables, table_name)
+        if found is None:
+            return None
+        g, ks = found
+        return self.export_rows({g.name: ks}, table_name).numpy()
+
+    def import_key_store(self, tables: Tables, table_name: str, keys) -> Tables:
+        """Write a dynamic table's key store from an `export_key_store`
+        array (collection.py:2184); every replica of a shard the same rows.
+        A static table is left as it is. The keys are written as they are:
+        every insert folds the key 2^31 - 1 (`fold_reserved_key`), so in an
+        exported store that value only marks an empty row. The JAX package
+        folds it here (:2209-2211), which turns every empty row into key
+        2^31 - 2 and leaves no row for a new key (ROADMAP Queue 3)."""
+        found = self._key_store(tables, table_name)
+        if found is None:
+            return tables
+        g, ks = found
+        keys = np.asarray(keys)
+        vocab = int(g.table_vocab[self._find_table(table_name)[1]])
+        if keys.shape != (vocab,):
+            raise ValueError(f"table {table_name}: expected key store shape {(vocab,)}, got {keys.shape}")
+        self.import_table({g.name: ks}, table_name, torch.from_numpy(keys.astype(np.int32)))
         return tables
 
     # ------------------------------------- dynamic-table upkeep, not ported
     @staticmethod
     def _dynamic_upkeep(what: str):
         raise NotImplementedError(f"{what} of dynamic tables is not ported yet (ROADMAP Queue 1 item 5)")
-
-    def export_key_store(self, tables: Tables, table_name: str):
-        """collection.py:2164; not ported."""
-        self._dynamic_upkeep("key-store export")
-
-    def import_key_store(self, tables: Tables, table_name: str, keys):
-        """collection.py:2184; not ported."""
-        self._dynamic_upkeep("key-store import")
 
     def evict(self, tables: Tables, opt_state, table_name: str, keys):
         """collection.py:2220; not ported."""

@@ -106,6 +106,15 @@ class Network(nn.Module):
                 tensors[t] = o
         return tensors
 
+    def summary_rows(self) -> List[Tuple[str, str, str, str]]:
+        """Per layer: type, bottoms, tops and shapes (network.py:216)."""
+        rows = []
+        for cfg in self.configs:
+            in_s = ",".join(str(self.tensor_shapes.get(b)) for b in cfg.bottom_names)
+            out_s = ",".join(str(self.tensor_shapes.get(t)) for t in cfg.top_names)
+            rows.append((cfg.layer_type, ";".join(cfg.bottom_names), ";".join(cfg.top_names), f"{in_s} -> {out_s}"))
+        return rows
+
     def predictions(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Per loss layer, under its label's name, the eval predictions in
         float32 (network.py:204): the sigmoid of its logits, or for a

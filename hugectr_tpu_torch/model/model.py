@@ -58,14 +58,27 @@ in one XLA dispatch) is a device of XLA's and is not ported.
 read the JAX package's graph layout, so a graph written by either package
 loads in the other.
 
-Snapshots, i64 key folding, callbacks and the file readers wait for later
-slices.
+Snapshots and weight files (model.py:1513-1894) are written in the JAX
+package's on-disk layout through `io/filesystem.py`, so that a snapshot
+written by either package loads in the other; bfloat16 arrays are written
+as the JAX package writes them (2-byte voids) and read back bitwise. Over W
+ranks every rank computes (the sharded arrays are all-gathered) and rank 0
+alone writes; on loading, each rank takes its block. The packed state
+layouts and the i64 key maps have no counterpart here, and a snapshot that
+holds them raises `NotImplementedError`.
+
+The low-level training API (model.py:1897-2262: the learning rate, the
+losses, freezing, the summary, `check_out_tensor`) and `fit`'s
+`TrainingCallback`s and `:::MLLOG` events (model.py:1455-1505) are ported.
+The file readers (`get_data_reader_*`, `set_source`) and i64 key folding
+wait for ROADMAP Queue 1 item 4.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
 import json
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -82,17 +95,19 @@ from ..core.config import (
     Solver,
 )
 from ..core.logger import get_logger
-from ..core.mesh import DeviceLike, ResourceManager, all_reduce
+from ..core.mesh import DeviceLike, ResourceManager, all_gather, all_reduce
 from ..core.types import Combiner_t, DataReaderType_t, Metric_t
 from ..data.reader import BatchSpec, SparseFeatureSpec, SyntheticReader
 from ..embedding.collection import EmbeddingCollection
 from ..embedding.config import EmbeddingCollectionConfig, EmbeddingTableConfig, SparseEmbedding
+from ..io import filesystem as iofs
 from ..layers.network import Network
 from ..metrics.metrics import MetricAccumulator
 from ..optim.dense import DenseOptimizer
 from ..optim.lr_schedule import LearningRateScheduler
 from ..optim.params import OptParams
 from ..parallel.plan import LookupConfig, ShardingPlan, compile_plan
+from ..utils.diagnose import check_embedding_overflow
 
 
 @dataclasses.dataclass
@@ -101,6 +116,23 @@ class _KeySource:
     col_begin: int
     col_end: int
     key_offset: int = 0  # a SparseEmbedding slot's first row in its table
+
+
+class TrainingCallback:
+    """Hooks that `fit` calls (model.py:67-80); `on_eval_end` returning
+    True stops the training early."""
+
+    def on_training_start(self, model: "Model"):
+        pass
+
+    def on_eval_start(self, model: "Model", iteration: int):
+        pass
+
+    def on_eval_end(self, model: "Model", iteration: int, metrics: Dict) -> bool:
+        return False
+
+    def on_training_end(self, model: "Model", iteration: int):
+        pass
 
 
 class Model:
@@ -124,7 +156,14 @@ class Model:
         self.dense_layers: List[DenseLayer] = []
         self.ebc_configs: List[EmbeddingCollectionConfig] = []
         self.sparse_embeddings: List[SparseEmbedding] = []
-        self._step = 0
+        self.callbacks: List[TrainingCallback] = list(solver.training_callbacks or [])
+        self._step = 0  # the optimizers' step (the JAX package's state["step"])
+        self._iter = 0  # train() calls, or a snapshot's iteration
+        self._lr_override = -1.0  # set_learning_rate: >= 0 replaces the schedule
+        self._dense_frozen = False
+        self._emb_frozen = False
+        self._staged_train_batch: Optional[Dict[str, torch.Tensor]] = None
+        self._last_loss: Optional[torch.Tensor] = None
         self.lr_sch = LearningRateScheduler(
             base_lr=solver.lr,
             warmup_steps=solver.warmup_steps,
@@ -378,7 +417,9 @@ class Model:
         the device (model.py:787-883)."""
         ec = self.ec
         step = self._step + 1
-        lr = torch.tensor(float(self.lr_sch(step)), dtype=torch.float32, device=self.device)
+        # set_learning_rate(x >= 0) replaces the schedule: 0 freezes updates
+        ov = self._lr_override
+        lr = torch.tensor(ov if ov >= 0 else float(self.lr_sch(step)), dtype=torch.float32, device=self.device)
         feature_keys = self._feature_keys(batch) if ec is not None else {}
         emb_in: Dict[str, torch.Tensor] = {}
         if ec is not None:
@@ -399,9 +440,10 @@ class Model:
             loss = self._all_reduce_grads(params, loss.detach())
         else:
             loss.backward()
-        self.dense_opt.update(params, self.dopt, lr, step)
+        if not self._dense_frozen:
+            self.dense_opt.update(params, self.dopt, lr, step)
         self.network.zero_grad(set_to_none=True)
-        if ec is not None:
+        if ec is not None and not self._emb_frozen:
             egrads = {k: v.grad for k, v in emb_in.items()}
             with torch.no_grad():
                 ec.backward_and_update(self.tables, self.eopt, feature_keys, egrads, lr, step)
@@ -423,9 +465,14 @@ class Model:
         return flat[-1]
 
     def train_async(self) -> torch.Tensor:
-        """One training iteration; returns the device loss (model.py:1257)."""
+        """One training iteration; returns the device loss (model.py:1257).
+        A batch staged by `read_a_batch` is taken first."""
         self.start_data_reading()
-        return self.train_step(next(self._train_iter))
+        batch, self._staged_train_batch = self._staged_train_batch, None
+        loss = self.train_step(batch if batch is not None else next(self._train_iter))
+        self._iter += 1
+        self._last_loss = loss
+        return loss
 
     def train(self) -> float:
         """One training iteration; returns the loss (model.py:1253)."""
@@ -584,21 +631,29 @@ class Model:
         return model
 
     def fit(self, num_epochs: int = 0, max_iter: int = 1000, display: int = 200,
-            eval_interval: int = 1000, snapshot: int = 0, snapshot_prefix: str = "") -> None:
+            eval_interval: int = 1000, snapshot: int = 0, snapshot_prefix: str = "./snapshot") -> None:
         """The training loop (model.py:1441): `max_iter` iterations (or
         `num_epochs` passes over the train reader), the loss checked and
         logged every `display` iterations (a non-finite loss raises), an
         eval every `eval_interval` iterations, stopping early once a metric
-        passes its threshold in `metrics_spec`. Snapshots are not ported.
-        Over W ranks every rank runs the loop and rank 0 logs."""
-        if snapshot:
-            raise NotImplementedError("snapshots are not ported yet (ROADMAP Queue 1 item 3)")
+        passes its threshold in `metrics_spec` or a callback's
+        `on_eval_end` returns True, a snapshot `{snapshot_prefix}_iter{k}`
+        after every `snapshot`-th iteration. The callbacks and the
+        `:::MLLOG` events (`Solver.perf_logging`) come in the JAX package's
+        order (model.py:1455-1505). Over W ranks every rank runs the loop
+        and rank 0 logs and writes."""
         say = get_logger().info if self.rm.is_master_process() else (lambda msg: None)
+        for cb in self.callbacks:
+            cb.on_training_start(self)
         self.start_data_reading()
         if num_epochs > 0:
             max_iter = num_epochs * max(self.train_reader.num_batches, 1)
         t0 = window_t0 = time.time()
         window_iter = 0
+        if self.solver.perf_logging:
+            self._perf_log("init_start")
+            self._perf_log("run_start")
+        stop = False
         for it in range(1, max_iter + 1):
             loss_dev = self.train_async()
             if display and it % display == 0:
@@ -608,14 +663,455 @@ class Model:
                 dt = time.time() - window_t0
                 ips = (it - window_iter) * self.solver.batchsize / max(dt, 1e-9)
                 say(f"Iter: {it} Time: {dt:.3f}s Loss: {loss:.6f} "
-                         f"lr: {self.lr_sch(it):.6f} ({ips:,.0f} ex/s)")
+                    f"lr: {self.lr_sch.get_next(it):.6f} ({ips:,.0f} ex/s)")
                 window_t0, window_iter = time.time(), it
             if eval_interval and it % eval_interval == 0:
+                for cb in self.callbacks:
+                    cb.on_eval_start(self, it)
+                if self.solver.perf_logging:
+                    self._perf_log("eval_start", iteration=it)
                 vals = self.eval()
+                if self.solver.perf_logging:
+                    self._perf_log("eval_accuracy", iteration=it, **vals)
                 say(f"Evaluation at iter {it}: {vals}")
+                for cb in self.callbacks:
+                    stop = cb.on_eval_end(self, it, vals) or stop
                 if self.metrics.check_earlystop(vals):
                     say(f"Hit target metric at iter {it}: {vals}; early stop")
-                    break
+                    stop = True
+            if snapshot and it % snapshot == 0:
+                self.download_params_to_files(snapshot_prefix, it)
+            if stop:
+                break
+        for cb in self.callbacks:
+            cb.on_training_end(self, self._iter)
+        if self.solver.perf_logging:
+            self._perf_log("run_stop", iteration=self._iter)
         total = time.time() - t0
-        say(f"fit done: {self._step} iters in {total:.1f}s "
-                 f"({self._step * self.solver.batchsize / max(total, 1e-9):,.0f} ex/s)")
+        say(f"fit done: {self._iter} iters in {total:.1f}s "
+            f"({self._iter * self.solver.batchsize / max(total, 1e-9):,.0f} ex/s)")
+
+    # ----------------------------------------------------------- persistence
+    def _row_sharded(self, name: str) -> bool:
+        """Whether storage array `name` (a group, or its key store
+        `"{group}#keys"`) is row-sharded over the ranks: the rank holds
+        block r of the JAX package's global array."""
+        if self.ec is None or self.world == 1:
+            return False
+        base = name.split("#keys", 1)[0]
+        return any(g.name == base and g.is_model_parallel for g in self.ec.plan.groups)
+
+    def _sharded_host(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """A storage array (table, state or key store of group `name`) as
+        the JAX package's global array on the host: a row-sharded group's
+        blocks all-gathered in rank order (every rank calls this
+        together)."""
+        t = t.detach()
+        return (all_gather(t.contiguous()) if self._row_sharded(name) else t).cpu()
+
+    def _rank_block(self, arr, name: str):
+        """This rank's rows of the JAX package's global array of group
+        `name` (block r of a row-sharded group, else all of it)."""
+        if not self._row_sharded(name):
+            return arr
+        n = self.tables[name].shape[0]
+        return arr[self.rm.rank * n : (self.rm.rank + 1) * n]
+
+    def _dense_flat(self) -> Dict[str, torch.Tensor]:
+        """`dense/<layer>/<key>` and `dopt/<slot>/<layer>/<key>`, as the
+        JAX package's `_flatten` names them (model.py:1526-1535), each
+        level in sorted order as the JAX state's trees come back; the port's
+        layers keep no `net_state`."""
+        def flat(tree, prefix):
+            for k in sorted(tree):
+                if isinstance(tree[k], dict):
+                    yield from flat(tree[k], f"{prefix}{k}/")
+                else:
+                    yield f"{prefix}{k}", tree[k]
+
+        return dict(itertools.chain(flat(self.network.param_tree(), "dense/"), flat(self.dopt, "dopt/")))
+
+    def _user_table_names(self) -> List[str]:
+        """Every table of every group (a split table's tiers), then each
+        split table's user-level name (model.py:1553-1568)."""
+        if self.ec is None:
+            return []
+        return [t.name for g in self.ec.plan.groups for t in g.tables] + list(self.ec.plan.table_splits)
+
+    def download_params_to_files(self, prefix: str, iteration: int) -> None:
+        """Write `{prefix}_iter{iteration}/` (model.py:1513-1633):
+        `dense_model.npz`, `emb_opt_states/<group>.<slot>.npy` (the raw
+        storage arrays, over W ranks the global array),
+        `sparse_<table>/emb_vector.npy` for every table of every group and
+        for each split table's merged view, `keystore_<group>.npy` for each
+        dynamic group and `meta.json` (iteration, step and the layout
+        stamp). `prefix` may be a remote URL (`io/filesystem.py`)."""
+        out_dir = f"{prefix}_iter{iteration}"
+        write = self.rm.is_master_process()
+        if write:
+            iofs.makedirs(out_dir)
+            iofs.save_npz(os.path.join(out_dir, "dense_model.npz"), **self._dense_flat())
+        if self.ec is not None:
+            edir = os.path.join(out_dir, "emb_opt_states")
+            if write:
+                iofs.makedirs(edir)
+            for gname, st in self.eopt.items():
+                for slot, arr in st.items():
+                    host = self._sharded_host(arr, gname)
+                    if write:
+                        iofs.save_npy(os.path.join(edir, f"{gname}.{slot}.npy"), host)
+            for name in self._user_table_names():
+                arr = self.ec.export_rows(self.tables, name)
+                if write:
+                    tdir = os.path.join(out_dir, f"sparse_{name}")
+                    iofs.makedirs(tdir)
+                    iofs.save_npy(os.path.join(tdir, "emb_vector.npy"), arr)
+            for name, arr in self.tables.items():
+                if name.endswith("#keys"):
+                    host = self._sharded_host(arr, name)
+                    if write:
+                        iofs.save_npy(os.path.join(out_dir, f"keystore_{name[: -len('#keys')]}.npy"), host)
+        if write:
+            with iofs.open_file(os.path.join(out_dir, "meta.json"), "w") as f:
+                json.dump({"iteration": iteration, "step": int(self._step),
+                           "shard_rotation": int(self._rotated_layout())}, f)
+            get_logger().info(f"snapshot written to {out_dir}")
+        if self.world > 1:  # every rank returns once the files are written
+            all_reduce(torch.zeros(1, device=self.device))
+
+    def save_params_to_files(self, prefix: str, iteration: int = 0) -> None:
+        """`download_params_to_files` under the reference's name (model.py:1721)."""
+        self.download_params_to_files(prefix, iteration)
+
+    def _rotated_layout(self) -> bool:
+        """Whether the shard rotation moves rows of this model's storage: a
+        model-parallel group over more than one shard with a table whose
+        rotation is not 0 modulo the shards (model.py:1623-1633)."""
+        if self.ec is None:
+            return False
+        return any(g.is_model_parallel and g.num_shards > 1 and any(int(r) % g.num_shards for r in g.table_rotation)
+                   for g in self.ec.plan.groups)
+
+    @staticmethod
+    def _refuse_unported_files(out_dir: str) -> None:
+        """A snapshot file the port cannot represent raises, since skipping
+        it would lose state: the packed table-and-state arrays and the i64
+        key maps."""
+        if not iofs.isdir(out_dir):
+            return
+        names = iofs.listdir(out_dir)
+        packed = [n for n in names if n.startswith("packed_") and n.endswith(".npy")]
+        if packed:
+            raise NotImplementedError(
+                f"{out_dir}: {packed} hold the packed table-and-state layout (the JAX package's "
+                "HCTR_TPU_PACKED_STATE), which the port leaves out on purpose (ROADMAP Queue 1, "
+                "'Left out on purpose'); skipping it would lose the optimizer state")
+        if "i64_fold_maps.npz" in names:
+            raise NotImplementedError(
+                f"{out_dir}: i64_fold_maps.npz holds exact i64 key maps; i64 input keys are not ported yet "
+                "(ROADMAP Queue 1 item 4)")
+
+    @torch.no_grad()
+    def _put(self, dst: torch.Tensor, src, what: str) -> None:
+        """Copy a loaded array (numpy, or a bfloat16 tensor) into `dst`."""
+        t = src if isinstance(src, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(src))
+        if tuple(t.shape) != tuple(dst.shape):
+            raise ValueError(f"{what}: shape {tuple(t.shape)} != {tuple(dst.shape)}")
+        dst.copy_(t.to(dst.device))
+
+    def load_params_from_files(self, out_dir: str) -> None:
+        """Restore a snapshot of either package (model.py:1635-1718): the
+        layout stamp is checked first; then the dense parameters and their
+        state, every table in key order, the key stores, the sparse
+        optimizer state, the step and the iteration. Each rank takes its
+        own rows."""
+        meta_path = os.path.join(out_dir, "meta.json")
+        if iofs.exists(meta_path):
+            with iofs.open_file(meta_path, "r") as f:
+                saved = int(json.load(f).get("shard_rotation", 0))
+            cur = int(self._rotated_layout())
+            if saved != cur:
+                raise ValueError(
+                    f"snapshot {out_dir} was written with shard_rotation={saved} but this model compiled with "
+                    f"{cur}: raw storage layouts differ (optimizer states and key stores would silently "
+                    f"misalign). Build the model with Solver(shard_rotation={bool(saved)}), or re-export via "
+                    "embedding_dump (positional per-table format, layout-independent).")
+        self._refuse_unported_files(out_dir)
+        self._load_dense(out_dir, params=True, dopt=True)
+        if self.ec is not None:
+            for g in self.ec.plan.groups:
+                for t in g.tables:
+                    path = os.path.join(out_dir, f"sparse_{t.name}", "emb_vector.npy")
+                    if iofs.exists(path):
+                        self.ec.import_table(self.tables, t.name, iofs.load_npy(path))
+            self._load_key_stores(out_dir)
+            edir = os.path.join(out_dir, "emb_opt_states")
+            if iofs.isdir(edir):
+                self._load_eopt({f"{g}.{slot}": os.path.join(edir, f"{g}.{slot}.npy")
+                                 for g, st in self.eopt.items() for slot in st})
+        with iofs.open_file(meta_path, "r") as f:
+            meta = json.load(f)
+        self._step = int(meta.get("step", 0))
+        self._iter = int(meta.get("iteration", 0))
+
+    def _load_key_stores(self, out_dir: str) -> None:
+        """Each dynamic group's `keystore_<group>.npy`, this rank's block."""
+        for name in [n for n in self.tables if n.endswith("#keys")]:
+            p = os.path.join(out_dir, f"keystore_{name[: -len('#keys')]}.npy")
+            if iofs.exists(p):
+                self._put(self.tables[name], self._rank_block(iofs.load_npy(p), name), f"key store {name}")
+
+    def _load_eopt(self, paths: Dict[str, str]) -> None:
+        """{"<group>.<slot>": path} of raw state arrays, the files that
+        exist; this rank's block of each."""
+        for key, p in paths.items():
+            gname, slot = key.rsplit(".", 1)
+            if iofs.exists(p):
+                self._put(self.eopt[gname][slot], self._rank_block(iofs.load_npy(p), gname),
+                          f"sparse state {key}")
+
+    def _load_dense(self, path: str, params: bool, dopt: bool) -> None:
+        """The dense parameters and/or their state from a snapshot dir or a
+        `dense_model.npz` (model.py:1726-1729)."""
+        data = iofs.load_npz(path if path.endswith(".npz") else os.path.join(path, "dense_model.npz"))
+        for key, t in self._dense_flat().items():
+            if (params and key.startswith("dense/")) or (dopt and key.startswith("dopt/")):
+                self._put(t, data[key], f"dense member {key}")
+
+    def load_dense_weights(self, path: str) -> None:
+        """Only the dense parameters, from a snapshot dir or its
+        `dense_model.npz` (model.py:1731)."""
+        self._load_dense(path, params=True, dopt=False)
+
+    def load_dense_optimizer_states(self, path: str) -> None:
+        """Only the dense optimizer state (model.py:1752)."""
+        self._load_dense(path, params=False, dopt=True)
+
+    def _sparse_sources(self, paths) -> Dict[str, str]:
+        """{table: emb_vector.npy path} of a snapshot dir (a split table's
+        merged view in place of its tiers), a list of `sparse_<table>` dirs,
+        or a {table: path} dict (model.py:1767)."""
+        if self.ec is None:
+            return {}
+        if isinstance(paths, str):
+            out = {n: p for n in self._user_table_names()
+                   if iofs.exists(p := os.path.join(paths, f"sparse_{n}", "emb_vector.npy"))}
+            for user, subs in self.ec.plan.table_splits.items():
+                if user in out:
+                    for sub, _off in subs:
+                        out.pop(sub, None)
+            return out
+        if isinstance(paths, dict):
+            return dict(paths)
+        out = {}
+        for p in paths:
+            base = os.path.basename(p.rstrip("/"))
+            name = base[len("sparse_"):] if base.startswith("sparse_") else base
+            f = os.path.join(p, "emb_vector.npy")
+            out[name] = f if iofs.exists(f) else p
+        return out
+
+    def load_sparse_weights(self, sparse_embedding_files) -> None:
+        """Tables from a snapshot dir, a list of `sparse_<table>` dirs or a
+        {table: path} dict, each with the `key_store.npy` beside it if there
+        is one; a snapshot dir's `keystore_<group>.npy` too (model.py:1796)."""
+        if isinstance(sparse_embedding_files, str):
+            self._refuse_unported_files(sparse_embedding_files)
+        for name, path in self._sparse_sources(sparse_embedding_files).items():
+            self.ec.import_table(self.tables, name, iofs.load_npy(path))
+            kpath = os.path.join(os.path.dirname(path), "key_store.npy")
+            if iofs.exists(kpath):
+                self.ec.import_key_store(self.tables, name, iofs.load_npy(kpath))
+        if isinstance(sparse_embedding_files, str) and self.ec is not None:
+            self._load_key_stores(sparse_embedding_files)
+
+    def load_sparse_optimizer_states(self, path) -> None:
+        """Sparse optimizer state from a snapshot dir, its `emb_opt_states/`
+        or a {"<group>.<slot>": path} dict (model.py:1828)."""
+        if self.ec is None:
+            return
+        if isinstance(path, dict):
+            self._load_eopt(path)
+            return
+        in_edir = os.path.basename(path.rstrip("/")) == "emb_opt_states"
+        self._refuse_unported_files(os.path.dirname(path.rstrip("/")) if in_edir else path)
+        edir = path if in_edir else os.path.join(path, "emb_opt_states")
+        self._load_eopt({f"{g}.{slot}": os.path.join(edir, f"{g}.{slot}.npy")
+                         for g, st in self.eopt.items() for slot in st})
+
+    def embedding_dump(self, dump_path: str, table_names=None) -> None:
+        """`{dump_path}/{table}/emb_vector.npy`, and `key_store.npy` for a
+        dynamic table, of the given tables (default: every unsplit table and
+        each split table's user-level name) (model.py:1853)."""
+        if self.ec is None:
+            raise RuntimeError("no embedding collection in this model")
+        if table_names is None:
+            table_names = [t.name for g in self.ec.plan.groups for t in g.tables if "::" not in t.name] + list(
+                self.ec.plan.table_splits)
+        write = self.rm.is_master_process()
+        for name in table_names:
+            arr = self.ec.export_rows(self.tables, name)
+            ks = self.ec.export_key_store(self.tables, name)
+            if write:
+                tdir = os.path.join(dump_path, name)
+                iofs.makedirs(tdir)
+                iofs.save_npy(os.path.join(tdir, "emb_vector.npy"), arr)
+                if ks is not None:
+                    iofs.save_npy(os.path.join(tdir, "key_store.npy"), ks)
+
+    def embedding_load(self, load_path: str, table_names=None) -> None:
+        """Tables written by `embedding_dump` (default: every dir under
+        `load_path` with an `emb_vector.npy`) (model.py:1878)."""
+        if self.ec is None:
+            raise RuntimeError("no embedding collection in this model")
+        if table_names is None:
+            table_names = [d for d in iofs.listdir(load_path)
+                           if iofs.exists(os.path.join(load_path, d, "emb_vector.npy"))]
+        for name in table_names:
+            self.ec.import_table(self.tables, name, iofs.load_npy(os.path.join(load_path, name, "emb_vector.npy")))
+            kpath = os.path.join(load_path, name, "key_store.npy")
+            if iofs.exists(kpath):
+                self.ec.import_key_store(self.tables, name, iofs.load_npy(kpath))
+
+    # ---------------------------------------------- low-level training API
+    def set_learning_rate(self, lr: float) -> None:
+        """The learning rate of the next steps (model.py:1896): lr >= 0
+        replaces the schedule (0 freezes the updates), lr < 0 restores it."""
+        self._lr_override = float(lr)
+
+    def get_learning_rate_scheduler(self) -> LearningRateScheduler:
+        """The host-side scheduler (model.py:1903; `get_next(step)`)."""
+        return self.lr_sch
+
+    def reset_learning_rate_scheduler(self, base_lr, warmup_steps=1, decay_start=0, decay_steps=1,
+                                      decay_power=2.0, end_lr=0.0) -> None:
+        """A new schedule for the next steps (model.py:1908)."""
+        self.lr_sch = LearningRateScheduler(base_lr, warmup_steps, decay_start, decay_steps, decay_power, end_lr)
+
+    def get_current_loss(self) -> float:
+        """The loss of the last train() call, 0.0 before any (model.py:1923)."""
+        return float(self._last_loss) if self._last_loss is not None else 0.0
+
+    def get_data_reader_train(self):
+        """model.py:1934; needs the file readers."""
+        raise NotImplementedError("reader handles need the file readers (ROADMAP Queue 1 item 4)")
+
+    def get_data_reader_eval(self):
+        """model.py:1940; needs the file readers."""
+        raise NotImplementedError("reader handles need the file readers (ROADMAP Queue 1 item 4)")
+
+    def set_source(self, source=None, eval_source: str = "") -> None:
+        """model.py:1943; needs the file readers."""
+        raise NotImplementedError("set_source needs the file readers (ROADMAP Queue 1 item 4)")
+
+    def update_label_weights(self, label_names, label_weights) -> None:
+        """New weights of the tasks' losses for the next steps
+        (model.py:1971)."""
+        if len(label_names) != len(label_weights):
+            raise ValueError("label_names and label_weights length mismatch")
+        w = dict(zip(label_names, (float(x) for x in label_weights)))
+        missing = [n for n in w if n not in {s.label_name for s in self.network.loss_specs}]
+        if missing:
+            raise ValueError(f"unknown label names: {missing}")
+        for spec in self.network.loss_specs:
+            spec.weight = w.get(spec.label_name, spec.weight)
+        self.input.label_weights = {**(self.input.label_weights or {}), **w}
+
+    def get_params_num(self) -> int:
+        """The dense parameters' elements plus each table's vocab x ev (a
+        split table's tiers partition its rows) (model.py:1994)."""
+        n = sum(p.numel() for ps in self.network.param_tree().values() for p in ps.values())
+        if self.ec is not None:
+            n += sum(int(v) * g.ev_size for g in self.ec.plan.groups for v in g.table_vocab)
+        return int(n)
+
+    def copy_weights_for_evaluation(self) -> None:
+        """A no-op: train and eval share one set of weights (model.py:2010)."""
+
+    def read_a_batch(self, is_train: bool = True) -> bool:
+        """Stage the next train batch, which the next train() takes, or read
+        the next eval batch (model.py:2015); the synthetic reader never runs
+        dry."""
+        if is_train:
+            self.start_data_reading()
+            if self._staged_train_batch is not None:
+                get_logger().warning("read_a_batch: overwriting a staged train batch that train() never took")
+            self._staged_train_batch = next(self._train_iter)
+            return True
+        if self.eval_reader is None:
+            raise ValueError("model has no reader")
+        if getattr(self, "_peek_eval_iter", None) is None:
+            self._peek_eval_iter = iter(self.eval_reader)
+        next(self._peek_eval_iter)
+        return True
+
+    def _perf_log(self, key: str, **kw) -> None:
+        """An MLPerf-style event (model.py:2044), on rank 0."""
+        if self.rm.is_master_process():
+            payload = {"key": key, "time_ms": int(time.time() * 1000), **kw}
+            get_logger().info(f":::MLLOG {json.dumps(payload)}")
+
+    def check_overflow(self) -> Dict[str, float]:
+        """The largest |value| of each group's table (model.py:2052)."""
+        return check_embedding_overflow(self)
+
+    def summary(self) -> str:
+        """The layer table the JAX package prints (model.py:2058)."""
+        lines = ["=" * 80, f"{'Layer Type':<28}{'Input':<26}{'Output':<26}", "=" * 80]
+        if self.ec is not None:
+            for user_top in self._user_tops:
+                lines.append(f"{'EmbeddingCollection':<28}{'(sparse keys)':<26}{user_top:<26}")
+        for row in self.network.summary_rows():
+            lines.append(f"{row[0]:<28}{row[1]:<26}{row[2]:<26}")
+        lines.append("=" * 80)
+        out = "\n".join(lines)
+        if self.rm.is_master_process():
+            get_logger().info("\n" + out)
+        return out
+
+    def freeze_dense(self) -> None:
+        """The dense parameters and their state take no update (model.py:2204)."""
+        self._dense_frozen = True
+
+    def unfreeze_dense(self) -> None:
+        self._dense_frozen = False
+
+    def freeze_embedding(self, embedding_name: Optional[str] = None) -> None:
+        """No sparse update (model.py:2213): of the table `embedding_name`
+        (a split table's user-level name freezes its tiers), or without a
+        name of the whole collection."""
+        if embedding_name is None:
+            self._emb_frozen = True
+            return
+        if self.ec is None:
+            raise ValueError("no embedding collection in this model")
+        if embedding_name not in self.ec.plan.table_splits:
+            self.ec._find_table(embedding_name)  # raises KeyError for an unknown table
+        self.ec.frozen_tables.add(embedding_name)
+
+    def unfreeze_embedding(self, embedding_name: Optional[str] = None) -> None:
+        """Undo `freeze_embedding` (model.py:2226); without a name, every
+        table."""
+        if embedding_name is None:
+            self._emb_frozen = False
+            if self.ec is not None:
+                self.ec.frozen_tables.clear()
+        elif self.ec is not None:
+            self.ec.frozen_tables.discard(embedding_name)
+
+    @torch.no_grad()
+    def check_out_tensor(self, tensor_name: str, batch=None) -> np.ndarray:
+        """The named tensor of the forward in eval mode on `batch` (a numpy
+        or device batch; default the next train batch) (model.py:2235);
+        bfloat16 as float32."""
+        if batch is None:
+            self.start_data_reading()
+            batch = next(self._train_iter)
+        batch = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                 for k, v in batch.items()}
+        emb_outs = self.ec.forward(self.tables, self._feature_keys(batch)) if self.ec is not None else {}
+        tensors = {n: batch[n] for n in (*self.batch_spec.label_names, self.batch_spec.dense_name)}
+        tensors.update(self._user_tensors(emb_outs))
+        self.network.eval()
+        out = self.network(tensors, self.solver.compute_dtype)[tensor_name]
+        return (out.float() if out.dtype == torch.bfloat16 else out).cpu().numpy()

@@ -39,3 +39,7 @@ class LearningRateScheduler:
                 + f32(self.end_lr)
             )
         return f32(warmup)
+
+    def get_next(self, step: int) -> float:
+        """lr at `step` as a float (lr_schedule.py:44)."""
+        return float(self(step))

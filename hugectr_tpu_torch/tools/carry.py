@@ -71,8 +71,7 @@ def _group_of(model, name: str):
 
 def _sharded(model, name: str) -> bool:
     """Whether a storage array is row-sharded over the ranks."""
-    g = _group_of(model, name)
-    return g is not None and g.is_model_parallel and model.rm.data_parallel_size > 1
+    return model._row_sharded(name)
 
 
 def _relayout(g, arr: Any, f_src: int) -> np.ndarray:

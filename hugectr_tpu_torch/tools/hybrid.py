@@ -288,6 +288,103 @@ def train_model(rm, inputs: Tree) -> Tree:
     return out
 
 
+def model_state(model) -> Dict[str, np.ndarray]:
+    """A model's state as this rank holds it, each float array as its
+    bits, for bitwise comparisons: every table in key order (`export_rows`;
+    every rank calls this together), this rank's key stores and sparse
+    optimizer state, the dense parameters and their state, the step."""
+    def bits(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu().clone()  # a copy: the model trains on
+        if t.is_floating_point():
+            t = t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+        return t.numpy()
+
+    out = {}
+    ec = model.ec
+    for g in ec.plan.groups:
+        for t in g.tables:
+            out[f"table:{t.name}"] = bits(ec.export_rows(model.tables, t.name))
+        if f"{g.name}#keys" in model.tables:
+            out[f"keys:{g.name}"] = bits(model.tables[f"{g.name}#keys"])
+    for g, st in model.eopt.items():
+        for k, t in st.items():
+            out[f"eopt:{g}.{k}"] = bits(t)
+    for layer, ps in model.network.param_tree().items():
+        for k, p in ps.items():
+            out[f"dense:{layer}.{k}"] = bits(p)
+    for kind, tree in model.dopt.items():
+        for layer, ps in tree.items():
+            for k, t in ps.items():
+                out[f"dopt:{kind}.{layer}.{k}"] = bits(t)
+    out["step"] = np.asarray(model._step)
+    return out
+
+
+def state_differs(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray]) -> List[str]:
+    """The names of the arrays of two `model_state`s that differ."""
+    return sorted(k for k, v in a.items() if not np.array_equal(b[k], v))
+
+
+def snapshot_round_trip(rm, inputs: Tree) -> Tree:
+    """Rank function: a model of `tools/flagship.py` (`inputs["config"]`:
+    `builder`, `kwargs`) started from the snapshot dir `load` if given,
+    moved `skip` batches on and trained `before` steps, then written with
+    `download_params_to_files(prefix, iteration)` while this rank's writes
+    are counted; then `after` more steps. A second model from seed + 1
+    loads the written snapshot. Returns this rank's writes, the losses of
+    the `after` steps, the names of the state arrays (`model_state`) that
+    differ between the written model and the reloaded one (none, when the
+    round trip is bitwise), the reloaded step and the written files' bytes
+    and the seconds to write and to load."""
+    from ..io import filesystem as iofs
+    from . import flagship
+
+    cfg = json.loads(inputs["config"])
+    build = getattr(flagship, cfg["builder"])
+    model = build(rm, **cfg.get("kwargs", {}))
+    if cfg.get("load"):
+        model.load_params_from_files(cfg["load"])
+    model.start_data_reading()
+    for _ in range(cfg.get("skip", 0)):
+        next(model._train_iter)
+    for _ in range(cfg.get("before", 0)):
+        model.train()
+    written = model_state(model)
+    writes = {"n": 0, "bytes": 0}
+    saved = {name: getattr(iofs, name) for name in ("save_npy", "save_npz", "open_file")}
+
+    def counting(name):
+        def fn(path, *a, **kw):
+            writes["n"] += 1
+            return saved[name](path, *a, **kw)
+        return fn
+
+    for name in saved:
+        setattr(iofs, name, counting(name))
+    try:
+        _sync(rm)
+        t = time.perf_counter()
+        model.download_params_to_files(cfg["prefix"], cfg.get("iteration", 0))
+        write_s = time.perf_counter() - t
+    finally:
+        for name, fn in saved.items():
+            setattr(iofs, name, fn)
+    losses = [model.train() for _ in range(cfg.get("after", 0))]
+    again = build(rm, **dict(cfg.get("kwargs", {}), seed=cfg.get("kwargs", {}).get("seed", 0) + 1))
+    out_dir = f"{cfg['prefix']}_iter{cfg.get('iteration', 0)}"
+    _sync(rm)
+    t = time.perf_counter()
+    again.load_params_from_files(out_dir)
+    _sync(rm)
+    load_s = time.perf_counter() - t
+    differ = state_differs(written, model_state(again))
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out_dir) for f in fs) \
+        if rm.is_master_process() and "://" not in out_dir else 0
+    return {"writes": writes["n"], "losses": np.asarray(losses), "differ": json.dumps(differ),
+            "arrays": len(written), "step": again._step, "bytes": nbytes, "write_seconds": write_s,
+            "load_seconds": load_s}
+
+
 def _scaled_err(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor) -> float:
     """max |got - want| / (the sum of |inputs| that went into the element)."""
     d = (got.double() - want.double()).abs() / (scale.double() + 1e-30)
@@ -301,7 +398,9 @@ def kernel_parity(model, batch: Dict[str, torch.Tensor], seed: int = 5) -> Tree:
     each one-hot lookup's backward from those keys with a cotangent drawn
     in the table's type, and segscan over the owned prefix of each
     sorted-route group's gathered keys (bf16 rows with float32 sums for
-    bf16 tables, as the step gives them). Every rank calls this together
+    bf16 tables, as the step gives them). A frozen table's one-hot lookups
+    are left out and its slots masked out of the sorted keys, as the step
+    does (`EmbeddingCollection.frozen_tables`). Every rank calls this together
     (the keys are all-gathered). Returns, per kernel, the largest error
     scaled by the sum of |inputs| into an element, the largest absolute
     error and the shapes."""
@@ -334,6 +433,8 @@ def kernel_parity(model, batch: Dict[str, torch.Tensor], seed: int = 5) -> Tree:
                 gkeys = ec._group_keys(g, fk)
                 valid, _owner, local_row = ec._slot_placement(g.name, gkeys)
                 for lm in g.lookups:
+                    if ec._is_frozen(g.tables[lm.table_index].name):
+                        continue
                     v = int(g.table_vocab[lm.table_index])
                     k_rel = ec._onehot_local_keys(g, lm, valid, local_row)
                     d = torch.randn((k_rel.shape[0], g.ev_size), generator=gen, device=dev).to(table.dtype)
@@ -350,6 +451,8 @@ def kernel_parity(model, batch: Dict[str, torch.Tensor], seed: int = 5) -> Tree:
                 valid, owner, local_row = ec._slot_placement(g.name, keys, model.tables.get(f"{g.name}#keys"))
                 if owner is not None:
                     valid = valid & (owner == ec._meta[g.name].shard)
+                frozen = [ec._is_frozen(g.tables[ti].name) for ti in g.slot_table]
+                valid = valid & ~torch.as_tensor(frozen, device=dev).unsqueeze(0)
                 sidx = torch.sort(local_row[valid]).values  # the owned prefix of the sorted keys
                 heads = torch.ones(sidx.shape[0], dtype=torch.bool, device=dev)
                 heads[1:] = sidx[1:] != sidx[:-1]

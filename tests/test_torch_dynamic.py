@@ -249,8 +249,25 @@ def test_dynamic_tables_never_take_onehot_or_split():
 
 
 @pytest.mark.parametrize("what", ["export_key_store", "import_key_store", "evict", "grow_dynamic_capacity"])
-def test_dynamic_upkeep_not_ported(what):
-    tec = TEC(tplan.compile_plan(_lookups(tplan, TComb, 16), tplan.ShardingPlan([]), 1), CPU,
-              TOptParams(TOpt.SGD))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(tec, what)(*([None] * (getattr(tec, what).__code__.co_argcount - 1)))
+def test_dynamic_upkeep_not_ported(what, mesh1, monkeypatch):
+    """Eviction and capacity growth still raise, naming ROADMAP Queue 1
+    item 5. Key-store export and import are ported: after a step, the
+    port's store of the dynamic table equals the JAX package's
+    `export_key_store`, a static table has none, and the store imported
+    into a fresh collection reads back bitwise."""
+    if what in ("evict", "grow_dynamic_capacity"):
+        tec = TEC(tplan.compile_plan(_lookups(tplan, TComb, 16), tplan.ShardingPlan([]), 1), CPU,
+                  TOptParams(TOpt.SGD))
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+            getattr(tec, what)(*([None] * (getattr(tec, what).__code__.co_argcount - 1)))
+        return
+    p = Pair(mesh1, monkeypatch)
+    p.step(_feats(np.random.default_rng(6), 16, 200), _grads(np.random.default_rng(7), 16))
+    want = p.jec.export_key_store(p.jt, "dyn")
+    assert p.tec.export_key_store(p.tt, "st") is None and p.jec.export_key_store(p.jt, "st") is None
+    np.testing.assert_array_equal(p.tec.export_key_store(p.tt, "dyn"), want)
+    if what == "import_key_store":
+        fresh = Pair(mesh1, monkeypatch)
+        fresh.tec.import_key_store(fresh.tt, "dyn", want)
+        np.testing.assert_array_equal(fresh.tec.export_key_store(fresh.tt, "dyn"), want)
+        np.testing.assert_array_equal(fresh.store(), p.store())

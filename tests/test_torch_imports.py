@@ -24,7 +24,8 @@ def test_fresh_process_imports_every_port_module_without_jax():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in %r)\n"
         "print(sum(n.startswith('hugectr_tpu_torch') for n in sys.modules))\n"
         "assert not bad, bad\n"
-        "assert {'hugectr_tpu_torch.tools.samples', 'hugectr_tpu_torch.layers.core_layers'} <= set(sys.modules)\n"
+        "assert {'hugectr_tpu_torch.tools.samples', 'hugectr_tpu_torch.layers.core_layers',\n"
+        "        'hugectr_tpu_torch.io.filesystem', 'hugectr_tpu_torch.utils.diagnose'} <= set(sys.modules)\n"
         % (FORBIDDEN,)
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -33,6 +34,23 @@ def test_fresh_process_imports_every_port_module_without_jax():
     )
     assert r.returncode == 0, r.stdout + r.stderr
     assert int(r.stdout.strip().splitlines()[-1]) >= 20  # every module was imported
+
+
+def test_io_alone_imports_no_jax():
+    """The port's copy of hugectr_tpu/io/filesystem.py (a module that
+    imports no JAX in the JAX package either) pulls in neither JAX nor the
+    JAX package when imported on its own."""
+    code = (
+        "import sys\n"
+        "from hugectr_tpu_torch.io import filesystem\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in %r)\n"
+        "assert not bad, bad\n"
+        "assert filesystem.BF16_DESCR == '<V2'\n" % (FORBIDDEN,)
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert any(p.parent.name == "io" for p in PORT_FILES)
 
 
 def _top_level_imports(path: pathlib.Path):

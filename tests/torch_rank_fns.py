@@ -213,8 +213,10 @@ def collection_cases(rm, inputs):
 
 def several(rm, inputs):
     """Several rank functions in one group: inputs["calls"] (JSON) maps a
-    key to a function of this module or `hybrid.train_model`; each gets
-    inputs[key] and its result goes under key."""
+    key to a function of this module, `hybrid.train_model` or
+    `hybrid.snapshot_round_trip`; each gets inputs[key] and its result goes
+    under key."""
     calls = json.loads(inputs["calls"])
-    fns = dict(collection_cases=collection_cases, train_model=hybrid.train_model)
+    fns = dict(collection_cases=collection_cases, train_model=hybrid.train_model,
+               snapshot_round_trip=hybrid.snapshot_round_trip)
     return {key: fns[name](rm, inputs[key]) for key, name in calls.items()}
