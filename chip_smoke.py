@@ -129,10 +129,29 @@ Each phase prints one JSON line with its own seconds:
    "hybrid_snapshot" (the tiny DLRM-DCNv2 on 2 ranks: rank 0 alone writes,
    both reload bitwise).
 
+12. Training from files: "file_path" (after "main_path"): the
+   full-width f32 flagship from a RawAsync file that the port's
+   `DataGenerator` writes (16 batches, 279,969,792 bytes; an eval file of
+   73,728 rows) through the native reader, the `DeviceFeeder`'s pinned
+   staging and copy stream and the on-device split: the native reader
+   alone (batches/s, GB/s), the first three device batches bitwise
+   against the file's rows, 6 steps (ms/step beside `main_path`'s cached
+   batches, H2D bytes a batch, launches equal to `main_path`'s), each
+   kernel against its plain version on the first file-fed batch, the eval
+   (4 whole batches, the tail dropped, then EOF); "file_i64_path" (after
+   "ftrl_dynamic_path"): the full-width dynamic DLRM-FTRL with
+   `i64_input_key` from Norm files whose keys reach past 2^31 (tables 20
+   and 21 at 2^40 rows): keys >= 2^31 a batch, the exact fold's host ms,
+   injective maps, the store's fill, a snapshot with `i64_fold_maps.npz`
+   reloaded bitwise and 3 resumed steps; "hybrid_file_parity" (after
+   "hybrid_parity"): the tiny model from a Raw file on 2 ranks against one
+   card.
+
 Then a "kernels" JSON line (per kernel: source, the TPU kernel it replaces,
 main-path launches, error, ms, device_ms, plain_ms, bound_ms, bound_by,
 library_ms, for the float32 flagship case with the most device time; for
-`onehot_fwd`, the 13-table group; beside them the bench path's launches and
+`onehot_fwd`, the 13-table group; beside them the file path's launches,
+the bench path's launches and
 the same numbers for its bf16 case with the most device time, and the FTRL
 path's launches and its case with the most device time, the freeze
 path's launches, each rank's
@@ -145,6 +164,7 @@ so does a machine without CUDA.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -1242,7 +1262,7 @@ def main_path(torch):
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     if launches["onehot_fwd"] != 6:  # one grouped launch per step
         raise AssertionError(f"onehot_fwd launched {launches['onehot_fwd']} times in 6 steps, not 6")
-    return launches
+    return launches, rec
 
 
 def bench_path(torch):
@@ -1424,8 +1444,253 @@ def ftrl_dynamic_path(torch):
         raise AssertionError(f"dynamic FTRL key store: {rec}")
 
 
-def parity_phase(torch, phase: str, world: int, model: str, eval_carried: bool = False):
-    """A tiny model (`tools/hybrid.py::tiny_config`) trained 3 steps and
+# The Raw files of `file_path`: the flagship's slots and hotness, labels and
+# dense as float32, 16 train batches and 4.5 eval batches (a tail)
+FILE_TRAIN_BATCHES = 16
+FILE_EVAL_ROWS = 73728
+# int32 values in one row: label, 13 dense, 253 keys
+FILE_ROW_INTS = 1 + 13 + 253
+
+
+def write_flagship_raw(tmp: str, batch: int, batches: int, eval_rows: int, vocab_cap: int):
+    """Raw files of the flagship's 26 slots (capped at `vocab_cap`) and
+    MLPerf hotness, float32 labels and dense, written by the port's
+    `DataGenerator` from seed 0; returns (train path, eval path, seconds)."""
+    import hugectr_tpu_torch as th
+    from hugectr_tpu_torch.tools.flagship import MLPERF_MULTI_HOT_SIZES, MLPERF_TABLE_SIZES
+
+    t = time.perf_counter()
+    p = th.DataGeneratorParams(
+        format="raw_async", num_slot=26, slot_size_array=[min(v, vocab_cap) for v in MLPERF_TABLE_SIZES],
+        nnz_array=MLPERF_MULTI_HOT_SIZES, num_samples=batch * batches, eval_num_samples=eval_rows,
+        float_label_dense=True, source=os.path.join(tmp, "train.bin"), eval_source=os.path.join(tmp, "eval.bin"))
+    th.DataGenerator(p).generate()
+    return p.source, p.eval_source, time.perf_counter() - t
+
+
+def raw_reader_params(train: str, evalf: str):
+    """The flagship's RawAsync reader over the files: 4 fill threads, 4
+    batches a thread, float32 labels and dense."""
+    import hugectr_tpu_torch as th
+
+    return th.DataReaderParams(data_reader_type="raw_async", source=[train], eval_source=evalf,
+                               async_param=th.AsyncParam(num_threads=4, num_batches_per_thread=4,
+                                                         is_dense_float=True))
+
+
+def file_path(torch, main_rec):
+    """The full-width flagship (`main_path`'s model, f32) trained from a
+    RawAsync file through the native reader, the `DeviceFeeder` (pinned
+    staging, a copy stream) and the on-device split: the files written by
+    `DataGenerator`; the native reader alone over the train file (batches/s,
+    GB/s from the page cache); the first three device batches bitwise equal
+    to the file's rows; 6 steps with the counts set to 0 just before and
+    read just after (`main_path`'s counts:
+    `onehot_fwd` 1 and `onehot_bwd` 13 a step, `segscan` > 0); each kernel
+    against its plain version on the first file-fed batch
+    (`tools/hybrid.py::kernel_parity`); an eval over the 73,728-row
+    eval file: 4 whole batches, the 8,192-row tail dropped, then
+    `is_eof()`. Beside it `main_path`'s ms/step from device-cached synthetic
+    batches, in this call."""
+    import tempfile
+
+    import numpy as np
+
+    from hugectr_tpu_torch import ops
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.data.native_reader import NativeRawReader
+    from hugectr_tpu_torch.data.reader import FUSED_KEY
+    from hugectr_tpu_torch.tools.flagship import build_dlrm_dcnv2
+    from hugectr_tpu_torch.tools.hybrid import jsonable, kernel_parity
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="hctr_raw_")
+    train, evalf, gen_s = write_flagship_raw(tmp.name, B, FILE_TRAIN_BATCHES, FILE_EVAL_ROWS, 2_000_000)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_dlrm_dcnv2(ResourceManager.create(), batchsize=B, ev_size=E, vocab_cap=2_000_000,
+                             optimizer="rowwise_adagrad", reader=raw_reader_params(train, evalf))
+    build_s = time.perf_counter() - t0 - gen_s
+    if not (isinstance(model.train_reader, NativeRawReader) and model._fused_float):
+        raise AssertionError(f"file_path reader: {type(model.train_reader)}, float layout {model._fused_float}")
+    # the native reader alone, the file in the page cache
+    alone = NativeRawReader(train, model.batch_spec, float_label_dense=True, repeat=False, n_threads=4,
+                            queue_depth=4, fused=True)
+    t = time.perf_counter()
+    n_read = sum(1 for _ in alone)
+    read_s = time.perf_counter() - t
+    alone.close()
+    batch_bytes = B * FILE_ROW_INTS * 4
+    model.start_data_reading()
+    rows = np.memmap(train, dtype=np.int32, mode="r").reshape(-1, FILE_ROW_INTS)
+    first = [model._next_train_batch() for _ in range(3)]
+    bitwise = [bool(np.array_equal(b[FUSED_KEY].cpu().numpy(), rows[i * B:(i + 1) * B])) for i, b in enumerate(first)]
+    del rows
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    losses, step_s = [], []
+    for _ in range(6):
+        t = time.perf_counter()
+        losses.append(model.train())
+        step_s.append(time.perf_counter() - t)
+    launches = ops.launch_counts()
+    parity = jsonable(kernel_parity(model, first[0]))  # after a step: the routes are known
+    up = model._train_feeder.uploader
+    steady = statistics.median(step_s[1:])
+    ops.reset_counts()
+    t = time.perf_counter()
+    vals = model.eval()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    eval_launches = ops.launch_counts()
+    eval_batches = model.metrics._nb
+    eof = model.get_data_reader_eval().is_eof()
+    rec = dict(
+        phase="file_path", card=card_line(), tables=26, ev=E, batch=B, vocab_cap=2_000_000,
+        train_file_bytes=os.path.getsize(train), eval_file_bytes=os.path.getsize(evalf),
+        generate_seconds=gen_s, reader_alone=dict(batches=n_read, seconds=read_s, batches_per_s=n_read / read_s,
+                                                  gb_per_s=n_read * batch_bytes / read_s / 1e9),
+        first_batches_bitwise=bitwise, kernel_parity=parity, steps=6, losses=losses,
+        step_ms=[x * 1e3 for x in step_s], median_ms_per_step=steady * 1e3, examples_per_s=B / steady,
+        cached_synthetic_median_ms_per_step=main_rec["median_ms_per_step"],
+        cached_synthetic_step_ms=main_rec["step_ms"],
+        h2d_bytes_per_batch=up.bytes / max(up.batches, 1), h2d_bytes_per_batch_expected=batch_bytes,
+        launches=launches, launches_per_step={k: n / 6 for k, n in launches.items()},
+        eval_batches=eval_batches, eval_eof=eof, eval_seconds=eval_s, eval_examples_per_s=eval_batches * B / eval_s,
+        eval=vals, eval_launches=eval_launches, max_memory_allocated=torch.cuda.max_memory_allocated(),
+        build_seconds=build_s, seconds=time.perf_counter() - t0,
+    )
+    model._close_readers()
+    del model, first
+    tmp.cleanup()
+    emit(rec)
+    if not all(bitwise):
+        raise AssertionError(f"file_path: a device batch differs from the file's rows: {bitwise}")
+    if set(parity) != set(RANK_TOL) or any(v["scaled_err"] > TOL["float32"] for v in parity.values()):
+        raise AssertionError(f"file_path: a kernel disagrees with its plain version on file-fed inputs: {parity}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"file_path: non-finite loss {losses}")
+    if not (launches == main_rec["launches"] and launches["onehot_fwd"] == 6 and launches["onehot_bwd"] == 78
+            and launches["segscan"] > 0):
+        raise AssertionError(f"file_path: launches in 6 steps {launches}, main_path's {main_rec['launches']}")
+    if not (eval_batches == 4 and eof and eval_launches["onehot_fwd"] == 4):
+        raise AssertionError(f"file_path eval: {eval_batches} batches, EOF {eof}, launches {eval_launches}")
+    if rec["h2d_bytes_per_batch"] != batch_bytes or n_read != FILE_TRAIN_BATCHES:
+        raise AssertionError(f"file_path: {rec['h2d_bytes_per_batch']} bytes a batch, {n_read} batches read")
+    return {k: launches[k] + eval_launches[k] for k in launches}
+
+
+def file_i64_path(torch):
+    """The full-width DLRM-FTRL on exact dynamic tables (4,096 rows each)
+    with `i64_input_key`, trained from Norm files (`Check_t.Sum`) whose keys
+    carry the slots' offsets, tables 20 and 21 at 2^40 rows: the count of
+    keys >= 2^31 in each of the first 6 batches (> 0), the exact fold's host
+    ms for the first batch and for batches 2-6, 6 steps, every table's map
+    injective, the store's fill; a snapshot (with `i64_fold_maps.npz`)
+    loaded by a model from another seed: state and maps bitwise, then 3
+    steps of both on the same batches within 1e-6 relative. No
+    hand-written kernel is on this path (every table is dynamic)."""
+    import tempfile
+
+    import numpy as np
+
+    import hugectr_tpu_torch as th
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools.flagship import FTRL_SLOT_SIZES, build_dlrm_ftrl
+    from hugectr_tpu_torch.tools.hybrid import METRICS, model_state, state_differs
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="hctr_norm_")
+    slots = [2**40 if i in (20, 21) else v for i, v in enumerate(FTRL_SLOT_SIZES)]
+    p = th.DataGeneratorParams(format="norm", num_slot=26, slot_size_array=slots, check_type="sum",
+                               i64_input_key=True, num_files=2, eval_num_files=1, num_samples_per_file=4 * B,
+                               source=os.path.join(tmp.name, "train.txt"),
+                               eval_source=os.path.join(tmp.name, "eval.txt"))
+    th.DataGenerator(p).generate()
+    gen_s = time.perf_counter() - t0
+    reader = th.DataReaderParams(data_reader_type="norm", source=[p.source], eval_source=p.eval_source)
+    torch.cuda.reset_peak_memory_stats()
+    build = lambda seed: build_dlrm_ftrl(ResourceManager.create(), batchsize=B, dynamic=True, ev_size=E,
+                                         i64_input_key=True, reader=reader, max_eval_batches=2,
+                                         metrics_spec=METRICS, seed=seed)
+    a = build(0)
+    fold_ms = []
+    fold = a._fold_i64_keys
+
+    def timed_fold(batch):
+        t = time.perf_counter()
+        out = fold(batch)
+        fold_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    a._fold_i64_keys = timed_fold
+    host = list(itertools.islice(iter(a.train_reader), 6))
+    wide = [int(sum((b[f"data{i}"] >= 2**31).sum() for i in range(26))) for b in host]
+    a.start_data_reading()
+    losses, step_s = [], []
+    for _ in range(6):
+        t = time.perf_counter()
+        losses.append(a.train())
+        step_s.append(time.perf_counter() - t)
+    ec = a.ec
+    fill, dropped = ec.dynamic_stats(a.tables, a._feature_keys(a._decode_batch(a._put_now(host[5]))))["mp_ev128"]
+    injective = all(len(set(m.values())) == len(m) and 2**31 - 1 not in set(m.values())
+                    for m in a._i64_maps.values())
+    map_sizes = {t: len(m) for t, m in a._i64_maps.items()}
+    resume = [a._next_train_batch() for _ in range(3)]
+    snap = os.path.join(tmp.name, "snap")
+    a.download_params_to_files(snap, 6)
+    has_maps = os.path.exists(os.path.join(f"{snap}_iter6", "i64_fold_maps.npz"))
+    written = model_state(a)
+    b = build(7)
+    b.load_params_from_files(f"{snap}_iter6")
+    differ = state_differs(written, model_state(b))
+    maps_equal = b._i64_maps == a._i64_maps and b._i64_rev == a._i64_rev
+    resumed = [(float(a.train_step(x)), float(b.train_step(x))) for x in resume]
+    rel = max(abs(x - y) / max(abs(x), 1e-30) for x, y in resumed)
+    vals = a.eval()
+    rec = dict(
+        phase="file_i64_path", card=card_line(), tables=26, ev=E, batch=B, generate_seconds=gen_s,
+        train_file_bytes=sum(os.path.getsize(f) for f in open(p.source).read().split()[1:]),
+        keys_at_or_above_2_31_per_batch=wide, fold_ms=fold_ms[:12], fold_ms_first=fold_ms[0],
+        fold_ms_median_2_6=statistics.median(fold_ms[1:6]), losses=losses, step_ms=[x * 1e3 for x in step_s],
+        median_ms_per_step=statistics.median(step_s[1:]) * 1e3, key_store_rows=int(a.tables["mp_ev128#keys"].numel()),
+        key_store_fill=fill, dropped_keys_batch6=dropped, maps_injective=injective, map_sizes=map_sizes,
+        snapshot_has_maps=has_maps, arrays_differing_after_load=differ, maps_equal_after_load=maps_equal,
+        resumed_losses=resumed, resumed_loss_max_rel_diff=rel, eval=vals,
+        max_memory_allocated=torch.cuda.max_memory_allocated(), seconds=time.perf_counter() - t0,
+    )
+    a._close_readers()
+    b._close_readers()
+    del a, b, resume
+    tmp.cleanup()
+    emit(rec)
+    if not (min(wide) > 0 and injective and has_maps and maps_equal and not differ):
+        raise AssertionError(f"file_i64_path: {rec}")
+    if not (rel <= 1e-6 and all(math.isfinite(x) for x in losses) and 0 < fill <= rec["key_store_rows"]):
+        raise AssertionError(f"file_i64_path: losses {losses}, resumed {resumed}, fill {fill}")
+
+
+def hybrid_file_parity(torch):
+    """The tiny DLRM-DCNv2 from a Raw file (the flagship's slots capped at
+    1,000 rows, 4 batches of 64, an eval file of 2.5 batches) on 2 ranks,
+    each reading its block of every global batch through the native reader,
+    against one card reading the whole batches (`parity_phase`); the
+    tolerances of `hybrid_parity`."""
+    import tempfile
+
+    from hugectr_tpu_torch.tools import hybrid
+
+    with tempfile.TemporaryDirectory(prefix="hctr_raw_tiny_") as tmp:
+        train, evalf, _s = write_flagship_raw(tmp, 64, 4, 160, 1000)
+        fields = dict(data_reader_type="raw_async", source=[train], eval_source=evalf, float_label_dense=True)
+        rep, _ranks = parity_phase(torch, "hybrid_file_parity", 2, "tiny",
+                                   config=dict(hybrid.tiny_config("tiny"), reader=fields))
+    if not (rep["loss_rel_diff"] <= 1e-4 and rep["worst_excess"] <= 0 and rep["auc_diff"] <= 1e-4):
+        raise AssertionError(f"2 ranks from a file differ from one card: {rep}")
+
+
+def parity_phase(torch, phase: str, world: int, model: str, eval_carried: bool = False, config=None):
+    """A tiny model (`tools/hybrid.py::tiny_config`, or `config`) trained 3 steps and
     evaluated on one card in this process and on `world` spawned ranks from
     one state (`parity_runs`): NCCL with a card per rank, else gloo with the
     ranks sharing the card. Emits the record; fails if a kernel never
@@ -1435,7 +1700,8 @@ def parity_phase(torch, phase: str, world: int, model: str, eval_carried: bool =
 
     t0 = time.perf_counter()
     backend = hybrid.default_backend(world)
-    one, ranks = hybrid.parity_runs(world, backend, config=hybrid.tiny_config(model), eval_carried=eval_carried)
+    one, ranks = hybrid.parity_runs(world, backend, config=config or hybrid.tiny_config(model),
+                                    eval_carried=eval_carried)
     rep = hybrid.parity_report(one, ranks)
     rec = dict(phase=phase, world=world, backend=backend, device_count=torch.cuda.device_count(),
                staged_through_host=backend == "gloo", losses_one_card=one["losses"].tolist(),
@@ -1911,13 +2177,17 @@ def main() -> int:
     sample_kernel_checks(torch, sample_results)
     tiny_parity(torch)
     samples_parity(torch)
-    launches = main_path(torch)
+    launches, main_rec = main_path(torch)
+    torch.cuda.empty_cache()
+    file_launches = file_path(torch, main_rec)
     torch.cuda.empty_cache()
     bench_launches = bench_path(torch)
     torch.cuda.empty_cache()
     ftrl_launches = ftrl_path(torch)
     torch.cuda.empty_cache()
     ftrl_dynamic_path(torch)
+    torch.cuda.empty_cache()
+    file_i64_path(torch)
     torch.cuda.empty_cache()
     snapshot_path(torch)
     torch.cuda.empty_cache()
@@ -1928,6 +2198,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     samples_launches = samples_path(torch)
     hybrid_parity(torch)
+    hybrid_file_parity(torch)
     hybrid_bench_parity(torch)
     hybrid_partial_parity(torch)
     hybrid_launches = hybrid_path(torch)
@@ -1970,7 +2241,8 @@ def main() -> int:
                  key=lambda x: x["device_ms"])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=launches[name],
-            **{k: r[k] for k in keys}, bench_path_launches=bench_launches[name],
+            **{k: r[k] for k in keys}, file_path_launches=file_launches[name],
+            bench_path_launches=bench_launches[name],
             bench_case={k: rb[k] for k in keys}, ftrl_path_launches=ftrl_launches[name],
             ftrl_case={k: rf[k] for k in keys}, freeze_path_launches=freeze_launches[name],
             hybrid_path_launches=[x[name] for x in hybrid_launches],

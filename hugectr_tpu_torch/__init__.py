@@ -8,14 +8,18 @@ the card unless the caller passes `device="cpu"`; the one-hot and segmented
 scan kernels are hand-written CUDA for sm_90a (`csrc/`), built at first use.
 Over several cards each rank is a process: `init_distributed()` (under
 torchrun, or `tools/hybrid.py`) and then the same API train hybrid-parallel.
+`DataGenerator` writes Raw, Norm and Parquet datasets, which the Model
+reads through `DataReaderParams`.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from .core.config import (
+    AsyncParam,
     DataReaderParams,
     DataReaderSparseParam,
+    DataSourceParams,
     DenseLayer,
     Input,
     Layer_t,
@@ -25,12 +29,16 @@ from .core.logger import get_logger
 from .core.mesh import ResourceManager, init_distributed
 from .core.types import (
     Activation_t,
+    Check_t,
     Combiner_t,
     DataReaderType_t,
+    FileSystemType_t,
     Initializer_t,
     Metric_t,
     Optimizer_t,
+    PowerLaw_t,
 )
+from .data.generator import DataGenerator, DataGeneratorParams
 from .embedding.config import (
     EmbeddingCollectionConfig,
     EmbeddingTableConfig,
@@ -65,16 +73,22 @@ def CreateOptimizer(optimizer_type=None, **kwargs) -> OptParams:
 
 __all__ = [
     "Activation_t",
+    "AsyncParam",
+    "Check_t",
     "Combiner_t",
     "CreateOptimizer",
     "CreateSolver",
+    "DataGenerator",
+    "DataGeneratorParams",
     "DataReaderParams",
     "DataReaderSparseParam",
     "DataReaderType_t",
+    "DataSourceParams",
     "DenseLayer",
     "EmbeddingCollectionConfig",
     "EmbeddingTableConfig",
     "Embedding_t",
+    "FileSystemType_t",
     "Initializer_t",
     "Input",
     "Layer_t",
@@ -82,6 +96,7 @@ __all__ = [
     "Model",
     "OptParams",
     "Optimizer_t",
+    "PowerLaw_t",
     "ResourceManager",
     "Solver",
     "SparseEmbedding",

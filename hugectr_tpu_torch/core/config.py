@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
-from .types import Activation_t, DataReaderType_t, Initializer_t, Metric_t, Regularizer_t
+from .types import Activation_t, Check_t, DataReaderType_t, FileSystemType_t, Initializer_t, Metric_t, Regularizer_t
 
 
 @dataclasses.dataclass
@@ -35,10 +35,13 @@ class Solver:
     metrics_spec: Dict[Metric_t, float] = dataclasses.field(
         default_factory=lambda: {Metric_t.AUC: 1.0}
     )
-    # accepted so that reference scripts fail loudly: not ported yet
+    # 64-bit input keys, folded to int32 on the host (`Model._fold_i64_keys`)
     i64_input_key: bool = False
     # eval cycles a shorter eval set to fill max_eval_batches
     repeat_dataset: bool = True
+    # a file's last rows that fill no batch are dropped; False pads them
+    # into one last batch (the Python Raw, Parquet and Norm readers)
+    drop_incomplete_batch: bool = True
     # `fit` logs MLPerf-style ":::MLLOG" events (config.py:49)
     perf_logging: bool = False
     # `TrainingCallback`s that `fit` calls (config.py:70-71)
@@ -104,18 +107,97 @@ class Solver:
 
 
 @dataclasses.dataclass
-class DataReaderParams:
-    """Dataset declaration (config.py:240). This slice reads synthetic
-    batches only."""
+class AsyncParam:
+    """The RawAsync reader's settings (config.py:180): `num_threads` fill
+    threads and `num_batches_per_thread` batches in the native reader's
+    ring; `shuffle` shuffles the batch order of the Python `RawReader`
+    only; `is_dense_float` (with `multi_hot_reader`) reads labels and dense
+    as float32. The AIO settings are accepted and not read."""
 
-    data_reader_type: DataReaderType_t = DataReaderType_t.Synthetic
+    num_threads: int = 1
+    num_batches_per_thread: int = 4
+    max_num_requests_per_thread: int = 72
+    io_depth: int = 4
+    io_alignment: int = 512
+    shuffle: bool = False
+    aligned_type: Any = "auto"
+    multi_hot_reader: bool = True
+    is_dense_float: bool = True
+
+    def __post_init__(self):
+        if not self.multi_hot_reader and self.is_dense_float:
+            raise ValueError(
+                "multi_hot_reader=False requires is_dense_float=False "
+                "(reference AsyncParam constraint)"
+            )
+
+
+@dataclasses.dataclass
+class DataSourceParams:
+    """A remote filesystem for the sources (config.py:211): `make_uri`
+    prefixes a plain path with the backend's scheme."""
+
+    source: Any = "local"
+    server: str = "localhost"
+    port: int = 9000
+
+    def make_uri(self, path: str) -> str:
+        fs = FileSystemType_t(self.source)
+        if fs == FileSystemType_t.Local or "://" in path:
+            return path
+        scheme = {"hdfs": "hdfs", "s3": "s3", "gcs": "gs"}.get(fs.value)
+        if scheme is None:
+            raise ValueError(
+                f"DataSourceParams: unsupported backend {fs!r} — pass a "
+                "fully qualified scheme:// path instead"
+            )
+        if fs == FileSystemType_t.HDFS:
+            return f"{scheme}://{self.server}:{self.port}{path}"
+        return f"{scheme}://{path.lstrip('/')}"
+
+
+@dataclasses.dataclass
+class DataReaderParams:
+    """Dataset declaration (config.py:240): the reader type, the train
+    `source` (a list; a str becomes one) and `eval_source`, with
+    `data_source_params.make_uri` applied to both. Raw and RawAsync files
+    take the native reader; `num_workers` is Parquet's thread count;
+    `cache_train_data` / `cache_eval_data` keep that many batches on the
+    device and cycle them. `keyset` is accepted and not read."""
+
+    data_reader_type: DataReaderType_t = DataReaderType_t.Parquet
+    source: List[str] = dataclasses.field(default_factory=list)
+    eval_source: str = ""
+    check_type: Check_t = Check_t.Non
+    cache_eval_data: int = 0
+    cache_train_data: int = 0
+    num_samples: int = 0
+    eval_num_samples: int = 0
+    float_label_dense: bool = False
+    # True also turns AsyncParam.shuffle off
+    read_file_sequentially: bool = False
+    num_workers: int = 4
+    # Norm keys carry the slots' offsets; given, the reader subtracts them
+    slot_size_array: List[int] = dataclasses.field(default_factory=list)
+    keyset: List[str] = dataclasses.field(default_factory=list)
+    data_source_params: Optional[DataSourceParams] = None
+    async_param: Optional[AsyncParam] = None
     synthetic_num_batches: int = 64
-    synthetic_alpha: float = 0.0
     # labels from the keys' parities, so that eval can see learning
     synthetic_learnable: bool = False
+    synthetic_alpha: float = 0.0
 
     def __post_init__(self):
         self.data_reader_type = DataReaderType_t(self.data_reader_type)
+        if isinstance(self.source, str):
+            self.source = [self.source]
+        if isinstance(self.keyset, str):
+            self.keyset = [self.keyset]
+        if self.data_source_params is not None:
+            mk = self.data_source_params.make_uri
+            self.source = [mk(s) for s in self.source]
+            if self.eval_source:
+                self.eval_source = mk(self.eval_source)
 
 
 @dataclasses.dataclass

@@ -1,7 +1,7 @@
 """Core enums, the padding sentinel and default dtypes.
 
-Counterpart of hugectr_tpu/core/types.py (the enums the training slice
-uses); the jnp dtypes of types.py:291-294 become torch dtypes here.
+Counterpart of hugectr_tpu/core/types.py (the enums the port uses); the
+jnp dtypes of types.py:291-294 become torch dtypes here.
 """
 from __future__ import annotations
 
@@ -92,6 +92,32 @@ class DataReaderType_t(str, enum.Enum):
     Parquet = "parquet"
     RawAsync = "raw_async"
     Synthetic = "synthetic"
+
+
+class Check_t(str, enum.Enum):
+    """Norm files' record framing (types.py:97)."""
+
+    Sum = "sum"
+    Non = "none"
+
+
+class PowerLaw_t(str, enum.Enum):
+    """Synthetic key distributions (types.py:102)."""
+
+    Long = "long"
+    Medium = "medium"
+    Short = "short"
+    Specific = "specific"
+
+
+class FileSystemType_t(str, enum.Enum):
+    """Filesystem backend of `DataSourceParams` (types.py:192)."""
+
+    Local = "local"
+    HDFS = "hdfs"
+    S3 = "s3"
+    GCS = "gcs"
+    Other = "other"
 
 
 DEFAULT_KEY_DTYPE = torch.int32

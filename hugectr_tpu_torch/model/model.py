@@ -47,12 +47,30 @@ the JAX step is a plain sum. `train()` returns the global mean loss, and
 `eval` and `fit` together.
 
 `eval` runs one eager forward under `no_grad` per batch of the eval set
-(synthetic eval batches made once and kept on the device, cycled to fill
-`max_eval_batches` when `repeat_dataset` is set) into a `MetricAccumulator`
-per loss layer, with no host sync per batch (model.py:466-490): the first
-task's metrics under their plain names, the loss on it, and each other
-task's as `"<metric>_<label>"`. The JAX package's scanned eval (many batches
-in one XLA dispatch) is a device of XLA's and is not ported.
+into a `MetricAccumulator` per loss layer, with no host sync per batch
+(model.py:466-490): the first task's metrics under their plain names, the
+loss on it, and each other task's as `"<metric>_<label>"`. The JAX
+package's scanned eval (many batches in one XLA dispatch) is a device of
+XLA's and is not ported.
+
+The readers (model.py:501-637) follow the JAX package's rules: Raw and
+RawAsync files go through the native threaded reader (`NativeRawReader`),
+Parquet through `AsyncParquetReader`, Norm through `NormReader`, and a
+Synthetic source (or a missing eval source) through `SyntheticReader`.
+Synthetic batches, and `cache_train_data` / `cache_eval_data` batches of any
+reader, are put on the device once and cycled; other batches come through a
+`DeviceFeeder` thread (pinned staging, a copy stream, an event the step's
+stream waits on). Raw and Parquet batches travel as one fused int32 [B, row]
+upload, split on the device (`_decode_batch`). A non-repeating source that
+runs dry raises StopIteration from `train()` and shows as `is_eof()` on the
+reader's handle (`get_data_reader_train` / `_eval`); `set_source` re-points
+the readers. A padded tail batch's rows all count in the metrics, as in the
+JAX package. With `Solver.i64_input_key` the readers yield int64 keys,
+folded to int32 on the host before the upload (model.py:927-1130): a static
+table takes the key modulo its vocabulary; a dynamic table gives every
+distinct 64-bit key its own 31-bit id from a map that snapshots keep
+(`i64_fold_maps.npz`); over W ranks the ranks' new keys are all-gathered so
+that every rank holds the map of the JAX package's one-process run.
 
 `graph_to_json` / `construct_from_json` (model.py:2076-2202) write and
 read the JAX package's graph layout, so a graph written by either package
@@ -64,21 +82,22 @@ written by either package loads in the other; bfloat16 arrays are written
 as the JAX package writes them (2-byte voids) and read back bitwise. Over W
 ranks every rank computes (the sharded arrays are all-gathered) and rank 0
 alone writes; on loading, each rank takes its block. The packed state
-layouts and the i64 key maps have no counterpart here, and a snapshot that
-holds them raises `NotImplementedError`.
+layouts have no counterpart here, and a snapshot that holds them raises
+`NotImplementedError`.
 
 The low-level training API (model.py:1897-2262: the learning rate, the
-losses, freezing, the summary, `check_out_tensor`) and `fit`'s
-`TrainingCallback`s and `:::MLLOG` events (model.py:1455-1505) are ported.
-The file readers (`get_data_reader_*`, `set_source`) and i64 key folding
-wait for ROADMAP Queue 1 item 4.
+losses, freezing, the summary, `check_out_tensor`, the reader handles,
+`read_a_batch`) and `fit`'s `TrainingCallback`s and `:::MLLOG` events
+(model.py:1455-1505) are ported.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import json
 import os
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -97,7 +116,20 @@ from ..core.config import (
 from ..core.logger import get_logger
 from ..core.mesh import DeviceLike, ResourceManager, all_gather, all_reduce
 from ..core.types import Combiner_t, DataReaderType_t, Metric_t
-from ..data.reader import BatchSpec, SparseFeatureSpec, SyntheticReader
+from ..core.types import INVALID_KEY
+from ..data.reader import (
+    FUSED_KEY,
+    ROWS_KEY,
+    AsyncParquetReader,
+    BaseReader,
+    BatchSpec,
+    DeviceBatch,
+    DeviceFeeder,
+    NormReader,
+    SparseFeatureSpec,
+    SyntheticReader,
+    Uploader,
+)
 from ..embedding.collection import EmbeddingCollection
 from ..embedding.config import EmbeddingCollectionConfig, EmbeddingTableConfig, SparseEmbedding
 from ..io import filesystem as iofs
@@ -135,6 +167,50 @@ class TrainingCallback:
         pass
 
 
+class _DataReaderHandle:
+    """The train or eval reader's handle (model.py:83-148): `set_source`,
+    `is_eof`, `is_started` and the staged reads."""
+
+    def __init__(self, model: "Model", train: bool):
+        self._model = model
+        self._train = train
+
+    @property
+    def reader(self) -> Optional[BaseReader]:
+        return self._model.train_reader if self._train else self._model.eval_reader
+
+    def set_source(self, file_name: str = "") -> None:
+        """Re-point this reader at a new file or file list; clears EOF."""
+        if self._train:
+            self._model.set_source(source=file_name or None)
+        else:
+            self._model.set_source(eval_source=file_name)
+
+    def is_eof(self) -> bool:
+        """Whether a non-repeating source ran dry."""
+        return self._model._train_eof if self._train else self._model._eval_eof
+
+    def is_started(self) -> bool:
+        """Whether this reader's feed has started (EOF does not un-start it)."""
+        return self._model._train_iter is not None if self._train else self._model._eval_feed_started
+
+    def read_a_batch_to_device(self) -> int:
+        """Stage the next batch (a train batch is what the next `train()`
+        takes); returns its true row count (less than the batch for a padded
+        tail), 0 at EOF."""
+        if not self._model.read_a_batch(is_train=self._train):
+            return 0
+        s = self._model.solver
+        return self._model._last_read_rows or int(s.batchsize if self._train else s.batchsize_eval)
+
+    def read_a_batch_to_device_delay_release(self) -> int:
+        """The same staged read: the feeder keeps its own buffers in flight."""
+        return self.read_a_batch_to_device()
+
+    def ready_to_collect(self) -> None:
+        """A no-op, as in the JAX package (model.py:144)."""
+
+
 class Model:
     """add() / compile() / train() (model.py:149). The model lives on
     `resource_manager.device`, or on `device` (default: the card)."""
@@ -164,6 +240,24 @@ class Model:
         self._emb_frozen = False
         self._staged_train_batch: Optional[Dict[str, torch.Tensor]] = None
         self._last_loss: Optional[torch.Tensor] = None
+        self._train_iter = None
+        self._train_feeder: Optional[DeviceFeeder] = None
+        self._train_rows_fifo: collections.deque = collections.deque()
+        self._train_eof = False
+        self._eval_eof = False
+        self._eval_feed_started = False
+        self._peek_eval_iter = None
+        self._last_read_rows = 0
+        self._fused_float = False  # fused rows carry labels and dense as float32 bits
+        # the exact i64 fold's maps {table: {i64 key: id}} and their inverses;
+        # the train and eval feeder threads insert under the lock
+        self._i64_maps: Dict[str, Dict[int, int]] = {}
+        self._i64_rev: Dict[str, Dict[int, int]] = {}
+        self._i64_lock = threading.Lock()
+        self._i64_fold: Optional[Dict[str, list]] = None
+        # the synchronous uploads (cached batches, a feed without a thread);
+        # each feeder gets an uploader of its own
+        self._uploader = Uploader(self.device)
         self.lr_sch = LearningRateScheduler(
             base_lr=solver.lr,
             warmup_steps=solver.warmup_steps,
@@ -194,8 +288,6 @@ class Model:
         if self.input is None:
             raise ValueError("model needs an Input")
         s = self.solver
-        if s.i64_input_key:
-            raise NotImplementedError("i64 input keys are not ported yet (ROADMAP Queue 1 item 4)")
         inp = self.input
         if loss_names and loss_weights:
             inp.label_weights = dict(zip(loss_names, loss_weights))
@@ -210,6 +302,7 @@ class Model:
             dense_dim=inp.dense_dim,
             dense_name=inp.dense_name,
             sparse=sparse_specs,
+            key_dtype=np.int64 if s.i64_input_key else np.int32,
         )
         self.eval_batch_spec = dataclasses.replace(self.batch_spec, batch_size=s.batchsize_eval)
         self.world = w = self.rm.data_parallel_size
@@ -287,7 +380,6 @@ class Model:
             self.eopt = self.ec.init_optimizer(self.tables)
         self.train_reader = self._make_reader(train=True)
         self.eval_reader = self._make_reader(train=False)
-        self._train_iter = None
         self._eval_cache: Optional[List[Dict[str, torch.Tensor]]] = None
         self._last_eval_metrics: Dict[str, float] = {}
         # one accumulator per loss layer (model.py:466-490): the first
@@ -331,33 +423,64 @@ class Model:
         self._top3d[se.sparse_embedding_name] = (feat.slot_num, se.embedding_vec_size)
         return table.name
 
-    def _make_reader(self, train: bool) -> Optional[SyntheticReader]:
-        """The train or the eval reader (model.py:501); the eval reader
-        takes the eval batch size and the seed + 99991. Over W ranks, rank r
-        reads its block of each global batch from the same seed; ranks on
-        more than one host would take the JAX package's multi-host rule
+    def _make_reader(self, train: bool) -> Optional[BaseReader]:
+        """The train or the eval reader, by the JAX package's rules
+        (model.py:501-637). The eval reader takes `batchsize_eval` and never
+        repeats; a missing eval source means synthetic eval batches. Over W
+        ranks a file reader gets rank r's `process_index` and the block's
+        B / W rows. Synthetic batches take seed + 99991 for eval, and over W
+        ranks rank r's block of each global batch from the same seed; ranks
+        on more than one host would take the JAX package's multi-host rule
         (seed + 7919 * process, model.py:506-527), which is not ported."""
         rp = self.reader_params
         if rp is None:
             return None
-        if rp.data_reader_type != DataReaderType_t.Synthetic:
-            raise NotImplementedError(
-                f"reader {rp.data_reader_type.value} is not ported yet (ROADMAP Queue 1 item 4)"
+        spec = self.batch_spec if train else self.eval_batch_spec
+        src = rp.source[0] if train and rp.source else rp.eval_source
+        kind = rp.data_reader_type
+        if kind == DataReaderType_t.Synthetic or not src:
+            if self.rm.local_world_size < self.world:
+                raise NotImplementedError(
+                    "ranks on more than one host: the multi-host reader is not ported yet "
+                    "(ROADMAP Queue 1 item 1h)"
+                )
+            return SyntheticReader(
+                spec, self._slot_vocabs(), num_batches=rp.synthetic_num_batches, alpha=rp.synthetic_alpha,
+                seed=(self.solver.seed or 1234) + (0 if train else 99991),
+                learnable_labels=rp.synthetic_learnable, block=(self.rm.rank, self.world),
             )
-        if self.rm.local_world_size < self.world:
-            raise NotImplementedError(
-                "ranks on more than one host: the multi-host reader is not ported yet "
-                "(ROADMAP Queue 1 item 1h)"
+        spec = dataclasses.replace(spec, batch_size=spec.batch_size // self.world)
+        s = self.solver
+        ranks = dict(process_index=self.rm.rank, num_processes=self.world)
+        repeat = s.repeat_dataset if train else False
+        if kind in (DataReaderType_t.Raw, DataReaderType_t.RawAsync):
+            from ..data.native_reader import NativeRawReader
+
+            # AsyncParam: fill threads, ring depth, and the float layout of
+            # the multi-hot reader; i64 keys fold on the host, so unfused
+            ap = rp.async_param
+            n_threads = (ap.num_threads if ap is not None else 0) or rp.num_workers
+            depth = max(ap.num_batches_per_thread or 6, 2) if ap is not None else 6
+            self._fused_float = rp.float_label_dense or bool(
+                ap is not None and ap.is_dense_float and ap.multi_hot_reader)
+            return NativeRawReader(
+                src, spec, num_samples=rp.num_samples if train else rp.eval_num_samples,
+                float_label_dense=self._fused_float, repeat=repeat, n_threads=n_threads,
+                queue_depth=depth, fused=not s.i64_input_key, **ranks,
             )
-        return SyntheticReader(
-            self.batch_spec if train else self.eval_batch_spec,
-            self._slot_vocabs(),
-            num_batches=rp.synthetic_num_batches,
-            alpha=rp.synthetic_alpha,
-            seed=(self.solver.seed or 1234) + (0 if train else 99991),
-            learnable_labels=rp.synthetic_learnable,
-            block=(self.rm.rank, self.world),
-        )
+        if kind == DataReaderType_t.Parquet:
+            # fused Parquet rows carry labels and dense as float32 bits
+            self._fused_float = True
+            return AsyncParquetReader(
+                src, spec, repeat=repeat, drop_incomplete=s.drop_incomplete_batch,
+                n_threads=max(rp.num_workers, 1), fused=not s.i64_input_key, **ranks,
+            )
+        if kind == DataReaderType_t.Norm:
+            return NormReader(
+                src, spec, repeat=repeat, drop_incomplete=s.drop_incomplete_batch,
+                slot_size_array=rp.slot_size_array or None, **ranks,
+            )
+        raise NotImplementedError(f"reader {kind}")
 
     def _slot_vocabs(self) -> Dict[str, List[int]]:
         """Per-slot key bounds of the synthetic reader (model.py:639): each
@@ -377,19 +500,233 @@ class Model:
         return vocabs
 
     # ------------------------------------------------------------ training
-    def _put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for k, v in batch.items()}
+    def _put_batch(self, batch: Dict[str, np.ndarray], uploader: Optional[Uploader] = None) -> DeviceBatch:
+        """A reader's batch on the device (model.py:1194): the tail's row
+        count dropped, i64 keys folded, then uploaded (`Uploader`; through
+        pinned memory on a stream of its own on a card)."""
+        batch = dict(batch)
+        batch.pop(ROWS_KEY, None)
+        if self.solver.i64_input_key:
+            batch = self._fold_i64_keys(batch)
+        return (uploader or self._uploader)(batch)
+
+    def _put_now(self, batch: Dict[str, np.ndarray]) -> DeviceBatch:
+        """`_put_batch` on the consumer's thread, ready on its stream."""
+        return self._put_batch(batch).ready()
+
+    def _new_feeder(self, reader: BaseReader, put_fn=None) -> DeviceFeeder:
+        """A `DeviceFeeder` over `reader` with an uploader of its own
+        (`feeder.uploader`); `put_fn(batch, uploader)` defaults to
+        `_put_batch`."""
+        up = Uploader(self.device)
+        put = put_fn or self._put_batch
+        feeder = DeviceFeeder(reader, lambda b: put(b, up), depth=3)
+        feeder.uploader = up
+        return feeder
+
+    # ------------------------------------------------------------ i64 keys
+    def _build_i64_fold(self) -> Dict[str, list]:
+        """{feature: [(col_begin, col_end, modulo, dynamic, table), ...]}, one
+        window a lookup, for the host-side fold of int64 keys
+        (model.py:927-955): a static table takes `k mod (vocab - key
+        offset)` (exact for keys in range), a dynamic one the exact fold
+        (`_i64_exact_fold`). The lookup's own table is used (a split table's
+        user-level name), so that every key of it folds in one window."""
+        fold: Dict[str, list] = {}
+        if self.ec is None:
+            return fold
+        for top, ks in self._key_sources.items():
+            t = self.ec.plan.lookups[int(top.rsplit(":", 1)[1])].table
+            fold.setdefault(ks.param_name, []).append(
+                (ks.col_begin, ks.col_end, int(t.vocabulary_size) - ks.key_offset, bool(t.is_dynamic),
+                 t.name.split("::", 1)[0]))
+        return fold
+
+    def _mc_sync_feed(self) -> bool:
+        """Whether batches are folded on the consuming thread (model.py:957):
+        over W ranks with a dynamic table under i64 keys, each batch's fold
+        all-gathers the ranks' new keys, and such collectives must come in
+        program order on every rank, which prefetch threads would not keep."""
+        if self.world <= 1 or not self.solver.i64_input_key:
+            return False
+        if self._i64_fold is None:
+            self._i64_fold = self._build_i64_fold()
+        return any(dyn for ws in self._i64_fold.values() for (_lo, _hi, _mod, dyn, _t) in ws)
+
+    @staticmethod
+    def _splitmix31(w: np.ndarray) -> np.ndarray:
+        """64 -> 31-bit mix, the exact fold's first probe (model.py:976): it
+        relies on uint64 wrap-around, so it stays in numpy; never the key
+        store's EMPTY marker 2^31 - 1."""
+        m = w.astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+        f = ((m >> np.uint64(33)) & np.uint64(0x7FFFFFFF)).astype(np.int64)
+        return np.where(f == 2**31 - 1, 0, f)
+
+    def _i64_exact_fold(self, tname: str, w: np.ndarray) -> np.ndarray:
+        """Every distinct int64 key of window `w` ([B, h], negative keys are
+        padding) of dynamic table `tname` as its own 31-bit id
+        (model.py:986-1052): new keys, sorted, are placed in turn from
+        their `_splitmix31` probe onward (linear probe, wrapping below the
+        EMPTY marker), so two keys never share an id. The map depends on
+        the order of insertion, which is the JAX package's: the window's
+        sorted new keys, window after window. Over W ranks the new keys are
+        the sorted union of the ranks' (`_mc_union_missing`), so that each
+        rank's map is the one-process run's on the global batch."""
+        m = self._i64_maps.setdefault(tname, {})
+        rev = self._i64_rev.setdefault(tname, {})
+        uq = np.unique(w[w >= 0])
+        missing = [k for k in uq.tolist() if k not in m]
+        if self.world > 1:
+            missing = [k for k in self._mc_union_missing(missing) if k not in m]
+        if missing:
+            with self._i64_lock:  # the train and eval feeders fold concurrently
+                for k, c0 in zip(missing, self._splitmix31(np.asarray(missing))):
+                    if k in m:
+                        continue
+                    c = int(c0)
+                    while True:
+                        owner = rev.get(c)
+                        if owner is None:
+                            m[k] = c
+                            rev[c] = k
+                            break
+                        if owner == k:
+                            break
+                        c += 1
+                        if c >= 2**31 - 1:
+                            c = 0
+        flat = w.reshape(-1)
+        neg = flat < 0
+        uq2, inv = np.unique(np.where(neg, 0, flat), return_inverse=True)
+        lut = np.fromiter((m.get(int(k), 0) for k in uq2), np.int32, len(uq2))
+        return np.where(neg, np.int32(INVALID_KEY), lut[inv.reshape(-1)]).reshape(w.shape)
+
+    def _mc_union_missing(self, missing: list) -> list:
+        """The sorted union of every rank's new keys (model.py:1054): the
+        counts all-gathered, then the keys padded with -1 to the largest
+        count (skipped when no rank has a new key). Every rank calls this
+        for every window of every batch, in the same order."""
+        dev = self.device
+        counts = all_gather(torch.tensor([len(missing)], dtype=torch.int64, device=dev))
+        mx = int(counts.max())
+        if mx == 0:
+            return []
+        pad = torch.full((mx,), -1, dtype=torch.int64)
+        if missing:
+            pad[: len(missing)] = torch.tensor(missing, dtype=torch.int64)
+        keys = all_gather(pad.to(dev)).cpu().numpy()
+        return np.unique(keys[keys >= 0]).tolist()
+
+    def _fold_i64_keys(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """A batch's int64 key columns as int32, window by window
+        (model.py:1085); -1 stays -1."""
+        if self._i64_fold is None:
+            self._i64_fold = self._build_i64_fold()
+        out = dict(batch)
+        for name, windows in self._i64_fold.items():
+            if name not in out:
+                continue
+            k = np.asarray(out[name])
+            if k.dtype != np.int64:
+                continue
+            k32 = np.empty(k.shape, np.int32)
+            for lo, hi, modulo, dynamic, tname in windows:
+                w = k[:, lo:hi]
+                if dynamic:
+                    k32[:, lo:hi] = self._i64_exact_fold(tname, w)
+                    continue
+                f = (w % max(modulo, 1)).astype(np.int32)
+                k32[:, lo:hi] = np.where(w < 0, np.int32(INVALID_KEY), f)
+            out[name] = k32
+        return out
+
+    def _i64_fold_maps_arrays(self) -> Dict[str, np.ndarray]:
+        """{"<table>.orig": int64 keys, "<table>.fold": int32 ids} in the
+        maps' insertion order, for `i64_fold_maps.npz` (model.py:1110)."""
+        arrays: Dict[str, np.ndarray] = {}
+        for tname, m in self._i64_maps.items():
+            if m:
+                arrays[f"{tname}.orig"] = np.fromiter(m.keys(), np.int64, len(m))
+                arrays[f"{tname}.fold"] = np.fromiter(m.values(), np.int32, len(m))
+        return arrays
+
+    def _restore_i64_fold_maps(self, arrays) -> None:
+        """The maps of an `i64_fold_maps.npz` (model.py:1124)."""
+        self._i64_maps, self._i64_rev = {}, {}
+        for tname in {k.rsplit(".", 1)[0] for k in arrays.keys()}:
+            orig = np.asarray(arrays[f"{tname}.orig"]).tolist()
+            fold = np.asarray(arrays[f"{tname}.fold"]).tolist()
+            self._i64_maps[tname] = dict(zip(orig, fold))
+            self._i64_rev[tname] = dict(zip(fold, orig))
+
+    def _decode_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The on-device split of a fused [B, row] int32 batch
+        (model.py:659-697, the reference's split_3_way): labels and dense
+        are the float32 bits of their columns in the float layout (Parquet,
+        or Raw with `float_label_dense`), else int labels as float and int
+        dense as log1p(max(x, 0)); each feature is a column view of the
+        rows. Other batches pass through."""
+        if FUSED_KEY not in batch:
+            return batch
+        raw = batch[FUSED_KEY]
+        s = self.batch_spec
+        fld = self._fused_float
+        out, off = {}, 0
+        for name, dim in zip(s.label_names, s.label_dims):
+            col = raw[:, off : off + dim]
+            out[name] = col.view(torch.float32) if fld else col.float()
+            off += dim
+        dn = raw[:, off : off + s.dense_dim]
+        out[s.dense_name] = dn.view(torch.float32) if fld else torch.log1p(dn.clamp_min(0).float())
+        off += s.dense_dim
+        for f in s.sparse:
+            out[f.name] = raw[:, off : off + f.total_nnz]
+            off += f.total_nnz
+        return out
 
     def start_data_reading(self) -> None:
-        """Synthetic batches are made once, kept on the device and cycled,
-        as the JAX package does (model.py:1213-1228)."""
+        """Start the train feed (model.py:1213-1250): synthetic batches, or
+        `cache_train_data` batches of any reader, are put on the device once
+        and cycled; otherwise a `DeviceFeeder` thread uploads them, and a
+        FIFO beside it keeps each batch's tail row count (0 for a whole
+        batch) for `read_a_batch_to_device`. Over W ranks with exact i64
+        folding the batches are folded and uploaded on this thread, so that
+        every rank's collectives come in program order."""
         if self._train_iter is not None:
             return
         if self.train_reader is None:
             raise ValueError("model has no reader")
-        it = iter(self.train_reader)
-        batches = [self._put_batch(next(it)) for _ in range(self.train_reader.num_batches)]
-        self._train_iter = itertools.cycle(batches)
+        cache_n = self.reader_params.cache_train_data
+        if not cache_n and isinstance(self.train_reader, SyntheticReader):
+            cache_n = self.train_reader.num_batches
+        if cache_n:
+            it = iter(self.train_reader)
+            self._train_iter = itertools.cycle([self._put_now(next(it)) for _ in range(cache_n)])
+            return
+        self._train_rows_fifo = collections.deque()
+
+        def put_train(b, uploader=None):
+            rows = b.get(ROWS_KEY)
+            self._train_rows_fifo.append(int(rows) if rows is not None else 0)
+            return self._put_batch(b, uploader)
+
+        if self._mc_sync_feed():
+            self._train_iter = (put_train(b).ready() for b in self.train_reader)
+        else:
+            self._train_feeder = self._new_feeder(self.train_reader, put_train)
+            self._train_iter = iter(self._train_feeder)
+
+    def _next_train_batch(self) -> DeviceBatch:
+        """The next train batch, its tail count popped from the FIFO; a
+        source that ran dry marks the train reader at EOF and raises
+        StopIteration (model.py:1270-1282)."""
+        try:
+            batch = next(self._train_iter)
+        except StopIteration:
+            self._train_eof = True
+            raise
+        self._last_read_rows = self._train_rows_fifo.popleft() if self._train_rows_fifo else 0
+        return batch
 
     def _feature_keys(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Each lookup's key columns of the batch (model.py:741); a
@@ -416,6 +753,7 @@ class Model:
         returns the global mean loss as a device tensor without waiting for
         the device (model.py:787-883)."""
         ec = self.ec
+        batch = self._decode_batch(batch)
         step = self._step + 1
         # set_learning_rate(x >= 0) replaces the schedule: 0 freezes updates
         ov = self._lr_override
@@ -469,7 +807,7 @@ class Model:
         A batch staged by `read_a_batch` is taken first."""
         self.start_data_reading()
         batch, self._staged_train_batch = self._staged_train_batch, None
-        loss = self.train_step(batch if batch is not None else next(self._train_iter))
+        loss = self.train_step(batch if batch is not None else self._next_train_batch())
         self._iter += 1
         self._last_loss = loss
         return loss
@@ -480,26 +818,36 @@ class Model:
 
     # ---------------------------------------------------------------- eval
     def _eval_batches(self):
-        """The eval batches (model.py:1292): the synthetic eval set's first
-        min(num_batches, max_eval_batches) batches, made once and kept on
-        the device; cycled to cover max_eval_batches when repeat_dataset is
-        set."""
+        """(the eval batches, the feeder that makes them or None, whether
+        they come from the reader rather than a cache) (model.py:1292-1355): synthetic eval batches (the first
+        min(num_batches, max_eval_batches)) or `cache_eval_data` batches of
+        any reader are put on the device once, and cycled to cover
+        max_eval_batches when `repeat_dataset` is set; otherwise a new
+        `DeviceFeeder` reads the non-repeating eval reader from its start."""
         if self.eval_reader is None:
             raise ValueError("model has no reader")
         n = self.solver.max_eval_batches
-        if self._eval_cache is None:
-            it = iter(self.eval_reader)
-            self._eval_cache = [self._put_batch(next(it))
-                                for _ in range(min(self.eval_reader.num_batches, n))]
-        if self.solver.repeat_dataset and len(self._eval_cache) < n:
-            return itertools.islice(itertools.cycle(self._eval_cache), n)
-        return iter(self._eval_cache)
+        cache_n = self.reader_params.cache_eval_data
+        if not cache_n and isinstance(self.eval_reader, SyntheticReader):
+            cache_n = min(self.eval_reader.num_batches, n)
+        if cache_n:
+            if self._eval_cache is None:
+                it = iter(self.eval_reader)
+                self._eval_cache = [self._put_now(next(it)) for _ in range(cache_n)]
+            if self.solver.repeat_dataset and len(self._eval_cache) < n:
+                return itertools.islice(itertools.cycle(self._eval_cache), n), None, False
+            return iter(self._eval_cache), None, False
+        if self._mc_sync_feed():
+            return (self._put_now(b) for b in self.eval_reader), None, True
+        feeder = self._new_feeder(self.eval_reader)
+        return iter(feeder), feeder, True
 
     @torch.no_grad()
     def _eval_step(self, batch: Dict[str, torch.Tensor]):
         """The forward of one eval batch: (loss, {label: predictions},
         {label: labels}) of the loss layers, on the device (model.py:885)."""
         ec = self.ec
+        batch = self._decode_batch(batch)
         emb_outs = ec.forward(self.tables, self._feature_keys(batch)) if ec is not None else {}
         tensors = {n: batch[n] for n in (*self.batch_spec.label_names, self.batch_spec.dense_name)}
         tensors.update(self._user_tensors(emb_outs))
@@ -526,10 +874,24 @@ class Model:
         """One pass over max_eval_batches eval batches; returns the metrics
         (model.py:1390), each other task's as `"<metric>_<label>"`. Losses,
         predictions and labels stay on the device until the metrics are
-        finalized."""
+        finalized. A feeder is stopped once max_eval_batches are taken; a
+        file source that runs dry first marks the eval reader at EOF. Every
+        row of a padded tail batch counts in the metrics, the repeated last
+        row too, as in the JAX package."""
         self._reset_metrics()
-        for batch in self._eval_batches():
+        self._eval_feed_started = True
+        source, feeder, fed = self._eval_batches()
+        n, exhausted = 0, True
+        for batch in source:
+            if n >= self.solver.max_eval_batches:
+                exhausted = False
+                break
             self._eval_update(batch)
+            n += 1
+        if feeder is not None:
+            feeder.stop()
+        if exhausted and fed:
+            self._eval_eof = True
         vals = self.metrics.finalize()
         for name, acc in self._task_metrics.items():
             vals.update({f"{m}_{name}": v for m, v in acc.finalize().items()})
@@ -745,7 +1107,8 @@ class Model:
         `sparse_<table>/emb_vector.npy` for every table of every group and
         for each split table's merged view, `keystore_<group>.npy` for each
         dynamic group and `meta.json` (iteration, step and the layout
-        stamp). `prefix` may be a remote URL (`io/filesystem.py`)."""
+        stamp), and `i64_fold_maps.npz` where the exact i64 fold holds keys.
+        `prefix` may be a remote URL (`io/filesystem.py`)."""
         out_dir = f"{prefix}_iter{iteration}"
         write = self.rm.is_master_process()
         if write:
@@ -771,6 +1134,11 @@ class Model:
                     host = self._sharded_host(arr, name)
                     if write:
                         iofs.save_npy(os.path.join(out_dir, f"keystore_{name[: -len('#keys')]}.npy"), host)
+        # the exact i64 fold's maps: the key stores hold folded ids, which
+        # mean nothing without them (every rank holds the same maps)
+        fold_maps = self._i64_fold_maps_arrays()
+        if write and fold_maps:
+            iofs.save_npz(os.path.join(out_dir, "i64_fold_maps.npz"), **fold_maps)
         if write:
             with iofs.open_file(os.path.join(out_dir, "meta.json"), "w") as f:
                 json.dump({"iteration": iteration, "step": int(self._step),
@@ -795,8 +1163,7 @@ class Model:
     @staticmethod
     def _refuse_unported_files(out_dir: str) -> None:
         """A snapshot file the port cannot represent raises, since skipping
-        it would lose state: the packed table-and-state arrays and the i64
-        key maps."""
+        it would lose state: the packed table-and-state arrays."""
         if not iofs.isdir(out_dir):
             return
         names = iofs.listdir(out_dir)
@@ -806,10 +1173,6 @@ class Model:
                 f"{out_dir}: {packed} hold the packed table-and-state layout (the JAX package's "
                 "HCTR_TPU_PACKED_STATE), which the port leaves out on purpose (ROADMAP Queue 1, "
                 "'Left out on purpose'); skipping it would lose the optimizer state")
-        if "i64_fold_maps.npz" in names:
-            raise NotImplementedError(
-                f"{out_dir}: i64_fold_maps.npz holds exact i64 key maps; i64 input keys are not ported yet "
-                "(ROADMAP Queue 1 item 4)")
 
     @torch.no_grad()
     def _put(self, dst: torch.Tensor, src, what: str) -> None:
@@ -822,8 +1185,8 @@ class Model:
     def load_params_from_files(self, out_dir: str) -> None:
         """Restore a snapshot of either package (model.py:1635-1718): the
         layout stamp is checked first; then the dense parameters and their
-        state, every table in key order, the key stores, the sparse
-        optimizer state, the step and the iteration. Each rank takes its
+        state, every table in key order, the key stores, the i64 fold's
+        maps, the sparse optimizer state, the step and the iteration. Each rank takes its
         own rows."""
         meta_path = os.path.join(out_dir, "meta.json")
         if iofs.exists(meta_path):
@@ -845,6 +1208,9 @@ class Model:
                     if iofs.exists(path):
                         self.ec.import_table(self.tables, t.name, iofs.load_npy(path))
             self._load_key_stores(out_dir)
+            fmap = os.path.join(out_dir, "i64_fold_maps.npz")
+            if iofs.exists(fmap):
+                self._restore_i64_fold_maps(iofs.load_npz(fmap))
             edir = os.path.join(out_dir, "emb_opt_states")
             if iofs.isdir(edir):
                 self._load_eopt({f"{g}.{slot}": os.path.join(edir, f"{g}.{slot}.npy")
@@ -992,17 +1358,50 @@ class Model:
         """The loss of the last train() call, 0.0 before any (model.py:1923)."""
         return float(self._last_loss) if self._last_loss is not None else 0.0
 
-    def get_data_reader_train(self):
-        """model.py:1934; needs the file readers."""
-        raise NotImplementedError("reader handles need the file readers (ROADMAP Queue 1 item 4)")
+    def _close_readers(self) -> None:
+        """Stop the train feed's thread and close both readers (the native
+        reader's threads)."""
+        if self._train_feeder is not None:
+            self._train_feeder.stop()
+        for r in (self.train_reader, self.eval_reader):
+            if r is not None:
+                r.close()
 
-    def get_data_reader_eval(self):
-        """model.py:1940; needs the file readers."""
-        raise NotImplementedError("reader handles need the file readers (ROADMAP Queue 1 item 4)")
+    def get_data_reader_train(self) -> _DataReaderHandle:
+        """The train reader's handle (model.py:1934)."""
+        return _DataReaderHandle(self, train=True)
+
+    def get_data_reader_eval(self) -> _DataReaderHandle:
+        """The eval reader's handle (model.py:1940)."""
+        return _DataReaderHandle(self, train=False)
 
     def set_source(self, source=None, eval_source: str = "") -> None:
-        """model.py:1943; needs the file readers."""
-        raise NotImplementedError("set_source needs the file readers (ROADMAP Queue 1 item 4)")
+        """Re-point the readers at new sources (model.py:1942-1969), with
+        `data_source_params.make_uri` applied: the old reader's feed stops
+        and it is closed, the new reader starts from its first batch and
+        EOF is cleared; training goes on from the current state. A new eval
+        source also drops the eval cache and the reader that
+        `read_a_batch(is_train=False)` was reading."""
+        dsp = self.reader_params.data_source_params
+        mk = dsp.make_uri if dsp is not None else (lambda p: p)
+        if source is not None:
+            self.reader_params.source = [mk(source)] if isinstance(source, str) else [mk(p) for p in source]
+            if self._train_feeder is not None:
+                self._train_feeder.stop()
+            if self.train_reader is not None:
+                self.train_reader.close()
+            self.train_reader = self._make_reader(train=True)
+            self._train_iter = None
+            self._train_feeder = None
+            self._train_eof = False
+        if eval_source:
+            self.reader_params.eval_source = mk(eval_source)
+            if self.eval_reader is not None:
+                self.eval_reader.close()
+            self.eval_reader = self._make_reader(train=False)
+            self._eval_cache = None
+            self._peek_eval_iter = None
+            self._eval_eof = False
 
     def update_label_weights(self, label_names, label_weights) -> None:
         """New weights of the tasks' losses for the next steps
@@ -1030,19 +1429,32 @@ class Model:
 
     def read_a_batch(self, is_train: bool = True) -> bool:
         """Stage the next train batch, which the next train() takes, or read
-        the next eval batch (model.py:2015); the synthetic reader never runs
-        dry."""
+        the next eval batch on the host (model.py:2015-2040); False once a
+        non-repeating source ran dry (EOF). The true row count of the batch
+        read goes to the reader handle's `read_a_batch_to_device`."""
         if is_train:
             self.start_data_reading()
             if self._staged_train_batch is not None:
                 get_logger().warning("read_a_batch: overwriting a staged train batch that train() never took")
-            self._staged_train_batch = next(self._train_iter)
+            try:
+                self._staged_train_batch = self._next_train_batch()
+            except StopIteration:
+                self._staged_train_batch = None
+                return False
             return True
         if self.eval_reader is None:
             raise ValueError("model has no reader")
-        if getattr(self, "_peek_eval_iter", None) is None:
+        self._eval_feed_started = True
+        if self._peek_eval_iter is None:
             self._peek_eval_iter = iter(self.eval_reader)
-        next(self._peek_eval_iter)
+        try:
+            b = next(self._peek_eval_iter)
+        except StopIteration:
+            self._eval_eof = True
+            self._peek_eval_iter = None
+            return False
+        rows = b.get(ROWS_KEY)
+        self._last_read_rows = int(rows) if rows is not None else 0
         return True
 
     def _perf_log(self, key: str, **kw) -> None:
@@ -1106,9 +1518,10 @@ class Model:
         bfloat16 as float32."""
         if batch is None:
             self.start_data_reading()
-            batch = next(self._train_iter)
-        batch = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                 for k, v in batch.items()}
+            batch = self._next_train_batch()
+        elif not all(isinstance(v, torch.Tensor) for v in batch.values()):
+            batch = self._put_now(batch)
+        batch = self._decode_batch(batch)
         emb_outs = self.ec.forward(self.tables, self._feature_keys(batch)) if self.ec is not None else {}
         tensors = {n: batch[n] for n in (*self.batch_spec.label_names, self.batch_spec.dense_name)}
         tensors.update(self._user_tensors(emb_outs))

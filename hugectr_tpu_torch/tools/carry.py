@@ -11,7 +11,10 @@ JAX. The tree holds:
   bias, gamma, beta}} -> the network (MLP, MultiCross, InnerProduct,
   WeightMultiply, LayerNorm);
 * `dopt` {"accum" | "m" | "v" | "z" | "n": {layer: {key: ...}}} -> `model.dopt`;
-* `step` -> the model's step counter.
+* `step` -> the model's step counter;
+* `i64_fold_maps` (optional) {"<table>.orig" | "<table>.fold": ...}, the
+  exact i64 fold's maps as `i64_fold_maps.npz` holds them (the JAX model's
+  `_i64_fold_maps_arrays()`) -> the model's maps.
 
 The two packages name groups and layers alike and keep the same layouts
 (MLP weights [fan_in, fan_out], row-wise accumulators [R, 1]), so no array
@@ -143,6 +146,8 @@ def _load_dense(model, state: Dict[str, Any]) -> None:
             for k, arr in ps.items():
                 _copy(model.dopt[kind][layer][k], arr, f"dense state {kind}/{layer}/{k}")
     model._step = int(np.asarray(state["step"]))
+    if "i64_fold_maps" in state:
+        model._restore_i64_fold_maps(state["i64_fold_maps"])
 
 
 def _dense_host(model) -> Dict[str, Any]:
@@ -156,6 +161,7 @@ def _dense_host(model) -> Dict[str, Any]:
             for kind, tree in model.dopt.items()
         },
         "step": model._step,
+        **({"i64_fold_maps": maps} if (maps := model._i64_fold_maps_arrays()) else {}),
     }
 
 

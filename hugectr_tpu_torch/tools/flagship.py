@@ -16,8 +16,11 @@ model-parallel; a Reshape to [B, 26, ev]; bottom MLP 512/256/ev; the DLRM
 Interaction; top MLP 1024/1024/512/256/1; BCE; FTRL (lambda1 = lambda2 =
 0.01, beta 0) for the tables and the dense network. `dynamic=True` makes
 every table dynamic (`max_vocabulary_size` -1) with `dynamic_capacity`
-rows. The sample reads Parquet files; the port reads synthetic power-law
-keys.
+rows. The sample reads Parquet files; by default the port reads synthetic
+power-law keys.
+
+Each builder takes `reader=` (a `DataReaderParams`) in place of its
+synthetic reader, so that a full-width model can read files.
 """
 from __future__ import annotations
 
@@ -110,22 +113,25 @@ def build_dlrm_dcnv2(
     max_eval_batches: int = 8,
     synthetic_learnable: bool = False,
     shard_counts=None,
+    reader=None,
     **solver_kwargs,
 ):
     """DLRM-DCNv2 (flagship.py:28); returns a compiled Model on `rm.device`,
     over `rm.num_devices` ranks (`batchsize` is the global batch; the
     tables not on the one-hot engine are model-parallel, table n on
     `shard_counts[n]` of the ranks where given, else on all of them).
-    `solver_kwargs` are `Solver` fields (dtypes, split, engine settings)."""
+    `reader` replaces the synthetic reader; `solver_kwargs` are `Solver`
+    fields (dtypes, split, engine settings)."""
     table_sizes = [min(v, vocab_cap) for v in MLPERF_TABLE_SIZES]
     if multi_hot_sizes is None:
         multi_hot_sizes = MLPERF_MULTI_HOT_SIZES
     solver_kwargs.setdefault("metrics_spec", {Metric_t.AUC: 0.80275})
+    solver_kwargs.setdefault("repeat_dataset", True)
     solver = hugectr.CreateSolver(
         batchsize=batchsize, batchsize_eval=batchsize, max_eval_batches=max_eval_batches, lr=lr,
-        use_mixed_precision=use_mixed_precision, repeat_dataset=True, **solver_kwargs,
+        use_mixed_precision=use_mixed_precision, **solver_kwargs,
     )
-    reader = hugectr.DataReaderParams(
+    reader = reader or hugectr.DataReaderParams(
         data_reader_type=DataReaderType_t.Synthetic,
         synthetic_num_batches=synthetic_batches,
         synthetic_alpha=1.05,
@@ -307,18 +313,21 @@ def build_dlrm_ftrl(
     lr: float = 0.001,
     max_eval_batches: int = 50,
     synthetic_alpha: float = 1.05,
+    reader=None,
     **solver_kwargs,
 ):
     """DLRM with FTRL, samples/dlrm_ftrl.py:15-114, compiled on `rm.device`
     over `rm.num_devices` ranks, every table on every rank as the sample's
-    `shard_matrix` puts them (samples/dlrm_ftrl.py:69-72). `solver_kwargs`
-    are `Solver` fields (engine settings, dtypes)."""
+    `shard_matrix` puts them (samples/dlrm_ftrl.py:69-72). `reader`
+    replaces the synthetic reader; `solver_kwargs` are `Solver` fields
+    (engine settings, dtypes, `i64_input_key`)."""
     sizes = [min(v, vocab_cap) for v in FTRL_SLOT_SIZES]
+    solver_kwargs.setdefault("repeat_dataset", True)
     solver = hugectr.CreateSolver(
         max_eval_batches=max_eval_batches, batchsize_eval=batchsize, batchsize=batchsize, lr=lr,
-        repeat_dataset=True, **solver_kwargs,
+        **solver_kwargs,
     )
-    reader = hugectr.DataReaderParams(
+    reader = reader or hugectr.DataReaderParams(
         data_reader_type=DataReaderType_t.Synthetic, synthetic_num_batches=synthetic_batches,
         synthetic_alpha=synthetic_alpha,
     )

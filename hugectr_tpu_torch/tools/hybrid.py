@@ -175,10 +175,25 @@ def _sync(rm) -> None:
         torch.cuda.synchronize(rm.device)
 
 
+def builder_kwargs(cfg: Tree) -> Dict[str, Any]:
+    """A config's builder keyword arguments, its `reader` (the fields of a
+    `DataReaderParams`, `async_param` those of an `AsyncParam`) as the
+    builder's `reader=`."""
+    from ..core.config import AsyncParam, DataReaderParams
+
+    kw = dict(cfg.get("kwargs", {}))
+    if cfg.get("reader"):
+        rp = dict(cfg["reader"])
+        if rp.get("async_param"):
+            rp["async_param"] = AsyncParam(**rp["async_param"])
+        kw["reader"] = DataReaderParams(**rp)
+    return kw
+
+
 def train_model(rm, inputs: Tree) -> Tree:
     """Rank function: `inputs["config"]` (JSON) names a builder of
     `tools/flagship.py` (or of the tools module `module`, e.g. "samples")
-    and its keyword arguments (`kwargs`), the training
+    and its keyword arguments (`kwargs`, `reader`: `builder_kwargs`), the training
     `steps`, whether to `eval`, and with `export` false leaves the tables
     and dense parameters out of the result; `inputs["state"]`, if given, is
     a carried state (`tools/carry.py`, global arrays of `state_shards`
@@ -199,7 +214,8 @@ def train_model(rm, inputs: Tree) -> Tree:
     binned and the exact AUC of the eval's buffers; with `carry_out`, the
     trained state (`export_state`, `final_state`); given
     `inputs["eval_state"]` (a state of `eval_state_shards` ranks), the eval
-    of those weights last (`eval_carried`). `shards` holds this rank's
+    of those weights last (`eval_carried`); with i64 keys, the exact fold's
+    maps (`i64_fold_maps`). `shards` holds this rank's
     shard of each group with replicas (`shard_replicas`, digests with
     `digest`)."""
     from .. import ops
@@ -210,7 +226,7 @@ def train_model(rm, inputs: Tree) -> Tree:
     if rm.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(rm.device)
     builders = importlib.import_module(f"{__package__}.{cfg.get('module', 'flagship')}")
-    model = getattr(builders, cfg["builder"])(rm=rm, **cfg.get("kwargs", {}))
+    model = getattr(builders, cfg["builder"])(rm=rm, **builder_kwargs(cfg))
     if "state" in inputs:
         load_jax_state(model, inputs["state"], cfg.get("state_shards", 0))
     if "table_state" in inputs:
@@ -280,11 +296,14 @@ def train_model(rm, inputs: Tree) -> Tree:
         out[key] = arrays
     if cfg.get("kernel_check"):
         out["kernel_parity"] = kernel_parity(model, batches[0])
+    if model._i64_maps:  # the exact i64 fold's maps, as i64_fold_maps.npz holds them
+        out["i64_fold_maps"] = model._i64_fold_maps_arrays()
     if cfg.get("carry_out"):
         out["final_state"] = export_state(model)
     if "eval_state" in inputs:  # another run's weights, evaluated here
         load_jax_state(model, inputs["eval_state"], cfg.get("eval_state_shards", 0))
         out["eval_carried"] = model.eval()
+    model._close_readers()
     return out
 
 
@@ -409,7 +428,7 @@ def kernel_parity(model, batch: Dict[str, torch.Tensor], seed: int = 5) -> Tree:
     from ..ops import segscan as ss
 
     ec, dev = model.ec, model.device
-    fk = model._feature_keys(batch)
+    fk = model._feature_keys(model._decode_batch(batch))
     gen = torch.Generator(device=dev).manual_seed(seed + model.rm.rank)
     res: Tree = {}
 
@@ -562,7 +581,9 @@ def parity_runs(world: int, backend: str, device: str = "cuda", config: Tree = N
 
     cfg = dict(config or TINY_PARITY)
     rm = ResourceManager.create(device=device)
-    state = export_table_state(getattr(flagship, cfg["builder"])(rm, **cfg["kwargs"]))
+    model = getattr(flagship, cfg["builder"])(rm, **builder_kwargs(cfg))
+    state = export_table_state(model)
+    model._close_readers()
     one = train_model(rm, {"config": json.dumps(dict(cfg, carry_out=eval_carried)), "table_state": state})
     inputs = {"config": json.dumps(dict(cfg, eval_state_shards=1)), "table_state": state}
     if eval_carried:

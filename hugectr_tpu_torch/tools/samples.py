@@ -8,8 +8,9 @@ builds and compiles the graph of `samples/<name>.py` as a port `Model`.
 
 Each builder follows its sample line for line (the lines are cited): the
 same slot sizes, embedding widths, layers, optimizer and solver settings,
-with the Synthetic reader in place of the sample's Parquet files
-(`synthetic_alpha` 1.05: power-law keys, as the DLRM builders draw them).
+with the Synthetic reader in place of the sample's Parquet files unless
+`reader=` is given (`synthetic_alpha` 1.05: power-law keys, as the DLRM
+builders draw them).
 The samples and their variants (tests/test_samples.py:14-25) are `GRAPHS`:
 criteo_parquet, wdl, dcn, deepfm, ncf (gmf, ncf, neumf), mmoe (mmoe,
 shared_bottom), din and bst. Keyword arguments scale a graph down for the
@@ -352,18 +353,19 @@ _SAMPLES = {
 
 def build_sample(name: str, rm, batchsize: int = 2048, variant: Optional[str] = None, slot_cap: int = 0,
                  dropout_rate: Optional[float] = None, synthetic_batches: int = 64,
-                 synthetic_learnable: bool = False, **solver_kwargs):
+                 synthetic_learnable: bool = False, reader=None, **solver_kwargs):
     """The graph of `samples/<name>.py` (`variant` for ncf and mmoe),
     compiled on `rm.device` over `rm.num_devices` ranks. The solver is the
     sample's (`CreateSolver` at its lines 14-26: lr 0.001, the `--lr`
     default, which ncf fixes at 0.0045), with `solver_kwargs` (`Solver`
-    fields) added."""
+    fields) added; `reader` (a `DataReaderParams`, e.g. the sample's own
+    `make_reader`'s Parquet files) replaces the synthetic reader."""
     graph, opt_kw, fixed_lr, max_eval = _SAMPLES[name]
     variant = variant or DEFAULT_VARIANT.get(name)
     solver_kwargs.setdefault("max_eval_batches", max_eval)
     solver = hugectr.CreateSolver(batchsize_eval=batchsize, batchsize=batchsize, lr=fixed_lr or 0.001,
                                   repeat_dataset=True, **solver_kwargs)
-    reader = hugectr.DataReaderParams(data_reader_type=DataReaderType_t.Synthetic,
+    reader = reader or hugectr.DataReaderParams(data_reader_type=DataReaderType_t.Synthetic,
                                       synthetic_num_batches=synthetic_batches, synthetic_alpha=1.05,
                                       synthetic_learnable=synthetic_learnable)
     model = hugectr.Model(solver, reader, hugectr.CreateOptimizer(**opt_kw), resource_manager=rm)

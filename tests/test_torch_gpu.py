@@ -413,3 +413,26 @@ def test_partial_placement_replicas_bitwise_on_four_ranks(cuda):
     for res in ranks:
         for t, want in one["tables"].items():
             np.testing.assert_allclose(res["tables"][t], want, rtol=1e-4, atol=1e-5, err_msg=t)
+
+
+@pytest.mark.gpu
+def test_device_feeder_stages_through_pinned_memory(cuda):
+    """The feeder on the card: each batch goes through a pinned staging
+    buffer and a copy on the uploader's stream; the consumer's stream waits
+    on the copy's event. 24 batches through a ring of 3 staging sets, each
+    consumed with device work on the default stream, arrive in order and
+    bitwise (a staging buffer reused before its copy ended, or a batch read
+    before its copy, would show)."""
+    from hugectr_tpu_torch.data.reader import DeviceFeeder, Uploader
+
+    rng = np.random.default_rng(0)
+    host = [{"rows": rng.integers(-2**31, 2**31 - 1, size=(4096, 267), dtype=np.int32)} for _ in range(24)]
+    up = Uploader(cuda, slots=3)
+    feeder = DeviceFeeder(host, up, depth=3)
+    for i, b in enumerate(feeder):
+        assert b["rows"].device.type == "cuda" and b.event is None
+        torch.cuda._sleep(1_000_000)  # keep the consumer's stream busy while copies go on
+        np.testing.assert_array_equal(b["rows"].cpu().numpy(), host[i]["rows"], err_msg=f"batch {i}")
+    feeder.stop()
+    assert up.batches == 24 and up.bytes == 24 * 4096 * 267 * 4
+    assert all(buf.is_pinned() for slot in up._slots for buf in slot.bufs.values())

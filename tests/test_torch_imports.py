@@ -25,7 +25,8 @@ def test_fresh_process_imports_every_port_module_without_jax():
         "print(sum(n.startswith('hugectr_tpu_torch') for n in sys.modules))\n"
         "assert not bad, bad\n"
         "assert {'hugectr_tpu_torch.tools.samples', 'hugectr_tpu_torch.layers.core_layers',\n"
-        "        'hugectr_tpu_torch.io.filesystem', 'hugectr_tpu_torch.utils.diagnose'} <= set(sys.modules)\n"
+        "        'hugectr_tpu_torch.io.filesystem', 'hugectr_tpu_torch.utils.diagnose',\n"
+        "        'hugectr_tpu_torch.data.native_reader', 'hugectr_tpu_torch.data.generator'} <= set(sys.modules)\n"
         % (FORBIDDEN,)
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -51,6 +52,27 @@ def test_io_alone_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert any(p.parent.name == "io" for p in PORT_FILES)
+
+
+def test_native_reader_import_builds_nothing():
+    """Importing the native Raw reader's module (or the readers, or the
+    generator) compiles nothing, imports no JAX and no pyarrow: g++ runs at
+    the first `NativeRawReader`, pyarrow at the first Parquet reader."""
+    code = (
+        "import subprocess, sys\n"
+        "calls = []\n"
+        "subprocess.run = subprocess.Popen = lambda *a, **k: calls.append(a)\n"
+        "import hugectr_tpu_torch.data.native_reader as n\n"
+        "import hugectr_tpu_torch.data.reader, hugectr_tpu_torch.data.generator\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "assert not bad, bad\n"
+        "assert calls == [] and n._lib is None, calls\n"
+        "assert 'pyarrow' not in sys.modules\n" % (FORBIDDEN,)
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert (ROOT / "hugectr_tpu_torch" / "csrc" / "raw_reader.cpp").exists()
 
 
 def _top_level_imports(path: pathlib.Path):

@@ -364,14 +364,18 @@ def test_read_a_batch_stages_the_next_train_batch(pair):
 
 
 def test_every_public_method_of_the_jax_model_is_ported():
-    """Each public method of hugectr_tpu.Model exists on the port's Model;
-    those that need the file readers raise NotImplementedError naming the
-    ROADMAP item."""
+    """Each public method of hugectr_tpu.Model exists on the port's Model,
+    the reader handles' too; on the synthetic reader the handles report no
+    EOF and start with the train feed, and `set_source` keeps it."""
     jax_methods = sorted(n for n, _ in inspect.getmembers(jh.Model) if not n.startswith("_"))
     missing = [n for n in jax_methods if not hasattr(th.Model, n)]
     assert missing == []
     tm = port_model("f32")
-    for name in ("get_data_reader_train", "get_data_reader_eval", "set_source"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 4"):
-            getattr(tm, name)()
+    train, ev = tm.get_data_reader_train(), tm.get_data_reader_eval()
+    handle = sorted(n for n in dir(train) if not n.startswith("_"))
+    assert handle == sorted(n for n in dir(jh.Model.get_data_reader_train(tm)) if not n.startswith("_"))
+    assert not train.is_started() and not train.is_eof() and not ev.is_eof()
+    assert train.read_a_batch_to_device() == tm.solver.batchsize and train.is_started()
+    tm.set_source(source="unused", eval_source="unused")
+    assert isinstance(tm.train_reader, type(tm.eval_reader)) and not train.is_eof()
     assert th.TrainingCallback is not None and "TrainingCallback" in th.__all__

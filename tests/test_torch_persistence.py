@@ -405,19 +405,16 @@ def test_memory_filesystem_round_trip(jax_runs):
     np.testing.assert_array_equal(ref, tm.ec.export_table(tm.tables, "0"))
 
 
-@pytest.mark.parametrize("name, item", [("packed_mp_ev16.npy", "Left out on purpose"),
-                                        ("i64_fold_maps.npz", "item 4")])
+@pytest.mark.parametrize("name, item", [("packed_mp_ev16.npy", "Left out on purpose")])
 def test_files_the_port_cannot_represent_raise(tmp_path, name, item):
-    """A snapshot holding the JAX package's packed table-and-state array or
-    its i64 key maps raises, naming the ROADMAP entry, from every loader
-    that reads a snapshot dir: skipping the file would lose state."""
+    """A snapshot holding the JAX package's packed table-and-state array
+    raises, naming the ROADMAP entry, from every loader that reads a
+    snapshot dir: skipping the file would lose state. (The i64 key maps
+    load: tests/test_torch_i64.py.)"""
     tm = port_model("f32")
     tm.download_params_to_files(str(tmp_path / "snap"), 0)
     snap = str(tmp_path / "snap_iter0")
-    if name.endswith(".npy"):
-        np.save(os.path.join(snap, name), np.zeros((4, 32), np.float32))
-    else:
-        np.savez(os.path.join(snap, name), **{"0/keys": np.zeros(2, np.int64)})
+    np.save(os.path.join(snap, name), np.zeros((4, 32), np.float32))
     for load in (tm.load_params_from_files, tm.load_sparse_weights, tm.load_sparse_optimizer_states):
         with pytest.raises(NotImplementedError, match=item):
             load(snap)
