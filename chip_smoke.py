@@ -41,7 +41,12 @@ Each phase prints one JSON line with its own seconds:
    segscan at K 16,384. Then the bench shapes of one of the W ranks of the
    hybrid phases (cases `_w{W}`): the 20-lookup group and the superhot
    backwards on B/W rows, the cold tier's segscan over the keys rank 0
-   owns.
+   owns. Then the ordered pool of the owner-partitioned forward
+   (csrc/ordered_pool.cu) bitwise against its plain version at rank 0's
+   shapes of the hybrid phases (the f32 flagship's table-20 and 5-lookup
+   groups, the bench configuration's bf16 tiers of table 20), with its
+   bound, `embedding_bag` and `index_add_` beside it, and at its edge
+   cases (E 13, 16 and 128, slots of 0 to 100 rows).
 3. "tiny_parity": the tiny DLRM-DCNv2 trained 3 steps on the card (kernels)
    and on the CPU (plain versions) from the same state: losses and tables
    must agree. Then the same with bench.py's settings scaled down (bf16,
@@ -78,16 +83,23 @@ Each phase prints one JSON line with its own seconds:
 8. "hybrid_parity": the tiny DLRM-DCNv2 on 2 spawned ranks against one
    card from one carried state, 3 steps and an eval
    (`tools/hybrid.py::parity_runs`): NCCL with a card per rank, or gloo
-   with both ranks on one card.
+   with both ranks on one card. The parity phases run the masked-gather
+   forward (`fwd_partition=False`), whose float32 sums are one card's.
    Then "hybrid_bench_parity": the tiny bench-configured model the same
    way, the ranks also evaluating the card's trained weights; and
    "hybrid_partial_parity": the tiny model with a partial placement
    (tables on 2 shards and on 1) on 4 ranks against one card, each shard's
-   replicas bitwise equal.
+   replicas bitwise equal. "hybrid_exchange_parity": 2 ranks on one card
+   over gloo: the owner-partitioned forward of the tiny bench model against
+   the masked one within per-key rounding, the ordered pool bitwise
+   against its plain version on each rank's inputs, the unique-key dense
+   exchange's two branches (lists of 64 and of 2 rows) against one card,
+   a capacity factor that drops nothing against none, bitwise.
 9. "hybrid_path": the full-width flagship (f32, global batch 16,384)
-   trained hybrid-parallel on W = max(2, cards) ranks, at most 8: launch
-   counts per rank, the bytes of each collective a step, replicas bitwise
-   equal across the ranks. "hybrid_bench_path": the same with
+   trained hybrid-parallel on W = max(2, cards) ranks, at most 8, at the
+   default owner-partitioned forward: launch counts per rank (the ordered
+   pool once a model-parallel group and forward), the bytes of each
+   collective a step, replicas bitwise equal across the ranks. "hybrid_bench_path": the same with
    `bench_settings()`, and each kernel held against its plain version on
    every rank's own inputs, the binned AUC beside the exact one.
    "hybrid_ftrl_dynamic_path": full-width DLRM-FTRL on dynamic tables over
@@ -157,8 +169,10 @@ path's launches and its case with the most device time, the freeze
 path's launches, each rank's
 launches on the hybrid and hybrid bench paths, and the per-rank bench case
 with the most device time, each sample graph's launches and the
-sample-width case with the most device time), a line with the card's name
-and power limit, and last
+sample-width case with the most device time; and the ordered pool: its
+launches on rank 0 of the hybrid path, steps and eval, beside its f32 and
+bf16 cases with the most device time), a line with the card's name and
+power limit, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that line;
 so does a machine without CUDA.
 """
@@ -182,6 +196,9 @@ ALPHA = 1.05
 # float32 sums in another order (atomics for the backward); bfloat16 adds
 # one rounding of the output (2^-8 relative)
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# the kernels of the paths on one card; the ordered pool runs over W > 1
+# ranks only (the owner-partitioned forward)
+ONE_CARD_KERNELS = ("onehot_fwd", "onehot_bwd", "segscan")
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -337,6 +354,7 @@ def kernel_checks(torch, results):
     bench_shape_checks(torch, np, oh, ss, dev, results)
     bench_shape_checks(torch, np, oh, ss, dev, results, world=hybrid_world(torch))
     ftrl_shape_checks(torch, np, oh, ss, dev, results)
+    ordered_pool_checks(torch, np, dev, results)
 
 
 def ftrl_shape_checks(torch, np, oh, ss, dev, results):
@@ -805,6 +823,109 @@ def segscan_checks(torch, np, rng, ss, dev, results):
             raise AssertionError(f"segscan edge case disagrees: {rec}")
 
 
+def bits(torch, t):
+    """A float tensor's bits as integers, for bitwise comparisons."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def ordered_pool_checks(torch, np, dev, results):
+    """The ordered pool (csrc/ordered_pool.cu) of the owner-partitioned
+    forward against its plain version, bitwise, at the shapes of rank 0 of
+    the hybrid phases' W ranks: the owned prefix of the gathered 16,384 x h
+    power-law keys of the f32 flagship's table-20 group (h 100) and its
+    5-lookup group, and of bench.py's configuration's bf16 cold and hot
+    tiers of table 20; with its bound, the plain version's time, one
+    `embedding_bag` over the same slots (float32 sums, no rounding after
+    each add) and `index_add_` of the gathered rows. Then f32 and bf16 at E
+    16, 128 and 13 (one-column lanes), slots of 1 to 100 rows, empty slots,
+    repeated rows and keys of other shards; and two runs compared bitwise."""
+    import torch.nn.functional as F
+
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.core.types import Optimizer_t
+    from hugectr_tpu_torch.embedding.collection import EmbeddingCollection
+    from hugectr_tpu_torch.ops import ordered_pool as op
+    from hugectr_tpu_torch.optim.params import OptParams
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+    from hugectr_tpu_torch.tools.flagship import BENCH_PLAN, flagship_plan, raw_vocab
+
+    w = hybrid_world(torch)
+    rng = np.random.default_rng(17)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for label, dt, plan_kw, names in (("flagship", torch.float32, {}, ("mp_ev128_20", "mp_ev128")),
+                                      ("bench", torch.bfloat16, BENCH_PLAN, ("mp_ev128_20::cold", "mp_ev128_20::hot"))):
+        plan = flagship_plan(ev_size=E, num_shards=w, **plan_kw)
+        ec = EmbeddingCollection(plan, ResourceManager(dev, 0, w), OptParams(Optimizer_t.RowWiseAdaGrad), dtype=dt)
+        for gname in names:
+            t0 = time.perf_counter()
+            g = next(x for x in plan.groups if x.name == gname)
+            raw = {}
+            for lm in g.lookups:
+                raw.setdefault(lm.bottom_name, torch.as_tensor(
+                    power_law(rng, raw_vocab(plan, lm), (B, lm.hotness)).astype(np.int32), device=dev))
+            srows, offsets = ec._pool_segments(gname, ec._group_keys(g, raw), g.total_local_rows)
+            n = offsets.numel() - 1
+            table = torch.empty((g.total_local_rows, E), device=dev).normal_(generator=gen).to(dt)
+            call = lambda: op.ordered_pool(table, srows, offsets)  # noqa: E731
+            got = call()
+            want = op.ordered_pool_plain(table, srows, offsets)
+            torch.cuda.synchronize()
+            pooled = srows < g.total_local_rows
+            lens = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+                0, torch.repeat_interleave(torch.arange(n, device=dev), offsets.diff()), pooled.long())
+            owned, slot_ids = srows[pooled], torch.repeat_interleave(torch.arange(n, device=dev), lens)
+            obounds = torch.cat([lens.new_zeros(1), lens.cumsum(0)])
+            k, isz = srows.numel(), table.element_size()
+            uniq = int(torch.unique(owned).numel())  # each pooled table row read once
+            # the row ids a warp reads: its slot's owned rows and the first
+            # foreign one after them, where the slot has one
+            ids_read = int(torch.minimum(lens + 1, offsets.diff()).sum())
+            b_ms, b_by = bound(uniq * E * isz + ids_read * 8 + 8 * (n + 1) + n * E * isz, int(owned.numel()) * E)
+            dms, per_call = device_ms(call, KERNEL_NAMES["ordered_pool"])
+            rec = dict(
+                kernel="ordered_pool", case=f"{label}_{gname}_w{w}", dtype=str(dt).split(".")[1], K=k, slots=n,
+                E=E, owned=int(owned.numel()), ids_read=ids_read, unique_rows=uniq, max_slot_rows=int(lens.max()),
+                empty_slots=int((lens == 0).sum()),
+                bitwise=bool(torch.equal(bits(torch, got), bits(torch, want))),
+                bitwise_repeat=bool(torch.equal(bits(torch, call()), bits(torch, got))),
+                max_abs_err=float((got.float() - want.float()).abs().max()), tol=0.0,
+                ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
+                plain_ms=time_ms(lambda: op.ordered_pool_plain(table, srows, offsets), samples=5, inner=1, warmup=1),
+                library_ms=time_ms(lambda: F.embedding_bag(owned, table, obounds[:-1], mode="sum")),
+                library="torch.nn.functional.embedding_bag(mode='sum', offsets) over the owned rows (float32 "
+                        "sums, one rounding)",
+                index_add_ms=time_ms(
+                    lambda: torch.zeros((n, E), dtype=dt, device=dev).index_add_(0, slot_ids, table[owned])),
+                bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
+            )
+            rec["scaled_err"] = 0.0 if rec["bitwise"] else math.inf
+            results.append(rec)
+            emit(rec)
+            if not (rec["bitwise"] and rec["bitwise_repeat"]):
+                raise AssertionError(f"ordered_pool differs from its plain version: {rec}")
+    for dt in (torch.float32, torch.bfloat16):
+        for e in (16, 128, 13):
+            n = 3000
+            lens = rng.integers(1, 101, size=n)
+            lens[rng.random(n) < 0.2] = 0
+            slots = torch.as_tensor(np.repeat(np.arange(n), lens), device=dev)
+            # a tenth of the keys on another rank's shard (row id 500)
+            rows = torch.as_tensor(np.minimum(rng.integers(0, 550, size=int(lens.sum())), 500), device=dev)
+            srows, offsets = op.segments(rows, slots, n, 500)
+            table = (torch.empty((500, e), device=dev).normal_(generator=gen)
+                     * torch.exp2(torch.randint(-8, 4, (500, 1), device=dev, generator=gen).float())).to(dt)
+            got = op.ordered_pool(table, srows, offsets)
+            want = op.ordered_pool_plain(table, srows, offsets)
+            ok = bool(torch.equal(bits(torch, got), bits(torch, want)))
+            rec = dict(kernel="ordered_pool", case=f"edges_E{e}", dtype=str(dt).split(".")[1], slots=n,
+                       K=int(lens.sum()), foreign=int((rows == 500).sum()), empty_slots=int((lens == 0).sum()),
+                       max_slot_rows=int(lens.max()), bitwise=ok,
+                       empty_slots_zero=bool((got[torch.as_tensor(lens == 0, device=dev)] == 0).all()))
+            emit(rec)
+            if not (ok and rec["empty_slots_zero"]):
+                raise AssertionError(f"ordered_pool edge case differs from its plain version: {rec}")
+
+
 # ---------------------------------------------------------------- samples
 SAMPLE_B = 2048  # the samples' default batch (samples/common.py:26)
 SAMPLE_WIDTHS = (1, 11, 16, 18, 32)  # WDL wide, DeepFM, most tables, DIN and BST users, NeuMF
@@ -1016,7 +1137,7 @@ def samples_parity(torch):
         bad = [k for k, c in checks.items() if not c[0]]
         if bad or abs(ev[0]["auc"] - ev[1]["auc"]) > 1e-4:
             raise AssertionError(f"tiny {name} on the card differs from the CPU in {bad}: {rec}")
-        if launches["segscan"] <= 0 or (name == "din" and min(launches.values()) <= 0):
+        if launches["segscan"] <= 0 or (name == "din" and min(launches[k] for k in ONE_CARD_KERNELS) <= 0):
             raise AssertionError(f"tiny {name} on the card launched {launches}")
 
 
@@ -1084,7 +1205,7 @@ def samples_path(torch):
         out[graph] = {k: train_launches[k] + eval_launches[k] for k in train_launches}
         del model
         torch.cuda.empty_cache()
-    missing = [k for k in ops.launch_counts() if not any(x[k] for x in out.values())]
+    missing = [k for k in ONE_CARD_KERNELS if not any(x[k] for x in out.values())]
     if missing:
         raise AssertionError(f"no sample launched {missing}")
     return out
@@ -1183,7 +1304,7 @@ def tiny_ftrl_parity(torch):
                 raise AssertionError(f"tiny DLRM-FTRL (dynamic={dynamic}) loss on the card {lg} != CPU {lc}")
         if not (worst <= 0 and left_out <= total // 100 and keys_equal):
             raise AssertionError(f"tiny DLRM-FTRL (dynamic={dynamic}) on the card differs from the CPU: {rec}")
-        if not dynamic and min(launches.values()) <= 0:
+        if not dynamic and min(launches[k] for k in ONE_CARD_KERNELS) <= 0:
             raise AssertionError(f"tiny DLRM-FTRL on the card launched no {launches}")
 
 
@@ -1257,7 +1378,7 @@ def main_path(torch):
     emit(rec)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss on the main path: {losses}")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in ONE_CARD_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     if launches["onehot_fwd"] != 6:  # one grouped launch per step
@@ -1322,7 +1443,7 @@ def bench_path(torch):
     emit(rec)
     if not (len(losses) == 6 and all(math.isfinite(x) for x in losses)):
         raise AssertionError(f"non-finite loss on the bench path: {losses}")
-    missing = [k for k, n in train_launches.items() if n <= 0]
+    missing = [k for k in ONE_CARD_KERNELS if train_launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the bench path: {missing}")
     if train_launches["onehot_fwd"] != 6 or eval_launches["onehot_fwd"] != model.solver.max_eval_batches:
@@ -1565,7 +1686,7 @@ def file_path(torch, main_rec):
     emit(rec)
     if not all(bitwise):
         raise AssertionError(f"file_path: a device batch differs from the file's rows: {bitwise}")
-    if set(parity) != set(RANK_TOL) or any(v["scaled_err"] > TOL["float32"] for v in parity.values()):
+    if set(parity) != set(ONE_CARD_KERNELS) or any(v["scaled_err"] > TOL["float32"] for v in parity.values()):
         raise AssertionError(f"file_path: a kernel disagrees with its plain version on file-fed inputs: {parity}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"file_path: non-finite loss {losses}")
@@ -1693,15 +1814,19 @@ def parity_phase(torch, phase: str, world: int, model: str, eval_carried: bool =
     """A tiny model (`tools/hybrid.py::tiny_config`, or `config`) trained 3 steps and
     evaluated on one card in this process and on `world` spawned ranks from
     one state (`parity_runs`): NCCL with a card per rank, else gloo with the
-    ranks sharing the card. Emits the record; fails if a kernel never
+    ranks sharing the card. The ranks run the masked-gather forward
+    (`fwd_partition=False`, float32 sums rounded once, as one card pools);
+    `hybrid_exchange_parity` holds the owner-partitioned default. Emits the
+    record; fails if a kernel of this path (all but the ordered pool) never
     launched on a rank, or if a replicated array, or a shard on the ranks
     that hold it, differs across the ranks. Returns the report."""
     from hugectr_tpu_torch.tools import hybrid
 
     t0 = time.perf_counter()
     backend = hybrid.default_backend(world)
-    one, ranks = hybrid.parity_runs(world, backend, config=config or hybrid.tiny_config(model),
-                                    eval_carried=eval_carried)
+    cfg = config or hybrid.tiny_config(model)
+    cfg = dict(cfg, kwargs=dict(cfg["kwargs"], fwd_partition=False))
+    one, ranks = hybrid.parity_runs(world, backend, config=cfg, eval_carried=eval_carried)
     rep = hybrid.parity_report(one, ranks)
     rec = dict(phase=phase, world=world, backend=backend, device_count=torch.cuda.device_count(),
                staged_through_host=backend == "gloo", losses_one_card=one["losses"].tolist(),
@@ -1711,7 +1836,7 @@ def parity_phase(torch, phase: str, world: int, model: str, eval_carried: bool =
     emit(rec)
     if not (rep["replicas_equal"] and rep["shard_replicas_equal"]):
         raise AssertionError(f"{phase}: replicas differ across the ranks: {rep}")
-    if any(min(r["launches"].values()) <= 0 for r in ranks):
+    if any(n <= 0 for r in ranks for k, n in r["launches"].items() if k != "ordered_pool"):
         raise AssertionError(f"{phase}: a kernel never launched on a rank: {rec['launches']}")
     return rep, ranks
 
@@ -1754,6 +1879,69 @@ def hybrid_partial_parity(torch):
         raise AssertionError(f"partial placement routes {ranks[0]['routes']}")
 
 
+def hybrid_exchange_parity(torch):
+    """The exchanges over ranks: 2 spawned ranks on one card over gloo
+    (`tools/hybrid.py::exchange_checks`). (1) The tiny bench-configured
+    model's forward on each rank's block of its first batch by the
+    owner-partitioned forward (bf16 rows added one by one, a rounding after
+    each add) against the masked gather (float32 sums rounded once): every
+    output within (h + 4 t) x 2^-8 x S, h the slots that feed it, t its
+    tiers, S the same forward of |tables|. (2) Each kernel against its plain
+    version on each rank's inputs, the ordered pool bitwise. (3) The
+    unique-key dense exchange (tests/test_dense_exchange.py's concat tables,
+    AdaGrad) with lists of 64 rows (the compressed branch: one all_to_all in
+    the forward and one in the backward) and of 2 (the overflow branch: no
+    all_to_all) against one card from the same tables and batch: outputs
+    bitwise (each is one row), tables after one update rtol 1e-4 / atol
+    1e-5 (float32 sums in another order). (4) Capacity factor 1.25, which
+    drops nothing at W 2 on uniform keys, against no factor: outputs and
+    tables bitwise."""
+    import numpy as np
+
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools import hybrid
+
+    t0 = time.perf_counter()
+    inputs = {"dx": hybrid.collection_inputs(hybrid.DX_SPEC, 32, 1),
+              "cap": hybrid.collection_inputs(hybrid.CAP_SPEC, 512, 5)}
+    ranks = hybrid.run(hybrid.exchange_checks, 2, inputs, backend="gloo", timeout=600.0)
+    one = hybrid.collection_run(ResourceManager.create(), hybrid.DX_SPEC, inputs["dx"])
+
+    def same(a, b):
+        return all(np.array_equal(a[k], b[k]) for k in b)
+
+    dx = {}
+    for cap in (64, 2):
+        res = [r[f"dx{cap}"] for r in ranks]
+        fwd = {top: np.concatenate([r["fwd"][top] for r in res]) for top in one["fwd"]}
+        worst = max(float(np.max(np.abs(r["tables"][t] - w) - 1e-5 - 1e-4 * np.abs(w)))
+                    for r in res for t, w in one["tables"].items())
+        dx[cap] = dict(all_to_all_calls=[r["calls"].get("all_to_all", 0) for r in res],
+                       all_reduce_calls=[r["calls"].get("all_reduce", 0) for r in res],
+                       forward_bitwise=same(fwd, one["fwd"]), tables_worst_excess=worst)
+    cap_same = all(same(r["cap"]["fwd"], r["nocap"]["fwd"]) and same(r["cap"]["tables"], r["nocap"]["tables"])
+                   for r in ranks)
+    parity = [hybrid.jsonable(r["kernel_parity"]) for r in ranks]
+    rec = dict(phase="hybrid_exchange_parity", card=card_line(), world=2, backend="gloo",
+               forward_excess=[r["forward_excess"] for r in ranks],
+               forward_max_abs_diff=[r["forward_max_abs_diff"] for r in ranks],
+               forward_outputs_differing=[r["forward_outputs_differing"] for r in ranks],
+               forward_outputs=[r["forward_outputs"] for r in ranks],
+               kernel_parity=parity, dense_exchange=dx, capacity_factor_drops_nothing_bitwise=cap_same,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    if not all(x <= 0 for x in rec["forward_excess"]):
+        raise AssertionError(f"the partitioned forward strays past per-key rounding: {rec}")
+    for r, p in enumerate(parity):
+        if not (p.get("ordered_pool", {}).get("shapes") and all(p[k]["scaled_err"] <= RANK_TOL[k] for k in p)):
+            raise AssertionError(f"a kernel disagrees with its plain version on rank {r}: {p}")
+    if not (dx[64]["all_to_all_calls"] == [2, 2] and dx[2]["all_to_all_calls"] == [0, 0]
+            and all(d["forward_bitwise"] and d["tables_worst_excess"] <= 0 for d in dx.values())):
+        raise AssertionError(f"the dense exchange differs from one card: {dx}")
+    if not cap_same:
+        raise AssertionError("a capacity factor that drops nothing changed the results")
+
+
 def hybrid_world(torch) -> int:
     """The ranks of the full-width hybrid phases: a card each, at least 2
     (sharing one card over gloo), at most 8."""
@@ -1780,14 +1968,23 @@ def hybrid_run(torch, model: str, dynamic: bool = False, **extra):
     return rec, ranks
 
 
+def mp_groups(rec) -> int:
+    """The model-parallel rowop groups of a path's record (plan names "mp_")."""
+    return sum(1 for g, route in rec["routes"].items() if g.startswith("mp_") and route != "onehot")
+
+
 def check_path_launches(rec, per_step: dict, eval_fwd: bool = True):
     """Every rank's launches: `per_step` {kernel: n} a step exactly (None:
-    at least once in the steps), `onehot_fwd` once an eval batch and no
-    backward kernel in the eval."""
+    at least once in the steps), `onehot_fwd` once an eval batch, the
+    ordered pool once a model-parallel rowop group and forward (step or
+    eval batch: the owner-partitioned forward), and no backward kernel in
+    the eval."""
     steps, eval_batches = rec["steps"], rec["eval_batches"]
+    per_step = dict(per_step, ordered_pool=mp_groups(rec))
     for r, (tl, el) in enumerate(zip(rec["launches"], rec["eval_launches"])):
         ok = all(tl[k] > 0 if n is None else tl[k] == n * steps for k, n in per_step.items())
         ok = ok and el["onehot_bwd"] == 0 and el["segscan"] == 0
+        ok = ok and el["ordered_pool"] == mp_groups(rec) * eval_batches and mp_groups(rec) > 0
         ok = ok and el["onehot_fwd"] == (eval_batches if eval_fwd else 0)
         if not ok:
             raise AssertionError(f"{rec['phase']} launches on rank {r}: train {tl}, eval {el}")
@@ -1795,10 +1992,11 @@ def check_path_launches(rec, per_step: dict, eval_fwd: bool = True):
 
 def hybrid_path(torch):
     """The full-width flagship (f32, global batch 16,384, rowwise AdaGrad)
-    trained hybrid-parallel (`hybrid_run`). Every rank must launch
-    `onehot_fwd` once a step and once an eval batch, `onehot_bwd` and
-    `segscan` in the steps; losses finite; every replicated array bitwise
-    equal across the ranks (SHA-256)."""
+    trained hybrid-parallel (`hybrid_run`), at the default owner-partitioned
+    forward. Every rank must launch `onehot_fwd` once a step and once an
+    eval batch, the ordered pool once a model-parallel group and forward,
+    `onehot_bwd` and `segscan` in the steps; losses finite; every
+    replicated array bitwise equal across the ranks (SHA-256)."""
     rec, _ranks = hybrid_run(torch, "dlrm_dcnv2")
     rec = dict(phase="hybrid_path", **rec)
     emit(rec)
@@ -1812,7 +2010,8 @@ def hybrid_path(torch):
 
 # per-rank kernel checks against the plain versions: the forward in the
 # tables' type (bf16), the backward's and segscan's float32 sums
-RANK_TOL = {"onehot_fwd": TOL["bfloat16"], "onehot_bwd": TOL["float32"], "segscan": TOL["float32"]}
+RANK_TOL = {"onehot_fwd": TOL["bfloat16"], "onehot_bwd": TOL["float32"], "segscan": TOL["float32"],
+            "ordered_pool": 0.0}
 
 
 def hybrid_bench_path(torch):
@@ -1821,9 +2020,10 @@ def hybrid_bench_path(torch):
     hybrid-parallel (`hybrid_run`). Every rank launches `onehot_fwd` once a
     step and once an eval batch, `onehot_bwd` 20 times a step (13 tables, 7
     superhot tiers), `segscan` in the steps (the 7 cold tiers' owned
-    prefixes); then each rank holds each kernel against its plain version
-    on its own inputs of the step (`tools/hybrid.py::kernel_parity`,
-    `RANK_TOL`). Losses finite; every replicated array bitwise equal (SHA-256);
+    prefixes), the ordered pool once a model-parallel group and forward;
+    then each rank holds each kernel against its plain version on its own
+    inputs of the step (`tools/hybrid.py::kernel_parity`, `RANK_TOL`; the
+    ordered pool bitwise). Losses finite; every replicated array bitwise equal (SHA-256);
     the binned AUC of the eval's buffers within 1e-4 of the exact one."""
     from hugectr_tpu_torch.tools import hybrid
 
@@ -1850,8 +2050,9 @@ def hybrid_ftrl_dynamic_path(torch):
     trained hybrid-parallel (`hybrid_run`), twice from one seed: each
     shard's store fill and dropped keys a step; every key of a table in at
     most one shard's store; each shard's store bitwise equal across the two
-    runs; losses finite; replicas bitwise equal. No hand-written kernel is
-    on this path (no table takes the one-hot engine)."""
+    runs; losses finite; replicas bitwise equal. The one hand-written
+    kernel on this path is the ordered pool of the owner-partitioned
+    forward (no table takes the one-hot engine)."""
     import numpy as np
 
     rec, ranks = hybrid_run(torch, "dlrm_ftrl", dynamic=True)
@@ -2201,6 +2402,7 @@ def main() -> int:
     hybrid_file_parity(torch)
     hybrid_bench_parity(torch)
     hybrid_partial_parity(torch)
+    hybrid_exchange_parity(torch)
     hybrid_launches = hybrid_path(torch)
     hybrid_bench_launches = hybrid_bench_path(torch)
     hybrid_ftrl_dynamic_path(torch)
@@ -2251,6 +2453,20 @@ def main() -> int:
             samples_path_launches={g: x[name] for g, x in samples_launches.items()},
             samples_case={**{k: rs[k] for k in keys}, "dtype": rs["dtype"]},
         ))
+    # the ordered pool: a kernel of the paths over W ranks; its launches are
+    # rank 0's on the hybrid path (steps and eval), beside the bench path's
+    # and its bf16 case with the most device time
+    pool = [x for x in results if x["kernel"] == "ordered_pool" and "device_ms" in x]
+    r = max((x for x in pool if x["dtype"] == "float32"), key=lambda x: x["device_ms"])
+    rb = max((x for x in pool if x["dtype"] == "bfloat16"), key=lambda x: x["device_ms"])
+    kernels.append(dict(
+        name="ordered_pool", route="cuda", source="hugectr_tpu_torch/csrc/ordered_pool.cu",
+        replaces="hugectr_tpu/embedding/collection.py:882-900 (the scatter-add of _mp_fwd_partitioned; no Pallas kernel)",
+        launches=hybrid_launches[0]["ordered_pool"], **{k: r[k] for k in keys},
+        hybrid_path_launches=[x["ordered_pool"] for x in hybrid_launches],
+        hybrid_bench_path_launches=[x["ordered_pool"] for x in hybrid_bench_launches],
+        bench_case={k: rb[k] for k in keys}, index_add_ms=r["index_add_ms"], bench_index_add_ms=rb["index_add_ms"],
+    ))
     # device times taken by CUDA events because the profiler recorded nothing
     emit(dict(phase="profiler", event_fallbacks=[list(x) for x in devtime.FALLBACKS]))
     emit({"kernels": kernels})

@@ -21,22 +21,40 @@ from .core.config import (
     DataReaderSparseParam,
     DataSourceParams,
     DenseLayer,
+    DenseLayerComputeConfig,
     Input,
     Layer_t,
     Solver,
 )
 from .core.logger import get_logger
-from .core.mesh import ResourceManager, init_distributed
+from .core.mesh import ResourceManager, group_size, init_distributed
 from .core.types import (
     Activation_t,
+    Alignment_t,
+    AllReduceAlgo,
     Check_t,
     Combiner_t,
+    CommunicationStrategy,
+    CompressionStrategy,
     DataReaderType_t,
+    DeviceLayout,
+    Distribution_t,
+    Error_t,
+    FcPosition_t,
     FileSystemType_t,
+    HugeCTRError,
     Initializer_t,
+    LrPolicy_t,
     Metric_t,
+    MetricsRawType,
+    MetricsType,
     Optimizer_t,
     PowerLaw_t,
+    Regularizer_t,
+    SourceType_t,
+    Tensor_t,
+    TrainPSType_t,
+    Update_t,
 )
 from .data.generator import DataGenerator, DataGeneratorParams
 from .embedding.config import (
@@ -46,7 +64,11 @@ from .embedding.config import (
     SparseEmbedding,
 )
 from .model.model import Model, TrainingCallback
+from .optim.lr_schedule import LearningRateScheduler
 from .optim.params import OptParams
+
+# the reference's pybind name of the optimizer's parameters
+OptParamsPy = OptParams
 
 
 def _filter_kwargs(cls, kwargs, label):
@@ -57,9 +79,68 @@ def _filter_kwargs(cls, kwargs, label):
     return {k: v for k, v in kwargs.items() if k in fields}
 
 
+# The JAX `Solver` fields (hugectr_tpu/core/config.py:24-139) that the port's
+# `Solver` lacks and that change nothing the JAX package computes, each with
+# its reason: `CreateSolver` accepts them by name and ignores them.
+INERT_SOLVER_FIELDS = {
+    "model_name": "a label, never read (config.py:27)",
+    "lr_policy": "'fixed' is the only policy (config.py:29, types.py LrPolicy_t), never read",
+    "vvgpu": "the reference's device list, never read (config.py:39); the ranks are the process group",
+    "enable_tf32_compute": "a parity no-op (config.py:41); the port keeps TF32 off to match float32",
+    "scaler": "never read (config.py:42)",
+    "use_cuda_graph": "a parity no-op (config.py:47)",
+    "use_embedding_collection": "never read (config.py:51)",
+    "device_layout": "a parity no-op (config.py:53-58)",
+    "use_algorithm_search": "a parity no-op (config.py:53-59)",
+    "all_reduce_algo": "a parity no-op (config.py:53-60)",
+    "grouped_all_reduce": "a parity no-op (config.py:53-61)",
+    "num_iterations_statistics": "a parity no-op (config.py:53-62)",
+    "gen_loss_summary": "a parity no-op (config.py:53-63)",
+    "train_intra_iteration_overlap": "a parity no-op (config.py:53-64)",
+    "train_inter_iteration_overlap": "a parity no-op (config.py:53-65)",
+    "eval_intra_iteration_overlap": "a parity no-op (config.py:53-66)",
+    "eval_inter_iteration_overlap": "a parity no-op (config.py:53-67)",
+    "kafka_brockers": "no streaming parameter server (config.py:68)",
+    "unique_cap_factor": "exact in the JAX package: its unique-cap window falls back to the full list on "
+                         "overflow (config.py:84-85); the port updates the whole list",
+    "segsum_mode": "exact either way for float32 tables: tests/test_pallas_segscan.py holds the scan equal to "
+                   "segment_sum (config.py:86); the port's sorted route sums in float32 as 'xla' does "
+                   "(with bfloat16 tables 'scan' raises)",
+}
+
+
+def check_solver_settings(kwargs) -> None:
+    """Raise for a JAX `Solver` setting that changes what the JAX `Model`
+    builds and that the port does not port yet (hugectr_tpu/model/model.py:162-166,
+    `apply_engine_knobs`, config.py:107-130)."""
+    if (kwargs.get("num_slices") or 1) > 1:
+        raise NotImplementedError("num_slices > 1: a hierarchical mesh is not ported yet (ROADMAP Queue 1 item 1g)")
+    if (kwargs.get("ev_parallelism") or 1) > 1:
+        raise NotImplementedError(
+            "ev_parallelism > 1: column-wise sharding is not ported yet (ROADMAP Queue 1 item 1i)")
+    if kwargs.get("group_rows") is not None:
+        raise NotImplementedError(
+            "group_rows: the binning of shared rowop groups is not ported yet (ROADMAP Queue 1 item 8)")
+    if kwargs.get("segsum_mode") == "scan" and kwargs.get("embedding_vec_dtype") in ("bfloat16", "bf16"):
+        raise NotImplementedError(
+            "segsum_mode='scan' with bfloat16 tables: the JAX package's scan stores the segment sums in "
+            "bfloat16, where its 'xla' mode and the port keep float32 sums (ROADMAP Queue 3)")
+    n = kwargs.get("num_devices") or 0
+    if n not in (0, group_size()):
+        raise ValueError(
+            f"num_devices={n}, but the process group has {group_size()} rank(s): one device per rank; start "
+            "the ranks with init_distributed() (torchrun, or tools/hybrid.py)"
+        )
+
+
 def CreateSolver(**kwargs) -> Solver:
-    """hugectr.CreateSolver; unknown reference arguments are ignored with a
-    warning."""
+    """hugectr.CreateSolver. A JAX `Solver` setting that the port does not
+    port yet raises (`check_solver_settings`); `num_devices` must be 0 or the
+    process group's size; the fields of `INERT_SOLVER_FIELDS` are accepted
+    and ignored; any other unknown argument is ignored with a warning."""
+    check_solver_settings(kwargs)
+    for k in (*INERT_SOLVER_FIELDS, "num_devices", "num_slices", "ev_parallelism", "group_rows"):
+        kwargs.pop(k, None)
     return Solver(**_filter_kwargs(Solver, kwargs, "CreateSolver"))
 
 
@@ -73,9 +154,13 @@ def CreateOptimizer(optimizer_type=None, **kwargs) -> OptParams:
 
 __all__ = [
     "Activation_t",
+    "Alignment_t",
+    "AllReduceAlgo",
     "AsyncParam",
     "Check_t",
     "Combiner_t",
+    "CommunicationStrategy",
+    "CompressionStrategy",
     "CreateOptimizer",
     "CreateSolver",
     "DataGenerator",
@@ -85,21 +170,37 @@ __all__ = [
     "DataReaderType_t",
     "DataSourceParams",
     "DenseLayer",
+    "DenseLayerComputeConfig",
+    "DeviceLayout",
+    "Distribution_t",
     "EmbeddingCollectionConfig",
     "EmbeddingTableConfig",
     "Embedding_t",
+    "Error_t",
+    "FcPosition_t",
     "FileSystemType_t",
+    "HugeCTRError",
     "Initializer_t",
     "Input",
     "Layer_t",
+    "LearningRateScheduler",
+    "LrPolicy_t",
     "Metric_t",
+    "MetricsRawType",
+    "MetricsType",
     "Model",
     "OptParams",
+    "OptParamsPy",
     "Optimizer_t",
     "PowerLaw_t",
+    "Regularizer_t",
     "ResourceManager",
     "Solver",
+    "SourceType_t",
     "SparseEmbedding",
+    "Tensor_t",
+    "TrainPSType_t",
     "TrainingCallback",
+    "Update_t",
     "init_distributed",
 ]

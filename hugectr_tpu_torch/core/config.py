@@ -77,9 +77,29 @@ class Solver:
     # model-parallel key k lives on shard (k + crc32(table)) % f; False
     # places it on k % f (plan.py:295, HCTR_TPU_SHARD_ROTATION=0)
     shard_rotation: bool = True
+    # ---- the exchanges of model-parallel rowop groups over W > 1 ranks
+    # the forward pools only the sorted prefix of the gathered keys that
+    # this rank's shard owns (HCTR_TPU_FWD_PARTITION, collection.py:141);
+    # False: the masked gather of every gathered key
+    fwd_partition: bool = True
+    # > 0 cuts the forward's sorted key list at ceil512(K x factor / W) and
+    # the backward's at ceil512(K x factor / f) for f shards, dropping the
+    # rest (HCTR_TPU_MP_CAPACITY_FACTOR, collection.py:142-144, :904-916,
+    # :1884-1891; a JAX Solver field, config.py:90); 0 is exact
+    mp_capacity_factor: float = 0.0
+    # all-Concat groups at full placement exchange unique rows over
+    # all_to_all, in lists of dense_exchange_cap rows per (batch block,
+    # owner shard); a cap of 0 or dense_exchange=False leaves it off
+    # (HCTR_TPU_DENSE_EXCHANGE and _CAP, collection.py:203-208)
+    dense_exchange: bool = True
+    dense_exchange_cap: int = 0
 
     def __post_init__(self):
         self.metrics_spec = {Metric_t(k): v for k, v in self.metrics_spec.items()}
+        if self.mp_capacity_factor is None:  # the JAX Solver's "unset"
+            self.mp_capacity_factor = 0.0
+        if self.mp_capacity_factor < 0 or self.dense_exchange_cap < 0:
+            raise ValueError("mp_capacity_factor and dense_exchange_cap must not be negative")
 
     @property
     def compute_dtype(self):
@@ -238,9 +258,19 @@ class Input:
 
 
 @dataclasses.dataclass
+class DenseLayerComputeConfig:
+    """The reference's wgrad settings (config.py:333); no-ops, as in the
+    JAX package."""
+
+    async_wgrad: bool = False
+    fuse_wb: bool = False
+
+
+@dataclasses.dataclass
 class DenseLayer:
     """Dense layer declaration (config.py:341), the fields the port's
-    layers read, with the JAX package's defaults."""
+    layers read, with the JAX package's defaults. `compute_config` is
+    accepted and not read (a no-op in the JAX package too)."""
 
     layer_type: str
     bottom_names: List[str]
@@ -289,6 +319,7 @@ class DenseLayer:
     lambda_: float = 0.0
     # MultiCrossEntropyLoss
     target_weight_vec: List[float] = dataclasses.field(default_factory=list)
+    compute_config: Optional[DenseLayerComputeConfig] = dataclasses.field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
         self.act_type = Activation_t(self.act_type)
@@ -309,9 +340,10 @@ UNPORTED_LAYER_FIELDS: Dict[str, Any] = dict(
 
 # Solver fields of the port that the JAX package keeps in its environment
 # (HCTR_TPU_EMB_STATE_DTYPE, _SUPERHOT_ROWS, _WARM_ROWS, _AUC_EXACT_MAX,
-# _SHARD_ROTATION); a graph file holds them apart from the solver's
+# _SHARD_ROTATION, _FWD_PARTITION, _DENSE_EXCHANGE, _DENSE_EXCHANGE_CAP); a
+# graph file holds them apart from the solver's
 PORT_SOLVER_SETTINGS = ("embedding_state_dtype", "superhot_rows", "warm_rows", "auc_exact_max",
-                        "shard_rotation")
+                        "shard_rotation", "fwd_partition", "dense_exchange", "dense_exchange_cap")
 
 
 class Layer_t:

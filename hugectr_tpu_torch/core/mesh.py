@@ -12,7 +12,9 @@ device, as before.
 
 Every collective of the port is here: `all_gather` and `reduce_scatter`
 (tiled on dim 0, as `jax.lax.all_gather(tiled=True)` and
-`jax.lax.psum_scatter(tiled=True)`), `all_reduce` (sum, `jax.lax.psum`;
+`jax.lax.psum_scatter(tiled=True)`), `all_to_all` (even splits of dim 0,
+`jax.lax.all_to_all(split_axis=0, concat_axis=0, tiled=True)`; the
+unique-key dense exchange's), `all_reduce` (sum, `jax.lax.psum`;
 `all_reduce_autograd` is the same sum under autograd) and
 `broadcast` (one rank's tensor on every rank of a group; the JAX package
 needs none, as XLA's replicated computations give equal bits). At world
@@ -26,7 +28,8 @@ backend: a CUDA tensor under gloo goes through an explicit host copy here
 raises. No collective changes backend. `COLLECTIVE_CALLS` counts each
 collective's calls and `COLLECTIVE_BYTES` adds up the bytes of the whole
 buffer it covers on this rank (the all-gathered output, the
-reduce-scattered input, the all-reduced or broadcast tensor) at its
+reduce-scattered input, the all-to-all's input, the all-reduced or
+broadcast tensor) at its
 element size (2 bytes for bfloat16); a ring moves (W - 1) / W of that into
 and out of each rank (twice for all_reduce).
 
@@ -53,7 +56,7 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_sc
 COLLECTIVE_BYTES: collections.Counter = collections.Counter()
 COLLECTIVE_CALLS: collections.Counter = collections.Counter()
 COLLECTIVE_NAMES = {"all_gather": _ALL_GATHER.__name__, "reduce_scatter": _REDUCE_SCATTER.__name__,
-                    "all_reduce": "all_reduce", "broadcast": "broadcast"}
+                    "all_to_all": "all_to_all_single", "all_reduce": "all_reduce", "broadcast": "broadcast"}
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -165,6 +168,25 @@ def reduce_scatter(t: torch.Tensor) -> torch.Tensor:
         return out
 
     _count("reduce_scatter", t.numel() * t.element_size())
+    return _staged(op, t)
+
+
+def all_to_all(t: torch.Tensor) -> torch.Tensor:
+    """[W * n, ...] on every rank -> [W * n, ...] whose rows [s * n, (s +
+    1) * n) are rank s's rows [r * n, (r + 1) * n) on rank r
+    (`jax.lax.all_to_all(..., split_axis=0, concat_axis=0, tiled=True)`)."""
+    w = group_size()
+    if w == 1:
+        return t
+    if t.shape[0] % w:
+        raise ValueError(f"all_to_all: {t.shape[0]} rows do not split over {w} ranks")
+
+    def op(x):
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous())
+        return out
+
+    _count("all_to_all", t.numel() * t.element_size())
     return _staged(op, t)
 
 

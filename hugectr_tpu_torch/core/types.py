@@ -120,6 +120,104 @@ class FileSystemType_t(str, enum.Enum):
     Other = "other"
 
 
+# The reference module's other enums (types.py:140-290), for scripts that
+# name them; the port reads none of them.
+class CompressionStrategy(str, enum.Enum):
+    """`shard(compression_strategy=...)`'s keys (types.py:140)."""
+
+    Reduction = "reduction"
+    Unique = "unique"
+
+
+class Error_t(str, enum.Enum):
+    """The error codes of `HugeCTRError` (types.py:157)."""
+
+    Success = "success"
+    FileCannotOpen = "file_cannot_open"
+    BrokenFile = "broken_file"
+    OutOfMemory = "out_of_memory"
+    OutOfBound = "out_of_bound"
+    WrongInput = "wrong_input"
+    IllegalCall = "illegal_call"
+    NotInitialized = "not_initialized"
+    EndOfFile = "end_of_file"
+    UnSupportedFormat = "unsupported_format"
+    InvalidEnv = "invalid_env"
+    DataCheckError = "data_check_error"
+    MpiError = "mpi_error"
+    CudaDriverError = "cuda_driver_error"
+    CudaRuntimeError = "cuda_runtime_error"
+    CublasError = "cublas_error"
+    CudnnError = "cudnn_error"
+    NcclError = "nccl_error"
+    UnspecificError = "unspecific_error"
+
+
+class HugeCTRError(RuntimeError):
+    """A runtime error carrying an `Error_t` (types.py:184)."""
+
+    def __init__(self, error_t: Error_t, msg: str = ""):
+        self.error_t = Error_t(error_t)
+        super().__init__(f"[{self.error_t.name}] {msg}")
+
+
+class SourceType_t(str, enum.Enum):
+    FileList = "file_list"
+    Mmap = "mmap"
+    Parquet = "parquet"
+
+
+class TrainPSType_t(str, enum.Enum):
+    Staged = "staged"
+    Cached = "cached"
+
+
+class Alignment_t(str, enum.Enum):
+    Auto = "auto"
+    Non = "none"
+
+
+class LrPolicy_t(str, enum.Enum):
+    fixed = "fixed"
+
+
+class FcPosition_t(str, enum.Enum):
+    Non = "none"
+    Head = "head"
+    Body = "body"
+    Tail = "tail"
+    Isolated = "isolated"
+
+
+class Distribution_t(str, enum.Enum):
+    Uniform = "uniform"
+    PowerLaw = "power_law"
+
+
+class Tensor_t(str, enum.Enum):
+    Train = "train"
+    Evaluate = "evaluate"
+
+
+class AllReduceAlgo(str, enum.Enum):
+    OneShot = "oneshot"
+    NCCL = "nccl"
+
+
+class DeviceLayout(str, enum.Enum):
+    LocalFirst = "local_first"
+    NodeFirst = "node_first"
+
+
+MetricsType = Metric_t
+
+
+class MetricsRawType(str, enum.Enum):
+    Loss = "loss"
+    Pred = "pred"
+    Label = "label"
+
+
 DEFAULT_KEY_DTYPE = torch.int32
 DEFAULT_KEY_DTYPE_I64 = torch.int64
 DEFAULT_EMB_DTYPE = torch.float32

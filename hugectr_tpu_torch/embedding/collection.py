@@ -67,17 +67,38 @@ collection.py:668-721, :1567-1726):
   hash h, probing from row (h // f) % rows of that shard's key store
   (`_dynamic_probe`, :468-495). Rank r holds shard r % f, so each shard has
   W / f replicas, drawn from one stream and kept equal. The forward
-  all-gathers the keys, pools the rows of this rank's shard with the masked
-  gather of `_dp_fwd` (other shards' keys read as padding; a replica
+  all-gathers the keys; the rank pools the keys of its shard (a replica
   serves only its block r // f of the gathered batch, so the ranks'
-  contributions are disjoint) and reduce-scatters the pools over the batch
-  (`_mp_fwd_local`, :808-865; the owner-partitioned gather of the sorted
-  owned prefix, `_mp_fwd_partitioned`, :867-936, the JAX package's default
-  at W > 1, is not ported: ROADMAP Queue 1 item 1f2); the backward
-  all-gathers the keys and the cotangents, inserts a dynamic group's new
-  keys of this rank's shard, and every replica applies the whole update of
-  its shard (`_mp_bwd_local`, :1844-1894), whose key-ratio rule asks f x the
-  keys (`_opt_knobs`, :1976);
+  contributions are disjoint) and the pools are reduce-scattered over the
+  batch (`_mp_fwd_local`, :808-865). By default (`fwd_partition`, the JAX
+  package's HCTR_TPU_FWD_PARTITION=1) it pools them by the
+  owner-partitioned forward (`_mp_fwd_partitioned`, :867-936): only the
+  owned rows are gathered, pooled by the ordered-pool kernel, each slot's
+  rows in ascending row order with a rounding to the table's type after
+  every add, as XLA's scatter-add sums the row-sorted owned prefix
+  (`ops/ordered_pool.py`); a `capacity_factor` > 0 cuts the row-sorted
+  list at `capacity(K, factor, W)` and drops the rest. With
+  `fwd_partition` off it takes the masked gather of `_dp_fwd` (float32 sums
+  rounded once). The backward all-gathers the keys and the cotangents,
+  inserts a dynamic group's new keys of this rank's shard, and every
+  replica applies the whole update of its shard (`_mp_bwd_local`,
+  :1844-1894), whose key-ratio rule asks f x the keys (`_opt_knobs`,
+  :1976); a `capacity_factor` > 0 keeps the first `capacity(K, factor, f)`
+  entries of the sorted list (`sparse_optimizer.apply_sparse`'s
+  `k_limit`);
+* the unique-key dense exchange (`dense_exchange_cap` > 0, the JAX
+  package's HCTR_TPU_DENSE_EXCHANGE_CAP; HugeCTR's
+  DenseModelParallelEmbedding, collection.py:953-1195) takes a static
+  all-Concat model-parallel group at full placement with no frozen table
+  (`_dense_exchange_ok`): every rank derives the same sorted-unique row
+  lists of each (batch block, owner shard) from the gathered keys; the
+  forward's owner gathers its rows of every list and `all_to_all` hands
+  each block its vectors, placed by a `searchsorted`; the backward sums
+  the block's float32 gradients per list entry, `all_to_all` hands them
+  to the owners, and the update runs over the lists with the key-ratio
+  rule off. A list longer than the cap on any rank (the flag is summed
+  over the ranks, one host sync per group and pass) sends the group to the
+  exact paths: the masked gather forward and the full update;
 * data-parallel rowop groups are replicated: the forward is local, the
   backward all-gathers keys and cotangents and every rank applies the
   update (`_dp_bwd_local`, :1896).
@@ -90,12 +111,14 @@ group (`core/mesh.py::replica_group`), so replicas stay bitwise equal. The
 sorted route is deterministic and needs none.
 
 The dtype each collective carries: the forward's all_gather of keys int32,
-its reduce_scatter of pools the table's type (float32 sums rounded once);
-the backward's all_gather of keys int32 and of cotangents the table's type
-(the JAX package's `d_outs.astype(self.dtype)`); the one-hot all_reduce of
-the gradient the table's type and of the touch counts float32; the replica
-broadcasts each array's own type (tables, float32 or bfloat16 state).
-`Model` adds one float32 all_reduce of the dense gradients and the loss.
+its reduce_scatter of pools the table's type; the backward's all_gather of
+keys int32 and of cotangents the table's type (the JAX package's
+`d_outs.astype(self.dtype)`); the dense exchange's all_to_all of rows the
+table's type and of gradient sums float32, its all_reduce of the overflow
+flag int32; the one-hot all_reduce of the gradient the table's type and of
+the touch counts float32; the replica broadcasts each array's own type
+(tables, float32 or bfloat16 state). `Model` adds one float32 all_reduce
+of the dense gradients and the loss.
 
 The collectives are `core/mesh.py`'s. `export_table` and `import_table`
 read and write a table (or any per-row array laid out as the storage, such
@@ -103,10 +126,9 @@ as a state, or a key store) in key order whatever W and f are (collectives
 on every rank); `export_rows` keeps the storage's dtype (bfloat16 tables
 in snapshots).
 Not ported over W > 1 ranks (ROADMAP Queue 1 item 1): hierarchical
-communication (1g), which raises, and the unique-key dense exchange (1f):
-the JAX package takes it only for all-Concat groups with caps measured and
-set in HCTR_TPU_DENSE_EXCHANGE_CAP (`_dense_exchange_ok`, :953), and the
-port has no such setting yet, so every group takes the exact path above.
+communication (1g), which raises; the measured caps of the JAX package's
+`auto_unique_caps` (:1996-2092), so the dense exchange opens only with an
+explicit cap and the partitioned forward gathers the whole owned prefix.
 
 `route_counts` counts, per route ("onehot", "dense", "sorted", "scatter"),
 the groups updated since the collection was built; `group_routes` holds
@@ -120,7 +142,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.mesh import ResourceManager, all_gather, all_reduce, broadcast, reduce_scatter, replica_group
+from ..core.mesh import ResourceManager, all_gather, all_reduce, all_to_all, broadcast, reduce_scatter, replica_group
 from ..core.types import INVALID_KEY, Combiner_t
 from ..ops.onehot_matmul import (
     GroupLookup,
@@ -129,6 +151,7 @@ from ..ops.onehot_matmul import (
     place_keys,
     window_keys,
 )
+from ..ops.ordered_pool import ordered_pool, segments
 from ..optim.params import OptParams
 from ..parallel.plan import CompiledEmbeddingPlan, GroupPlan
 from . import sparse_optimizer
@@ -181,7 +204,17 @@ class _GroupMeta:
         self.slot_rows = torch.as_tensor(g.rows_per_shard[g.slot_table], dtype=torch.int64, device=device)
         self.slot_dynamic = torch.as_tensor(g.slot_is_dynamic, device=device)
         self.any_dynamic = bool(g.slot_is_dynamic.any())
-        self.gsrc = torch.as_tensor(_fwd_gsrc(g), dtype=torch.int64, device=device)
+        gsrc = _fwd_gsrc(g)
+        self.gsrc = torch.as_tensor(gsrc, dtype=torch.int64, device=device)
+        # the first key column of each pool slot (gsrc does not decrease
+        # along the columns), and whether a slot pools more than one key
+        self.slot_start = torch.as_tensor(
+            np.searchsorted(gsrc, np.arange(g.grad_src_slots)), dtype=torch.int64, device=device
+        )
+        self.multi_key_slots = g.hotness_total > g.grad_src_slots
+        # (gathered batch, sentinel) -> (each key's slot x (sentinel + 1),
+        # the pool's slot offsets): fixed by the plan, made once
+        self.pool_layout: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
         self.fwd_lookups = onehot_fwd_lookups(g)
 
 
@@ -195,6 +228,13 @@ def onehot_fwd_lookups(g: GroupPlan) -> List[GroupLookup]:
         )
         for lm in g.lookups
     ]
+
+
+def capacity(k: int, factor: float, n: int) -> int:
+    """The owner-partition capacity of a sorted list of k keys over n
+    shards: k x factor / n rounded up to a multiple of 512, at most k
+    (collection.py:904-916, :1884-1891)."""
+    return min(k, ((int(k * factor / n) + 511) // 512) * 512)
 
 
 def _fwd_gsrc(g: GroupPlan) -> np.ndarray:
@@ -225,6 +265,9 @@ class EmbeddingCollection:
         dense_update_rows: int = 262144,
         dense_key_ratio: float = 0.3,
         state_dtype=torch.float32,
+        fwd_partition: bool = True,
+        capacity_factor: float = 0.0,
+        dense_exchange_cap: int = 0,
     ):
         for what, dt in (("tables", dtype), ("optimizer state", state_dtype)):
             if dt not in (torch.float32, torch.bfloat16):
@@ -239,6 +282,13 @@ class EmbeddingCollection:
         self.state_dtype = state_dtype
         self.dense_update_rows = dense_update_rows
         self.dense_key_ratio = dense_key_ratio
+        # the exchanges over W > 1 ranks (`Solver` fields; the JAX package's
+        # HCTR_TPU_FWD_PARTITION, _MP_CAPACITY_FACTOR and
+        # _DENSE_EXCHANGE_CAP, collection.py:141-144, :203-208; a cap of 0
+        # is the exchange off, as HCTR_TPU_DENSE_EXCHANGE=0)
+        self.fwd_partition = fwd_partition
+        self.capacity_factor = capacity_factor
+        self.dense_exchange_cap = dense_exchange_cap
         self._meta = {g.name: _GroupMeta(g, self.device, self.rank) for g in plan.groups}
         self.group_opt: Dict[str, OptParams] = {}
         for g in plan.groups:
@@ -453,11 +503,20 @@ class EmbeddingCollection:
             if g.compute_kind == "onehot":
                 go = self._onehot_fwd(g.name, tables[g.name], self._lookup_keys(g, feature_keys))
             elif g.is_model_parallel and self.world > 1:
-                # the batch's keys; the rows of this rank's keys pooled with
-                # float32 sums rounded once to the table's type; the pools
-                # summed over the ranks in that type and scattered
-                keys = all_gather(self._group_keys(g, feature_keys))
-                go = reduce_scatter(self._dp_fwd(g.name, tables[g.name], keys, tables.get(f"{g.name}#keys")))
+                # the batch's keys; the rows of this rank's keys pooled; the
+                # pools summed over the ranks in the table's type and
+                # scattered (or the unique rows exchanged)
+                keys_loc = self._group_keys(g, feature_keys)
+                keys = all_gather(keys_loc)
+                store = tables.get(f"{g.name}#keys")
+                dense_ex = self._dense_exchange_ok(g)
+                lists = self._dense_lists(g.name, keys) if dense_ex else None
+                if lists is not None:
+                    go = self._mp_fwd_dense(g.name, tables[g.name], lists, keys_loc)
+                elif self.fwd_partition and not dense_ex:
+                    go = reduce_scatter(self._mp_fwd_partitioned(g.name, tables[g.name], keys, store))
+                else:  # the masked gather; the dense exchange's overflow branch too
+                    go = reduce_scatter(self._dp_fwd(g.name, tables[g.name], keys, store))
             else:
                 go = self._dp_fwd(g.name, tables[g.name], self._group_keys(g, feature_keys),
                                   tables.get(f"{g.name}#keys"))
@@ -529,12 +588,7 @@ class EmbeddingCollection:
         g = meta.plan
         valid, owner, local_row = self._slot_placement(gname, keys, key_store)
         if self.world > 1 and g.is_model_parallel:
-            if owner is not None:
-                valid = valid & (owner == meta.shard)
-            if g.num_replicas > 1:
-                block = keys.shape[0] // g.num_replicas
-                mine = torch.arange(keys.shape[0], device=keys.device) // block == self.rank // meta.num_shards
-                valid = valid & mine.unsqueeze(1)
+            valid = self._owned(meta, keys, valid, owner)
         raw_valid = keys != INVALID_KEY
         safe = torch.where(valid, local_row, 0)
         b = keys.shape[0]
@@ -550,6 +604,183 @@ class EmbeddingCollection:
                 s = s / self._count(raw_valid[:, sl], s.dtype)
             outs.append(s)
         return torch.cat(outs, dim=1)
+
+    def _owned(self, meta: _GroupMeta, keys: torch.Tensor, valid: torch.Tensor, owner) -> torch.Tensor:
+        """The valid keys of the gathered batch that this rank pools: those
+        of its shard, and with replicas (f < W shards) only those of block
+        r // f of the batch, so that the ranks' pools are disjoint
+        (collection.py:826-837)."""
+        if owner is not None:
+            valid = valid & (owner == meta.shard)
+        if meta.plan.num_replicas > 1:
+            block = keys.shape[0] // meta.plan.num_replicas
+            mine = torch.arange(keys.shape[0], device=keys.device) // block == self.rank // meta.num_shards
+            valid = valid & mine.unsqueeze(1)
+        return valid
+
+    def _pool_segments(self, gname: str, keys: torch.Tensor, sentinel: int, key_store=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(row ids, [B x S + 1] slot offsets) of the owner-partitioned
+        forward's pool (`_mp_fwd_partitioned`, collection.py:867-916), the
+        inputs of `ordered_pool`: slot b x S + gsrc[j] pools the local rows
+        of the gathered keys [b, j] this rank owns, in ascending order, and
+        every key it does not pool reads as `sentinel` (at least the
+        table's rows), last in its slot. The slots' columns are fixed by the
+        plan (its offsets are made once a batch size), so only the rows
+        within a slot need an order: one sort along each batch row, none
+        when every slot holds one key. With a capacity factor the (row,
+        slot) pairs are stably sorted by row (lax.sort is stable), cut to
+        `capacity(K, factor, W)` entries, dropping the owned keys past it,
+        and regrouped by slot (`segments`)."""
+        meta = self._meta[gname]
+        g = meta.plan
+        valid, owner, local_row = self._slot_placement(gname, keys, key_store)
+        mine = self._owned(meta, keys, valid, owner)
+        bg, h = keys.shape
+        idx = torch.where(mine, local_row, sentinel)
+        if self.capacity_factor > 0:
+            src = (torch.arange(bg, device=keys.device).unsqueeze(1) * g.grad_src_slots + meta.gsrc).reshape(-1)
+            k = capacity(idx.numel(), self.capacity_factor, self.world)
+            idx, perm = torch.sort(idx.reshape(-1), stable=True)
+            return segments(idx[:k], src[perm[:k]], bg * g.grad_src_slots, sentinel)
+        layout = meta.pool_layout.get((bg, sentinel))
+        if layout is None:
+            starts = (torch.arange(bg, device=keys.device).unsqueeze(1) * h + meta.slot_start).reshape(-1)
+            layout = meta.pool_layout[(bg, sentinel)] = (
+                meta.gsrc * (sentinel + 1), torch.cat([starts, starts.new_full((1,), bg * h)]))
+        slot_base, offsets = layout
+        if meta.multi_key_slots:
+            idx = torch.sort(slot_base + idx, dim=1).values % (sentinel + 1)
+        return idx.reshape(-1), offsets
+
+    def _mp_fwd_partitioned(self, gname: str, table: torch.Tensor, keys: torch.Tensor, key_store=None) -> torch.Tensor:
+        """This rank's [B, out_width] partial pools of the gathered keys by
+        the owner-partitioned forward (collection.py:867-936, the JAX
+        package's default at W > 1): gather only the owned rows and pool
+        them into [B x S, E] with the ordered-pool kernel, each slot's rows
+        in ascending row order with a rounding to the table's type after
+        every add, as XLA's scatter-add in that type sums the row-sorted
+        owned prefix (`ops/ordered_pool.py`); then Mean divides by the raw
+        valid count (`_apply_mean_scaling`, :1212). Nothing waits for the
+        card: the keys of other shards sort last in each slot and the kernel
+        stops there."""
+        g = self._meta[gname].plan
+        rows, offsets = self._pool_segments(gname, keys, table.shape[0], key_store)
+        pooled = ordered_pool(table, rows, offsets).reshape(keys.shape[0], g.grad_src_slots, g.ev_size)
+        return self._mean_scaled(g, pooled, keys != INVALID_KEY)
+
+    def _mean_scaled(self, g: GroupPlan, pooled: torch.Tensor, raw_valid: torch.Tensor) -> torch.Tensor:
+        """[B, S, E] slot pools -> [B, out_width]: a Concat lookup's slots
+        side by side, a Mean lookup's pool divided by its count of raw valid
+        keys (collection.py:1212-1232)."""
+        b = pooled.shape[0]
+        parts, cursor = [], 0
+        for lm in g.lookups:
+            h = lm.slot_end - lm.slot_begin
+            if lm.combiner == Combiner_t.Concat:
+                parts.append(pooled[:, cursor : cursor + h].reshape(b, -1))
+                cursor += h
+                continue
+            p = pooled[:, cursor]
+            if lm.combiner == Combiner_t.Mean:
+                p = p / self._count(raw_valid[:, lm.slot_begin : lm.slot_end], p.dtype)
+            parts.append(p)
+            cursor += 1
+        return torch.cat(parts, dim=1)
+
+    # ------------------------------------- the unique-key dense exchange
+    def _dense_exchange_ok(self, g: GroupPlan) -> bool:
+        """The gate of the unique-key dense exchange (`_dense_exchange_ok`,
+        collection.py:953-983): a static all-Concat model-parallel rowop
+        group at full placement (f = W, no replicas) with no frozen table,
+        its cap set (the port has no measured caps, so only an explicit cap
+        opens it; `Solver.dense_exchange=False` hands the collection a cap
+        of 0)."""
+        return (
+            self.dense_exchange_cap > 0 and self.world > 1
+            and g.is_model_parallel and g.compute_kind == "rowop" and not self._meta[g.name].any_dynamic
+            and g.num_shards == self.world and g.num_replicas == 1
+            and all(lm.combiner == Combiner_t.Concat for lm in g.lookups)
+            and not any(self._is_frozen(t.name) for t in g.tables)
+        )
+
+    def _dense_lists(self, gname: str, keys: torch.Tensor) -> Optional[torch.Tensor]:
+        """[W, f, C] sorted-unique local-row lists per (batch block, owner
+        shard) of the gathered keys, sentinel R past each list's end, the
+        same on every rank (`_dense_lists`, collection.py:1001-1049); None
+        when a list holds more than C rows on any rank. The overflow flag is
+        summed over the ranks before the branch, so every rank takes the
+        same one: one host sync per group and pass."""
+        meta = self._meta[gname]
+        g = meta.plan
+        f, cap, n = meta.num_shards, self.dense_exchange_cap, self.world
+        r = g.total_local_rows
+        valid, owner, local_row = self._slot_placement(gname, keys)
+        kpb = (keys.shape[0] // n) * keys.shape[1]
+        ow = torch.where(valid, owner, f).reshape(n, kpb)
+        rw = torch.where(valid, local_row, r).reshape(n, kpb)
+        key = torch.sort(ow * (r + 1) + rw, dim=1).values  # (owner, row) in order, per block
+        so, sr = torch.div(key, r + 1, rounding_mode="floor"), key % (r + 1)
+        first = torch.ones_like(key, dtype=torch.bool)
+        first[:, 1:] = key[:, 1:] != key[:, :-1]
+        unew = first & (so < f)
+        grank = torch.cumsum(unew.to(torch.int64), dim=1) - 1
+        cnt = torch.stack([(unew & (so == s)).sum(dim=1) for s in range(f)], dim=1)  # [n, f]
+        start = torch.cumsum(cnt, dim=1) - cnt
+        so_c = so.clamp(max=f - 1)
+        srank = grank - torch.gather(start, 1, so_c)
+        dest = torch.where(unew & (srank < cap), so_c * cap + srank, f * cap)
+        lists = torch.full((n, f * cap + 1), r, dtype=torch.int64, device=keys.device)
+        lists.scatter_(1, dest, sr)
+        over = all_reduce((cnt > cap).any().to(torch.int32).reshape(1))
+        if int(over.item()) > 0:
+            return None
+        return lists[:, : f * cap].reshape(n, f, cap)
+
+    def _dense_positions(self, gname: str, my_lists: torch.Tensor, keys_loc: torch.Tensor):
+        """(flat index into the received [f x C] rows, valid) of each of the
+        rank's [b, H] keys: its row's place in its owner's list
+        (`_dense_positions`, collection.py:1051-1067)."""
+        f, cap = my_lists.shape
+        valid, owner, local_row = self._slot_placement(gname, keys_loc)
+        of, rf = owner.reshape(-1), local_row.reshape(-1).contiguous()
+        pos = torch.zeros_like(rf)
+        for s in range(f):
+            pos = torch.where(of == s, torch.searchsorted(my_lists[s].contiguous(), rf), pos)
+        return of.clamp(0, f - 1) * cap + pos.clamp(max=cap - 1), valid
+
+    def _mp_fwd_dense(self, gname: str, table: torch.Tensor, lists: torch.Tensor, keys_loc: torch.Tensor) -> torch.Tensor:
+        """[b, out_width] outputs of the rank's block by the unique-key
+        exchange (`_mp_fwd_dense_local`, collection.py:1069-1095): the rank
+        gathers its shard's rows of every block's list, `all_to_all` sends
+        block d's to rank d, and each key takes its row's vector."""
+        g = self._meta[gname].plan
+        r = g.total_local_rows
+        want = lists[:, self.rank].reshape(-1)
+        send = torch.where((want < r).unsqueeze(1), table[want.clamp(max=r - 1)], table.new_zeros(()))
+        recv = all_to_all(send)  # block s's rows: rank s's shard's vectors for this block
+        flat, valid = self._dense_positions(gname, lists[self.rank], keys_loc)
+        vecs = recv[flat] * valid.reshape(-1, 1).to(recv.dtype)
+        return vecs.reshape(keys_loc.shape[0], g.out_width)
+
+    def _mp_bwd_dense(self, gname: str, table, state, lists, keys_loc, d_loc, lr, step: int) -> str:
+        """The update of this rank's shard by the unique-key exchange
+        (`_mp_bwd_dense_local`, collection.py:1121-1175): the rank's block's
+        float32 gradient sums per list entry, `all_to_all` to the owners,
+        rounded to the table's type, then `apply_sparse` over the [W x C]
+        list with the key-ratio rule off. Returns the route."""
+        g = self._meta[gname].plan
+        f, cap = self._meta[gname].num_shards, self.dense_exchange_cap
+        flat, valid = self._dense_positions(gname, lists[self.rank], keys_loc)
+        dk = d_loc.reshape(-1, g.ev_size).float()
+        gbuf = torch.zeros((f * cap + 1, g.ev_size), dtype=torch.float32, device=self.device)
+        gbuf.index_add_(0, torch.where(valid.reshape(-1), flat, f * cap), dk)
+        recv = all_to_all(gbuf[:-1])  # block d's sums for this rank's lists
+        idx = lists[:, self.rank].reshape(-1)
+        src = torch.arange(idx.numel(), device=self.device)
+        return sparse_optimizer.apply_sparse(
+            self.group_opt[gname], table, state, idx, src, recv.to(self.dtype), lr,
+            dense_rows=self.dense_update_rows, dense_ratio=0.0, step=step,
+        )
 
     # ------------------------------------------------- backward + update
     def backward_and_update(
@@ -589,35 +820,50 @@ class EmbeddingCollection:
                 )
                 route = "onehot"
             else:
-                # the unique-key dense exchange (ROADMAP Queue 1 item 1f) goes
-                # here; the JAX package's gate refuses it for a group with a
-                # frozen table (`_dense_exchange_ok`, collection.py:975), and
-                # so must the port's. The shared sort of a split table's tiers
-                # (Queue 2, "split tables") is refused with frozen tables too
-                # (`_tier_shared_ok`, :1741).
-                if self.world > 1:
-                    # model-parallel: the update of this rank's shard for the
-                    # whole global batch (every replica of a shard the same,
-                    # `_mp_bwd_local`, :1844-1894); data-parallel: every
-                    # rank the same update (`_dp_bwd_local`, :1896)
-                    keys, d_group = all_gather(keys), all_gather(d_group)
-                key_store = tables.get(f"{g.name}#keys")
-                if key_store is not None:
-                    self._dynamic_insert(self._meta[g.name], key_store, keys)
-                idx, src, dsrc = self._row_grads(g.name, keys, d_group, key_store)
-                route = sparse_optimizer.apply_sparse(
-                    opt, tables[g.name], opt_state[g.name], idx, src, dsrc, lr,
-                    dense_rows=self.dense_update_rows, dense_ratio=self._dense_ratio(g), step=step,
-                )
-                if route in sparse_optimizer.ATOMIC_ROUTES and self._replicated(g):
-                    # atomic sums differ in their last bits from rank to
-                    # rank: the lowest replica's update is every replica's
-                    src_rank, group = replica_group(self._meta[g.name].num_shards)
-                    for t in (tables[g.name], *opt_state[g.name].values()):
-                        broadcast(t, src_rank, group)
+                route = self._rowop_update(g, tables, opt_state[g.name], keys, d_group, lr, step)
             self.route_counts[route] += 1
             self.group_routes[g.name] = route
         return tables, opt_state
+
+    def _rowop_update(self, g: GroupPlan, tables: Tables, state, keys, d_group, lr, step: int) -> str:
+        """The update of a rowop group from the rank's [b, H] keys and [b,
+        out_width] cotangents; returns the route. Over W ranks a
+        model-parallel group updates this rank's shard for the whole global
+        batch (every replica of a shard the same, `_mp_bwd_local`,
+        collection.py:1844-1894), by the unique-key exchange where its gate
+        opens and no list overflows (`_mp_bwd_dense_local`, :1121-1195), and
+        with a capacity factor on a sorted list cut at `capacity(K, factor,
+        f)` (:1884-1891); a data-parallel group gives every rank the same
+        update (`_dp_bwd_local`, :1896). The shared sort of a split table's
+        tiers (ROADMAP Queue 2, "split tables") is refused with frozen
+        tables, as the JAX package's `_tier_shared_ok` refuses it (:1741)."""
+        opt = self.group_opt[g.name]
+        meta = self._meta[g.name]
+        key_store = tables.get(f"{g.name}#keys")
+        k_limit = 0
+        if self.world > 1:
+            gkeys = all_gather(keys)
+            if self._dense_exchange_ok(g):
+                lists = self._dense_lists(g.name, gkeys)
+                if lists is not None:
+                    return self._mp_bwd_dense(g.name, tables[g.name], state, lists, keys, d_group, lr, step)
+            elif meta.num_shards > 1 and self.capacity_factor > 0:
+                k_limit = capacity(gkeys.numel(), self.capacity_factor, meta.num_shards)
+            keys, d_group = gkeys, all_gather(d_group)
+        if key_store is not None:
+            self._dynamic_insert(meta, key_store, keys)
+        idx, src, dsrc = self._row_grads(g.name, keys, d_group, key_store)
+        route = sparse_optimizer.apply_sparse(
+            opt, tables[g.name], state, idx, src, dsrc, lr,
+            dense_rows=self.dense_update_rows, dense_ratio=self._dense_ratio(g), step=step, k_limit=k_limit,
+        )
+        if route in sparse_optimizer.ATOMIC_ROUTES and self._replicated(g):
+            # atomic sums differ in their last bits from rank to rank: the
+            # lowest replica's update is every replica's
+            src_rank, group = replica_group(meta.num_shards)
+            for t in (tables[g.name], *state.values()):
+                broadcast(t, src_rank, group)
+        return route
 
     def _replicated(self, g: GroupPlan) -> bool:
         """Whether more than one rank holds the group's storage (or a shard

@@ -82,7 +82,12 @@ class EmbeddingCollectionConfig:
         self,
         shard_matrix: Sequence[Sequence[str]],
         shard_strategy: Sequence[Tuple[str, Sequence[str]]],
+        compression_strategy=None,
     ) -> None:
+        """`compression_strategy` ({CompressionStrategy: [tables]}) is
+        accepted for parity and not read, as in the JAX package
+        (embedding/config.py:109-136)."""
+        self.compression_strategy = compression_strategy
         self.shard_matrix = [list(r) for r in shard_matrix]
         self.shard_strategy = [(k, list(v)) for k, v in shard_strategy]
         dp_tables = {n for kind, names in self.shard_strategy if kind == "dp" for n in names}

@@ -132,7 +132,7 @@ def update_math(
 
 
 def dedup_rows(
-    idx: torch.Tensor, src: torch.Tensor, dsrc: torch.Tensor, rows: Optional[int] = None
+    idx: torch.Tensor, src: torch.Tensor, dsrc: torch.Tensor, rows: Optional[int] = None, k_limit: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Scan contract of `dedup_rows` (sparse_optimizer.py:127-149).
 
@@ -144,10 +144,13 @@ def dedup_rows(
     lax.sort, so sums are taken in the same order. Given `rows` (= R), only
     the valid prefix (ids < R) is kept: the same sums for the valid rows,
     without gathering and scanning the padding (sparse_optimizer.py:607).
+    A `k_limit` > 0 keeps at most the first k_limit sorted entries and drops
+    the rest (the owner-partition capacity, :120-125).
     """
     sidx, perm = torch.sort(idx, stable=True)
-    if rows is not None:
-        n = int(torch.count_nonzero(sidx < rows))
+    if rows is not None or k_limit:
+        n = int(torch.count_nonzero(sidx < rows)) if rows is not None else sidx.shape[0]
+        n = min(n, k_limit) if k_limit else n
         sidx, perm = sidx[:n], perm[:n]
     sgrads = dsrc[src[perm]]
     k = sidx.shape[0]
@@ -241,13 +244,21 @@ def apply_sparse(
     dense_rows: int,
     dense_ratio: float,
     step: int = 1,
+    k_limit: int = 0,
 ) -> str:
     """One sparse update for (possibly duplicated) row gradients, in place
     (sparse_optimizer.py:343). idx [K] rows with the sentinel R for invalid
-    keys; src [K] rows of dsrc [S, E]. Returns the route it took."""
+    keys; src [K] rows of dsrc [S, E]. A `k_limit` > 0 (the owner-partition
+    capacity) keeps the first k_limit entries of the stable sort by row on
+    the dense and sorted routes and drops the rest; SGD's scatter takes
+    every entry (:403-410, :460-462, :515-518). The route is chosen on the
+    whole K. Returns the route it took."""
     kind = opt.optimizer
     rows = table.shape[0]
     route = update_route(rows, idx.shape[0], dense_rows, dense_ratio, kind)
+    if route == "dense" and 0 < k_limit < idx.shape[0]:
+        perm = torch.sort(idx, stable=True).indices[:k_limit]
+        idx, src = idx[perm], src[perm]
     valid = idx < rows
     if route == "scatter":
         vidx = idx[valid]
@@ -266,7 +277,7 @@ def apply_sparse(
             touched[vidx] = True
         apply_dense(opt, table, state, grad, touched, lr, step)
         return route
-    sidx, summed, tail = dedup_rows(idx, src, dsrc.to(table.dtype), rows)
+    sidx, summed, tail = dedup_rows(idx, src, dsrc.to(table.dtype), rows, k_limit)
     # only tails carry full sums; keeping them makes the rows unique
     _apply_rows(opt, table, state, lr, sidx[tail], summed[tail], step)
     return route

@@ -349,7 +349,9 @@ class Model:
             self.ec = EmbeddingCollection(
                 plan, self.rm, self.opt_params, dtype=s.emb_dtype,
                 dense_update_rows=s.dense_update_rows, dense_key_ratio=s.dense_key_ratio,
-                state_dtype=s.emb_state_dtype,
+                state_dtype=s.emb_state_dtype, fwd_partition=s.fwd_partition,
+                capacity_factor=s.mp_capacity_factor,
+                dense_exchange_cap=s.dense_exchange_cap if s.dense_exchange else 0,
             )
 
         # ---- dense network (model.py:413-435), on the rank's rows

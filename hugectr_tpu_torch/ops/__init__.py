@@ -7,9 +7,9 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import onehot_matmul, segscan
+from . import onehot_matmul, ordered_pool, segscan
 
-_MODULES = (segscan, onehot_matmul)
+_MODULES = (segscan, onehot_matmul, ordered_pool)
 
 
 def launch_counts() -> Dict[str, int]:

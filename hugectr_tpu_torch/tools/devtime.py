@@ -35,6 +35,7 @@ KERNEL_NAMES = {
     "onehot_bwd": ("onehot_bwd", "cast_to_bf16"),
     "segscan": ("segscan_init", "segscan_lookback"),
     "index_add_": ("index",),
+    "ordered_pool": ("ordered_pool",),
 }
 
 # the kernel names of each measurement that fell back to CUDA events

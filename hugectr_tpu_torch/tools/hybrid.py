@@ -30,8 +30,22 @@ and `parity_report` says how far apart they are; `full_width_config` and
 On the command line, `python -m hugectr_tpu_torch.tools.hybrid --world 2
 [--model tiny | tiny_bench | tiny_partial] [--device cpu] [--backend
 gloo]` prints that report; `--model dlrm_dcnv2 | bench | dlrm_ftrl
-[--dynamic]` trains that full-width model over the ranks and prints its
-summary (on the card).
+[--dynamic] [--fwd-partition 0] [--time-forward]` trains that full-width
+model over the ranks, with the masked-gather forward for
+`--fwd-partition 0`, and prints its summary (on the card), with the
+embedding forward's own times for `--time-forward`. `--fwd-partition-ab
+[--out DIR]` compares the two forwards in one call: it trains the
+full-width model four times, a fresh group each, with `fwd_partition`
+off, on, on, off (so drift within the call falls on both sides), timing
+the forward alone too, and prints one JSON line a run (the setting,
+ms/step, the forward's host and device ms, the collectives' calls and
+bytes a step, eval ex/s, finite losses, equal replicas); with `--out`,
+each run's whole summary goes to a file there.
+
+`exchange_checks` is the rank function of the exchanges' checks on the
+card (`chip_smoke.py`'s hybrid_exchange_parity): the owner-partitioned
+forward against the masked gather, the kernels on each rank's inputs, and
+`collection_run` of the dense exchange and of the capacity factor.
 """
 from __future__ import annotations
 
@@ -265,6 +279,8 @@ def train_model(rm, inputs: Tree) -> Tree:
     stats: List[Dict] = []
     (losses, secs), counts = counted(steps)
     out: Tree = {"losses": np.asarray(losses), "step_seconds": np.asarray(secs), **counts}
+    if cfg.get("time_forward"):
+        out["forward"] = forward_times(model, batches)
     if cfg.get("eval"):
         t = time.perf_counter()
         out["eval"], out["eval_counts"] = counted(model.eval)
@@ -304,6 +320,40 @@ def train_model(rm, inputs: Tree) -> Tree:
         load_jax_state(model, inputs["eval_state"], cfg.get("eval_state_shards", 0))
         out["eval_carried"] = model.eval()
     model._close_readers()
+    return out
+
+
+def forward_times(model, batches, n: int = 10) -> Tree:
+    """The embedding collection's forward (its collectives included) over
+    the cached batches, n times after a warm-up, every rank together: the
+    median host ms of one synchronised forward, and on the card the device
+    ms a forward under `torch.profiler`, of every kernel and of NCCL's
+    alone (an NCCL kernel's time includes its wait for the other ranks),
+    left out where the profile recorded no device activity."""
+    import statistics
+
+    rm = model.rm
+    fks = [model._feature_keys(model._decode_batch(b)) for b in batches]
+    with torch.no_grad():
+        model.ec.forward(model.tables, fks[0])
+        secs = []
+        for i in range(n):
+            _sync(rm)
+            t = time.perf_counter()
+            model.ec.forward(model.tables, fks[i % len(fks)])
+            _sync(rm)
+            secs.append(time.perf_counter() - t)
+        out: Tree = {"host_ms": statistics.median(secs) * 1e3}
+        if rm.device.type == "cuda":
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                for i in range(n):
+                    model.ec.forward(model.tables, fks[i % len(fks)])
+                _sync(rm)
+            kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+            if kernels:
+                out["device_ms"] = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+                out["nccl_device_ms"] = sum(e.self_device_time_total for e in kernels if "nccl" in e.key.lower()) / 1e3 / n
     return out
 
 
@@ -415,9 +465,11 @@ def kernel_parity(model, batch: Dict[str, torch.Tensor], seed: int = 5) -> Tree:
     inputs of the step (on the card; on the CPU both sides are the plain
     version): the one-hot group's forward on the rank's block of `batch`,
     each one-hot lookup's backward from those keys with a cotangent drawn
-    in the table's type, and segscan over the owned prefix of each
+    in the table's type, segscan over the owned prefix of each
     sorted-route group's gathered keys (bf16 rows with float32 sums for
-    bf16 tables, as the step gives them). A frozen table's one-hot lookups
+    bf16 tables, as the step gives them), and over W > 1 ranks the ordered
+    pool of each model-parallel rowop group's owned prefix (the
+    owner-partitioned forward's), which must be bitwise. A frozen table's one-hot lookups
     are left out and its slots masked out of the sorted keys, as the step
     does (`EmbeddingCollection.frozen_tables`). Every rank calls this together
     (the keys are all-gathered). Returns, per kernel, the largest error
@@ -425,6 +477,7 @@ def kernel_parity(model, batch: Dict[str, torch.Tensor], seed: int = 5) -> Tree:
     error and the shapes."""
     from ..core.mesh import all_gather
     from ..ops import onehot_matmul as oh
+    from ..ops import ordered_pool as op
     from ..ops import segscan as ss
 
     ec, dev = model.ec, model.device
@@ -480,7 +533,129 @@ def kernel_parity(model, batch: Dict[str, torch.Tensor], seed: int = 5) -> Tree:
                 want = ss.segmented_sum_sorted_plain(vals, heads, torch.float32)
                 scale = ss.segmented_sum_sorted_plain(vals.float().abs(), heads, torch.float32)
                 note("segscan", got, want, scale, [int(sidx.shape[0]), int(keys.numel())])
+            if g.compute_kind == "rowop" and g.is_model_parallel and ec.world > 1 and ec.fwd_partition:
+                keys = all_gather(ec._group_keys(g, fk))
+                srows, offsets = ec._pool_segments(g.name, keys, table.shape[0], model.tables.get(f"{g.name}#keys"))
+                n_slots = offsets.numel() - 1
+                got = op.ordered_pool(table, srows, offsets)
+                want = op.ordered_pool_plain(table, srows, offsets)
+                # a zero scale: any difference is an infinite error
+                note("ordered_pool", got, want, torch.zeros((), device=dev), [int(srows.shape[0]), n_slots, g.ev_size])
     return res
+
+
+# The collections of `exchange_checks`, ev 8 (rows as (table, vocab,
+# feature, top, combiner, hotness)): the dense exchange on the concat tables
+# of tests/test_dense_exchange.py:27-50, the capacity factor on the table of
+# the JAX package's test_mp_capacity_slicing_matches_uncapped
+# (tests/test_embedding_collection.py:240-272)
+DX_SPEC = (("t0", 96, "f0", "e0", "concat", 4), ("t1", 64, "f1", "e1", "concat", 3),
+           ("t0", 96, "f2", "e2", "concat", 2))
+CAP_SPEC = (("big", 4096, "f0", "e0", "sum", 4),)
+
+
+def collection_inputs(spec, batch: int, seed: int) -> Tree:
+    """Tables (0.1 x normal, key order), a global batch of keys (a fifth of
+    them -1) and its cotangents for `collection_run`."""
+    rng = np.random.default_rng(seed)
+    tables = {t: (rng.normal(size=(v, 8)) * 0.1).astype(np.float32) for t, v, *_ in spec}
+    keys = {}
+    for _t, v, f, _top, _c, h in spec:
+        k = rng.integers(0, v, size=(batch, h)).astype(np.int32)
+        k[rng.random((batch, h)) < 0.2] = -1
+        keys[f] = k
+    d = {top: rng.normal(size=(batch, 8 * (h if c == "concat" else 1))).astype(np.float32)
+         for _t, _v, _f, top, c, h in spec}
+    return {"tables": tables, "keys": keys, "d": d}
+
+
+def collection_run(rm, spec, inputs: Tree, **settings) -> Tree:
+    """A collection of `spec` (one model-parallel group, AdaGrad on the
+    dense sweep) with `settings` (`EmbeddingCollection`'s exchange
+    settings), the tables of `inputs` imported: the forward of this rank's
+    block of the keys and one update from its block of the cotangents.
+    Returns the outputs, the tables in key order and the collectives'
+    calls of the two passes."""
+    from ..core import mesh
+    from ..core.types import Combiner_t, Optimizer_t
+    from ..embedding.collection import EmbeddingCollection
+    from ..optim.params import OptParams
+    from ..parallel import plan as tplan
+
+    cfgs, lookups = {}, []
+    for i, (t, v, f, top, c, h) in enumerate(spec):
+        cfgs.setdefault(t, tplan.EmbeddingTableConfig(t, v, 8))
+        lookups.append(tplan.LookupConfig(i, cfgs[t], f, top, Combiner_t(c), h))
+    plan = tplan.compile_plan(lookups, tplan.ShardingPlan([("mp", sorted(cfgs))]), rm.num_devices,
+                              onehot_vocab=0, split_vocab=0)
+    ec = EmbeddingCollection(plan, rm, OptParams(Optimizer_t.AdaGrad), dense_update_rows=1000,
+                             dense_key_ratio=0.0, **settings)
+    tables = ec.init(rm.generator(0))
+    for name, values in inputs["tables"].items():
+        ec.import_table(tables, name, values)
+    state = ec.init_optimizer(tables)
+    w, r = rm.num_devices, rm.rank
+
+    def block(a):
+        n = a.shape[0] // w
+        return torch.from_numpy(a[r * n : (r + 1) * n]).to(rm.device)
+
+    feats = {f: block(k) for f, k in inputs["keys"].items()}
+    mesh.COLLECTIVE_CALLS.clear()
+    outs = ec.forward(tables, feats)
+    ec.backward_and_update(tables, state, feats, {k: block(v) for k, v in inputs["d"].items()},
+                           torch.tensor(0.3), 1)
+    calls = dict(mesh.COLLECTIVE_CALLS)
+    return {"fwd": {k: v.cpu().numpy() for k, v in outs.items()}, "calls": calls,
+            "tables": {t: ec.export_table(tables, t) for t in sorted(inputs["tables"])}}
+
+
+def exchange_checks(rm, inputs: Tree) -> Tree:
+    """Rank function of the exchanges' checks over W ranks: (1) the tiny
+    bench-configured model's forward (`tiny_config("tiny_bench")`) on this
+    rank's block of its first batch by the owner-partitioned forward
+    against the masked gather: per output, the largest excess of |difference|
+    over (h + 4 t) x 2^-8 x S, where h is the slots that feed the output,
+    t its tiers and S the same forward of |tables| (each of the h bf16 adds
+    rounds by at most 2^-8 of the running |sum|, and each tier's pool, the
+    reduce over ranks and the tiers' merge add a few roundings more); (2)
+    `kernel_parity` of the same model and batch (the ordered pool bitwise);
+    (3) `collection_run` of `DX_SPEC` with the dense exchange's lists of 64
+    rows and of 2 (inputs["dx"]); (4) of `CAP_SPEC` with capacity factor
+    1.25 and without one (inputs["cap"])."""
+    from . import flagship
+
+    model = flagship.build_dlrm_dcnv2(rm, **tiny_config("tiny_bench")["kwargs"])
+    model.start_data_reading()
+    batch = next(model._train_iter)
+    fk = model._feature_keys(model._decode_batch(batch))
+    ec = model.ec
+    hot = {lm.top_name: lm.hotness for g in ec.plan.groups for lm in g.lookups}
+    tiers = dict.fromkeys(hot, 1)
+    for m in ec.plan.merges:
+        hot[m.top_name] = sum(hot.pop(s) for s in m.sub_tops)
+        tiers[m.top_name] = len(m.sub_tops)
+    with torch.no_grad():
+        part = ec.forward(model.tables, fk)
+        ec.fwd_partition = False
+        masked = ec.forward(model.tables, fk)
+        scale = ec.forward({k: t.abs() if t.is_floating_point() else t for k, t in model.tables.items()}, fk)
+        ec.fwd_partition = True
+    excess, diff, differing = -np.inf, 0.0, 0
+    for top, p in part.items():
+        d = (p.float() - masked[top].float()).abs()
+        lim = (hot[top] + 4 * tiers[top]) * 2.0**-8 * scale[top].float()
+        excess = max(excess, float((d - lim).max()))
+        diff = max(diff, float(d.max()))
+        differing += int((d > 0).sum())
+    out = {"forward_excess": excess, "forward_max_abs_diff": diff, "forward_outputs_differing": differing,
+           "forward_outputs": sum(p.numel() for p in part.values()), "kernel_parity": kernel_parity(model, batch)}
+    model._close_readers()
+    for cap in (64, 2):
+        out[f"dx{cap}"] = collection_run(rm, DX_SPEC, inputs["dx"], dense_exchange_cap=cap)
+    for name, factor in (("cap", 1.25), ("nocap", 0.0)):
+        out[name] = collection_run(rm, CAP_SPEC, inputs["cap"], capacity_factor=factor)
+    return out
 
 
 # the tiny DLRM-DCNv2 of the parity checks: one-hot for vocab <= 100, the
@@ -556,7 +731,8 @@ def path_summary(ranks: List[Tree], cfg: Tree) -> Tree:
         collective_bytes_per_step={k: v / steps for k, v in r0["collective_bytes"].items()},
         eval_collective_bytes_per_batch={k: v / eval_batches
                                          for k, v in r0["eval_counts"]["collective_bytes"].items()},
-        replicated_arrays=len(r0["replicated"]),
+        replicated_arrays=len(r0["replicated"]), fwd_partition=cfg["kwargs"].get("fwd_partition", True),
+        forward=r0.get("forward"),
         replicas_equal=all(r["replicated"] == r0["replicated"] for r in ranks[1:]),
         finite=all(bool(np.isfinite(r["losses"]).all()) for r in ranks),
     )
@@ -634,6 +810,11 @@ def parity_report(one: Tree, ranks: List[Tree], rtol: float = 1e-4, atol: float 
     return out
 
 
+# what `--fwd-partition-ab` prints of each run
+AB_KEYS = ("model", "fwd_partition", "backend", "median_ms_per_step", "step_ms", "forward",
+           "collective_calls_per_step", "collective_bytes_per_step", "eval_examples_per_s", "finite", "replicas_equal")
+
+
 def main() -> None:
     import argparse
 
@@ -645,6 +826,13 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=3, help="training steps of a tiny model")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default=None)
+    ap.add_argument("--fwd-partition", type=int, choices=(0, 1), default=1,
+                    help="a full-width model's forward: 1 the owner-partitioned one (default), 0 the masked gather")
+    ap.add_argument("--time-forward", action="store_true",
+                    help="also time the embedding forward alone (`forward_times`)")
+    ap.add_argument("--fwd-partition-ab", action="store_true",
+                    help="a full-width model with the forward off, on, on, off; one JSON line a run")
+    ap.add_argument("--out", default=None, help="with --fwd-partition-ab, a directory for each run's whole summary")
     args = ap.parse_args()
     if args.dynamic and args.model != "dlrm_ftrl":
         ap.error("--dynamic is a dlrm_ftrl setting")
@@ -655,11 +843,18 @@ def main() -> None:
         print(json.dumps({**head, "losses": ranks[0]["losses"].tolist(), "eval": ranks[0]["eval"],
                           **parity_report(one, ranks)}))
         return
-    cfg = full_width_config(args.model, backend == "gloo" and args.device == "cuda", dynamic=args.dynamic)
-    ranks = run(train_model, args.world, {"config": json.dumps(cfg)}, backend=backend, device=args.device,
-                timeout=1800.0)
-    print(json.dumps({**head, "dynamic": args.dynamic, "staged_through_host": backend == "gloo",
-                      **path_summary(ranks, cfg)}))
+    for i, partition in enumerate((0, 1, 1, 0) if args.fwd_partition_ab else (args.fwd_partition,)):
+        cfg = full_width_config(args.model, backend == "gloo" and args.device == "cuda", dynamic=args.dynamic)
+        cfg["kwargs"]["fwd_partition"] = bool(partition)
+        cfg["time_forward"] = args.time_forward or args.fwd_partition_ab
+        ranks = run(train_model, args.world, {"config": json.dumps(cfg)}, backend=backend, device=args.device,
+                    timeout=1800.0)
+        rec = {**head, "dynamic": args.dynamic, "staged_through_host": backend == "gloo", **path_summary(ranks, cfg)}
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, f"{args.model}_{i}.json"), "w") as f:
+                json.dump(rec, f)
+        print(json.dumps({k: rec.get(k) for k in AB_KEYS} if args.fwd_partition_ab else rec), flush=True)
 
 
 if __name__ == "__main__":

@@ -186,10 +186,11 @@ def gloo2():
     return x, hybrid.run(fns.collectives, 2, {"x": x}, device="cpu")
 
 
-@pytest.mark.parametrize("op", ["all_gather", "reduce_scatter", "all_reduce", "broadcast"])
+@pytest.mark.parametrize("op", ["all_gather", "reduce_scatter", "all_reduce", "broadcast", "all_to_all"])
 def test_collectives_over_gloo_match_numpy(gloo2, op):
     """Rank r holds rows [4r, 4r + 4) (all_gather) or the whole x times
-    r + 1 (reduce_scatter, all_reduce, broadcast)."""
+    r + 1 (reduce_scatter, all_reduce, broadcast, all_to_all: rank r gets
+    rows [4s, 4s + 4) of rank s's, in float32 and in bfloat16)."""
     x, ranks = gloo2
     for r, res in enumerate(ranks):
         assert res["backend"] == "gloo"
@@ -200,22 +201,26 @@ def test_collectives_over_gloo_match_numpy(gloo2, op):
             np.testing.assert_array_equal(res["reduce_scatter"], 3 * x[4 * r : 4 * r + 4])
         elif op == "all_reduce":
             np.testing.assert_array_equal(res["all_reduce"], 3 * x)
+        elif op == "all_to_all":
+            want = np.concatenate([(s + 1) * x[4 * r : 4 * r + 4] for s in range(2)])
+            np.testing.assert_array_equal(res["all_to_all"], want)
+            np.testing.assert_array_equal(res["all_to_all_bf16"], want)  # small integers: exact in bf16
         else:
             np.testing.assert_array_equal(res["broadcast"], x)
         # the whole buffer each covers on the rank: the int64 and float32
         # gathers' outputs, one scatter's input, one reduce's and one
-        # broadcast's tensor
+        # broadcast's tensor, the float32 and bfloat16 all-to-alls' inputs
         assert res["bytes"] == {"all_gather": x.size * 8 + x.nbytes, "reduce_scatter": x.nbytes,
-                                "all_reduce": x.nbytes, "broadcast": x.nbytes}
+                                "all_reduce": x.nbytes, "broadcast": x.nbytes, "all_to_all": x.nbytes * 3 // 2}
 
 
 def test_collectives_are_identities_without_a_group():
     t = torch.arange(6.0).reshape(3, 2)
     assert mesh.group_size() == 1 and mesh.backend() is None
-    for op in (mesh.all_gather, mesh.reduce_scatter, mesh.all_reduce, mesh.broadcast):
+    for op in (mesh.all_gather, mesh.reduce_scatter, mesh.all_reduce, mesh.broadcast, mesh.all_to_all):
         assert op(t) is t
     np.testing.assert_array_equal(t.numpy(), np.arange(6.0).reshape(3, 2))
-    assert set(mesh.COLLECTIVE_NAMES) == {"all_gather", "reduce_scatter", "all_reduce", "broadcast"}
+    assert set(mesh.COLLECTIVE_NAMES) == {"all_gather", "reduce_scatter", "all_reduce", "broadcast", "all_to_all"}
 
 
 def test_resource_manager_without_a_group():
@@ -260,6 +265,52 @@ def test_deferred_over_ranks_raise(what):
     item, fn = DEFERRED[what]
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
         fn()
+
+
+# JAX `Solver` settings that change what the JAX Model builds and that the
+# port does not port yet: each raises, naming its ROADMAP item
+UNPORTED_SETTINGS = {
+    "num_slices": (dict(num_slices=2), NotImplementedError, "ROADMAP Queue 1 item 1g"),
+    "ev_parallelism": (dict(ev_parallelism=2), NotImplementedError, "ROADMAP Queue 1 item 1i"),
+    "group_rows": (dict(group_rows=4096), NotImplementedError, "ROADMAP Queue 1 item 8"),
+    "num_devices": (dict(num_devices=4), ValueError, "process group has 1 rank"),
+    "segsum_scan_bf16": (dict(segsum_mode="scan", embedding_vec_dtype="bfloat16"), NotImplementedError,
+                         "ROADMAP Queue 3"),
+}
+ACCEPTED_DEFAULTS = {"num_slices": dict(num_slices=1), "ev_parallelism": dict(ev_parallelism=1),
+                     "group_rows": dict(group_rows=None), "num_devices": dict(num_devices=0),
+                     "segsum_scan_bf16": dict(segsum_mode="scan", embedding_vec_dtype="float32")}
+
+
+@pytest.mark.parametrize("setting", list(UNPORTED_SETTINGS))
+def test_create_solver_refuses_unported_settings(setting):
+    """`CreateSolver` raises for a setting it cannot honour, where it used
+    to drop it with a warning (ROADMAP Queue 3); at its default (and
+    "scan" with float32 tables) the setting is accepted."""
+    kw, err, match = UNPORTED_SETTINGS[setting]
+    with pytest.raises(err, match=match):
+        hugectr.CreateSolver(batchsize=64, **kw)
+    assert hugectr.CreateSolver(batchsize=64, **ACCEPTED_DEFAULTS[setting]).batchsize == 64
+
+
+def test_create_solver_accepts_the_inert_fields_quietly(monkeypatch):
+    """Every JAX `Solver` field that the JAX package never reads (or reads
+    as an exact no-op) is accepted without a warning; the capacity factor
+    is a field; an unknown name keeps its warning."""
+    import dataclasses as dc
+
+    from hugectr_tpu.core.config import Solver as JSolver
+
+    warned = []
+    monkeypatch.setattr(hugectr, "get_logger", lambda: type("L", (), {"warning": warned.append})())
+    jfields = {f.name: f.default if f.default is not dc.MISSING else f.default_factory() for f in dc.fields(JSolver)}
+    inert = {k: jfields[k] for k in hugectr.INERT_SOLVER_FIELDS}
+    s = hugectr.CreateSolver(mp_capacity_factor=1.5, num_devices=1, num_slices=1, ev_parallelism=1, **inert)
+    assert warned == [] and s.mp_capacity_factor == 1.5
+    missing = {f.name for f in dc.fields(JSolver)} - {f.name for f in dc.fields(hugectr.Solver)}
+    assert missing == set(hugectr.INERT_SOLVER_FIELDS) | {"num_devices", "num_slices", "ev_parallelism", "group_rows"}
+    hugectr.CreateSolver(no_such_setting=1)
+    assert len(warned) == 1 and "no_such_setting" in warned[0]
 
 
 def test_table_state_carries_between_placements():

@@ -18,6 +18,7 @@ import torch
 
 from hugectr_tpu_torch import ops
 from hugectr_tpu_torch.ops import onehot_matmul as oh
+from hugectr_tpu_torch.ops import ordered_pool as op
 from hugectr_tpu_torch.ops import segscan as ss
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
@@ -337,6 +338,30 @@ def test_segscan_bf16_rows_float32_sums(cuda):
         assert torch.equal(ss.segmented_sum_sorted(vals, heads, torch.float32), got)
     with pytest.raises(ValueError):
         ss.segmented_sum_sorted(vals.float(), heads, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e", [16, 128, 13])
+def test_ordered_pool_kernel_is_bitwise_its_plain_version(cuda, dtype, e):
+    """Slots of 0 to 100 rows, the rows of a slot in ascending order,
+    repeated rows, keys of other shards (the sentinel row 2000); E 13 takes
+    the kernel's one-column lanes."""
+    rng = np.random.default_rng(e)
+    n_slots = 5000
+    lens = rng.integers(0, 12, size=n_slots)
+    lens[:3] = (100, 0, 1)
+    slots = torch.from_numpy(np.repeat(np.arange(n_slots), lens))
+    rows = torch.from_numpy(np.minimum(rng.integers(0, 2200, size=slots.numel()), 2000))
+    table = torch.from_numpy(rng.normal(size=(2000, e)).astype(np.float32)).to(dtype)
+    srows, offsets = op.segments(rows, slots, n_slots, 2000)
+    want = op.ordered_pool_plain(table, srows, offsets)
+    ops.reset_counts()
+    got = op.ordered_pool(table.to(cuda), srows.to(cuda), offsets.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ordered_pool"] == 1
+    assert torch.equal(got.cpu().view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
 
 
 @pytest.mark.gpu

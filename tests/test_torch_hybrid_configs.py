@@ -10,11 +10,14 @@ runs in this process. Each rank reads its block of the global batch.
 Cases (`torch_rank_fns.CASES`), two steps each:
 * w2_bf16_split (bf16 tables and state, rowwise AdaGrad; superhot tier in
   the one-hot group, hot tier on the dense sweep, cold tier on the sorted
-  route): forward outputs, tables in key order and each rank's storage and
-  state within one bf16 ulp at the tables' scale (rtol 2^-7, atol
-  2^-7 x 0.1; state atol 1e-7): both packages sum in float32 and round
-  once to bf16 before a bf16 reduce, in another order, so a value next to
-  a rounding boundary may land on its neighbour;
+  route): forward outputs bitwise (both packages at their default, the
+  owner-partitioned forward: each slot's owned rows added in ascending row
+  order with a rounding to bf16 after every add, and the two ranks' pools
+  added in bf16, which commutes); tables in key order and each rank's
+  storage and state within one bf16 ulp at the tables' scale (rtol 2^-7,
+  atol 2^-7 x 0.1; state atol 1e-7): the updates sum in float32 in
+  another order, so a value next to a rounding boundary may land on its
+  neighbour;
 * w2_dynamic_ftrl (FTRL, dense sweep) and w4_dynamic (rowwise AdaGrad,
   sorted route): each shard's key store bitwise equal to the JAX mesh's
   block of it; forward outputs rtol 1e-5 / atol 1e-6, tables and state
@@ -140,7 +143,7 @@ def ec_case(request, port_w2, port_w4, jax_ec):
 
 def _tols(name):
     if fns.CASES[EC_CASES[name][2]]["dtype"] == "bfloat16":
-        return BF16_TOL, BF16_TOL
+        return dict(rtol=0, atol=0), BF16_TOL
     return FWD_TOL, TOL
 
 

@@ -5,11 +5,12 @@ one spawned gloo group (`tools/hybrid.py::train_model`); JAX runs in this
 process. (The collections of these configurations:
 `tests/test_torch_hybrid_configs.py`.)
 
-JAX runs with HCTR_TPU_FWD_PARTITION=0: the masked gather of the owned
-keys that the port runs (`_mp_fwd_local`, collection.py:869-878). JAX's
-default at W > 1, the owner-partitioned forward (ROADMAP Queue 1 item 1f2),
-pools bf16 rows with a bf16 scatter-add, one rounding a key, and its step-1
-loss of the bench model lies 7.3e-5 relative from both.
+The bench model runs the masked gather of the owned keys in both packages
+(JAX with HCTR_TPU_FWD_PARTITION=0, `_mp_fwd_local`, collection.py:869-878;
+the port with `fwd_partition=False`): float32 sums rounded once to bf16.
+Both packages' default, the owner-partitioned forward, which rounds after
+every key, is held in tests/test_torch_exchange_models.py. The dynamic
+DLRM-FTRL runs both packages' defaults (float32 tables).
 
 * The tiny bench-configured DLRM-DCNv2 (tests/test_torch_bench.py's
   tolerances): step 1 loss rtol 1e-5, steps 2-3 rtol 5e-3, each rank's
@@ -51,14 +52,18 @@ BF16_ULP = 2.0**-7
 EMPTY = 2**31 - 1
 BENCH_KW = dict(tflagship.bench_settings(), **BENCH_TINY, **BENCH_SPLIT, onehot_vocab=64, synthetic_learnable=True,
                 metrics_spec={"auc": 0.80275, "average_loss": 0.0})
+MASKED_KW = dict(BENCH_KW, fwd_partition=False)  # JAX's HCTR_TPU_FWD_PARTITION=0
 
 
-def _jax_bench_model():
+def _jax_bench_model(fwd_partition="0"):
     """The tiny bench-configured JAX model on a 2-device mesh (as
     tests/test_torch_bench.py's, AUC and AverageLoss), its initial state,
-    the state after step 1 and after step 3, its losses and its eval."""
+    the state after step 1 and after step 3, its losses and its eval;
+    HCTR_TPU_FWD_PARTITION set to `fwd_partition` (None: the default)."""
     with pytest.MonkeyPatch.context() as mp:
-        for k, v in dict(BENCH_ENV, HCTR_TPU_FWD_PARTITION="0").items():
+        mp.delenv("HCTR_TPU_FWD_PARTITION", raising=False)
+        env = dict(BENCH_ENV, HCTR_TPU_FWD_PARTITION=fwd_partition) if fwd_partition else BENCH_ENV
+        for k, v in env.items():
             mp.setenv(k, v)
         reader = jh.DataReaderParams(data_reader_type="synthetic", synthetic_num_batches=3, synthetic_alpha=1.05,
                                      synthetic_learnable=True)
@@ -111,7 +116,7 @@ def port_w2(jax_models):
     three steps) and the tiny dynamic DLRM-FTRL (three steps and an eval),
     each from JAX's carried state."""
     jb, jf = jax_models["bench"], jax_models["ftrl"]
-    bench = dict(builder="build_dlrm_dcnv2", kwargs=BENCH_KW, eval=True, export=False)
+    bench = dict(builder="build_dlrm_dcnv2", kwargs=MASKED_KW, eval=True, export=False)
     ftrl = dict(builder="build_tiny_dlrm_ftrl", kwargs=dict(dynamic=True), steps=3, eval=True, storage=True,
                 export=False)
     inputs = {
@@ -152,7 +157,7 @@ def test_bench_model_on_two_ranks_matches_jax(port_w2, jax_models):
     for res in (a, b):
         n_sorted = sum(v == "sorted" for v in res["routes"].values())
         assert res["plain_calls"] == {"onehot_fwd": 3, "onehot_bwd": 3 * len(jb["plan"].groups[0].lookups),
-                                      "segscan": 3 * n_sorted}
+                                      "segscan": 3 * n_sorted, "ordered_pool": 0}
         assert res["collective_bytes"]["reduce_scatter"] % 2 == 0
 
 

@@ -106,3 +106,49 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ResourceManager.create()
     assert ResourceManager.create(device="cpu").device.type == "cpu"
+
+
+def test_module_exports_reference_names():
+    """The port's module exports every name that the JAX package's
+    tests/test_api_parity.py::test_module_exports_reference_names asks of
+    it, with the same member spot-checks, and `HugeCTRError`."""
+    import hugectr_tpu_torch as hugectr
+
+    names = [
+        "CreateSolver", "CreateOptimizer", "Model", "Input", "SparseEmbedding",
+        "DenseLayer", "DenseLayerComputeConfig", "EmbeddingCollectionConfig",
+        "EmbeddingTableConfig", "DataReaderParams", "DataReaderSparseParam",
+        "AsyncParam", "DataSourceParams", "DataGenerator",
+        "DataGeneratorParams", "LearningRateScheduler", "TrainingCallback",
+        "OptParamsPy",
+        "Error_t", "Check_t", "DataReaderType_t", "FileSystemType_t",
+        "SourceType_t", "TrainPSType_t", "Embedding_t", "Initializer_t",
+        "Layer_t", "Alignment_t", "LrPolicy_t", "Optimizer_t", "Update_t",
+        "Activation_t", "FcPosition_t", "Regularizer_t", "MetricsType",
+        "MetricsRawType", "DeviceLayout", "AllReduceAlgo", "Distribution_t",
+        "PowerLaw_t", "Tensor_t", "CommunicationStrategy",
+        "CompressionStrategy",
+    ]
+    assert len(names) == 43
+    missing = [n for n in names + ["HugeCTRError"] if not hasattr(hugectr, n)]
+    assert not missing, f"missing exports: {missing}"
+    assert set(names + ["HugeCTRError"]) <= set(hugectr.__all__)
+    assert hugectr.FcPosition_t.Head and hugectr.FcPosition_t.Tail
+    assert hugectr.Alignment_t.Auto and hugectr.Alignment_t.Non
+    assert hugectr.FileSystemType_t.HDFS and hugectr.FileSystemType_t.S3
+    assert hugectr.Distribution_t.PowerLaw
+    assert hugectr.Tensor_t.Train and hugectr.Tensor_t.Evaluate
+    assert hugectr.DeviceLayout.LocalFirst
+    assert hugectr.AllReduceAlgo.OneShot
+    assert hugectr.Update_t.LazyGlobal
+    assert hugectr.Error_t.WrongInput
+    err = hugectr.HugeCTRError(hugectr.Error_t.EndOfFile, "eof")
+    assert err.error_t == hugectr.Error_t.EndOfFile
+    # the reference's no-op arguments are accepted
+    layer = hugectr.DenseLayer(layer_type="ReLU", bottom_names=["a"], top_names=["b"],
+                               compute_config=hugectr.DenseLayerComputeConfig(async_wgrad=True))
+    assert layer == hugectr.DenseLayer(layer_type="ReLU", bottom_names=["a"], top_names=["b"])
+    ebc = hugectr.EmbeddingCollectionConfig()
+    ebc.shard(shard_matrix=[["t"]], shard_strategy=[("mp", ["t"])],
+              compression_strategy={hugectr.CompressionStrategy.Unique: ["t"]})
+    assert ebc.shard_matrix == [["t"]]

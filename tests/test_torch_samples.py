@@ -165,11 +165,11 @@ def check_sample(monkeypatch, tmp_path, name, variant):
     for step in range(3):
         jl, tl = jm.train(), tm.train()
         np.testing.assert_allclose(tl, jl, rtol=1e-4, err_msg=f"{name} loss at step {step + 1}")
-    assert ops.launch_counts() == {"segscan": 0, "onehot_fwd": 0, "onehot_bwd": 0}
+    assert ops.launch_counts() == {"segscan": 0, "onehot_fwd": 0, "onehot_bwd": 0, "ordered_pool": 0}
     onehot = [g for g in tm.ec.plan.groups if g.compute_kind == "onehot"]
     n_sorted = sum(r == "sorted" for r in tm.ec.group_routes.values())
     assert ops.plain_counts() == {"segscan": 3 * n_sorted, "onehot_fwd": 3 * len(onehot),
-                                  "onehot_bwd": 3 * sum(len(g.lookups) for g in onehot)}
+                                  "onehot_bwd": 3 * sum(len(g.lookups) for g in onehot), "ordered_pool": 0}
     state = host_state(jm)
     params = tm.network.param_tree()
     assert_state_close(

@@ -92,6 +92,67 @@ CASES["dynamic_sorted"] = dict(CASES["dynamic"], engine=dict(CASES["dynamic"]["e
                                env=dict(CASES["dynamic"]["env"], HCTR_TPU_DENSE_UPDATE_ROWS="0"))
 
 
+def _bf16(case):
+    """A case with bf16 tables and state; JAX sums the sorted route's
+    segments in float32 (HCTR_TPU_SEGSUM=xla), as the port does: its
+    "scan" mode stores bf16 rows' segment sums in bf16."""
+    env = dict(CASES[case]["env"], HCTR_TPU_EMB_STATE_DTYPE="bfloat16", HCTR_TPU_SEGSUM="xla")
+    return dict(CASES[case], dtype="bfloat16", env=env)
+
+
+# The exchanges over ranks (tests/test_torch_exchange.py), each package at
+# its default forward (the owner-partitioned one) unless a case says:
+# * "bf16_base", "bf16_partial", "bf16_dynamic": those cases with bf16
+#   tables and state; "bf16_base_mp" with every table model-parallel (no
+#   one-hot group, whose bf16 gradient sum over W > 2 ranks rounds
+#   otherwise than JAX's psum: tests/test_torch_exchange.py);
+# * "cap": the table of the JAX package's test_mp_capacity_slicing_matches_uncapped
+#   (tests/test_embedding_collection.py:240-272) on the sorted route with
+#   capacity factor 1.25, which cuts a sorted list of K keys at
+#   ceil512(1.25 K / n) (n = W in the forward, f shards in the backward)
+#   and drops nothing from uniform keys at W = 2; "cap_none" the same
+#   without a factor; "cap_skew" (and "cap_skew_dense", on the dense sweep)
+#   with even keys, which an even number of shards places on half of them,
+#   so their lists overflow and drop keys ("cap_skew_none": no factor);
+#   "cap_partial_skew" the table on 2 of 4 ranks at factor 1.0, where the
+#   forward cuts at ceil512(K / 4) and the backward at ceil512(K / 2);
+# * "dx": the concat tables of tests/test_dense_exchange.py:27-50 in one
+#   model-parallel group, the unique-key dense exchange with lists of 64
+#   rows ("dx64": no list overflows) or of 2 ("dx2": every step takes the
+#   overflow branch).
+CASES["bf16_base"] = _bf16("base")
+CASES["bf16_base_mp"] = dict(CASES["bf16_base"], engine=dict(CASES["bf16_base"]["engine"], onehot_vocab=0),
+                             env=dict(CASES["bf16_base"]["env"], HCTR_TPU_ONEHOT_VOCAB="0"))
+CASES["bf16_partial"] = _bf16("partial")
+CASES["bf16_dynamic"] = _bf16("dynamic")
+_CAP_ENV = {"HCTR_TPU_ONEHOT_VOCAB": "0", "HCTR_TPU_SPLIT_VOCAB": "0", "HCTR_TPU_DENSE_UPDATE_ROWS": "0",
+            "HCTR_TPU_DENSE_KEY_RATIO": "0", "HCTR_TPU_SEGSUM": "scan", "HCTR_TPU_HOT_ROWS": "0"}
+CASES["cap_none"] = dict(spec=[("big", 4096, "f0", "e0", "sum", 4)], strategy=[("mp", ["big"])], shard_counts=None,
+                         engine=dict(onehot_vocab=0, split_vocab=0, dense_update_rows=0, dense_key_ratio=0.0),
+                         env=_CAP_ENV, dtype="float32", batch=512)
+CASES["cap"] = dict(CASES["cap_none"], engine=dict(CASES["cap_none"]["engine"], capacity_factor=1.25),
+                    env=dict(_CAP_ENV, HCTR_TPU_MP_CAPACITY_FACTOR="1.25"))
+CASES["cap_skew"] = dict(CASES["cap"], skew=True)
+CASES["cap_skew_dense"] = dict(CASES["cap_skew"], engine=dict(CASES["cap"]["engine"], dense_update_rows=4096),
+                               env=dict(CASES["cap"]["env"], HCTR_TPU_DENSE_UPDATE_ROWS="4096"))
+CASES["cap_skew_none"] = dict(CASES["cap_none"], skew=True)
+CASES["cap_partial_skew"] = dict(CASES["cap_skew"], shard_counts={"big": 2},
+                                 engine=dict(CASES["cap"]["engine"], capacity_factor=1.0),
+                                 env=dict(_CAP_ENV, HCTR_TPU_MP_CAPACITY_FACTOR="1.0"))
+_DX_ENV = {"HCTR_TPU_ONEHOT_VOCAB": "0", "HCTR_TPU_SPLIT_VOCAB": "0", "HCTR_TPU_DENSE_UPDATE_ROWS": "1000",
+           "HCTR_TPU_DENSE_KEY_RATIO": "0", "HCTR_TPU_HOT_ROWS": "0"}
+for _cap in (64, 2):
+    CASES[f"dx{_cap}"] = dict(
+        spec=[("t0", 96, "f0", "e0", "concat", 4), ("t1", 64, "f1", "e1", "concat", 3),
+              ("t0", 96, "f2", "e2", "concat", 2)],
+        strategy=[("mp", ["t0", "t1"])], shard_counts=None,
+        engine=dict(onehot_vocab=0, split_vocab=0, dense_update_rows=1000, dense_key_ratio=0.0,
+                    dense_exchange_cap=_cap),
+        env=dict(_DX_ENV, HCTR_TPU_DENSE_EXCHANGE_CAP=str(_cap)), dtype="float32", batch=32)
+# the settings of the exchanges, as `EmbeddingCollection` takes them
+EXCHANGE_SETTINGS = ("fwd_partition", "capacity_factor", "dense_exchange_cap")
+
+
 def ec_lookups(pkg, comb, case="base"):
     """The collection's lookups in `pkg` (either package's plan module)."""
     tables = {}
@@ -116,6 +177,8 @@ def ec_keys(rng, b, case="base"):
             feats[f] = k
             continue
         k = rng.integers(0, v, size=(b, h)).astype(np.int32)
+        if CASES[case].get("skew"):
+            k = 2 * rng.integers(0, v // 2, size=(b, h)).astype(np.int32)
         r = rng.random((b, h))
         k[r < 0.15] = -1
         k[(r >= 0.15) & (r < 0.22)] = -rng.integers(2, 3 * v, size=int(((r >= 0.15) & (r < 0.22)).sum()))
@@ -132,7 +195,8 @@ def ec_inputs(optimizer, b, steps, lr, case="base"):
     """Inputs of `collection_steps`: the static tables, a global batch of
     `b` keys and each step's cotangents, made from a seed of the optimizer
     and the case."""
-    seed = {"base": 0, "split": 31, "dynamic": 37, "dynamic_sorted": 41, "partial": 43}[case]
+    seed = CASES[case].get("seed", {"base": 0, "split": 31, "dynamic": 37, "dynamic_sorted": 41,
+                                    "partial": 43}.get(case, 47))
     rng = np.random.default_rng(seed + (23 if optimizer == "ftrl" else 29))
     spec = CASES[case]["spec"]
     tables = {t: (rng.normal(size=(v, 8)) * 0.1).astype(np.float32) for t, v, *_ in spec if v > 0}
@@ -151,7 +215,8 @@ def block(arr: np.ndarray, rank: int, world: int) -> np.ndarray:
 
 def collectives(rm, inputs):
     """all_gather, reduce_scatter, all_reduce and broadcast of this rank's
-    rows of inputs["x"] (int64 and float32)."""
+    rows of inputs["x"] (int64 and float32); all_to_all of inputs["x"]
+    times r + 1 (float32 and bfloat16)."""
     x = block(inputs["x"], rm.rank, rm.num_devices)
     out = {}
     for name, t in (("i64", torch.from_numpy(x.astype(np.int64))), ("f32", torch.from_numpy(x))):
@@ -159,6 +224,9 @@ def collectives(rm, inputs):
     out["reduce_scatter"] = mesh.reduce_scatter(torch.from_numpy(inputs["x"] * (rm.rank + 1))).numpy()
     out["all_reduce"] = mesh.all_reduce(torch.from_numpy(inputs["x"] * (rm.rank + 1))).numpy()
     out["broadcast"] = mesh.broadcast(torch.from_numpy(inputs["x"] * (rm.rank + 1))).numpy()
+    mine = torch.from_numpy(inputs["x"] * (rm.rank + 1))
+    out["all_to_all"] = mesh.all_to_all(mine).numpy()
+    out["all_to_all_bf16"] = mesh.all_to_all(mine.to(torch.bfloat16)).float().numpy()
     out["backend"] = mesh.backend()
     out["bytes"] = dict(mesh.COLLECTIVE_BYTES)
     return out
@@ -183,7 +251,8 @@ def collection_steps(rm, inputs):
     opt = OptParams(Optimizer_t(cfg["optimizer"]), **OPT_HYPER)
     dt = getattr(torch, case["dtype"])
     ec = EmbeddingCollection(plan, rm, opt, dtype=dt, state_dtype=dt, dense_update_rows=eng["dense_update_rows"],
-                             dense_key_ratio=eng["dense_key_ratio"])
+                             dense_key_ratio=eng["dense_key_ratio"],
+                             **{k: v for k, v in eng.items() if k in EXCHANGE_SETTINGS})
     tables = ec.init(rm.generator(0))
     for g in plan.groups:
         if g.slot_is_dynamic.any():
@@ -194,6 +263,8 @@ def collection_steps(rm, inputs):
     w, r = rm.num_devices, rm.rank
     feats = {f: torch.from_numpy(block(k, r, w)).to(rm.device) for f, k in inputs["keys"].items()}
     out = {"fwd": {}}
+    mesh.COLLECTIVE_CALLS.clear()
+    mesh.COLLECTIVE_BYTES.clear()
     for step in range(1, cfg["steps"] + 1):
         outs = ec.forward(tables, feats)
         out["fwd"][str(step)] = {k: v.float().cpu().numpy() for k, v in outs.items()}
@@ -203,6 +274,8 @@ def collection_steps(rm, inputs):
     out["storage"] = {g: (t.float() if t.is_floating_point() else t).cpu().numpy() for g, t in tables.items()}
     out["state"] = {g: {k: t.float().cpu().numpy() for k, t in st.items()} for g, st in state.items()}
     out["routes"] = dict(ec.group_routes)
+    out["collective_calls"] = dict(mesh.COLLECTIVE_CALLS)
+    out["collective_bytes"] = dict(mesh.COLLECTIVE_BYTES)
     return out
 
 
@@ -211,12 +284,18 @@ def collection_cases(rm, inputs):
     return {name: collection_steps(rm, i) for name, i in inputs.items()}
 
 
+def bf16_sum(rm, inputs):
+    """`mesh.all_reduce` of this rank's row of inputs["x"] in bfloat16."""
+    x = torch.from_numpy(inputs["x"][rm.rank]).to(torch.bfloat16)
+    return {"y": mesh.all_reduce(x).float().numpy()}
+
+
 def several(rm, inputs):
     """Several rank functions in one group: inputs["calls"] (JSON) maps a
     key to a function of this module, `hybrid.train_model` or
     `hybrid.snapshot_round_trip`; each gets inputs[key] and its result goes
     under key."""
     calls = json.loads(inputs["calls"])
-    fns = dict(collection_cases=collection_cases, train_model=hybrid.train_model,
+    fns = dict(collection_cases=collection_cases, bf16_sum=bf16_sum, train_model=hybrid.train_model,
                snapshot_round_trip=hybrid.snapshot_round_trip)
     return {key: fns[name](rm, inputs[key]) for key, name in calls.items()}
