@@ -106,6 +106,21 @@ Each phase prints one JSON line with its own seconds:
    the W ranks, twice from one seed: each shard's store fill and dropped
    keys a step, no key in two shards' stores, each store bitwise equal
    across the runs.
+   The meshes (PR 12): "mesh_parity" (before "hybrid_path"; the tiny model
+   on the sorted route from one state, on the global batches of ranks on 2
+   hosts: 4 ranks flat and as the (dcn, ici) = (2, 2) mesh with
+   Hierarchical communication against one card, the ("data", "ev") (2, 2)
+   mesh against 2 flat ranks bitwise, each rank's batch by the multi-host
+   rule bitwise, the bf16 sums of 1.0 + 3 x 2^-9 over 4 ranks, a column
+   split against the unsplit table bitwise, `group_rows` against no
+   binning); "hybrid_hier_path" (after "hybrid_path": its f32 flagship on
+   4 ranks as the (2, 2) mesh with Hierarchical communication, the DCN
+   reduce-scatter's bytes 1 / I of the flat ones, each kernel against its
+   plain version on every rank's inputs); "hybrid_column_path" (the f32
+   flagship at W ranks with column factor 2 on its six sorted-route
+   tables: segscan and the ordered pool at E 64 on every rank). The
+   kernel phase adds both at E 64 at rank 0's shapes
+   (`column_kernel_checks`).
 
 10. The samples (`hugectr_tpu_torch/tools/samples.py`, the graphs of the
    JAX package's samples/*.py): "sample_kernels" holds each kernel against
@@ -167,11 +182,12 @@ the bench path's launches and
 the same numbers for its bf16 case with the most device time, and the FTRL
 path's launches and its case with the most device time, the freeze
 path's launches, each rank's
-launches on the hybrid and hybrid bench paths, and the per-rank bench case
-with the most device time, each sample graph's launches and the
-sample-width case with the most device time; and the ordered pool: its
-launches on rank 0 of the hybrid path, steps and eval, beside its f32 and
-bf16 cases with the most device time), a line with the card's name and
+launches on the hybrid, hierarchical, column and hybrid bench paths, and
+the per-rank bench case with the most device time, each sample graph's
+launches and the sample-width case with the most device time, and for
+segscan its E 64 case (`column_case`); and the ordered pool: its
+launches on rank 0 of the hybrid path, steps and eval, beside its f32,
+bf16 and E 64 cases), a line with the card's name and
 power limit, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that line;
 so does a machine without CUDA.
@@ -355,6 +371,7 @@ def kernel_checks(torch, results):
     bench_shape_checks(torch, np, oh, ss, dev, results, world=hybrid_world(torch))
     ftrl_shape_checks(torch, np, oh, ss, dev, results)
     ordered_pool_checks(torch, np, dev, results)
+    column_kernel_checks(torch, np, dev, results)
 
 
 def ftrl_shape_checks(torch, np, oh, ss, dev, results):
@@ -924,6 +941,91 @@ def ordered_pool_checks(torch, np, dev, results):
             emit(rec)
             if not (ok and rec["empty_slots_zero"]):
                 raise AssertionError(f"ordered_pool edge case differs from its plain version: {rec}")
+
+
+def column_kernel_checks(torch, np, dev, results):
+    """segscan and the ordered pool at E 64, the width of
+    `hybrid_column_path`'s column-split sub-tables (factor 2 on the f32
+    flagship's sorted-route tables), at rank 0's shapes of its W ranks:
+    table 21's sub-table group (h 27, the largest K), the ordered pool of
+    the owned prefix of the gathered 16,384 x 27 power-law keys, bitwise,
+    and segscan over the sorted owned rows, float32; times beside the
+    bound, the plain version, `embedding_bag` (the pool) and `index_add_`
+    (segscan's sums per row, no running sums)."""
+    import torch.nn.functional as F
+
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.core.types import Optimizer_t
+    from hugectr_tpu_torch.embedding.collection import EmbeddingCollection
+    from hugectr_tpu_torch.ops import ordered_pool as op
+    from hugectr_tpu_torch.ops import segscan as ss
+    from hugectr_tpu_torch.optim.params import OptParams
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+    from hugectr_tpu_torch.tools.flagship import flagship_plan, raw_vocab
+
+    e, w = E // 2, hybrid_world(torch)
+    rng = np.random.default_rng(23)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    plan = flagship_plan(ev_size=e, num_shards=w)
+    ec = EmbeddingCollection(plan, ResourceManager(dev, 0, w), OptParams(Optimizer_t.RowWiseAdaGrad))
+    g = next(x for x in plan.groups if x.name == f"mp_ev{e}_21")
+    raw = {lm.bottom_name: torch.as_tensor(power_law(rng, raw_vocab(plan, lm), (B, lm.hotness)).astype(np.int32),
+                                           device=dev) for lm in g.lookups}
+    keys = ec._group_keys(g, raw)
+    table = torch.empty((g.total_local_rows, e), device=dev).normal_(generator=gen)
+    # the ordered pool of the owned prefix
+    t0 = time.perf_counter()
+    srows, offsets = ec._pool_segments(g.name, keys, g.total_local_rows)
+    n = offsets.numel() - 1
+    call = lambda: op.ordered_pool(table, srows, offsets)  # noqa: E731
+    got, want = call(), op.ordered_pool_plain(table, srows, offsets)
+    pooled = srows < g.total_local_rows
+    lens = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+        0, torch.repeat_interleave(torch.arange(n, device=dev), offsets.diff()), pooled.long())
+    owned = srows[pooled]
+    obounds = torch.cat([lens.new_zeros(1), lens.cumsum(0)])
+    uniq = int(torch.unique(owned).numel())
+    ids_read = int(torch.minimum(lens + 1, offsets.diff()).sum())
+    b_ms, b_by = bound(uniq * e * 4 + ids_read * 8 + 8 * (n + 1) + n * e * 4, int(owned.numel()) * e)
+    dms, per_call = device_ms(call, KERNEL_NAMES["ordered_pool"])
+    rec = dict(kernel="ordered_pool", case=f"column_E{e}_21_w{w}", dtype="float32", K=srows.numel(), slots=n, E=e,
+               owned=int(owned.numel()), unique_rows=uniq, bitwise=bool(torch.equal(bits(torch, got), bits(torch, want))),
+               bitwise_repeat=bool(torch.equal(bits(torch, call()), bits(torch, got))),
+               max_abs_err=float((got - want).abs().max()), tol=0.0, scaled_err=0.0,
+               ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
+               plain_ms=time_ms(lambda: op.ordered_pool_plain(table, srows, offsets), samples=5, inner=1, warmup=1),
+               library_ms=time_ms(lambda: F.embedding_bag(owned, table, obounds[:-1], mode="sum")),
+               library="torch.nn.functional.embedding_bag(mode='sum', offsets) over the owned rows",
+               bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0)
+    results.append(rec)
+    emit(rec)
+    if not (rec["bitwise"] and rec["bitwise_repeat"]):
+        raise AssertionError(f"ordered_pool differs from its plain version at E {e}: {rec}")
+    # segscan over the sorted owned rows
+    t0 = time.perf_counter()
+    valid, owner, local_row = ec._slot_placement(g.name, keys)
+    sidx = torch.sort(local_row[valid & (owner == 0)]).values
+    k = int(sidx.numel())
+    heads = torch.ones(k, dtype=torch.bool, device=dev)
+    heads[1:] = sidx[1:] != sidx[:-1]
+    vals = torch.empty((k, e), device=dev).normal_(generator=gen)
+    call = lambda: ss.segmented_sum_sorted(vals, heads)  # noqa: E731
+    got, want = call(), ss.segmented_sum_sorted_plain(vals, heads)
+    scale = ss.segmented_sum_sorted_plain(vals.abs(), heads)
+    b_ms, b_by = bound(2 * k * e * 4 + k, k * e)
+    dms, per_call = device_ms(call, KERNEL_NAMES["segscan"])
+    rec = dict(kernel="segscan", case=f"column_E{e}_21_w{w}", dtype="float32", K=k, E=e, segments=int(heads.sum()),
+               scaled_err=scaled_err(got, want, scale), max_abs_err=float((got - want).abs().max()),
+               tol=TOL["float32"], bitwise_repeat=bool(torch.equal(call(), got)),
+               ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
+               plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(vals, heads)),
+               library_ms=time_ms(lambda: torch.zeros((g.total_local_rows, e), device=dev).index_add_(0, sidx, vals)),
+               library="index_add_ of the rows' values (the segments' totals, not their running sums)",
+               bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0)
+    results.append(rec)
+    emit(rec)
+    if not (rec["scaled_err"] <= TOL["float32"] and rec["bitwise_repeat"]):
+        raise AssertionError(f"segscan disagrees with its plain version at E {e}: {rec}")
 
 
 # ---------------------------------------------------------------- samples
@@ -1948,20 +2050,21 @@ def hybrid_world(torch) -> int:
     return min(8, max(2, torch.cuda.device_count()))
 
 
-def hybrid_run(torch, model: str, dynamic: bool = False, **extra):
+def hybrid_run(torch, model: str, dynamic: bool = False, world: int = 0, lay=None, **extra):
     """A full-width model (`tools/hybrid.py::full_width_config`) trained on
-    W = `hybrid_world` ranks: 6 steps and a 20-batch eval over NCCL with a
-    card per rank; over gloo, W ranks sharing the card(s), 4 steps and 4
-    eval batches, since every collective is staged through the host (its
-    ms/step is then no speed number). Counters are set to 0 on every rank
-    just before the steps and read just after, and again around the eval.
-    Returns (the phase's record, the ranks' results)."""
+    W = `world` ranks (default `hybrid_world`), on the mesh and with the
+    settings of `lay` (`hybrid.layout`): 6 steps and a 20-batch eval over
+    NCCL with a card per rank; over gloo, W ranks sharing the card(s), 4
+    steps and 4 eval batches, since every collective is staged through the
+    host (its ms/step is then no speed number). Counters are set to 0 on
+    every rank just before the steps and read just after, and again around
+    the eval. Returns (the phase's record, the ranks' results)."""
     from hugectr_tpu_torch.tools import hybrid
 
     t0 = time.perf_counter()
-    w = hybrid_world(torch)
+    w = world or hybrid_world(torch)
     backend = hybrid.default_backend(w)
-    cfg = dict(hybrid.full_width_config(model, backend == "gloo", B, dynamic), **extra)
+    cfg = dict(hybrid.full_width_config(model, backend == "gloo", B, dynamic, lay), **extra)
     ranks = hybrid.run(hybrid.train_model, w, {"config": json.dumps(cfg)}, backend=backend, timeout=900.0)
     rec = dict(backend=backend, device_count=torch.cuda.device_count(), staged_through_host=backend == "gloo",
                **hybrid.path_summary(ranks, cfg), seconds=time.perf_counter() - t0)
@@ -2005,7 +2108,160 @@ def hybrid_path(torch):
     check_path_launches(rec, {"onehot_fwd": 1, "onehot_bwd": None, "segscan": None})
     if not rec["replicas_equal"]:
         raise AssertionError("replicated arrays differ across the ranks of the hybrid path")
+    return [{k: tl[k] + el[k] for k in tl} for tl, el in zip(rec["launches"], rec["eval_launches"])], rec
+
+
+def check_mesh_path(rec, ranks):
+    """A full-width mesh path's checks: finite losses, every replicated
+    array and every shard's replicas bitwise equal across the ranks, the
+    launches (`check_path_launches`), each kernel within `RANK_TOL` of its
+    plain version on every rank's inputs. Returns the per-rank kernel
+    parity."""
+    from hugectr_tpu_torch.tools import hybrid
+
+    parity = [hybrid.jsonable(r["kernel_parity"]) for r in ranks]
+    if not rec["finite"]:
+        raise AssertionError(f"non-finite loss on {rec['phase']}: {rec['losses']}")
+    check_path_launches(rec, {"onehot_fwd": 1, "onehot_bwd": None, "segscan": None})
+    if not (rec["replicas_equal"] and rec["shard_replicas_equal"]):
+        raise AssertionError(f"replicas differ across the ranks of {rec['phase']}")
+    for r, p in enumerate(parity):
+        if set(p) != set(RANK_TOL) or any(p[k]["scaled_err"] > tol for k, tol in RANK_TOL.items()):
+            raise AssertionError(f"{rec['phase']}: a kernel disagrees with its plain version on rank {r}: {p}")
+    return parity
+
+
+def hybrid_hier_path(torch, flat_rec):
+    """samples/dlrm_dcnv2.py --num_slices 2 --comm_strategy hierarchical:
+    the f32 flagship of `hybrid_path` at global batch 16,384 on 4 ranks as
+    the (dcn, ici) = (2, 2) mesh with Hierarchical communication (NCCL with
+    4 cards, else gloo with the 4 ranks on one card, staged, 4 steps and 4
+    eval batches). Each rank holds each kernel against its plain version on
+    its own inputs. The two-level exchange's bytes a step: the ICI level's
+    reduce-scatter equals `hybrid_path`'s flat one (the gathered batch's
+    partial pools, whatever W is) and the DCN level's is 1 / I of it."""
+    from hugectr_tpu_torch.tools import hybrid
+
+    lay = hybrid.layout(num_slices=2, comm_strategy="hierarchical")
+    rec, ranks = hybrid_run(torch, "dlrm_dcnv2", world=4, lay=lay, kernel_check=True)
+    hier, flat = rec["collective_bytes_per_step"], flat_rec["collective_bytes_per_step"]["reduce_scatter"]
+    rec = dict(phase="hybrid_hier_path", mesh="(dcn, ici) = (2, 2)", comm_strategy="hierarchical", **rec,
+               flat_reduce_scatter_bytes_per_step=flat, dcn_over_flat=hier.get("reduce_scatter_dcn", 0) / flat)
+    rec["kernel_parity"] = check_mesh_path(rec, ranks)
+    emit(rec)
+    if not (hier.get("reduce_scatter_dcn", 0) * 2 == flat == hier.get("reduce_scatter_ici")
+            and "reduce_scatter" not in hier):
+        raise AssertionError(f"the two-level exchange's bytes: {hier}, flat {flat}")
     return [{k: tl[k] + el[k] for k in tl} for tl, el in zip(rec["launches"], rec["eval_launches"])]
+
+
+def hybrid_column_path(torch):
+    """The f32 flagship on `hybrid_world` ranks on the flat mesh with column
+    factor 2 on its sorted-route tables 0, 9, 10, 19, 21, 22: each becomes
+    sub-tables t#col0, t#col1 of E 64 on the sorted route, so segscan and
+    the ordered pool run at E 64 on every rank, each held against its plain
+    version on the rank's inputs. Routes, launches, finite losses, replicas
+    bitwise."""
+    from hugectr_tpu_torch.tools import hybrid
+
+    rec, ranks = hybrid_run(torch, "dlrm_dcnv2", lay=hybrid.layout(column_factor=2), kernel_check=True)
+    rec = dict(phase="hybrid_column_path", column_factors={t: 2 for t in hybrid.SORTED_TABLES}, **rec)
+    rec["kernel_parity"] = check_mesh_path(rec, ranks)
+    emit(rec)
+    split = {g: r for g, r in rec["routes"].items() if "#col" in g}
+    widths = {s[2] for p in rec["kernel_parity"] for s in p["segscan"]["shapes"]}
+    if not (len(split) == 2 * len(hybrid.SORTED_TABLES) and set(split.values()) == {"sorted"}
+            and E // 2 in widths):
+        raise AssertionError(f"column-split groups and routes: {rec['routes']}, segscan shapes {widths}")
+    return [{k: tl[k] + el[k] for k in tl} for tl, el in zip(rec["launches"], rec["eval_launches"])]
+
+
+def mesh_parity(torch):
+    """The meshes on the tiny model (`tools/hybrid.py::mesh_parity_runs`:
+    the sorted route, no one-hot group, every run from one carried state on
+    the global batches of ranks on 2 hosts), ranks sharing the card over
+    gloo (NCCL with 4 cards). (1) 4 ranks flat and as the (2, 2)
+    hierarchical mesh with Hierarchical communication against one card fed
+    the same batches: losses rtol 1e-4, tables rtol 1e-4 / atol 1e-5. (2)
+    The ("data", "ev") (2, 2) mesh against 2 flat ranks: losses and tables
+    bitwise, the ev replicas bitwise. (3) `--hosts 2` at W 4: each rank's
+    first batch is rows [l B/4, (l + 1) B/4) of host h's batch of B / 2 rows
+    from seed + 7919 h, bitwise. (4) The repaired bf16 sums over 4 ranks of
+    1.0 + 3 x 2^-9: 1.0078125 on every rank for every placement. (5) On the
+    card: the column model's split table (factor 2) against the unsplit one
+    from the same columns, bitwise; `group_rows` 4,000 against no binning
+    on the tiny model, 3 steps, tables within 1e-7 + 1e-6 |w| (and whether
+    bitwise: bins change the sorted lists, so segscan's float32 sums may
+    take another order on the card)."""
+    import numpy as np
+
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools import flagship, hybrid
+    from hugectr_tpu_torch.tools.carry import export_table_state
+
+    t0 = time.perf_counter()
+    backend = hybrid.default_backend(4)
+    res = hybrid.mesh_parity_runs(backend)
+    one, four, two = res["one"], res["four"], res["two"]
+
+    def excess(runs, ref):
+        return max(float(np.max(np.abs(r["tables"][k] - w) - 1e-5 - 1e-4 * np.abs(w)))
+                   for r in runs for k, w in ref["tables"].items())
+
+    def loss_rel(runs, ref):
+        return max(float(np.max(np.abs(r["losses"] - ref["losses"]) / np.abs(ref["losses"]))) for r in runs)
+
+    rec = dict(phase="mesh_parity", card=card_line(), backend=backend, device_count=torch.cuda.device_count())
+    for name in ("flat", "hier"):
+        runs = [r[name] for r in four]
+        rec[f"{name}_w4_loss_rel_diff"] = loss_rel(runs, one)
+        rec[f"{name}_w4_worst_excess"] = excess(runs, one)
+        rec[f"{name}_w4_replicas_equal"] = all(r["replicated"] == runs[0]["replicated"] for r in runs)
+    ev = [r["ev"] for r in four]
+    rec["ev_vs_flat_w2_bitwise"] = all(
+        np.array_equal(e["losses"], two[0]["losses"])
+        and all(np.array_equal(e["tables"][k], v) for k, v in two[0]["tables"].items()) for e in ev)
+    rec["ev_replicas_equal"] = all(e["replicated"] == ev[0]["replicated"] for e in ev) and all(
+        ev[a]["shards"] == ev[b]["shards"] for a, b in ((0, 1), (2, 3)))
+    rec["hier_collective_bytes"] = four[0]["hier"]["collective_bytes"]
+    rec["flat_collective_bytes"] = four[0]["flat"]["collective_bytes"]
+    glob = one["first_batch"]  # one device's first global batch of the 2 hosts
+    rec["host_batches_bitwise"] = all(
+        np.array_equal(r["flat"]["first_batch"][k], v[i * 16 : (i + 1) * 16])
+        for i, r in enumerate(four) for k, v in glob.items())
+    rec["bf16_sums"] = sorted({float(x) for r in four for x in (*r["bf16_all_reduce"], *r["bf16_reduce_scatter"])})
+    # (5) on the card, in this process
+    rm = ResourceManager.create()
+    m1, m2 = flagship.build_tiny_column(rm, 1), flagship.build_tiny_column(rm, 2)
+    full = m1.ec.export_table(m1.tables, "t0")
+    m2.ec.import_table(m2.tables, "t0#col0", full[:, :8])
+    m2.ec.import_table(m2.tables, "t0#col1", full[:, 8:])
+    keys = np.random.default_rng(0).integers(0, 100, (64, 2)).astype(np.int32)
+    keys[1, 1] = -1
+    batch = {"label": np.zeros((64, 1), np.float32), "dense": np.zeros((64, 4), np.float32), "d0": keys}
+    rec["column_split_bitwise"] = bool(np.array_equal(m1.check_out_tensor("emb", batch),
+                                                      m2.check_out_tensor("emb", batch)))
+    for m in (m1, m2):
+        m._close_readers()
+    base = flagship.build_tiny_dlrm(rm, **hybrid.TINY_SORTED["kwargs"])
+    state = export_table_state(base)
+    base._close_readers()
+    runs = [hybrid.train_model(rm, {"config": json.dumps(dict(hybrid.TINY_SORTED, kwargs=dict(
+        hybrid.TINY_SORTED["kwargs"], group_rows=cap))), "table_state": state}) for cap in (None, 4000)]
+    rec["group_rows_groups"] = [len(r["routes"]) for r in runs]
+    rec["group_rows_worst_excess"] = max(float(np.max(np.abs(runs[1]["tables"][k] - w) - 1e-7 - 1e-6 * np.abs(w)))
+                                         for k, w in runs[0]["tables"].items())
+    rec["group_rows_bitwise"] = all(np.array_equal(runs[1]["tables"][k], w) for k, w in runs[0]["tables"].items())
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    ok = (max(rec["flat_w4_loss_rel_diff"], rec["hier_w4_loss_rel_diff"]) <= 1e-4
+          and max(rec["flat_w4_worst_excess"], rec["hier_w4_worst_excess"]) <= 0
+          and rec["flat_w4_replicas_equal"] and rec["hier_w4_replicas_equal"]
+          and rec["ev_vs_flat_w2_bitwise"] and rec["ev_replicas_equal"] and rec["host_batches_bitwise"]
+          and rec["bf16_sums"] == [1.0078125] and rec["column_split_bitwise"]
+          and rec["group_rows_groups"][1] > rec["group_rows_groups"][0] and rec["group_rows_worst_excess"] <= 0)
+    if not ok:
+        raise AssertionError(f"the meshes disagree: {rec}")
 
 
 # per-rank kernel checks against the plain versions: the forward in the
@@ -2403,7 +2659,10 @@ def main() -> int:
     hybrid_bench_parity(torch)
     hybrid_partial_parity(torch)
     hybrid_exchange_parity(torch)
-    hybrid_launches = hybrid_path(torch)
+    mesh_parity(torch)
+    hybrid_launches, hybrid_rec = hybrid_path(torch)
+    hier_launches = hybrid_hier_path(torch, hybrid_rec)
+    column_launches = hybrid_column_path(torch)
     hybrid_bench_launches = hybrid_bench_path(torch)
     hybrid_ftrl_dynamic_path(torch)
     hybrid_snapshot(torch)
@@ -2417,6 +2676,8 @@ def main() -> int:
     }
     kernels = []
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "case")
+    # the E 64 cases of the column-split sub-tables (`column_kernel_checks`)
+    column = {x["kernel"]: x for x in results if x["case"].startswith("column_E")}
     bench_cases = {"onehot_fwd": "group20", "onehot_bwd": "superhot_", "segscan": "cold_tier_20"}
     rank_sfx = f"_w{hybrid_world(torch)}"
     for name, (src, replaces) in sources.items():
@@ -2448,10 +2709,13 @@ def main() -> int:
             bench_case={k: rb[k] for k in keys}, ftrl_path_launches=ftrl_launches[name],
             ftrl_case={k: rf[k] for k in keys}, freeze_path_launches=freeze_launches[name],
             hybrid_path_launches=[x[name] for x in hybrid_launches],
+            hybrid_hier_path_launches=[x[name] for x in hier_launches],
+            hybrid_column_path_launches=[x[name] for x in column_launches],
             hybrid_bench_path_launches=[x[name] for x in hybrid_bench_launches],
             hybrid_bench_case={k: rh[k] for k in keys},
             samples_path_launches={g: x[name] for g, x in samples_launches.items()},
             samples_case={**{k: rs[k] for k in keys}, "dtype": rs["dtype"]},
+            **({"column_case": {k: column[name][k] for k in keys}} if name in column else {}),
         ))
     # the ordered pool: a kernel of the paths over W ranks; its launches are
     # rank 0's on the hybrid path (steps and eval), beside the bench path's
@@ -2464,8 +2728,11 @@ def main() -> int:
         replaces="hugectr_tpu/embedding/collection.py:882-900 (the scatter-add of _mp_fwd_partitioned; no Pallas kernel)",
         launches=hybrid_launches[0]["ordered_pool"], **{k: r[k] for k in keys},
         hybrid_path_launches=[x["ordered_pool"] for x in hybrid_launches],
+        hybrid_hier_path_launches=[x["ordered_pool"] for x in hier_launches],
+        hybrid_column_path_launches=[x["ordered_pool"] for x in column_launches],
         hybrid_bench_path_launches=[x["ordered_pool"] for x in hybrid_bench_launches],
         bench_case={k: rb[k] for k in keys}, index_add_ms=r["index_add_ms"], bench_index_add_ms=rb["index_add_ms"],
+        column_case={k: column["ordered_pool"][k] for k in keys},
     ))
     # device times taken by CUDA events because the profiler recorded nothing
     emit(dict(phase="profiler", event_fallbacks=[list(x) for x in devtime.FALLBACKS]))

@@ -110,17 +110,18 @@ INERT_SOLVER_FIELDS = {
 
 
 def check_solver_settings(kwargs) -> None:
-    """Raise for a JAX `Solver` setting that changes what the JAX `Model`
-    builds and that the port does not port yet (hugectr_tpu/model/model.py:162-166,
-    `apply_engine_knobs`, config.py:107-130)."""
-    if (kwargs.get("num_slices") or 1) > 1:
-        raise NotImplementedError("num_slices > 1: a hierarchical mesh is not ported yet (ROADMAP Queue 1 item 1g)")
-    if (kwargs.get("ev_parallelism") or 1) > 1:
-        raise NotImplementedError(
-            "ev_parallelism > 1: column-wise sharding is not ported yet (ROADMAP Queue 1 item 1i)")
-    if kwargs.get("group_rows") is not None:
-        raise NotImplementedError(
-            "group_rows: the binning of shared rowop groups is not ported yet (ROADMAP Queue 1 item 8)")
+    """Raise for a JAX `Solver` setting that the port cannot honour: the
+    mesh settings that the JAX `ResourceManager.create` refuses
+    (hugectr_tpu/core/mesh.py:70-88; over one rank without a process group
+    the Model's `ResourceManager.create` says it), and the one setting
+    refused on purpose."""
+    w = group_size()
+    slices, ev = kwargs.get("num_slices") or 1, kwargs.get("ev_parallelism") or 1
+    if slices > 1 and ev > 1:
+        raise ValueError("ev_parallelism and num_slices are exclusive")
+    for what, f in (("ev_parallelism", ev), ("num_slices", slices)):
+        if w > 1 and w % f:
+            raise ValueError(f"num_devices={w} not divisible by {what}={f}")
     if kwargs.get("segsum_mode") == "scan" and kwargs.get("embedding_vec_dtype") in ("bfloat16", "bf16"):
         raise NotImplementedError(
             "segsum_mode='scan' with bfloat16 tables: the JAX package's scan stores the segment sums in "
@@ -134,12 +135,12 @@ def check_solver_settings(kwargs) -> None:
 
 
 def CreateSolver(**kwargs) -> Solver:
-    """hugectr.CreateSolver. A JAX `Solver` setting that the port does not
-    port yet raises (`check_solver_settings`); `num_devices` must be 0 or the
+    """hugectr.CreateSolver. A JAX `Solver` setting that the port cannot
+    honour raises (`check_solver_settings`); `num_devices` must be 0 or the
     process group's size; the fields of `INERT_SOLVER_FIELDS` are accepted
     and ignored; any other unknown argument is ignored with a warning."""
     check_solver_settings(kwargs)
-    for k in (*INERT_SOLVER_FIELDS, "num_devices", "num_slices", "ev_parallelism", "group_rows"):
+    for k in (*INERT_SOLVER_FIELDS, "num_devices"):
         kwargs.pop(k, None)
     return Solver(**_filter_kwargs(Solver, kwargs, "CreateSolver"))
 

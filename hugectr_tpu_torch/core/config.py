@@ -93,6 +93,15 @@ class Solver:
     # (HCTR_TPU_DENSE_EXCHANGE and _CAP, collection.py:203-208)
     dense_exchange: bool = True
     dense_exchange_cap: int = 0
+    # ---- the mesh (config.py:74-75; `ResourceManager.create`): the
+    # ("data", "ev") mesh of ev_parallelism e, or the hierarchical ("dcn",
+    # "ici") mesh of num_slices slices; exclusive
+    ev_parallelism: int = 1
+    num_slices: int = 1
+    # shared rowop groups bin their tables (first-appearance order) so that
+    # no bin holds more than this many rows a shard (plan.py:468,
+    # HCTR_TPU_GROUP_ROWS); None or 0 keeps one group
+    group_rows: Optional[int] = None
 
     def __post_init__(self):
         self.metrics_spec = {Metric_t(k): v for k, v in self.metrics_spec.items()}

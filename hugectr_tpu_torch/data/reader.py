@@ -11,12 +11,14 @@ carries its true row count under `ROWS_KEY`. Batches are bit-identical to
 the JAX package's readers' on the same files or seed.
 
 Over W ranks, rank r reads the block [r * B / W, (r + 1) * B / W) of each
-global batch: `SyntheticReader(block=(r, W))` and the Raw readers
-(`process_index=r, num_processes=W`, each given the block's B / W rows),
-the block a one-process JAX mesh of W devices puts on device r
-(`P(data_axes)`, model.py:1202-1210). The Parquet and Norm readers shard
-files over the ranks instead (`paths[r::W]`), as the JAX package's
-processes do.
+global batch, the block a JAX mesh of W devices puts on device r
+(`P(data_axes)`, model.py:1202-1210): `SyntheticReader(block=(l, L))` of
+its host's batch, and the Raw readers (`process_index=r, num_processes=W`,
+each given the block's B / W rows). The Parquet and Norm readers shard
+files over the processes (`paths[p::P]`), as the JAX package's processes
+do: a rank reads its host's files and batch and keeps its block
+(`BlockReader`), as the JAX package splits a process's batch over its
+devices (`Model._make_reader`).
 
 `DeviceFeeder` moves batches to the device on a thread of its own; on a
 card through `Uploader`: pinned staging buffers, the copy on a stream of
@@ -94,6 +96,32 @@ class BaseReader:
 
     def close(self) -> None:
         """Release what the reader holds (threads, files)."""
+
+
+class BlockReader(BaseReader):
+    """Rows [i * b, (i + 1) * b) of each batch of another reader, b = its
+    batch / n for `block` (i, n): one rank's block of its host's batch, as
+    the JAX package splits a process's batch over its local devices. A
+    padded tail's true row count is cut to the block's."""
+
+    def __init__(self, reader: BaseReader, block: Tuple[int, int]):
+        if reader.spec.batch_size % block[1]:
+            raise ValueError(f"batch {reader.spec.batch_size} does not split over {block[1]} ranks")
+        self.reader = reader
+        self.block = block
+        self.spec = dataclasses.replace(reader.spec, batch_size=reader.spec.batch_size // block[1])
+        self.num_batches = reader.num_batches
+
+    def __iter__(self) -> Iterator[Batch]:
+        i, n = self.spec.batch_size, self.block[0]
+        for b in self.reader:
+            out = {k: v[n * i : (n + 1) * i] for k, v in b.items() if k != ROWS_KEY}
+            if ROWS_KEY in b:
+                out[ROWS_KEY] = np.int64(min(max(int(b[ROWS_KEY]) - n * i, 0), i))
+            yield out
+
+    def close(self) -> None:
+        self.reader.close()
 
 
 class SyntheticReader(BaseReader):

@@ -51,9 +51,13 @@ one-hot group launches no backward for a frozen lookup (:1373-1375,
 :1420-1422), and a rowop group masks the frozen slots out of its row list
 before the sort (:1818-1825), so the sorted route scans fewer keys.
 
-Over W ranks (`rm.data_parallel_size` > 1, one process per device), each
-rank holds the batch's block of B/W samples (hybrid parallelism,
-collection.py:668-721, :1567-1726):
+Over W ranks (one process per device), each rank holds the block of its
+data index of the batch (hybrid parallelism, collection.py:668-721,
+:1567-1726): on the flat and hierarchical meshes rank r holds block r of
+W; on the ("data", "ev") mesh of ev_parallelism e the W / e blocks are
+split over "data" and each is replicated over the e ranks of "ev". Below,
+W is the data-parallel size and a rank's "rank" its data index; every
+collective runs over the rank's data group (`rm.data_group`):
 
 * one-hot groups are replicated: the forward kernel runs on the rank's
   rows; the backward kernels write the group's float32 gradient and touch
@@ -105,18 +109,32 @@ collection.py:668-721, :1567-1726):
 
 On the card `index_add_` sums with atomics, in an order that differs from
 rank to rank: after an update on the dense sweep or the scatter route
-(`sparse_optimizer.ATOMIC_ROUTES`) a group held by several ranks takes the
-table and state of the lowest of them by a `broadcast` in its replica
-group (`core/mesh.py::replica_group`), so replicas stay bitwise equal. The
-sorted route is deterministic and needs none.
+(`sparse_optimizer.ATOMIC_ROUTES`) a group held by several ranks (a
+partial placement's replicas, a data-parallel group, and on the ("data",
+"ev") mesh every group's ev replicas) takes the table and state of the
+lowest of them by a `broadcast` in its replica group
+(`ResourceManager.replica_group`), so replicas stay bitwise equal. The
+sorted route is deterministic and needs none. On the ("data", "ev") mesh
+the one-hot group's summed gradient (from the backward kernel's atomics)
+is broadcast over the ev group before the update.
+
+With `CommunicationStrategy.Hierarchical` on a hierarchical ("dcn", "ici")
+mesh the pooled partials are reduce-scattered in two levels, over the ICI
+group and then over the DCN group, which carries 1 / I of the volume
+(`_psum_scatter_batch`, collection.py:391-423; `core/mesh.py`
+`hier_reduce_scatter`), and the backward gathers the cotangents by the
+transpose (DCN, then ICI). Uniform, and every other collective, runs over
+all W ranks. The dense exchange is shut on the hierarchical and ev meshes
+(:969).
 
 The dtype each collective carries: the forward's all_gather of keys int32,
 its reduce_scatter of pools the table's type; the backward's all_gather of
 keys int32 and of cotangents the table's type (the JAX package's
 `d_outs.astype(self.dtype)`); the dense exchange's all_to_all of rows the
 table's type and of gradient sums float32, its all_reduce of the overflow
-flag int32; the one-hot all_reduce of the gradient the table's type and of
-the touch counts float32; the replica broadcasts each array's own type
+flag int32; the one-hot all_reduce of the gradient the table's type (a
+16-bit sum over ranks is taken in float32 and rounded once, `core/mesh.py`)
+and of the touch counts float32; the replica broadcasts each array's own type
 (tables, float32 or bfloat16 state). `Model` adds one float32 all_reduce
 of the dense gradients and the loss.
 
@@ -125,10 +143,10 @@ read and write a table (or any per-row array laid out as the storage, such
 as a state, or a key store) in key order whatever W and f are (collectives
 on every rank); `export_rows` keeps the storage's dtype (bfloat16 tables
 in snapshots).
-Not ported over W > 1 ranks (ROADMAP Queue 1 item 1): hierarchical
-communication (1g), which raises; the measured caps of the JAX package's
-`auto_unique_caps` (:1996-2092), so the dense exchange opens only with an
-explicit cap and the partitioned forward gathers the whole owned prefix.
+Not ported over W > 1 ranks (ROADMAP Queue 1 item 1): the measured caps
+of the JAX package's `auto_unique_caps` (:1996-2092), so the dense
+exchange opens only with an explicit cap and the partitioned forward
+gathers the whole owned prefix.
 
 `route_counts` counts, per route ("onehot", "dense", "sorted", "scatter"),
 the groups updated since the collection was built; `group_routes` holds
@@ -137,13 +155,24 @@ each group's route in the last backward.
 from __future__ import annotations
 
 import collections
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core.mesh import ResourceManager, all_gather, all_reduce, all_to_all, broadcast, reduce_scatter, replica_group
-from ..core.types import INVALID_KEY, Combiner_t
+from ..core.mesh import (
+    ResourceManager,
+    all_gather,
+    all_reduce,
+    all_to_all,
+    broadcast,
+    group_size,
+    hier_all_gather,
+    hier_reduce_scatter,
+    reduce_scatter,
+)
+from ..core.types import INVALID_KEY, Combiner_t, CommunicationStrategy
 from ..ops.onehot_matmul import (
     GroupLookup,
     onehot_fwd_group,
@@ -268,6 +297,7 @@ class EmbeddingCollection:
         fwd_partition: bool = True,
         capacity_factor: float = 0.0,
         dense_exchange_cap: int = 0,
+        comm_strategy: CommunicationStrategy = CommunicationStrategy.Uniform,
     ):
         for what, dt in (("tables", dtype), ("optimizer state", state_dtype)):
             if dt not in (torch.float32, torch.bfloat16):
@@ -275,8 +305,19 @@ class EmbeddingCollection:
         self.plan = plan
         self.rm = rm
         self.device = rm.device
+        # the batch blocks and this rank's: the data axes of the mesh
         self.world = rm.data_parallel_size
-        self.rank = rm.rank
+        self.rank = rm.data_index
+        self.ev = rm.ev_parallel_size
+        # the collectives over the data axes: the rank's data group
+        dg = rm.data_group
+        self._all_gather = functools.partial(all_gather, group=dg)
+        self._reduce_scatter = functools.partial(reduce_scatter, group=dg)
+        self._all_to_all = functools.partial(all_to_all, group=dg)
+        self._all_reduce = functools.partial(all_reduce, group=dg)
+        # the two-level exchange of a hierarchical mesh (collection.py:391-423)
+        self.hierarchical = (CommunicationStrategy(comm_strategy or CommunicationStrategy.Uniform)
+                             == CommunicationStrategy.Hierarchical and rm.is_hierarchical)
         self.opt = opt
         self.dtype = dtype
         self.state_dtype = state_dtype
@@ -302,6 +343,10 @@ class EmbeddingCollection:
         self.group_routes: Dict[str, str] = {}
         # tables that take no update (`Model.freeze_embedding`)
         self.frozen_tables: set = set()
+        if group_size() > 1:  # every rank makes the replica groups, in plan order
+            for g in plan.groups:
+                if self._replicated(g):
+                    rm.replica_group(self._meta[g.name].num_shards)
 
     def _is_frozen(self, table_name: str) -> bool:
         """A frozen table, or a tier `name::tier` of a frozen split table
@@ -484,7 +529,7 @@ class EmbeddingCollection:
             store = tables[f"{g.name}#keys"]
             keys = self._group_keys(g, feature_keys)
             if self.world > 1:
-                keys = all_gather(keys)
+                keys = self._all_gather(keys)
             owner, _row, found = self._dynamic_probe(meta, keys, store)
             miss = (keys != INVALID_KEY) & meta.slot_dynamic.unsqueeze(0) & (owner == meta.shard) & ~found
             out[g.name] = (int((store != EMPTY_KEY).sum()), int(torch.unique(keys[miss]).numel()))
@@ -507,22 +552,34 @@ class EmbeddingCollection:
                 # pools summed over the ranks in the table's type and
                 # scattered (or the unique rows exchanged)
                 keys_loc = self._group_keys(g, feature_keys)
-                keys = all_gather(keys_loc)
+                keys = self._all_gather(keys_loc)
                 store = tables.get(f"{g.name}#keys")
                 dense_ex = self._dense_exchange_ok(g)
                 lists = self._dense_lists(g.name, keys) if dense_ex else None
                 if lists is not None:
                     go = self._mp_fwd_dense(g.name, tables[g.name], lists, keys_loc)
                 elif self.fwd_partition and not dense_ex:
-                    go = reduce_scatter(self._mp_fwd_partitioned(g.name, tables[g.name], keys, store))
+                    go = self._scatter(self._mp_fwd_partitioned(g.name, tables[g.name], keys, store))
                 else:  # the masked gather; the dense exchange's overflow branch too
-                    go = reduce_scatter(self._dp_fwd(g.name, tables[g.name], keys, store))
+                    go = self._scatter(self._dp_fwd(g.name, tables[g.name], keys, store))
             else:
                 go = self._dp_fwd(g.name, tables[g.name], self._group_keys(g, feature_keys),
                                   tables.get(f"{g.name}#keys"))
             for lm in g.lookups:
                 outs[lm.top_name] = go[:, lm.out_begin : lm.out_end]
         return self._merge_outputs(outs, feature_keys)
+
+    def _scatter(self, partial: torch.Tensor) -> torch.Tensor:
+        """The pooled partials of the gathered batch summed over the data
+        axes, this rank's block kept (`_psum_scatter_batch`,
+        collection.py:391-423): two levels, ICI then DCN, with Hierarchical
+        communication on a hierarchical mesh; else one over all of them."""
+        return hier_reduce_scatter(partial, self.rm) if self.hierarchical else self._reduce_scatter(partial)
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The backward's all-gather of the rank's cotangents: the transpose
+        of `_scatter` (DCN, then ICI) where it has two levels."""
+        return hier_all_gather(t, self.rm) if self.hierarchical else self._all_gather(t)
 
     def _merge_denom(self, m, feature_keys: Dict[str, torch.Tensor], dtype) -> torch.Tensor:
         """[B, 1] count of a split lookup's raw valid keys, at least 1
@@ -694,9 +751,10 @@ class EmbeddingCollection:
         group at full placement (f = W, no replicas) with no frozen table,
         its cap set (the port has no measured caps, so only an explicit cap
         opens it; `Solver.dense_exchange=False` hands the collection a cap
-        of 0)."""
+        of 0), shut on the hierarchical and ("data", "ev") meshes (:969)."""
         return (
             self.dense_exchange_cap > 0 and self.world > 1
+            and not self.rm.is_hierarchical and self.ev == 1
             and g.is_model_parallel and g.compute_kind == "rowop" and not self._meta[g.name].any_dynamic
             and g.num_shards == self.world and g.num_replicas == 1
             and all(lm.combiner == Combiner_t.Concat for lm in g.lookups)
@@ -731,7 +789,7 @@ class EmbeddingCollection:
         dest = torch.where(unew & (srank < cap), so_c * cap + srank, f * cap)
         lists = torch.full((n, f * cap + 1), r, dtype=torch.int64, device=keys.device)
         lists.scatter_(1, dest, sr)
-        over = all_reduce((cnt > cap).any().to(torch.int32).reshape(1))
+        over = self._all_reduce((cnt > cap).any().to(torch.int32).reshape(1))
         if int(over.item()) > 0:
             return None
         return lists[:, : f * cap].reshape(n, f, cap)
@@ -757,7 +815,7 @@ class EmbeddingCollection:
         r = g.total_local_rows
         want = lists[:, self.rank].reshape(-1)
         send = torch.where((want < r).unsqueeze(1), table[want.clamp(max=r - 1)], table.new_zeros(()))
-        recv = all_to_all(send)  # block s's rows: rank s's shard's vectors for this block
+        recv = self._all_to_all(send)  # block s's rows: rank s's shard's vectors for this block
         flat, valid = self._dense_positions(gname, lists[self.rank], keys_loc)
         vecs = recv[flat] * valid.reshape(-1, 1).to(recv.dtype)
         return vecs.reshape(keys_loc.shape[0], g.out_width)
@@ -774,7 +832,7 @@ class EmbeddingCollection:
         dk = d_loc.reshape(-1, g.ev_size).float()
         gbuf = torch.zeros((f * cap + 1, g.ev_size), dtype=torch.float32, device=self.device)
         gbuf.index_add_(0, torch.where(valid.reshape(-1), flat, f * cap), dk)
-        recv = all_to_all(gbuf[:-1])  # block d's sums for this rank's lists
+        recv = self._all_to_all(gbuf[:-1])  # block d's sums for this rank's lists
         idx = lists[:, self.rank].reshape(-1)
         src = torch.arange(idx.numel(), device=self.device)
         return sparse_optimizer.apply_sparse(
@@ -811,8 +869,12 @@ class EmbeddingCollection:
                 # the ranks' rows summed: the gradient rounded once to the
                 # table's type, then one all_reduce of it in that type; the
                 # touch counts in float32 (`_onehot_bwd_local`, :1437-1446)
-                grad = all_reduce(grad.to(tables[g.name].dtype))
-                all_reduce(colsum)
+                grad = self._all_reduce(grad.to(tables[g.name].dtype))
+                self._all_reduce(colsum)
+                if self.ev > 1:
+                    # the ev replicas' gradients came from atomic sums:
+                    # the first replica's is every replica's
+                    broadcast(grad, self.rm.ev_group.ranks[0], self.rm.ev_group)
                 # every row a valid key lands on is touched, for every
                 # optimizer (`_onehot_bwd_local`, collection.py:1437-1452)
                 sparse_optimizer.apply_dense(
@@ -842,14 +904,14 @@ class EmbeddingCollection:
         key_store = tables.get(f"{g.name}#keys")
         k_limit = 0
         if self.world > 1:
-            gkeys = all_gather(keys)
+            gkeys = self._all_gather(keys)
             if self._dense_exchange_ok(g):
                 lists = self._dense_lists(g.name, gkeys)
                 if lists is not None:
                     return self._mp_bwd_dense(g.name, tables[g.name], state, lists, keys, d_group, lr, step)
             elif meta.num_shards > 1 and self.capacity_factor > 0:
                 k_limit = capacity(gkeys.numel(), self.capacity_factor, meta.num_shards)
-            keys, d_group = gkeys, all_gather(d_group)
+            keys, d_group = gkeys, self._gather_rows(d_group)
         if key_store is not None:
             self._dynamic_insert(meta, key_store, keys)
         idx, src, dsrc = self._row_grads(g.name, keys, d_group, key_store)
@@ -860,18 +922,19 @@ class EmbeddingCollection:
         if route in sparse_optimizer.ATOMIC_ROUTES and self._replicated(g):
             # atomic sums differ in their last bits from rank to rank: the
             # lowest replica's update is every replica's
-            src_rank, group = replica_group(meta.num_shards)
+            src_rank, group = self.rm.replica_group(meta.num_shards)
             for t in (tables[g.name], *state.values()):
                 broadcast(t, src_rank, group)
         return route
 
     def _replicated(self, g: GroupPlan) -> bool:
-        """Whether more than one rank holds the group's storage (or a shard
-        of it): a data-parallel rowop group over W ranks, or a model-parallel
-        group over fewer shards than ranks."""
-        if self.world == 1 or g.compute_kind == "onehot":
+        """Whether more than one rank holds the group's rowop storage (or a
+        shard of it): a data-parallel group over W ranks, a model-parallel
+        group over fewer shards than batch blocks, or any group on the
+        ("data", "ev") mesh (its ev replicas)."""
+        if g.compute_kind == "onehot":
             return False
-        return not g.is_model_parallel or g.num_replicas > 1
+        return self.world // self._meta[g.name].num_shards * self.ev > 1
 
     def _dense_ratio(self, g: GroupPlan) -> float:
         """The key-ratio rule's ratio for a rowop group (`_opt_knobs`,
@@ -982,7 +1045,7 @@ class EmbeddingCollection:
         src = tables[g.name].detach()
         if self._meta[g.name].num_shards > 1:
             rps = int(g.rows_per_shard[ti])
-            shards = all_gather(src[off : off + rps].contiguous()).cpu()
+            shards = self._all_gather(src[off : off + rps].contiguous()).cpu()
             shard, row = self._sharded_rows(g, ti)
             return shards[torch.from_numpy(shard * rps + row)]
         return src[off : off + vocab].to("cpu", copy=True)

@@ -5,7 +5,7 @@ hugectr_tpu/embedding/config.py): `EmbeddingTableConfig`,
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from ..core.types import Combiner_t, CommunicationStrategy
 from ..parallel.plan import EmbeddingTableConfig, ShardingPlan
@@ -35,17 +35,16 @@ class _LookupDecl:
 
 
 class EmbeddingCollectionConfig:
-    """`ebc.embedding_lookup(...)`; `ebc.shard(...)` (config.py:49)."""
+    """`ebc.embedding_lookup(...)`; `ebc.shard(...)` (config.py:49).
+    `comm_strategy` Hierarchical takes the two-level exchange on a
+    hierarchical mesh (`EmbeddingCollection`); elsewhere it is Uniform's."""
 
     def __init__(self, comm_strategy: CommunicationStrategy = CommunicationStrategy.Uniform):
-        if CommunicationStrategy(comm_strategy) != CommunicationStrategy.Uniform:
-            raise NotImplementedError(
-                "hierarchical communication is not ported yet (ROADMAP Queue 1 item 1g)"
-            )
-        self.comm_strategy = CommunicationStrategy.Uniform
+        self.comm_strategy = CommunicationStrategy(comm_strategy or CommunicationStrategy.Uniform)
         self.lookup_decls: List[_LookupDecl] = []
         self.shard_matrix: Optional[List[List[str]]] = None
         self.shard_strategy: Optional[List[Tuple[str, List[str]]]] = None
+        self.column_factors: Dict[str, int] = {}
 
     def embedding_lookup(
         self,
@@ -74,7 +73,7 @@ class EmbeddingCollectionConfig:
         for t, b, tp, c, w in zip(tables, bottoms, tops, combs, wnames):
             if w:
                 raise NotImplementedError(
-                    "weighted lookups are not ported yet (ROADMAP Queue 1)"
+                    "weighted lookups are not ported yet (ROADMAP Queue 1 item 6)"
                 )
             self.lookup_decls.append(_LookupDecl(t, b, tp, Combiner_t(c)))
 
@@ -82,12 +81,16 @@ class EmbeddingCollectionConfig:
         self,
         shard_matrix: Sequence[Sequence[str]],
         shard_strategy: Sequence[Tuple[str, Sequence[str]]],
+        column_factors: Optional[Dict[str, int]] = None,
         compression_strategy=None,
     ) -> None:
-        """`compression_strategy` ({CompressionStrategy: [tables]}) is
+        """`column_factors` ({table: f}) splits table t into f sub-tables
+        `t#col{j}` of ev / f columns each (`Model.compile`; config.py:109-173).
+        `compression_strategy` ({CompressionStrategy: [tables]}) is
         accepted for parity and not read, as in the JAX package
         (embedding/config.py:109-136)."""
         self.compression_strategy = compression_strategy
+        self.column_factors = dict(column_factors or {})
         self.shard_matrix = [list(r) for r in shard_matrix]
         self.shard_strategy = [(k, list(v)) for k, v in shard_strategy]
         dp_tables = {n for kind, names in self.shard_strategy if kind == "dp" for n in names}
@@ -99,7 +102,8 @@ class EmbeddingCollectionConfig:
                     )
 
     def sharding_plan(self) -> ShardingPlan:
-        return ShardingPlan(strategy=[(k, v) for k, v in (self.shard_strategy or [])])
+        return ShardingPlan(strategy=[(k, v) for k, v in (self.shard_strategy or [])],
+                            column_factors=dict(self.column_factors))
 
 
 @dataclasses.dataclass

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from ..core.config import DenseLayer
-from ..core.mesh import all_reduce_autograd, group_rank, group_size
+from ..core.mesh import all_reduce_autograd, data_rank, data_size
 from .base import Layer, make_initializer, register
 
 
@@ -64,7 +64,7 @@ class PReLUDice(_SameShape):
     def forward(self, ins, compute_dtype):
         x = ins[0]
         xf = x.float()
-        n = x.shape[0] * group_size()
+        n = x.shape[0] * data_size()
         mean = all_reduce_autograd(xf.sum(dim=0, keepdim=True)) / n
         var = all_reduce_autograd(((xf - mean) ** 2).sum(dim=0, keepdim=True)) / n
         mean, var = mean.to(x.dtype), var.to(x.dtype)
@@ -90,7 +90,7 @@ class Dropout(_SameShape):
         if not self.training or rate <= 0.0:
             return [x]
         keep = 1.0 - rate
-        r, w, n = group_rank(), group_size(), x.shape[0]
+        r, w, n = data_rank(), data_size(), x.shape[0]
         u = torch.rand((w * n, *x.shape[1:]), generator=self.generator, device=x.device)[r * n : (r + 1) * n]
         return [torch.where(u < keep, x / keep, x.new_zeros(())).to(x.dtype)]
 

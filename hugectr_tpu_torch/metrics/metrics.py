@@ -26,6 +26,7 @@ the global batch losses.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -136,7 +137,8 @@ _FINALIZERS = {
 class MetricAccumulator:
     """Eval predictions and labels in [max_batches x batch_size x label_dim]
     device buffers, finalized on demand (metrics.py:190). Over `world`
-    ranks, `batch_size` is the rank's block of an eval batch."""
+    ranks, `batch_size` is the rank's block of an eval batch, and the
+    buffers are gathered and summed over `group` (the data axes)."""
 
     def __init__(
         self,
@@ -147,8 +149,10 @@ class MetricAccumulator:
         label_dim: int = 1,
         auc_exact_max: int = AUC_EXACT_MAX,
         world: int = 1,
+        group=None,
     ):
         self.world = world
+        self.group = group
         self.metrics = {Metric_t(k): v for k, v in metrics.items()}
         self.batch_size = batch_size
         self.max_batches = max_batches
@@ -184,7 +188,7 @@ class MetricAccumulator:
         i's blocks of ranks 0..W-1, then batch i + 1's."""
         if self.world == 1:
             return t
-        g = all_gather(t.to(torch.uint8) if t.dtype == torch.bool else t)
+        g = all_gather(t.to(torch.uint8) if t.dtype == torch.bool else t, self.group)
         g = g.reshape(self.world, self.max_batches, -1).transpose(0, 1).reshape(-1)
         return g.bool() if t.dtype == torch.bool else g
 
@@ -196,13 +200,14 @@ class MetricAccumulator:
         for m in self.metrics:
             if m == Metric_t.AverageLoss:
                 if self._loss_vals:
-                    losses = all_reduce(torch.stack([v.reshape(()) for v in self._loss_vals]))
+                    losses = all_reduce(torch.stack([v.reshape(()) for v in self._loss_vals]), self.group)
                     out[m.value] = float(losses.mean() / self.world)
                 else:
                     out[m.value] = 0.0
                 continue
             if m == Metric_t.AUC and self.capacity * self.world > self.auc_exact_max:
-                out[m.value] = float(auc_score_large(self._preds, self._labels, self._valid, all_reduce))
+                out[m.value] = float(auc_score_large(self._preds, self._labels, self._valid,
+                                                     functools.partial(all_reduce, group=self.group)))
                 continue
             if buffers is None:
                 buffers = [self._global(t) for t in (self._preds, self._labels, self._valid)]

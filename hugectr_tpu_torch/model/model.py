@@ -46,6 +46,21 @@ the JAX step is a plain sum. `train()` returns the global mean loss, and
 `eval` the metrics of the global eval set. Every rank calls `train`,
 `eval` and `fit` together.
 
+The mesh (model.py:162-166): without a `resource_manager` the Model builds
+one from the Solver's `ev_parallelism` and `num_slices`. On the ("data",
+"ev") mesh W above is the data-parallel size W / e: a rank reads and
+trains the block of its data index, the dense bucket is all-reduced over
+its data group and then taken from the first of its ev replicas, so that
+they stay bitwise equal. The first collection's `comm_strategy` takes the
+two-level exchange on a hierarchical mesh. `shard(column_factors={t: f})`
+splits table t into f sub-tables `t#col{j}` of ev / f columns, shared by
+t's lookups, one lookup each, their tops concatenated in j order into the
+user's top (model.py:248-323); the strategy, the shard counts, snapshots,
+`export_table` and freezing name the sub-tables. `Solver.group_rows` bins
+the shared rowop groups (plan.py:642-660). Ranks on H hosts
+(`local_world_size`) read as the JAX package's H processes do
+(`_make_reader`).
+
 `eval` runs one eager forward under `no_grad` per batch of the eval set
 into a `MetricAccumulator` per loss layer, with no host sync per batch
 (model.py:466-490): the first task's metrics under their plain names, the
@@ -114,7 +129,7 @@ from ..core.config import (
     Solver,
 )
 from ..core.logger import get_logger
-from ..core.mesh import DeviceLike, ResourceManager, all_gather, all_reduce
+from ..core.mesh import DeviceLike, ResourceManager, all_gather, all_reduce, broadcast
 from ..core.types import Combiner_t, DataReaderType_t, Metric_t
 from ..core.types import INVALID_KEY
 from ..data.reader import (
@@ -122,6 +137,7 @@ from ..data.reader import (
     ROWS_KEY,
     AsyncParquetReader,
     BaseReader,
+    BlockReader,
     BatchSpec,
     DeviceBatch,
     DeviceFeeder,
@@ -226,7 +242,8 @@ class Model:
         self.solver = solver
         self.reader_params = reader_params
         self.opt_params = optimizer
-        self.rm = resource_manager or ResourceManager.create(device=device)
+        self.rm = resource_manager or ResourceManager.create(
+            device=device, ev_parallelism=solver.ev_parallelism, num_slices=solver.num_slices)
         self.device = self.rm.device
         self.input: Optional[Input] = None
         self.dense_layers: List[DenseLayer] = []
@@ -318,33 +335,46 @@ class Model:
         self._top3d: Dict[str, Tuple[int, int]] = {}  # a SparseEmbedding's top: (slots, ev)
         strategy: List[Tuple[str, List[str]]] = []
         shard_counts: Dict[str, int] = {}
+        column_factors: Dict[str, int] = {}
+        # column-wise sharding (model.py:248-323): table t with factor f
+        # becomes f sub-tables t#col{j} of ev / f columns, made once per
+        # table and shared by its lookups, one lookup each; the user top
+        # concatenates them in j order
+        split_tables: Dict[str, List[EmbeddingTableConfig]] = {}
         for ebc in self.ebc_configs:
             for decl in ebc.lookup_decls:
                 feat = self._sparse_by_name.get(decl.bottom_name)
                 if feat is None:
                     raise ValueError(f"EBC lookup bottom {decl.bottom_name!r} has no sparse input")
-                lid = len(lookup_cfgs)
-                top = f"{decl.top_name}:{lid}"
-                lookup_cfgs.append(
-                    LookupConfig(
-                        lookup_id=lid, table=decl.table, bottom_name=top, top_name=top,
-                        combiner=decl.combiner, max_hotness=feat.total_nnz,
+                for sub in self._column_tables(decl, int(ebc.column_factors.get(decl.table.name, 1)),
+                                               split_tables):
+                    lid = len(lookup_cfgs)
+                    top = f"{decl.top_name}:{lid}"
+                    lookup_cfgs.append(
+                        LookupConfig(
+                            lookup_id=lid, table=sub, bottom_name=top, top_name=top,
+                            combiner=decl.combiner, max_hotness=feat.total_nnz,
+                        )
                     )
-                )
-                self._key_sources[top] = _KeySource(feat.name, 0, feat.total_nnz)
-                self._user_tops.setdefault(decl.top_name, []).append(top)
-            strategy.extend(ebc.sharding_plan().strategy)
+                    self._key_sources[top] = _KeySource(feat.name, 0, feat.total_nnz)
+                    self._user_tops.setdefault(decl.top_name, []).append(top)
+            plan = ebc.sharding_plan()
+            # a split table's strategy entries and shard count cover its sub-tables
+            strategy.extend((kind, [t for n in names for t in self._sub_names(n, split_tables)])
+                            for kind, names in plan.strategy)
+            column_factors.update(plan.column_factors)
             for name in {n for row in ebc.shard_matrix or [] for n in row}:
-                shard_counts[name] = sum(1 for row in ebc.shard_matrix if name in row)
+                for t in self._sub_names(name, split_tables):
+                    shard_counts[t] = sum(1 for row in ebc.shard_matrix if name in row)
         for se in self.sparse_embeddings:
             strategy.append(("mp", [self._lower_sparse_embedding(se, lookup_cfgs)]))
         self.ec: Optional[EmbeddingCollection] = None
         if lookup_cfgs:
             plan = compile_plan(
-                lookup_cfgs, ShardingPlan(strategy=strategy), num_shards=w,
+                lookup_cfgs, ShardingPlan(strategy=strategy, column_factors=column_factors), num_shards=w,
                 shard_counts=shard_counts, onehot_vocab=s.onehot_vocab, split_vocab=s.split_vocab,
                 hot_rows=s.hot_rows, superhot_rows=s.superhot_rows, warm_rows=s.warm_rows,
-                shard_rotation=s.shard_rotation,
+                shard_rotation=s.shard_rotation, group_rows=s.group_rows,
             )
             self.ec = EmbeddingCollection(
                 plan, self.rm, self.opt_params, dtype=s.emb_dtype,
@@ -352,6 +382,8 @@ class Model:
                 state_dtype=s.emb_state_dtype, fwd_partition=s.fwd_partition,
                 capacity_factor=s.mp_capacity_factor,
                 dense_exchange_cap=s.dense_exchange_cap if s.dense_exchange else 0,
+                # the first collection's strategy, as the JAX Model takes it (model.py:398-405)
+                comm_strategy=self.ebc_configs[0].comm_strategy if self.ebc_configs else None,
             )
 
         # ---- dense network (model.py:413-435), on the rank's rows
@@ -391,12 +423,38 @@ class Model:
             spec.label_name: MetricAccumulator(
                 s.metrics_spec, batch_size=s.batchsize_eval // w, max_batches=s.max_eval_batches,
                 device=self.device, label_dim=label_dims.get(spec.label_name, 1),
-                auc_exact_max=s.auc_exact_max, world=w,
+                auc_exact_max=s.auc_exact_max, world=w, group=self.rm.data_group,
             )
             for spec in self.network.loss_specs
         }
         self.metrics = accs.pop(self.network.loss_specs[0].label_name)
         self._task_metrics: Dict[str, MetricAccumulator] = accs
+
+    @staticmethod
+    def _column_tables(decl, factor: int, split_tables: Dict[str, List[EmbeddingTableConfig]]):
+        """The tables of one lookup: the declared one, or for a column
+        factor f > 1 its f sub-tables `name#col{j}` of ev / f columns, made
+        once per table (model.py:260-300, with its errors)."""
+        if factor <= 1:
+            return [decl.table]
+        t = decl.table
+        if t.ev_size % factor:
+            raise ValueError(f"table {t.name}: ev_size {t.ev_size} not divisible by column factor {factor}")
+        if decl.combiner == Combiner_t.Concat:
+            raise NotImplementedError("column-wise sharding with concat combiner")
+        if t.name not in split_tables:
+            split_tables[t.name] = [
+                EmbeddingTableConfig(name=f"{t.name}#col{j}", max_vocabulary_size=t.max_vocabulary_size,
+                                     ev_size=t.ev_size // factor, opt_params=t.opt_params,
+                                     init_scale=t.init_scale, dynamic_capacity=t.dynamic_capacity)
+                for j in range(factor)
+            ]
+        return split_tables[t.name]
+
+    @staticmethod
+    def _sub_names(name: str, split_tables: Dict[str, List[EmbeddingTableConfig]]) -> List[str]:
+        """A table's name, or its column sub-tables' names."""
+        return [t.name for t in split_tables[name]] if name in split_tables else [name]
 
     def _lower_sparse_embedding(self, se: SparseEmbedding, lookup_cfgs: List[LookupConfig]) -> str:
         """A SparseEmbedding as one table of `vocabulary_for(W)` rows and one
@@ -425,35 +483,45 @@ class Model:
         self._top3d[se.sparse_embedding_name] = (feat.slot_num, se.embedding_vec_size)
         return table.name
 
+    def _hosts(self) -> Tuple[int, int, int]:
+        """(the hosts H, this rank's host h, the batch blocks a host holds):
+        ranks span H = W / `local_world_size` hosts, host h holding ranks
+        [h L, (h + 1) L); host h plays the JAX package's process h."""
+        w, local = self.rm.num_devices, self.rm.local_world_size
+        if w % local or local % self.rm.ev_parallel_size:
+            raise ValueError(f"{w} ranks do not split into hosts of {local} "
+                             f"(ev_parallelism {self.rm.ev_parallel_size})")
+        hosts = w // local
+        return hosts, self.rm.rank // local, self.world // hosts
+
     def _make_reader(self, train: bool) -> Optional[BaseReader]:
         """The train or the eval reader, by the JAX package's rules
         (model.py:501-637). The eval reader takes `batchsize_eval` and never
-        repeats; a missing eval source means synthetic eval batches. Over W
-        ranks a file reader gets rank r's `process_index` and the block's
-        B / W rows. Synthetic batches take seed + 99991 for eval, and over W
-        ranks rank r's block of each global batch from the same seed; ranks
-        on more than one host would take the JAX package's multi-host rule
-        (seed + 7919 * process, model.py:506-527), which is not ported."""
+        repeats; a missing eval source means synthetic eval batches. Over
+        W ranks on H hosts (`_hosts`), host h reads what JAX's process h
+        reads, a batch of B / H rows, and each rank takes its data block of
+        it (the process-local batch split over the local devices): a
+        synthetic batch from seed + 7919 h (eval: + 99991), a Parquet or
+        Norm reader over files h::H. The Raw readers take the block's rows
+        of the file themselves (`process_index`, `num_processes` of the
+        blocks: the same rows). On the ("data", "ev") mesh the ev replicas
+        read the same block."""
         rp = self.reader_params
         if rp is None:
             return None
         spec = self.batch_spec if train else self.eval_batch_spec
         src = rp.source[0] if train and rp.source else rp.eval_source
         kind = rp.data_reader_type
+        hosts, host, per_host = self._hosts()
+        block = (self.rm.data_index % per_host, per_host)
+        host_spec = dataclasses.replace(spec, batch_size=spec.batch_size // hosts)
         if kind == DataReaderType_t.Synthetic or not src:
-            if self.rm.local_world_size < self.world:
-                raise NotImplementedError(
-                    "ranks on more than one host: the multi-host reader is not ported yet "
-                    "(ROADMAP Queue 1 item 1h)"
-                )
             return SyntheticReader(
-                spec, self._slot_vocabs(), num_batches=rp.synthetic_num_batches, alpha=rp.synthetic_alpha,
-                seed=(self.solver.seed or 1234) + (0 if train else 99991),
-                learnable_labels=rp.synthetic_learnable, block=(self.rm.rank, self.world),
+                host_spec, self._slot_vocabs(), num_batches=rp.synthetic_num_batches, alpha=rp.synthetic_alpha,
+                seed=(self.solver.seed or 1234) + (0 if train else 99991) + 7919 * host,
+                learnable_labels=rp.synthetic_learnable, block=block,
             )
-        spec = dataclasses.replace(spec, batch_size=spec.batch_size // self.world)
         s = self.solver
-        ranks = dict(process_index=self.rm.rank, num_processes=self.world)
         repeat = s.repeat_dataset if train else False
         if kind in (DataReaderType_t.Raw, DataReaderType_t.RawAsync):
             from ..data.native_reader import NativeRawReader
@@ -466,23 +534,28 @@ class Model:
             self._fused_float = rp.float_label_dense or bool(
                 ap is not None and ap.is_dense_float and ap.multi_hot_reader)
             return NativeRawReader(
-                src, spec, num_samples=rp.num_samples if train else rp.eval_num_samples,
+                src, dataclasses.replace(spec, batch_size=spec.batch_size // self.world),
+                num_samples=rp.num_samples if train else rp.eval_num_samples,
                 float_label_dense=self._fused_float, repeat=repeat, n_threads=n_threads,
-                queue_depth=depth, fused=not s.i64_input_key, **ranks,
+                queue_depth=depth, fused=not s.i64_input_key, process_index=self.rm.data_index,
+                num_processes=self.world,
             )
+        ranks = dict(process_index=host, num_processes=hosts)
         if kind == DataReaderType_t.Parquet:
             # fused Parquet rows carry labels and dense as float32 bits
             self._fused_float = True
-            return AsyncParquetReader(
-                src, spec, repeat=repeat, drop_incomplete=s.drop_incomplete_batch,
+            reader = AsyncParquetReader(
+                src, host_spec, repeat=repeat, drop_incomplete=s.drop_incomplete_batch,
                 n_threads=max(rp.num_workers, 1), fused=not s.i64_input_key, **ranks,
             )
-        if kind == DataReaderType_t.Norm:
-            return NormReader(
-                src, spec, repeat=repeat, drop_incomplete=s.drop_incomplete_batch,
+        elif kind == DataReaderType_t.Norm:
+            reader = NormReader(
+                src, host_spec, repeat=repeat, drop_incomplete=s.drop_incomplete_batch,
                 slot_size_array=rp.slot_size_array or None, **ranks,
             )
-        raise NotImplementedError(f"reader {kind}")
+        else:
+            raise NotImplementedError(f"reader {kind}")
+        return BlockReader(reader, block) if per_host > 1 else reader
 
     def _slot_vocabs(self) -> Dict[str, List[int]]:
         """Per-slot key bounds of the synthetic reader (model.py:639): each
@@ -609,14 +682,14 @@ class Model:
         count (skipped when no rank has a new key). Every rank calls this
         for every window of every batch, in the same order."""
         dev = self.device
-        counts = all_gather(torch.tensor([len(missing)], dtype=torch.int64, device=dev))
+        counts = all_gather(torch.tensor([len(missing)], dtype=torch.int64, device=dev), self.rm.data_group)
         mx = int(counts.max())
         if mx == 0:
             return []
         pad = torch.full((mx,), -1, dtype=torch.int64)
         if missing:
             pad[: len(missing)] = torch.tensor(missing, dtype=torch.int64)
-        keys = all_gather(pad.to(dev)).cpu().numpy()
+        keys = all_gather(pad.to(dev), self.rm.data_group).cpu().numpy()
         return np.unique(keys[keys >= 0]).tolist()
 
     def _fold_i64_keys(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -773,11 +846,11 @@ class Model:
         self.network.train()
         loss, _ = self.network.forward_with_loss(tensors, self.solver.compute_dtype)
         params = self.network.param_tree()
-        if self.world > 1:
+        if self.rm.num_devices > 1:
             # the global-batch mean: loss / W on every rank, summed below
             loss = loss / self.world
             loss.backward()
-            loss = self._all_reduce_grads(params, loss.detach())
+            loss = self._all_reduce_grads(params, loss.detach(), self.rm)
         else:
             loss.backward()
         if not self._dense_frozen:
@@ -791,13 +864,17 @@ class Model:
         return loss.detach()
 
     @staticmethod
-    def _all_reduce_grads(params, loss: torch.Tensor) -> torch.Tensor:
+    def _all_reduce_grads(params, loss: torch.Tensor, rm: ResourceManager) -> torch.Tensor:
         """One flat float32 bucket of every dense gradient and the loss, one
-        `all_reduce` of it, and the sums copied back. Returns the summed
-        loss."""
+        `all_reduce` of it over the data axes, and the sums copied back; on
+        the ("data", "ev") mesh the ev group then takes its first rank's
+        bucket, so that the ev replicas stay bitwise equal whatever order
+        their kernels summed in. Returns the summed loss."""
         grads = [p.grad for ps in params.values() for p in ps.values() if p.grad is not None]
         flat = torch.cat([g.reshape(-1).float() for g in grads] + [loss.reshape(1).float()])
-        all_reduce(flat)
+        all_reduce(flat, rm.data_group)
+        if rm.ev_parallel_size > 1:
+            broadcast(flat, rm.ev_group.ranks[0], rm.ev_group)
         off = 0
         for g in grads:
             g.copy_(flat[off : off + g.numel()].view_as(g))
@@ -1071,7 +1148,7 @@ class Model:
         blocks all-gathered in rank order (every rank calls this
         together)."""
         t = t.detach()
-        return (all_gather(t.contiguous()) if self._row_sharded(name) else t).cpu()
+        return (all_gather(t.contiguous(), self.rm.data_group) if self._row_sharded(name) else t).cpu()
 
     def _rank_block(self, arr, name: str):
         """This rank's rows of the JAX package's global array of group
@@ -1079,7 +1156,7 @@ class Model:
         if not self._row_sharded(name):
             return arr
         n = self.tables[name].shape[0]
-        return arr[self.rm.rank * n : (self.rm.rank + 1) * n]
+        return arr[self.rm.data_index * n : (self.rm.data_index + 1) * n]
 
     def _dense_flat(self) -> Dict[str, torch.Tensor]:
         """`dense/<layer>/<key>` and `dopt/<slot>/<layer>/<key>`, as the
@@ -1147,7 +1224,7 @@ class Model:
                            "shard_rotation": int(self._rotated_layout())}, f)
             get_logger().info(f"snapshot written to {out_dir}")
         if self.world > 1:  # every rank returns once the files are written
-            all_reduce(torch.zeros(1, device=self.device))
+            all_reduce(torch.zeros(1, device=self.device), self.rm.data_group)
 
     def save_params_to_files(self, prefix: str, iteration: int = 0) -> None:
         """`download_params_to_files` under the reference's name (model.py:1721)."""

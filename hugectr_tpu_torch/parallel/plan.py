@@ -18,8 +18,15 @@ key k of a table (k' = k % vocab) lives on shard (k' + rot) % f at local row
 k' // f, with `rot` from `table_shard_rotation` (plan.py:295), so that the
 power-law heads of the tables do not all land on shard 0.
 
-Left out: row-capped group binning (plan.py:468, off by default) and the
-scatter-counts one-hot rule (plan.py:499, off by default).
+Column-wise sharding (`ShardingPlan.column_factors`, plan.py:117-127) is
+the Model's rewrite of table t into sub-tables `t#col{j}`; the plan keeps
+the factors, and a table named in them takes no hot/cold split (plan.py:376:
+the check is on the name, so the sub-tables `t#col{j}` may split, as in the
+JAX package). `group_rows` bins the tables of each shared rowop group, in
+first-appearance order, so that no bin holds more than that many rows a
+shard (plan.py:642-660, HCTR_TPU_GROUP_ROWS).
+
+Left out: the scatter-counts one-hot rule (plan.py:499, off by default).
 """
 from __future__ import annotations
 
@@ -80,9 +87,11 @@ class LookupConfig:
 
 @dataclasses.dataclass
 class ShardingPlan:
-    """Which tables are model-parallel and which data-parallel (plan.py:117)."""
+    """Which tables are model-parallel and which data-parallel, and each
+    column-split table's factor (plan.py:117-127)."""
 
     strategy: List[Tuple[str, List[str]]]
+    column_factors: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def placement_of(self, table_name: str) -> TablePlacementStrategy:
         base = table_name.split("::", 1)[0]  # split sub-tables inherit
@@ -247,12 +256,14 @@ def _onehot_eligible(
 
 
 def _split_hot_cold(
-    lookups: Sequence[LookupConfig], hot: int, superhot: int, warm: int, onehot_vocab: int
+    lookups: Sequence[LookupConfig], hot: int, superhot: int, warm: int, onehot_vocab: int,
+    column_factors: Optional[Dict[str, int]] = None,
 ) -> Tuple[List[LookupConfig], List[MergeMeta], Dict[str, List[Tuple[str, int]]]]:
     """Rewrite the lookups of eligible tables into sub-lookups, one per tier
     (plan.py:355). A table is eligible when it holds at least
-    max(4 * hot, 2 * onehot_vocab) rows and every lookup into it is Sum or
-    Mean; dynamic tables are never split (plan.py:368). Tiers: [0, superhot) when 0 < superhot < hot and superhot <=
+    max(4 * hot, 2 * onehot_vocab) rows, every lookup into it is Sum or
+    Mean and its name has no column factor; dynamic tables are never split
+    (plan.py:368-376). Tiers: [0, superhot) when 0 < superhot < hot and superhot <=
     onehot_vocab, [superhot, hot), [hot, warm) when warm > hot, and the rest;
     tiers at or past the table's vocabulary are dropped. Sub-lookups sum;
     the first keeps the lookup's id, the others take new ids after the
@@ -266,7 +277,7 @@ def _split_hot_cold(
     def eligible(t: EmbeddingTableConfig) -> bool:
         return not t.is_dynamic and t.vocabulary_size >= max(4 * hot, 2 * onehot_vocab) and all(
             lk.combiner in (Combiner_t.Sum, Combiner_t.Mean) for lk in by_table[t.name]
-        )
+        ) and t.name not in (column_factors or {})
 
     shot = superhot if 0 < superhot < hot and superhot <= onehot_vocab else 0
     bounds = [0, shot, hot] if shot else [0, hot]
@@ -320,6 +331,44 @@ def _shard_count_of(
     return f
 
 
+def _bin_groups(group_keys: List[Tuple], group_lookups: Dict[Tuple, List[LookupConfig]], cap: int):
+    """Each shared rowop group (no private split) whose tables hold more
+    than `cap` rows a shard, in bins of consecutive tables (first-appearance
+    order) of at most `cap` rows where one table fits, named by the split
+    slot `bin{i}`; a group that fits keeps its key (plan.py:642-679)."""
+    new_keys: List[Tuple] = []
+    new_lookups: Dict[Tuple, List[LookupConfig]] = {}
+    for key in group_keys:
+        placement, ev_size, kind, split, f = key
+        lks = group_lookups[key]
+        if kind != "rowop" or split:
+            new_keys.append(key)
+            new_lookups[key] = lks
+            continue
+        shards = f if placement == TablePlacementStrategy.ModelParallel else 1
+        bin_of: Dict[str, int] = {}
+        cur_bin = cur_rows = 0
+        for lk in lks:
+            if lk.table.name in bin_of:
+                continue
+            rows = _ceil_div(int(lk.table.vocabulary_size), shards)
+            if cur_rows and cur_rows + rows > cap:
+                cur_bin, cur_rows = cur_bin + 1, 0
+            bin_of[lk.table.name] = cur_bin
+            cur_rows += rows
+        if cur_bin == 0:
+            new_keys.append(key)
+            new_lookups[key] = lks
+            continue
+        for lk in lks:
+            bkey = (placement, ev_size, kind, f"bin{bin_of[lk.table.name]}", f)
+            if bkey not in new_lookups:
+                new_lookups[bkey] = []
+                new_keys.append(bkey)
+            new_lookups[bkey].append(lk)
+    return new_keys, new_lookups
+
+
 def compile_plan(
     lookups: Sequence[LookupConfig],
     plan: ShardingPlan,
@@ -331,16 +380,18 @@ def compile_plan(
     superhot_rows: int = 0,
     warm_rows: int = 0,
     shard_rotation: bool = True,
+    group_rows: Optional[int] = 0,
 ) -> CompiledEmbeddingPlan:
     """Split the big tables into tiers (`hot_rows` > 0), then group lookups
     by (placement, ev_size, engine, private split, shard count) in
-    first-appearance order and lay out each group's storage (plan.py:584).
+    first-appearance order, bin the shared rowop groups at `group_rows`
+    rows a shard (> 0), and lay out each group's storage (plan.py:584).
     `num_shards` is the ranks' count (the data-parallel size)."""
     if num_shards < 1:
         raise ValueError("num_shards must be >= 1")
     orig_lookups = list(lookups)
     lookups, merges, table_splits = _split_hot_cold(
-        orig_lookups, hot_rows, superhot_rows, warm_rows, onehot_vocab
+        orig_lookups, hot_rows, superhot_rows, warm_rows, onehot_vocab, plan.column_factors
     )
     eligible = _onehot_eligible(lookups, onehot_vocab)
     group_keys: List[Tuple] = []
@@ -369,6 +420,8 @@ def compile_plan(
             group_lookups[key] = []
             group_keys.append(key)
         group_lookups[key].append(lk)
+    if group_rows:
+        group_keys, group_lookups = _bin_groups(group_keys, group_lookups, group_rows)
 
     groups: List[GroupPlan] = []
     for key in group_keys:

@@ -115,7 +115,7 @@ def _rows(model, name: str, arr: Any, w_src: int) -> Any:
     if not _sharded(model, name):
         return arr
     n = model.tables[name].shape[0]
-    return np.asarray(arr)[model.rm.rank * n : (model.rm.rank + 1) * n]
+    return np.asarray(arr)[model.rm.data_index * n : (model.rm.data_index + 1) * n]
 
 
 @torch.no_grad()

@@ -114,14 +114,19 @@ def build_dlrm_dcnv2(
     synthetic_learnable: bool = False,
     shard_counts=None,
     reader=None,
+    comm_strategy=None,
+    column_factors=None,
     **solver_kwargs,
 ):
     """DLRM-DCNv2 (flagship.py:28); returns a compiled Model on `rm.device`,
     over `rm.num_devices` ranks (`batchsize` is the global batch; the
     tables not on the one-hot engine are model-parallel, table n on
     `shard_counts[n]` of the ranks where given, else on all of them).
-    `reader` replaces the synthetic reader; `solver_kwargs` are `Solver`
-    fields (dtypes, split, engine settings)."""
+    `reader` replaces the synthetic reader; `comm_strategy` is the
+    collection's (flagship.py:40; "hierarchical" takes the two-level
+    exchange on a hierarchical mesh), `column_factors` {table: f} splits
+    tables column-wise; `solver_kwargs` are `Solver` fields (dtypes, split,
+    engine settings)."""
     table_sizes = [min(v, vocab_cap) for v in MLPERF_TABLE_SIZES]
     if multi_hot_sizes is None:
         multi_hot_sizes = MLPERF_MULTI_HOT_SIZES
@@ -157,7 +162,7 @@ def build_dlrm_dcnv2(
         hugectr.EmbeddingTableConfig(name=str(i), max_vocabulary_size=table_sizes[i], ev_size=ev_size)
         for i in range(NUM_TABLE)
     ]
-    ebc = hugectr.EmbeddingCollectionConfig()
+    ebc = hugectr.EmbeddingCollectionConfig(comm_strategy=comm_strategy or "uniform")
     ebc.embedding_lookup(
         table_config=tables,
         bottom_name=[f"data{i}" for i in range(NUM_TABLE)],
@@ -165,7 +170,8 @@ def build_dlrm_dcnv2(
         combiner=["sum"] * NUM_TABLE,
     )
     names = [str(i) for i in range(NUM_TABLE)]
-    ebc.shard(shard_matrix=shard_matrix(names, rm.num_devices, shard_counts), shard_strategy=[("mp", names)])
+    ebc.shard(shard_matrix=shard_matrix(names, rm.num_devices, shard_counts), shard_strategy=[("mp", names)],
+              column_factors=column_factors)
     model.add(ebc)
     model.add(
         hugectr.DenseLayer(
@@ -300,6 +306,35 @@ TINY_PARTIAL = dict(batchsize=64, onehot_vocab=100, dense_update_rows=1000, dens
 def build_tiny_partial(rm, **kwargs):
     """The tiny DLRM-DCNv2 with a partial `shard_matrix` (`TINY_PARTIAL`)."""
     return build_tiny_dlrm(rm, **dict(TINY_PARTIAL, **kwargs))
+
+
+def build_tiny_column(rm, factor: int = 1, batchsize: int = 64, synthetic_batches: int = 4, **solver_kwargs):
+    """The model of the JAX package's tests/test_column_sharding.py::_model
+    on `rm`: table t0 (100 rows, ev 16), one Sum lookup of 2 keys,
+    model-parallel on every rank and split column-wise into `factor`
+    sub-tables t0#col{j}, an InnerProduct of one output, the binary
+    cross-entropy, AdaGrad at lr 0.05, synthetic batches; `solver_kwargs`
+    are `Solver` fields (engine settings)."""
+    solver = hugectr.CreateSolver(max_eval_batches=2, batchsize_eval=batchsize, batchsize=batchsize, lr=0.05,
+                                  **solver_kwargs)
+    reader = hugectr.DataReaderParams(data_reader_type=DataReaderType_t.Synthetic,
+                                      synthetic_num_batches=synthetic_batches)
+    model = hugectr.Model(solver, reader, hugectr.CreateOptimizer(optimizer_type=hugectr.Optimizer_t.AdaGrad),
+                          resource_manager=rm)
+    model.add(hugectr.Input(label_dim=1, label_name="label", dense_dim=4, dense_name="dense",
+                            data_reader_sparse_param_array=[hugectr.DataReaderSparseParam("d0", 2, True, 1)]))
+    ebc = hugectr.EmbeddingCollectionConfig()
+    ebc.embedding_lookup(hugectr.EmbeddingTableConfig(name="t0", max_vocabulary_size=100, ev_size=16),
+                         "d0", "emb", "sum")
+    ebc.shard(shard_matrix=[["t0"]] * rm.num_devices, shard_strategy=[("mp", ["t0"])],
+              column_factors={"t0": factor} if factor > 1 else None)
+    model.add(ebc)
+    model.add(hugectr.DenseLayer(layer_type=hugectr.Layer_t.InnerProduct, bottom_names=["emb"],
+                                 top_names=["logit"], num_output=1, act_type=hugectr.Activation_t.Non))
+    model.add(hugectr.DenseLayer(layer_type=hugectr.Layer_t.BinaryCrossEntropyLoss,
+                                 bottom_names=["logit", "label"], top_names=["loss"]))
+    model.compile()
+    return model
 
 
 def build_dlrm_ftrl(

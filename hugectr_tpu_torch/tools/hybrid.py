@@ -42,6 +42,16 @@ ms/step, the forward's host and device ms, the collectives' calls and
 bytes a step, eval ex/s, finite losses, equal replicas); with `--out`,
 each run's whole summary goes to a file there.
 
+The meshes: `--num-slices 2 --comm-strategy hierarchical` puts the ranks
+on the (dcn, ici) mesh with the two-level exchange, `--ev-parallelism e`
+on the ("data", "ev") mesh, `--column-factor 2` splits the f32 flagship's
+sorted-route tables column-wise (`layout`, `full_width_config`), and
+`--hosts H` starts the ranks as on H hosts (`LOCAL_WORLD_SIZE` W / H, the
+multi-host reader rule). `mesh_parity_runs` (`chip_smoke.py`'s
+mesh_parity) trains the tiny model on one device, on 4 ranks flat,
+hierarchical and ("data", "ev"), and on 2 ranks, all on the global batches
+of 2 hosts.
+
 `exchange_checks` is the rank function of the exchanges' checks on the
 card (`chip_smoke.py`'s hybrid_exchange_parity): the owner-partitioned
 forward against the masked gather, the kernels on each rank's inputs, and
@@ -95,13 +105,16 @@ def load_tree(path: str) -> Tree:
     return out
 
 
-def _rank_main(rank: int, fn: Callable, world: int, backend: str, device: str, tmp: str) -> None:
+def _rank_main(rank: int, fn: Callable, world: int, backend: str, device: str, tmp: str,
+               local_world_size: int = 0) -> None:
     import torch.distributed as dist
 
     from ..core.mesh import ResourceManager, init_distributed
 
     if device == "cpu":
         torch.set_num_threads(1)  # W ranks share the host's cores
+    if local_world_size:  # ranks as on world / local_world_size hosts
+        os.environ["LOCAL_WORLD_SIZE"] = str(local_world_size)
     init_distributed(backend, rank, world, init_method=f"file://{os.path.join(tmp, 'store')}")
     try:
         rm = ResourceManager.create(device=device)
@@ -118,15 +131,20 @@ def default_backend(world: int, device: str = "cuda") -> str:
 
 
 def run(fn: Callable, world: int, inputs: Tree = None, backend: str = None, device: str = "cuda",
-        timeout: float = 600.0) -> List[Tree]:
+        timeout: float = 600.0, hosts: int = 1) -> List[Tree]:
     """fn(rm, inputs) on `world` spawned ranks; their results in rank order.
-    `backend` defaults to `default_backend(world, device)`."""
+    `backend` defaults to `default_backend(world, device)`. With `hosts` H
+    the ranks take `LOCAL_WORLD_SIZE` W / H, as ranks on H hosts do (the
+    multi-host reader rule, `Model._make_reader`)."""
     import torch.multiprocessing as mp
 
     backend = backend or default_backend(world, device)
+    if world % hosts:
+        raise ValueError(f"{world} ranks do not split over {hosts} hosts")
+    local = world // hosts if hosts > 1 else 0
     with tempfile.TemporaryDirectory(prefix="hctr_hybrid_") as tmp:
         save_tree(os.path.join(tmp, "inputs.npz"), inputs or {})
-        ctx = mp.start_processes(_rank_main, args=(fn, world, backend, device, tmp), nprocs=world,
+        ctx = mp.start_processes(_rank_main, args=(fn, world, backend, device, tmp, local), nprocs=world,
                                  join=False, start_method="spawn")
         t0 = time.monotonic()
         while not ctx.join(timeout=1.0):  # raises if a rank failed, stopping the others
@@ -169,14 +187,16 @@ def replicated_arrays(model) -> Dict[str, np.ndarray]:
 
 def shard_replicas(model) -> Dict[str, np.ndarray]:
     """The storage and state of this rank's shard of each model-parallel
-    group that has replicas (a partial placement), keyed by group and shard
+    group that has replicas (a partial placement, or any group on the
+    ("data", "ev") mesh), keyed by group and shard
     (`"table:{group}@{shard}"`): ranks that hold the same shard must hold
     the same bits."""
     out = {}
-    if model.ec is None or model.rm.data_parallel_size == 1:
+    rm = model.rm
+    if model.ec is None or rm.num_devices == 1:
         return out
     for g in model.ec.plan.groups:
-        if g.is_model_parallel and g.num_replicas > 1:
+        if g.is_model_parallel and (g.num_replicas > 1 or rm.ev_parallel_size > 1):
             s = model.ec._meta[g.name].shard
             out[f"table:{g.name}@{s}"] = model.tables[g.name].detach().float().cpu().numpy()
             for k, t in model.eopt[g.name].items():
@@ -231,12 +251,20 @@ def train_model(rm, inputs: Tree) -> Tree:
     of those weights last (`eval_carried`); with i64 keys, the exact fold's
     maps (`i64_fold_maps`). `shards` holds this rank's
     shard of each group with replicas (`shard_replicas`, digests with
-    `digest`)."""
+    `digest`). `mesh` ({"num_slices": d} or {"ev_parallelism": e}) puts
+    the ranks (W > 1) on that mesh; with `batch_out`, this rank's first
+    cached batch is returned (`first_batch`); with `host_batches` H, one
+    device trains on the global batches of ranks on H hosts
+    (`host_batches`)."""
     from .. import ops
     from ..core import mesh
     from .carry import export_state, load_jax_state, load_table_state
 
     cfg = json.loads(inputs["config"])
+    if rm.num_devices > 1:  # the flat, ("data", "ev") or ("dcn", "ici") mesh, its data axes the default
+        from ..core.mesh import ResourceManager
+
+        rm = ResourceManager.create(device=rm.device, **cfg.get("mesh", {}))
     if rm.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(rm.device)
     builders = importlib.import_module(f"{__package__}.{cfg.get('module', 'flagship')}")
@@ -245,6 +273,10 @@ def train_model(rm, inputs: Tree) -> Tree:
         load_jax_state(model, inputs["state"], cfg.get("state_shards", 0))
     if "table_state" in inputs:
         load_table_state(model, inputs["table_state"])
+    if cfg.get("host_batches") and rm.num_devices == 1:  # one device fed the multi-host global batches
+        import itertools
+
+        model._train_iter = itertools.cycle([model._put_now(b) for b in host_batches(model, cfg["host_batches"])])
     model.start_data_reading()
     # one pass over the cached batches leaves their cycle where it was
     batches = [next(model._train_iter) for _ in range(model.train_reader.num_batches)]
@@ -279,6 +311,8 @@ def train_model(rm, inputs: Tree) -> Tree:
     stats: List[Dict] = []
     (losses, secs), counts = counted(steps)
     out: Tree = {"losses": np.asarray(losses), "step_seconds": np.asarray(secs), **counts}
+    if cfg.get("batch_out"):
+        out["first_batch"] = {k: v.cpu().numpy() for k, v in batches[0].items()}
     if cfg.get("time_forward"):
         out["forward"] = forward_times(model, batches)
     if cfg.get("eval"):
@@ -320,6 +354,27 @@ def train_model(rm, inputs: Tree) -> Tree:
         load_jax_state(model, inputs["eval_state"], cfg.get("eval_state_shards", 0))
         out["eval_carried"] = model.eval()
     model._close_readers()
+    return out
+
+
+def host_batches(model, hosts: int) -> List[Dict[str, np.ndarray]]:
+    """The synthetic global batches of ranks on `hosts` hosts (the
+    multi-host rule, `Model._make_reader`): host h's batch of B / H rows from
+    seed + 7919 h, the hosts' batches one after another, as a one-device
+    model's reader would give them (its seed, vocabularies and batches)."""
+    import dataclasses
+
+    from ..data.reader import SyntheticReader
+
+    rp, spec = model.reader_params, model.batch_spec
+    host_spec = dataclasses.replace(spec, batch_size=spec.batch_size // hosts)
+    readers = [iter(SyntheticReader(host_spec, model._slot_vocabs(), num_batches=rp.synthetic_num_batches,
+                                    alpha=rp.synthetic_alpha, seed=(model.solver.seed or 1234) + 7919 * h,
+                                    learnable_labels=rp.synthetic_learnable)) for h in range(hosts)]
+    out = []
+    for _ in range(rp.synthetic_num_batches):
+        parts = [next(r) for r in readers]
+        out.append({k: np.concatenate([p[k] for p in parts]) for k in parts[0]})
     return out
 
 
@@ -532,7 +587,7 @@ def kernel_parity(model, batch: Dict[str, torch.Tensor], seed: int = 5) -> Tree:
                 got = ss.segmented_sum_sorted(vals, heads, torch.float32)
                 want = ss.segmented_sum_sorted_plain(vals, heads, torch.float32)
                 scale = ss.segmented_sum_sorted_plain(vals.float().abs(), heads, torch.float32)
-                note("segscan", got, want, scale, [int(sidx.shape[0]), int(keys.numel())])
+                note("segscan", got, want, scale, [int(sidx.shape[0]), int(keys.numel()), g.ev_size])
             if g.compute_kind == "rowop" and g.is_model_parallel and ec.world > 1 and ec.fwd_partition:
                 keys = all_gather(ec._group_keys(g, fk))
                 srows, offsets = ec._pool_segments(g.name, keys, table.shape[0], model.tables.get(f"{g.name}#keys"))
@@ -683,17 +738,44 @@ def tiny_config(model: str = "tiny", steps: int = 3) -> Tree:
     raise ValueError(f"unknown tiny model {model!r}")
 
 
-def full_width_config(model: str, staged: bool, batch: int = 16384, dynamic: bool = False) -> Tree:
+# the f32 flagship's tables on the sorted route (the others take the one-hot
+# engine or the dense sweep), which `--column-factor` splits
+SORTED_TABLES = ("0", "9", "10", "19", "21", "22")
+
+
+def layout(num_slices: int = 1, ev_parallelism: int = 1, comm_strategy: str = "uniform",
+           column_factor: int = 1) -> Tree:
+    """The mesh and the collection settings of a run, as `full_width_config`
+    takes them: the ranks' mesh, the collection's communication strategy
+    and a column factor on `SORTED_TABLES`."""
+    out: Tree = {}
+    if num_slices > 1 or ev_parallelism > 1:
+        out["mesh"] = {"num_slices": num_slices, "ev_parallelism": ev_parallelism}
+    kw: Tree = {}
+    if comm_strategy != "uniform":
+        kw["comm_strategy"] = comm_strategy
+    if column_factor > 1:
+        kw["column_factors"] = {t: column_factor for t in SORTED_TABLES}
+    if kw:
+        out["kwargs"] = kw
+    return out
+
+
+def full_width_config(model: str, staged: bool, batch: int = 16384, dynamic: bool = False,
+                      lay: Tree = None) -> Tree:
     """A full-width model of `tools/flagship.py` over W ranks as a
     `train_model` config: "dlrm_dcnv2" (float32), "bench" (with
-    `bench_settings()`) or "dlrm_ftrl" (`dynamic`: exact dynamic tables).
+    `bench_settings()`) or "dlrm_ftrl" (`dynamic`: exact dynamic tables),
+    on the mesh and with the settings of `lay` (`layout`).
     6 steps and a 20-batch eval; 4 and 4 where the collectives are staged
     through the host (`staged`), whose times are then no speed numbers.
     Scalars only (no tables or parameters), replicas as SHA-256 digests."""
     from . import flagship
 
     steps, eval_batches = (4, 4) if staged else (6, 20)
-    kw = dict(batchsize=batch, synthetic_batches=steps, max_eval_batches=eval_batches, metrics_spec=METRICS)
+    lay = lay or {}
+    kw = dict(batchsize=batch, synthetic_batches=steps, max_eval_batches=eval_batches, metrics_spec=METRICS,
+              **lay.get("kwargs", {}))
     if model == "dlrm_dcnv2":
         builder, kw = "build_dlrm_dcnv2", dict(kw, vocab_cap=2_000_000, optimizer="rowwise_adagrad")
     elif model == "bench":
@@ -702,7 +784,8 @@ def full_width_config(model: str, staged: bool, batch: int = 16384, dynamic: boo
         builder, kw = "build_dlrm_ftrl", dict(kw, dynamic=dynamic)
     else:
         raise ValueError(f"unknown model {model!r}")
-    return dict(builder=builder, steps=steps, eval=True, export=False, digest=True, kwargs=kw)
+    return dict(builder=builder, steps=steps, eval=True, export=False, digest=True, kwargs=kw,
+                **({"mesh": lay["mesh"]} if "mesh" in lay else {}))
 
 
 def path_summary(ranks: List[Tree], cfg: Tree) -> Tree:
@@ -734,6 +817,7 @@ def path_summary(ranks: List[Tree], cfg: Tree) -> Tree:
         replicated_arrays=len(r0["replicated"]), fwd_partition=cfg["kwargs"].get("fwd_partition", True),
         forward=r0.get("forward"),
         replicas_equal=all(r["replicated"] == r0["replicated"] for r in ranks[1:]),
+        shard_replicas_equal=_shards_equal(ranks),
         finite=all(bool(np.isfinite(r["losses"]).all()) for r in ranks),
     )
     if "store_fill" in r0:
@@ -742,8 +826,18 @@ def path_summary(ranks: List[Tree], cfg: Tree) -> Tree:
     return out
 
 
+def _shards_equal(ranks: List[Tree]) -> bool:
+    """Whether the ranks that hold a shard (`shard_replicas`) hold the same
+    bits of it."""
+    shards: Dict[str, List] = {}
+    for r in ranks:
+        for k, v in r.get("shards", {}).items():
+            shards.setdefault(k, []).append(v)
+    return all(all(np.array_equal(v, vs[0]) for v in vs[1:]) for vs in shards.values())
+
+
 def parity_runs(world: int, backend: str, device: str = "cuda", config: Tree = None,
-                eval_carried: bool = False) -> tuple:
+                eval_carried: bool = False, hosts: int = 1) -> tuple:
     """`config` (default `TINY_PARITY`) trained by `train_model` in this
     process on one device and on `world` spawned ranks, both from one state
     carried by table (this process's model's initial state,
@@ -764,7 +858,7 @@ def parity_runs(world: int, backend: str, device: str = "cuda", config: Tree = N
     inputs = {"config": json.dumps(dict(cfg, eval_state_shards=1)), "table_state": state}
     if eval_carried:
         inputs["eval_state"] = one.pop("final_state")
-    return one, run(train_model, world, inputs, backend=backend, device=device)
+    return one, run(train_model, world, inputs, backend=backend, device=device, hosts=hosts)
 
 
 def parity_report(one: Tree, ranks: List[Tree], rtol: float = 1e-4, atol: float = 1e-5) -> Tree:
@@ -786,10 +880,6 @@ def parity_report(one: Tree, ranks: List[Tree], rtol: float = 1e-4, atol: float 
                 worst = max(worst, excess(res[part][k], want))
     r0 = ranks[0]["replicated"]
     per_step = np.max([np.abs(r["losses"] - one["losses"]) / np.abs(one["losses"]) for r in ranks], axis=0)
-    shards: Dict[str, List] = {}
-    for r in ranks:
-        for k, v in r.get("shards", {}).items():
-            shards.setdefault(k, []).append(v)
     out = dict(
         loss_rel_diffs=per_step.tolist(), loss_rel_diff=float(per_step.max()),
         worst_excess=worst,
@@ -797,8 +887,8 @@ def parity_report(one: Tree, ranks: List[Tree], rtol: float = 1e-4, atol: float 
         replicas_equal=all(set(r["replicated"]) == set(r0)
                            and all(np.array_equal(r["replicated"][k], v) for k, v in r0.items())
                            for r in ranks[1:]),
-        shard_replicas=len(shards),
-        shard_replicas_equal=all(all(np.array_equal(v, vs[0]) for v in vs[1:]) for vs in shards.values()),
+        shard_replicas=len({k for r in ranks for k in r.get("shards", {})}),
+        shard_replicas_equal=_shards_equal(ranks),
     )
     if "eval_carried" in ranks[0]:
         ev = one["eval"]
@@ -808,6 +898,56 @@ def parity_report(one: Tree, ranks: List[Tree], rtol: float = 1e-4, atol: float 
                 abs(r["eval_carried"]["average_loss"] - ev["average_loss"]) / abs(ev["average_loss"])
                 for r in ranks)
     return out
+
+
+# the tiny model of the mesh checks: the sorted route and no one-hot group,
+# so that no update sums with atomics and runs compare bit for bit
+TINY_SORTED = dict(TINY_PARITY, eval=False, export=True, batch_out=True, digest=True,
+                   kwargs=dict(TINY_PARITY["kwargs"], onehot_vocab=0))
+# 1.0 on one rank and 2^-9 on the three others, one placement a column
+SUM_ORDERS = np.where(np.eye(4, dtype=bool), 1.0, 2.0**-9).astype(np.float32)
+
+
+def mesh_checks(rm, inputs: Tree) -> Tree:
+    """Rank function of the mesh checks over 4 ranks: the bf16 all_reduce
+    and reduce_scatter of `SUM_ORDERS` (this rank's row), then `train_model`
+    of each config in inputs["configs"] (JSON {name: config}) from
+    inputs["table_state"]."""
+    from ..core import mesh
+
+    x = torch.from_numpy(SUM_ORDERS[rm.rank]).to(rm.device, torch.bfloat16)
+    out: Tree = {"bf16_reduce_scatter": mesh.reduce_scatter(x.clone()).float().cpu().numpy(),
+                 "bf16_all_reduce": mesh.all_reduce(x).float().cpu().numpy()}
+    for name, cfg in json.loads(inputs["configs"]).items():
+        out[name] = train_model(rm, {"config": json.dumps(cfg), "table_state": inputs["table_state"]})
+    return out
+
+
+def mesh_parity_runs(backend: str, device: str = "cuda") -> Tree:
+    """The meshes on the tiny model (`TINY_SORTED`), every run from one
+    carried state and on the global batches of ranks on 2 hosts: one device
+    fed them (`host_batches`); 4 ranks started as 2 hosts of 2, flat, as the
+    hierarchical (2, 2) mesh with Hierarchical communication and as the
+    ("data", "ev") (2, 2) mesh (`mesh_checks`, with the bf16 sums); 2 ranks
+    as 2 hosts of 1, flat. Returns the one device's result, the 4 ranks'
+    and the 2 ranks'."""
+    from ..core.mesh import ResourceManager
+    from . import flagship
+    from .carry import export_table_state
+
+    rm = ResourceManager.create(device=device)
+    model = flagship.build_tiny_dlrm(rm, **TINY_SORTED["kwargs"])
+    state = export_table_state(model)
+    model._close_readers()
+    one = train_model(rm, {"config": json.dumps(dict(TINY_SORTED, host_batches=2)), "table_state": state})
+    configs = {"flat": TINY_SORTED, "hier": dict(TINY_SORTED, mesh={"num_slices": 2},
+                                                 kwargs=dict(TINY_SORTED["kwargs"], comm_strategy="hierarchical")),
+               "ev": dict(TINY_SORTED, mesh={"ev_parallelism": 2})}
+    four = run(mesh_checks, 4, {"configs": json.dumps(configs), "table_state": state}, backend=backend,
+               device=device, hosts=2)
+    two = run(train_model, 2, {"config": json.dumps(TINY_SORTED), "table_state": state}, backend=backend,
+              device=device, hosts=2)
+    return {"one": one, "four": four, "two": two}
 
 
 # what `--fwd-partition-ab` prints of each run
@@ -833,22 +973,36 @@ def main() -> None:
     ap.add_argument("--fwd-partition-ab", action="store_true",
                     help="a full-width model with the forward off, on, on, off; one JSON line a run")
     ap.add_argument("--out", default=None, help="with --fwd-partition-ab, a directory for each run's whole summary")
+    ap.add_argument("--num-slices", type=int, default=1, help="the ranks as a (dcn, ici) mesh of this many slices")
+    ap.add_argument("--ev-parallelism", type=int, default=1, help="the ranks as a (data, ev) mesh of this ev size")
+    ap.add_argument("--comm-strategy", choices=("uniform", "hierarchical"), default="uniform",
+                    help="hierarchical: the two-level exchange on a (dcn, ici) mesh")
+    ap.add_argument("--column-factor", type=int, default=1,
+                    help="split the f32 flagship's sorted-route tables (0, 9, 10, 19, 21, 22) column-wise")
+    ap.add_argument("--hosts", type=int, default=1,
+                    help="start the ranks as on this many hosts (LOCAL_WORLD_SIZE = world / hosts)")
     args = ap.parse_args()
     if args.dynamic and args.model != "dlrm_ftrl":
         ap.error("--dynamic is a dlrm_ftrl setting")
     backend = args.backend or default_backend(args.world, args.device)
-    head = {"world": args.world, "backend": backend, "model": args.model}
+    lay = layout(args.num_slices, args.ev_parallelism, args.comm_strategy, args.column_factor)
+    head = {"world": args.world, "backend": backend, "model": args.model, "hosts": args.hosts,
+            "num_slices": args.num_slices, "ev_parallelism": args.ev_parallelism,
+            "comm_strategy": args.comm_strategy, "column_factor": args.column_factor}
     if args.model.startswith("tiny"):
-        one, ranks = parity_runs(args.world, backend, args.device, tiny_config(args.model, args.steps))
+        cfg = tiny_config(args.model, args.steps)
+        cfg = dict(cfg, kwargs=dict(cfg["kwargs"], **lay.get("kwargs", {})), **{k: v for k, v in lay.items() if k == "mesh"})
+        one, ranks = parity_runs(args.world, backend, args.device, cfg, hosts=args.hosts)
         print(json.dumps({**head, "losses": ranks[0]["losses"].tolist(), "eval": ranks[0]["eval"],
                           **parity_report(one, ranks)}))
         return
     for i, partition in enumerate((0, 1, 1, 0) if args.fwd_partition_ab else (args.fwd_partition,)):
-        cfg = full_width_config(args.model, backend == "gloo" and args.device == "cuda", dynamic=args.dynamic)
+        cfg = full_width_config(args.model, backend == "gloo" and args.device == "cuda", dynamic=args.dynamic,
+                                lay=lay)
         cfg["kwargs"]["fwd_partition"] = bool(partition)
         cfg["time_forward"] = args.time_forward or args.fwd_partition_ab
         ranks = run(train_model, args.world, {"config": json.dumps(cfg)}, backend=backend, device=args.device,
-                    timeout=1800.0)
+                    timeout=1800.0, hosts=args.hosts)
         rec = {**head, "dynamic": args.dynamic, "staged_through_host": backend == "gloo", **path_summary(ranks, cfg)}
         if args.out:
             os.makedirs(args.out, exist_ok=True)

@@ -252,45 +252,58 @@ def _tiny(rm, **kw):
 
 
 DEFERRED = {
-    "hierarchical_mesh": ("1g", lambda: ResourceManager.create(device="cpu", num_slices=2)),
-    "hierarchical_comm": ("1g", lambda: hugectr.EmbeddingCollectionConfig(comm_strategy="hierarchical")),
-    "multi_host_reader": ("1h", lambda: _tiny(_rm(2, local=1))),
+    "weighted_lookup": ("6", lambda: hugectr.EmbeddingCollectionConfig().embedding_lookup(
+        hugectr.EmbeddingTableConfig("t", 10, 4), "d", "e", "sum", sp_weight_name="w")),
+    "eviction": ("5", lambda: _tiny(_rm(2)).ec.evict({}, {}, "0", None)),
+    "capacity_growth": ("5", lambda: _tiny(_rm(2)).ec.grow_dynamic_capacity({}, {}, "0", 8)),
 }
 
 
 @pytest.mark.parametrize("what", list(DEFERRED))
 def test_deferred_over_ranks_raise(what):
-    """What the port does not do over more than one rank yet raises and
-    names its ROADMAP item."""
+    """What the port does not do yet raises and names its ROADMAP item,
+    over two ranks as over one (the hierarchical mesh, its communication
+    and the multi-host reader, which raised here before, are ported:
+    tests/test_torch_meshes.py)."""
     item, fn = DEFERRED[what]
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
         fn()
 
 
-# JAX `Solver` settings that change what the JAX Model builds and that the
-# port does not port yet: each raises, naming its ROADMAP item
+def _model_of(**kw):
+    """A Model of `CreateSolver(**kw)` on the CPU: its ResourceManager comes
+    from the solver's mesh settings (model.py:162-166)."""
+    return hugectr.Model(hugectr.CreateSolver(batchsize=64, **kw), None, hugectr.CreateOptimizer(), device="cpu")
+
+
+# JAX `Solver` settings that the port cannot honour: the JAX package's own
+# mesh errors (hugectr_tpu/core/mesh.py:70-88; over one rank the Model's
+# ResourceManager raises them), num_devices other than the group's, and the
+# one setting the port refuses on purpose, naming its ROADMAP queue
 UNPORTED_SETTINGS = {
-    "num_slices": (dict(num_slices=2), NotImplementedError, "ROADMAP Queue 1 item 1g"),
-    "ev_parallelism": (dict(ev_parallelism=2), NotImplementedError, "ROADMAP Queue 1 item 1i"),
-    "group_rows": (dict(group_rows=4096), NotImplementedError, "ROADMAP Queue 1 item 8"),
+    "num_slices": (dict(num_slices=2), ValueError, "num_devices=1 not divisible by num_slices=2"),
+    "ev_parallelism": (dict(ev_parallelism=2), ValueError, "num_devices=1 not divisible by ev_parallelism=2"),
+    "both_meshes": (dict(num_slices=2, ev_parallelism=2), ValueError, "ev_parallelism and num_slices are exclusive"),
     "num_devices": (dict(num_devices=4), ValueError, "process group has 1 rank"),
     "segsum_scan_bf16": (dict(segsum_mode="scan", embedding_vec_dtype="bfloat16"), NotImplementedError,
                          "ROADMAP Queue 3"),
 }
 ACCEPTED_DEFAULTS = {"num_slices": dict(num_slices=1), "ev_parallelism": dict(ev_parallelism=1),
-                     "group_rows": dict(group_rows=None), "num_devices": dict(num_devices=0),
+                     "both_meshes": dict(num_slices=1, ev_parallelism=1, group_rows=4096),
+                     "num_devices": dict(num_devices=0),
                      "segsum_scan_bf16": dict(segsum_mode="scan", embedding_vec_dtype="float32")}
 
 
 @pytest.mark.parametrize("setting", list(UNPORTED_SETTINGS))
 def test_create_solver_refuses_unported_settings(setting):
-    """`CreateSolver` raises for a setting it cannot honour, where it used
-    to drop it with a warning (ROADMAP Queue 3); at its default (and
-    "scan" with float32 tables) the setting is accepted."""
+    """`CreateSolver` (or the Model it configures, for a mesh that one rank
+    cannot form) raises for a setting it cannot honour, where it used to
+    drop it with a warning (ROADMAP Queue 3); at its default (and "scan"
+    with float32 tables) the setting is accepted and the Model builds."""
     kw, err, match = UNPORTED_SETTINGS[setting]
     with pytest.raises(err, match=match):
-        hugectr.CreateSolver(batchsize=64, **kw)
-    assert hugectr.CreateSolver(batchsize=64, **ACCEPTED_DEFAULTS[setting]).batchsize == 64
+        _model_of(**kw)
+    assert _model_of(**ACCEPTED_DEFAULTS[setting]).solver.batchsize == 64
 
 
 def test_create_solver_accepts_the_inert_fields_quietly(monkeypatch):
@@ -308,7 +321,7 @@ def test_create_solver_accepts_the_inert_fields_quietly(monkeypatch):
     s = hugectr.CreateSolver(mp_capacity_factor=1.5, num_devices=1, num_slices=1, ev_parallelism=1, **inert)
     assert warned == [] and s.mp_capacity_factor == 1.5
     missing = {f.name for f in dc.fields(JSolver)} - {f.name for f in dc.fields(hugectr.Solver)}
-    assert missing == set(hugectr.INERT_SOLVER_FIELDS) | {"num_devices", "num_slices", "ev_parallelism", "group_rows"}
+    assert missing == set(hugectr.INERT_SOLVER_FIELDS) | {"num_devices"}
     hugectr.CreateSolver(no_such_setting=1)
     assert len(warned) == 1 and "no_such_setting" in warned[0]
 

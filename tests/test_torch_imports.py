@@ -152,3 +152,18 @@ def test_module_exports_reference_names():
     ebc.shard(shard_matrix=[["t"]], shard_strategy=[("mp", ["t"])],
               compression_strategy={hugectr.CompressionStrategy.Unique: ["t"]})
     assert ebc.shard_matrix == [["t"]]
+
+
+def test_mesh_settings_are_accepted_and_kept():
+    """The JAX Solver's mesh settings and `group_rows`, Hierarchical
+    communication and column factors are fields the port keeps (they
+    raised until the meshes were ported)."""
+    import hugectr_tpu_torch as hugectr
+
+    s = hugectr.CreateSolver(num_slices=2, group_rows=4096)
+    assert (s.num_slices, s.ev_parallelism, s.group_rows) == (2, 1, 4096)
+    assert hugectr.CreateSolver(ev_parallelism=2).ev_parallelism == 2
+    ebc = hugectr.EmbeddingCollectionConfig(comm_strategy="hierarchical")
+    assert ebc.comm_strategy == hugectr.CommunicationStrategy.Hierarchical
+    ebc.shard(shard_matrix=[["t"]], shard_strategy=[("mp", ["t"])], column_factors={"t": 2})
+    assert ebc.sharding_plan().column_factors == {"t": 2}

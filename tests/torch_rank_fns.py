@@ -104,8 +104,7 @@ def _bf16(case):
 # its default forward (the owner-partitioned one) unless a case says:
 # * "bf16_base", "bf16_partial", "bf16_dynamic": those cases with bf16
 #   tables and state; "bf16_base_mp" with every table model-parallel (no
-#   one-hot group, whose bf16 gradient sum over W > 2 ranks rounds
-#   otherwise than JAX's psum: tests/test_torch_exchange.py);
+#   one-hot group);
 # * "cap": the table of the JAX package's test_mp_capacity_slicing_matches_uncapped
 #   (tests/test_embedding_collection.py:240-272) on the sorted route with
 #   capacity factor 1.25, which cuts a sorted list of K keys at
@@ -191,10 +190,11 @@ def ec_keys(rng, b, case="base"):
     return feats
 
 
-def ec_inputs(optimizer, b, steps, lr, case="base"):
+def ec_inputs(optimizer, b, steps, lr, case="base", **layout):
     """Inputs of `collection_steps`: the static tables, a global batch of
     `b` keys and each step's cotangents, made from a seed of the optimizer
-    and the case."""
+    and the case; `layout` may give the ranks' `mesh` ({"num_slices": d}
+    or {"ev_parallelism": e}) and the collection's `comm` strategy."""
     seed = CASES[case].get("seed", {"base": 0, "split": 31, "dynamic": 37, "dynamic_sorted": 41,
                                     "partial": 43}.get(case, 47))
     rng = np.random.default_rng(seed + (23 if optimizer == "ftrl" else 29))
@@ -204,7 +204,7 @@ def ec_inputs(optimizer, b, steps, lr, case="base"):
     d = {str(s): {top: rng.normal(size=(b, 8 * (h if c == "concat" else 1))).astype(np.float32)
                   for _t, _v, _f, top, c, h in spec}
          for s in range(1, steps + 1)}
-    cfg = dict(optimizer=optimizer, steps=steps, lr=lr, case=case)
+    cfg = dict(optimizer=optimizer, steps=steps, lr=lr, case=case, **layout)
     return {"config": json.dumps(cfg), "tables": tables, "keys": ec_keys(rng, b, case), "d": d}
 
 
@@ -243,15 +243,16 @@ def collection_steps(rm, inputs):
     cfg = json.loads(inputs["config"])
     case = CASES[cfg.get("case", "base")]
     eng = case["engine"]
+    rm = mesh.ResourceManager.create(device=rm.device, **cfg.get("mesh", {}))
     plan = tplan.compile_plan(
         ec_lookups(tplan, Combiner_t, cfg.get("case", "base")), tplan.ShardingPlan(case["strategy"]),
-        rm.num_devices, case["shard_counts"], onehot_vocab=eng["onehot_vocab"], split_vocab=eng["split_vocab"],
-        hot_rows=eng.get("hot_rows", 0), superhot_rows=eng.get("superhot_rows", 0),
+        rm.data_parallel_size, case["shard_counts"], onehot_vocab=eng["onehot_vocab"],
+        split_vocab=eng["split_vocab"], hot_rows=eng.get("hot_rows", 0), superhot_rows=eng.get("superhot_rows", 0),
     )
     opt = OptParams(Optimizer_t(cfg["optimizer"]), **OPT_HYPER)
     dt = getattr(torch, case["dtype"])
     ec = EmbeddingCollection(plan, rm, opt, dtype=dt, state_dtype=dt, dense_update_rows=eng["dense_update_rows"],
-                             dense_key_ratio=eng["dense_key_ratio"],
+                             dense_key_ratio=eng["dense_key_ratio"], comm_strategy=cfg.get("comm", "uniform"),
                              **{k: v for k, v in eng.items() if k in EXCHANGE_SETTINGS})
     tables = ec.init(rm.generator(0))
     for g in plan.groups:
@@ -260,7 +261,7 @@ def collection_steps(rm, inputs):
     for name, values in inputs.get("tables", {}).items():
         ec.import_table(tables, name, values)
     state = ec.init_optimizer(tables)
-    w, r = rm.num_devices, rm.rank
+    w, r = rm.data_parallel_size, rm.data_index
     feats = {f: torch.from_numpy(block(k, r, w)).to(rm.device) for f, k in inputs["keys"].items()}
     out = {"fwd": {}}
     mesh.COLLECTIVE_CALLS.clear()
@@ -285,9 +286,11 @@ def collection_cases(rm, inputs):
 
 
 def bf16_sum(rm, inputs):
-    """`mesh.all_reduce` of this rank's row of inputs["x"] in bfloat16."""
+    """`mesh.all_reduce` of this rank's row of inputs["x"] in bfloat16, and
+    its `mesh.reduce_scatter` (rank r keeps column r)."""
     x = torch.from_numpy(inputs["x"][rm.rank]).to(torch.bfloat16)
-    return {"y": mesh.all_reduce(x).float().numpy()}
+    scattered = mesh.reduce_scatter(x.clone())
+    return {"y": mesh.all_reduce(x).float().numpy(), "scattered": scattered.float().numpy()}
 
 
 def several(rm, inputs):
