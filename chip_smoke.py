@@ -174,6 +174,30 @@ Each phase prints one JSON line with its own seconds:
    "hybrid_parity"): the tiny model from a Raw file on 2 ranks against one
    card.
 
+13. Weighted lookups, dynamic-table upkeep, the host tiers and SOK:
+   the kernel phase ends with each kernel's weighted case at the weighted
+   configuration's shapes (`weighted_kernel_checks`: the superhot tier's
+   weighted one-hot forward and backward, a privatised weighted backward,
+   segscan over per-key rows at K = 16,384 x 20, the weighted ordered pool
+   at rank 0's shapes, bitwise; a weighted row whose weights cancel is
+   touched). "weighted_parity" (after "samples_parity"): a tiny weighted
+   collection on the card against the CPU, and 2 ranks against one card
+   (the weighted ordered pool, the dense exchange). "weighted_path" (after
+   "ftrl_dynamic_path"): benchmarks/weighted_bench.py's table at full width,
+   untiered and tiered, 6 steps each: ms/step, ex/s, routes, launches (the
+   weighted one-hot kernels once a step each). "upkeep_path": the dynamic
+   DLRM-FTRL, 3 steps, `evict`, `grow_dynamic_capacity` of the two tables
+   that dropped most to 4x (every carried row, state and key bitwise), 3
+   steps. "host_tier_path": `HostSpillTier` at
+   benchmarks/host_spill_bench.py's settings (ex/s with and without the
+   tier, rows staged a step, the master's size) and one
+   `EmbeddingTrainingCache` pass. "sok_path": a `sok.LookupEngine` over
+   DLRM-FTRL's 26 tables, 3 `OptimizerWrapper` steps, its lookup bitwise a
+   collection's, `dump` / `load` bitwise. "hybrid_weighted_path" (after
+   "hybrid_bench_path"): the tiered weighted table over W ranks, the
+   weighted ordered pool on every rank, bitwise against its plain version
+   on each rank's shapes.
+
 Then a "kernels" JSON line (per kernel: source, the TPU kernel it replaces,
 main-path launches, error, ms, device_ms, plain_ms, bound_ms, bound_by,
 library_ms, for the float32 flagship case with the most device time; for
@@ -187,8 +211,10 @@ the per-rank bench case with the most device time, each sample graph's
 launches and the sample-width case with the most device time, and for
 segscan its E 64 case (`column_case`); and the ordered pool: its
 launches on rank 0 of the hybrid path, steps and eval, beside its f32,
-bf16 and E 64 cases), a line with the card's name and
-power limit, and last
+bf16 and E 64 cases; and each kernel's `weighted_case`: its bf16
+weighted case with the most device time and its launches on
+`weighted_path`, the ordered pool's on rank 0 of `hybrid_weighted_path`),
+a line with the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that line;
 so does a machine without CUDA.
 """
@@ -372,6 +398,7 @@ def kernel_checks(torch, results):
     ftrl_shape_checks(torch, np, oh, ss, dev, results)
     ordered_pool_checks(torch, np, dev, results)
     column_kernel_checks(torch, np, dev, results)
+    weighted_kernel_checks(torch, np, dev, results)
 
 
 def ftrl_shape_checks(torch, np, oh, ss, dev, results):
@@ -880,7 +907,7 @@ def ordered_pool_checks(torch, np, dev, results):
             for lm in g.lookups:
                 raw.setdefault(lm.bottom_name, torch.as_tensor(
                     power_law(rng, raw_vocab(plan, lm), (B, lm.hotness)).astype(np.int32), device=dev))
-            srows, offsets = ec._pool_segments(gname, ec._group_keys(g, raw), g.total_local_rows)
+            srows, offsets, _w = ec._pool_segments(gname, ec._group_keys(g, raw), g.total_local_rows)
             n = offsets.numel() - 1
             table = torch.empty((g.total_local_rows, E), device=dev).normal_(generator=gen).to(dt)
             call = lambda: op.ordered_pool(table, srows, offsets)  # noqa: E731
@@ -975,7 +1002,7 @@ def column_kernel_checks(torch, np, dev, results):
     table = torch.empty((g.total_local_rows, e), device=dev).normal_(generator=gen)
     # the ordered pool of the owned prefix
     t0 = time.perf_counter()
-    srows, offsets = ec._pool_segments(g.name, keys, g.total_local_rows)
+    srows, offsets, _w = ec._pool_segments(g.name, keys, g.total_local_rows)
     n = offsets.numel() - 1
     call = lambda: op.ordered_pool(table, srows, offsets)  # noqa: E731
     got, want = call(), op.ordered_pool_plain(table, srows, offsets)
@@ -2610,6 +2637,667 @@ def hybrid_snapshot(torch):
         raise AssertionError(f"hybrid_snapshot: {rec}")
 
 
+WEIGHTED_SOURCE = "benchmarks/weighted_bench.py:30-37"
+
+
+def weighted_kernel_checks(torch, np, dev, results):
+    """Each kernel's weighted case (per-key weights, a weighted lookup of
+    the JAX package's sp_weight_name) against its plain version at the
+    shapes `weighted_path` and `hybrid_weighted_path` give it
+    (`tools/weighted.py`: the 2,000,000-row table, hotness 20, batch
+    16,384, weights uniform in [0, 1)), f32 and bf16, with the bound, the
+    plain version's time and one library call: the grouped forward of the
+    superhot tier (V 1,024, the keys' window [0, 1,024)) beside
+    `embedding_bag(per_sample_weights=)`; the backward of that tier (global
+    route) and of a privatised shape (V 108, h 40) beside `index_add_` of the
+    w-scaled cotangents (counts: the sums of |w|, touched rows exact);
+    segscan over the untiered sorted route's per-key rows (K = 16,384 x 20);
+    and the ordered pool of rank 0's shapes of the tiered table over the
+    hybrid phases' W ranks (bitwise) beside `embedding_bag(per_sample_weights=)`
+    over its owned rows. Then a weighted row whose weights cancel (+1, -1 in
+    two samples) is touched and its gradient is exact."""
+    import torch.nn.functional as F
+
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.core.types import Optimizer_t
+    from hugectr_tpu_torch.embedding.collection import EmbeddingCollection, onehot_fwd_lookups
+    from hugectr_tpu_torch.ops import onehot_matmul as oh
+    from hugectr_tpu_torch.ops import ordered_pool as op
+    from hugectr_tpu_torch.ops import segscan as ss
+    from hugectr_tpu_torch.optim.params import OptParams
+    from hugectr_tpu_torch.tools import weighted as wt
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+
+    keys_np, w_np, d_np = wt.weighted_batch(0)
+    keys = torch.as_tensor(keys_np, device=dev)
+    w = torch.as_tensor(w_np, device=dev)
+    d32 = torch.as_tensor(d_np, device=dev)
+    h = keys.shape[1]
+    plan = wt.weighted_plan(True)
+    g = next(x for x in plan.groups if x.compute_kind == "onehot")
+    lks = onehot_fwd_lookups(g)
+    (lk,) = lks
+    gen = torch.Generator(device=dev).manual_seed(23)
+    in_win = (keys >= lk.key_lo) & (keys < lk.key_hi)
+    k_rel = torch.where(in_win, keys, -1).to(torch.int32).contiguous()
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        isz = 2 if dt == torch.bfloat16 else 4
+        # the superhot tier's weighted forward: one launch for the group
+        t0 = time.perf_counter()
+        table = torch.empty((g.total_local_rows, E), device=dev).normal_(generator=gen).to(dt)
+        call = lambda: oh.onehot_fwd_group([keys], lks, table, g.out_width, [w])  # noqa: E731
+        got = call()
+        want = oh.onehot_fwd_group_plain([keys], lks, table, g.out_width, [w])
+        scale = oh.onehot_fwd_group_plain([keys], lks, table.float().abs(), g.out_width, [w.abs()])
+        uniq = int(torch.unique(keys[in_win]).numel())
+        valid = int(in_win.sum())
+        b_ms, b_by = bound(keys.numel() * 8 + uniq * E * isz + B * E * isz, 2 * valid * E)
+        dms, per_call = device_ms(call, KERNEL_NAMES["onehot_fwd"])
+        kl, wl = torch.where(in_win, keys, 0).long(), torch.where(in_win, w, 0.0).to(dt)
+        lib = lambda: F.embedding_bag(kl, table, mode="sum", per_sample_weights=wl)  # noqa: E731
+        rec = dict(kernel="onehot_fwd", case="weighted_superhot_V1024_h20", dtype=dname, B=B, V=lk.vocab, h=h, E=E,
+                   weighted=True, route=oh.fwd_route(lk.vocab, h, E, dev, weighted=True), in_window=valid,
+                   scaled_err=scaled_err(got, want, scale), max_abs_err=float((got.float() - want.float()).abs().max()),
+                   tol=TOL[dname], ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
+                   plain_ms=time_ms(lambda: oh.onehot_fwd_group_plain([keys], lks, table, g.out_width, [w]),
+                                    samples=5, inner=1),
+                   library_ms=time_ms(lib),
+                   library="torch.nn.functional.embedding_bag(mode='sum', per_sample_weights=) of the window's keys",
+                   bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0)
+        results.append(rec)
+        emit(rec)
+        if not (rec["scaled_err"] <= TOL[dname] and per_call in (1, None)):
+            raise AssertionError(f"weighted one-hot forward disagrees with its plain version: {rec}")
+        # the weighted backward: the superhot tier (global atomics) and a privatised shape
+        rng = np.random.default_rng(29)
+        k108 = torch.as_tensor(power_law(rng, 108, (B, 40)).astype(np.int32), device=dev)
+        w108 = torch.as_tensor(rng.standard_normal((B, 40), dtype=np.float32), device=dev)
+        for case, kk, ww, v in (("weighted_superhot_V1024_h20", k_rel, w, lk.vocab),
+                                ("weighted_V108_h40", k108, w108, 108)):
+            t0 = time.perf_counter()
+            d = d32.to(dt)
+            call = lambda: oh.onehot_matmul_bwd(kk, d, v, dt, weights=ww)  # noqa: E731
+            grad, cnt = call()
+            want_g, want_c = oh.onehot_matmul_bwd_plain(kk, d, v, dt, weights=ww)
+            scale_g, _ = oh.onehot_matmul_bwd_plain(kk, d.float().abs(), v, torch.float32, weights=ww.abs())
+            torch.cuda.synchronize()
+            ok_keys = (kk >= 0) & (kk < v)
+            flat = kk[ok_keys].long()
+            rows = (d.float().repeat_interleave(kk.shape[1], dim=0) * ww.reshape(-1, 1))[ok_keys.reshape(-1)].to(dt)
+            lib = lambda: torch.zeros((v, E), dtype=dt, device=dev).index_add_(0, flat, rows)  # noqa: E731
+            b_ms, b_by = bound(kk.numel() * 8 + B * E * isz + v * E * 4 + v * 4, 2 * int(ok_keys.sum()) * E)
+            dms, per_call = device_ms(call, KERNEL_NAMES["onehot_bwd"])
+            cnt_err = float(((cnt - want_c).abs() / want_c.clamp(min=1e-30)).max())
+            rec2 = dict(kernel="onehot_bwd", case=case, dtype=dname, B=B, V=v, h=int(kk.shape[1]), E=E, weighted=True,
+                        route=oh.bwd_route(B, int(kk.shape[1]), v, E, dev),
+                        scaled_err=scaled_err(grad, want_g, scale_g),
+                        max_abs_err=float((grad.float() - want_g.float()).abs().max()),
+                        touched_exact=bool(torch.equal(cnt > 0, want_c > 0)), counts_rel_err=cnt_err, tol=TOL[dname],
+                        ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
+                        plain_ms=time_ms(lambda: oh.onehot_matmul_bwd_plain(kk, d, v, dt, weights=ww)),
+                        library_ms=time_ms(lib),
+                        library="Tensor.index_add_ of the w-scaled cotangent rows (grad only)",
+                        bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0)
+            results.append(rec2)
+            emit(rec2)
+            if not (rec2["scaled_err"] <= TOL[dname] and rec2["touched_exact"] and cnt_err <= TOL["float32"]):
+                raise AssertionError(f"weighted one-hot backward disagrees with its plain version: {rec2}")
+        # segscan over the untiered sorted route's per-key rows (K = B x 20)
+        t0 = time.perf_counter()
+        srt, perm = torch.sort(keys.reshape(-1).long(), stable=True)
+        src = torch.arange(B, device=dev).repeat_interleave(h)[perm]
+        vals = (d32[src] * w.reshape(-1)[perm].unsqueeze(1)).to(dt).contiguous()
+        heads = torch.ones_like(srt, dtype=torch.bool)
+        heads[1:] = srt[1:] != srt[:-1]
+        k = int(srt.numel())
+        call = lambda: ss.segmented_sum_sorted(vals, heads)  # noqa: E731
+        got = call()
+        want = ss.segmented_sum_sorted_plain(vals, heads)
+        scale = ss.segmented_sum_sorted_plain(vals.float().abs(), heads)
+        b_ms, b_by = bound(k * E * isz + k * E * 4 + k, k * E)
+        dms, per_call = device_ms(call, KERNEL_NAMES["segscan"])
+        rec3 = dict(kernel="segscan", case=f"weighted_K{k}", dtype=dname, K=k, E=E, weighted=True,
+                    segments=int(heads.sum()), scaled_err=scaled_err(got, want, scale),
+                    max_abs_err=float((got.float() - want.float()).abs().max()), tol=TOL[dname],
+                    bitwise_repeat=bool(torch.equal(call(), got)), ms=time_ms(call), device_ms=dms,
+                    device_launches_per_call=per_call,
+                    plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(vals, heads), samples=5, inner=1, warmup=1),
+                    library_ms=None, library="none: no single PyTorch call computes a segmented scan",
+                    bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0)
+        results.append(rec3)
+        emit(rec3)
+        if not (rec3["scaled_err"] <= TOL[dname] and rec3["bitwise_repeat"]):
+            raise AssertionError(f"segscan disagrees on the weighted per-key rows: {rec3}")
+    # the weighted ordered pool at rank 0's shapes of hybrid_weighted_path (bf16, as the bench)
+    world = hybrid_world(torch)
+    ec = EmbeddingCollection(wt.weighted_plan(True, world), ResourceManager(dev, 0, world),
+                             OptParams(Optimizer_t.RowWiseAdaGrad), dtype=torch.bfloat16)
+    for gp in ec.plan.groups:
+        if gp.compute_kind != "rowop":
+            continue
+        t0 = time.perf_counter()
+        gk = ec._group_keys(gp, {"f": keys})
+        gw = ec._group_weights(gp, {"w": w}, gk)
+        srows, offsets, sw = ec._pool_segments(gp.name, gk, gp.total_local_rows, None, gw)
+        n = offsets.numel() - 1
+        table = torch.empty((gp.total_local_rows, E), device=dev).normal_(generator=gen).to(torch.bfloat16)
+        call = lambda: op.ordered_pool(table, srows, offsets, sw)  # noqa: E731
+        got = call()
+        want = op.ordered_pool_plain(table, srows, offsets, sw)
+        torch.cuda.synchronize()
+        pooled = srows < gp.total_local_rows
+        lens = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+            0, torch.repeat_interleave(torch.arange(n, device=dev), offsets.diff()), pooled.long())
+        owned = srows[pooled]
+        obounds = torch.cat([lens.new_zeros(1), lens.cumsum(0)])
+        uniq = int(torch.unique(owned).numel())
+        ids_read = int(torch.minimum(lens + 1, offsets.diff()).sum())
+        b_ms, b_by = bound(uniq * E * 2 + ids_read * 12 + 8 * (n + 1) + n * E * 2, 2 * int(owned.numel()) * E)
+        dms, per_call = device_ms(call, KERNEL_NAMES["ordered_pool"])
+        wo = sw[pooled].to(torch.bfloat16)
+        lib = lambda: F.embedding_bag(owned, table, obounds[:-1], mode="sum", per_sample_weights=wo)  # noqa: E731
+        rec = dict(kernel="ordered_pool", case=f"weighted_{gp.name}_w{world}", dtype="bfloat16", K=int(srows.numel()),
+                   slots=n, E=E, weighted=True, owned=int(owned.numel()), unique_rows=uniq,
+                   bitwise=bool(torch.equal(bits(torch, got), bits(torch, want))),
+                   bitwise_repeat=bool(torch.equal(bits(torch, call()), bits(torch, got))),
+                   max_abs_err=float((got.float() - want.float()).abs().max()), tol=0.0, ms=time_ms(call),
+                   device_ms=dms, device_launches_per_call=per_call,
+                   plain_ms=time_ms(lambda: op.ordered_pool_plain(table, srows, offsets, sw), samples=5, inner=1,
+                                    warmup=1),
+                   library_ms=time_ms(lib),
+                   library="torch.nn.functional.embedding_bag(mode='sum', offsets, per_sample_weights=) over the "
+                           "owned rows (float32 sums, one rounding)",
+                   bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0)
+        rec["scaled_err"] = 0.0 if rec["bitwise"] else math.inf
+        results.append(rec)
+        emit(rec)
+        if not (rec["bitwise"] and rec["bitwise_repeat"]):
+            raise AssertionError(f"weighted ordered_pool differs from its plain version: {rec}")
+    # weights that cancel across samples: the row is touched, its gradient exact
+    kc = torch.tensor([[5], [5]], dtype=torch.int32, device=dev)
+    wc = torch.tensor([[1.0], [-1.0]], device=dev)
+    dc = torch.zeros((2, E), device=dev)
+    dc[0, 0] = 1.0
+    gc, cc = oh.onehot_matmul_bwd(kc, dc, 16, torch.float32, weights=wc)
+    rec = dict(kernel="onehot_bwd", case="weighted_cancel", touch_count=float(cc[5]), grad_row=gc[5, :4].tolist())
+    emit(rec)
+    if not (float(cc[5]) == 2.0 and float(cc.sum()) == 2.0 and gc[5, 0].item() == 1.0 and float(gc.abs().sum()) == 1.0):
+        raise AssertionError(f"a weighted row whose weights cancel is not touched, or its gradient is wrong: {rec}")
+
+
+WEIGHTED_STEPS = 6
+
+
+def weighted_case(results, name: str, weighted_launches):
+    """A kernel's weighted case for the `kernels` line: the bf16 case (the
+    weighted path's type) with the most device time, and its launches on
+    `weighted_path` (the tiered run's weighted launches of the one-hot
+    kernels; segscan's on the untiered run, on the per-key rows)."""
+    r = max((x for x in results if x["kernel"] == name and x.get("weighted") and x["dtype"] == "bfloat16"),
+            key=lambda x: x["device_ms"])
+    out = {k: r[k] for k in ("case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")}
+    if weighted_launches is not None:
+        out["launches"] = (weighted_launches["untiered"]["launches"][name] if name == "segscan"
+                           else weighted_launches["tiered"]["weighted"][name])
+    return out
+
+
+def weighted_path(torch):
+    """The repo's weighted configuration at full width
+    (benchmarks/weighted_bench.py:30-37, `tools/weighted.py`: one
+    2,000,000-row weighted Sum table, ev 128, hotness 20, batch 16,384, bf16
+    tables, rowwise AdaGrad, weights uniform in [0, 1) from the seed),
+    untiered and tiered (hot 131,072 / split vocab 16,384 / superhot 1,024),
+    6 steps of the collection each (the bench's step). Counters set to 0
+    just before the steps and read just after: untiered, segscan on the
+    per-key rows (K = 16,384 x 20) once a step; tiered, the weighted one-hot
+    forward and backward once a step each and segscan for the cold tier; no
+    plain version. Reports median ms/step of steps 2-6, ex/s, routes,
+    launches a step, peak memory and the card. The bench's UCAP settings
+    (HCTR_TPU_UCAP_*) are not ported: cut."""
+    from hugectr_tpu_torch import ops
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools import weighted as wt
+
+    rm = ResourceManager.create()
+    keys, w, d = (torch.as_tensor(a, device=rm.device) for a in wt.weighted_batch(0))
+    out = {}
+    for tiers in (False, True):
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ec = wt.weighted_collection(rm, tiers)
+        tables = ec.init(rm.generator(0))
+        state = ec.init_optimizer(tables)
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        run = wt.run_steps(ec, tables, state, keys, w, d, WEIGHTED_STEPS)
+        lc, wc, pc = ops.launch_counts(), ops.weighted_counts(), ops.plain_counts()
+        with torch.no_grad():
+            pooled = ec.forward(tables, {"f": keys}, {"w": w})["e"]
+        rec = dict(phase="weighted_path", tiers=tiers, card=card_line(), source=WEIGHTED_SOURCE,
+                   table_rows=wt.VOCAB, ev=wt.EV, hotness=wt.HOT, batch=B, dtype="bfloat16",
+                   optimizer="rowwise_adagrad", cut="HCTR_TPU_UCAP_* (no counterpart in the port)",
+                   groups={g.name: [g.compute_kind, g.total_local_rows] for g in ec.plan.groups},
+                   routes=dict(ec.group_routes), step_ms=run["step_ms"],
+                   median_ms_per_step=run["median_ms_per_step"],
+                   examples_per_s=B / (run["median_ms_per_step"] / 1e3),
+                   launches_per_step={k: v / WEIGHTED_STEPS for k, v in lc.items()},
+                   weighted_launches_per_step={k: v / WEIGHTED_STEPS for k, v in wc.items()}, plain_calls=pc,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   output_finite=bool(torch.isfinite(pooled.float()).all()), seconds=time.perf_counter() - t0)
+        emit(rec)
+        ok = rec["output_finite"] and not any(pc.values()) and lc["segscan"] >= WEIGHTED_STEPS
+        if tiers:
+            ok = ok and wc["onehot_fwd"] == lc["onehot_fwd"] == WEIGHTED_STEPS
+            ok = ok and wc["onehot_bwd"] == lc["onehot_bwd"] == WEIGHTED_STEPS and "onehot" in rec["routes"].values()
+        else:
+            ok = ok and rec["routes"] == {"mp_ev128": "sorted"} and lc["onehot_fwd"] == 0
+        if not ok:
+            raise AssertionError(f"weighted path did not run its kernels as planned: {rec}")
+        out["tiered" if tiers else "untiered"] = {"launches": lc, "weighted": wc}
+        del ec, tables, state
+    return out
+
+
+def weighted_parity(torch):
+    """A tiny weighted collection (`tools/weighted.py::TINY["split"]`: Sum
+    and Mean lookups with signed weights, a Mean row whose weights are all
+    0, a split table whose superhot tier takes the weighted one-hot
+    kernels) 3 steps on the card against the port on the CPU from the same
+    tables: outputs and tables within rtol 1e-4 / atol 1e-5 (the kernels sum
+    in another order). Then W = 2 ranks on the card over gloo against one
+    card, "split" (the weighted ordered pool of the partitioned forward) and
+    "dx" (weighted Concat lookups on the unique-key dense exchange, its
+    all_to_all counted), the same tolerance."""
+    import numpy as np
+
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools import hybrid
+    from hugectr_tpu_torch.tools import weighted as wt
+
+    t0 = time.perf_counter()
+    rec = dict(phase="weighted_parity", card=card_line())
+
+    def worst(got, want):
+        e = 0.0
+        for s in want["fwd"]:
+            for k, v in want["fwd"][s].items():
+                g = got["fwd"][s][k] if isinstance(got, dict) else np.concatenate([r["fwd"][s][k] for r in got])
+                e = max(e, float((np.abs(g - v) - (1e-5 + 1e-4 * np.abs(v))).max()))
+        for t, v in want["tables"].items():
+            g = got["tables"][t] if isinstance(got, dict) else got[0]["tables"][t]
+            e = max(e, float((np.abs(g - v) - (1e-5 + 1e-4 * np.abs(v))).max()))
+        return e
+
+    inp = wt.tiny_inputs("split", 256, 3, 11)
+    card = wt.tiny_run(ResourceManager.create(), inp)
+    cpu = wt.tiny_run(ResourceManager.create(device="cpu"), inp)
+    rec["card_vs_cpu_excess"] = worst(card, cpu)
+    rec["card_weighted_launches"] = card["weighted_launches"]
+    rec["routes"] = card["routes"]
+    backend = hybrid.default_backend(2)
+    rec["backend"] = backend
+    for case in ("split", "dx"):
+        inp = wt.tiny_inputs(case, 256, 3, 13)
+        one = wt.tiny_run(ResourceManager.create(), inp)
+        ranks = hybrid.run(wt.tiny_run, 2, inp, backend=backend, timeout=300.0)
+        rec[f"w2_{case}_excess"] = worst(ranks, one)
+        rec[f"w2_{case}_weighted_launches"] = [r["weighted_launches"] for r in ranks]
+        rec[f"w2_{case}_all_to_all"] = [r["collective_calls"].get("all_to_all", 0) for r in ranks]
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    wl = card["weighted_launches"]
+    if not (rec["card_vs_cpu_excess"] <= 0 and wl["onehot_fwd"] == 3 and wl["onehot_bwd"] > 0
+            and rec["w2_split_excess"] <= 0 and rec["w2_dx_excess"] <= 0
+            and all(x["ordered_pool"] > 0 for x in rec["w2_split_weighted_launches"])
+            and all(n > 0 for n in rec["w2_dx_all_to_all"])):
+        raise AssertionError(f"weighted parity: {rec}")
+
+
+def hybrid_weighted_path(torch):
+    """`weighted_path`'s tiered case over W = max(2, cards) ranks as
+    `hybrid_path` runs its model (`tools/hybrid.py --model weighted`, rank
+    function `tools/weighted.py::rank_run`): each rank its block of the
+    global batch of 16,384; the owner-partitioned forward launches the
+    weighted ordered pool for the hot and cold tiers on every rank, the
+    one-hot group's weighted kernels once a step; each rank's ordered pool
+    against its plain version on its own shapes of the gathered batch,
+    bitwise. Gloo with ranks sharing a card runs 4 steps."""
+    from hugectr_tpu_torch.tools import hybrid
+    from hugectr_tpu_torch.tools import weighted as wt
+
+    t0 = time.perf_counter()
+    world = hybrid_world(torch)
+    backend = hybrid.default_backend(world)
+    steps = 4 if backend == "gloo" else WEIGHTED_STEPS
+    cfg = dict(tiers=True, steps=steps, seed=0, batch=B, vocab=wt.VOCAB, dtype="bfloat16")
+    ranks = hybrid.run(wt.rank_run, world, {"config": json.dumps(cfg)}, backend=backend, timeout=900.0)
+    rec = dict(phase="hybrid_weighted_path", card=card_line(), world=world, backend=backend,
+               staged_through_host=backend == "gloo", device_count=torch.cuda.device_count(), **cfg,
+               source=WEIGHTED_SOURCE,
+               ranks=[{k: hybrid.jsonable(r[k]) for k in ("median_ms_per_step", "routes", "launches_per_step",
+                                                           "weighted_launches_per_step", "collective_calls_per_step",
+                                                           "peak_memory_bytes", "pool_checks")} for r in ranks],
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    for r in ranks:
+        wl, lc = r["weighted_launches_per_step"], r["launches_per_step"]
+        checks = r["pool_checks"]
+        if not (wl["ordered_pool"] >= 2 and wl["ordered_pool"] == lc["ordered_pool"] and wl["onehot_fwd"] == 1
+                and wl["onehot_bwd"] == 1 and checks and all(c["bitwise"] for c in checks.values())):
+            raise AssertionError(f"hybrid weighted path: {rec}")
+    return [{k: v * steps for k, v in r["weighted_launches_per_step"].items()} for r in ranks]
+
+
+def _entries(ec, model, names):
+    """{table: {key: (row, *state rows)}} of dynamic tables, host copies."""
+    out = {}
+    for name in names:
+        g, ti = ec._find_table(name)
+        keys, vals, st = ec._collect_dynamic_entries(model.tables, model.eopt, g, ti)
+        out[name] = dict(zip(keys.tolist(), zip(vals, *st.values())))
+    return out
+
+
+def _dropped(ec, model, batch, names):
+    """{table: distinct keys of the batch that its store holds nowhere}."""
+    import numpy as np
+
+    fk = model._feature_keys(model._decode_batch(batch))
+    out = {}
+    for name in names:
+        g, ti = ec._find_table(name)
+        lm = next(lm for lm in g.lookups if lm.table_index == ti)
+        keys = fk[lm.bottom_name].cpu().numpy().reshape(-1)
+        keys = np.unique(keys[keys >= 0])
+        slots = ec._dynamic_host_slots(ec._host_key_store(model.tables, g), g, ti, keys)
+        out[name] = int((slots < 0).sum())
+    return out
+
+
+def upkeep_path(torch):
+    """Eviction and growth on the full-width dynamic DLRM-FTRL
+    (`ftrl_dynamic_path`'s model: 26 dynamic tables of 4,096 rows, batch
+    16,384): 3 steps; `evict` of 256 resident keys of each of two tables
+    (their rows and FTRL state become 0, their store rows EMPTY; they insert
+    again in the next step); `grow_dynamic_capacity` of the two tables that
+    dropped the most keys in step 3 to 4x their capacity (every carried
+    key's row and state bitwise; the grown tables lose no key; a table that
+    kept its capacity may lose the keys the JAX package's re-insertion
+    order loses, counted); 3 more steps; each grown table's dropped keys
+    before and after."""
+    import numpy as np
+
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools.flagship import build_dlrm_ftrl
+
+    t0 = time.perf_counter()
+    model = build_dlrm_ftrl(ResourceManager.create(), batchsize=B, dynamic=True, ev_size=E, synthetic_batches=6,
+                            max_eval_batches=1)
+    model.start_data_reading()
+    batches = [next(model._train_iter) for _ in range(6)]
+    names = [str(i) for i in range(26)]
+    losses = [model.train() for _ in range(3)]
+    ec = model.ec
+    dropped3 = _dropped(ec, model, batches[2], names)
+    # evict: 256 resident keys of tables 0 and 1
+    evicted, ev_ok = {}, True
+    for name in ("0", "1"):
+        g, ti = ec._find_table(name)
+        slots, live = ec._live_slots(ec._host_key_store(model.tables, g), g, ti)
+        keys = live[:256]
+        ec.evict(model.tables, model.eopt, name, keys)
+        idx = torch.as_tensor(slots[:256], device=ec.device)
+        ev_ok = ev_ok and bool((model.tables[g.name][idx] == 0).all()) and bool(
+            (model.tables[f"{g.name}#keys"][idx] == ec.EMPTY_KEY).all()) and all(
+            bool((v[idx] == 0).all()) for v in model.eopt[g.name].values())
+        evicted[name] = keys
+    grow = sorted(names, key=lambda n: -dropped3[n])[:2]
+    before = _entries(ec, model, names)
+    t1 = time.perf_counter()
+    for name in grow:
+        g, ti = model.ec._find_table(name)
+        model.ec, model.tables, model.eopt = model.ec.grow_dynamic_capacity(
+            model.tables, model.eopt, name, 4 * int(g.table_vocab[ti]))
+    torch.cuda.synchronize()
+    grow_s = time.perf_counter() - t1
+    after = _entries(model.ec, model, names)
+    # the growth re-inserts every dynamic table's keys one by one in row
+    # order, as the JAX package does, so a nearly full table that kept its
+    # capacity may lose a key whose probe run the new order fills first
+    lost = {n: len(set(before[n]) - set(after[n])) for n in names}
+    carried = all(set(after[n]) <= set(before[n]) and all(
+        all(torch.equal(a, b) for a, b in zip(v, before[n][k])) for k, v in after[n].items()) for n in names)
+    losses += [model.train() for _ in range(3)]
+    dropped6 = _dropped(model.ec, model, batches[5], names)
+    reinserted = {n: int(np.isin(k, list(_entries(model.ec, model, [n])[n])).sum()) for n, k in evicted.items()}
+    rec = dict(phase="upkeep_path", card=card_line(), tables=26, capacity=4096, batch=B, losses=losses,
+               evicted={n: int(k.size) for n, k in evicted.items()}, evicted_zero=ev_ok,
+               reinserted_after_evict=reinserted, grown={n: 4 * 4096 for n in grow},
+               dropped_step3={n: dropped3[n] for n in grow}, dropped_step6={n: dropped6[n] for n in grow},
+               carried_bitwise=carried, carried_keys=sum(len(v) for v in after.values()),
+               lost_in_growth={n: k for n, k in lost.items() if k}, grow_seconds=grow_s,
+               groups={g.name: g.total_local_rows for g in model.ec.plan.groups},
+               max_memory_allocated=torch.cuda.max_memory_allocated(), seconds=time.perf_counter() - t0)
+    emit(rec)
+    model._close_readers()
+    if not (ev_ok and carried and all(math.isfinite(x) for x in losses) and not any(lost[n] for n in grow)
+            and all(rec["dropped_step6"][n] <= rec["dropped_step3"][n] for n in grow)):
+        raise AssertionError(f"upkeep path: {rec}")
+
+
+def host_spill_model(rm, batch: int, capacity: int, ev: int, hotness: int):
+    """benchmarks/host_spill_bench.py:34's model: one dynamic table of
+    `capacity` rows (bf16), Concat with 13 dense, MLP 256-1, BCE, AdaGrad."""
+    import hugectr_tpu_torch as hugectr
+
+    solver = hugectr.CreateSolver(max_eval_batches=1, batchsize_eval=batch, batchsize=batch, lr=0.05,
+                                  repeat_dataset=True, embedding_vec_dtype="bfloat16")
+    reader = hugectr.DataReaderParams(data_reader_type=hugectr.DataReaderType_t.Synthetic, synthetic_num_batches=2)
+    model = hugectr.Model(solver, reader, hugectr.CreateOptimizer(optimizer_type=hugectr.Optimizer_t.AdaGrad,
+                                                                   initial_accu_value=0.0), resource_manager=rm)
+    model.add(hugectr.Input(label_dim=1, label_name="label", dense_dim=13, dense_name="dense",
+                            data_reader_sparse_param_array=[hugectr.DataReaderSparseParam("d0", hotness, True, 1)]))
+    t = hugectr.EmbeddingTableConfig(name="dyn", max_vocabulary_size=-1, ev_size=ev, dynamic_capacity=capacity)
+    ebc = hugectr.EmbeddingCollectionConfig()
+    ebc.embedding_lookup([t], ["d0"], "emb", ["sum"])
+    ebc.shard(shard_matrix=[["dyn"]] * rm.num_devices, shard_strategy=[("mp", ["dyn"])])
+    model.add(ebc)
+    model.add(hugectr.DenseLayer(layer_type=hugectr.Layer_t.Concat, bottom_names=["emb", "dense"], top_names=["c"]))
+    model.add(hugectr.DenseLayer(layer_type=hugectr.Layer_t.MLP, bottom_names=["c"], top_names=["m"],
+                                 num_outputs=[256, 1], activations=[hugectr.Activation_t.Relu,
+                                                                    hugectr.Activation_t.Non]))
+    model.add(hugectr.DenseLayer(layer_type=hugectr.Layer_t.BinaryCrossEntropyLoss, bottom_names=["m", "label"],
+                                 top_names=["loss"]))
+    model.compile()
+    model.start_data_reading()
+    return model
+
+
+HOST_TIER = dict(batch=4096, capacity=131072, ev=64, hotness=5)  # benchmarks/host_spill_bench.py:116-121
+
+
+def host_tier_path(torch):
+    """The host-spill tier at benchmarks/host_spill_bench.py:116-121's
+    settings (batch 4,096, a dynamic table of 131,072 rows, ev 64, hotness
+    5, bf16, AdaGrad): in one call, 20 warm-up and 20 timed steps without a
+    tier on keys below the capacity, then with `HostSpillTier` on a
+    power-law stream over 4x the capacity (each step stages the batch's
+    master rows first, spilling the least recently used half under the 0.75
+    watermark): ex/s of each (host clock around synchronised steps), rows
+    staged a step, the master's size. Then one `EmbeddingTrainingCache` pass
+    over a 64-row staging table of a 20,000-row master: stage, map, one
+    step, flush (touched rows changed, others bitwise)."""
+    import numpy as np
+
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.data.generator import power_law_keys
+    from hugectr_tpu_torch.embedding.host_spill import HostSpillTier
+    from hugectr_tpu_torch.embedding.training_cache import EmbeddingTrainingCache
+
+    t0 = time.perf_counter()
+    hs = HOST_TIER
+    rm = ResourceManager.create()
+    model = host_spill_model(rm, **hs)
+    rng, lab = np.random.default_rng(0), np.random.default_rng(1)
+
+    def phase(tier, vocab, warm=20, steps=20):
+        staged = []
+
+        def step():
+            keys = power_law_keys(rng, vocab, hs["batch"] * hs["hotness"], 1.05).reshape(hs["batch"], -1)
+            keys = keys.astype(np.int32)
+            if tier is not None:
+                staged.append(tier.stage_batch(keys))
+            model._staged_train_batch = model._put_batch({
+                "label": (lab.random((hs["batch"], 1)) > 0.5).astype(np.float32),
+                "dense": lab.random((hs["batch"], 13)).astype(np.float32), "d0": keys})
+            return model.train_async()
+
+        for _ in range(warm):
+            step()
+        torch.cuda.synchronize()
+        staged.clear()
+        t = time.perf_counter()
+        for _ in range(steps):
+            loss = step()
+        torch.cuda.synchronize()
+        return steps * hs["batch"] / (time.perf_counter() - t), staged, float(loss)
+
+    ex_ref, _s, loss_ref = phase(None, hs["capacity"])
+    tier = HostSpillTier(model, "dyn", spill_watermark=0.75)
+    ex_tier, staged, loss_tier = phase(tier, 4 * hs["capacity"])
+    g, ti = model.ec._find_table("dyn")
+    resident = int((model.tables[f"{g.name}#keys"] != model.ec.EMPTY_KEY).sum())
+    model._close_readers()
+    del model
+    # one pass of the embedding training cache
+    static = build_etc_model(rm)
+    host = np.random.default_rng(2).normal(size=(20000, 16)).astype(np.float32)
+    before = host.copy()
+    etc = EmbeddingTrainingCache(static, "huge", host)
+    keyset = np.arange(5000, 5060)
+    etc.update(keyset)
+    mapped = etc.map_keys(np.random.default_rng(3).integers(4990, 5070, (256, 2)))
+    static.train_step(static._put_now({"label": np.ones((256, 1), np.float32),
+                                       "dense": np.zeros((256, 2), np.float32), "d0": mapped.astype(np.int32)}))
+    etc.flush()
+    touched = np.unique(mapped[mapped >= 0]) + 5000
+    etc_ok = (not np.array_equal(host[touched], before[touched])
+              and np.array_equal(np.delete(host, touched, 0), np.delete(before, touched, 0)))
+    static._close_readers()
+    rec = dict(phase="host_tier_path", card=card_line(), **hs, dtype="bfloat16", source="benchmarks/host_spill_bench.py",
+               steps=20, warmup_steps=20, no_tier_examples_per_s=ex_ref, tier_examples_per_s=ex_tier,
+               tier_over_no_tier=ex_tier / ex_ref, staged_rows_per_step=float(np.mean(staged)),
+               staged_rows_max=int(max(staged)), host_size=tier.host_size, device_resident=resident,
+               losses=[loss_ref, loss_tier], etc_pass_ok=bool(etc_ok), etc_rows_touched=int(touched.size),
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    if not (etc_ok and math.isfinite(loss_ref) and math.isfinite(loss_tier) and tier.host_size > hs["capacity"] // 2
+            and resident <= hs["capacity"]):
+        raise AssertionError(f"host tier path: {rec}")
+
+
+def build_etc_model(rm):
+    """tests/test_training_cache.py:15's model: a 64-row static table (ev
+    16), InnerProduct, BCE, SGD, batch 256."""
+    import hugectr_tpu_torch as hugectr
+
+    solver = hugectr.CreateSolver(max_eval_batches=1, batchsize_eval=256, batchsize=256, lr=0.1)
+    reader = hugectr.DataReaderParams(data_reader_type=hugectr.DataReaderType_t.Synthetic, synthetic_num_batches=2)
+    model = hugectr.Model(solver, reader, hugectr.CreateOptimizer(optimizer_type=hugectr.Optimizer_t.SGD),
+                          resource_manager=rm)
+    model.add(hugectr.Input(label_dim=1, label_name="label", dense_dim=2, dense_name="dense",
+                            data_reader_sparse_param_array=[hugectr.DataReaderSparseParam("d0", 2, True, 1)]))
+    ebc = hugectr.EmbeddingCollectionConfig()
+    ebc.embedding_lookup(hugectr.EmbeddingTableConfig(name="huge", max_vocabulary_size=64, ev_size=16), "d0",
+                         "emb", "sum")
+    ebc.shard(shard_matrix=[["huge"]], shard_strategy=[("mp", ["huge"])])
+    model.add(ebc)
+    model.add(hugectr.DenseLayer(layer_type=hugectr.Layer_t.InnerProduct, bottom_names=["emb"],
+                                 top_names=["logit"], num_output=1, act_type=hugectr.Activation_t.Non))
+    model.add(hugectr.DenseLayer(layer_type=hugectr.Layer_t.BinaryCrossEntropyLoss, bottom_names=["logit", "label"],
+                                 top_names=["loss"]))
+    model.compile()
+    model.start_data_reading()
+    return model
+
+
+def sok_path(torch):
+    """`sok.LookupEngine` over DLRM-FTRL's 26 tables (the sample's slot
+    sizes capped at 400,000, ev 128, hotness 1; the engine's default
+    thresholds, so the small tables take the one-hot group), batch 16,384,
+    `OptimizerWrapper` rowwise AdaGrad for 3 steps: the engine's lookup
+    bitwise equal to an `EmbeddingCollection` of the same plan on the same
+    tables and keys, `sok.dump` / `sok.load` bitwise, routes and launches a
+    step."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from hugectr_tpu_torch import ops, sok
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.embedding.collection import EmbeddingCollection
+    from hugectr_tpu_torch.optim.params import OptParams
+    from hugectr_tpu_torch.parallel.plan import EmbeddingTableConfig
+    from hugectr_tpu_torch.core.types import Optimizer_t
+    from hugectr_tpu_torch.tools.flagship import FTRL_SLOT_SIZES
+
+    t0 = time.perf_counter()
+    rm = ResourceManager.create()
+    sok.init(rm)
+    cfgs = [EmbeddingTableConfig(str(i), min(v, 400_000), E) for i, v in enumerate(FTRL_SLOT_SIZES)]
+    opt = OptParams(Optimizer_t.RowWiseAdaGrad, lr=0.01)
+    eng = sok.LookupEngine(cfgs, [1] * 26, ["sum"] * 26, opt)
+    tables = eng.init(0)
+    wrapper = sok.OptimizerWrapper(eng)
+    state = wrapper.initialize(tables)
+    rng = np.random.default_rng(3)
+    batches = [[torch.as_tensor(power_law(rng, c.max_vocabulary_size, (B, 1)).astype(np.int32), device=rm.device)
+                for c in cfgs] for _ in range(3)]
+    d = [torch.as_tensor(rng.standard_normal((B, E), dtype=np.float32), device=rm.device) for _ in range(26)]
+    # the same plan as a plain collection on the same tables
+    ref = EmbeddingCollection(eng.compiled, rm, opt)
+    with torch.no_grad():
+        got = sok.lookup_sparse(eng, tables, batches[0])
+        want = ref.forward(tables, {lk.bottom_name: batches[0][i] for i, lk in enumerate(eng.compiled.lookups)})
+    equal = all(torch.equal(got[i], want[lk.top_name]) for i, lk in enumerate(eng.compiled.lookups))
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    step_ms = []
+    for keys in batches:
+        t = time.perf_counter()
+        with torch.no_grad():
+            sok.lookup_sparse(eng, tables, keys)
+            wrapper.apply_gradients(tables, state, keys, d, 0.01, 1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = ops.launch_counts()
+    tmp = tempfile.mkdtemp(prefix="hctr_sok_")
+    try:
+        t = time.perf_counter()
+        sok.dump(tmp, eng, tables)
+        dump_s = time.perf_counter() - t
+        back = sok.load(tmp, eng, eng.init(9))
+        dump_bytes = dir_bytes(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    round_trip = all(torch.equal(back[g], tables[g]) for g in tables)
+    rec = dict(phase="sok_path", card=card_line(), tables=26, ev=E, hotness=1, batch=B, optimizer="rowwise_adagrad",
+               groups={g.name: [g.compute_kind, g.total_local_rows] for g in eng.compiled.groups},
+               routes=dict(eng.ec.group_routes), lookup_equals_collection=equal, step_ms=step_ms,
+               launches_per_step={k: v / 3 for k, v in launches.items()}, dump_load_bitwise=round_trip,
+               dump_bytes=dump_bytes, dump_seconds=dump_s, seconds=time.perf_counter() - t0)
+    emit(rec)
+    sok._RM = None
+    if not (equal and round_trip and launches["onehot_fwd"] == 3 and launches["onehot_bwd"] > 0):
+        raise AssertionError(f"sok path: {rec}")
+
+
 def main() -> int:
     import torch
 
@@ -2634,6 +3322,7 @@ def main() -> int:
     sample_kernel_checks(torch, sample_results)
     tiny_parity(torch)
     samples_parity(torch)
+    weighted_parity(torch)
     launches, main_rec = main_path(torch)
     torch.cuda.empty_cache()
     file_launches = file_path(torch, main_rec)
@@ -2643,6 +3332,14 @@ def main() -> int:
     ftrl_launches = ftrl_path(torch)
     torch.cuda.empty_cache()
     ftrl_dynamic_path(torch)
+    torch.cuda.empty_cache()
+    weighted_launches = weighted_path(torch)
+    torch.cuda.empty_cache()
+    upkeep_path(torch)
+    torch.cuda.empty_cache()
+    host_tier_path(torch)
+    torch.cuda.empty_cache()
+    sok_path(torch)
     torch.cuda.empty_cache()
     file_i64_path(torch)
     torch.cuda.empty_cache()
@@ -2664,6 +3361,7 @@ def main() -> int:
     hier_launches = hybrid_hier_path(torch, hybrid_rec)
     column_launches = hybrid_column_path(torch)
     hybrid_bench_launches = hybrid_bench_path(torch)
+    hybrid_weighted = hybrid_weighted_path(torch)
     hybrid_ftrl_dynamic_path(torch)
     hybrid_snapshot(torch)
 
@@ -2683,7 +3381,7 @@ def main() -> int:
     for name, (src, replaces) in sources.items():
         # the float32 flagship case that costs the step most device time;
         # for onehot_fwd the step's one launch, the 13-table group
-        r = max((x for x in results if x["kernel"] == name and x["dtype"] == "float32"
+        r = max((x for x in results if x["kernel"] == name and x["dtype"] == "float32" and not x.get("weighted")
                  and (name != "onehot_fwd" or x["case"] == "group13")),
                 key=lambda x: x["device_ms"])
         # beside it, the bench path's bf16 case with the most device time
@@ -2716,11 +3414,14 @@ def main() -> int:
             samples_path_launches={g: x[name] for g, x in samples_launches.items()},
             samples_case={**{k: rs[k] for k in keys}, "dtype": rs["dtype"]},
             **({"column_case": {k: column[name][k] for k in keys}} if name in column else {}),
+            weighted_case=weighted_case(results, name, weighted_launches),
         ))
     # the ordered pool: a kernel of the paths over W ranks; its launches are
     # rank 0's on the hybrid path (steps and eval), beside the bench path's
-    # and its bf16 case with the most device time
-    pool = [x for x in results if x["kernel"] == "ordered_pool" and "device_ms" in x]
+    # and its bf16 case with the most device time (the unweighted cases of
+    # `ordered_pool_checks`, which carry `index_add_ms`; the E 64 and the
+    # weighted cases stand in `column_case` and `weighted_case`)
+    pool = [x for x in results if x["kernel"] == "ordered_pool" and "index_add_ms" in x]
     r = max((x for x in pool if x["dtype"] == "float32"), key=lambda x: x["device_ms"])
     rb = max((x for x in pool if x["dtype"] == "bfloat16"), key=lambda x: x["device_ms"])
     kernels.append(dict(
@@ -2733,6 +3434,9 @@ def main() -> int:
         hybrid_bench_path_launches=[x["ordered_pool"] for x in hybrid_bench_launches],
         bench_case={k: rb[k] for k in keys}, index_add_ms=r["index_add_ms"], bench_index_add_ms=rb["index_add_ms"],
         column_case={k: column["ordered_pool"][k] for k in keys},
+        weighted_case=dict(weighted_case(results, "ordered_pool", None),
+                           launches=hybrid_weighted[0]["ordered_pool"],
+                           hybrid_weighted_path_launches=[x["ordered_pool"] for x in hybrid_weighted]),
     ))
     # device times taken by CUDA events because the profiler recorded nothing
     emit(dict(phase="profiler", event_fallbacks=[list(x) for x in devtime.FALLBACKS]))

@@ -6,9 +6,18 @@
 // hugectr_tpu/embedding/collection.py (_slot_placement, _onehot_local_keys,
 // _onehot_fwd: int32 cast, floor-mod wrap, mean division, concatenation).
 //
-//   forward:   out[b, :] = sum_h [0 <= keys[b,h] < V] * table[keys[b,h], :]
-//   backward:  grad[v, :] = sum_{b,h} [keys[b,h] == v] * d[b, :]
-//              cnt[v]     = sum_{b,h} [keys[b,h] == v]
+//   forward:   out[b, :] = sum_h [0 <= keys[b,h] < V] * w[b,h] * table[keys[b,h], :]
+//   backward:  grad[v, :] = sum_{b,h} [keys[b,h] == v] * w[b,h] * d[b, :]
+//              cnt[v]     = sum_{b,h} [keys[b,h] == v] * |w[b,h]|
+//
+// w is 1 for an unweighted lookup. A weighted lookup (the JAX package's
+// sp_weight_name, collection.py:1236-1300) passes float32 per-key weights
+// [B, h] (any row stride): each hit adds w times its row, a Mean lookup
+// divides by the sum of the weights of its non-padding keys (1 where that
+// sum is 0, collection.py:538-554), the backward adds w times the
+// cotangent, and the touch count of a row is the sum of |w| of its keys,
+// so that signed weights that cancel across samples still mark the row
+// touched (collection.py:1383-1391).
 //
 // The TPU kernels build a [B, V] one-hot tile for the matrix unit, which
 // costs 2 * B * V * E operations (31 GFLOP for a 7,424-row table at
@@ -30,7 +39,9 @@
 // entry, hctr_onehot_fwd, the Pallas kernel's contract) any key outside
 // [0, V) is padding. Sums are
 // taken in float32, a Mean lookup divides by its count of non-padding keys
-// (at least 1), and the output is rounded once to the table's type.
+// (at least 1; a weighted one by the sum of their weights), and the output
+// is rounded once to the table's type. A weighted lookup takes the gather
+// route, whose lanes scale each row by its key's weight before the add.
 // Bound: memory, each lookup's keys (B * h * key bytes), the touched table
 // rows and the [B, W] output, at 3.35 TB/s: 0.0357 ms for the flagship's 13
 // tables at B 16,384, E 128, float32, int32 keys (109.1 MB of output).
@@ -70,7 +81,9 @@
 // ~10^5 adds on each column of the head rows of such a table, so a scatter
 // straight into device memory (one float32 atomicAdd per key and column)
 // serialises in L2: 3.29 ms at table 24 on an H100 in the first port, 4x
-// `index_add_`. The launcher takes one of two routes by shape:
+// `index_add_`. The launcher takes one of two routes by shape (a weighted
+// lookup's backward takes the same ones, each key's d row scaled by its
+// weight before the adds and its |w| added to the row's float32 count):
 //   * Privatised, when the table fits one block's dynamic shared memory
 //     (float32 [V, E] plus an int [V] count; 450 rows at E = 128 on an
 //     H100, ~227 KB) and the batch brings at least kHotKeysPerRow keys per
@@ -111,21 +124,25 @@ struct hctr_fwd_lookup {
   int mean;            // 1: divide by the count of non-padding keys
   int key64;           // 1: int64 keys (cut to int32), 0: int32
   int key_lo, key_hi;  // the window; windowed iff key_lo > 0 or key_hi >= 0 (-1: no upper bound)
+  const float* weights;  // null: unweighted; else the weight of sample 0, slot 0 (float32)
+  int64_t w_stride;      // elements from one sample's weights to the next
 };
 
 namespace hctr {
 namespace {
 
 enum FwdRoute { kGather = 0, kMma = 1 };
-constexpr int kMaxLookups = 48;  // FwdGroup stays under 4 KB of kernel parameters (3.5 KB)
+constexpr int kMaxLookups = 48;  // FwdGroup stays under 4 KB of kernel parameters (3.8 KB)
 
 struct FwdLookup {
   const void* keys;
+  const float* w;  // per-key weights, or null
   int64_t key_stride, row_off;
   int key_lo, key_last;  // keys outside [key_lo, key_last] are padding (INT32_MIN, INT32_MAX: none)
   int h, v, out_col, mean, key64, route;
   int first_block, samples_per_block;
   int mma_slices;  // counts matmul: kMmaCols-column slices per block
+  int w_stride;
 };
 
 struct FwdGroup {
@@ -181,17 +198,20 @@ __device__ __forceinline__ int place_key(int32_t k, const FwdLookup& L, int loca
 
 // Gather-pool of `ns` samples from `s_begin` by one warp, over the
 // lookup's table `tab`. The keys of the next 32 pairs are loaded before the
-// rows of the current 32 are added.
-template <typename T, int kVec>
+// rows of the current 32 are added. kWeighted: each row is scaled by its
+// key's weight, and a Mean divides by the sum of the weights.
+template <typename T, int kVec, bool kWeighted>
 __device__ void gather_samples(const FwdGroup& p, const FwdLookup& L, const T* tab,
                                int64_t s_begin, int ns, int lane) {
   const int h = L.h, e = p.e;
   const int npairs = ns * h;
   T* out = static_cast<T*>(p.out) + s_begin * p.ld + L.out_col;
-  auto load = [&](int pr, int& smp) -> int32_t {
+  auto load = [&](int pr, int& smp, float& wt) -> int32_t {
     smp = -1;
+    wt = 0.f;
     if (pr >= npairs) return -1;
     smp = pr / h;
+    if constexpr (kWeighted) wt = __ldg(L.w + (s_begin + smp) * L.w_stride + (pr - smp * h));
     return raw_key(L, s_begin + smp, pr - smp * h);
   };
   for (int cbase = 0; cbase < e; cbase += 32 * kVec) {
@@ -201,9 +221,17 @@ __device__ void gather_samples(const FwdGroup& p, const FwdLookup& L, const T* t
 #pragma unroll
     for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
     int cur = 0, nval = 0;
+    float wsum = 0.f;  // kWeighted: the sum of the sample's non-padding keys' weights
     auto flush = [&]() {
       if (!col_ok) return;
-      const float sc = L.mean ? 1.f / static_cast<float>(nval > 1 ? nval : 1) : 1.f;
+      float sc = 1.f;
+      if (L.mean) {
+        if constexpr (kWeighted) {
+          sc = 1.f / (wsum == 0.f ? 1.f : wsum);
+        } else {
+          sc = 1.f / static_cast<float>(nval > 1 ? nval : 1);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < kVec; ++i) acc[i] *= sc;
       T* o = out + static_cast<int64_t>(cur) * p.ld + c0;
@@ -214,19 +242,23 @@ __device__ void gather_samples(const FwdGroup& p, const FwdLookup& L, const T* t
       }
     };
     int next_smp;
-    int32_t next_key = load(lane, next_smp);
+    float next_w;
+    int32_t next_key = load(lane, next_smp, next_w);
     for (int p0 = 0; p0 < npairs; p0 += 32) {
       const int smp = next_smp;
+      const float wt = next_w;
       const int row = smp < 0 ? -1 : place_key(next_key, L, p.local_keys);
-      next_key = load(p0 + 32 + lane, next_smp);
+      next_key = load(p0 + 32 + lane, next_smp, next_w);
       const int m = npairs - p0 < 32 ? npairs - p0 : 32;
       for (int q0 = 0; q0 < m; q0 += kInFlight) {
         int r[kInFlight], sq[kInFlight];
         float x[kInFlight][kVec];
+        float wq[kInFlight];
 #pragma unroll
         for (int q = 0; q < kInFlight; ++q) {
           r[q] = __shfl_sync(kFull, row, q0 + q);
           sq[q] = __shfl_sync(kFull, smp, q0 + q);
+          if constexpr (kWeighted) wq[q] = __shfl_sync(kFull, wt, q0 + q);
         }
 #pragma unroll
         for (int q = 0; q < kInFlight; ++q) {
@@ -246,9 +278,16 @@ __device__ void gather_samples(const FwdGroup& p, const FwdLookup& L, const T* t
             for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
             cur = sq[q];
             nval = 0;
+            wsum = 0.f;
           }
+          if constexpr (kWeighted) {
 #pragma unroll
-          for (int i = 0; i < kVec; ++i) acc[i] += x[q][i];
+            for (int i = 0; i < kVec; ++i) acc[i] += x[q][i] * wq[q];
+            if (r[q] >= 0) wsum += wq[q];
+          } else {
+#pragma unroll
+            for (int i = 0; i < kVec; ++i) acc[i] += x[q][i];
+          }
           nval += r[q] >= 0;
         }
       }
@@ -434,27 +473,35 @@ onehot_fwd_group(const __grid_constant__ FwdGroup p) {
   const int spw = L.samples_per_block / kFwdWarps;
   const int64_t sb = s0 + static_cast<int64_t>(threadIdx.x >> 5) * spw;
   const int64_t left = p.b - sb;
-  if (left > 0)
-    gather_samples<T, kVec>(p, L, tab, sb, left < spw ? static_cast<int>(left) : spw, threadIdx.x & 31);
+  if (left <= 0) return;
+  const int ns = left < spw ? static_cast<int>(left) : spw;
+  if (L.w != nullptr) {
+    gather_samples<T, kVec, true>(p, L, tab, sb, ns, threadIdx.x & 31);
+  } else {
+    gather_samples<T, kVec, false>(p, L, tab, sb, ns, threadIdx.x & 31);
+  }
 }
 
 // Adds the d rows of the warp's keys marked in `m` (a warp-uniform ballot)
 // into rows `row` of dst [*, e], where lane j holds key j's destination row
 // and sample. Lane-strided columns: every atomic instruction of the warp
 // covers 128 consecutive bytes, and no two lanes share a shared-memory
-// bank. The d rows of kBatch keys are loaded before their adds.
-template <typename T>
-__device__ __forceinline__ void add_rows(unsigned m, int row, long long sample,
+// bank. The d rows of kBatch keys are loaded before their adds. kWeighted:
+// lane j's `wt` scales key j's d row.
+template <typename T, bool kWeighted>
+__device__ __forceinline__ void add_rows(unsigned m, int row, long long sample, float wt,
                                          const T* __restrict__ d, float* dst, int e, int lane) {
   while (m) {
     int r[kBatch];
     long long s[kBatch];
+    float wq[kBatch];
 #pragma unroll
     for (int q = 0; q < kBatch; ++q) {
       const bool ok = m != 0;
       const int j = ok ? __ffs(m) - 1 : 0;
       r[q] = __shfl_sync(kFull, row, j);
       s[q] = __shfl_sync(kFull, sample, j);
+      if constexpr (kWeighted) wq[q] = __shfl_sync(kFull, wt, j);
       if (!ok) r[q] = -1;
       m &= m - 1;
     }
@@ -466,6 +513,7 @@ __device__ __forceinline__ void add_rows(unsigned m, int row, long long sample,
         for (int i = 0; i < kBwdCols; ++i) {
           const int c = c0 + lane + 32 * i;
           x[q][i] = r[q] >= 0 && c < e ? to_f32(__ldg(d + s[q] * e + c)) : 0.f;
+          if constexpr (kWeighted) x[q][i] *= wq[q];
         }
       }
 #pragma unroll
@@ -483,15 +531,18 @@ __device__ __forceinline__ void add_rows(unsigned m, int row, long long sample,
 }
 
 // Privatised backward: the whole table in shared memory; block `slice`
-// takes samples [slice * slice_samples, +slice_samples).
-template <typename T>
+// takes samples [slice * slice_samples, +slice_samples). kWeighted: the
+// counts are float32 sums of |w|.
+template <typename T, bool kWeighted>
 __global__ void __launch_bounds__(kBwdWarps * 32)
-onehot_bwd(const int32_t* __restrict__ keys, const T* __restrict__ d, float* __restrict__ grad,
-           float* __restrict__ cnt, int b, int h, int v, int e, int slice_samples) {
-  extern __shared__ float part[];  // [v][e] float32 sums, then [v] int counts
+onehot_bwd(const int32_t* __restrict__ keys, const T* __restrict__ d, const float* __restrict__ w,
+           float* __restrict__ grad, float* __restrict__ cnt, int b, int h, int v, int e,
+           int slice_samples) {
+  extern __shared__ float part[];  // [v][e] float32 sums, then [v] int counts (kWeighted: float)
   int* scnt = reinterpret_cast<int*>(part + v * e);
+  float* swt = part + v * e;
   for (int i = threadIdx.x; i < v * e; i += blockDim.x) part[i] = 0.f;
-  for (int i = threadIdx.x; i < v; i += blockDim.x) scnt[i] = 0;
+  for (int i = threadIdx.x; i < v; i += blockDim.x) scnt[i] = 0;  // 0 bits: 0.f too
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
@@ -502,33 +553,40 @@ onehot_bwd(const int32_t* __restrict__ keys, const T* __restrict__ d, float* __r
   for (int64_t g = s0 * h + warp * 32; g < f1; g += kBwdWarps * 32) {
     const int64_t f = g + lane;
     int key = -1;
+    float wt = 0.f;
     if (f < f1) {
       key = __ldg(keys + f);
       if (key < 0 || key >= v) key = -1;
+      if constexpr (kWeighted) wt = __ldg(w + f);
     }
-    // one count add per distinct row of the 32 keys
-    const unsigned peers = __match_any_sync(kFull, key);
-    if (key >= 0 && lane == __ffs(peers) - 1) atomicAdd(scnt + key, __popc(peers));
-    add_rows<T>(__ballot_sync(kFull, key >= 0), key, f / h, d, part, e, lane);
+    if constexpr (kWeighted) {
+      if (key >= 0) atomicAdd(swt + key, fabsf(wt));
+    } else {
+      // one count add per distinct row of the 32 keys
+      const unsigned peers = __match_any_sync(kFull, key);
+      if (key >= 0 && lane == __ffs(peers) - 1) atomicAdd(scnt + key, __popc(peers));
+    }
+    add_rows<T, kWeighted>(__ballot_sync(kFull, key >= 0), key, f / h, wt, d, part, e, lane);
   }
   __syncthreads();
 
   for (int r = warp; r < v; r += kBwdWarps) {
-    const int n = scnt[r];
-    if (n == 0) continue;
+    const float n = kWeighted ? swt[r] : static_cast<float>(scnt[r]);
+    if (n == 0.f) continue;
     float* grow = grad + static_cast<int64_t>(r) * e;
     for (int c = lane; c < e; c += 32) atomicAdd(grow + c, part[r * e + c]);
-    if (lane == 0) atomicAdd(cnt + r, static_cast<float>(n));
+    if (lane == 0) atomicAdd(cnt + r, n);
   }
 }
 
 // Global-atomic backward for tables whose keys spread over many rows: each
 // warp takes kBatch keys at a time (lanes 0..kBatch-1 load them, so a batch
 // has many warps in flight) and adds their d rows straight into grad.
-template <typename T>
+template <typename T, bool kWeighted>
 __global__ void __launch_bounds__(kGlobalWarps * 32)
 onehot_bwd_global(const int32_t* __restrict__ keys, const T* __restrict__ d,
-                  float* __restrict__ grad, float* __restrict__ cnt, int b, int h, int v, int e) {
+                  const float* __restrict__ w, float* __restrict__ grad, float* __restrict__ cnt,
+                  int b, int h, int v, int e) {
   const int lane = threadIdx.x & 31;
   const int64_t n = static_cast<int64_t>(b) * h;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kGlobalWarps * kBatch;
@@ -536,13 +594,19 @@ onehot_bwd_global(const int32_t* __restrict__ keys, const T* __restrict__ d,
        g < n; g += stride) {
     const int64_t f = g + lane;
     int key = -1;
+    float wt = 0.f;
     if (lane < kBatch && f < n) {
       key = __ldg(keys + f);
       if (key < 0 || key >= v) key = -1;
+      if constexpr (kWeighted) wt = __ldg(w + f);
     }
-    const unsigned peers = __match_any_sync(kFull, key);
-    if (key >= 0 && lane == __ffs(peers) - 1) atomicAdd(cnt + key, static_cast<float>(__popc(peers)));
-    add_rows<T>(__ballot_sync(kFull, key >= 0), key, f / h, d, grad, e, lane);
+    if constexpr (kWeighted) {
+      if (key >= 0) atomicAdd(cnt + key, fabsf(wt));
+    } else {
+      const unsigned peers = __match_any_sync(kFull, key);
+      if (key >= 0 && lane == __ffs(peers) - 1) atomicAdd(cnt + key, static_cast<float>(__popc(peers)));
+    }
+    add_rows<T, kWeighted>(__ballot_sync(kFull, key >= 0), key, f / h, wt, d, grad, e, lane);
   }
 }
 
@@ -598,7 +662,9 @@ int fwd_group(const hctr_fwd_lookup* in, int n, const void* table, void* out, in
   for (int i = 0; i < n; ++i) {
     const hctr_fwd_lookup& x = in[i];
     if (x.h < 1 || x.v < 1 || x.out_col < 0 || x.out_col + e > ld) return cudaErrorInvalidValue;
-    route[i] = fwd_route(x.v, x.h, e);
+    if (x.weights != nullptr && (x.w_stride < 0 || x.w_stride > INT32_MAX)) return cudaErrorInvalidValue;
+    // the counts matmul's 16-bit integer counts cannot hold weights
+    route[i] = x.weights != nullptr ? kGather : fwd_route(x.v, x.h, e);
     if (route[i] == kGather) gather_pairs += static_cast<int64_t>(b) * x.h;
     vec4 = vec4 && x.out_col % 4 == 0;
   }
@@ -622,6 +688,8 @@ int fwd_group(const hctr_fwd_lookup* in, int n, const void* table, void* out, in
     const hctr_fwd_lookup& x = in[i];
     FwdLookup& L = p.lk[j];
     L.keys = x.keys;
+    L.w = x.weights;
+    L.w_stride = static_cast<int>(x.w_stride);
     L.key_stride = x.key_stride;
     L.row_off = x.row_off;
     L.h = x.h;
@@ -668,33 +736,33 @@ inline bool bwd_privatised(int b, int h, int v, int e) {
          static_cast<int64_t>(b) * h >= static_cast<int64_t>(kHotKeysPerRow) * v;
 }
 
-template <typename T>
-int bwd_global(const int32_t* keys, const T* d, float* grad, float* cnt, int b, int h, int v,
-               int e, cudaStream_t s) {
+template <typename T, bool kWeighted>
+int bwd_global(const int32_t* keys, const T* d, const float* w, float* grad, float* cnt, int b, int h,
+               int v, int e, cudaStream_t s) {
   const int64_t groups = (static_cast<int64_t>(b) * h + kBatch - 1) / kBatch;
   const int64_t want = (groups + kGlobalWarps - 1) / kGlobalWarps;
   const unsigned blocks = static_cast<unsigned>(want < 65535 ? want : 65535);
-  onehot_bwd_global<T><<<blocks, kGlobalWarps * 32, 0, s>>>(keys, d, grad, cnt, b, h, v, e);
+  onehot_bwd_global<T, kWeighted><<<blocks, kGlobalWarps * 32, 0, s>>>(keys, d, w, grad, cnt, b, h, v, e);
   return cudaGetLastError();
 }
 
-template <typename T>
-int bwd(const void* keys_, const void* d_, void* grad32, void* cnt_, int b, int h, int v, int e,
-        cudaStream_t s) {
+template <typename T, bool kWeighted>
+int bwd(const void* keys_, const void* d_, const float* w, void* grad32, void* cnt_, int b, int h, int v,
+        int e, cudaStream_t s) {
   const auto* keys = static_cast<const int32_t*>(keys_);
   const auto* d = static_cast<const T*>(d_);
   auto* grad = static_cast<float*>(grad32);
   auto* cnt = static_cast<float*>(cnt_);
-  if (!bwd_privatised(b, h, v, e)) return bwd_global<T>(keys, d, grad, cnt, b, h, v, e, s);
+  if (!bwd_privatised(b, h, v, e)) return bwd_global<T, kWeighted>(keys, d, w, grad, cnt, b, h, v, e, s);
   const size_t smem = static_cast<size_t>(v) * (e * 4 + 4);
   const int threads = kBwdWarps * 32;
-  cudaError_t err = cudaFuncSetAttribute(onehot_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = cudaFuncSetAttribute(onehot_bwd<T, kWeighted>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, onehot_bwd<T>, threads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, onehot_bwd<T, kWeighted>, threads, smem);
   if (err != cudaSuccess) return err;
   // fill the card once, with a block on every SM at least, but past that
   // keep >= kFlushRatio keys per table row in a slice, in whole waves
@@ -706,8 +774,8 @@ int bwd(const void* keys_, const void* d_, void* grad32, void* cnt_, int b, int 
   if (slices < 1) slices = 1;
   const int slice_samples = static_cast<int>((b + slices - 1) / slices);
   slices = (b + slice_samples - 1) / slice_samples;
-  onehot_bwd<T><<<static_cast<unsigned>(slices), threads, smem, s>>>(keys, d, grad, cnt, b, h, v,
-                                                                      e, slice_samples);
+  onehot_bwd<T, kWeighted><<<static_cast<unsigned>(slices), threads, smem, s>>>(keys, d, w, grad, cnt, b,
+                                                                                 h, v, e, slice_samples);
   return cudaGetLastError();
 }
 
@@ -736,7 +804,7 @@ extern "C" int hctr_onehot_fwd_group(int dtype, const hctr_fwd_lookup* lookups, 
 extern "C" int hctr_onehot_fwd(int dtype, const void* keys, const void* table, void* out, int b,
                                int h, int v, int e, void* stream) {
   if (b == 0) return cudaSuccess;
-  const hctr_fwd_lookup lk{keys, h, 0, h, v, 0, 0, 0, 0, -1};
+  const hctr_fwd_lookup lk{keys, h, 0, h, v, 0, 0, 0, 0, -1, nullptr, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == hctr::kF32) return hctr::fwd_group<float>(&lk, 1, table, out, b, e, e, 1, s);
   if (dtype == hctr::kBF16)
@@ -755,12 +823,13 @@ extern "C" int hctr_onehot_bwd_privatised(int b, int h, int v, int e) {
   return hctr::bwd_privatised(b, h, v, e) ? 1 : 0;
 }
 
-// keys [b, h] int32; d [b, e] of `d_dtype`; grad32 [v, e] and cnt [v]
-// float32 receive the sums: added to what they hold when `accumulate` is 1,
-// else zeroed first. out_bf16 [v, e] bfloat16 receives the cast of grad32
-// when it is not null.
-extern "C" int hctr_onehot_bwd(int d_dtype, const void* keys, const void* d, void* grad32,
-                               void* cnt, void* out_bf16, int b, int h, int v, int e,
+// keys [b, h] int32; d [b, e] of `d_dtype`; w [b, h] float32 per-key
+// weights or null; grad32 [v, e] and cnt [v] float32 receive the sums (with
+// w: the w-scaled d rows and the sums of |w|): added to what they hold when
+// `accumulate` is 1, else zeroed first. out_bf16 [v, e] bfloat16 receives
+// the cast of grad32 when it is not null.
+extern "C" int hctr_onehot_bwd(int d_dtype, const void* keys, const void* d, const void* w,
+                               void* grad32, void* cnt, void* out_bf16, int b, int h, int v, int e,
                                int accumulate, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d_dtype != hctr::kF32 && d_dtype != hctr::kBF16) return cudaErrorInvalidValue;
@@ -772,10 +841,13 @@ extern "C" int hctr_onehot_bwd(int d_dtype, const void* keys, const void* d, voi
     if (err != cudaSuccess) return err;
   }
   if (b > 0 && h > 0 && v > 0 && e > 0) {
+    const auto* wf = static_cast<const float*>(w);
     if (d_dtype == hctr::kF32)
-      err = hctr::bwd<float>(keys, d, grad32, cnt, b, h, v, e, s);
+      err = wf ? hctr::bwd<float, true>(keys, d, wf, grad32, cnt, b, h, v, e, s)
+               : hctr::bwd<float, false>(keys, d, wf, grad32, cnt, b, h, v, e, s);
     else
-      err = hctr::bwd<__nv_bfloat16>(keys, d, grad32, cnt, b, h, v, e, s);
+      err = wf ? hctr::bwd<__nv_bfloat16, true>(keys, d, wf, grad32, cnt, b, h, v, e, s)
+               : hctr::bwd<__nv_bfloat16, false>(keys, d, wf, grad32, cnt, b, h, v, e, s);
   }
   if (err != cudaSuccess || out_bf16 == nullptr || n == 0) return err;
   const int64_t want = (n + 255) / 256;

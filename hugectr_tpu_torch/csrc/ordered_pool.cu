@@ -14,6 +14,14 @@
 //   add taken in float32 and rounded to the table's type (bfloat16: round
 //   to nearest even), a slot without rows zero.
 //
+// Weighted lookups (the JAX package sorts (row, slot, w) with the row as the
+// only key, stable, collection.py:884-888, and pools rows * w in the table's
+// type, :890-900): with per-pair float32 weights w[j] aligned with rows,
+// each row is multiplied by w[j] rounded to the table's type, the product
+// rounded to the table's type, then added as above. A bfloat16 product of
+// two bfloat16 values is exact in float32 before its rounding, so this is
+// XLA's bfloat16 multiply, and the order of the adds is unchanged.
+//
 // Bound on an H100: memory. The function reads each distinct pooled row
 // once (U rows of E elements; power-law keys repeat rows, and L2 serves the
 // repeats), the row ids up to each slot's first foreign one (the owned
@@ -44,9 +52,10 @@ __device__ __forceinline__ float round_to(float x, __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <typename T, int kVec>
+template <typename T, int kVec, bool kWeighted>
 __global__ void __launch_bounds__(kThreads) ordered_pool_kernel(const T* __restrict__ table, int64_t n_rows,
                                                                 const int64_t* __restrict__ rows,
+                                                                const float* __restrict__ w,
                                                                 const int64_t* __restrict__ offsets,
                                                                 T* __restrict__ out, int64_t n_slots, int e) {
   const int64_t slot = static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32;
@@ -63,6 +72,11 @@ __global__ void __launch_bounds__(kThreads) ordered_pool_kernel(const T* __restr
       if (r >= n_rows) break;  // the rest of the slot is keys this rank does not pool
       float x[kVec];
       load_vec<kVec>(table + r * e + c, x);
+      if constexpr (kWeighted) {
+        const float wj = round_to(w[j], static_cast<T*>(nullptr));
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) x[i] = round_to(x[i] * wj, static_cast<T*>(nullptr));
+      }
 #pragma unroll
       for (int i = 0; i < kVec; ++i) acc[i] = round_to(acc[i] + x[i], static_cast<T*>(nullptr));
     }
@@ -70,18 +84,29 @@ __global__ void __launch_bounds__(kThreads) ordered_pool_kernel(const T* __restr
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* table, int64_t n_rows, const void* rows, const void* offsets, void* out,
-                   int64_t n_slots, int e, int vec, cudaStream_t s) {
+template <typename T, bool kWeighted>
+void launch_w(const T* t, int64_t n_rows, const int64_t* r, const float* w, const int64_t* o, T* y,
+              int64_t n_slots, int e, int vec, cudaStream_t s) {
   const unsigned blocks = static_cast<unsigned>((n_slots + kWarps - 1) / kWarps);
+  if (vec == 4) {
+    ordered_pool_kernel<T, 4, kWeighted><<<blocks, kThreads, 0, s>>>(t, n_rows, r, w, o, y, n_slots, e);
+  } else {
+    ordered_pool_kernel<T, 1, kWeighted><<<blocks, kThreads, 0, s>>>(t, n_rows, r, w, o, y, n_slots, e);
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* table, int64_t n_rows, const void* rows, const void* weights, const void* offsets,
+                   void* out, int64_t n_slots, int e, int vec, cudaStream_t s) {
   const T* t = static_cast<const T*>(table);
   const int64_t* r = static_cast<const int64_t*>(rows);
+  const float* w = static_cast<const float*>(weights);
   const int64_t* o = static_cast<const int64_t*>(offsets);
   T* y = static_cast<T*>(out);
-  if (vec == 4) {
-    ordered_pool_kernel<T, 4><<<blocks, kThreads, 0, s>>>(t, n_rows, r, o, y, n_slots, e);
+  if (w != nullptr) {
+    launch_w<T, true>(t, n_rows, r, w, o, y, n_slots, e, vec, s);
   } else {
-    ordered_pool_kernel<T, 1><<<blocks, kThreads, 0, s>>>(t, n_rows, r, o, y, n_slots, e);
+    launch_w<T, false>(t, n_rows, r, w, o, y, n_slots, e, vec, s);
   }
   return cudaGetLastError();
 }
@@ -90,15 +115,16 @@ cudaError_t launch(const void* table, int64_t n_rows, const void* rows, const vo
 }  // namespace hctr
 
 // table [n_rows, e] of `dtype`; rows [K] int64, each slot's rows in order,
-// ids >= n_rows last; offsets [n_slots + 1] int64; out [n_slots, e] of
-// `dtype`. `vec` is 4 when e % 4 == 0 and table and out are aligned to 4
-// elements, else 1. Returns cudaGetLastError().
-extern "C" int hctr_ordered_pool(int dtype, const void* table, int64_t n_rows, const void* rows, const void* offsets,
-                                 void* out, int64_t n_slots, int e, int vec, void* stream) {
+// ids >= n_rows last; weights [K] float32 aligned with rows, or null;
+// offsets [n_slots + 1] int64; out [n_slots, e] of `dtype`. `vec` is 4 when
+// e % 4 == 0 and table and out are aligned to 4 elements, else 1. Returns
+// cudaGetLastError().
+extern "C" int hctr_ordered_pool(int dtype, const void* table, int64_t n_rows, const void* rows, const void* weights,
+                                 const void* offsets, void* out, int64_t n_slots, int e, int vec, void* stream) {
   if (n_slots == 0 || e == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == hctr::kBF16) {
-    return hctr::launch<__nv_bfloat16>(table, n_rows, rows, offsets, out, n_slots, e, vec, s);
+    return hctr::launch<__nv_bfloat16>(table, n_rows, rows, weights, offsets, out, n_slots, e, vec, s);
   }
-  return hctr::launch<float>(table, n_rows, rows, offsets, out, n_slots, e, vec, s);
+  return hctr::launch<float>(table, n_rows, rows, weights, offsets, out, n_slots, e, vec, s);
 }

@@ -42,14 +42,30 @@ found as padding, and the backward first inserts the batch's unplaced keys
 (scatter-min arbitration per probe round), then updates their rows. Keys
 still unplaced after NUM_PROBES rounds are dropped for the step. The key
 store is written and read beside a table's rows (`export_key_store`,
-`import_key_store`); eviction and capacity growth are not ported (ROADMAP
-Queue 1 item 5).
+`import_key_store`). `evict` zeroes the rows and state of given keys and
+frees their store rows (a static table's rows are zeroed); `grow_dynamic_capacity`
+recompiles the plan with a larger capacity and carries every table's rows,
+state and store over, re-inserting each dynamic table's resident keys one by
+one in the JAX package's order (collection.py:2220-2672). Both work between
+steps on the host (the rank's own shard over W ranks; every rank calls them
+together).
 
 Frozen tables (`frozen_tables`, collection.py:247-248; a split table's
 user name freezes its tiers, `_is_frozen`, :2095-2099) take no update: a
 one-hot group launches no backward for a frozen lookup (:1373-1375,
 :1420-1422), and a rowop group masks the frozen slots out of its row list
 before the sort (:1818-1825), so the sorted route scans fewer keys.
+
+Weighted lookups (a lookup's `sp_weight_name`, collection.py:538-615,
+:1236-1400, :1801-1837): `forward` and `backward_and_update` take
+`feature_weights` {name: [B, hotness] float}; the slots of a weighted
+group's unweighted lookups weigh 1, and padding 0. A Sum pools w x row in
+the table's type, a Mean divides by the sum of its weights (1 where that is
+0; a split lookup's merge by the raw keys' sum). The one-hot kernels take
+each weighted lookup's weights (w x d into the gradient, |w| into the touch
+counts), the partitioned forward's sort carries them to the ordered pool,
+and a rowop group's backward expands to one gradient row per key, w times
+its slot's cotangent (K = B x H rows for the update).
 
 Over W ranks (one process per device), each rank holds the block of its
 data index of the batch (hybrid parallelism, collection.py:668-721,
@@ -155,6 +171,7 @@ each group's route in the last backward.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import functools
 from typing import Dict, List, Optional, Tuple
 
@@ -182,7 +199,7 @@ from ..ops.onehot_matmul import (
 )
 from ..ops.ordered_pool import ordered_pool, segments
 from ..optim.params import OptParams
-from ..parallel.plan import CompiledEmbeddingPlan, GroupPlan
+from ..parallel.plan import CompiledEmbeddingPlan, GroupPlan, ShardingPlan, compile_plan
 from . import sparse_optimizer
 
 Tables = Dict[str, torch.Tensor]
@@ -210,10 +227,23 @@ def hash_mix(k: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def fold_reserved_key(k32: torch.Tensor) -> torch.Tensor:
+def fold_reserved_key(k32):
     """The int32 key 2^31 - 1 is the store's EMPTY marker: it behaves as
-    2^31 - 2 (collection.py:76)."""
+    2^31 - 2 (collection.py:76); a tensor or a numpy array."""
+    if isinstance(k32, np.ndarray):
+        return np.where(k32 == EMPTY_KEY, np.int32(EMPTY_KEY - 1), k32)
     return torch.where(k32 == EMPTY_KEY, EMPTY_KEY - 1, k32)
+
+
+def hash_mix_np(k: np.ndarray) -> np.ndarray:
+    """`hash_mix` on the host: the murmur3 finalizer of int32 keys as uint32
+    (collection.py:64 `_hash_mix_np`, bit for bit the same)."""
+    h = k.astype(np.uint32)
+    h = h ^ (h >> 16)
+    h = (h * np.uint32(0x85EBCA6B)) & np.uint32(0xFFFFFFFF)
+    h = h ^ (h >> 13)
+    h = (h * np.uint32(0xC2B2AE35)) & np.uint32(0xFFFFFFFF)
+    return h ^ (h >> 16)
 
 
 class _GroupMeta:
@@ -285,6 +315,9 @@ def _fwd_gsrc(g: GroupPlan) -> np.ndarray:
 class EmbeddingCollection:
     """Owns the compiled plan and runs the forward and the fused update."""
 
+    NUM_PROBES = NUM_PROBES
+    EMPTY_KEY = EMPTY_KEY
+
     def __init__(
         self,
         plan: CompiledEmbeddingPlan,
@@ -330,6 +363,11 @@ class EmbeddingCollection:
         self.fwd_partition = fwd_partition
         self.capacity_factor = capacity_factor
         self.dense_exchange_cap = dense_exchange_cap
+        # what a recompile (`grow_dynamic_capacity`) builds the new collection with
+        self._settings = dict(dtype=dtype, dense_update_rows=dense_update_rows, dense_key_ratio=dense_key_ratio,
+                              state_dtype=state_dtype, fwd_partition=fwd_partition,
+                              capacity_factor=capacity_factor, dense_exchange_cap=dense_exchange_cap,
+                              comm_strategy=comm_strategy)
         self._meta = {g.name: _GroupMeta(g, self.device, self.rank) for g in plan.groups}
         self.group_opt: Dict[str, OptParams] = {}
         for g in plan.groups:
@@ -539,35 +577,96 @@ class EmbeddingCollection:
     def _count(valid: torch.Tensor, dtype) -> torch.Tensor:
         return torch.clamp(valid.to(dtype).sum(dim=1, keepdim=True), min=1.0)
 
+    @staticmethod
+    def _weight_sum(w: torch.Tensor, dtype) -> torch.Tensor:
+        """[B, 1] sum of (masked) weights, each first rounded to `dtype`, as
+        the JAX package casts them (collection.py:542-548), summed in
+        float32 and rounded to `dtype`; 1 where it is 0."""
+        sw = w.to(dtype).float().sum(dim=1, keepdim=True).to(dtype)
+        return torch.where(sw == 0, torch.ones((), dtype=dtype, device=sw.device), sw)
+
+    def _mean_denom(self, lm, valid: torch.Tensor, weights: Optional[torch.Tensor], dtype) -> torch.Tensor:
+        """[B, 1] Mean divisor of one lookup (collection.py:538): the count of
+        `valid` keys (at least 1), or for a weighted lookup the sum of its
+        weights (masked by the keys' validity), 1 where that sum is 0."""
+        sl = slice(lm.slot_begin, lm.slot_end)
+        if weights is not None and lm.sp_weight_name:
+            return self._weight_sum(weights[:, sl], dtype)
+        return self._count(valid[:, sl], dtype)
+
+    @staticmethod
+    def _lookup_weights(g: GroupPlan, feature_weights) -> Optional[List[Optional[torch.Tensor]]]:
+        """Each lookup's [B, hotness] float32 weights (None for an
+        unweighted lookup), or None for a group without weighted lookups
+        (collection.py:556-595, with its errors)."""
+        if not g.has_weights:
+            return None
+        if feature_weights is None:
+            raise ValueError(f"group {g.name} has weighted lookups; pass feature_weights to "
+                             "forward/backward_and_update")
+        out: List[Optional[torch.Tensor]] = []
+        for lm in g.lookups:
+            if not lm.sp_weight_name:
+                out.append(None)
+                continue
+            w = feature_weights[lm.sp_weight_name]
+            if w.dim() == 1:
+                w = w.unsqueeze(1)
+            if w.shape[1] != lm.slot_end - lm.slot_begin:
+                raise ValueError(f"sp_weight {lm.sp_weight_name}: width {w.shape[1]} != lookup hotness "
+                                 f"{lm.slot_end - lm.slot_begin}")
+            out.append(w.float())
+        return out
+
+    def _group_weights(self, g: GroupPlan, feature_weights, keys: torch.Tensor) -> Optional[torch.Tensor]:
+        """[B, H] float32 per-slot weights of a weighted group, 1 for the
+        slots of its unweighted lookups, 0 where the group's (windowed) key
+        is padding (collection.py:556-595, :670-672); None for a group
+        without weighted lookups."""
+        per = self._lookup_weights(g, feature_weights)
+        if per is None:
+            return None
+        cols = [w if w is not None else torch.ones((keys.shape[0], lm.slot_end - lm.slot_begin),
+                                                   dtype=torch.float32, device=keys.device)
+                for w, lm in zip(per, g.lookups)]
+        return torch.cat(cols, dim=1) * (keys != INVALID_KEY)
+
     # ------------------------------------------------------------- forward
-    def forward(self, tables: Tables, feature_keys: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward(self, tables: Tables, feature_keys: Dict[str, torch.Tensor],
+                feature_weights: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """{bottom_name: [B, hotness] keys} -> {top_name: [B, out_width]}
-        (collection.py:647)."""
+        (collection.py:647). `feature_weights` {sp_weight_name: [B,
+        hotness] float}: the per-key weights of the weighted lookups,
+        required iff one is declared."""
         outs: Dict[str, torch.Tensor] = {}
         for g in self.plan.groups:
             if g.compute_kind == "onehot":
-                go = self._onehot_fwd(g.name, tables[g.name], self._lookup_keys(g, feature_keys))
+                go = self._onehot_fwd(g.name, tables[g.name], self._lookup_keys(g, feature_keys),
+                                      self._lookup_weights(g, feature_weights))
             elif g.is_model_parallel and self.world > 1:
                 # the batch's keys; the rows of this rank's keys pooled; the
                 # pools summed over the ranks in the table's type and
                 # scattered (or the unique rows exchanged)
                 keys_loc = self._group_keys(g, feature_keys)
+                w_loc = self._group_weights(g, feature_weights, keys_loc)
                 keys = self._all_gather(keys_loc)
+                weights = self._all_gather(w_loc) if w_loc is not None else None
                 store = tables.get(f"{g.name}#keys")
                 dense_ex = self._dense_exchange_ok(g)
                 lists = self._dense_lists(g.name, keys) if dense_ex else None
                 if lists is not None:
-                    go = self._mp_fwd_dense(g.name, tables[g.name], lists, keys_loc)
+                    go = self._mp_fwd_dense(g.name, tables[g.name], lists, keys_loc, w_loc)
                 elif self.fwd_partition and not dense_ex:
-                    go = self._scatter(self._mp_fwd_partitioned(g.name, tables[g.name], keys, store))
+                    go = self._scatter(self._mp_fwd_partitioned(g.name, tables[g.name], keys, store, weights))
                 else:  # the masked gather; the dense exchange's overflow branch too
-                    go = self._scatter(self._dp_fwd(g.name, tables[g.name], keys, store))
+                    go = self._scatter(self._dp_fwd(g.name, tables[g.name], keys, store, weights))
             else:
-                go = self._dp_fwd(g.name, tables[g.name], self._group_keys(g, feature_keys),
-                                  tables.get(f"{g.name}#keys"))
+                keys = self._group_keys(g, feature_keys)
+                go = self._dp_fwd(g.name, tables[g.name], keys, tables.get(f"{g.name}#keys"),
+                                  self._group_weights(g, feature_weights, keys))
             for lm in g.lookups:
                 outs[lm.top_name] = go[:, lm.out_begin : lm.out_end]
-        return self._merge_outputs(outs, feature_keys)
+        return self._merge_outputs(outs, feature_keys, feature_weights)
 
     def _scatter(self, partial: torch.Tensor) -> torch.Tensor:
         """The pooled partials of the gathered batch summed over the data
@@ -581,36 +680,42 @@ class EmbeddingCollection:
         of `_scatter` (DCN, then ICI) where it has two levels."""
         return hier_all_gather(t, self.rm) if self.hierarchical else self._all_gather(t)
 
-    def _merge_denom(self, m, feature_keys: Dict[str, torch.Tensor], dtype) -> torch.Tensor:
-        """[B, 1] count of a split lookup's raw valid keys, at least 1
-        (collection.py:749)."""
+    def _merge_denom(self, m, feature_keys: Dict[str, torch.Tensor], feature_weights, dtype) -> torch.Tensor:
+        """[B, 1] count of a split lookup's raw valid keys, at least 1, or a
+        weighted lookup's sum of their weights, 1 where it is 0
+        (collection.py:749-766)."""
         k = feature_keys[m.bottom_name]
         if k.dim() == 1:
             k = k.unsqueeze(1)
-        return self._count(k.to(torch.int32) != INVALID_KEY, dtype)
+        valid = k.to(torch.int32) != INVALID_KEY
+        if m.sp_weight_name and feature_weights is not None:
+            w = feature_weights[m.sp_weight_name]
+            w = w.unsqueeze(1) if w.dim() == 1 else w
+            return self._weight_sum(torch.where(valid, w.float(), 0.0).to(dtype), dtype)
+        return self._count(valid, dtype)
 
-    def _merge_outputs(self, outs, feature_keys) -> Dict[str, torch.Tensor]:
+    def _merge_outputs(self, outs, feature_keys, feature_weights=None) -> Dict[str, torch.Tensor]:
         """Each split lookup's top is the sum of its tiers' tops; Mean
-        divides by the raw valid count (collection.py:768)."""
+        divides by the raw valid count, or sum of weights (collection.py:768)."""
         for m in self.plan.merges:
             o = outs.pop(m.sub_tops[0])
             for sub in m.sub_tops[1:]:
                 o = o + outs.pop(sub)
             if m.combiner == Combiner_t.Mean:
-                o = o / self._merge_denom(m, feature_keys, o.dtype)
+                o = o / self._merge_denom(m, feature_keys, feature_weights, o.dtype)
             outs[m.top_name] = o
         return outs
 
-    def _expand_d_outs(self, d_outs, feature_keys) -> Dict[str, torch.Tensor]:
+    def _expand_d_outs(self, d_outs, feature_keys, feature_weights=None) -> Dict[str, torch.Tensor]:
         """The user top's cotangent to each tier's top; Mean divides it by
-        the raw valid count (collection.py:788)."""
+        the raw valid count, or sum of weights (collection.py:788-805)."""
         if not self.plan.merges:
             return d_outs
         d_outs = dict(d_outs)
         for m in self.plan.merges:
             d = d_outs.pop(m.top_name)
             if m.combiner == Combiner_t.Mean:
-                d = d / self._merge_denom(m, feature_keys, d.dtype)
+                d = d / self._merge_denom(m, feature_keys, feature_weights, d.dtype)
             for sub in m.sub_tops:
                 d_outs[sub] = d
         return d_outs
@@ -622,14 +727,17 @@ class EmbeddingCollection:
         k = local_row[:, lm.slot_begin : lm.slot_end] - off
         return torch.where(valid[:, lm.slot_begin : lm.slot_end], k, -1).to(torch.int32).contiguous()
 
-    def _onehot_fwd(self, gname: str, table: torch.Tensor, keys: List[torch.Tensor]) -> torch.Tensor:
+    def _onehot_fwd(self, gname: str, table: torch.Tensor, keys: List[torch.Tensor], weights=None) -> torch.Tensor:
         """Every lookup of the group in one call on the raw feature keys
         (collection.py:1311-1337): the kernel does the placement, the Mean
-        division and writes each lookup into its output columns."""
+        division and writes each lookup into its output columns; a weighted
+        lookup's keys carry their weights (the JAX package's counts path,
+        :1338-1357)."""
         g = self._meta[gname].plan
-        return onehot_fwd_group(keys, self._meta[gname].fwd_lookups, table, g.out_width)
+        return onehot_fwd_group(keys, self._meta[gname].fwd_lookups, table, g.out_width, weights)
 
-    def _dp_fwd(self, gname: str, table: torch.Tensor, keys: torch.Tensor, key_store=None) -> torch.Tensor:
+    def _dp_fwd(self, gname: str, table: torch.Tensor, keys: torch.Tensor, key_store=None,
+                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Masked gather + per-lookup pooling (collection.py:1474-1485, :596);
         each lookup gathers its own slots, so no [B, H, E] temp of the whole
         group is built; sums in float32, rounded once to the table's type.
@@ -640,7 +748,10 @@ class EmbeddingCollection:
         padding, and Mean still divides by every raw valid key; with
         replicas (f < W shards) the replica r // f of a shard serves only
         block r // f of the gathered batch, so the ranks' pools are
-        disjoint and their sum is the batch's (:829-837)."""
+        disjoint and their sum is the batch's (:829-837). With `weights`
+        ([B, H], masked) each row is first multiplied by its weight in the
+        table's type, and a weighted Mean divides by the sum of weights
+        (:1474-1485, :858-864)."""
         meta = self._meta[gname]
         g = meta.plan
         valid, owner, local_row = self._slot_placement(gname, keys, key_store)
@@ -652,13 +763,14 @@ class EmbeddingCollection:
         outs: List[torch.Tensor] = []
         for lm in g.lookups:
             sl = slice(lm.slot_begin, lm.slot_end)
-            rows = table[safe[:, sl]] * valid[:, sl].unsqueeze(-1).to(table.dtype)
+            scale = valid[:, sl] if weights is None else torch.where(valid[:, sl], weights[:, sl], 0.0)
+            rows = table[safe[:, sl]] * scale.unsqueeze(-1).to(table.dtype)
             if lm.combiner == Combiner_t.Concat:
                 outs.append(rows.reshape(b, -1))
                 continue
             s = rows.sum(dim=1, dtype=torch.float32).to(table.dtype)
             if lm.combiner == Combiner_t.Mean:
-                s = s / self._count(raw_valid[:, sl], s.dtype)
+                s = s / self._mean_denom(lm, raw_valid, weights, s.dtype)
             outs.append(s)
         return torch.cat(outs, dim=1)
 
@@ -675,7 +787,8 @@ class EmbeddingCollection:
             valid = valid & mine.unsqueeze(1)
         return valid
 
-    def _pool_segments(self, gname: str, keys: torch.Tensor, sentinel: int, key_store=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _pool_segments(self, gname: str, keys: torch.Tensor, sentinel: int, key_store=None,
+                       weights: Optional[torch.Tensor] = None):
         """(row ids, [B x S + 1] slot offsets) of the owner-partitioned
         forward's pool (`_mp_fwd_partitioned`, collection.py:867-916), the
         inputs of `ordered_pool`: slot b x S + gsrc[j] pools the local rows
@@ -687,7 +800,10 @@ class EmbeddingCollection:
         when every slot holds one key. With a capacity factor the (row,
         slot) pairs are stably sorted by row (lax.sort is stable), cut to
         `capacity(K, factor, W)` entries, dropping the owned keys past it,
-        and regrouped by slot (`segments`)."""
+        and regrouped by slot (`segments`). With `weights` ([B, H]) a third
+        entry: each row id's weight, carried through stable sorts, so that
+        equal rows of a slot keep their order, as lax.sort with the weights
+        as a third operand keeps it (collection.py:884-888); else None."""
         meta = self._meta[gname]
         g = meta.plan
         valid, owner, local_row = self._slot_placement(gname, keys, key_store)
@@ -698,7 +814,10 @@ class EmbeddingCollection:
             src = (torch.arange(bg, device=keys.device).unsqueeze(1) * g.grad_src_slots + meta.gsrc).reshape(-1)
             k = capacity(idx.numel(), self.capacity_factor, self.world)
             idx, perm = torch.sort(idx.reshape(-1), stable=True)
-            return segments(idx[:k], src[perm[:k]], bg * g.grad_src_slots, sentinel)
+            if weights is None:
+                return (*segments(idx[:k], src[perm[:k]], bg * g.grad_src_slots, sentinel), None)
+            return segments(idx[:k], src[perm[:k]], bg * g.grad_src_slots, sentinel,
+                            weights.reshape(-1)[perm[:k]])
         layout = meta.pool_layout.get((bg, sentinel))
         if layout is None:
             starts = (torch.arange(bg, device=keys.device).unsqueeze(1) * h + meta.slot_start).reshape(-1)
@@ -706,10 +825,16 @@ class EmbeddingCollection:
                 meta.gsrc * (sentinel + 1), torch.cat([starts, starts.new_full((1,), bg * h)]))
         slot_base, offsets = layout
         if meta.multi_key_slots:
-            idx = torch.sort(slot_base + idx, dim=1).values % (sentinel + 1)
-        return idx.reshape(-1), offsets
+            if weights is None:
+                idx = torch.sort(slot_base + idx, dim=1).values % (sentinel + 1)
+            else:
+                idx, perm = torch.sort(slot_base + idx, dim=1, stable=True)
+                idx, weights = idx % (sentinel + 1), torch.gather(weights, 1, perm)
+        w = weights.reshape(-1).contiguous() if weights is not None else None
+        return idx.reshape(-1), offsets, w
 
-    def _mp_fwd_partitioned(self, gname: str, table: torch.Tensor, keys: torch.Tensor, key_store=None) -> torch.Tensor:
+    def _mp_fwd_partitioned(self, gname: str, table: torch.Tensor, keys: torch.Tensor, key_store=None,
+                            weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         """This rank's [B, out_width] partial pools of the gathered keys by
         the owner-partitioned forward (collection.py:867-936, the JAX
         package's default at W > 1): gather only the owned rows and pool
@@ -719,16 +844,18 @@ class EmbeddingCollection:
         owned prefix (`ops/ordered_pool.py`); then Mean divides by the raw
         valid count (`_apply_mean_scaling`, :1212). Nothing waits for the
         card: the keys of other shards sort last in each slot and the kernel
-        stops there."""
+        stops there. A weighted group's rows are scaled by their weights in
+        the kernel, in the table's type (:890-900)."""
         g = self._meta[gname].plan
-        rows, offsets = self._pool_segments(gname, keys, table.shape[0], key_store)
-        pooled = ordered_pool(table, rows, offsets).reshape(keys.shape[0], g.grad_src_slots, g.ev_size)
-        return self._mean_scaled(g, pooled, keys != INVALID_KEY)
+        rows, offsets, w = self._pool_segments(gname, keys, table.shape[0], key_store, weights)
+        pooled = ordered_pool(table, rows, offsets, w).reshape(keys.shape[0], g.grad_src_slots, g.ev_size)
+        return self._mean_scaled(g, pooled, keys != INVALID_KEY, weights)
 
-    def _mean_scaled(self, g: GroupPlan, pooled: torch.Tensor, raw_valid: torch.Tensor) -> torch.Tensor:
+    def _mean_scaled(self, g: GroupPlan, pooled: torch.Tensor, raw_valid: torch.Tensor,
+                     weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B, S, E] slot pools -> [B, out_width]: a Concat lookup's slots
         side by side, a Mean lookup's pool divided by its count of raw valid
-        keys (collection.py:1212-1232)."""
+        keys, or sum of weights (collection.py:1212-1232)."""
         b = pooled.shape[0]
         parts, cursor = [], 0
         for lm in g.lookups:
@@ -739,7 +866,7 @@ class EmbeddingCollection:
                 continue
             p = pooled[:, cursor]
             if lm.combiner == Combiner_t.Mean:
-                p = p / self._count(raw_valid[:, lm.slot_begin : lm.slot_end], p.dtype)
+                p = p / self._mean_denom(lm, raw_valid, weights, p.dtype)
             parts.append(p)
             cursor += 1
         return torch.cat(parts, dim=1)
@@ -806,11 +933,13 @@ class EmbeddingCollection:
             pos = torch.where(of == s, torch.searchsorted(my_lists[s].contiguous(), rf), pos)
         return of.clamp(0, f - 1) * cap + pos.clamp(max=cap - 1), valid
 
-    def _mp_fwd_dense(self, gname: str, table: torch.Tensor, lists: torch.Tensor, keys_loc: torch.Tensor) -> torch.Tensor:
+    def _mp_fwd_dense(self, gname: str, table: torch.Tensor, lists: torch.Tensor, keys_loc: torch.Tensor,
+                      w_loc: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[b, out_width] outputs of the rank's block by the unique-key
         exchange (`_mp_fwd_dense_local`, collection.py:1069-1095): the rank
         gathers its shard's rows of every block's list, `all_to_all` sends
-        block d's to rank d, and each key takes its row's vector."""
+        block d's to rank d, and each key takes its row's vector (times its
+        weight in the table's type, :1091-1094)."""
         g = self._meta[gname].plan
         r = g.total_local_rows
         want = lists[:, self.rank].reshape(-1)
@@ -818,18 +947,25 @@ class EmbeddingCollection:
         recv = self._all_to_all(send)  # block s's rows: rank s's shard's vectors for this block
         flat, valid = self._dense_positions(gname, lists[self.rank], keys_loc)
         vecs = recv[flat] * valid.reshape(-1, 1).to(recv.dtype)
+        if w_loc is not None:
+            vecs = vecs * torch.where(valid, w_loc, 0.0).reshape(-1, 1).to(vecs.dtype)
         return vecs.reshape(keys_loc.shape[0], g.out_width)
 
-    def _mp_bwd_dense(self, gname: str, table, state, lists, keys_loc, d_loc, lr, step: int) -> str:
+    def _mp_bwd_dense(self, gname: str, table, state, lists, keys_loc, d_loc, lr, step: int,
+                      w_loc: Optional[torch.Tensor] = None) -> str:
         """The update of this rank's shard by the unique-key exchange
         (`_mp_bwd_dense_local`, collection.py:1121-1175): the rank's block's
-        float32 gradient sums per list entry, `all_to_all` to the owners,
+        float32 gradient sums per list entry (each key's cotangent times its
+        weight in the table's type, :1145-1147), `all_to_all` to the owners,
         rounded to the table's type, then `apply_sparse` over the [W x C]
         list with the key-ratio rule off. Returns the route."""
         g = self._meta[gname].plan
         f, cap = self._meta[gname].num_shards, self.dense_exchange_cap
         flat, valid = self._dense_positions(gname, lists[self.rank], keys_loc)
-        dk = d_loc.reshape(-1, g.ev_size).float()
+        dk = d_loc.reshape(keys_loc.shape[0], g.hotness_total, g.ev_size)
+        if w_loc is not None:
+            dk = dk * w_loc.unsqueeze(-1).to(dk.dtype)
+        dk = dk.reshape(-1, g.ev_size).float()
         gbuf = torch.zeros((f * cap + 1, g.ev_size), dtype=torch.float32, device=self.device)
         gbuf.index_add_(0, torch.where(valid.reshape(-1), flat, f * cap), dk)
         recv = self._all_to_all(gbuf[:-1])  # block d's sums for this rank's lists
@@ -849,23 +985,27 @@ class EmbeddingCollection:
         d_outs: Dict[str, torch.Tensor],
         lr: torch.Tensor,
         step: int = 1,
+        feature_weights: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[Tables, Dict[str, Dict[str, torch.Tensor]]]:
         """Fused embedding backward + sparse optimizer update, in place
         (collection.py:1567). d_outs: {top_name: [B, out_width]} cotangents
         from the dense network; `step` is the 1-based global step (Adam's
-        bias corrections). A dynamic group inserts the batch's new keys into
+        bias corrections); `feature_weights` as for `forward`: a weighted
+        key's row gradient is its weight times the cotangent. A dynamic
+        group inserts the batch's new keys into
         its key store before its rows are updated (`_bwd_single`, :1942).
         Over W ranks, `feature_keys` and `d_outs` are the rank's block of
         the batch, the cotangents of the global-batch loss; every rank
         calls this together (collectives). Returns the (updated) inputs."""
         lr = torch.as_tensor(lr, dtype=self.dtype, device=self.device)
-        d_outs = self._expand_d_outs(d_outs, feature_keys)
+        d_outs = self._expand_d_outs(d_outs, feature_keys, feature_weights)
         for g in self.plan.groups:
             keys = self._group_keys(g, feature_keys)
             d_group = torch.cat([d_outs[lm.top_name].to(self.dtype) for lm in g.lookups], dim=1)
             opt = self.group_opt[g.name]
+            w = self._group_weights(g, feature_weights, keys)
             if g.compute_kind == "onehot":
-                grad, colsum = self._onehot_grad(g.name, tables[g.name].dtype, keys, d_group)
+                grad, colsum = self._onehot_grad(g.name, tables[g.name].dtype, keys, d_group, w)
                 # the ranks' rows summed: the gradient rounded once to the
                 # table's type, then one all_reduce of it in that type; the
                 # touch counts in float32 (`_onehot_bwd_local`, :1437-1446)
@@ -882,12 +1022,13 @@ class EmbeddingCollection:
                 )
                 route = "onehot"
             else:
-                route = self._rowop_update(g, tables, opt_state[g.name], keys, d_group, lr, step)
+                route = self._rowop_update(g, tables, opt_state[g.name], keys, d_group, lr, step, w)
             self.route_counts[route] += 1
             self.group_routes[g.name] = route
         return tables, opt_state
 
-    def _rowop_update(self, g: GroupPlan, tables: Tables, state, keys, d_group, lr, step: int) -> str:
+    def _rowop_update(self, g: GroupPlan, tables: Tables, state, keys, d_group, lr, step: int,
+                      weights: Optional[torch.Tensor] = None) -> str:
         """The update of a rowop group from the rank's [b, H] keys and [b,
         out_width] cotangents; returns the route. Over W ranks a
         model-parallel group updates this rank's shard for the whole global
@@ -898,7 +1039,9 @@ class EmbeddingCollection:
         f)` (:1884-1891); a data-parallel group gives every rank the same
         update (`_dp_bwd_local`, :1896). The shared sort of a split table's
         tiers (ROADMAP Queue 2, "split tables") is refused with frozen
-        tables, as the JAX package's `_tier_shared_ok` refuses it (:1741)."""
+        tables, as the JAX package's `_tier_shared_ok` refuses it (:1741).
+        A weighted group's `weights` ([b, H], masked) expand its gradient
+        into per-key rows (`_row_grads`)."""
         opt = self.group_opt[g.name]
         meta = self._meta[g.name]
         key_store = tables.get(f"{g.name}#keys")
@@ -908,13 +1051,16 @@ class EmbeddingCollection:
             if self._dense_exchange_ok(g):
                 lists = self._dense_lists(g.name, gkeys)
                 if lists is not None:
-                    return self._mp_bwd_dense(g.name, tables[g.name], state, lists, keys, d_group, lr, step)
+                    return self._mp_bwd_dense(g.name, tables[g.name], state, lists, keys, d_group, lr, step,
+                                              weights)
             elif meta.num_shards > 1 and self.capacity_factor > 0:
                 k_limit = capacity(gkeys.numel(), self.capacity_factor, meta.num_shards)
             keys, d_group = gkeys, self._gather_rows(d_group)
+            if weights is not None:
+                weights = self._all_gather(weights)
         if key_store is not None:
             self._dynamic_insert(meta, key_store, keys)
-        idx, src, dsrc = self._row_grads(g.name, keys, d_group, key_store)
+        idx, src, dsrc = self._row_grads(g.name, keys, d_group, key_store, weights)
         route = sparse_optimizer.apply_sparse(
             opt, tables[g.name], state, idx, src, dsrc, lr,
             dense_rows=self.dense_update_rows, dense_ratio=self._dense_ratio(g), step=step, k_limit=k_limit,
@@ -946,13 +1092,16 @@ class EmbeddingCollection:
         return self.dense_key_ratio * self._meta[g.name].num_shards
 
     def _onehot_grad(
-        self, gname: str, table_dtype, keys: torch.Tensor, d_group: torch.Tensor
+        self, gname: str, table_dtype, keys: torch.Tensor, d_group: torch.Tensor,
+        weights: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Dense float32 [R, E] gradient + [R] touch counts of the rank's
         rows (collection.py:1407). Each table's kernel adds into its rows of
         the group's float32 buffers, which are zeroed once per group; `d`
         enters in the table's type. A frozen table's lookups launch nothing
-        (:1420-1422)."""
+        (:1420-1422). A weighted lookup's kernel takes its keys' weights: w
+        x d into the gradient, |w| into the touch counts, and its Mean
+        divides by the sum of the weights (:1355-1391)."""
         g = self._meta[gname].plan
         valid, _owner, local_row = self._slot_placement(gname, keys)
         grad = torch.zeros((g.total_local_rows, g.ev_size), dtype=torch.float32, device=self.device)
@@ -965,17 +1114,21 @@ class EmbeddingCollection:
             k_rel = self._onehot_local_keys(g, lm, valid, local_row)
             d = d_group[:, lm.out_begin : lm.out_end].to(table_dtype)
             if lm.combiner == Combiner_t.Mean:
-                d = d / self._count(valid[:, lm.slot_begin : lm.slot_end], d.dtype)
+                d = d / self._mean_denom(lm, valid, weights, d.dtype)
+            w = weights[:, lm.slot_begin : lm.slot_end].contiguous() if weights is not None and lm.sp_weight_name \
+                else None
             onehot_matmul_bwd(
                 k_rel, d.contiguous(), v, torch.float32,
-                out=grad[off : off + v], cnt_out=colsum[off : off + v],
+                out=grad[off : off + v], cnt_out=colsum[off : off + v], weights=w,
             )
         return grad, colsum
 
-    def _grad_source(self, g: GroupPlan, d_out: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    def _grad_source(self, g: GroupPlan, d_out: torch.Tensor, valid: torch.Tensor,
+                     weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B, W] output grads -> compact gradient source [B*S, E]: one row
         per sample for each sum/mean lookup (collection.py:616); Mean
-        divides by the count of `valid`, the raw valid keys (:1827)."""
+        divides by the count of `valid`, the raw valid keys (:1827), or a
+        weighted lookup's sum of weights."""
         b = d_out.shape[0]
         parts = []
         for lm in g.lookups:
@@ -986,17 +1139,20 @@ class EmbeddingCollection:
                 continue
             d = d.reshape(b, 1, g.ev_size)
             if lm.combiner == Combiner_t.Mean:
-                d = d / self._count(valid[:, lm.slot_begin : lm.slot_end], d.dtype).unsqueeze(-1)
+                d = d / self._mean_denom(lm, valid, weights, d.dtype).unsqueeze(-1)
             parts.append(d)
         return torch.cat(parts, dim=1).reshape(-1, g.ev_size)
 
     def _row_grads(
-        self, gname: str, keys: torch.Tensor, d_group: torch.Tensor, key_store=None
+        self, gname: str, keys: torch.Tensor, d_group: torch.Tensor, key_store=None,
+        weights: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(flat row ids with sentinel R, grad-source rows, compact grad
         source) (collection.py:1801); over f shards the keys of the other
         shards take the sentinel too, and so do a frozen table's slots
-        (:1818-1825)."""
+        (:1818-1825). A weighted group expands to one gradient row per key,
+        its weight times its slot's source row in the table's type
+        (:1829-1837), so the update's list has K = B x H rows."""
         meta = self._meta[gname]
         g = meta.plan
         valid, owner, local_row = self._slot_placement(gname, keys, key_store)
@@ -1005,9 +1161,13 @@ class EmbeddingCollection:
         if self.frozen_tables:
             unfrozen = [not self._is_frozen(g.tables[ti].name) for ti in g.slot_table]
             valid = valid & torch.as_tensor(unfrozen, device=valid.device).unsqueeze(0)
-        dsrc = self._grad_source(g, d_group, keys != INVALID_KEY)
+        dsrc = self._grad_source(g, d_group, keys != INVALID_KEY, weights)
         b = keys.shape[0]
         idx = torch.where(valid, local_row, g.total_local_rows).reshape(-1)
+        if weights is not None:
+            dk = dsrc.reshape(b, g.grad_src_slots, g.ev_size)[:, meta.gsrc, :]
+            dk = dk * weights.unsqueeze(-1).to(dk.dtype)
+            return idx, torch.arange(b * g.hotness_total, device=self.device), dk.reshape(-1, g.ev_size)
         src = (
             torch.arange(b, device=self.device).unsqueeze(1) * g.grad_src_slots
             + meta.gsrc.unsqueeze(0)
@@ -1128,15 +1288,195 @@ class EmbeddingCollection:
         self.import_table({g.name: ks}, table_name, torch.from_numpy(keys.astype(np.int32)))
         return tables
 
-    # ------------------------------------- dynamic-table upkeep, not ported
-    @staticmethod
-    def _dynamic_upkeep(what: str):
-        raise NotImplementedError(f"{what} of dynamic tables is not ported yet (ROADMAP Queue 1 item 5)")
+    # ------------------------------------------------ dynamic-table upkeep
+    def _host_key_store(self, tables: Tables, g: GroupPlan) -> np.ndarray:
+        """A host copy of the rank's key store of group `g` (its shard over
+        f shards; collection.py:2282)."""
+        return tables[f"{g.name}#keys"].to("cpu", copy=True).numpy()
+
+    def _probe_np(self, g: GroupPlan, ti: int, keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(int32 key as stored, owner shard, first probed row) of a dynamic
+        table's keys on the host (collection.py:2297-2302)."""
+        f = self._meta[g.name].num_shards
+        k32 = fold_reserved_key(np.asarray(keys).reshape(-1).astype(np.int32))
+        h = hash_mix_np(k32).astype(np.uint64)
+        base = ((h // np.uint64(f)) % np.uint64(int(g.rows_per_shard[ti]))).astype(np.int64)
+        return k32, (h % np.uint64(f)).astype(np.int64), base
+
+    def _dynamic_host_slots(self, ks_host: np.ndarray, g: GroupPlan, ti: int, keys: np.ndarray) -> np.ndarray:
+        """The rank's storage row of each key of dynamic table `ti` that its
+        store holds, probing every one of the NUM_PROBES rows (evict punches
+        holes); -1 where it holds it nowhere, a key of another shard
+        included (collection.py:2292-2315; `_host_find_keys`, :2373, is the
+        same probe)."""
+        k32, owner, base = self._probe_np(g, ti, keys)
+        rows_t, off = int(g.rows_per_shard[ti]), int(g.local_offsets[ti])
+        mine = owner == self._meta[g.name].shard
+        out = np.full(k32.shape, -1, dtype=np.int64)
+        for j in range(NUM_PROBES):
+            local = off + (base + j) % rows_t
+            hit = (out < 0) & mine & (ks_host[local] == k32)
+            out = np.where(hit, local, out)
+        return out
+
+    def _live_slots(self, ks_host: np.ndarray, g: GroupPlan, ti: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(the rank's storage rows, keys) of the keys its store holds for
+        dynamic table `ti`, in row order (collection.py:2342)."""
+        lo, rows_t = int(g.local_offsets[ti]), int(g.rows_per_shard[ti])
+        idx = np.nonzero(ks_host[lo : lo + rows_t] != EMPTY_KEY)[0]
+        return lo + idx, ks_host[lo + idx]
+
+    def _collect_dynamic_entries(self, tables: Tables, opt_state, g: GroupPlan, ti: int):
+        """(keys, rows, {state: rows}) of a dynamic table's resident entries
+        on the rank, rows as host tensors of the storage's dtypes
+        (collection.py:2360)."""
+        slots, live = self._live_slots(self._host_key_store(tables, g), g, ti)
+        idx = torch.as_tensor(slots, device=self.device)
+        vals = tables[g.name][idx].cpu()
+        st = {k: v[idx].cpu() for k, v in opt_state.get(g.name, {}).items()}
+        return live, vals, st
+
+    def _host_insert_keys(self, nks: np.ndarray, g: GroupPlan, ti: int, keys: np.ndarray) -> np.ndarray:
+        """Place `keys` into the host store copy `nks` (in place) one by one,
+        as the JAX package does (collection.py:2402-2436): a key already in
+        one of its NUM_PROBES rows keeps that row, else it takes the first
+        EMPTY one. Returns each key's storage row, -1 for a key dropped (no
+        free row) or of another shard."""
+        k32, owner, base = self._probe_np(g, ti, keys)
+        rows_t, off = int(g.rows_per_shard[ti]), int(g.local_offsets[ti])
+        shard = self._meta[g.name].shard
+        placed = np.full(k32.shape, -1, dtype=np.int64)
+        for i, (k, o, b0) in enumerate(zip(k32.tolist(), owner.tolist(), base.tolist())):
+            if o != shard:
+                continue
+            slots = [off + (b0 + j) % rows_t for j in range(NUM_PROBES)]
+            hit = next((r for r in slots if nks[r] == k), -1)
+            if hit < 0:
+                hit = next((r for r in slots if nks[r] == EMPTY_KEY), -1)
+                if hit >= 0:
+                    nks[hit] = k
+            placed[i] = hit
+        return placed
+
+    def _scatter_all_replicas_multi(self, arrs, rows: np.ndarray, vals_list) -> None:
+        """Set each of `vals_list` at the rank's storage `rows` of the
+        row-aligned `arrs` (table, key store, state), in place
+        (collection.py:2438-2482; every replica of a shard writes its own
+        copy, since each gets the same rows)."""
+        idx = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=self.device)
+        with torch.no_grad():
+            for a, v in zip(arrs, vals_list):
+                a[idx] = torch.as_tensor(v).to(a.device, a.dtype)
+
+    def _gather_rows_multi(self, arrs, rows: np.ndarray):
+        """The `rows` of several row-aligned arrays as host tensors
+        (collection.py:2484)."""
+        idx = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=self.device)
+        return tuple(a[idx].cpu() for a in arrs)
 
     def evict(self, tables: Tables, opt_state, table_name: str, keys):
-        """collection.py:2220; not ported."""
-        self._dynamic_upkeep("eviction")
+        """Reset `keys` of a table, in place: the rows and their optimizer
+        state become 0, and a dynamic table's store frees their rows, so the
+        keys insert again (collection.py:2220-2281; DynamicEmbeddingTable::
+        evict); a static table's rows are zeroed. A split table evicts per
+        tier, each key from the tier whose window holds it. Over W ranks the
+        rank evicts the keys of its shard (every rank calls this). Returns
+        (tables, opt_state)."""
+        k = np.asarray(keys).reshape(-1).astype(np.int64)
+        if table_name in self.plan.table_splits:
+            subs = self.plan.table_splits[table_name]
+            for i, (sub, lo) in enumerate(subs):
+                hi = subs[i + 1][1] if i + 1 < len(subs) else np.iinfo(np.int64).max
+                self.evict(tables, opt_state, sub, k[(k >= lo) & (k < hi)] - lo)
+            return tables, opt_state
+        g, ti = self._find_table(table_name)
+        meta = self._meta[g.name]
+        if g.tables[ti].is_dynamic:
+            return self._evict_dynamic_exact(tables, opt_state, g, ti, k)
+        k32 = k.astype(np.int32).astype(np.int64) % int(g.table_vocab[ti])
+        f = meta.num_shards
+        mine = (k32 + int(g.table_rotation[ti]) % f) % f == meta.shard
+        rows = int(g.local_offsets[ti]) + k32[mine] // f
+        self._zero_rows(tables, opt_state, g, rows)
+        return tables, opt_state
+
+    def _zero_rows(self, tables: Tables, opt_state, g: GroupPlan, rows: np.ndarray) -> None:
+        idx = torch.as_tensor(rows, dtype=torch.int64, device=self.device)
+        with torch.no_grad():
+            tables[g.name][idx] = 0
+            for v in opt_state.get(g.name, {}).values():
+                v[idx] = 0
+
+    def _evict_dynamic_exact(self, tables: Tables, opt_state, g: GroupPlan, ti: int, keys: np.ndarray):
+        """The rows the rank's store holds for `keys` (a host probe over all
+        NUM_PROBES rows): table and state rows 0, store rows EMPTY
+        (collection.py:2317-2340)."""
+        slots = self._dynamic_host_slots(self._host_key_store(tables, g), g, ti, keys)
+        slots = slots[slots >= 0]
+        self._zero_rows(tables, opt_state, g, slots)
+        tables[f"{g.name}#keys"][torch.as_tensor(slots, device=self.device)] = EMPTY_KEY
+        return tables, opt_state
 
     def grow_dynamic_capacity(self, tables: Tables, opt_state, table_name: str, new_capacity: int):
-        """collection.py:2495; not ported."""
-        self._dynamic_upkeep("capacity growth")
+        """Grow a dynamic table to `new_capacity` rows between steps
+        (collection.py:2495-2667). Returns (new collection, its tables, its
+        state): the plan is recompiled with the larger capacity (the same
+        engine settings, strategy and shard counts), every static table's
+        rows and state are copied by key, and every dynamic table's resident
+        keys are re-inserted one by one into the new stores in row order
+        (shard by shard), each carrying its row and state. Rows no key holds
+        start from the new collection's init. Over W ranks every rank calls
+        this together."""
+        g, ti = self._find_table(table_name)
+        if not g.tables[ti].is_dynamic:
+            raise ValueError(f"{table_name} is not a dynamic table")
+        if new_capacity <= int(g.table_vocab[ti]):
+            raise ValueError("new_capacity must exceed the current capacity")
+        dyn_entries = {
+            tt.name: self._collect_dynamic_entries(tables, opt_state, gg, tti)
+            for gg in self.plan.groups for tti, tt in enumerate(gg.tables) if tt.is_dynamic
+        }
+        base = table_name.split("::", 1)[0]
+        new_lookups = [
+            dataclasses.replace(lk, table=dataclasses.replace(lk.table, dynamic_capacity=int(new_capacity)))
+            if lk.table.name.split("::", 1)[0] == base else lk
+            for lk in self.plan.lookups
+        ]
+        strategy, shard_counts = [], {}
+        for gg in self.plan.groups:
+            names = [t.name.split("::", 1)[0] for t in gg.tables]
+            strategy.append(("mp" if gg.is_model_parallel else "dp", names))
+            if gg.is_model_parallel:
+                shard_counts.update(dict.fromkeys(names, gg.num_shards))
+        options = dict(self.plan.options)
+        column_factors = options.pop("column_factors", {})
+        new_plan = compile_plan(new_lookups, ShardingPlan(strategy=strategy, column_factors=column_factors),
+                                num_shards=self.plan.num_shards, shard_counts=shard_counts, **options)
+        new_ec = EmbeddingCollection(new_plan, self.rm, self.opt, **self._settings)
+        new_ec.frozen_tables = set(self.frozen_tables)
+        new_ec.group_opt.update({k: v for k, v in self.group_opt.items() if k in new_ec.group_opt})
+        new_tables = new_ec.init(torch.Generator(device=self.device).manual_seed(0))
+        new_state = new_ec.init_optimizer(new_tables)
+        for gg in self.plan.groups:
+            for tt in gg.tables:
+                if tt.is_dynamic:
+                    continue
+                new_ec.import_table(new_tables, tt.name, self.export_rows(tables, tt.name))
+                ng, _nti = new_ec._find_table(tt.name)
+                for slot, arr in opt_state.get(gg.name, {}).items():
+                    new_ec.import_table({ng.name: new_state[ng.name][slot]}, tt.name,
+                                        self.export_rows({gg.name: arr}, tt.name))
+        for name, (live, vals, st) in dyn_entries.items():
+            ng, nti = new_ec._find_table(name)
+            nks = new_ec._host_key_store(new_tables, ng)
+            placed = new_ec._host_insert_keys(nks, ng, nti, live)
+            ok = placed >= 0
+            okt = torch.from_numpy(ok)
+            slots = list(new_state[ng.name])
+            new_ec._scatter_all_replicas_multi(
+                [new_tables[ng.name], new_tables[f"{ng.name}#keys"], *(new_state[ng.name][k] for k in slots)],
+                placed[ok],
+                [vals[okt], torch.from_numpy(fold_reserved_key(live[ok].astype(np.int32))),
+                 *(st[k][okt] for k in slots)],
+            )
+        return new_ec, new_tables, new_state

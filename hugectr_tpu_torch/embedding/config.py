@@ -8,7 +8,7 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from ..core.types import Combiner_t, CommunicationStrategy
-from ..parallel.plan import EmbeddingTableConfig, ShardingPlan
+from ..parallel.plan import EmbeddingTableConfig, LookupConfig, ShardingPlan
 
 __all__ = ["EmbeddingTableConfig", "EmbeddingCollectionConfig", "SparseEmbedding", "Embedding_t"]
 
@@ -32,6 +32,7 @@ class _LookupDecl:
     bottom_name: str
     top_name: str
     combiner: Combiner_t
+    sp_weight_name: str = ""  # the per-key weight feature ("" = unweighted)
 
 
 class EmbeddingCollectionConfig:
@@ -55,7 +56,10 @@ class EmbeddingCollectionConfig:
         sp_weight_name: Union[str, Sequence[str]] = "",
     ) -> None:
         """List arguments broadcast; one `top_name` shared by N lookups gives
-        one batch-major concatenated output (config.py:65)."""
+        one batch-major concatenated output (config.py:65). `sp_weight_name`
+        names a [batch, hotness] float feature of per-key weights: Sum pools
+        sum(w * row), Mean divides by sum(w), the row gradients scale by w;
+        "" is unweighted (config.py:71-105)."""
         tables = _as_list(table_config)
         n = len(tables)
         bottoms = _as_list(bottom_name, n)
@@ -71,11 +75,7 @@ class EmbeddingCollectionConfig:
         if not len(bottoms) == len(tops) == len(combs) == len(wnames) == n:
             raise ValueError("embedding_lookup: inconsistent list lengths")
         for t, b, tp, c, w in zip(tables, bottoms, tops, combs, wnames):
-            if w:
-                raise NotImplementedError(
-                    "weighted lookups are not ported yet (ROADMAP Queue 1 item 6)"
-                )
-            self.lookup_decls.append(_LookupDecl(t, b, tp, Combiner_t(c)))
+            self.lookup_decls.append(_LookupDecl(t, b, tp, Combiner_t(c), w or ""))
 
     def shard(
         self,
@@ -100,6 +100,15 @@ class EmbeddingCollectionConfig:
                     raise ValueError(
                         f"DP table {name!r} must be present on every device row of shard_matrix"
                     )
+
+    def build_lookup_configs(self) -> List[LookupConfig]:
+        """One `LookupConfig` per declared lookup, top `"{top}:{i}"`, hotness
+        1 until the Model sets the input's (config.py:149-166)."""
+        return [
+            LookupConfig(lookup_id=i, table=d.table, bottom_name=d.bottom_name, top_name=f"{d.top_name}:{i}",
+                         combiner=d.combiner, max_hotness=1, sp_weight_name=d.sp_weight_name)
+            for i, d in enumerate(self.lookup_decls)
+        ]
 
     def sharding_plan(self) -> ShardingPlan:
         return ShardingPlan(strategy=[(k, v) for k, v in (self.shard_strategy or [])],

@@ -354,6 +354,7 @@ class Model:
                         LookupConfig(
                             lookup_id=lid, table=sub, bottom_name=top, top_name=top,
                             combiner=decl.combiner, max_hotness=feat.total_nnz,
+                            sp_weight_name=decl.sp_weight_name,
                         )
                     )
                     self._key_sources[top] = _KeySource(feat.name, 0, feat.total_nnz)
@@ -812,6 +813,21 @@ class Model:
             out[top] = torch.where(k >= 0, k + ks.key_offset, k) if ks.key_offset else k
         return out
 
+    def _feature_weights(self, batch: Dict[str, torch.Tensor]) -> Optional[Dict[str, torch.Tensor]]:
+        """The per-key weights of the weighted lookups (model.py:735-755):
+        each `sp_weight_name` names a [B, hotness] float feature of the
+        batch, taken as float32; None when no lookup is weighted. A missing
+        feature raises KeyError naming it."""
+        names = {lk.sp_weight_name for lk in self.ec.plan.lookups if lk.sp_weight_name} if self.ec else set()
+        if not names:
+            return None
+        out = {}
+        for n in sorted(names):
+            if n not in batch:
+                raise KeyError(f"weighted lookup needs feature {n!r} in the batch (declare it as an input feature)")
+            out[n] = torch.as_tensor(batch[n], device=self.device).float()
+        return out
+
     def _user_tensors(self, emb_outs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The lookups' outputs as the user's tops (model.py:758-772): a
         concatenation, or [B, slots, ev] for a SparseEmbedding."""
@@ -834,10 +850,11 @@ class Model:
         ov = self._lr_override
         lr = torch.tensor(ov if ov >= 0 else float(self.lr_sch(step)), dtype=torch.float32, device=self.device)
         feature_keys = self._feature_keys(batch) if ec is not None else {}
+        weights = self._feature_weights(batch)
         emb_in: Dict[str, torch.Tensor] = {}
         if ec is not None:
             with torch.no_grad():
-                emb_outs = ec.forward(self.tables, feature_keys)
+                emb_outs = ec.forward(self.tables, feature_keys, weights)
             emb_in = {k: v.detach().requires_grad_(True) for k, v in emb_outs.items()}
         tensors = {
             n: batch[n] for n in (*self.batch_spec.label_names, self.batch_spec.dense_name)
@@ -859,7 +876,7 @@ class Model:
         if ec is not None and not self._emb_frozen:
             egrads = {k: v.grad for k, v in emb_in.items()}
             with torch.no_grad():
-                ec.backward_and_update(self.tables, self.eopt, feature_keys, egrads, lr, step)
+                ec.backward_and_update(self.tables, self.eopt, feature_keys, egrads, lr, step, weights)
         self._step = step
         return loss.detach()
 
@@ -927,7 +944,8 @@ class Model:
         {label: labels}) of the loss layers, on the device (model.py:885)."""
         ec = self.ec
         batch = self._decode_batch(batch)
-        emb_outs = ec.forward(self.tables, self._feature_keys(batch)) if ec is not None else {}
+        emb_outs = (ec.forward(self.tables, self._feature_keys(batch), self._feature_weights(batch))
+                    if ec is not None else {})
         tensors = {n: batch[n] for n in (*self.batch_spec.label_names, self.batch_spec.dense_name)}
         tensors.update(self._user_tensors(emb_outs))
         self.network.eval()
@@ -1601,7 +1619,8 @@ class Model:
         elif not all(isinstance(v, torch.Tensor) for v in batch.values()):
             batch = self._put_now(batch)
         batch = self._decode_batch(batch)
-        emb_outs = self.ec.forward(self.tables, self._feature_keys(batch)) if self.ec is not None else {}
+        emb_outs = (self.ec.forward(self.tables, self._feature_keys(batch), self._feature_weights(batch))
+                    if self.ec is not None else {})
         tensors = {n: batch[n] for n in (*self.batch_spec.label_names, self.batch_spec.dense_name)}
         tensors.update(self._user_tensors(emb_outs))
         self.network.eval()

@@ -45,14 +45,14 @@ _SIGNATURES = {
     "hctr_onehot_fwd_group": ([_I, _P, _I, _P, _P, _I, _I, _I, _P], _I),
     # v, h, e -> the forward's route (0 gather, 1 counts matmul)
     "hctr_onehot_fwd_route": ([_I, _I, _I], _I),
-    # d_dtype, keys, d, grad32, cnt, out_bf16, b, h, v, e, accumulate, stream
-    "hctr_onehot_bwd": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    # d_dtype, keys, d, w (or null), grad32, cnt, out_bf16, b, h, v, e, accumulate, stream
+    "hctr_onehot_bwd": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     # e -> rows of one backward tile
     "hctr_onehot_bwd_tile_rows": ([_I], _I),
     # b, h, v, e -> 1 when the backward takes its privatised route
     "hctr_onehot_bwd_privatised": ([_I, _I, _I, _I], _I),
-    # dtype, table, n_rows, rows, offsets, out, n_slots, e, vec, stream
-    "hctr_ordered_pool": ([_I, _P, _I64, _P, _P, _P, _I64, _I, _I, _P], _I),
+    # dtype, table, n_rows, rows, weights (or null), offsets, out, n_slots, e, vec, stream
+    "hctr_ordered_pool": ([_I, _P, _I64, _P, _P, _P, _P, _I64, _I, _I, _P], _I),
 }
 
 _lock = threading.Lock()

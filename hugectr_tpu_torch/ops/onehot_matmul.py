@@ -22,9 +22,18 @@ table's vocabulary. Each lookup is written into its columns of the group's
 key outside [0, V) is padding) and runs the same kernel as a one-lookup
 group.
 
-    forward:   out[b, :] = sum_h [0 <= keys[b,h] < V] * table[keys[b,h], :]
-    backward:  grad[v, :] = sum_{b,h} [keys[b,h] == v] * d[b, :]
-               cnt[v]     = sum_{b,h} [keys[b,h] == v]
+    forward:   out[b, :] = sum_h [0 <= keys[b,h] < V] * w[b,h] * table[keys[b,h], :]
+    backward:  grad[v, :] = sum_{b,h} [keys[b,h] == v] * w[b,h] * d[b, :]
+               cnt[v]     = sum_{b,h} [keys[b,h] == v] * |w[b,h]|
+
+w is 1 unless the caller passes per-key float32 weights (a weighted lookup,
+the JAX package's sp_weight_name, collection.py:1236-1300): a weighted Mean
+divides by the sum of the weights of its non-padding keys (1 where that sum
+is 0), and the touch count of a row sums |w|, so that weights that cancel
+across samples still mark it touched (collection.py:1383-1391). The JAX
+package builds weighted counts in the table's type (bfloat16 weights, a
+bfloat16 sum of a sample's duplicate keys' weights); these sum in float32
+and round once.
 """
 from __future__ import annotations
 
@@ -38,6 +47,8 @@ from . import _lib
 
 LAUNCHES = {"onehot_fwd": 0, "onehot_bwd": 0}  # kernel launches (CUDA tensors)
 PLAIN_CALLS = {"onehot_fwd": 0, "onehot_bwd": 0}  # plain-version calls (CPU)
+# the launches above that carried per-key weights (a weighted lookup)
+WEIGHTED_LAUNCHES = {"onehot_fwd": 0, "onehot_bwd": 0}
 
 MAX_GROUP_LOOKUPS = 48  # kMaxLookups of csrc/onehot_matmul.cu
 FWD_ROUTES = ("gather", "mma")  # FwdRoute of csrc/onehot_matmul.cu, by code
@@ -72,7 +83,7 @@ class _CLookup(ctypes.Structure):
         ("keys", ctypes.c_void_p), ("key_stride", ctypes.c_int64), ("row_off", ctypes.c_int64),
         ("h", ctypes.c_int), ("v", ctypes.c_int), ("out_col", ctypes.c_int),
         ("mean", ctypes.c_int), ("key64", ctypes.c_int), ("key_lo", ctypes.c_int),
-        ("key_hi", ctypes.c_int),
+        ("key_hi", ctypes.c_int), ("weights", ctypes.c_void_p), ("w_stride", ctypes.c_int64),
     ]
 
 
@@ -104,40 +115,63 @@ def place_keys(keys: torch.Tensor, vocab) -> Tuple[torch.Tensor, torch.Tensor]:
     return valid, torch.where(valid, torch.remainder(k32, vocab), 0).long()
 
 
+Weights = Optional[Sequence[Optional[torch.Tensor]]]
+
+
 def onehot_fwd_group_plain(
     keys: Sequence[torch.Tensor], lookups: Sequence[GroupLookup], table: torch.Tensor,
-    out_width: int,
+    out_width: int, weights: Weights = None,
 ) -> torch.Tensor:
     """Per lookup: the placement (int32 cut, window, -1 padding, floor-mod
-    wrap), the pooled sum in float32, the Mean division, one rounding."""
+    wrap), the pooled (weighted) sum in float32, the Mean division by the
+    count of non-padding keys or the sum of their weights (1 where it is
+    0), one rounding."""
     e = table.shape[1]
     out = torch.zeros((keys[0].shape[0], out_width), dtype=table.dtype, device=table.device)
-    for k, lk in zip(keys, lookups):
+    for i, (k, lk) in enumerate(zip(keys, lookups)):
         valid, local = place_keys(window_keys(k, lk.key_lo, lk.key_hi), lk.vocab)
         rows = table[lk.row_off : lk.row_off + lk.vocab].float()[local]
-        o = (rows * valid.unsqueeze(-1)).sum(dim=1)
+        w = weights[i] if weights is not None else None
+        m = valid.float() if w is None else torch.where(valid, w.float(), 0.0)
+        o = (rows * m.unsqueeze(-1)).sum(dim=1)
         if lk.mean:
-            o = o / torch.clamp(valid.sum(dim=1, keepdim=True), min=1).float()
+            den = m.sum(dim=1, keepdim=True)
+            o = o / (torch.clamp(den, min=1.0) if w is None else torch.where(den == 0, 1.0, den))
         out[:, lk.out_begin : lk.out_begin + e] = o.to(table.dtype)
     return out
 
 
-def fwd_route(vocab: int, h: int, e: int, device: torch.device) -> str:
-    """The CUDA forward's route for a lookup: "gather" or "mma"."""
+def fwd_route(vocab: int, h: int, e: int, device: torch.device, weighted: bool = False) -> str:
+    """The CUDA forward's route for a lookup: "gather" or "mma" (a weighted
+    lookup always gathers: the counts matmul's integer counts hold no
+    weights)."""
+    if weighted:
+        return "gather"
     with torch.cuda.device(device):
         code = _lib.library().hctr_onehot_fwd_route(vocab, h, e)
     return FWD_ROUTES[code]
 
 
+def _check_weights(weights: Weights, keys: Sequence[torch.Tensor]) -> None:
+    _lib.require(weights is None or len(weights) == len(keys), "give one weight tensor (or None) per lookup")
+    for w, k in zip(weights or (), keys):
+        if w is not None and not (w.dtype == torch.float32 and tuple(w.shape) == tuple(k.shape)
+                                  and w.device == k.device and (w.shape[1] == 1 or w.stride(1) == 1)):
+            raise ValueError(f"weights must be float32 {tuple(k.shape)} with a unit column stride on {k.device}, "
+                             f"got {w.dtype} {tuple(w.shape)}")
+
+
 def onehot_fwd_group(
     keys: Sequence[torch.Tensor], lookups: Sequence[GroupLookup], table: torch.Tensor,
-    out_width: int,
+    out_width: int, weights: Weights = None,
 ) -> torch.Tensor:
     """Pooled lookups of a one-hot group in one launch: keys[i] ([B, h_i]
     int32/int64, unit column stride) of lookup i into `table` (the group
     storage [R, E]) -> [B, out_width], lookup i in columns
     [out_begin, out_begin + E); on the card, columns no lookup covers are
-    left as allocated. The launcher picks each lookup's route (`fwd_route`)."""
+    left as allocated. `weights[i]` (float32 [B, h_i], unit column stride,
+    or None) weights lookup i's keys. The launcher picks each lookup's
+    route (`fwd_route`)."""
     _lib.require(len(keys) == len(lookups) >= 1, "give one key tensor per lookup")
     _lib.require(
         table.dim() == 2 and table.dtype in _lib.DTYPE_CODE,
@@ -155,19 +189,22 @@ def onehot_fwd_group(
                 and 0 <= lk.key_lo <= INT32_MAX and -1 <= lk.key_hi <= INT32_MAX):
             raise ValueError(f"lookup {lk} outside table rows {table.shape[0]}, width {out_width} "
                              "or the int32 keys")
+    _check_weights(weights, keys)
     if table.device.type == "cpu":
         PLAIN_CALLS["onehot_fwd"] += 1
-        return onehot_fwd_group_plain(keys, lookups, table, out_width)
+        return onehot_fwd_group_plain(keys, lookups, table, out_width, weights)
     _lib.require(table.device.type == "cuda", f"unsupported device {table.device}")
     _lib.require(table.is_contiguous(), "table must be contiguous")
     _lib.require(len(lookups) <= MAX_GROUP_LOOKUPS,
                  f"{len(lookups)} lookups: the kernel takes at most {MAX_GROUP_LOOKUPS}")
     if not all(k.shape[1] == 1 or k.stride(1) == 1 for k in keys):
         raise ValueError("keys need a unit column stride")
+    ws = list(weights) if weights is not None else [None] * len(keys)
     descs = (_CLookup * len(lookups))(*[
         _CLookup(k.data_ptr(), k.stride(0), lk.row_off, k.shape[1], lk.vocab, lk.out_begin,
-                 int(lk.mean), int(k.dtype == torch.int64), lk.key_lo, lk.key_hi)
-        for k, lk in zip(keys, lookups)
+                 int(lk.mean), int(k.dtype == torch.int64), lk.key_lo, lk.key_hi,
+                 w.data_ptr() if w is not None else None, w.stride(0) if w is not None else 0)
+        for k, lk, w in zip(keys, lookups, ws)
     ])
     out = torch.empty((b, out_width), dtype=table.dtype, device=table.device)
     lib = _lib.library()
@@ -178,12 +215,14 @@ def onehot_fwd_group(
         )
     _lib.check(rc, "onehot_fwd_group")
     LAUNCHES["onehot_fwd"] += 1
+    WEIGHTED_LAUNCHES["onehot_fwd"] += any(w is not None for w in ws)
     return out
 
 
 def onehot_matmul_bwd_plain(
     keys: torch.Tensor, d: torch.Tensor, vocab: int, out_dtype: torch.dtype,
     out: Optional[torch.Tensor] = None, cnt_out: Optional[torch.Tensor] = None,
+    weights: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, h = keys.shape
     flat = keys.reshape(-1)
@@ -191,8 +230,13 @@ def onehot_matmul_bwd_plain(
     kk = flat[valid].long()
     src = torch.arange(b, device=keys.device).repeat_interleave(h)[valid]
     grad = torch.zeros((vocab, d.shape[1]), dtype=torch.float32, device=d.device)
-    grad.index_add_(0, kk, d.float()[src])
-    cnt = torch.bincount(kk, minlength=vocab).float()
+    if weights is None:
+        grad.index_add_(0, kk, d.float()[src])
+        cnt = torch.bincount(kk, minlength=vocab).float()
+    else:
+        w = weights.reshape(-1)[valid].float()
+        grad.index_add_(0, kk, d.float()[src] * w.unsqueeze(1))
+        cnt = torch.zeros(vocab, dtype=torch.float32, device=d.device).index_add_(0, kk, w.abs())
     if out is None:
         return grad.to(out_dtype), cnt
     return out.add_(grad), cnt_out.add_(cnt)
@@ -247,10 +291,13 @@ def bwd_route(b: int, h: int, vocab: int, e: int, device: torch.device) -> str:
 def onehot_matmul_bwd(
     keys: torch.Tensor, d: torch.Tensor, vocab: int, out_dtype: torch.dtype,
     out: Optional[torch.Tensor] = None, cnt_out: Optional[torch.Tensor] = None,
+    weights: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weight gradient and touch counts: [B, h] keys x [B, E] cotangents ->
     (grad [V, E] in `out_dtype`, cnt [V] f32). Given `out` and `cnt_out`
-    (contiguous float32 [V, E] and [V]), adds into them and returns them."""
+    (contiguous float32 [V, E] and [V]), adds into them and returns them.
+    `weights` (contiguous float32 [B, h]) scales each key's cotangent, and
+    the counts sum |w|."""
     _check_keys(keys)
     _lib.require(
         d.dim() == 2 and d.shape[0] == keys.shape[0] and d.dtype in _lib.DTYPE_CODE,
@@ -268,11 +315,16 @@ def onehot_matmul_bwd(
             and cnt_out.is_contiguous() and out.device == d.device == cnt_out.device,
             f"out/cnt_out must be contiguous float32 [{vocab}, {e}] / [{vocab}] on {d.device}",
         )
+    if weights is not None:
+        _lib.require(weights.dtype == torch.float32 and weights.shape == keys.shape
+                     and weights.device == keys.device,
+                     f"weights must be float32 {tuple(keys.shape)} on {keys.device}")
     if d.device.type == "cpu":
         PLAIN_CALLS["onehot_bwd"] += 1
-        return onehot_matmul_bwd_plain(keys, d, vocab, out_dtype, out, cnt_out)
+        return onehot_matmul_bwd_plain(keys, d, vocab, out_dtype, out, cnt_out, weights)
     _lib.require(d.device.type == "cuda", f"unsupported device {d.device}")
     _lib.require(keys.is_contiguous() and d.is_contiguous(), "inputs must be contiguous")
+    _lib.require(weights is None or weights.is_contiguous(), "weights must be contiguous")
     b, h = keys.shape
     accumulate = out is not None
     if not accumulate:  # the launcher zeroes them
@@ -284,10 +336,12 @@ def onehot_matmul_bwd(
     lib = _lib.library()
     with torch.cuda.device(d.device):
         rc = lib.hctr_onehot_bwd(
-            _lib.DTYPE_CODE[d.dtype], keys.data_ptr(), d.data_ptr(), out.data_ptr(),
+            _lib.DTYPE_CODE[d.dtype], keys.data_ptr(), d.data_ptr(),
+            weights.data_ptr() if weights is not None else None, out.data_ptr(),
             cnt_out.data_ptr(), grad.data_ptr() if grad is not out else None,
             b, h, vocab, e, int(accumulate), _lib.stream_of(d),
         )
     _lib.check(rc, "onehot_bwd")
     LAUNCHES["onehot_bwd"] += 1
+    WEIGHTED_LAUNCHES["onehot_bwd"] += weights is not None
     return grad, cnt_out

@@ -77,6 +77,10 @@ class LookupConfig:
     key_lo: int = 0
     key_hi: int = -1
     key_shift: int = 0
+    # the [B, hotness] float feature of per-key weights ("" = unweighted,
+    # plan.py:104-106): Sum pools sum(w * row), Mean divides by sum(w), and
+    # the row gradients scale by w
+    sp_weight_name: str = ""
 
     @property
     def out_width(self) -> int:
@@ -118,6 +122,7 @@ class LookupMeta:
     key_lo: int = 0
     key_hi: int = -1
     key_shift: int = 0
+    sp_weight_name: str = ""  # plan.py:155
 
     @property
     def windowed(self) -> bool:
@@ -127,12 +132,14 @@ class LookupMeta:
 @dataclasses.dataclass
 class MergeMeta:
     """A split lookup's user top: the sum of its sub-lookups' tops; Mean
-    divides by the count of the raw valid keys (plan.py:159)."""
+    divides by the count of the raw valid keys, or a weighted lookup's sum
+    of their weights (plan.py:159-170)."""
 
     top_name: str
     sub_tops: List[str]
     combiner: Combiner_t
     bottom_name: str
+    sp_weight_name: str = ""
 
 
 @dataclasses.dataclass
@@ -182,6 +189,11 @@ class GroupPlan:
         return self.mesh_size // self.num_shards if self.is_model_parallel else 1
 
     @property
+    def has_weights(self) -> bool:
+        """Whether a lookup of the group has per-key weights (plan.py:250)."""
+        return any(lm.sp_weight_name for lm in self.lookups)
+
+    @property
     def total_storage_rows(self) -> int:
         if self.is_model_parallel:
             return self.total_local_rows * self.mesh_size
@@ -205,6 +217,9 @@ class CompiledEmbeddingPlan:
     merges: List[MergeMeta] = dataclasses.field(default_factory=list)
     # split table -> [(sub-table name, its first row in the table)]
     table_splits: Dict[str, List[Tuple[str, int]]] = dataclasses.field(default_factory=dict)
+    # the engine thresholds `compile_plan` took, and the column factors, so
+    # that a recompile (`grow_dynamic_capacity`) lays the tables out alike
+    options: Dict[str, object] = dataclasses.field(default_factory=dict)
 
     def group_of_lookup(self, lookup_id: int) -> Tuple[GroupPlan, LookupMeta]:
         for g in self.groups:
@@ -314,7 +329,8 @@ def _split_hot_cold(
         ]
         next_id += len(subs) - 1
         out.extend(subs)
-        merges.append(MergeMeta(lk.top_name, [s.top_name for s in subs], lk.combiner, lk.bottom_name))
+        merges.append(MergeMeta(lk.top_name, [s.top_name for s in subs], lk.combiner, lk.bottom_name,
+                                lk.sp_weight_name))
     return out, merges, splits
 
 
@@ -463,6 +479,7 @@ def compile_plan(
                     key_lo=lk.key_lo,
                     key_hi=lk.key_hi,
                     key_shift=lk.key_shift,
+                    sp_weight_name=lk.sp_weight_name,
                 )
             )
             slot_table.extend([ti] * lk.max_hotness)
@@ -505,4 +522,7 @@ def compile_plan(
     return CompiledEmbeddingPlan(
         groups=groups, lookups=orig_lookups, num_shards=num_shards, merges=merges,
         table_splits=table_splits,
+        options=dict(onehot_vocab=onehot_vocab, split_vocab=split_vocab, hot_rows=hot_rows,
+                     superhot_rows=superhot_rows, warm_rows=warm_rows, shard_rotation=shard_rotation,
+                     group_rows=group_rows, column_factors=dict(plan.column_factors)),
     )

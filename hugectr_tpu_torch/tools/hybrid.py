@@ -590,7 +590,7 @@ def kernel_parity(model, batch: Dict[str, torch.Tensor], seed: int = 5) -> Tree:
                 note("segscan", got, want, scale, [int(sidx.shape[0]), int(keys.numel()), g.ev_size])
             if g.compute_kind == "rowop" and g.is_model_parallel and ec.world > 1 and ec.fwd_partition:
                 keys = all_gather(ec._group_keys(g, fk))
-                srows, offsets = ec._pool_segments(g.name, keys, table.shape[0], model.tables.get(f"{g.name}#keys"))
+                srows, offsets, _w = ec._pool_segments(g.name, keys, table.shape[0], model.tables.get(f"{g.name}#keys"))
                 n_slots = offsets.numel() - 1
                 got = op.ordered_pool(table, srows, offsets)
                 want = op.ordered_pool_plain(table, srows, offsets)
@@ -961,7 +961,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--world", type=int, default=2)
     ap.add_argument("--model", default="tiny",
-                    choices=("tiny", "tiny_bench", "tiny_partial", "dlrm_dcnv2", "bench", "dlrm_ftrl"))
+                    choices=("tiny", "tiny_bench", "tiny_partial", "dlrm_dcnv2", "bench", "dlrm_ftrl", "weighted"))
     ap.add_argument("--dynamic", action="store_true", help="dlrm_ftrl with exact dynamic tables")
     ap.add_argument("--steps", type=int, default=3, help="training steps of a tiny model")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -981,6 +981,8 @@ def main() -> None:
                     help="split the f32 flagship's sorted-route tables (0, 9, 10, 19, 21, 22) column-wise")
     ap.add_argument("--hosts", type=int, default=1,
                     help="start the ranks as on this many hosts (LOCAL_WORLD_SIZE = world / hosts)")
+    ap.add_argument("--batch", type=int, default=0, help="weighted: the global batch (default 16,384)")
+    ap.add_argument("--vocab", type=int, default=0, help="weighted: the table's rows (default 2,000,000)")
     args = ap.parse_args()
     if args.dynamic and args.model != "dlrm_ftrl":
         ap.error("--dynamic is a dlrm_ftrl setting")
@@ -989,6 +991,18 @@ def main() -> None:
     head = {"world": args.world, "backend": backend, "model": args.model, "hosts": args.hosts,
             "num_slices": args.num_slices, "ev_parallelism": args.ev_parallelism,
             "comm_strategy": args.comm_strategy, "column_factor": args.column_factor}
+    if args.model == "weighted":
+        from . import weighted
+
+        cfg = dict(tiers=True, steps=args.steps, seed=0, batch=args.batch or weighted.BATCH,
+                   vocab=args.vocab or weighted.VOCAB, dtype="bfloat16")
+        ranks = run(weighted.rank_run, args.world, {"config": json.dumps(cfg)}, backend=backend,
+                    device=args.device, timeout=1800.0, hosts=args.hosts)
+        keys = ("median_ms_per_step", "routes", "launches_per_step", "weighted_launches_per_step",
+                "collective_calls_per_step", "peak_memory_bytes", "pool_checks")
+        print(json.dumps({**head, **cfg, "staged_through_host": backend == "gloo",
+                          "ranks": [{k: jsonable(r[k]) for k in keys} for r in ranks]}))
+        return
     if args.model.startswith("tiny"):
         cfg = tiny_config(args.model, args.steps)
         cfg = dict(cfg, kwargs=dict(cfg["kwargs"], **lay.get("kwargs", {})), **{k: v for k, v in lay.items() if k == "mesh"})

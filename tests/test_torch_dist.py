@@ -251,23 +251,111 @@ def _tiny(rm, **kw):
     return tflagship.build_tiny_dlrm(rm, batchsize=8, **kw)
 
 
+def _weighted_plans_over_ranks():
+    """`embedding_lookup(sp_weight_name=)` at 2 ranks: the plans of weighted
+    Sum, Mean and Concat lookups (a split table with a superhot tier among
+    them) equal the JAX package's, weights and merges included."""
+    def lookups(pkg, comb):
+        big = pkg.EmbeddingTableConfig("big", 400, 4)
+        t = pkg.EmbeddingTableConfig("t", 10, 4)
+        return [pkg.LookupConfig(0, big, "f0", "e0", comb.Mean, 3, sp_weight_name="w0"),
+                pkg.LookupConfig(1, t, "f1", "e1", comb.Sum, 2, sp_weight_name="w1"),
+                pkg.LookupConfig(2, t, "f2", "e2", comb.Concat, 2)]
+
+    cfg = hugectr.EmbeddingCollectionConfig()
+    cfg.embedding_lookup(hugectr.EmbeddingTableConfig("t", 10, 4), "d", "e", "sum", sp_weight_name="w")
+    assert cfg.build_lookup_configs()[0].sp_weight_name == "w"
+    env = {"HCTR_TPU_HOT_ROWS": "16", "HCTR_TPU_SUPERHOT_ROWS": "8", "HCTR_TPU_ONEHOT_VOCAB": "8",
+           "HCTR_TPU_SPLIT_VOCAB": "0"}
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in env.items():
+            mp.setenv(k, v)
+        jp = jplan.compile_plan(lookups(jplan, JComb), jplan.ShardingPlan([]), 2)
+    tp = tplan.compile_plan(lookups(tplan, TComb), tplan.ShardingPlan([]), 2, hot_rows=16, superhot_rows=8,
+                            onehot_vocab=8, split_vocab=0)
+    assert [(m.top_name, m.sp_weight_name) for m in tp.merges] == [(m.top_name, m.sp_weight_name) for m in jp.merges]
+    for tg, jg in zip(tp.groups, jp.groups, strict=True):
+        assert (tg.name, tg.has_weights, tg.num_shards) == (jg.name, jg.has_weights, jg.num_shards)
+        assert [lm.sp_weight_name for lm in tg.lookups] == [lm.sp_weight_name for lm in jg.lookups]
+
+
+def _upkeep_over_ranks(what):
+    """`evict` / `grow_dynamic_capacity` on each of 2 ranks (no group: the
+    dynamic tables' upkeep and a static table's eviction make no
+    collective) from the blocks of the JAX package's 2-device storage after
+    a step: each rank's storage, store and state equal JAX's block of the
+    rank after the same call, bit for bit (the rows of keys; fresh rows
+    start from each package's init)."""
+    def lookups(pkg, comb):
+        dyn = pkg.EmbeddingTableConfig("dyn", -1, 4, dynamic_capacity=16)
+        st = pkg.EmbeddingTableConfig("st", 30, 4)
+        out = [pkg.LookupConfig(0, dyn, "f0", "e0", comb.Sum, 2)]
+        return out + ([pkg.LookupConfig(1, st, "f1", "e1", comb.Sum, 2)] if what == "eviction" else [])
+
+    rng = np.random.default_rng(12)
+    feats = {"f0": rng.integers(0, 60, (8, 2)).astype(np.int32), "f1": rng.integers(0, 30, (8, 2)).astype(np.int32)}
+    d = {"e0": rng.normal(size=(8, 4)).astype(np.float32), "e1": rng.normal(size=(8, 4)).astype(np.float32)}
+    if what != "eviction":
+        feats, d = {"f0": feats["f0"]}, {"e0": d["e0"]}
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in {"HCTR_TPU_ONEHOT_VOCAB": "0", "HCTR_TPU_DENSE_UPDATE_ROWS": "0"}.items():
+            mp.setenv(k, v)
+        jpl = jplan.compile_plan(lookups(jplan, JComb), jplan.ShardingPlan([]), 2)
+        jec = JEC(jpl, JaxResourceManager.create(num_devices=2), JOptParams(JOpt.AdaGrad, lr=0.5))
+        import jax
+
+        jt = jec.init(jax.random.key(0))
+        js = jec.init_optimizer(jt)
+        jt, js = jax.jit(jec.backward_and_update)(jt, js, feats, d, jnp.asarray(0.5), jnp.asarray(1))
+        g = jpl.groups[0]
+        r_loc = g.total_local_rows
+        block = lambda a, r: torch.from_numpy(np.array(a[r * r_loc:(r + 1) * r_loc]))  # noqa: E731
+        ports = []
+        for r in range(2):
+            tec = TEC(tplan.compile_plan(lookups(tplan, TComb), tplan.ShardingPlan([]), 2, onehot_vocab=0),
+                      _rm(2, r), TOptParams(TOpt.AdaGrad, lr=0.5))
+            tt = {k: block(v, r) for k, v in jt.items()}
+            ts = {gn: {k: block(v, r) for k, v in st.items()} for gn, st in js.items()}
+            ports.append((tec, tt, ts))
+        if what == "eviction":
+            keys = np.concatenate([np.unique(feats["f0"])[:5], [777]])
+            jt, js = jec.evict(jt, js, "dyn", keys)
+            jt, js = jec.evict(jt, js, "st", np.array([0, 1, 2, 3, 29]))
+            for tec, tt, ts in ports:
+                tec.evict(tt, ts, "dyn", keys)
+                tec.evict(tt, ts, "st", np.array([0, 1, 2, 3, 29]))
+        else:
+            jec, jt, js = jec.grow_dynamic_capacity(jt, js, "dyn", 64)
+            ports = [tec.grow_dynamic_capacity(tt, ts, "dyn", 64) for tec, tt, ts in ports]
+            g = jec.plan.groups[0]
+            r_loc = g.total_local_rows
+    for r, (tec, tt, ts) in enumerate(ports):
+        assert tec.plan.groups[0].total_local_rows == r_loc
+        ks = tt[f"{g.name}#keys"].numpy()
+        np.testing.assert_array_equal(ks, block(jt[f"{g.name}#keys"], r).numpy())
+        rows = torch.from_numpy(ks != 2**31 - 1) if what != "eviction" else slice(None)
+        assert torch.equal(tt[g.name][rows], block(jt[g.name], r)[rows])
+        for k, v in ts[g.name].items():
+            assert torch.equal(v[rows], block(js[g.name][k], r)[rows])
+
+
+# What raised over two ranks before the port had it: each is now held
+# against the JAX package over two ranks
 DEFERRED = {
-    "weighted_lookup": ("6", lambda: hugectr.EmbeddingCollectionConfig().embedding_lookup(
-        hugectr.EmbeddingTableConfig("t", 10, 4), "d", "e", "sum", sp_weight_name="w")),
-    "eviction": ("5", lambda: _tiny(_rm(2)).ec.evict({}, {}, "0", None)),
-    "capacity_growth": ("5", lambda: _tiny(_rm(2)).ec.grow_dynamic_capacity({}, {}, "0", 8)),
+    "weighted_lookup": _weighted_plans_over_ranks,
+    "eviction": lambda: _upkeep_over_ranks("eviction"),
+    "capacity_growth": lambda: _upkeep_over_ranks("capacity_growth"),
 }
 
 
 @pytest.mark.parametrize("what", list(DEFERRED))
 def test_deferred_over_ranks_raise(what):
-    """What the port does not do yet raises and names its ROADMAP item,
-    over two ranks as over one (the hierarchical mesh, its communication
-    and the multi-host reader, which raised here before, are ported:
-    tests/test_torch_meshes.py)."""
-    item, fn = DEFERRED[what]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-        fn()
+    """What raised over two ranks until it was ported, now held against the
+    JAX package at 2 ranks: weighted lookups' plans, and each rank's
+    eviction and capacity growth of its shard (the hierarchical mesh, its
+    communication and the multi-host reader, which raised here before, are
+    ported too: tests/test_torch_meshes.py)."""
+    DEFERRED[what]()
 
 
 def _model_of(**kw):

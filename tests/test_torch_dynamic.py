@@ -250,19 +250,37 @@ def test_dynamic_tables_never_take_onehot_or_split():
 
 @pytest.mark.parametrize("what", ["export_key_store", "import_key_store", "evict", "grow_dynamic_capacity"])
 def test_dynamic_upkeep_not_ported(what, mesh1, monkeypatch):
-    """Eviction and capacity growth still raise, naming ROADMAP Queue 1
-    item 5. Key-store export and import are ported: after a step, the
-    port's store of the dynamic table equals the JAX package's
-    `export_key_store`, a static table has none, and the store imported
-    into a fresh collection reads back bitwise."""
-    if what in ("evict", "grow_dynamic_capacity"):
-        tec = TEC(tplan.compile_plan(_lookups(tplan, TComb, 16), tplan.ShardingPlan([]), 1), CPU,
-                  TOptParams(TOpt.SGD))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-            getattr(tec, what)(*([None] * (getattr(tec, what).__code__.co_argcount - 1)))
-        return
+    """The key store's upkeep, all ported: after a step, the port's store
+    of the dynamic table equals the JAX package's `export_key_store`, a
+    static table has none, and the store imported into a fresh collection
+    reads back bitwise; `evict` of resident, absent and static keys, and
+    `grow_dynamic_capacity` of the dynamic table to 4x, give JAX's stores
+    bitwise and its tables, then one more step of both agrees
+    (tests/test_torch_upkeep.py has the other cases)."""
     p = Pair(mesh1, monkeypatch)
     p.step(_feats(np.random.default_rng(6), 16, 200), _grads(np.random.default_rng(7), 16))
+    if what in ("evict", "grow_dynamic_capacity"):
+        store = p.store().copy()
+        if what == "evict":
+            keys = np.concatenate([store[store != EMPTY][:6], [5000]])
+            p.jt, p.js = p.jec.evict(p.jt, p.js, "dyn", keys)
+            p.tec.evict(p.tt, p.ts, "dyn", keys)
+            p.jt, p.js = p.jec.evict(p.jt, p.js, "st", np.array([3, 4]))
+            p.tec.evict(p.tt, p.ts, "st", np.array([3, 4]))
+            assert (p.store() != EMPTY).sum() == (store != EMPTY).sum() - 6
+        else:
+            p.jec, p.jt, p.js = p.jec.grow_dynamic_capacity(p.jt, p.js, "dyn", 256)
+            p.tec, p.tt, p.ts = p.tec.grow_dynamic_capacity(p.tt, p.ts, "dyn", 256)
+            p.jfwd, p.jbwd = jax.jit(p.jec.forward), jax.jit(p.jec.backward_and_update)
+            # a fresh dynamic row starts from each package's own init
+            fresh = np.zeros(p.tt[p.g].shape[0], bool)
+            fresh[:256] = p.store()[:256] == EMPTY
+            p.tt[p.g][torch.from_numpy(fresh)] = 0
+            p.jt[p.g] = p.jt[p.g].at[np.nonzero(fresh)[0]].set(0)
+            assert (p.store() != EMPTY).sum() == (store != EMPTY).sum()
+        p.check()
+        p.step(_feats(np.random.default_rng(8), 16, 200), _grads(np.random.default_rng(9), 16))
+        return
     want = p.jec.export_key_store(p.jt, "dyn")
     assert p.tec.export_key_store(p.tt, "st") is None and p.jec.export_key_store(p.jt, "st") is None
     np.testing.assert_array_equal(p.tec.export_key_store(p.tt, "dyn"), want)

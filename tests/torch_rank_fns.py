@@ -148,6 +148,32 @@ for _cap in (64, 2):
         engine=dict(onehot_vocab=0, split_vocab=0, dense_update_rows=1000, dense_key_ratio=0.0,
                     dense_exchange_cap=_cap),
         env=dict(_DX_ENV, HCTR_TPU_DENSE_EXCHANGE_CAP=str(_cap)), dtype="float32", batch=32)
+# Weighted lookups (tests/test_torch_weighted.py): a spec row's seventh
+# entry names its per-key weight feature. "weighted": the lookups of the JAX
+# package's tests/test_weighted_lookup.py:24-34 (weighted Sum, Mean and
+# Concat lookups beside an unweighted Sum one), every table model-parallel
+# on the sorted route, so that W = 2 takes the owner-partitioned forward with
+# the weights riding its sort; "weighted_bf16" with bf16 tables and state;
+# "weighted_onehot" with t0 and t1 in the replicated one-hot group;
+# "weighted_dx64": weighted Concat lookups on the unique-key dense exchange.
+_W_SPEC = [("t0", 100, "f0", "e0", "sum", 4, "w0"), ("t1", 57, "f1", "e1", "mean", 3, "w1"),
+           ("t0", 100, "f2", "e2", "sum", 2), ("t2", 31, "f3", "e3", "concat", 2, "w3")]
+_W_ENV = {"HCTR_TPU_ONEHOT_VOCAB": "0", "HCTR_TPU_SPLIT_VOCAB": "0", "HCTR_TPU_DENSE_UPDATE_ROWS": "0",
+          "HCTR_TPU_DENSE_KEY_RATIO": "0", "HCTR_TPU_SEGSUM": "xla", "HCTR_TPU_HOT_ROWS": "0",
+          "HCTR_TPU_ONEHOT_KERNEL": "xla"}
+CASES["weighted"] = dict(spec=_W_SPEC, strategy=[("mp", ["t0", "t1", "t2"])], shard_counts=None,
+                         engine=dict(onehot_vocab=0, split_vocab=0, dense_update_rows=0, dense_key_ratio=0.0),
+                         env=_W_ENV, dtype="float32", batch=32, seed=53)
+CASES["weighted_bf16"] = dict(CASES["weighted"], dtype="bfloat16",
+                              env=dict(_W_ENV, HCTR_TPU_EMB_STATE_DTYPE="bfloat16"))
+CASES["weighted_onehot"] = dict(CASES["weighted"], engine=dict(CASES["weighted"]["engine"], onehot_vocab=128),
+                                env=dict(_W_ENV, HCTR_TPU_ONEHOT_VOCAB="128"))
+CASES["weighted_dx64"] = dict(
+    spec=[("t0", 96, "f0", "e0", "concat", 4, "w0"), ("t1", 64, "f1", "e1", "concat", 3, "w1"),
+          ("t0", 96, "f2", "e2", "concat", 2)],
+    strategy=[("mp", ["t0", "t1"])], shard_counts=None,
+    engine=dict(onehot_vocab=0, split_vocab=0, dense_update_rows=1000, dense_key_ratio=0.0, dense_exchange_cap=64),
+    env=dict(_DX_ENV, HCTR_TPU_DENSE_EXCHANGE_CAP="64"), dtype="float32", batch=32, seed=59)
 # the settings of the exchanges, as `EmbeddingCollection` takes them
 EXCHANGE_SETTINGS = ("fwd_partition", "capacity_factor", "dense_exchange_cap")
 
@@ -156,10 +182,28 @@ def ec_lookups(pkg, comb, case="base"):
     """The collection's lookups in `pkg` (either package's plan module)."""
     tables = {}
     out = []
-    for i, (t, v, f, top, c, h) in enumerate(CASES[case]["spec"]):
+    for i, (t, v, f, top, c, h, *w) in enumerate(CASES[case]["spec"]):
         cfg = pkg.EmbeddingTableConfig(t, v, 8) if v > 0 else pkg.EmbeddingTableConfig(t, -1, 8, dynamic_capacity=-v)
         tables.setdefault(t, cfg)
-        out.append(pkg.LookupConfig(i, tables[t], f, top, comb(c), h))
+        out.append(pkg.LookupConfig(i, tables[t], f, top, comb(c), h, sp_weight_name=w[0] if w else ""))
+    return out
+
+
+def ec_weights(b: int, case: str):
+    """The per-key weights of a case's weighted lookups: signed normal
+    weights, a Mean lookup's positive, its sample 1 all 0 (the zero-sum
+    guard), from a stream of their own, so the other inputs stay as they
+    were."""
+    rng = np.random.default_rng(CASES[case].get("seed", 0) + 101)
+    out = {}
+    for _t, _v, _f, _top, c, h, *w in CASES[case]["spec"]:
+        if not w:
+            continue
+        if c == "mean":
+            out[w[0]] = (rng.random((b, h)) + 0.1).astype(np.float32)
+            out[w[0]][1] = 0.0
+        else:
+            out[w[0]] = rng.normal(size=(b, h)).astype(np.float32)
     return out
 
 
@@ -168,7 +212,7 @@ def ec_keys(rng, b, case="base"):
     beside valid ones (a dynamic table's keys below twice its capacity);
     sample 0 all padding."""
     feats = {}
-    for _t, v, f, _top, _c, h in CASES[case]["spec"]:
+    for _t, v, f, _top, _c, h, *_w in CASES[case]["spec"]:
         if v < 0:
             k = rng.integers(0, -2 * v, size=(b, h)).astype(np.int32)
             k[rng.random((b, h)) < 0.15] = -1
@@ -202,10 +246,14 @@ def ec_inputs(optimizer, b, steps, lr, case="base", **layout):
     tables = {t: (rng.normal(size=(v, 8)) * 0.1).astype(np.float32) for t, v, *_ in spec if v > 0}
     # a Concat lookup's output holds one ev-wide column block per slot
     d = {str(s): {top: rng.normal(size=(b, 8 * (h if c == "concat" else 1))).astype(np.float32)
-                  for _t, _v, _f, top, c, h in spec}
+                  for _t, _v, _f, top, c, h, *_w in spec}
          for s in range(1, steps + 1)}
     cfg = dict(optimizer=optimizer, steps=steps, lr=lr, case=case, **layout)
-    return {"config": json.dumps(cfg), "tables": tables, "keys": ec_keys(rng, b, case), "d": d}
+    out = {"config": json.dumps(cfg), "tables": tables, "keys": ec_keys(rng, b, case), "d": d}
+    weights = ec_weights(b, case)
+    if weights:
+        out["w"] = weights
+    return out
 
 
 def block(arr: np.ndarray, rank: int, world: int) -> np.ndarray:
@@ -263,14 +311,15 @@ def collection_steps(rm, inputs):
     state = ec.init_optimizer(tables)
     w, r = rm.data_parallel_size, rm.data_index
     feats = {f: torch.from_numpy(block(k, r, w)).to(rm.device) for f, k in inputs["keys"].items()}
+    fw = {n: torch.from_numpy(block(x, r, w)).to(rm.device) for n, x in inputs["w"].items()} if "w" in inputs else None
     out = {"fwd": {}}
     mesh.COLLECTIVE_CALLS.clear()
     mesh.COLLECTIVE_BYTES.clear()
     for step in range(1, cfg["steps"] + 1):
-        outs = ec.forward(tables, feats)
+        outs = ec.forward(tables, feats, fw)
         out["fwd"][str(step)] = {k: v.float().cpu().numpy() for k, v in outs.items()}
         d = {k: torch.from_numpy(block(v, r, w)).to(rm.device, dt) for k, v in inputs["d"][str(step)].items()}
-        ec.backward_and_update(tables, state, feats, d, torch.tensor(cfg["lr"]), step)
+        ec.backward_and_update(tables, state, feats, d, torch.tensor(cfg["lr"]), step, fw)
     out["tables"] = {t: ec.export_table(tables, t) for t in sorted(inputs.get("tables", {}))}
     out["storage"] = {g: (t.float() if t.is_floating_point() else t).cpu().numpy() for g, t in tables.items()}
     out["state"] = {g: {k: t.float().cpu().numpy() for k, t in st.items()} for g, st in state.items()}
@@ -302,3 +351,40 @@ def several(rm, inputs):
     fns = dict(collection_cases=collection_cases, bf16_sum=bf16_sum, train_model=hybrid.train_model,
                snapshot_round_trip=hybrid.snapshot_round_trip)
     return {key: fns[name](rm, inputs[key]) for key, name in calls.items()}
+
+
+def sok_ranks(rm, inputs):
+    """tests/test_torch_sok.py's ranks: a weighted `sok.LookupEngine` (tables
+    a and b, Sum and Mean) with the tables of inputs, this rank's block of
+    the keys looked up with their weights and one `OptimizerWrapper` update
+    (rowwise AdaGrad) from its block of the cotangents; the tables in key
+    order, then `sok.dump` to inputs["path"] (rank 0 writes); a dynamic
+    variable updated from the rank's keys of k0, and its `size` over the
+    ranks beside the batch's distinct keys."""
+    from hugectr_tpu_torch import sok
+    from hugectr_tpu_torch.parallel.plan import EmbeddingTableConfig
+
+    settings = dict(onehot_vocab=0, dense_update_rows=0, dense_key_ratio=0.0)
+    sok.init(rm)
+    eng = sok.LookupEngine([EmbeddingTableConfig("a", 100, 8), EmbeddingTableConfig("b", 50, 8)], hotness=[3, 2],
+                           combiners=["sum", "mean"], opt=OptParams(Optimizer_t.RowWiseAdaGrad, lr=0.1),
+                           use_sp_weight=True, **settings)
+    tables = eng.init(0)
+    for name, values in inputs["tables"].items():
+        eng.ec.import_table(tables, name, values)
+    w, r = rm.data_parallel_size, rm.data_index
+    keys = [block(inputs["k0"], r, w), block(inputs["k1"], r, w)]
+    ws = [block(inputs["w0"], r, w), block(inputs["w1"], r, w)]
+    ds = [block(inputs["d0"], r, w), block(inputs["d1"], r, w)]
+    outs = sok.lookup_sparse(eng, tables, keys, sp_weights=ws)
+    wrapper = sok.OptimizerWrapper(eng)
+    wrapper.apply_gradients(tables, wrapper.initialize(tables), keys, ds, 0.1, 1, sp_weights=ws)
+    out = {"out": {str(i): o.numpy() for i, o in enumerate(outs)},
+           "tables": {n: eng.ec.export_table(tables, n) for n in ("a", "b")}}
+    sok.dump(bytes(inputs["path"]).decode(), eng, tables)
+    dv = sok.DynamicVariable(dimension=8, initial_capacity=256, max_hotness=3, **settings)
+    dv.apply_gradients(keys[0], ds[0], lr=0.1)
+    k0 = inputs["k0"]
+    out["size"] = dv.size
+    out["global_keys"] = int(np.unique(k0[k0 >= 0]).size)
+    return out
