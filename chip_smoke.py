@@ -198,6 +198,30 @@ Each phase prints one JSON line with its own seconds:
    weighted ordered pool on every rank, bitwise against its plain version
    on each rank's shapes.
 
+14. The serving path and the rest of the module surface:
+   "serving_path" (inside "snapshot_path", on its full-width static
+   DLRM-FTRL and its snapshot): `graph_to_json`, the model rebuilt from the
+   graph file with its snapshot loaded (`Model.construct_from_json`,
+   `load_params_from_files`), `tools/predict.py::predict` over 4 eval
+   batches of 16,384, bitwise against the trained model's own eval
+   predictions (else the largest difference, within 1e-6 relative), the
+   launches of the sweep (`onehot_fwd` once a batch); then
+   `tools/hugectr2onnx.py::convert` of the snapshot without the tables,
+   every float initializer of the ONNX file bitwise one of
+   `dense_model.npz`'s arrays; ex/s, host seconds, the rebuild-and-load
+   and conversion seconds, the file's bytes. "layers_parity" (after
+   "weighted_parity"): the eleven layer types no sample uses, the MLP's
+   ELU and GELU and both regularizers, card against CPU at batch 2,048
+   (GRU at DIN's history widths: 10 steps of 36, 36 out; MatrixMultiply
+   [2,048, 10, 36] x [2,048, 36, 10]; BatchNorm over 512 features), f32
+   and bf16, forward and gradients; then 3 steps of a graph with GRU,
+   BatchNorm and an L2 regularizer, card against CPU from one state.
+   "cache_path" (after "sok_path"): a `UvmTable` over a 2,000,000 x 128
+   host master with a 131,072-entry cache of 8 ways, 20 power-law batches
+   of 16,384 x 20 keys: every row bitwise the master's, the hit rate a
+   batch and ms a query; one `EmbeddingCache` sequence with repeated and
+   colliding keys, the card's state bitwise the CPU's.
+
 Then a "kernels" JSON line (per kernel: source, the TPU kernel it replaces,
 main-path launches, error, ms, device_ms, plain_ms, bound_ms, bound_by,
 library_ms, for the float32 flagship case with the most device time; for
@@ -213,7 +237,8 @@ segscan its E 64 case (`column_case`); and the ordered pool: its
 launches on rank 0 of the hybrid path, steps and eval, beside its f32,
 bf16 and E 64 cases; and each kernel's `weighted_case`: its bf16
 weighted case with the most device time and its launches on
-`weighted_path`, the ordered pool's on rank 0 of `hybrid_weighted_path`),
+`weighted_path`, the ordered pool's on rank 0 of `hybrid_weighted_path`;
+and each kernel's launches on `serving_path`),
 a line with the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that line;
 so does a machine without CUDA.
@@ -2383,7 +2408,7 @@ def snapshot_bytes_predicted(model) -> int:
     return n
 
 
-def snapshot_run(torch, dynamic: bool):
+def snapshot_run(torch, dynamic: bool, eval_batches: int = 1):
     """Full-width DLRM-FTRL (`ftrl_path`'s model, or the dynamic one):
     3 steps, a snapshot into a temporary directory, a second model from
     another seed that loads it, the arrays that differ bitwise, then both
@@ -2398,7 +2423,7 @@ def snapshot_run(torch, dynamic: bool):
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     build = lambda seed: build_dlrm_ftrl(ResourceManager.create(), batchsize=B, dynamic=dynamic, ev_size=E,
-                                         synthetic_batches=6, max_eval_batches=1, seed=seed)
+                                         synthetic_batches=6, max_eval_batches=eval_batches, seed=seed)
     a = build(0)
     a.start_data_reading()
     batches = [next(a._train_iter) for _ in range(6)]  # one pass: the cycle is back at batch 0
@@ -2444,12 +2469,110 @@ def snapshot_path(torch):
     equal; 3 more steps of both on the same batches agree within 1e-6
     relative (the one-hot backward's global atomics promise no bitwise
     sums). Reports the bytes written beside the plan's prediction, the
-    seconds to write and to load and the peak memory."""
-    rec, a, _batches, tmp = snapshot_run(torch, dynamic=False)
-    tmp.cleanup()
-    del a
+    seconds to write and to load and the peak memory. Then, on the same
+    model and snapshot, `serving_path`; returns its launches."""
+    rec, a, _batches, tmp = snapshot_run(torch, dynamic=False, eval_batches=SERVE_BATCHES)
     emit(rec)
     check_snapshot_run(rec)
+    try:
+        return serving_path(torch, a, os.path.join(tmp.name, "snap_iter3"), tmp.name)
+    finally:
+        tmp.cleanup()
+        del a
+
+
+SERVE_BATCHES = 4
+
+
+def onnx_initializers(onnx_writer, buf: bytes):
+    """(dims, ONNX data type, name, raw bytes) of each initializer of an
+    ONNX model file (ModelProto.graph = 7, GraphProto.initializer = 5,
+    TensorProto dims = 1, data_type = 2, name = 8, raw_data = 9)."""
+    graph = next(v for f, _w, v in onnx_writer.decode_fields(buf) if f == 7)
+    out = []
+    for f, _w, v in onnx_writer.decode_fields(graph):
+        if f == 5:
+            t = onnx_writer.decode_fields(v)
+            out.append((tuple(x for g, _w2, x in t if g == 1), next(x for g, _w2, x in t if g == 2),
+                        next(x for g, _w2, x in t if g == 8).decode(), next(x for g, _w2, x in t if g == 9)))
+    return out
+
+
+def serving_path(torch, model, snap_dir: str, tmp_dir: str):
+    """The serving path at full width: the trained static DLRM-FTRL (26
+    tables, ev 128, Reshape, Interaction, MLPs 512/256/128 and
+    1024/1024/512/256/1) and its snapshot. `graph_to_json`; the trained
+    model, set back to the snapshot's state, and its own eval predictions
+    on its SERVE_BATCHES cached eval batches;
+    the model rebuilt from the graph file and the snapshot as `predict`
+    rebuilds it (`construct_from_json`, `load_params_from_files`), timed;
+    `predict` over SERVE_BATCHES batches of the same seeded eval source,
+    the launch counts set to 0 just before and read just after. The eval
+    forward has no atomics, so the predictions must be bitwise the trained
+    model's; where they are not, the largest relative difference is
+    printed with the reason and held at 1e-6. Then `convert` of the
+    snapshot without the tables (`convert_embedding=True` would inline
+    3.4 GB of tables, past protobuf's 2 GB): every float initializer
+    bitwise one of `dense_model.npz`'s arrays, one for one. Returns the
+    launches."""
+    import numpy as np
+
+    from hugectr_tpu_torch import ops
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.model.model import Model
+    from hugectr_tpu_torch.tools import hugectr2onnx, onnx_writer
+    from hugectr_tpu_torch.tools.predict import predict
+
+    t0 = time.perf_counter()
+    graph = os.path.join(tmp_dir, "graph.json")
+    model.graph_to_json(graph)
+    model.load_params_from_files(snap_dir)  # `snapshot_run` trained it on past the snapshot
+    source, _feeder, _fed = model._eval_batches()
+    want = torch.cat([model._eval_step(b)[1]["label"] for b in source]).cpu()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    served = Model.construct_from_json(graph, reader_params=model.reader_params,
+                                       resource_manager=ResourceManager.create())
+    served.load_params_from_files(snap_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    ops.reset_counts()
+    t = time.perf_counter()
+    preds = predict(graph, snap_dir, model.reader_params, max_batches=SERVE_BATCHES, model=served)["label"]
+    predict_s = time.perf_counter() - t
+    launches = ops.launch_counts()
+    got = torch.from_numpy(preds)
+    bitwise = tuple(got.shape) == tuple(want.shape) and bool(torch.equal(got, want))
+    rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max()) if got.shape == want.shape else math.inf
+    del served
+    t = time.perf_counter()
+    onnx_path = os.path.join(tmp_dir, "dense.onnx")
+    # a Reshape's shape needs a fixed batch in both packages' converters
+    hugectr2onnx.convert(onnx_path, graph, snap_dir, convert_embedding=False, batch_size=B)
+    convert_s = time.perf_counter() - t
+    with open(onnx_path, "rb") as f:
+        buf = f.read()
+    inits = onnx_initializers(onnx_writer, buf)
+    dense = np.load(os.path.join(snap_dir, "dense_model.npz"))
+    want_arrays = sorted((a.shape, a.tobytes()) for k, a in dense.items() if k.startswith("dense/"))
+    got_arrays = sorted((dims, raw) for dims, code, _name, raw in inits if code == 1)  # FLOAT
+    rec = dict(phase="serving_path", card=card_line(), tables=26, ev=E, batch=B, batches=SERVE_BATCHES,
+               rows=int(preds.shape[0]), predict_seconds=predict_s, predict_ex_per_s=preds.shape[0] / predict_s,
+               rebuild_and_load_seconds=load_s, launches=launches, plain_calls=ops.plain_counts(),
+               bitwise_equal_to_trained_eval=bitwise, max_rel_diff=rel, finite=bool(np.isfinite(preds).all()),
+               onnx_bytes=len(buf), onnx_convert_seconds=convert_s, onnx_initializers=len(inits),
+               onnx_float_initializers=len(got_arrays), dense_arrays=len(want_arrays),
+               onnx_initializers_bitwise=got_arrays == want_arrays, seconds=time.perf_counter() - t0)
+    if not bitwise:
+        rec["why_not_bitwise"] = ("the rebuilt model's eval forward differs from the trained model's in "
+                                  "summation order (a different plan or kernel route)")
+    emit(rec)
+    if not (rec["finite"] and rec["rows"] == SERVE_BATCHES * B and (bitwise or rel <= 1e-6)
+            and rec["onnx_initializers_bitwise"] and len(want_arrays) > 0):
+        raise AssertionError(f"serving_path: predictions or ONNX initializers disagree: {rec}")
+    if not (launches["onehot_fwd"] == SERVE_BATCHES and launches["onehot_bwd"] == launches["segscan"] == 0):
+        raise AssertionError(f"serving_path: the sweep did not launch onehot_fwd once a batch: {launches}")
+    return launches
 
 
 def snapshot_dynamic_path(torch):
@@ -2655,7 +2778,9 @@ def weighted_kernel_checks(torch, np, dev, results):
     and the ordered pool of rank 0's shapes of the tiered table over the
     hybrid phases' W ranks (bitwise) beside `embedding_bag(per_sample_weights=)`
     over its owned rows. Then a weighted row whose weights cancel (+1, -1 in
-    two samples) is touched and its gradient is exact."""
+    two samples) is touched and its gradient is exact, and a row that one
+    sample holds twice with weights +w and -w is not touched (count exactly
+    0) on the privatised and the global backward."""
     import torch.nn.functional as F
 
     from hugectr_tpu_torch.core.mesh import ResourceManager
@@ -2824,6 +2949,259 @@ def weighted_kernel_checks(torch, np, dev, results):
     emit(rec)
     if not (float(cc[5]) == 2.0 and float(cc.sum()) == 2.0 and gc[5, 0].item() == 1.0 and float(gc.abs().sum()) == 1.0):
         raise AssertionError(f"a weighted row whose weights cancel is not touched, or its gradient is wrong: {rec}")
+    # one sample holds row 7 twice with weights +0.75 and -0.75 (and no other
+    # sample holds it): the JAX package's count sum_b |sum_h w| leaves the row
+    # untouched, on the privatised route and on the global atomics alike
+    routes = set()
+    for case, kk, ww, v in (("weighted_in_sample_cancel_V108_h40", k108, w108, 108),
+                            ("weighted_in_sample_cancel_V1024_h20", k_rel, w, lk.vocab)):
+        kk, ww = kk.clone(), ww.clone()
+        kk[kk == 7] = 8
+        kk[0, :2] = 7
+        ww[0, :2] = torch.tensor([0.75, -0.75], device=dev)
+        grad, cnt = oh.onehot_matmul_bwd(kk, d32, v, torch.float32, weights=ww)
+        want_g, want_c = oh.onehot_matmul_bwd_plain(kk, d32, v, torch.float32, weights=ww)
+        scale_g, _ = oh.onehot_matmul_bwd_plain(kk, d32.abs(), v, torch.float32, weights=ww.abs())
+        route = oh.bwd_route(B, int(kk.shape[1]), v, E, dev)
+        routes.add(route)
+        rec = dict(kernel="onehot_bwd", case=case, route=route, touch_count=float(cnt[7]),
+                   grad_row_abs_sum=float(grad[7].abs().sum()), touched_exact=bool(torch.equal(cnt > 0, want_c > 0)),
+                   counts_rel_err=float(((cnt - want_c).abs() / want_c.clamp(min=1e-30)).max()),
+                   scaled_err=scaled_err(grad, want_g, scale_g), tol=TOL["float32"])
+        emit(rec)
+        if not (rec["touch_count"] == 0.0 and float(want_c[7]) == 0.0 and rec["grad_row_abs_sum"] == 0.0
+                and rec["touched_exact"] and rec["counts_rel_err"] <= TOL["float32"]
+                and rec["scaled_err"] <= TOL["float32"]):
+            raise AssertionError(f"a row whose weights cancel within one sample is touched: {rec}")
+    if routes != {"privatised", "global"}:
+        raise AssertionError(f"the in-sample cancel cases did not cover both backward routes: {routes}")
+
+
+LAYER_B = 2048  # the samples' batch (samples/common.py:26)
+# GRU and MatrixMultiply at DIN's history widths: 10 steps of two 18-wide
+# embeddings (samples/din.py:13-14)
+GRU_SEQ, GRU_V, GRU_H = 10, 36, 36
+
+
+def layer_cases(np, rng):
+    """(name, DenseLayer fields, inputs, indices of the inputs that take a
+    gradient) of `layers_parity`, at batch LAYER_B."""
+    b = LAYER_B
+    x512 = lambda: rng.standard_normal((b, 512), dtype=np.float32)  # noqa: E731
+    perm = rng.permutation(b).tolist()
+    return [
+        ("sigmoid", dict(layer_type="Sigmoid"), [x512() * 2], [0]),
+        ("elu", dict(layer_type="ELU", elu_alpha=0.7), [x512() * 2], [0]),
+        ("cast", dict(layer_type="Cast"), [x512()], [0]),
+        ("masked_softmax", dict(layer_type="MaskedSoftmax", factor=0.125),
+         [rng.standard_normal((b, 1, 10, 10), dtype=np.float32) * 3,
+          (rng.random((b, 1, 10, 10)) < 0.7).astype(np.float32)], [0]),
+        ("select", dict(layer_type="Select", dim=1, index=[0, 3, 9, 3]),
+         [rng.standard_normal((b, 10, 36), dtype=np.float32)], [0]),
+        ("gather", dict(layer_type="Gather", indices=perm), [rng.standard_normal((b, 36), dtype=np.float32)], [0]),
+        ("fused_reshape_concat_general", dict(layer_type="FusedReshapeConcatGeneral"),
+         [rng.standard_normal((b, 10, 18), dtype=np.float32) for _ in range(2)], [0, 1]),
+        ("batch_norm", dict(layer_type="BatchNorm", factor=0.1), [x512() * 3 + 1], [0]),
+        ("fused_inner_product", dict(layer_type="FusedInnerProduct", num_output=256), [x512()], [0]),
+        ("matrix_multiply", dict(layer_type="MatrixMultiply"),
+         [rng.standard_normal((b, 10, 36), dtype=np.float32), rng.standard_normal((b, 36, 10), dtype=np.float32)],
+         [0, 1]),
+        ("matrix_multiply_transpose_b", dict(layer_type="MatrixMultiply", transpose_b=True),
+         [rng.standard_normal((b, 10, 36), dtype=np.float32), rng.standard_normal((b, 10, 36), dtype=np.float32)],
+         [0, 1]),
+        ("gru", dict(layer_type="GRU", num_output=GRU_H, SeqLength=GRU_SEQ, vector_size=GRU_V),
+         [rng.standard_normal((b, GRU_SEQ * GRU_V), dtype=np.float32)], [0]),
+        ("mlp_elu_gelu", dict(layer_type="MLP", num_outputs=[256, 128], activations=["elu", "gelu"]), [x512()], [0]),
+    ]
+
+
+def parity_err(torch, got, want):
+    """(max |got - want| / the compared array's max |want| (1 if smaller),
+    max |got - want| - (1e-5 scale + 1e-4 |want|) over the elements):
+    the scaled error and, for float32, the worst excess over rtol 1e-4 /
+    atol 1e-5 of the array's scale."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    scale = max(float(want.abs().max()), 1.0)
+    diff = (got - want).abs()
+    return float(diff.max()) / scale, float((diff - (1e-5 * scale + 1e-4 * want.abs())).max())
+
+
+def layers_graph_model(torch, rm, batch: int = LAYER_B):
+    """A graph with the eleven layers' stateful and recurrent members:
+    GRU over the dense input (DIN's history widths), concatenated with one
+    embedding, BatchNorm, a GELU MLP, an InnerProduct logit and BCE with an
+    L2 regularizer; SGD (AdaGrad would turn gradients that are rounding
+    noise into lr-sized steps), synthetic batches."""
+    import hugectr_tpu_torch as h
+
+    L = h.Layer_t
+    solver = h.CreateSolver(max_eval_batches=1, batchsize_eval=batch, batchsize=batch, lr=0.05,
+                            repeat_dataset=True)
+    reader = h.DataReaderParams(data_reader_type=h.DataReaderType_t.Synthetic, synthetic_num_batches=3)
+    model = h.Model(solver, reader, h.CreateOptimizer(optimizer_type=h.Optimizer_t.SGD), resource_manager=rm)
+    model.add(h.Input(label_dim=1, label_name="label", dense_dim=GRU_SEQ * GRU_V, dense_name="dense",
+                      data_reader_sparse_param_array=[h.DataReaderSparseParam("d0", 1, True, 2)]))
+    ebc = h.EmbeddingCollectionConfig()
+    ebc.embedding_lookup([h.EmbeddingTableConfig(name="t0", max_vocabulary_size=1000, ev_size=16)], ["d0"], "emb",
+                         ["sum"])
+    ebc.shard(shard_matrix=[["t0"]], shard_strategy=[("mp", ["t0"])])
+    model.add(ebc)
+    model.add(h.DenseLayer(layer_type=L.GRU, bottom_names=["dense"], top_names=["gru"], num_output=GRU_H,
+                           SeqLength=GRU_SEQ, vector_size=GRU_V))
+    model.add(h.DenseLayer(layer_type=L.Concat, bottom_names=["gru", "emb"], top_names=["c"]))
+    model.add(h.DenseLayer(layer_type=L.BatchNorm, bottom_names=["c"], top_names=["bn"], factor=0.1))
+    model.add(h.DenseLayer(layer_type=L.MLP, bottom_names=["bn"], top_names=["m"], num_outputs=[64],
+                           act_type=h.Activation_t.Gelu))
+    model.add(h.DenseLayer(layer_type=L.InnerProduct, bottom_names=["m"], top_names=["logit"], num_output=1))
+    model.add(h.DenseLayer(layer_type=L.BinaryCrossEntropyLoss, bottom_names=["logit", "label"],
+                           top_names=["loss"], use_regularizer=True, regularizer_type="l2", lambda_=0.01))
+    model.compile()
+    return model
+
+
+def layers_parity(torch):
+    """Card against CPU at batch 2,048 (`layer_cases`): each layer built
+    once on the CPU and copied to the card, the same seeded inputs in the
+    compute dtype, forward and the gradients of sum(out * r) for every
+    float input and parameter (BatchNorm's running statistics after the
+    training forward too), float32 held at rtol 1e-4 / atol 1e-5 of the
+    array's scale and bfloat16 at 1e-2 scaled error; both regularizers'
+    values and gradients over the MLP's parameters; then
+    `layers_graph_model` 3 steps on the card and on the CPU from the CPU
+    model's state: losses rtol 1e-4, dense parameters and the running
+    statistics at the float32 tolerance."""
+    import copy
+
+    import numpy as np
+
+    from hugectr_tpu_torch.core import config as tcfg
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.layers.base import LAYER_REGISTRY
+    from hugectr_tpu_torch.layers.losses import regularizer_term
+    from hugectr_tpu_torch.tools.carry import export_state, load_jax_state
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(41)
+    cases = []
+    for name, fields, inputs, grad_idx in layer_cases(np, rng):
+        shapes = [x.shape for x in inputs]
+        cfg = tcfg.DenseLayer(bottom_names=[f"x{i}" for i in range(len(inputs))], top_names=["y"], **fields)
+        base = LAYER_REGISTRY[cfg.layer_type](cfg, shapes, torch.Generator().manual_seed(5), cpu)
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[1]
+            outs, grads = [], []
+            for d in (cpu, dev):
+                layer = copy.deepcopy(base).to(d).train()
+                xs = [torch.from_numpy(x).to(d).to(dt if i in grad_idx else torch.float32).requires_grad_(i in grad_idx)
+                      for i, x in enumerate(inputs)]
+                (y,) = layer(xs, dt)
+                r = torch.from_numpy(np.random.default_rng(7).standard_normal(tuple(y.shape), dtype=np.float32)).to(d)
+                (y.float() * r).sum().backward()
+                outs.append([y] + [getattr(layer, k) for k in getattr(layer, "state_keys", ())])
+                grads.append([xs[i].grad for i in grad_idx] + [p.grad for _n, p in sorted(layer.named_parameters())])
+            errs = [parity_err(torch, g, w) for g, w in zip(outs[1] + grads[1], outs[0] + grads[0])]
+            scaled = max(e[0] for e in errs)
+            excess = max(e[1] for e in errs)
+            ok = excess <= 0.0 if dt == torch.float32 else scaled <= TOL["bfloat16"]
+            cases.append(dict(layer=name, dtype=dname, compared=len(errs), scaled_err=scaled,
+                              f32_excess=excess if dt == torch.float32 else None, ok=ok))
+    # the regularizers over an MLP's parameters, values and gradients
+    base = LAYER_REGISTRY["MLP"](tcfg.DenseLayer(layer_type="MLP", bottom_names=["x"], top_names=["y"],
+                                                 num_outputs=[256, 128]), [(LAYER_B, 512)],
+                                 torch.Generator().manual_seed(6), cpu)
+    for reg in ("l1", "l2"):
+        vals, grads = [], []
+        for d in (cpu, dev):
+            layer = copy.deepcopy(base).to(d)
+            ps = [p for _n, p in sorted(layer.named_parameters())]
+            v = regularizer_term(reg, 0.01, LAYER_B, ps)
+            v.backward()
+            vals.append(v)
+            grads.append([p.grad for p in ps])
+        errs = [parity_err(torch, g, w) for g, w in zip([vals[1]] + grads[1], [vals[0]] + grads[0])]
+        cases.append(dict(layer=f"regularizer_{reg}", dtype="float32", compared=len(errs),
+                          scaled_err=max(e[0] for e in errs), f32_excess=max(e[1] for e in errs),
+                          ok=max(e[1] for e in errs) <= 0.0))
+    # 3 steps of the graph, card against CPU from one state
+    cm = layers_graph_model(torch, ResourceManager.create(device="cpu"))
+    gm = layers_graph_model(torch, ResourceManager.create())
+    load_jax_state(gm, export_state(cm))
+    cl = [cm.train() for _ in range(3)]
+    gl = [gm.train() for _ in range(3)]
+    cs, gs = export_state(cm), export_state(gm)
+    errs = {}
+    for key in ("dense_params", "net_state"):
+        for layer, ps in cs[key].items():
+            for k, v in ps.items():
+                errs[f"{layer}/{k}"] = parity_err(torch, torch.from_numpy(gs[key][layer][k]), torch.from_numpy(v))
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(gl, cl))
+    worst_key = max(errs, key=lambda k: errs[k][1])
+    graph = dict(losses_card=gl, losses_cpu=cl, loss_max_rel_diff=loss_rel, compared=len(errs),
+                 f32_excess=errs[worst_key][1], worst=worst_key, net_state=sorted(cs["net_state"]))
+    rec = dict(phase="layers_parity", card=card_line(), batch=LAYER_B, cases=cases, graph=graph,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    bad = [c for c in cases if not c["ok"]]
+    if bad or loss_rel > 1e-4 or graph["f32_excess"] > 0.0 or not graph["net_state"]:
+        raise AssertionError(f"layers_parity: the card disagrees with the CPU: {bad or graph}")
+
+
+def cache_path(torch):
+    """`UvmTable` over a host master of 2,000,000 x 128 float32 rows
+    (seeded normal values, keys 0..1,999,999) with a 131,072-entry device
+    cache of 8 ways, queried with 20 power-law batches of 16,384 x 20 keys
+    (the weighted bench's shape, alpha 1.05): every returned row bitwise
+    the master's row, the hit rate of each batch and the host ms of each
+    query (it returns host arrays, so the device work is in it). Then one
+    `EmbeddingCache` sequence (64 sets of 8 ways, ev 16: replace batches
+    with a repeated key and more keys a set than ways, queries, an update
+    with a repeat and a miss), the card's state after every call bitwise
+    the CPU's."""
+    import numpy as np
+
+    from hugectr_tpu_torch.cache.embedding_cache import EmbeddingCache, UvmTable
+
+    t0 = time.perf_counter()
+    rows, ev, cap, ways, batches = 2_000_000, 128, 131_072, 8, 20
+    rng = np.random.default_rng(53)
+    master = rng.standard_normal((rows, ev), dtype=np.float32)
+    table = UvmTable(np.arange(rows, dtype=np.int64), master, cache_capacity=cap, ways=ways)
+    build_s = time.perf_counter() - t0
+    hit_rates, ms, exact = [], [], True
+    for _ in range(batches):
+        keys = power_law(rng, rows, (B, 20)).reshape(-1).astype(np.int64)
+        h0 = table.hits
+        t = time.perf_counter()
+        out, found = table.query(keys)
+        ms.append((time.perf_counter() - t) * 1e3)
+        hit_rates.append((table.hits - h0) / keys.size)
+        exact = exact and bool(found.all()) and bool(np.array_equal(out, master[keys]))
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    caches = {"cpu": EmbeddingCache(64, 8, 16, device=cpu), "card": EmbeddingCache(64, 8, 16, device=dev)}
+    states = {k: c.init() for k, c in caches.items()}
+    state_equal = True
+    for i in range(6):
+        keys = rng.integers(0, 2000, 700)
+        keys[5] = keys[9]
+        vals = rng.standard_normal((700, 16), dtype=np.float32)
+        q = rng.integers(0, 2000, 500)
+        upd = np.concatenate([keys[:50], keys[:3], [10**6]])
+        uvals = rng.standard_normal((len(upd), 16), dtype=np.float32)
+        for k, c in caches.items():
+            st = c.replace(states[k], torch.from_numpy(keys), torch.from_numpy(vals))
+            _v, _h, st = c.query(st, torch.from_numpy(q))
+            states[k] = c.update(st, torch.from_numpy(upd), torch.from_numpy(uvals))
+        state_equal = state_equal and all(torch.equal(states["card"][n].cpu(), states["cpu"][n]) for n in states["cpu"])
+    rec = dict(phase="cache_path", card=card_line(), host_rows=rows, ev=ev, cache_entries=cap, ways=ways,
+               batch_keys=B * 20, batches=batches, build_seconds=build_s, hit_rate=hit_rates,
+               query_ms=ms, query_ms_median=statistics.median(ms), rows_bitwise_master=exact,
+               hits=table.hits, misses=table.misses, cache_state_bitwise_cpu=state_equal,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    if not (exact and state_equal and hit_rates[-1] > hit_rates[0]):
+        raise AssertionError(f"cache_path: a row or the cache state disagrees: {rec}")
 
 
 WEIGHTED_STEPS = 6
@@ -3323,6 +3701,7 @@ def main() -> int:
     tiny_parity(torch)
     samples_parity(torch)
     weighted_parity(torch)
+    layers_parity(torch)
     launches, main_rec = main_path(torch)
     torch.cuda.empty_cache()
     file_launches = file_path(torch, main_rec)
@@ -3341,9 +3720,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     sok_path(torch)
     torch.cuda.empty_cache()
+    cache_path(torch)
+    torch.cuda.empty_cache()
     file_i64_path(torch)
     torch.cuda.empty_cache()
-    snapshot_path(torch)
+    serving_launches = snapshot_path(torch)
     torch.cuda.empty_cache()
     snapshot_dynamic_path(torch)
     torch.cuda.empty_cache()
@@ -3415,6 +3796,7 @@ def main() -> int:
             samples_case={**{k: rs[k] for k in keys}, "dtype": rs["dtype"]},
             **({"column_case": {k: column[name][k] for k in keys}} if name in column else {}),
             weighted_case=weighted_case(results, name, weighted_launches),
+            serving_path_launches=serving_launches[name],
         ))
     # the ordered pool: a kernel of the paths over W ranks; its launches are
     # rank 0's on the hybrid path (steps and eval), beside the bench path's
@@ -3437,6 +3819,7 @@ def main() -> int:
         weighted_case=dict(weighted_case(results, "ordered_pool", None),
                            launches=hybrid_weighted[0]["ordered_pool"],
                            hybrid_weighted_path_launches=[x["ordered_pool"] for x in hybrid_weighted]),
+        serving_path_launches=serving_launches["ordered_pool"],
     ))
     # device times taken by CUDA events because the profiler recorded nothing
     emit(dict(phase="profiler", event_fallbacks=[list(x) for x in devtime.FALLBACKS]))

@@ -52,6 +52,7 @@ from .core.types import (
     PowerLaw_t,
     Regularizer_t,
     SourceType_t,
+    TablePlacementStrategy,
     Tensor_t,
     TrainPSType_t,
     Update_t,
@@ -83,7 +84,6 @@ def _filter_kwargs(cls, kwargs, label):
 # `Solver` lacks and that change nothing the JAX package computes, each with
 # its reason: `CreateSolver` accepts them by name and ignores them.
 INERT_SOLVER_FIELDS = {
-    "model_name": "a label, never read (config.py:27)",
     "lr_policy": "'fixed' is the only policy (config.py:29, types.py LrPolicy_t), never read",
     "vvgpu": "the reference's device list, never read (config.py:39); the ranks are the process group",
     "enable_tf32_compute": "a parity no-op (config.py:41); the port keeps TF32 off to match float32",
@@ -153,6 +153,7 @@ def CreateOptimizer(optimizer_type=None, **kwargs) -> OptParams:
     return OptParams(**_filter_kwargs(OptParams, kwargs, "CreateOptimizer"))
 
 
+__version__ = "0.1.0"  # the JAX package's (hugectr_tpu/__init__.py:100)
 __all__ = [
     "Activation_t",
     "Alignment_t",
@@ -199,6 +200,7 @@ __all__ = [
     "Solver",
     "SourceType_t",
     "SparseEmbedding",
+    "TablePlacementStrategy",
     "Tensor_t",
     "TrainPSType_t",
     "TrainingCallback",

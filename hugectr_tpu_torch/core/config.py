@@ -18,8 +18,10 @@ from .types import Activation_t, Check_t, DataReaderType_t, FileSystemType_t, In
 
 @dataclasses.dataclass
 class Solver:
-    """Global training settings (config.py:24)."""
+    """Global training settings (config.py:24). `model_name` is a label:
+    the ONNX converter names its graph after it."""
 
+    model_name: str = ""
     seed: int = 0
     lr: float = 0.001
     warmup_steps: int = 1
@@ -277,9 +279,11 @@ class DenseLayerComputeConfig:
 
 @dataclasses.dataclass
 class DenseLayer:
-    """Dense layer declaration (config.py:341), the fields the port's
-    layers read, with the JAX package's defaults. `compute_config` is
-    accepted and not read (a no-op in the JAX package too)."""
+    """Dense layer declaration (config.py:341): the JAX package's fields in
+    its order with its defaults, so that `dataclasses.asdict` of a layer,
+    and so a graph file's "dense_layers", is the JAX package's.
+    `compute_config` is accepted and not read (a no-op in the JAX package
+    too), and two layers that differ only in it compare equal."""
 
     layer_type: str
     bottom_names: List[str]
@@ -291,8 +295,13 @@ class DenseLayer:
     biases: List[bool] = dataclasses.field(default_factory=list)
     act_type: Activation_t = Activation_t.Relu
     activations: List[Activation_t] = dataclasses.field(default_factory=list)
+    compute_config: DenseLayerComputeConfig = dataclasses.field(
+        default_factory=DenseLayerComputeConfig, repr=False, compare=False)
+    # init
     weight_init_type: Initializer_t = Initializer_t.Default
     bias_init_type: Initializer_t = Initializer_t.Default
+    gamma_init_type: Initializer_t = Initializer_t.Default
+    beta_init_type: Initializer_t = Initializer_t.Default
     # MultiCross
     num_layers: int = 0
     projection_dim: int = 0
@@ -300,12 +309,13 @@ class DenseLayer:
     out_dim: int = 0
     # WeightMultiply
     weight_dims: List[int] = dataclasses.field(default_factory=list)
-    # LayerNorm / PReLU_Dice (Scale: the repeat count)
+    # BatchNorm / LayerNorm / PReLU_Dice (Scale: the repeat count;
+    # MaskedSoftmax: the scale)
     factor: float = 1.0
     eps: float = 1e-5
     # Dropout
     dropout_rate: float = 0.5
-    # PReLU_Dice
+    # ELU / PReLU_Dice
     elu_alpha: float = 1.0
     # Reshape
     leading_dim: int = 0
@@ -313,12 +323,23 @@ class DenseLayer:
     selected: bool = False
     selected_slots: List[int] = dataclasses.field(default_factory=list)
     shape: List[int] = dataclasses.field(default_factory=list)
+    # Select
+    dim: int = 1
+    index: List[int] = dataclasses.field(default_factory=list)
     # Slice
     ranges: List[Tuple[int, int]] = dataclasses.field(default_factory=list)
-    # Concat / ReduceSum / ReduceMean / Scale
+    # Concat / ReduceSum / ReduceMean / Scale / Softmax
     axis: int = 1
+    # Gather
+    indices: List[int] = dataclasses.field(default_factory=list)
+    # GRU
+    batchsize: int = 0
+    SeqLength: int = 0
+    vector_size: int = 0
     # MultiHeadAttention
     num_attention_heads: int = 1
+    # MatrixMultiply
+    transpose_b: bool = False
     # SequenceMask
     max_sequence_len_from: int = 1
     max_sequence_len_to: int = 1
@@ -326,26 +347,14 @@ class DenseLayer:
     use_regularizer: bool = False
     regularizer_type: Regularizer_t = Regularizer_t.L1
     lambda_: float = 0.0
-    # MultiCrossEntropyLoss
     target_weight_vec: List[float] = dataclasses.field(default_factory=list)
-    compute_config: Optional[DenseLayerComputeConfig] = dataclasses.field(default=None, repr=False, compare=False)
+    # misc (not read, as in the JAX package)
+    pos_type: Optional[str] = None
 
     def __post_init__(self):
         self.act_type = Activation_t(self.act_type)
         self.activations = [Activation_t(a) for a in self.activations]
 
-
-# The JAX package's DenseLayer fields of the layers the port does not build
-# (BatchNorm, Select, Gather, GRU, MatrixMultiply) and its no-op
-# compute_config, at that package's defaults (config.py:341-420). A graph
-# file (`Model.graph_to_json`) carries them so that it has the JAX
-# package's layout; a graph that sets one otherwise does not load here.
-UNPORTED_LAYER_FIELDS: Dict[str, Any] = dict(
-    compute_config={"async_wgrad": False, "fuse_wb": False},
-    gamma_init_type=Initializer_t.Default.value, beta_init_type=Initializer_t.Default.value,
-    dim=1, index=[], indices=[], batchsize=0, SeqLength=0, vector_size=0, transpose_b=False,
-    pos_type=None,
-)
 
 # Solver fields of the port that the JAX package keeps in its environment
 # (HCTR_TPU_EMB_STATE_DTYPE, _SUPERHOT_ROWS, _WARM_ROWS, _AUC_EXACT_MAX,
@@ -356,23 +365,28 @@ PORT_SOLVER_SETTINGS = ("embedding_state_dtype", "superhot_rows", "warm_rows", "
 
 
 class Layer_t:
-    """`hugectr.Layer_t.*` names (config.py:418) of the layers the port
-    builds; any other type raises NotImplementedError at compile."""
+    """`hugectr.Layer_t.*` names (config.py:418)."""
 
     InnerProduct = "InnerProduct"
+    FusedInnerProduct = "FusedInnerProduct"
     MLP = "MLP"
+    MatrixMultiply = "MatrixMultiply"
     Interaction = "Interaction"
     MultiCross = "MultiCross"
     FmOrder2 = "FmOrder2"
     WeightMultiply = "WeightMultiply"
     ElementwiseMultiply = "ElementwiseMultiply"
+    BatchNorm = "BatchNorm"
     LayerNorm = "LayerNorm"
     Concat = "Concat"
     Reshape = "Reshape"
+    Select = "Select"
     Slice = "Slice"
     Dropout = "Dropout"
+    ELU = "ELU"
     ReLU = "ReLU"
     ReLUHalf = "ReLU"  # the reference's fp16 ReLU: the same op in the compute dtype
+    Sigmoid = "Sigmoid"
     Softmax = "Softmax"
     PReLU_Dice = "PReLU_Dice"
     Scale = "Scale"
@@ -380,9 +394,14 @@ class Layer_t:
     Add = "Add"
     ReduceSum = "ReduceSum"
     ReduceMean = "ReduceMean"
+    Gather = "Gather"
+    GRU = "GRU"
     FusedReshapeConcat = "FusedReshapeConcat"
+    FusedReshapeConcatGeneral = "FusedReshapeConcatGeneral"
     MultiHeadAttention = "MultiHeadAttention"
     SequenceMask = "SequenceMask"
+    MaskedSoftmax = "MaskedSoftmax"
+    Cast = "Cast"
     BinaryCrossEntropyLoss = "BinaryCrossEntropyLoss"
     CrossEntropyLoss = "CrossEntropyLoss"
     MultiCrossEntropyLoss = "MultiCrossEntropyLoss"

@@ -15,9 +15,10 @@
 // [B, h] (any row stride): each hit adds w times its row, a Mean lookup
 // divides by the sum of the weights of its non-padding keys (1 where that
 // sum is 0, collection.py:538-554), the backward adds w times the
-// cotangent, and the touch count of a row is the sum of |w| of its keys,
-// so that signed weights that cancel across samples still mark the row
-// touched (collection.py:1383-1391).
+// cotangent, and the touch count of a row sums over the samples |the
+// sample's summed weights on the row|, so that signed weights that cancel
+// across samples still mark the row touched and a sample whose duplicate
+// keys' weights cancel does not (collection.py:1383-1391).
 //
 // The TPU kernels build a [B, V] one-hot tile for the matrix unit, which
 // costs 2 * B * V * E operations (31 GFLOP for a 7,424-row table at
@@ -83,7 +84,8 @@
 // serialises in L2: 3.29 ms at table 24 on an H100 in the first port, 4x
 // `index_add_`. The launcher takes one of two routes by shape (a weighted
 // lookup's backward takes the same ones, each key's d row scaled by its
-// weight before the adds and its |w| added to the row's float32 count):
+// weight before the adds and its sample's |summed weights on the row|
+// added to the row's float32 count by the row's first key in the sample):
 //   * Privatised, when the table fits one block's dynamic shared memory
 //     (float32 [V, E] plus an int [V] count; 450 rows at E = 128 on an
 //     H100, ~227 KB) and the batch brings at least kHotKeysPerRow keys per
@@ -530,9 +532,26 @@ __device__ __forceinline__ void add_rows(unsigned m, int row, long long sample, 
   }
 }
 
+// The touch count key f (of row `key`, in [0, v)) adds in a weighted
+// backward: the JAX package's sum over samples of |a sample's summed
+// weights on the row|. The first occurrence of the row in its sample adds
+// |the sum of the weights of the sample's keys on that row| and a later
+// duplicate adds nothing, so a sample whose duplicates' weights cancel does
+// not touch the row. O(h^2) reads of the sample's keys, cached in L1.
+__device__ __forceinline__ float sample_touch(const int32_t* __restrict__ keys,
+                                              const float* __restrict__ w, int64_t f, int h, int key) {
+  const int64_t s0 = f / h * h;
+  for (int64_t i = s0; i < f; ++i)
+    if (__ldg(keys + i) == key) return 0.f;
+  float sum = __ldg(w + f);
+  for (int64_t i = f + 1; i < s0 + h; ++i)
+    if (__ldg(keys + i) == key) sum += __ldg(w + i);
+  return fabsf(sum);
+}
+
 // Privatised backward: the whole table in shared memory; block `slice`
 // takes samples [slice * slice_samples, +slice_samples). kWeighted: the
-// counts are float32 sums of |w|.
+// counts are float32 sums of `sample_touch`.
 template <typename T, bool kWeighted>
 __global__ void __launch_bounds__(kBwdWarps * 32)
 onehot_bwd(const int32_t* __restrict__ keys, const T* __restrict__ d, const float* __restrict__ w,
@@ -560,7 +579,10 @@ onehot_bwd(const int32_t* __restrict__ keys, const T* __restrict__ d, const floa
       if constexpr (kWeighted) wt = __ldg(w + f);
     }
     if constexpr (kWeighted) {
-      if (key >= 0) atomicAdd(swt + key, fabsf(wt));
+      if (key >= 0) {
+        const float t = sample_touch(keys, w, f, h, key);
+        if (t != 0.f) atomicAdd(swt + key, t);
+      }
     } else {
       // one count add per distinct row of the 32 keys
       const unsigned peers = __match_any_sync(kFull, key);
@@ -601,7 +623,10 @@ onehot_bwd_global(const int32_t* __restrict__ keys, const T* __restrict__ d,
       if constexpr (kWeighted) wt = __ldg(w + f);
     }
     if constexpr (kWeighted) {
-      if (key >= 0) atomicAdd(cnt + key, fabsf(wt));
+      if (key >= 0) {
+        const float t = sample_touch(keys, w, f, h, key);
+        if (t != 0.f) atomicAdd(cnt + key, t);
+      }
     } else {
       const unsigned peers = __match_any_sync(kFull, key);
       if (key >= 0 && lane == __ffs(peers) - 1) atomicAdd(cnt + key, static_cast<float>(__popc(peers)));
@@ -825,7 +850,7 @@ extern "C" int hctr_onehot_bwd_privatised(int b, int h, int v, int e) {
 
 // keys [b, h] int32; d [b, e] of `d_dtype`; w [b, h] float32 per-key
 // weights or null; grad32 [v, e] and cnt [v] float32 receive the sums (with
-// w: the w-scaled d rows and the sums of |w|): added to what they hold when
+// w: the w-scaled d rows and the sums of |a sample's summed w|): added to what they hold when
 // `accumulate` is 1, else zeroed first. out_bf16 [v, e] bfloat16 receives
 // the cast of grad32 when it is not null.
 extern "C" int hctr_onehot_bwd(int d_dtype, const void* keys, const void* d, const void* w,

@@ -62,8 +62,8 @@ Weighted lookups (a lookup's `sp_weight_name`, collection.py:538-615,
 group's unweighted lookups weigh 1, and padding 0. A Sum pools w x row in
 the table's type, a Mean divides by the sum of its weights (1 where that is
 0; a split lookup's merge by the raw keys' sum). The one-hot kernels take
-each weighted lookup's weights (w x d into the gradient, |w| into the touch
-counts), the partitioned forward's sort carries them to the ordered pool,
+each weighted lookup's weights (w x d into the gradient, each sample's
+|summed w| on a row into the touch counts), the partitioned forward's sort carries them to the ordered pool,
 and a rowop group's backward expands to one gradient row per key, w times
 its slot's cotangent (K = B x H rows for the update).
 
@@ -1100,7 +1100,8 @@ class EmbeddingCollection:
         the group's float32 buffers, which are zeroed once per group; `d`
         enters in the table's type. A frozen table's lookups launch nothing
         (:1420-1422). A weighted lookup's kernel takes its keys' weights: w
-        x d into the gradient, |w| into the touch counts, and its Mean
+        x d into the gradient, each sample's |summed w| on a row into the
+        touch counts, and its Mean
         divides by the sum of the weights (:1355-1391)."""
         g = self._meta[gname].plan
         valid, _owner, local_row = self._slot_placement(gname, keys)

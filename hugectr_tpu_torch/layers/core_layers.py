@@ -1,30 +1,45 @@
 """Plumbing, activation and normalization layers (counterparts of
-hugectr_tpu/layers/core_layers.py): ReLU :31, Softmax :48-57, PReLU_Dice
-:76-84, Dropout :88-97, Reshape :101-144, Slice :162-172, Concat :183,
+hugectr_tpu/layers/core_layers.py): ReLU :31, Sigmoid :32, ELU :33, Cast
+:43, Softmax :48-57, MaskedSoftmax :62-70, PReLU_Dice :76-84, Dropout
+:88-97, Reshape :101-144, Select :148-158, Slice :162-172, Concat :183,
 Add / Sub / ElementwiseMultiply :191-200, ReduceSum / ReduceMean :206-222,
-Scale :227-247, FusedReshapeConcat :264-278, SequenceMask :296-310,
-LayerNorm :357-373 and WeightMultiply :377-391.
+Scale :227-247, Gather :251-260, FusedReshapeConcat :264-278,
+FusedReshapeConcatGeneral :281-292, SequenceMask :296-310, BatchNorm
+:314-353, LayerNorm :357-373 and WeightMultiply :377-391.
 
 Each keeps the JAX function's dtypes: elementwise layers compute in their
 inputs' dtype, LayerNorm's statistics are float32, SequenceMask and
 WeightMultiply give the compute dtype.
 
-Over W ranks every layer works on the rank's rows, and only two see the
-batch as a whole. PReLU_Dice takes its mean and variance over the global
-batch, as the JAX mesh does over its sharded batch axis: each rank
-all-reduces its sum, then its sum of squared deviations from the global
-mean (`core/mesh.py::all_reduce_autograd`, whose backward all-reduces the
-gradient, so the backward is global too). Dropout draws the mask of the
-global batch on every rank from a generator seeded alike everywhere and
-keeps its block, so W ranks drop what one device drops.
+Over W ranks every layer works on the rank's rows, and four see the
+batch as a whole. PReLU_Dice and BatchNorm take their mean and variance
+over the global batch, as the JAX mesh does over its sharded batch axis:
+each rank all-reduces its sum, then its sum of squared deviations from the
+global mean (`core/mesh.py::all_reduce_autograd`, whose backward
+all-reduces the gradient, so the backward is global too). Dropout draws
+the mask of the global batch on every rank from a generator seeded alike
+everywhere and keeps its block, so W ranks drop what one device drops.
+Gather picks rows of the global batch: each rank puts its rows into a
+zero [W n, ...] tensor, all-reduces it and keeps its block of the picked
+rows, so rank r holds rows [r K / W, (r + 1) K / W) of the JAX package's
+[K, ...] output.
+
+BatchNorm's running statistics are buffers (`running_mean`, zeros, and
+`running_var`, ones: the JAX package's `net_state`). In training it
+normalises with the batch's float32 mean and population variance and
+updates them as running (1 - factor) + batch factor; in eval it
+normalises with them. gamma is ones for the Default initializer, else
+drawn with fan-in = fan-out = the width; beta is drawn as a bias.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import DenseLayer
 from ..core.mesh import all_reduce_autograd, data_rank, data_size
+from ..core.types import Initializer_t
 from .base import Layer, make_initializer, register
 
 
@@ -297,3 +312,123 @@ class WeightMultiply(Layer):
         x = ins[0].to(compute_dtype)
         out = x[:, :, None] * self.weight.to(compute_dtype)[None, :, :]
         return [out.reshape(x.shape[0], -1)]
+
+
+@register("Sigmoid")
+class Sigmoid(_SameShape):
+    def forward(self, ins, compute_dtype):
+        return [torch.sigmoid(ins[0])]
+
+
+@register("ELU")
+class ELU(_SameShape):
+    def forward(self, ins, compute_dtype):
+        return [F.elu(ins[0], alpha=self.cfg.elu_alpha)]
+
+
+@register("Cast")
+class Cast(_SameShape):
+    """To the compute dtype (bfloat16 under mixed precision, else float32)."""
+
+    def forward(self, ins, compute_dtype):
+        return [ins[0].to(compute_dtype)]
+
+
+@register("MaskedSoftmax")
+class MaskedSoftmax(_SameShape):
+    """Scaled by `factor` (1 where it is 0) in the input's dtype, -10000
+    where the mask (second input) is <= 0, then softmax over the last axis."""
+
+    def forward(self, ins, compute_dtype):
+        x, mask = ins
+        x = x * torch.tensor(self.cfg.factor or 1.0, dtype=x.dtype, device=x.device)
+        x = torch.where(mask > 0, x, x.new_tensor(-10000.0))
+        return [torch.softmax(x, dim=-1)]
+
+
+@register("Select")
+class Select(Layer):
+    """Entries `index` of axis `dim`, in that order."""
+
+    def __init__(self, cfg: DenseLayer, in_shapes, gen, device):
+        super().__init__()
+        self.dim = cfg.dim
+        self.register_buffer("index", torch.as_tensor(cfg.index, dtype=torch.int64, device=device),
+                             persistent=False)
+        s = list(in_shapes[0])
+        s[cfg.dim] = len(cfg.index)
+        self.out_shapes = [tuple(s)]
+
+    def forward(self, ins, compute_dtype):
+        return [torch.index_select(ins[0], self.dim, self.index)]
+
+
+@register("Gather")
+class Gather(Layer):
+    """Rows `indices` of the global batch; over W ranks each rank keeps its
+    block of them (K = len(indices) must split over the ranks)."""
+
+    def __init__(self, cfg: DenseLayer, in_shapes, gen, device):
+        super().__init__()
+        k, w = len(cfg.indices), data_size()
+        if k % w:
+            raise ValueError(f"Gather: {k} indices do not split over {w} ranks")
+        mine = cfg.indices[data_rank() * (k // w) : (data_rank() + 1) * (k // w)]
+        self.register_buffer("indices", torch.as_tensor(mine, dtype=torch.int64, device=device), persistent=False)
+        self.out_shapes = [(k // w,) + tuple(in_shapes[0][1:])]
+
+    def forward(self, ins, compute_dtype):
+        x = ins[0]
+        w = data_size()
+        if w > 1:
+            n = x.shape[0]
+            full = x.new_zeros((w * n, *x.shape[1:]))
+            full = full.index_copy(0, torch.arange(data_rank() * n, (data_rank() + 1) * n, device=x.device), x)
+            x = all_reduce_autograd(full)
+        return [x[self.indices]]
+
+
+@register("FusedReshapeConcatGeneral")
+class FusedReshapeConcatGeneral(Layer):
+    """Inputs [B, F, E_i] concatenated on the last axis, as [B F, sum E]."""
+
+    def __init__(self, cfg: DenseLayer, in_shapes, gen, device):
+        super().__init__()
+        b, f, _ = in_shapes[0]
+        self.out_shapes = [(b * f, sum(s[2] for s in in_shapes))]
+
+    def forward(self, ins, compute_dtype):
+        x = torch.cat(ins, dim=2)
+        return [x.reshape(-1, x.shape[2])]
+
+
+@register("BatchNorm")
+class BatchNorm(_SameShape):
+    state_keys = ("running_mean", "running_var")
+
+    def __init__(self, cfg: DenseLayer, in_shapes, gen: torch.Generator, device):
+        super().__init__(cfg, in_shapes, gen, device)
+        n = in_shapes[0][-1]
+        gamma = (torch.ones((n,), dtype=torch.float32, device=device)
+                 if Initializer_t(cfg.gamma_init_type) == Initializer_t.Default
+                 else make_initializer(cfg.gamma_init_type, n, n)(gen, (n,), device))
+        self.gamma = nn.Parameter(gamma)
+        self.beta = nn.Parameter(make_initializer(cfg.beta_init_type, n, n, is_bias=True)(gen, (n,), device))
+        self.register_buffer("running_mean", torch.zeros((n,), dtype=torch.float32, device=device))
+        self.register_buffer("running_var", torch.ones((n,), dtype=torch.float32, device=device))
+
+    def forward(self, ins, compute_dtype):
+        x = ins[0]
+        xf = x.float()
+        f = self.cfg.factor
+        if self.training:
+            n = x.shape[0] * data_size()
+            mean = all_reduce_autograd(xf.sum(dim=0)) / n
+            var = all_reduce_autograd(((xf - mean) ** 2).sum(dim=0)) / n
+            with torch.no_grad():
+                self.running_mean.copy_(self.running_mean * (1 - f) + mean * f)
+                self.running_var.copy_(self.running_var * (1 - f) + var * f)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.cfg.eps)
+        return [(y * self.gamma + self.beta).to(x.dtype)]

@@ -1,5 +1,8 @@
-"""InnerProduct and the fused MLP (counterparts of
-hugectr_tpu/layers/gemm.py `_ip_apply` :44-70 and `_mlp_apply` :95).
+"""InnerProduct, the fused MLP, FusedInnerProduct, MatrixMultiply and GRU
+(counterparts of hugectr_tpu/layers/gemm.py `_ip_apply` :44-70,
+`_mlp_apply` :95 and the layers below). The MLP's activations are ReLU,
+Sigmoid, Tanh, ELU (alpha 1) and GELU (its tanh approximation, the
+default of `jax.nn.gelu`), taken in float32.
 
 Each product takes its inputs and weights in the compute dtype and sums in
 float32 into a float32 result (`preferred_element_type=f32`, gemm.py:34);
@@ -12,14 +15,29 @@ sums. Parameters stay float32: autograd takes their gradients through the
 casts. InnerProduct takes [B, I] (or any [B, ...], flattened) to [B, O]
 and [B, S, I] to [B, S, O], the same product on the [B S, I] rows; it
 applies no activation (`act_type` is not read, as in the JAX package).
+
+FusedInnerProduct (gemm.py:112-121) is InnerProduct then ReLU.
+MatrixMultiply (gemm.py:125-153) takes [M, K] x [K, N], [B, M, K] x
+[B, K, N] (`transpose_b`: [B, N, K]) or [B, M] x [M, G, H] to [B, G, H]:
+operands in the compute dtype, float32 sums, the compute dtype out. GRU
+(gemm.py:157-202) runs [B, S, V] sequences (any [B, S V] or [B S, V]
+input) with gates stacked [z, r, n] on the last axis of `w` [V, 3H], `u`
+[H, 3H], `bw` and `bu` [3H]: the input projection is one product for the
+whole sequence, then a loop of S steps of one product each and the gates'
+element-wise ops in float32, the hidden state cast to the compute dtype
+after every step, as the JAX package's scan does; the output is the S
+hidden states [B, S H]. cuDNN's GRU (`nn.GRU`) is not used: its gates are
+ordered [r, z, n] and it rounds in its own way.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import DenseLayer
 from ..core.types import Activation_t
+from ..core.mesh import data_size
 from .base import Layer, feature_size, make_initializer, register
 
 
@@ -30,9 +48,11 @@ def _act(kind: Activation_t, x: torch.Tensor) -> torch.Tensor:
         return torch.sigmoid(x)
     if kind == Activation_t.Tanh:
         return torch.tanh(x)
-    if kind == Activation_t.NonE:
-        return x
-    raise NotImplementedError(f"activation {kind.value} is not ported yet")
+    if kind == Activation_t.Elu:
+        return F.elu(x)
+    if kind == Activation_t.Gelu:  # jax.nn.gelu's default: the tanh approximation
+        return F.gelu(x, approximate="tanh")
+    return x
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
@@ -121,3 +141,78 @@ class InnerProduct(Layer):
         y = dense(x.reshape(-1, x.shape[-1]) if x.dim() == 3 else x.reshape(x.shape[0], -1),
                   self.weight, self.bias, compute_dtype)
         return [y.reshape(*lead, -1).to(compute_dtype)]
+
+
+@register("FusedInnerProduct")
+class FusedInnerProduct(InnerProduct):
+    def forward(self, ins, compute_dtype):
+        return [torch.relu(super().forward(ins, compute_dtype)[0])]
+
+
+def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (batched or not) of compute-dtype operands with float32 sums:
+    bf16 operands widened to float32 give the same products."""
+    return torch.matmul(a.float(), b.float())
+
+
+@register("MatrixMultiply")
+class MatrixMultiply(Layer):
+    def __init__(self, cfg: DenseLayer, in_shapes, gen, device):
+        super().__init__()
+        self.transpose_b = cfg.transpose_b
+        a, b = in_shapes
+        if len(a) == 2 and len(b) == 2:
+            out = (a[0], b[1])
+        elif len(a) == 3 and len(b) == 3:
+            out = (a[0], a[1], b[2])  # the JAX package's shape, transpose_b or not
+        elif len(a) == 2 and len(b) == 3:
+            out = (a[0], b[1], b[2])
+        else:
+            raise ValueError(f"MatrixMultiply: unsupported ranks {a} x {b}")
+        self.out_shapes = [out]
+
+    def forward(self, ins, compute_dtype):
+        a, b = (x.to(compute_dtype) for x in ins)
+        if a.dim() == 3 and self.transpose_b:
+            b = b.transpose(1, 2)
+        if a.dim() == 2 and b.dim() == 3:  # "bm,mgh->bgh"
+            y = _bmm(a, b.reshape(b.shape[0], -1)).reshape(a.shape[0], b.shape[1], b.shape[2])
+        else:
+            y = _bmm(a, b)
+        return [y.to(compute_dtype)]
+
+
+@register("GRU")
+class GRU(Layer):
+    def __init__(self, cfg: DenseLayer, in_shapes, gen: torch.Generator, device):
+        super().__init__()
+        v, h = cfg.vector_size, cfg.num_output
+        self.seq, self.v, self.h = cfg.SeqLength, v, h
+        w_init = make_initializer(cfg.weight_init_type, v, h)
+        u_init = make_initializer(cfg.weight_init_type, h, h)
+        b_init = make_initializer(cfg.bias_init_type, v, h, is_bias=True)
+        self.w = nn.Parameter(w_init(gen, (v, 3 * h), device))
+        self.u = nn.Parameter(u_init(gen, (h, 3 * h), device))
+        self.bw = nn.Parameter(b_init(gen, (3 * h,), device))
+        self.bu = nn.Parameter(b_init(gen, (3 * h,), device))
+        # `batchsize` is the global batch; a rank holds its share
+        batch = cfg.batchsize // data_size() if cfg.batchsize else in_shapes[0][0]
+        self.out_shapes = [(batch, self.seq * h)]
+
+    def forward(self, ins, compute_dtype):
+        x = ins[0].reshape(-1, self.seq, self.v).to(compute_dtype)
+        b, h = x.shape[0], self.h
+        xw = dense(x.reshape(-1, self.v), self.w, self.bw, compute_dtype)
+        xw = xw.reshape(b, self.seq, 3 * h).to(compute_dtype)
+        state = torch.zeros((b, h), dtype=compute_dtype, device=x.device)
+        outs = []
+        for t in range(self.seq):
+            hu = dense(state, self.u, self.bu, compute_dtype)
+            xz, xr, xn = xw[:, t].float().split(h, dim=1)
+            hz, hr, hn = hu.split(h, dim=1)
+            z = torch.sigmoid(xz + hz)
+            r = torch.sigmoid(xr + hr)
+            n = torch.tanh(xn + r * hn)
+            state = ((1.0 - z) * n + z * state.float()).to(compute_dtype)
+            outs.append(state)
+        return [torch.stack(outs, dim=1).reshape(b, -1)]

@@ -5,7 +5,13 @@ Layers run in add order over a dict of named tensors; each is an
 `nn.Module` under its JAX layer name (`l{i}_{type}`). An Interaction's
 second top is an alias of its first; an MLP given both reads it once
 (network.py:62-99). The module's training mode (`train()` / `eval()`) is
-the JAX package's `LayerCtx.training`: Dropout drops only in training.
+the JAX package's `LayerCtx.training`: Dropout drops only in training,
+and BatchNorm updates its running statistics only in training. The loss
+adds, once per loss layer that asks for it, the layer's regularizer over
+every dense parameter with the global batch `batch_size`
+(network.py:171-186). `state_tree` gives the layers' buffers
+(BatchNorm's running statistics) in the layout of the JAX package's
+`net_state`.
 """
 from __future__ import annotations
 
@@ -16,8 +22,10 @@ import torch
 from torch import nn
 
 from ..core.config import DenseLayer, LOSS_LAYER_TYPES, Layer_t
+from ..core.mesh import data_size
 from . import core_layers, gemm, interaction, losses  # noqa: F401 (registry)
 from .base import LAYER_REGISTRY
+from .losses import regularizer_term
 
 
 @dataclasses.dataclass
@@ -27,6 +35,9 @@ class LossSpec:
     pred_name: str
     label_name: str
     weight: float = 1.0
+    use_regularizer: bool = False
+    regularizer_type: object = None
+    lam: float = 0.0
 
 
 class Network(nn.Module):
@@ -37,9 +48,12 @@ class Network(nn.Module):
         generator: torch.Generator,
         device: torch.device,
         label_weights: Optional[Dict[str, float]] = None,
+        batch_size: int = 0,
     ):
         super().__init__()
         self.configs = list(layers)
+        # the global batch: the rank's rows times the ranks
+        self.batch_size = batch_size or next(iter(input_shapes.values()))[0] * data_size()
         self.layer_names: List[str] = []
         self.loss_specs: List[LossSpec] = []
         self.aliases: Dict[str, str] = {}  # alias top -> real top
@@ -51,9 +65,7 @@ class Network(nn.Module):
             name = f"l{i}_{cfg.layer_type}"
             cls = LAYER_REGISTRY.get(cfg.layer_type)
             if cls is None:
-                raise NotImplementedError(f"layer type {cfg.layer_type} is not ported yet")
-            if cfg.layer_type in LOSS_LAYER_TYPES and cfg.use_regularizer and cfg.lambda_:
-                raise NotImplementedError("loss regularizers are not ported yet")
+                raise NotImplementedError(f"layer type {cfg.layer_type}")
             if cfg.layer_type == Layer_t.Interaction and len(cfg.top_names) > 1:
                 self.aliases[cfg.top_names[1]] = cfg.top_names[0]
             bottoms = self._bottoms(cfg)
@@ -74,6 +86,9 @@ class Network(nn.Module):
                         pred_name=self.aliases.get(cfg.bottom_names[0], cfg.bottom_names[0]),
                         label_name=cfg.bottom_names[1],
                         weight=label_weights.get(cfg.bottom_names[1], 1.0),
+                        use_regularizer=cfg.use_regularizer,
+                        regularizer_type=cfg.regularizer_type,
+                        lam=cfg.lambda_,
                     )
                 )
         self.tensor_shapes = shapes
@@ -94,6 +109,15 @@ class Network(nn.Module):
             name: dict(layer.named_parameters())
             for name, layer in self.layers.items()
             if any(True for _ in layer.parameters())
+        }
+
+    def state_tree(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{layer name: {buffer name: tensor}} of the layers that keep state
+        (BatchNorm), the JAX package's `net_state` layout."""
+        return {
+            name: {k: getattr(layer, k) for k in layer.state_keys}
+            for name, layer in self.layers.items()
+            if getattr(layer, "state_keys", ())
         }
 
     def forward(
@@ -132,10 +156,15 @@ class Network(nn.Module):
         self, tensors: Dict[str, torch.Tensor], compute_dtype: torch.dtype
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Scalar loss: weighted sum of each loss layer's mean per-sample
-        loss (network.py:172-201)."""
+        loss, plus each asking loss layer's regularizer over every dense
+        parameter, in the JAX tree's order (network.py:172-201)."""
         out = self.forward(tensors, compute_dtype)
         total = torch.zeros((), dtype=torch.float32, device=next(iter(out.values())).device)
         for spec in self.loss_specs:
             cfg = self.configs[self.layer_names.index(spec.layer_name)]
             total = total + spec.weight * out[cfg.top_names[0]].float().mean()
+            if spec.use_regularizer and spec.lam:
+                tree = self.param_tree()
+                leaves = [tree[layer][k] for layer in sorted(tree) for k in sorted(tree[layer])]
+                total = total + regularizer_term(spec.regularizer_type, spec.lam, self.batch_size, leaves)
         return total, out

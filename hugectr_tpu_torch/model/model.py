@@ -121,7 +121,6 @@ import torch
 
 from ..core.config import (
     PORT_SOLVER_SETTINGS,
-    UNPORTED_LAYER_FIELDS,
     DataReaderParams,
     DataReaderSparseParam,
     DenseLayer,
@@ -402,7 +401,8 @@ class Model:
                 )
         gen = self.rm.generator(s.seed)
         self.network = Network(
-            self.dense_layers, input_shapes, gen, self.device, label_weights=inp.label_weights
+            self.dense_layers, input_shapes, gen, self.device, label_weights=inp.label_weights,
+            batch_size=s.batchsize,
         )
 
         # ---- state (model.py:437-460)
@@ -430,6 +430,9 @@ class Model:
         }
         self.metrics = accs.pop(self.network.loss_specs[0].label_name)
         self._task_metrics: Dict[str, MetricAccumulator] = accs
+        # the opt-in host-side key-range check, read here as the JAX Model
+        # reads it at compile (model.py:491-494); "0" and "" turn it off
+        self._check_keys = os.environ.get("HCTR_TPU_CHECK_KEYS", "0") not in ("", "0")
 
     @staticmethod
     def _column_tables(decl, factor: int, split_tables: Dict[str, List[EmbeddingTableConfig]]):
@@ -582,6 +585,8 @@ class Model:
         pinned memory on a stream of its own on a card)."""
         batch = dict(batch)
         batch.pop(ROWS_KEY, None)
+        if getattr(self, "_check_keys", False):
+            self._check_keys_in_range(batch)
         if self.solver.i64_input_key:
             batch = self._fold_i64_keys(batch)
         return (uploader or self._uploader)(batch)
@@ -599,6 +604,48 @@ class Model:
         feeder = DeviceFeeder(reader, lambda b: put(b, up), depth=3)
         feeder.uploader = up
         return feeder
+
+    def _host_features(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """The feature columns of a host batch (a fused [B, row] batch's
+        column views, as `_decode_batch` takes them on the device)."""
+        if FUSED_KEY not in batch:
+            return batch
+        s = self.batch_spec
+        off = sum(s.label_dims) + s.dense_dim
+        out = {}
+        for f in s.sparse:
+            out[f.name] = batch[FUSED_KEY][:, off : off + f.total_nnz]
+            off += f.total_nnz
+        return out
+
+    def _check_keys_in_range(self, batch: Dict[str, np.ndarray]) -> None:
+        """HCTR_TPU_CHECK_KEYS=1 (model.py:1158-1197): a static table's keys
+        must satisfy 0 <= k < vocab, in the windows of `_build_i64_fold`
+        (each lookup's columns and bound), or the host raises ValueError
+        where the engine would wrap the key; -1 is padding, and a dynamic
+        table takes any key."""
+        if self._i64_fold is None:
+            self._i64_fold = self._build_i64_fold()
+        b = self._host_features(batch)
+        for name, windows in self._i64_fold.items():
+            if name not in b:
+                continue
+            k = np.asarray(b[name])
+            for lo, hi, modulo, dynamic, tname in windows:
+                if dynamic:
+                    continue
+                w = k[:, lo:hi]
+                bad = w[w >= modulo]
+                if bad.size:
+                    raise ValueError(
+                        f"HCTR_TPU_CHECK_KEYS: feature {name!r} cols [{lo},{hi}) has key {int(bad.max())} >= "
+                        f"vocab bound {modulo} of table {tname!r} (keys must be table-local; the engine would "
+                        "silently wrap)")
+                neg = w[(w < 0) & (w != INVALID_KEY)]
+                if neg.size:
+                    raise ValueError(
+                        f"HCTR_TPU_CHECK_KEYS: feature {name!r} cols [{lo},{hi}) has negative key "
+                        f"{int(neg.min())} (only -1 padding is valid) for table {tname!r}")
 
     # ------------------------------------------------------------ i64 keys
     def _build_i64_fold(self) -> Dict[str, list]:
@@ -1004,8 +1051,8 @@ class Model:
         """Write the graph (model.py:2076-2130) in the JAX package's layout:
         the solver, the Input, the dense layers, the SparseEmbeddings and
         the embedding collections. `PORT_SOLVER_SETTINGS` go under
-        "solver_settings", which the JAX package does not read; each dense
-        layer also holds `UNPORTED_LAYER_FIELDS`."""
+        "solver_settings", which the JAX package does not read; the dense
+        layers are the JAX package's bytes."""
         solver = dataclasses.asdict(self.solver)
         settings = {k: solver.pop(k) for k in PORT_SOLVER_SETTINGS}
         ebcs = []
@@ -1021,7 +1068,7 @@ class Model:
             "solver": solver,
             "solver_settings": settings,
             "input": dataclasses.asdict(self.input),
-            "dense_layers": [dict(dataclasses.asdict(d), **UNPORTED_LAYER_FIELDS) for d in self.dense_layers],
+            "dense_layers": [dataclasses.asdict(d) for d in self.dense_layers],
             "sparse_embeddings": [dataclasses.asdict(se) for se in self.sparse_embeddings],
             "embedding_collections": ebcs,
         }
@@ -1035,8 +1082,7 @@ class Model:
         """A Model from a graph file of either package (model.py:2132-2202).
         The JAX package's Solver fields that the port lacks (its mesh, XLA
         and reference-parity settings) are not read, nor are its engine
-        settings left unset (None: the port's defaults hold). A dense
-        layer's `UNPORTED_LAYER_FIELDS` must be at their defaults. Equal
+        settings left unset (None: the port's defaults hold). Equal
         SparseEmbedding optimizers become one `OptParams`, as one object
         passed to each."""
         with open(graph_path) as f:
@@ -1078,10 +1124,6 @@ class Model:
         for d in graph["dense_layers"]:
             d = dict(d)
             d.pop("compute_config", None)
-            for k, default in UNPORTED_LAYER_FIELDS.items():
-                if k in d and d.pop(k) != default:
-                    raise NotImplementedError(f"layer {d['layer_type']}: {k} belongs to a layer that is not "
-                                              "ported yet (ROADMAP Queue 1 item 7)")
             if d.get("ranges"):
                 d["ranges"] = [tuple(r) for r in d["ranges"]]
             model.add(DenseLayer(**d))
@@ -1177,10 +1219,10 @@ class Model:
         return arr[self.rm.data_index * n : (self.rm.data_index + 1) * n]
 
     def _dense_flat(self) -> Dict[str, torch.Tensor]:
-        """`dense/<layer>/<key>` and `dopt/<slot>/<layer>/<key>`, as the
+        """`dense/<layer>/<key>`, `dopt/<slot>/<layer>/<key>` and
+        `net_state/<layer>/<key>` (BatchNorm's running statistics), as the
         JAX package's `_flatten` names them (model.py:1526-1535), each
-        level in sorted order as the JAX state's trees come back; the port's
-        layers keep no `net_state`."""
+        level in sorted order as the JAX state's trees come back."""
         def flat(tree, prefix):
             for k in sorted(tree):
                 if isinstance(tree[k], dict):
@@ -1188,7 +1230,8 @@ class Model:
                 else:
                     yield f"{prefix}{k}", tree[k]
 
-        return dict(itertools.chain(flat(self.network.param_tree(), "dense/"), flat(self.dopt, "dopt/")))
+        return dict(itertools.chain(flat(self.network.param_tree(), "dense/"), flat(self.dopt, "dopt/"),
+                                    flat(self.network.state_tree(), "net_state/")))
 
     def _user_table_names(self) -> List[str]:
         """Every table of every group (a split table's tiers), then each
@@ -1335,10 +1378,11 @@ class Model:
 
     def _load_dense(self, path: str, params: bool, dopt: bool) -> None:
         """The dense parameters and/or their state from a snapshot dir or a
-        `dense_model.npz` (model.py:1726-1729)."""
+        `dense_model.npz` (model.py:1726-1729); the network's state comes
+        with the parameters (model.py:1746)."""
         data = iofs.load_npz(path if path.endswith(".npz") else os.path.join(path, "dense_model.npz"))
         for key, t in self._dense_flat().items():
-            if (params and key.startswith("dense/")) or (dopt and key.startswith("dopt/")):
+            if (params and key.startswith(("dense/", "net_state/"))) or (dopt and key.startswith("dopt/")):
                 self._put(t, data[key], f"dense member {key}")
 
     def load_dense_weights(self, path: str) -> None:

@@ -24,13 +24,16 @@ group.
 
     forward:   out[b, :] = sum_h [0 <= keys[b,h] < V] * w[b,h] * table[keys[b,h], :]
     backward:  grad[v, :] = sum_{b,h} [keys[b,h] == v] * w[b,h] * d[b, :]
-               cnt[v]     = sum_{b,h} [keys[b,h] == v] * |w[b,h]|
+               cnt[v]     = sum_b |sum_h [keys[b,h] == v] * w[b,h]|
 
 w is 1 unless the caller passes per-key float32 weights (a weighted lookup,
 the JAX package's sp_weight_name, collection.py:1236-1300): a weighted Mean
 divides by the sum of the weights of its non-padding keys (1 where that sum
-is 0), and the touch count of a row sums |w|, so that weights that cancel
-across samples still mark it touched (collection.py:1383-1391). The JAX
+is 0), and the touch count of a row sums, over the samples, the absolute
+value of each sample's summed weights on it (JAX's |counts| column sum,
+collection.py:1383-1391): weights that cancel across samples still mark
+the row touched, and a sample whose duplicate keys' weights cancel does
+not touch it. The JAX
 package builds weighted counts in the table's type (bfloat16 weights, a
 bfloat16 sum of a sample's duplicate keys' weights); these sum in float32
 and round once.
@@ -236,7 +239,10 @@ def onehot_matmul_bwd_plain(
     else:
         w = weights.reshape(-1)[valid].float()
         grad.index_add_(0, kk, d.float()[src] * w.unsqueeze(1))
-        cnt = torch.zeros(vocab, dtype=torch.float32, device=d.device).index_add_(0, kk, w.abs())
+        # each (sample, row) pair's summed weights, then their |.| per row
+        pairs, inv = torch.unique(src * vocab + kk, return_inverse=True)
+        per_pair = torch.zeros(pairs.numel(), dtype=torch.float32, device=d.device).index_add_(0, inv, w)
+        cnt = torch.zeros(vocab, dtype=torch.float32, device=d.device).index_add_(0, pairs % vocab, per_pair.abs())
     if out is None:
         return grad.to(out_dtype), cnt
     return out.add_(grad), cnt_out.add_(cnt)
@@ -297,7 +303,7 @@ def onehot_matmul_bwd(
     (grad [V, E] in `out_dtype`, cnt [V] f32). Given `out` and `cnt_out`
     (contiguous float32 [V, E] and [V]), adds into them and returns them.
     `weights` (contiguous float32 [B, h]) scales each key's cotangent, and
-    the counts sum |w|."""
+    the counts sum each sample's |sum of w| on a row."""
     _check_keys(keys)
     _lib.require(
         d.dim() == 2 and d.shape[0] == keys.shape[0] and d.dtype in _lib.DTYPE_CODE,

@@ -11,6 +11,8 @@ JAX. The tree holds:
   bias, gamma, beta}} -> the network (MLP, MultiCross, InnerProduct,
   WeightMultiply, LayerNorm);
 * `dopt` {"accum" | "m" | "v" | "z" | "n": {layer: {key: ...}}} -> `model.dopt`;
+* `net_state` (optional) {layer: {"running_mean", "running_var"}} -> the
+  BatchNorm layers' buffers;
 * `step` -> the model's step counter;
 * `i64_fold_maps` (optional) {"<table>.orig" | "<table>.fold": ...}, the
   exact i64 fold's maps as `i64_fold_maps.npz` holds them (the JAX model's
@@ -145,6 +147,10 @@ def _load_dense(model, state: Dict[str, Any]) -> None:
         for layer, ps in tree.items():
             for k, arr in ps.items():
                 _copy(model.dopt[kind][layer][k], arr, f"dense state {kind}/{layer}/{k}")
+    bufs = model.network.state_tree()
+    for layer, st in state.get("net_state", {}).items():
+        for k, arr in st.items():
+            _copy(bufs[layer][k], arr, f"network state {layer}/{k}")
     model._step = int(np.asarray(state["step"]))
     if "i64_fold_maps" in state:
         model._restore_i64_fold_maps(state["i64_fold_maps"])
@@ -160,6 +166,8 @@ def _dense_host(model) -> Dict[str, Any]:
             kind: {layer: {k: _host(t) for k, t in ps.items()} for layer, ps in tree.items()}
             for kind, tree in model.dopt.items()
         },
+        "net_state": {layer: {k: _host(t) for k, t in st.items()}
+                      for layer, st in model.network.state_tree().items()},
         "step": model._step,
         **({"i64_fold_maps": maps} if (maps := model._i64_fold_maps_arrays()) else {}),
     }

@@ -461,3 +461,28 @@ def test_device_feeder_stages_through_pinned_memory(cuda):
     feeder.stop()
     assert up.batches == 24 and up.bytes == 24 * 4096 * 267 * 4
     assert all(buf.is_pinned() for slot in up._slots for buf in slot.bufs.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,v,h", [(16384, 108, 40), (4096, 1024, 20)])
+def test_weighted_onehot_bwd_in_sample_cancel_leaves_row_untouched(cuda, b, v, h):
+    """The weighted backward's touch count is sum_b |sum_h w| (the JAX
+    package's): one sample holds row 7 twice with weights +0.75 and -0.75
+    and no other sample holds it, so its count is exactly 0 on the
+    privatised route (V 108, h 40) and on the global atomics (V 1,024,
+    h 20); every other count as the plain version's, the gradient within
+    the float32 tolerance."""
+    rng = np.random.default_rng(b + v)
+    keys = torch.from_numpy(_keys(rng, b, h, v)).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((b, h), dtype=np.float32)).to(cuda)
+    keys[keys == 7] = 8
+    keys[0, :2] = 7
+    w[0, :2] = torch.tensor([0.75, -0.75], device=cuda)
+    d = torch.from_numpy(rng.standard_normal((b, 128), dtype=np.float32)).to(cuda)
+    g, c = oh.onehot_matmul_bwd(keys, d, v, torch.float32, weights=w)
+    wg, wc = oh.onehot_matmul_bwd_plain(keys, d, v, torch.float32, weights=w)
+    sg, _ = oh.onehot_matmul_bwd_plain(keys, d.abs(), v, torch.float32, weights=w.abs())
+    assert float(c[7]) == 0.0 == float(wc[7]) and float(g[7].abs().sum()) == 0.0
+    assert torch.equal(c > 0, wc > 0)
+    assert float(((c - wc).abs() / wc.clamp(min=1e-30)).max()) <= 1e-4
+    assert _scaled(g, wg, sg) <= 1e-4

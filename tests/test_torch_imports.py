@@ -26,7 +26,10 @@ def test_fresh_process_imports_every_port_module_without_jax():
         "assert not bad, bad\n"
         "assert {'hugectr_tpu_torch.tools.samples', 'hugectr_tpu_torch.layers.core_layers',\n"
         "        'hugectr_tpu_torch.io.filesystem', 'hugectr_tpu_torch.utils.diagnose',\n"
-        "        'hugectr_tpu_torch.data.native_reader', 'hugectr_tpu_torch.data.generator'} <= set(sys.modules)\n"
+        "        'hugectr_tpu_torch.data.native_reader', 'hugectr_tpu_torch.data.generator',\n"
+        "        'hugectr_tpu_torch.cache.embedding_cache', 'hugectr_tpu_torch.parallel.planner',\n"
+        "        'hugectr_tpu_torch.tools.onnx_writer', 'hugectr_tpu_torch.tools.hugectr2onnx',\n"
+        "        'hugectr_tpu_torch.tools.predict', 'hugectr_tpu_torch.core.logger'} <= set(sys.modules)\n"
         % (FORBIDDEN,)
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -167,3 +170,44 @@ def test_mesh_settings_are_accepted_and_kept():
     assert ebc.comm_strategy == hugectr.CommunicationStrategy.Hierarchical
     ebc.shard(shard_matrix=[["t"]], shard_strategy=[("mp", ["t"])], column_factors={"t": 2})
     assert ebc.sharding_plan().column_factors == {"t": 2}
+
+
+def test_top_level_exports_every_name_of_the_jax_package():
+    """Every public name of hugectr_tpu/__init__.py (its modules aside),
+    `__version__` and `TablePlacementStrategy` among them, is a name of the
+    port's package, and `__version__` is the same."""
+    import types
+
+    import hugectr_tpu as jh
+    import hugectr_tpu_torch as th
+
+    names = [n for n in dir(jh) if not n.startswith("_") and not isinstance(getattr(jh, n), types.ModuleType)]
+    assert {"TablePlacementStrategy", "CreateSolver", "Model"} <= set(names)
+    missing = [n for n in names + ["__version__"] if not hasattr(th, n)]
+    assert not missing, missing
+    assert th.__version__ == jh.__version__
+    assert "TablePlacementStrategy" in th.__all__
+    assert th.TablePlacementStrategy.ModelParallel.value == jh.TablePlacementStrategy.ModelParallel.value == "mp"
+    assert {t.value for t in th.TablePlacementStrategy} == {t.value for t in jh.TablePlacementStrategy}
+
+
+def test_layer_types_and_fields_are_the_jax_packages():
+    """Every `Layer_t` name of the JAX package is the port's and builds (a
+    registered layer), and `DenseLayer` has the JAX package's fields in its
+    order with its defaults, so that a graph file's layers are the same
+    bytes in both."""
+    import dataclasses
+
+    from hugectr_tpu.core import config as jcfg
+    from hugectr_tpu_torch.core import config as tcfg
+    from hugectr_tpu_torch.layers.base import LAYER_REGISTRY
+    from hugectr_tpu_torch.layers import network  # noqa: F401 (registry)
+
+    jnames = {k: v for k, v in vars(jcfg.Layer_t).items() if not k.startswith("_")}
+    assert {k: v for k, v in vars(tcfg.Layer_t).items() if not k.startswith("_")} == jnames
+    assert set(jnames.values()) <= set(LAYER_REGISTRY)
+    jf, tf = dataclasses.fields(jcfg.DenseLayer), dataclasses.fields(tcfg.DenseLayer)
+    assert [f.name for f in tf] == [f.name for f in jf]
+    kw = dict(layer_type="GRU", bottom_names=["a"], top_names=["b"])
+    assert dataclasses.asdict(tcfg.DenseLayer(**kw)) == dataclasses.asdict(jcfg.DenseLayer(**kw))
+    assert not hasattr(tcfg, "UNPORTED_LAYER_FIELDS")

@@ -246,10 +246,15 @@ def test_vocabulary_for_matches_jax_at_every_world_size():
 
 
 def test_unported_layer_field_refuses_to_load(tmp_path):
+    """The fields of the layers that once were not ported (here
+    MatrixMultiply's `transpose_b`) no longer refuse a graph file: every
+    field is the JAX package's and loads, and a layer that sets one keeps
+    it through the model and its next graph file."""
     cpu = ResourceManager.create(device="cpu")
     tm = build_tiny_sample("ncf", cpu)
     g = _graph(tm, tmp_path / "ncf.json")
     g["dense_layers"][0]["transpose_b"] = True
-    (tmp_path / "bad.json").write_text(json.dumps(g))
-    with pytest.raises(NotImplementedError, match="transpose_b"):
-        TModel.construct_from_json(str(tmp_path / "bad.json"), resource_manager=cpu)
+    (tmp_path / "set.json").write_text(json.dumps(g))
+    m = TModel.construct_from_json(str(tmp_path / "set.json"), resource_manager=cpu)
+    assert m.dense_layers[0].transpose_b is True
+    assert _graph(m, tmp_path / "again.json")["dense_layers"] == g["dense_layers"]

@@ -6,8 +6,12 @@ state bitwise and the new stores bitwise equal to JAX's)."""
 import numpy as np
 
 from hugectr_tpu.core.types import INVALID_KEY
+from hugectr_tpu.core.types import Optimizer_t as JOpt
+from hugectr_tpu.optim.params import OptParams as JOptParams
 
+from hugectr_tpu_torch.core.types import Optimizer_t as TOpt
 from hugectr_tpu_torch.embedding.collection import EMPTY_KEY
+from hugectr_tpu_torch.optim.params import OptParams as TOptParams
 from test_torch_upkeep import E, Pair, _feats, _grads, _siblings, _single
 
 
@@ -84,3 +88,23 @@ def test_host_helpers_match_jax(monkeypatch):
     np.testing.assert_array_equal(p.tec._host_insert_keys(tks, tg, ti, ins), p.jec._host_insert_keys(jks, jg, jti, ins))
     np.testing.assert_array_equal(tks, jks)
     assert (tks != EMPTY_KEY).sum() == 16  # full: the later keys drop
+
+
+def test_growth_keeps_a_rebound_optimizer_where_the_reference_drops_it(monkeypatch):
+    """A fault of the reference (ROADMAP "Faults of the reference"): SOK
+    rebinds a group's optimizer (`OptimizerWrapper(engine, opt)` and
+    `sok.SGD` set `ec.group_opt[group]`, hugectr_tpu/sok/__init__.py:616,
+    788), and JAX's `grow_dynamic_capacity` builds the new collection from
+    the engine's original optimizer without copying `group_opt`
+    (collection.py:2566-2600), so the grown table trains with the old
+    hyperparameters. The port's grown collection keeps the binding. Both
+    bind AdaGrad at lr 0.05 over the collection's lr 0.5 (one state
+    layout); after growth JAX's group is back at 0.5, the port's at 0.05."""
+    p = Pair(monkeypatch, _single, capacity=32)
+    gname = p.tec.plan.groups[0].name
+    p.jec.group_opt[gname] = JOptParams(JOpt.AdaGrad, lr=0.05, initial_accu_value=0.0, epsilon=1e-7)
+    p.tec.group_opt[gname] = TOptParams(TOpt.AdaGrad, lr=0.05, initial_accu_value=0.0, epsilon=1e-7)
+    p.step({"f": np.array([[1, 2], [3, INVALID_KEY]], np.int32)}, {"e": np.ones((2, E), np.float32)})
+    p.grow("dyn", 128)
+    assert p.jec.group_opt[gname].lr == 0.5  # the reference's fault: the binding is gone
+    assert p.tec.group_opt[gname].lr == 0.05 and p.tec.group_opt[gname].optimizer == TOpt.AdaGrad

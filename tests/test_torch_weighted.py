@@ -330,7 +330,7 @@ def test_weighted_split_matches_jax(monkeypatch, superhot):
 def test_weighted_onehot_cross_sample_weight_cancel():
     """tests/test_weighted_lookup.py:493: weights +1 and -1 on one key in two
     samples: the row's gradient is d0 - d1 and it is updated, although its
-    weights sum to 0 (the touch counts sum |w|)."""
+    weights sum to 0 (the touch counts sum each sample's |summed w|)."""
     t0 = tplan.EmbeddingTableConfig("t0", 16, 4)
     pl = tplan.compile_plan([tplan.LookupConfig(0, t0, "f0", "e0", TComb.Sum, 1, sp_weight_name="w0")],
                             tplan.ShardingPlan([("dp", ["t0"])]), 1, onehot_vocab=64)
@@ -346,10 +346,47 @@ def test_weighted_onehot_cross_sample_weight_cancel():
     after = ec.export_table(tables, "t0")
     np.testing.assert_allclose(after[5], before[5] - np.array([1, 0, 0, 0]), rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(np.delete(after, 5, 0), np.delete(before, 5, 0))
-    # the touch count of row 5 is |1| + |-1|
+    # the touch count of row 5 is |1| + |-1|: one key in each of two samples
     k = torch.tensor([[5], [5]], dtype=torch.int32)
     _g, cnt = oh.onehot_matmul_bwd(k, d["e0"], 16, torch.float32, weights=weights["w0"])
     assert float(cnt[5]) == 2.0 and float(cnt.sum()) == 2.0
+
+
+def _cancel_lookups(pkg, comb):
+    t0 = pkg.EmbeddingTableConfig("t0", 16, E)
+    return [pkg.LookupConfig(0, t0, "f0", "e0", comb.Sum, 3, sp_weight_name="w0")]
+
+
+@pytest.mark.parametrize("opt", ["adam", "momentum_sgd"])
+def test_weighted_onehot_in_sample_cancel_leaves_row_untouched(monkeypatch, opt):
+    """One sample holds key 5 twice with weights +1 and -1: JAX's touch
+    count is sum_b |sum_h w| (collection.py:1383-1391), so the row is not
+    touched and Adam / momentum leave its moments and its values as they
+    are, where the old rule (sum of |w| per key) decayed them. Step 1
+    touches row 5 so that its moments are not 0; step 2 cancels it. The
+    table and state against JAX at TOL after each step, row 5's state and
+    value bitwise unchanged by step 2, and the plain backward's count of
+    row 5 is exactly 0 (rows 5 and 6 in one sample: 5's count 0, 6's 2)."""
+    p = Pair(monkeypatch, _cancel_lookups, [("dp", ["t0"])], "onehot", opt)
+    assert p.tplan.groups[0].compute_kind == "onehot"
+    rng = np.random.default_rng(5)
+    d = {"e0": rng.normal(size=(4, E)).astype(np.float32)}
+    feats1 = {"f0": np.array([[5, 1, -1], [2, 3, -1], [4, -1, -1], [6, 7, 8]], np.int32)}
+    w1 = {"w0": np.array([[0.5, 1, 1], [1, 1, 1], [2, 1, 1], [1, 1, 1]], np.float32)}
+    p.step(feats1, w1, d)
+    gname = p.tplan.groups[0].name
+    state1 = {k: v.clone() for k, v in p.ts[gname].items()}
+    row5 = p.tec.export_table(p.tt, "t0")[5].copy()
+    feats2 = {"f0": np.array([[5, 5, 6], [2, 3, -1], [4, -1, -1], [6, 7, 8]], np.int32)}
+    w2 = {"w0": np.array([[1, -1, 2], [1, 1, 1], [2, 1, 1], [1, 1, 1]], np.float32)}
+    p.step(feats2, w2, d)
+    np.testing.assert_array_equal(p.tec.export_table(p.tt, "t0")[5], row5)
+    for k, v in p.ts[gname].items():
+        assert torch.equal(v[5], state1[k][5]), k
+        assert not torch.equal(v[6], state1[k][6]), k  # row 6 is touched in both steps
+    _g, cnt = oh.onehot_matmul_bwd(torch.from_numpy(feats2["f0"]), torch.from_numpy(d["e0"]), 16,
+                                   torch.float32, weights=torch.from_numpy(w2["w0"]))
+    assert float(cnt[5]) == 0.0 and float(cnt[6]) == 3.0 and float(cnt[2]) == 1.0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -388,3 +388,76 @@ def sok_ranks(rm, inputs):
     out["size"] = dv.size
     out["global_keys"] = int(np.unique(k0[k0 >= 0]).size)
     return out
+
+
+# the tiny graph of tests/test_torch_graph_layers.py: the dense input read
+# as GRU_SEQ steps of GRU_V features by a GRU, concatenated with a two-slot
+# embedding, BatchNorm, a GELU MLP, a Gather that permutes the global batch,
+# an InnerProduct logit and BCE with a regularizer
+GRAPH_B = 16
+GRU_SEQ, GRU_V, GRU_H = 4, 3, 6
+GATHER = [3, 1, 0, 2, 11, 6, 4, 5, 15, 8, 9, 14, 12, 7, 13, 10]
+
+
+def graph_layers_model(pkg, rm, reg="l2", lam=0.01, port_engine=None):
+    """The tiny graph in `pkg` (hugectr_tpu or hugectr_tpu_torch): dense
+    AdaGrad and sparse AdaGrad, synthetic batches of GRAPH_B rows;
+    `port_engine` holds the port's engine fields (the JAX package reads
+    its environment)."""
+    L = pkg.Layer_t
+    solver = pkg.CreateSolver(max_eval_batches=2, batchsize_eval=GRAPH_B, batchsize=GRAPH_B, lr=0.05,
+                              repeat_dataset=True, **(port_engine or {}))
+    reader = pkg.DataReaderParams(data_reader_type=pkg.DataReaderType_t.Synthetic, synthetic_num_batches=4)
+    model = pkg.Model(solver, reader, pkg.CreateOptimizer(optimizer_type=pkg.Optimizer_t.AdaGrad),
+                      resource_manager=rm)
+    model.add(pkg.Input(label_dim=1, label_name="label", dense_dim=GRU_SEQ * GRU_V, dense_name="dense",
+                        data_reader_sparse_param_array=[pkg.DataReaderSparseParam("d0", 1, True, 2)]))
+    ebc = pkg.EmbeddingCollectionConfig()
+    ebc.embedding_lookup([pkg.EmbeddingTableConfig(name="t0", max_vocabulary_size=50, ev_size=8)], ["d0"], "emb",
+                         ["sum"])
+    ebc.shard(shard_matrix=[["t0"]] * rm.num_devices, shard_strategy=[("mp", ["t0"])])
+    model.add(ebc)
+    DL = pkg.DenseLayer
+    model.add(DL(layer_type=L.GRU, bottom_names=["dense"], top_names=["gru"], num_output=GRU_H,
+                 SeqLength=GRU_SEQ, vector_size=GRU_V))
+    model.add(DL(layer_type=L.Concat, bottom_names=["gru", "emb"], top_names=["c"]))
+    model.add(DL(layer_type=L.BatchNorm, bottom_names=["c"], top_names=["bn"], factor=0.3))
+    model.add(DL(layer_type=L.MLP, bottom_names=["bn"], top_names=["m"], num_outputs=[8],
+                 act_type=pkg.Activation_t.Gelu))
+    model.add(DL(layer_type=L.Gather, bottom_names=["m"], top_names=["g"], indices=GATHER))
+    model.add(DL(layer_type=L.InnerProduct, bottom_names=["g"], top_names=["logit"], num_output=1))
+    model.add(DL(layer_type=L.BinaryCrossEntropyLoss, bottom_names=["logit", "label"], top_names=["loss"],
+                 use_regularizer=reg != "none", regularizer_type=reg, lambda_=lam))
+    model.compile()
+    return model
+
+
+GRAPH_ENGINE = dict(onehot_vocab=0, dense_update_rows=0, dense_key_ratio=0.0, hot_rows=0)
+
+
+def graph_layers_ranks(rm, inputs):
+    """The tiny graph at W ranks from the JAX model's carried state
+    (`inputs["state"]`, global arrays): three steps' losses, then the dense
+    parameters, their state and the BatchNorm statistics, and this rank's
+    rows of the table."""
+    import hugectr_tpu_torch as pkg
+    from hugectr_tpu_torch.tools.carry import load_jax_state
+
+    rm = mesh.ResourceManager.create(device=rm.device)
+    model = graph_layers_model(pkg, rm, reg=str(inputs["reg"]), port_engine=GRAPH_ENGINE)
+    load_jax_state(model, inputs["state"])
+    losses = [model.train() for _ in range(3)]
+    out = {"losses": np.asarray(losses)}
+    for layer, ps in model.network.param_tree().items():
+        for k, p in ps.items():
+            out[f"dense:{layer}.{k}"] = p.detach().numpy()
+    for kind, tree in model.dopt.items():
+        for layer, ps in tree.items():
+            for k, t in ps.items():
+                out[f"dopt:{kind}.{layer}.{k}"] = t.numpy()
+    for layer, st in model.network.state_tree().items():
+        for k, t in st.items():
+            out[f"net_state:{layer}.{k}"] = t.numpy()
+    for g, t in model.tables.items():
+        out[f"table:{g}"] = t.numpy()
+    return out
