@@ -222,6 +222,26 @@ Each phase prints one JSON line with its own seconds:
    batch and ms a query; one `EmbeddingCache` sequence with repeated and
    colliding keys, the card's state bitwise the CPU's.
 
+15. The entry points users start from (after "hybrid_snapshot"):
+   "fullscale_path": `tools/fullscale_dryrun.py`'s entry function in a
+   child process of its own (its memory comes back at exit), bench.py's
+   settings at vocab_cap 40,000,000 (204,184,588 rows, 52,271,254,528
+   bytes of bf16 tables), 6 steps and a 4-batch eval: the rows total, the
+   tables' bytes against the plan's and the workspace calculator's, the
+   state's against the calculator's, finite losses, `onehot_fwd` once a
+   step and every kernel launched, the five 40 M-row cold tiers on the
+   sorted route, peak memory; after step 1, 64 keys of table 0's cold tier
+   at storage rows past 2^24 (elements past 2^31) that the step touched
+   changed and 64 that it did not bitwise unchanged, and the pooled forward
+   of a batch of only such keys equal to the sum of their rows copied to
+   the host (scaled error <= 1e-2). "auc_scale_path":
+   `tools/auc_scale_probe.py` at 5,242,880, 16,777,216 and 89,137,319
+   samples, the binned AUC within 1e-4 of the exact one at each, each
+   finalize's ms. "eval_profile": `tools/eval_profile.py` at bench.py's
+   operating point over 20 cached eval batches. "sample_cli": `python -m
+   hugectr_tpu_torch.samples.dlrm_dcnv2 --max_iter 4 --display 1
+   --eval_interval 4` in a subprocess: rc 0, 4 finite losses, an AUC line.
+
 Then a "kernels" JSON line (per kernel: source, the TPU kernel it replaces,
 main-path launches, error, ms, device_ms, plain_ms, bound_ms, bound_by,
 library_ms, for the float32 flagship case with the most device time; for
@@ -238,7 +258,7 @@ launches on rank 0 of the hybrid path, steps and eval, beside its f32,
 bf16 and E 64 cases; and each kernel's `weighted_case`: its bf16
 weighted case with the most device time and its launches on
 `weighted_path`, the ordered pool's on rank 0 of `hybrid_weighted_path`;
-and each kernel's launches on `serving_path`),
+and each kernel's launches on `serving_path` and `fullscale_path`),
 a line with the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that line;
 so does a machine without CUDA.
@@ -3676,6 +3696,205 @@ def sok_path(torch):
         raise AssertionError(f"sok path: {rec}")
 
 
+FULLSCALE_ROWS = 204_184_588  # MLPERF_TABLE_SIZES uncapped: five 40,000,000-row tables
+FULLSCALE_ARGV = ["--steps", "6", "--eval-batches", "4"]
+FAR_KEYS = 64
+
+
+def fullscale_tier(model, table: str = "0"):
+    """(group, lookup, storage offset) of `table`'s cold tier."""
+    for g in model.ec.plan.groups:
+        for lm in g.lookups:
+            if g.tables[lm.table_index].name == f"{table}::cold":
+                return g, lm, int(g.local_offsets[lm.table_index])
+    raise AssertionError(f"table {table} has no cold tier")
+
+
+def fullscale_pick(torch, np, model, row_min: int):
+    """Before step 1: stage the step's batch, take FAR_KEYS keys of table
+    0's cold tier whose storage rows are at `row_min` or above that the
+    step touches and FAR_KEYS such keys that it does not, and copy their
+    rows."""
+    g, lm, off = fullscale_tier(model)
+    first = row_min - off + lm.key_lo  # the first key whose row is at row_min
+    model.read_a_batch()
+    keys = model._decode_batch(model._staged_train_batch)["data0"]
+    k = np.unique(keys.cpu().numpy().astype(np.int64))
+    far = k[(k >= first) & (k < lm.key_hi)]
+    rng = np.random.default_rng(7)
+    if far.size < FAR_KEYS:
+        raise AssertionError(f"step 1 touches {far.size} keys of table 0 past row {row_min}, not {FAR_KEYS}")
+    touched = np.sort(rng.choice(far, FAR_KEYS, replace=False))
+    untouched = np.setdiff1d(rng.integers(first, lm.key_hi, 16 * FAR_KEYS), k)[:FAR_KEYS]
+    table = model.tables[g.name]
+    dev = table.device
+
+    def rows(ks):
+        return torch.as_tensor(ks - lm.key_lo + off, dtype=torch.int64, device=dev)
+
+    return dict(group=g.name, key_lo=lm.key_lo, off=off, rows=rows, touched=touched, untouched=untouched,
+                before_t=table[rows(touched)].clone(), before_u=table[rows(untouched)].clone(),
+                n_far=int(far.size), n_keys=int(keys.numel()), n_unique=int(k.size))
+
+
+def fullscale_rows_check(torch, np, model, st):
+    """After step 1: the touched rows changed, the untouched ones are
+    bitwise as before, and the pooled forward of a batch of these keys
+    alone equals the sum of their rows copied to the host."""
+    table = model.tables[st["group"]]
+    rows = st["rows"]
+    after_t, after_u = table[rows(st["touched"])], table[rows(st["untouched"])]
+    changed = int((after_t != st["before_t"]).any(dim=1).sum())
+    unchanged = bool(torch.equal(after_u, st["before_u"]))
+    model.read_a_batch()  # step 2's batch: every other feature's keys
+    fk = model._feature_keys(model._decode_batch(model._staged_train_batch))
+    pool = np.concatenate([st["touched"], st["untouched"]])
+    k0 = fk["sparse_embedding:0"]
+    rng = np.random.default_rng(8)
+    pick = rng.choice(pool, size=tuple(k0.shape))
+    fk = dict(fk, **{"sparse_embedding:0": torch.as_tensor(pick, dtype=k0.dtype, device=k0.device)})
+    with torch.no_grad():
+        got = model.ec.forward(model.tables, fk)["sparse_embedding:0"].double().cpu()
+    host = table[rows(pool)].double().cpu()  # the rows of the 128 keys, on the host
+    idx = torch.as_tensor(np.searchsorted(np.sort(pool), pick))
+    order = torch.as_tensor(np.argsort(pool))
+    vecs = host[order][idx]  # [B, h, E]
+    want, scale = vecs.sum(dim=1), vecs.abs().sum(dim=1)
+    err = scaled_err(got, want, scale)
+    e = table.shape[1]
+    return dict(touched_changed=changed, untouched_bitwise=unchanged, forward_scaled_err=err,
+                min_row=int(rows(pool).min()), min_element=int(rows(pool).min()) * e,
+                storage_elements=int(table.numel()), keys_past=st["n_far"], table0_keys=st["n_keys"],
+                table0_unique=st["n_unique"])
+
+
+def fullscale_child(argv=None, row_min: int = 0, rows_expected: int = FULLSCALE_ROWS, overrides=None) -> int:
+    """The `fullscale_path` phase's child process: the tool's entry
+    function with `FULLSCALE_ARGV`, then the checks on the model it built;
+    prints one JSON line. `row_min` (default: the first row whose elements
+    lie past 2^31), `rows_expected` and the tool's `overrides` let a
+    rehearsal run it small."""
+    import numpy as np
+    import torch
+
+    from hugectr_tpu_torch.tools import fullscale_dryrun as fs
+
+    st, past = {}, {}
+
+    def hook(model, i):
+        if i == 1:
+            st.update(fullscale_pick(torch, np, model, row_min or 2**31 // model.ec.plan.groups[0].ev_size))
+        elif i == 2:
+            past.update(fullscale_rows_check(torch, np, model, st))
+
+    t0 = time.perf_counter()
+    model, rec = fs.run(argv or FULLSCALE_ARGV, overrides=overrides, step_hook=hook,
+                        say=lambda *a, **k: print(*a, file=sys.stderr, **k))
+    launches = {k: sum(x[k] for x in rec["launches"]) for k in rec["launches"][0]}
+    alloc, calc = rec["allocated"], rec["calculator"]
+    big = [fullscale_tier(model, t)[0].name for t in ("0", "9", "19", "20", "21")]
+    out = dict(phase="fullscale_path", **{k: v for k, v in rec.items() if k != "launches"},
+               launches=launches, launches_per_step=rec["launches"], past_2_31=past, big_tier_groups=big,
+               ms_per_step=rec["median_ms_per_step"], seconds=time.perf_counter() - t0)
+    print(json.dumps(out), flush=True)
+    fails = []
+    if rec["rows_total"] != rows_expected:
+        fails.append(f"rows total {rec['rows_total']}, not {rows_expected}")
+    if alloc["tables"] != alloc["plan_tables"] or calc["weights"] != alloc["tables"]:
+        fails.append(f"table bytes {alloc['tables']}, plan {alloc['plan_tables']}, calculator {calc['weights']}")
+    if calc["state"] != alloc["state"]:
+        fails.append(f"state bytes {alloc['state']}, calculator {calc['state']}")
+    if not all(math.isfinite(x) for x in rec["losses"]):
+        fails.append(f"non-finite losses {rec['losses']}")
+    missing = [k for k in ONE_CARD_KERNELS if launches[k] <= 0]
+    if missing or any(x["onehot_fwd"] != 1 for x in rec["launches"]):
+        fails.append(f"kernels never launched {missing} or onehot_fwd not once a step: {rec['launches']}")
+    if any(rec["routes"].get(g) != "sorted" for g in big):
+        fails.append(f"the 40M-row cold tiers' routes: {[rec['routes'].get(g) for g in big]}")
+    if not (past.get("touched_changed") == FAR_KEYS and past.get("untouched_bitwise")
+            and past.get("forward_scaled_err", math.inf) <= TOL["bfloat16"]):
+        fails.append(f"rows past row {row_min or 'the 2^31st element'}: {past}")
+    if rec["max_memory_allocated"] is not None and rec["max_memory_allocated"] >= 80e9:
+        fails.append(f"peak memory {rec['max_memory_allocated']}")
+    if fails:
+        print("; ".join(fails), file=sys.stderr)
+        return 1
+    return 0
+
+
+def fullscale_path(torch):
+    """The full-vocabulary flagship (`tools/fullscale_dryrun.py`, bench.py's
+    settings at vocab_cap 40,000,000: 204,184,588 rows, 52.3 GB of bf16
+    tables) in a child process of its own, so that its memory comes back at
+    exit: 6 steps, a 4-batch eval, the child's checks."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    code = "import sys; sys.path.insert(0, %r); import chip_smoke; sys.exit(chip_smoke.fullscale_child())" % root
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=900)
+    sys.stderr.write(r.stderr[-20000:])
+    recs = [json.loads(ln) for ln in r.stdout.splitlines() if ln.startswith('{"phase": "fullscale_path"')]
+    rec = dict(recs[-1] if recs else {}, phase="fullscale_path", rc=r.returncode,
+               parent_memory_allocated=torch.cuda.memory_allocated(), seconds=time.perf_counter() - t0)
+    emit(rec)
+    if r.returncode or not recs:
+        raise AssertionError(f"fullscale_path: the child exited with {r.returncode}")
+    return rec["launches"]
+
+
+def auc_scale_path(torch):
+    """`tools/auc_scale_probe.py` on the card at 5,242,880, 16,777,216 and
+    89,137,319 samples: the exact and the binned AUC and each finalize's ms;
+    the binned within 1e-4 of the exact at every size."""
+    from hugectr_tpu_torch.tools.auc_scale_probe import SIZES, probe
+
+    t0 = time.perf_counter()
+    recs = [probe(n) for n in SIZES]
+    torch.cuda.empty_cache()
+    emit(dict(phase="auc_scale_path", sizes=recs, seconds=time.perf_counter() - t0))
+    bad = [r for r in recs if not abs(r["binned_minus_exact"]) <= 1e-4]
+    if bad:
+        raise AssertionError(f"binned AUC beyond 1e-4 of the exact: {bad}")
+
+
+def eval_profile_path(torch):
+    """`tools/eval_profile.py` at bench.py's operating point over 20 cached
+    eval batches: the forward, forward + metric write, finalize and
+    `eval()`, each per batch."""
+    from hugectr_tpu_torch.tools.eval_profile import profile
+
+    t0 = time.perf_counter()
+    rec = profile(eval_batches=20, say=lambda *a, **k: print(*a, file=sys.stderr, **k))
+    torch.cuda.empty_cache()
+    emit(dict(phase="eval_profile", **rec, seconds=time.perf_counter() - t0))
+    if not all(math.isfinite(rec[k]) and rec[k] > 0 for k in ("forward_ms", "forward_write_ms", "finalize_ms",
+                                                             "eval_ms_per_batch")):
+        raise AssertionError(f"eval_profile: {rec}")
+
+
+def sample_cli(torch):
+    """`python -m hugectr_tpu_torch.samples.dlrm_dcnv2 --max_iter 4
+    --display 1 --eval_interval 4` as a user starts it: rc 0, 4 loss lines
+    and an eval line with an AUC."""
+    import re
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "hugectr_tpu_torch.samples.dlrm_dcnv2", "--max_iter", "4",
+                        "--display", "1", "--eval_interval", "4"], cwd=root, capture_output=True, text=True,
+                       timeout=600)
+    text = r.stdout + r.stderr
+    losses = [float(x) for x in re.findall(r"Iter: \d+ .*Loss: ([-+0-9.eEnaif]+)", text)]
+    aucs = [float(x) for x in re.findall(r"Evaluation at iter 4: \{'auc': ([0-9.eE+-]+)", text)]
+    emit(dict(phase="sample_cli", rc=r.returncode, losses=losses, auc=aucs, seconds=time.perf_counter() - t0))
+    if r.returncode or len(losses) != 4 or not all(math.isfinite(x) for x in losses) or len(aucs) != 1:
+        sys.stderr.write(text[-8000:])
+        raise AssertionError(f"sample_cli: rc {r.returncode}, losses {losses}, auc {aucs}")
+
+
 def main() -> int:
     import torch
 
@@ -3745,6 +3964,10 @@ def main() -> int:
     hybrid_weighted = hybrid_weighted_path(torch)
     hybrid_ftrl_dynamic_path(torch)
     hybrid_snapshot(torch)
+    fullscale_launches = fullscale_path(torch)
+    auc_scale_path(torch)
+    eval_profile_path(torch)
+    sample_cli(torch)
 
     sources = {
         "onehot_fwd": ("hugectr_tpu_torch/csrc/onehot_matmul.cu",
@@ -3796,7 +4019,7 @@ def main() -> int:
             samples_case={**{k: rs[k] for k in keys}, "dtype": rs["dtype"]},
             **({"column_case": {k: column[name][k] for k in keys}} if name in column else {}),
             weighted_case=weighted_case(results, name, weighted_launches),
-            serving_path_launches=serving_launches[name],
+            serving_path_launches=serving_launches[name], fullscale_path_launches=fullscale_launches[name],
         ))
     # the ordered pool: a kernel of the paths over W ranks; its launches are
     # rank 0's on the hybrid path (steps and eval), beside the bench path's
@@ -3820,6 +4043,7 @@ def main() -> int:
                            launches=hybrid_weighted[0]["ordered_pool"],
                            hybrid_weighted_path_launches=[x["ordered_pool"] for x in hybrid_weighted]),
         serving_path_launches=serving_launches["ordered_pool"],
+        fullscale_path_launches=fullscale_launches["ordered_pool"],
     ))
     # device times taken by CUDA events because the profiler recorded nothing
     emit(dict(phase="profiler", event_fallbacks=[list(x) for x in devtime.FALLBACKS]))

@@ -35,24 +35,31 @@ _lock = threading.Lock()
 _lib = None
 
 
+def gxx_build(source: Path, stem: str, flags, what: str, suffix: str = "") -> Path:
+    """Compile `source` with g++ and `flags` into `build/native/{stem}_{hash}{suffix}`
+    (or reuse the file whose hash of source and flags matches) and return
+    its path; raises RuntimeError with g++'s output if it fails."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    digest.update(source.read_bytes())
+    out = BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}{suffix}"
+    if out.exists():
+        return out
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"{what} needs g++, which is not on PATH")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{out.name}.{os.getpid()}.tmp"  # processes that start together may each build
+    r = subprocess.run([cxx, *flags, str(source), "-o", str(tmp)], capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"g++ failed to build {what} ({source}):\n{r.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
 def build() -> Path:
     """Compile the core (or reuse the library whose hash matches) and
     return its path; raises RuntimeError with g++'s output if it fails."""
-    digest = hashlib.sha256(" ".join(FLAGS).encode())
-    digest.update(SOURCE.read_bytes())
-    so = BUILD_DIR / f"libraw_reader_{digest.hexdigest()[:16]}.so"
-    if so.exists():
-        return so
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("the native Raw reader needs g++, which is not on PATH")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{so.name}.{os.getpid()}.tmp"  # processes that start together may each build
-    r = subprocess.run([cxx, *FLAGS, str(SOURCE), "-o", str(tmp)], capture_output=True, text=True)
-    if r.returncode:
-        raise RuntimeError(f"g++ failed to build the native Raw reader ({SOURCE}):\n{r.stderr}")
-    os.replace(tmp, so)
-    return so
+    return gxx_build(SOURCE, "libraw_reader", FLAGS, "the native Raw reader", ".so")
 
 
 def library() -> ctypes.CDLL:

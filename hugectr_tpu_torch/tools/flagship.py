@@ -116,6 +116,7 @@ def build_dlrm_dcnv2(
     reader=None,
     comm_strategy=None,
     column_factors=None,
+    batchsize_eval=None,
     **solver_kwargs,
 ):
     """DLRM-DCNv2 (flagship.py:28); returns a compiled Model on `rm.device`,
@@ -125,16 +126,16 @@ def build_dlrm_dcnv2(
     `reader` replaces the synthetic reader; `comm_strategy` is the
     collection's (flagship.py:40; "hierarchical" takes the two-level
     exchange on a hierarchical mesh), `column_factors` {table: f} splits
-    tables column-wise; `solver_kwargs` are `Solver` fields (dtypes, split,
-    engine settings)."""
+    tables column-wise; `batchsize_eval` defaults to `batchsize`;
+    `solver_kwargs` are `Solver` fields (dtypes, split, engine settings)."""
     table_sizes = [min(v, vocab_cap) for v in MLPERF_TABLE_SIZES]
     if multi_hot_sizes is None:
         multi_hot_sizes = MLPERF_MULTI_HOT_SIZES
     solver_kwargs.setdefault("metrics_spec", {Metric_t.AUC: 0.80275})
     solver_kwargs.setdefault("repeat_dataset", True)
     solver = hugectr.CreateSolver(
-        batchsize=batchsize, batchsize_eval=batchsize, max_eval_batches=max_eval_batches, lr=lr,
-        use_mixed_precision=use_mixed_precision, **solver_kwargs,
+        batchsize=batchsize, batchsize_eval=batchsize_eval or batchsize, max_eval_batches=max_eval_batches,
+        lr=lr, use_mixed_precision=use_mixed_precision, **solver_kwargs,
     )
     reader = reader or hugectr.DataReaderParams(
         data_reader_type=DataReaderType_t.Synthetic,
@@ -349,13 +350,16 @@ def build_dlrm_ftrl(
     max_eval_batches: int = 50,
     synthetic_alpha: float = 1.05,
     reader=None,
+    compile_model: bool = True,
     **solver_kwargs,
 ):
-    """DLRM with FTRL, samples/dlrm_ftrl.py:15-114, compiled on `rm.device`
-    over `rm.num_devices` ranks, every table on every rank as the sample's
-    `shard_matrix` puts them (samples/dlrm_ftrl.py:69-72). `reader`
-    replaces the synthetic reader; `solver_kwargs` are `Solver` fields
-    (engine settings, dtypes, `i64_input_key`)."""
+    """DLRM with FTRL, samples/dlrm_ftrl.py:15-114, on `rm.device` over
+    `rm.num_devices` ranks, every table on every rank as the sample's
+    `shard_matrix` puts them (samples/dlrm_ftrl.py:69-72); compiled unless
+    `compile_model` is False. A static table's `dynamic_capacity` is 0, as
+    the sample sets it (:60). `reader` replaces the synthetic reader;
+    `solver_kwargs` are `Solver` fields (engine settings, dtypes,
+    `i64_input_key`)."""
     sizes = [min(v, vocab_cap) for v in FTRL_SLOT_SIZES]
     solver_kwargs.setdefault("repeat_dataset", True)
     solver = hugectr.CreateSolver(
@@ -381,7 +385,7 @@ def build_dlrm_ftrl(
     tables = [
         hugectr.EmbeddingTableConfig(
             name=str(i), max_vocabulary_size=-1 if dynamic else sizes[i], ev_size=ev_size,
-            dynamic_capacity=dynamic_capacity,
+            dynamic_capacity=dynamic_capacity if dynamic else 0,
         )
         for i in range(NUM_TABLE)
     ]
@@ -403,7 +407,8 @@ def build_dlrm_ftrl(
                                  activations=[hugectr.Activation_t.Relu] * 4 + [hugectr.Activation_t.Non]))
     model.add(hugectr.DenseLayer(layer_type=hugectr.Layer_t.BinaryCrossEntropyLoss,
                                  bottom_names=["top_mlp", "label"], top_names=["loss"]))
-    model.compile()
+    if compile_model:
+        model.compile()
     return model
 
 

@@ -353,24 +353,28 @@ _SAMPLES = {
 
 def build_sample(name: str, rm, batchsize: int = 2048, variant: Optional[str] = None, slot_cap: int = 0,
                  dropout_rate: Optional[float] = None, synthetic_batches: int = 64,
-                 synthetic_learnable: bool = False, reader=None, **solver_kwargs):
-    """The graph of `samples/<name>.py` (`variant` for ncf and mmoe),
-    compiled on `rm.device` over `rm.num_devices` ranks. The solver is the
-    sample's (`CreateSolver` at its lines 14-26: lr 0.001, the `--lr`
-    default, which ncf fixes at 0.0045), with `solver_kwargs` (`Solver`
-    fields) added; `reader` (a `DataReaderParams`, e.g. the sample's own
-    `make_reader`'s Parquet files) replaces the synthetic reader."""
+                 synthetic_learnable: bool = False, reader=None, lr: float = 0.001, compile_model: bool = True,
+                 **solver_kwargs):
+    """The graph of `samples/<name>.py` (`variant` for ncf and mmoe) on
+    `rm.device` over `rm.num_devices` ranks, compiled unless
+    `compile_model` is False (the sample scripts compile under `__main__`).
+    The solver is the sample's (`CreateSolver` at its lines 14-26: `lr`, the
+    `--lr` flag, default 0.001, which ncf fixes at 0.0045), with
+    `solver_kwargs` (`Solver` fields) added; `reader` (a
+    `DataReaderParams`, e.g. the sample's own `make_reader`'s Parquet files)
+    replaces the synthetic reader."""
     graph, opt_kw, fixed_lr, max_eval = _SAMPLES[name]
     variant = variant or DEFAULT_VARIANT.get(name)
     solver_kwargs.setdefault("max_eval_batches", max_eval)
-    solver = hugectr.CreateSolver(batchsize_eval=batchsize, batchsize=batchsize, lr=fixed_lr or 0.001,
+    solver = hugectr.CreateSolver(batchsize_eval=batchsize, batchsize=batchsize, lr=fixed_lr or lr,
                                   repeat_dataset=True, **solver_kwargs)
     reader = reader or hugectr.DataReaderParams(data_reader_type=DataReaderType_t.Synthetic,
                                       synthetic_num_batches=synthetic_batches, synthetic_alpha=1.05,
                                       synthetic_learnable=synthetic_learnable)
     model = hugectr.Model(solver, reader, hugectr.CreateOptimizer(**opt_kw), resource_manager=rm)
     graph(_Builder(model, slot_cap, dropout_rate), variant)
-    model.compile()
+    if compile_model:
+        model.compile()
     return model
 
 

@@ -14,12 +14,25 @@ PORT_FILES = sorted((ROOT / "hugectr_tpu_torch").rglob("*.py")) + [ROOT / "chip_
 FORBIDDEN = {"jax", "jaxlib", "hugectr_tpu"}
 
 
+# the sample scripts build their model at module level, as the JAX
+# package's samples/*.py do: importing one builds a model on the card, so
+# the walk imports the samples package and its `common` and reads the
+# scripts (test_no_port_file_imports_jax_or_the_jax_package); they are run
+# in tests/test_torch_samples_cli.py
+SAMPLE_SCRIPTS = sorted(p.stem for p in (ROOT / "hugectr_tpu_torch" / "samples").glob("*.py")
+                        if p.stem not in ("__init__", "common"))
+
+
 def test_fresh_process_imports_every_port_module_without_jax():
+    assert len(SAMPLE_SCRIPTS) == 10, SAMPLE_SCRIPTS
     code = (
         "import importlib, pkgutil, sys\n"
         "import hugectr_tpu_torch\n"
+        "scripts = {'hugectr_tpu_torch.samples.' + s for s in %r}\n"
         "for m in pkgutil.walk_packages(hugectr_tpu_torch.__path__, 'hugectr_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "    if m.name not in scripts:\n"
+        "        importlib.import_module(m.name)\n"
+        "assert not scripts & set(sys.modules)\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in %r)\n"
         "print(sum(n.startswith('hugectr_tpu_torch') for n in sys.modules))\n"
@@ -29,8 +42,15 @@ def test_fresh_process_imports_every_port_module_without_jax():
         "        'hugectr_tpu_torch.data.native_reader', 'hugectr_tpu_torch.data.generator',\n"
         "        'hugectr_tpu_torch.cache.embedding_cache', 'hugectr_tpu_torch.parallel.planner',\n"
         "        'hugectr_tpu_torch.tools.onnx_writer', 'hugectr_tpu_torch.tools.hugectr2onnx',\n"
-        "        'hugectr_tpu_torch.tools.predict', 'hugectr_tpu_torch.core.logger'} <= set(sys.modules)\n"
-        % (FORBIDDEN,)
+        "        'hugectr_tpu_torch.tools.predict', 'hugectr_tpu_torch.core.logger',\n"
+        "        'hugectr_tpu_torch.samples', 'hugectr_tpu_torch.samples.common',\n"
+        "        'hugectr_tpu_torch.tools.fullscale_dryrun', 'hugectr_tpu_torch.tools.auc_scale_probe',\n"
+        "        'hugectr_tpu_torch.tools.embedding_workspace_calculator', 'hugectr_tpu_torch.tools.data_generator',\n"
+        "        'hugectr_tpu_torch.tools.criteo_to_raw', 'hugectr_tpu_torch.tools.criteo_preprocess',\n"
+        "        'hugectr_tpu_torch.tools.embedding_gen', 'hugectr_tpu_torch.tools.eval_batch_sweep',\n"
+        "        'hugectr_tpu_torch.tools.eval_profile'} <= set(sys.modules)\n"
+        "assert 'pyarrow' not in sys.modules\n"
+        % (SAMPLE_SCRIPTS, FORBIDDEN)
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run(
