@@ -75,7 +75,8 @@ Each phase prints one JSON line with its own seconds:
    tables capped at 400,000 rows, ev 128, hotness 1, batch 16,384), 6
    steps and a 20-batch eval, counters read around each: `onehot_fwd` once
    per step and per eval batch, `onehot_bwd` 13 per step, `segscan` in the
-   steps, the route map as planned, finite losses.
+   steps, the route map as planned, finite losses; learnable synthetic
+   labels, and whether the loss falls.
 7. "ftrl_dynamic_path": the same on exact dynamic tables (4,096 rows
    each, no hand-written kernel on this path): the key store's fill and
    the keys dropped after each step; run twice from one seed, the stores
@@ -242,6 +243,30 @@ Each phase prints one JSON line with its own seconds:
    hugectr_tpu_torch.samples.dlrm_dcnv2 --max_iter 4 --display 1
    --eval_interval 4` in a subprocess: rc 0, 4 finite losses, an AUC line.
 
+16. The benchmark suite, the SKIP_* ablations and the last engine
+   settings: the kernel phase ends with the grouped forward past 48
+   lookups (`chunked_group_checks`: the 510-table case's one-hot group at
+   49, 96 and 100 lookups, batch 2,048, f32 and bf16, weighted and not,
+   ceil(n / 48) launches a call against one plain call; the 100-lookup
+   cases timed beside the bound and one `embedding_bag`), the one-hot
+   forward and backward at the scatter ratio's shapes (`scatter_ratio_checks`:
+   V 131,072, h 100, batch 16,384, f32 and bf16, beside `embedding_bag`
+   and `index_add_`) and the dense sweep's bf16 gradient buffer
+   (`bf16_grad_checks`: `index_add_` into bf16 on the card against the
+   ordered adds, within 2^-7 x sqrt(n) x sum |g|). "scatter_ratio_path"
+   (after "bench_path"): the bench-configured flagship with
+   `onehot_scatter_ratio=2000`, 3 steps: table 20's hot tier and table 14
+   in the one-hot group, the grouped forward once a step, the backward
+   once a one-hot lookup and step. "benchmarks_path": the suite's
+   `dcnv2` case at the runner's defaults with no flag and under each of
+   SKIP_EMBEDDING, SKIP_EMBEDDING_UPDATE, SKIP_BOTTOM_MLP and SKIP_TOP_MLP
+   (5 warm-up and 20 timed steps each: ms/step and its difference from no
+   flag, launches and the dense layers' forward calls, which must be 0 for
+   a skipped stage), then the four synthetic cases at the JAX README's
+   operating points (bf16 tables and state, rowwise AdaGrad; the 7-table
+   case untiered and tiered), 2 warm-up and 5 timed steps each; the
+   510-table case must hold a one-hot group of more than 48 lookups.
+
 Then a "kernels" JSON line (per kernel: source, the TPU kernel it replaces,
 main-path launches, error, ms, device_ms, plain_ms, bound_ms, bound_by,
 library_ms, for the float32 flagship case with the most device time; for
@@ -258,7 +283,10 @@ launches on rank 0 of the hybrid path, steps and eval, beside its f32,
 bf16 and E 64 cases; and each kernel's `weighted_case`: its bf16
 weighted case with the most device time and its launches on
 `weighted_path`, the ordered pool's on rank 0 of `hybrid_weighted_path`;
-and each kernel's launches on `serving_path` and `fullscale_path`),
+and each kernel's launches on `serving_path`, `fullscale_path`,
+`scatter_ratio_path` and `benchmarks_path`, the one-hot kernels' f32 case
+at the scatter ratio's shapes (`ratio_case`) and the forward's 100-lookup
+f32 case (`chunked_case`)),
 a line with the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that line;
 so does a machine without CUDA.
@@ -444,6 +472,9 @@ def kernel_checks(torch, results):
     ordered_pool_checks(torch, np, dev, results)
     column_kernel_checks(torch, np, dev, results)
     weighted_kernel_checks(torch, np, dev, results)
+    chunked_group_checks(torch, np, oh, dev, results)
+    scatter_ratio_checks(torch, np, oh, dev, results)
+    bf16_grad_checks(torch, np, dev)
 
 
 def ftrl_shape_checks(torch, np, oh, ss, dev, results):
@@ -528,7 +559,7 @@ def ftrl_shape_checks(torch, np, oh, ss, dev, results):
         scaled_err=scaled_err(got, want, scale), max_abs_err=float((got - want).abs().max()),
         tol=TOL["float32"], bitwise_repeat=bool(torch.equal(call(), got)), ms=time_ms(call), device_ms=dms,
         device_launches_per_call=per_call,
-        plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(vals, heads)),
+        plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(vals, heads), samples=5, inner=1, warmup=1),
         library_ms=None, library="none: no single PyTorch call computes a segmented scan",
         bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
     )
@@ -625,7 +656,7 @@ def bench_shape_checks(torch, np, oh, ss, dev, results, world: int = 1):
         list_len=B * lm.hotness, E=E, segments=int(heads.sum()), scaled_err=scaled_err(got, want, scale),
         max_abs_err=float((got - want).abs().max()), tol=TOL["float32"], out_ok=got.dtype == torch.float32,
         bitwise_repeat=bool(torch.equal(call(), got)), ms=time_ms(call), device_ms=dms,
-        device_launches_per_call=per_call, plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(vals, heads, torch.float32)),
+        device_launches_per_call=per_call, plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(vals, heads, torch.float32), samples=5, inner=1, warmup=1),
         library_ms=None, library="none: no single PyTorch call computes a segmented scan",
         bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
     )
@@ -880,7 +911,7 @@ def segscan_checks(torch, np, rng, ss, dev, results):
             bitwise_repeat=repeat_equal,
             ms=time_ms(lambda: ss.segmented_sum_sorted(vals, heads)),
             device_ms=dms, device_launches_per_call=per_call,
-            plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(vals, heads)),
+            plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(vals, heads), samples=5, inner=1, warmup=1),
             library_ms=None, library="none: no single PyTorch call computes a segmented scan",
             bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms,
             seconds=time.perf_counter() - t0,
@@ -1055,6 +1086,7 @@ def column_kernel_checks(torch, np, dev, results):
     lens = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
         0, torch.repeat_interleave(torch.arange(n, device=dev), offsets.diff()), pooled.long())
     owned = srows[pooled]
+    slot_ids = torch.repeat_interleave(torch.arange(n, device=dev), lens)
     obounds = torch.cat([lens.new_zeros(1), lens.cumsum(0)])
     uniq = int(torch.unique(owned).numel())
     ids_read = int(torch.minimum(lens + 1, offsets.diff()).sum())
@@ -1068,6 +1100,7 @@ def column_kernel_checks(torch, np, dev, results):
                plain_ms=time_ms(lambda: op.ordered_pool_plain(table, srows, offsets), samples=5, inner=1, warmup=1),
                library_ms=time_ms(lambda: F.embedding_bag(owned, table, obounds[:-1], mode="sum")),
                library="torch.nn.functional.embedding_bag(mode='sum', offsets) over the owned rows",
+               index_add_ms=time_ms(lambda: torch.zeros((n, e), device=dev).index_add_(0, slot_ids, table[owned])),
                bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0)
     results.append(rec)
     emit(rec)
@@ -1090,7 +1123,7 @@ def column_kernel_checks(torch, np, dev, results):
                scaled_err=scaled_err(got, want, scale), max_abs_err=float((got - want).abs().max()),
                tol=TOL["float32"], bitwise_repeat=bool(torch.equal(call(), got)),
                ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
-               plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(vals, heads)),
+               plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(vals, heads), samples=5, inner=1, warmup=1),
                library_ms=time_ms(lambda: torch.zeros((g.total_local_rows, e), device=dev).index_add_(0, sidx, vals)),
                library="index_add_ of the rows' values (the segments' totals, not their running sums)",
                bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0)
@@ -1240,7 +1273,7 @@ def sample_kernel_checks(torch, results):
                 max_abs_err=float((got.float() - want.float()).abs().max()), tol=TOL[dname],
                 bitwise_repeat=repeat_equal, ms=time_ms(lambda: ss.segmented_sum_sorted(vals, heads)),
                 device_ms=dms, device_launches_per_call=per_call,
-                plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(vals, heads)),
+                plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(vals, heads), samples=5, inner=1, warmup=1),
                 library_ms=None, library="none: no single PyTorch call computes a segmented scan",
                 bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
             )
@@ -1654,7 +1687,8 @@ def ftrl_run(torch, dynamic: bool, steps: int = 6, eval_batches: int = 20):
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     model = build_dlrm_ftrl(ResourceManager.create(), batchsize=B, dynamic=dynamic, ev_size=E,
-                            synthetic_batches=steps, max_eval_batches=eval_batches, metrics_spec=METRICS)
+                            synthetic_batches=steps, max_eval_batches=eval_batches, metrics_spec=METRICS,
+                            synthetic_learnable=True)
     model.start_data_reading()
     # one pass over the cycled batches, which leaves the cycle at batch 0
     batches = [next(model._train_iter) for _ in range(steps)]
@@ -1685,7 +1719,8 @@ def ftrl_run(torch, dynamic: bool, steps: int = 6, eval_batches: int = 20):
     eval_launches = ops.launch_counts()
     rec = dict(
         phase="ftrl_dynamic_path" if dynamic else "ftrl_path", tables=26, ev=E, batch=B, steps=steps,
-        rows=sum(g.total_storage_rows for g in ec.plan.groups), losses=losses,
+        rows=sum(g.total_storage_rows for g in ec.plan.groups), losses=losses, learnable_labels=True,
+        loss_falls=losses[-1] < losses[0], loss_change=losses[-1] - losses[0],
         step_ms=[x * 1e3 for x in step_s], median_ms_per_step=steady * 1e3, train_examples_per_s=B / steady,
         eval_batches=eval_batches, eval_seconds=eval_s, warmup_eval_seconds=warm_s,
         eval_examples_per_s=eval_batches * B / eval_s, eval=vals,
@@ -2150,17 +2185,19 @@ def mp_groups(rec) -> int:
 
 def check_path_launches(rec, per_step: dict, eval_fwd: bool = True):
     """Every rank's launches: `per_step` {kernel: n} a step exactly (None:
-    at least once in the steps), `onehot_fwd` once an eval batch, the
-    ordered pool once a model-parallel rowop group and forward (step or
-    eval batch: the owner-partitioned forward), and no backward kernel in
+    at least once in the steps), `onehot_fwd` once a forward (step or
+    eval batch: each of these paths has one one-hot group of at most 48
+    lookups), the ordered pool once a model-parallel rowop group and
+    forward (the owner-partitioned forward), and no backward kernel in
     the eval."""
     steps, eval_batches = rec["steps"], rec["eval_batches"]
-    per_step = dict(per_step, ordered_pool=mp_groups(rec))
+    fwd = 1
+    per_step = dict(per_step, onehot_fwd=fwd if eval_fwd else 0, ordered_pool=mp_groups(rec))
     for r, (tl, el) in enumerate(zip(rec["launches"], rec["eval_launches"])):
         ok = all(tl[k] > 0 if n is None else tl[k] == n * steps for k, n in per_step.items())
         ok = ok and el["onehot_bwd"] == 0 and el["segscan"] == 0
         ok = ok and el["ordered_pool"] == mp_groups(rec) * eval_batches and mp_groups(rec) > 0
-        ok = ok and el["onehot_fwd"] == (eval_batches if eval_fwd else 0)
+        ok = ok and el["onehot_fwd"] == (fwd * eval_batches if eval_fwd else 0)
         if not ok:
             raise AssertionError(f"{rec['phase']} launches on rank {r}: train {tl}, eval {el}")
 
@@ -2177,7 +2214,7 @@ def hybrid_path(torch):
     emit(rec)
     if not rec["finite"]:
         raise AssertionError(f"non-finite loss on the hybrid path: {rec['losses']}")
-    check_path_launches(rec, {"onehot_fwd": 1, "onehot_bwd": None, "segscan": None})
+    check_path_launches(rec, {"onehot_bwd": None, "segscan": None})
     if not rec["replicas_equal"]:
         raise AssertionError("replicated arrays differ across the ranks of the hybrid path")
     return [{k: tl[k] + el[k] for k in tl} for tl, el in zip(rec["launches"], rec["eval_launches"])], rec
@@ -2194,7 +2231,7 @@ def check_mesh_path(rec, ranks):
     parity = [hybrid.jsonable(r["kernel_parity"]) for r in ranks]
     if not rec["finite"]:
         raise AssertionError(f"non-finite loss on {rec['phase']}: {rec['losses']}")
-    check_path_launches(rec, {"onehot_fwd": 1, "onehot_bwd": None, "segscan": None})
+    check_path_launches(rec, {"onehot_bwd": None, "segscan": None})
     if not (rec["replicas_equal"] and rec["shard_replicas_equal"]):
         raise AssertionError(f"replicas differ across the ranks of {rec['phase']}")
     for r, p in enumerate(parity):
@@ -2362,7 +2399,7 @@ def hybrid_bench_path(torch):
     emit(rec)
     if not rec["finite"]:
         raise AssertionError(f"non-finite loss on the hybrid bench path: {rec['losses']}")
-    check_path_launches(rec, {"onehot_fwd": 1, "onehot_bwd": 20, "segscan": None})
+    check_path_launches(rec, {"onehot_bwd": 20, "segscan": None})
     if not rec["replicas_equal"]:
         raise AssertionError("replicated arrays differ across the ranks of the hybrid bench path")
     for r, p in enumerate(parity):
@@ -2401,7 +2438,7 @@ def hybrid_ftrl_dynamic_path(torch):
         raise AssertionError(f"non-finite loss on the hybrid dynamic FTRL path: {rec['losses']}")
     if rec["routes"] != FTRL_ROUTES["dynamic"]:
         raise AssertionError(f"hybrid dynamic FTRL path routes {rec['routes']}")
-    check_path_launches(rec, {"onehot_fwd": 0, "onehot_bwd": 0, "segscan": 0}, eval_fwd=False)
+    check_path_launches(rec, {"onehot_bwd": 0, "segscan": 0}, eval_fwd=False)
     if not (overlap == 0 and rec["key_store_repeat_equal"] and rec["replicas_equal"]
             and min(f["mp_ev128"][-1] for f in rec["store_fill"]) > 0):
         raise AssertionError(f"hybrid dynamic FTRL key stores: {rec}")
@@ -2942,6 +2979,7 @@ def weighted_kernel_checks(torch, np, dev, results):
         dms, per_call = device_ms(call, KERNEL_NAMES["ordered_pool"])
         wo = sw[pooled].to(torch.bfloat16)
         lib = lambda: F.embedding_bag(owned, table, obounds[:-1], mode="sum", per_sample_weights=wo)  # noqa: E731
+        slot_ids = torch.repeat_interleave(torch.arange(n, device=dev), lens)
         rec = dict(kernel="ordered_pool", case=f"weighted_{gp.name}_w{world}", dtype="bfloat16", K=int(srows.numel()),
                    slots=n, E=E, weighted=True, owned=int(owned.numel()), unique_rows=uniq,
                    bitwise=bool(torch.equal(bits(torch, got), bits(torch, want))),
@@ -2953,6 +2991,8 @@ def weighted_kernel_checks(torch, np, dev, results):
                    library_ms=time_ms(lib),
                    library="torch.nn.functional.embedding_bag(mode='sum', offsets, per_sample_weights=) over the "
                            "owned rows (float32 sums, one rounding)",
+                   index_add_ms=time_ms(lambda: torch.zeros((n, E), dtype=torch.bfloat16, device=dev).index_add_(
+                       0, slot_ids, table[owned] * wo.unsqueeze(1))),
                    bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0)
         rec["scaled_err"] = 0.0 if rec["bitwise"] else math.inf
         results.append(rec)
@@ -3232,8 +3272,8 @@ def weighted_case(results, name: str, weighted_launches):
     weighted path's type) with the most device time, and its launches on
     `weighted_path` (the tiered run's weighted launches of the one-hot
     kernels; segscan's on the untiered run, on the per-key rows)."""
-    r = max((x for x in results if x["kernel"] == name and x.get("weighted") and x["dtype"] == "bfloat16"),
-            key=lambda x: x["device_ms"])
+    r = max((x for x in results if x["kernel"] == name and x.get("weighted") and x["dtype"] == "bfloat16"
+             and not x["case"].startswith("chunked")), key=lambda x: x["device_ms"])
     out = {k: r[k] for k in ("case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms")}
     if weighted_launches is not None:
@@ -3243,45 +3283,43 @@ def weighted_case(results, name: str, weighted_launches):
 
 
 def weighted_path(torch):
-    """The repo's weighted configuration at full width
-    (benchmarks/weighted_bench.py:30-37, `tools/weighted.py`: one
-    2,000,000-row weighted Sum table, ev 128, hotness 20, batch 16,384, bf16
-    tables, rowwise AdaGrad, weights uniform in [0, 1) from the seed),
-    untiered and tiered (hot 131,072 / split vocab 16,384 / superhot 1,024),
-    6 steps of the collection each (the bench's step). Counters set to 0
-    just before the steps and read just after: untiered, segscan on the
-    per-key rows (K = 16,384 x 20) once a step; tiered, the weighted one-hot
-    forward and backward once a step each and segscan for the cold tier; no
-    plain version. Reports median ms/step of steps 2-6, ex/s, routes,
-    launches a step, peak memory and the card. The bench's UCAP settings
+    """The repo's weighted configuration at full width, as
+    `hugectr_tpu_torch/benchmarks/weighted_bench.py` runs it (the case of
+    benchmarks/weighted_bench.py:30-37: one 2,000,000-row weighted Sum
+    table, ev 128, hotness 20, batch 16,384, bf16 tables, rowwise AdaGrad,
+    weights uniform in [0, 1) from the seed), untiered and tiered (hot
+    131,072 / split vocab 16,384 / superhot 1,024), cut from the bench's 3
+    warm-up and 20 timed steps to none and 6. Counters set to 0 just before
+    the steps and read just after: untiered, segscan on the per-key rows
+    (K = 16,384 x 20) once a step; tiered, the weighted one-hot forward and
+    backward once a step each and segscan for the cold tier; no plain
+    version. Reports median ms/step of steps 2-6, ex/s, routes, launches a
+    step, peak memory and the card. The bench's UCAP settings
     (HCTR_TPU_UCAP_*) are not ported: cut."""
     from hugectr_tpu_torch import ops
+    from hugectr_tpu_torch.benchmarks import weighted_bench
     from hugectr_tpu_torch.core.mesh import ResourceManager
     from hugectr_tpu_torch.tools import weighted as wt
 
     rm = ResourceManager.create()
-    keys, w, d = (torch.as_tensor(a, device=rm.device) for a in wt.weighted_batch(0))
     out = {}
     for tiers in (False, True):
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        ec = wt.weighted_collection(rm, tiers)
-        tables = ec.init(rm.generator(0))
-        state = ec.init_optimizer(tables)
-        torch.cuda.synchronize()
-        ops.reset_counts()
-        run = wt.run_steps(ec, tables, state, keys, w, d, WEIGHTED_STEPS)
+        run = weighted_bench.run_case(rm, tiers, steps=WEIGHTED_STEPS, warmup=0, before_timed=ops.reset_counts)
         lc, wc, pc = ops.launch_counts(), ops.weighted_counts(), ops.plain_counts()
+        ec = run["ec"]
         with torch.no_grad():
-            pooled = ec.forward(tables, {"f": keys}, {"w": w})["e"]
+            pooled = ec.forward(run["tables"], {"f": run["keys"]}, {"w": run["w"]})["e"]
+        bench = run["record"]
         rec = dict(phase="weighted_path", tiers=tiers, card=card_line(), source=WEIGHTED_SOURCE,
                    table_rows=wt.VOCAB, ev=wt.EV, hotness=wt.HOT, batch=B, dtype="bfloat16",
                    optimizer="rowwise_adagrad", cut="HCTR_TPU_UCAP_* (no counterpart in the port)",
-                   groups={g.name: [g.compute_kind, g.total_local_rows] for g in ec.plan.groups},
-                   routes=dict(ec.group_routes), step_ms=run["step_ms"],
-                   median_ms_per_step=run["median_ms_per_step"],
-                   examples_per_s=B / (run["median_ms_per_step"] / 1e3),
+                   reduced=dict(warmup=[weighted_bench.WARMUP, 0], steps=[weighted_bench.STEPS, WEIGHTED_STEPS]),
+                   groups=bench["groups"], routes=bench["routes"], step_ms=bench["step_ms"],
+                   median_ms_per_step=bench["median_ms_per_step"],
+                   examples_per_s=B / (bench["median_ms_per_step"] / 1e3),
                    launches_per_step={k: v / WEIGHTED_STEPS for k, v in lc.items()},
                    weighted_launches_per_step={k: v / WEIGHTED_STEPS for k, v in wc.items()}, plain_calls=pc,
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -3296,7 +3334,7 @@ def weighted_path(torch):
         if not ok:
             raise AssertionError(f"weighted path did not run its kernels as planned: {rec}")
         out["tiered" if tiers else "untiered"] = {"launches": lc, "weighted": wc}
-        del ec, tables, state
+        del run, ec
     return out
 
 
@@ -3487,91 +3525,37 @@ def upkeep_path(torch):
         raise AssertionError(f"upkeep path: {rec}")
 
 
-def host_spill_model(rm, batch: int, capacity: int, ev: int, hotness: int):
-    """benchmarks/host_spill_bench.py:34's model: one dynamic table of
-    `capacity` rows (bf16), Concat with 13 dense, MLP 256-1, BCE, AdaGrad."""
-    import hugectr_tpu_torch as hugectr
-
-    solver = hugectr.CreateSolver(max_eval_batches=1, batchsize_eval=batch, batchsize=batch, lr=0.05,
-                                  repeat_dataset=True, embedding_vec_dtype="bfloat16")
-    reader = hugectr.DataReaderParams(data_reader_type=hugectr.DataReaderType_t.Synthetic, synthetic_num_batches=2)
-    model = hugectr.Model(solver, reader, hugectr.CreateOptimizer(optimizer_type=hugectr.Optimizer_t.AdaGrad,
-                                                                   initial_accu_value=0.0), resource_manager=rm)
-    model.add(hugectr.Input(label_dim=1, label_name="label", dense_dim=13, dense_name="dense",
-                            data_reader_sparse_param_array=[hugectr.DataReaderSparseParam("d0", hotness, True, 1)]))
-    t = hugectr.EmbeddingTableConfig(name="dyn", max_vocabulary_size=-1, ev_size=ev, dynamic_capacity=capacity)
-    ebc = hugectr.EmbeddingCollectionConfig()
-    ebc.embedding_lookup([t], ["d0"], "emb", ["sum"])
-    ebc.shard(shard_matrix=[["dyn"]] * rm.num_devices, shard_strategy=[("mp", ["dyn"])])
-    model.add(ebc)
-    model.add(hugectr.DenseLayer(layer_type=hugectr.Layer_t.Concat, bottom_names=["emb", "dense"], top_names=["c"]))
-    model.add(hugectr.DenseLayer(layer_type=hugectr.Layer_t.MLP, bottom_names=["c"], top_names=["m"],
-                                 num_outputs=[256, 1], activations=[hugectr.Activation_t.Relu,
-                                                                    hugectr.Activation_t.Non]))
-    model.add(hugectr.DenseLayer(layer_type=hugectr.Layer_t.BinaryCrossEntropyLoss, bottom_names=["m", "label"],
-                                 top_names=["loss"]))
-    model.compile()
-    model.start_data_reading()
-    return model
-
-
 HOST_TIER = dict(batch=4096, capacity=131072, ev=64, hotness=5)  # benchmarks/host_spill_bench.py:116-121
 
 
 def host_tier_path(torch):
-    """The host-spill tier at benchmarks/host_spill_bench.py:116-121's
-    settings (batch 4,096, a dynamic table of 131,072 rows, ev 64, hotness
-    5, bf16, AdaGrad): in one call, 20 warm-up and 20 timed steps without a
-    tier on keys below the capacity, then with `HostSpillTier` on a
-    power-law stream over 4x the capacity (each step stages the batch's
-    master rows first, spilling the least recently used half under the 0.75
-    watermark): ex/s of each (host clock around synchronised steps), rows
-    staged a step, the master's size. Then one `EmbeddingTrainingCache` pass
-    over a 64-row staging table of a 20,000-row master: stage, map, one
-    step, flush (touched rows changed, others bitwise)."""
+    """The host-spill tier as `hugectr_tpu_torch/benchmarks/host_spill_bench.py`
+    runs it, at benchmarks/host_spill_bench.py:116-121's settings (batch
+    4,096, a dynamic table of 131,072 rows, ev 64, hotness 5, bf16,
+    AdaGrad), cut from the bench's 40 timed steps a phase and 5 and 40
+    warm-up steps to 20, and 20 and 24: without a tier on keys below the
+    capacity, then with `HostSpillTier` on a power-law stream over 4x the
+    capacity (each step stages the batch's master rows first, spilling the
+    least recently used half under the 0.75 watermark): ex/s of each (host
+    clock up to a synchronisation), rows staged a step, the master's size.
+    Then one `EmbeddingTrainingCache` pass over a 64-row staging table of a
+    20,000-row master: stage, map, one step, flush (touched rows changed,
+    others bitwise)."""
     import numpy as np
 
+    from hugectr_tpu_torch.benchmarks import host_spill_bench
     from hugectr_tpu_torch.core.mesh import ResourceManager
-    from hugectr_tpu_torch.data.generator import power_law_keys
-    from hugectr_tpu_torch.embedding.host_spill import HostSpillTier
     from hugectr_tpu_torch.embedding.training_cache import EmbeddingTrainingCache
 
     t0 = time.perf_counter()
     hs = HOST_TIER
     rm = ResourceManager.create()
-    model = host_spill_model(rm, **hs)
-    rng, lab = np.random.default_rng(0), np.random.default_rng(1)
-
-    def phase(tier, vocab, warm=20, steps=20):
-        staged = []
-
-        def step():
-            keys = power_law_keys(rng, vocab, hs["batch"] * hs["hotness"], 1.05).reshape(hs["batch"], -1)
-            keys = keys.astype(np.int32)
-            if tier is not None:
-                staged.append(tier.stage_batch(keys))
-            model._staged_train_batch = model._put_batch({
-                "label": (lab.random((hs["batch"], 1)) > 0.5).astype(np.float32),
-                "dense": lab.random((hs["batch"], 13)).astype(np.float32), "d0": keys})
-            return model.train_async()
-
-        for _ in range(warm):
-            step()
-        torch.cuda.synchronize()
-        staged.clear()
-        t = time.perf_counter()
-        for _ in range(steps):
-            loss = step()
-        torch.cuda.synchronize()
-        return steps * hs["batch"] / (time.perf_counter() - t), staged, float(loss)
-
-    ex_ref, _s, loss_ref = phase(None, hs["capacity"])
-    tier = HostSpillTier(model, "dyn", spill_watermark=0.75)
-    ex_tier, staged, loss_tier = phase(tier, 4 * hs["capacity"])
+    run = host_spill_bench.run(rm, **hs, steps=20, warm_spill=20, ref_warm=20)
+    bench, model, tier = run["record"], run["model"], run["tier"]
     g, ti = model.ec._find_table("dyn")
     resident = int((model.tables[f"{g.name}#keys"] != model.ec.EMPTY_KEY).sum())
     model._close_readers()
-    del model
+    del model, run
     # one pass of the embedding training cache
     static = build_etc_model(rm)
     host = np.random.default_rng(2).normal(size=(20000, 16)).astype(np.float32)
@@ -3587,10 +3571,13 @@ def host_tier_path(torch):
     etc_ok = (not np.array_equal(host[touched], before[touched])
               and np.array_equal(np.delete(host, touched, 0), np.delete(before, touched, 0)))
     static._close_readers()
+    loss_ref, loss_tier = bench["losses"]
     rec = dict(phase="host_tier_path", card=card_line(), **hs, dtype="bfloat16", source="benchmarks/host_spill_bench.py",
-               steps=20, warmup_steps=20, no_tier_examples_per_s=ex_ref, tier_examples_per_s=ex_tier,
-               tier_over_no_tier=ex_tier / ex_ref, staged_rows_per_step=float(np.mean(staged)),
-               staged_rows_max=int(max(staged)), host_size=tier.host_size, device_resident=resident,
+               reduced=dict(steps=[40, 20], warmup_steps=[[5, 40], bench["warmup_steps"]]),
+               steps=20, warmup_steps=bench["warmup_steps"], no_tier_examples_per_s=bench["no_tier_examples_per_sec"],
+               tier_examples_per_s=bench["tier_examples_per_sec"], tier_over_no_tier=bench["tier_over_no_tier"],
+               staged_rows_per_step=bench["staged_rows_per_step"], staged_rows_max=bench["staged_rows_max"],
+               spills=bench["spills"], host_size=tier.host_size, device_resident=resident,
                losses=[loss_ref, loss_tier], etc_pass_ok=bool(etc_ok), etc_rows_touched=int(touched.size),
                seconds=time.perf_counter() - t0)
     emit(rec)
@@ -3895,6 +3882,385 @@ def sample_cli(torch):
         raise AssertionError(f"sample_cli: rc {r.returncode}, losses {losses}, auc {aucs}")
 
 
+# The one-hot forward of a group of more than 48 lookups: the 510-table
+# case's group of its 100 one-row-hot 1,000-row tables at the case's batch
+# (benchmarks/embedding_collection/README.md: 510 tables at batch 2,048)
+CHUNK_B = 2048
+CHUNK_SIZES = (49, 96, 100)
+
+
+def chunked_group_checks(torch, np, oh, dev, results):
+    """`onehot_fwd_chunked` at 49, 96 and 100 lookups of the 510-table
+    case's one-hot group (1,000 rows, hotness 1, ev 128, batch 2,048; keys
+    as int32 column views of one [B, 100] tensor), f32 and bf16, unweighted
+    and with weights: ceil(n / 48) launches a call, each writing its
+    lookups' columns, against one plain call over the whole group; the
+    100-lookup cases' times beside the bound and one embedding_bag."""
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+    from hugectr_tpu_torch.tools.kernel_sweep import embedding_bag_call, group_bytes
+
+    rng = np.random.default_rng(510)
+    v, nmax = 1000, max(CHUNK_SIZES)
+    keys_all = torch.as_tensor(power_law(rng, v, (CHUNK_B, nmax)).astype(np.int32), device=dev)
+    w_all = torch.as_tensor(rng.random((CHUNK_B, nmax), dtype=np.float32), device=dev)
+    table32 = torch.as_tensor(rng.standard_normal((v * nmax, E), dtype=np.float32), device=dev)
+    for n in CHUNK_SIZES:
+        lookups = [oh.GroupLookup(v * i, v, E * i, i % 7 == 0) for i in range(n)]
+        keys = [keys_all[:, i : i + 1] for i in range(n)]
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[1]
+            table = table32[: v * n].to(dt)
+            for weighted in (False, True):
+                t0 = time.perf_counter()
+                ws = [w_all[:, i : i + 1] for i in range(n)] if weighted else None
+                call = lambda: oh.onehot_fwd_chunked(keys, lookups, table, E * n, ws)  # noqa: E731
+                before = oh.LAUNCHES["onehot_fwd"]
+                got = call()
+                launches = oh.LAUNCHES["onehot_fwd"] - before
+                want = oh.onehot_fwd_group_plain(keys, lookups, table, E * n, ws)
+                scale = oh.onehot_fwd_group_plain(keys, lookups, table.float().abs(), E * n, ws)
+                torch.cuda.synchronize()
+                rec = dict(kernel="onehot_fwd", case=f"chunked{n}{'_weighted' if weighted else ''}", dtype=dname,
+                           B=CHUNK_B, lookups=n, V=v, h=1, weighted=weighted,
+                           scaled_err=scaled_err(got, want, scale),
+                           max_abs_err=float((got.float() - want.float()).abs().max()), tol=TOL[dname],
+                           launches_per_call=launches, expected_launches=-(-n // oh.MAX_GROUP_LOOKUPS))
+                if n == nmax:
+                    b_ms, b_by = bound(group_bytes(keys, lookups, table, E * n), CHUNK_B * n * E)
+                    dms, per_call = device_ms(call, KERNEL_NAMES["onehot_fwd"])
+                    lib = embedding_bag_call(keys, lookups, table)
+                    rec.update(ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
+                               plain_ms=time_ms(lambda: oh.onehot_fwd_group_plain(keys, lookups, table, E * n, ws)),
+                               library_ms=None if weighted else time_ms(lib),
+                               library="one torch.nn.functional.embedding_bag(mode='sum') over the group storage",
+                               bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms)
+                rec["seconds"] = time.perf_counter() - t0
+                if n == nmax:
+                    results.append(rec)
+                emit(rec)
+                if not (rec["scaled_err"] <= TOL[dname] and launches == rec["expected_launches"]
+                        and got.shape == want.shape):
+                    raise AssertionError(f"chunked one-hot forward disagrees or launched otherwise: {rec}")
+
+
+# The shapes the scatter ratio gives the one-hot kernels at bench.py's
+# settings with HCTR_TPU_ONEHOT_SCATTER_RATIO=2000 (hugectr_tpu/parallel/
+# plan.py:503-507): table 20's hot tier, 130,048 rows at hotness 100,
+# joins the one-hot group; checked at V 131,072, the engine's cap
+RATIO_V = 131072
+RATIO_H = 100
+
+
+def scatter_ratio_checks(torch, np, oh, dev, results):
+    """The one-hot forward (gather route) and backward (global atomics,
+    V > 450) at V 131,072, h 100, batch 16,384, ev 128, f32 and bf16,
+    against their plain versions, beside their bounds, `embedding_bag` and
+    `index_add_`. Neither plain version builds a [B, V] counts matrix (the
+    forward gathers [B, h, E] rows, the backward `index_add_`s [B h, E]
+    rows), so the batch is the bench's."""
+    import torch.nn.functional as F
+
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+
+    rng = np.random.default_rng(2000)
+    v, h = RATIO_V, RATIO_H
+    keys = torch.as_tensor(power_law(rng, v, (B, h)).astype(np.int32), device=dev)
+    keys_l = keys.long()
+    flat = keys_l.reshape(-1)
+    uniq = int(torch.unique(keys).numel())
+    lk = [oh.GroupLookup(0, v, 0, False)]
+    for dt in (torch.float32, torch.bfloat16):
+        t0 = time.perf_counter()
+        dname = str(dt).split(".")[1]
+        table = torch.as_tensor(rng.standard_normal((v, E), dtype=np.float32), device=dev).to(dt)
+        d = torch.as_tensor(rng.standard_normal((B, E), dtype=np.float32), device=dev).to(dt)
+        isz = table.element_size()
+        fwd = lambda: oh.onehot_fwd_group([keys], lk, table, E)  # noqa: E731
+        got = fwd()
+        want = oh.onehot_fwd_group_plain([keys], lk, table, E)
+        scale = oh.onehot_fwd_group_plain([keys], lk, table.float().abs(), E)
+        torch.cuda.synchronize()
+        b_ms, b_by = bound(keys.numel() * 4 + uniq * E * isz + B * E * isz, B * h * E)
+        dms, per_call = device_ms(fwd, KERNEL_NAMES["onehot_fwd"])
+        rec = dict(kernel="onehot_fwd", case=f"ratio_V{v}_h{h}", dtype=dname, B=B, V=v, h=h, E=E,
+                   route=oh.fwd_route(v, h, E, dev), scaled_err=scaled_err(got, want, scale),
+                   max_abs_err=float((got.float() - want.float()).abs().max()), tol=TOL[dname],
+                   ms=time_ms(fwd), device_ms=dms, device_launches_per_call=per_call,
+                   plain_ms=time_ms(lambda: oh.onehot_fwd_group_plain([keys], lk, table, E)),
+                   library_ms=time_ms(lambda: F.embedding_bag(keys_l, table, mode="sum")),
+                   library="torch.nn.functional.embedding_bag(mode='sum')",
+                   bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms)
+        bwd = lambda: oh.onehot_matmul_bwd(keys, d, v, dt)  # noqa: E731
+        grad, cnt = bwd()
+        want_g, want_c = oh.onehot_matmul_bwd_plain(keys, d, v, dt)
+        scale_g, _ = oh.onehot_matmul_bwd_plain(keys, d.float().abs(), v, torch.float32)
+        torch.cuda.synchronize()
+        d_rep = d.repeat_interleave(h, dim=0)
+
+        def library():
+            return torch.zeros((v, E), dtype=dt, device=dev).index_add_(0, flat, d_rep)
+
+        b_ms, b_by = bound(keys.numel() * 4 + B * E * isz + v * E * isz + v * 4, B * h * E)
+        dms, per_call = device_ms(bwd, KERNEL_NAMES["onehot_bwd"])
+        rec2 = dict(kernel="onehot_bwd", case=f"ratio_V{v}_h{h}", dtype=dname, B=B, V=v, h=h, E=E,
+                    route=oh.bwd_route(B, h, v, E, dev), scaled_err=scaled_err(grad, want_g, scale_g),
+                    max_abs_err=float((grad.float() - want_g.float()).abs().max()),
+                    counts_exact=bool(torch.equal(cnt, want_c)), tol=TOL[dname],
+                    ms=time_ms(bwd), device_ms=dms, device_launches_per_call=per_call,
+                    plain_ms=time_ms(lambda: oh.onehot_matmul_bwd_plain(keys, d, v, dt)),
+                    library_ms=time_ms(library), library_device_ms=device_ms(library, KERNEL_NAMES["index_add_"])[0],
+                    library="Tensor.index_add_ (grad only)", bound_ms=b_ms, bound_by=b_by,
+                    bound_fraction=b_ms / dms)
+        rec["seconds"] = rec2["seconds"] = time.perf_counter() - t0
+        results.extend([rec, rec2])
+        emit(rec)
+        emit(rec2)
+        if not (rec["scaled_err"] <= TOL[dname] and rec2["scaled_err"] <= TOL[dname] and rec2["counts_exact"]
+                and rec2["route"] == "global"):
+            raise AssertionError(f"one-hot kernels at the scatter ratio's shapes disagree: {rec} {rec2}")
+        del table, d, d_rep, grad, want_g, scale_g
+
+
+def peak_partial_sums(torch, idx, vals, rows):
+    """[rows, E] float64 on the CPU: for each element, the largest |partial
+    sum| that the ordered adds (by row, then by position) pass through."""
+    o = torch.sort(idx, stable=True).indices
+    sidx, sv = idx[o], vals[o].double()
+    head = torch.ones_like(sidx, dtype=torch.bool)
+    head[1:] = sidx[1:] != sidx[:-1]
+    pos = torch.arange(sidx.numel())
+    start = torch.cummax(torch.where(head, pos, 0), 0).values
+    cs = sv.cumsum(0)
+    part = (cs - cs[start] + sv[start]).abs()
+    return torch.zeros((rows, sv.shape[1]), dtype=torch.float64).scatter_reduce_(
+        0, sidx.unsqueeze(1).expand_as(part), part, "amax")
+
+
+def bf16_grad_checks(torch, np, dev):
+    """The dense sweep's bf16 gradient buffer (`dense_grad_dtype`,
+    JAX: HCTR_TPU_DENSE_GRAD_DTYPE) on the card: one `index_add_` into
+    bf16, adding in no fixed order, against the plain version's ordered
+    adds (the JAX package's order, run on the CPU), on a shard of 65,536
+    rows, ev 128, with the 200-table case's 2,048 x 20 power-law keys of
+    one table (sparse_optimizer.py:206-218 sizes its buffer at [64k,
+    128]). Each add rounds the running sum by at most 2^-8 of it, so an
+    element's n adds carry a rounding of about lim = 2^-8 x sqrt(n) x (the
+    largest |partial sum| of the ordered adds). The check: an element
+    within 2^-7 x sqrt(n) x sum |g| and within 8 lim; each row of at least
+    256 adds within 0.5 of lim in its rms over the columns
+    (tests/test_torch_gpu.py states how the limits were sized). Then one AdaGrad update on the card takes the
+    dense route with the bf16 buffer."""
+    from hugectr_tpu_torch.core.types import Optimizer_t
+    from hugectr_tpu_torch.embedding import sparse_optimizer as so
+    from hugectr_tpu_torch.optim.params import OptParams
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(206)
+    rows, k = 65536, 2048 * 20
+    idx = torch.as_tensor(power_law(rng, rows, k), device=dev)
+    src = torch.arange(k, device=dev)
+    vals = torch.as_tensor(rng.standard_normal((k, E), dtype=np.float32), device=dev)
+    got = so.bf16_row_sums(idx, src, vals, rows)
+    want = so.bf16_row_sums(idx.cpu(), src.cpu(), vals.cpu(), rows)
+    n = torch.bincount(idx.cpu(), minlength=rows).double().unsqueeze(1)
+    absum = torch.zeros((rows, E), dtype=torch.float64).index_add_(0, idx.cpu(), vals.cpu().abs().double())
+    lim = 2.0**-8 * n.sqrt() * peak_partial_sums(torch, idx.cpu(), vals.cpu(), rows)
+    diff = (got.cpu().double() - want.double()).abs()
+    hot = n[:, 0] >= 256
+    ratio = float((diff / (n.sqrt() * absum + 1e-30)).max())
+    elem = float((diff / lim.clamp_min(1e-30)).max())
+    row = float(((diff[hot] ** 2).mean(1).sqrt() / (lim[hot] ** 2).mean(1).sqrt()).max()) if hot.any() else 0.0
+    table = torch.zeros((rows, E), dtype=torch.float32, device=dev)
+    state = so.init_state(OptParams(Optimizer_t.AdaGrad, initial_accu_value=0.1), rows, E, device=dev)
+    route = so.apply_sparse(OptParams(Optimizer_t.AdaGrad, initial_accu_value=0.1), table, state, idx, src, vals,
+                            torch.tensor(0.01, device=dev), dense_rows=rows, dense_ratio=0.0,
+                            grad_dtype=torch.bfloat16)
+    rec = dict(phase="bf16_grad_check", rows=rows, E=E, keys=k, max_dup=int(n.max()), dtype="bfloat16",
+               max_diff_over_sqrt_n_abs_sum=ratio, tol=2.0**-7, max_diff_over_lim=elem, lim_tol=8.0,
+               rows_of_256_adds=int(hot.sum()), max_row_rms_over_lim=row,
+               row_tol=0.5, bitwise_equal=bool(torch.equal(got.cpu(), want)),
+               update_route=route, update_finite=bool(torch.isfinite(table).all()),
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    if not (ratio <= 2.0**-7 and elem <= 8.0 and row <= 0.5 and route == "dense" and rec["update_finite"]
+            and got.dtype == torch.bfloat16):
+        raise AssertionError(f"bf16 dense-sweep buffer on the card: {rec}")
+
+
+def scatter_ratio_path(torch):
+    """The flagship at bench.py's settings with the scatter ratio 2,000 (the
+    JAX docstring's operating point, hugectr_tpu/parallel/plan.py:503-507):
+    table 20's hot tier (130,048 rows, h 100) and table 14 (11,938 rows, h
+    9) join the one-hot group. 3 steps; counters set to 0 just before them
+    and read just after: the grouped forward once a step, the backward once
+    a one-hot lookup and step."""
+    from hugectr_tpu_torch import ops
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools.flagship import bench_settings, build_dlrm_dcnv2
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_dlrm_dcnv2(ResourceManager.create(), synthetic_batches=3, onehot_scatter_ratio=2000,
+                             **bench_settings())
+    model.start_data_reading()
+    onehot = [g for g in model.ec.plan.groups if g.compute_kind == "onehot"]
+    names = [t.name for g in onehot for t in g.tables]
+    ops.reset_counts()
+    losses, step_s = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        losses.append(model.train())
+        step_s.append(time.perf_counter() - t)
+    lc = ops.launch_counts()
+    n_lookups = sum(len(g.lookups) for g in onehot)
+    rec = dict(phase="scatter_ratio_path", card=card_line(), settings=dict(bench_settings(), onehot_scatter_ratio=2000),
+               onehot_tables=names, onehot_lookups=n_lookups, routes=dict(model.ec.group_routes), losses=losses,
+               step_ms=[x * 1e3 for x in step_s], median_ms_per_step=statistics.median(step_s[1:]) * 1e3,
+               launches=lc, max_memory_allocated=torch.cuda.max_memory_allocated(), seconds=time.perf_counter() - t0)
+    emit(rec)
+    if not ("20::hot" in names and "14" in names and all(math.isfinite(x) for x in losses)
+            and lc["onehot_fwd"] == 3 and lc["onehot_bwd"] == 3 * n_lookups):
+        raise AssertionError(f"scatter-ratio path: {rec}")
+    model._close_readers()
+    return lc
+
+
+# The synthetic cases at the JAX README's operating points
+# (benchmarks/embedding_collection/README.md, "Measured"): bf16 tables and
+# state, rowwise AdaGrad; the 7-table case untiered and with a 65,536-row
+# hot and a 1,024-row superhot tier
+# case, batch, cap, tier rows, onehot_fwd launches a forward: the one-hot
+# group's 30, 40, 100 and 7 lookups take ceil(n / 48); the untiered 7-table
+# case has no table small enough for the one-hot engine
+BENCH_CASES = [
+    ("200table_100B_hotness20", 2048, 65536, {}, 1),
+    ("180table_70B_hotness80", 512, 65536, {}, 1),
+    ("510table_110B_hotness5", 2048, 32768, {}, 3),
+    ("7table_470B_hotness20", 8192, 1_000_000, {}, 0),
+    ("7table_470B_hotness20", 8192, 1_000_000, {"hot_rows": 65536, "superhot_rows": 1024}, 1),
+]
+BENCH_CASE_STEPS = dict(warmup=2, iters=5)  # the runner's 5 and 20, cut
+SKIP_FLAGS = (None, "SKIP_EMBEDDING", "SKIP_EMBEDDING_UPDATE", "SKIP_BOTTOM_MLP", "SKIP_TOP_MLP")
+
+
+def _layer_calls(model):
+    """Forward pre-hooks counting each dense layer's forward calls."""
+    calls = {name: 0 for name in model.network.layers}
+    hooks = [layer.register_forward_pre_hook(lambda m, a, n=name: calls.__setitem__(n, calls[n] + 1))
+             for name, layer in model.network.layers.items()]
+    return calls, hooks
+
+
+def benchmarks_path(torch):
+    """The port's benchmark suite (`hugectr_tpu_torch/benchmarks/
+    embedding_collection/train.py`) on the card, through its functions.
+    First the `dcnv2` case at the runner's defaults (batch 8,192, vocab cap
+    1,000,000, ev 128, `adagrad`, 32 cached batches, mixed precision), once
+    with no flag and once under each of SKIP_EMBEDDING,
+    SKIP_EMBEDDING_UPDATE, SKIP_BOTTOM_MLP and SKIP_TOP_MLP (the step is
+    rebuilt for each, as the Model reads the flags when it builds it): 5
+    warm-up and 20 timed steps each, ms/step and its difference from the
+    run with no flag, the launch counters and each dense layer's forward
+    calls over the 25 steps (a skipped stage launches none of its kernels:
+    no one-hot or segscan launch without the embedding, no backward one
+    without its update, no forward call of a skipped MLP). Then each
+    synthetic case once at the README's operating points (`BENCH_CASES`),
+    its steps cut to `BENCH_CASE_STEPS`."""
+    from hugectr_tpu_torch import ops
+    from hugectr_tpu_torch.benchmarks.embedding_collection import train
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+
+    t0 = time.perf_counter()
+    saved = {k: os.environ.pop(k) for k in list(os.environ) if k.startswith("SKIP_")}
+    rm = ResourceManager.create()
+    args = train.parser().parse_args(["--case", "dcnv2"])
+    torch.cuda.reset_peak_memory_stats()
+    model, hot = train.build_case(rm, args)
+    build_s = time.perf_counter() - t0
+    stages, base = [], None
+    try:
+        for flag in SKIP_FLAGS:
+            for k in [k for k in os.environ if k.startswith("SKIP_")]:
+                del os.environ[k]
+            if flag:
+                os.environ[flag] = "1"
+            train.skip_env()
+            model._build_steps()
+            calls, hooks = _layer_calls(model)
+            ops.reset_counts()
+            run = train.run_protocol(model, args.warmup, args.iters)
+            lc = ops.launch_counts()
+            for hk in hooks:
+                hk.remove()
+            rec = dict(train.record(args, rm, run, hot), phase="benchmarks_path", flag=flag or "none",
+                       ms_per_step=run["sec_per_iter"] * 1e3, launches=lc, layer_calls=calls,
+                       losses_finite=all(math.isfinite(x) for x in run["losses"]))
+            base = base if base is not None else rec["ms_per_step"]
+            rec["ms_vs_no_flag"] = rec["ms_per_step"] - base
+            emit(rec)
+            stages.append(rec)
+            n = args.warmup + args.iters
+            ok = rec["losses_finite"]
+            if flag is None:
+                ok = ok and all(lc[k] > 0 for k in ONE_CARD_KERNELS) and lc["onehot_fwd"] == n
+            elif flag == "SKIP_EMBEDDING":
+                ok = ok and not any(lc[k] for k in ONE_CARD_KERNELS)
+            elif flag == "SKIP_EMBEDDING_UPDATE":
+                ok = ok and lc["onehot_fwd"] > 0 and lc["onehot_bwd"] == lc["segscan"] == 0
+            elif flag == "SKIP_BOTTOM_MLP":
+                ok = ok and calls["l0_MLP"] == 0 and all(lc[k] > 0 for k in ONE_CARD_KERNELS)
+            else:
+                top = [name for name in calls if name.endswith("_MLP") and name != "l0_MLP"]
+                ok = ok and len(top) == 1 and calls[top[0]] == 0
+            if not ok:
+                raise AssertionError(f"benchmarks path under {flag}: {rec}")
+        model._close_readers()
+        del model
+    finally:
+        for k in [k for k in os.environ if k.startswith("SKIP_")]:
+            del os.environ[k]
+        os.environ.update(saved)
+    cases = []
+    for case, batch, cap, tiers, want_fwd in BENCH_CASES:
+        t = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        argv = ["--case", case, "--batchsize", str(batch), "--vocab_cap", str(cap), "--optimizer", "rowwise_adagrad",
+                "--emb_dtype", "bfloat16", "--state_dtype", "bfloat16", "--warmup", str(BENCH_CASE_STEPS["warmup"]),
+                "--iters", str(BENCH_CASE_STEPS["iters"])]
+        for k, val in tiers.items():
+            argv += [f"--{k}", str(val)]
+        cargs = train.parser().parse_args(argv)
+        m, hot = train.build_case(rm, cargs)
+        groups = [(g.name, g.compute_kind, len(g.lookups)) for g in m.ec.plan.groups]
+        ops.reset_counts()
+        run = train.run_protocol(m, cargs.warmup, cargs.iters)
+        lc = ops.launch_counts()
+        rec = dict(train.record(cargs, rm, run, hot), phase="benchmarks_path", tiers=tiers,
+                   reduced=dict(warmup=[5, cargs.warmup], iters=[20, cargs.iters]), groups=groups,
+                   routes=dict(m.ec.group_routes), onehot_fwd_calls=m.ec.onehot_fwd_calls(), launches=lc,
+                   losses=run["losses"], build_seconds=time.perf_counter() - t - run["seconds"],
+                   seconds=time.perf_counter() - t)
+        emit(rec)
+        cases.append(rec)
+        n = cargs.warmup + cargs.iters
+        if not (all(math.isfinite(x) for x in run["losses"]) and rec["onehot_fwd_calls"] == want_fwd
+                and lc["onehot_fwd"] == n * want_fwd):
+            raise AssertionError(f"benchmark case {case}: {rec}")
+        if case.startswith("510") and max(k for _, kind, k in groups if kind == "onehot") <= 48:
+            raise AssertionError(f"the 510-table case has no one-hot group of more than 48 lookups: {groups}")
+        m._close_readers()
+        del m
+    emit(dict(phase="benchmarks_path_summary", card=card_line(), build_seconds=build_s,
+              stage_ms={r["flag"]: r["ms_per_step"] for r in stages},
+              stage_ms_vs_no_flag={r["flag"]: r["ms_vs_no_flag"] for r in stages},
+              cases=[dict(case=r["case"], tiers=r["tiers"], batch=r["batchsize"], vocab_cap=r["vocab_cap"],
+                          examples_per_sec=r["examples_per_sec"], sec_per_iter=r["sec_per_iter"],
+                          max_memory_allocated=r.get("max_memory_allocated")) for r in cases],
+              seconds=time.perf_counter() - t0))
+    return stages[0]["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -3926,6 +4292,10 @@ def main() -> int:
     file_launches = file_path(torch, main_rec)
     torch.cuda.empty_cache()
     bench_launches = bench_path(torch)
+    torch.cuda.empty_cache()
+    ratio_launches = scatter_ratio_path(torch)
+    torch.cuda.empty_cache()
+    benchmarks_launches = benchmarks_path(torch)
     torch.cuda.empty_cache()
     ftrl_launches = ftrl_path(torch)
     torch.cuda.empty_cache()
@@ -3981,12 +4351,17 @@ def main() -> int:
     # the E 64 cases of the column-split sub-tables (`column_kernel_checks`)
     column = {x["kernel"]: x for x in results if x["case"].startswith("column_E")}
     bench_cases = {"onehot_fwd": "group20", "onehot_bwd": "superhot_", "segscan": "cold_tier_20"}
+    # the scatter ratio's shapes (V 131,072, h 100) in f32, and the 510-table case's 100-lookup group
+    ratio = {x["kernel"]: x for x in results if x["case"].startswith("ratio_") and x["dtype"] == "float32"}
+    chunked = next(x for x in results if x["case"] == "chunked100" and x["dtype"] == "float32")
     rank_sfx = f"_w{hybrid_world(torch)}"
     for name, (src, replaces) in sources.items():
         # the float32 flagship case that costs the step most device time;
         # for onehot_fwd the step's one launch, the 13-table group
+        # (the scatter ratio's and the chunked group's cases stand apart)
         r = max((x for x in results if x["kernel"] == name and x["dtype"] == "float32" and not x.get("weighted")
-                 and (name != "onehot_fwd" or x["case"] == "group13")),
+                 and (name != "onehot_fwd" or x["case"] == "group13")
+                 and not x["case"].startswith(("ratio_", "chunked"))),
                 key=lambda x: x["device_ms"])
         # beside it, the bench path's bf16 case with the most device time
         rb = max((x for x in results if x["kernel"] == name and x["dtype"] == "bfloat16"
@@ -4020,13 +4395,17 @@ def main() -> int:
             **({"column_case": {k: column[name][k] for k in keys}} if name in column else {}),
             weighted_case=weighted_case(results, name, weighted_launches),
             serving_path_launches=serving_launches[name], fullscale_path_launches=fullscale_launches[name],
+            scatter_ratio_path_launches=ratio_launches[name], benchmarks_path_launches=benchmarks_launches[name],
+            **({"ratio_case": {k: ratio[name][k] for k in keys}} if name in ratio else {}),
+            **({"chunked_case": {k: chunked[k] for k in keys}} if name == "onehot_fwd" else {}),
         ))
     # the ordered pool: a kernel of the paths over W ranks; its launches are
     # rank 0's on the hybrid path (steps and eval), beside the bench path's
     # and its bf16 case with the most device time (the unweighted cases of
-    # `ordered_pool_checks`, which carry `index_add_ms`; the E 64 and the
+    # `ordered_pool_checks`; the E 64 and the
     # weighted cases stand in `column_case` and `weighted_case`)
-    pool = [x for x in results if x["kernel"] == "ordered_pool" and "index_add_ms" in x]
+    pool = [x for x in results if x["kernel"] == "ordered_pool" and "index_add_ms" in x
+            and not x["case"].startswith(("column_", "weighted_"))]
     r = max((x for x in pool if x["dtype"] == "float32"), key=lambda x: x["device_ms"])
     rb = max((x for x in pool if x["dtype"] == "bfloat16"), key=lambda x: x["device_ms"])
     kernels.append(dict(

@@ -66,6 +66,15 @@ class Solver:
     # bigger shards take the dense sweep too when keys >= ratio * rows
     # (sparse_optimizer.py:188 dense_key_ratio); 0 turns it off
     dense_key_ratio: float = 0.3
+    # "bfloat16": the dense sweep of AdaGrad and RowWiseAdaGrad sums its
+    # gradient rows into a bf16 buffer, rounding after every add
+    # (sparse_optimizer.py:206 dense_grad_dtype); other optimizers keep f32
+    dense_grad_dtype: str = "float32"
+    # > 0: a static table of threshold < vocab <= onehot_scatter_maxv rows
+    # whose lookups' total hotness x ratio >= vocab also takes the one-hot
+    # engine (plan.py:499-522, HCTR_TPU_ONEHOT_SCATTER_RATIO and _MAXV)
+    onehot_scatter_ratio: int = 0
+    onehot_scatter_maxv: int = 131072
     # the hot/cold split (plan.py:311-352): tables of at least
     # max(4 * hot_rows, 2 * onehot_vocab) rows split at hot_rows (0: off);
     # their first superhot_rows rows join the one-hot group (0: off) and
@@ -135,6 +144,10 @@ class Solver:
     @property
     def emb_state_dtype(self):
         return self._dtype(self.embedding_state_dtype, "embedding_state_dtype")
+
+    @property
+    def grad_dtype(self):
+        return self._dtype(self.dense_grad_dtype, "dense_grad_dtype")
 
 
 @dataclasses.dataclass
@@ -358,10 +371,12 @@ class DenseLayer:
 
 # Solver fields of the port that the JAX package keeps in its environment
 # (HCTR_TPU_EMB_STATE_DTYPE, _SUPERHOT_ROWS, _WARM_ROWS, _AUC_EXACT_MAX,
-# _SHARD_ROTATION, _FWD_PARTITION, _DENSE_EXCHANGE, _DENSE_EXCHANGE_CAP); a
-# graph file holds them apart from the solver's
+# _SHARD_ROTATION, _FWD_PARTITION, _DENSE_EXCHANGE, _DENSE_EXCHANGE_CAP,
+# _ONEHOT_SCATTER_RATIO, _ONEHOT_SCATTER_MAXV, _DENSE_GRAD_DTYPE); a graph
+# file holds them apart from the solver's
 PORT_SOLVER_SETTINGS = ("embedding_state_dtype", "superhot_rows", "warm_rows", "auc_exact_max",
-                        "shard_rotation", "fwd_partition", "dense_exchange", "dense_exchange_cap")
+                        "shard_rotation", "fwd_partition", "dense_exchange", "dense_exchange_cap",
+                        "onehot_scatter_ratio", "onehot_scatter_maxv", "dense_grad_dtype")
 
 
 class Layer_t:

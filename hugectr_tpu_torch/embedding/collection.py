@@ -191,8 +191,9 @@ from ..core.mesh import (
 )
 from ..core.types import INVALID_KEY, Combiner_t, CommunicationStrategy
 from ..ops.onehot_matmul import (
+    MAX_GROUP_LOOKUPS,
     GroupLookup,
-    onehot_fwd_group,
+    onehot_fwd_chunked,
     onehot_matmul_bwd,
     place_keys,
     window_keys,
@@ -326,13 +327,14 @@ class EmbeddingCollection:
         dtype=torch.float32,
         dense_update_rows: int = 262144,
         dense_key_ratio: float = 0.3,
+        dense_grad_dtype=torch.float32,
         state_dtype=torch.float32,
         fwd_partition: bool = True,
         capacity_factor: float = 0.0,
         dense_exchange_cap: int = 0,
         comm_strategy: CommunicationStrategy = CommunicationStrategy.Uniform,
     ):
-        for what, dt in (("tables", dtype), ("optimizer state", state_dtype)):
+        for what, dt in (("tables", dtype), ("optimizer state", state_dtype), ("the dense gradient", dense_grad_dtype)):
             if dt not in (torch.float32, torch.bfloat16):
                 raise ValueError(f"{what} must be float32 or bfloat16, got {dt}")
         self.plan = plan
@@ -356,6 +358,8 @@ class EmbeddingCollection:
         self.state_dtype = state_dtype
         self.dense_update_rows = dense_update_rows
         self.dense_key_ratio = dense_key_ratio
+        # the dense sweep's gradient buffer (JAX: HCTR_TPU_DENSE_GRAD_DTYPE)
+        self.dense_grad_dtype = dense_grad_dtype
         # the exchanges over W > 1 ranks (`Solver` fields; the JAX package's
         # HCTR_TPU_FWD_PARTITION, _MP_CAPACITY_FACTOR and
         # _DENSE_EXCHANGE_CAP, collection.py:141-144, :203-208; a cap of 0
@@ -365,6 +369,7 @@ class EmbeddingCollection:
         self.dense_exchange_cap = dense_exchange_cap
         # what a recompile (`grow_dynamic_capacity`) builds the new collection with
         self._settings = dict(dtype=dtype, dense_update_rows=dense_update_rows, dense_key_ratio=dense_key_ratio,
+                              dense_grad_dtype=dense_grad_dtype,
                               state_dtype=state_dtype, fwd_partition=fwd_partition,
                               capacity_factor=capacity_factor, dense_exchange_cap=dense_exchange_cap,
                               comm_strategy=comm_strategy)
@@ -552,6 +557,11 @@ class EmbeddingCollection:
             need = need & (ext[slot] != k32)
         key_store.copy_(ext[:-1])
 
+    def onehot_fwd_calls(self) -> int:
+        """The one-hot forward's calls a forward: ceil(n / 48) for a group
+        of n lookups (`_onehot_fwd`)."""
+        return sum(-(-len(g.lookups) // MAX_GROUP_LOOKUPS) for g in self.plan.groups if g.compute_kind == "onehot")
+
     def dynamic_stats(self, tables: Tables, feature_keys: Dict[str, torch.Tensor]) -> Dict[str, Tuple[int, int]]:
         """{group: (filled rows of this rank's store, distinct valid keys of
         this rank's shard in the batch that the store does not hold)} of
@@ -728,13 +738,13 @@ class EmbeddingCollection:
         return torch.where(valid[:, lm.slot_begin : lm.slot_end], k, -1).to(torch.int32).contiguous()
 
     def _onehot_fwd(self, gname: str, table: torch.Tensor, keys: List[torch.Tensor], weights=None) -> torch.Tensor:
-        """Every lookup of the group in one call on the raw feature keys
-        (collection.py:1311-1337): the kernel does the placement, the Mean
-        division and writes each lookup into its output columns; a weighted
-        lookup's keys carry their weights (the JAX package's counts path,
-        :1338-1357)."""
+        """Every lookup of the group on the raw feature keys
+        (collection.py:1311-1337), one call per 48 consecutive lookups: the
+        kernel does the placement, the Mean division and writes each lookup
+        into its output columns; a weighted lookup's keys carry their
+        weights (the JAX package's counts path, :1338-1357)."""
         g = self._meta[gname].plan
-        return onehot_fwd_group(keys, self._meta[gname].fwd_lookups, table, g.out_width, weights)
+        return onehot_fwd_chunked(keys, self._meta[gname].fwd_lookups, table, g.out_width, weights)
 
     def _dp_fwd(self, gname: str, table: torch.Tensor, keys: torch.Tensor, key_store=None,
                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -973,7 +983,7 @@ class EmbeddingCollection:
         src = torch.arange(idx.numel(), device=self.device)
         return sparse_optimizer.apply_sparse(
             self.group_opt[gname], table, state, idx, src, recv.to(self.dtype), lr,
-            dense_rows=self.dense_update_rows, dense_ratio=0.0, step=step,
+            dense_rows=self.dense_update_rows, dense_ratio=0.0, step=step, grad_dtype=self.dense_grad_dtype,
         )
 
     # ------------------------------------------------- backward + update
@@ -1064,6 +1074,7 @@ class EmbeddingCollection:
         route = sparse_optimizer.apply_sparse(
             opt, tables[g.name], state, idx, src, dsrc, lr,
             dense_rows=self.dense_update_rows, dense_ratio=self._dense_ratio(g), step=step, k_limit=k_limit,
+            grad_dtype=self.dense_grad_dtype,
         )
         if route in sparse_optimizer.ATOMIC_ROUTES and self._replicated(g):
             # atomic sums differ in their last bits from rank to rank: the

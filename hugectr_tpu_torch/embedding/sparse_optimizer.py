@@ -233,6 +233,32 @@ def update_route(
     return "dense" if (0 < rows <= dense_rows) or ratio_dense else "sorted"
 
 
+def bf16_row_sums(idx: torch.Tensor, src: torch.Tensor, vals: torch.Tensor, rows: int) -> torch.Tensor:
+    """[rows, E] bfloat16 sums of the rows vals[src] ([K] valid rows idx),
+    each cast to bfloat16 and added with a rounding after every add
+    (sparse_optimizer.py:476-489, the bf16 dense-sweep buffer). On the CPU
+    the adds go in the JAX package's order, by row and then by position
+    (its stable sort of (idx, src) by idx), so the sums are bitwise its
+    own. On the card one `index_add_` into the bf16 buffer adds in no fixed
+    order: a row of n entries differs by about 2^-8 x sqrt(n) of its
+    magnitude."""
+    buf = torch.zeros((rows, vals.shape[1]), dtype=torch.bfloat16, device=vals.device)
+    if vals.device.type != "cpu":
+        return buf.index_add_(0, idx, vals[src].to(torch.bfloat16))
+    if idx.numel() == 0:
+        return buf
+    o = torch.sort(idx, stable=True).indices
+    sidx, sv = idx[o], vals[src[o]].to(torch.bfloat16).float()
+    pos = torch.arange(sidx.numel())
+    head = torch.ones_like(sidx, dtype=torch.bool)
+    head[1:] = sidx[1:] != sidx[:-1]
+    rank = pos - torch.cummax(torch.where(head, pos, 0), 0).values
+    for r in range(int(rank.max()) + 1):  # the r-th add of every row at once
+        m = rank == r
+        buf[sidx[m]] = (buf[sidx[m]].float() + sv[m]).to(torch.bfloat16)
+    return buf
+
+
 def apply_sparse(
     opt: OptParams,
     table: torch.Tensor,
@@ -245,6 +271,7 @@ def apply_sparse(
     dense_ratio: float,
     step: int = 1,
     k_limit: int = 0,
+    grad_dtype: torch.dtype = torch.float32,
 ) -> str:
     """One sparse update for (possibly duplicated) row gradients, in place
     (sparse_optimizer.py:343). idx [K] rows with the sentinel R for invalid
@@ -252,7 +279,10 @@ def apply_sparse(
     capacity) keeps the first k_limit entries of the stable sort by row on
     the dense and sorted routes and drops the rest; SGD's scatter takes
     every entry (:403-410, :460-462, :515-518). The route is chosen on the
-    whole K. Returns the route it took."""
+    whole K. `grad_dtype` bfloat16 gives the AdaGrad family's dense sweep a
+    bf16 gradient buffer (`bf16_row_sums`); the other optimizers keep
+    float32 and the exact touch count (:471-476). Returns the route it
+    took."""
     kind = opt.optimizer
     rows = table.shape[0]
     route = update_route(rows, idx.shape[0], dense_rows, dense_ratio, kind)
@@ -266,8 +296,11 @@ def apply_sparse(
         return route
     if route == "dense":
         vidx = idx[valid]
-        grad = torch.zeros((rows, dsrc.shape[1]), dtype=torch.float32, device=table.device)
-        grad.index_add_(0, vidx, dsrc[src[valid]].float())
+        if grad_dtype == torch.bfloat16 and kind in ADAGRAD_FAMILY:
+            grad = bf16_row_sums(vidx, src[valid], dsrc, rows)
+        else:
+            grad = torch.zeros((rows, dsrc.shape[1]), dtype=torch.float32, device=table.device)
+            grad.index_add_(0, vidx, dsrc[src[valid]].float())
         if kind in ADAGRAD_FAMILY:
             touched = torch.any(grad != 0, dim=1)
         else:

@@ -12,6 +12,14 @@ every dense parameter with the global batch `batch_size`
 (network.py:171-186). `state_tree` gives the layers' buffers
 (BatchNorm's running statistics) in the layout of the JAX package's
 `net_state`.
+
+`skip_tops` (the SKIP_DENSE_LAYERS ablation, network.py:139-165, which
+the Model sets when it builds its step): a layer all of whose tops are in
+it yields zeros of its outputs' shapes (the rank's rows) in the compute
+dtype and calls no forward: the JAX package computes and drops, and XLA
+removes the work; eager PyTorch would launch it. A skipped layer that
+keeps state (BatchNorm) still updates it in training, as the JAX package
+keeps its new state, and its output is dropped.
 """
 from __future__ import annotations
 
@@ -92,6 +100,7 @@ class Network(nn.Module):
                     )
                 )
         self.tensor_shapes = shapes
+        self.skip_tops: set = set()
 
     def _bottoms(self, cfg: DenseLayer) -> List[str]:
         """The bottoms with aliases resolved; an MLP reads a repeated
@@ -125,10 +134,28 @@ class Network(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         tensors = dict(tensors)
         for name, cfg, bottoms in zip(self.layer_names, self.configs, self.bottoms):
-            outs = self.layers[name]([tensors[b] for b in bottoms], compute_dtype)
+            ins = [tensors[b] for b in bottoms]
+            if self.skip_tops and all(t in self.skip_tops for t in cfg.top_names):
+                outs = self._skipped(self.layers[name], cfg, bottoms, ins, compute_dtype)
+            else:
+                outs = self.layers[name](ins, compute_dtype)
             for t, o in zip(cfg.top_names, outs):
                 tensors[t] = o
         return tensors
+
+    def _skipped(self, layer, cfg: DenseLayer, bottoms, ins, compute_dtype) -> List[torch.Tensor]:
+        """A skipped layer's outputs: zeros of its tops' shapes, the leading
+        dimension scaled to this batch's rows (an eval batch may differ from
+        the train batch the shapes were made for)."""
+        if self.training and getattr(layer, "state_keys", ()):
+            with torch.no_grad():
+                layer(ins, compute_dtype)  # its state update; the output is dropped
+        rows, built = ins[0].shape[0], self.tensor_shapes[bottoms[0]][0]
+        return [
+            torch.zeros((self.tensor_shapes[t][0] * rows // built, *self.tensor_shapes[t][1:]),
+                        dtype=compute_dtype, device=ins[0].device)
+            for t in cfg.top_names
+        ]
 
     def summary_rows(self) -> List[Tuple[str, str, str, str]]:
         """Per layer: type, bottoms, tops and shapes (network.py:216)."""

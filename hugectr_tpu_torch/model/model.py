@@ -104,6 +104,18 @@ The low-level training API (model.py:1897-2262: the learning rate, the
 losses, freezing, the summary, `check_out_tensor`, the reader handles,
 `read_a_batch`) and `fit`'s `TrainingCallback`s and `:::MLLOG` events
 (model.py:1455-1505) are ported.
+
+The component-skip ablations (model.py:782-826, 869; network.py:139-165;
+the reference's model_pipeline.cpp:118-147) are read from the environment
+once, when the step is built (`_build_steps`: at `compile` and wherever the
+JAX package rebuilds its steps), never every step. `SKIP_EMBEDDING`: the
+train step decodes no keys and runs no embedding forward or update; each
+lookup's top is float32 zeros (a split table's merged top).
+`SKIP_EMBEDDING_UPDATE`: the forward runs, no cotangent is asked of
+autograd and no sparse update runs. `SKIP_DENSE_LAYERS="a,b"`: a layer all of whose tops are named
+yields zeros and launches nothing (`Network.skip_tops`), in training and in
+eval. The dense optimizer steps every parameter, a skipped layer's with the
+gradient the JAX package gives it: zero, plus a regularizer's term.
 """
 from __future__ import annotations
 
@@ -375,11 +387,12 @@ class Model:
                 shard_counts=shard_counts, onehot_vocab=s.onehot_vocab, split_vocab=s.split_vocab,
                 hot_rows=s.hot_rows, superhot_rows=s.superhot_rows, warm_rows=s.warm_rows,
                 shard_rotation=s.shard_rotation, group_rows=s.group_rows,
+                onehot_scatter_ratio=s.onehot_scatter_ratio, onehot_scatter_maxv=s.onehot_scatter_maxv,
             )
             self.ec = EmbeddingCollection(
                 plan, self.rm, self.opt_params, dtype=s.emb_dtype,
                 dense_update_rows=s.dense_update_rows, dense_key_ratio=s.dense_key_ratio,
-                state_dtype=s.emb_state_dtype, fwd_partition=s.fwd_partition,
+                dense_grad_dtype=s.grad_dtype, state_dtype=s.emb_state_dtype, fwd_partition=s.fwd_partition,
                 capacity_factor=s.mp_capacity_factor,
                 dense_exchange_cap=s.dense_exchange_cap if s.dense_exchange else 0,
                 # the first collection's strategy, as the JAX Model takes it (model.py:398-405)
@@ -433,6 +446,15 @@ class Model:
         # the opt-in host-side key-range check, read here as the JAX Model
         # reads it at compile (model.py:491-494); "0" and "" turn it off
         self._check_keys = os.environ.get("HCTR_TPU_CHECK_KEYS", "0") not in ("", "0")
+        self._build_steps()
+
+    def _build_steps(self) -> None:
+        """Read the component-skip ablations (model.py:782-785,
+        network.py:139-147), once: the JAX package reads them where it
+        builds its jitted steps (`_build_steps`)."""
+        self._skip_embedding = bool(os.environ.get("SKIP_EMBEDDING"))
+        self._skip_emb_update = bool(os.environ.get("SKIP_EMBEDDING_UPDATE"))
+        self.network.skip_tops = {t for t in os.environ.get("SKIP_DENSE_LAYERS", "").split(",") if t}
 
     @staticmethod
     def _column_tables(decl, factor: int, split_tables: Dict[str, List[EmbeddingTableConfig]]):
@@ -896,13 +918,18 @@ class Model:
         # set_learning_rate(x >= 0) replaces the schedule: 0 freezes updates
         ov = self._lr_override
         lr = torch.tensor(ov if ov >= 0 else float(self.lr_sch(step)), dtype=torch.float32, device=self.device)
-        feature_keys = self._feature_keys(batch) if ec is not None else {}
-        weights = self._feature_weights(batch)
+        skip_emb = ec is not None and self._skip_embedding
+        emb_update = ec is not None and not (self._emb_frozen or skip_emb or self._skip_emb_update)
+        feature_keys = self._feature_keys(batch) if ec is not None and not skip_emb else {}
+        weights = self._feature_weights(batch) if not skip_emb else None
         emb_in: Dict[str, torch.Tensor] = {}
-        if ec is not None:
+        if skip_emb:
+            emb_in = self._skipped_embedding(batch[self.batch_spec.dense_name].shape[0])
+        elif ec is not None:
             with torch.no_grad():
                 emb_outs = ec.forward(self.tables, feature_keys, weights)
-            emb_in = {k: v.detach().requires_grad_(True) for k, v in emb_outs.items()}
+            # the cotangent only for an update that reads it
+            emb_in = {k: v.detach().requires_grad_(emb_update) for k, v in emb_outs.items()}
         tensors = {
             n: batch[n] for n in (*self.batch_spec.label_names, self.batch_spec.dense_name)
         }
@@ -913,19 +940,37 @@ class Model:
         if self.rm.num_devices > 1:
             # the global-batch mean: loss / W on every rank, summed below
             loss = loss / self.world
+        if loss.requires_grad:  # not when a skip leaves nothing to differentiate
             loss.backward()
+        for ps in params.values():
+            for p in ps.values():
+                if p.grad is None:  # a skipped layer's: JAX's gradient is zero
+                    p.grad = torch.zeros_like(p)
+        if self.rm.num_devices > 1:
             loss = self._all_reduce_grads(params, loss.detach(), self.rm)
-        else:
-            loss.backward()
         if not self._dense_frozen:
             self.dense_opt.update(params, self.dopt, lr, step)
         self.network.zero_grad(set_to_none=True)
-        if ec is not None and not self._emb_frozen:
-            egrads = {k: v.grad for k, v in emb_in.items()}
+        if emb_update:
+            # no cotangent where a skip left the loss without the tops: zero, as in JAX
+            egrads = {k: v.grad if v.grad is not None else torch.zeros_like(v) for k, v in emb_in.items()}
             with torch.no_grad():
                 ec.backward_and_update(self.tables, self.eopt, feature_keys, egrads, lr, step, weights)
         self._step = step
         return loss.detach()
+
+    def _skipped_embedding(self, b: int) -> Dict[str, torch.Tensor]:
+        """SKIP_EMBEDDING's tops (model.py:804-821): float32 zeros [b, width]
+        per lookup, a split table's merged top in place of its tiers'."""
+        outs = {
+            lm.top_name: torch.zeros((b, lm.out_end - lm.out_begin), dtype=torch.float32, device=self.device)
+            for g in self.ec.plan.groups for lm in g.lookups
+        }
+        for m in self.ec.plan.merges:
+            outs[m.top_name] = outs.pop(m.sub_tops[0])
+            for sub in m.sub_tops[1:]:
+                del outs[sub]
+        return outs
 
     @staticmethod
     def _all_reduce_grads(params, loss: torch.Tensor, rm: ResourceManager) -> torch.Tensor:
@@ -1494,6 +1539,7 @@ class Model:
                                       decay_power=2.0, end_lr=0.0) -> None:
         """A new schedule for the next steps (model.py:1908)."""
         self.lr_sch = LearningRateScheduler(base_lr, warmup_steps, decay_start, decay_steps, decay_power, end_lr)
+        self._build_steps()
 
     def get_current_loss(self) -> float:
         """The loss of the last train() call, 0.0 before any (model.py:1923)."""
@@ -1545,8 +1591,8 @@ class Model:
             self._eval_eof = False
 
     def update_label_weights(self, label_names, label_weights) -> None:
-        """New weights of the tasks' losses for the next steps
-        (model.py:1971)."""
+        """New weights of the tasks' losses for the next steps; the step is
+        built again, as the JAX package rebuilds it (model.py:1971-1986)."""
         if len(label_names) != len(label_weights):
             raise ValueError("label_names and label_weights length mismatch")
         w = dict(zip(label_names, (float(x) for x in label_weights)))
@@ -1556,6 +1602,7 @@ class Model:
         for spec in self.network.loss_specs:
             spec.weight = w.get(spec.label_name, spec.weight)
         self.input.label_weights = {**(self.input.label_weights or {}), **w}
+        self._build_steps()
 
     def get_params_num(self) -> int:
         """The dense parameters' elements plus each table's vocab x ev (a
@@ -1625,14 +1672,17 @@ class Model:
     def freeze_dense(self) -> None:
         """The dense parameters and their state take no update (model.py:2204)."""
         self._dense_frozen = True
+        self._build_steps()
 
     def unfreeze_dense(self) -> None:
         self._dense_frozen = False
+        self._build_steps()
 
     def freeze_embedding(self, embedding_name: Optional[str] = None) -> None:
         """No sparse update (model.py:2213): of the table `embedding_name`
         (a split table's user-level name freezes its tiers), or without a
         name of the whole collection."""
+        self._build_steps()
         if embedding_name is None:
             self._emb_frozen = True
             return
@@ -1645,6 +1695,7 @@ class Model:
     def unfreeze_embedding(self, embedding_name: Optional[str] = None) -> None:
         """Undo `freeze_embedding` (model.py:2226); without a name, every
         table."""
+        self._build_steps()
         if embedding_name is None:
             self._emb_frozen = False
             if self.ec is not None:

@@ -123,14 +123,15 @@ Weights = Optional[Sequence[Optional[torch.Tensor]]]
 
 def onehot_fwd_group_plain(
     keys: Sequence[torch.Tensor], lookups: Sequence[GroupLookup], table: torch.Tensor,
-    out_width: int, weights: Weights = None,
+    out_width: int, weights: Weights = None, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per lookup: the placement (int32 cut, window, -1 padding, floor-mod
     wrap), the pooled (weighted) sum in float32, the Mean division by the
     count of non-padding keys or the sum of their weights (1 where it is
-    0), one rounding."""
+    0), one rounding. With `out`, the lookups' columns are written there."""
     e = table.shape[1]
-    out = torch.zeros((keys[0].shape[0], out_width), dtype=table.dtype, device=table.device)
+    if out is None:
+        out = torch.zeros((keys[0].shape[0], out_width), dtype=table.dtype, device=table.device)
     for i, (k, lk) in enumerate(zip(keys, lookups)):
         valid, local = place_keys(window_keys(k, lk.key_lo, lk.key_hi), lk.vocab)
         rows = table[lk.row_off : lk.row_off + lk.vocab].float()[local]
@@ -166,7 +167,7 @@ def _check_weights(weights: Weights, keys: Sequence[torch.Tensor]) -> None:
 
 def onehot_fwd_group(
     keys: Sequence[torch.Tensor], lookups: Sequence[GroupLookup], table: torch.Tensor,
-    out_width: int, weights: Weights = None,
+    out_width: int, weights: Weights = None, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Pooled lookups of a one-hot group in one launch: keys[i] ([B, h_i]
     int32/int64, unit column stride) of lookup i into `table` (the group
@@ -174,7 +175,10 @@ def onehot_fwd_group(
     [out_begin, out_begin + E); on the card, columns no lookup covers are
     left as allocated. `weights[i]` (float32 [B, h_i], unit column stride,
     or None) weights lookup i's keys. The launcher picks each lookup's
-    route (`fwd_route`)."""
+    route (`fwd_route`). `out` (contiguous [B, out_width] in the table's
+    type) receives the lookups' columns in place of a new tensor; the
+    kernel takes at most MAX_GROUP_LOOKUPS lookups a launch
+    (`onehot_fwd_chunked` splits a larger group)."""
     _lib.require(len(keys) == len(lookups) >= 1, "give one key tensor per lookup")
     _lib.require(
         table.dim() == 2 and table.dtype in _lib.DTYPE_CODE,
@@ -193,9 +197,13 @@ def onehot_fwd_group(
             raise ValueError(f"lookup {lk} outside table rows {table.shape[0]}, width {out_width} "
                              "or the int32 keys")
     _check_weights(weights, keys)
+    if out is not None and not (tuple(out.shape) == (b, out_width) and out.dtype == table.dtype
+                                and out.device == table.device and out.is_contiguous()):
+        raise ValueError(f"out must be contiguous {table.dtype} [{b}, {out_width}] on {table.device}, "
+                         f"got {out.dtype} {tuple(out.shape)}")
     if table.device.type == "cpu":
         PLAIN_CALLS["onehot_fwd"] += 1
-        return onehot_fwd_group_plain(keys, lookups, table, out_width, weights)
+        return onehot_fwd_group_plain(keys, lookups, table, out_width, weights, out)
     _lib.require(table.device.type == "cuda", f"unsupported device {table.device}")
     _lib.require(table.is_contiguous(), "table must be contiguous")
     _lib.require(len(lookups) <= MAX_GROUP_LOOKUPS,
@@ -209,7 +217,8 @@ def onehot_fwd_group(
                  w.data_ptr() if w is not None else None, w.stride(0) if w is not None else 0)
         for k, lk, w in zip(keys, lookups, ws)
     ])
-    out = torch.empty((b, out_width), dtype=table.dtype, device=table.device)
+    if out is None:
+        out = torch.empty((b, out_width), dtype=table.dtype, device=table.device)
     lib = _lib.library()
     with torch.cuda.device(table.device):
         rc = lib.hctr_onehot_fwd_group(
@@ -219,6 +228,27 @@ def onehot_fwd_group(
     _lib.check(rc, "onehot_fwd_group")
     LAUNCHES["onehot_fwd"] += 1
     WEIGHTED_LAUNCHES["onehot_fwd"] += any(w is not None for w in ws)
+    return out
+
+
+def onehot_fwd_chunked(
+    keys: Sequence[torch.Tensor], lookups: Sequence[GroupLookup], table: torch.Tensor,
+    out_width: int, weights: Weights = None,
+) -> torch.Tensor:
+    """A one-hot group of any number n of lookups: ceil(n / 48)
+    `onehot_fwd_group` calls over consecutive lookups, each writing its
+    lookups' columns of one [B, out_width] output (one launch, or one
+    plain-version call on the CPU, a chunk). The kernel takes its
+    descriptors by value in the launch's parameters, at most 48 of them."""
+    n = len(lookups)
+    if n <= MAX_GROUP_LOOKUPS:
+        return onehot_fwd_group(keys, lookups, table, out_width, weights)
+    out = (torch.zeros if table.device.type == "cpu" else torch.empty)(
+        (keys[0].shape[0], out_width), dtype=table.dtype, device=table.device)
+    for i in range(0, n, MAX_GROUP_LOOKUPS):
+        j = i + MAX_GROUP_LOOKUPS
+        onehot_fwd_group(keys[i:j], lookups[i:j], table, out_width,
+                         None if weights is None else weights[i:j], out=out)
     return out
 
 

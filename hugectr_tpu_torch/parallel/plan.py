@@ -245,22 +245,29 @@ def table_shard_rotation(name: str, rotate: bool = True) -> int:
 
 
 def _onehot_eligible(
-    lookups: Sequence[LookupConfig], threshold: int
+    lookups: Sequence[LookupConfig], threshold: int, scatter_ratio: int = 0, scatter_maxv: int = 131072,
 ) -> Dict[str, bool]:
-    """A static table takes the one-hot engine iff it is small
-    (0 < vocab <= threshold) and every lookup into it pools (sum/mean, or
-    concat with hotness 1) (plan.py:525); a dynamic table never does
-    (plan.py:551)."""
+    """A static table takes the one-hot engine iff every lookup into it
+    pools (sum/mean, or concat with hotness 1) and it is small
+    (0 < vocab <= threshold) or, with `scatter_ratio` > 0, of high hotness:
+    threshold < vocab <= scatter_maxv and its lookups' total hotness x
+    scatter_ratio >= vocab (plan.py:525-560; a threshold of 0 turns both
+    off); a dynamic table never does (plan.py:551)."""
     by_table: Dict[str, List[LookupConfig]] = {}
     for lk in lookups:
         by_table.setdefault(lk.table.name, []).append(lk)
     out: Dict[str, bool] = {}
     for name, lks in by_table.items():
         t = lks[0].table
+        v = t.vocabulary_size
+        size_ok = threshold > 0 and (
+            0 < v <= threshold
+            or (scatter_ratio > 0 and threshold < v <= scatter_maxv
+                and sum(lk.max_hotness for lk in lks) * scatter_ratio >= v)
+        )
         out[name] = (
-            threshold > 0
+            size_ok
             and not t.is_dynamic
-            and 0 < t.vocabulary_size <= threshold
             and all(
                 lk.combiner in (Combiner_t.Sum, Combiner_t.Mean)
                 or (lk.combiner == Combiner_t.Concat and lk.max_hotness == 1)
@@ -397,19 +404,23 @@ def compile_plan(
     warm_rows: int = 0,
     shard_rotation: bool = True,
     group_rows: Optional[int] = 0,
+    onehot_scatter_ratio: int = 0,
+    onehot_scatter_maxv: int = 131072,
 ) -> CompiledEmbeddingPlan:
     """Split the big tables into tiers (`hot_rows` > 0), then group lookups
     by (placement, ev_size, engine, private split, shard count) in
     first-appearance order, bin the shared rowop groups at `group_rows`
     rows a shard (> 0), and lay out each group's storage (plan.py:584).
-    `num_shards` is the ranks' count (the data-parallel size)."""
+    `num_shards` is the ranks' count (the data-parallel size); the one-hot
+    engine's eligibility is taken after the split, on the tiers
+    (`_onehot_eligible`, plan.py:605-606)."""
     if num_shards < 1:
         raise ValueError("num_shards must be >= 1")
     orig_lookups = list(lookups)
     lookups, merges, table_splits = _split_hot_cold(
         orig_lookups, hot_rows, superhot_rows, warm_rows, onehot_vocab, plan.column_factors
     )
-    eligible = _onehot_eligible(lookups, onehot_vocab)
+    eligible = _onehot_eligible(lookups, onehot_vocab, onehot_scatter_ratio, onehot_scatter_maxv)
     group_keys: List[Tuple] = []
     group_lookups: Dict[Tuple, List[LookupConfig]] = {}
     for lk in lookups:
@@ -524,5 +535,6 @@ def compile_plan(
         table_splits=table_splits,
         options=dict(onehot_vocab=onehot_vocab, split_vocab=split_vocab, hot_rows=hot_rows,
                      superhot_rows=superhot_rows, warm_rows=warm_rows, shard_rotation=shard_rotation,
-                     group_rows=group_rows, column_factors=dict(plan.column_factors)),
+                     group_rows=group_rows, onehot_scatter_ratio=onehot_scatter_ratio,
+                     onehot_scatter_maxv=onehot_scatter_maxv, column_factors=dict(plan.column_factors)),
     )

@@ -349,6 +349,7 @@ def build_dlrm_ftrl(
     lr: float = 0.001,
     max_eval_batches: int = 50,
     synthetic_alpha: float = 1.05,
+    synthetic_learnable: bool = False,
     reader=None,
     compile_model: bool = True,
     **solver_kwargs,
@@ -357,7 +358,9 @@ def build_dlrm_ftrl(
     `rm.num_devices` ranks, every table on every rank as the sample's
     `shard_matrix` puts them (samples/dlrm_ftrl.py:69-72); compiled unless
     `compile_model` is False. A static table's `dynamic_capacity` is 0, as
-    the sample sets it (:60). `reader` replaces the synthetic reader;
+    the sample sets it (:60). `synthetic_learnable` gives the synthetic
+    batches labels from the keys' parities, so that the loss can fall and
+    eval can see learning; `reader` replaces the synthetic reader;
     `solver_kwargs` are `Solver` fields (engine settings, dtypes,
     `i64_input_key`)."""
     sizes = [min(v, vocab_cap) for v in FTRL_SLOT_SIZES]
@@ -368,7 +371,7 @@ def build_dlrm_ftrl(
     )
     reader = reader or hugectr.DataReaderParams(
         data_reader_type=DataReaderType_t.Synthetic, synthetic_num_batches=synthetic_batches,
-        synthetic_alpha=synthetic_alpha,
+        synthetic_alpha=synthetic_alpha, synthetic_learnable=synthetic_learnable,
     )
     opt = hugectr.CreateOptimizer(
         optimizer_type=hugectr.Optimizer_t.FTRL, lr=lr, beta=0.0, lambda1=0.01, lambda2=0.01

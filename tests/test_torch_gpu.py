@@ -212,6 +212,79 @@ def _heads(rng, k, nseg):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [49, 96, 100])
+def test_onehot_fwd_chunked_past_48_lookups(cuda, n, dtype, weighted):
+    """A one-hot group of n > 48 lookups (the 510-table case's group of
+    1,000-row tables at hotness 1-3, Sum and Mean): ceil(n / 48) launches,
+    each writing its lookups' columns, against one plain call."""
+    rng = np.random.default_rng(n)
+    b, v, e = 512, 1000, 32
+    lookups = [oh.GroupLookup(v * i, v, e * i, i % 7 == 0) for i in range(n)]
+    keys = [torch.from_numpy(_keys(rng, b, 1 + i % 3, v + 50)).to(cuda) for i in range(n)]
+    ws = [torch.rand(k.shape, device=cuda) for k in keys] if weighted else None
+    table = torch.randn((v * n, e), device=cuda).to(dtype)
+    before = oh.LAUNCHES["onehot_fwd"]
+    got = oh.onehot_fwd_chunked(keys, lookups, table, e * n, ws)
+    assert oh.LAUNCHES["onehot_fwd"] - before == -(-n // oh.MAX_GROUP_LOOKUPS)
+    want = oh.onehot_fwd_group_plain(keys, lookups, table, e * n, ws)
+    scale = oh.onehot_fwd_group_plain(keys, lookups, table.float().abs(), e * n, ws)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _scaled(got, want, scale) <= TOL[dtype]
+    with pytest.raises(ValueError, match="at most 48"):
+        oh.onehot_fwd_group(keys, lookups, table, e * n, ws)
+
+
+def _peak_partial_sums(idx, vals, rows):
+    """[rows, E] float64: for each element, the largest |partial sum| that
+    the ordered adds (by row, then by position) pass through."""
+    o = torch.sort(idx, stable=True).indices
+    sidx, sv = idx[o], vals[o].double()
+    head = torch.ones_like(sidx, dtype=torch.bool)
+    head[1:] = sidx[1:] != sidx[:-1]
+    pos = torch.arange(sidx.numel())
+    start = torch.cummax(torch.where(head, pos, 0), 0).values
+    cs = sv.cumsum(0)
+    part = (cs - cs[start] + sv[start]).abs()
+    return torch.zeros((rows, sv.shape[1]), dtype=torch.float64).scatter_reduce_(
+        0, sidx.unsqueeze(1).expand_as(part), part, "amax")
+
+
+@pytest.mark.gpu
+def test_bf16_dense_grad_buffer_on_the_card(cuda):
+    """The dense sweep's bf16 buffer: `index_add_` into bf16 on the card
+    against the ordered adds on the CPU. Each add rounds the running sum
+    by at most 2^-8 of it, so one element's n adds carry a rounding of
+    about lim = 2^-8 x sqrt(n) x (the largest |partial sum| of the ordered
+    adds). Three limits, all held: an element within 2^-7 x sqrt(n) x
+    sum |g| (the bound for rows of few adds), and within 8 lim (4.2 lim at
+    most in 28 random orders of such inputs, simulated on the CPU); each
+    row of at least 256 adds within 0.5 of lim in its rms over the columns
+    (at most 0.39 there; dropping a tenth of the hottest row's adds gives
+    0.55-0.65)."""
+    from hugectr_tpu_torch.embedding import sparse_optimizer as so
+
+    rng = np.random.default_rng(9)
+    rows, k = 4096, 50000
+    idx = torch.from_numpy(np.minimum(rng.pareto(1.1, k) * 3, rows - 1).astype(np.int64)).to(cuda)
+    src = torch.arange(k, device=cuda)
+    vals = torch.randn((k, 64), device=cuda)
+    got = so.bf16_row_sums(idx, src, vals, rows)
+    want = so.bf16_row_sums(idx.cpu(), src.cpu(), vals.cpu(), rows)
+    idx, vals = idx.cpu(), vals.cpu()
+    n = torch.bincount(idx, minlength=rows).double().unsqueeze(1)
+    absum = torch.zeros((rows, 64), dtype=torch.float64).index_add_(0, idx, vals.abs().double())
+    lim = 2.0**-8 * n.sqrt() * _peak_partial_sums(idx, vals, rows)
+    diff = (got.cpu().double() - want.double()).abs()
+    hot = n[:, 0] >= 256
+    assert got.dtype == torch.bfloat16 and int(hot.sum()) > 0
+    assert float((diff / (n.sqrt() * absum + 1e-30)).max()) <= 2.0**-7
+    assert float((diff / lim.clamp_min(1e-30)).max()) <= 8
+    assert float(((diff[hot] ** 2).mean(1).sqrt() / (lim[hot] ** 2).mean(1).sqrt()).max()) <= 0.5
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_segscan_kernel_matches_plain_version(cuda, dtype):
     rng = np.random.default_rng(6)
