@@ -44,9 +44,12 @@ Each phase prints one JSON line with its own seconds:
    owns. Then the ordered pool of the owner-partitioned forward
    (csrc/ordered_pool.cu) bitwise against its plain version at rank 0's
    shapes of the hybrid phases (the f32 flagship's table-20 and 5-lookup
-   groups, the bench configuration's bf16 tiers of table 20), with its
-   bound, `embedding_bag` and `index_add_` beside it, and at its edge
-   cases (E 13, 16 and 128, slots of 0 to 100 rows).
+   groups, the bench configuration's bf16 tiers of table 20) and at the
+   compact forward's shapes on one card (every valid key of the bench cold
+   tier of table 20, bf16; on its table and on the first 128 columns of
+   the [R, 129] rows of `rowwise_pack`), with its bound, `embedding_bag`
+   and `index_add_` beside it, and at its edge cases (E 13, 16 and 128,
+   slots of 0 to 100 rows).
 3. "tiny_parity": the tiny DLRM-DCNv2 trained 3 steps on the card (kernels)
    and on the CPU (plain versions) from the same state: losses and tables
    must agree. Then the same with bench.py's settings scaled down (bf16,
@@ -64,13 +67,24 @@ Each phase prints one JSON line with its own seconds:
 5. "bench_path": the flagship as bench.py configures it
    (`tools/flagship.py::bench_settings`: bf16 tables and rowwise-AdaGrad
    state, mixed precision, hot 131,072 / superhot 1,024 / split vocab
-   16,384), 6 training steps, a warm-up `eval()` and a timed `eval()` over
-   320 batches of 16,384. Counters are set to 0 before the steps and before
+   16,384, the caps measured on the first batch with a headroom of 1.05),
+   6 training steps, a warm-up `eval()` and a timed `eval()` over 320
+   batches of 16,384. Counters are set to 0 before the steps and before
    the timed eval; every kernel must launch in the steps, `onehot_fwd` once
    per step and once per eval batch (one launch for the 20-lookup group),
+   the ordered pool once a step and eval batch for each group with a valid
+   cap (the compact forward); each group's caps and route are printed;
    every loss must be finite and the eval's binned AUC within 1e-4 of the
    exact AUC of the same buffers. Reports ms/step, train and eval ex/s,
    peak memory, the routes and the launch counts.
+   "packed_path" (after it): the packed layouts and the drop mode: the
+   bench-configured flagship with `rowwise_pack` (the 7 cold tiers and
+   table 11's group [R, 129]) and the f32 flagship (cap 400,000) with
+   AdaGrad and `packed_state` ([R, 256]), 3 steps each, a snapshot with
+   `packed_<group>.npy` reloaded bitwise into a model from another seed and
+   3 resumed losses within 1e-6 relative; then the bench-configured
+   flagship with `unique_cap_factor=0.5, ucap_drop=True`, 3 steps, the rows
+   dropped a step.
 6. "ftrl_path": DLRM with FTRL at full width (`build_dlrm_ftrl`: 26
    tables capped at 400,000 rows, ev 128, hotness 1, batch 16,384), 6
    steps and a 20-batch eval, counters read around each: `onehot_fwd` once
@@ -284,7 +298,9 @@ bf16 and E 64 cases; and each kernel's `weighted_case`: its bf16
 weighted case with the most device time and its launches on
 `weighted_path`, the ordered pool's on rank 0 of `hybrid_weighted_path`;
 and each kernel's launches on `serving_path`, `fullscale_path`,
-`scatter_ratio_path` and `benchmarks_path`, the one-hot kernels' f32 case
+`scatter_ratio_path`, `benchmarks_path` and `packed_path` (the ordered
+pool's also on `bench_path`, its compact case and its compact case on a
+packed table beside its others), the one-hot kernels' f32 case
 at the scatter ratio's shapes (`ratio_case`) and the forward's 100-lookup
 f32 case (`chunked_case`)),
 a line with the card's name and power limit, and last
@@ -954,11 +970,15 @@ def ordered_pool_checks(torch, np, dev, results):
     the hybrid phases' W ranks: the owned prefix of the gathered 16,384 x h
     power-law keys of the f32 flagship's table-20 group (h 100) and its
     5-lookup group, and of bench.py's configuration's bf16 cold and hot
-    tiers of table 20; with its bound, the plain version's time, one
-    `embedding_bag` over the same slots (float32 sums, no rounding after
-    each add) and `index_add_` of the gathered rows. Then f32 and bf16 at E
-    16, 128 and 13 (one-column lanes), slots of 1 to 100 rows, empty slots,
-    repeated rows and keys of other shards; and two runs compared bitwise."""
+    tiers of table 20; and at W 1 the compact forward's shapes (bench.py's
+    measured caps: every valid key of the bench cold tier of table 20, bf16,
+    `_pool_segments(..., cut=False)`), on its table and on the first 128
+    columns of the [R, 129] rows `rowwise_pack` stores (row stride 129);
+    with its bound, the plain version's time, one `embedding_bag` over the
+    same slots (float32 sums, no rounding after each add) and `index_add_`
+    of the gathered rows. Then f32 and bf16 at E 16, 128 and 13
+    (one-column lanes), slots of 1 to 100 rows, empty slots, repeated rows
+    and keys of other shards; and two runs compared bitwise."""
     import torch.nn.functional as F
 
     from hugectr_tpu_torch.core.mesh import ResourceManager
@@ -972,10 +992,14 @@ def ordered_pool_checks(torch, np, dev, results):
     w = hybrid_world(torch)
     rng = np.random.default_rng(17)
     gen = torch.Generator(device=dev).manual_seed(17)
-    for label, dt, plan_kw, names in (("flagship", torch.float32, {}, ("mp_ev128_20", "mp_ev128")),
-                                      ("bench", torch.bfloat16, BENCH_PLAN, ("mp_ev128_20::cold", "mp_ev128_20::hot"))):
-        plan = flagship_plan(ev_size=E, num_shards=w, **plan_kw)
-        ec = EmbeddingCollection(plan, ResourceManager(dev, 0, w), OptParams(Optimizer_t.RowWiseAdaGrad), dtype=dt)
+    for label, dt, plan_kw, names, world, ld in (
+            ("flagship", torch.float32, {}, ("mp_ev128_20", "mp_ev128"), w, E),
+            ("bench", torch.bfloat16, BENCH_PLAN, ("mp_ev128_20::cold", "mp_ev128_20::hot"), w, E),
+            ("compact", torch.bfloat16, BENCH_PLAN, ("mp_ev128_20::cold",), 1, E),
+            ("compact_packed", torch.bfloat16, BENCH_PLAN, ("mp_ev128_20::cold",), 1, E + 1)):
+        plan = flagship_plan(ev_size=E, num_shards=world, **plan_kw)
+        ec = EmbeddingCollection(plan, ResourceManager(dev, 0, world), OptParams(Optimizer_t.RowWiseAdaGrad),
+                                 dtype=dt)
         for gname in names:
             t0 = time.perf_counter()
             g = next(x for x in plan.groups if x.name == gname)
@@ -983,9 +1007,10 @@ def ordered_pool_checks(torch, np, dev, results):
             for lm in g.lookups:
                 raw.setdefault(lm.bottom_name, torch.as_tensor(
                     power_law(rng, raw_vocab(plan, lm), (B, lm.hotness)).astype(np.int32), device=dev))
-            srows, offsets, _w = ec._pool_segments(gname, ec._group_keys(g, raw), g.total_local_rows)
+            srows, offsets, _w = ec._pool_segments(gname, ec._group_keys(g, raw), g.total_local_rows,
+                                                   cut=world > 1)
             n = offsets.numel() - 1
-            table = torch.empty((g.total_local_rows, E), device=dev).normal_(generator=gen).to(dt)
+            table = torch.empty((g.total_local_rows, ld), device=dev).normal_(generator=gen).to(dt)[:, :E]
             call = lambda: op.ordered_pool(table, srows, offsets)  # noqa: E731
             got = call()
             want = op.ordered_pool_plain(table, srows, offsets)
@@ -1002,16 +1027,17 @@ def ordered_pool_checks(torch, np, dev, results):
             ids_read = int(torch.minimum(lens + 1, offsets.diff()).sum())
             b_ms, b_by = bound(uniq * E * isz + ids_read * 8 + 8 * (n + 1) + n * E * isz, int(owned.numel()) * E)
             dms, per_call = device_ms(call, KERNEL_NAMES["ordered_pool"])
+            dense = table.contiguous()  # embedding_bag's weight: the packed view's columns copied out
             rec = dict(
-                kernel="ordered_pool", case=f"{label}_{gname}_w{w}", dtype=str(dt).split(".")[1], K=k, slots=n,
-                E=E, owned=int(owned.numel()), ids_read=ids_read, unique_rows=uniq, max_slot_rows=int(lens.max()),
+                kernel="ordered_pool", case=f"{label}_{gname}_w{world}", dtype=str(dt).split(".")[1], K=k, slots=n,
+                E=E, row_stride=ld, owned=int(owned.numel()), ids_read=ids_read, unique_rows=uniq, max_slot_rows=int(lens.max()),
                 empty_slots=int((lens == 0).sum()),
                 bitwise=bool(torch.equal(bits(torch, got), bits(torch, want))),
                 bitwise_repeat=bool(torch.equal(bits(torch, call()), bits(torch, got))),
                 max_abs_err=float((got.float() - want.float()).abs().max()), tol=0.0,
                 ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
                 plain_ms=time_ms(lambda: op.ordered_pool_plain(table, srows, offsets), samples=5, inner=1, warmup=1),
-                library_ms=time_ms(lambda: F.embedding_bag(owned, table, obounds[:-1], mode="sum")),
+                library_ms=time_ms(lambda: F.embedding_bag(owned, dense, obounds[:-1], mode="sum")),
                 library="torch.nn.functional.embedding_bag(mode='sum', offsets) over the owned rows (float32 "
                         "sums, one rounding)",
                 index_add_ms=time_ms(
@@ -1593,13 +1619,40 @@ def main_path(torch):
     return launches, rec
 
 
+def caps_line(ec) -> dict:
+    """Each rowop group's measured caps and last route: {group: {"unique",
+    "valid", "dense_exchange", "route"}} (0 where none was measured)."""
+    return {g.name: dict(unique=ec.unique_caps.get(g.name, 0), valid=ec.valid_caps.get(g.name, 0),
+                         dense_exchange=ec.dense_exchange_caps.get(g.name, 0), route=ec.group_routes.get(g.name))
+            for g in ec.plan.groups if g.compute_kind == "rowop"}
+
+
+# the groups that bench.py's caps send to the compact forward on one card:
+# the hot and cold tiers of the 7 split tables (PERF.md section 4), 14
+# ordered-pool launches a step and eval batch; with onehot_scatter_ratio
+# 2,000 table 20's hot tier joins the one-hot group and 13 are left
+BENCH_COMPACT = frozenset(f"mp_ev128_{t}::{tier}" for t in (0, 9, 10, 19, 20, 21, 22) for tier in ("hot", "cold"))
+SCATTER_RATIO_COMPACT = BENCH_COMPACT - {"mp_ev128_20::hot"}
+
+
+def compact_groups(ec) -> list:
+    """The groups one card pools by the compact forward: a valid cap below
+    the batch's key list (`EmbeddingCollection.forward`)."""
+    b = ec.rm.data_parallel_size
+    return [g.name for g in ec.plan.groups if g.compute_kind == "rowop"
+            and 0 < ec.valid_caps.get(g.name, 0) < B * g.hotness_total and b == 1]
+
+
 def bench_path(torch):
     """Phase 5: the flagship as bench.py configures it, at full width
     (`bench_settings()`: batch 16,384, vocab_cap 2M, ev 128, bf16 tables and
     state, mixed precision, hot 131,072 / superhot 1,024 / split vocab
-    16,384): 6 training steps, then one warm-up `eval()` and one timed
-    `eval()` over 320 batches of 16,384. Launch counters are set to 0 just
-    before the steps and read just after, and again around the timed eval."""
+    16,384, the caps measured on the first batch with a headroom of 1.05):
+    6 training steps, then one warm-up `eval()` and one timed `eval()` over
+    320 batches of 16,384. Launch counters are set to 0 just before the
+    steps and read just after, and again around the timed eval. Prints each
+    group's caps and route; the compact forward launches the ordered pool
+    once a step and eval batch for each group with a valid cap."""
     from hugectr_tpu_torch import ops
     from hugectr_tpu_torch.core.mesh import ResourceManager
     from hugectr_tpu_torch.metrics.metrics import auc_score, auc_score_large
@@ -1636,8 +1689,10 @@ def bench_path(torch):
     n_eval = model.solver.max_eval_batches * model.solver.batchsize_eval
     binned = float(auc_score_large(m._preds, m._labels, m._valid))
     exact = float(auc_score(m._preds, m._labels, m._valid))
+    caps = compact_groups(model.ec)
     rec = dict(
-        phase="bench_path", settings=kw, tables=26, steps=6, losses=losses,
+        phase="bench_path", settings=kw, tables=26, steps=6, losses=losses, caps=caps_line(model.ec),
+        compact_groups=caps, ordered_pool_per_step=train_launches["ordered_pool"] / 6,
         step_ms=[x * 1e3 for x in step_s], median_ms_per_step=steady * 1e3, train_examples_per_s=B / steady,
         eval_batches=model.solver.max_eval_batches, eval_seconds=eval_s, warmup_eval_seconds=warm_s,
         eval_examples_per_s=n_eval / eval_s, eval=vals, auc_binned=binned, auc_exact=exact,
@@ -1650,9 +1705,15 @@ def bench_path(torch):
     emit(rec)
     if not (len(losses) == 6 and all(math.isfinite(x) for x in losses)):
         raise AssertionError(f"non-finite loss on the bench path: {losses}")
-    missing = [k for k in ONE_CARD_KERNELS if train_launches[k] <= 0]
+    missing = [k for k in (*ONE_CARD_KERNELS, "ordered_pool") if train_launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the bench path: {missing}")
+    if set(model.ec.valid_caps) != BENCH_COMPACT:
+        raise AssertionError(f"valid caps measured for {sorted(model.ec.valid_caps)}, not {sorted(BENCH_COMPACT)}")
+    if (train_launches["ordered_pool"] != 6 * 14
+            or eval_launches["ordered_pool"] != model.solver.max_eval_batches * 14):
+        raise AssertionError(f"the compact forward of 14 groups launched the ordered pool {train_launches} / "
+                             f"{eval_launches}")
     if train_launches["onehot_fwd"] != 6 or eval_launches["onehot_fwd"] != model.solver.max_eval_batches:
         raise AssertionError(f"onehot_fwd launched {train_launches['onehot_fwd']} times in 6 steps and "
                              f"{eval_launches['onehot_fwd']} in {model.solver.max_eval_batches} eval batches")
@@ -1663,6 +1724,154 @@ def bench_path(torch):
     if eval_launches["onehot_bwd"] or eval_launches["segscan"]:
         raise AssertionError(f"eval launched backward kernels: {eval_launches}")
     return {k: train_launches[k] + eval_launches[k] for k in train_launches}
+
+
+UCAP_DROP_FACTORS = (0.5, 0.05)  # the drop mode's windows: ceil512(K x factor) unique rows
+PACKED_F32_CAP = 400_000  # the f32 packed flagship's cap: its 3.4 GB snapshot written and read in a few s
+
+
+def live_state_differs(torch, a, b) -> list:
+    """The names of the arrays of two models' state that differ bitwise,
+    compared where they live (the card: no host copy of the tables): every
+    storage array (packed groups whole, key stores), the sparse optimizer
+    state, the dense parameters and their state, and the step."""
+    def bits(t):
+        t = t.detach()
+        return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]) \
+            if t.is_floating_point() else t
+
+    def arrays(m):
+        out = {f"table:{k}": t for k, t in m.tables.items()}
+        out.update({f"eopt:{g}.{k}": t for g, st in m.eopt.items() for k, t in st.items()})
+        out.update({f"dense:{layer}.{k}": p for layer, ps in m.network.param_tree().items() for k, p in ps.items()})
+        out.update({f"dopt:{kind}.{layer}.{k}": t for kind, tree in m.dopt.items()
+                    for layer, ps in tree.items() for k, t in ps.items()})
+        return out
+
+    x, y = arrays(a), arrays(b)
+    out = sorted(set(x) ^ set(y)) + sorted(k for k in set(x) & set(y) if not torch.equal(bits(x[k]), bits(y[k])))
+    return out + (["step"] if a._step != b._step else [])
+
+
+def packed_run(torch, label: str, kw: dict):
+    """A model of `build_dlrm_dcnv2` with `kw`: 3 steps (launches counted),
+    a snapshot into a temporary directory, a second model from another seed
+    that loads it (the caps of the first carried, as a resumed run would
+    measure its own), the state arrays that differ bitwise (the packed
+    storage whole), then both models trained on the same 3 cached batches."""
+    import tempfile
+
+    from hugectr_tpu_torch import ops
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools.flagship import build_dlrm_dcnv2
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    build = lambda seed: build_dlrm_dcnv2(ResourceManager.create(), synthetic_batches=6, seed=seed,  # noqa: E731
+                                          **dict(dict(batchsize=B, max_eval_batches=1), **kw))
+    a = build(0)
+    a.start_data_reading()
+    batches = [next(a._train_iter) for _ in range(6)]  # one pass: the cycle is back at batch 0
+    ops.reset_counts()
+    losses = [a.train() for _ in range(3)]
+    launches = ops.launch_counts()
+    packed = {g: [list(a.tables[g].shape), a.ec.packed_kind[g], a.ec.group_routes[g]] for g in a.ec.packed_groups}
+    with tempfile.TemporaryDirectory(prefix="hctr_packed_") as tmp:
+        prefix = os.path.join(tmp, "snap")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        a.download_params_to_files(prefix, 3)
+        write_s = time.perf_counter() - t
+        files = sorted(f for f in os.listdir(f"{prefix}_iter3") if f.startswith("packed_"))
+        nbytes = dir_bytes(f"{prefix}_iter3")
+        b = build(7)
+        for attr in ("unique_caps", "valid_caps", "dense_exchange_caps"):
+            setattr(b.ec, attr, dict(getattr(a.ec, attr)))
+        b.ec.ucap_measured = a.ec.ucap_measured
+        before = live_state_differs(torch, a, b)
+        t = time.perf_counter()
+        b.load_params_from_files(f"{prefix}_iter3")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    differ = live_state_differs(torch, a, b)
+    resumed = [(float(a.train_step(x)), float(b.train_step(x))) for x in batches[3:6]]
+    rel = max(abs(la - lb) / max(abs(la), 1e-30) for la, lb in resumed)
+    rec = dict(phase="packed_path", run=label, settings={k: v for k, v in kw.items() if k != "metrics_spec"},
+               card=card_line(), losses=losses, launches=launches, packed=packed, packed_files=files,
+               caps=caps_line(a.ec), bytes_written=nbytes, write_seconds=write_s, load_seconds=load_s,
+               arrays_differing_before_load=len(before), arrays_differing_after_load=differ, resumed_losses=resumed, resumed_loss_max_rel_diff=rel,
+               max_memory_allocated=torch.cuda.max_memory_allocated(), seconds=time.perf_counter() - t0)
+    emit(rec)
+    del a, b
+    ok = (all(math.isfinite(x) for x in losses) and before and not differ and rel <= 1e-6 and packed
+          and files == sorted(f"packed_{g}.npy" for g in packed)
+          and all(route == "sorted" for _shape, _kind, route in packed.values()))
+    if not ok:
+        raise AssertionError(f"packed path ({label}): {rec}")
+    return rec
+
+
+def packed_path(torch):
+    """The packed table-and-state layouts (the JAX package's
+    HCTR_TPU_ROWWISE_PACK and HCTR_TPU_PACKED_STATE, collection.py:254-286)
+    and the capacity-drop update (HCTR_TPU_UCAP_DROP). Three runs of the
+    flagship at batch 16,384, ev 128, each 3 steps:
+    (1) bench.py's settings (`bench_settings()`: cap 2,000,000, bf16, the
+    measured caps) with `rowwise_pack`: the 7 cold tiers and table 11's
+    group stored [R, 129], on the sorted route; a snapshot
+    (`packed_<group>.npy` beside the usual files) reloaded bitwise into a
+    model from another seed, then 3 resumed losses of both within 1e-6
+    relative (`packed_run`);
+    (2) the f32 flagship with AdaGrad and `packed_state` ([R, 256], every
+    rowop group), the same checks; its cap cut to 400,000 so that its
+    snapshot (3.4 GB) is written and read in seconds;
+    (3) bench.py's settings with `unique_cap_factor=0.5, ucap_drop=True`:
+    each sorted group's update keeps the first ceil512(K / 2) of its sorted
+    unique rows; the rows dropped a step are printed. K counts the tier's
+    out-of-window keys, so no window is that short at these shapes (the
+    cold tier of table 20: about 202,000 unique rows of K 1,638,400); a
+    factor of 0.05 then makes the windows drop rows, which it must. Returns
+    the kernels' launches of the steps of the runs."""
+    from hugectr_tpu_torch import ops
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools.flagship import bench_settings, build_dlrm_dcnv2
+
+    total = {}
+    rw = packed_run(torch, "bench_rowwise_pack", dict(bench_settings(), rowwise_pack=True))
+    cold = [g for g in rw["caps"] if g.endswith("::cold")]
+    if not cold or any(g not in rw["packed"] or rw["packed"][g][0][1] != E + 1 for g in cold):
+        raise AssertionError(f"the cold tiers are not stored [R, {E + 1}]: {rw['packed']}")
+    full = packed_run(torch, "f32_packed_state", dict(vocab_cap=PACKED_F32_CAP, optimizer="adagrad",
+                                                      packed_state=True))
+    if any(shape[1] != 2 * E or kind != "full" for shape, kind, _route in full["packed"].values()):
+        raise AssertionError(f"the f32 packed groups are not [R, {2 * E}]: {full['packed']}")
+    for rec in (rw, full):
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+    for factor in UCAP_DROP_FACTORS:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        model = build_dlrm_dcnv2(ResourceManager.create(), synthetic_batches=3,
+                                 **dict(bench_settings(), unique_cap_factor=factor, ucap_drop=True))
+        model.start_data_reading()
+        ops.reset_counts()
+        losses, dropped = [], []
+        for _ in range(3):
+            before = model.ec.ucap_stats["ucap_dropped"]
+            losses.append(model.train())
+            dropped.append(model.ec.ucap_stats["ucap_dropped"] - before)
+        lc = ops.launch_counts()
+        rec = dict(phase="packed_path", run="bench_ucap_drop", card=card_line(), settings=dict(
+            unique_cap_factor=factor, ucap_drop=True), losses=losses, rows_dropped_per_step=dropped,
+            routes=dict(model.ec.group_routes), launches=lc, seconds=time.perf_counter() - t0)
+        emit(rec)
+        model._close_readers()
+        del model
+        if not (all(math.isfinite(x) for x in losses) and lc["segscan"] > 0 and (factor > 0.1 or min(dropped))):
+            raise AssertionError(f"packed path (drop mode): {rec}")
+        for k, v in lc.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 FTRL_ROUTES = {"static": {"onehot_ev128": "onehot", "mp_ev128": "dense", "mp_ev128_10": "sorted",
@@ -2381,8 +2590,9 @@ RANK_TOL = {"onehot_fwd": TOL["bfloat16"], "onehot_bwd": TOL["float32"], "segsca
 
 def hybrid_bench_path(torch):
     """The full-width flagship with `bench_settings()` (bf16 tables and
-    state, mixed precision, the hot/cold/superhot split) trained
-    hybrid-parallel (`hybrid_run`). Every rank launches `onehot_fwd` once a
+    state, mixed precision, the hot/cold/superhot split, the caps every
+    rank measures on the gathered first batch, the same on every rank)
+    trained hybrid-parallel (`hybrid_run`). Every rank launches `onehot_fwd` once a
     step and once an eval batch, `onehot_bwd` 20 times a step (13 tables, 7
     superhot tiers), `segscan` in the steps (the 7 cold tiers' owned
     prefixes), the ordered pool once a model-parallel group and forward;
@@ -2394,9 +2604,12 @@ def hybrid_bench_path(torch):
 
     rec, ranks = hybrid_run(torch, "bench", kernel_check=True, auc_both=True)
     parity = [hybrid.jsonable(r["kernel_parity"]) for r in ranks]
+    caps = [hybrid.jsonable(r["caps"]) for r in ranks]
     rec = dict(phase="hybrid_bench_path", **rec, auc_binned=ranks[0]["auc_binned"], auc_exact=ranks[0]["auc_exact"],
-               kernel_parity=parity)
+               kernel_parity=parity, caps=caps[0], caps_alike=all(c == caps[0] for c in caps))
     emit(rec)
+    if not (rec["caps_alike"] and caps[0].get("valid")):
+        raise AssertionError(f"the ranks measured no caps, or different ones: {caps}")
     if not rec["finite"]:
         raise AssertionError(f"non-finite loss on the hybrid bench path: {rec['losses']}")
     check_path_launches(rec, {"onehot_bwd": 20, "segscan": None})
@@ -3294,8 +3507,9 @@ def weighted_path(torch):
     (K = 16,384 x 20) once a step; tiered, the weighted one-hot forward and
     backward once a step each and segscan for the cold tier; no plain
     version. Reports median ms/step of steps 2-6, ex/s, routes, launches a
-    step, peak memory and the card. The bench's UCAP settings
-    (HCTR_TPU_UCAP_*) are not ported: cut."""
+    step, peak memory and the card. The collection measures its caps on the
+    batch as the bench does (auto, headroom 1.05): the tiered run's tiers
+    with a valid cap pool by the weighted ordered pool."""
     from hugectr_tpu_torch import ops
     from hugectr_tpu_torch.benchmarks import weighted_bench
     from hugectr_tpu_torch.core.mesh import ResourceManager
@@ -3315,7 +3529,7 @@ def weighted_path(torch):
         bench = run["record"]
         rec = dict(phase="weighted_path", tiers=tiers, card=card_line(), source=WEIGHTED_SOURCE,
                    table_rows=wt.VOCAB, ev=wt.EV, hotness=wt.HOT, batch=B, dtype="bfloat16",
-                   optimizer="rowwise_adagrad", cut="HCTR_TPU_UCAP_* (no counterpart in the port)",
+                   optimizer="rowwise_adagrad", caps=caps_line(ec),
                    reduced=dict(warmup=[weighted_bench.WARMUP, 0], steps=[weighted_bench.STEPS, WEIGHTED_STEPS]),
                    groups=bench["groups"], routes=bench["routes"], step_ms=bench["step_ms"],
                    median_ms_per_step=bench["median_ms_per_step"],
@@ -3798,6 +4012,8 @@ def fullscale_child(argv=None, row_min: int = 0, rows_expected: int = FULLSCALE_
         fails.append(f"kernels never launched {missing} or onehot_fwd not once a step: {rec['launches']}")
     if any(rec["routes"].get(g) != "sorted" for g in big):
         fails.append(f"the 40M-row cold tiers' routes: {[rec['routes'].get(g) for g in big]}")
+    if not (rec["caps"]["valid"] and rec["caps"]["unique"]):
+        fails.append(f"no caps measured: {rec['caps']}")
     if not (past.get("touched_changed") == FAR_KEYS and past.get("untouched_bitwise")
             and past.get("forward_scaled_err", math.inf) <= TOL["bfloat16"]):
         fails.append(f"rows past row {row_min or 'the 2^31st element'}: {past}")
@@ -3813,7 +4029,9 @@ def fullscale_path(torch):
     """The full-vocabulary flagship (`tools/fullscale_dryrun.py`, bench.py's
     settings at vocab_cap 40,000,000: 204,184,588 rows, 52.3 GB of bf16
     tables) in a child process of its own, so that its memory comes back at
-    exit: 6 steps, a 4-batch eval, the child's checks."""
+    exit: 6 steps, a 4-batch eval, the child's checks; the caps measured on
+    the first batch with the JAX tool's headroom (1.25) and the routes
+    printed."""
     import gc
 
     gc.collect()
@@ -4114,12 +4332,14 @@ def scatter_ratio_path(torch):
     lc = ops.launch_counts()
     n_lookups = sum(len(g.lookups) for g in onehot)
     rec = dict(phase="scatter_ratio_path", card=card_line(), settings=dict(bench_settings(), onehot_scatter_ratio=2000),
-               onehot_tables=names, onehot_lookups=n_lookups, routes=dict(model.ec.group_routes), losses=losses,
+               onehot_tables=names, onehot_lookups=n_lookups, routes=dict(model.ec.group_routes),
+               caps=caps_line(model.ec), ordered_pool_per_step=lc["ordered_pool"] / 3, losses=losses,
                step_ms=[x * 1e3 for x in step_s], median_ms_per_step=statistics.median(step_s[1:]) * 1e3,
                launches=lc, max_memory_allocated=torch.cuda.max_memory_allocated(), seconds=time.perf_counter() - t0)
     emit(rec)
     if not ("20::hot" in names and "14" in names and all(math.isfinite(x) for x in losses)
-            and lc["onehot_fwd"] == 3 and lc["onehot_bwd"] == 3 * n_lookups):
+            and lc["onehot_fwd"] == 3 and lc["onehot_bwd"] == 3 * n_lookups
+            and lc["ordered_pool"] == 3 * 13 and set(model.ec.valid_caps) == SCATTER_RATIO_COMPACT):
         raise AssertionError(f"scatter-ratio path: {rec}")
     model._close_readers()
     return lc
@@ -4293,6 +4513,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     bench_launches = bench_path(torch)
     torch.cuda.empty_cache()
+    packed_launches = packed_path(torch)
+    torch.cuda.empty_cache()
     ratio_launches = scatter_ratio_path(torch)
     torch.cuda.empty_cache()
     benchmarks_launches = benchmarks_path(torch)
@@ -4396,6 +4618,7 @@ def main() -> int:
             weighted_case=weighted_case(results, name, weighted_launches),
             serving_path_launches=serving_launches[name], fullscale_path_launches=fullscale_launches[name],
             scatter_ratio_path_launches=ratio_launches[name], benchmarks_path_launches=benchmarks_launches[name],
+            packed_path_launches=packed_launches[name],
             **({"ratio_case": {k: ratio[name][k] for k in keys}} if name in ratio else {}),
             **({"chunked_case": {k: chunked[k] for k in keys}} if name == "onehot_fwd" else {}),
         ))
@@ -4405,13 +4628,20 @@ def main() -> int:
     # `ordered_pool_checks`; the E 64 and the
     # weighted cases stand in `column_case` and `weighted_case`)
     pool = [x for x in results if x["kernel"] == "ordered_pool" and "index_add_ms" in x
-            and not x["case"].startswith(("column_", "weighted_"))]
+            and not x["case"].startswith(("column_", "weighted_", "compact"))]
+    compact = {x["case"].split("_mp_")[0]: x for x in results if x["kernel"] == "ordered_pool"
+               and x["case"].startswith("compact")}
     r = max((x for x in pool if x["dtype"] == "float32"), key=lambda x: x["device_ms"])
     rb = max((x for x in pool if x["dtype"] == "bfloat16"), key=lambda x: x["device_ms"])
     kernels.append(dict(
         name="ordered_pool", route="cuda", source="hugectr_tpu_torch/csrc/ordered_pool.cu",
-        replaces="hugectr_tpu/embedding/collection.py:882-900 (the scatter-add of _mp_fwd_partitioned; no Pallas kernel)",
+        replaces="hugectr_tpu/embedding/collection.py:882-900, :1534-1545 (the scatter-adds of _mp_fwd_partitioned "
+                 "and _dp_fwd_compact; no Pallas kernel)",
         launches=hybrid_launches[0]["ordered_pool"], **{k: r[k] for k in keys},
+        bench_path_launches=bench_launches["ordered_pool"], packed_path_launches=packed_launches["ordered_pool"],
+        scatter_ratio_path_launches=ratio_launches["ordered_pool"],
+        compact_case={k: compact["compact"][k] for k in keys},
+        compact_packed_case={k: compact["compact_packed"][k] for k in keys},
         hybrid_path_launches=[x["ordered_pool"] for x in hybrid_launches],
         hybrid_hier_path_launches=[x["ordered_pool"] for x in hier_launches],
         hybrid_column_path_launches=[x["ordered_pool"] for x in column_launches],

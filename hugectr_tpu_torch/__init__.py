@@ -101,8 +101,6 @@ INERT_SOLVER_FIELDS = {
     "eval_intra_iteration_overlap": "a parity no-op (config.py:53-66)",
     "eval_inter_iteration_overlap": "a parity no-op (config.py:53-67)",
     "kafka_brockers": "no streaming parameter server (config.py:68)",
-    "unique_cap_factor": "exact in the JAX package: its unique-cap window falls back to the full list on "
-                         "overflow (config.py:84-85); the port updates the whole list",
     "segsum_mode": "exact either way for float32 tables: tests/test_pallas_segscan.py holds the scan equal to "
                    "segment_sum (config.py:86); the port's sorted route sums in float32 as 'xla' does "
                    "(with bfloat16 tables 'scan' raises)",

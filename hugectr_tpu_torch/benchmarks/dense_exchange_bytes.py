@@ -4,11 +4,13 @@
 Three cases of one model-parallel Concat lookup (hotness 20 and 100 into
 2,000,000 rows, hotness 10 into 100,000; dense_exchange_bytes.py:44-51) at
 batch 8,192, ev 128, bf16 tables, SGD, power-law keys (alpha 1.05, seed 7),
-run over 8 gloo ranks on the CPU. The JAX script takes each list's capacity
-C from `auto_unique_caps`, which the port leaves out; here C is explicit
-(`--caps`, the `dense_exchange_cap` setting), by default the least C that
-holds the batch's unique rows of every (batch block, owner shard) pair, so
-that no list overflows.
+run over 8 gloo ranks on the CPU. Each list's capacity C comes, as in the
+JAX script (dense_exchange_bytes.py:24, :62-70), from the caps the
+collection measures on the case's batch (`unique_cap_factor="auto"` with
+the default headroom of 1.25: `auto_unique_caps`, which every rank runs on
+the whole batch), or is given (`--caps`, the `dense_exchange_cap` setting).
+The line also gives the least C that holds the batch's unique rows of every
+(batch block, owner shard) pair, under which a list would overflow.
 
 Each rank runs one forward and one update on the exchange and reads
 `core/mesh.py`'s `COLLECTIVE_BYTES` around each: the all_to_all buffers
@@ -75,16 +77,20 @@ def formula(batch: int, hot: int, cap: int, world: int, ev: int = EV) -> Dict[st
 
 
 def rank_fn(rm, inputs) -> Dict[str, Any]:
-    """One rank: the case's collection with the exchange at cap C, one
-    forward and one SGD update of this rank's block; the bytes of each
-    collective around each, and whether the exchange path ran."""
+    """One rank: the case's collection with the exchange at cap C (0: the
+    cap measured on the whole batch), one forward and one SGD update of
+    this rank's block; the bytes of each collective around each, the cap
+    and whether the exchange path ran."""
     hot, vocab, cap, ev = (int(inputs[k]) for k in ("hot", "vocab", "cap", "ev"))
     keys = torch.as_tensor(inputs["keys"])
     t = EmbeddingTableConfig(name="t", max_vocabulary_size=vocab, ev_size=ev)
     plan = compile_plan([LookupConfig(0, t, "f", "e", Combiner_t.Concat, hot)], ShardingPlan([("mp", ["t"])]),
                         rm.data_parallel_size)
     ec = EmbeddingCollection(plan, rm, OptParams(Optimizer_t.SGD, lr=0.1), dtype=torch.bfloat16,
-                             dense_exchange_cap=cap)
+                             dense_exchange_cap=cap, unique_cap_factor="auto")
+    if not cap:
+        ec.auto_unique_caps({"f": np.asarray(inputs["keys"])})
+    (g,) = ec.plan.groups
     tables = ec.init(rm.generator(0))
     state = ec.init_optimizer(tables)
     b = keys.shape[0] // rm.data_parallel_size
@@ -98,19 +104,21 @@ def rank_fn(rm, inputs) -> Dict[str, Any]:
     names = sorted(set(fwd) | set(bwd))
     return dict(names=np.asarray(names), fwd=np.asarray([fwd.get(n, 0) for n in names], np.int64),
                 bwd=np.asarray([bwd.get(n, 0) for n in names], np.int64),
-                finite=np.asarray(bool(torch.isfinite(out.float()).all())))
+                finite=np.asarray(bool(torch.isfinite(out.float()).all())),
+                cap=np.asarray(ec._dense_exchange_cap(g.name)), gate=np.asarray(ec._dense_exchange_ok(g)))
 
 
 def run_case(name: str, hot: int, vocab: int, batch: int, world: int, cap: int = 0, seed: int = SEED,
              keys: Optional[np.ndarray] = None) -> Dict[str, Any]:
-    """One case over `world` gloo ranks on the CPU; `cap` 0 takes
-    `least_cap` of the keys."""
+    """One case over `world` gloo ranks on the CPU; `cap` 0 takes the cap
+    the ranks measure."""
     from hugectr_tpu_torch.tools import hybrid
 
     if keys is None:
         keys = case_keys(np.random.default_rng(seed), batch, hot, vocab)
-    cap = cap or least_cap(keys, world)
     res = hybrid.run(rank_fn, world, dict(hot=hot, vocab=vocab, cap=cap, ev=EV, keys=keys), device="cpu")
+    measured = not cap
+    cap = int(res[0]["cap"])
     names = [str(n) for n in res[0]["names"]]
     per_rank = [{p: dict(zip(names, (int(x) for x in r[p]))) for p in ("fwd", "bwd")} for r in res]
     ring = (world - 1) / world
@@ -118,6 +126,8 @@ def run_case(name: str, hot: int, vocab: int, batch: int, world: int, cap: int =
     bwd_a2a = max(r["bwd"].get("all_to_all", 0) for r in per_rank)
     f = formula(batch, hot, cap, world)
     return dict(case=name, batch=batch, hotness=hot, vocab=vocab, world=world, ev=EV, cap=cap,
+                cap_measured=measured, least_cap=least_cap(keys, world),
+                caps_alike=all(int(r["cap"]) == cap for r in res), gate_open=all(bool(r["gate"]) for r in res),
                 exchange_ran=fwd_a2a > 0 and bwd_a2a > 0, finite=all(bool(r["finite"]) for r in res),
                 collective_bytes_rank0=per_rank[0], all_ranks_alike=all(r == per_rank[0] for r in per_rank),
                 measured_fwd_ring_bytes=ring * fwd_a2a, measured_bwd_ring_bytes=ring * bwd_a2a,
@@ -129,7 +139,7 @@ def run_case(name: str, hot: int, vocab: int, batch: int, world: int, cap: int =
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=BATCH)
-    ap.add_argument("--caps", default="", help="C of each case, comma-separated (default: the least that fits)")
+    ap.add_argument("--caps", default="", help="C of each case, comma-separated (default: the measured caps)")
     args = ap.parse_args(argv)
     caps = [int(c) for c in args.caps.split(",")] if args.caps else [0] * len(CASES)
     rng = np.random.default_rng(SEED)  # one stream over the cases, as the JAX script draws them

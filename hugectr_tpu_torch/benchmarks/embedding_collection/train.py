@@ -23,7 +23,10 @@ table (train.py:75). Its optimizer is `HCTR_BENCH_OPT` when set, else
 `--state_dtype`, `--hot_rows` and `--superhot_rows` are the settings the
 JAX README's measured table pins through its environment
 (HCTR_TPU_EMB_DTYPE, _EMB_STATE_DTYPE, _HOT_ROWS, _SUPERHOT_ROWS), here
-`Solver` fields; its HCTR_TPU_UCAP_FACTOR has no counterpart.
+`Solver` fields, and so is `--ucap` (its HCTR_TPU_UCAP_FACTOR=auto, the
+README's command, benchmarks/embedding_collection/README.md:21-24: the caps
+measured on the first batch with the default headroom of 1.25; `0` turns
+them off).
 
 Usage (on the card; `--device cpu` runs it on the CPU; over W ranks start
 it with torchrun):
@@ -78,6 +81,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--state_dtype", default="float32", choices=("float32", "bfloat16"))
     ap.add_argument("--hot_rows", type=int, default=0)
     ap.add_argument("--superhot_rows", type=int, default=0)
+    ap.add_argument("--ucap", default="auto", help="the unique-cap factor: auto (the README's), 0, or in (0, 1)")
     ap.add_argument("--device", default=None, help="the card unless 'cpu'")
     return ap
 
@@ -85,7 +89,7 @@ def parser() -> argparse.ArgumentParser:
 def engine_kwargs(args) -> Dict[str, object]:
     """The `Solver` fields of the pinned settings."""
     return dict(embedding_vec_dtype=args.emb_dtype, embedding_state_dtype=args.state_dtype,
-                hot_rows=args.hot_rows, superhot_rows=args.superhot_rows)
+                hot_rows=args.hot_rows, superhot_rows=args.superhot_rows, unique_cap_factor=args.ucap)
 
 
 def build_synthetic(rm: ResourceManager, case: str, batchsize: int, vocab_cap: int, ev_size: int, alpha: float,

@@ -8,8 +8,12 @@ A step is the bench's: the collection's forward, then the fused update from
 fixed cotangents. `--warmup` steps (3, as the bench), then `--steps` (20)
 timed ones, each synchronised; one JSON line a case: ex/s over the timed
 steps, median ms/step, the groups and routes, the card's name and power
-limit, and the peak device memory. The bench's HCTR_TPU_UCAP_* settings
-have no counterpart.
+limit, and the peak device memory. As the bench (weighted_bench.py:12-13,
+:69), the collection measures its caps on the case's batch
+(`unique_cap_factor="auto"`, headroom 1.05; `tools/weighted.py::BENCH_UCAP`):
+a group with a valid cap pools by the compact forward (the weighted ordered
+pool) and counts its measured keys in the key-ratio rule. The line gives
+the caps.
 
     python -m hugectr_tpu_torch.benchmarks.weighted_bench [--device cpu --batch 256 --vocab 20000]
 """
@@ -37,8 +41,10 @@ def run_case(rm: ResourceManager, tiers: bool, steps: int = STEPS, warmup: int =
     (a caller's counters), then `steps` timed steps. Returns the record and,
     under "ec", "tables", "state", "keys", "w", the collection and its
     inputs."""
-    keys, w, d = (torch.as_tensor(a, device=rm.device) for a in wt.weighted_batch(seed, batch=batch, vocab=vocab))
-    ec = wt.weighted_collection(rm, tiers, vocab=vocab, **plan_kw)
+    host = wt.weighted_batch(seed, batch=batch, vocab=vocab)
+    keys, w, d = (torch.as_tensor(a, device=rm.device) for a in host)
+    ec = wt.weighted_collection(rm, tiers, vocab=vocab, ucap=wt.BENCH_UCAP, **plan_kw)
+    ec.auto_unique_caps({"f": host[0]})
     tables = ec.init(rm.generator(0))
     state = ec.init_optimizer(tables)
     if warmup:
@@ -49,7 +55,8 @@ def run_case(rm: ResourceManager, tiers: bool, steps: int = STEPS, warmup: int =
     rec = dict(tiers=tiers, table_rows=vocab, ev=wt.EV, hotness=wt.HOT, batch=batch, dtype="bfloat16",
                optimizer="rowwise_adagrad", steps=steps, warmup=warmup,
                groups={g.name: [g.compute_kind, g.total_local_rows] for g in ec.plan.groups},
-               routes=dict(ec.group_routes), step_ms=run["step_ms"], median_ms_per_step=run["median_ms_per_step"],
+               routes=dict(ec.group_routes), caps=ec.measured_caps(),
+               step_ms=run["step_ms"], median_ms_per_step=run["median_ms_per_step"],
                examples_per_sec=steps * batch / (sum(run["step_ms"]) / 1e3), **card_info(rm.device))
     return dict(record=rec, ec=ec, tables=tables, state=state, keys=keys, w=w)
 

@@ -104,6 +104,25 @@ class Solver:
     # (HCTR_TPU_DENSE_EXCHANGE and _CAP, collection.py:203-208)
     dense_exchange: bool = True
     dense_exchange_cap: int = 0
+    # ---- the unique-row windows and the packed layouts (the JAX Solver's
+    # unique_cap_factor, config.py:84-91, and HCTR_TPU_UCAP_HEADROOM,
+    # _UCAP_MIN_K, _UCAP_DROP, _PACKED_STATE, _ROWWISE_PACK,
+    # collection.py:146-172): "auto" measures each group's caps on the
+    # first batch (unique rows, valid keys, dense-exchange lists) times
+    # ucap_headroom, which sends a group with a valid cap to the compact
+    # forward and counts its measured keys in the key-ratio rule; a factor
+    # in (0, 1) windows the update's unique rows at K x factor (lists of at
+    # least ucap_min_k keys); the windows are exact, but with ucap_drop the
+    # rows past the window lose their gradients; 0 turns them off
+    unique_cap_factor: Any = 0.0
+    ucap_headroom: float = 1.25
+    ucap_min_k: int = 0
+    ucap_drop: bool = False
+    # AdaGrad groups keep table and accumulators in one [R, 2E] array
+    packed_state: bool = False
+    # RowWiseAdaGrad groups of more than dense_update_rows rows keep their
+    # accumulator as column E of an [R, E + 1] table
+    rowwise_pack: bool = False
     # ---- the mesh (config.py:74-75; `ResourceManager.create`): the
     # ("data", "ev") mesh of ev_parallelism e, or the hierarchical ("dcn",
     # "ici") mesh of num_slices slices; exclusive
@@ -118,6 +137,10 @@ class Solver:
         self.metrics_spec = {Metric_t(k): v for k, v in self.metrics_spec.items()}
         if self.mp_capacity_factor is None:  # the JAX Solver's "unset"
             self.mp_capacity_factor = 0.0
+        if self.unique_cap_factor is None:
+            self.unique_cap_factor = 0.0
+        if self.unique_cap_factor != "auto":
+            self.unique_cap_factor = float(self.unique_cap_factor)
         if self.mp_capacity_factor < 0 or self.dense_exchange_cap < 0:
             raise ValueError("mp_capacity_factor and dense_exchange_cap must not be negative")
 
@@ -372,11 +395,13 @@ class DenseLayer:
 # Solver fields of the port that the JAX package keeps in its environment
 # (HCTR_TPU_EMB_STATE_DTYPE, _SUPERHOT_ROWS, _WARM_ROWS, _AUC_EXACT_MAX,
 # _SHARD_ROTATION, _FWD_PARTITION, _DENSE_EXCHANGE, _DENSE_EXCHANGE_CAP,
-# _ONEHOT_SCATTER_RATIO, _ONEHOT_SCATTER_MAXV, _DENSE_GRAD_DTYPE); a graph
-# file holds them apart from the solver's
+# _ONEHOT_SCATTER_RATIO, _ONEHOT_SCATTER_MAXV, _DENSE_GRAD_DTYPE,
+# _UCAP_HEADROOM, _UCAP_MIN_K, _UCAP_DROP, _PACKED_STATE, _ROWWISE_PACK); a
+# graph file holds them apart from the solver's
 PORT_SOLVER_SETTINGS = ("embedding_state_dtype", "superhot_rows", "warm_rows", "auc_exact_max",
                         "shard_rotation", "fwd_partition", "dense_exchange", "dense_exchange_cap",
-                        "onehot_scatter_ratio", "onehot_scatter_maxv", "dense_grad_dtype")
+                        "onehot_scatter_ratio", "onehot_scatter_maxv", "dense_grad_dtype",
+                        "ucap_headroom", "ucap_min_k", "ucap_drop", "packed_state", "rowwise_pack")
 
 
 class Layer_t:

@@ -1,12 +1,17 @@
-// Ordered pooling of the owner-partitioned forward over W ranks.
+// Ordered pooling of the owner-partitioned forward over W ranks, and of the
+// compact forward of a group with a measured valid cap.
 //
 // Replaces no Pallas kernel. The JAX package's default forward of a
 // model-parallel rowop group at W > 1 (hugectr_tpu/embedding/collection.py
 // _mp_fwd_partitioned, :867-936) pools the rows this rank's shard owns with
-// a scatter-add in the table's type; XLA adds a scatter's updates in the
-// order of the update list and rounds after each add, and the list is
-// sorted by row. So the result depends on that order, and index_add_'s
-// atomics (an order that changes from run to run) cannot give it.
+// a scatter-add in the table's type, and its forward of a group with a
+// measured valid cap (_dp_fwd_compact, :1496-1564) pools the group's valid
+// keys the same way; XLA adds a scatter's updates in the order of the update
+// list and rounds after each add, and the list is sorted by row. So the
+// result depends on that order, and index_add_'s atomics (an order that
+// changes from run to run) cannot give it. A packed table-and-state row is
+// longer than E: the kernel reads its first E columns through the row
+// stride ld.
 //
 //   out[s, :] = (((0 + table[rows[b]]) + table[rows[b + 1]]) + ...)
 //   over j in [b, e) = [offsets[s], offsets[s + 1]) up to the first row id
@@ -54,7 +59,7 @@ __device__ __forceinline__ float round_to(float x, __nv_bfloat16*) {
 
 template <typename T, int kVec, bool kWeighted>
 __global__ void __launch_bounds__(kThreads) ordered_pool_kernel(const T* __restrict__ table, int64_t n_rows,
-                                                                const int64_t* __restrict__ rows,
+                                                                int64_t ld, const int64_t* __restrict__ rows,
                                                                 const float* __restrict__ w,
                                                                 const int64_t* __restrict__ offsets,
                                                                 T* __restrict__ out, int64_t n_slots, int e) {
@@ -71,7 +76,7 @@ __global__ void __launch_bounds__(kThreads) ordered_pool_kernel(const T* __restr
       const int64_t r = rows[j];
       if (r >= n_rows) break;  // the rest of the slot is keys this rank does not pool
       float x[kVec];
-      load_vec<kVec>(table + r * e + c, x);
+      load_vec<kVec>(table + r * ld + c, x);
       if constexpr (kWeighted) {
         const float wj = round_to(w[j], static_cast<T*>(nullptr));
 #pragma unroll
@@ -85,28 +90,28 @@ __global__ void __launch_bounds__(kThreads) ordered_pool_kernel(const T* __restr
 }
 
 template <typename T, bool kWeighted>
-void launch_w(const T* t, int64_t n_rows, const int64_t* r, const float* w, const int64_t* o, T* y,
+void launch_w(const T* t, int64_t n_rows, int64_t ld, const int64_t* r, const float* w, const int64_t* o, T* y,
               int64_t n_slots, int e, int vec, cudaStream_t s) {
   const unsigned blocks = static_cast<unsigned>((n_slots + kWarps - 1) / kWarps);
   if (vec == 4) {
-    ordered_pool_kernel<T, 4, kWeighted><<<blocks, kThreads, 0, s>>>(t, n_rows, r, w, o, y, n_slots, e);
+    ordered_pool_kernel<T, 4, kWeighted><<<blocks, kThreads, 0, s>>>(t, n_rows, ld, r, w, o, y, n_slots, e);
   } else {
-    ordered_pool_kernel<T, 1, kWeighted><<<blocks, kThreads, 0, s>>>(t, n_rows, r, w, o, y, n_slots, e);
+    ordered_pool_kernel<T, 1, kWeighted><<<blocks, kThreads, 0, s>>>(t, n_rows, ld, r, w, o, y, n_slots, e);
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* table, int64_t n_rows, const void* rows, const void* weights, const void* offsets,
-                   void* out, int64_t n_slots, int e, int vec, cudaStream_t s) {
+cudaError_t launch(const void* table, int64_t n_rows, int64_t ld, const void* rows, const void* weights,
+                   const void* offsets, void* out, int64_t n_slots, int e, int vec, cudaStream_t s) {
   const T* t = static_cast<const T*>(table);
   const int64_t* r = static_cast<const int64_t*>(rows);
   const float* w = static_cast<const float*>(weights);
   const int64_t* o = static_cast<const int64_t*>(offsets);
   T* y = static_cast<T*>(out);
   if (w != nullptr) {
-    launch_w<T, true>(t, n_rows, r, w, o, y, n_slots, e, vec, s);
+    launch_w<T, true>(t, n_rows, ld, r, w, o, y, n_slots, e, vec, s);
   } else {
-    launch_w<T, false>(t, n_rows, r, w, o, y, n_slots, e, vec, s);
+    launch_w<T, false>(t, n_rows, ld, r, w, o, y, n_slots, e, vec, s);
   }
   return cudaGetLastError();
 }
@@ -114,17 +119,19 @@ cudaError_t launch(const void* table, int64_t n_rows, const void* rows, const vo
 }  // namespace
 }  // namespace hctr
 
-// table [n_rows, e] of `dtype`; rows [K] int64, each slot's rows in order,
-// ids >= n_rows last; weights [K] float32 aligned with rows, or null;
-// offsets [n_slots + 1] int64; out [n_slots, e] of `dtype`. `vec` is 4 when
-// e % 4 == 0 and table and out are aligned to 4 elements, else 1. Returns
-// cudaGetLastError().
-extern "C" int hctr_ordered_pool(int dtype, const void* table, int64_t n_rows, const void* rows, const void* weights,
-                                 const void* offsets, void* out, int64_t n_slots, int e, int vec, void* stream) {
+// table [n_rows, e] of `dtype`, row r at table + r * ld (ld >= e: the
+// first e columns of a packed table-and-state row); rows [K] int64, each
+// slot's rows in order, ids >= n_rows last; weights [K] float32 aligned with
+// rows, or null; offsets [n_slots + 1] int64; out [n_slots, e] of `dtype`.
+// `vec` is 4 when e % 4 == 0, ld % 4 == 0 and table and out are aligned to 4
+// elements, else 1. Returns cudaGetLastError().
+extern "C" int hctr_ordered_pool(int dtype, const void* table, int64_t n_rows, int64_t ld, const void* rows,
+                                 const void* weights, const void* offsets, void* out, int64_t n_slots, int e,
+                                 int vec, void* stream) {
   if (n_slots == 0 || e == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == hctr::kBF16) {
-    return hctr::launch<__nv_bfloat16>(table, n_rows, rows, weights, offsets, out, n_slots, e, vec, s);
+    return hctr::launch<__nv_bfloat16>(table, n_rows, ld, rows, weights, offsets, out, n_slots, e, vec, s);
   }
-  return hctr::launch<float>(table, n_rows, rows, weights, offsets, out, n_slots, e, vec, s);
+  return hctr::launch<float>(table, n_rows, ld, rows, weights, offsets, out, n_slots, e, vec, s);
 }

@@ -106,11 +106,12 @@ collective runs over the rank's data group (`rm.data_group`):
   :1976); a `capacity_factor` > 0 keeps the first `capacity(K, factor, f)`
   entries of the sorted list (`sparse_optimizer.apply_sparse`'s
   `k_limit`);
-* the unique-key dense exchange (`dense_exchange_cap` > 0, the JAX
-  package's HCTR_TPU_DENSE_EXCHANGE_CAP; HugeCTR's
-  DenseModelParallelEmbedding, collection.py:953-1195) takes a static
-  all-Concat model-parallel group at full placement with no frozen table
-  (`_dense_exchange_ok`): every rank derives the same sorted-unique row
+* the unique-key dense exchange (HugeCTR's DenseModelParallelEmbedding,
+  collection.py:953-1195) takes a static all-Concat model-parallel group
+  at full placement, not packed and with no frozen table, whose list
+  length C is set: explicitly (`dense_exchange_cap`, the JAX package's
+  HCTR_TPU_DENSE_EXCHANGE_CAP) or by the measured caps
+  (`dense_exchange_caps`) (`_dense_exchange_ok`): every rank derives the same sorted-unique row
   lists of each (batch block, owner shard) from the gathered keys; the
   forward's owner gathers its rows of every list and `all_to_all` hands
   each block its vectors, placed by a `searchsorted`; the backward sums
@@ -159,10 +160,28 @@ read and write a table (or any per-row array laid out as the storage, such
 as a state, or a key store) in key order whatever W and f are (collectives
 on every rank); `export_rows` keeps the storage's dtype (bfloat16 tables
 in snapshots).
-Not ported over W > 1 ranks (ROADMAP Queue 1 item 1): the measured caps
-of the JAX package's `auto_unique_caps` (:1996-2092), so the dense
-exchange opens only with an explicit cap and the partitioned forward
-gathers the whole owned prefix.
+The measured caps (HCTR_TPU_UCAP_FACTOR=auto, `unique_cap_factor="auto"`;
+`auto_unique_caps`, collection.py:1996-2092), taken once on the first batch
+the model sees: `unique_caps` and `valid_caps` window the update (exact,
+except in the drop mode: `sparse_optimizer.apply_sparse`), a valid cap
+turns the key-ratio rule on for a windowed group and counts the measured
+keys (`_opt_knobs`, :1962-1994), sends a group's forward to the compact
+form (the ordered pool of its valid keys, :1454-1564), and over W ranks
+`dense_exchange_caps` open the dense exchange. Over W ranks the model
+gathers the ranks' first batches with one collective and every rank
+measures the whole batch, as the JAX package's one process over a mesh of
+W devices does; its multi-process run measures each process's share and
+scales the global counts by the process count P (:2056-2076), bounds that
+the one-process measurement does not need.
+
+Packed table-and-state storage (`packed_state`: AdaGrad's [R, 2E];
+`rowwise_pack`: RowWiseAdaGrad's [R, E + 1], groups of more than
+`dense_update_rows` rows; collection.py:254-286): a group's table holds its
+accumulators in trailing columns and its `opt_state` entry is empty. The
+forward reads the first E columns (`_weights`), the update takes the
+sorted route (`sparse_optimizer`), the dense exchange is shut (:971), and
+`export_rows` / `import_table` read and write the weights and keep the
+accumulators.
 
 `route_counts` counts, per route ("onehot", "dense", "sorted", "scatter"),
 the groups updated since the collection was built; `group_routes` holds
@@ -189,7 +208,7 @@ from ..core.mesh import (
     hier_reduce_scatter,
     reduce_scatter,
 )
-from ..core.types import INVALID_KEY, Combiner_t, CommunicationStrategy
+from ..core.types import INVALID_KEY, Combiner_t, CommunicationStrategy, Optimizer_t
 from ..ops.onehot_matmul import (
     MAX_GROUP_LOOKUPS,
     GroupLookup,
@@ -333,6 +352,13 @@ class EmbeddingCollection:
         capacity_factor: float = 0.0,
         dense_exchange_cap: int = 0,
         comm_strategy: CommunicationStrategy = CommunicationStrategy.Uniform,
+        dense_exchange: bool = True,
+        unique_cap_factor=0.0,
+        ucap_headroom: float = 1.25,
+        ucap_min_k: int = 0,
+        ucap_drop: bool = False,
+        packed_state: bool = False,
+        rowwise_pack: bool = False,
     ):
         for what, dt in (("tables", dtype), ("optimizer state", state_dtype), ("the dense gradient", dense_grad_dtype)):
             if dt not in (torch.float32, torch.bfloat16):
@@ -366,13 +392,35 @@ class EmbeddingCollection:
         # is the exchange off, as HCTR_TPU_DENSE_EXCHANGE=0)
         self.fwd_partition = fwd_partition
         self.capacity_factor = capacity_factor
+        self.dense_exchange = dense_exchange
         self.dense_exchange_cap = dense_exchange_cap
+        # the unique-row windows (HCTR_TPU_UCAP_FACTOR, _HEADROOM, _MIN_K and
+        # _DROP, collection.py:146-168): "auto" measures the caps on the
+        # first batch (`auto_unique_caps`), a factor in (0, 1) sizes the
+        # window from the key list
+        self.ucap_auto = unique_cap_factor == "auto"
+        self.ucap_factor = 0.0 if self.ucap_auto else float(unique_cap_factor or 0.0)
+        self.ucap_headroom = float(ucap_headroom)
+        self.ucap_min_k = int(ucap_min_k)
+        self.ucap_drop = bool(ucap_drop)
+        self.unique_caps: Dict[str, int] = {}
+        self.valid_caps: Dict[str, int] = {}
+        self.dense_exchange_caps: Dict[str, int] = {}
+        # set once `auto_unique_caps` ran, even when it measured no cap
+        self.ucap_measured = False
+        # the rows the drop mode dropped since the collection was built
+        self.ucap_stats: Dict[str, int] = collections.Counter()
+        self.packed_state = bool(packed_state)
+        self.rowwise_pack = bool(rowwise_pack)
         # what a recompile (`grow_dynamic_capacity`) builds the new collection with
         self._settings = dict(dtype=dtype, dense_update_rows=dense_update_rows, dense_key_ratio=dense_key_ratio,
                               dense_grad_dtype=dense_grad_dtype,
                               state_dtype=state_dtype, fwd_partition=fwd_partition,
                               capacity_factor=capacity_factor, dense_exchange_cap=dense_exchange_cap,
-                              comm_strategy=comm_strategy)
+                              comm_strategy=comm_strategy, dense_exchange=dense_exchange,
+                              unique_cap_factor=unique_cap_factor, ucap_headroom=ucap_headroom,
+                              ucap_min_k=ucap_min_k, ucap_drop=ucap_drop, packed_state=packed_state,
+                              rowwise_pack=rowwise_pack)
         self._meta = {g.name: _GroupMeta(g, self.device, self.rank) for g in plan.groups}
         self.group_opt: Dict[str, OptParams] = {}
         for g in plan.groups:
@@ -382,6 +430,8 @@ class EmbeddingCollection:
                     f"group {g.name}: tables with different opt_params must not share a group"
                 )
             self.group_opt[g.name] = next(iter(opts.values())) if opts else opt
+        self.packed_kind = self._compute_packed_kind(plan)
+        self.packed_groups = set(self.packed_kind)
         self.route_counts: Dict[str, int] = collections.Counter()
         self.group_routes: Dict[str, str] = {}
         # tables that take no update (`Model.freeze_embedding`)
@@ -390,6 +440,29 @@ class EmbeddingCollection:
             for g in plan.groups:
                 if self._replicated(g):
                     rm.replica_group(self._meta[g.name].num_shards)
+
+    def _compute_packed_kind(self, plan: CompiledEmbeddingPlan) -> Dict[str, str]:
+        """{group: "full" | "rowwise"}: the groups whose optimizer state
+        lives in trailing columns of the table (collection.py:254-286).
+        "full" ([R, 2E], `packed_state`): every AdaGrad rowop group;
+        "rowwise" ([R, E + 1], `rowwise_pack`): every static RowWiseAdaGrad
+        rowop group of more than `dense_update_rows` rows."""
+        out: Dict[str, str] = {}
+        for g in plan.groups:
+            if g.compute_kind != "rowop":
+                continue
+            kind = self.group_opt[g.name].optimizer
+            if self.packed_state and kind == Optimizer_t.AdaGrad:
+                out[g.name] = "full"
+            elif (self.rowwise_pack and kind == Optimizer_t.RowWiseAdaGrad
+                  and not bool(g.slot_is_dynamic.any()) and g.total_local_rows > self.dense_update_rows):
+                out[g.name] = "rowwise"
+        return out
+
+    def _weights(self, gname: str, table: torch.Tensor) -> torch.Tensor:
+        """The [R, E] weights of a group's storage: a view of the first E
+        columns of a packed group's (`_weights_view`, collection.py:383)."""
+        return table[:, : self._meta[gname].plan.ev_size] if gname in self.packed_groups else table
 
     def _is_frozen(self, table_name: str) -> bool:
         """A frozen table, or a tier `name::tier` of a frozen split table
@@ -406,7 +479,9 @@ class EmbeddingCollection:
         tiles the f shards' base rows over the replicas, :305-318);
         replicated groups come from `generator`, alike on every rank. A
         group with dynamic tables also gets its empty key store
-        `"{group}#keys"` (collection.py:329-341)."""
+        `"{group}#keys"` (collection.py:329-341). A packed group's storage
+        carries its accumulators, at the optimizer's initial value, in E or
+        1 more columns (:320-326)."""
         seed = None
         if self.world > 1:
             seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
@@ -420,6 +495,11 @@ class EmbeddingCollection:
             t.uniform_(-1.0, 1.0, generator=gen)
             scales = torch.as_tensor(self._row_init_scales(g), device=self.device)
             tables[g.name] = t.mul_(scales.unsqueeze(1).to(self.dtype))
+            packed = self.packed_kind.get(g.name)
+            if packed:
+                accu0 = float(self.group_opt[g.name].initial_accu_value)
+                acc = t.new_full((t.shape[0], g.ev_size if packed == "full" else 1), accu0)
+                tables[g.name] = torch.cat([t, acc], dim=1)
             if self._meta[g.name].any_dynamic:
                 tables[f"{g.name}#keys"] = torch.full(
                     (g.total_local_rows,), EMPTY_KEY, dtype=torch.int32, device=self.device
@@ -436,8 +516,10 @@ class EmbeddingCollection:
         return scales
 
     def init_optimizer(self, tables: Tables) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Each group's optimizer state (collection.py:355); none for a
+        packed group, whose table holds it."""
         return {
-            g.name: sparse_optimizer.init_state(
+            g.name: {} if g.name in self.packed_groups else sparse_optimizer.init_state(
                 self.group_opt[g.name], g.total_local_rows, g.ev_size,
                 self.state_dtype, self.device,
             )
@@ -662,18 +744,28 @@ class EmbeddingCollection:
                 keys = self._all_gather(keys_loc)
                 weights = self._all_gather(w_loc) if w_loc is not None else None
                 store = tables.get(f"{g.name}#keys")
+                table = self._weights(g.name, tables[g.name])
                 dense_ex = self._dense_exchange_ok(g)
                 lists = self._dense_lists(g.name, keys) if dense_ex else None
                 if lists is not None:
-                    go = self._mp_fwd_dense(g.name, tables[g.name], lists, keys_loc, w_loc)
+                    go = self._mp_fwd_dense(g.name, table, lists, keys_loc, w_loc)
                 elif self.fwd_partition and not dense_ex:
-                    go = self._scatter(self._mp_fwd_partitioned(g.name, tables[g.name], keys, store, weights))
+                    go = self._scatter(self._mp_fwd_partitioned(g.name, table, keys, store, weights))
                 else:  # the masked gather; the dense exchange's overflow branch too
-                    go = self._scatter(self._dp_fwd(g.name, tables[g.name], keys, store, weights))
+                    go = self._scatter(self._dp_fwd(g.name, table, keys, store, weights))
             else:
                 keys = self._group_keys(g, feature_keys)
-                go = self._dp_fwd(g.name, tables[g.name], keys, tables.get(f"{g.name}#keys"),
-                                  self._group_weights(g, feature_weights, keys))
+                table = self._weights(g.name, tables[g.name])
+                w = self._group_weights(g, feature_weights, keys)
+                vcap = self.valid_caps.get(g.name, 0)
+                # a measured valid cap below the batch's key list (the
+                # batch is W x the rank's block): the compact forward
+                # (`_dp_fwd`, collection.py:1460-1473)
+                if vcap and vcap < keys.numel() * self.world:
+                    go = self._mp_fwd_partitioned(g.name, table, keys, tables.get(f"{g.name}#keys"), w,
+                                                  cut=False)
+                else:
+                    go = self._dp_fwd(g.name, table, keys, tables.get(f"{g.name}#keys"), w)
             for lm in g.lookups:
                 outs[lm.top_name] = go[:, lm.out_begin : lm.out_end]
         return self._merge_outputs(outs, feature_keys, feature_weights)
@@ -798,7 +890,7 @@ class EmbeddingCollection:
         return valid
 
     def _pool_segments(self, gname: str, keys: torch.Tensor, sentinel: int, key_store=None,
-                       weights: Optional[torch.Tensor] = None):
+                       weights: Optional[torch.Tensor] = None, cut: bool = True):
         """(row ids, [B x S + 1] slot offsets) of the owner-partitioned
         forward's pool (`_mp_fwd_partitioned`, collection.py:867-916), the
         inputs of `ordered_pool`: slot b x S + gsrc[j] pools the local rows
@@ -810,7 +902,8 @@ class EmbeddingCollection:
         when every slot holds one key. With a capacity factor the (row,
         slot) pairs are stably sorted by row (lax.sort is stable), cut to
         `capacity(K, factor, W)` entries, dropping the owned keys past it,
-        and regrouped by slot (`segments`). With `weights` ([B, H]) a third
+        and regrouped by slot (`segments`); `cut` False (the compact
+        forward) never cuts. With `weights` ([B, H]) a third
         entry: each row id's weight, carried through stable sorts, so that
         equal rows of a slot keep their order, as lax.sort with the weights
         as a third operand keeps it (collection.py:884-888); else None."""
@@ -820,7 +913,7 @@ class EmbeddingCollection:
         mine = self._owned(meta, keys, valid, owner)
         bg, h = keys.shape
         idx = torch.where(mine, local_row, sentinel)
-        if self.capacity_factor > 0:
+        if cut and self.capacity_factor > 0:
             src = (torch.arange(bg, device=keys.device).unsqueeze(1) * g.grad_src_slots + meta.gsrc).reshape(-1)
             k = capacity(idx.numel(), self.capacity_factor, self.world)
             idx, perm = torch.sort(idx.reshape(-1), stable=True)
@@ -844,7 +937,7 @@ class EmbeddingCollection:
         return idx.reshape(-1), offsets, w
 
     def _mp_fwd_partitioned(self, gname: str, table: torch.Tensor, keys: torch.Tensor, key_store=None,
-                            weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            weights: Optional[torch.Tensor] = None, cut: bool = True) -> torch.Tensor:
         """This rank's [B, out_width] partial pools of the gathered keys by
         the owner-partitioned forward (collection.py:867-936, the JAX
         package's default at W > 1): gather only the owned rows and pool
@@ -855,9 +948,20 @@ class EmbeddingCollection:
         valid count (`_apply_mean_scaling`, :1212). Nothing waits for the
         card: the keys of other shards sort last in each slot and the kernel
         stops there. A weighted group's rows are scaled by their weights in
-        the kernel, in the table's type (:890-900)."""
+        the kernel, in the table's type (:890-900).
+
+        The JAX package's measured window (`valid_caps`, :904-930) pools a
+        prefix of the row-sorted list with an exact fallback, so it changes
+        no result; here each slot's row list ends at its first foreign key,
+        so there is no prefix to cut. With `cut` False this is the compact
+        forward of a group with a measured valid cap (`_dp_fwd_compact`,
+        :1496-1564), every valid key of the rank's batch owned: each slot
+        sums its rows in ascending row order, as the scatter-add of the
+        row-sorted valid prefix does (and in the order of the tier sort,
+        `_tier_sorted_rows`, :1758-1799, which sorts the raw keys: the same
+        rows, the same order)."""
         g = self._meta[gname].plan
-        rows, offsets, w = self._pool_segments(gname, keys, table.shape[0], key_store, weights)
+        rows, offsets, w = self._pool_segments(gname, keys, table.shape[0], key_store, weights, cut)
         pooled = ordered_pool(table, rows, offsets, w).reshape(keys.shape[0], g.grad_src_slots, g.ev_size)
         return self._mean_scaled(g, pooled, keys != INVALID_KEY, weights)
 
@@ -884,19 +988,29 @@ class EmbeddingCollection:
     # ------------------------------------- the unique-key dense exchange
     def _dense_exchange_ok(self, g: GroupPlan) -> bool:
         """The gate of the unique-key dense exchange (`_dense_exchange_ok`,
-        collection.py:953-983): a static all-Concat model-parallel rowop
-        group at full placement (f = W, no replicas) with no frozen table,
-        its cap set (the port has no measured caps, so only an explicit cap
-        opens it; `Solver.dense_exchange=False` hands the collection a cap
-        of 0), shut on the hierarchical and ("data", "ev") meshes (:969)."""
+        collection.py:953-957): the group's shape admits it and its cap is
+        set, explicitly or by `auto_unique_caps`."""
+        return self._dense_exchange_shape_ok(g) and self._dense_exchange_cap(g.name) > 0
+
+    def _dense_exchange_shape_ok(self, g: GroupPlan) -> bool:
+        """A static all-Concat model-parallel rowop group at full placement
+        (f = W, no replicas) over W > 1 ranks, neither packed nor holding a
+        frozen table, with the exchange on (`Solver.dense_exchange`), shut
+        on the hierarchical and ("data", "ev") meshes (collection.py:959-979)."""
         return (
-            self.dense_exchange_cap > 0 and self.world > 1
+            self.dense_exchange and self.world > 1
             and not self.rm.is_hierarchical and self.ev == 1
             and g.is_model_parallel and g.compute_kind == "rowop" and not self._meta[g.name].any_dynamic
             and g.num_shards == self.world and g.num_replicas == 1
+            and g.name not in self.packed_groups
             and all(lm.combiner == Combiner_t.Concat for lm in g.lookups)
             and not any(self._is_frozen(t.name) for t in g.tables)
         )
+
+    def _dense_exchange_cap(self, gname: str) -> int:
+        """The lists' length C: the explicit cap, else the measured one
+        (collection.py:981-984)."""
+        return self.dense_exchange_cap or self.dense_exchange_caps.get(gname, 0)
 
     def _dense_lists(self, gname: str, keys: torch.Tensor) -> Optional[torch.Tensor]:
         """[W, f, C] sorted-unique local-row lists per (batch block, owner
@@ -907,7 +1021,7 @@ class EmbeddingCollection:
         same one: one host sync per group and pass."""
         meta = self._meta[gname]
         g = meta.plan
-        f, cap, n = meta.num_shards, self.dense_exchange_cap, self.world
+        f, cap, n = meta.num_shards, self._dense_exchange_cap(gname), self.world
         r = g.total_local_rows
         valid, owner, local_row = self._slot_placement(gname, keys)
         kpb = (keys.shape[0] // n) * keys.shape[1]
@@ -970,7 +1084,7 @@ class EmbeddingCollection:
         rounded to the table's type, then `apply_sparse` over the [W x C]
         list with the key-ratio rule off. Returns the route."""
         g = self._meta[gname].plan
-        f, cap = self._meta[gname].num_shards, self.dense_exchange_cap
+        f, cap = self._meta[gname].num_shards, self._dense_exchange_cap(gname)
         flat, valid = self._dense_positions(gname, lists[self.rank], keys_loc)
         dk = d_loc.reshape(keys_loc.shape[0], g.hotness_total, g.ev_size)
         if w_loc is not None:
@@ -1072,9 +1186,8 @@ class EmbeddingCollection:
             self._dynamic_insert(meta, key_store, keys)
         idx, src, dsrc = self._row_grads(g.name, keys, d_group, key_store, weights)
         route = sparse_optimizer.apply_sparse(
-            opt, tables[g.name], state, idx, src, dsrc, lr,
-            dense_rows=self.dense_update_rows, dense_ratio=self._dense_ratio(g), step=step, k_limit=k_limit,
-            grad_dtype=self.dense_grad_dtype,
+            opt, tables[g.name], state, idx, src, dsrc, lr, step=step, k_limit=k_limit, stats=self.ucap_stats,
+            **self._opt_knobs(g),
         )
         if route in sparse_optimizer.ATOMIC_ROUTES and self._replicated(g):
             # atomic sums differ in their last bits from rank to rank: the
@@ -1093,14 +1206,85 @@ class EmbeddingCollection:
             return False
         return self.world // self._meta[g.name].num_shards * self.ev > 1
 
-    def _dense_ratio(self, g: GroupPlan) -> float:
-        """The key-ratio rule's ratio for a rowop group (`_opt_knobs`,
-        collection.py:1962-1980): off for a windowed group, whose key list
-        is mostly padding; a model-parallel group over f shards sees the
-        global key list but owns about 1/f of it, so it asks f x the keys."""
-        if any(lm.windowed for lm in g.lookups):
-            return 0.0
-        return self.dense_key_ratio * self._meta[g.name].num_shards
+    def _opt_knobs(self, g: GroupPlan) -> Dict:
+        """`apply_sparse`'s settings for a rowop group (`_opt_knobs`,
+        collection.py:1962-1994). The key-ratio rule counts the measured
+        valid keys where a cap was measured; without one it is off for a
+        windowed group, whose key list is mostly padding, and a
+        model-parallel group over f shards, which sees the global key list
+        but owns about 1/f of it, asks f x the keys."""
+        ratio = self.dense_key_ratio
+        vcap = self.valid_caps.get(g.name, 0)
+        if not vcap:
+            if any(lm.windowed for lm in g.lookups):
+                ratio = 0.0
+            else:
+                ratio *= self._meta[g.name].num_shards
+        return dict(dense_rows=self.dense_update_rows, dense_ratio=ratio, grad_dtype=self.dense_grad_dtype,
+                    ucap_factor=self.ucap_factor, ucap_min_k=self.ucap_min_k, ucap_drop=self.ucap_drop,
+                    ucap_cap=self.unique_caps.get(g.name, 0), valid_cap=vcap,
+                    packed=self.packed_kind.get(g.name, False))
+
+    def measured_caps(self) -> Dict[str, Dict[str, int]]:
+        """{"unique" | "valid" | "dense_exchange": {group: cap}}, the caps
+        `auto_unique_caps` measured (copies)."""
+        return dict(unique=dict(self.unique_caps), valid=dict(self.valid_caps),
+                    dense_exchange=dict(self.dense_exchange_caps))
+
+    def auto_unique_caps(self, feature_keys: Dict[str, np.ndarray]) -> None:
+        """Measure each static rowop group's caps on one batch
+        (HCTR_TPU_UCAP_FACTOR=auto, `auto_unique_caps`, collection.py:1996-2092):
+        `feature_keys` {bottom_name: [B, hotness]} is the host copy of the
+        whole batch (over W ranks, every rank's block gathered in rank
+        order). Per group and shard: the distinct owned rows (u) and the
+        owned valid keys (v), maxima over the shards, and where the dense
+        exchange's shape holds, the distinct owned rows of every (batch
+        block, owner shard) pair (de). Caps: `unique_caps` ceil512(u x
+        headroom), at least 512; `dense_exchange_caps` ceil128(de x
+        headroom), at least 128; `valid_caps` ceil512(v x headroom), at
+        least 512, kept only below 0.8 x the batch's key list. These are
+        the caps the JAX package's one process over a mesh of W devices
+        measures on the same batch."""
+        self.ucap_measured = True
+        for g in self.plan.groups:
+            if g.compute_kind != "rowop" or self._meta[g.name].any_dynamic:
+                continue
+            cols = []
+            for lm in g.lookups:
+                k = np.asarray(feature_keys[lm.bottom_name]).astype(np.int64)
+                if k.ndim == 1:
+                    k = k[:, None]
+                if lm.key_lo > 0 or lm.key_hi >= 0 or lm.key_shift:
+                    hi = lm.key_hi if lm.key_hi >= 0 else np.iinfo(np.int64).max
+                    k = np.where((k >= lm.key_lo) & (k < hi), k - lm.key_shift, int(INVALID_KEY))
+                cols.append(k)
+            keys = np.concatenate(cols, axis=1)
+            valid = keys != INVALID_KEY
+            f = g.num_shards if g.is_model_parallel else 1
+            kk = keys % np.asarray(g.slot_vocab, dtype=np.int64)[None, :]
+            owner = (kk + np.asarray(g.slot_rotation, dtype=np.int64)[None, :]) % f
+            local = kk // f + np.asarray(g.slot_local_offset, dtype=np.int64)[None, :]
+            gid = owner * int(g.total_local_rows) + local
+            u_max = v_max = de_max = 0
+            for sh in range(f):
+                own = valid & (owner == sh)
+                u_max = max(u_max, int(np.unique(gid[own]).size))
+                v_max = max(v_max, int(own.sum()))
+            n = self.world
+            if self._dense_exchange_shape_ok(g) and keys.shape[0] % n == 0:
+                bl = keys.shape[0] // n
+                for d in range(n):
+                    sl = slice(d * bl, (d + 1) * bl)
+                    for sh in range(f):
+                        own = valid[sl] & (owner[sl] == sh)
+                        de_max = max(de_max, int(np.unique(local[sl][own]).size))
+            h = self.ucap_headroom
+            self.unique_caps[g.name] = max(((int(u_max * h) + 511) // 512) * 512, 512)
+            if de_max > 0:
+                self.dense_exchange_caps[g.name] = max(((int(de_max * h) + 127) // 128) * 128, 128)
+            vcap = ((int(v_max * h) + 511) // 512) * 512
+            if vcap < 0.8 * keys.size:
+                self.valid_caps[g.name] = max(vcap, 512)
 
     def _onehot_grad(
         self, gname: str, table_dtype, keys: torch.Tensor, d_group: torch.Tensor,
@@ -1202,19 +1386,22 @@ class EmbeddingCollection:
         keys = np.arange(int(g.table_vocab[ti]), dtype=np.int64)
         return (keys + int(g.table_rotation[ti]) % f) % f, keys // f
 
-    def export_rows(self, tables: Tables, table_name: str) -> torch.Tensor:
+    def export_rows(self, tables: Tables, table_name: str, full: bool = False) -> torch.Tensor:
         """One table as a [vocab, ...] host tensor (a copy) in key order, in
         the storage's dtype, a split table put back together from its tiers
         (collection.py:2101). `tables` may be any {group: [rows, ...]}
         arrays laid out as the storage: a kind of optimizer state, or the
-        key stores under their groups' names. A sharded table is
-        all-gathered: every rank calls this together; ranks 0..f-1 hold its
-        f shards."""
+        key stores under their groups' names. A packed group's rows give
+        their first E columns, the weights (:2120-2121), or with `full` the
+        whole rows. A sharded table is all-gathered: every rank calls this
+        together; ranks 0..f-1 hold its f shards."""
         if table_name in self.plan.table_splits:
-            return torch.cat([self.export_rows(tables, sub) for sub, _off in self.plan.table_splits[table_name]])
+            return torch.cat([self.export_rows(tables, sub, full) for sub, _off in self.plan.table_splits[table_name]])
         g, ti = self._find_table(table_name)
         off, vocab = int(g.local_offsets[ti]), int(g.table_vocab[ti])
         src = tables[g.name].detach()
+        if not full and src.dim() == 2 and src.shape[1] > g.ev_size:
+            src = src[:, : g.ev_size]
         if self._meta[g.name].num_shards > 1:
             rps = int(g.rows_per_shard[ti])
             shards = self._all_gather(src[off : off + rps].contiguous()).cpu()
@@ -1232,8 +1419,10 @@ class EmbeddingCollection:
         """Write one table from a [vocab, ...] array or host tensor (a float
         array through float32, then rounded to the storage's type), a split
         table's rows into its tiers (collection.py:2124); `tables` as for
-        `export_rows`. A sharded table's rank writes its shard's keys: every
-        replica of a shard the same rows (:2142-2148)."""
+        `export_rows`. [vocab, E] values into a packed group's rows write
+        their weights and keep their accumulators (:2150-2155, `_import_packed_fn`).
+        A sharded table's rank writes its shard's keys: every replica of a
+        shard the same rows (:2142-2148)."""
         if table_name in self.plan.table_splits:
             subs = self.plan.table_splits[table_name]
             for i, (sub, off) in enumerate(subs):
@@ -1243,6 +1432,8 @@ class EmbeddingCollection:
         g, ti = self._find_table(table_name)
         off, vocab = int(g.local_offsets[ti]), int(g.table_vocab[ti])
         dst = tables[g.name]
+        if dst.dim() == 2 and dst.shape[1] > g.ev_size and values.ndim == 2 and values.shape[1] == g.ev_size:
+            dst = dst[:, : g.ev_size]
         if tuple(values.shape) != (vocab, *dst.shape[1:]):
             raise ValueError(
                 f"table {table_name}: expected {(vocab, *dst.shape[1:])}, got {tuple(values.shape)}"
@@ -1436,9 +1627,11 @@ class EmbeddingCollection:
         engine settings, strategy and shard counts), every static table's
         rows and state are copied by key, and every dynamic table's resident
         keys are re-inserted one by one into the new stores in row order
-        (shard by shard), each carrying its row and state. Rows no key holds
-        start from the new collection's init. Over W ranks every rank calls
-        this together."""
+        (shard by shard), each carrying its row and state (a packed group's
+        whole rows). Rows no key holds start from the new collection's init.
+        The measured caps of the groups that remain carry over
+        (collection.py:2593-2602). Over W ranks every rank calls this
+        together."""
         g, ti = self._find_table(table_name)
         if not g.tables[ti].is_dynamic:
             raise ValueError(f"{table_name} is not a dynamic table")
@@ -1467,13 +1660,16 @@ class EmbeddingCollection:
         new_ec = EmbeddingCollection(new_plan, self.rm, self.opt, **self._settings)
         new_ec.frozen_tables = set(self.frozen_tables)
         new_ec.group_opt.update({k: v for k, v in self.group_opt.items() if k in new_ec.group_opt})
+        for attr in ("unique_caps", "valid_caps", "dense_exchange_caps"):
+            setattr(new_ec, attr, {k: v for k, v in getattr(self, attr).items() if k in new_ec.group_opt})
+        new_ec.ucap_measured = self.ucap_measured
         new_tables = new_ec.init(torch.Generator(device=self.device).manual_seed(0))
         new_state = new_ec.init_optimizer(new_tables)
         for gg in self.plan.groups:
             for tt in gg.tables:
                 if tt.is_dynamic:
                     continue
-                new_ec.import_table(new_tables, tt.name, self.export_rows(tables, tt.name))
+                new_ec.import_table(new_tables, tt.name, self.export_rows(tables, tt.name, full=True))
                 ng, _nti = new_ec._find_table(tt.name)
                 for slot, arr in opt_state.get(gg.name, {}).items():
                     new_ec.import_table({ng.name: new_state[ng.name][slot]}, tt.name,

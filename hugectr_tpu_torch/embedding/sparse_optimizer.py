@@ -28,6 +28,26 @@ route adds the delta rounded to the table's type or sets the new value,
 :780-893). Adam's bias corrections are float32 scalars of the global step
 (:311-318).
 
+The unique-row windows (sparse_optimizer.py:238-251, :585-621, :645-659):
+the JAX package runs the update on a static prefix of `ucap` unique rows
+(a factor of the key list, or the cap `auto_unique_caps` measured) and on a
+prefix of `valid_cap` sorted keys, each with a fallback to the whole list
+when a batch overflows it, so both are exact and the port, whose shapes
+follow the batch, updates every unique row of the valid prefix. The one
+exception is the capacity-drop mode (`ucap_drop`, HCTR_TPU_UCAP_DROP,
+:590-594, :650-651): the rows past the first `ucap` sorted unique rows lose
+their gradients, the reference's comm-buffer semantics, and the port drops
+them too. The route rule counts the measured valid keys where there is a
+cap (`k_eff`, :440-447).
+
+Packed table-and-state storage (`packed`, :412-421, :661-749): "full" is
+AdaGrad's [R, 2E] (weights, then the accumulators), "rowwise"
+RowWiseAdaGrad's [R, E + 1] (the scalar accumulator as column E). Such a
+group takes the sorted route whatever its size (:447), and one add of the
+weights' delta and the accumulator's increment, each rounded to the
+table's type, updates the row: the stored accumulator is the table's type
+and takes the increment rounded once more than separate state does.
+
 The JAX package returns new arrays; the port updates tables and state in
 place, which saves a table-sized copy per group and step. Every row a
 formula reads is gathered before any row is written. Out-of-range indices
@@ -217,20 +237,63 @@ def _apply_rows(
         state[k].index_copy_(0, uidx, v.to(state[k].dtype))
 
 
+def unique_cap(k: int, factor: float = 0.0, min_k: int = 0) -> int:
+    """The unique-row window of a k-key list (sparse_optimizer.py:238):
+    k x factor rounded up to a multiple of 512, at most k; 0 (no window) for
+    a factor outside (0, 1) or a list shorter than `min_k`."""
+    if factor <= 0 or factor >= 1:
+        return 0
+    if min_k and k < min_k:
+        return 0
+    return min(k, ((int(k * factor) + 511) // 512) * 512)
+
+
 def update_route(
     rows: int, k: int, dense_rows: int, dense_ratio: float,
-    kind: Optimizer_t = Optimizer_t.RowWiseAdaGrad,
+    kind: Optimizer_t = Optimizer_t.RowWiseAdaGrad, valid_cap: int = 0, packed=False,
 ) -> str:
     """The route `apply_sparse` takes for `k` keys into `rows` rows:
     "scatter" for SGD; "dense" for shards of at most `dense_rows` rows or,
-    for the AdaGrad family only, with at least `dense_ratio` x rows keys
-    (sparse_optimizer.py:440-447); else "sorted"."""
+    for the AdaGrad family only, with at least `dense_ratio` x rows keys,
+    counting the measured `valid_cap` where it is below k
+    (sparse_optimizer.py:440-447); else "sorted", which a packed group
+    always takes."""
     if kind == Optimizer_t.SGD:
         return "scatter"
+    k_eff = valid_cap if 0 < valid_cap < k else k
     ratio_dense = (
-        kind in ADAGRAD_FAMILY and dense_ratio > 0 and rows > 0 and k >= rows * dense_ratio
+        kind in ADAGRAD_FAMILY and dense_ratio > 0 and rows > 0 and k_eff >= rows * dense_ratio
     )
-    return "dense" if (0 < rows <= dense_rows) or ratio_dense else "sorted"
+    return "dense" if not packed and ((0 < rows <= dense_rows) or ratio_dense) else "sorted"
+
+
+def _apply_rows_packed(opt: OptParams, table: torch.Tensor, lr: torch.Tensor, uidx: torch.Tensor,
+                       g: torch.Tensor) -> None:
+    """AdaGrad on packed [R, 2E] rows (sparse_optimizer.py:711-749): the
+    delta from the old accumulators plus g^2 in float32, and one add of
+    (delta, g^2), each rounded to the table's type, into the rows."""
+    if opt.optimizer != Optimizer_t.AdaGrad:
+        raise ValueError("packed storage currently supports AdaGrad only")
+    ev = table.shape[1] // 2
+    gg = g * g
+    accum = table[uidx, ev:].float() + gg
+    delta_w = -lr * g / (torch.sqrt(accum) + opt.epsilon)
+    table.index_add_(0, uidx, torch.cat([delta_w, gg], dim=1).to(table.dtype))
+
+
+def _apply_rows_rowwise_packed(opt: OptParams, table: torch.Tensor, lr: torch.Tensor, uidx: torch.Tensor,
+                               g: torch.Tensor) -> None:
+    """RowWiseAdaGrad on packed [R, E + 1] rows (sparse_optimizer.py:661-708):
+    the mean of g^2 over the row in float32, the delta from the old
+    accumulator plus that mean, and one add of (delta, mean), each rounded
+    to the table's type, into the rows."""
+    if opt.optimizer != Optimizer_t.RowWiseAdaGrad:
+        raise ValueError("rowwise-packed storage requires RowWiseAdaGrad")
+    ev = table.shape[1] - 1
+    g2 = torch.mean(torch.square(g.float()), dim=1, keepdim=True)
+    accum = table[uidx, ev:].float() + g2
+    delta_w = -lr * g / (torch.sqrt(accum).to(g.dtype) + opt.epsilon)
+    table.index_add_(0, uidx, torch.cat([delta_w.to(table.dtype), g2.to(table.dtype)], dim=1))
 
 
 def bf16_row_sums(idx: torch.Tensor, src: torch.Tensor, vals: torch.Tensor, rows: int) -> torch.Tensor:
@@ -272,6 +335,13 @@ def apply_sparse(
     step: int = 1,
     k_limit: int = 0,
     grad_dtype: torch.dtype = torch.float32,
+    ucap_factor: float = 0.0,
+    ucap_min_k: int = 0,
+    ucap_drop: bool = False,
+    ucap_cap: int = 0,
+    valid_cap: int = 0,
+    packed=False,
+    stats: Optional[Dict[str, int]] = None,
 ) -> str:
     """One sparse update for (possibly duplicated) row gradients, in place
     (sparse_optimizer.py:343). idx [K] rows with the sentinel R for invalid
@@ -279,13 +349,19 @@ def apply_sparse(
     capacity) keeps the first k_limit entries of the stable sort by row on
     the dense and sorted routes and drops the rest; SGD's scatter takes
     every entry (:403-410, :460-462, :515-518). The route is chosen on the
-    whole K. `grad_dtype` bfloat16 gives the AdaGrad family's dense sweep a
-    bf16 gradient buffer (`bf16_row_sums`); the other optimizers keep
-    float32 and the exact touch count (:471-476). Returns the route it
-    took."""
+    whole K, or on the measured `valid_cap` below it. `grad_dtype` bfloat16
+    gives the AdaGrad family's dense sweep a bf16 gradient buffer
+    (`bf16_row_sums`); the other optimizers keep float32 and the exact
+    touch count (:471-476). `ucap_factor` / `ucap_min_k` (a window of
+    `unique_cap`) or a measured `ucap_cap`, with `ucap_drop`, keep only the
+    first unique rows of the window on the sorted route; without
+    `ucap_drop` the windows are exact and change nothing. `packed` "full"
+    or "rowwise": `table` holds the state in its trailing columns and
+    `state` is empty. `stats`, given, counts the rows the drop mode dropped
+    under "ucap_dropped". Returns the route it took."""
     kind = opt.optimizer
     rows = table.shape[0]
-    route = update_route(rows, idx.shape[0], dense_rows, dense_ratio, kind)
+    route = update_route(rows, idx.shape[0], dense_rows, dense_ratio, kind, valid_cap, packed)
     if route == "dense" and 0 < k_limit < idx.shape[0]:
         perm = torch.sort(idx, stable=True).indices[:k_limit]
         idx, src = idx[perm], src[perm]
@@ -312,5 +388,22 @@ def apply_sparse(
         return route
     sidx, summed, tail = dedup_rows(idx, src, dsrc.to(table.dtype), rows, k_limit)
     # only tails carry full sums; keeping them makes the rows unique
-    _apply_rows(opt, table, state, lr, sidx[tail], summed[tail], step)
+    uidx, g = sidx[tail], summed[tail]
+    if ucap_drop:
+        # the list the JAX package windows (:506-518, :585-594, :645-651):
+        # below 2^24 rows the valid prefix when it fits the measured cap,
+        # else the whole (k_limit-cut) list
+        k = min(idx.shape[0], k_limit) if k_limit else idx.shape[0]
+        kk = valid_cap if rows < (1 << 24) and 0 < valid_cap < k and sidx.shape[0] <= valid_cap else k
+        ucap = min(kk, ucap_cap) if ucap_cap > 0 else unique_cap(kk, ucap_factor, ucap_min_k)
+        if 0 < ucap < uidx.shape[0]:
+            if stats is not None:
+                stats["ucap_dropped"] = stats.get("ucap_dropped", 0) + uidx.shape[0] - ucap
+            uidx, g = uidx[:ucap], g[:ucap]
+    if packed == "rowwise":
+        _apply_rows_rowwise_packed(opt, table, lr, uidx, g)
+    elif packed:
+        _apply_rows_packed(opt, table, lr, uidx, g)
+    else:
+        _apply_rows(opt, table, state, lr, uidx, g, step)
     return route

@@ -96,9 +96,9 @@ package's on-disk layout through `io/filesystem.py`, so that a snapshot
 written by either package loads in the other; bfloat16 arrays are written
 as the JAX package writes them (2-byte voids) and read back bitwise. Over W
 ranks every rank computes (the sharded arrays are all-gathered) and rank 0
-alone writes; on loading, each rank takes its block. The packed state
-layouts have no counterpart here, and a snapshot that holds them raises
-`NotImplementedError`.
+alone writes; on loading, each rank takes its block. A packed group's
+whole storage (table and accumulators) goes to `packed_<group>.npy`, as
+the JAX package writes it (model.py:1569-1582, :1683-1690).
 
 The low-level training API (model.py:1897-2262: the learning rate, the
 losses, freezing, the summary, `check_out_tensor`, the reader handles,
@@ -394,7 +394,9 @@ class Model:
                 dense_update_rows=s.dense_update_rows, dense_key_ratio=s.dense_key_ratio,
                 dense_grad_dtype=s.grad_dtype, state_dtype=s.emb_state_dtype, fwd_partition=s.fwd_partition,
                 capacity_factor=s.mp_capacity_factor,
-                dense_exchange_cap=s.dense_exchange_cap if s.dense_exchange else 0,
+                dense_exchange=s.dense_exchange, dense_exchange_cap=s.dense_exchange_cap,
+                unique_cap_factor=s.unique_cap_factor, ucap_headroom=s.ucap_headroom, ucap_min_k=s.ucap_min_k,
+                ucap_drop=s.ucap_drop, packed_state=s.packed_state, rowwise_pack=s.rowwise_pack,
                 # the first collection's strategy, as the JAX Model takes it (model.py:398-405)
                 comm_strategy=self.ebc_configs[0].comm_strategy if self.ebc_configs else None,
             )
@@ -920,6 +922,7 @@ class Model:
         lr = torch.tensor(ov if ov >= 0 else float(self.lr_sch(step)), dtype=torch.float32, device=self.device)
         skip_emb = ec is not None and self._skip_embedding
         emb_update = ec is not None and not (self._emb_frozen or skip_emb or self._skip_emb_update)
+        self._maybe_auto_ucap(batch)
         feature_keys = self._feature_keys(batch) if ec is not None and not skip_emb else {}
         weights = self._feature_weights(batch) if not skip_emb else None
         emb_in: Dict[str, torch.Tensor] = {}
@@ -958,6 +961,30 @@ class Model:
                 ec.backward_and_update(self.tables, self.eopt, feature_keys, egrads, lr, step, weights)
         self._step = step
         return loss.detach()
+
+    def _maybe_auto_ucap(self, batch: Dict[str, torch.Tensor]) -> None:
+        """`unique_cap_factor="auto"`: measure the collection's caps on the
+        first batch a step or an eval sees (`_maybe_auto_ucap`,
+        model.py:1136-1156, which measures the first batch put on the
+        device): its keys as the step reads them, a fused batch's columns
+        and i64 keys folded. Over W ranks the ranks' blocks are gathered
+        with one collective, so every rank measures the whole batch and
+        takes the same caps."""
+        ec = self.ec
+        if ec is None or not ec.ucap_auto or ec.ucap_measured:
+            return
+        fk = self._feature_keys(batch)
+        names = list(fk)
+        cols = [fk[n].reshape(fk[n].shape[0], -1).to(torch.int64) for n in names]
+        flat = torch.cat(cols, dim=1)
+        if self.world > 1:
+            flat = all_gather(flat.contiguous(), self.rm.data_group)
+        host = flat.cpu().numpy()
+        out, off = {}, 0
+        for n, c in zip(names, cols):
+            out[n] = host[:, off : off + c.shape[1]]
+            off += c.shape[1]
+        ec.auto_unique_caps(out)
 
     def _skipped_embedding(self, b: int) -> Dict[str, torch.Tensor]:
         """SKIP_EMBEDDING's tops (model.py:804-821): float32 zeros [b, width]
@@ -1036,6 +1063,7 @@ class Model:
         {label: labels}) of the loss layers, on the device (model.py:885)."""
         ec = self.ec
         batch = self._decode_batch(batch)
+        self._maybe_auto_ucap(batch)
         emb_outs = (ec.forward(self.tables, self._feature_keys(batch), self._feature_weights(batch))
                     if ec is not None else {})
         tensors = {n: batch[n] for n in (*self.batch_spec.label_names, self.batch_spec.dense_name)}
@@ -1290,8 +1318,9 @@ class Model:
         `dense_model.npz`, `emb_opt_states/<group>.<slot>.npy` (the raw
         storage arrays, over W ranks the global array),
         `sparse_<table>/emb_vector.npy` for every table of every group and
-        for each split table's merged view, `keystore_<group>.npy` for each
-        dynamic group and `meta.json` (iteration, step and the layout
+        for each split table's merged view, `packed_<group>.npy` for each
+        packed group (its whole storage, the global array over W ranks),
+        `keystore_<group>.npy` for each dynamic group and `meta.json` (iteration, step and the layout
         stamp), and `i64_fold_maps.npz` where the exact i64 fold holds keys.
         `prefix` may be a remote URL (`io/filesystem.py`)."""
         out_dir = f"{prefix}_iter{iteration}"
@@ -1314,6 +1343,11 @@ class Model:
                     tdir = os.path.join(out_dir, f"sparse_{name}")
                     iofs.makedirs(tdir)
                     iofs.save_npy(os.path.join(tdir, "emb_vector.npy"), arr)
+            for name, arr in self.tables.items():
+                if name in self.ec.packed_groups:
+                    host = self._sharded_host(arr, name)
+                    if write:
+                        iofs.save_npy(os.path.join(out_dir, f"packed_{name}.npy"), host)
             for name, arr in self.tables.items():
                 if name.endswith("#keys"):
                     host = self._sharded_host(arr, name)
@@ -1345,20 +1379,6 @@ class Model:
         return any(g.is_model_parallel and g.num_shards > 1 and any(int(r) % g.num_shards for r in g.table_rotation)
                    for g in self.ec.plan.groups)
 
-    @staticmethod
-    def _refuse_unported_files(out_dir: str) -> None:
-        """A snapshot file the port cannot represent raises, since skipping
-        it would lose state: the packed table-and-state arrays."""
-        if not iofs.isdir(out_dir):
-            return
-        names = iofs.listdir(out_dir)
-        packed = [n for n in names if n.startswith("packed_") and n.endswith(".npy")]
-        if packed:
-            raise NotImplementedError(
-                f"{out_dir}: {packed} hold the packed table-and-state layout (the JAX package's "
-                "HCTR_TPU_PACKED_STATE), which the port leaves out on purpose (ROADMAP Queue 1, "
-                "'Left out on purpose'); skipping it would lose the optimizer state")
-
     @torch.no_grad()
     def _put(self, dst: torch.Tensor, src, what: str) -> None:
         """Copy a loaded array (numpy, or a bfloat16 tensor) into `dst`."""
@@ -1370,9 +1390,11 @@ class Model:
     def load_params_from_files(self, out_dir: str) -> None:
         """Restore a snapshot of either package (model.py:1635-1718): the
         layout stamp is checked first; then the dense parameters and their
-        state, every table in key order, the key stores, the i64 fold's
-        maps, the sparse optimizer state, the step and the iteration. Each rank takes its
-        own rows."""
+        state, every table in key order, each packed group's whole storage
+        from `packed_<group>.npy` where the file is there (a file of a group
+        this model does not pack is not read, as in the JAX package), the
+        key stores, the i64 fold's maps, the sparse optimizer state, the
+        step and the iteration. Each rank takes its own rows."""
         meta_path = os.path.join(out_dir, "meta.json")
         if iofs.exists(meta_path):
             with iofs.open_file(meta_path, "r") as f:
@@ -1384,7 +1406,6 @@ class Model:
                     f"{cur}: raw storage layouts differ (optimizer states and key stores would silently "
                     f"misalign). Build the model with Solver(shard_rotation={bool(saved)}), or re-export via "
                     "embedding_dump (positional per-table format, layout-independent).")
-        self._refuse_unported_files(out_dir)
         self._load_dense(out_dir, params=True, dopt=True)
         if self.ec is not None:
             for g in self.ec.plan.groups:
@@ -1392,6 +1413,10 @@ class Model:
                     path = os.path.join(out_dir, f"sparse_{t.name}", "emb_vector.npy")
                     if iofs.exists(path):
                         self.ec.import_table(self.tables, t.name, iofs.load_npy(path))
+            for name in self.ec.packed_groups:
+                p = os.path.join(out_dir, f"packed_{name}.npy")
+                if iofs.exists(p):
+                    self._put(self.tables[name], self._rank_block(iofs.load_npy(p), name), f"packed {name}")
             self._load_key_stores(out_dir)
             fmap = os.path.join(out_dir, "i64_fold_maps.npz")
             if iofs.exists(fmap):
@@ -1467,8 +1492,6 @@ class Model:
         """Tables from a snapshot dir, a list of `sparse_<table>` dirs or a
         {table: path} dict, each with the `key_store.npy` beside it if there
         is one; a snapshot dir's `keystore_<group>.npy` too (model.py:1796)."""
-        if isinstance(sparse_embedding_files, str):
-            self._refuse_unported_files(sparse_embedding_files)
         for name, path in self._sparse_sources(sparse_embedding_files).items():
             self.ec.import_table(self.tables, name, iofs.load_npy(path))
             kpath = os.path.join(os.path.dirname(path), "key_store.npy")
@@ -1486,7 +1509,6 @@ class Model:
             self._load_eopt(path)
             return
         in_edir = os.path.basename(path.rstrip("/")) == "emb_opt_states"
-        self._refuse_unported_files(os.path.dirname(path.rstrip("/")) if in_edir else path)
         edir = path if in_edir else os.path.join(path, "emb_opt_states")
         self._load_eopt({f"{g}.{slot}": os.path.join(edir, f"{g}.{slot}.npy")
                          for g, st in self.eopt.items() for slot in st})
@@ -1714,6 +1736,7 @@ class Model:
         elif not all(isinstance(v, torch.Tensor) for v in batch.values()):
             batch = self._put_now(batch)
         batch = self._decode_batch(batch)
+        self._maybe_auto_ucap(batch)
         emb_outs = (self.ec.forward(self.tables, self._feature_keys(batch), self._feature_weights(batch))
                     if self.ec is not None else {})
         tensors = {n: batch[n] for n in (*self.batch_spec.label_names, self.batch_spec.dense_name)}

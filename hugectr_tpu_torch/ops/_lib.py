@@ -52,7 +52,7 @@ _SIGNATURES = {
     # b, h, v, e -> 1 when the backward takes its privatised route
     "hctr_onehot_bwd_privatised": ([_I, _I, _I, _I], _I),
     # dtype, table, n_rows, rows, weights (or null), offsets, out, n_slots, e, vec, stream
-    "hctr_ordered_pool": ([_I, _P, _I64, _P, _P, _P, _P, _I64, _I, _I, _P], _I),
+    "hctr_ordered_pool": ([_I, _P, _I64, _I64, _P, _P, _P, _P, _I64, _I, _I, _P], _I),
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,5 @@
-"""Ordered pooling of the owner-partitioned forward over W ranks.
+"""Ordered pooling of the owner-partitioned forward over W ranks, and of
+the compact forward of a group with a measured valid cap.
 
 The JAX package's default forward of a model-parallel rowop group at W > 1
 (`_mp_fwd_partitioned`, hugectr_tpu/embedding/collection.py:867-936) sorts
@@ -7,6 +8,11 @@ shard owns form a prefix, gathers that prefix and pools it with a
 scatter-add in the table's type:
 
     pooled = zeros((slots, E), table.dtype).at[slot].add(table[row])
+
+Its forward of a group whose valid-key cap was measured
+(HCTR_TPU_UCAP_FACTOR=auto: `_dp_fwd_compact`, :1496-1564) pools the
+row-sorted valid prefix of the group's keys in the same form (`pooled_from`,
+:1534-1545), so it is this function too, with every valid key owned.
 
 No Pallas kernel computes this, but its result depends on the order of the
 updates. XLA adds the updates of a scatter one by one, in the order of the
@@ -30,7 +36,9 @@ not pool) sorts last in its slot. `ordered_pool(table, rows, offsets)` then
 writes out[s] = table[rows[begin]] + table[rows[begin + 1]] + ..., added in
 that order in float32 and rounded to the table's type after every add, up
 to the slot's end or its first row id >= the table's rows; a slot with no
-such row is zero. Nothing here waits for the card. The plain PyTorch
+such row is zero. `table` may be the first E columns of a packed
+table-and-state array (a view whose rows are longer than E: the kernel
+takes the row stride). Nothing here waits for the card. The plain PyTorch
 version serves CPU tensors and the checks on the card; a CUDA tensor
 always launches the kernel.
 
@@ -101,7 +109,9 @@ def ordered_pool(table: torch.Tensor, rows: torch.Tensor, offsets: torch.Tensor,
     1]] in order up to its first row id >= R (such ids come last in a slot,
     as `segments` orders them), rounded to the table's type after every
     add; `weights` ([K] float32, aligned with `rows`) scales each row
-    first, the product rounded to the table's type."""
+    first, the product rounded to the table's type. `table` may be a view
+    of the first columns of wider rows (its rows contiguous, any row
+    stride)."""
     _lib.require(table.dim() == 2, f"table must be [R, E], got {tuple(table.shape)}")
     _lib.require(table.dtype in _lib.DTYPE_CODE, f"table dtype {table.dtype} not f32/bf16")
     _lib.require(rows.dtype == torch.int64 and rows.dim() == 1, "rows must be int64 [K]")
@@ -115,17 +125,19 @@ def ordered_pool(table: torch.Tensor, rows: torch.Tensor, offsets: torch.Tensor,
         PLAIN_CALLS["ordered_pool"] += 1
         return ordered_pool_plain(table, rows, offsets, weights)
     _lib.require(table.device.type == "cuda", f"unsupported device {table.device}")
-    _lib.require(table.is_contiguous() and rows.is_contiguous() and offsets.is_contiguous()
-                 and (weights is None or weights.is_contiguous()), "inputs must be contiguous")
-    n_slots, e = offsets.numel() - 1, table.shape[1]
+    _lib.require(table.stride(1) == 1 and table.stride(0) >= table.shape[1] and rows.is_contiguous()
+                 and offsets.is_contiguous() and (weights is None or weights.is_contiguous()),
+                 "inputs must be contiguous (the table's rows at least)")
+    n_slots, e, ld = offsets.numel() - 1, table.shape[1], table.stride(0)
     out = torch.empty((n_slots, e), dtype=table.dtype, device=table.device)
     if n_slots == 0 or e == 0:
         return out
     with torch.cuda.device(table.device):
         rc = _lib.library().hctr_ordered_pool(
-            _lib.DTYPE_CODE[table.dtype], table.data_ptr(), table.shape[0], rows.data_ptr(),
+            _lib.DTYPE_CODE[table.dtype], table.data_ptr(), table.shape[0], ld, rows.data_ptr(),
             weights.data_ptr() if weights is not None else None, offsets.data_ptr(),
-            out.data_ptr(), n_slots, e, _lib.vec_width(e, table, out), _lib.stream_of(table),
+            out.data_ptr(), n_slots, e, _lib.vec_width(e, table, out) if ld % 4 == 0 else 1,
+            _lib.stream_of(table),
         )
     _lib.check(rc, "ordered_pool")
     LAUNCHES["ordered_pool"] += 1

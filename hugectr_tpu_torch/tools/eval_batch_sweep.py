@@ -1,7 +1,8 @@
 """Eval-batch sweep (counterpart of tools/eval_batch_sweep.py): does a larger
 `batchsize_eval` amortise the eval forward's fixed costs? The flagship with
 bench.py's settings (`bench_settings()`: train batch 16,384, vocab_cap
-2,000,000) is built once per eval batch (16,384, 32,768, 65,536), takes 2
+2,000,000, the caps measured on the first batch with a headroom of 1.05, as
+tools/eval_batch_sweep.py:12-13 sets them) is built once per eval batch (16,384, 32,768, 65,536), takes 2
 training steps, then a warm-up `eval()` and a timed one over about 5.24 M
 samples (`--samples` // eval batch batches); one line per eval batch, and a
 JSON line of all of them.

@@ -1,6 +1,7 @@
 """Where an eval's time goes (counterpart of tools/eval_profile.py): the
 flagship at bench.py's operating point (`bench_settings()`: batch 16,384,
-vocab_cap 2,000,000), 3 training steps, then over `--eval-batches` cached
+vocab_cap 2,000,000, the caps measured on the first batch with a headroom
+of 1.05, as tools/eval_profile.py:11-12 sets them), 3 training steps, then over `--eval-batches` cached
 eval batches (64 as the JAX tool; distinct synthetic batches):
 
 1. the eval forward alone (`Model._eval_step`), ms a batch;

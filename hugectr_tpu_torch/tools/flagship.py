@@ -63,14 +63,16 @@ def bench_settings() -> dict:
     each big table at 131,072 rows with a 1,024-row superhot tier in the
     one-hot group, and a storage group of its own for every rowop table of
     16,384 rows or more; eval over 320 batches of 16,384, the binned AUC
-    past 1,048,576 samples. bench.py's XLA settings (HCTR_TPU_SEGSUM,
-    HCTR_TPU_UCAP_FACTOR, HCTR_TPU_UCAP_HEADROOM) have no counterpart: the
-    port's eager shapes are exact."""
+    past 1,048,576 samples; the caps measured on the first batch with a
+    headroom of 1.05 (HCTR_TPU_UCAP_FACTOR=auto, HCTR_TPU_UCAP_HEADROOM,
+    bench.py:29, 34), which send the groups with a valid cap to the
+    compact forward and count their measured keys in the key-ratio rule.
+    bench.py's HCTR_TPU_SEGSUM=xla is the port's segment sum."""
     return dict(
         batchsize=16384, vocab_cap=2_000_000, ev_size=128, use_mixed_precision=True,
         embedding_vec_dtype="bfloat16", embedding_state_dtype="bfloat16",
         optimizer="rowwise_adagrad", hot_rows=131072, superhot_rows=1024, split_vocab=16384,
-        max_eval_batches=320, auc_exact_max=1048576,
+        max_eval_batches=320, auc_exact_max=1048576, unique_cap_factor="auto", ucap_headroom=1.05,
     )
 
 

@@ -4,7 +4,10 @@ tools/fullscale_dryrun.py).
 The JAX tool builds `build_dlrm_dcnv2(vocab_cap=40_000_000)` with bench.py's
 settings on 8 virtual CPU devices at batch 64. Here the same model runs with
 `bench_settings()` (bf16 tables and row-wise AdaGrad state, mixed precision,
-hot 131,072 / superhot 1,024 / split vocab 16,384) at bench.py's batch of
+hot 131,072 / superhot 1,024 / split vocab 16,384, the caps measured on the
+first batch) with the JAX tool's headroom of the caps (1.25: it sets
+HCTR_TPU_UCAP_FACTOR=auto and leaves HCTR_TPU_UCAP_HEADROOM at its default,
+tools/fullscale_dryrun.py:6-9) at bench.py's batch of
 16,384 over the process group's ranks (one on a one-card machine). The
 tables are uncapped: five of MLPerf's 26 have 40,000,000 rows (0, 9, 19, 20
 and 21), 204,184,588 rows in all, 52,271,254,528 bytes of bf16 tables at ev
@@ -15,7 +18,7 @@ It prints the build and init seconds with the rows total, the bytes of the
 tables and of the optimizer state that were allocated beside the plan's and
 beside the workspace calculator's prediction for the same tables, each
 step's loss and seconds with the kernel launches of the step, the route
-map, an eval's examples per second, and the peak device memory; last a JSON
+map, the measured caps, an eval's examples per second, and the peak device memory; last a JSON
 line of all of it. A non-finite loss raises, so the exit code is not 0.
 
     python -m hugectr_tpu_torch.tools.fullscale_dryrun [--steps 2] [--eval-batches 0]
@@ -50,10 +53,10 @@ def rows_total(vocab_cap: int) -> int:
 
 def settings(args, **overrides) -> dict:
     """`build_dlrm_dcnv2`'s keyword arguments: `bench_settings()` at the
-    flags' batch and cap, then `overrides`."""
+    flags' batch and cap with the JAX tool's headroom, then `overrides`."""
     from .flagship import bench_settings
 
-    kw = dict(bench_settings(), batchsize=args.batch, vocab_cap=args.vocab_cap,
+    kw = dict(bench_settings(), ucap_headroom=1.25, batchsize=args.batch, vocab_cap=args.vocab_cap,
               max_eval_batches=max(args.eval_batches, 1), synthetic_batches=max(args.steps, args.eval_batches, 2))
     kw.update(overrides)
     return kw
@@ -135,6 +138,8 @@ def run(argv=None, overrides=None, step_hook=None, say=print):
     if step_hook is not None:
         step_hook(model, args.steps + 1)
     say(f"routes {json.dumps(dict(model.ec.group_routes), sort_keys=True)}", flush=True)
+    caps = model.ec.measured_caps()
+    say(f"caps {json.dumps(caps, sort_keys=True)}", flush=True)
 
     ev = {}
     if args.eval_batches:
@@ -154,7 +159,7 @@ def run(argv=None, overrides=None, step_hook=None, say=print):
         device=torch.cuda.get_device_name(rm.device) if cuda else "cpu", world=rm.num_devices, batch=args.batch,
         vocab_cap=kw["vocab_cap"], rows_total=rows, build_seconds=build_s, losses=losses,
         step_seconds=step_s, median_ms_per_step=statistics.median(step_s[1:] or step_s) * 1e3,
-        launches=launches, routes=dict(model.ec.group_routes), allocated=got,
+        launches=launches, routes=dict(model.ec.group_routes), caps=caps, allocated=got,
         calculator={k: pred[k] for k in ("weights", "state", "working_set", "total")},
         max_memory_allocated=peak, **ev,
     )

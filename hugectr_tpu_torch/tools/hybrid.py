@@ -237,6 +237,7 @@ def train_model(rm, inputs: Tree) -> Tree:
     around the eval. Returns the losses, each step's seconds
     (synchronised), the eval's metrics and seconds, the launch and
     plain-call counts, the collectives' calls and bytes, the update routes,
+    the measured caps (`caps`: unique, valid, dense_exchange),
     the peak device memory, every user table in key order and the dense
     parameters (`export`), this rank's replicated arrays
     (`replicated_arrays`) or, with `digest`, their SHA-256; with
@@ -327,6 +328,7 @@ def train_model(rm, inputs: Tree) -> Tree:
             out["auc_binned"] = float(auc_score_large(m._preds, m._labels, m._valid, mesh.all_reduce))
             out["auc_exact"] = float(auc_score(*(m._global(x) for x in (m._preds, m._labels, m._valid))))
     out["routes"] = dict(ec.group_routes)
+    out["caps"] = ec.measured_caps()
     if cfg.get("storage"):
         out["storage"] = {k: (t.float() if t.is_floating_point() else t).cpu().numpy() for k, t in model.tables.items()}
         out["state"] = {g: {k: t.float().cpu().numpy() for k, t in st.items()} for g, st in model.eopt.items()}
@@ -415,8 +417,9 @@ def forward_times(model, batches, n: int = 10) -> Tree:
 def model_state(model) -> Dict[str, np.ndarray]:
     """A model's state as this rank holds it, each float array as its
     bits, for bitwise comparisons: every table in key order (`export_rows`;
-    every rank calls this together), this rank's key stores and sparse
-    optimizer state, the dense parameters and their state, the step."""
+    every rank calls this together), this rank's key stores, packed
+    storage and sparse optimizer state, the dense parameters and their
+    state, the step."""
     def bits(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu().clone()  # a copy: the model trains on
         if t.is_floating_point():
@@ -430,6 +433,8 @@ def model_state(model) -> Dict[str, np.ndarray]:
             out[f"table:{t.name}"] = bits(ec.export_rows(model.tables, t.name))
         if f"{g.name}#keys" in model.tables:
             out[f"keys:{g.name}"] = bits(model.tables[f"{g.name}#keys"])
+        if g.name in ec.packed_groups:  # the accumulators in the storage's trailing columns
+            out[f"packed:{g.name}"] = bits(model.tables[g.name])
     for g, st in model.eopt.items():
         for k, t in st.items():
             out[f"eopt:{g}.{k}"] = bits(t)
@@ -724,14 +729,16 @@ METRICS = {"auc": 0.80275, "average_loss": 0.0}
 def tiny_config(model: str = "tiny", steps: int = 3) -> Tree:
     """The tiny models of the parity checks as `train_model` configs:
     "tiny" (`TINY_PARITY`), "tiny_bench" (`bench_settings()` at
-    `flagship.TINY_BENCH`'s size) and "tiny_partial"
+    `flagship.TINY_BENCH`'s size, the unique-cap windows off: the caps
+    measured over W shards differ from one device's, and with them the
+    forward's form and the update routes) and "tiny_partial"
     (`flagship.build_tiny_partial`)."""
     from . import flagship
 
     if model == "tiny":
         return dict(TINY_PARITY, steps=steps)
     if model == "tiny_bench":
-        kw = dict(flagship.bench_settings(), **flagship.TINY_BENCH, metrics_spec=METRICS)
+        kw = dict(flagship.bench_settings(), **flagship.TINY_BENCH, metrics_spec=METRICS, unique_cap_factor=0)
         return dict(builder="build_dlrm_dcnv2", steps=steps, eval=True, kwargs=kw)
     if model == "tiny_partial":
         return dict(builder="build_tiny_partial", steps=steps, eval=True, kwargs={})

@@ -3,22 +3,29 @@
 Usage (on a machine with a card, from the repo root):
 
     python -m hugectr_tpu_torch.tools.trace_step [--model dlrm_dcnv2 | dlrm_ftrl | GRAPH] [--dynamic]
-        [--batch 16384] [--steps 3] [--bench] [--eval] [--world W] [--out DIR]
+        [--batch 16384] [--steps 3] [--bench] [--ucap auto | FACTOR] [--eval] [--world W] [--out DIR]
 
 Builds the full-width DLRM-DCNv2 (`build_dlrm_dcnv2`, 26 tables, ev 128,
 vocab_cap 2M, rowwise AdaGrad, float32; with `--bench`, as bench.py
 configures it: `bench_settings()`, bf16 tables and state, mixed precision,
-the hot/cold/superhot split) or, with `--model dlrm_ftrl`, DLRM with FTRL
+the hot/cold/superhot split, the caps measured on the first batch with a
+headroom of 1.05 as tools/trace_step.py:16-17 sets them; `--ucap` sets the
+DLRM-DCNv2's `unique_cap_factor` instead, as HCTR_TPU_UCAP_FACTOR does
+there: 0 turns the caps off) or, with `--model dlrm_ftrl`, DLRM with FTRL
 (`build_dlrm_ftrl`, 26 tables capped at 400,000 rows, hotness 1; with
 `--dynamic`, exact dynamic tables of 4,096 rows each) or a sample's graph
 (`GRAPH`: a name of `tools/samples.py::GRAPHS`, e.g. `bst` or `neumf`, at
-its own sizes; `--batch 2048` is the samples' batch), runs 2 warm-up steps, then traces `--steps`
-training steps (with `--eval`: eval batches, the forward of `Model.eval`)
-with `torch.profiler`. Prints one JSON line: ms per step (host clock around
+its own sizes; `--batch 2048` is the samples' batch), runs 2 warm-up steps,
+times `--steps` training steps one by one (each synchronised, no profiler),
+then traces `--steps` more (with `--eval`: eval batches, the forward of
+`Model.eval`) with `torch.profiler`. Prints one JSON line: the untraced
+steps' host ms and their median, ms per traced step (host clock around the
 synchronised steps), device busy ms per step (sum of kernel and copy
 times), the device idle share, device events (kernels, copies, memsets)
-in all and per step, and device ms per step by category and by kernel
-name (top 25). With `--out`, also writes the Chrome trace there.
+in all and per step, device ms per step by category and by kernel name
+(top 25), the host's operators and waits for the card per step (the 25
+commonest operators apart), the kernels' launches per traced step, and the
+groups with a valid cap. With `--out`, also writes the Chrome trace there.
 
 With `--world W` the model trains hybrid-parallel on W spawned ranks
 (`tools/hybrid.py`; NCCL where there is a card per rank, else gloo with the
@@ -32,6 +39,7 @@ import argparse
 import collections
 import json
 import os
+import statistics
 import subprocess
 import time
 
@@ -70,12 +78,13 @@ def trace(rm, inputs) -> dict:
     import contextlib
     from types import SimpleNamespace
 
+    from hugectr_tpu_torch import ops
     from hugectr_tpu_torch.core import mesh
     from hugectr_tpu_torch.tools.flagship import bench_settings, build_dlrm_dcnv2, build_dlrm_ftrl
     from hugectr_tpu_torch.tools.samples import build_sample
 
     args = SimpleNamespace(**json.loads(inputs["args"]))
-    n = dict(batchsize=args.batch, synthetic_batches=args.steps + 2, max_eval_batches=args.steps + 2)
+    n = dict(batchsize=args.batch, synthetic_batches=2 * args.steps + 2, max_eval_batches=2 * args.steps + 2)
     if args.model == "dlrm_ftrl":
         model = build_dlrm_ftrl(rm, dynamic=args.dynamic, **n)
     elif args.model in SAMPLE_GRAPHS:
@@ -83,6 +92,8 @@ def trace(rm, inputs) -> dict:
         model = build_sample(name, rm, variant=variant, **n)
     else:
         kw = bench_settings() if args.bench else dict(vocab_cap=2_000_000)
+        if args.ucap is not None:
+            kw["unique_cap_factor"] = args.ucap if args.ucap == "auto" else float(args.ucap)
         model = build_dlrm_dcnv2(rm, **dict(kw, **n))
     for _ in range(2):
         model.train()
@@ -96,27 +107,42 @@ def trace(rm, inputs) -> dict:
     else:
         def step(i):
             model.train()
-    torch.cuda.synchronize()
+    step_ms = []
+    for i in range(args.steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(i + 1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     prof = torch.profiler.profile(activities=acts) if rm.is_master_process() else None
+    ops.reset_counts()
     with prof or contextlib.nullcontext():
         t0 = time.perf_counter()
         for i in range(args.steps):
-            step(i + 1)
+            step(args.steps + i + 1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    launches = ops.launch_counts()
     if prof is None:
         return {}
     # device-side rows only (kernels, copies, memsets): the CPU-side rows
     # carry the same device time again as the kernels they launched
     kernels = collections.Counter()
     n_events = 0
+    # the host's side: operators dispatched (aten::*, nested ones included)
+    # and the runtime's waits for the card (cuda*Synchronize)
+    host_ops, host_syncs = collections.Counter(), 0
     for evt in prof.key_averages():
         # NCCL's device-side annotations ("nccl:all_reduce", ...) span its
         # kernels, which are counted already
         if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.key.startswith("nccl:"):
             kernels[evt.key] += evt.self_device_time_total / 1e3 / args.steps
             n_events += evt.count
+        elif evt.key.startswith("aten::"):
+            host_ops[evt.key] += evt.count / args.steps
+        elif evt.key.startswith("cuda") and "Synchronize" in evt.key:
+            host_syncs += evt.count
     busy = sum(kernels.values())
     cats = collections.Counter()
     for name, ms in kernels.items():
@@ -128,13 +154,18 @@ def trace(rm, inputs) -> dict:
     out = dict(
         card=card, device_count=torch.cuda.device_count(), world=rm.num_devices, backend=mesh.backend() or "",
         model=args.model, dynamic=args.dynamic, batch=args.batch, bench=args.bench,
+        unique_cap_factor=getattr(model.solver, "unique_cap_factor", 0.0),
         traced="eval" if args.eval else "train",
-        steps=args.steps, ms_per_step=wall_ms,
+        steps=args.steps, step_ms=step_ms, median_ms_per_step=statistics.median(step_ms), ms_per_step=wall_ms,
         device_events=n_events, device_events_per_step=n_events / args.steps,
         device_busy_ms_per_step=busy,
         device_idle_share=max(0.0, 1.0 - busy / wall_ms),
+        host_ops_per_step=sum(host_ops.values()), host_syncs_per_step=host_syncs / args.steps,
+        top_host_ops=dict(host_ops.most_common(25)),
         by_category_ms=dict(cats.most_common()),
         top_kernels_ms=dict(kernels.most_common(25)),
+        launches_per_step={k: v / args.steps for k, v in launches.items()},
+        valid_caps=dict(model.ec.valid_caps),
         routes=dict(model.ec.group_routes),
     )
     if args.out:
@@ -149,13 +180,21 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default="")
     ap.add_argument("--bench", action="store_true", help="the flagship as bench.py configures it")
+    ap.add_argument("--ucap", default=None,
+                    help="the DLRM-DCNv2's unique_cap_factor: auto or a number, 0 for the caps off")
     ap.add_argument("--eval", action="store_true", help="trace eval batches instead of training steps")
     ap.add_argument("--model", choices=("dlrm_dcnv2", "dlrm_ftrl", *SAMPLE_GRAPHS), default="dlrm_dcnv2")
     ap.add_argument("--dynamic", action="store_true", help="dlrm_ftrl with exact dynamic tables")
     ap.add_argument("--world", type=int, default=1, help="ranks (one process each); rank 0 is traced")
     args = ap.parse_args()
-    if (args.bench and args.model != "dlrm_dcnv2") or (args.dynamic and args.model != "dlrm_ftrl"):
-        ap.error("--bench is a dlrm_dcnv2 setting, --dynamic a dlrm_ftrl one")
+    if ((args.bench or args.ucap is not None) and args.model != "dlrm_dcnv2") or (
+            args.dynamic and args.model != "dlrm_ftrl"):
+        ap.error("--bench and --ucap are dlrm_dcnv2 settings, --dynamic a dlrm_ftrl one")
+    if args.ucap not in (None, "auto"):
+        try:
+            float(args.ucap)
+        except ValueError:
+            ap.error(f"--ucap takes auto or a number, not {args.ucap!r}")
 
     from hugectr_tpu_torch.core.mesh import ResourceManager
     from hugectr_tpu_torch.tools import hybrid

@@ -7,8 +7,10 @@ One 2,000,000-row table, ev 128, read by one weighted Sum lookup of hotness
 rowop group on the sorted route (per-key gradient rows: K = B x 20); tiered
 (hot 131,072 / split vocab 16,384 / superhot 1,024) its superhot tier [0,
 1,024) joins the one-hot group (the weighted one-hot kernels), the hot tier
-takes the dense sweep and the cold tier the sorted route. The bench's UCAP
-settings (HCTR_TPU_UCAP_*) have no counterpart in the port.
+takes the dense sweep and the cold tier the sorted route. The bench
+measures the caps on its batch (HCTR_TPU_UCAP_FACTOR=auto, headroom 1.05,
+weighted_bench.py:12-13, :69): `BENCH_UCAP`, passed as `ucap` to
+`weighted_collection`, then `auto_unique_caps` of the batch's keys.
 
 `run_steps` times training steps of the collection alone, as the bench's
 `step` does (forward, then the fused update from fixed cotangents); over W
@@ -50,10 +52,16 @@ def weighted_plan(tiers: bool, num_shards: int = 1, vocab: int = VOCAB, hot: int
                         **(TIERS if tiers else UNTIERED))
 
 
-def weighted_collection(rm, tiers: bool, dtype=torch.bfloat16, **plan_kw) -> EmbeddingCollection:
-    """The bench's collection: bf16 tables, rowwise AdaGrad at lr 0.01."""
+# the bench's unique-cap settings, as `EmbeddingCollection` keyword arguments
+BENCH_UCAP = dict(unique_cap_factor="auto", ucap_headroom=1.05)
+
+
+def weighted_collection(rm, tiers: bool, dtype=torch.bfloat16, ucap=None, **plan_kw) -> EmbeddingCollection:
+    """The bench's collection: bf16 tables, rowwise AdaGrad at lr 0.01;
+    `ucap` the unique-cap settings (none by default)."""
     plan = weighted_plan(tiers, rm.data_parallel_size, **plan_kw)
-    return EmbeddingCollection(plan, rm, OptParams(Optimizer_t.RowWiseAdaGrad, lr=0.01), dtype=dtype)
+    return EmbeddingCollection(plan, rm, OptParams(Optimizer_t.RowWiseAdaGrad, lr=0.01), dtype=dtype,
+                               **(ucap or {}))
 
 
 def weighted_batch(seed: int, batch: int = BATCH, vocab: int = VOCAB, hot: int = HOT, ev: int = EV):

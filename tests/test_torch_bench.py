@@ -2,7 +2,11 @@
 scaled down (bf16 tables and bf16 rowwise-AdaGrad state, mixed precision, a
 split with a superhot tier, learnable labels), trains 3 steps in both
 packages from the same state (carried from JAX) on the same synthetic
-batches, then evaluates with the binned AUC.
+batches, then evaluates with the binned AUC. Twice: with the unique-cap
+windows off (HCTR_TPU_UCAP_FACTOR=0, as the other tests that build this
+model pin them), and with bench.py's measured caps (auto, headroom 1.05),
+which send 4 groups to the compact forward and move 2 groups' updates to
+the dense sweep.
 
 Tolerances, and why:
 - step 1 loss rtol 1e-5: the same state and batch; bf16 products summed in
@@ -61,14 +65,21 @@ def _metrics(jm, tm):
                       max_batches=s.max_eval_batches, device=tm.device, auc_exact_max=s.auc_exact_max)
 
 
+# the unique-cap windows as each case sets them: JAX's variables, the port's
+# fields
+UCAP = {"0": ({"HCTR_TPU_UCAP_FACTOR": "0"}, dict(unique_cap_factor=0)),
+        "auto": ({"HCTR_TPU_UCAP_FACTOR": "auto", "HCTR_TPU_UCAP_HEADROOM": "1.05"}, {})}
+
+
 @pytest.fixture
-def models(monkeypatch):
-    for k, v in JAX_ENV.items():
+def models(monkeypatch, request):
+    env, port = UCAP[getattr(request, "param", "0")]
+    for k, v in dict(JAX_ENV, **env).items():
         monkeypatch.setenv(k, v)
     reader = jh.DataReaderParams(data_reader_type="synthetic", synthetic_num_batches=3,
                                  synthetic_alpha=1.05, synthetic_learnable=True)
     jm = jflagship.build_dlrm_dcnv2(JaxResourceManager.create(num_devices=1), reader=reader, **TINY)
-    kw = dict(tflagship.bench_settings(), **TINY, **SPLIT)
+    kw = dict(tflagship.bench_settings(), **TINY, **SPLIT, **port)
     tm = tflagship.build_dlrm_dcnv2(ResourceManager.create(device="cpu"), onehot_vocab=64,
                                     synthetic_learnable=True, **kw)
     _metrics(jm, tm)
@@ -76,6 +87,7 @@ def models(monkeypatch):
     return jm, tm
 
 
+@pytest.mark.parametrize("models", list(UCAP), indirect=True)
 def test_tiny_bench_model_three_steps_and_eval_match_jax(models):
     jm, tm = models
     assert [g.name for g in tm.ec.plan.groups] == [g.name for g in jm.ec.plan.groups]
@@ -98,6 +110,12 @@ def test_tiny_bench_model_three_steps_and_eval_match_jax(models):
     counts = ops.plain_counts()
     assert counts["onehot_fwd"] == 3
     assert set(tm.ec.group_routes.values()) == {"onehot", "dense", "sorted"}
+    caps = ("unique_caps", "valid_caps", "dense_exchange_caps")
+    assert [getattr(tm.ec, c) for c in caps] == [getattr(jm.ec, c) for c in caps]
+    assert tm.ec.ucap_measured == jm.ec.ucap_measured == tm.ec.ucap_auto
+    # the compact forward: one ordered pool a step for each group with a
+    # valid cap (4 with bench.py's caps)
+    assert counts["ordered_pool"] == 3 * len(tm.ec.valid_caps) == (12 if tm.ec.ucap_auto else 0)
     assert counts["segscan"] == 3 * sum(r == "sorted" for r in tm.ec.group_routes.values())
     assert counts["onehot_bwd"] == 3 * len(onehot.lookups)
     # eval of each package's own weights

@@ -256,18 +256,38 @@ def test_weighted_and_host_spill_benches_run_on_cpu():
     assert rec["warmup_steps"] == [5, 12] and rec["host_size"] > 0 and np.isfinite(rec["losses"]).all()
 
 
-def test_dense_exchange_bytes_over_8_ranks_meet_the_jax_formula():
+def test_dense_exchange_bytes_over_8_ranks_meet_the_jax_formula(mesh8, monkeypatch):
     """At 8 gloo ranks the forward's all_to_all moves the formula's half of
     the unique bytes exactly, and the update's float32 sums twice the
-    other half (the formula counts them as bf16; both packages send f32)."""
+    other half (the formula counts them as bf16; both packages send f32).
+    C is the cap the ranks measure, as the JAX script takes it: the JAX
+    collection's `auto_unique_caps` on its 8-device mesh gives the same C
+    for the same batch (the least C that fits, times the headroom 1.25,
+    rounded up to 128)."""
+    import jax.numpy as jnp
+
+    from hugectr_tpu.core.types import Combiner_t as JComb, Optimizer_t as JOpt
+    from hugectr_tpu.embedding.collection import EmbeddingCollection as JEC
+    from hugectr_tpu.optim.params import OptParams as JOptParams
+    from hugectr_tpu.parallel import plan as jplan
+
     name, hot, vocab = dxb.CASES[2]
+    keys = dxb.case_keys(np.random.default_rng(dxb.SEED), 64, hot, vocab)
     rec = dxb.run_case(name, hot, vocab, batch=64, world=8)
     f = dxb.formula(64, hot, rec["cap"], 8)
     assert rec["exchange_ran"] and rec["finite"] and rec["all_ranks_alike"]
+    assert rec["cap_measured"] and rec["caps_alike"] and rec["gate_open"]
     assert rec["formula_unique_bytes"] == f["unique"]
     assert rec["measured_fwd_ring_bytes"] == f["unique"] / 2
     assert rec["measured_bwd_ring_bytes"] == f["unique"]
-    assert rec["cap"] == dxb.least_cap(dxb.case_keys(np.random.default_rng(dxb.SEED), 64, hot, vocab), 8)
+    assert rec["least_cap"] == dxb.least_cap(keys, 8) and rec["cap"] >= rec["least_cap"]
+    monkeypatch.setenv("HCTR_TPU_UCAP_FACTOR", "auto")
+    t = jplan.EmbeddingTableConfig(name="t", max_vocabulary_size=vocab, ev_size=dxb.EV)
+    plan = jplan.compile_plan([jplan.LookupConfig(0, t, "f", "e", JComb.Concat, hot)],
+                              jplan.ShardingPlan(strategy=[("mp", ["t"])]), num_shards=8)
+    jec = JEC(plan, mesh8, JOptParams(JOpt.SGD, lr=0.1), dtype=jnp.bfloat16)
+    jec.auto_unique_caps({"f": keys})
+    assert list(jec.dense_exchange_caps.values()) == [rec["cap"]]
 
 
 def test_jax_samples_share_one_data_dir_and_the_port_does_not(monkeypatch, tmp_path):

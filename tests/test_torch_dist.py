@@ -177,7 +177,7 @@ def test_sharded_group_key_ratio_matches_jax(monkeypatch):
     tec = TEC(tp, _rm(4), TOptParams(TOpt.RowWiseAdaGrad), dense_key_ratio=0.3)
     for g in tp.groups:
         if g.compute_kind == "rowop":
-            assert tec._dense_ratio(g) == pytest.approx(jec._opt_knobs(g.name)["dense_ratio"]), g.name
+            assert tec._opt_knobs(g)["dense_ratio"] == pytest.approx(jec._opt_knobs(g.name)["dense_ratio"]), g.name
 
 
 @pytest.fixture(scope="module")
@@ -397,7 +397,8 @@ def test_create_solver_refuses_unported_settings(setting):
 def test_create_solver_accepts_the_inert_fields_quietly(monkeypatch):
     """Every JAX `Solver` field that the JAX package never reads (or reads
     as an exact no-op) is accepted without a warning; the capacity factor
-    is a field; an unknown name keeps its warning."""
+    and the unique-cap factor ("auto", or the JAX Solver's None for unset)
+    are fields; an unknown name keeps its warning."""
     import dataclasses as dc
 
     from hugectr_tpu.core.config import Solver as JSolver
@@ -406,8 +407,11 @@ def test_create_solver_accepts_the_inert_fields_quietly(monkeypatch):
     monkeypatch.setattr(hugectr, "get_logger", lambda: type("L", (), {"warning": warned.append})())
     jfields = {f.name: f.default if f.default is not dc.MISSING else f.default_factory() for f in dc.fields(JSolver)}
     inert = {k: jfields[k] for k in hugectr.INERT_SOLVER_FIELDS}
-    s = hugectr.CreateSolver(mp_capacity_factor=1.5, num_devices=1, num_slices=1, ev_parallelism=1, **inert)
-    assert warned == [] and s.mp_capacity_factor == 1.5
+    s = hugectr.CreateSolver(mp_capacity_factor=1.5, num_devices=1, num_slices=1, ev_parallelism=1,
+                             unique_cap_factor="auto", **inert)
+    assert warned == [] and s.mp_capacity_factor == 1.5 and s.unique_cap_factor == "auto"
+    assert "unique_cap_factor" not in hugectr.INERT_SOLVER_FIELDS
+    assert hugectr.CreateSolver(unique_cap_factor=None).unique_cap_factor == 0.0
     missing = {f.name for f in dc.fields(JSolver)} - {f.name for f in dc.fields(hugectr.Solver)}
     assert missing == set(hugectr.INERT_SOLVER_FIELDS) | {"num_devices"}
     hugectr.CreateSolver(no_such_setting=1)

@@ -3,6 +3,7 @@ once: a script, not a test (it holds no pytest test, so the suite only
 imports it; the run takes minutes of CPU).
 
     JAX_PLATFORMS=cpu python tests/test_torch_fullwidth_once.py [--vocab-cap 20000] [--batch 256] [--steps 2]
+        [--ucap 0|auto]
 
 The port's `tools/fullscale_dryrun.py::run` on the CPU with bench.py's
 settings (`bench_settings()`: ev 128, bottom 512/256/128, DCNv2 512 x 3, top
@@ -13,6 +14,22 @@ under the same HCTR_TPU_* settings, on the same synthetic batches. Prints
 one JSON line: both packages' losses, the largest difference of any table
 element after the last step (and of the dense parameters), and the tables'
 elements that differ.
+
+`--ucap auto` measures the unique-row caps on the first batch in both
+packages with bench.py's headroom of 1.05 (HCTR_TPU_UCAP_FACTOR=auto,
+HCTR_TPU_UCAP_HEADROOM=1.05, bench.py:29, 34: the compact forward of the
+groups with a valid cap, the key-ratio rule on their measured keys); the
+default `0` turns the windows off in both.
+
+`--emb-forward` compares the embedding forward itself, from the step-0
+state on the step-1 batch: the port's collection against the JAX
+collection's, jitted and op by op, counting per lookup top the output
+elements that differ (bf16 values, so any gap is a whole ulp or more).
+
+`--emb-update` compares the embedding update itself: from the step-0
+state, the same cotangents (normal, 1e-3, from a seed; bf16 as the step
+casts them) and the step-1 keys, JAX's jitted `backward_and_update` and
+the port's; per group, the elements that differ and by how much.
 
 `--f32-dense` runs the dense network in float32 in both packages (the
 tables stay bf16), to tell the bf16 products' share of the differences.
@@ -69,11 +86,16 @@ def main():
     p.add_argument("--vocab-cap", type=int, default=20000)
     p.add_argument("--batch", type=int, default=256)
     p.add_argument("--steps", type=int, default=2)
+    p.add_argument("--ucap", choices=("0", "auto"), default="0", help="the unique-row caps: off, or bench.py's")
     p.add_argument("--sign-flips", action="store_true")
     p.add_argument("--f32-dense", action="store_true", help="the dense network in float32 (no mixed precision)")
+    p.add_argument("--emb-forward", action="store_true", help="the embedding forward, port against JAX")
+    p.add_argument("--emb-update", action="store_true", help="the embedding update, port against JAX")
     p.add_argument("--layer-probe", action="store_true", help="the dense network's forward and backward point by point")
     a = p.parse_args()
     os.environ.update(JAX_ENV)
+    os.environ.update(HCTR_TPU_UCAP_FACTOR=a.ucap, HCTR_TPU_UCAP_HEADROOM="1.05")
+    ucap = dict(unique_cap_factor=0) if a.ucap == "0" else dict(ucap_headroom=1.05)
     import jax
     import numpy as np
 
@@ -92,26 +114,27 @@ def main():
     seen = {}
     # a copy: the JAX step donates its state, and device_get may alias it
     state0 = jax.tree_util.tree_map(lambda x: np.array(x, copy=True), jax.device_get(jm.state)) \
-        if a.sign_flips or a.layer_probe else None
+        if a.sign_flips or a.layer_probe or a.emb_forward or a.emb_update else None
 
     def carry(model, i):
         if i == 1:
             load_jax_state(model, jax.device_get(jm.state))
-            if a.sign_flips or a.layer_probe:
+            if a.sign_flips or a.layer_probe or a.emb_forward or a.emb_update:
                 capture_step1(model, seen)
         if i == 2 and a.sign_flips:
             seen["port_tables"] = touched_tables(model.ec, model.tables, seen)
 
     argv = ["--vocab-cap", str(a.vocab_cap), "--batch", str(a.batch), "--steps", str(a.steps), "--device", "cpu"]
-    tm, rec = fullscale_dryrun.run(argv, overrides=dict(use_mixed_precision=False) if a.f32_dense else None,
-                                   step_hook=carry, say=lambda *x, **k: None)
-    flips = probe = None
+    overrides = dict(ucap, **(dict(use_mixed_precision=False) if a.f32_dense else {}))
+    tm, rec = fullscale_dryrun.run(argv, overrides=overrides, step_hook=carry, say=lambda *x, **k: None)
+    flips = probe = emb = upd = None
     if a.layer_probe:
         load_jax_state(tm, state0)
         probe, relu_samples, probe_d = layer_probe(jm, tm, seen["batch"])
     if a.sign_flips:
         import torch
 
+        jm.start_data_reading()  # puts the first batch up, which measures the caps (`_maybe_auto_ucap`)
         jd, jloss = jax_cotangents(jm, seen["batch"])
         jl = [float(jm.train())]
         # the port's update from JAX's own cotangents, from the step-0 state
@@ -141,10 +164,73 @@ def main():
     params = tm.network.param_tree()
     dense = max(float(np.abs(params[layer][k].detach().float().numpy() - np.asarray(v, np.float32)).max())
                 for layer, ps in state["dense_params"].items() for k, v in ps.items())
+    if a.emb_forward:  # after the comparisons: it reloads the step-0 state
+        emb = emb_forward(jm, tm, state0, seen["keys"])
+    if a.emb_update:
+        upd = emb_update(jm, tm, state0, seen["keys"])
     print(json.dumps(dict(command=" ".join(sys.argv), port_losses=rec["losses"], jax_losses=jl,
                           loss_rel_diff=[abs(t - j) / abs(j) for t, j in zip(rec["losses"], jl)],
                           max_table_abs_diff=worst, table_elements_differing=differ, table_elements=total,
-                          max_dense_abs_diff=dense, routes=rec["routes"], sign_flips=flips, layer_probe=probe)))
+                          max_dense_abs_diff=dense, routes=rec["routes"], caps=rec["caps"],
+                          jax_caps=dict(unique=jm.ec.unique_caps, valid=jm.ec.valid_caps,
+                                        dense_exchange=jm.ec.dense_exchange_caps),
+                          emb_forward=emb, emb_update=upd, sign_flips=flips, layer_probe=probe)))
+
+
+def emb_update(jm, tm, state0, keys):
+    """{group: [route, elements differing, their largest |difference|,
+    elements]} after one embedding update in each package from the step-0
+    state on the step-1 keys with the same cotangents (normal x 1e-3 from
+    seed 0, cast to bf16) and lr 0.005."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from hugectr_tpu_torch.tools.carry import load_jax_state
+
+    load_jax_state(tm, state0)
+    tk = {k: torch.from_numpy(v) for k, v in keys.items()}
+    with torch.no_grad():
+        outs = tm.ec.forward(tm.tables, tk)
+    rng = np.random.default_rng(0)
+    d = {k: (rng.normal(size=tuple(v.shape)) * 1e-3).astype(np.float32) for k, v in outs.items()}
+    jt = {k: jnp.asarray(v) for k, v in state0["emb_tables"].items()}
+    js = jax.tree_util.tree_map(jnp.asarray, state0["eopt"])
+    jt, _js = jax.jit(jm.ec.backward_and_update)(jt, js, {k: jnp.asarray(v) for k, v in keys.items()},
+                                                 {k: jnp.asarray(v, jnp.bfloat16) for k, v in d.items()},
+                                                 jnp.asarray(0.005), jnp.asarray(1))
+    tm.ec.backward_and_update(tm.tables, tm.eopt, tk, {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in d.items()},
+                              torch.tensor(0.005), 1)
+    out = {}
+    for g, arr in jt.items():
+        want = np.asarray(arr).astype(np.float32)
+        got = tm.tables[g].float().numpy()
+        out[g] = [tm.ec.group_routes.get(g), int((got != want).sum()), float(np.abs(got - want).max()), int(want.size)]
+    return out
+
+
+def emb_forward(jm, tm, state0, keys):
+    """{lookup top: [elements where the port differs from JAX's jitted
+    forward, where JAX's op-by-op forward differs from its jitted one,
+    elements]} from the step-0 state on the step-1 keys."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from hugectr_tpu_torch.tools.carry import load_jax_state
+
+    load_jax_state(tm, state0)
+    jt = {k: jnp.asarray(v) for k, v in state0["emb_tables"].items()}
+    jk = {k: jnp.asarray(v) for k, v in keys.items()}
+    jit, eager = jax.jit(jm.ec.forward)(jt, jk), jm.ec.forward(jt, jk)
+    with torch.no_grad():
+        port = tm.ec.forward(tm.tables, {k: torch.from_numpy(v) for k, v in keys.items()})
+    out = {}
+    for k in jit:
+        j = np.asarray(jit[k]).astype(np.float32)
+        out[k] = [int((port[k].float().numpy() != j).sum()), int((np.asarray(eager[k]).astype(np.float32) != j).sum()),
+                  int(j.size)]
+    return out
 
 
 def capture_step1(model, seen):

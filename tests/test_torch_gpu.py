@@ -438,6 +438,28 @@ def test_ordered_pool_kernel_is_bitwise_its_plain_version(cuda, dtype, e):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("stride", [129, 256])
+def test_ordered_pool_reads_a_packed_view(cuda, stride):
+    """The first 128 columns of [R, 129] (rowwise pack) and [R, 256]
+    (AdaGrad pack) bf16 rows, read through the row stride: bitwise the
+    plain version on the same view and the kernel on a contiguous copy."""
+    rng = np.random.default_rng(stride)
+    n_slots = 4000
+    lens = rng.integers(0, 30, size=n_slots)
+    slots = torch.from_numpy(np.repeat(np.arange(n_slots), lens))
+    rows = torch.from_numpy(np.minimum(rng.integers(0, 1100, size=slots.numel()), 1000))
+    full = torch.from_numpy(rng.normal(size=(1000, stride)).astype(np.float32)).to(torch.bfloat16)
+    srows, offsets = op.segments(rows, slots, n_slots, 1000)
+    view = full[:, :128]
+    want = op.ordered_pool_plain(view, srows, offsets)
+    got = op.ordered_pool(full.to(cuda)[:, :128], srows.to(cuda), offsets.to(cuda))
+    dense = op.ordered_pool(view.contiguous().to(cuda), srows.to(cuda), offsets.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+    assert torch.equal(got.view(torch.int16), dense.view(torch.int16))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("backend", ["nccl", "gloo"])
 def test_tiny_hybrid_model_matches_one_card(cuda, backend):
     """The tiny DLRM-DCNv2 (sorted route on) at W = 2 against one card from

@@ -50,8 +50,9 @@ torch.set_num_threads(1)
 TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_ULP = 2.0**-7
 EMPTY = 2**31 - 1
+# the unique-cap windows off, as BENCH_ENV sets them for the JAX package
 BENCH_KW = dict(tflagship.bench_settings(), **BENCH_TINY, **BENCH_SPLIT, onehot_vocab=64, synthetic_learnable=True,
-                metrics_spec={"auc": 0.80275, "average_loss": 0.0})
+                metrics_spec={"auc": 0.80275, "average_loss": 0.0}, unique_cap_factor=0)
 MASKED_KW = dict(BENCH_KW, fwd_partition=False)  # JAX's HCTR_TPU_FWD_PARTITION=0
 
 

@@ -75,7 +75,8 @@ def port_model(config: str, rm=None):
         return tflagship.build_tiny_dlrm(rm, batchsize=64, **F32_ENGINE)
     if config.startswith("ftrl"):
         return tflagship.build_tiny_dlrm_ftrl(rm, dynamic=config == "ftrl_dynamic")
-    kw = dict(tflagship.bench_settings(), **BENCH_TINY, **BENCH_SPLIT)
+    # the unique-cap windows off, as BENCH_ENV sets them for the JAX package
+    kw = dict(tflagship.bench_settings(), **BENCH_TINY, **BENCH_SPLIT, unique_cap_factor=0)
     return tflagship.build_dlrm_dcnv2(rm, onehot_vocab=64, synthetic_learnable=True, **kw)
 
 
@@ -406,17 +407,37 @@ def test_memory_filesystem_round_trip(jax_runs):
 
 
 @pytest.mark.parametrize("name, item", [("packed_mp_ev16.npy", "Left out on purpose")])
-def test_files_the_port_cannot_represent_raise(tmp_path, name, item):
-    """A snapshot holding the JAX package's packed table-and-state array
-    raises, naming the ROADMAP entry, from every loader that reads a
-    snapshot dir: skipping the file would lose state. (The i64 key maps
-    load: tests/test_torch_i64.py.)"""
-    tm = port_model("f32")
-    tm.download_params_to_files(str(tmp_path / "snap"), 0)
+def test_files_the_port_cannot_represent_raise(monkeypatch, tmp_path, name, item):
+    """The JAX package's packed table-and-state file, which every loader
+    once refused, now loads: a snapshot of the JAX tiny model with
+    HCTR_TPU_PACKED_STATE (AdaGrad [R, 2E], `name`) restores the port's
+    packed storage bitwise through `load_params_from_files`, and the
+    loaders of the weights and of the sparse state read the same snapshot
+    without raising, keeping the accumulators as the JAX package's do. The
+    ROADMAP section `item` no longer holds the packed layouts."""
+    for k, v in dict(F32_ENV, HCTR_BENCH_OPT="adagrad", HCTR_TPU_PACKED_STATE="1").items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("HCTR_TPU_EMB_DTYPE", raising=False)
+    jm = jflagship.build_tiny_dlrm(JaxResourceManager.create(num_devices=1), batchsize=64)
+    jm.train()
+    jm.download_params_to_files(str(tmp_path / "snap"), 0)
     snap = str(tmp_path / "snap_iter0")
-    np.save(os.path.join(snap, name), np.zeros((4, 32), np.float32))
-    for load in (tm.load_params_from_files, tm.load_sparse_weights, tm.load_sparse_optimizer_states):
-        with pytest.raises(NotImplementedError, match=item):
-            load(snap)
-    with pytest.raises(NotImplementedError, match=item):
-        tm.load_sparse_optimizer_states(os.path.join(snap, "emb_opt_states"))
+    assert name in os.listdir(snap)
+    group = name[len("packed_"):-len(".npy")]
+    want = np.asarray(jax.device_get(jm.state)["emb_tables"][group])
+    tm = tflagship.build_tiny_dlrm(cpu(), batchsize=64, optimizer="adagrad", packed_state=True, **F32_ENGINE)
+    assert group in tm.ec.packed_groups and tuple(tm.tables[group].shape) == want.shape
+    tm.load_params_from_files(snap)
+    np.testing.assert_array_equal(tm.tables[group].numpy(), want)
+    acc = tm.tables[group][:, 16:].clone()
+    with torch.no_grad():
+        tm.tables[group][:, :16] = 0
+    tm.load_sparse_weights(snap)
+    tm.load_sparse_optimizer_states(snap)
+    tm.load_sparse_optimizer_states(os.path.join(snap, "emb_opt_states"))
+    np.testing.assert_array_equal(tm.tables[group].numpy(), want)
+    assert torch.equal(tm.tables[group][:, 16:], acc)
+    roadmap = open(os.path.join(os.path.dirname(__file__), "..", "ROADMAP.md")).read()
+    section = roadmap[roadmap.index(item):]
+    section = section[: section.find("\n#", 1) if "\n#" in section[1:] else len(section)]
+    assert "HCTR_TPU_PACKED_STATE" not in section and "HCTR_TPU_ROWWISE_PACK" not in section

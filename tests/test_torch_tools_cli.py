@@ -255,9 +255,11 @@ def test_calculator_rowwise_adagrad_sizes_in_the_port_only(monkeypatch, capsys):
 
 
 # ---------------------------------------------------------------- full scale
+# the JAX tool's settings (tools/fullscale_dryrun.py:6-9: the caps measured,
+# the headroom left at its default), at the tiny split sizes
 JAX_ENV = {
     "HCTR_TPU_EMB_DTYPE": "bfloat16", "HCTR_TPU_EMB_STATE_DTYPE": "bfloat16", "HCTR_TPU_SEGSUM": "xla",
-    "HCTR_TPU_UCAP_FACTOR": "0", "HCTR_TPU_HOT_ROWS": "256", "HCTR_TPU_SUPERHOT_ROWS": "32",
+    "HCTR_TPU_UCAP_FACTOR": "auto", "HCTR_TPU_UCAP_HEADROOM": "1.25", "HCTR_TPU_HOT_ROWS": "256", "HCTR_TPU_SUPERHOT_ROWS": "32",
     "HCTR_TPU_SPLIT_VOCAB": "512", "HCTR_TPU_ONEHOT_VOCAB": "64", "HCTR_TPU_AUC_EXACT_MAX": "100",
     "HCTR_TPU_DENSE_UPDATE_ROWS": "1024", "HCTR_TPU_DENSE_KEY_RATIO": "0.3", "HCTR_BENCH_OPT": "rowwise_adagrad",
 }
@@ -289,6 +291,8 @@ def test_fullscale_tool_at_a_small_cap_matches_jax(monkeypatch):
                                    overrides=overrides, step_hook=carry,
                                    say=lambda *a, **k: lines.append(" ".join(map(str, a))))
     jl = [jm.train() for _ in range(2)]
+    assert rec["caps"] == dict(unique=jm.ec.unique_caps, valid=jm.ec.valid_caps,
+                               dense_exchange=jm.ec.dense_exchange_caps) and rec["caps"]["valid"]
     np.testing.assert_allclose(rec["losses"][0], jl[0], rtol=1e-5)
     np.testing.assert_allclose(rec["losses"][1], jl[1], rtol=5e-3)
     assert rec["rows_total"] == fullscale_dryrun.rows_total(4000) == sum(min(v, 4000)
