@@ -22,25 +22,33 @@ Each phase prints one JSON line with its own seconds:
    "profiler" line at the end); the fraction of the bound is judged on it. The grouped one-hot forward at the flagship's 13-table
    group (keys as int32 column views of one [B, 62] tensor): one launch per
    call, its times beside the bound and one `embedding_bag` call over the
-   group storage. Then the edge cases of the designs: grouped forward with Sum and Mean
+   group storage. The grouped one-hot backward, one launch a group, at the
+   f32 flagship's 13-table group (f32 and bf16 cotangents) and bench.py's
+   20-lookup group: each lookup's route, one launch per call, the counts
+   exact, two calls bitwise equal where every lookup takes the counts
+   matmul, its times beside the bound and one `index_add_` of every (row,
+   cotangent) pair of the group. Then the edge cases of the designs: grouped forward with Sum and Mean
    lookups, negative and >= V keys, int64 keys >= 2^31, all padding, h 1
    beside h 128, a one-lookup group against the per-table forward; every
-   one-hot key on one row, V at the
-   backward's shared-memory tile edges, all padding, accumulation into a
-   caller's buffers; segscan over one segment, all heads, K at a tile's
+   one-hot key on one row on each backward route, V at the privatised
+   route's shared-memory tile edges, all padding, a group of int64 keys,
+   wrapping keys, a window, Mean and Sum and shared rows on each route,
+   the per-table backward on local keys, accumulation into a caller's
+   buffers; segscan over one segment, all heads, K at a tile's
    edges, K below a tile and K = 0, and two runs compared bitwise. Then
    the shapes of bench.py's configuration: the grouped forward at its
    20-lookup group (seven superhot tiers reading the raw keys through their
    windows), f32 and bf16; the window's edge cases (lo - 1, lo, hi - 1, hi,
    keys past V and below -1, dropped by a tier and wrapped beside it by an
-   unsplit lookup); the seven superhot backwards (V 1,024, h 3 to 100) with
-   the `index_add_` time beside them; the bf16 segscan of table 20's cold
+   unsplit lookup); table 20's superhot backward alone (V 1,024, h 100)
+   through the per-table entry with the `index_add_` time beside it; the
+   bf16 segscan of table 20's cold
    tier (bf16 rows, float32 sums). Then the shapes of DLRM with FTRL: the
    grouped forward at its 13-lookup hotness-1 group beside one
-   `embedding_bag`, the 13 backwards at hotness 1 beside `index_add_`, and
+   `embedding_bag`, its grouped backward beside one `index_add_`, and
    segscan at K 16,384. Then the bench shapes of one of the W ranks of the
-   hybrid phases (cases `_w{W}`): the 20-lookup group and the superhot
-   backwards on B/W rows, the cold tier's segscan over the keys rank 0
+   hybrid phases (cases `_w{W}`): the 20-lookup group's forward and
+   backward on B/W rows, the cold tier's segscan over the keys rank 0
    owns. Then the ordered pool of the owner-partitioned forward
    (csrc/ordered_pool.cu) bitwise against its plain version at rank 0's
    shapes of the hybrid phases (the f32 flagship's table-20 and 5-lookup
@@ -88,7 +96,7 @@ Each phase prints one JSON line with its own seconds:
 6. "ftrl_path": DLRM with FTRL at full width (`build_dlrm_ftrl`: 26
    tables capped at 400,000 rows, ev 128, hotness 1, batch 16,384), 6
    steps and a 20-batch eval, counters read around each: `onehot_fwd` once
-   per step and per eval batch, `onehot_bwd` 13 per step, `segscan` in the
+   per step and per eval batch, `onehot_bwd` once per step, `segscan` in the
    steps, the route map as planned, finite losses; learnable synthetic
    labels, and whether the loss falls.
 7. "ftrl_dynamic_path": the same on exact dynamic tables (4,096 rows
@@ -165,7 +173,7 @@ Each phase prints one JSON line with its own seconds:
    2-byte voids, the split tables' merged views, a bitwise reload);
    "freeze_path" (the full-width static DLRM-FTRL with table 5 (one-hot),
    table 20 (a sorted group of its own) and the dense network frozen, 2
-   steps: `onehot_bwd` 12 a step, segscan's K per group against the keys
+   steps: `onehot_bwd` once a step (12 lookups), segscan's K per group against the keys
    less the frozen slots, frozen rows and dense weights bitwise, each
    kernel against its plain version on these inputs; unfrozen, 1 step);
    "hybrid_snapshot" (the tiny DLRM-DCNv2 on 2 ranks: rank 0 alone writes,
@@ -385,8 +393,8 @@ def power_law(rng, vocab, size):
 
 def kernel_checks(torch, results):
     """Phase 2: each kernel against its plain version at the flagship's
-    shapes (one-hot: tables 3, 24 and 5; segscan: table 21's K), then the
-    edge cases of the designs."""
+    shapes (one-hot forward: tables 3, 24 and 5; the one-hot backward: the
+    groups; segscan: table 21's K), then the edge cases of the designs."""
     from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
 
     import numpy as np
@@ -403,7 +411,6 @@ def kernel_checks(torch, results):
             t0 = time.perf_counter()
             dname = str(dt).split(".")[1]
             table = torch.as_tensor(rng.standard_normal((v, E), dtype=np.float32), device=dev).to(dt)
-            d = torch.as_tensor(rng.standard_normal((B, E), dtype=np.float32), device=dev).to(dt)
             isz = table.element_size()
             uniq = int(torch.unique(keys).numel())
             # forward
@@ -427,40 +434,10 @@ def kernel_checks(torch, results):
                 bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms,
             )
             results.append(rec)
-            # backward
-            grad, cnt = oh.onehot_matmul_bwd(keys, d, v, dt)
-            want_g, want_c = oh.onehot_matmul_bwd_plain(keys, d, v, dt)
-            scale_g, _ = oh.onehot_matmul_bwd_plain(keys, d.float().abs(), v, torch.float32)
-            torch.cuda.synchronize()
-            cnt_ok = bool(torch.equal(cnt, want_c))
-            d_rep = d.repeat_interleave(h, dim=0)
-            flat = keys_l.reshape(-1)
-            b_ms, b_by = bound(keys.numel() * 4 + B * E * isz + v * E * isz + v * 4, B * h * E)
-            dms, per_call = device_ms(lambda: oh.onehot_matmul_bwd(keys, d, v, dt), KERNEL_NAMES["onehot_bwd"])
-
-            def library():
-                return torch.zeros((v, E), dtype=dt, device=dev).index_add_(0, flat, d_rep)
-
-            rec2 = dict(
-                kernel="onehot_bwd", case=name, dtype=dname, B=B, V=v, h=h, E=E,
-                route=oh.bwd_route(B, h, v, E, dev),
-                scaled_err=scaled_err(grad, want_g, scale_g),
-                max_abs_err=float((grad.float() - want_g.float()).abs().max()),
-                counts_exact=cnt_ok, tol=TOL[dname],
-                ms=time_ms(lambda: oh.onehot_matmul_bwd(keys, d, v, dt)),
-                device_ms=dms, device_launches_per_call=per_call,
-                plain_ms=time_ms(lambda: oh.onehot_matmul_bwd_plain(keys, d, v, dt)),
-                library_ms=time_ms(library),
-                library_device_ms=device_ms(library, KERNEL_NAMES["index_add_"])[0],
-                library="Tensor.index_add_ (grad only; library_device_ms: the index_add_ kernel)",
-                bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms,
-            )
-            results.append(rec2)
-            rec2["seconds"] = rec["seconds"] = time.perf_counter() - t0
+            rec["seconds"] = time.perf_counter() - t0
             emit(rec)
-            emit(rec2)
-            if not (rec["scaled_err"] <= TOL[dname] and rec2["scaled_err"] <= TOL[dname] and cnt_ok):
-                raise AssertionError(f"one-hot kernel disagrees with its plain version: {rec} {rec2}")
+            if not rec["scaled_err"] <= TOL[dname]:
+                raise AssertionError(f"one-hot forward disagrees with its plain version: {rec}")
     # padding and ragged shapes: B and V not multiples of anything, -1 keys
     for v, h in ((57, 3), (600, 6)):
         keys_np = power_law(rng, v, (1000, h)).astype(np.int32)
@@ -480,6 +457,7 @@ def kernel_checks(torch, results):
         if not (e1 <= TOL["float32"] and e2 <= TOL["float32"] and torch.equal(c, wc)):
             raise AssertionError(f"one-hot kernel disagrees on padded keys (V={v}, h={h})")
     onehot_fwd_group_checks(torch, np, oh, dev, results)
+    onehot_bwd_group_checks(torch, np, oh, dev, results)
     onehot_bwd_edges(torch, np, rng, oh, dev)
     segscan_checks(torch, np, rng, ss, dev, results)
     bench_shape_checks(torch, np, oh, ss, dev, results)
@@ -496,9 +474,9 @@ def kernel_checks(torch, results):
 def ftrl_shape_checks(torch, np, oh, ss, dev, results):
     """The shapes the DLRM-FTRL path gives the kernels (`ftrl_plan()`,
     hotness 1, float32): the grouped forward of its 13-table one-hot group
-    beside one embedding_bag call, the backward of each of the 13 tables
-    (h 1) beside index_add_, and segscan at K 16,384 (the sorted keys of a
-    400,000-row table, one key per sample)."""
+    beside one embedding_bag call, its grouped backward (h 1) beside one
+    index_add_, and segscan at K 16,384 (the sorted keys of a 400,000-row
+    table, one key per sample)."""
     from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
     from hugectr_tpu_torch.tools.flagship import ftrl_plan, onehot_group_inputs
     from hugectr_tpu_torch.tools.kernel_sweep import embedding_bag_call, group_bytes
@@ -527,38 +505,8 @@ def ftrl_shape_checks(torch, np, oh, ss, dev, results):
     emit(rec)
     if not (err <= TOL["float32"] and launches == 1 and per_call in (1, None) and ok_shape and len(lookups) == 13):
         raise AssertionError(f"DLRM-FTRL group forward disagrees or launched more than once: {rec}")
-    g = next(x for x in plan.groups if x.compute_kind == "onehot")
-    for lm in g.lookups:
-        t0 = time.perf_counter()
-        v = int(g.table_vocab[lm.table_index])
-        keys = torch.as_tensor(power_law(rng, v, (B, 1)).astype(np.int32), device=dev)
-        d = torch.as_tensor(rng.standard_normal((B, E), dtype=np.float32), device=dev)
-        call = lambda: oh.onehot_matmul_bwd(keys, d, v, dt)  # noqa: E731
-        grad, cnt = call()
-        want_g, want_c = oh.onehot_matmul_bwd_plain(keys, d, v, dt)
-        scale_g, _ = oh.onehot_matmul_bwd_plain(keys, d.abs(), v, dt)
-        torch.cuda.synchronize()
-        flat = keys.long().reshape(-1)
-
-        def library():
-            return torch.zeros((v, E), device=dev).index_add_(0, flat, d)
-
-        b_ms, b_by = bound(B * 4 + B * E * 4 + v * E * 4 + v * 4, B * E)
-        dms, per_call = device_ms(call, KERNEL_NAMES["onehot_bwd"])
-        rec = dict(
-            kernel="onehot_bwd", case=f"ftrl_table{g.tables[lm.table_index].name}", dtype="float32", B=B, V=v,
-            h=1, E=E, route=oh.bwd_route(B, 1, v, E, dev), scaled_err=scaled_err(grad, want_g, scale_g),
-            max_abs_err=float((grad - want_g).abs().max()), counts_exact=bool(torch.equal(cnt, want_c)),
-            tol=TOL["float32"], ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
-            plain_ms=time_ms(lambda: oh.onehot_matmul_bwd_plain(keys, d, v, dt)),
-            library_ms=time_ms(library), library_device_ms=device_ms(library, KERNEL_NAMES["index_add_"])[0],
-            library="Tensor.index_add_ (grad only)", bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms,
-            seconds=time.perf_counter() - t0,
-        )
-        results.append(rec)
-        emit(rec)
-        if not (rec["scaled_err"] <= TOL["float32"] and rec["counts_exact"]):
-            raise AssertionError(f"DLRM-FTRL onehot_bwd disagrees with its plain version: {rec}")
+    d = torch.as_tensor(rng.standard_normal((B, width), dtype=np.float32), device=dev)
+    bwd_group_case(torch, oh, dev, results, f"ftrl_group{len(lookups)}", keys, lookups, d, table.shape[0], E)
     t0 = time.perf_counter()
     seg = np.sort(power_law(rng, 400_000, B))
     heads = torch.as_tensor(np.concatenate([[True], seg[1:] != seg[:-1]]), device=dev)
@@ -586,17 +534,19 @@ def ftrl_shape_checks(torch, np, oh, ss, dev, results):
 
 
 def bench_shape_checks(torch, np, oh, ss, dev, results, world: int = 1):
-    """The shapes only bench.py's configuration gives the kernels: the seven
-    superhot backwards (V 1,024 of the split tables' first rows, h 3 to
-    100, power-law keys through the window [0, 1024), d in bf16 as the step
-    gives it, float32 sums) and the bf16 segscan of table 20's cold tier
-    (the valid keys of [131072, 2M) of 16,384 x 100 power-law keys: bf16
-    rows, float32 sums). With `world` W > 1, the shapes of one of W ranks
-    (case names end in `_w{W}`): the 20-lookup group forward and the
-    superhot backwards on B/W rows, and the cold tier's segscan over the
-    keys rank 0's shard owns among the 16,384 x 100 gathered ones."""
+    """The shapes only bench.py's configuration gives the kernels: table
+    20's superhot backward alone through the per-table entry (V 1,024 of
+    the split table's first rows, h 100, power-law keys through the window
+    [0, 1024), d in bf16 as the step gives it, float32 sums; the bench
+    group's single launch is in `onehot_bwd_group_checks`) and the bf16
+    segscan of table 20's cold tier (the valid keys of [131072, 2M) of
+    16,384 x 100 power-law keys: bf16 rows, float32 sums). With `world` W >
+    1, the shapes of one of W ranks (case names end in `_w{W}`): the
+    20-lookup group forward and backward on B/W rows, and the cold tier's
+    segscan over the keys rank 0's shard owns among the 16,384 x 100
+    gathered ones."""
     from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
-    from hugectr_tpu_torch.tools.flagship import BENCH_PLAN, flagship_plan, raw_vocab
+    from hugectr_tpu_torch.tools.flagship import BENCH_PLAN, flagship_plan, onehot_group_inputs, raw_vocab
 
     plan = flagship_plan(ev_size=E, num_shards=world, **BENCH_PLAN)
     g = plan.groups[0]
@@ -605,9 +555,11 @@ def bench_shape_checks(torch, np, oh, ss, dev, results, world: int = 1):
     sfx = f"_w{world}" if world > 1 else ""
     if world > 1:
         bench_group_check(torch, np, oh, dev, results, plan, b, sfx)
-    for lm in g.lookups:
-        if not lm.windowed:
-            continue
+        keys, lookups, table, width = onehot_group_inputs(rng, b, E, torch.bfloat16, dev, plan=plan)
+        d = torch.as_tensor(rng.standard_normal((b, width), dtype=np.float32), device=dev).to(torch.bfloat16)
+        bwd_group_case(torch, oh, dev, results, f"group{len(lookups)}{sfx}", keys, lookups, d, table.shape[0], E)
+    else:  # table 20's superhot tier alone, through the per-table entry
+        lm = next(x for x in g.lookups if x.windowed and g.tables[x.table_index].name.startswith("20::"))
         t0 = time.perf_counter()
         v, h = int(g.table_vocab[lm.table_index]), lm.hotness
         raw = torch.as_tensor(power_law(rng, raw_vocab(plan, lm), (b, h)).astype(np.int32), device=dev)
@@ -630,10 +582,11 @@ def bench_shape_checks(torch, np, oh, ss, dev, results, world: int = 1):
         b_ms, b_by = bound(keys.numel() * 4 + b * E * 2 + v * E * 4 + v * 4, nkeys * E)
         dms, per_call = device_ms(call, KERNEL_NAMES["onehot_bwd"])
         rec = dict(
-            kernel="onehot_bwd", case=f"superhot_{g.tables[lm.table_index].name}{sfx}", dtype="bfloat16",
+            kernel="onehot_bwd", case=f"superhot_{g.tables[lm.table_index].name}", dtype="bfloat16",
             B=b, V=v, h=h, E=E, keys=nkeys, route=oh.bwd_route(b, h, v, E, dev),
             scaled_err=scaled_err(grad, want_g, scale_g),
             max_abs_err=float((grad - want_g).abs().max()), counts_exact=bool(torch.equal(cnt, want_c)),
+            bitwise_repeat=bool(torch.equal(bits(torch, call()[0]), bits(torch, grad))),
             tol=TOL["float32"], ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
             plain_ms=time_ms(lambda: oh.onehot_matmul_bwd_plain(keys, d, v, torch.float32)),
             library_ms=time_ms(library), library_device_ms=device_ms(library, KERNEL_NAMES["index_add_"])[0],
@@ -643,7 +596,8 @@ def bench_shape_checks(torch, np, oh, ss, dev, results, world: int = 1):
         results.append(rec)
         emit(rec)
         # float32 sums of bf16 values: the float32 tolerance
-        if not (rec["scaled_err"] <= TOL["float32"] and rec["counts_exact"]):
+        if not (rec["scaled_err"] <= TOL["float32"] and rec["counts_exact"]
+                and (rec["bitwise_repeat"] or rec["route"] != "mma")):
             raise AssertionError(f"superhot onehot_bwd disagrees with its plain version: {rec}")
     # the cold tier of table 20: the valid keys of its window (of rank 0's
     # shard over W ranks, as rows of that shard), sorted
@@ -726,6 +680,95 @@ def group_err(torch, oh, keys, lookups, table, width):
     torch.cuda.synchronize()
     ok_shape = got.dtype == table.dtype and tuple(got.shape) == (keys[0].shape[0], width)
     return scaled_err(got, want, scale), float((got.float() - want.float()).abs().max()), launches, ok_shape
+
+
+def bwd_pairs(torch, oh, keys, lookups, d, e, weights=None):
+    """(group rows, float32 cotangent rows) of every non-padding key of a
+    backward group: the pairs one `index_add_` over the group storage adds
+    (Mean divisions and weights applied as the plain version applies
+    them)."""
+    rows, src = [], []
+    for i, (k, lk) in enumerate(zip(keys, lookups)):
+        valid, local = oh.place_keys(oh.window_keys(k, lk.key_lo, lk.key_hi), lk.vocab)
+        dd = d[:, lk.out_begin : lk.out_begin + e]
+        w = weights[i] if weights is not None else None
+        if lk.mean:
+            den = (torch.clamp(valid.to(d.dtype).sum(dim=1, keepdim=True), min=1.0) if w is None else
+                   torch.where(valid, w, 0.0).to(d.dtype).float().sum(dim=1, keepdim=True).to(d.dtype))
+            dd = dd / torch.where(den == 0, torch.ones((), dtype=d.dtype, device=d.device), den)
+        x = dd.float().unsqueeze(1).expand(-1, k.shape[1], -1)
+        if w is not None:
+            x = x * w.unsqueeze(-1)
+        rows.append((local + lk.row_off)[valid])
+        src.append(x[valid])
+    return torch.cat(rows), torch.cat(src)
+
+
+def bwd_group_case(torch, oh, dev, results, case, keys, lookups, d, rows, e, weights=None, tol=None,
+                   route=None, **extra):
+    """One grouped one-hot backward launch against its plain version: the
+    gradient within `tol` (default the float32 one, in either type of d) of
+    the float32 sums' scale (plain version on |d| and |w|), the touch counts exact (weighted: the touched rows exact and
+    the counts within the float32 tolerance), one launch a call, two calls
+    bitwise equal where every lookup takes the counts matmul; CUDA-event ms,
+    profiler device ms, the plain version's ms, one `index_add_` of every
+    (row, cotangent) pair of the group, and the bound: each key read once, d
+    read once a lookup, the float32 gradient and counts written once, one
+    add a key and column. Returns the record; raises on disagreement."""
+    from hugectr_tpu_torch import ops
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+
+    t0 = time.perf_counter()
+    dname = str(d.dtype).split(".")[1]
+    tol = TOL["float32"] if tol is None else tol  # float32 sums of values exact in d's type
+    b = d.shape[0]
+    call = lambda: oh.onehot_bwd_chunked(keys, lookups, d, rows, e, weights) if route is None else \
+        oh.onehot_bwd_group(keys, lookups, d, rows, e, weights, route=route)  # noqa: E731
+    before = ops.launch_counts()["onehot_bwd"]
+    grad, cnt = call()
+    launches = ops.launch_counts()["onehot_bwd"] - before
+    want_g, want_c = oh.onehot_bwd_group_plain(keys, lookups, d, rows, e, weights)
+    scale_g, _ = oh.onehot_bwd_group_plain(keys, lookups, d.float().abs(), rows, e,
+                                           None if weights is None else [None if w is None else w.abs()
+                                                                         for w in weights])
+    torch.cuda.synchronize()
+    routes = [route or oh.bwd_route(b, k.shape[1], lk.vocab, e, dev, weights is not None and weights[i] is not None)
+              for i, (k, lk) in enumerate(zip(keys, lookups))]
+    weighted = weights is not None and any(w is not None for w in weights)
+    if weighted:
+        cnt_ok = bool(torch.equal(cnt > 0, want_c > 0)) and \
+            float(((cnt - want_c).abs() / want_c.clamp(min=1e-30)).max()) <= TOL["float32"]
+    else:
+        cnt_ok = bool(torch.equal(cnt, want_c))
+    repeat = None
+    spans = sorted((lk.row_off, lk.row_off + lk.vocab) for lk in lookups)
+    disjoint = all(a[1] <= b_[0] for a, b_ in zip(spans, spans[1:]))
+    if set(routes) == {"mma"} and disjoint:  # lookups on the same rows add in either order
+        g2, c2 = call()
+        repeat = bool(torch.equal(bits(torch, g2), bits(torch, grad)) and torch.equal(c2, cnt))
+    flat, src = bwd_pairs(torch, oh, keys, lookups, d, e, weights)
+    nkeys = int(flat.numel())
+    lib = lambda: torch.zeros((rows, e), device=dev).index_add_(0, flat, src)  # noqa: E731
+    nbytes = (sum(k.numel() * k.element_size() for k in keys) + len(keys) * b * e * d.element_size()
+              + rows * e * 4 + rows * 4 + sum(w.numel() * 4 for w in (weights or ()) if w is not None))
+    b_ms, b_by = bound(nbytes, nkeys * e)
+    dms, per_call = device_ms(call, KERNEL_NAMES["onehot_bwd"])
+    rec = dict(
+        kernel="onehot_bwd", case=case, dtype=dname, B=b, lookups=len(lookups), E=e, rows=rows, keys=nkeys,
+        routes=routes, weighted=weighted, scaled_err=scaled_err(grad, want_g, scale_g),
+        max_abs_err=float((grad - want_g).abs().max()), counts_exact=cnt_ok, bitwise_repeat=repeat, tol=tol,
+        launches_per_call=launches, ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
+        plain_ms=time_ms(lambda: oh.onehot_bwd_group_plain(keys, lookups, d, rows, e, weights), samples=5, inner=1),
+        library_ms=time_ms(lib), library_device_ms=device_ms(lib, KERNEL_NAMES["index_add_"])[0],
+        library="one Tensor.index_add_ of every (row, cotangent) pair of the group (grad only)",
+        bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0, **extra,
+    )
+    results.append(rec)
+    emit(rec)
+    want_launches = -(-len(lookups) // oh.MAX_GROUP_LOOKUPS) if route is None else 1
+    if not (rec["scaled_err"] <= tol and cnt_ok and repeat is not False and launches == want_launches):
+        raise AssertionError(f"grouped onehot_bwd disagrees with its plain version: {rec}")
+    return rec
 
 
 def onehot_fwd_group_checks(torch, np, oh, dev, results):
@@ -845,41 +888,91 @@ def onehot_fwd_group_edges(torch, np, oh, dev):
             raise AssertionError(f"one-lookup group != per-table forward: {err}")
 
 
-def onehot_bwd_edges(torch, np, rng, oh, dev):
-    """The backward's edge cases: every key on one row, V one below, at and
-    one above the privatised route's shared-memory limit, the engine's
-    largest table, all padding, bfloat16 output, accumulation into a
-    caller's buffers."""
-    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+def onehot_bwd_group_checks(torch, np, oh, dev, results):
+    """The grouped backward at the main paths' one-hot groups, one launch a
+    group: the f32 flagship's 13 lookups (f32 and bf16 cotangents) and
+    bench.py's 20 (13 tables and 7 windowed superhot tiers of power-law
+    keys, bf16 cotangents), keys as column views of one [B, H] tensor and
+    the cotangent [B, W] read in place; then table 20's superhot tier alone
+    through the per-table entry (`bench_shape_checks`)."""
+    from hugectr_tpu_torch.tools.flagship import BENCH_PLAN, onehot_group_inputs
 
+    for dt, plan_kw in ((torch.float32, {}), (torch.bfloat16, {}), (torch.bfloat16, BENCH_PLAN)):
+        rng = np.random.default_rng(31)
+        keys, lookups, table, width = onehot_group_inputs(rng, B, E, dt, dev, **plan_kw)
+        d = torch.as_tensor(rng.standard_normal((B, width), dtype=np.float32), device=dev).to(dt)
+        bwd_group_case(torch, oh, dev, results, f"group{len(lookups)}", keys, lookups, d, table.shape[0], E,
+                       windowed=sum(lk.windowed for lk in lookups))
+
+
+def onehot_bwd_edges(torch, np, rng, oh, dev):
+    """The backward's edge cases, one-lookup groups of raw keys unless
+    named: every key on one row on each route, V one below, at and one
+    above the privatised route's shared-memory limit, the engine's largest
+    table, all padding, bfloat16 cotangents; a group of int64 keys past
+    2^31, keys that wrap, -1 padding, a window, Mean and Sum, two lookups on
+    the same rows, a ragged batch and d read through a row stride, on each
+    route; the per-table entry on local keys, accumulation into a caller's
+    buffers."""
     vt = oh.bwd_tile_rows(E, dev)
-    cases = [("one_row", np.full((B, 40), 5, np.int32), 108, torch.float32)]
+    cases = [("one_row", np.full((B, 40), 5, np.int32), 108, torch.float32, None)]
+    cases += [(f"one_row_{r}", np.full((B, 40), 5, np.int32), 108, torch.float32, r) for r in oh.BWD_ROUTES]
     # V one below and at the most rows the privatised route holds in shared
-    # memory, and one above (global route)
+    # memory, and one above
     for v in (vt - 1, vt, vt + 1):
-        cases.append((f"V{v}_h40", power_law(rng, v, (B, 40)).astype(np.int32), v, torch.float32))
-    # the engine's largest table (global route) at high and low hotness
+        cases.append((f"V{v}_h40", power_law(rng, v, (B, 40)).astype(np.int32), v, torch.float32, None))
+    cases.append((f"V{vt}_h40_privatised", power_law(rng, vt, (B, 40)).astype(np.int32), vt, torch.float32,
+                  "privatised"))
+    # the engine's largest table at high and low hotness
     for hh in (128, 2):
-        cases.append((f"V8192_h{hh}", power_law(rng, 8192, (B, hh)).astype(np.int32), 8192,
-                      torch.float32))
-    cases.append(("all_padding", np.full((B, 3), -1, np.int32), 100, torch.float32))
-    cases.append(("one_row_bf16", np.full((B, 40), 5, np.int32), 108, torch.bfloat16))
-    for name, keys_np, v, dt in cases:
+        cases.append((f"V8192_h{hh}", power_law(rng, 8192, (B, hh)).astype(np.int32), 8192, torch.float32, None))
+    cases.append(("all_padding", np.full((B, 3), -1, np.int32), 100, torch.float32, None))
+    cases.append(("one_row_bf16", np.full((B, 40), 5, np.int32), 108, torch.bfloat16, None))
+    for name, keys_np, v, dt, route in cases:
         keys = torch.as_tensor(keys_np, device=dev)
         d = torch.as_tensor(rng.standard_normal((B, E), dtype=np.float32), device=dev).to(dt)
-        g, c = oh.onehot_matmul_bwd(keys, d, v, dt)
-        wg, wc = oh.onehot_matmul_bwd_plain(keys, d, v, dt)
-        sg, _ = oh.onehot_matmul_bwd_plain(keys, d.float().abs(), v, torch.float32)
-        dname = str(dt).split(".")[1]
-        rec = dict(kernel="onehot_bwd", case=name, dtype=dname, B=B, V=v, h=keys_np.shape[1],
-                   tile_rows=vt, route=oh.bwd_route(B, keys_np.shape[1], v, E, dev),
-                   scaled_err=scaled_err(g, wg, sg), tol=TOL[dname],
-                   counts_exact=bool(torch.equal(c, wc)), dtype_ok=g.dtype == dt,
-                   device_ms=device_ms(lambda: oh.onehot_matmul_bwd(keys, d, v, dt),
-                                       KERNEL_NAMES["onehot_bwd"])[0])
-        emit(rec)
-        if not (rec["scaled_err"] <= TOL[dname] and rec["counts_exact"] and rec["dtype_ok"]):
-            raise AssertionError(f"onehot_bwd edge case disagrees: {rec}")
+        bwd_group_case(torch, oh, dev, [], f"edge_{name}", [keys], [oh.GroupLookup(0, v, 0, False)], d, v,
+                       E, route=route, tile_rows=vt)
+    try:  # one row past the privatised route's limit: refused, not run
+        k = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        oh.onehot_bwd_group([k], [oh.GroupLookup(0, vt + 1, 0, False)], torch.zeros((B, E), device=dev), vt + 1,
+                            E, route="privatised")
+        raise AssertionError("the privatised route took a table past its shared memory")
+    except ValueError:
+        pass
+    # a group: int64 keys with bits past 2^31 (cut to int32), keys that wrap
+    # (negative and past V), -1 padding, a window [40, 90) of raw keys, Mean
+    # and Sum, two lookups on the same rows; a ragged batch, E 24 (an odd
+    # number of 8-column tiles), d a column slice of a wider tensor
+    b, e = 1000, 24
+    raw = rng.integers(-300, 300, size=(b, 12)).astype(np.int64)
+    raw[rng.random(raw.shape) < 0.15] = -1
+    raw[:, 0] += 2**33
+    kt = torch.as_tensor(raw, device=dev)
+    lookups = [oh.GroupLookup(0, 57, 0, False), oh.GroupLookup(57, 100, e, True),
+               oh.GroupLookup(157, 50, 2 * e, True, 40, 90), oh.GroupLookup(0, 57, 3 * e, False)]
+    keys = [kt[:, 0:3], kt[:, 3:7], kt[:, 7:10], kt[:, 10:12].to(torch.int32)]
+    wide = torch.as_tensor(rng.standard_normal((b, 5 * e), dtype=np.float32), device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        d = wide.to(dt)[:, e:]
+        for route in (None, *oh.BWD_ROUTES):
+            bwd_group_case(torch, oh, dev, [], f"edge_group_{route or 'auto'}", keys, lookups, d, 207, e,
+                           route=route)
+    # the per-table entry (local keys; outside [0, V) padding) on each route
+    keys = torch.as_tensor(power_law(rng, 300, (B, 8)).astype(np.int32) - 4, device=dev)
+    d = torch.as_tensor(rng.standard_normal((B, E), dtype=np.float32), device=dev)
+    scale_g, _ = oh.onehot_matmul_bwd_plain(keys, d.abs(), 300, torch.float32)
+    for route in (None, *oh.BWD_ROUTES):
+        for dt in (torch.float32, torch.bfloat16):  # the gradient's output type
+            dname = str(dt).split(".")[1]
+            g, c = oh.onehot_matmul_bwd(keys, d, 300, dt, route=route)
+            want_g, want_c = oh.onehot_matmul_bwd_plain(keys, d, 300, dt)
+            rec = dict(kernel="onehot_bwd", case=f"per_table_local_{route or 'auto'}", dtype=dname,
+                       scaled_err=scaled_err(g.float(), want_g.float(), scale_g), tol=TOL[dname],
+                       counts_exact=bool(torch.equal(c, want_c)), dtype_ok=g.dtype == dt)
+            emit(rec)
+            if not (rec["scaled_err"] <= TOL[dname] and rec["counts_exact"] and rec["dtype_ok"]):
+                raise AssertionError(f"the per-table backward disagrees on local keys: {rec}")
     # accumulation into slices of a caller's buffers, as the collection does
     v, off = 3000, 500
     keys = torch.as_tensor(power_law(rng, v, (B, 6)).astype(np.int32), device=dev)
@@ -1196,8 +1289,8 @@ def bst_onehot_group(torch, np, rng, oh, e: int, dt, dev):
 def sample_kernel_checks(torch, results):
     """Phase "sample_kernels": each kernel against its plain version at the
     samples' widths and batch 2,048, in float32 and bfloat16. The grouped
-    one-hot forward and the backward of its 8,010-row table on BST's
-    category group at E 1, 11, 16, 18 and 32 (E 16 is BST's own step; E
+    one-hot forward and backward on BST's category group (11 lookups, 10
+    of them into its 8,010-row table) at E 1, 11, 16, 18 and 32 (E 16 is BST's own step; E
     1, 11 and 18 take the one-element lanes, and only E 16 and 32 may take
     the counts matmul); segscan at the sorted-route K of WDL's wide table
     (E 1, K 4,096), DeepFM's table (E 11, K 53,248), DCN's (E 16, K 106,496:
@@ -1235,46 +1328,15 @@ def sample_kernel_checks(torch, results):
                 library="one torch.nn.functional.embedding_bag(mode='sum') over the group",
                 bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms,
             )
-            # the backward of the history table: its 10 lookups' keys, local
-            valid, local = oh.place_keys(torch.cat(keys[:SEQ], dim=1), lookups[0].vocab)
-            k_rel = torch.where(valid, local, -1).to(torch.int32).contiguous()
-            v = lookups[0].vocab
-            d = torch.as_tensor(rng.standard_normal((SAMPLE_B, e), dtype=np.float32), device=dev).to(dt)
-            grad, cnt = oh.onehot_matmul_bwd(k_rel, d, v, dt)
-            want_g, want_c = oh.onehot_matmul_bwd_plain(k_rel, d, v, dt)
-            scale_g, _ = oh.onehot_matmul_bwd_plain(k_rel, d.float().abs(), v, torch.float32)
-            torch.cuda.synchronize()
-            cnt_ok = bool(torch.equal(cnt, want_c))
-            flat = k_rel.reshape(-1).long()
-            keep = flat >= 0
-            d_rep = d.repeat_interleave(k_rel.shape[1], dim=0)[keep]
-            isz = d.element_size()
-
-            def library():
-                return torch.zeros((v, e), dtype=dt, device=dev).index_add_(0, flat[keep], d_rep)
-
-            b_ms2, b_by2 = bound(k_rel.numel() * 4 + SAMPLE_B * e * isz + v * e * isz + v * 4,
-                                 k_rel.numel() * e)
-            dms2, per_call2 = device_ms(lambda: oh.onehot_matmul_bwd(k_rel, d, v, dt), KERNEL_NAMES["onehot_bwd"])
-            rec2 = dict(
-                phase="sample_kernels", kernel="onehot_bwd", case=f"sample_bst_hist_E{e}", dtype=dname,
-                B=SAMPLE_B, V=v, h=k_rel.shape[1], E=e, route=oh.bwd_route(SAMPLE_B, k_rel.shape[1], v, e, dev),
-                scaled_err=scaled_err(grad, want_g, scale_g),
-                max_abs_err=float((grad.float() - want_g.float()).abs().max()), counts_exact=cnt_ok,
-                tol=TOL[dname], ms=time_ms(lambda: oh.onehot_matmul_bwd(k_rel, d, v, dt)), device_ms=dms2,
-                device_launches_per_call=per_call2,
-                plain_ms=time_ms(lambda: oh.onehot_matmul_bwd_plain(k_rel, d, v, dt)),
-                library_ms=time_ms(library), library_device_ms=device_ms(library, KERNEL_NAMES["index_add_"])[0],
-                library="Tensor.index_add_ (grad only; library_device_ms: the index_add_ kernel)",
-                bound_ms=b_ms2, bound_by=b_by2, bound_fraction=b_ms2 / dms2,
-            )
-            rec2["seconds"] = rec["seconds"] = time.perf_counter() - t0
-            results += [rec, rec2]
+            rec["seconds"] = time.perf_counter() - t0
+            results.append(rec)
             emit(rec)
-            emit(rec2)
-            if not (err <= TOL[dname] and launches == 1 and per_call in (1, None) and ok_shape
-                    and rec2["scaled_err"] <= TOL[dname] and cnt_ok):
-                raise AssertionError(f"one-hot kernels disagree at the samples' width E {e}: {rec} {rec2}")
+            if not (err <= TOL[dname] and launches == 1 and per_call in (1, None) and ok_shape):
+                raise AssertionError(f"one-hot forward disagrees at the samples' width E {e}: {rec}")
+            # the group's backward: 11 lookups, 10 of them on the history table's rows
+            d = torch.as_tensor(rng.standard_normal((SAMPLE_B, width), dtype=np.float32), device=dev).to(dt)
+            bwd_group_case(torch, oh, dev, results, f"sample_bst_group_E{e}", keys, lookups, d, table.shape[0], e,
+                           phase="sample_kernels")
     cases = (("wdl_wide", 1, WDL_WIDE_SLOTS, 1), ("deepfm", 11, CRITEO_SLOTS, 1), ("dcn", 16, DCN_SLOTS, 2),
              ("din_good", 18, [GOOD_VOCAB] * 11, 1))
     for name, e, slots, nnz in cases:
@@ -1433,8 +1495,10 @@ def samples_path(torch):
         if graph == "bst":
             got = sorted((lk.row_off, lk.vocab) for g in onehot if g.ev_size == 16 for lk in onehot_fwd_lookups(g))
             want = sorted([(0, CATE_VOCAB * SEQ)] * SEQ + [(CATE_VOCAB * SEQ, CATE_VOCAB)])
-            if got != want or train_launches["onehot_fwd"] != 6 * len(onehot):
-                raise AssertionError(f"BST's one-hot group {got}, {train_launches['onehot_fwd']} launches in 6 steps")
+            if got != want or train_launches["onehot_fwd"] != 6 * len(onehot) \
+                    or train_launches["onehot_bwd"] != 6 * len(onehot):
+                raise AssertionError(f"BST's one-hot group {got}, {train_launches['onehot_fwd']} forward and "
+                                     f"{train_launches['onehot_bwd']} backward launches in 6 steps")
         out[graph] = {k: train_launches[k] + eval_launches[k] for k in train_launches}
         del model
         torch.cuda.empty_cache()
@@ -1614,8 +1678,9 @@ def main_path(torch):
     missing = [k for k in ONE_CARD_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    if launches["onehot_fwd"] != 6:  # one grouped launch per step
-        raise AssertionError(f"onehot_fwd launched {launches['onehot_fwd']} times in 6 steps, not 6")
+    if launches["onehot_fwd"] != 6 or launches["onehot_bwd"] != 6:  # one grouped launch each a step
+        raise AssertionError(f"onehot_fwd / onehot_bwd launched {launches['onehot_fwd']} / "
+                             f"{launches['onehot_bwd']} times in 6 steps, not 6")
     return launches, rec
 
 
@@ -1717,6 +1782,8 @@ def bench_path(torch):
     if train_launches["onehot_fwd"] != 6 or eval_launches["onehot_fwd"] != model.solver.max_eval_batches:
         raise AssertionError(f"onehot_fwd launched {train_launches['onehot_fwd']} times in 6 steps and "
                              f"{eval_launches['onehot_fwd']} in {model.solver.max_eval_batches} eval batches")
+    if train_launches["onehot_bwd"] != 6:  # one launch for the 20 lookups a step
+        raise AssertionError(f"onehot_bwd launched {train_launches['onehot_bwd']} times in 6 steps, not 6")
     if len(onehot.lookups) != 20:
         raise AssertionError(f"the one-hot group holds {len(onehot.lookups)} lookups, not 20")
     if not (abs(binned - exact) <= 1e-4 and abs(vals["auc"] - binned) <= 1e-6):
@@ -1946,7 +2013,8 @@ def ftrl_run(torch, dynamic: bool, steps: int = 6, eval_batches: int = 20):
 def ftrl_path(torch):
     """DLRM with FTRL, static tables: 6 steps and eval over 20 batches.
     Every kernel launches in the steps; `onehot_fwd` once per step and per
-    eval batch, `onehot_bwd` 13 times per step (one per one-hot table)."""
+    eval batch, `onehot_bwd` once per step (one launch for the 13-table
+    one-hot group)."""
     model, rec = ftrl_run(torch, dynamic=False)
     emit(rec)
     tl, el = rec["train_launches"], rec["eval_launches"]
@@ -1954,7 +2022,7 @@ def ftrl_path(torch):
         raise AssertionError(f"non-finite loss on the FTRL path: {rec['losses']}")
     if rec["routes"] != FTRL_ROUTES["static"]:
         raise AssertionError(f"FTRL path routes {rec['routes']}")
-    if not (tl["onehot_fwd"] == 6 and tl["onehot_bwd"] == 13 * 6 and tl["segscan"] > 0):
+    if not (tl["onehot_fwd"] == 6 and tl["onehot_bwd"] == 6 and tl["segscan"] > 0):
         raise AssertionError(f"FTRL path launches in 6 steps: {tl}")
     if not (el["onehot_fwd"] == 20 and el["onehot_bwd"] == 0 and el["segscan"] == 0):
         raise AssertionError(f"FTRL path launches in 20 eval batches: {el}")
@@ -2025,7 +2093,7 @@ def file_path(torch, main_rec):
     GB/s from the page cache); the first three device batches bitwise equal
     to the file's rows; 6 steps with the counts set to 0 just before and
     read just after (`main_path`'s counts:
-    `onehot_fwd` 1 and `onehot_bwd` 13 a step, `segscan` > 0); each kernel
+    `onehot_fwd` 1 and `onehot_bwd` 1 a step, `segscan` > 0); each kernel
     against its plain version on the first file-fed batch
     (`tools/hybrid.py::kernel_parity`); an eval over the 73,728-row
     eval file: 4 whole batches, the 8,192-row tail dropped, then
@@ -2108,7 +2176,7 @@ def file_path(torch, main_rec):
         raise AssertionError(f"file_path: a kernel disagrees with its plain version on file-fed inputs: {parity}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"file_path: non-finite loss {losses}")
-    if not (launches == main_rec["launches"] and launches["onehot_fwd"] == 6 and launches["onehot_bwd"] == 78
+    if not (launches == main_rec["launches"] and launches["onehot_fwd"] == 6 and launches["onehot_bwd"] == 6
             and launches["segscan"] > 0):
         raise AssertionError(f"file_path: launches in 6 steps {launches}, main_path's {main_rec['launches']}")
     if not (eval_batches == 4 and eof and eval_launches["onehot_fwd"] == 4):
@@ -2423,7 +2491,7 @@ def hybrid_path(torch):
     emit(rec)
     if not rec["finite"]:
         raise AssertionError(f"non-finite loss on the hybrid path: {rec['losses']}")
-    check_path_launches(rec, {"onehot_bwd": None, "segscan": None})
+    check_path_launches(rec, {"onehot_bwd": 1, "segscan": None})
     if not rec["replicas_equal"]:
         raise AssertionError("replicated arrays differ across the ranks of the hybrid path")
     return [{k: tl[k] + el[k] for k in tl} for tl, el in zip(rec["launches"], rec["eval_launches"])], rec
@@ -2440,7 +2508,7 @@ def check_mesh_path(rec, ranks):
     parity = [hybrid.jsonable(r["kernel_parity"]) for r in ranks]
     if not rec["finite"]:
         raise AssertionError(f"non-finite loss on {rec['phase']}: {rec['losses']}")
-    check_path_launches(rec, {"onehot_bwd": None, "segscan": None})
+    check_path_launches(rec, {"onehot_bwd": 1, "segscan": None})
     if not (rec["replicas_equal"] and rec["shard_replicas_equal"]):
         raise AssertionError(f"replicas differ across the ranks of {rec['phase']}")
     for r, p in enumerate(parity):
@@ -2593,8 +2661,8 @@ def hybrid_bench_path(torch):
     state, mixed precision, the hot/cold/superhot split, the caps every
     rank measures on the gathered first batch, the same on every rank)
     trained hybrid-parallel (`hybrid_run`). Every rank launches `onehot_fwd` once a
-    step and once an eval batch, `onehot_bwd` 20 times a step (13 tables, 7
-    superhot tiers), `segscan` in the steps (the 7 cold tiers' owned
+    step and once an eval batch, `onehot_bwd` once a step (the 20-lookup
+    group: 13 tables, 7 superhot tiers), `segscan` in the steps (the 7 cold tiers' owned
     prefixes), the ordered pool once a model-parallel group and forward;
     then each rank holds each kernel against its plain version on its own
     inputs of the step (`tools/hybrid.py::kernel_parity`, `RANK_TOL`; the
@@ -2612,7 +2680,7 @@ def hybrid_bench_path(torch):
         raise AssertionError(f"the ranks measured no caps, or different ones: {caps}")
     if not rec["finite"]:
         raise AssertionError(f"non-finite loss on the hybrid bench path: {rec['losses']}")
-    check_path_launches(rec, {"onehot_bwd": 20, "segscan": None})
+    check_path_launches(rec, {"onehot_bwd": 1, "segscan": None})
     if not rec["replicas_equal"]:
         raise AssertionError("replicated arrays differ across the ranks of the hybrid bench path")
     for r, p in enumerate(parity):
@@ -2915,7 +2983,8 @@ def snapshot_bf16(torch):
 def freeze_path(torch):
     """The full-width static DLRM-FTRL with a one-hot table (5), a table
     with a sorted-route group of its own (20) and the dense network frozen:
-    2 steps in which `onehot_bwd` launches 12 times a step (not 13) and
+    2 steps in which `onehot_bwd` launches once a step for the group's 12
+    live lookups (the frozen one gets no descriptor) and
     table 20's group hands segscan no key (its K drops by the frozen slots,
     to 0: no launch), the frozen rows and dense weights bitwise unchanged
     and the other tables moved; each kernel against its plain version on
@@ -2989,8 +3058,8 @@ def freeze_path(torch):
                seconds=time.perf_counter() - t0)
     emit(rec)
     n_onehot = len(next(g for g in ec.plan.groups if g.compute_kind == "onehot").lookups)
-    if not (launches["onehot_fwd"] == 2 and launches["onehot_bwd"] == 2 * (n_onehot - 1) and n_onehot == 13
-            and launches["segscan"] == 2 * (len(sorted_groups) - 1) and unfrozen_launches["onehot_bwd"] == 13):
+    if not (launches["onehot_fwd"] == 2 and launches["onehot_bwd"] == 2 and n_onehot == 13
+            and launches["segscan"] == 2 * (len(sorted_groups) - 1) and unfrozen_launches["onehot_bwd"] == 1):
         raise AssertionError(f"freeze_path launches: {rec}")
     if ks != want_ks or 0 not in want_ks:
         raise AssertionError(f"freeze_path segscan K: {ks} against {want_ks}")
@@ -2998,7 +3067,8 @@ def freeze_path(torch):
             and rec["dense_moved_after_unfreeze"] and all(math.isfinite(x) for x in losses)):
         raise AssertionError(f"freeze_path: {rec}")
     if not (parity["onehot_fwd"]["scaled_err"] <= TOL["float32"] and parity["onehot_bwd"]["scaled_err"] <= TOL["float32"]
-            and parity["segscan"]["scaled_err"] <= TOL["float32"] and len(parity["onehot_bwd"]["shapes"]) == 12):
+            and parity["segscan"]["scaled_err"] <= TOL["float32"]
+            and parity["onehot_bwd"]["shapes"] == [[B, n_onehot - 1]]):
         raise AssertionError(f"freeze_path kernels against their plain versions: {rec['kernel_parity']}")
     return launches
 
@@ -3041,9 +3111,10 @@ def weighted_kernel_checks(torch, np, dev, results):
     16,384, weights uniform in [0, 1)), f32 and bf16, with the bound, the
     plain version's time and one library call: the grouped forward of the
     superhot tier (V 1,024, the keys' window [0, 1,024)) beside
-    `embedding_bag(per_sample_weights=)`; the backward of that tier (global
-    route) and of a privatised shape (V 108, h 40) beside `index_add_` of the
-    w-scaled cotangents (counts: the sums of |w|, touched rows exact);
+    `embedding_bag(per_sample_weights=)`; the grouped backward of that tier
+    (global route) and of a privatised shape (V 108, h 40) beside
+    `index_add_` of the w-scaled cotangents (counts: the sums of |w|,
+    touched rows exact);
     segscan over the untiered sorted route's per-key rows (K = 16,384 x 20);
     and the ordered pool of rank 0's shapes of the tiered table over the
     hybrid phases' W ranks (bitwise) beside `embedding_bag(per_sample_weights=)`
@@ -3104,40 +3175,16 @@ def weighted_kernel_checks(torch, np, dev, results):
         emit(rec)
         if not (rec["scaled_err"] <= TOL[dname] and per_call in (1, None)):
             raise AssertionError(f"weighted one-hot forward disagrees with its plain version: {rec}")
-        # the weighted backward: the superhot tier (global atomics) and a privatised shape
+        # the weighted backward, one-lookup groups: the superhot tier (global
+        # atomics) on the raw keys and a privatised shape (V 108, h 40)
         rng = np.random.default_rng(29)
         k108 = torch.as_tensor(power_law(rng, 108, (B, 40)).astype(np.int32), device=dev)
         w108 = torch.as_tensor(rng.standard_normal((B, 40), dtype=np.float32), device=dev)
-        for case, kk, ww, v in (("weighted_superhot_V1024_h20", k_rel, w, lk.vocab),
-                                ("weighted_V108_h40", k108, w108, 108)):
-            t0 = time.perf_counter()
-            d = d32.to(dt)
-            call = lambda: oh.onehot_matmul_bwd(kk, d, v, dt, weights=ww)  # noqa: E731
-            grad, cnt = call()
-            want_g, want_c = oh.onehot_matmul_bwd_plain(kk, d, v, dt, weights=ww)
-            scale_g, _ = oh.onehot_matmul_bwd_plain(kk, d.float().abs(), v, torch.float32, weights=ww.abs())
-            torch.cuda.synchronize()
-            ok_keys = (kk >= 0) & (kk < v)
-            flat = kk[ok_keys].long()
-            rows = (d.float().repeat_interleave(kk.shape[1], dim=0) * ww.reshape(-1, 1))[ok_keys.reshape(-1)].to(dt)
-            lib = lambda: torch.zeros((v, E), dtype=dt, device=dev).index_add_(0, flat, rows)  # noqa: E731
-            b_ms, b_by = bound(kk.numel() * 8 + B * E * isz + v * E * 4 + v * 4, 2 * int(ok_keys.sum()) * E)
-            dms, per_call = device_ms(call, KERNEL_NAMES["onehot_bwd"])
-            cnt_err = float(((cnt - want_c).abs() / want_c.clamp(min=1e-30)).max())
-            rec2 = dict(kernel="onehot_bwd", case=case, dtype=dname, B=B, V=v, h=int(kk.shape[1]), E=E, weighted=True,
-                        route=oh.bwd_route(B, int(kk.shape[1]), v, E, dev),
-                        scaled_err=scaled_err(grad, want_g, scale_g),
-                        max_abs_err=float((grad.float() - want_g.float()).abs().max()),
-                        touched_exact=bool(torch.equal(cnt > 0, want_c > 0)), counts_rel_err=cnt_err, tol=TOL[dname],
-                        ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
-                        plain_ms=time_ms(lambda: oh.onehot_matmul_bwd_plain(kk, d, v, dt, weights=ww)),
-                        library_ms=time_ms(lib),
-                        library="Tensor.index_add_ of the w-scaled cotangent rows (grad only)",
-                        bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0)
-            results.append(rec2)
-            emit(rec2)
-            if not (rec2["scaled_err"] <= TOL[dname] and rec2["touched_exact"] and cnt_err <= TOL["float32"]):
-                raise AssertionError(f"weighted one-hot backward disagrees with its plain version: {rec2}")
+        d = d32.to(dt)
+        bwd_group_case(torch, oh, dev, results, "weighted_superhot_V1024_h20", [keys], lks, d, g.total_local_rows,
+                       E, [w])
+        bwd_group_case(torch, oh, dev, results, "weighted_V108_h40", [k108], [oh.GroupLookup(0, 108, 0, False)], d,
+                       108, E, [w108])
         # segscan over the untiered sorted route's per-key rows (K = B x 20)
         t0 = time.perf_counter()
         srt, perm = torch.sort(keys.reshape(-1).long(), stable=True)
@@ -3235,7 +3282,7 @@ def weighted_kernel_checks(torch, np, dev, results):
         grad, cnt = oh.onehot_matmul_bwd(kk, d32, v, torch.float32, weights=ww)
         want_g, want_c = oh.onehot_matmul_bwd_plain(kk, d32, v, torch.float32, weights=ww)
         scale_g, _ = oh.onehot_matmul_bwd_plain(kk, d32.abs(), v, torch.float32, weights=ww.abs())
-        route = oh.bwd_route(B, int(kk.shape[1]), v, E, dev)
+        route = oh.bwd_route(B, int(kk.shape[1]), v, E, dev, weighted=True)
         routes.add(route)
         rec = dict(kernel="onehot_bwd", case=case, route=route, touch_count=float(cnt[7]),
                    grad_row_abs_sum=float(grad[7].abs().sum()), touched_exact=bool(torch.equal(cnt > 0, want_c > 0)),
@@ -4113,7 +4160,9 @@ def chunked_group_checks(torch, np, oh, dev, results):
     as int32 column views of one [B, 100] tensor), f32 and bf16, unweighted
     and with weights: ceil(n / 48) launches a call, each writing its
     lookups' columns, against one plain call over the whole group; the
-    100-lookup cases' times beside the bound and one embedding_bag."""
+    100-lookup cases' times beside the bound and one embedding_bag. The
+    grouped backward at 49 and 100 lookups the same way (`onehot_bwd_chunked`,
+    one index_add_ of the group's pairs beside it)."""
     from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
     from hugectr_tpu_torch.tools.kernel_sweep import embedding_bag_call, group_bytes
 
@@ -4159,6 +4208,10 @@ def chunked_group_checks(torch, np, oh, dev, results):
                 if not (rec["scaled_err"] <= TOL[dname] and launches == rec["expected_launches"]
                         and got.shape == want.shape):
                     raise AssertionError(f"chunked one-hot forward disagrees or launched otherwise: {rec}")
+                if n in (49, nmax):  # the backward: ceil(n / 48) launches into one gradient
+                    d = torch.as_tensor(rng.standard_normal((CHUNK_B, E * n), dtype=np.float32), device=dev).to(dt)
+                    bwd_group_case(torch, oh, dev, results if n == nmax else [],
+                                   f"chunked{n}{'_weighted' if weighted else ''}", keys, lookups, d, v * n, E, ws)
 
 
 # The shapes the scatter ratio gives the one-hot kernels at bench.py's
@@ -4170,8 +4223,8 @@ RATIO_H = 100
 
 
 def scatter_ratio_checks(torch, np, oh, dev, results):
-    """The one-hot forward (gather route) and backward (global atomics,
-    V > 450) at V 131,072, h 100, batch 16,384, ev 128, f32 and bf16,
+    """The one-hot forward (gather route) and the grouped backward (global
+    atomics) at V 131,072, h 100, batch 16,384, ev 128, f32 and bf16,
     against their plain versions, beside their bounds, `embedding_bag` and
     `index_add_`. Neither plain version builds a [B, V] counts matrix (the
     forward gathers [B, h, E] rows, the backward `index_add_`s [B h, E]
@@ -4184,7 +4237,6 @@ def scatter_ratio_checks(torch, np, oh, dev, results):
     v, h = RATIO_V, RATIO_H
     keys = torch.as_tensor(power_law(rng, v, (B, h)).astype(np.int32), device=dev)
     keys_l = keys.long()
-    flat = keys_l.reshape(-1)
     uniq = int(torch.unique(keys).numel())
     lk = [oh.GroupLookup(0, v, 0, False)]
     for dt in (torch.float32, torch.bfloat16):
@@ -4208,35 +4260,15 @@ def scatter_ratio_checks(torch, np, oh, dev, results):
                    library_ms=time_ms(lambda: F.embedding_bag(keys_l, table, mode="sum")),
                    library="torch.nn.functional.embedding_bag(mode='sum')",
                    bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms)
-        bwd = lambda: oh.onehot_matmul_bwd(keys, d, v, dt)  # noqa: E731
-        grad, cnt = bwd()
-        want_g, want_c = oh.onehot_matmul_bwd_plain(keys, d, v, dt)
-        scale_g, _ = oh.onehot_matmul_bwd_plain(keys, d.float().abs(), v, torch.float32)
-        torch.cuda.synchronize()
-        d_rep = d.repeat_interleave(h, dim=0)
-
-        def library():
-            return torch.zeros((v, E), dtype=dt, device=dev).index_add_(0, flat, d_rep)
-
-        b_ms, b_by = bound(keys.numel() * 4 + B * E * isz + v * E * isz + v * 4, B * h * E)
-        dms, per_call = device_ms(bwd, KERNEL_NAMES["onehot_bwd"])
-        rec2 = dict(kernel="onehot_bwd", case=f"ratio_V{v}_h{h}", dtype=dname, B=B, V=v, h=h, E=E,
-                    route=oh.bwd_route(B, h, v, E, dev), scaled_err=scaled_err(grad, want_g, scale_g),
-                    max_abs_err=float((grad.float() - want_g.float()).abs().max()),
-                    counts_exact=bool(torch.equal(cnt, want_c)), tol=TOL[dname],
-                    ms=time_ms(bwd), device_ms=dms, device_launches_per_call=per_call,
-                    plain_ms=time_ms(lambda: oh.onehot_matmul_bwd_plain(keys, d, v, dt)),
-                    library_ms=time_ms(library), library_device_ms=device_ms(library, KERNEL_NAMES["index_add_"])[0],
-                    library="Tensor.index_add_ (grad only)", bound_ms=b_ms, bound_by=b_by,
-                    bound_fraction=b_ms / dms)
-        rec["seconds"] = rec2["seconds"] = time.perf_counter() - t0
-        results.extend([rec, rec2])
+        rec["seconds"] = time.perf_counter() - t0
+        results.append(rec)
         emit(rec)
-        emit(rec2)
-        if not (rec["scaled_err"] <= TOL[dname] and rec2["scaled_err"] <= TOL[dname] and rec2["counts_exact"]
-                and rec2["route"] == "global"):
-            raise AssertionError(f"one-hot kernels at the scatter ratio's shapes disagree: {rec} {rec2}")
-        del table, d, d_rep, grad, want_g, scale_g
+        if not rec["scaled_err"] <= TOL[dname]:
+            raise AssertionError(f"the one-hot forward at the scatter ratio's shapes disagrees: {rec}")
+        rec2 = bwd_group_case(torch, oh, dev, results, f"ratio_V{v}_h{h}", [keys], lk, d, v, E)
+        if rec2["routes"] != ["global"]:
+            raise AssertionError(f"the scatter ratio's backward left the global atomics: {rec2}")
+        del table, d
 
 
 def peak_partial_sums(torch, idx, vals, rows):
@@ -4310,8 +4342,8 @@ def scatter_ratio_path(torch):
     JAX docstring's operating point, hugectr_tpu/parallel/plan.py:503-507):
     table 20's hot tier (130,048 rows, h 100) and table 14 (11,938 rows, h
     9) join the one-hot group. 3 steps; counters set to 0 just before them
-    and read just after: the grouped forward once a step, the backward once
-    a one-hot lookup and step."""
+    and read just after: the grouped forward and the grouped backward once a
+    step each (one launch for the group's 22 lookups)."""
     from hugectr_tpu_torch import ops
     from hugectr_tpu_torch.core.mesh import ResourceManager
     from hugectr_tpu_torch.tools.flagship import bench_settings, build_dlrm_dcnv2
@@ -4338,7 +4370,7 @@ def scatter_ratio_path(torch):
                launches=lc, max_memory_allocated=torch.cuda.max_memory_allocated(), seconds=time.perf_counter() - t0)
     emit(rec)
     if not ("20::hot" in names and "14" in names and all(math.isfinite(x) for x in losses)
-            and lc["onehot_fwd"] == 3 and lc["onehot_bwd"] == 3 * n_lookups
+            and lc["onehot_fwd"] == 3 and lc["onehot_bwd"] == 3
             and lc["ordered_pool"] == 3 * 13 and set(model.ec.valid_caps) == SCATTER_RATIO_COMPACT):
         raise AssertionError(f"scatter-ratio path: {rec}")
     model._close_readers()
@@ -4422,7 +4454,7 @@ def benchmarks_path(torch):
             n = args.warmup + args.iters
             ok = rec["losses_finite"]
             if flag is None:
-                ok = ok and all(lc[k] > 0 for k in ONE_CARD_KERNELS) and lc["onehot_fwd"] == n
+                ok = ok and all(lc[k] > 0 for k in ONE_CARD_KERNELS) and lc["onehot_fwd"] == lc["onehot_bwd"] == n
             elif flag == "SKIP_EMBEDDING":
                 ok = ok and not any(lc[k] for k in ONE_CARD_KERNELS)
             elif flag == "SKIP_EMBEDDING_UPDATE":
@@ -4465,7 +4497,7 @@ def benchmarks_path(torch):
         cases.append(rec)
         n = cargs.warmup + cargs.iters
         if not (all(math.isfinite(x) for x in run["losses"]) and rec["onehot_fwd_calls"] == want_fwd
-                and lc["onehot_fwd"] == n * want_fwd):
+                and lc["onehot_fwd"] == lc["onehot_bwd"] == n * want_fwd):
             raise AssertionError(f"benchmark case {case}: {rec}")
         if case.startswith("510") and max(k for _, kind, k in groups if kind == "onehot") <= 48:
             raise AssertionError(f"the 510-table case has no one-hot group of more than 48 lookups: {groups}")
@@ -4572,17 +4604,17 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "case")
     # the E 64 cases of the column-split sub-tables (`column_kernel_checks`)
     column = {x["kernel"]: x for x in results if x["case"].startswith("column_E")}
-    bench_cases = {"onehot_fwd": "group20", "onehot_bwd": "superhot_", "segscan": "cold_tier_20"}
+    bench_cases = {"onehot_fwd": "group20", "onehot_bwd": "group20", "segscan": "cold_tier_20"}
     # the scatter ratio's shapes (V 131,072, h 100) in f32, and the 510-table case's 100-lookup group
     ratio = {x["kernel"]: x for x in results if x["case"].startswith("ratio_") and x["dtype"] == "float32"}
     chunked = next(x for x in results if x["case"] == "chunked100" and x["dtype"] == "float32")
     rank_sfx = f"_w{hybrid_world(torch)}"
     for name, (src, replaces) in sources.items():
         # the float32 flagship case that costs the step most device time;
-        # for onehot_fwd the step's one launch, the 13-table group
+        # for the one-hot kernels the step's one launch, the 13-table group
         # (the scatter ratio's and the chunked group's cases stand apart)
         r = max((x for x in results if x["kernel"] == name and x["dtype"] == "float32" and not x.get("weighted")
-                 and (name != "onehot_fwd" or x["case"] == "group13")
+                 and (name not in ("onehot_fwd", "onehot_bwd") or x["case"] == "group13")
                  and not x["case"].startswith(("ratio_", "chunked"))),
                 key=lambda x: x["device_ms"])
         # beside it, the bench path's bf16 case with the most device time

@@ -2,9 +2,10 @@
 //
 // Replaces: hugectr_tpu/ops/pallas/onehot_matmul.py::onehot_matmul_fwd
 // (body _fwd_kernel, tile _onehot_tile) and ::onehot_matmul_bwd (body
-// _bwd_kernel), and around the forward the per-lookup placement of
+// _bwd_kernel), and around both the per-lookup placement of
 // hugectr_tpu/embedding/collection.py (_slot_placement, _onehot_local_keys,
-// _onehot_fwd: int32 cast, floor-mod wrap, mean division, concatenation).
+// _onehot_fwd, _onehot_grad_pallas: int32 cast, floor-mod wrap, mean
+// division, concatenation, slicing).
 //
 //   forward:   out[b, :] = sum_h [0 <= keys[b,h] < V] * w[b,h] * table[keys[b,h], :]
 //   backward:  grad[v, :] = sum_{b,h} [keys[b,h] == v] * w[b,h] * d[b, :]
@@ -22,8 +23,9 @@
 //
 // The TPU kernels build a [B, V] one-hot tile for the matrix unit, which
 // costs 2 * B * V * E operations (31 GFLOP for a 7,424-row table at
-// B = 16,384, E = 128). On an H100 the backward and most of the forward are
-// row moves instead.
+// B = 16,384, E = 128). On an H100 most of the forward and the backward of
+// tables whose keys are few per row are row moves instead; small tables of
+// many keys per row take the matrix formulation on the tensor cores.
 //
 // Forward (onehot_fwd_group): one launch computes every lookup of a one-hot
 // group and writes each into its columns [out_col, out_col + E) of the
@@ -76,44 +78,70 @@
 //     staged in shared memory was measured against it and lost to both
 //     routes (PERF.md).
 //
-// Backward (scatter-add). Bound: memory, the keys, d (B * E * itemsize),
-// grad (V * E * itemsize) and cnt (V * 4 bytes): about 3.4 us for table 24
-// of the flagship (B 16,384, h 40, V 108, float32). Power-law keys put
-// ~10^5 adds on each column of the head rows of such a table, so a scatter
-// straight into device memory (one float32 atomicAdd per key and column)
-// serialises in L2: 3.29 ms at table 24 on an H100 in the first port, 4x
-// `index_add_`. The launcher takes one of two routes by shape (a weighted
-// lookup's backward takes the same ones, each key's d row scaled by its
-// weight before the adds and its sample's |summed weights on the row|
-// added to the row's float32 count by the row's first key in the sample):
+// Backward (onehot_bwd_group): one launch computes the weight gradient and
+// touch counts of every lookup of a one-hot group from the forward's
+// descriptors (raw keys, the window, the wrap, the Mean division, the
+// weights) and the group's [B, W] cotangent read in place (lookup i's
+// columns [out_col, out_col + e), any row stride), into the group's
+// float32 [R, e] gradient and [R] counts. A Mean lookup's cotangent is
+// divided by its sample's count of non-padding keys (a weighted one's by
+// the sum of their weights, each rounded to d's type; 1 where that is 0)
+// and rounded to d's type before use, as the JAX package divides in the
+// table's type. Bound: memory, the keys, d (B * e * itemsize a lookup),
+// grad and cnt: 0.0034 ms for table 20's superhot tier of bench.py (B
+// 16,384, h 100, V 1,024, bf16 d). Power-law keys put about 4% of a tier's
+// keys on its row 0: ~65,000 adds on each of its columns, which a scatter
+// straight into device memory serialises in L2 (0.7238 ms at that tier
+// before this design). Each lookup gets a range of blocks, counts-matmul
+// lookups first, the most keys first; the launcher takes a route per
+// lookup from B, h, V, e and the weights (thresholds beside bwd_route):
+//   * Counts matmul, the TPU kernel's own formulation (_bwd_kernel):
+//     countsT [V, B] @ d [B, e] on the tensor cores, whose cost does not
+//     depend on how the keys are skewed. A block of 16 warps takes a tile
+//     of 256 rows and 128 columns over a run of samples; per chunk of 64
+//     samples it forms the [rows, samples] counts tile in shared memory
+//     (one native shared atomic per key on the 32-bit word that holds two
+//     16-bit counts: small integers, exact in bf16), stages the chunk's d
+//     columns as hi (+ mid + lo) bf16 terms (float32 d is split as the
+//     forward splits a float32 table), and each warp multiplies its 16
+//     rows with mma.sync m16n8k16 (bf16 in, float32 accumulate; d
+//     fragments by ldmatrix.trans). A warp skips a 16 x 16 block of counts
+//     that is all zero. The touch counts are the counts tile's row sums,
+//     one more product with a B operand of ones (exact in float32). The
+//     next chunk's keys are copied into shared memory (cp.async, h up to
+//     128) and its d loaded while this chunk is counted and multiplied.
+//     Every tile reads all of its run's keys, so a lookup costs about (V /
+//     256) x (e / 128) passes over its keys. Runs of samples fill the card once;
+//     each run writes its partial tile, and the last run of a group of 8
+//     to finish sums the group's partials in run order (then the last
+//     group the groups' sums), so two calls give the same bits (unless two
+//     lookups share rows: their adds meet in either order). Unweighted
+//     lookups only: weights as 16-bit counts would not be exact.
 //   * Privatised, when the table fits one block's dynamic shared memory
-//     (float32 [V, E] plus an int [V] count; 450 rows at E = 128 on an
-//     H100, ~227 KB) and the batch brings at least kHotKeysPerRow keys per
-//     row. Each block zeroes its private copy and walks a slice of the
-//     samples, kBatch keys at a time per warp: keys add an exact integer
-//     count (one shared atomic per distinct row of 32 keys, __match_any),
-//     and the warp loads the d rows of kBatch keys at once, then adds them
-//     into the table rows with shared float32 atomics, lane-strided columns
-//     so no two lanes share a bank. A hot row meets at most the block's 16
-//     warps, at shared-memory latency. Then the block adds only its touched
-//     rows (count > 0) into the float32 outputs, so each global address
-//     takes one add per slice. Slices: one block per SM at least; past that
-//     at most one wave of resident blocks and at least kFlushRatio keys per
-//     row and slice, in whole waves.
-//   * Global atomics, for larger tables and for keys spread thin: each warp
-//     takes kBatch keys, loads their d rows at once and adds them straight
-//     into grad, lane-strided, so each atomic instruction covers 128
-//     consecutive bytes (the first port's float4 lanes covered 512 bytes
-//     per instruction, 4x the L2 sectors per key). Counts as above.
-// Tables larger than a block's shared memory are not cut into privatised
-// tiles: a power-law batch puts nearly all its keys into the first tile,
-// whose blocks then do nearly all the work (7.9 ms at V 8,192, h 128 on an
-// H100, chip_smoke.py's V8192_h128 case, when such tiles were tried).
-// The launcher zeroes grad and cnt with cudaMemsetAsync unless the caller
-// accumulates into its own buffers, and a last pass casts the float32 sums
-// to bfloat16 when the output is bfloat16. Counts are exact (integers
-// below 2^24 per row). Atomic order varies from run to run, so grad agrees
-// with a fixed-order sum only to a float32 rounding tolerance.
+//     (float32 [V, e] plus a [V] count; 450 rows at e = 128 on an H100,
+//     ~227 KB) and the batch brings at least kHotKeysPerRow keys per row.
+//     Each block zeroes its private copy and walks a slice of the samples,
+//     kBatch keys at a time per warp: keys add an exact integer count (one
+//     shared atomic per distinct row of 32 keys, __match_any), and the warp
+//     loads the d rows of kBatch keys at once, then adds them into the table
+//     rows with shared float32 atomics, lane-strided columns so no two lanes
+//     share a bank; then the block adds its touched rows into grad.
+//   * Global atomics, for keys spread thin: each warp takes kBatch keys,
+//     loads their d rows at once and adds them straight into grad,
+//     lane-strided, so each atomic instruction covers 128 consecutive bytes.
+// A weighted lookup takes the privatised or the global route: each key's
+// cotangent scaled by its weight, and its sample's |summed weights on the
+// row| added to the row's float32 count by the row's first key in the
+// sample. Tables larger than a block's shared memory are not cut into
+// privatised tiles: a power-law batch puts nearly all its keys into the
+// first tile (7.9 ms at V 8,192, h 128 when such tiles were tried). The
+// launcher zeroes grad and cnt with cudaMemsetAsync unless the caller
+// accumulates into its own buffers. Counts are exact (integers below 2^24
+// per row). The scatter routes' atomic order varies from run to run, so
+// their grad agrees with a fixed-order sum only to a float32 rounding
+// tolerance. The per-table entry (hctr_onehot_bwd, the Pallas kernel's
+// contract) is the group kernel with one lookup in local-keys mode, and a
+// last pass casts its float32 sums to bfloat16 when asked.
 #include "common.cuh"
 
 // One lookup of a forward group, as the Python wrapper passes it (ctypes
@@ -169,12 +197,6 @@ constexpr int kGroupSlices = 2;     // slices per block beside other lookups
 constexpr size_t kDefaultSmem = 48 * 1024;  // dynamic shared memory a launch gets without opting in
 constexpr int kMmaMaxV = 128;
 constexpr int kMmaMaxH = 256;       // counts up to h stay exact in bf16
-constexpr int kBwdWarps = 16;       // warps per block of the privatised backward
-constexpr int kGlobalWarps = 8;     // warps per block of the global-atomic backward
-constexpr int kBwdCols = 4;         // columns per lane per pass of the backward
-constexpr int kBatch = 8;           // keys whose d rows a warp loads at once in the backward
-constexpr int kFlushRatio = 16;     // keys per table row of a slice, past one block per SM
-constexpr int kHotKeysPerRow = 256; // privatise when B * h >= this * V
 constexpr unsigned kFull = 0xffffffffu;
 
 // A key as the kernel reads it: int32, or int64 cut to int32 (two's
@@ -188,7 +210,8 @@ __device__ __forceinline__ int32_t raw_key(const FwdLookup& L, int64_t sample, i
 
 // Table-local row of key k, or -1 for padding: the window, then the
 // shift by key_lo (the window's first key is row 0), then the wrap.
-__device__ __forceinline__ int place_key(int32_t k, const FwdLookup& L, int local) {
+template <typename Lookup>
+__device__ __forceinline__ int place_key(int32_t k, const Lookup& L, int local) {
   if (k < L.key_lo || k > L.key_last) return -1;
   if (L.key_lo > 0) k -= L.key_lo;
   const int v = L.v;
@@ -484,26 +507,158 @@ onehot_fwd_group(const __grid_constant__ FwdGroup p) {
   }
 }
 
-// Adds the d rows of the warp's keys marked in `m` (a warp-uniform ballot)
-// into rows `row` of dst [*, e], where lane j holds key j's destination row
-// and sample. Lane-strided columns: every atomic instruction of the warp
-// covers 128 consecutive bytes, and no two lanes share a shared-memory
-// bank. The d rows of kBatch keys are loaded before their adds. kWeighted:
-// lane j's `wt` scales key j's d row.
-template <typename T, bool kWeighted>
-__device__ __forceinline__ void add_rows(unsigned m, int row, long long sample, float wt,
-                                         const T* __restrict__ d, float* dst, int e, int lane) {
+// ------------------------------------------------------------------ backward
+
+enum BwdRoute { kGlobal = 0, kPrivatised = 1, kCountsMma = 2 };
+constexpr int kFlagMean = 1, kFlagKey64 = 2, kFlagDVec = 4;
+
+// One lookup of a backward group (76 bytes: 48 of them stay under the 4 KB
+// of kernel parameters). Route parameters p0..p3:
+//   counts matmul: p0 column slices, p1 sample runs, p2 samples per run,
+//                  p3 the lookup's first partial slot (and counter) in the
+//                  launch's scratch: runs + ceil(runs / kGroupRuns) a tile
+//                  when runs > 1;
+//   privatised:    p2 samples per block;
+//   global:        none.
+struct BwdLookup {
+  const void* keys;
+  const float* w;  // per-key weights, or null
+  int key_stride, w_stride, row_off, v, h, d_col;
+  int key_lo, key_last;  // keys outside [key_lo, key_last] are padding
+  int flags, route, first_block, blocks;
+  int p0, p1, p2, p3;
+};
+
+struct BwdGroup {
+  BwdLookup lk[kMaxLookups];
+  const void* d;      // cotangents [b, ld]: lookup i reads columns [d_col, d_col + e)
+  float* grad;        // [rows, e] float32
+  float* cnt;         // [rows] float32
+  float* part;        // counts matmul: [slots][kPart] partial sums
+  int* counters;      // counts matmul: [slots] finished runs of a group of runs, or groups of a tile
+  int n, b, e, ld, local_keys;
+};
+static_assert(sizeof(BwdGroup) <= 4096, "BwdGroup must fit the 4 KB of kernel parameters");
+
+// Element i of a lookup's key tensor, cut to int32.
+__device__ __forceinline__ int32_t key_at(const BwdLookup& L, int64_t i) {
+  return (L.flags & kFlagKey64) ? static_cast<int32_t>(static_cast<uint32_t>(
+                                      __ldg(static_cast<const long long*>(L.keys) + i)))
+                                : __ldg(static_cast<const int32_t*>(L.keys) + i);
+}
+
+__device__ __forceinline__ int32_t raw_key(const BwdLookup& L, int64_t sample, int slot) {
+  return key_at(L, sample * L.key_stride + slot);
+}
+
+// place_key with a short path for a key that lands in [0, v) without the
+// wrap (in its window, shifted down by the window's start `lo`).
+__device__ __forceinline__ int bwd_row(int32_t k, const BwdLookup& L, int lo, int local) {
+  const uint32_t r = static_cast<uint32_t>(k) - static_cast<uint32_t>(lo);
+  if (r < static_cast<uint32_t>(L.v) && k >= L.key_lo && k <= L.key_last) return static_cast<int>(r);
+  return place_key(k, L, local);
+}
+
+// The first key of a lookup's window (0 without one).
+__device__ __forceinline__ int window_lo(const BwdLookup& L) { return L.key_lo == INT32_MIN ? 0 : L.key_lo; }
+
+constexpr int kBwdWarps = 16;         // warps per block, every route (the counts matmul's 256-row tile)
+constexpr int kBwdThreads = kBwdWarps * 32;
+constexpr int kBwdMinBlocks = 1;      // resident blocks an SM must take (caps registers at 128)
+constexpr int kBwdCols = 4;           // columns per lane per pass, scatter routes
+constexpr int kBatch = 8;             // keys whose d rows a warp loads at once, scatter routes
+constexpr int kFlushRatio = 16;       // privatised: keys per table row of a slice, past one block per SM
+constexpr int kGlobalMaxBlocks = 2048;  // global: most blocks of one lookup (they stride over its keys)
+// counts matmul
+constexpr int kRT = 16 * kBwdWarps;   // table rows per tile: 16 a warp
+constexpr int kCT = 128;              // columns per slice: each slice reads all its run's keys again
+constexpr int kS = 64;                // samples per chunk
+constexpr int kCtWords = (kS + 8) / 2;  // 32-bit words per counts row: two 16-bit counts each, 8 halves of padding
+constexpr int kDs = kCT + 8;          // bf16 per staged d row (8 of padding: ldmatrix rows on distinct banks)
+constexpr int kPart = kRT * kCT + kRT;  // floats of one partial: [kRT, kCT] sums and [kRT] counts
+constexpr int kMmaBwdMaxH = 128;      // counts matmul: a chunk's keys are staged in shared memory up to this h
+constexpr int kGroupRuns = 8;         // partials one block sums, at each of the two levels
+constexpr int kDVals = kS * kCT / kBwdThreads;  // d values a thread stages per chunk (16)
+constexpr uint32_t kOnesBf16x2 = 0x3F803F80u;  // two bf16 1.0: the counts column's B operand
+
+__host__ __device__ inline size_t mma_bwd_smem(int terms) {  // one counts tile, two of keys and of d
+  return static_cast<size_t>(kRT) * kCtWords * 4 + kS * sizeof(int) +
+         2 * (static_cast<size_t>(terms) * kS * kDs * 2 + static_cast<size_t>(kS) * kMmaBwdMaxH * 4);
+}
+
+// The cotangent of key (sample s) as the kernel adds it: Mean divides by
+// `den` and rounds to T, as the JAX package divides in the table's type;
+// then the weight scales it.
+template <typename T>
+__device__ __forceinline__ float d_value(T x, float den, float wt) {
+  float y = to_f32(x);
+  if (den != 1.f) y = to_f32(from_f32<T>(y / den));
+  return y * wt;
+}
+
+// Key j of a sample whose first key is element `base` of the key tensor,
+// and its row (or -1).
+__device__ __forceinline__ int sample_row(const BwdLookup& L, int64_t base, int j, int local) {
+  return bwd_row(key_at(L, base + j), L, window_lo(L), local);
+}
+
+// The Mean divisor of sample s: its count of non-padding keys, or for a
+// weighted lookup the sum of their weights each rounded to T, summed in
+// float32 and rounded to T (1 where it is 0); O(h) reads, cached in L1.
+template <typename T>
+__device__ float sample_den(const BwdLookup& L, int s, int local) {
+  const int64_t base = static_cast<int64_t>(s) * L.key_stride;
+  const float* w = L.w == nullptr ? nullptr : L.w + static_cast<int64_t>(s) * L.w_stride;
+  float sum = 0.f;
+  int nval = 0;
+  for (int j = 0; j < L.h; ++j) {
+    if (sample_row(L, base, j, local) < 0) continue;
+    ++nval;
+    if (w != nullptr) sum += to_f32(from_f32<T>(__ldg(w + j)));
+  }
+  if (w == nullptr) return to_f32(from_f32<T>(static_cast<float>(nval > 1 ? nval : 1)));
+  const float den = to_f32(from_f32<T>(sum));
+  return den == 0.f ? 1.f : den;
+}
+
+// The touch count key (s, slot) of row `row` adds in a weighted backward:
+// the JAX package's sum over samples of |a sample's summed weights on the
+// row|. The row's first key in the sample adds |the sum of the weights of
+// the sample's keys on that row| and a later one nothing, so a sample whose
+// duplicates' weights cancel does not touch the row. O(h) reads.
+__device__ float sample_touch(const BwdLookup& L, int s, int slot, int row, int local) {
+  const int64_t base = static_cast<int64_t>(s) * L.key_stride;
+  const float* w = L.w + static_cast<int64_t>(s) * L.w_stride;
+  for (int j = 0; j < slot; ++j)
+    if (sample_row(L, base, j, local) == row) return 0.f;
+  float sum = __ldg(w + slot);
+  for (int j = slot + 1; j < L.h; ++j)
+    if (sample_row(L, base, j, local) == row) sum += __ldg(w + j);
+  return fabsf(sum);
+}
+
+// Adds the cotangent rows of the warp's keys marked in `m` (a warp-uniform
+// ballot) into rows `row` of dst [*, e], where lane j holds key j's row,
+// sample, weight and Mean divisor. Lane-strided columns: every atomic
+// instruction of the warp covers 128 consecutive bytes, and no two lanes
+// share a shared-memory bank. The d rows of kBatch keys are loaded before
+// their adds.
+template <typename T>
+__device__ __forceinline__ void add_rows(const BwdGroup& p, const BwdLookup& L, unsigned m, int row,
+                                         int sample, float wt, float den, float* dst, int lane) {
+  const T* d = static_cast<const T*>(p.d) + L.d_col;
+  const int e = p.e;
   while (m) {
-    int r[kBatch];
-    long long s[kBatch];
-    float wq[kBatch];
+    int r[kBatch], s[kBatch];
+    float wq[kBatch], dq[kBatch];
 #pragma unroll
     for (int q = 0; q < kBatch; ++q) {
       const bool ok = m != 0;
       const int j = ok ? __ffs(m) - 1 : 0;
       r[q] = __shfl_sync(kFull, row, j);
       s[q] = __shfl_sync(kFull, sample, j);
-      if constexpr (kWeighted) wq[q] = __shfl_sync(kFull, wt, j);
+      wq[q] = __shfl_sync(kFull, wt, j);
+      dq[q] = __shfl_sync(kFull, den, j);
       if (!ok) r[q] = -1;
       m &= m - 1;
     }
@@ -514,8 +669,8 @@ __device__ __forceinline__ void add_rows(unsigned m, int row, long long sample, 
 #pragma unroll
         for (int i = 0; i < kBwdCols; ++i) {
           const int c = c0 + lane + 32 * i;
-          x[q][i] = r[q] >= 0 && c < e ? to_f32(__ldg(d + s[q] * e + c)) : 0.f;
-          if constexpr (kWeighted) x[q][i] *= wq[q];
+          x[q][i] = r[q] >= 0 && c < e ? d_value(__ldg(d + static_cast<int64_t>(s[q]) * p.ld + c), dq[q], wq[q])
+                                       : 0.f;
         }
       }
 #pragma unroll
@@ -532,106 +687,383 @@ __device__ __forceinline__ void add_rows(unsigned m, int row, long long sample, 
   }
 }
 
-// The touch count key f (of row `key`, in [0, v)) adds in a weighted
-// backward: the JAX package's sum over samples of |a sample's summed
-// weights on the row|. The first occurrence of the row in its sample adds
-// |the sum of the weights of the sample's keys on that row| and a later
-// duplicate adds nothing, so a sample whose duplicates' weights cancel does
-// not touch the row. O(h^2) reads of the sample's keys, cached in L1.
-__device__ __forceinline__ float sample_touch(const int32_t* __restrict__ keys,
-                                              const float* __restrict__ w, int64_t f, int h, int key) {
-  const int64_t s0 = f / h * h;
-  for (int64_t i = s0; i < f; ++i)
-    if (__ldg(keys + i) == key) return 0.f;
-  float sum = __ldg(w + f);
-  for (int64_t i = f + 1; i < s0 + h; ++i)
-    if (__ldg(keys + i) == key) sum += __ldg(w + i);
-  return fabsf(sum);
+// One warp's 32 keys of the scatter routes, from flat key index f (sample
+// f / h): adds each key's touch into `cnt` (rows of the lookup) and its
+// cotangent row into `dst`. `live` lanes hold a key.
+template <typename T>
+__device__ __forceinline__ void scatter_keys(const BwdGroup& p, const BwdLookup& L, int f, bool live,
+                                             float* dst, float* cnt, bool shared_cnt, int lane) {
+  int row = -1, s = 0;
+  float wt = 1.f, den = 1.f;
+  if (live) {
+    s = f / L.h;
+    const int slot = f - s * L.h;
+    row = bwd_row(raw_key(L, s, slot), L, window_lo(L), p.local_keys);
+    if (row >= 0) {
+      if (L.w != nullptr) {
+        wt = __ldg(L.w + static_cast<int64_t>(s) * L.w_stride + slot);
+        const float t = sample_touch(L, s, slot, row, p.local_keys);
+        if (t != 0.f) atomicAdd(cnt + row, t);
+      }
+      if (L.flags & kFlagMean) den = sample_den<T>(L, s, p.local_keys);
+    }
+  }
+  if (L.w == nullptr) {  // one count add per distinct row of the 32 keys
+    const unsigned peers = __match_any_sync(kFull, row);
+    if (row >= 0 && lane == __ffs(peers) - 1) {
+      if (shared_cnt) {
+        atomicAdd(reinterpret_cast<int*>(cnt) + row, __popc(peers));
+      } else {
+        atomicAdd(cnt + row, static_cast<float>(__popc(peers)));
+      }
+    }
+  }
+  add_rows<T>(p, L, __ballot_sync(kFull, row >= 0), row, s, wt, den, dst, lane);
 }
 
-// Privatised backward: the whole table in shared memory; block `slice`
-// takes samples [slice * slice_samples, +slice_samples). kWeighted: the
-// counts are float32 sums of `sample_touch`.
-template <typename T, bool kWeighted>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-onehot_bwd(const int32_t* __restrict__ keys, const T* __restrict__ d, const float* __restrict__ w,
-           float* __restrict__ grad, float* __restrict__ cnt, int b, int h, int v, int e,
-           int slice_samples) {
-  extern __shared__ float part[];  // [v][e] float32 sums, then [v] int counts (kWeighted: float)
-  int* scnt = reinterpret_cast<int*>(part + v * e);
-  float* swt = part + v * e;
-  for (int i = threadIdx.x; i < v * e; i += blockDim.x) part[i] = 0.f;
-  for (int i = threadIdx.x; i < v; i += blockDim.x) scnt[i] = 0;  // 0 bits: 0.f too
+// Privatised: the lookup's whole table in shared memory ([v, e] float32
+// sums, then [v] counts: int, or float32 for a weighted lookup); the block
+// takes samples [slice * p2, +p2), then adds its touched rows into grad.
+template <typename T>
+__device__ void privatised_block(const BwdGroup& p, const BwdLookup& L, float* part, int slice) {
+  const int v = L.v, e = p.e, h = L.h;
+  float* scnt = part + static_cast<int64_t>(v) * e;
+  for (int i = threadIdx.x; i < v * e; i += kBwdThreads) part[i] = 0.f;
+  for (int i = threadIdx.x; i < v; i += kBwdThreads) scnt[i] = 0.f;  // 0 bits: int 0 too
   __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t s0 = static_cast<int64_t>(blockIdx.x) * slice_samples;
-  const int64_t s1 = s0 + slice_samples < b ? s0 + slice_samples : b;
-  const int64_t f1 = s1 * h;
-  for (int64_t g = s0 * h + warp * 32; g < f1; g += kBwdWarps * 32) {
-    const int64_t f = g + lane;
-    int key = -1;
-    float wt = 0.f;
-    if (f < f1) {
-      key = __ldg(keys + f);
-      if (key < 0 || key >= v) key = -1;
-      if constexpr (kWeighted) wt = __ldg(w + f);
-    }
-    if constexpr (kWeighted) {
-      if (key >= 0) {
-        const float t = sample_touch(keys, w, f, h, key);
-        if (t != 0.f) atomicAdd(swt + key, t);
-      }
-    } else {
-      // one count add per distinct row of the 32 keys
-      const unsigned peers = __match_any_sync(kFull, key);
-      if (key >= 0 && lane == __ffs(peers) - 1) atomicAdd(scnt + key, __popc(peers));
-    }
-    add_rows<T, kWeighted>(__ballot_sync(kFull, key >= 0), key, f / h, wt, d, part, e, lane);
-  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s0 = slice * L.p2;
+  const int s1 = s0 + L.p2 < p.b ? s0 + L.p2 : p.b;
+  const int f1 = s1 * h;
+  for (int g = s0 * h + warp * 32; g < f1; g += kBwdThreads)
+    scatter_keys<T>(p, L, g + lane, g + lane < f1, part, scnt, L.w == nullptr, lane);
   __syncthreads();
-
   for (int r = warp; r < v; r += kBwdWarps) {
-    const float n = kWeighted ? swt[r] : static_cast<float>(scnt[r]);
+    const float n = L.w != nullptr ? scnt[r] : static_cast<float>(reinterpret_cast<int*>(scnt)[r]);
     if (n == 0.f) continue;
-    float* grow = grad + static_cast<int64_t>(r) * e;
+    float* grow = p.grad + static_cast<int64_t>(L.row_off + r) * e;
     for (int c = lane; c < e; c += 32) atomicAdd(grow + c, part[r * e + c]);
-    if (lane == 0) atomicAdd(cnt + r, n);
+    if (lane == 0) atomicAdd(p.cnt + L.row_off + r, n);
   }
 }
 
-// Global-atomic backward for tables whose keys spread over many rows: each
-// warp takes kBatch keys at a time (lanes 0..kBatch-1 load them, so a batch
-// has many warps in flight) and adds their d rows straight into grad.
-template <typename T, bool kWeighted>
-__global__ void __launch_bounds__(kGlobalWarps * 32)
-onehot_bwd_global(const int32_t* __restrict__ keys, const T* __restrict__ d,
-                  const float* __restrict__ w, float* __restrict__ grad, float* __restrict__ cnt,
-                  int b, int h, int v, int e) {
+// Global atomics: each warp takes kBatch keys at a time (lanes 0..kBatch-1
+// load them, so a batch has many warps in flight) and adds their rows
+// straight into grad.
+template <typename T>
+__device__ void global_block(const BwdGroup& p, const BwdLookup& L, int local) {
   const int lane = threadIdx.x & 31;
-  const int64_t n = static_cast<int64_t>(b) * h;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kGlobalWarps * kBatch;
-  for (int64_t g = (static_cast<int64_t>(blockIdx.x) * kGlobalWarps + (threadIdx.x >> 5)) * kBatch;
-       g < n; g += stride) {
-    const int64_t f = g + lane;
-    int key = -1;
-    float wt = 0.f;
-    if (lane < kBatch && f < n) {
-      key = __ldg(keys + f);
-      if (key < 0 || key >= v) key = -1;
-      if constexpr (kWeighted) wt = __ldg(w + f);
+  const int n = p.b * L.h;  // below 2^31: the launcher checks
+  const int stride = L.blocks * kBwdWarps * kBatch;
+  float* grad = p.grad + static_cast<int64_t>(L.row_off) * p.e;
+  float* cnt = p.cnt + L.row_off;
+  for (int g = (local * kBwdWarps + (threadIdx.x >> 5)) * kBatch; g < n; g += stride)
+    scatter_keys<T>(p, L, g + lane, lane < kBatch && g + lane < n, grad, cnt, false, lane);
+}
+
+// An asynchronous 4-byte copy from device to shared memory, and its groups.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending)); }
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// Whether this block is the last of `n` to arrive at `counter`, after its
+// writes are visible to the others (they read them through L2).
+__device__ __forceinline__ bool last_to_arrive(int* counter, int n) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1) == n - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// Sums n partial tiles from `src` (kPart floats apart) in order: into
+// `dst` (a partial tile) or, without one, into the tile's rows of grad and
+// cnt (rows < v, columns < e; the counts only for the first column slice).
+__device__ void sum_partials(const float* src, int n, float* dst, const BwdGroup& p, const BwdLookup& L, int r0,
+                             int c0, bool with_cnt, int live_rows) {
+  const int e = p.e;
+  for (int i = threadIdx.x; i < live_rows * kCT / 4; i += kBwdThreads) {
+    const int row = r0 + i / (kCT / 4), col = c0 + i % (kCT / 4) * 4;
+    if (dst == nullptr && (row >= L.v || col >= e)) continue;
+    float4 s = __ldcg(reinterpret_cast<const float4*>(src) + i);
+    for (int r = 1; r < n; ++r) {  // in order: the same bits every call
+      const float4 y = __ldcg(reinterpret_cast<const float4*>(src + static_cast<int64_t>(r) * kPart) + i);
+      s.x += y.x;
+      s.y += y.y;
+      s.z += y.z;
+      s.w += y.w;
     }
-    if constexpr (kWeighted) {
-      if (key >= 0) {
-        const float t = sample_touch(keys, w, f, h, key);
-        if (t != 0.f) atomicAdd(cnt + key, t);
+    if (dst != nullptr) {
+      reinterpret_cast<float4*>(dst)[i] = s;
+      continue;
+    }
+    float* o = p.grad + static_cast<int64_t>(L.row_off + row) * e + col;
+    if (s.x != 0.f) atomicAdd(o, s.x);
+    if (s.y != 0.f) atomicAdd(o + 1, s.y);
+    if (s.z != 0.f) atomicAdd(o + 2, s.z);
+    if (s.w != 0.f) atomicAdd(o + 3, s.w);
+  }
+  if (!with_cnt) return;
+  for (int i = threadIdx.x; i < live_rows; i += kBwdThreads) {
+    if (dst == nullptr && r0 + i >= L.v) continue;
+    float s = __ldcg(src + kRT * kCT + i);
+    for (int r = 1; r < n; ++r) s += __ldcg(src + static_cast<int64_t>(r) * kPart + kRT * kCT + i);
+    if (dst != nullptr) {
+      dst[kRT * kCT + i] = s;
+    } else if (s != 0.f) {
+      atomicAdd(p.cnt + L.row_off + r0 + i, s);
+    }
+  }
+}
+
+// Counts-transpose product, the TPU kernel's own formulation: block `local`
+// takes tile (row tile, column slice) and sample run local % runs. Per
+// chunk of kS samples it forms the [kRT rows, kS samples] counts tile in
+// shared memory (one native shared atomic per key on the 32-bit word that
+// holds its 16-bit count: small integers, exact in bf16 up to h 256), stages
+// the chunk's d columns as hi (+ mid + lo) bf16 terms, and each warp
+// multiplies its 16 rows on the tensor cores (mma.sync m16n8k16, bf16 in,
+// float32 accumulate; d fragments by ldmatrix.trans). A warp whose 16 x 16
+// counts block is zero skips it. The touch counts are the counts tile's
+// row sums: one more product with a B operand of ones, exact in float32.
+// With one run the block adds its sums into grad; with more, it writes its
+// partial, and the run that finishes a tile last sums the tile's partials
+// in run order into grad, so two calls give the same bits.
+template <typename T>
+__device__ void mma_bwd_block(const BwdGroup& p, const BwdLookup& L, unsigned char* smem, int local) {
+  constexpr int kTerms = sizeof(T) == 4 ? 3 : 1;
+  const int slices = L.p0, runs = L.p1, run_samples = L.p2;
+  const int run = local % runs, tile = local / runs;
+  const int r0 = tile / slices * kRT, c0 = tile % slices * kCT;
+  const int e = p.e, h = L.h, v = L.v;
+  const bool mean = L.flags & kFlagMean, with_cnt = c0 == 0;
+  const int64_t s_begin = static_cast<int64_t>(run) * run_samples;
+  const int64_t s_end = s_begin + run_samples < p.b ? s_begin + run_samples : p.b;
+  uint32_t* ct = reinterpret_cast<uint32_t*>(smem);  // [kRT][kCtWords]
+  int* nval = reinterpret_cast<int*>(ct + kRT * kCtWords);  // [kS]
+  int32_t* kst = nval + kS;  // [2][kS * h] the chunks' keys (int32, or an int64 key's low word)
+  __nv_bfloat16* ds = reinterpret_cast<__nv_bfloat16*>(kst + 2 * kS * kMmaBwdMaxH);  // [2][kTerms][kS][kDs]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3, m0 = warp * 16;
+  const int ntiles = (e - c0 < kCT ? e - c0 : kCT) / 8;
+  // rows of the tile that keys can reach (a warp past them reads zeros)
+  const int live_rows = ((v - r0 < kRT ? v - r0 : kRT) + 15) & ~15;
+  const T* d = static_cast<const T*>(p.d) + L.d_col + c0;
+  const int ds_s = tid / (kCT / kDVals), ds_c = tid % (kCT / kDVals) * kDVals;  // this thread's d values
+  const bool dvec = L.flags & kFlagDVec;
+  float x[kDVals];
+  auto load_d = [&](int64_t s0, int ns) {
+    const T* src = d + (s0 + ds_s) * p.ld + ds_c;
+#pragma unroll
+    for (int i = 0; i < kDVals; i += 4) {
+      const bool ok = ds_s < ns && c0 + ds_c + i < e;  // e % 8 == 0: four at a time
+      if (ok && dvec) {
+        float y[4];
+        load_vec<4>(src + i, y);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) x[i + u] = y[u];
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) x[i + u] = ok ? to_f32(__ldg(src + i + u)) : 0.f;
       }
-    } else {
-      const unsigned peers = __match_any_sync(kFull, key);
-      if (key >= 0 && lane == __ffs(peers) - 1) atomicAdd(cnt + key, static_cast<float>(__popc(peers)));
     }
-    add_rows<T, kWeighted>(__ballot_sync(kFull, key >= 0), key, f / h, wt, d, grad, e, lane);
+  };
+  float acc[kCT / 8][4] = {};
+  float accn[4] = {};
+  // chunk c uses keys kst[c & 1] and staged d ds[c & 1]: the next chunk's
+  // keys are copied into shared memory (cp.async) and its d loaded while
+  // this chunk is counted and multiplied; the counts tile is zeroed after
+  // each chunk's products
+  const int step_s = kBwdThreads / h, step_r = kBwdThreads - step_s * h, lo = window_lo(L);
+  const int64_t step_off = static_cast<int64_t>(step_s) * L.key_stride + step_r;
+  const int cs0 = tid / h, cr0 = tid - cs0 * h;
+  const int kshift = (L.flags & kFlagKey64) ? 3 : 2;  // bytes of a key: int64 keys' low words are their cut
+  auto chunk_len = [&](int64_t cb) { return s_end - cb < kS ? static_cast<int>(s_end - cb) : kS; };
+  // the chunk's keys into kst[b]: pairs tid, tid + T, ... stepped without a division
+  auto copy_keys = [&](int64_t cb, int b) {  // the chunk of samples from cb
+    const int n = chunk_len(cb) * h;
+    int cs = cs0, cr = cr0;
+    int64_t off = (cb + cs) * L.key_stride + cr;
+    for (int pr = tid; pr < n; pr += kBwdThreads) {
+      cp_async4(kst + b * kS * kMmaBwdMaxH + pr, static_cast<const char*>(L.keys) + (off << kshift));
+      cs += step_s;
+      cr += step_r;
+      off += step_off;
+      if (cr >= h) {
+        cr -= h;
+        ++cs;
+        off += L.key_stride - h;
+      }
+    }
+    cp_async_commit();
+  };
+  copy_keys(s_begin, 0);
+  int ns = chunk_len(s_begin);
+  load_d(s_begin, ns);
+  for (int i = tid; i < live_rows * kCtWords; i += kBwdThreads) ct[i] = 0u;
+  if (tid < kS) nval[tid] = 0;
+  int buf = 0;
+  for (int64_t s0 = s_begin; s0 < s_end; s0 += kS, buf ^= 1) {
+    uint32_t* ctb = ct;
+    int* nvb = nval;
+    const int32_t* kb = kst + buf * kS * kMmaBwdMaxH;
+    __nv_bfloat16* dsb = ds + buf * kTerms * kS * kDs;
+    const int cns = ns;
+    const bool more = s0 + kS < s_end;
+    if (more) {
+      copy_keys(s0 + kS, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // the chunk's keys are in; its counts are zero; the last chunk's products are done
+    // the chunk's counts
+    const int npairs = cns * h;
+    int cs = cs0, cr = cr0;
+    for (int q = 0; q + (tid & ~31) < npairs; q += kBwdThreads) {  // warp-uniform
+      const int pr = q + tid;
+      const int r = pr < npairs ? bwd_row(kb[pr], L, lo, p.local_keys) : -1;
+      if (mean) {  // non-padding keys per sample, one add per sample of the warp
+        const unsigned peers = __match_any_sync(kFull, r >= 0 ? cs : -1);
+        if (r >= 0 && lane == __ffs(peers) - 1) atomicAdd(nvb + cs, __popc(peers));
+      }
+      const int rl = r - r0;
+      if (r >= 0 && rl < kRT && rl >= 0) atomicAdd(ctb + rl * kCtWords + cs / 2, 1u << (16 * (cs & 1)));
+      cs += step_s;
+      cr += step_r;
+      if (cr >= h) {
+        cr -= h;
+        ++cs;
+      }
+    }
+    __syncthreads();  // the chunk's counts are whole
+    {  // stage the chunk's d: Mean-divided and rounded to T, split into bf16 terms
+      float den = 1.f;
+      if (mean && ds_s < cns) {
+        const int nv = nvb[ds_s];
+        den = to_f32(from_f32<T>(static_cast<float>(nv > 1 ? nv : 1)));
+      }
+#pragma unroll
+      for (int i = 0; i < kDVals; ++i) x[i] = d_value(from_f32<T>(x[i]), den, 1.f);
+#pragma unroll
+      for (int t = 0; t < kTerms; ++t) {
+        uint32_t packed[kDVals / 2];
+#pragma unroll
+        for (int i = 0; i < kDVals; i += 2) {
+          const __nv_bfloat162 y = __floats2bfloat162_rn(x[i], x[i + 1]);
+          x[i] -= __low2float(y);
+          x[i + 1] -= __high2float(y);
+          packed[i / 2] = *reinterpret_cast<const uint32_t*>(&y);
+        }
+        uint4* dst = reinterpret_cast<uint4*>(dsb + (t * kS + ds_s) * kDs + ds_c);
+#pragma unroll
+        for (int i = 0; i < kDVals / 8; ++i)
+          dst[i] = make_uint4(packed[4 * i], packed[4 * i + 1], packed[4 * i + 2], packed[4 * i + 3]);
+      }
+    }
+    if (more) {  // the next chunk: its d in flight
+      ns = chunk_len(s0 + kS);
+      load_d(s0 + kS, ns);
+    }
+    __syncthreads();  // the chunk's d is staged
+    for (int k0 = 0; k0 < cns && m0 < live_rows; k0 += 16) {
+      const uint32_t* a = ctb + (m0 + g) * kCtWords + k0 / 2 + tq;
+      const uint32_t af[4] = {counts_bf16(a[0]), counts_bf16(a[8 * kCtWords]), counts_bf16(a[4]),
+                              counts_bf16(a[8 * kCtWords + 4])};
+      if (!__any_sync(kFull, (af[0] | af[1] | af[2] | af[3]) != 0u)) continue;  // no key of these rows
+      const __nv_bfloat16* brow = dsb + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kDs + 8 * (lane >> 4);
+#pragma unroll
+      for (int j = 0; j < kCT / 8; j += 2) {
+        if (j >= ntiles) break;
+#pragma unroll
+        for (int t = kTerms - 1; t >= 0; --t) {  // smallest term first
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, brow + t * kS * kDs + 8 * j);
+          mma_bf16(acc[j], af, b[0], b[1]);
+          if (j + 1 < ntiles) mma_bf16(acc[j + 1], af, b[2], b[3]);
+        }
+      }
+      if (with_cnt) mma_bf16(accn, af, kOnesBf16x2, kOnesBf16x2);
+    }
+    __syncthreads();  // the counts are free
+    for (int i = tid; i < live_rows * kCtWords; i += kBwdThreads) ct[i] = 0u;
+    if (tid < kS) nval[tid] = 0;
+  }
+  // acc[j][2 * half + u]: row m0 + g + 8 * half, column 8 j + 2 tq + u of the tile
+  if (runs == 1) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + m0 + g + 8 * half;
+      if (row >= v) continue;
+      float* grow = p.grad + static_cast<int64_t>(L.row_off + row) * e + c0 + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < kCT / 8; ++j) {
+        if (j >= ntiles) break;
+        if (acc[j][2 * half] != 0.f) atomicAdd(grow + 8 * j, acc[j][2 * half]);
+        if (acc[j][2 * half + 1] != 0.f) atomicAdd(grow + 8 * j + 1, acc[j][2 * half + 1]);
+      }
+      if (with_cnt && tq == 0 && accn[2 * half] != 0.f) atomicAdd(p.cnt + L.row_off + row, accn[2 * half]);
+    }
+    return;
+  }
+  // the partial of this run; the last run of a group of kGroupRuns sums
+  // the group's partials in run order, and (with more than one group) the
+  // last group sums the groups' sums in group order
+  const int ngroups = (runs + kGroupRuns - 1) / kGroupRuns;
+  float* tp = p.part + (static_cast<int64_t>(L.p3) + static_cast<int64_t>(tile) * (runs + ngroups)) * kPart;
+  int* tc = p.counters + L.p3 + tile * (runs + ngroups);
+  float* part = tp + static_cast<int64_t>(run) * kPart;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m = m0 + g + 8 * half;
+    if (m0 >= live_rows) break;
+#pragma unroll
+    for (int j = 0; j < kCT / 8; ++j)
+      *reinterpret_cast<float2*>(part + m * kCT + 8 * j + 2 * tq) = make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+    if (tq == 0) part[kRT * kCT + m] = accn[2 * half];
+  }
+  const int grp = run / kGroupRuns;
+  const int gsize = runs - grp * kGroupRuns < kGroupRuns ? runs - grp * kGroupRuns : kGroupRuns;
+  if (!last_to_arrive(tc + grp, gsize)) return;
+  if (ngroups == 1) {
+    sum_partials(tp, runs, nullptr, p, L, r0, c0, with_cnt, live_rows);
+    return;
+  }
+  sum_partials(tp + static_cast<int64_t>(grp) * kGroupRuns * kPart, gsize, tp + static_cast<int64_t>(runs + grp) * kPart,
+               p, L, r0, c0, with_cnt, live_rows);
+  if (!last_to_arrive(tc + ngroups, ngroups)) return;
+  sum_partials(tp + static_cast<int64_t>(runs) * kPart, ngroups, nullptr, p, L, r0, c0, with_cnt, live_rows);
+}
+
+// One launch for every lookup of a backward group: block ranges per lookup,
+// counts-matmul lookups first (their blocks are the longest).
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+onehot_bwd_group(const __grid_constant__ BwdGroup p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int li = 0;
+  while (li + 1 < p.n && static_cast<int>(blockIdx.x) >= p.lk[li + 1].first_block) ++li;
+  const BwdLookup& L = p.lk[li];
+  const int local = static_cast<int>(blockIdx.x) - L.first_block;
+  if (L.route == kCountsMma) {
+    mma_bwd_block<T>(p, L, smem, local);
+  } else if (L.route == kPrivatised) {
+    privatised_block<T>(p, L, reinterpret_cast<float*>(smem), local);
+  } else {
+    global_block<T>(p, L, local);
   }
 }
 
@@ -749,59 +1181,236 @@ int fwd_group(const hctr_fwd_lookup* in, int n, const void* table, void* out, in
   return vec4 ? launch_group<T, 4>(p, nb, smem, s) : launch_group<T, 1>(p, nb, smem, s);
 }
 
-// Most table rows one backward block can hold in shared memory at width e.
+// Most table rows the privatised route holds in shared memory at width e.
 int bwd_tile_rows(int e) { return smem_optin() / (e * 4 + 4); }
 
-// The backward's route for a shape: privatised when the table fits one
-// block's shared memory and its keys are many per row, so that a scatter
-// straight into device memory would serialise on the rows; else global
-// atomics.
-inline bool bwd_privatised(int b, int h, int v, int e) {
-  return v <= bwd_tile_rows(e) &&
-         static_cast<int64_t>(b) * h >= static_cast<int64_t>(kHotKeysPerRow) * v;
+// Route thresholds, from `python -m hugectr_tpu_torch.tools.kernel_sweep
+// --bwd-routes` at the main paths' lookups, each lookup alone on each route
+// (PERF.md; one H100 80GB HBM3 at 700 W). The counts matmul costs about a
+// pass over the keys and the products for each 256-row tile, the global
+// atomics about the keys: the counts matmul where a sample brings at least
+// kMmaKeysPerTile keys per row tile (it won at V 1,024 h 10 to h 100, V 155
+// h 5, V 108 h 40, and lost at V 1,024 h 3 and h 7, V 2,209 h 6, V 976 to
+// 7,424 at h 1 and 2), or where the rows take kMmaKeysPerRow keys each, so
+// that the atomics would serialise on them (it won at V 3 to 36 at h 1, and
+// lost at V 63 and 108 at h 1); else the global atomics, which beat the
+// privatised route wherever the counts matmul could have run. A lookup the
+// counts matmul cannot take (weighted, h above 128, e not a multiple of 8)
+// takes the privatised route where its table fits shared memory and its
+// rows take kHotKeysPerRow keys, else global atomics.
+constexpr int kMmaKeysPerTile = 2;
+constexpr int kMmaKeysPerRow = 400;
+constexpr int kHotKeysPerRow = 256;
+constexpr int kMinRunSamples = 256;   // counts matmul: samples per run at least
+constexpr int kMaxRuns = kGroupRuns * kGroupRuns;  // two levels of sums
+constexpr int kMmaBlocksPerSm = 1;    // counts matmul: a lookup's runs fill the card once (each run adds a partial tile)
+
+// The backward's route for one lookup of [b, h] keys into v rows of width e.
+int bwd_route(int b, int h, int v, int e, bool weighted) {
+  const int64_t keys = static_cast<int64_t>(b) * h;
+  const int row_tiles = (v + kRT - 1) / kRT;
+  if (!weighted && h <= kMmaBwdMaxH && e % 8 == 0)
+    return h >= kMmaKeysPerTile * row_tiles || keys >= static_cast<int64_t>(kMmaKeysPerRow) * v ? kCountsMma
+                                                                                                : kGlobal;
+  if (v <= bwd_tile_rows(e) && keys >= static_cast<int64_t>(kHotKeysPerRow) * v) return kPrivatised;
+  return kGlobal;
 }
 
-template <typename T, bool kWeighted>
-int bwd_global(const int32_t* keys, const T* d, const float* w, float* grad, float* cnt, int b, int h,
-               int v, int e, cudaStream_t s) {
-  const int64_t groups = (static_cast<int64_t>(b) * h + kBatch - 1) / kBatch;
-  const int64_t want = (groups + kGlobalWarps - 1) / kGlobalWarps;
-  const unsigned blocks = static_cast<unsigned>(want < 65535 ? want : 65535);
-  onehot_bwd_global<T, kWeighted><<<blocks, kGlobalWarps * 32, 0, s>>>(keys, d, w, grad, cnt, b, h, v, e);
-  return cudaGetLastError();
+// Whether a forced route can take the lookup.
+bool bwd_route_ok(int route, int h, int v, int e, bool weighted) {
+  if (route == kCountsMma) return !weighted && h <= kMmaBwdMaxH && e % 8 == 0;
+  if (route == kPrivatised) return v <= bwd_tile_rows(e);
+  return route == kGlobal;
 }
 
-template <typename T, bool kWeighted>
-int bwd(const void* keys_, const void* d_, const float* w, void* grad32, void* cnt_, int b, int h, int v,
-        int e, cudaStream_t s) {
-  const auto* keys = static_cast<const int32_t*>(keys_);
-  const auto* d = static_cast<const T*>(d_);
-  auto* grad = static_cast<float*>(grad32);
-  auto* cnt = static_cast<float*>(cnt_);
-  if (!bwd_privatised(b, h, v, e)) return bwd_global<T, kWeighted>(keys, d, w, grad, cnt, b, h, v, e, s);
-  const size_t smem = static_cast<size_t>(v) * (e * 4 + 4);
-  const int threads = kBwdWarps * 32;
-  cudaError_t err = cudaFuncSetAttribute(onehot_bwd<T, kWeighted>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
+// Sample runs of a counts-matmul lookup of `tiles` tiles: enough blocks to
+// fill the card kMmaBlocksPerSm times over, at least kMinRunSamples
+// samples a run, at most kMaxRuns runs.
+int bwd_runs(int b, int tiles, int sms) {
+  const int want = (kMmaBlocksPerSm * sms + tiles - 1) / tiles;
+  const int most = (b + kMinRunSamples - 1) / kMinRunSamples;
+  int r = want < most ? want : most;
+  r = r > kMaxRuns ? kMaxRuns : r;
+  return r < 1 ? 1 : r;
+}
+
+struct BwdPlan {
+  int64_t slots = 0;  // the counts matmul's partial tiles (kPart floats and one counter each)
+  int64_t blocks = 0;
+  size_t smem = 0;
+};
+
+inline int64_t scratch_bytes(const BwdPlan& pl) { return pl.slots * (kPart * 4 + 4); }
+
+// Routes, block ranges and scratch of a backward group (`force` >= 0: every
+// lookup on that route). Fills p.lk, p.n, and the plan.
+int plan_bwd(const hctr_fwd_lookup* in, int n, int b, int e, int ld, int terms, int force, BwdGroup& p,
+             BwdPlan& pl) {
+  if (n < 1 || n > kMaxLookups || e < 1 || ld < e || b < 0) return cudaErrorInvalidValue;
+  int route[kMaxLookups];
+  for (int i = 0; i < n; ++i) {
+    const hctr_fwd_lookup& x = in[i];
+    if (x.h < 1 || x.v < 1 || x.out_col < 0 || x.out_col + e > ld || x.row_off < 0 ||
+        x.row_off + x.v > INT32_MAX || x.key_stride < 0 || x.key_stride > INT32_MAX ||
+        static_cast<int64_t>(b) * x.h > INT32_MAX)  // a lookup's keys are counted in int
+      return cudaErrorInvalidValue;
+    const bool weighted = x.weights != nullptr;
+    if (weighted && (x.w_stride < 0 || x.w_stride > INT32_MAX)) return cudaErrorInvalidValue;
+    route[i] = force >= 0 ? force : bwd_route(b, x.h, x.v, e, weighted);
+    if (!bwd_route_ok(route[i], x.h, x.v, e, weighted)) return cudaErrorInvalidValue;
+  }
+  int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, onehot_bwd<T, kWeighted>, threads, smem);
+  // counts-matmul lookups first, the most keys first; then privatised, then global
+  int order[kMaxLookups], o = 0;
+  const int by_route[3] = {kCountsMma, kPrivatised, kGlobal};
+  for (int r : by_route) {
+    const int first = o;
+    for (int i = 0; i < n; ++i)
+      if (route[i] == r) {
+        int j = o++;
+        for (; j > first && in[order[j - 1]].h < in[i].h; --j) order[j] = order[j - 1];
+        order[j] = i;
+      }
+  }
+  pl = BwdPlan{};
+  for (int j = 0; j < n; ++j) {
+    const hctr_fwd_lookup& x = in[order[j]];
+    if (route[order[j]] == kCountsMma) pl.smem = mma_bwd_smem(terms) > pl.smem ? mma_bwd_smem(terms) : pl.smem;
+    if (route[order[j]] == kPrivatised)
+    {
+      const size_t need = static_cast<size_t>(x.v) * (static_cast<size_t>(e) * 4 + 4);
+      pl.smem = need > pl.smem ? need : pl.smem;
+    }
+  }
+  // privatised slices: a block per SM at least; past that at most one wave
+  // of resident blocks and at least kFlushRatio keys per row and slice
+  int per_sm = 1;
+  if (pl.smem > 0) {
+    per_sm = static_cast<int>(smem_optin() / pl.smem);
+    per_sm = per_sm < 1 ? 1 : per_sm > kBwdMinBlocks ? kBwdMinBlocks : per_sm;
+  } else {
+    per_sm = kBwdMinBlocks;
+  }
+  p.n = n;
+  for (int j = 0; j < n; ++j) {
+    const int i = order[j];
+    const hctr_fwd_lookup& x = in[i];
+    BwdLookup& L = p.lk[j];
+    L.keys = x.keys;
+    L.w = x.weights;
+    L.key_stride = static_cast<int>(x.key_stride);
+    L.w_stride = static_cast<int>(x.w_stride);
+    L.row_off = static_cast<int>(x.row_off);
+    L.v = x.v;
+    L.h = x.h;
+    L.d_col = x.out_col;
+    const bool windowed = x.key_lo > 0 || x.key_hi >= 0;
+    L.key_lo = windowed ? x.key_lo : INT32_MIN;
+    L.key_last = !windowed ? INT32_MAX : x.key_hi >= 0 ? x.key_hi - 1 : INT32_MAX - 1;
+    L.flags = (x.mean ? kFlagMean : 0) | (x.key64 ? kFlagKey64 : 0) | (x.out_col % 4 == 0 ? kFlagDVec : 0);
+    L.route = route[i];
+    L.p0 = L.p1 = L.p2 = L.p3 = 0;
+    const int64_t keys = static_cast<int64_t>(b) * x.h;
+    int64_t nblk = 0;
+    if (L.route == kCountsMma) {
+      const int row_tiles = (x.v + kRT - 1) / kRT, slices = (e + kCT - 1) / kCT;
+      const int tiles = row_tiles * slices;
+      int runs = bwd_runs(b, tiles, sms);
+      const int run_samples = (((b + runs - 1) / runs + kS - 1) / kS) * kS;
+      runs = (b + run_samples - 1) / run_samples;
+      L.p0 = slices;
+      L.p1 = runs;
+      L.p2 = run_samples;
+      L.p3 = static_cast<int>(pl.slots);
+      if (runs > 1) pl.slots += static_cast<int64_t>(tiles) * (runs + (runs + kGroupRuns - 1) / kGroupRuns);
+      if (pl.slots > INT32_MAX) return cudaErrorInvalidValue;
+      nblk = b > 0 ? static_cast<int64_t>(tiles) * runs : 0;
+    } else if (L.route == kPrivatised) {
+      const int64_t wave = static_cast<int64_t>(per_sm) * sms;
+      const int64_t cap = keys / (static_cast<int64_t>(kFlushRatio) * x.v);
+      int64_t slices = wave < cap ? wave : cap;
+      slices = slices < sms ? sms : slices / sms * sms;
+      if (slices > b) slices = b;
+      if (slices < 1) slices = 1;
+      L.p2 = static_cast<int>((b + slices - 1) / slices);
+      nblk = b > 0 ? (b + L.p2 - 1) / L.p2 : 0;
+    } else {
+      const int64_t want = (keys + kBatch * kBwdWarps - 1) / (kBatch * kBwdWarps);
+      nblk = want < kGlobalMaxBlocks ? want : kGlobalMaxBlocks;
+    }
+    L.first_block = static_cast<int>(pl.blocks);
+    L.blocks = static_cast<int>(nblk);
+    pl.blocks += nblk;
+    if (pl.blocks > INT32_MAX) return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+int bwd_group(const hctr_fwd_lookup* in, int n, const void* d, int ld, float* grad, float* cnt, int64_t rows,
+              void* scratch, int64_t scratch_len, int b, int e, int accumulate, int local, int force,
+              cudaStream_t s) {
+  if (!accumulate && rows > 0) {
+    cudaError_t err = cudaMemsetAsync(grad, 0, rows * e * sizeof(float), s);
+    if (err == cudaSuccess) err = cudaMemsetAsync(cnt, 0, rows * sizeof(float), s);
+    if (err != cudaSuccess) return err;
+  }
+  if (n == 0 || b == 0) return cudaSuccess;
+  BwdGroup p{};
+  BwdPlan pl;
+  const int err = plan_bwd(in, n, b, e, ld, sizeof(T) == 4 ? 3 : 1, force, p, pl);
   if (err != cudaSuccess) return err;
-  // fill the card once, with a block on every SM at least, but past that
-  // keep >= kFlushRatio keys per table row in a slice, in whole waves
-  const int64_t wave = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
-  const int64_t cap = static_cast<int64_t>(b) * h / (static_cast<int64_t>(kFlushRatio) * v);
-  int64_t slices = wave < cap ? wave : cap;
-  slices = slices < sms ? sms : slices / sms * sms;
-  if (slices > b) slices = b;
-  if (slices < 1) slices = 1;
-  const int slice_samples = static_cast<int>((b + slices - 1) / slices);
-  slices = (b + slice_samples - 1) / slice_samples;
-  onehot_bwd<T, kWeighted><<<static_cast<unsigned>(slices), threads, smem, s>>>(keys, d, w, grad, cnt, b,
-                                                                                 h, v, e, slice_samples);
+  for (int i = 0; i < n; ++i)
+    if (in[i].row_off + in[i].v > rows) return cudaErrorInvalidValue;
+  if (scratch_bytes(pl) > scratch_len) return cudaErrorInvalidValue;
+  const size_t isz = sizeof(T);
+  if (!(ld % 4 == 0 && reinterpret_cast<uintptr_t>(d) % (4 * isz) == 0))
+    for (int j = 0; j < n; ++j) p.lk[j].flags &= ~kFlagDVec;
+  p.d = d;
+  p.grad = grad;
+  p.cnt = cnt;
+  p.part = static_cast<float*>(scratch);
+  p.counters = reinterpret_cast<int*>(static_cast<float*>(scratch) + pl.slots * kPart);
+  p.b = b;
+  p.e = e;
+  p.ld = ld;
+  p.local_keys = local;
+  if (pl.slots > 0) {
+    const cudaError_t e2 = cudaMemsetAsync(p.counters, 0, pl.slots * sizeof(int), s);
+    if (e2 != cudaSuccess) return e2;
+  }
+  if (pl.blocks == 0) return cudaSuccess;
+  if (pl.smem > kDefaultSmem) {
+    const cudaError_t e2 = cudaFuncSetAttribute(onehot_bwd_group<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                static_cast<int>(pl.smem));
+    if (e2 != cudaSuccess) return e2;
+  }
+  onehot_bwd_group<T><<<static_cast<unsigned>(pl.blocks), kBwdThreads, pl.smem, s>>>(p);
   return cudaGetLastError();
+}
+
+// The float32 sums cast to bfloat16 (the per-table entry's bf16 output).
+int cast_bf16(const float* src, void* dst, int64_t n, cudaStream_t s) {
+  if (n == 0) return cudaSuccess;
+  const int64_t want = (n + 255) / 256;
+  const unsigned blocks = static_cast<unsigned>(want < 65535 ? want : 65535);
+  cast_to_bf16<<<blocks, 256, 0, s>>>(src, static_cast<__nv_bfloat16*>(dst), n);
+  return cudaGetLastError();
+}
+
+int bwd_dispatch(int dtype, const hctr_fwd_lookup* in, int n, const void* d, int ld, void* grad32, void* cnt,
+                 int64_t rows, void* scratch, int64_t scratch_len, int b, int e, int accumulate, int local,
+                 int force, cudaStream_t s) {
+  auto* g = static_cast<float*>(grad32);
+  auto* c = static_cast<float*>(cnt);
+  if (dtype == kF32)
+    return bwd_group<float>(in, n, d, ld, g, c, rows, scratch, scratch_len, b, e, accumulate, local, force, s);
+  if (dtype == kBF16)
+    return bwd_group<__nv_bfloat16>(in, n, d, ld, g, c, rows, scratch, scratch_len, b, e, accumulate, local,
+                                    force, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -843,41 +1452,50 @@ extern "C" int hctr_onehot_fwd_route(int v, int h, int e) { return hctr::fwd_rou
 // Most table rows the privatised backward takes at width e on the current device.
 extern "C" int hctr_onehot_bwd_tile_rows(int e) { return hctr::bwd_tile_rows(e); }
 
-// The backward's route for [b, h] keys into [v, e]: 1 privatised, 0 global.
-extern "C" int hctr_onehot_bwd_privatised(int b, int h, int v, int e) {
-  return hctr::bwd_privatised(b, h, v, e) ? 1 : 0;
+// The backward's route for one lookup of [b, h] keys into [v, e]: 0 global
+// atomics, 1 privatised, 2 counts matmul.
+extern "C" int hctr_onehot_bwd_route(int b, int h, int v, int e, int weighted) {
+  return hctr::bwd_route(b, h, v, e, weighted != 0);
 }
 
-// keys [b, h] int32; d [b, e] of `d_dtype`; w [b, h] float32 per-key
-// weights or null; grad32 [v, e] and cnt [v] float32 receive the sums (with
-// w: the w-scaled d rows and the sums of |a sample's summed w|): added to what they hold when
-// `accumulate` is 1, else zeroed first. out_bf16 [v, e] bfloat16 receives
-// the cast of grad32 when it is not null.
-extern "C" int hctr_onehot_bwd(int d_dtype, const void* keys, const void* d, const void* w,
-                               void* grad32, void* cnt, void* out_bf16, int b, int h, int v, int e,
-                               int accumulate, void* stream) {
+// Scratch bytes a backward group needs (the counts matmul's partial sums
+// and tile counters), or -1 for lookups the kernel does not take.
+extern "C" int64_t hctr_onehot_bwd_scratch(const hctr_fwd_lookup* lookups, int n, int b, int e, int ld,
+                                           int route) {
+  if (n == 0 || b == 0) return 0;
+  hctr::BwdGroup p{};
+  hctr::BwdPlan pl;
+  if (hctr::plan_bwd(lookups, n, b, e, ld, 1, route, p, pl) != cudaSuccess) return -1;
+  return hctr::scratch_bytes(pl);
+}
+
+// The weight gradient and touch counts of a one-hot group in one launch:
+// lookups[n] (the forward's descriptors; out_col is the lookup's column in
+// d) with cotangents d [b, ld] of `d_dtype`, into grad32 [rows, e] and cnt
+// [rows] float32, zeroed first unless `accumulate` is 1. Group mode: the
+// window, -1 padding, the floor-mod wrap. `route` -1 lets the launcher
+// choose each lookup's route; 0, 1, 2 force global, privatised or counts
+// matmul on every lookup (sweeps and checks).
+extern "C" int hctr_onehot_bwd_group(int d_dtype, const hctr_fwd_lookup* lookups, int n, const void* d, int ld,
+                                     void* grad32, void* cnt, int64_t rows, void* scratch, int64_t scratch_len,
+                                     int b, int e, int accumulate, int route, void* stream) {
+  return hctr::bwd_dispatch(d_dtype, lookups, n, d, ld, grad32, cnt, rows, scratch, scratch_len, b, e,
+                            accumulate, 0, route, static_cast<cudaStream_t>(stream));
+}
+
+// The per-table contract of the Pallas kernel: keys [b, h] int32 table-local
+// rows (outside [0, v): padding), d [b, e] of `d_dtype`, w [b, h] float32
+// per-key weights or null; grad32 [v, e] and cnt [v] float32 receive the
+// sums, added to what they hold when `accumulate` is 1, else zeroed first;
+// out_bf16 [v, e] receives their cast when it is not null. The group kernel
+// with one lookup in local-keys mode.
+extern "C" int hctr_onehot_bwd(int d_dtype, const void* keys, const void* d, const void* w, void* grad32,
+                               void* cnt, void* out_bf16, void* scratch, int64_t scratch_len, int b, int h,
+                               int v, int e, int accumulate, int route, void* stream) {
+  const hctr_fwd_lookup lk{keys, h, 0, h, v, 0, 0, 0, 0, -1, static_cast<const float*>(w), h};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d_dtype != hctr::kF32 && d_dtype != hctr::kBF16) return cudaErrorInvalidValue;
-  const int64_t n = static_cast<int64_t>(v) * e;
-  int err = cudaSuccess;
-  if (!accumulate && v > 0) {
-    err = cudaMemsetAsync(grad32, 0, n * sizeof(float), s);
-    if (err == cudaSuccess) err = cudaMemsetAsync(cnt, 0, v * sizeof(float), s);
-    if (err != cudaSuccess) return err;
-  }
-  if (b > 0 && h > 0 && v > 0 && e > 0) {
-    const auto* wf = static_cast<const float*>(w);
-    if (d_dtype == hctr::kF32)
-      err = wf ? hctr::bwd<float, true>(keys, d, wf, grad32, cnt, b, h, v, e, s)
-               : hctr::bwd<float, false>(keys, d, wf, grad32, cnt, b, h, v, e, s);
-    else
-      err = wf ? hctr::bwd<__nv_bfloat16, true>(keys, d, wf, grad32, cnt, b, h, v, e, s)
-               : hctr::bwd<__nv_bfloat16, false>(keys, d, wf, grad32, cnt, b, h, v, e, s);
-  }
-  if (err != cudaSuccess || out_bf16 == nullptr || n == 0) return err;
-  const int64_t want = (n + 255) / 256;
-  const unsigned blocks = static_cast<unsigned>(want < 65535 ? want : 65535);
-  hctr::cast_to_bf16<<<blocks, 256, 0, s>>>(static_cast<const float*>(grad32),
-                                            static_cast<__nv_bfloat16*>(out_bf16), n);
-  return cudaGetLastError();
+  const int err = hctr::bwd_dispatch(d_dtype, &lk, 1, d, e, grad32, cnt, v, scratch, scratch_len, b, e,
+                                     accumulate, 1, route, s);
+  if (err != cudaSuccess || out_bf16 == nullptr) return err;
+  return hctr::cast_bf16(static_cast<const float*>(grad32), out_bf16, static_cast<int64_t>(v) * e, s);
 }

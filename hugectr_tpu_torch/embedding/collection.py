@@ -5,10 +5,11 @@ Each plan group owns one [R, E] storage tensor. Per group:
 
 * "onehot" groups (small tables): the forward pools every lookup of the
   group in one launch of the one-hot forward kernel, placement included
-  (`_onehot_fwd`, collection.py:1311-1337); the
-  backward builds the dense gradient and touch counts with the one-hot
-  backward kernel (`_onehot_grad_pallas`, :1407-1435) and runs the dense
-  optimizer sweep over touched rows (`_onehot_bwd_local`, :1437-1452);
+  (`_onehot_fwd`, collection.py:1311-1337); the backward builds the dense
+  gradient and touch counts of every lookup in one launch of the one-hot
+  backward kernel, placement and Mean included (`_onehot_grad`; JAX's
+  `_onehot_grad_pallas`, :1407-1435, one kernel a table), and runs the
+  dense optimizer sweep over touched rows (`_onehot_bwd_local`, :1437-1452);
 * "rowop" groups: the forward gathers and pools (`_dp_fwd`, :1474-1485 and
   `_pool`, :596); the backward builds (row, grad-source) pairs
   (`_row_grads`, :1801, `_grad_source`, :616) and hands them to
@@ -212,8 +213,8 @@ from ..core.types import INVALID_KEY, Combiner_t, CommunicationStrategy, Optimiz
 from ..ops.onehot_matmul import (
     MAX_GROUP_LOOKUPS,
     GroupLookup,
+    onehot_bwd_chunked,
     onehot_fwd_chunked,
-    onehot_matmul_bwd,
     place_keys,
     window_keys,
 )
@@ -822,13 +823,6 @@ class EmbeddingCollection:
                 d_outs[sub] = d
         return d_outs
 
-    def _onehot_local_keys(self, g: GroupPlan, lm, valid, local_row) -> torch.Tensor:
-        """Table-local int32 rows of one lookup, -1 for padding
-        (collection.py:1303)."""
-        off = int(g.local_offsets[lm.table_index])
-        k = local_row[:, lm.slot_begin : lm.slot_end] - off
-        return torch.where(valid[:, lm.slot_begin : lm.slot_end], k, -1).to(torch.int32).contiguous()
-
     def _onehot_fwd(self, gname: str, table: torch.Tensor, keys: List[torch.Tensor], weights=None) -> torch.Tensor:
         """Every lookup of the group on the raw feature keys
         (collection.py:1311-1337), one call per 48 consecutive lookups: the
@@ -1124,12 +1118,11 @@ class EmbeddingCollection:
         lr = torch.as_tensor(lr, dtype=self.dtype, device=self.device)
         d_outs = self._expand_d_outs(d_outs, feature_keys, feature_weights)
         for g in self.plan.groups:
-            keys = self._group_keys(g, feature_keys)
             d_group = torch.cat([d_outs[lm.top_name].to(self.dtype) for lm in g.lookups], dim=1)
             opt = self.group_opt[g.name]
-            w = self._group_weights(g, feature_weights, keys)
             if g.compute_kind == "onehot":
-                grad, colsum = self._onehot_grad(g.name, tables[g.name].dtype, keys, d_group, w)
+                grad, colsum = self._onehot_grad(g.name, tables[g.name].dtype, feature_keys, d_group,
+                                                 feature_weights)
                 # the ranks' rows summed: the gradient rounded once to the
                 # table's type, then one all_reduce of it in that type; the
                 # touch counts in float32 (`_onehot_bwd_local`, :1437-1446)
@@ -1146,6 +1139,8 @@ class EmbeddingCollection:
                 )
                 route = "onehot"
             else:
+                keys = self._group_keys(g, feature_keys)
+                w = self._group_weights(g, feature_weights, keys)
                 route = self._rowop_update(g, tables, opt_state[g.name], keys, d_group, lr, step, w)
             self.route_counts[route] += 1
             self.group_routes[g.name] = route
@@ -1287,37 +1282,28 @@ class EmbeddingCollection:
                 self.valid_caps[g.name] = max(vcap, 512)
 
     def _onehot_grad(
-        self, gname: str, table_dtype, keys: torch.Tensor, d_group: torch.Tensor,
-        weights: Optional[torch.Tensor] = None,
+        self, gname: str, table_dtype, feature_keys: Dict[str, torch.Tensor], d_group: torch.Tensor,
+        feature_weights: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Dense float32 [R, E] gradient + [R] touch counts of the rank's
-        rows (collection.py:1407). Each table's kernel adds into its rows of
-        the group's float32 buffers, which are zeroed once per group; `d`
-        enters in the table's type. A frozen table's lookups launch nothing
-        (:1420-1422). A weighted lookup's kernel takes its keys' weights: w
-        x d into the gradient, each sample's |summed w| on a row into the
-        touch counts, and its Mean
-        divides by the sum of the weights (:1355-1391)."""
-        g = self._meta[gname].plan
-        valid, _owner, local_row = self._slot_placement(gname, keys)
-        grad = torch.zeros((g.total_local_rows, g.ev_size), dtype=torch.float32, device=self.device)
-        colsum = torch.zeros((g.total_local_rows,), dtype=torch.float32, device=self.device)
-        for lm in g.lookups:
-            if self._is_frozen(g.tables[lm.table_index].name):
-                continue  # no gradient, no touch: the rows keep table and state
-            off = int(g.local_offsets[lm.table_index])
-            v = int(g.table_vocab[lm.table_index])
-            k_rel = self._onehot_local_keys(g, lm, valid, local_row)
-            d = d_group[:, lm.out_begin : lm.out_end].to(table_dtype)
-            if lm.combiner == Combiner_t.Mean:
-                d = d / self._mean_denom(lm, valid, weights, d.dtype)
-            w = weights[:, lm.slot_begin : lm.slot_end].contiguous() if weights is not None and lm.sp_weight_name \
-                else None
-            onehot_matmul_bwd(
-                k_rel, d.contiguous(), v, torch.float32,
-                out=grad[off : off + v], cnt_out=colsum[off : off + v], weights=w,
-            )
-        return grad, colsum
+        rows (collection.py:1407): one backward launch for the group's
+        lookups (one per 48), on the raw feature keys and the [B, W]
+        cotangents read in place, in the table's type. The kernel places
+        each key as the forward does, divides a Mean lookup's cotangent by
+        its count of non-padding keys (a weighted one's by the sum of their
+        weights) rounded to the table's type (:1427-1429), scales a
+        weighted key's by its weight and adds each sample's |summed
+        weights| on a row to its touch count (:1355-1391). A frozen table's
+        lookups get no descriptor: no gradient, no touch (:1420-1422)."""
+        meta = self._meta[gname]
+        g = meta.plan
+        live = [i for i, lm in enumerate(g.lookups) if not self._is_frozen(g.tables[lm.table_index].name)]
+        keys = self._lookup_keys(g, feature_keys)
+        per_w = self._lookup_weights(g, feature_weights)
+        return onehot_bwd_chunked(
+            [keys[i] for i in live], [meta.fwd_lookups[i] for i in live], d_group.to(table_dtype),
+            g.total_local_rows, g.ev_size, None if per_w is None else [per_w[i] for i in live],
+        )
 
     def _grad_source(self, g: GroupPlan, d_out: torch.Tensor, valid: torch.Tensor,
                      weights: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -45,12 +45,18 @@ _SIGNATURES = {
     "hctr_onehot_fwd_group": ([_I, _P, _I, _P, _P, _I, _I, _I, _P], _I),
     # v, h, e -> the forward's route (0 gather, 1 counts matmul)
     "hctr_onehot_fwd_route": ([_I, _I, _I], _I),
-    # d_dtype, keys, d, w (or null), grad32, cnt, out_bf16, b, h, v, e, accumulate, stream
-    "hctr_onehot_bwd": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-    # e -> rows of one backward tile
+    # d_dtype, keys, d, w (or null), grad32, cnt, out_bf16, scratch, scratch bytes, b, h, v, e,
+    # accumulate, route, stream
+    "hctr_onehot_bwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P], _I),
+    # d_dtype, lookups (hctr_fwd_lookup array), n, d, ld, grad32, cnt, rows, scratch, scratch bytes,
+    # b, e, accumulate, route, stream
+    "hctr_onehot_bwd_group": ([_I, _P, _I, _P, _I, _P, _P, _I64, _P, _I64, _I, _I, _I, _I, _P], _I),
+    # lookups, n, b, e, ld, route -> scratch bytes of the backward (-1: lookups not taken)
+    "hctr_onehot_bwd_scratch": ([_P, _I, _I, _I, _I, _I], _I64),
+    # e -> rows of one privatised backward block
     "hctr_onehot_bwd_tile_rows": ([_I], _I),
-    # b, h, v, e -> 1 when the backward takes its privatised route
-    "hctr_onehot_bwd_privatised": ([_I, _I, _I, _I], _I),
+    # b, h, v, e, weighted -> the backward's route (0 global, 1 privatised, 2 counts matmul)
+    "hctr_onehot_bwd_route": ([_I, _I, _I, _I, _I], _I),
     # dtype, table, n_rows, rows, weights (or null), offsets, out, n_slots, e, vec, stream
     "hctr_ordered_pool": ([_I, _P, _I64, _I64, _P, _P, _P, _P, _I64, _I, _I, _P], _I),
 }

@@ -2,13 +2,21 @@
 
 Counterparts of hugectr_tpu/ops/pallas/onehot_matmul.py::onehot_matmul_fwd
 and ::onehot_matmul_bwd. The TPU kernels build one-hot tiles for the matrix
-unit; on the card the backward is a scatter-add and the forward a
-gather-pool or, for small tables of high hotness, the counts matmul on the
-tensor cores (csrc/onehot_matmul.cu; see its note for bounds and design).
+unit; on the card the forward is a gather-pool or, for small tables of high
+hotness, the counts matmul on the tensor cores, and the backward takes per
+lookup the counts-transpose product on the tensor cores (tables whose rows
+take many keys of the batch), a privatised scatter in shared memory or
+global atomics (csrc/onehot_matmul.cu; see its note for bounds and design).
 The plain PyTorch versions beside the kernels serve the CPU and the checks
 on the card; a CUDA tensor always takes the kernel. The backward can add
-into a caller's float32 buffers (`out=`, `cnt_out=`), so a group of tables
-zeroes its gradient once.
+into a caller's float32 buffers (`out=`, `cnt_out=`).
+
+`onehot_bwd_group` takes a group's backward in one launch from the same
+descriptors and raw keys as the forward, with the group's [B, W] cotangent
+read in place; a Mean lookup's cotangent is divided by its count of
+non-padding keys (or the sum of their weights) in the table's type, as the
+JAX package divides it. The per-table `onehot_matmul_bwd` keeps the Pallas
+kernel's contract and runs the same kernel as a one-lookup group.
 
 `onehot_fwd_group` pools every lookup of a one-hot group in one launch from
 the raw feature keys (int32 or int64, any row stride). Each key is placed as
@@ -55,6 +63,7 @@ WEIGHTED_LAUNCHES = {"onehot_fwd": 0, "onehot_bwd": 0}
 
 MAX_GROUP_LOOKUPS = 48  # kMaxLookups of csrc/onehot_matmul.cu
 FWD_ROUTES = ("gather", "mma")  # FwdRoute of csrc/onehot_matmul.cu, by code
+BWD_ROUTES = ("global", "privatised", "mma")  # BwdRoute of csrc/onehot_matmul.cu, by code
 
 
 INT32_MAX = 2**31 - 1
@@ -313,27 +322,42 @@ def onehot_matmul_fwd(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 def bwd_tile_rows(e: int, device: torch.device) -> int:
-    """Table rows one block of the CUDA backward holds at width `e`."""
+    """Table rows the CUDA backward's privatised route holds at width `e`."""
     with torch.cuda.device(device):
         return _lib.library().hctr_onehot_bwd_tile_rows(e)
 
 
-def bwd_route(b: int, h: int, vocab: int, e: int, device: torch.device) -> str:
-    """The CUDA backward's route for a shape: "privatised" or "global"."""
+def bwd_route(b: int, h: int, vocab: int, e: int, device: torch.device, weighted: bool = False) -> str:
+    """The CUDA backward's route for one lookup: "mma" (the counts-transpose
+    product on the tensor cores), "privatised" or "global"."""
     with torch.cuda.device(device):
-        return "privatised" if _lib.library().hctr_onehot_bwd_privatised(b, h, vocab, e) else "global"
+        return BWD_ROUTES[_lib.library().hctr_onehot_bwd_route(b, h, vocab, e, int(weighted))]
+
+
+def _route_code(route: Optional[str]) -> int:
+    _lib.require(route is None or route in BWD_ROUTES, f"route must be one of {BWD_ROUTES} or None")
+    return -1 if route is None else BWD_ROUTES.index(route)
+
+
+def _scratch(descs, n: int, b: int, e: int, ld: int, route: int, device: torch.device) -> torch.Tensor:
+    """The counts matmul's partial sums and tile counters (bytes from the
+    launcher's own plan)."""
+    nbytes = _lib.library().hctr_onehot_bwd_scratch(descs, n, b, e, ld, route)
+    _lib.require(nbytes >= 0, "the backward's launcher refused these lookups (route, width or hotness)")
+    return torch.empty((max(int(nbytes), 4) + 3) // 4, dtype=torch.float32, device=device)
 
 
 def onehot_matmul_bwd(
     keys: torch.Tensor, d: torch.Tensor, vocab: int, out_dtype: torch.dtype,
     out: Optional[torch.Tensor] = None, cnt_out: Optional[torch.Tensor] = None,
-    weights: Optional[torch.Tensor] = None,
+    weights: Optional[torch.Tensor] = None, route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weight gradient and touch counts: [B, h] keys x [B, E] cotangents ->
     (grad [V, E] in `out_dtype`, cnt [V] f32). Given `out` and `cnt_out`
     (contiguous float32 [V, E] and [V]), adds into them and returns them.
     `weights` (contiguous float32 [B, h]) scales each key's cotangent, and
-    the counts sum each sample's |sum of w| on a row."""
+    the counts sum each sample's |sum of w| on a row. The group kernel with
+    one lookup in local-keys mode; `route` forces a route (sweeps, checks)."""
     _check_keys(keys)
     _lib.require(
         d.dim() == 2 and d.shape[0] == keys.shape[0] and d.dtype in _lib.DTYPE_CODE,
@@ -361,6 +385,7 @@ def onehot_matmul_bwd(
     _lib.require(d.device.type == "cuda", f"unsupported device {d.device}")
     _lib.require(keys.is_contiguous() and d.is_contiguous(), "inputs must be contiguous")
     _lib.require(weights is None or weights.is_contiguous(), "weights must be contiguous")
+    _lib.require(vocab >= 1, "vocab must be at least 1")
     b, h = keys.shape
     accumulate = out is not None
     if not accumulate:  # the launcher zeroes them
@@ -369,15 +394,140 @@ def onehot_matmul_bwd(
     grad = out
     if out_dtype == torch.bfloat16:
         grad = torch.empty((vocab, e), dtype=torch.bfloat16, device=d.device)
+    code = _route_code(route)
+    desc = (_CLookup * 1)(_CLookup(keys.data_ptr(), h, 0, h, vocab, 0, 0, 0, 0, -1,
+                                   weights.data_ptr() if weights is not None else None, h))
     lib = _lib.library()
     with torch.cuda.device(d.device):
+        scratch = _scratch(desc, 1, b, e, e, code, d.device)
         rc = lib.hctr_onehot_bwd(
             _lib.DTYPE_CODE[d.dtype], keys.data_ptr(), d.data_ptr(),
             weights.data_ptr() if weights is not None else None, out.data_ptr(),
             cnt_out.data_ptr(), grad.data_ptr() if grad is not out else None,
-            b, h, vocab, e, int(accumulate), _lib.stream_of(d),
+            scratch.data_ptr(), scratch.numel() * 4, b, h, vocab, e, int(accumulate), code, _lib.stream_of(d),
         )
     _lib.check(rc, "onehot_bwd")
     LAUNCHES["onehot_bwd"] += 1
     WEIGHTED_LAUNCHES["onehot_bwd"] += weights is not None
     return grad, cnt_out
+
+
+def onehot_bwd_group_plain(
+    keys: Sequence[torch.Tensor], lookups: Sequence[GroupLookup], d: torch.Tensor, rows: int, e: int,
+    weights: Weights = None, out: Optional[torch.Tensor] = None, cnt_out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per lookup: the forward's placement (int32 cut, window, -1 padding,
+    floor-mod wrap), its columns [out_begin, out_begin + e) of d, the Mean
+    division in d's type (by the count of non-padding keys, at least 1, or
+    the sum of their weights each rounded to d's type, 1 where it is 0),
+    then `onehot_matmul_bwd_plain` into its rows [row_off, row_off + vocab)
+    of the float32 [rows, e] gradient and [rows] touch counts (added into
+    `out` / `cnt_out` when given)."""
+    if out is None:
+        out = torch.zeros((rows, e), dtype=torch.float32, device=d.device)
+        cnt_out = torch.zeros((rows,), dtype=torch.float32, device=d.device)
+    for i, (k, lk) in enumerate(zip(keys, lookups)):
+        valid, local = place_keys(window_keys(k, lk.key_lo, lk.key_hi), lk.vocab)
+        kloc = torch.where(valid, local, -1).to(torch.int32)
+        dd = d[:, lk.out_begin : lk.out_begin + e]
+        w = weights[i] if weights is not None else None
+        if lk.mean:
+            if w is None:
+                den = torch.clamp(valid.to(d.dtype).sum(dim=1, keepdim=True), min=1.0)
+            else:
+                sw = torch.where(valid, w.float(), 0.0).to(d.dtype).float().sum(dim=1, keepdim=True).to(d.dtype)
+                den = torch.where(sw == 0, torch.ones((), dtype=d.dtype, device=d.device), sw)
+            dd = dd / den
+        onehot_matmul_bwd_plain(kloc, dd, lk.vocab, torch.float32, out=out[lk.row_off : lk.row_off + lk.vocab],
+                                cnt_out=cnt_out[lk.row_off : lk.row_off + lk.vocab],
+                                weights=None if w is None else w.float())
+    return out, cnt_out
+
+
+def onehot_bwd_group(
+    keys: Sequence[torch.Tensor], lookups: Sequence[GroupLookup], d: torch.Tensor, rows: int, e: int,
+    weights: Weights = None, out: Optional[torch.Tensor] = None, cnt_out: Optional[torch.Tensor] = None,
+    route: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weight gradient and touch counts of a one-hot group in one launch:
+    keys[i] ([B, h_i] int32/int64, unit column stride; the forward's raw
+    keys) of lookup i, whose cotangent is d[:, out_begin : out_begin + e]
+    (d [B, W] f32/bf16 in the table's type, unit column stride, any row
+    stride: read in place), into the float32 [rows, e] gradient and [rows]
+    touch counts of the group storage (zeroed, or added into `out` /
+    `cnt_out`, contiguous float32). Placement, Mean and weights as the
+    forward's (`onehot_bwd_group_plain`); a frozen table's lookup is left
+    out by the caller. The launcher picks each lookup's route (`bwd_route`);
+    `route` forces one (sweeps, checks). At most MAX_GROUP_LOOKUPS lookups
+    (`onehot_bwd_chunked` splits a larger group)."""
+    _lib.require(len(keys) == len(lookups), "give one key tensor per lookup")
+    _lib.require(d.dim() == 2 and d.dtype in _lib.DTYPE_CODE and (d.shape[1] == 1 or d.stride(1) == 1),
+                 f"d must be f32/bf16 [B, W] with a unit column stride, got {d.dtype} {tuple(d.shape)}")
+    b = d.shape[0]
+    for k, lk in zip(keys, lookups):  # messages formatted only on failure: this runs every step
+        if not (k.dim() == 2 and k.shape[0] == b and k.shape[1] >= 1
+                and k.dtype in (torch.int32, torch.int64) and k.device == d.device):
+            raise ValueError(f"keys must be int32/int64 [{b}, h] on {d.device}, got {k.dtype} {tuple(k.shape)}")
+        if not (0 <= lk.row_off and lk.vocab >= 1 and lk.row_off + lk.vocab <= rows
+                and 0 <= lk.out_begin and lk.out_begin + e <= d.shape[1]
+                and 0 <= lk.key_lo <= INT32_MAX and -1 <= lk.key_hi <= INT32_MAX):
+            raise ValueError(f"lookup {lk} outside rows {rows}, d's width {d.shape[1]} or the int32 keys")
+    _check_weights(weights, keys)
+    _lib.require((out is None) == (cnt_out is None), "give both out and cnt_out, or neither")
+    if out is not None and not (out.dtype == cnt_out.dtype == torch.float32 and tuple(out.shape) == (rows, e)
+                                and tuple(cnt_out.shape) == (rows,) and out.is_contiguous()
+                                and cnt_out.is_contiguous() and out.device == cnt_out.device == d.device):
+        raise ValueError(f"out/cnt_out must be contiguous float32 [{rows}, {e}] / [{rows}] on {d.device}")
+    if d.device.type == "cpu":
+        PLAIN_CALLS["onehot_bwd"] += 1
+        return onehot_bwd_group_plain(keys, lookups, d, rows, e, weights, out, cnt_out)
+    _lib.require(d.device.type == "cuda", f"unsupported device {d.device}")
+    _lib.require(len(lookups) <= MAX_GROUP_LOOKUPS,
+                 f"{len(lookups)} lookups: the kernel takes at most {MAX_GROUP_LOOKUPS}")
+    if not all(k.shape[1] == 1 or k.stride(1) == 1 for k in keys):
+        raise ValueError("keys need a unit column stride")
+    accumulate = out is not None
+    if not accumulate:  # the launcher zeroes them
+        out = torch.empty((rows, e), dtype=torch.float32, device=d.device)
+        cnt_out = torch.empty((rows,), dtype=torch.float32, device=d.device)
+    n = len(lookups)
+    ws = list(weights) if weights is not None else [None] * n
+    descs = (_CLookup * max(n, 1))(*[
+        _CLookup(k.data_ptr(), k.stride(0), lk.row_off, k.shape[1], lk.vocab, lk.out_begin,
+                 int(lk.mean), int(k.dtype == torch.int64), lk.key_lo, lk.key_hi,
+                 w.data_ptr() if w is not None else None, w.stride(0) if w is not None else 0)
+        for k, lk, w in zip(keys, lookups, ws)
+    ])
+    code = _route_code(route)
+    ld = d.stride(0) if b > 1 else d.shape[1]
+    lib = _lib.library()
+    with torch.cuda.device(d.device):
+        scratch = _scratch(descs, n, b, e, ld, code, d.device)
+        rc = lib.hctr_onehot_bwd_group(
+            _lib.DTYPE_CODE[d.dtype], descs, n, d.data_ptr(), ld, out.data_ptr(), cnt_out.data_ptr(), rows,
+            scratch.data_ptr(), scratch.numel() * 4, b, e, int(accumulate), code, _lib.stream_of(d),
+        )
+    _lib.check(rc, "onehot_bwd_group")
+    LAUNCHES["onehot_bwd"] += 1
+    WEIGHTED_LAUNCHES["onehot_bwd"] += any(w is not None for w in ws)
+    return out, cnt_out
+
+
+def onehot_bwd_chunked(
+    keys: Sequence[torch.Tensor], lookups: Sequence[GroupLookup], d: torch.Tensor, rows: int, e: int,
+    weights: Weights = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of a one-hot group of any number n of lookups: ceil(n /
+    48) `onehot_bwd_group` calls over consecutive lookups into one float32
+    [rows, e] gradient and [rows] touch counts (the first zeroes them, the
+    others add). No lookup (every table frozen): zeros, no call."""
+    n = len(lookups)
+    if n == 0:
+        return (torch.zeros((rows, e), dtype=torch.float32, device=d.device),
+                torch.zeros((rows,), dtype=torch.float32, device=d.device))
+    out = cnt = None
+    for i in range(0, n, MAX_GROUP_LOOKUPS):
+        j = i + MAX_GROUP_LOOKUPS
+        out, cnt = onehot_bwd_group(keys[i:j], lookups[i:j], d, rows, e,
+                                    None if weights is None else weights[i:j], out=out, cnt_out=cnt)
+    return out, cnt

@@ -524,8 +524,8 @@ def kernel_parity(model, batch: Dict[str, torch.Tensor], seed: int = 5) -> Tree:
     """Each hand-written kernel against its plain version on this rank's
     inputs of the step (on the card; on the CPU both sides are the plain
     version): the one-hot group's forward on the rank's block of `batch`,
-    each one-hot lookup's backward from those keys with a cotangent drawn
-    in the table's type, segscan over the owned prefix of each
+    its backward (one launch for the live lookups) from those keys with a
+    cotangent drawn in the table's type, segscan over the owned prefix of each
     sorted-route group's gathered keys (bf16 rows with float32 sums for
     bf16 tables, as the step gives them), and over W > 1 ranks the ordered
     pool of each model-parallel rowop group's owned prefix (the
@@ -562,20 +562,19 @@ def kernel_parity(model, batch: Dict[str, torch.Tensor], seed: int = 5) -> Tree:
                 want = oh.onehot_fwd_group_plain(keys, meta.fwd_lookups, table, g.out_width)
                 scale = oh.onehot_fwd_group_plain(keys, meta.fwd_lookups, table.float().abs(), g.out_width)
                 note("onehot_fwd", got, want, scale, [int(keys[0].shape[0]), len(keys)])
-                gkeys = ec._group_keys(g, fk)
-                valid, _owner, local_row = ec._slot_placement(g.name, gkeys)
-                for lm in g.lookups:
-                    if ec._is_frozen(g.tables[lm.table_index].name):
-                        continue
-                    v = int(g.table_vocab[lm.table_index])
-                    k_rel = ec._onehot_local_keys(g, lm, valid, local_row)
-                    d = torch.randn((k_rel.shape[0], g.ev_size), generator=gen, device=dev).to(table.dtype)
-                    got, cnt = oh.onehot_matmul_bwd(k_rel, d, v, torch.float32)
-                    want, want_c = oh.onehot_matmul_bwd_plain(k_rel, d, v, torch.float32)
-                    scale, _ = oh.onehot_matmul_bwd_plain(k_rel, d.float().abs(), v, torch.float32)
+                # the group's backward on the live lookups, as the step calls it
+                live = [i for i, lm in enumerate(g.lookups) if not ec._is_frozen(g.tables[lm.table_index].name)]
+                if live:
+                    lk = [meta.fwd_lookups[i] for i in live]
+                    lkeys = [keys[i] for i in live]
+                    d = torch.randn((keys[0].shape[0], g.out_width), generator=gen, device=dev).to(table.dtype)
+                    rows = g.total_local_rows
+                    got, cnt = oh.onehot_bwd_chunked(lkeys, lk, d, rows, g.ev_size)
+                    want, want_c = oh.onehot_bwd_group_plain(lkeys, lk, d, rows, g.ev_size)
+                    scale, _ = oh.onehot_bwd_group_plain(lkeys, lk, d.float().abs(), rows, g.ev_size)
                     if not torch.equal(cnt, want_c):
                         raise AssertionError(f"onehot_bwd counts differ from the plain version ({g.name})")
-                    note("onehot_bwd", got, want, scale, [int(k_rel.shape[0]), int(k_rel.shape[1]), v])
+                    note("onehot_bwd", got, want, scale, [int(d.shape[0]), len(live)])
             elif ec.group_routes.get(g.name) == "sorted":
                 keys = ec._group_keys(g, fk)
                 if ec.world > 1:

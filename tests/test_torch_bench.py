@@ -117,7 +117,7 @@ def test_tiny_bench_model_three_steps_and_eval_match_jax(models):
     # valid cap (4 with bench.py's caps)
     assert counts["ordered_pool"] == 3 * len(tm.ec.valid_caps) == (12 if tm.ec.ucap_auto else 0)
     assert counts["segscan"] == 3 * sum(r == "sorted" for r in tm.ec.group_routes.values())
-    assert counts["onehot_bwd"] == 3 * len(onehot.lookups)
+    assert counts["onehot_bwd"] == 3  # one call for the group's lookups a step
     # eval of each package's own weights
     jv, tv = jm.eval(), tm.eval()
     assert abs(tv["auc"] - jv["auc"]) < 0.01, (tv, jv)

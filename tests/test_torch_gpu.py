@@ -7,8 +7,10 @@ machine has no JAX, so run this file without the suite's conftest:
 
 Tolerance: |kernel - plain| / (sum of |inputs| into the element) <= 1e-4 in
 float32 (sums in another order, with atomics in the backward) and 1e-2 in
-bfloat16 (one more rounding of the output). Touch counts are exact, and the
-segmented scan is bitwise the same from run to run. The last tests run
+bfloat16 (one more rounding of the output); the grouped backward's float32
+sums of values exact in d's type within 1e-4 in either type. Touch counts
+are exact, and the segmented scan and the backward's counts matmul are
+bitwise the same from run to run. The last tests run
 the embedding collection and train the tiny model on 2 spawned ranks
 against one card.
 """
@@ -43,8 +45,8 @@ def _keys(rng, b, h, v, pad=0.2):
     return k
 
 
-def _check_bwd(keys, d, v, dtype):
-    g, c = oh.onehot_matmul_bwd(keys, d, v, dtype)
+def _check_bwd(keys, d, v, dtype, route=None):
+    g, c = oh.onehot_matmul_bwd(keys, d, v, dtype, route=route)
     assert g.dtype == dtype and g.shape == (v, d.shape[1]) and c.dtype == torch.float32
     wg, wc = oh.onehot_matmul_bwd_plain(keys, d, v, dtype)
     sg, _ = oh.onehot_matmul_bwd_plain(keys, d.float().abs(), v, torch.float32)
@@ -78,13 +80,15 @@ def test_onehot_kernels_match_plain_versions(cuda, dtype):
 def test_onehot_bwd_hot_row_and_tile_edges(cuda, dtype):
     """Every key on one row; V one below, at and one above the most rows the
     privatised route holds in shared memory; the engine's largest table; all
-    padding; a width that is no multiple of 4. Both routes are taken."""
+    padding; a width that is no multiple of 4. The launcher takes the counts
+    matmul and the global atomics here; each shape then runs on every route
+    that can take it."""
     rng = np.random.default_rng(8)
     vt = oh.bwd_tile_rows(128, cuda)
     assert vt >= 64
     hot = np.full((16384, 40), 5, np.int32)
     cases = [(hot, 108, 128)]
-    for v in (vt - 1, vt, vt + 1):  # privatised, privatised, global
+    for v in (vt - 1, vt, vt + 1):  # around the privatised route's limit
         cases.append((_keys(rng, 4096, 40, v, pad=0.1), v, 128))
     for v, h in ((8192, 300), (8192, 2)):  # global
         cases.append((_keys(rng, 8192, h, v, pad=0.1), v, 128))
@@ -96,7 +100,14 @@ def test_onehot_bwd_hot_row_and_tile_edges(cuda, dtype):
         keys = torch.from_numpy(keys_np).to(cuda)
         d = torch.from_numpy(rng.normal(size=(keys_np.shape[0], e)).astype(np.float32))
         _check_bwd(keys, d.to(cuda, dtype), v, dtype)
-    assert routes == {"privatised", "global"}
+        for route in oh.BWD_ROUTES:
+            if ((route == "privatised" and v > oh.bwd_tile_rows(e, cuda))
+                    or (route == "mma" and (e % 8 or keys_np.shape[1] > 128))):
+                with pytest.raises(ValueError):
+                    oh.onehot_matmul_bwd(keys, d.to(cuda, dtype), v, dtype, route=route)
+                continue
+            _check_bwd(keys, d.to(cuda, dtype), v, dtype, route)
+    assert routes == {"mma", "global"}
 
 
 @pytest.mark.gpu
@@ -379,20 +390,26 @@ def test_onehot_fwd_group_key_windows(cuda, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("h", [100, 3])
 def test_onehot_bwd_superhot_power_law(cuda, h):
-    """The superhot tier's backward: V 1,024 (the global-atomic route),
-    power-law keys of a 2M-row table through the window [0, 1024) (about
-    57% valid, 4% on row 0), bf16 d and float32 sums, as the step gives it."""
+    """The superhot tier's backward: V 1,024, power-law keys of a 2M-row
+    table through the window [0, 1024) (about 57% valid, 4% on row 0), bf16
+    d and float32 sums, as the step gives it: h 100 on the counts matmul,
+    two calls bitwise equal; h 3 (48 keys a row) on the global atomics,
+    which the card measured faster there."""
     from hugectr_tpu_torch.data.generator import power_law_keys
 
     rng = np.random.default_rng(22)
     raw = torch.from_numpy(power_law_keys(rng, 2_000_000, (16384, h), 1.05).astype(np.int32)).to(cuda)
     ok, local = oh.place_keys(oh.window_keys(raw, 0, 1024), 1024)
     keys = torch.where(ok, local, -1).to(torch.int32)
-    assert oh.bwd_route(16384, h, 1024, 128, cuda) == "global"
+    route = oh.bwd_route(16384, h, 1024, 128, cuda)
+    assert route == ("mma" if h == 100 else "global")
     d = torch.from_numpy(rng.normal(size=(16384, 128)).astype(np.float32)).to(cuda, torch.bfloat16)
     _check_bwd(keys, d, 1024, torch.float32)
     g, c = oh.onehot_matmul_bwd(keys, d, 1024, torch.float32)
     assert float(c.sum()) == float(ok.sum())
+    g2, c2 = oh.onehot_matmul_bwd(keys, d, 1024, torch.float32, route="mma")
+    g3, c3 = oh.onehot_matmul_bwd(keys, d, 1024, torch.float32, route="mma")
+    assert torch.equal(g2.view(torch.int32), g3.view(torch.int32)) and torch.equal(c2, c3) and torch.equal(c, c2)
 
 
 @pytest.mark.gpu
@@ -556,6 +573,83 @@ def test_device_feeder_stages_through_pinned_memory(cuda):
     feeder.stop()
     assert up.batches == 24 and up.bytes == 24 * 4096 * 267 * 4
     assert all(buf.is_pinned() for slot in up._slots for buf in slot.bufs.values())
+
+
+def _check_bwd_group(keys, lookups, d, rows, e, weights=None, route=None, bitwise=False):
+    """The grouped backward (one launch per 48 lookups) against its plain
+    version: the gradient within 1e-4 of the float32 sums' scale, the
+    counts exact (weighted: touched rows exact, counts within 1e-4), two
+    calls bitwise equal where `bitwise`."""
+    n = len(lookups)
+    ops.reset_counts()
+    if route is None:
+        g, c = oh.onehot_bwd_chunked(keys, lookups, d, rows, e, weights)
+    else:
+        g, c = oh.onehot_bwd_group(keys, lookups, d, rows, e, weights, route=route)
+    assert ops.launch_counts()["onehot_bwd"] == (-(-n // oh.MAX_GROUP_LOOKUPS) if route is None else 1)
+    wg, wc = oh.onehot_bwd_group_plain(keys, lookups, d, rows, e, weights)
+    absw = None if weights is None else [None if w is None else w.abs() for w in weights]
+    sg, _ = oh.onehot_bwd_group_plain(keys, lookups, d.float().abs(), rows, e, absw)
+    assert g.dtype == c.dtype == torch.float32 and tuple(g.shape) == (rows, e)
+    assert _scaled(g, wg, sg) <= 1e-4
+    if weights is None:
+        assert torch.equal(c, wc)
+    else:
+        assert torch.equal(c > 0, wc > 0) and float(((c - wc).abs() / wc.clamp(min=1e-30)).max()) <= 1e-4
+    if bitwise:
+        g2, c2 = oh.onehot_bwd_group(keys, lookups, d, rows, e, weights, route=route)
+        assert torch.equal(g.view(torch.int32), g2.view(torch.int32)) and torch.equal(c, c2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", ["bench", "f32", "ftrl"])
+def test_onehot_bwd_group_at_the_main_paths_groups(cuda, plan):
+    """One launch for each main path's one-hot group: bench.py's 20 lookups
+    (13 tables and 7 windowed superhot tiers of power-law keys, bf16 d),
+    the f32 flagship's 13 tables (f32 d), DLRM-FTRL's 13 tables of hotness
+    1 (f32 d); keys as column views of one tensor, d read through its row
+    stride. Then every lookup forced onto the counts matmul, bitwise over
+    two calls."""
+    from hugectr_tpu_torch.tools.flagship import BENCH_PLAN, ftrl_plan, onehot_group_inputs
+
+    dt = torch.bfloat16 if plan == "bench" else torch.float32
+    kw = dict(BENCH_PLAN) if plan == "bench" else dict(plan=ftrl_plan(ev_size=128)) if plan == "ftrl" else {}
+    rng = np.random.default_rng(3)
+    keys, lookups, table, width = onehot_group_inputs(rng, 16384, 128, dt, cuda, **kw)
+    assert len(lookups) == (20 if plan == "bench" else 13)
+    d = torch.from_numpy(rng.normal(size=(16384, width + 8)).astype(np.float32)).to(cuda, dt)[:, 8:]
+    _check_bwd_group(keys, lookups, d, table.shape[0], 128)
+    _check_bwd_group(keys, lookups, d, table.shape[0], 128, route="mma", bitwise=True)
+
+
+@pytest.mark.gpu
+def test_onehot_bwd_group_weighted_table24_and_chunks(cuda):
+    """The weighted superhot tier (V 1,024 of a 2M-row table's keys through
+    the window, h 20, weights in [0, 1)), V 108 h 40 (table 24's shape),
+    and a 100-lookup group with every seventh lookup Mean and every fifth
+    weighted (3 launches)."""
+    from hugectr_tpu_torch.data.generator import power_law_keys
+
+    rng = np.random.default_rng(4)
+    raw = torch.from_numpy(power_law_keys(rng, 2_000_000, (16384, 20), 1.05).astype(np.int32)).to(cuda)
+    w = torch.from_numpy(rng.random((16384, 20), dtype=np.float32)).to(cuda)
+    d = torch.from_numpy(rng.normal(size=(16384, 128)).astype(np.float32)).to(cuda)
+    tier = [oh.GroupLookup(0, 1024, 0, False, 0, 1024)]
+    _check_bwd_group([raw], tier, d, 1024, 128, [w])
+    _check_bwd_group([raw], tier, d.to(torch.bfloat16), 1024, 128, [w])
+    k108 = torch.from_numpy(power_law_keys(rng, 108, (16384, 40), 1.05).astype(np.int32)).to(cuda)
+    assert oh.bwd_route(16384, 40, 108, 128, cuda) == "mma"
+    _check_bwd_group([k108], [oh.GroupLookup(0, 108, 0, False)], d, 108, 128, bitwise=True)
+    _check_bwd_group([k108], [oh.GroupLookup(0, 108, 0, True)], d.to(torch.bfloat16), 108, 128, bitwise=True)
+    n, v = 100, 1000
+    allk = torch.from_numpy(power_law_keys(rng, v, (2048, n), 1.05).astype(np.int32)).to(cuda)
+    keys = [allk[:, i : i + 1] for i in range(n)]
+    lookups = [oh.GroupLookup(v * i, v, 128 * i, i % 7 == 0) for i in range(n)]
+    ws = [torch.from_numpy(rng.random((2048, 1), dtype=np.float32)).to(cuda) if i % 5 == 0 else None
+          for i in range(n)]
+    dd = torch.from_numpy(rng.normal(size=(2048, 128 * n)).astype(np.float32)).to(cuda)
+    _check_bwd_group(keys, lookups, dd, v * n, 128)
+    _check_bwd_group(keys, lookups, dd, v * n, 128, ws)
 
 
 @pytest.mark.gpu

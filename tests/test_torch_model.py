@@ -58,8 +58,8 @@ def test_tiny_dlrm_three_steps_match_jax(models):
     assert tm.ec.group_routes == {"mp_ev16": "sorted", "onehot_ev16": "onehot"}
     counts = ops.plain_counts()
     n_onehot = len(tm.ec.plan.groups[-1].lookups)
-    # the one-hot forward is one call per group and step, the backward one per table
-    assert counts == {"segscan": 3, "onehot_fwd": 3, "onehot_bwd": 3 * n_onehot, "ordered_pool": 0}
+    # the one-hot forward and backward are one call each per group and step
+    assert n_onehot > 1 and counts == {"segscan": 3, "onehot_fwd": 3, "onehot_bwd": 3, "ordered_pool": 0}
     assert ops.launch_counts() == {"segscan": 0, "onehot_fwd": 0, "onehot_bwd": 0, "ordered_pool": 0}
     state = jax.device_get(jm.state)
     params = tm.network.param_tree()

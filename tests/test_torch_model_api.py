@@ -143,7 +143,7 @@ def test_freezing_dense_and_tables_matches_jax(pair):
     before = [tables_of(m, names) for m in (jm, tm)]
     ops.reset_counts()
     step_both(jm, tm, "two tables frozen")
-    assert ops.plain_counts()["onehot_bwd"] == len(oh.lookups) - 1
+    assert ops.plain_counts()["onehot_bwd"] == 1  # one call for the live lookups; the frozen get none
     for m, b in zip((jm, tm), before):
         after = tables_of(m, names)
         for n in names:
@@ -196,7 +196,7 @@ def test_freezing_dlrm_ftrl_tables_matches_jax(monkeypatch):
     ops.reset_counts()
     step_both(jm, tm, "frozen")
     assert ks == [0] and tm.ec.group_routes["mp_ev128"] == "sorted"
-    assert ops.plain_counts()["onehot_bwd"] == len(oh.lookups) - 1
+    assert ops.plain_counts()["onehot_bwd"] == 1  # one call for the live lookups; the frozen get none
     for m, (bt, bd) in zip((jm, tm), before):
         assert all(np.array_equal(tables_of(m, [n])[n], bt[n]) for n in frozen)
         assert all(np.array_equal(v, bd[k]) for k, v in dense_of(m).items())

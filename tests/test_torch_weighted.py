@@ -426,8 +426,8 @@ def test_weighted_onehot_plain_matches_jax_counts(mesh1, monkeypatch, dtype):
     ttab = torch.from_numpy(table).to(tdt)
     tout = tec._onehot_fwd(g.name, ttab, [torch.from_numpy(feats["f0"]), torch.from_numpy(feats["f1"])],
                            [torch.from_numpy(w["w0"]), torch.from_numpy(w["w1"])]).float().numpy()
-    tgrad, tcol = tec._onehot_grad(g.name, tdt, torch.from_numpy(keys), torch.from_numpy(d).to(tdt),
-                                   torch.from_numpy(wg))
+    tgrad, tcol = tec._onehot_grad(g.name, tdt, {f: torch.from_numpy(k) for f, k in feats.items()},
+                                   torch.from_numpy(d).to(tdt), {n: torch.from_numpy(x) for n, x in w.items()})
     np.testing.assert_array_equal(tcol.numpy() > 0, np.asarray(jcol) > 0)
     if dtype == "float32":
         np.testing.assert_allclose(tout, jout, **FWD_TOL)
