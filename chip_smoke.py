@@ -54,10 +54,13 @@ Each phase prints one JSON line with its own seconds:
    shapes of the hybrid phases (the f32 flagship's table-20 and 5-lookup
    groups, the bench configuration's bf16 tiers of table 20) and at the
    compact forward's shapes on one card (every valid key of the bench cold
-   tier of table 20, bf16; on its table and on the first 128 columns of
-   the [R, 129] rows of `rowwise_pack`), with its bound, `embedding_bag`
-   and `index_add_` beside it, and at its edge cases (E 13, 16 and 128,
-   slots of 0 to 100 rows).
+   and hot tiers of table 20, bf16; the cold tier's also on the first 128
+   columns of the [R, 129] rows of `rowwise_pack`), with its plan, its
+   bound, `embedding_bag` and `index_add_` beside it (CUDA events and
+   profiler device ms), and at its design's edges (row strides 128 to
+   132, E 13 to 512, long and short slots across the id batches of 8, 16
+   and 32 lanes, the first foreign id at 0, 1, 7, 8, 31, 32 and 33,
+   weights; 3,000 slots of 0 to 100 rows).
 3. "tiny_parity": the tiny DLRM-DCNv2 trained 3 steps on the card (kernels)
    and on the CPU (plain versions) from the same state: losses and tables
    must agree. Then the same with bench.py's settings scaled down (bf16,
@@ -307,10 +310,10 @@ weighted case with the most device time and its launches on
 `weighted_path`, the ordered pool's on rank 0 of `hybrid_weighted_path`;
 and each kernel's launches on `serving_path`, `fullscale_path`,
 `scatter_ratio_path`, `benchmarks_path` and `packed_path` (the ordered
-pool's also on `bench_path`, its compact case and its compact case on a
-packed table beside its others), the one-hot kernels' f32 case
-at the scatter ratio's shapes (`ratio_case`) and the forward's 100-lookup
-f32 case (`chunked_case`)),
+pool's also on `bench_path`, its compact cases of the cold and hot tiers
+and its compact case on a packed table beside its others), the one-hot
+kernels' f32 case at the scatter ratio's shapes (`ratio_case`) and the
+forward's 100-lookup f32 case (`chunked_case`)),
 a line with the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that line;
 so does a machine without CUDA.
@@ -1058,20 +1061,29 @@ def bits(torch, t):
 
 
 def ordered_pool_checks(torch, np, dev, results):
-    """The ordered pool (csrc/ordered_pool.cu) of the owner-partitioned
-    forward against its plain version, bitwise, at the shapes of rank 0 of
-    the hybrid phases' W ranks: the owned prefix of the gathered 16,384 x h
-    power-law keys of the f32 flagship's table-20 group (h 100) and its
-    5-lookup group, and of bench.py's configuration's bf16 cold and hot
-    tiers of table 20; and at W 1 the compact forward's shapes (bench.py's
-    measured caps: every valid key of the bench cold tier of table 20, bf16,
-    `_pool_segments(..., cut=False)`), on its table and on the first 128
-    columns of the [R, 129] rows `rowwise_pack` stores (row stride 129);
-    with its bound, the plain version's time, one `embedding_bag` over the
-    same slots (float32 sums, no rounding after each add) and `index_add_`
-    of the gathered rows. Then f32 and bf16 at E 16, 128 and 13
-    (one-column lanes), slots of 1 to 100 rows, empty slots, repeated rows
-    and keys of other shards; and two runs compared bitwise."""
+    """The ordered pool (csrc/ordered_pool.cu): its main paths' cases
+    (`ordered_pool_cases`), then its design's edges (`ordered_pool_edges`)."""
+    ordered_pool_cases(torch, np, dev, results)
+    ordered_pool_edges(torch, np, dev)
+
+
+def ordered_pool_cases(torch, np, dev, results):
+    """The ordered pool of the owner-partitioned forward against its plain
+    version, bitwise, at the shapes of rank 0 of the hybrid phases' W
+    ranks: the owned prefix of the gathered 16,384 x h power-law keys of
+    the f32 flagship's table-20 group (h 100) and its 5-lookup group, and
+    of bench.py's configuration's bf16 cold and hot tiers of table 20; and
+    at W 1 the compact forward's shapes (bench.py's measured caps: every
+    valid key of the bench cold and hot tiers of table 20, bf16,
+    `_pool_segments(..., cut=False)`), and the cold tier's keys on the
+    first 128 columns of the [R, 129] rows `rowwise_pack` stores (row
+    stride 129); with the kernel's plan (`pool_plan`: elements an access,
+    lanes a slot, accesses a lane, shifted accesses), its bound, the plain version's time,
+    one `embedding_bag` over the same slots (float32 sums, no rounding
+    after each add) and `index_add_` of the gathered rows, each timed by
+    CUDA events and by the profiler (`device_ms`: the kernel's launches;
+    `library_device_ms`, `index_add_device_ms`: every kernel of the call);
+    and two runs compared bitwise."""
     import torch.nn.functional as F
 
     from hugectr_tpu_torch.core.mesh import ResourceManager
@@ -1088,7 +1100,7 @@ def ordered_pool_checks(torch, np, dev, results):
     for label, dt, plan_kw, names, world, ld in (
             ("flagship", torch.float32, {}, ("mp_ev128_20", "mp_ev128"), w, E),
             ("bench", torch.bfloat16, BENCH_PLAN, ("mp_ev128_20::cold", "mp_ev128_20::hot"), w, E),
-            ("compact", torch.bfloat16, BENCH_PLAN, ("mp_ev128_20::cold",), 1, E),
+            ("compact", torch.bfloat16, BENCH_PLAN, ("mp_ev128_20::cold", "mp_ev128_20::hot"), 1, E),
             ("compact_packed", torch.bfloat16, BENCH_PLAN, ("mp_ev128_20::cold",), 1, E + 1)):
         plan = flagship_plan(ev_size=E, num_shards=world, **plan_kw)
         ec = EmbeddingCollection(plan, ResourceManager(dev, 0, world), OptParams(Optimizer_t.RowWiseAdaGrad),
@@ -1115,26 +1127,28 @@ def ordered_pool_checks(torch, np, dev, results):
             obounds = torch.cat([lens.new_zeros(1), lens.cumsum(0)])
             k, isz = srows.numel(), table.element_size()
             uniq = int(torch.unique(owned).numel())  # each pooled table row read once
-            # the row ids a warp reads: its slot's owned rows and the first
-            # foreign one after them, where the slot has one
+            # the row ids the kernel must read: its slot's owned rows and the
+            # first foreign one after them, where the slot has one
             ids_read = int(torch.minimum(lens + 1, offsets.diff()).sum())
             b_ms, b_by = bound(uniq * E * isz + ids_read * 8 + 8 * (n + 1) + n * E * isz, int(owned.numel()) * E)
             dms, per_call = device_ms(call, KERNEL_NAMES["ordered_pool"])
             dense = table.contiguous()  # embedding_bag's weight: the packed view's columns copied out
+            bag = lambda: F.embedding_bag(owned, dense, obounds[:-1], mode="sum")  # noqa: E731
+            add = lambda: torch.zeros((n, E), dtype=dt, device=dev).index_add_(0, slot_ids, table[owned])  # noqa: E731
             rec = dict(
                 kernel="ordered_pool", case=f"{label}_{gname}_w{world}", dtype=str(dt).split(".")[1], K=k, slots=n,
                 E=E, row_stride=ld, owned=int(owned.numel()), ids_read=ids_read, unique_rows=uniq, max_slot_rows=int(lens.max()),
                 empty_slots=int((lens == 0).sum()),
+                plan=op.pool_plan(E, isz, ld, table.data_ptr(), got.data_ptr(), k / n),
                 bitwise=bool(torch.equal(bits(torch, got), bits(torch, want))),
                 bitwise_repeat=bool(torch.equal(bits(torch, call()), bits(torch, got))),
                 max_abs_err=float((got.float() - want.float()).abs().max()), tol=0.0,
                 ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
                 plain_ms=time_ms(lambda: op.ordered_pool_plain(table, srows, offsets), samples=5, inner=1, warmup=1),
-                library_ms=time_ms(lambda: F.embedding_bag(owned, dense, obounds[:-1], mode="sum")),
+                library_ms=time_ms(bag), library_device_ms=device_ms(bag, KERNEL_NAMES["embedding_bag"])[0],
                 library="torch.nn.functional.embedding_bag(mode='sum', offsets) over the owned rows (float32 "
                         "sums, one rounding)",
-                index_add_ms=time_ms(
-                    lambda: torch.zeros((n, E), dtype=dt, device=dev).index_add_(0, slot_ids, table[owned])),
+                index_add_ms=time_ms(add), index_add_device_ms=device_ms(add, KERNEL_NAMES["embedding_bag"])[0],
                 bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
             )
             rec["scaled_err"] = 0.0 if rec["bitwise"] else math.inf
@@ -1142,27 +1156,66 @@ def ordered_pool_checks(torch, np, dev, results):
             emit(rec)
             if not (rec["bitwise"] and rec["bitwise_repeat"]):
                 raise AssertionError(f"ordered_pool differs from its plain version: {rec}")
+
+
+def ordered_pool_edges(torch, np, dev):
+    """The ordered pool's design edges against its plain version, bitwise,
+    each at the plan's choice: f32 and bf16 at row strides 128, 129, 130
+    and 132 and E 13, 16, 64 and 128 (each stride's access width), and at
+    E 256 (f32) and 512 (bf16), which take two walks of a slot, on rows of
+    E and E + 4 elements; each with long slots (31, 32, 33, 64, 65, 0 and 1
+    rows, and slots whose first foreign id stands at 0, 31, 32 and 33: the
+    id batches of 8, 16 and 32 lanes turning over; one access a lane) and
+    with short ones (0, 1, 2, 3, 7, 8, 9 and 17 rows, the first foreign id
+    at 0, 1, 7 and 8: several accesses a lane where they are aligned 16-byte
+    ones), weighted at E 128; then 3,000 slots of 0 to 100 rows with
+    repeated rows and a tenth of the keys on another rank's shard, f32 and
+    bf16 at E 128."""
+    from hugectr_tpu_torch.ops import ordered_pool as op
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    shapes = [(dt, stride, e) for dt, stride, e in itertools.product(
+        (torch.float32, torch.bfloat16), (128, 129, 130, 132), (13, 16, 64, 128))]
+    shapes += [(torch.float32, ld, 256) for ld in (256, 260)] + [(torch.bfloat16, ld, 512) for ld in (512, 516)]
+    n_cases = 0
+    for (dt, stride, e), (lens, foreign_at, n_ids) in itertools.product(
+            shapes, (((31, 32, 33, 64, 65, 0, 1), (0, 31, 32, 33), 40), ((0, 1, 2, 3, 7, 8, 9, 17), (0, 1, 7, 8), 9))):
+        ids = [np.sort(rng.integers(0, 70, size=n)) for n in lens]
+        for at in foreign_at:
+            r = np.sort(rng.integers(0, 70, size=n_ids))
+            r[at:] = 70 + np.arange(n_ids - at) % 3
+            ids.append(r)
+        rows = torch.as_tensor(np.concatenate(ids), device=dev)
+        offsets = torch.as_tensor(np.concatenate([[0], np.cumsum([len(x) for x in ids])]), device=dev)
+        full = torch.as_tensor((rng.normal(size=(70, stride)) * np.exp2(rng.integers(-8, 4, size=(70, 1))))
+                               .astype(np.float32), device=dev).to(dt)
+        table = full[:, :e]
+        sw = torch.as_tensor((rng.random(rows.numel()) * 3).astype(np.float32), device=dev) if e == E else None
+        got = op.ordered_pool(table, rows, offsets, sw)
+        n_cases += 1
+        if not torch.equal(bits(torch, got), bits(torch, op.ordered_pool_plain(table, rows, offsets, sw))):
+            plan = op.pool_plan(e, full.element_size(), stride, table.data_ptr(), got.data_ptr(),
+                                rows.numel() / (offsets.numel() - 1))
+            raise AssertionError(f"ordered_pool edge case differs from its plain version: {str(dt)} stride "
+                                 f"{stride} E {e} slots {lens} plan {plan}")
     for dt in (torch.float32, torch.bfloat16):
-        for e in (16, 128, 13):
-            n = 3000
-            lens = rng.integers(1, 101, size=n)
-            lens[rng.random(n) < 0.2] = 0
-            slots = torch.as_tensor(np.repeat(np.arange(n), lens), device=dev)
-            # a tenth of the keys on another rank's shard (row id 500)
-            rows = torch.as_tensor(np.minimum(rng.integers(0, 550, size=int(lens.sum())), 500), device=dev)
-            srows, offsets = op.segments(rows, slots, n, 500)
-            table = (torch.empty((500, e), device=dev).normal_(generator=gen)
-                     * torch.exp2(torch.randint(-8, 4, (500, 1), device=dev, generator=gen).float())).to(dt)
-            got = op.ordered_pool(table, srows, offsets)
-            want = op.ordered_pool_plain(table, srows, offsets)
-            ok = bool(torch.equal(bits(torch, got), bits(torch, want)))
-            rec = dict(kernel="ordered_pool", case=f"edges_E{e}", dtype=str(dt).split(".")[1], slots=n,
-                       K=int(lens.sum()), foreign=int((rows == 500).sum()), empty_slots=int((lens == 0).sum()),
-                       max_slot_rows=int(lens.max()), bitwise=ok,
-                       empty_slots_zero=bool((got[torch.as_tensor(lens == 0, device=dev)] == 0).all()))
-            emit(rec)
-            if not (ok and rec["empty_slots_zero"]):
-                raise AssertionError(f"ordered_pool edge case differs from its plain version: {rec}")
+        n = 3000
+        lens = rng.integers(1, 101, size=n)
+        lens[rng.random(n) < 0.2] = 0
+        slots = torch.as_tensor(np.repeat(np.arange(n), lens), device=dev)
+        # a tenth of the keys on another rank's shard (row id 500)
+        rows = torch.as_tensor(np.minimum(rng.integers(0, 550, size=int(lens.sum())), 500), device=dev)
+        srows, offsets = op.segments(rows, slots, n, 500)
+        table = (torch.empty((500, E), device=dev).normal_(generator=gen)
+                 * torch.exp2(torch.randint(-8, 4, (500, 1), device=dev, generator=gen).float())).to(dt)
+        got = op.ordered_pool(table, srows, offsets)
+        n_cases += 1
+        ok = bool(torch.equal(bits(torch, got), bits(torch, op.ordered_pool_plain(table, srows, offsets))))
+        if not (ok and bool((got[torch.as_tensor(lens == 0, device=dev)] == 0).all())):
+            raise AssertionError(f"ordered_pool differs from its plain version over 3,000 slots, {dt}")
+    emit(dict(kernel="ordered_pool", case="edges", cases=n_cases, bitwise=True, seconds=time.perf_counter() - t0))
 
 
 def column_kernel_checks(torch, np, dev, results):
@@ -4661,8 +4714,7 @@ def main() -> int:
     # weighted cases stand in `column_case` and `weighted_case`)
     pool = [x for x in results if x["kernel"] == "ordered_pool" and "index_add_ms" in x
             and not x["case"].startswith(("column_", "weighted_", "compact"))]
-    compact = {x["case"].split("_mp_")[0]: x for x in results if x["kernel"] == "ordered_pool"
-               and x["case"].startswith("compact")}
+    compact = {x["case"]: x for x in results if x["kernel"] == "ordered_pool" and x["case"].startswith("compact")}
     r = max((x for x in pool if x["dtype"] == "float32"), key=lambda x: x["device_ms"])
     rb = max((x for x in pool if x["dtype"] == "bfloat16"), key=lambda x: x["device_ms"])
     kernels.append(dict(
@@ -4672,8 +4724,9 @@ def main() -> int:
         launches=hybrid_launches[0]["ordered_pool"], **{k: r[k] for k in keys},
         bench_path_launches=bench_launches["ordered_pool"], packed_path_launches=packed_launches["ordered_pool"],
         scatter_ratio_path_launches=ratio_launches["ordered_pool"],
-        compact_case={k: compact["compact"][k] for k in keys},
-        compact_packed_case={k: compact["compact_packed"][k] for k in keys},
+        compact_case={k: compact["compact_mp_ev128_20::cold_w1"][k] for k in keys},
+        compact_hot_case={k: compact["compact_mp_ev128_20::hot_w1"][k] for k in keys},
+        compact_packed_case={k: compact["compact_packed_mp_ev128_20::cold_w1"][k] for k in keys},
         hybrid_path_launches=[x["ordered_pool"] for x in hybrid_launches],
         hybrid_hier_path_launches=[x["ordered_pool"] for x in hier_launches],
         hybrid_column_path_launches=[x["ordered_pool"] for x in column_launches],

@@ -57,8 +57,9 @@ _SIGNATURES = {
     "hctr_onehot_bwd_tile_rows": ([_I], _I),
     # b, h, v, e, weighted -> the backward's route (0 global, 1 privatised, 2 counts matmul)
     "hctr_onehot_bwd_route": ([_I, _I, _I, _I, _I], _I),
-    # dtype, table, n_rows, rows, weights (or null), offsets, out, n_slots, e, vec, stream
-    "hctr_ordered_pool": ([_I, _P, _I64, _I64, _P, _P, _P, _P, _I64, _I, _I, _P], _I),
+    # dtype, table, n_rows, ld, rows, weights (or null), offsets, out, n_slots, e, vec, lanes, per, shift,
+    # stream
+    "hctr_ordered_pool": ([_I, _P, _I64, _I64, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P], _I),
 }
 
 _lock = threading.Lock()

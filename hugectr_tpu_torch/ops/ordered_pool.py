@@ -102,6 +102,50 @@ def ordered_pool_plain(table: torch.Tensor, rows: torch.Tensor, offsets: torch.T
     return acc
 
 
+# Below this many row ids a slot on average (owned or not), a group of
+# fewer lanes holds a row in several 16-byte accesses a lane: more slots a
+# warp, each one walk (chosen on the card, PERF.md §6).
+SHORT_SLOT_IDS = 8.0
+
+
+def pool_plan(e: int, itemsize: int, ld: int, table_addr: int = 0, out_addr: int = 0,
+              slot_ids: float = SHORT_SLOT_IDS) -> Tuple[int, int, int, int]:
+    """The kernel's (vec, lanes, per, shift) for rows of `e` elements of
+    `itemsize` bytes at a row stride of `ld` elements, the table at
+    `table_addr`, the output at `out_addr`, and `slot_ids` row ids a slot
+    on average. `vec` elements an access: 16 bytes where the row is a
+    whole number of 16-byte pieces, read as aligned 4-byte words and
+    funnel-shifted into place (`shift` 1) where the table's rows do not
+    start on 16 bytes (a view of packed rows: `rowwise_pack`'s [R, 129],
+    row stride 258 bytes in bf16); else the widest of 16, 8, 4 or 2 bytes
+    that divides both addresses, the row stride and the row in bytes,
+    narrowed while the row takes fewer than 8 accesses, so that 8 lanes
+    share it. `lanes` a slot, 8, 16 or 32: the fewest that hold the row's
+    accesses, one a lane (`per` 1); where the slots are short (fewer than
+    SHORT_SLOT_IDS ids) and the accesses aligned 16-byte ones, 8 lanes
+    with `per` accesses each. A walk of a slot's rows covers lanes * vec *
+    per columns: one walk up to 32 accesses a row (256 bf16 or 128 f32
+    columns), more past that."""
+    row = e * itemsize
+    shift = int(row % 16 == 0 and out_addr % 16 == 0 and (table_addr % 16 or ld * itemsize % 16) != 0)
+    if shift:
+        vec = 16 // itemsize
+    else:
+        nbytes = 16
+        while nbytes > itemsize and any(x % nbytes for x in (table_addr, out_addr, ld * itemsize, row)):
+            nbytes //= 2
+        vec = nbytes // itemsize
+        while vec > 1 and e // vec < 8:
+            vec //= 2
+    lanes, per = 8, 1
+    while lanes < 32 and lanes * vec < e:
+        lanes *= 2
+    if slot_ids < SHORT_SLOT_IDS and not shift and vec * itemsize == 16:
+        while lanes > 8:
+            lanes, per = lanes // 2, per * 2
+    return vec, lanes, per, shift
+
+
 def ordered_pool(table: torch.Tensor, rows: torch.Tensor, offsets: torch.Tensor,
                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[n_slots, E] slot sums of `table` [R, E] (float32 or bfloat16) rows
@@ -132,12 +176,12 @@ def ordered_pool(table: torch.Tensor, rows: torch.Tensor, offsets: torch.Tensor,
     out = torch.empty((n_slots, e), dtype=table.dtype, device=table.device)
     if n_slots == 0 or e == 0:
         return out
+    plan = pool_plan(e, table.element_size(), ld, table.data_ptr(), out.data_ptr(), rows.numel() / n_slots)
     with torch.cuda.device(table.device):
         rc = _lib.library().hctr_ordered_pool(
             _lib.DTYPE_CODE[table.dtype], table.data_ptr(), table.shape[0], ld, rows.data_ptr(),
             weights.data_ptr() if weights is not None else None, offsets.data_ptr(),
-            out.data_ptr(), n_slots, e, _lib.vec_width(e, table, out) if ld % 4 == 0 else 1,
-            _lib.stream_of(table),
+            out.data_ptr(), n_slots, e, *plan, _lib.stream_of(table),
         )
     _lib.check(rc, "ordered_pool")
     LAUNCHES["ordered_pool"] += 1

@@ -55,6 +55,7 @@ CATEGORIES = (
     ("onehot_fwd", KERNEL_NAMES["onehot_fwd"]),
     ("onehot_bwd", KERNEL_NAMES["onehot_bwd"]),
     ("segscan", KERNEL_NAMES["segscan"]),
+    ("ordered_pool", KERNEL_NAMES["ordered_pool"]),
     ("gemm", ("gemm", "sm90", "sm80", "cutlass", "cublas", "splitk", "xmma", "nvjet")),
     ("sort", ("sort", "radix")),
     ("index", ("index", "scatter", "gather", "embedding")),
@@ -98,7 +99,8 @@ def trace(rm, inputs) -> dict:
     for _ in range(2):
         model.train()
     if args.eval:
-        batches = list(model._eval_batches())
+        source, _feeder, _fed = model._eval_batches()
+        batches = list(source)
 
         def step(i):
             model._eval_update(batches[i % len(batches)])

@@ -436,7 +436,7 @@ def test_segscan_bf16_rows_float32_sums(cuda):
 def test_ordered_pool_kernel_is_bitwise_its_plain_version(cuda, dtype, e):
     """Slots of 0 to 100 rows, the rows of a slot in ascending order,
     repeated rows, keys of other shards (the sentinel row 2000); E 13 takes
-    the kernel's one-column lanes."""
+    the kernel's one-element accesses."""
     rng = np.random.default_rng(e)
     n_slots = 5000
     lens = rng.integers(0, 12, size=n_slots)
@@ -474,6 +474,53 @@ def test_ordered_pool_reads_a_packed_view(cuda, stride):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
     assert torch.equal(got.view(torch.int16), dense.view(torch.int16))
+
+
+def _pool_edge_case(rng, dtype, e, stride, slots, rows=70):
+    """The kernel's design edges (as tests/test_torch_ordered_pool.py's
+    `edge_case`): long slots (31, 32, 33, 64, 65, 0 and 1 rows, then slots
+    of 40 ids whose first foreign id stands at 0, 31, 32 and 33) or short
+    ones (0, 1, 2, 3, 7, 8, 9 and 17 rows, then slots of 9 ids, the first
+    foreign id at 0, 1, 7 and 8); a [rows, stride] table whose first e
+    columns are pooled."""
+    lens, foreign_at, n_ids = {"long": ((31, 32, 33, 64, 65, 0, 1), (0, 31, 32, 33), 40),
+                               "short": ((0, 1, 2, 3, 7, 8, 9, 17), (0, 1, 7, 8), 9)}[slots]
+    ids = [np.sort(rng.integers(0, rows, size=n)) for n in lens]
+    for at in foreign_at:
+        r = np.sort(rng.integers(0, rows, size=n_ids))
+        r[at:] = rows + np.arange(n_ids - at) % 3
+        ids.append(r)
+    offsets = np.concatenate([[0], np.cumsum([len(x) for x in ids])])
+    table = (rng.normal(size=(rows, stride)) * np.exp2(rng.integers(-8, 4, size=(rows, 1)))).astype(np.float32)
+    return torch.from_numpy(table).to(dtype), torch.from_numpy(np.concatenate(ids)), torch.from_numpy(offsets)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slots", ["long", "short"])
+@pytest.mark.parametrize("dtype, stride, e", [
+    *((dt, stride, e) for dt in (torch.float32, torch.bfloat16) for stride in (128, 129, 130, 132)
+      for e in (13, 16, 64, 128)),
+    (torch.float32, 256, 256), (torch.float32, 260, 256), (torch.bfloat16, 512, 512), (torch.bfloat16, 516, 512)])
+def test_ordered_pool_edges_are_bitwise_its_plain_version(cuda, dtype, stride, e, slots):
+    """Slots across the id batches of 8, 16 and 32 lanes, the first foreign
+    id at 0, 1, 7, 8, 31, 32 and 33, every row stride's access width, at
+    the plan's choice: one access a lane for long slots, several for short
+    ones where the accesses are aligned 16-byte ones; E 256 f32 and 512
+    bf16 take two walks; weighted at E 128. One launch a call."""
+    rng = np.random.default_rng(stride * 1000 + e)
+    full, rows, offsets = _pool_edge_case(rng, dtype, e, stride, slots)
+    w = torch.from_numpy((rng.random(rows.numel()) * 3).astype(np.float32)) if e == 128 else None
+    view = full[:, :e]
+    want = op.ordered_pool_plain(view, rows, offsets, w)
+    dview, drows, doffs = full.to(cuda)[:, :e], rows.to(cuda), offsets.to(cuda)
+    dw = w.to(cuda) if w is not None else None
+    as_int = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    ops.reset_counts()
+    got = op.ordered_pool(dview, drows, doffs, dw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ordered_pool"] == 1
+    assert torch.equal(got.cpu().view(as_int), want.view(as_int)), op.pool_plan(
+        e, full.element_size(), stride, dview.data_ptr(), got.data_ptr(), rows.numel() / (offsets.numel() - 1))
 
 
 @pytest.mark.gpu
