@@ -88,6 +88,26 @@ Each phase prints one JSON line with its own seconds:
    every loss must be finite and the eval's binned AUC within 1e-4 of the
    exact AUC of the same buffers. Reports ms/step, train and eval ex/s,
    peak memory, the routes and the launch counts.
+   Both paths (4 and 5) print `Model.step_mode` ("graph": the steps after
+   the first replay the captured step, and every launch count above holds
+   on replays) and end with `graph_ab` ("main_path_graph_ab",
+   "bench_path_graph_ab"): the captured step against the eager one from
+   one saved state, in turns eager, graph, graph, eager: the losses
+   bitwise, every table and state array bitwise or within the two modes'
+   measured atomic spreads, ms/step and ex/s (the graph turns under
+   `torch.cuda.set_sync_debug_mode("error")`), replayed eval predictions
+   bitwise the per-batch eval's with equal AUCs and its ms a batch, and
+   `tools/trace_step.py::profile_steps` in each mode (device-busy ms, idle
+   share, host operators and waits a step); the graph's device-busy ms
+   at most 1.1x the eager's. The kernel phase ends with
+   `row_scatter_checks`: segscan with a device count against the run on
+   the counted prefix (bitwise), the drop-mode row update and scatter of
+   `csrc/row_scatter.cu` against their plain versions, in the forms and
+   at the shapes of the float32 flagship (float32 rows; RowWiseAdaGrad
+   on float32 at table 21's sorted list, the dense sweep's scatter at
+   tables 20 and 11) and of bench's table 20 (bf16 rows; RowWiseAdaGrad
+   on bf16 and AdaGrad on float32 at its cold tier, the scatter at its
+   hot tier).
    "packed_path" (after it): the packed layouts and the drop mode: the
    bench-configured flagship with `rowwise_pack` (the 7 cold tiers and
    table 11's group [R, 129]) and the f32 flagship (cap 400,000) with
@@ -295,7 +315,9 @@ Each phase prints one JSON line with its own seconds:
 Then a "kernels" JSON line (per kernel: source, the TPU kernel it replaces,
 main-path launches, error, ms, device_ms, plain_ms, bound_ms, bound_by,
 library_ms, for the float32 flagship case with the most device time; for
-`onehot_fwd`, the 13-table group; beside them the file path's launches,
+`onehot_fwd`, the 13-table group; for segscan the counted form at table
+21's sorted list (`counted_sorted_21`, the bench cold tier's beside it as
+`counted_case`); beside them the file path's launches,
 the bench path's launches and
 the same numbers for its bf16 case with the most device time, and the FTRL
 path's launches and its case with the most device time, the freeze
@@ -313,7 +335,13 @@ and each kernel's launches on `serving_path`, `fullscale_path`,
 pool's also on `bench_path`, its compact cases of the cold and hot tiers
 and its compact case on a packed table beside its others), the one-hot
 kernels' f32 case at the scatter ratio's shapes (`ratio_case`) and the
-forward's 100-lookup f32 case (`chunked_case`)),
+forward's 100-lookup f32 case (`chunked_case`); and the two drop-mode
+kernels of `csrc/row_scatter.cu`: `row_scatter` at the float32
+flagship's table 20 (table 11 as `table11_case`, bench's hot tier as
+`bench_case`), `adagrad_rows` RowWiseAdaGrad on float32 at its table 21
+(bench's cold tier on bf16 as `bench_case`, AdaGrad on float32 as
+`dcnv2_case`), with their launches on the main, bench, benchmarks,
+full-scale and FTRL paths),
 a line with the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that line;
 so does a machine without CUDA.
@@ -472,6 +500,223 @@ def kernel_checks(torch, results):
     chunked_group_checks(torch, np, oh, dev, results)
     scatter_ratio_checks(torch, np, oh, dev, results)
     bf16_grad_checks(torch, np, dev)
+    row_scatter_checks(torch, np, dev, results)
+
+
+def row_scatter_checks(torch, np, dev, results):
+    """The fixed-shape sparse update's kernels on the lists the two
+    flagships give them, 16,384 power-law keys a lookup slot:
+
+    * the float32 flagship (`main_path`, RowWiseAdaGrad on float32 tables
+      and state): table 21's sorted list (K 442,368, every key valid, as
+      its synthetic keys are), float32 gradient rows. segscan with the
+      device count against the run on the gathered prefix, bitwise, at the
+      list's count and at a count an eighth below it; then `adagrad_rows`
+      on the tails against its plain version: the row mean of g^2 is
+      summed in another order (a warp's tree against torch's reduction),
+      so the accumulator agrees within 2^-15 of itself and the table
+      within 2^-15 of its step plus two float32 roundings of its value.
+      Then the dense sweep's drop-mode scatter, float32 rows into float32,
+      on table 20's list (2,000,000 rows, h 100) and table 11's (405,282,
+      h 8), against its plain version (atomic adds: the float32 tolerance
+      of the scaled error), with one `index_add_` of the valid rows beside
+      it;
+    * bench.py's flagship (`bench_path`, bfloat16): the list of table 20's
+      tiers (each tier's window over the raw keys, the rest the sentinel).
+      On the cold tier's list, sorted: segscan with the device count n
+      (about an eighth of the list) against the n-row prefix run,
+      bitwise; `adagrad_rows` RowWiseAdaGrad on bf16 table and accumulator
+      (within one bf16 rounding of the table's values), and AdaGrad on
+      float32 (the optimizer of the suite's dcnv2 case on
+      `benchmarks_path`: bitwise). On the hot tier's list the drop-mode
+      scatter of bf16 rows into the float32 buffer."""
+    from hugectr_tpu_torch.core.types import Optimizer_t
+    from hugectr_tpu_torch.ops import onehot_matmul as oh
+    from hugectr_tpu_torch.tools.flagship import BENCH_PLAN, flagship_plan, raw_vocab
+
+    rng = np.random.default_rng(21)
+    f32_plan, bench_plan = flagship_plan(ev_size=E), flagship_plan(ev_size=E, **BENCH_PLAN)
+
+    def key_list(plan, name):
+        g = next(x for x in plan.groups if x.name == name)
+        lm = g.lookups[0]
+        rows = int(g.total_local_rows)
+        raw = torch.as_tensor(power_law(rng, raw_vocab(plan, lm), (B, lm.hotness)), device=dev)
+        wk = oh.window_keys(raw, lm.key_lo, lm.key_hi).reshape(-1).long()
+        src = torch.arange(B, device=dev).repeat_interleave(lm.hotness)
+        return torch.where(wk >= 0, wk, rows), rows, src
+
+    def grads(dt):
+        return torch.as_tensor(rng.standard_normal((B, E), dtype=np.float32), device=dev).to(dt)
+
+    # the float32 flagship
+    idx, rows, src = key_list(f32_plan, "mp_ev128_21")
+    dsrc = grads(torch.float32)
+    k = idx.numel()
+    sorted_list = counted_segscan_case(torch, dev, results, "counted_sorted_21", idx, rows, src, dsrc, cut=k // 8)
+    adagrad_rows_case(torch, dev, results, "sorted_21_rowwise_adagrad", Optimizer_t.RowWiseAdaGrad,
+                      torch.float32, rows, *sorted_list)
+    for name, case in (("mp_ev128_20", "dense_20_f32"), ("mp_ev128_11", "dense_11_f32")):
+        idx, rows, src = key_list(f32_plan, name)
+        scatter_rows_case(torch, dev, results, case, idx, rows, src, dsrc)
+    # bench.py's flagship
+    idx, rows, src = key_list(bench_plan, "mp_ev128_20::cold")
+    dsrc = grads(torch.bfloat16)
+    sorted_list = counted_segscan_case(torch, dev, results, "counted_cold_tier_20", idx, rows, src, dsrc)
+    for case, kind, dt in (("cold_tier_20_rowwise_adagrad", Optimizer_t.RowWiseAdaGrad, torch.bfloat16),
+                           ("cold_tier_20_adagrad", Optimizer_t.AdaGrad, torch.float32)):
+        adagrad_rows_case(torch, dev, results, case, kind, dt, rows, *sorted_list)
+    idx, rows, src = key_list(bench_plan, "mp_ev128_20::hot")
+    scatter_rows_case(torch, dev, results, "dense_hot_20", idx, rows, src, dsrc)
+
+
+def counted_segscan_case(torch, dev, results, case, idx, rows, src, dsrc, cut: int = 0):
+    """segscan on the stably sorted list `idx` (the sentinel `rows` last)
+    with the device count of its valid prefix and the rows read through the
+    sort (`rowsrc`), as `sparse_optimizer._sorted_adagrad` calls it: against
+    the run on the gathered prefix (bitwise) and its plain version; with
+    `cut` > 0 also at a count `cut` rows lower (bitwise its prefix run).
+    Returns (sorted ids, the sums, the count, n, unique rows) for the row
+    update."""
+    from hugectr_tpu_torch.ops import segscan as ss
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+
+    t0 = time.perf_counter()
+    k = idx.numel()
+    sidx, perm = torch.sort(idx, stable=True)
+    count = torch.count_nonzero(sidx < rows)
+    n = int(count)
+    heads = torch.ones(k, dtype=torch.bool, device=dev)
+    heads[1:] = sidx[1:] != sidx[:-1]
+    rowsrc = src[perm].contiguous()
+
+    def prefix_run(m):
+        return ss.segmented_sum_sorted(dsrc[rowsrc[:m]].contiguous(), heads[:m].contiguous(), torch.float32)
+
+    call = lambda: ss.segmented_sum_sorted(dsrc, heads, torch.float32, count, rowsrc)  # noqa: E731
+    got = call()
+    want = ss.segmented_sum_sorted_plain(dsrc, heads, torch.float32, count, rowsrc)
+    scale = ss.segmented_sum_sorted_plain(dsrc.float().abs(), heads, torch.float32, count, rowsrc)
+    cut_bitwise = None
+    if cut:
+        m = n - cut
+        cut_got = ss.segmented_sum_sorted(dsrc, heads, torch.float32, torch.tensor(m, device=dev), rowsrc)
+        cut_bitwise = bool(torch.equal(cut_got[:m], prefix_run(m)))
+    torch.cuda.synchronize()
+    isz = dsrc.element_size()
+    b_ms, b_by = bound(n * (E * isz + 8 + 1 + E * 4) + k, n * E)
+    dms, per_call = device_ms(call, KERNEL_NAMES["segscan"])
+    rec = dict(
+        kernel="segscan", case=case, dtype=str(dsrc.dtype).split(".")[1], out_dtype="float32", K=k, count=n, E=E,
+        prefix_bitwise=bool(torch.equal(got[:n], prefix_run(n))), cut=cut, cut_prefix_bitwise=cut_bitwise,
+        scaled_err=scaled_err(got[:n], want[:n], scale[:n]), max_abs_err=float((got[:n] - want[:n]).abs().max()),
+        tol=TOL["float32"], bitwise_repeat=bool(torch.equal(call()[:n], got[:n])), ms=time_ms(call), device_ms=dms,
+        device_launches_per_call=per_call, prefix_ms=time_ms(lambda: prefix_run(n)),
+        plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(dsrc, heads, torch.float32, count, rowsrc),
+                         samples=5, inner=1, warmup=1),
+        library_ms=None, library="none: no single PyTorch call computes a segmented scan",
+        bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
+    )
+    results.append(rec)
+    emit(rec)
+    if not (rec["prefix_bitwise"] and cut_bitwise in (None, True) and rec["scaled_err"] <= TOL["float32"]
+            and rec["bitwise_repeat"]):
+        raise AssertionError(f"counted segscan disagrees with the prefix run or its plain version: {rec}")
+    return sidx, got, count, n, int(heads[:n].sum())
+
+
+def adagrad_rows_case(torch, dev, results, case, kind, dt, rows, sidx, got, count, n, u):
+    """The drop-mode row update of a sorted list's tails (`adagrad_rows`)
+    against its plain version, on a random [rows, E] table of `dt` and its
+    accumulator of `dt`: AdaGrad bitwise; RowWiseAdaGrad within the spread
+    of its row mean's sum order (float32: two orders of E = 128 positive
+    terms differ by at most 2 x 127 x 2^-24 of the sum, so 2^-15 of the
+    accumulator, and 2^-15 of the table's step plus two roundings of its
+    value; bfloat16: one rounding at the table's and the accumulator's
+    scale)."""
+    from hugectr_tpu_torch.core.types import Optimizer_t
+    from hugectr_tpu_torch.ops import row_scatter as rs
+    from hugectr_tpu_torch.optim.params import OptParams
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+
+    t0 = time.perf_counter()
+    k = sidx.numel()
+    opt = OptParams(optimizer=kind, initial_accu_value=0.0)
+    width = 1 if kind == Optimizer_t.RowWiseAdaGrad else E
+    table = (torch.randn((rows, E), device=dev) * 0.01).to(dt)
+    accum = (torch.rand((rows, width), device=dev) * 1e-3).to(dt)
+    lr = torch.tensor(0.005, device=dev).to(dt)
+    t1, a1, t2, a2 = table.clone(), accum.clone(), table.clone(), accum.clone()
+    rs.adagrad_rows(opt, t1, a1, sidx, got, count, lr)
+    rs.adagrad_rows_plain(opt, t2, a2, sidx, got, count, lr)
+    torch.cuda.synchronize()
+    d_t = (t1.float() - t2.float()).abs()
+    d_a = (a1.float() - a2.float()).abs()
+    bitwise = bool(torch.equal(t1, t2) and torch.equal(a1, a2))
+    if kind == Optimizer_t.AdaGrad:
+        ok_t = ok_a = bitwise
+    elif dt == torch.float32:
+        ok_t = bool((d_t <= 2.0**-15 * (t2 - table).abs() + 2.0**-22 * t2.abs()).all())
+        ok_a = bool((d_a <= 2.0**-15 * a2.abs()).all())
+    else:
+        ok_t = float(d_t.max()) <= 2.0**-7 * float(t2.float().abs().max())
+        ok_a = float(d_a.max()) <= 2.0**-7 * float(a2.float().abs().max())
+    changed = int((t1 != table).any(dim=1).sum())
+    call = lambda: rs.adagrad_rows(opt, t1, a1, sidx, got, count, lr)  # noqa: E731
+    isz = table.element_size()
+    b_ms, b_by = bound(n * 8 + u * (2 * E * isz + E * 4 + 2 * width * isz), 6 * u * E)
+    dms, per_call = device_ms(call, KERNEL_NAMES["adagrad_rows"])
+    rec = dict(
+        kernel="adagrad_rows", case=case, optimizer=kind.value, dtype=str(dt).split(".")[1], K=k, count=n,
+        unique_rows=u, rows=rows, E=E, max_abs_err=float(d_t.max()), accum_max_abs_err=float(d_a.max()),
+        table_within=ok_t, accum_within=ok_a, bitwise=bitwise,
+        rows_changed=changed, ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
+        plain_ms=time_ms(lambda: rs.adagrad_rows_plain(opt, t2, a2, sidx, got, count, lr),
+                         samples=5, inner=1, warmup=1),
+        library_ms=None, library="none: no single PyTorch call computes a row-wise optimizer update",
+        bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
+    )
+    results.append(rec)
+    emit(rec)
+    if not (ok_t and ok_a and 0 < changed <= u):
+        raise AssertionError(f"the drop-mode row update disagrees with its plain version: {rec}")
+
+
+def scatter_rows_case(torch, dev, results, case, idx, rows, src, dsrc):
+    """The dense sweep's drop-mode scatter of the rows dsrc[src] into a
+    float32 [rows, E] buffer against its plain version (atomic adds: the
+    float32 tolerance of the scaled error), one `index_add_` of the valid
+    rows (taken out beforehand) beside it."""
+    from hugectr_tpu_torch.ops import row_scatter as rs
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+
+    t0 = time.perf_counter()
+    k = idx.numel()
+    valid = idx < rows
+    n = int(valid.sum())
+    call = lambda: rs.scatter_add_rows(idx, src, dsrc, rows, torch.float32)  # noqa: E731
+    got = call()
+    want = rs.scatter_add_rows_plain(idx, src, dsrc, rows, torch.float32)
+    scale = rs.scatter_add_rows_plain(idx, src, dsrc.float().abs(), rows, torch.float32)
+    vidx, vals = idx[valid], dsrc[src[valid]].float()
+    buf = torch.zeros((rows, E), device=dev)
+    torch.cuda.synchronize()
+    b_ms, b_by = bound(k * 16 + n * E * dsrc.element_size() + rows * E * 4, n * E)
+    dms, per_call = device_ms(call, KERNEL_NAMES["row_scatter"])
+    rec = dict(
+        kernel="row_scatter", case=case, dtype=str(dsrc.dtype).split(".")[1], out_dtype="float32", K=k, valid=n,
+        rows=rows, E=E, scaled_err=scaled_err(got, want, scale), max_abs_err=float((got - want).abs().max()),
+        tol=TOL["float32"], ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
+        plain_ms=time_ms(lambda: rs.scatter_add_rows_plain(idx, src, dsrc, rows, torch.float32),
+                         samples=5, inner=1, warmup=1),
+        library_ms=time_ms(lambda: buf.index_add_(0, vidx, vals)),
+        library="torch.Tensor.index_add_ of the valid rows (taken out beforehand)",
+        bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
+    )
+    results.append(rec)
+    emit(rec)
+    if not rec["scaled_err"] <= TOL["float32"]:
+        raise AssertionError(f"the drop-mode scatter disagrees with its plain version: {rec}")
 
 
 def ftrl_shape_checks(torch, np, oh, ss, dev, results):
@@ -1723,18 +1968,207 @@ def main_path(torch):
         losses=losses, step_ms=[s * 1e3 for s in step_s], median_ms_per_step=steady * 1e3,
         examples_per_s=B / steady, max_memory_allocated=torch.cuda.max_memory_allocated(),
         routes=dict(model.ec.group_routes), route_counts=dict(model.ec.route_counts),
-        launches=launches, build_seconds=build_s, seconds=time.perf_counter() - t0,
+        launches=launches, step_mode=model.step_mode, build_seconds=build_s, seconds=time.perf_counter() - t0,
     )
     emit(rec)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss on the main path: {losses}")
-    missing = [k for k in ONE_CARD_KERNELS if launches[k] <= 0]
+    missing = [k for k in (*ONE_CARD_KERNELS, *drop_kernels(model.ec.group_routes)) if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     if launches["onehot_fwd"] != 6 or launches["onehot_bwd"] != 6:  # one grouped launch each a step
         raise AssertionError(f"onehot_fwd / onehot_bwd launched {launches['onehot_fwd']} / "
                              f"{launches['onehot_bwd']} times in 6 steps, not 6")
+    rec["graph_ab"] = graph_ab(torch, model, "main_path")
     return launches, rec
+
+
+GRAPH_AB_STEPS = 5  # timed train steps in each turn of the graph-against-eager run
+GRAPH_AB_TURNS = ("eager", "graph", "graph", "eager")
+
+
+def state_arrays(model) -> dict:
+    """The carried state by name: tables, their optimizer state, the dense
+    parameters and their optimizer state (the tensors themselves)."""
+    out = {f"table/{k}": v for k, v in model.tables.items()}
+    out.update({f"eopt/{g}/{k}": v for g, st in model.eopt.items() for k, v in st.items()})
+    out.update({f"param/{lay}/{k}": p.data for lay, ps in model.network.param_tree().items() for k, p in ps.items()})
+    out.update({f"dopt/{s}/{lay}/{k}": t for s, tree in model.dopt.items() for lay, ps in tree.items()
+                for k, t in ps.items()})
+    return out
+
+
+def max_abs_diff(torch, a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def graph_ab(torch, model, label: str) -> dict:
+    """The default step (a captured step replayed, `Model.step_mode`
+    "graph") against the eager one (`use_cuda_graph` False, the same
+    fixed-shape code), from the same state, in turns: eager, graph, graph,
+    eager. Prints and returns one record:
+
+    * agreement: each turn's one step from the saved state on one batch.
+      The loss is bitwise the same in all four (the forward of one state).
+      Each table and state array is held against the first eager turn's:
+      in a storage group (a table and its state; the dense network) whose
+      arrays agree bitwise between the two eager turns and between the two
+      graph turns, the graph turns must equal the eager ones bitwise;
+      elsewhere (the dense sweep's and the one-hot backward's atomic adds)
+      within 4 x the larger of the two eager turns' and the two graph turns'
+      spreads, both measured and printed;
+    * ms/step and ex/s of GRAPH_AB_STEPS `train_async` steps a turn (host
+      clock to a synchronisation), the graph turns' replays under
+      `torch.cuda.set_sync_debug_mode("error")`: no host sync inside them;
+    * eval: eager and replayed (`Model.eval`), predictions bitwise equal
+      and AUCs equal, then ms a batch and ex/s in turns;
+    * from `tools/trace_step.py::profile_steps` in each mode, train and
+      eval: device-busy ms, idle share, host operators and waits per step.
+
+    The state is restored to the saved one at the end."""
+    from hugectr_tpu_torch.tools.trace_step import profile_steps
+
+    t0 = time.perf_counter()
+    arrays = state_arrays(model)
+    saved = {k: v.clone() for k, v in arrays.items()}
+    step0 = model._step
+
+    def restore(graph: bool):
+        for k, v in arrays.items():
+            v.copy_(saved[k])
+        model._step = step0
+        model.solver.use_cuda_graph = graph
+
+    batch = model._next_train_batch()
+    first, first_graph, losses, diffs = None, None, [], []
+    for turn in GRAPH_AB_TURNS:
+        restore(turn == "graph")
+        model._staged_train_batch = batch
+        losses.append(float(model.train_async()))
+        if first is None:
+            first = {k: v.clone() for k, v in arrays.items()}
+            continue
+        diffs.append({k: (bool(torch.equal(v, first[k])), max_abs_diff(torch, v, first[k]))
+                      for k, v in arrays.items()})
+        if turn == "graph" and first_graph is None:
+            first_graph = {k: v.clone() for k, v in arrays.items()}
+        elif turn == "graph":
+            graph_spread = {k: max_abs_diff(torch, v, first_graph[k]) for k, v in arrays.items()}
+            first_graph = None
+    g1, g2, e2 = diffs
+
+    def group(k):  # a storage group's table and state, or the dense network
+        return k.split("/")[1] if k.startswith(("table/", "eopt/")) else "dense"
+
+    # a group is atomic where any of its arrays differs between the two
+    # eager turns or the two graph turns
+    spread_groups = {group(k) for k in arrays if not e2[k][0] or graph_spread[k] > 0}
+    breaches, atomic = [], []
+    for k in arrays:
+        eager_spread = e2[k][1]
+        if group(k) not in spread_groups:
+            if not (g1[k][0] and g2[k][0]):
+                breaches.append((k, "eager and graph each bitwise, not with each other", g1[k][1], g2[k][1]))
+            continue
+        atomic.append(k)
+        lim = 4 * max(eager_spread, graph_spread[k])
+        if max(g1[k][1], g2[k][1]) > lim:
+            breaches.append((k, "past 4 x the spread", g1[k][1], g2[k][1], eager_spread, graph_spread[k]))
+    del first
+    # ms/step in turns
+    timing = []
+    for turn in GRAPH_AB_TURNS:
+        restore(turn == "graph")
+        model.train_async()  # the turn's first step outside the clock
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if turn == "graph":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(GRAPH_AB_STEPS):
+                model.train_async()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        timing.append(dict(turn=turn, ms_per_step=dt / GRAPH_AB_STEPS * 1e3,
+                           examples_per_s=GRAPH_AB_STEPS * B / dt))
+    # eval: eager against replayed, then in turns
+    restore(False)
+    n_eval = model.solver.max_eval_batches * model.solver.batchsize_eval
+    ve = model.eval()
+    pe = model.metrics._preds.clone()
+    model.solver.use_cuda_graph = True
+    vg = model.eval()
+    eval_bitwise = bool(torch.equal(model.metrics._preds, pe))
+    del pe
+    eval_timing = []
+    for turn in GRAPH_AB_TURNS:
+        model.solver.use_cuda_graph = turn == "graph"
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.eval()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        eval_timing.append(dict(turn=turn, ms_per_batch=dt / model.solver.max_eval_batches * 1e3,
+                                examples_per_s=n_eval / dt))
+    traces = {}
+    for turn in ("eager", "graph"):
+        for what in ("train", "eval"):
+            restore(turn == "graph")
+            r = profile_steps(model, 3, eval_batches=what == "eval")
+            traces[f"{turn}_{what}"] = {k: r[k] for k in (
+                "step_mode", "ms_per_step", "device_busy_ms_per_step", "device_idle_share", "host_ops_per_step",
+                "host_syncs_per_step", "device_events_per_step", "by_category_ms", "launches_per_step")}
+    restore(True)
+    del saved
+    busy_e, busy_g = traces["eager_train"]["device_busy_ms_per_step"], traces["graph_train"]["device_busy_ms_per_step"]
+    rec = dict(
+        phase=f"{label}_graph_ab", step_mode=model.step_mode, turns=list(GRAPH_AB_TURNS), losses=losses,
+        losses_bitwise=len(set(losses)) == 1, arrays=len(arrays), atomic_arrays=len(atomic),
+        bitwise_arrays=len(arrays) - len(atomic),
+        eager_spread_max={k: e2[k][1] for k in atomic}, graph_spread_max={k: graph_spread[k] for k in atomic},
+        graph_minus_eager_max={k: max(g1[k][1], g2[k][1]) for k in atomic}, breaches=breaches,
+        train=timing, eval_bitwise=eval_bitwise, auc_eager=ve.get("auc"), auc_graph=vg.get("auc"),
+        eval=eval_timing, traces=traces, device_busy_graph_over_eager=busy_g / busy_e,
+        seconds=time.perf_counter() - t0,
+    )
+    emit(rec)
+    if model.step_mode != "graph" or traces["graph_train"]["step_mode"] != "graph":
+        raise AssertionError(f"{label}: step mode {model.step_mode}")
+    if not rec["losses_bitwise"] or breaches:
+        raise AssertionError(f"{label}: graph and eager disagree: losses {losses}, breaches {breaches}")
+    if not (eval_bitwise and ve == vg):
+        raise AssertionError(f"{label}: replayed eval differs from per-batch eval: {ve} / {vg}")
+    if busy_g > 1.1 * busy_e:
+        raise AssertionError(f"{label}: device-busy ms {busy_g} under the graph, {busy_e} eager")
+    return rec
+
+
+def mode_turns(model, run) -> list:
+    """ms/step of the eager step (`use_cuda_graph` False) and the default
+    captured one in turns (GRAPH_AB_TURNS) in one process, from `run()`
+    (a dict with "sec_per_iter"), the state carried on from turn to turn;
+    the model is left on its default step."""
+    turns = []
+    try:
+        for turn in GRAPH_AB_TURNS:
+            model.solver.use_cuda_graph = turn == "graph"
+            r = run()
+            turns.append(dict(turn=turn, step_mode=model.step_mode, ms_per_step=r["sec_per_iter"] * 1e3))
+    finally:
+        model.solver.use_cuda_graph = True
+    if [x["step_mode"] == "graph" for x in turns] != [t == "graph" for t in GRAPH_AB_TURNS]:
+        raise AssertionError(f"the turns did not run the step they name: {turns}")
+    return turns
+
+
+def drop_kernels(routes: dict) -> tuple:
+    """The drop-mode kernels a step of these routes launches (rowwise
+    AdaGrad, the flagship's optimizer): the dense sweep's scatter, the
+    sorted route's row update."""
+    kinds = set(routes.values())
+    return ("row_scatter",) * ("dense" in kinds) + ("adagrad_rows",) * ("sorted" in kinds)
 
 
 def caps_line(ec) -> dict:
@@ -1817,13 +2251,14 @@ def bench_path(torch):
         auc_binned_minus_exact=binned - exact, max_memory_allocated=torch.cuda.max_memory_allocated(),
         onehot_group_lookups=len(onehot.lookups), onehot_group_windowed=sum(lm.windowed for lm in onehot.lookups),
         routes=dict(model.ec.group_routes), train_launches=train_launches, eval_launches=eval_launches,
-        table_dtype=str(next(iter(model.tables.values())).dtype), build_seconds=build_s,
-        seconds=time.perf_counter() - t0,
+        table_dtype=str(next(iter(model.tables.values())).dtype), step_mode=model.step_mode,
+        build_seconds=build_s, seconds=time.perf_counter() - t0,
     )
     emit(rec)
     if not (len(losses) == 6 and all(math.isfinite(x) for x in losses)):
         raise AssertionError(f"non-finite loss on the bench path: {losses}")
-    missing = [k for k in (*ONE_CARD_KERNELS, "ordered_pool") if train_launches[k] <= 0]
+    missing = [k for k in (*ONE_CARD_KERNELS, "ordered_pool", *drop_kernels(model.ec.group_routes))
+               if train_launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the bench path: {missing}")
     if set(model.ec.valid_caps) != BENCH_COMPACT:
@@ -1843,6 +2278,7 @@ def bench_path(torch):
         raise AssertionError(f"binned AUC {binned} (eval: {vals['auc']}) vs exact {exact}")
     if eval_launches["onehot_bwd"] or eval_launches["segscan"]:
         raise AssertionError(f"eval launched backward kernels: {eval_launches}")
+    graph_ab(torch, model, "bench_path")
     return {k: train_launches[k] + eval_launches[k] for k in train_launches}
 
 
@@ -2375,7 +2811,7 @@ def parity_phase(torch, phase: str, world: int, model: str, eval_carried: bool =
     emit(rec)
     if not (rep["replicas_equal"] and rep["shard_replicas_equal"]):
         raise AssertionError(f"{phase}: replicas differ across the ranks: {rep}")
-    if any(n <= 0 for r in ranks for k, n in r["launches"].items() if k != "ordered_pool"):
+    if any(r["launches"][k] <= 0 for r in ranks for k in (*ONE_CARD_KERNELS, *drop_kernels(rec["routes"]))):
         raise AssertionError(f"{phase}: a kernel never launched on a rank: {rec['launches']}")
     return rep, ranks
 
@@ -4096,7 +4532,8 @@ def fullscale_child(argv=None, row_min: int = 0, rows_expected: int = FULLSCALE_
     big = [fullscale_tier(model, t)[0].name for t in ("0", "9", "19", "20", "21")]
     out = dict(phase="fullscale_path", **{k: v for k, v in rec.items() if k != "launches"},
                launches=launches, launches_per_step=rec["launches"], past_2_31=past, big_tier_groups=big,
-               ms_per_step=rec["median_ms_per_step"], seconds=time.perf_counter() - t0)
+               ms_per_step=rec["median_ms_per_step"], step_mode=model.step_mode,
+               captured=sorted(model._graphs), seconds=time.perf_counter() - t0)
     print(json.dumps(out), flush=True)
     fails = []
     if rec["rows_total"] != rows_expected:
@@ -4119,6 +4556,8 @@ def fullscale_child(argv=None, row_min: int = 0, rows_expected: int = FULLSCALE_
         fails.append(f"rows past row {row_min or 'the 2^31st element'}: {past}")
     if rec["max_memory_allocated"] is not None and rec["max_memory_allocated"] >= 80e9:
         fails.append(f"peak memory {rec['max_memory_allocated']}")
+    if rec["max_memory_allocated"] is not None and (model.step_mode != "graph" or "train" not in model._graphs):
+        fails.append(f"step mode {model.step_mode}, captured {sorted(model._graphs)}")
     if fails:
         print("; ".join(fails), file=sys.stderr)
         return 1
@@ -4468,7 +4907,10 @@ def benchmarks_path(torch):
     run with no flag, the launch counters and each dense layer's forward
     calls over the 25 steps (a skipped stage launches none of its kernels:
     no one-hot or segscan launch without the embedding, no backward one
-    without its update, no forward call of a skipped MLP). Then each
+    without its update, no forward call of a skipped MLP); every stage
+    runs the captured step (`step_mode` "graph"). Then, with no flag, the
+    eager and the captured step in turns (`mode_turns`: eager, graph,
+    graph, eager; 2 warm-up and 10 timed steps each). Then each
     synthetic case once at the README's operating points (`BENCH_CASES`),
     its steps cut to `BENCH_CASE_STEPS`."""
     from hugectr_tpu_torch import ops
@@ -4499,13 +4941,15 @@ def benchmarks_path(torch):
                 hk.remove()
             rec = dict(train.record(args, rm, run, hot), phase="benchmarks_path", flag=flag or "none",
                        ms_per_step=run["sec_per_iter"] * 1e3, launches=lc, layer_calls=calls,
-                       losses_finite=all(math.isfinite(x) for x in run["losses"]))
+                       step_mode=model.step_mode, losses_finite=all(math.isfinite(x) for x in run["losses"]))
             base = base if base is not None else rec["ms_per_step"]
             rec["ms_vs_no_flag"] = rec["ms_per_step"] - base
             emit(rec)
             stages.append(rec)
             n = args.warmup + args.iters
             ok = rec["losses_finite"]
+            # each stage runs the captured step, so the ablations compare like with like
+            ok = ok and rec["step_mode"] == "graph" and "train" in model._graphs
             if flag is None:
                 ok = ok and all(lc[k] > 0 for k in ONE_CARD_KERNELS) and lc["onehot_fwd"] == lc["onehot_bwd"] == n
             elif flag == "SKIP_EMBEDDING":
@@ -4519,6 +4963,12 @@ def benchmarks_path(torch):
                 ok = ok and len(top) == 1 and calls[top[0]] == 0
             if not ok:
                 raise AssertionError(f"benchmarks path under {flag}: {rec}")
+        for k in [k for k in os.environ if k.startswith("SKIP_")]:
+            del os.environ[k]
+        train.skip_env()
+        model._build_steps()
+        modes = mode_turns(model, lambda: train.run_protocol(model, 2, 10))
+        emit(dict(phase="benchmarks_path_modes", case="dcnv2", turns=modes))
         model._close_readers()
         del model
     finally:
@@ -4541,7 +4991,7 @@ def benchmarks_path(torch):
         ops.reset_counts()
         run = train.run_protocol(m, cargs.warmup, cargs.iters)
         lc = ops.launch_counts()
-        rec = dict(train.record(cargs, rm, run, hot), phase="benchmarks_path", tiers=tiers,
+        rec = dict(train.record(cargs, rm, run, hot), phase="benchmarks_path", tiers=tiers, step_mode=m.step_mode,
                    reduced=dict(warmup=[5, cargs.warmup], iters=[20, cargs.iters]), groups=groups,
                    routes=dict(m.ec.group_routes), onehot_fwd_calls=m.ec.onehot_fwd_calls(), launches=lc,
                    losses=run["losses"], build_seconds=time.perf_counter() - t - run["seconds"],
@@ -4558,6 +5008,7 @@ def benchmarks_path(torch):
         del m
     emit(dict(phase="benchmarks_path_summary", card=card_line(), build_seconds=build_s,
               stage_ms={r["flag"]: r["ms_per_step"] for r in stages},
+              dcnv2_modes_ms={f"{i}_{x['turn']}": x["ms_per_step"] for i, x in enumerate(modes)},
               stage_ms_vs_no_flag={r["flag"]: r["ms_vs_no_flag"] for r in stages},
               cases=[dict(case=r["case"], tiers=r["tiers"], batch=r["batchsize"], vocab_cap=r["vocab_cap"],
                           examples_per_sec=r["examples_per_sec"], sec_per_iter=r["sec_per_iter"],
@@ -4662,14 +5113,17 @@ def main() -> int:
     ratio = {x["kernel"]: x for x in results if x["case"].startswith("ratio_") and x["dtype"] == "float32"}
     chunked = next(x for x in results if x["case"] == "chunked100" and x["dtype"] == "float32")
     rank_sfx = f"_w{hybrid_world(torch)}"
+    by_case = {x["case"]: x for x in results if x["kernel"] in ("segscan", "row_scatter", "adagrad_rows")}
     for name, (src, replaces) in sources.items():
         # the float32 flagship case that costs the step most device time;
         # for the one-hot kernels the step's one launch, the 13-table group
-        # (the scatter ratio's and the chunked group's cases stand apart)
-        r = max((x for x in results if x["kernel"] == name and x["dtype"] == "float32" and not x.get("weighted")
-                 and (name not in ("onehot_fwd", "onehot_bwd") or x["case"] == "group13")
-                 and not x["case"].startswith(("ratio_", "chunked"))),
-                key=lambda x: x["device_ms"])
+        # (the scatter ratio's and the chunked group's cases stand apart);
+        # for segscan the counted form the step launches, at table 21's list
+        r = by_case["counted_sorted_21"] if name == "segscan" else max(
+            (x for x in results if x["kernel"] == name and x["dtype"] == "float32" and not x.get("weighted")
+             and (name not in ("onehot_fwd", "onehot_bwd") or x["case"] == "group13")
+             and not x["case"].startswith(("ratio_", "chunked"))),
+            key=lambda x: x["device_ms"])
         # beside it, the bench path's bf16 case with the most device time
         rb = max((x for x in results if x["kernel"] == name and x["dtype"] == "bfloat16"
                   and x["case"].startswith(bench_cases[name]) and not x["case"].endswith(rank_sfx)),
@@ -4706,6 +5160,30 @@ def main() -> int:
             packed_path_launches=packed_launches[name],
             **({"ratio_case": {k: ratio[name][k] for k in keys}} if name in ratio else {}),
             **({"chunked_case": {k: chunked[k] for k in keys}} if name == "onehot_fwd" else {}),
+            **({"counted_case": {k: by_case["counted_cold_tier_20"][k] for k in (*keys, "count", "K", "prefix_ms")}}
+               if name == "segscan" else {}),
+        ))
+    # the drop-mode scatters of the fixed-shape update (csrc/row_scatter.cu),
+    # at the float32 flagship's shapes (the dense sweep's scatter at table
+    # 20, the sorted route's RowWiseAdaGrad update at table 21) beside the
+    # bench path's (table 20's tiers: the hot tier's scatter, the cold
+    # tier's RowWiseAdaGrad on bf16) and, for the row update, AdaGrad on
+    # float32 (the suite's dcnv2 case) on the cold tier's list
+    for name, case, bcase, extra, replaces in (
+            ("row_scatter", "dense_20_f32", "dense_hot_20", {"table11_case": "dense_11_f32"},
+             "hugectr_tpu/embedding/sparse_optimizer.py:486 (the dense sweep's scatter-add in mode='drop'; "
+             "no Pallas kernel)"),
+            ("adagrad_rows", "sorted_21_rowwise_adagrad", "cold_tier_20_rowwise_adagrad",
+             {"dcnv2_case": "cold_tier_20_adagrad"},
+             "hugectr_tpu/embedding/sparse_optimizer.py:752-800 (_apply_rows' gathers and mode='drop' row "
+             "scatters; no Pallas kernel)")):
+        kernels.append(dict(
+            name=name, route="cuda", source="hugectr_tpu_torch/csrc/row_scatter.cu", replaces=replaces,
+            launches=launches[name], **{k: by_case[case][k] for k in keys},
+            bench_case={k: by_case[bcase][k] for k in keys},
+            **{key: {k: by_case[c][k] for k in keys} for key, c in extra.items()},
+            bench_path_launches=bench_launches[name], benchmarks_path_launches=benchmarks_launches[name],
+            fullscale_path_launches=fullscale_launches[name], ftrl_path_launches=ftrl_launches[name],
         ))
     # the ordered pool: a kernel of the paths over W ranks; its launches are
     # rank 0's on the hybrid path (steps and eval), beside the bench path's

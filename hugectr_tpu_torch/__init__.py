@@ -88,7 +88,6 @@ INERT_SOLVER_FIELDS = {
     "vvgpu": "the reference's device list, never read (config.py:39); the ranks are the process group",
     "enable_tf32_compute": "a parity no-op (config.py:41); the port keeps TF32 off to match float32",
     "scaler": "never read (config.py:42)",
-    "use_cuda_graph": "a parity no-op (config.py:47)",
     "use_embedding_collection": "never read (config.py:51)",
     "device_layout": "a parity no-op (config.py:53-58)",
     "use_algorithm_search": "a parity no-op (config.py:53-59)",

@@ -46,6 +46,11 @@ class Solver:
     drop_incomplete_batch: bool = True
     # `fit` logs MLPerf-style ":::MLLOG" events (config.py:49)
     perf_logging: bool = False
+    # on a card, the train step and the eval forward run as captured CUDA
+    # graphs, replayed each step (config.py:47, True as there: the JAX
+    # package runs each step as one jitted program); `Model.step_mode`
+    # says whether a configuration captures; False runs them eagerly
+    use_cuda_graph: bool = True
     # `TrainingCallback`s that `fit` calls (config.py:70-71)
     training_callbacks: List[Any] = dataclasses.field(default_factory=list)
     # "float32" or "bfloat16" embedding tables

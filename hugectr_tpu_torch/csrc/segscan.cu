@@ -7,7 +7,12 @@
 //   out[i, :] = sum of vals[s .. i, :], s = the last head at or before i
 //
 // so the TAIL row of each segment holds the segment's full sum. Row 0 always
-// starts a segment. Sums are taken in float32 and stored as float32 or
+// starts a segment. Two optional inputs serve the fixed-shape sorted update:
+// `rowsrc` [K] reads row i from vals[rowsrc[i]] (the gather of the sorted
+// keys' gradient rows, done in the loads), and `count` (a device int64)
+// scans only rows [0, count): the tiles past it write nothing, so the work
+// follows the valid keys of the batch and not the list's padding, and the
+// host never reads the count. Sums are taken in float32 and stored as float32 or
 // bfloat16, whichever the caller asks (the sorted update of bfloat16 tables
 // reads bfloat16 rows and keeps float32 sums, as the JAX package's
 // segment_sum route does). K needs no padding.
@@ -104,8 +109,9 @@ __global__ void segscan_init(int* counter_and_flags, int64_t n) {
 
 template <typename T, typename TO, int kVec>
 __global__ void __launch_bounds__(kThreads)
-segscan_lookback(const T* __restrict__ vals, const uint8_t* __restrict__ heads,
-                 TO* __restrict__ out, Scratch sc, int64_t k, int e) {
+segscan_lookback(const T* __restrict__ vals, const int64_t* __restrict__ rowsrc,
+                 const uint8_t* __restrict__ heads, TO* __restrict__ out, Scratch sc, int64_t k,
+                 const int64_t* __restrict__ count, int e) {
   extern __shared__ float sm[];
   float* tile = sm;                         // [kTileRows, e] scanned rows
   float* wsum = tile + kTileRows * e;       // [kWarps, e] sums, then carry-ins
@@ -119,6 +125,13 @@ segscan_lookback(const T* __restrict__ vals, const uint8_t* __restrict__ heads,
   if (threadIdx.x == 0) s_tile = atomicAdd(sc.counter, 1);
   __syncthreads();
   const int t = s_tile;
+  if (count != nullptr) {
+    const int64_t n = *count;
+    k = n < 0 ? 0 : (n < k ? n : k);
+  }
+  // tiles are handed out in order and the look-back only reads earlier
+  // ones, so a tile past the count can leave at once
+  if (static_cast<int64_t>(t) * kTileRows >= k) return;
   const int64_t r0 = static_cast<int64_t>(t) * kTileRows + warp * kRowsPerWarp;
 
   // 1. each warp scans its rows
@@ -131,12 +144,16 @@ segscan_lookback(const T* __restrict__ vals, const uint8_t* __restrict__ heads,
     if (hd[i]) first = i;
   }
   if (lane == 0) s_first[warp] = first;
+  int64_t src[kRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i)
+    src[i] = r0 + i < k ? (rowsrc != nullptr ? rowsrc[r0 + i] : r0 + i) : 0;
   for (int c0 = lane * kVec; c0 < e; c0 += 32 * kVec) {
     float x[kRowsPerWarp][kVec];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
       if (r0 + i < k) {
-        load_vec<kVec>(vals + (r0 + i) * e + c0, x[i]);
+        load_vec<kVec>(vals + src[i] * e + c0, x[i]);
       } else {
 #pragma unroll
         for (int j = 0; j < kVec; ++j) x[i][j] = 0.f;
@@ -254,16 +271,16 @@ segscan_lookback(const T* __restrict__ vals, const uint8_t* __restrict__ heads,
 }
 
 template <typename T, typename TO, int kVec>
-int launch(const void* vals, const void* heads, void* out, const Scratch& sc, int64_t tiles,
-           int e, int64_t k, cudaStream_t stream) {
+int launch(const void* vals, const int64_t* rowsrc, const void* heads, void* out, const Scratch& sc,
+           int64_t tiles, int e, int64_t k, const int64_t* count, cudaStream_t stream) {
   const size_t smem = smem_bytes(e);
   auto kernel = segscan_lookback<T, TO, kVec>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(
-      static_cast<const T*>(vals), static_cast<const uint8_t*>(heads), static_cast<TO*>(out), sc,
-      k, e);
+      static_cast<const T*>(vals), rowsrc, static_cast<const uint8_t*>(heads), static_cast<TO*>(out), sc,
+      k, count, e);
   return cudaGetLastError();
 }
 
@@ -283,12 +300,15 @@ extern "C" int64_t hctr_segscan_scratch_bytes(int64_t k, int e) {
   return hctr::scratch_bytes((k + hctr::kTileRows - 1) / hctr::kTileRows, e);
 }
 
-// vals [k, e] of `dtype` and out [k, e] of `out_dtype`; heads [k] uint8
-// (0/1); scratch of hctr_segscan_scratch_bytes(k, e) bytes, 16-byte aligned,
-// any contents. `vec` is 4 when e % 4 == 0 and vals and out are aligned to 4
-// elements, else 1. Returns cudaGetLastError().
-extern "C" int hctr_segscan(int dtype, int out_dtype, const void* vals, const void* heads,
-                            void* out, void* scratch, int64_t k, int e, int vec, void* stream) {
+// vals [k, e] of `dtype` (or [S, e] rows read through rowsrc [k] int64, when
+// not null) and out [k, e] of `out_dtype`; heads [k] uint8 (0/1); count (a
+// device int64, or null for k) bounds the rows scanned and written; scratch
+// of hctr_segscan_scratch_bytes(k, e) bytes, 16-byte aligned, any contents.
+// `vec` is 4 when e % 4 == 0 and vals and out are aligned to 4 elements,
+// else 1. Returns cudaGetLastError().
+extern "C" int hctr_segscan(int dtype, int out_dtype, const void* vals, const void* rowsrc, const void* heads,
+                            void* out, void* scratch, int64_t k, const void* count, int e, int vec,
+                            void* stream) {
   if (k == 0 || e == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t tiles = (k + hctr::kTileRows - 1) / hctr::kTileRows;
@@ -300,15 +320,17 @@ extern "C" int hctr_segscan(int dtype, int out_dtype, const void* vals, const vo
   if (err != cudaSuccess) return err;
   using hctr::launch;
   using bf16 = __nv_bfloat16;
+  const auto* rs = static_cast<const int64_t*>(rowsrc);
+  const auto* cnt = static_cast<const int64_t*>(count);
   const bool v4 = vec == 4;
   if (dtype == hctr::kF32 && out_dtype == hctr::kF32)
-    return v4 ? launch<float, float, 4>(vals, heads, out, sc, tiles, e, k, s)
-              : launch<float, float, 1>(vals, heads, out, sc, tiles, e, k, s);
+    return v4 ? launch<float, float, 4>(vals, rs, heads, out, sc, tiles, e, k, cnt, s)
+              : launch<float, float, 1>(vals, rs, heads, out, sc, tiles, e, k, cnt, s);
   if (dtype == hctr::kBF16 && out_dtype == hctr::kBF16)
-    return v4 ? launch<bf16, bf16, 4>(vals, heads, out, sc, tiles, e, k, s)
-              : launch<bf16, bf16, 1>(vals, heads, out, sc, tiles, e, k, s);
+    return v4 ? launch<bf16, bf16, 4>(vals, rs, heads, out, sc, tiles, e, k, cnt, s)
+              : launch<bf16, bf16, 1>(vals, rs, heads, out, sc, tiles, e, k, cnt, s);
   if (dtype == hctr::kBF16 && out_dtype == hctr::kF32)
-    return v4 ? launch<bf16, float, 4>(vals, heads, out, sc, tiles, e, k, s)
-              : launch<bf16, float, 1>(vals, heads, out, sc, tiles, e, k, s);
+    return v4 ? launch<bf16, float, 4>(vals, rs, heads, out, sc, tiles, e, k, cnt, s)
+              : launch<bf16, float, 1>(vals, rs, heads, out, sc, tiles, e, k, cnt, s);
   return cudaErrorInvalidValue;
 }

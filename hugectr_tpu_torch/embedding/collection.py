@@ -292,6 +292,8 @@ class _GroupMeta:
             np.searchsorted(gsrc, np.arange(g.grad_src_slots)), dtype=torch.int64, device=device
         )
         self.multi_key_slots = g.hotness_total > g.grad_src_slots
+        # the most key columns a pool slot has (the plan's, whatever the keys)
+        self.max_slot = int(np.bincount(gsrc).max()) if gsrc.size else 0
         # (gathered batch, sentinel) -> (each key's slot x (sentinel + 1),
         # the pool's slot offsets): fixed by the plan, made once
         self.pool_layout: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -956,7 +958,10 @@ class EmbeddingCollection:
         rows, the same order)."""
         g = self._meta[gname].plan
         rows, offsets, w = self._pool_segments(gname, keys, table.shape[0], key_store, weights, cut)
-        pooled = ordered_pool(table, rows, offsets, w).reshape(keys.shape[0], g.grad_src_slots, g.ev_size)
+        # the slots of the uncut layout have the plan's columns (a capacity
+        # cut regroups the rows by the data)
+        fixed = None if cut and self.capacity_factor > 0 else self._meta[gname].max_slot
+        pooled = ordered_pool(table, rows, offsets, w, fixed).reshape(keys.shape[0], g.grad_src_slots, g.ev_size)
         return self._mean_scaled(g, pooled, keys != INVALID_KEY, weights)
 
     def _mean_scaled(self, g: GroupPlan, pooled: torch.Tensor, raw_valid: torch.Tensor,

@@ -8,18 +8,26 @@ routes of one device:
   masked `index_add_` of -lr x each key's gradient, no sort;
 * the dense sweep (:428-505): small shards, or (AdaGrad family only) big
   shards whose key count reaches `dense_ratio` x rows, add their row
-  gradients into a dense float32 [R, E] buffer and run one element-wise
-  pass (`apply_dense`, :254). The AdaGrad family is an exact no-op on a
+  gradients into a dense float32 [R, E] buffer with the drop-mode scatter
+  (`ops/row_scatter.py`: the whole key list, the sentinel rows skipped, as
+  mode="drop" skips them, :486) and run one element-wise pass
+  (`apply_dense`, :254). The AdaGrad family is an exact no-op on a
   zero summed gradient, so its touched rows are those with a nonzero
   gradient; the others (Momentum and Adam decay the moments of a touched
   row, FTRL recomputes its weights from z) count touches exactly: a row
   is touched when a valid key lands on it (the JAX package's ones column,
   :464-504);
-* the sorted route (:506-621): sort (row, grad-source) pairs, keep the
-  valid prefix (invalid keys carry the sentinel row and sort last, :607),
-  gather its gradient rows, take segmented running sums in float32 with the
-  segscan kernel (`dedup_rows` scan contract, :127-149) and update the
-  segment tails, which are the unique rows (`_apply_rows`, :752).
+* the sorted route (:506-621): sort (row, grad-source) pairs; invalid
+  keys carry the sentinel row and sort last (:607). For the AdaGrad family
+  (`_sorted_adagrad`) the step has a fixed shape and no host sync: the
+  count of the valid prefix stays on the device, the segscan kernel sums
+  the prefix's gradient rows in float32 (reading them through the sorted
+  order itself) and stops at the count, and the drop-mode row update
+  updates each segment tail, the unique rows (`_apply_rows`, :752), so the
+  card does the valid keys' work and not the padding's. The other
+  optimizers, the packed layouts and the drop mode keep the valid prefix
+  on the host (`dedup_rows` scan contract, :127-149), gather it, sum it
+  and update the tails with `index_add_` / `index_copy_`.
 
 Tables may be bfloat16 and the state bfloat16: the update math runs in
 float32 and each result is rounded once to its array's type, at the JAX
@@ -51,8 +59,8 @@ and takes the increment rounded once more than separate state does.
 The JAX package returns new arrays; the port updates tables and state in
 place, which saves a table-sized copy per group and step. Every row a
 formula reads is gathered before any row is written. Out-of-range indices
-are masked or compacted explicitly: torch's index ops do not drop them the
-way XLA's "drop"/"fill" modes do.
+are skipped by the drop-mode kernels, or masked or compacted explicitly:
+torch's index ops do not drop them the way XLA's "drop"/"fill" modes do.
 """
 from __future__ import annotations
 
@@ -61,6 +69,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core.types import Optimizer_t
+from ..ops.row_scatter import adagrad_rows, scatter_add_rows
 from ..ops.segscan import segmented_sum_sorted
 from ..optim.params import OptParams, adam_bias_corrections
 
@@ -297,17 +306,25 @@ def _apply_rows_rowwise_packed(opt: OptParams, table: torch.Tensor, lr: torch.Te
 
 
 def bf16_row_sums(idx: torch.Tensor, src: torch.Tensor, vals: torch.Tensor, rows: int) -> torch.Tensor:
-    """[rows, E] bfloat16 sums of the rows vals[src] ([K] valid rows idx),
-    each cast to bfloat16 and added with a rounding after every add
-    (sparse_optimizer.py:476-489, the bf16 dense-sweep buffer). On the CPU
-    the adds go in the JAX package's order, by row and then by position
-    (its stable sort of (idx, src) by idx), so the sums are bitwise its
-    own. On the card one `index_add_` into the bf16 buffer adds in no fixed
-    order: a row of n entries differs by about 2^-8 x sqrt(n) of its
-    magnitude."""
-    buf = torch.zeros((rows, vals.shape[1]), dtype=torch.bfloat16, device=vals.device)
+    """[rows, E] bfloat16 sums of the rows vals[src] at rows idx ([K], the
+    sentinel R and above dropped), each cast to bfloat16 and added with a
+    rounding after every add (sparse_optimizer.py:476-489, the bf16
+    dense-sweep buffer). On the CPU the adds go in the JAX package's order,
+    by row and then by position (its stable sort of (idx, src) by idx), so
+    the sums are bitwise its own; that order takes the valid keys out
+    first and makes one pass per add of the busiest row, which shapes the
+    work by the data and reads the pass count on the host. It stays so:
+    no CPU op adds into bfloat16 with a rounding after every add (the
+    CPU's `index_add_` sums a row's adds in float32 first), and no
+    captured configuration takes this buffer. On the card the drop-mode
+    scatter (`ops/row_scatter.py`) adds into the bf16 buffer in no fixed
+    order, as `index_add_` does: a row of n entries differs by about 2^-8 x
+    sqrt(n) of its magnitude."""
     if vals.device.type != "cpu":
-        return buf.index_add_(0, idx, vals[src].to(torch.bfloat16))
+        return scatter_add_rows(idx, src, vals, rows, torch.bfloat16)
+    valid = idx < rows
+    idx, src = idx[valid], src[valid]
+    buf = torch.zeros((rows, vals.shape[1]), dtype=torch.bfloat16, device=vals.device)
     if idx.numel() == 0:
         return buf
     o = torch.sort(idx, stable=True).indices
@@ -320,6 +337,27 @@ def bf16_row_sums(idx: torch.Tensor, src: torch.Tensor, vals: torch.Tensor, rows
         m = rank == r
         buf[sidx[m]] = (buf[sidx[m]].float() + sv[m]).to(torch.bfloat16)
     return buf
+
+
+def _sorted_adagrad(opt: OptParams, table: torch.Tensor, accum: torch.Tensor, idx: torch.Tensor,
+                    src: torch.Tensor, dsrc: torch.Tensor, lr: torch.Tensor, k_limit: int = 0) -> None:
+    """The sorted route of the AdaGrad family at a fixed shape: the stable
+    sort of the whole list (cut to `k_limit` entries, a static length),
+    the count of its valid prefix kept on the device, the segmented sums of
+    the sorted keys' gradient rows over that prefix only (segscan reads
+    dsrc[src[perm]] in its loads), and the update of each segment tail
+    among them by the drop-mode row update (`ops/row_scatter.py`). The
+    work past the count, the list's padding, is skipped on the card; no
+    shape or host value depends on the batch, as in the JAX package's
+    cond over the measured valid cap (:596-621), whose branches agree."""
+    sidx, perm = torch.sort(idx, stable=True)
+    if 0 < k_limit < sidx.shape[0]:
+        sidx, perm = sidx[:k_limit], perm[:k_limit]
+    count = torch.count_nonzero(sidx < table.shape[0])
+    head = torch.ones(sidx.shape[0], dtype=torch.bool, device=idx.device)
+    head[1:] = sidx[1:] != sidx[:-1]
+    summed = segmented_sum_sorted(dsrc.to(table.dtype).contiguous(), head, torch.float32, count, src[perm])
+    adagrad_rows(opt, table, accum, sidx, summed, count, lr)
 
 
 def apply_sparse(
@@ -365,26 +403,30 @@ def apply_sparse(
     if route == "dense" and 0 < k_limit < idx.shape[0]:
         perm = torch.sort(idx, stable=True).indices[:k_limit]
         idx, src = idx[perm], src[perm]
-    valid = idx < rows
     if route == "scatter":
+        valid = idx < rows
         vidx = idx[valid]
         table.index_add_(0, vidx, -lr * dsrc.to(table.dtype)[src[valid]])
         return route
     if route == "dense":
-        vidx = idx[valid]
+        # the drop-mode scatter skips the sentinel rows (mode="drop", :486)
         if grad_dtype == torch.bfloat16 and kind in ADAGRAD_FAMILY:
-            grad = bf16_row_sums(vidx, src[valid], dsrc, rows)
+            grad = bf16_row_sums(idx, src, dsrc, rows)
         else:
-            grad = torch.zeros((rows, dsrc.shape[1]), dtype=torch.float32, device=table.device)
-            grad.index_add_(0, vidx, dsrc[src[valid]].float())
+            grad = scatter_add_rows(idx, src, dsrc, rows, torch.float32)
         if kind in ADAGRAD_FAMILY:
             touched = torch.any(grad != 0, dim=1)
         else:
             # a row is touched when a valid key lands on it, whatever its
-            # summed gradient: the JAX package's touch-count column > 0
-            touched = torch.zeros(rows, dtype=torch.bool, device=table.device)
-            touched[vidx] = True
+            # summed gradient: the JAX package's touch-count column > 0;
+            # the sentinel marks a spare row, dropped
+            touched = torch.zeros(rows + 1, dtype=torch.bool, device=table.device)
+            touched.index_fill_(0, torch.where(idx < rows, idx, rows), True)
+            touched = touched[:rows]
         apply_dense(opt, table, state, grad, touched, lr, step)
+        return route
+    if kind in ADAGRAD_FAMILY and not packed and not ucap_drop:
+        _sorted_adagrad(opt, table, state["accum"], idx, src, dsrc, lr, k_limit)
         return route
     sidx, summed, tail = dedup_rows(idx, src, dsrc.to(table.dtype), rows, k_limit)
     # only tails carry full sums; keeping them makes the rows unique

@@ -12,7 +12,7 @@ shifted by the slot's offset in `slot_size_array`, model-parallel, and a
 [B, slots, ev] top. `compile(loss_names, loss_weights)` sets the tasks'
 label weights (model.py:207-221).
 
-The JAX package jits the whole iteration; here the step runs eagerly:
+An iteration (`_train_body`):
 
 1. the embedding forward under `no_grad`;
 2. the dense network on detached embedding outputs that require grad;
@@ -23,7 +23,34 @@ The JAX package jits the whole iteration; here the step runs eagerly:
 4. the fused embedding backward and sparse update, in place (a dynamic
    table's new keys are inserted into its key store first).
 
-Both optimizers get the 1-based global step (Adam's bias corrections).
+Both optimizers get the 1-based global step (Adam's bias corrections) and
+the learning rate as one persistent device scalar, filled before each step.
+
+The JAX package runs each step as one jitted program (model.py:923) and its
+eval as one scanned dispatch per chunk of batches (`_eval_scanned`,
+model.py:1346-1390); its Solver keeps `use_cuda_graph=True` (config.py:47).
+The port's counterpart is a CUDA graph: with `Solver.use_cuda_graph` (True
+by default) and a configuration that qualifies (`step_mode` is "graph"),
+`train_async` runs GRAPH_WARMUP eager steps (they measure the caps, build
+the kernels and fill the one-time caches), then captures the whole
+iteration once with `torch.cuda.graph` and replays it: each step copies its
+cached batch into the graph's static buffers, fills in the learning rate,
+replays, and returns a clone of the loss, with no host sync. `eval()` does
+the same with the eval forward, one replay a batch, its outputs copied into
+the accumulators' buffers; the AUC is finalized once. A short batch (a
+cached file's tail with `drop_incomplete_batch=False`) runs eagerly. The
+graph is captured again when the state's storage moves (a load that
+replaced a tensor), the batch's shapes differ from its buffers' or the
+step is rebuilt (`_build_steps`); a capture that fails raises. Replays add the captured step's kernel launches and routes to the
+host's counts (`ops.launch_counts`, `route_counts`). The step is the same
+fixed-shape, sync-free code either way (`embedding/sparse_optimizer.py`);
+`use_cuda_graph=False` runs it eagerly. `step_mode` is "eager: <reason>"
+for what this does not capture: a CPU device, W > 1 ranks, a file feeder
+(batches not cached on the device), dense layers other than
+`GRAPH_LAYERS` (Dropout draws host seeds), dynamic tables, weighted lookups, the packed layouts, frozen tables, the drop mode,
+and optimizers other than AdaGrad and RowWiseAdaGrad (Adam's bias
+corrections come from the host's step; the other sparse routes still shape
+their work by the batch).
 Dynamic tables' key stores live in `tables` under `"{group}#keys"`; their
 synthetic keys are drawn below each table's capacity (`_slot_vocabs`).
 
@@ -61,12 +88,11 @@ the shared rowop groups (plan.py:642-660). Ranks on H hosts
 (`local_world_size`) read as the JAX package's H processes do
 (`_make_reader`).
 
-`eval` runs one eager forward under `no_grad` per batch of the eval set
-into a `MetricAccumulator` per loss layer, with no host sync per batch
-(model.py:466-490): the first task's metrics under their plain names, the
-loss on it, and each other task's as `"<metric>_<label>"`. The JAX
-package's scanned eval (many batches in one XLA dispatch) is a device of
-XLA's and is not ported.
+`eval` runs one forward under `no_grad` per batch of the eval set (eager,
+or the captured one replayed) into a `MetricAccumulator` per loss layer,
+with no host sync per batch (model.py:466-490): the first task's metrics
+under their plain names, the loss on it, and each other task's as
+`"<metric>_<label>"`.
 
 The readers (model.py:501-637) follow the JAX package's rules: Raw and
 RawAsync files go through the native threaded reader (`NativeRawReader`),
@@ -131,17 +157,19 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import ops
 from ..core.config import (
     PORT_SOLVER_SETTINGS,
     DataReaderParams,
     DataReaderSparseParam,
     DenseLayer,
     Input,
+    Layer_t,
     Solver,
 )
 from ..core.logger import get_logger
 from ..core.mesh import DeviceLike, ResourceManager, all_gather, all_reduce, broadcast
-from ..core.types import Combiner_t, DataReaderType_t, Metric_t
+from ..core.types import Combiner_t, DataReaderType_t, Metric_t, Optimizer_t
 from ..core.types import INVALID_KEY
 from ..data.reader import (
     FUSED_KEY,
@@ -159,6 +187,7 @@ from ..data.reader import (
 )
 from ..embedding.collection import EmbeddingCollection
 from ..embedding.config import EmbeddingCollectionConfig, EmbeddingTableConfig, SparseEmbedding
+from ..embedding.sparse_optimizer import ADAGRAD_FAMILY
 from ..io import filesystem as iofs
 from ..layers.network import Network
 from ..metrics.metrics import MetricAccumulator
@@ -167,6 +196,34 @@ from ..optim.lr_schedule import LearningRateScheduler
 from ..optim.params import OptParams
 from ..parallel.plan import LookupConfig, ShardingPlan, compile_plan
 from ..utils.diagnose import check_embedding_overflow
+
+
+# eager train steps (and eval batches) before a step is captured: the
+# first measures the caps, builds the kernels and fills the one-time caches
+GRAPH_WARMUP = 1
+# the dense layers whose forward and backward capture: no host copy and no
+# random numbers (Dropout draws its masks from a host seed)
+GRAPH_LAYERS = frozenset({Layer_t.MLP, Layer_t.Concat, Layer_t.MultiCross, Layer_t.BinaryCrossEntropyLoss})
+
+
+class _Captured:
+    """A captured step: the CUDA graph, its static input batch and
+    outputs, and what one replay adds to the host's counts (the kernels'
+    launches, the collection's routes), which the capture itself does not
+    keep."""
+
+    def __init__(self, graph, static, out, counters, delta, key):
+        self.graph, self.static, self.out = graph, static, out
+        self.counters, self.delta, self.key = counters, delta, key
+
+    def replay(self, batch):
+        for k, t in self.static.items():
+            t.copy_(batch[k])
+        self.graph.replay()
+        for d, dd in zip(self.counters, self.delta):
+            for k, v in dd.items():
+                d[k] = d.get(k, 0) + v
+        return self.out
 
 
 @dataclasses.dataclass
@@ -286,6 +343,12 @@ class Model:
         # the synchronous uploads (cached batches, a feed without a thread);
         # each feeder gets an uploader of its own
         self._uploader = Uploader(self.device)
+        # the step's learning rate, set by fill_ before each step
+        self._lr_t = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._graphs: Dict[str, _Captured] = {}
+        self._graph_pool = None
+        self._eager_steps = 0  # this process's eager train steps
+        self._eager_evals = 0  # and eager eval batches
         self.lr_sch = LearningRateScheduler(
             base_lr=solver.lr,
             warmup_steps=solver.warmup_steps,
@@ -454,6 +517,7 @@ class Model:
         """Read the component-skip ablations (model.py:782-785,
         network.py:139-147), once: the JAX package reads them where it
         builds its jitted steps (`_build_steps`)."""
+        self._graphs = {}
         self._skip_embedding = bool(os.environ.get("SKIP_EMBEDDING"))
         self._skip_emb_update = bool(os.environ.get("SKIP_EMBEDDING_UPDATE"))
         self.network.skip_tops = {t for t in os.environ.get("SKIP_DENSE_LAYERS", "").split(",") if t}
@@ -910,16 +974,31 @@ class Model:
             out[user_top] = t
         return out
 
+    def _set_lr(self, step: int) -> None:
+        """The learning rate of `step` into the persistent device scalar:
+        set_learning_rate(x >= 0) replaces the schedule (0 freezes the
+        updates). A fill, not a copy from the host."""
+        ov = self._lr_override
+        self._lr_t.fill_(ov if ov >= 0 else float(self.lr_sch(step)))
+
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """One iteration on a device batch (the rank's block over W ranks);
-        returns the global mean loss as a device tensor without waiting for
-        the device (model.py:787-883)."""
+        """One eager iteration on a device batch (the rank's block over W
+        ranks); returns the global mean loss as a device tensor without
+        waiting for the device (model.py:787-883)."""
+        step = self._step + 1
+        self._set_lr(step)
+        loss = self._train_body(batch)
+        self._step = step
+        self._eager_steps += 1
+        return loss
+
+    def _train_body(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The device work of one iteration at the learning rate `_lr_t`:
+        what `train_step` runs eagerly and `_replay` captures."""
         ec = self.ec
         batch = self._decode_batch(batch)
         step = self._step + 1
-        # set_learning_rate(x >= 0) replaces the schedule: 0 freezes updates
-        ov = self._lr_override
-        lr = torch.tensor(ov if ov >= 0 else float(self.lr_sch(step)), dtype=torch.float32, device=self.device)
+        lr = self._lr_t
         skip_emb = ec is not None and self._skip_embedding
         emb_update = ec is not None and not (self._emb_frozen or skip_emb or self._skip_emb_update)
         self._maybe_auto_ucap(batch)
@@ -959,7 +1038,6 @@ class Model:
             egrads = {k: v.grad if v.grad is not None else torch.zeros_like(v) for k, v in emb_in.items()}
             with torch.no_grad():
                 ec.backward_and_update(self.tables, self.eopt, feature_keys, egrads, lr, step, weights)
-        self._step = step
         return loss.detach()
 
     def _maybe_auto_ucap(self, batch: Dict[str, torch.Tensor]) -> None:
@@ -1017,12 +1095,127 @@ class Model:
             off += g.numel()
         return flat[-1]
 
+    # ------------------------------------------------------ captured steps
+    @property
+    def step_mode(self) -> str:
+        """"graph" when `train_async` replays a captured step (after
+        GRAPH_WARMUP eager ones), else "eager: <reason>"."""
+        why = self._graph_refusal(train=True)
+        return "graph" if why is None else f"eager: {why}"
+
+    def _cached(self, train: bool) -> bool:
+        """Whether the batches are put on the device once and cycled."""
+        rp = self.reader_params
+        n = (rp.cache_train_data if train else rp.cache_eval_data) if rp is not None else 0
+        return bool(n) or isinstance(self.train_reader if train else self.eval_reader, SyntheticReader)
+
+    def _graph_refusal(self, train: bool) -> Optional[str]:
+        """Why the train step (or the eval forward) is not captured, or
+        None: the configurations whose step is one fixed-shape, sync-free
+        program on one card."""
+        if not self.solver.use_cuda_graph:
+            return "use_cuda_graph=False"
+        if self.device.type != "cuda":
+            return f"the {self.device.type} device"
+        if self.rm.num_devices > 1:
+            return "W > 1 ranks"
+        if not self._cached(train):
+            return "a file feeder"
+        layer = next((d.layer_type for d in self.dense_layers if d.layer_type not in GRAPH_LAYERS), None)
+        if layer is not None:
+            return f"the {layer} layer"
+        ec = self.ec
+        if ec is not None:
+            if any(m.any_dynamic for m in ec._meta.values()):
+                return "dynamic tables"
+            if any(g.has_weights for g in ec.plan.groups):
+                return "weighted lookups"
+            if ec.packed_groups:
+                return "the packed layouts"
+        if not train:
+            return None
+        kind = self.opt_params.optimizer
+        if kind == Optimizer_t.Adam or (ec is not None and kind not in ADAGRAD_FAMILY):
+            # Adam's bias corrections come from the host's step; the other
+            # routes still shape their work by the batch
+            return f"the {kind.value} optimizer"
+        if ec is not None:
+            if ec.frozen_tables or self._emb_frozen:
+                return "frozen tables"
+            if ec.ucap_drop:
+                return "the drop mode"
+        return None
+
+    def _graph_tensors(self) -> List[torch.Tensor]:
+        """The carried state a captured step reads and writes in place:
+        tables, their optimizer state, the dense parameters and theirs."""
+        out = [*self.tables.values(), *(t for st in self.eopt.values() for t in st.values())]
+        out += [p for ps in self.network.param_tree().values() for p in ps.values()]
+        out += [t for tree in self.dopt.values() for ps in tree.values() for t in ps.values()]
+        return out
+
+    def _full_batch(self, batch: Dict[str, torch.Tensor], train: bool) -> bool:
+        """Whether every tensor of `batch` has the step's rows (the train or
+        eval batch size): the batch a capture holds. A short tail batch (a
+        file's last, kept with drop_incomplete_batch=False) runs eagerly."""
+        n = (self.solver.batchsize if train else self.solver.batchsize_eval) // self.world
+        return all(t.dim() > 0 and t.shape[0] == n for t in batch.values())
+
+    def _graph_key(self, batch: Dict[str, torch.Tensor]) -> tuple:
+        """What a capture is good for: the carried state's storage and the
+        batch's names, shapes and dtypes (its static buffers)."""
+        return (tuple(t.data_ptr() for t in self._graph_tensors()),
+                tuple((k, tuple(v.shape), v.dtype) for k, v in batch.items()))
+
+    def _replay(self, name: str, fn, batch):
+        """Replay the captured `fn` on `batch`; (re)capture it first when
+        there is none, the state's storage moved (a load that replaced a
+        tensor) or the batch's shapes differ from the static buffers'. The
+        capture copies the batch into static buffers, runs `fn` once into
+        the graph (not on the card), restores the host's counts and keeps
+        what one replay adds to them. A capture that fails raises."""
+        key = self._graph_key(batch)
+        cap = self._graphs.get(name)
+        if cap is None or cap.key != key:
+            self._graphs.pop(name, None)
+            static = {k: v.clone() for k, v in batch.items()}
+            counters = ops.counters() + ([self.ec.route_counts, self.ec.ucap_stats] if self.ec is not None else [])
+            before = [dict(d) for d in counters]
+            if not self._graphs:
+                # one memory pool for the model's live graphs; once they are
+                # all dropped (`_build_steps`) a new one, since blocks a
+                # capture left behind (cuBLAS's workspace for the capture
+                # stream) keep the old pool, which takes no new capture
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._graph_pool):
+                out = fn(static)
+            delta = [{k: v - b.get(k, 0) for k, v in d.items() if v != b.get(k, 0)} for d, b in zip(counters, before)]
+            for d, b in zip(counters, before):
+                d.clear()
+                d.update(b)
+            cap = self._graphs[name] = _Captured(graph, static, out, counters, delta, key)
+        return cap.replay(batch)
+
     def train_async(self) -> torch.Tensor:
         """One training iteration; returns the device loss (model.py:1257).
-        A batch staged by `read_a_batch` is taken first."""
+        A batch staged by `read_a_batch` is taken first. Where `step_mode`
+        is "graph", the steps after GRAPH_WARMUP eager ones replay the
+        captured step: the batch is copied into its static buffers, the
+        learning rate filled in, and nothing waits for the card. A short
+        batch runs eagerly (`_full_batch`)."""
         self.start_data_reading()
         batch, self._staged_train_batch = self._staged_train_batch, None
-        loss = self.train_step(batch if batch is not None else self._next_train_batch())
+        if batch is None:
+            batch = self._next_train_batch()
+        if (self._eager_steps >= GRAPH_WARMUP and self._graph_refusal(train=True) is None
+                and self._full_batch(batch, True)):
+            step = self._step + 1
+            self._set_lr(step)
+            loss = self._replay("train", self._train_body, batch).clone()
+            self._step = step
+        else:
+            loss = self.train_step(batch)
         self._iter += 1
         self._last_loss = loss
         return loss
@@ -1080,8 +1273,18 @@ class Model:
 
     def _eval_update(self, batch: Dict[str, torch.Tensor]) -> None:
         """One eval batch into the accumulators: the first task's with the
-        loss, each other task's by its label."""
-        loss, preds, labels = self._eval_step(batch)
+        loss, each other task's by its label. Where the eval forward
+        captures (`_graph_refusal`), the batches after GRAPH_WARMUP eager
+        ones replay it, one replay a batch: the counterpart of the JAX
+        package's scanned eval (model.py:911-925, :1346-1390). A short
+        batch runs eagerly (`_full_batch`)."""
+        if (self._eager_evals >= GRAPH_WARMUP and self._graph_refusal(train=False) is None
+                and self._full_batch(batch, False)):
+            loss, preds, labels = self._replay("eval", self._eval_step, batch)
+            loss = loss.clone()
+        else:
+            loss, preds, labels = self._eval_step(batch)
+            self._eager_evals += 1
         first = self.network.loss_specs[0].label_name
         self.metrics.update(preds[first], labels[first], loss=loss)
         for name, acc in self._task_metrics.items():

@@ -6,11 +6,11 @@ counts calls that took a kernel's plain version (CPU tensors);
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
-from . import onehot_matmul, ordered_pool, segscan
+from . import onehot_matmul, ordered_pool, row_scatter, segscan
 
-_MODULES = (segscan, onehot_matmul, ordered_pool)
+_MODULES = (segscan, onehot_matmul, ordered_pool, row_scatter)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -23,6 +23,12 @@ def plain_counts() -> Dict[str, int]:
 
 def weighted_counts() -> Dict[str, int]:
     return {k: v for m in _MODULES for k, v in getattr(m, "WEIGHTED_LAUNCHES", {}).items()}
+
+
+def counters() -> List[Dict[str, int]]:
+    """The dicts a launch adds to (`LAUNCHES`, `WEIGHTED_LAUNCHES`): a
+    captured step keeps what it added and adds it again on every replay."""
+    return [d for m in _MODULES for d in (m.LAUNCHES, getattr(m, "WEIGHTED_LAUNCHES", None)) if d is not None]
 
 
 def reset_counts() -> None:

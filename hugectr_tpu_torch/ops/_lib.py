@@ -34,8 +34,8 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 # name: (argument types, return type)
 _SIGNATURES = {
-    # dtype, out_dtype, vals, heads, out, scratch, k, e, vec, stream
-    "hctr_segscan": ([_I, _I, _P, _P, _P, _P, _I64, _I, _I, _P], _I),
+    # dtype, out_dtype, vals, rowsrc (or null), heads, out, scratch, k, count (or null), e, vec, stream
+    "hctr_segscan": ([_I, _I, _P, _P, _P, _P, _P, _I64, _P, _I, _I, _P], _I),
     # k, e -> scratch bytes (-1: e too wide)
     "hctr_segscan_scratch_bytes": ([_I64, _I], _I64),
     "hctr_segscan_tile_rows": ([], _I),
@@ -57,6 +57,10 @@ _SIGNATURES = {
     "hctr_onehot_bwd_tile_rows": ([_I], _I),
     # b, h, v, e, weighted -> the backward's route (0 global, 1 privatised, 2 counts matmul)
     "hctr_onehot_bwd_route": ([_I, _I, _I, _I, _I], _I),
+    # vals_dtype, dst_dtype, vals, idx, src, dst, k, rows, e, stream
+    "hctr_scatter_add_rows": ([_I, _I, _P, _P, _P, _P, _I64, _I64, _I, _P], _I),
+    # table_dtype, accum_dtype, table, accum, sidx, g, count, lr, lr_dtype, k, rows, e, eps, rowwise, stream
+    "hctr_adagrad_rows": ([_I, _I, _P, _P, _P, _P, _P, _P, _I, _I64, _I64, _I, ctypes.c_float, _I, _P], _I),
     # dtype, table, n_rows, ld, rows, weights (or null), offsets, out, n_slots, e, vec, lanes, per, shift,
     # stream
     "hctr_ordered_pool": ([_I, _P, _I64, _I64, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P], _I),

@@ -269,13 +269,19 @@ def onehot_matmul_bwd_plain(
     b, h = keys.shape
     flat = keys.reshape(-1)
     valid = (flat >= 0) & (flat < vocab)
-    kk = flat[valid].long()
-    src = torch.arange(b, device=keys.device).repeat_interleave(h)[valid]
-    grad = torch.zeros((vocab, d.shape[1]), dtype=torch.float32, device=d.device)
     if weights is None:
+        # padding adds into a spare row, dropped: no shape follows the keys
+        kk = torch.where(valid, flat.long(), vocab)
+        src = torch.arange(b, device=keys.device).repeat_interleave(h)
+        grad = torch.zeros((vocab + 1, d.shape[1]), dtype=torch.float32, device=d.device)
         grad.index_add_(0, kk, d.float()[src])
-        cnt = torch.bincount(kk, minlength=vocab).float()
+        cnt = torch.zeros(vocab + 1, dtype=torch.float32, device=d.device)
+        cnt.index_add_(0, kk, torch.ones(kk.shape, dtype=torch.float32, device=d.device))
+        grad, cnt = grad[:vocab], cnt[:vocab]
     else:
+        kk = flat[valid].long()
+        src = torch.arange(b, device=keys.device).repeat_interleave(h)[valid]
+        grad = torch.zeros((vocab, d.shape[1]), dtype=torch.float32, device=d.device)
         w = weights.reshape(-1)[valid].float()
         grad.index_add_(0, kk, d.float()[src] * w.unsqueeze(1))
         # each (sample, row) pair's summed weights, then their |.| per row

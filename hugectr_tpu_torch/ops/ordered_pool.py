@@ -81,24 +81,30 @@ def segments(rows: torch.Tensor, slots: torch.Tensor, n_slots: int, sentinel: in
 
 
 def ordered_pool_plain(table: torch.Tensor, rows: torch.Tensor, offsets: torch.Tensor,
-                       weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       weights: Optional[torch.Tensor] = None, max_len: Optional[int] = None) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch: position p of every slot that
     has one, p = 0, 1, ..., each add taken in float32 and rounded to the
     table's type; a slot ends at its first row id >= the table's rows. With
-    `weights`, each row first times its weight in the table's type."""
+    `weights`, each row first times its weight in the table's type.
+    `max_len`, the longest slot the offsets allow (a plan's constant),
+    bounds the positions without reading the data on the host; without
+    it, the longest slot's owned rows do."""
     n = offsets.numel() - 1
     acc = torch.zeros((n, table.shape[1]), dtype=table.dtype, device=table.device)
     # each slot's rows before its first id >= R (those come last in a slot)
     before = torch.zeros(rows.numel() + 1, dtype=torch.int64, device=rows.device)
     torch.cumsum((rows < table.shape[0]).to(torch.int64), dim=0, out=before[1:])
     lens = before[offsets[1:]] - before[offsets[:-1]]
-    for p in range(int(lens.max()) if n else 0):
-        live = torch.nonzero(lens > p).squeeze(1)
-        x = table[rows[offsets[live] + p]]
+    if max_len is None:
+        max_len = int(lens.max()) if n else 0
+    for p in range(max_len):
+        live = lens > p
+        pos = torch.where(live, offsets[:-1] + p, 0)
+        x = table[torch.where(live, rows[pos], 0)]
         if weights is not None:
-            wj = weights[offsets[live] + p].to(table.dtype).float()
+            wj = weights[pos].to(table.dtype).float()
             x = (x.float() * wj.unsqueeze(1)).to(table.dtype)
-        acc[live] = (acc[live].float() + x.float()).to(table.dtype)
+        acc = torch.where(live.unsqueeze(1), (acc.float() + x.float()).to(table.dtype), acc)
     return acc
 
 
@@ -147,7 +153,7 @@ def pool_plan(e: int, itemsize: int, ld: int, table_addr: int = 0, out_addr: int
 
 
 def ordered_pool(table: torch.Tensor, rows: torch.Tensor, offsets: torch.Tensor,
-                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 weights: Optional[torch.Tensor] = None, max_len: Optional[int] = None) -> torch.Tensor:
     """[n_slots, E] slot sums of `table` [R, E] (float32 or bfloat16) rows
     `rows` (int64, slot by slot), slot s over rows[offsets[s]:offsets[s +
     1]] in order up to its first row id >= R (such ids come last in a slot,
@@ -155,7 +161,8 @@ def ordered_pool(table: torch.Tensor, rows: torch.Tensor, offsets: torch.Tensor,
     add; `weights` ([K] float32, aligned with `rows`) scales each row
     first, the product rounded to the table's type. `table` may be a view
     of the first columns of wider rows (its rows contiguous, any row
-    stride)."""
+    stride). `max_len` (the plain version's bound) is the longest slot the
+    offsets allow, where the caller knows it."""
     _lib.require(table.dim() == 2, f"table must be [R, E], got {tuple(table.shape)}")
     _lib.require(table.dtype in _lib.DTYPE_CODE, f"table dtype {table.dtype} not f32/bf16")
     _lib.require(rows.dtype == torch.int64 and rows.dim() == 1, "rows must be int64 [K]")
@@ -167,7 +174,7 @@ def ordered_pool(table: torch.Tensor, rows: torch.Tensor, offsets: torch.Tensor,
                  "weights must be float32, one a row id, on the rows' device")
     if table.device.type == "cpu":
         PLAIN_CALLS["ordered_pool"] += 1
-        return ordered_pool_plain(table, rows, offsets, weights)
+        return ordered_pool_plain(table, rows, offsets, weights, max_len)
     _lib.require(table.device.type == "cuda", f"unsupported device {table.device}")
     _lib.require(table.stride(1) == 1 and table.stride(0) >= table.shape[1] and rows.is_contiguous()
                  and offsets.is_contiguous() and (weights is None or weights.is_contiguous()),

@@ -36,6 +36,8 @@ KERNEL_NAMES = {
     "segscan": ("segscan_init", "segscan_lookback"),
     "index_add_": ("index",),
     "ordered_pool": ("ordered_pool",),
+    "row_scatter": ("scatter_add_rows",),
+    "adagrad_rows": ("adagrad_rows",),
 }
 
 # the kernel names of each measurement that fell back to CUDA events

@@ -396,9 +396,9 @@ def test_create_solver_refuses_unported_settings(setting):
 
 def test_create_solver_accepts_the_inert_fields_quietly(monkeypatch):
     """Every JAX `Solver` field that the JAX package never reads (or reads
-    as an exact no-op) is accepted without a warning; the capacity factor
-    and the unique-cap factor ("auto", or the JAX Solver's None for unset)
-    are fields; an unknown name keeps its warning."""
+    as an exact no-op) is accepted without a warning; the capacity factor,
+    the unique-cap factor ("auto", or the JAX Solver's None for unset) and
+    use_cuda_graph are fields; an unknown name keeps its warning."""
     import dataclasses as dc
 
     from hugectr_tpu.core.config import Solver as JSolver
@@ -411,6 +411,9 @@ def test_create_solver_accepts_the_inert_fields_quietly(monkeypatch):
                              unique_cap_factor="auto", **inert)
     assert warned == [] and s.mp_capacity_factor == 1.5 and s.unique_cap_factor == "auto"
     assert "unique_cap_factor" not in hugectr.INERT_SOLVER_FIELDS
+    # the port honours use_cuda_graph (the JAX Solver's default, True)
+    assert "use_cuda_graph" not in hugectr.INERT_SOLVER_FIELDS and s.use_cuda_graph is jfields["use_cuda_graph"]
+    assert hugectr.CreateSolver(use_cuda_graph=False).use_cuda_graph is False
     assert hugectr.CreateSolver(unique_cap_factor=None).unique_cap_factor == 0.0
     missing = {f.name for f in dc.fields(JSolver)} - {f.name for f in dc.fields(hugectr.Solver)}
     assert missing == set(hugectr.INERT_SOLVER_FIELDS) | {"num_devices"}

@@ -211,17 +211,19 @@ def test_model_replicas_bitwise_equal(port_w2):
     """Dense parameters and their state, the one-hot tables and their state:
     the same bits on both ranks after 3 steps; and every kernel's plain
     version ran on each rank (one-hot forward per step and eval batch,
-    backward per one-hot table and step, segscan per step, the ordered pool
-    of the owner-partitioned forward per step and eval batch)."""
+    backward per one-hot table and step, segscan and the drop-mode row
+    update per step, the ordered pool of the owner-partitioned forward per
+    step and eval batch)."""
     a, b = port_w2["model"]
     assert set(a["replicated"]) == set(b["replicated"])
     assert any(k.startswith("table:onehot") for k in a["replicated"])
     for k, v in a["replicated"].items():
         np.testing.assert_array_equal(b["replicated"][k], v, err_msg=k)
     for res in (a, b):
-        assert res["plain_calls"] == {"segscan": 3, "onehot_fwd": 3, "onehot_bwd": 3, "ordered_pool": 3}
+        assert res["plain_calls"] == {"segscan": 3, "onehot_fwd": 3, "onehot_bwd": 3, "ordered_pool": 3,
+                                      "row_scatter": 0, "adagrad_rows": 3}
         assert res["eval_counts"]["plain_calls"] == {"segscan": 0, "onehot_fwd": 8, "onehot_bwd": 0,
-                                                     "ordered_pool": 8}
+                                                     "ordered_pool": 8, "row_scatter": 0, "adagrad_rows": 0}
 
 
 def test_model_two_ranks_match_one(port_w2):

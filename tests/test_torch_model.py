@@ -59,8 +59,10 @@ def test_tiny_dlrm_three_steps_match_jax(models):
     counts = ops.plain_counts()
     n_onehot = len(tm.ec.plan.groups[-1].lookups)
     # the one-hot forward and backward are one call each per group and step
-    assert n_onehot > 1 and counts == {"segscan": 3, "onehot_fwd": 3, "onehot_bwd": 3, "ordered_pool": 0}
-    assert ops.launch_counts() == {"segscan": 0, "onehot_fwd": 0, "onehot_bwd": 0, "ordered_pool": 0}
+    # and the sorted group's update one drop-mode row update a step
+    assert n_onehot > 1 and counts == {"segscan": 3, "onehot_fwd": 3, "onehot_bwd": 3, "ordered_pool": 0,
+                                       "row_scatter": 0, "adagrad_rows": 3}
+    assert set(ops.launch_counts().values()) == {0}
     state = jax.device_get(jm.state)
     params = tm.network.param_tree()
     for layer, ps in state["dense_params"].items():

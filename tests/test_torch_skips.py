@@ -89,7 +89,7 @@ def test_skip_flag_two_steps_match_jax(monkeypatch, flag):
     counts = ops.plain_counts()
     moved = {g: not torch.equal(t, tables0[g]) for g, t in tm.tables.items()}
     if flag == "embedding":
-        assert counts == {"segscan": 0, "onehot_fwd": 0, "onehot_bwd": 0, "ordered_pool": 0}
+        assert set(counts.values()) == {0}
         assert not any(moved.values())
     elif flag == "embedding_update":
         assert counts["onehot_fwd"] == 2 and counts["onehot_bwd"] == counts["segscan"] == 0
