@@ -94,7 +94,8 @@ Each phase prints one JSON line with its own seconds:
    "bench_path_graph_ab"): the captured step against the eager one from
    one saved state, in turns eager, graph, graph, eager: the losses
    bitwise, every table and state array bitwise or within the two modes'
-   measured atomic spreads, ms/step and ex/s (the graph turns under
+   measured atomic spreads (at least one step of its type at its largest
+   value), ms/step and ex/s (the graph turns under
    `torch.cuda.set_sync_debug_mode("error")`), replayed eval predictions
    bitwise the per-batch eval's with equal AUCs and its ms a batch, and
    `tools/trace_step.py::profile_steps` in each mode (device-busy ms, idle
@@ -528,8 +529,11 @@ def row_scatter_checks(torch, np, dev, results):
       bitwise; `adagrad_rows` RowWiseAdaGrad on bf16 table and accumulator
       (within one bf16 rounding of the table's values), and AdaGrad on
       float32 (the optimizer of the suite's dcnv2 case on
-      `benchmarks_path`: bitwise). On the hot tier's list the drop-mode
-      scatter of bf16 rows into the float32 buffer."""
+      `benchmarks_path`: bitwise). The same for RowWiseAdaGrad on the
+      shorter cold-tier lists of tables 21 and 0 (a count of about 60,500
+      and 6,900 of K 442,368 and 49,152). On the hot tier's list the
+      drop-mode scatter of bf16 rows into the float32 buffer;
+    * the row update's edges at the samples' widths (`adagrad_rows_edges`)."""
     from hugectr_tpu_torch.core.types import Optimizer_t
     from hugectr_tpu_torch.ops import onehot_matmul as oh
     from hugectr_tpu_torch.tools.flagship import BENCH_PLAN, flagship_plan, raw_vocab
@@ -568,6 +572,13 @@ def row_scatter_checks(torch, np, dev, results):
         adagrad_rows_case(torch, dev, results, case, kind, dt, rows, *sorted_list)
     idx, rows, src = key_list(bench_plan, "mp_ev128_20::hot")
     scatter_rows_case(torch, dev, results, "dense_hot_20", idx, rows, src, dsrc)
+    # two of the step's shorter cold-tier lists: counts of about 60,500 and 6,900
+    for table in (21, 0):
+        idx, rows, src = key_list(bench_plan, f"mp_ev128_{table}::cold")
+        sorted_list = counted_segscan_case(torch, dev, results, f"counted_cold_tier_{table}", idx, rows, src, dsrc)
+        adagrad_rows_case(torch, dev, results, f"cold_tier_{table}_rowwise_adagrad", Optimizer_t.RowWiseAdaGrad,
+                          torch.bfloat16, rows, *sorted_list)
+    adagrad_rows_edges(torch, np, dev, results)
 
 
 def counted_segscan_case(torch, dev, results, case, idx, rows, src, dsrc, cut: int = 0):
@@ -613,7 +624,7 @@ def counted_segscan_case(torch, dev, results, case, idx, rows, src, dsrc, cut: i
         tol=TOL["float32"], bitwise_repeat=bool(torch.equal(call()[:n], got[:n])), ms=time_ms(call), device_ms=dms,
         device_launches_per_call=per_call, prefix_ms=time_ms(lambda: prefix_run(n)),
         plain_ms=time_ms(lambda: ss.segmented_sum_sorted_plain(dsrc, heads, torch.float32, count, rowsrc),
-                         samples=5, inner=1, warmup=1),
+                         samples=3, inner=1, warmup=1),
         library_ms=None, library="none: no single PyTorch call computes a segmented scan",
         bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
     )
@@ -647,20 +658,13 @@ def adagrad_rows_case(torch, dev, results, case, kind, dt, rows, sidx, got, coun
     accum = (torch.rand((rows, width), device=dev) * 1e-3).to(dt)
     lr = torch.tensor(0.005, device=dev).to(dt)
     t1, a1, t2, a2 = table.clone(), accum.clone(), table.clone(), accum.clone()
+    t3, a3 = table.clone(), accum.clone()
     rs.adagrad_rows(opt, t1, a1, sidx, got, count, lr)
+    rs.adagrad_rows(opt, t3, a3, sidx, got, count, lr)
     rs.adagrad_rows_plain(opt, t2, a2, sidx, got, count, lr)
     torch.cuda.synchronize()
-    d_t = (t1.float() - t2.float()).abs()
-    d_a = (a1.float() - a2.float()).abs()
-    bitwise = bool(torch.equal(t1, t2) and torch.equal(a1, a2))
-    if kind == Optimizer_t.AdaGrad:
-        ok_t = ok_a = bitwise
-    elif dt == torch.float32:
-        ok_t = bool((d_t <= 2.0**-15 * (t2 - table).abs() + 2.0**-22 * t2.abs()).all())
-        ok_a = bool((d_a <= 2.0**-15 * a2.abs()).all())
-    else:
-        ok_t = float(d_t.max()) <= 2.0**-7 * float(t2.float().abs().max())
-        ok_a = float(d_a.max()) <= 2.0**-7 * float(a2.float().abs().max())
+    ok_t, ok_a, bitwise, d_t, d_a = row_update_agrees(torch, kind, dt, table, t1, a1, t2, a2)
+    repeat = bool(torch.equal(t1, t3) and torch.equal(a1, a3))
     changed = int((t1 != table).any(dim=1).sum())
     call = lambda: rs.adagrad_rows(opt, t1, a1, sidx, got, count, lr)  # noqa: E731
     isz = table.element_size()
@@ -669,7 +673,7 @@ def adagrad_rows_case(torch, dev, results, case, kind, dt, rows, sidx, got, coun
     rec = dict(
         kernel="adagrad_rows", case=case, optimizer=kind.value, dtype=str(dt).split(".")[1], K=k, count=n,
         unique_rows=u, rows=rows, E=E, max_abs_err=float(d_t.max()), accum_max_abs_err=float(d_a.max()),
-        table_within=ok_t, accum_within=ok_a, bitwise=bitwise,
+        table_within=ok_t, accum_within=ok_a, bitwise=bitwise, bitwise_repeat=repeat,
         rows_changed=changed, ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
         plain_ms=time_ms(lambda: rs.adagrad_rows_plain(opt, t2, a2, sidx, got, count, lr),
                          samples=5, inner=1, warmup=1),
@@ -678,8 +682,98 @@ def adagrad_rows_case(torch, dev, results, case, kind, dt, rows, sidx, got, coun
     )
     results.append(rec)
     emit(rec)
-    if not (ok_t and ok_a and 0 < changed <= u):
+    if not (ok_t and ok_a and repeat and 0 < changed <= u):
         raise AssertionError(f"the drop-mode row update disagrees with its plain version: {rec}")
+
+
+def row_update_agrees(torch, kind, dt, table, t1, a1, t2, a2):
+    """(table within, accumulator within, bitwise, |table diff|, |accum
+    diff|) of the row update's result t1, a1 against its plain version's
+    t2, a2 from `table`, under the tolerance of `adagrad_rows_case`."""
+    from hugectr_tpu_torch.core.types import Optimizer_t
+
+    d_t = (t1.float() - t2.float()).abs()
+    d_a = (a1.float() - a2.float()).abs()
+    bitwise = bool(torch.equal(t1, t2) and torch.equal(a1, a2))
+    if kind == Optimizer_t.AdaGrad:
+        return bitwise, bitwise, bitwise, d_t, d_a
+    if dt == torch.float32:
+        ok_t = bool((d_t <= 2.0**-15 * (t2 - table).abs() + 2.0**-22 * t2.abs()).all())
+        ok_a = bool((d_a <= 2.0**-15 * a2.abs()).all())
+    else:
+        ok_t = float(d_t.max()) <= 2.0**-7 * float(t2.float().abs().max())
+        ok_a = float(d_a.max()) <= 2.0**-7 * float(a2.float().abs().max())
+    return ok_t, ok_a, bitwise, d_t, d_a
+
+
+def adagrad_rows_edges(torch, np, dev, results):
+    """The row update at its design's edges against its plain version, at
+    the samples' batch 2,048 and their widths E 11 (DeepFM's sorted list, K
+    53,248) and E 18 (DIN's items, K 22,528), which take the general kernel:
+    uniform row ids of a 100,000-row table, sorted, a negative id first
+    and the last eighth the padding (the sentinel, `rows`), with runs made
+    to cross the 32-id tiles' edges (positions 28-36, 60-70 and 220-230
+    each hold one id). Counts 0, 7 x 32 (a tile's end, inside the run over
+    220-230: entry 223 is no tail), 7 x 32 + 1 and the valid prefix.
+    AdaGrad on float32 with a float32 lr bitwise, RowWiseAdaGrad on
+    bfloat16 with a bfloat16 lr within one rounding (the tolerance of
+    `adagrad_rows_case`), and two runs bitwise; at the valid prefix the
+    device ms by the profiler beside the bound, CUDA events ms and the
+    plain version's."""
+    from hugectr_tpu_torch.core.types import Optimizer_t
+    from hugectr_tpu_torch.ops import row_scatter as rs
+    from hugectr_tpu_torch.optim.params import OptParams
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+
+    rng = np.random.default_rng(2048)
+    rows = 100_000
+    for e, k in ((11, 53_248), (18, 22_528)):
+        valid = k - k // 8
+        ids = np.sort(rng.integers(0, rows, size=valid))
+        ids[0] = -1
+        for lo, hi in ((28, 37), (60, 71), (220, 231)):
+            ids[lo:hi] = ids[lo]
+        # the tails: every run's end (the last valid entry's too) but the negative id's
+        tails = int((ids[:-1] != ids[1:]).sum())
+        sidx = torch.as_tensor(np.concatenate([ids, np.full(k // 8, rows)]), device=dev)
+        g = torch.as_tensor(rng.standard_normal((k, e), dtype=np.float32), device=dev)
+        for kind, dt in ((Optimizer_t.AdaGrad, torch.float32), (Optimizer_t.RowWiseAdaGrad, torch.bfloat16)):
+            t0 = time.perf_counter()
+            opt = OptParams(optimizer=kind, initial_accu_value=0.0)
+            width = 1 if kind == Optimizer_t.RowWiseAdaGrad else e
+            table = (torch.randn((rows, e), device=dev) * 0.01).to(dt)
+            accum = (torch.rand((rows, width), device=dev) * 1e-3).to(dt)
+            lr = torch.tensor(0.005, device=dev).to(dt)
+            checks = []
+            for n in (0, 224, 225, valid):
+                count = torch.tensor(n, device=dev)
+                t1, a1, t2, a2, t3, a3 = (x.clone() for x in (table, accum) * 3)
+                rs.adagrad_rows(opt, t1, a1, sidx, g, count, lr)
+                rs.adagrad_rows(opt, t3, a3, sidx, g, count, lr)
+                rs.adagrad_rows_plain(opt, t2, a2, sidx, g, count, lr)
+                ok_t, ok_a, bitwise, d_t, _d_a = row_update_agrees(torch, kind, dt, table, t1, a1, t2, a2)
+                checks.append(dict(count=n, table_within=ok_t, accum_within=ok_a, bitwise=bitwise,
+                                   max_abs_err=float(d_t.max()),
+                                   bitwise_repeat=bool(torch.equal(t1, t3) and torch.equal(a1, a3)),
+                                   rows_changed=int((t1 != table).any(dim=1).sum())))
+            torch.cuda.synchronize()
+            isz = table.element_size()
+            b_ms, b_by = bound(valid * 8 + tails * (2 * e * isz + e * 4 + 2 * width * isz), 6 * tails * e)
+            call = lambda: rs.adagrad_rows(opt, t1, a1, sidx, g, count, lr)  # noqa: E731
+            dms, per_call = device_ms(call, KERNEL_NAMES["adagrad_rows"])
+            rec = dict(kernel="adagrad_rows", case=f"edges_E{e}_{kind.value}", optimizer=kind.value,
+                       dtype=str(dt).split(".")[1], K=k, E=e, rows=rows, count=valid, unique_rows=tails,
+                       checks=checks, ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
+                       plain_ms=time_ms(lambda: rs.adagrad_rows_plain(opt, t2, a2, sidx, g, count, lr),
+                                        samples=5, inner=1, warmup=1),
+                       bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms,
+                       ok=all(c["table_within"] and c["accum_within"] and c["bitwise_repeat"]
+                              and bool(c["rows_changed"]) == bool(c["count"]) for c in checks),
+                       seconds=time.perf_counter() - t0)
+            results.append(rec)
+            emit(rec)
+            if not rec["ok"]:
+                raise AssertionError(f"the row update disagrees with its plain version at its edges: {rec}")
 
 
 def scatter_rows_case(torch, dev, results, case, idx, rows, src, dsrc):
@@ -2002,6 +2096,13 @@ def max_abs_diff(torch, a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
+def ulp(torch, t) -> float:
+    """The spacing of t's floating type at t's largest magnitude (0 for an
+    integer, empty or all-zero t)."""
+    m = float(t.abs().max()) if t.is_floating_point() and t.numel() else 0.0
+    return math.ldexp(torch.finfo(t.dtype).eps, math.frexp(m)[1] - 1) if m > 0 else 0.0
+
+
 def graph_ab(torch, model, label: str) -> dict:
     """The default step (a captured step replayed, `Model.step_mode`
     "graph") against the eager one (`use_cuda_graph` False, the same
@@ -2016,7 +2117,10 @@ def graph_ab(torch, model, label: str) -> dict:
       graph turns, the graph turns must equal the eager ones bitwise;
       elsewhere (the dense sweep's and the one-hot backward's atomic adds)
       within 4 x the larger of the two eager turns' and the two graph turns'
-      spreads, both measured and printed;
+      spreads, both measured and printed, and of one step of the array's
+      type at its largest value (`ulp`): each mode repeats its own order of
+      atomic adds from turn to turn, so both spreads can read 0 while the
+      two orders differ in the last bit;
     * ms/step and ex/s of GRAPH_AB_STEPS `train_async` steps a turn (host
       clock to a synchronisation), the graph turns' replays under
       `torch.cuda.set_sync_debug_mode("error")`: no host sync inside them;
@@ -2063,7 +2167,7 @@ def graph_ab(torch, model, label: str) -> dict:
     # a group is atomic where any of its arrays differs between the two
     # eager turns or the two graph turns
     spread_groups = {group(k) for k in arrays if not e2[k][0] or graph_spread[k] > 0}
-    breaches, atomic = [], []
+    breaches, atomic, floor = [], [], {}
     for k in arrays:
         eager_spread = e2[k][1]
         if group(k) not in spread_groups:
@@ -2071,7 +2175,8 @@ def graph_ab(torch, model, label: str) -> dict:
                 breaches.append((k, "eager and graph each bitwise, not with each other", g1[k][1], g2[k][1]))
             continue
         atomic.append(k)
-        lim = 4 * max(eager_spread, graph_spread[k])
+        floor[k] = ulp(torch, first[k])
+        lim = 4 * max(eager_spread, graph_spread[k], floor[k])
         if max(g1[k][1], g2[k][1]) > lim:
             breaches.append((k, "past 4 x the spread", g1[k][1], g2[k][1], eager_spread, graph_spread[k]))
     del first
@@ -2128,7 +2233,7 @@ def graph_ab(torch, model, label: str) -> dict:
         losses_bitwise=len(set(losses)) == 1, arrays=len(arrays), atomic_arrays=len(atomic),
         bitwise_arrays=len(arrays) - len(atomic),
         eager_spread_max={k: e2[k][1] for k in atomic}, graph_spread_max={k: graph_spread[k] for k in atomic},
-        graph_minus_eager_max={k: max(g1[k][1], g2[k][1]) for k in atomic}, breaches=breaches,
+        graph_minus_eager_max={k: max(g1[k][1], g2[k][1]) for k in atomic}, ulp_floor=floor, breaches=breaches,
         train=timing, eval_bitwise=eval_bitwise, auc_eager=ve.get("auc"), auc_graph=vg.get("auc"),
         eval=eval_timing, traces=traces, device_busy_graph_over_eager=busy_g / busy_e,
         seconds=time.perf_counter() - t0,

@@ -110,7 +110,9 @@ def adagrad_rows(opt, table: torch.Tensor, accum: torch.Tensor, sidx: torch.Tens
     E], in place, from sorted int64 row ids sidx [K] (the padding's ids at
     least R, last), their float32 inclusive segmented sums g [K, E] and
     `count`, the 0-dim int64 count of sidx's valid prefix on the device;
-    lr is a 0-dim float32 or bfloat16 device tensor."""
+    lr is a 0-dim float32 or bfloat16 device tensor. On the card, a lane
+    takes 4 columns in one access where E and the rows allow
+    (`_lib.vec_width`), else one."""
     kind = opt.optimizer
     _lib.require(kind in ROWWISE, f"adagrad_rows: {kind} is not AdaGrad or RowWiseAdaGrad")
     _lib.require(table.dim() == 2 and g.shape == (sidx.shape[0], table.shape[1]) and g.dtype == torch.float32,
@@ -126,12 +128,14 @@ def adagrad_rows(opt, table: torch.Tensor, accum: torch.Tensor, sidx: torch.Tens
     for what, t in (("table", table), ("accum", accum), ("sidx", sidx), ("g", g)):
         _lib.require(t.is_contiguous(), f"adagrad_rows: {what} must be contiguous")
     _lib.require(lr.dtype in _lib.DTYPE_CODE and lr.device == table.device, "adagrad_rows: lr on the card")
+    e = table.shape[1]
+    vec = _lib.vec_width(e, table, g, *(() if width == 1 else (accum,)))
     lib = _lib.library()
     with torch.cuda.device(table.device):
         rc = lib.hctr_adagrad_rows(
             _lib.DTYPE_CODE[table.dtype], _lib.DTYPE_CODE[accum.dtype], table.data_ptr(), accum.data_ptr(),
             sidx.data_ptr(), g.data_ptr(), count.data_ptr(), lr.data_ptr(), _lib.DTYPE_CODE[lr.dtype],
-            sidx.shape[0], table.shape[0], table.shape[1], ctypes.c_float(opt.epsilon), ROWWISE[kind],
+            sidx.shape[0], table.shape[0], e, ctypes.c_float(opt.epsilon), ROWWISE[kind], vec,
             _lib.stream_of(table),
         )
     _lib.check(rc, "adagrad_rows")

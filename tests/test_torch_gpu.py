@@ -10,10 +10,16 @@ float32 (sums in another order, with atomics in the backward) and 1e-2 in
 bfloat16 (one more rounding of the output); the grouped backward's float32
 sums of values exact in d's type within 1e-4 in either type. Touch counts
 are exact, and the segmented scan and the backward's counts matmul are
-bitwise the same from run to run. The last tests run
+bitwise the same from run to run. The sorted route's row update
+(`adagrad_rows`) is bitwise its plain version for AdaGrad and within its
+row sum's spread for RowWiseAdaGrad. The last tests run
 the embedding collection and train the tiny model on 2 spawned ranks
 against one card.
 """
+import functools
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -343,6 +349,86 @@ def test_segscan_is_bitwise_deterministic(cuda):
         first = ss.segmented_sum_sorted(vals, heads)
         for _ in range(3):
             assert torch.equal(ss.segmented_sum_sorted(vals, heads), first)
+
+
+def _row_update_edges(rng, k, rows, pad):
+    """Sorted ids: a negative one first, runs across the 32-id tiles' edges
+    (28-36, 60-70, 220-230), the last `pad` the sentinel rows."""
+    ids = np.sort(rng.integers(0, rows, size=k - pad))
+    ids[0] = -1
+    for lo, hi in ((28, 37), (60, 71), (220, 231)):
+        ids[lo:hi] = ids[lo]
+    return np.concatenate([ids, np.full(pad, rows)])
+
+
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _row_update_within(kind, table, t1, a1, t2, a2):
+    """AdaGrad bitwise; RowWiseAdaGrad within the spread of its row mean's
+    sum order: the tolerance of chip_smoke.row_update_agrees, taken from
+    there so that the test and the smoke hold the kernel to one bound."""
+    ok_t, ok_a, _bitwise, _d_t, _d_a = _chip_smoke().row_update_agrees(torch, kind, table.dtype, table, t1, a1,
+                                                                        t2, a2)
+    return ok_t and ok_a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["adagrad", "rowwise_adagrad"])
+def test_adagrad_rows_edges_and_capture(cuda, kind, dtype):
+    """The sorted route's row update against its plain version at its
+    design's edges: E 1, 11, 16, 18 (the samples'), 128 and 256 (a
+    RowWiseAdaGrad row walked twice), and 128 on rows that start off 4
+    elements (one column a lane); counts 0, 31, 32, 33, 64, 65, 224 (inside
+    a run over 220-230) and the list's length K; a bfloat16 or float32 lr;
+    runs across the tiles' edges and a negative id. AdaGrad bitwise,
+    RowWiseAdaGrad within its tolerance, two runs bitwise, and a replay of
+    the captured launch bitwise the eager one."""
+    from hugectr_tpu_torch.core.types import Optimizer_t
+    from hugectr_tpu_torch.ops import row_scatter as rs
+    from hugectr_tpu_torch.optim.params import OptParams
+
+    rng = np.random.default_rng(21)
+    opt = OptParams(optimizer=Optimizer_t(kind), initial_accu_value=0.0)
+    k, rows = 1000, 3000
+    sidx = torch.from_numpy(_row_update_edges(rng, k, rows, 100)).to(cuda)
+    for i, (e, shift) in enumerate(((1, 0), (11, 0), (16, 0), (18, 0), (128, 0), (256, 0), (128, 1))):
+        width = 1 if kind == "rowwise_adagrad" else e
+        table = torch.from_numpy(rng.normal(size=(rows, e)).astype(np.float32) * 0.01).to(cuda, dtype)
+        accum = torch.from_numpy(rng.random((rows, width), dtype=np.float32) * 1e-3).to(cuda, dtype)
+        g = torch.from_numpy(rng.normal(size=(k, e)).astype(np.float32)).to(cuda)
+        lr = torch.tensor(0.005, device=cuda).to(dtype if i % 2 else torch.float32)
+
+        def copy():  # the table's copy `shift` elements past an aligned start
+            t = torch.empty(rows * e + shift, device=cuda, dtype=dtype)[shift:].view(rows, e)
+            return t.copy_(table), accum.clone()
+
+        for n in (0, 31, 32, 33, 64, 65, 224, k):
+            count = torch.tensor(n, device=cuda)
+            (t1, a1), (t2, a2), (t3, a3) = copy(), copy(), copy()
+            rs.adagrad_rows(opt, t1, a1, sidx, g, count, lr)
+            rs.adagrad_rows(opt, t3, a3, sidx, g, count, lr)
+            rs.adagrad_rows_plain(opt, t2, a2, sidx, g, count, lr)
+            torch.cuda.synchronize()
+            assert _row_update_within(opt.optimizer, table, t1, a1, t2, a2), (e, shift, n)
+            assert torch.equal(t1, t3) and torch.equal(a1, a3), (e, shift, n)
+            assert (n == 0) == torch.equal(t1, table), (e, shift, n)
+        # a captured launch, replayed, against an eager one from the same state
+        t4, a4 = copy()
+        before = rs.LAUNCHES["adagrad_rows"]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            rs.adagrad_rows(opt, t4, a4, sidx, g, count, lr)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(t4, t1) and torch.equal(a4, a1), (e, shift)
+        assert rs.LAUNCHES["adagrad_rows"] == before + 1
 
 
 @pytest.mark.gpu

@@ -285,29 +285,131 @@ def test_scatter_add_rows_plain_drops_what_mode_drop_drops(dtype):
     assert got.shape == (40, 8) and torch.equal(got, want)
 
 
+def _expected_row_update(opt, table, accum, sidx, g, n, lr):
+    """The earlier unique-row update of the tails (runs ended in the whole
+    list) among the first n entries whose ids lie in [0, R)."""
+    k, rows = sidx.shape[0], table.shape[0]
+    tail = torch.ones(k, dtype=torch.bool)
+    tail[:-1] = sidx[1:] != sidx[:-1]
+    live = tail & (torch.arange(k) < n) & (sidx >= 0) & (sidx < rows)
+    uidx, gu = sidx[live], g[live]
+    want_t, want_a = table.clone(), accum.clone()
+    _op, val, new = so.update_math(opt, want_t, {"accum": want_a[uidx]}, gu, lr, 1)
+    want_t.index_add_(0, uidx, val.to(table.dtype))
+    want_a.index_copy_(0, uidx, new["accum"].to(accum.dtype))
+    return want_t, want_a
+
+
+def _row_update_state(rng, opt, rows, e, dtype):
+    table = torch.as_tensor(rng.standard_normal((rows, e)), dtype=torch.float32).to(dtype)
+    state = so.init_state(opt, rows, e, dtype)
+    state["accum"].add_(torch.as_tensor(rng.random(tuple(state["accum"].shape)), dtype=torch.float32).to(dtype))
+    return table, state["accum"]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", [Optimizer_t.AdaGrad, Optimizer_t.RowWiseAdaGrad])
-@pytest.mark.parametrize("n", [0, 90, 160])
+@pytest.mark.parametrize("n", [0, 90, 160, 31, 32, 33, 64, 65])
 def test_adagrad_rows_plain_is_the_unique_row_update(kind, dtype, n):
     """The tails of the first n entries, and only they, take the earlier
-    unique-row update, bitwise."""
+    unique-row update, bitwise: counts at the kernel's 32-id tile edges
+    (31, 32, 33, 64, 65) and at the list's length K = 160, the padding's
+    sentinel ids starting at n."""
     rng = np.random.default_rng(n + 7)
     opt = OptParams(optimizer=kind, epsilon=1e-7, initial_accu_value=0.01)
     sidx, _src = _sorted_list(rng, 160, 70, 1, 160 - n)
     g = torch.as_tensor(rng.standard_normal((160, 8)), dtype=torch.float32)
-    table = torch.as_tensor(rng.standard_normal((70, 8)), dtype=torch.float32).to(dtype)
-    state = so.init_state(opt, 70, 8, dtype)
-    state["accum"].add_(torch.as_tensor(rng.random(tuple(state["accum"].shape)), dtype=torch.float32).to(dtype))
+    table, accum = _row_update_state(rng, opt, 70, 8, dtype)
     lr = torch.tensor(0.05, dtype=dtype)
-    want_t, want_s = table.clone(), {k: v.clone() for k, v in state.items()}
-    tail = torch.ones(n, dtype=torch.bool)
-    tail[:-1] = sidx[1:n] != sidx[: max(n - 1, 0)]
-    uidx, gu = sidx[:n][tail], g[:n][tail]
-    _op, val, new = so.update_math(opt, want_t, {"accum": want_s["accum"][uidx]}, gu, lr, 1)
-    want_t.index_add_(0, uidx, val.to(dtype))
-    want_s["accum"].index_copy_(0, uidx, new["accum"].to(dtype))
-    rs.adagrad_rows(opt, table, state["accum"], sidx, g, torch.tensor(n), lr)
-    assert torch.equal(table, want_t) and torch.equal(state["accum"], want_s["accum"])
+    want_t, want_a = _expected_row_update(opt, table, accum, sidx, g, n, lr)
+    rs.adagrad_rows(opt, table, accum, sidx, g, torch.tensor(n), lr)
+    assert torch.equal(table, want_t) and torch.equal(accum, want_a)
+
+
+def _edge_list(rng, k, rows, pad):
+    """Sorted ids of k - pad entries with a negative id first, runs across
+    the 32-id tiles' edges (positions 28-36, 60-70), one that ends the
+    valid ids (85-89) and runs of one, then `pad` sentinels (rows)."""
+    ids = np.sort(rng.integers(0, rows, size=k - pad))
+    ids[0] = -1
+    for lo, hi in ((28, 37), (60, 71), (85, 90)):
+        ids[lo:hi] = ids[lo]
+    return torch.as_tensor(np.concatenate([ids, np.full(pad, rows)]), dtype=torch.int64)
+
+
+@pytest.mark.parametrize("lr_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e", [1, 11, 16, 18, 128])
+@pytest.mark.parametrize("kind", [Optimizer_t.AdaGrad, Optimizer_t.RowWiseAdaGrad])
+def test_adagrad_rows_plain_at_the_kernels_edges(kind, e, lr_dtype):
+    """The samples' widths (E 1, 11, 16, 18) and the flagship's (128), a
+    bfloat16 or float32 lr, runs that cross 32-id edges, a negative id
+    (skipped), and counts at a tile's edge (64, inside the run over
+    60-70: entry 63 is no tail), one past it, and the valid prefix (90),
+    on a bfloat16 table with bfloat16 state and on float32: bitwise the
+    earlier unique-row update."""
+    rng = np.random.default_rng(e)
+    opt = OptParams(optimizer=kind, epsilon=1e-7, initial_accu_value=0.01)
+    sidx = _edge_list(rng, 100, 500, 10)
+    g = torch.as_tensor(rng.standard_normal((100, e)), dtype=torch.float32)
+    lr = torch.tensor(0.05, dtype=lr_dtype)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (64, 65, 90):
+            table, accum = _row_update_state(rng, opt, 500, e, dtype)
+            before = table.clone()
+            want_t, want_a = _expected_row_update(opt, table, accum, sidx, g, n, lr)
+            rs.adagrad_rows(opt, table, accum, sidx, g, torch.tensor(n), lr)
+            assert torch.equal(table, want_t) and torch.equal(accum, want_a), (dtype, n)
+            assert not torch.equal(table, before)
+
+
+@pytest.mark.parametrize("kind", [Optimizer_t.AdaGrad, Optimizer_t.RowWiseAdaGrad])
+def test_adagrad_rows_plain_is_jax_apply_rows_in_duplicate_mode(kind):
+    """The row update against the JAX package's `_apply_rows` with
+    is_unique=False (sparse_optimizer.py:752): the sorted ids with
+    duplicates, the segment sums, the tail mask, the padding's sentinel
+    ids dropped by its scatters. AdaGrad's table is bitwise (both add the
+    same float32 step); its accumulator within one float32 rounding of its
+    value: JAX writes it by adding new - old to old, the port sets it.
+    RowWiseAdaGrad's row mean of g^2 is summed in another order than XLA's
+    (two orders of E positive float32 terms differ by at most 2 (E - 1)
+    2^-24 of the sum): the accumulator within 2^-15 of itself, the table
+    within 2^-15 of its step plus two roundings of its value, as on the
+    card (chip_smoke.adagrad_rows_case)."""
+    import jax
+    import jax.numpy as jnp
+    from hugectr_tpu.core.types import Optimizer_t as JOpt
+    from hugectr_tpu.embedding import sparse_optimizer as jso
+    from hugectr_tpu.optim.params import OptParams as JOptParams
+
+    rng = np.random.default_rng(21)
+    k, rows, e, n = 200, 90, 16, 180
+    sidx = _edge_list(rng, k, rows, k - n)
+    sidx[0] = 0  # JAX wraps a negative index; the port drops it
+    g = torch.as_tensor(rng.standard_normal((k, e)), dtype=torch.float32)
+    opt = OptParams(optimizer=kind, epsilon=1e-7, initial_accu_value=0.01)
+    table, accum = _row_update_state(rng, opt, rows, e, torch.float32)
+    table0, before = table.clone(), accum.clone()
+    tail = np.ones(k, dtype=bool)
+    tail[:-1] = sidx.numpy()[1:] != sidx.numpy()[:-1]
+    jopt = JOptParams(optimizer=JOpt(kind.value), epsilon=1e-7, initial_accu_value=0.01)
+    # JAX gets copies and is waited for: its transfers and its work are
+    # asynchronous, and could otherwise read the tensors' memory after the
+    # in-place update below
+    with jax.default_device(jax.devices("cpu")[0]):  # the reference on the CPU wherever the test runs
+        jt, jst = jso._apply_rows(jopt, jnp.asarray(table.numpy().copy()),
+                                  {"accum": jnp.asarray(accum.numpy().copy())}, jnp.float32(0.05), jnp.int32(1),
+                                  False, jnp.asarray(sidx.numpy().copy()), jnp.asarray(g.numpy().copy()),
+                                  jnp.asarray(tail))
+        jt, jst = jax.block_until_ready((jt, jst))
+    rs.adagrad_rows(opt, table, accum, sidx, g, torch.tensor(n), torch.tensor(0.05))
+    jt, ja = np.asarray(jt), np.asarray(jst["accum"])
+    d_t, d_a = np.abs(table.numpy() - jt), np.abs(accum.numpy() - ja)
+    if kind == Optimizer_t.AdaGrad:
+        assert np.array_equal(table.numpy(), jt) and np.all(d_a <= 2.0**-22 * np.abs(ja))
+    else:
+        assert np.all(d_t <= 2.0**-15 * np.abs(jt - table0.numpy()) + 2.0**-22 * np.abs(jt))
+        assert np.all(d_a <= 2.0**-15 * np.abs(ja))
+    assert not torch.equal(accum, before)
 
 
 # ------------------------------------------------ on the card
