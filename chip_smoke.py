@@ -99,8 +99,9 @@ Each phase prints one JSON line with its own seconds:
    `torch.cuda.set_sync_debug_mode("error")`), replayed eval predictions
    bitwise the per-batch eval's with equal AUCs and its ms a batch, and
    `tools/trace_step.py::profile_steps` in each mode (device-busy ms, idle
-   share, host operators and waits a step); the graph's device-busy ms
-   at most 1.1x the eager's. The kernel phase ends with
+   share, host operators and waits a step, each confirmed by a second
+   trace of its mode); the graph's device-busy ms at most 1.1x the
+   eager's. The kernel phase ends with
    `row_scatter_checks`: segscan with a device count against the run on
    the counted prefix (bitwise), the drop-mode row update and scatter of
    `csrc/row_scatter.cu` against their plain versions, in the forms and
@@ -118,15 +119,18 @@ Each phase prints one JSON line with its own seconds:
    flagship with `unique_cap_factor=0.5, ucap_drop=True`, 3 steps, the rows
    dropped a step.
 6. "ftrl_path": DLRM with FTRL at full width (`build_dlrm_ftrl`: 26
-   tables capped at 400,000 rows, ev 128, hotness 1, batch 16,384), 6
-   steps and a 20-batch eval, counters read around each: `onehot_fwd` once
-   per step and per eval batch, `onehot_bwd` once per step, `segscan` in the
-   steps, the route map as planned, finite losses; learnable synthetic
-   labels, and whether the loss falls.
+   tables capped at 400,000 rows, ev 128, hotness 1, batch 16,384) as one
+   captured program (`step_mode` "graph"), 6 steps and a 20-batch eval,
+   counters read around each: `onehot_fwd` once per step and per eval
+   batch, `onehot_bwd` once per step, `segscan` and `ftrl_rows` 5 a step
+   (one each per sorted group), the route map as planned, finite losses;
+   learnable synthetic labels, and whether the loss falls. Then
+   `graph_ab` ("ftrl_path_graph_ab"), as for paths 4 and 5.
 7. "ftrl_dynamic_path": the same on exact dynamic tables (4,096 rows
-   each, no hand-written kernel on this path): the key store's fill and
-   the keys dropped after each step; run twice from one seed, the stores
-   must be bitwise equal.
+   each, no hand-written kernel on this path), captured too: the key
+   store's fill and the keys dropped after each step; then `graph_ab`
+   ("ftrl_dynamic_path_graph_ab"), whose four turns from one state must
+   leave the key store bitwise equal (`key_store_repeat_equal`).
 8. "hybrid_parity": the tiny DLRM-DCNv2 on 2 spawned ranks against one
    card from one carried state, 3 steps and an eval
    (`tools/hybrid.py::parity_runs`): NCCL with a card per rank, or gloo
@@ -197,8 +201,9 @@ Each phase prints one JSON line with its own seconds:
    2-byte voids, the split tables' merged views, a bitwise reload);
    "freeze_path" (the full-width static DLRM-FTRL with table 5 (one-hot),
    table 20 (a sorted group of its own) and the dense network frozen, 2
-   steps: `onehot_bwd` once a step (12 lookups), segscan's K per group against the keys
-   less the frozen slots, frozen rows and dense weights bitwise, each
+   eager steps: `onehot_bwd` once a step (12 lookups), segscan's device
+   count per group against the keys less the frozen slots (0 for table
+   20), frozen rows and dense weights bitwise, each
    kernel against its plain version on these inputs; unfrozen, 1 step);
    "hybrid_snapshot" (the tiny DLRM-DCNv2 on 2 ranks: rank 0 alone writes,
    both reload bitwise).
@@ -342,7 +347,10 @@ flagship's table 20 (table 11 as `table11_case`, bench's hot tier as
 `bench_case`), `adagrad_rows` RowWiseAdaGrad on float32 at its table 21
 (bench's cold tier on bf16 as `bench_case`, AdaGrad on float32 as
 `dcnv2_case`), with their launches on the main, bench, benchmarks,
-full-scale and FTRL paths),
+full-scale and FTRL paths; and `ftrl_rows`, FTRL's row update, at the
+FTRL path's table 21 (float32) with its launches there (`launches`),
+its edges' bf16 case with the most device time (`bf16_case`) and its
+launches on the main, freeze and serving paths),
 a line with the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that line;
 so does a machine without CUDA.
@@ -533,7 +541,8 @@ def row_scatter_checks(torch, np, dev, results):
       shorter cold-tier lists of tables 21 and 0 (a count of about 60,500
       and 6,900 of K 442,368 and 49,152). On the hot tier's list the
       drop-mode scatter of bf16 rows into the float32 buffer;
-    * the row update's edges at the samples' widths (`adagrad_rows_edges`)."""
+    * the row update's edges at the samples' widths (`adagrad_rows_edges`);
+    * DLRM-FTRL's table 21 and FTRL's row update (`ftrl_row_checks`)."""
     from hugectr_tpu_torch.core.types import Optimizer_t
     from hugectr_tpu_torch.ops import onehot_matmul as oh
     from hugectr_tpu_torch.tools.flagship import BENCH_PLAN, flagship_plan, raw_vocab
@@ -579,12 +588,33 @@ def row_scatter_checks(torch, np, dev, results):
         adagrad_rows_case(torch, dev, results, f"cold_tier_{table}_rowwise_adagrad", Optimizer_t.RowWiseAdaGrad,
                           torch.bfloat16, rows, *sorted_list)
     adagrad_rows_edges(torch, np, dev, results)
+    ftrl_row_checks(torch, np, dev, results)
+
+
+def ftrl_row_checks(torch, np, dev, results):
+    """DLRM-FTRL's sorted groups (`ftrl_path`, FTRL on float32 tables and
+    state): table 21's list (K 16,384 power-law keys of its 400,000 rows,
+    every key valid, as the synthetic keys are), float32 gradient rows; the
+    counted segscan as `row_scatter_checks` runs it and `ftrl_rows` against
+    its plain version (`ftrl_rows_case`), then its edges
+    (`ftrl_rows_edges`)."""
+    from hugectr_tpu_torch.tools.flagship import ftrl_plan
+
+    g = next(x for x in ftrl_plan(ev_size=E, vocab_cap=FTRL_ROWS).groups if x.name == "mp_ev128_21")
+    rows = int(g.total_local_rows)
+    rng = np.random.default_rng(23)
+    idx = torch.as_tensor(power_law(rng, rows, B), device=dev)
+    src = torch.arange(B, device=dev)
+    dsrc = torch.as_tensor(rng.standard_normal((B, E), dtype=np.float32), device=dev)
+    sorted_list = counted_segscan_case(torch, dev, results, "counted_ftrl_21", idx, rows, src, dsrc)
+    ftrl_rows_case(torch, dev, results, "ftrl_21", rows, *sorted_list)
+    ftrl_rows_edges(torch, np, dev, results)
 
 
 def counted_segscan_case(torch, dev, results, case, idx, rows, src, dsrc, cut: int = 0):
     """segscan on the stably sorted list `idx` (the sentinel `rows` last)
     with the device count of its valid prefix and the rows read through the
-    sort (`rowsrc`), as `sparse_optimizer._sorted_adagrad` calls it: against
+    sort (`rowsrc`), as `sparse_optimizer._sorted_rows` calls it: against
     the run on the gathered prefix (bitwise) and its plain version; with
     `cut` > 0 also at a count `cut` rows lower (bitwise its prefix run).
     Returns (sorted ids, the sums, the count, n, unique rows) for the row
@@ -774,6 +804,137 @@ def adagrad_rows_edges(torch, np, dev, results):
             emit(rec)
             if not rec["ok"]:
                 raise AssertionError(f"the row update disagrees with its plain version at its edges: {rec}")
+
+
+# DLRM-FTRL's optimizer (samples/dlrm_ftrl.py:38-44: beta 0, lambda1 = lambda2 = 0.01),
+# `build_dlrm_ftrl`'s lr and its tables' cap (samples/dlrm_ftrl.py:36)
+FTRL_OPT = dict(lambda1=0.01, lambda2=0.01, ftrl_beta=0.0)
+FTRL_LR = 0.001
+FTRL_ROWS = 400_000
+
+
+def ftrl_state(torch, rows, tdt, sdt, dev):
+    """A [rows, E] table of `tdt` near FTRL's lambda1 edge and its state z,
+    n of `sdt`, as a few steps leave them."""
+    return ((torch.randn((rows, E), device=dev) * 0.02).to(tdt), (torch.randn((rows, E), device=dev) * 0.02).to(sdt),
+            (torch.rand((rows, E), device=dev) * 0.1).to(sdt))
+
+
+def ftrl_bound(n, u, e, tdt, sdt):
+    """FTRL's row update: the ids up to the count, then a tail's float32
+    gradient row once and its table and state rows read and written
+    (`csrc/row_scatter.cu`), about 16 float32 operations an element."""
+    return bound(n * 8 + u * e * (4 + 2 * tdt.itemsize + 4 * sdt.itemsize), 16 * u * e)
+
+
+def rows_changed(new, old) -> int:
+    """The rows where any of the arrays `new` differs from `old`."""
+    return int(sum((x != y).any(dim=1).int() for x, y in zip(new, old)).bool().sum())
+
+
+def ftrl_rows_case(torch, dev, results, case, rows, sidx, got, count, n, u):
+    """FTRL's drop-mode row update of a sorted list's tails (`ftrl_rows`)
+    against its plain version on a float32 [rows, E] table and float32
+    state, at the sample's constants and lr: bitwise (the kernel's
+    arithmetic is torch's op by op), two runs bitwise."""
+    from hugectr_tpu_torch.core.types import Optimizer_t
+    from hugectr_tpu_torch.ops import row_scatter as rs
+    from hugectr_tpu_torch.optim.params import OptParams
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+
+    t0 = time.perf_counter()
+    k = sidx.numel()
+    opt = OptParams(optimizer=Optimizer_t.FTRL, **FTRL_OPT)
+    state = ftrl_state(torch, rows, torch.float32, torch.float32, dev)
+    lr = torch.tensor(FTRL_LR, device=dev)
+    a, b, c = ([x.clone() for x in state] for _ in range(3))
+    rs.ftrl_rows(opt, *a, sidx, got, count, lr)
+    rs.ftrl_rows(opt, *c, sidx, got, count, lr)
+    rs.ftrl_rows_plain(opt, *b, sidx, got, count, lr)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(x, y) for x, y in zip(a, b))
+    repeat = all(torch.equal(x, y) for x, y in zip(a, c))
+    err = max(max_abs_diff(torch, x, y) for x, y in zip(a, b))
+    changed = rows_changed(a, state)
+    call = lambda: rs.ftrl_rows(opt, *a, sidx, got, count, lr)  # noqa: E731
+    b_ms, b_by = ftrl_bound(n, u, E, torch.float32, torch.float32)
+    dms, per_call = device_ms(call, KERNEL_NAMES["ftrl_rows"])
+    rec = dict(
+        kernel="ftrl_rows", case=case, optimizer="ftrl", dtype="float32", state_dtype="float32", K=k, count=n,
+        unique_rows=u, rows=rows, E=E, max_abs_err=err, bitwise=bitwise, bitwise_repeat=repeat,
+        rows_changed=changed, ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
+        plain_ms=time_ms(lambda: rs.ftrl_rows_plain(opt, *b, sidx, got, count, lr), samples=5, inner=1, warmup=1),
+        library_ms=None, library="none: no single PyTorch call computes a row-wise optimizer update",
+        bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
+    )
+    results.append(rec)
+    emit(rec)
+    if not (bitwise and repeat and changed == u):
+        raise AssertionError(f"FTRL's row update disagrees with its plain version: {rec}")
+
+
+def ftrl_rows_edges(torch, np, dev, results):
+    """FTRL's row update at its edges against its plain version, at the
+    FTRL path's list length (K 16,384) into a 400,000-row table: sorted
+    power-law ids with a negative id first, one row repeated over
+    positions 28-300 (across the 32-id tiles' edges), 64 ids at or past R
+    inside the count, then the padding (the sentinel); counts 0, the ids
+    below R, those and the 64 past R, and K; a float32 table and state, a
+    bfloat16 table with float32 state, bfloat16 state, each with an lr of
+    the table's type. Bitwise its plain version in every case, two runs
+    bitwise; the device ms at count K beside the bound, CUDA events ms and
+    the plain version's."""
+    from hugectr_tpu_torch.core.types import Optimizer_t
+    from hugectr_tpu_torch.ops import row_scatter as rs
+    from hugectr_tpu_torch.optim.params import OptParams
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+
+    rng = np.random.default_rng(22)
+    rows, k, past, pad = FTRL_ROWS, B, 64, 1024
+    ids = np.sort(power_law(rng, rows, k - past - pad))
+    ids[0] = -1
+    ids[28:301] = ids[28]
+    valid = k - past - pad
+    sidx = torch.as_tensor(np.concatenate([ids, rows + np.arange(past), np.full(pad, rows + past)]), device=dev)
+    tails = int((ids[1:-1] != ids[2:]).sum()) + 1  # every run's end but the negative id's
+    g = torch.as_tensor(rng.standard_normal((k, E), dtype=np.float32), device=dev)
+    opt = OptParams(optimizer=Optimizer_t.FTRL, **FTRL_OPT)
+    for tdt, sdt in ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                     (torch.bfloat16, torch.bfloat16)):
+        t0 = time.perf_counter()
+        state = ftrl_state(torch, rows, tdt, sdt, dev)
+        lr = torch.tensor(FTRL_LR, device=dev).to(tdt)
+        checks = []
+        for n in (0, valid, valid + past, k):
+            count = torch.tensor(n, device=dev)
+            a, b, c = ([x.clone() for x in state] for _ in range(3))
+            rs.ftrl_rows(opt, *a, sidx, g, count, lr)
+            rs.ftrl_rows(opt, *c, sidx, g, count, lr)
+            rs.ftrl_rows_plain(opt, *b, sidx, g, count, lr)
+            checks.append(dict(count=n, bitwise=all(torch.equal(x, y) for x, y in zip(a, b)),
+                               bitwise_repeat=all(torch.equal(x, y) for x, y in zip(a, c)),
+                               max_abs_err=max(max_abs_diff(torch, x, y) for x, y in zip(a, b)),
+                               rows_changed=rows_changed(a, state)))
+        torch.cuda.synchronize()
+        b_ms, b_by = ftrl_bound(k, tails, E, tdt, sdt)
+        call = lambda: rs.ftrl_rows(opt, *a, sidx, g, count, lr)  # noqa: E731
+        dms, per_call = device_ms(call, KERNEL_NAMES["ftrl_rows"])
+        rec = dict(kernel="ftrl_rows", case=f"edges_{str(tdt).split('.')[1]}_{str(sdt).split('.')[1]}",
+                   optimizer="ftrl", dtype=str(tdt).split(".")[1], state_dtype=str(sdt).split(".")[1], K=k, E=E,
+                   rows=rows, count=k, unique_rows=tails, checks=checks,
+                   max_abs_err=max(c["max_abs_err"] for c in checks), ms=time_ms(call), device_ms=dms,
+                   device_launches_per_call=per_call,
+                   plain_ms=time_ms(lambda: rs.ftrl_rows_plain(opt, *b, sidx, g, count, lr), samples=3, inner=1,
+                                    warmup=1),
+                   library_ms=None, library="none: no single PyTorch call computes a row-wise optimizer update",
+                   bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms,
+                   ok=all(c["bitwise"] and c["bitwise_repeat"]
+                          and c["rows_changed"] == (0 if c["count"] == 0 else tails) for c in checks),
+                   seconds=time.perf_counter() - t0)
+        results.append(rec)
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"FTRL's row update disagrees with its plain version at its edges: {rec}")
 
 
 def scatter_rows_case(torch, dev, results, case, idx, rows, src, dsrc):
@@ -1993,7 +2154,7 @@ def tiny_ftrl_parity(torch):
                 raise AssertionError(f"tiny DLRM-FTRL (dynamic={dynamic}) loss on the card {lg} != CPU {lc}")
         if not (worst <= 0 and left_out <= total // 100 and keys_equal):
             raise AssertionError(f"tiny DLRM-FTRL (dynamic={dynamic}) on the card differs from the CPU: {rec}")
-        if not dynamic and min(launches[k] for k in ONE_CARD_KERNELS) <= 0:
+        if not dynamic and min(launches[k] for k in (*ONE_CARD_KERNELS, "ftrl_rows")) <= 0:
             raise AssertionError(f"tiny DLRM-FTRL on the card launched no {launches}")
 
 
@@ -2081,6 +2242,32 @@ GRAPH_AB_STEPS = 5  # timed train steps in each turn of the graph-against-eager 
 GRAPH_AB_TURNS = ("eager", "graph", "graph", "eager")
 
 
+TRACE_TAKES = 4  # traces of one mode at most, until two in a row agree
+# the relative spread two traces of one mode may have in events and in
+# device-busy ms: their events have agreed exactly, their busy ms within 2.9%
+# (a 3-batch eval trace), where the lost records took 53% of the busy ms
+TRACE_AGREE = 0.05
+
+
+def whole_trace(take):
+    """The last of the traces `take()` returns (`profile_steps` records)
+    once two in a row agree within TRACE_AGREE on device events and on
+    device-busy ms a step, else None; with every trace's (events, busy ms).
+    The profiler now and then loses device records: one eager trace of the
+    dynamic FTRL step read 6.86 device-busy ms a step where the traces
+    around it, before and after, read 14.4-14.5. One mode's traces repeat
+    the same kernels, so a trace that lost records disagrees with the next."""
+    takes, last = [], None
+    for _ in range(TRACE_TAKES):
+        r = take()
+        now = (r["device_events_per_step"], r["device_busy_ms_per_step"])
+        takes.append(now)
+        if last is not None and all(abs(a - b) <= TRACE_AGREE * max(a, b) for a, b in zip(now, last)):
+            return r, takes
+        last = now
+    return None, takes
+
+
 def state_arrays(model) -> dict:
     """The carried state by name: tables, their optimizer state, the dense
     parameters and their optimizer state (the tensors themselves)."""
@@ -2127,7 +2314,9 @@ def graph_ab(torch, model, label: str) -> dict:
     * eval: eager and replayed (`Model.eval`), predictions bitwise equal
       and AUCs equal, then ms a batch and ex/s in turns;
     * from `tools/trace_step.py::profile_steps` in each mode, train and
-      eval: device-busy ms, idle share, host operators and waits per step.
+      eval: device-busy ms, idle share, host operators and waits per step,
+      each from a trace that the next one of the same mode confirms
+      (`whole_trace`).
 
     The state is restored to the saved one at the end."""
     from hugectr_tpu_torch.tools.trace_step import profile_steps
@@ -2217,11 +2406,16 @@ def graph_ab(torch, model, label: str) -> dict:
         dt = time.perf_counter() - t
         eval_timing.append(dict(turn=turn, ms_per_batch=dt / model.solver.max_eval_batches * 1e3,
                                 examples_per_s=n_eval / dt))
-    traces = {}
+    traces, trace_takes = {}, {}
     for turn in ("eager", "graph"):
         for what in ("train", "eval"):
-            restore(turn == "graph")
-            r = profile_steps(model, 3, eval_batches=what == "eval")
+            def take():
+                restore(turn == "graph")
+                return profile_steps(model, 3, eval_batches=what == "eval")
+            r, takes = whole_trace(take)
+            trace_takes[f"{turn}_{what}"] = takes
+            if r is None:
+                raise AssertionError(f"{label}: no two {turn} {what} traces in a row agree: {takes}")
             traces[f"{turn}_{what}"] = {k: r[k] for k in (
                 "step_mode", "ms_per_step", "device_busy_ms_per_step", "device_idle_share", "host_ops_per_step",
                 "host_syncs_per_step", "device_events_per_step", "by_category_ms", "launches_per_step")}
@@ -2235,7 +2429,7 @@ def graph_ab(torch, model, label: str) -> dict:
         eager_spread_max={k: e2[k][1] for k in atomic}, graph_spread_max={k: graph_spread[k] for k in atomic},
         graph_minus_eager_max={k: max(g1[k][1], g2[k][1]) for k in atomic}, ulp_floor=floor, breaches=breaches,
         train=timing, eval_bitwise=eval_bitwise, auc_eager=ve.get("auc"), auc_graph=vg.get("auc"),
-        eval=eval_timing, traces=traces, device_busy_graph_over_eager=busy_g / busy_e,
+        eval=eval_timing, traces=traces, trace_takes=trace_takes, device_busy_graph_over_eager=busy_g / busy_e,
         seconds=time.perf_counter() - t0,
     )
     emit(rec)
@@ -2596,7 +2790,8 @@ def ftrl_run(torch, dynamic: bool, steps: int = 6, eval_batches: int = 20):
         eval_examples_per_s=eval_batches * B / eval_s, eval=vals,
         max_memory_allocated=torch.cuda.max_memory_allocated(), routes=dict(ec.group_routes),
         train_launches=train_launches, launches_per_step={k: n / steps for k, n in train_launches.items()},
-        eval_launches=eval_launches, build_seconds=build_s, seconds=time.perf_counter() - t0,
+        eval_launches=eval_launches, step_mode=model.step_mode, captured=sorted(model._graphs),
+        build_seconds=build_s, seconds=time.perf_counter() - t0,
     )
     if dynamic:
         rec.update(key_store_rows=int(model.tables["mp_ev128#keys"].numel()), key_store_fill=fill,
@@ -2605,42 +2800,47 @@ def ftrl_run(torch, dynamic: bool, steps: int = 6, eval_batches: int = 20):
 
 
 def ftrl_path(torch):
-    """DLRM with FTRL, static tables: 6 steps and eval over 20 batches.
-    Every kernel launches in the steps; `onehot_fwd` once per step and per
-    eval batch, `onehot_bwd` once per step (one launch for the 13-table
-    one-hot group)."""
+    """DLRM with FTRL, static tables, as one captured program (`step_mode`
+    "graph": the steps after the first and the eval batches after the
+    first replay their captures): 6 steps and eval over 20 batches. Every
+    kernel launches in the steps; `onehot_fwd` once per step and per eval
+    batch, `onehot_bwd` once per step (one launch for the 13-table one-hot
+    group), `segscan` and `ftrl_rows` once per sorted group and step (5).
+    Then `graph_ab` ("ftrl_path_graph_ab")."""
     model, rec = ftrl_run(torch, dynamic=False)
     emit(rec)
     tl, el = rec["train_launches"], rec["eval_launches"]
     if not all(math.isfinite(x) for x in rec["losses"]):
         raise AssertionError(f"non-finite loss on the FTRL path: {rec['losses']}")
-    if rec["routes"] != FTRL_ROUTES["static"]:
-        raise AssertionError(f"FTRL path routes {rec['routes']}")
-    if not (tl["onehot_fwd"] == 6 and tl["onehot_bwd"] == 6 and tl["segscan"] > 0):
+    if rec["routes"] != FTRL_ROUTES["static"] or rec["step_mode"] != "graph":
+        raise AssertionError(f"FTRL path routes {rec['routes']}, step mode {rec['step_mode']}")
+    if not (tl["onehot_fwd"] == 6 and tl["onehot_bwd"] == 6 and tl["segscan"] == 30 and tl["ftrl_rows"] == 30
+            and tl["adagrad_rows"] == 0):
         raise AssertionError(f"FTRL path launches in 6 steps: {tl}")
-    if not (el["onehot_fwd"] == 20 and el["onehot_bwd"] == 0 and el["segscan"] == 0):
+    if not (el["onehot_fwd"] == 20 and el["onehot_bwd"] == 0 and el["segscan"] == 0 and el["ftrl_rows"] == 0):
         raise AssertionError(f"FTRL path launches in 20 eval batches: {el}")
+    graph_ab(torch, model, "ftrl_path")
     return {k: tl[k] + el[k] for k in tl}
 
 
 def ftrl_dynamic_path(torch):
-    """DLRM with FTRL on exact dynamic tables: 6 steps and eval over 20
-    batches, twice from the same seed; the key stores of the two runs must
-    be bitwise equal (the insert's scatter-min does not depend on the order
-    of its writes). No hand-written kernel is on this path: every table is
+    """DLRM with FTRL on exact dynamic tables, as one captured program: 6
+    steps and eval over 20 batches, then `graph_ab`
+    ("ftrl_dynamic_path_graph_ab"), whose four turns from one state must
+    leave the key store bitwise equal (`key_store_repeat_equal`: the
+    insert's scatter-min does not depend on the order of its writes, eager
+    or replayed). No hand-written kernel is on this path: every table is
     dynamic, so none takes the one-hot engine, and the one group of 106,496
-    rows takes the dense sweep."""
+    rows takes the dense sweep (the drop-mode scatter)."""
     model, rec = ftrl_run(torch, dynamic=True)
-    first = model.tables["mp_ev128#keys"].clone()
+    ab = graph_ab(torch, model, "ftrl_dynamic_path")
+    rec["key_store_repeat_equal"] = "table/mp_ev128#keys" not in ab["eager_spread_max"]
     del model
-    again, _ = ftrl_run(torch, dynamic=True, eval_batches=1)
-    rec["key_store_repeat_equal"] = bool(torch.equal(again.tables["mp_ev128#keys"], first))
-    del again
     emit(rec)
     if not all(math.isfinite(x) for x in rec["losses"]):
         raise AssertionError(f"non-finite loss on the dynamic FTRL path: {rec['losses']}")
-    if rec["routes"] != FTRL_ROUTES["dynamic"]:
-        raise AssertionError(f"dynamic FTRL path routes {rec['routes']}")
+    if rec["routes"] != FTRL_ROUTES["dynamic"] or rec["step_mode"] != "graph":
+        raise AssertionError(f"dynamic FTRL path routes {rec['routes']}, step mode {rec['step_mode']}")
     if not (rec["key_store_repeat_equal"] and 0 < rec["key_store_fill"][-1] <= rec["key_store_rows"]):
         raise AssertionError(f"dynamic FTRL key store: {rec}")
 
@@ -3577,10 +3777,11 @@ def snapshot_bf16(torch):
 def freeze_path(torch):
     """The full-width static DLRM-FTRL with a one-hot table (5), a table
     with a sorted-route group of its own (20) and the dense network frozen:
-    2 steps in which `onehot_bwd` launches once a step for the group's 12
-    live lookups (the frozen one gets no descriptor) and
-    table 20's group hands segscan no key (its K drops by the frozen slots,
-    to 0: no launch), the frozen rows and dense weights bitwise unchanged
+    2 eager steps (frozen tables are not captured) in which `onehot_bwd`
+    launches once a step for the group's 12 live lookups (the frozen one
+    gets no descriptor) and table 20's group hands segscan and `ftrl_rows`
+    a device count of 0 (the counted route: the valid keys less the frozen
+    slots; both launch and do nothing), the frozen rows and dense weights bitwise unchanged
     and the other tables moved; each kernel against its plain version on
     these inputs (`tools/hybrid.py::kernel_parity`, which leaves out the
     frozen lookups and slots as the step does); then unfrozen, 1 step, and
@@ -3606,7 +3807,7 @@ def freeze_path(torch):
     others = ["0", "10", "8"]  # a dense-sweep, a sorted and a one-hot table
     before_t, before_d = views(frozen + others), dense()
     # each rowop group's keys a step: (valid, valid less the frozen slots);
-    # the second is K of a group on the sorted route
+    # the second is the count of a group on the sorted route
     expected = []
     for x in batches[:2]:
         fk = model._feature_keys(x)
@@ -3620,7 +3821,8 @@ def freeze_path(torch):
         expected.append(row)
     ks = []
     scan = sparse_optimizer.segmented_sum_sorted
-    sparse_optimizer.segmented_sum_sorted = lambda v, *a: ks.append(int(v.shape[0])) or scan(v, *a)
+    sparse_optimizer.segmented_sum_sorted = lambda v, h, dt, count, rowsrc: ks.append(int(count)) or scan(
+        v, h, dt, count, rowsrc)
     try:
         ops.reset_counts()
         losses = [model.train() for _ in range(2)]
@@ -3653,10 +3855,11 @@ def freeze_path(torch):
     emit(rec)
     n_onehot = len(next(g for g in ec.plan.groups if g.compute_kind == "onehot").lookups)
     if not (launches["onehot_fwd"] == 2 and launches["onehot_bwd"] == 2 and n_onehot == 13
-            and launches["segscan"] == 2 * (len(sorted_groups) - 1) and unfrozen_launches["onehot_bwd"] == 1):
+            and launches["segscan"] == launches["ftrl_rows"] == 2 * len(sorted_groups)
+            and unfrozen_launches["onehot_bwd"] == 1):
         raise AssertionError(f"freeze_path launches: {rec}")
     if ks != want_ks or 0 not in want_ks:
-        raise AssertionError(f"freeze_path segscan K: {ks} against {want_ks}")
+        raise AssertionError(f"freeze_path segscan counts: {ks} against {want_ks}")
     if not (frozen_same and dense_same and others_moved and rec["frozen_rows_moved_after_unfreeze"]
             and rec["dense_moved_after_unfreeze"] and all(math.isfinite(x) for x in losses)):
         raise AssertionError(f"freeze_path: {rec}")
@@ -5218,7 +5421,7 @@ def main() -> int:
     ratio = {x["kernel"]: x for x in results if x["case"].startswith("ratio_") and x["dtype"] == "float32"}
     chunked = next(x for x in results if x["case"] == "chunked100" and x["dtype"] == "float32")
     rank_sfx = f"_w{hybrid_world(torch)}"
-    by_case = {x["case"]: x for x in results if x["kernel"] in ("segscan", "row_scatter", "adagrad_rows")}
+    by_case = {x["case"]: x for x in results if x["kernel"] in ("segscan", "row_scatter", "adagrad_rows", "ftrl_rows")}
     for name, (src, replaces) in sources.items():
         # the float32 flagship case that costs the step most device time;
         # for the one-hot kernels the step's one launch, the 13-table group
@@ -5290,6 +5493,20 @@ def main() -> int:
             bench_path_launches=bench_launches[name], benchmarks_path_launches=benchmarks_launches[name],
             fullscale_path_launches=fullscale_launches[name], ftrl_path_launches=ftrl_launches[name],
         ))
+    # FTRL's row update: a kernel of the DLRM-FTRL path (5 launches a step),
+    # its launches there (6 steps and 20 eval batches), at its table 21,
+    # beside its edges' bf16 case with the most device time
+    fb = max((x for x in results if x["kernel"] == "ftrl_rows" and x["dtype"] == "bfloat16"),
+             key=lambda x: x["device_ms"])
+    kernels.append(dict(
+        name="ftrl_rows", route="cuda", source="hugectr_tpu_torch/csrc/row_scatter.cu",
+        replaces="hugectr_tpu/embedding/sparse_optimizer.py:873-891 (_apply_rows' FTRL gathers and mode='drop' row "
+                 "sets; no Pallas kernel)",
+        launches=ftrl_launches["ftrl_rows"], **{k: by_case["ftrl_21"][k] for k in keys},
+        bf16_case={**{k: fb[k] for k in keys}, "state_dtype": fb["state_dtype"]},
+        ftrl_path_launches=ftrl_launches["ftrl_rows"], main_path_launches=launches["ftrl_rows"],
+        freeze_path_launches=freeze_launches["ftrl_rows"], serving_path_launches=serving_launches["ftrl_rows"],
+    ))
     # the ordered pool: a kernel of the paths over W ranks; its launches are
     # rank 0's on the hybrid path (steps and eval), beside the bench path's
     # and its bf16 case with the most device time (the unweighted cases of

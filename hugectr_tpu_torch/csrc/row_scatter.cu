@@ -24,6 +24,10 @@
 //    (the list's padding, which sorts last) update nothing: the last
 //    tile's one load of ids reads some of their ids, and no row of theirs
 //    is read.
+// 3. hctr_ftrl_rows: FTRL's update of the same tails (the JAX package's
+//    `_apply_rows` FTRL, sparse_optimizer.py:873-891, which sets w, z and
+//    n): each tail reads its gradient row and its rows of w, z and n, and
+//    sets all three, each rounded once to its array's type.
 //
 // Bound on an H100: memory. The scatter reads idx, src and the live rows
 // of vals and adds into dst. The update reads the sorted ids up to the
@@ -31,7 +35,8 @@
 // twice (read and write) and its accumulator twice (a row for AdaGrad, one
 // value for RowWiseAdaGrad): (8 n + U (4 E + 2 E t + 2 w a)) bytes at
 // 3.35 TB/s, with t and a the table's and the accumulator's item sizes and w
-// the accumulator's width.
+// the accumulator's width. FTRL's: (8 n + U (4 E + 2 E t + 4 E s)) bytes, s
+// the state's item size (28 E a tail in float32).
 //
 // Design of the scatter: one warp per entry, in a grid-stride loop over a
 // fixed grid, so that a captured launch does the same work as an eager one
@@ -86,6 +91,16 @@
 //   no contraction into fma), in the order torch evaluates the same
 //   formula, so AdaGrad is its plain version to the last bit, and
 //   RowWiseAdaGrad up to the order of its row sum.
+//
+// Design of FTRL's update: the general kernel's (`Tails`, kDepth tails a
+// warp in registers, 4 columns a lane where the rows allow), with w, z and
+// n loaded for every tail in flight before the first one's arithmetic. It
+// has no ring: its one caller (DLRM-FTRL's five sorted groups, K 16,384
+// with about 6,700 tails each) moves about 24 MB a step. The arithmetic
+// is torch's op by op, as above: FTRL sets a weight to 0 where |z| <=
+// lambda1, and most of the sample's weights sit at that edge, so a
+// rounding on either side would flip one; the float32 update is its plain
+// version to the last bit.
 #include "common.cuh"
 
 namespace hctr {
@@ -536,6 +551,110 @@ int adagrad_launch(void* table, void* accum, const int64_t* sidx, const float* g
                   : adagrad_launch_one<TT, TA, false, 1>(table, accum, sidx, g, count, lr, lr_bf16, k, rows, e, eps, s);
 }
 
+// FTRL's constants, each rounded to float32 as torch rounds a Python float
+// that enters a float32 op
+struct FtrlConsts {
+  float beta, lambda1, lambda2;
+};
+
+// One element of FTRL-proximal, op by op in the order torch evaluates
+// `sparse_optimizer.update_math` (JAX: sparse_optimizer.py:873-891), every
+// result rounded on its own: w, z, n in float32 (the state read from its
+// type), g the summed gradient. The old n's root is taken in n's own type
+// (rounded to bfloat16 for bfloat16 state), as torch.sqrt of the stored n.
+template <typename TS>
+__device__ __forceinline__ void ftrl_elem(float gc, float& w, float& z, float& n, float lr, const FtrlConsts& c) {
+  const float n_new = __fadd_rn(n, __fmul_rn(gc, gc));
+  const float sq_new = __fsqrt_rn(n_new);
+  const float sq_old = to_f32(from_f32<TS>(__fsqrt_rn(n)));
+  const float sigma = __fdiv_rn(__fsub_rn(sq_new, sq_old), lr);
+  const float z_new = __fsub_rn(__fadd_rn(z, gc), __fmul_rn(sigma, w));
+  const float denom = __fadd_rn(__fdiv_rn(__fadd_rn(c.beta, sq_new), lr), c.lambda2);
+  // -(z - sign(z) lambda1) / denom where |z| > lambda1, else 0 (a NaN z
+  // fails the test, as torch's does)
+  w = fabsf(z_new) > c.lambda1 ? __fdiv_rn(-__fsub_rn(z_new, copysignf(c.lambda1, z_new)), denom) : 0.f;
+  z = z_new;
+  n = n_new;
+}
+
+// FTRL's update of one group of tails: each lane's columns of every live
+// row's gradient, weights, z and n are all loaded before the first one's
+// arithmetic, then updated and set, each rounded once to its array's type.
+template <typename TT, typename TS, int kVec>
+__device__ __forceinline__ void ftrl_group(TT* __restrict__ table, TS* __restrict__ z, TS* __restrict__ n,
+                                           const float* __restrict__ g, const int64_t (&r)[kDepth],
+                                           const int64_t (&p)[kDepth], const bool (&live)[kDepth], int lane, int e,
+                                           float lr, const FtrlConsts& c) {
+  for (int col = lane * kVec; col < e; col += 32 * kVec) {
+    float gv[kDepth][kVec], wv[kDepth][kVec], zv[kDepth][kVec], nv[kDepth][kVec];
+#pragma unroll
+    for (int s = 0; s < kDepth; ++s) {
+      if (!live[s]) continue;
+      load_vec<kVec>(g + p[s] * e + col, gv[s]);
+      load_vec<kVec>(table + r[s] * e + col, wv[s]);
+      load_vec<kVec>(z + r[s] * e + col, zv[s]);
+      load_vec<kVec>(n + r[s] * e + col, nv[s]);
+    }
+#pragma unroll
+    for (int s = 0; s < kDepth; ++s) {
+      if (!live[s]) continue;
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) ftrl_elem<TS>(gv[s][i], wv[s][i], zv[s][i], nv[s][i], lr, c);
+      store_vec<kVec>(table + r[s] * e + col, wv[s]);
+      store_vec<kVec>(z + r[s] * e + col, zv[s]);
+      store_vec<kVec>(n + r[s] * e + col, nv[s]);
+    }
+  }
+}
+
+// FTRL's update of the segment tails among the first *count entries: the
+// tails found as `adagrad_rows` finds them, kDepth at a time a warp, a lane
+// 4 columns in one access where the rows allow (kVec 4), else one.
+template <typename TT, typename TS, int kVec>
+__global__ void __launch_bounds__(kThreads)
+ftrl_rows(TT* __restrict__ table, TS* __restrict__ z, TS* __restrict__ n, const int64_t* __restrict__ sidx,
+          const float* __restrict__ g, const int64_t* __restrict__ count, const void* __restrict__ lr_ptr,
+          int lr_bf16, int64_t k, int64_t rows, int e, FtrlConsts c) {
+  int64_t cnt = *count;
+  cnt = cnt < 0 ? 0 : (cnt < k ? cnt : k);
+  Tails tails;
+  if (!tails.start(sidx, k, cnt, rows)) return;  // the whole warp
+  const float lr = load_lr(lr_ptr, lr_bf16);
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    int64_t r[kDepth], p[kDepth];
+    bool live[kDepth];
+#pragma unroll
+    for (int s = 0; s < kDepth; ++s) {
+      long long rr = 0;
+      int64_t pp = 0;
+      live[s] = (s == 0 || live[s - 1]) && tails.next(rr, pp);
+      r[s] = rr;
+      p[s] = pp;
+    }
+    if (!live[0]) return;
+    ftrl_group<TT, TS, kVec>(table, z, n, g, r, p, live, lane, e, lr, c);
+  }
+}
+
+template <typename TT, typename TS, int kVec>
+int ftrl_launch_one(void* table, void* z, void* n, const int64_t* sidx, const float* g, const int64_t* count,
+                    const void* lr, int lr_bf16, int64_t k, int64_t rows, int e, FtrlConsts c, cudaStream_t s) {
+  static int blocks[64] = {};  // resident on each device
+  const unsigned grid = card_grid(ftrl_rows<TT, TS, kVec>, 0, k, blocks);
+  ftrl_rows<TT, TS, kVec><<<grid, kThreads, 0, s>>>(static_cast<TT*>(table), static_cast<TS*>(z),
+                                                     static_cast<TS*>(n), sidx, g, count, lr, lr_bf16, k, rows, e,
+                                                     c);
+  return cudaGetLastError();
+}
+
+template <typename TT, typename TS>
+int ftrl_launch(void* table, void* z, void* n, const int64_t* sidx, const float* g, const int64_t* count,
+                const void* lr, int lr_bf16, int64_t k, int64_t rows, int e, FtrlConsts c, int vec, cudaStream_t s) {
+  return vec == 4 ? ftrl_launch_one<TT, TS, 4>(table, z, n, sidx, g, count, lr, lr_bf16, k, rows, e, c, s)
+                  : ftrl_launch_one<TT, TS, 1>(table, z, n, sidx, g, count, lr, lr_bf16, k, rows, e, c, s);
+}
+
 }  // namespace
 }  // namespace hctr
 
@@ -594,5 +713,36 @@ extern "C" int hctr_adagrad_rows(int table_dtype, int accum_dtype, void* table, 
     return adagrad_launch<float, bf16>(table, accum, ix, gx, cnt, lr, lr_bf16, k, rows, e, eps, rowwise, vec, s);
   if (table_dtype == hctr::kBF16 && accum_dtype == hctr::kBF16)
     return adagrad_launch<bf16, bf16>(table, accum, ix, gx, cnt, lr, lr_bf16, k, rows, e, eps, rowwise, vec, s);
+  return cudaErrorInvalidValue;
+}
+
+// FTRL's update of table [rows, e] and its state z, n [rows, e] (both of
+// `state_dtype`) from the sorted row ids sidx [k] (int64) and the float32
+// segmented sums g [k, e], for the segment tails among the first *count
+// entries: w, z and n are set. lr is a device scalar of `lr_dtype`; beta,
+// lambda1 and lambda2 the optimizer's constants. vec 4: e is a multiple of
+// 4 and g, table, z and n start on 4 elements; else 1. Returns
+// cudaGetLastError().
+extern "C" int hctr_ftrl_rows(int table_dtype, int state_dtype, void* table, void* z, void* n, const void* sidx,
+                              const void* g, const void* count, const void* lr, int lr_dtype, int64_t k, int64_t rows,
+                              int e, float beta, float lambda1, float lambda2, int vec, void* stream) {
+  if (k == 0 || e == 0) return cudaSuccess;
+  if (vec != 1 && vec != 4) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* ix = static_cast<const int64_t*>(sidx);
+  const auto* gx = static_cast<const float*>(g);
+  const auto* cnt = static_cast<const int64_t*>(count);
+  const int lr_bf16 = lr_dtype == hctr::kBF16;
+  const hctr::FtrlConsts c{beta, lambda1, lambda2};
+  using bf16 = __nv_bfloat16;
+  using hctr::ftrl_launch;
+  if (table_dtype == hctr::kF32 && state_dtype == hctr::kF32)
+    return ftrl_launch<float, float>(table, z, n, ix, gx, cnt, lr, lr_bf16, k, rows, e, c, vec, s);
+  if (table_dtype == hctr::kBF16 && state_dtype == hctr::kF32)
+    return ftrl_launch<bf16, float>(table, z, n, ix, gx, cnt, lr, lr_bf16, k, rows, e, c, vec, s);
+  if (table_dtype == hctr::kF32 && state_dtype == hctr::kBF16)
+    return ftrl_launch<float, bf16>(table, z, n, ix, gx, cnt, lr, lr_bf16, k, rows, e, c, vec, s);
+  if (table_dtype == hctr::kBF16 && state_dtype == hctr::kBF16)
+    return ftrl_launch<bf16, bf16>(table, z, n, ix, gx, cnt, lr, lr_bf16, k, rows, e, c, vec, s);
   return cudaErrorInvalidValue;
 }

@@ -19,15 +19,16 @@ routes of one device:
   :464-504);
 * the sorted route (:506-621): sort (row, grad-source) pairs; invalid
   keys carry the sentinel row and sort last (:607). For the AdaGrad family
-  (`_sorted_adagrad`) the step has a fixed shape and no host sync: the
-  count of the valid prefix stays on the device, the segscan kernel sums
-  the prefix's gradient rows in float32 (reading them through the sorted
-  order itself) and stops at the count, and the drop-mode row update
-  updates each segment tail, the unique rows (`_apply_rows`, :752), so the
-  card does the valid keys' work and not the padding's. The other
-  optimizers, the packed layouts and the drop mode keep the valid prefix
-  on the host (`dedup_rows` scan contract, :127-149), gather it, sum it
-  and update the tails with `index_add_` / `index_copy_`.
+  and FTRL (`COUNTED`, `_sorted_rows`) the step has a fixed shape and no
+  host sync: the count of the valid prefix stays on the device, the
+  segscan kernel sums the prefix's gradient rows in float32 (reading them
+  through the sorted order itself) and stops at the count, and the
+  drop-mode row update (`adagrad_rows`, `ftrl_rows`) updates each segment
+  tail, the unique rows (`_apply_rows`, :752, :873-891), so the card does
+  the valid keys' work and not the padding's. Momentum, Nesterov, RMSProp
+  and Adam, the packed layouts and the drop mode keep the valid prefix on
+  the host (`dedup_rows` scan contract, :127-149), gather it, sum it and
+  update the tails with `index_add_` / `index_copy_`.
 
 Tables may be bfloat16 and the state bfloat16: the update math runs in
 float32 and each result is rounded once to its array's type, at the JAX
@@ -69,7 +70,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core.types import Optimizer_t
-from ..ops.row_scatter import adagrad_rows, scatter_add_rows
+from ..ops.row_scatter import adagrad_rows, ftrl_rows, scatter_add_rows
 from ..ops.segscan import segmented_sum_sorted
 from ..optim.params import OptParams, adam_bias_corrections
 
@@ -77,6 +78,9 @@ State = Dict[str, torch.Tensor]
 
 # exact no-ops on a zero summed gradient (sparse_optimizer.py:471)
 ADAGRAD_FAMILY = (Optimizer_t.AdaGrad, Optimizer_t.RowWiseAdaGrad)
+# the optimizers whose sorted route is counted on the device (a fixed
+# shape, no host sync): a drop-mode row update each
+COUNTED = (*ADAGRAD_FAMILY, Optimizer_t.FTRL)
 # the routes that sum duplicate rows with `index_add_`, whose atomics on
 # the card sum in an order that differs from run to run; the sorted route
 # is deterministic
@@ -339,17 +343,18 @@ def bf16_row_sums(idx: torch.Tensor, src: torch.Tensor, vals: torch.Tensor, rows
     return buf
 
 
-def _sorted_adagrad(opt: OptParams, table: torch.Tensor, accum: torch.Tensor, idx: torch.Tensor,
-                    src: torch.Tensor, dsrc: torch.Tensor, lr: torch.Tensor, k_limit: int = 0) -> None:
-    """The sorted route of the AdaGrad family at a fixed shape: the stable
-    sort of the whole list (cut to `k_limit` entries, a static length),
-    the count of its valid prefix kept on the device, the segmented sums of
-    the sorted keys' gradient rows over that prefix only (segscan reads
-    dsrc[src[perm]] in its loads), and the update of each segment tail
-    among them by the drop-mode row update (`ops/row_scatter.py`). The
-    work past the count, the list's padding, is skipped on the card; no
-    shape or host value depends on the batch, as in the JAX package's
-    cond over the measured valid cap (:596-621), whose branches agree."""
+def _sorted_rows(opt: OptParams, table: torch.Tensor, state: State, idx: torch.Tensor, src: torch.Tensor,
+                 dsrc: torch.Tensor, lr: torch.Tensor, k_limit: int = 0) -> None:
+    """The sorted route of a `COUNTED` optimizer at a fixed shape: the
+    stable sort of the whole list (cut to `k_limit` entries, a static
+    length), the count of its valid prefix kept on the device, the
+    segmented sums of the sorted keys' gradient rows over that prefix only
+    (segscan reads dsrc[src[perm]] in its loads), and the update of each
+    segment tail among them by the drop-mode row update
+    (`ops/row_scatter.py`: `adagrad_rows`, `ftrl_rows`). The work past the
+    count, the list's padding, is skipped on the card; no shape or host
+    value depends on the batch, as in the JAX package's cond over the
+    measured valid cap (:596-621), whose branches agree."""
     sidx, perm = torch.sort(idx, stable=True)
     if 0 < k_limit < sidx.shape[0]:
         sidx, perm = sidx[:k_limit], perm[:k_limit]
@@ -357,7 +362,10 @@ def _sorted_adagrad(opt: OptParams, table: torch.Tensor, accum: torch.Tensor, id
     head = torch.ones(sidx.shape[0], dtype=torch.bool, device=idx.device)
     head[1:] = sidx[1:] != sidx[:-1]
     summed = segmented_sum_sorted(dsrc.to(table.dtype).contiguous(), head, torch.float32, count, src[perm])
-    adagrad_rows(opt, table, accum, sidx, summed, count, lr)
+    if opt.optimizer == Optimizer_t.FTRL:
+        ftrl_rows(opt, table, state["z"], state["n"], sidx, summed, count, lr)
+    else:
+        adagrad_rows(opt, table, state["accum"], sidx, summed, count, lr)
 
 
 def apply_sparse(
@@ -425,8 +433,8 @@ def apply_sparse(
             touched = touched[:rows]
         apply_dense(opt, table, state, grad, touched, lr, step)
         return route
-    if kind in ADAGRAD_FAMILY and not packed and not ucap_drop:
-        _sorted_adagrad(opt, table, state["accum"], idx, src, dsrc, lr, k_limit)
+    if kind in COUNTED and not packed and not ucap_drop:
+        _sorted_rows(opt, table, state, idx, src, dsrc, lr, k_limit)
         return route
     sidx, summed, tail = dedup_rows(idx, src, dsrc.to(table.dtype), rows, k_limit)
     # only tails carry full sums; keeping them makes the rows unique

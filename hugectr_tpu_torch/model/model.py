@@ -40,17 +40,23 @@ the same with the eval forward, one replay a batch, its outputs copied into
 the accumulators' buffers; the AUC is finalized once. A short batch (a
 cached file's tail with `drop_incomplete_batch=False`) runs eagerly. The
 graph is captured again when the state's storage moves (a load that
-replaced a tensor), the batch's shapes differ from its buffers' or the
-step is rebuilt (`_build_steps`); a capture that fails raises. Replays add the captured step's kernel launches and routes to the
-host's counts (`ops.launch_counts`, `route_counts`). The step is the same
-fixed-shape, sync-free code either way (`embedding/sparse_optimizer.py`);
-`use_cuda_graph=False` runs it eagerly. `step_mode` is "eager: <reason>"
-for what this does not capture: a CPU device, W > 1 ranks, a file feeder
-(batches not cached on the device), dense layers other than
-`GRAPH_LAYERS` (Dropout draws host seeds), dynamic tables, weighted lookups, the packed layouts, frozen tables, the drop mode,
-and optimizers other than AdaGrad and RowWiseAdaGrad (Adam's bias
-corrections come from the host's step; the other sparse routes still shape
-their work by the batch).
+replaced a tensor), the collection is replaced (`grow_dynamic_capacity`
+returns a new one, with new tables and constants), the batch's shapes
+differ from its buffers' or the step is rebuilt (`_build_steps`); a
+capture that fails raises. What changes the state in place between steps
+(`evict`, the host tier's staging, the training cache's loads, a dynamic
+table's key store) the next replay reads. Replays add the captured step's
+kernel launches and routes to the host's counts (`ops.launch_counts`,
+`route_counts`). The step is the same fixed-shape, sync-free code either
+way (`embedding/sparse_optimizer.py`; a dynamic table's probe and insert
+are fixed rounds of gathers and scatters); `use_cuda_graph=False` runs it
+eagerly. `step_mode` is "eager: <reason>" for what this does not capture:
+a CPU device, W > 1 ranks, a file feeder (batches not cached on the
+device), dense layers other than `GRAPH_LAYERS` (Dropout draws host
+seeds), weighted lookups, the packed layouts, frozen tables, the drop
+mode, and optimizers other than AdaGrad, RowWiseAdaGrad and FTRL
+(`sparse_optimizer.COUNTED`: Adam's bias corrections come from the host's
+step; the other sparse routes still shape their work by the batch).
 Dynamic tables' key stores live in `tables` under `"{group}#keys"`; their
 synthetic keys are drawn below each table's capacity (`_slot_vocabs`).
 
@@ -187,7 +193,7 @@ from ..data.reader import (
 )
 from ..embedding.collection import EmbeddingCollection
 from ..embedding.config import EmbeddingCollectionConfig, EmbeddingTableConfig, SparseEmbedding
-from ..embedding.sparse_optimizer import ADAGRAD_FAMILY
+from ..embedding.sparse_optimizer import COUNTED
 from ..io import filesystem as iofs
 from ..layers.network import Network
 from ..metrics.metrics import MetricAccumulator
@@ -203,7 +209,8 @@ from ..utils.diagnose import check_embedding_overflow
 GRAPH_WARMUP = 1
 # the dense layers whose forward and backward capture: no host copy and no
 # random numbers (Dropout draws its masks from a host seed)
-GRAPH_LAYERS = frozenset({Layer_t.MLP, Layer_t.Concat, Layer_t.MultiCross, Layer_t.BinaryCrossEntropyLoss})
+GRAPH_LAYERS = frozenset({Layer_t.MLP, Layer_t.Concat, Layer_t.MultiCross, Layer_t.Reshape, Layer_t.Interaction,
+                          Layer_t.BinaryCrossEntropyLoss})
 
 
 class _Captured:
@@ -1126,8 +1133,6 @@ class Model:
             return f"the {layer} layer"
         ec = self.ec
         if ec is not None:
-            if any(m.any_dynamic for m in ec._meta.values()):
-                return "dynamic tables"
             if any(g.has_weights for g in ec.plan.groups):
                 return "weighted lookups"
             if ec.packed_groups:
@@ -1135,9 +1140,9 @@ class Model:
         if not train:
             return None
         kind = self.opt_params.optimizer
-        if kind == Optimizer_t.Adam or (ec is not None and kind not in ADAGRAD_FAMILY):
+        if kind == Optimizer_t.Adam or (ec is not None and kind not in COUNTED):
             # Adam's bias corrections come from the host's step; the other
-            # routes still shape their work by the batch
+            # optimizers' routes still shape their work by the batch
             return f"the {kind.value} optimizer"
         if ec is not None:
             if ec.frozen_tables or self._emb_frozen:
@@ -1162,9 +1167,12 @@ class Model:
         return all(t.dim() > 0 and t.shape[0] == n for t in batch.values())
 
     def _graph_key(self, batch: Dict[str, torch.Tensor]) -> tuple:
-        """What a capture is good for: the carried state's storage and the
-        batch's names, shapes and dtypes (its static buffers)."""
-        return (tuple(t.data_ptr() for t in self._graph_tensors()),
+        """What a capture is good for: the collection (the key holds it, so
+        that a new one, such as `grow_dynamic_capacity` returns with its
+        new plan and constants, never passes for it), the carried state's
+        storage and the batch's names, shapes and dtypes (its static
+        buffers)."""
+        return (self.ec, tuple(t.data_ptr() for t in self._graph_tensors()),
                 tuple((k, tuple(v.shape), v.dtype) for k, v in batch.items()))
 
     def _replay(self, name: str, fn, batch):

@@ -62,6 +62,10 @@ _SIGNATURES = {
     # table_dtype, accum_dtype, table, accum, sidx, g, count, lr, lr_dtype, k, rows, e, eps, rowwise, vec,
     # stream
     "hctr_adagrad_rows": ([_I, _I, _P, _P, _P, _P, _P, _P, _I, _I64, _I64, _I, ctypes.c_float, _I, _I, _P], _I),
+    # table_dtype, state_dtype, table, z, n, sidx, g, count, lr, lr_dtype, k, rows, e, beta, lambda1,
+    # lambda2, vec, stream
+    "hctr_ftrl_rows": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I64, _I, ctypes.c_float, ctypes.c_float,
+                        ctypes.c_float, _I, _P], _I),
     # dtype, table, n_rows, ld, rows, weights (or null), offsets, out, n_slots, e, vec, lanes, per, shift,
     # stream
     "hctr_ordered_pool": ([_I, _P, _I64, _I64, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P], _I),

@@ -17,12 +17,16 @@ for the bound and design):
   whose float32 segmented sums are g [K, E]: each segment tail among the
   first `count` entries (a 0-dim int64 tensor on the device) updates its
   row once (the sorted route's `_apply_rows`).
+* `ftrl_rows(opt, table, z, n, sidx, g, count, lr)`: FTRL's update of the
+  same tails, in place: each sets its row of the table and of its state z
+  and n (the JAX package's `_apply_rows` FTRL, sparse_optimizer.py:873-891).
 
 The plain versions beside the kernels serve the CPU and the checks on the
 card; they are written without a host sync or a shape that follows the
 data (a temporary row past the end takes what the kernels drop), and give
-the port's earlier update bitwise: `adagrad_rows_plain` computes every
-entry with `sparse_optimizer.update_math` and keeps the tails' results.
+the port's earlier update bitwise: `adagrad_rows_plain` and
+`ftrl_rows_plain` compute every entry with `sparse_optimizer.update_math`
+and keep the tails' results.
 """
 from __future__ import annotations
 
@@ -33,8 +37,8 @@ import torch
 from ..core.types import Optimizer_t
 from . import _lib
 
-LAUNCHES = {"row_scatter": 0, "adagrad_rows": 0}  # kernel launches (CUDA tensors)
-PLAIN_CALLS = {"row_scatter": 0, "adagrad_rows": 0}  # plain-version calls (CPU tensors)
+LAUNCHES = {"row_scatter": 0, "adagrad_rows": 0, "ftrl_rows": 0}  # kernel launches (CUDA tensors)
+PLAIN_CALLS = {"row_scatter": 0, "adagrad_rows": 0, "ftrl_rows": 0}  # plain-version calls (CPU tensors)
 
 ROWWISE = {Optimizer_t.AdaGrad: 0, Optimizer_t.RowWiseAdaGrad: 1}
 
@@ -83,6 +87,16 @@ def _drop_copy_(a: torch.Tensor, tgt: torch.Tensor, vals: torch.Tensor) -> None:
     a.copy_(ext[:-1])
 
 
+def _live_tails(sidx: torch.Tensor, count: torch.Tensor, rows: int) -> torch.Tensor:
+    """[K] bool: the segment tails among the first `count` entries whose
+    ids lie in [0, rows)."""
+    k = sidx.shape[0]
+    pos = torch.arange(k, device=sidx.device)
+    tail = torch.ones(k, dtype=torch.bool, device=sidx.device)
+    tail[:-1] = sidx[1:] != sidx[:-1]
+    return tail & (pos < count) & (sidx >= 0) & (sidx < rows)
+
+
 def adagrad_rows_plain(opt, table: torch.Tensor, accum: torch.Tensor, sidx: torch.Tensor, g: torch.Tensor,
                        count: torch.Tensor, lr: torch.Tensor) -> None:
     """The tails among the first `count` entries take `update_math`'s new
@@ -91,11 +105,8 @@ def adagrad_rows_plain(opt, table: torch.Tensor, accum: torch.Tensor, sidx: torc
     through a spare row."""
     from ..embedding.sparse_optimizer import update_math
 
-    k, rows = sidx.shape[0], table.shape[0]
-    pos = torch.arange(k, device=sidx.device)
-    tail = torch.ones(k, dtype=torch.bool, device=sidx.device)
-    tail[:-1] = sidx[1:] != sidx[:-1]
-    live = tail & (pos < count) & (sidx >= 0) & (sidx < rows)
+    rows = table.shape[0]
+    live = _live_tails(sidx, count, rows)
     safe = torch.where(live, sidx, 0)
     gl = torch.where(live.unsqueeze(1), g, 0.0)
     _op, val, new = update_math(opt, table, {"accum": accum[safe]}, gl, lr, 1)
@@ -140,3 +151,55 @@ def adagrad_rows(opt, table: torch.Tensor, accum: torch.Tensor, sidx: torch.Tens
         )
     _lib.check(rc, "adagrad_rows")
     LAUNCHES["adagrad_rows"] += 1
+
+
+def ftrl_rows_plain(opt, table: torch.Tensor, z: torch.Tensor, n: torch.Tensor, sidx: torch.Tensor,
+                    g: torch.Tensor, count: torch.Tensor, lr: torch.Tensor) -> None:
+    """The tails among the first `count` entries take `update_math`'s FTRL
+    rows: w, z and n are set through a spare row, which takes every other
+    entry."""
+    from ..embedding.sparse_optimizer import update_math
+
+    rows = table.shape[0]
+    live = _live_tails(sidx, count, rows)
+    safe, tgt = torch.where(live, sidx, 0), torch.where(live, sidx, rows)
+    _op, w, new = update_math(opt, table[safe], {"z": z[safe], "n": n[safe]}, g, lr, 1)
+    for a, v in ((table, w), (z, new["z"]), (n, new["n"])):
+        _drop_copy_(a, tgt, v)
+
+
+def ftrl_rows(opt, table: torch.Tensor, z: torch.Tensor, n: torch.Tensor, sidx: torch.Tensor, g: torch.Tensor,
+              count: torch.Tensor, lr: torch.Tensor) -> None:
+    """FTRL on table [R, E] and its state z, n [R, E] (float32 or bfloat16,
+    the two of one type), in place, from sorted int64 row ids sidx [K] (the
+    padding's ids at least R, last), their float32 inclusive segmented sums
+    g [K, E] and `count`, the 0-dim int64 count of sidx's valid prefix on
+    the device; lr is a 0-dim float32 or bfloat16 device tensor. On the
+    card, a lane takes 4 columns in one access where E and the rows allow
+    (`_lib.vec_width`), else one."""
+    _lib.require(opt.optimizer == Optimizer_t.FTRL, f"ftrl_rows: {opt.optimizer} is not FTRL")
+    _lib.require(table.dim() == 2 and g.shape == (sidx.shape[0], table.shape[1]) and g.dtype == torch.float32,
+                 "ftrl_rows: table [R, E], g float32 [K, E]")
+    _lib.require(z.shape == n.shape == table.shape and z.dtype == n.dtype, "ftrl_rows: z and n [R, E] of one type")
+    _lib.require(count.dim() == 0 and count.dtype == torch.int64, "ftrl_rows: count is a 0-dim int64")
+    if table.device.type == "cpu":
+        PLAIN_CALLS["ftrl_rows"] += 1
+        ftrl_rows_plain(opt, table, z, n, sidx, g, count, lr)
+        return
+    _lib.require(table.device.type == "cuda", f"unsupported device {table.device}")
+    for what, t in (("table", table), ("z", z), ("n", n), ("sidx", sidx), ("g", g)):
+        _lib.require(t.is_contiguous(), f"ftrl_rows: {what} must be contiguous")
+    _lib.require(table.dtype in _lib.DTYPE_CODE and z.dtype in _lib.DTYPE_CODE, "ftrl_rows: f32/bf16 only")
+    _lib.require(lr.dtype in _lib.DTYPE_CODE and lr.device == table.device, "ftrl_rows: lr on the card")
+    e = table.shape[1]
+    vec = _lib.vec_width(e, table, g, z, n)
+    lib = _lib.library()
+    with torch.cuda.device(table.device):
+        rc = lib.hctr_ftrl_rows(
+            _lib.DTYPE_CODE[table.dtype], _lib.DTYPE_CODE[z.dtype], table.data_ptr(), z.data_ptr(), n.data_ptr(),
+            sidx.data_ptr(), g.data_ptr(), count.data_ptr(), lr.data_ptr(), _lib.DTYPE_CODE[lr.dtype],
+            sidx.shape[0], table.shape[0], e, ctypes.c_float(opt.ftrl_beta), ctypes.c_float(opt.lambda1),
+            ctypes.c_float(opt.lambda2), vec, _lib.stream_of(table),
+        )
+    _lib.check(rc, "ftrl_rows")
+    LAUNCHES["ftrl_rows"] += 1

@@ -38,6 +38,7 @@ KERNEL_NAMES = {
     "ordered_pool": ("ordered_pool",),
     "row_scatter": ("scatter_add_rows",),
     "adagrad_rows": ("adagrad_rows",),
+    "ftrl_rows": ("ftrl_rows",),
 }
 
 # the kernel names of each measurement that fell back to CUDA events

@@ -66,6 +66,7 @@ CATEGORIES = (
     ("ordered_pool", KERNEL_NAMES["ordered_pool"]),
     ("row_scatter", KERNEL_NAMES["row_scatter"]),
     ("adagrad_rows", KERNEL_NAMES["adagrad_rows"]),
+    ("ftrl_rows", KERNEL_NAMES["ftrl_rows"]),
     ("gemm", ("gemm", "sm90", "sm80", "cutlass", "cublas", "splitk", "xmma", "nvjet")),
     ("sort", ("sort", "radix")),
     ("index", ("index", "scatter", "gather", "embedding")),

@@ -107,10 +107,12 @@ def test_dlrm_ftrl_three_steps_match_jax(monkeypatch, dynamic):
     n_onehot = 0 if dynamic else len(next(g for g in tm.ec.plan.groups if g.compute_kind == "onehot").lookups)
     n_sorted = sum(r == "sorted" for r in tm.ec.group_routes.values())
     n_dense = sum(r == "dense" for r in tm.ec.group_routes.values())
-    # FTRL's dense sweep sums its gradient rows with the drop-mode scatter
+    # FTRL's dense sweep sums its gradient rows with the drop-mode scatter;
+    # its sorted groups update by the drop-mode row update
     assert ops.plain_counts() == {"segscan": 3 * n_sorted, "onehot_fwd": 3 * (n_onehot > 0),
                                   "onehot_bwd": 3 * (n_onehot > 0), "ordered_pool": 0,
-                                  "row_scatter": 3 * n_dense, "adagrad_rows": 0}
+                                  "row_scatter": 3 * n_dense, "adagrad_rows": 0,
+                                  "ftrl_rows": 3 * n_sorted}
     assert set(ops.launch_counts().values()) == {0}
 
     state = jax.device_get(jm.state)

@@ -12,7 +12,9 @@ sums of values exact in d's type within 1e-4 in either type. Touch counts
 are exact, and the segmented scan and the backward's counts matmul are
 bitwise the same from run to run. The sorted route's row update
 (`adagrad_rows`) is bitwise its plain version for AdaGrad and within its
-row sum's spread for RowWiseAdaGrad. The last tests run
+row sum's spread for RowWiseAdaGrad; FTRL's (`ftrl_rows`) is bitwise. The
+tiny DLRM-FTRL's captured steps agree with its eager ones within rtol 1e-4
+/ atol 1e-5 (atomic sums), its replayed eval bitwise. The last tests run
 the embedding collection and train the tiny model on 2 spawned ranks
 against one card.
 """
@@ -429,6 +431,113 @@ def test_adagrad_rows_edges_and_capture(cuda, kind, dtype):
         torch.cuda.synchronize()
         assert torch.equal(t4, t1) and torch.equal(a4, a1), (e, shift)
         assert rs.LAUNCHES["adagrad_rows"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdt,sdt", [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)], ids=["f32", "bf16_table", "bf16_state"])
+def test_ftrl_rows_bitwise_and_captured(cuda, tdt, sdt):
+    """FTRL's row update against its plain version at the design's edges:
+    E 1, 11, 16, 18, 128, and 128 on rows that start off 4 elements (one
+    column a lane); counts 0, 31, 32, 33, 64, 65, 224 (inside a run over
+    220-230) and K; a bfloat16 or float32 lr; a negative id and the
+    sentinels. Bitwise in every case (the arithmetic is torch's op by op),
+    two runs bitwise, a replay of the captured launch bitwise the eager
+    one."""
+    from hugectr_tpu_torch.core.types import Optimizer_t
+    from hugectr_tpu_torch.ops import row_scatter as rs
+    from hugectr_tpu_torch.optim.params import OptParams
+
+    rng = np.random.default_rng(22)
+    opt = OptParams(optimizer=Optimizer_t.FTRL, lambda1=0.01, lambda2=0.01, ftrl_beta=0.5)
+    k, rows = 1000, 3000
+    sidx = torch.from_numpy(_row_update_edges(rng, k, rows, 100)).to(cuda)
+    for i, (e, shift) in enumerate(((1, 0), (11, 0), (16, 0), (18, 0), (128, 0), (128, 1))):
+        w0, z0 = (torch.from_numpy(rng.normal(size=(rows, e)).astype(np.float32) * 0.02).to(cuda) for _ in "wz")
+        n0 = torch.from_numpy(rng.random((rows, e), dtype=np.float32) * 0.1).to(cuda)
+        g = torch.from_numpy(rng.normal(size=(k, e)).astype(np.float32) * 0.05).to(cuda)
+        lr = torch.tensor(0.05, device=cuda).to(tdt if i % 2 else torch.float32)
+
+        def copy():  # the table's copy `shift` elements past an aligned start
+            t = torch.empty(rows * e + shift, device=cuda, dtype=tdt)[shift:].view(rows, e)
+            return t.copy_(w0), z0.to(sdt, copy=True), n0.to(sdt, copy=True)
+
+        for n in (0, 31, 32, 33, 64, 65, 224, k):
+            count = torch.tensor(n, device=cuda)
+            got, again, want = copy(), copy(), copy()
+            rs.ftrl_rows(opt, *got, sidx, g, count, lr)
+            rs.ftrl_rows(opt, *again, sidx, g, count, lr)
+            rs.ftrl_rows_plain(opt, *want, sidx, g, count, lr)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (e, shift, n)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), (e, shift, n)
+            assert (n == 0) == torch.equal(got[0], copy()[0]), (e, shift, n)
+        replayed = copy()
+        before = rs.LAUNCHES["ftrl_rows"]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            rs.ftrl_rows(opt, *replayed, sidx, g, count, lr)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(replayed, got)), (e, shift)
+        assert rs.LAUNCHES["ftrl_rows"] == before + 1
+
+
+def _ftrl_state(model):
+    out = {f"t/{k}": v.clone() for k, v in model.tables.items()}
+    out.update({f"s/{g}/{k}": v.clone() for g, st in model.eopt.items() for k, v in st.items()})
+    out.update({f"p/{lay}/{k}": p.detach().clone() for lay, ps in model.network.param_tree().items()
+                for k, p in ps.items()})
+    out.update({f"d/{s}/{lay}/{k}": t.clone() for s, tree in model.dopt.items() for lay, ps in tree.items()
+                for k, t in ps.items()})
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+def test_tiny_ftrl_captured_steps_and_eval_equal_the_eager_ones(cuda, dynamic):
+    """The tiny DLRM-FTRL from one seed, eager and captured, 4 steps: the
+    losses within rtol 1e-4, key stores bitwise, every other array within
+    rtol 1e-4 / atol 1e-5 (the dense sweep's and the one-hot backward's
+    atomic adds sum in no fixed order), the weights whose z lies within
+    1e-6 of lambda1 left out (at most 1%); then the eval forward of the same
+    weights bitwise the eager one."""
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools.flagship import build_tiny_dlrm_ftrl
+
+    eager, graph = (build_tiny_dlrm_ftrl(ResourceManager.create(device="cuda"), dynamic=dynamic,
+                                         use_cuda_graph=g) for g in (False, True))
+    assert eager.step_mode == "eager: use_cuda_graph=False" and graph.step_mode == "graph"
+    se, sg = _ftrl_state(eager), _ftrl_state(graph)
+    assert all(torch.equal(se[k], sg[k]) for k in se)
+    le = [float(eager.train_async()) for _ in range(4)]
+    ops.reset_counts()
+    lg = [float(graph.train_async()) for _ in range(4)]
+    assert "train" in graph._graphs
+    if not dynamic:
+        assert ops.launch_counts()["ftrl_rows"] == 4 * list(graph.ec.group_routes.values()).count("sorted") > 0
+    np.testing.assert_allclose(lg, le, rtol=1e-4)
+    se, sg = _ftrl_state(eager), _ftrl_state(graph)
+    lambda1 = eager.opt_params.lambda1
+    for k in se:
+        if k.endswith("#keys"):
+            assert torch.equal(sg[k], se[k]), k
+            continue
+        # a weight's z: its table's state, or its parameter's dense state
+        z = se.get(f"s/{k[2:]}/z") if k.startswith("t/") else se.get(f"d/z/{k[2:]}")
+        near = (z.float().abs() - lambda1).abs() <= 1e-6 if z is not None else torch.zeros_like(se[k], dtype=bool)
+        assert int(near.sum()) <= max(2, near.numel() // 100), k
+        got, want = torch.where(near, 0, sg[k].float()), torch.where(near, 0, se[k].float())
+        np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-4, atol=1e-5, err_msg=k)
+    for m in (eager, graph):  # the same weights for both evals
+        for name, t in m.tables.items():
+            t.copy_(se[f"t/{name}"])
+        for lay, ps in m.network.param_tree().items():
+            for n, p in ps.items():
+                p.data.copy_(se[f"p/{lay}/{n}"])
+    ve, vg = eager.eval(), graph.eval()
+    assert "eval" in graph._graphs
+    assert torch.equal(graph.metrics._preds, eager.metrics._preds) and ve == vg
 
 
 @pytest.mark.gpu

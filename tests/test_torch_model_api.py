@@ -174,7 +174,8 @@ def test_freezing_dense_and_tables_matches_jax(pair):
 def test_freezing_dlrm_ftrl_tables_matches_jax(monkeypatch):
     """The tiny static DLRM-FTRL with a one-hot table, both tables of its
     one sorted-route group and the dense network frozen: that group's
-    segmented scan gets no key, one fewer one-hot backward runs, and the
+    segmented scan gets a device count of 0 (no valid key: the counted
+    route's list keeps its length), one fewer one-hot backward runs, and the
     step matches the JAX package's (loss rtol 1e-4); the frozen rows and
     dense weights stay bitwise; unfrozen, they move again."""
     from hugectr_tpu_torch.embedding import sparse_optimizer
@@ -191,7 +192,8 @@ def test_freezing_dlrm_ftrl_tables_matches_jax(monkeypatch):
             m.freeze_embedding(n)
     ks = []
     scan = sparse_optimizer.segmented_sum_sorted
-    monkeypatch.setattr(sparse_optimizer, "segmented_sum_sorted", lambda v, *a: ks.append(v.shape[0]) or scan(v, *a))
+    monkeypatch.setattr(sparse_optimizer, "segmented_sum_sorted",
+                        lambda v, h, dt, count, rowsrc: ks.append(int(count)) or scan(v, h, dt, count, rowsrc))
     before = [(tables_of(m, frozen), dense_of(m)) for m in (jm, tm)]
     ops.reset_counts()
     step_both(jm, tm, "frozen")

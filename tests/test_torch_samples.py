@@ -171,11 +171,13 @@ def check_sample(monkeypatch, tmp_path, name, variant):
     routes = list(tm.ec.group_routes.values())
     n_sorted = routes.count("sorted")
     # the dense sweep sums by the drop-mode scatter; the AdaGrad family's
-    # sorted route updates by the drop-mode row update
+    # and FTRL's sorted route updates by the drop-mode row update
     ada = tm.opt_params.optimizer in (Optimizer_t.AdaGrad, Optimizer_t.RowWiseAdaGrad)
+    ftrl = tm.opt_params.optimizer == Optimizer_t.FTRL
     assert ops.plain_counts() == {"segscan": 3 * n_sorted, "onehot_fwd": 3 * len(onehot),
                                   "onehot_bwd": 3 * len(onehot), "ordered_pool": 0,
-                                  "row_scatter": 3 * routes.count("dense"), "adagrad_rows": 3 * n_sorted * ada}
+                                  "row_scatter": 3 * routes.count("dense"), "adagrad_rows": 3 * n_sorted * ada,
+                                  "ftrl_rows": 3 * n_sorted * ftrl}
     state = host_state(jm)
     params = tm.network.param_tree()
     assert_state_close(
