@@ -179,12 +179,18 @@ Each phase prints one JSON line with its own seconds:
    forward and backward on BST's category group at E 1, 11, 16, 18 and 32;
    segscan at the sorted-route K of WDL's wide table, DeepFM, DCN and DIN's
    item table, E 1 to 18), f32 and bf16, with times, bound and library
-   call. "samples_parity": the tiny DeepFM (E 11, sorted route) and the
-   tiny DIN (Dice, one-hot at E 18) on the card against the CPU from one
-   state. "samples_path": each of the eleven graphs at its sample's own
-   sizes, 6 steps and a 20-batch eval: ms/step, ex/s, peak memory, routes,
-   launches a step, the step-1 and step-6 losses, the eval (both tasks'
-   AUC for MMoE).
+   call; Adam's row update (`adam_rows`) bitwise its plain version at the
+   samples' Adam sorted groups and at its edges (E 1, 11, 16, 18; f32,
+   bf16 table, bf16 state; counts 0 to K; zero summed gradients);
+   Dropout's mask (`dropout_mask`) bitwise at the samples' layers; SGD's
+   scatter into MMoE's table. "samples_parity": the tiny DeepFM (E 11,
+   sorted route) and the tiny DIN (Dice, one-hot at E 18) on the card
+   against the CPU from one state. "samples_path": each of the eleven
+   graphs at its sample's own sizes as one captured program (`step_mode`
+   "graph"), 6 steps and a 20-batch eval: ms/step, ex/s, peak memory,
+   routes, launches a step (`adam_rows` once per Adam sorted group,
+   `dropout_mask` once per Dropout layer), the step-1 and step-6 losses,
+   the eval (both tasks' AUC for MMoE); then `graph_ab` on each graph.
 
 11. Snapshots and freezing (run after "ftrl_dynamic_path"; the last one
    after the hybrid phases), each with the card line: "snapshot_path" (the
@@ -350,7 +356,13 @@ flagship's table 20 (table 11 as `table11_case`, bench's hot tier as
 full-scale and FTRL paths; and `ftrl_rows`, FTRL's row update, at the
 FTRL path's table 21 (float32) with its launches there (`launches`),
 its edges' bf16 case with the most device time (`bf16_case`) and its
-launches on the main, freeze and serving paths),
+launches on the main, freeze and serving paths; `row_scatter` also with
+SGD's scatter into MMoE's table (`sgd_case`) and each sample graph's
+launches; and the samples' kernels, `adam_rows` (Adam's row update, its
+float32 sample case with the most device time, its bf16 edge case as
+`bf16_case`) and `dropout_mask` (Dropout's mask at a sample layer), each
+with its launches on `samples_path`, the eleven graphs' steps and evals
+summed (`launches`) and by graph),
 a line with the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that line;
 so does a machine without CUDA.
@@ -1848,7 +1860,10 @@ def sample_kernel_checks(torch, results):
     the counts matmul); segscan at the sorted-route K of WDL's wide table
     (E 1, K 4,096), DeepFM's table (E 11, K 53,248), DCN's (E 16, K 106,496:
     two keys a slot) and DIN's item table (E 18, K 22,528). Limits as in
-    `kernel_checks`; times, bound and library call for each case."""
+    `kernel_checks`; times, bound and library call for each case. Then
+    Adam's row update (`adam_row_checks`), Dropout's mask
+    (`dropout_mask_checks`) and SGD's scatter into the table
+    (`sgd_scatter_checks`) at the samples' shapes."""
     from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
     from hugectr_tpu_torch.tools.kernel_sweep import embedding_bag_call, group_bytes
     from hugectr_tpu_torch.tools.samples import CRITEO_SLOTS, DCN_SLOTS, GOOD_VOCAB, SEQ, WDL_WIDE_SLOTS
@@ -1922,6 +1937,271 @@ def sample_kernel_checks(torch, results):
             emit(rec)
             if not (rec["scaled_err"] <= TOL[dname] and repeat_equal):
                 raise AssertionError(f"segscan disagrees at the samples' width E {e}: {rec}")
+    adam_row_checks(torch, np, dev, results)
+    dropout_mask_checks(torch, np, dev, results)
+    sgd_scatter_checks(torch, np, dev, results)
+
+
+ADAM_WIDTHS = (1, 11, 16, 18)  # the samples' widths on Adam's sorted route
+ADAM_LR = 0.001  # the samples' lr (samples/common.py)
+ADAM_STEP = 3  # the bias corrections' step in the checks
+
+
+def adam_bound(n, u, e, tdt, sdt):
+    """Adam's row update: the ids up to the count, then each tail's float32
+    gradient row once and its table, m and v rows read and written
+    (`csrc/row_scatter.cu`), 14 float32 operations an element."""
+    return bound(n * 8 + u * e * (4 + 2 * tdt.itemsize + 4 * sdt.itemsize), 14 * u * e)
+
+
+def adam_setup(torch, rows, e, tdt, sdt, dev):
+    """A [rows, e] table of `tdt`, its moments of `sdt` as a few steps leave
+    them (v > 0), the lr of the table's type and step 3's bias corrections
+    on the device."""
+    from hugectr_tpu_torch.core.types import Optimizer_t
+    from hugectr_tpu_torch.optim.params import OptParams, StepScalars
+
+    opt = OptParams(optimizer=Optimizer_t.Adam, beta1=0.9, beta2=0.999, epsilon=1e-7)
+    state = ((torch.randn((rows, e), device=dev) * 0.05).to(tdt), (torch.randn((rows, e), device=dev) * 0.01).to(sdt),
+             (torch.rand((rows, e), device=dev) * 1e-3).to(sdt))
+    scalars = StepScalars(dev)
+    scalars.fill(ADAM_STEP)
+    return opt, state, torch.tensor(ADAM_LR, device=dev).to(tdt), scalars.corrections(opt)
+
+
+def adam_rows_run(torch, opt, state, sidx, g, count, lr, bc):
+    """The kernel twice and the plain version once on clones of `state`:
+    (kernel's, second kernel run's, plain version's)."""
+    from hugectr_tpu_torch.ops import row_scatter as rs
+
+    a, b, c = ([x.clone() for x in state] for _ in range(3))
+    rs.adam_rows(opt, *a, sidx, g, count, lr, *bc)
+    rs.adam_rows(opt, *c, sidx, g, count, lr, *bc)
+    rs.adam_rows_plain(opt, *b, sidx, g, count, lr, *bc)
+    torch.cuda.synchronize()
+    return a, c, b
+
+
+def adam_row_checks(torch, np, dev, results):
+    """Phase "adam_rows" (in "sample_kernels"): Adam's drop-mode row update
+    (`adam_rows`) against its plain version on the sorted lists the
+    samples' Adam sorted groups give it at batch 2,048 (criteo_parquet,
+    WDL's two, DeepFM, DCN, DIN's and BST's item tables: the sorted
+    power-law keys of the whole table, every key valid, float32 sums), on
+    float32 table and state at step 3's bias corrections:
+    bitwise, two runs bitwise, every tail's row changed; device ms, CUDA
+    events ms, the plain version's and the bound. Then its edges
+    (`adam_rows_edges`)."""
+    from hugectr_tpu_torch.ops import row_scatter as rs
+    from hugectr_tpu_torch.tools import samples as ts
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+
+    rng = np.random.default_rng(27)
+    lists = (("criteo", 16, ts.CRITEO_SLOTS, 1), ("wdl_deep", 16, ts.WDL_DEEP_SLOTS, 1),
+             ("wdl_wide", 1, ts.WDL_WIDE_SLOTS, 1), ("deepfm", 11, ts.CRITEO_SLOTS, 1), ("dcn", 16, ts.DCN_SLOTS, 2),
+             ("din_good", 18, [ts.GOOD_VOCAB] * (ts.SEQ + 1), 1), ("bst_good", 16, [ts.GOOD_VOCAB] * ts.SEQ, 1))
+    for name, e, slots, nnz in lists:  # case, E, the table's slots, keys a slot
+        t0 = time.perf_counter()
+        seg, heads = sample_sorted_rows(np, rng, slots, nnz)
+        rows, k = sum(slots), len(seg)
+        tails = int(heads.sum())
+        sidx = torch.as_tensor(seg, device=dev)
+        g = torch.as_tensor(rng.standard_normal((k, e), dtype=np.float32), device=dev)
+        count = torch.tensor(k, device=dev)
+        opt, state, lr, bc = adam_setup(torch, rows, e, torch.float32, torch.float32, dev)
+        a, c, b = adam_rows_run(torch, opt, state, sidx, g, count, lr, bc)
+        agree = dict(max_abs_err=max(max_abs_diff(torch, x, y) for x, y in zip(a, b)),
+                     bitwise=all(torch.equal(x, y) for x, y in zip(a, b)),
+                     bitwise_repeat=all(torch.equal(x, y) for x, y in zip(a, c)), rows_changed=rows_changed(a, state))
+        call = lambda: rs.adam_rows(opt, *a, sidx, g, count, lr, *bc)  # noqa: E731 (changes a: timed last)
+        b_ms, b_by = adam_bound(k, tails, e, torch.float32, torch.float32)
+        dms, per_call = device_ms(call, KERNEL_NAMES["adam_rows"])
+        rec = dict(
+            phase="sample_kernels", kernel="adam_rows", case=f"sample_{name}_E{e}", dtype="float32",
+            state_dtype="float32", K=k, count=k, unique_rows=tails, rows=rows, E=e, **agree,
+            ms=time_ms(call), device_ms=dms, device_launches_per_call=per_call,
+            plain_ms=time_ms(lambda: rs.adam_rows_plain(opt, *b, sidx, g, count, lr, *bc), samples=5, inner=1,
+                             warmup=1),
+            library_ms=None, library="none: no single PyTorch call computes a row-wise optimizer update",
+            bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
+        )
+        results.append(rec)
+        emit(rec)
+        if not (rec["bitwise"] and rec["bitwise_repeat"] and rec["rows_changed"] == tails):
+            raise AssertionError(f"Adam's row update disagrees with its plain version: {rec}")
+    adam_rows_edges(torch, np, dev, results)
+
+
+def adam_rows_edges(torch, np, dev, results):
+    """Adam's row update at its edges against its plain version, at DIN's
+    item list (K 22,528 into its 693,011-row table) at E 1, 11, 16 and 18:
+    sorted power-law ids with a negative id first, one row repeated over
+    positions 28-300 (across the 32-id tiles' edges), 64 ids at or past R
+    inside the count, then the padding; every seventh tail's summed
+    gradient 0 (Adam still decays its m and v and moves its weights);
+    counts 0, the ids below R, those and the 64 past R, and K; a float32
+    table and state, a bfloat16 table with float32 state, bfloat16 state,
+    each with an lr of the table's type. Bitwise its plain version in every
+    case, two runs bitwise, the rows changed those the plain version
+    changed, none at count 0 and with float32 state every live tail's (in
+    bfloat16 a step smaller than half a unit in the last place leaves a
+    row as it was: m = 0.9 m + 0.1 g rounds back to m where g is near m,
+    v and the weights move by less); device ms at count K beside the
+    bound, CUDA events and the plain version's ms."""
+    from hugectr_tpu_torch.ops import row_scatter as rs
+    from hugectr_tpu_torch.tools import samples as ts
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+
+    rng = np.random.default_rng(28)
+    rows, k, past, pad = ts.GOOD_VOCAB * (ts.SEQ + 1), SAMPLE_B * (ts.SEQ + 1), 64, 1024
+    valid = k - past - pad
+    ids = np.sort(power_law(rng, rows, valid))
+    ids[0] = -1
+    ids[28:301] = ids[28]
+    sidx = torch.as_tensor(np.concatenate([ids, rows + np.arange(past), np.full(pad, rows + past)]), device=dev)
+    ends = np.flatnonzero(np.concatenate([ids[1:-1] != ids[2:], [True]])) + 1  # every run's end but the -1's
+    for e in ADAM_WIDTHS:
+        g = torch.as_tensor(rng.standard_normal((k, e), dtype=np.float32), device=dev)
+        g[torch.as_tensor(ends[::7], device=dev)] = 0.0
+        for tdt, sdt in ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                         (torch.bfloat16, torch.bfloat16)):
+            t0 = time.perf_counter()
+            opt, state, lr, bc = adam_setup(torch, rows, e, tdt, sdt, dev)
+            checks = []
+            for n in (0, valid, valid + past, k):
+                count = torch.tensor(n, device=dev)
+                a, c, b = adam_rows_run(torch, opt, state, sidx, g, count, lr, bc)
+                checks.append(dict(count=n, bitwise=all(torch.equal(x, y) for x, y in zip(a, b)),
+                                   bitwise_repeat=all(torch.equal(x, y) for x, y in zip(a, c)),
+                                   max_abs_err=max(max_abs_diff(torch, x, y) for x, y in zip(a, b)),
+                                   rows_changed=rows_changed(a, state), plain_rows_changed=rows_changed(b, state)))
+            b_ms, b_by = adam_bound(k, len(ends), e, tdt, sdt)
+            call = lambda: rs.adam_rows(opt, *a, sidx, g, count, lr, *bc)  # noqa: E731
+            dms, per_call = device_ms(call, KERNEL_NAMES["adam_rows"])
+            rec = dict(kernel="adam_rows",
+                       case=f"edges_E{e}_{str(tdt).split('.')[1]}_{str(sdt).split('.')[1]}",
+                       dtype=str(tdt).split(".")[1], state_dtype=str(sdt).split(".")[1], K=k, E=e, rows=rows,
+                       count=k, unique_rows=len(ends), zero_grad_tails=len(ends[::7]), checks=checks,
+                       max_abs_err=max(x["max_abs_err"] for x in checks), ms=time_ms(call), device_ms=dms,
+                       device_launches_per_call=per_call,
+                       plain_ms=time_ms(lambda: rs.adam_rows_plain(opt, *b, sidx, g, count, lr, *bc), samples=3,
+                                        inner=1, warmup=1),
+                       library_ms=None, library="none: no single PyTorch call computes a row-wise optimizer update",
+                       bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms,
+                       ok=all(x["bitwise"] and x["bitwise_repeat"] and x["rows_changed"] == x["plain_rows_changed"]
+                              and (x["rows_changed"] == 0 if x["count"] == 0 else
+                                   sdt == torch.bfloat16 or x["rows_changed"] == len(ends)) for x in checks),
+                       seconds=time.perf_counter() - t0)
+            results.append(rec)
+            emit(rec)
+            if not rec["ok"]:
+                raise AssertionError(f"Adam's row update disagrees with its plain version at its edges: {rec}")
+
+
+# Dropout's layers at batch 2,048 (`samples_path`): (graph, width)
+DROPOUT_SHAPES = (("wdl", 1024), ("deepfm", 400), ("ncf", 256))
+
+
+def dropout_mask_checks(torch, np, dev, results):
+    """Phase "dropout_mask" (in "sample_kernels"): the keep mask of
+    Dropout 0.5 at the samples' layers (`DROPOUT_SHAPES`, batch 2,048)
+    against its plain version, bitwise (integer arithmetic), the kept share
+    within 5 standard deviations of 0.5, the next step's mask another with
+    about half its elements equal, and a rank's block of the global mask
+    the mask drawn from its first index (W 2); then at keep 0.8. Device ms,
+    CUDA events ms, the plain version's, the bound (the mask's bytes
+    written; 24 integer operations an element against the float32 rate)."""
+    from hugectr_tpu_torch.ops import dropout as dr
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+
+    key = dr.key_of(0x2545F4914F6CDD1D)
+    step = torch.tensor(5, device=dev)
+    for graph, width in DROPOUT_SHAPES:
+        for keep in (0.5, 0.8):
+            t0 = time.perf_counter()
+            n = SAMPLE_B * width
+            got = dr.dropout_mask(key, step, n, 0, keep)
+            want = dr.dropout_mask_plain(key, step, n, 0, keep)
+            nxt = dr.dropout_mask(key, step + 1, n, 0, keep)
+            half = dr.dropout_mask(key, step, n // 2, n // 2, keep)
+            torch.cuda.synchronize()
+            share = float(got.float().mean())
+            both = keep**2 + (1 - keep) ** 2
+            agree = float((got == nxt).float().mean())
+            call = lambda: dr.dropout_mask(key, step, n, 0, keep)  # noqa: E731
+            b_ms, b_by = bound(n + 8, 24 * n)
+            dms, per_call = device_ms(call, KERNEL_NAMES["dropout_mask"])
+            rec = dict(
+                phase="sample_kernels", kernel="dropout_mask", case=f"sample_{graph}_{width}_keep{keep}",
+                dtype="bool", B=SAMPLE_B, width=width, keep=keep, elements=n, bitwise=bool(torch.equal(got, want)),
+                max_abs_err=float((got != want).sum()), kept_share=share, next_step_agreement=agree,
+                rank_block_equal=bool(torch.equal(half, got[n // 2:])), ms=time_ms(call), device_ms=dms,
+                device_launches_per_call=per_call,
+                plain_ms=time_ms(lambda: dr.dropout_mask_plain(key, step, n, 0, keep), samples=5, inner=1, warmup=1),
+                library_ms=None,
+                library="none: no PyTorch call draws a mask that is a function of a device step",
+                bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
+            )
+            results.append(rec)
+            emit(rec)
+            sd = math.sqrt(keep * (1 - keep) / n)
+            if not (rec["bitwise"] and rec["rank_block_equal"] and abs(share - keep) <= 5 * sd
+                    and abs(agree - both) <= 5 * math.sqrt(both * (1 - both) / n)):
+                raise AssertionError(f"Dropout's mask disagrees with its plain version or its rate: {rec}")
+
+
+def sgd_scatter_checks(torch, np, dev, results):
+    """SGD's update (MMoE's and shared-bottom's optimizer): the drop-mode
+    scatter of -lr g into the table itself (`scatter_add_rows_`) against its
+    plain version on MMoE's table (the 32 slots' rows, E 16) and its batch
+    (2,048 x 32 power-law keys, 1,024 of them past the rows, so dropped):
+    the float32 tolerance of the scaled error (atomic adds, as
+    `index_add_`'s), the rows no key lands on bitwise unchanged (row 0 at
+    -0.0 kept); one `index_add_` of the valid rows beside it."""
+    from hugectr_tpu_torch.ops import row_scatter as rs
+    from hugectr_tpu_torch.tools.devtime import KERNEL_NAMES, device_ms
+    from hugectr_tpu_torch.tools.samples import MMOE_SLOTS
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(29)
+    rows, e, k = sum(MMOE_SLOTS), 16, SAMPLE_B * len(MMOE_SLOTS)
+    keys = power_law(rng, rows - 1, k) + 1  # row 0 gets no key
+    keys[rng.choice(k, 1024, replace=False)] = rows + 7
+    idx = torch.as_tensor(keys, device=dev)
+    src = torch.arange(k, device=dev)
+    vals = -ADAM_LR * torch.as_tensor(rng.standard_normal((k, e), dtype=np.float32), device=dev)
+    table = torch.randn((rows, e), device=dev)
+    table[0] = -0.0
+    got, want = table.clone(), table.clone()
+    rs.scatter_add_rows_(got, idx, src, vals)
+    rs.scatter_add_rows_into_plain(want, idx, src, vals)
+    scale = table.abs()
+    rs.scatter_add_rows_into_plain(scale, idx, src, vals.abs())
+    touched = torch.zeros(rows, dtype=torch.bool, device=dev)
+    touched[idx[idx < rows]] = True
+    valid = idx < rows
+    vidx, vv = idx[valid], vals[src[valid]]
+    buf = table.clone()
+    torch.cuda.synchronize()
+    n = int(valid.sum())
+    call = lambda: rs.scatter_add_rows_(buf, idx, src, vals)  # noqa: E731
+    b_ms, b_by = bound(k * 16 + n * e * 4 + 2 * int(touched.sum()) * e * 4, n * e)
+    dms, per_call = device_ms(call, KERNEL_NAMES["row_scatter"])
+    rec = dict(
+        kernel="row_scatter", case="sgd_mmoe_table", dtype="float32", out_dtype="float32", K=k, valid=n, rows=rows,
+        E=e, scaled_err=scaled_err(got, want, scale), max_abs_err=float((got - want).abs().max()),
+        tol=TOL["float32"], untouched_bitwise=bool(torch.equal(got[~touched], table[~touched])),
+        row0_negative_zero=bool(torch.signbit(got[0]).all()), ms=time_ms(call), device_ms=dms,
+        device_launches_per_call=per_call,
+        plain_ms=time_ms(lambda: rs.scatter_add_rows_into_plain(buf, idx, src, vals), samples=5, inner=1, warmup=1),
+        library_ms=time_ms(lambda: buf.index_add_(0, vidx, vv)),
+        library="torch.Tensor.index_add_ of the valid rows (taken out beforehand)",
+        bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / dms, seconds=time.perf_counter() - t0,
+    )
+    results.append(rec)
+    emit(rec)
+    if not (rec["scaled_err"] <= TOL["float32"] and rec["untouched_bitwise"] and rec["row0_negative_zero"]):
+        raise AssertionError(f"SGD's scatter into the table disagrees with its plain version: {rec}")
 
 
 def adam_excess(np, got, want, v, lr, rtol=1e-4, atol=1e-5):
@@ -1992,17 +2272,25 @@ def samples_parity(torch):
 def samples_path(torch):
     """Phase "samples_path": each graph of `tools/samples.py::GRAPHS` at
     its sample's own sizes (slot sizes, widths, optimizer, batch 2,048,
-    dropout 0.5) on synthetic learnable data: 6 steps, then a warm-up eval
+    dropout 0.5) on synthetic learnable data, as one captured program
+    (`step_mode` "graph": the steps after the first and the eval batches
+    after the first replay their captures): 6 steps, then a warm-up eval
     and a timed one over 20 batches, launch counters set to 0 just before
     the steps and the timed eval and read just after. One line per graph:
     median ms/step of steps 2-6, train and eval ex/s, peak memory, routes,
     each kernel's launches a step, the step-1 and step-6 losses (a loss
     that does not fall is printed, not failed), the eval (each task's AUC
-    for MMoE). Non-finite losses fail; so does a kernel that no graph
-    launches, and BST's one-hot group if it is not the one
-    `bst_onehot_group` checks."""
+    for MMoE). Then `graph_ab` ("samples_<graph>_graph_ab": eager against
+    replayed from one state, the replays under
+    `set_sync_debug_mode("error")`). Non-finite losses fail; so does a step
+    mode other than "graph", `adam_rows` other than once per Adam sorted
+    group and step (none in eval), `dropout_mask` other than once per
+    Dropout layer of rate > 0 and step, a kernel that no graph launches,
+    and BST's one-hot group if it is not the one `bst_onehot_group`
+    checks."""
     from hugectr_tpu_torch import ops
     from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.core.types import Optimizer_t
     from hugectr_tpu_torch.embedding.collection import onehot_fwd_lookups
     from hugectr_tpu_torch.tools.samples import CATE_VOCAB, GRAPHS, SEQ, build_sample
 
@@ -2032,12 +2320,19 @@ def samples_path(torch):
         eval_launches = ops.launch_counts()
         steady = statistics.median(step_s[1:])
         onehot = [g for g in model.ec.plan.groups if g.compute_kind == "onehot"]
+        routes = dict(model.ec.group_routes)
+        kind = model.opt_params.optimizer
+        n_adam = list(routes.values()).count("sorted") * (kind == Optimizer_t.Adam)
+        n_drop = sum(d.layer_type == "Dropout" and d.dropout_rate > 0 for d in model.dense_layers)
         rec = dict(
-            phase="samples_path", graph=graph, batch=SAMPLE_B, steps=6,
+            phase="samples_path", graph=graph, batch=SAMPLE_B, steps=6, optimizer=kind.value,
+            step_mode=model.step_mode, captured=sorted(model._graphs),
             tables={g.name: [g.total_storage_rows, g.ev_size] for g in model.ec.plan.groups},
-            median_ms_per_step=steady * 1e3, train_examples_per_s=SAMPLE_B / steady,
+            median_ms_per_step=steady * 1e3, step_ms=[x * 1e3 for x in step_s],
+            train_examples_per_s=SAMPLE_B / steady,
             eval_batches=20, eval_seconds=eval_s, eval_examples_per_s=20 * SAMPLE_B / eval_s,
-            max_memory_allocated=torch.cuda.max_memory_allocated(), routes=dict(model.ec.group_routes),
+            max_memory_allocated=torch.cuda.max_memory_allocated(), routes=routes,
+            adam_sorted_groups=n_adam, dropout_layers=n_drop,
             launches_per_step={k: n / 6 for k, n in train_launches.items()}, eval_launches=eval_launches,
             loss_step1=losses[0], loss_step6=losses[-1], loss_fell=losses[-1] < losses[0], eval=vals,
             build_seconds=build_s, seconds=time.perf_counter() - t0,
@@ -2045,6 +2340,11 @@ def samples_path(torch):
         emit(rec)
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"non-finite loss on the {graph} path: {losses}")
+        if rec["step_mode"] != "graph" or rec["captured"] != ["eval", "train"]:
+            raise AssertionError(f"the {graph} path ran {rec['step_mode']}, captured {rec['captured']}")
+        if not (train_launches["adam_rows"] == 6 * n_adam and train_launches["dropout_mask"] == 6 * n_drop
+                and eval_launches["adam_rows"] == eval_launches["dropout_mask"] == 0):
+            raise AssertionError(f"the {graph} path's launches: {train_launches}, eval {eval_launches}")
         if graph == "bst":
             got = sorted((lk.row_off, lk.vocab) for g in onehot if g.ev_size == 16 for lk in onehot_fwd_lookups(g))
             want = sorted([(0, CATE_VOCAB * SEQ)] * SEQ + [(CATE_VOCAB * SEQ, CATE_VOCAB)])
@@ -2053,9 +2353,11 @@ def samples_path(torch):
                 raise AssertionError(f"BST's one-hot group {got}, {train_launches['onehot_fwd']} forward and "
                                      f"{train_launches['onehot_bwd']} backward launches in 6 steps")
         out[graph] = {k: train_launches[k] + eval_launches[k] for k in train_launches}
+        graph_ab(torch, model, f"samples_{graph}")
         del model
         torch.cuda.empty_cache()
-    missing = [k for k in ONE_CARD_KERNELS if not any(x[k] for x in out.values())]
+    missing = [k for k in (*ONE_CARD_KERNELS, "adam_rows", "dropout_mask", "row_scatter")
+               if not any(x[k] for x in out.values())]
     if missing:
         raise AssertionError(f"no sample launched {missing}")
     return out
@@ -2386,7 +2688,7 @@ def graph_ab(torch, model, label: str) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         timing.append(dict(turn=turn, ms_per_step=dt / GRAPH_AB_STEPS * 1e3,
-                           examples_per_s=GRAPH_AB_STEPS * B / dt))
+                           examples_per_s=GRAPH_AB_STEPS * model.solver.batchsize / dt))
     # eval: eager against replayed, then in turns
     restore(False)
     n_eval = model.solver.max_eval_batches * model.solver.batchsize_eval
@@ -5507,6 +5809,33 @@ def main() -> int:
         ftrl_path_launches=ftrl_launches["ftrl_rows"], main_path_launches=launches["ftrl_rows"],
         freeze_path_launches=freeze_launches["ftrl_rows"], serving_path_launches=serving_launches["ftrl_rows"],
     ))
+    # SGD's scatter into the table (the row_scatter kernel on the samples'
+    # path: MMoE's and shared-bottom's update) and the samples' launches
+    row = next(x for x in kernels if x["name"] == "row_scatter")
+    sgd = next(x for x in sample_results if x["case"] == "sgd_mmoe_table")
+    row.update(sgd_case={k: sgd[k] for k in keys},
+               samples_path_launches={g: x["row_scatter"] for g, x in samples_launches.items()})
+    # Adam's row update and Dropout's mask: kernels of the samples' path
+    # (`launches`: the eleven graphs' 6 steps and 20 eval batches), each at
+    # its float32 sample case with the most device time, beside Adam's
+    # bf16 edge case with the most device time
+    for name, replaces in (
+            ("adam_rows", "hugectr_tpu/embedding/sparse_optimizer.py:855-870 (_apply_rows' Adam gathers and "
+                          "mode='drop' row scatters; no Pallas kernel)"),
+            ("dropout_mask", "hugectr_tpu/layers/core_layers.py:88-97 (Dropout's jax.random.bernoulli of the "
+                             "step's folded key, hugectr_tpu/model/model.py:801; no Pallas kernel)")):
+        cases = [x for x in sample_results if x["kernel"] == name]
+        r = max((x for x in cases if x["dtype"] in ("float32", "bool") and x["case"].startswith("sample_")),
+                key=lambda x: x["device_ms"])
+        extra = {}
+        if name == "adam_rows":
+            rb = max((x for x in cases if x["dtype"] == "bfloat16"), key=lambda x: x["device_ms"])
+            extra = dict(bf16_case={**{k: rb[k] for k in keys}, "state_dtype": rb["state_dtype"]})
+        source = "row_scatter" if name == "adam_rows" else "dropout"
+        kernels.append(dict(
+            name=name, route="cuda", source=f"hugectr_tpu_torch/csrc/{source}.cu", replaces=replaces, launches=sum(x[name] for x in samples_launches.values()), **{k: r[k] for k in keys},
+            samples_path_launches={g: x[name] for g, x in samples_launches.items()}, **extra,
+        ))
     # the ordered pool: a kernel of the paths over W ranks; its launches are
     # rank 0's on the hybrid path (steps and eval), beside the bench path's
     # and its bf16 case with the most device time (the unweighted cases of

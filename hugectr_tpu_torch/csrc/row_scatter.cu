@@ -28,6 +28,15 @@
 //    `_apply_rows` FTRL, sparse_optimizer.py:873-891, which sets w, z and
 //    n): each tail reads its gradient row and its rows of w, z and n, and
 //    sets all three, each rounded once to its array's type.
+// 4. hctr_adam_rows: Adam's update of the same tails (the JAX package's
+//    `_apply_rows` Adam, sparse_optimizer.py:855-870): each tail reads its
+//    gradient row and its rows of the table, m and v, sets m and v (each
+//    rounded once to the state's type) and adds the delta rounded to the
+//    table's type. The bias corrections 1 - beta^t are read from two
+//    float32 device scalars, which the step fills before it runs, so a
+//    captured step replays with the step it runs. Adam is no no-op on a
+//    zero summed gradient: a live tail with g = 0 still decays m and v and
+//    moves its weights, so every live tail is updated.
 //
 // Bound on an H100: memory. The scatter reads idx, src and the live rows
 // of vals and adds into dst. The update reads the sorted ids up to the
@@ -36,7 +45,8 @@
 // value for RowWiseAdaGrad): (8 n + U (4 E + 2 E t + 2 w a)) bytes at
 // 3.35 TB/s, with t and a the table's and the accumulator's item sizes and w
 // the accumulator's width. FTRL's: (8 n + U (4 E + 2 E t + 4 E s)) bytes, s
-// the state's item size (28 E a tail in float32).
+// the state's item size (28 E a tail in float32); Adam's the same, with m
+// and v for z and n.
 //
 // Design of the scatter: one warp per entry, in a grid-stride loop over a
 // fixed grid, so that a captured launch does the same work as an eager one
@@ -101,6 +111,13 @@
 // lambda1, and most of the sample's weights sit at that edge, so a
 // rounding on either side would flip one; the float32 update is its plain
 // version to the last bit.
+//
+// Design of Adam's update: FTRL's (`Tails`, kDepth tails a warp in
+// registers, 4 columns a lane where the rows allow, all loads of the tails
+// in flight before the first one's arithmetic), with the arithmetic of
+// `sparse_optimizer.update_math`'s Adam op by op in torch's order. Its
+// callers are the samples' sorted groups at batch 2,048: lists of 2,048 to
+// 53,248 ids, whose launch, not their bytes, sets the time.
 #include "common.cuh"
 
 namespace hctr {
@@ -655,6 +672,110 @@ int ftrl_launch(void* table, void* z, void* n, const int64_t* sidx, const float*
                   : ftrl_launch_one<TT, TS, 1>(table, z, n, sidx, g, count, lr, lr_bf16, k, rows, e, c, s);
 }
 
+// Adam's constants, each rounded to float32 as torch rounds a Python float
+// that enters a float32 op (1 - beta computed in double on the host first,
+// as Python computes it)
+struct AdamConsts {
+  float beta1, one_minus_beta1, beta2, one_minus_beta2, eps;
+};
+
+// One element of Adam, op by op in the order torch evaluates
+// `sparse_optimizer.update_math` (JAX: sparse_optimizer.py:855-870), every
+// result rounded on its own: m and v in float32 (read from the state's
+// type), g the summed gradient; the table adds the delta rounded to its type.
+template <typename TT>
+__device__ __forceinline__ void adam_elem(float gc, float& w, float& m, float& v, float neg_lr, float bc1, float bc2,
+                                          const AdamConsts& c) {
+  m = __fadd_rn(__fmul_rn(c.beta1, m), __fmul_rn(c.one_minus_beta1, gc));
+  v = __fadd_rn(__fmul_rn(c.beta2, v), __fmul_rn(__fmul_rn(c.one_minus_beta2, gc), gc));
+  const float num = __fmul_rn(neg_lr, __fdiv_rn(m, bc1));
+  const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v, bc2)), c.eps);
+  w = __fadd_rn(w, to_f32(from_f32<TT>(__fdiv_rn(num, den))));
+}
+
+// Adam's update of one group of tails: each lane's columns of every live
+// row's gradient, weights, m and v are all loaded before the first one's
+// arithmetic, then updated and stored, each rounded once to its array's type.
+template <typename TT, typename TS, int kVec>
+__device__ __forceinline__ void adam_group(TT* __restrict__ table, TS* __restrict__ m, TS* __restrict__ v,
+                                           const float* __restrict__ g, const int64_t (&r)[kDepth],
+                                           const int64_t (&p)[kDepth], const bool (&live)[kDepth], int lane, int e,
+                                           float neg_lr, float bc1, float bc2, const AdamConsts& c) {
+  for (int col = lane * kVec; col < e; col += 32 * kVec) {
+    float gv[kDepth][kVec], wv[kDepth][kVec], mv[kDepth][kVec], vv[kDepth][kVec];
+#pragma unroll
+    for (int s = 0; s < kDepth; ++s) {
+      if (!live[s]) continue;
+      load_vec<kVec>(g + p[s] * e + col, gv[s]);
+      load_vec<kVec>(table + r[s] * e + col, wv[s]);
+      load_vec<kVec>(m + r[s] * e + col, mv[s]);
+      load_vec<kVec>(v + r[s] * e + col, vv[s]);
+    }
+#pragma unroll
+    for (int s = 0; s < kDepth; ++s) {
+      if (!live[s]) continue;
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) adam_elem<TT>(gv[s][i], wv[s][i], mv[s][i], vv[s][i], neg_lr, bc1, bc2, c);
+      store_vec<kVec>(table + r[s] * e + col, wv[s]);
+      store_vec<kVec>(m + r[s] * e + col, mv[s]);
+      store_vec<kVec>(v + r[s] * e + col, vv[s]);
+    }
+  }
+}
+
+// Adam's update of the segment tails among the first *count entries: the
+// tails found as `adagrad_rows` finds them, kDepth at a time a warp, a lane
+// 4 columns in one access where the rows allow (kVec 4), else one; the
+// bias corrections read from the device.
+template <typename TT, typename TS, int kVec>
+__global__ void __launch_bounds__(kThreads)
+adam_rows(TT* __restrict__ table, TS* __restrict__ m, TS* __restrict__ v, const int64_t* __restrict__ sidx,
+          const float* __restrict__ g, const int64_t* __restrict__ count, const void* __restrict__ lr_ptr,
+          int lr_bf16, const float* __restrict__ bc1_ptr, const float* __restrict__ bc2_ptr, int64_t k, int64_t rows,
+          int e, AdamConsts c) {
+  int64_t cnt = *count;
+  cnt = cnt < 0 ? 0 : (cnt < k ? cnt : k);
+  Tails tails;
+  if (!tails.start(sidx, k, cnt, rows)) return;  // the whole warp
+  const float neg_lr = -load_lr(lr_ptr, lr_bf16);
+  const float bc1 = *bc1_ptr, bc2 = *bc2_ptr;
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    int64_t r[kDepth], p[kDepth];
+    bool live[kDepth];
+#pragma unroll
+    for (int s = 0; s < kDepth; ++s) {
+      long long rr = 0;
+      int64_t pp = 0;
+      live[s] = (s == 0 || live[s - 1]) && tails.next(rr, pp);
+      r[s] = rr;
+      p[s] = pp;
+    }
+    if (!live[0]) return;
+    adam_group<TT, TS, kVec>(table, m, v, g, r, p, live, lane, e, neg_lr, bc1, bc2, c);
+  }
+}
+
+template <typename TT, typename TS, int kVec>
+int adam_launch_one(void* table, void* m, void* v, const int64_t* sidx, const float* g, const int64_t* count,
+                    const void* lr, int lr_bf16, const float* bc1, const float* bc2, int64_t k, int64_t rows, int e,
+                    AdamConsts c, cudaStream_t s) {
+  static int blocks[64] = {};  // resident on each device
+  const unsigned grid = card_grid(adam_rows<TT, TS, kVec>, 0, k, blocks);
+  adam_rows<TT, TS, kVec><<<grid, kThreads, 0, s>>>(static_cast<TT*>(table), static_cast<TS*>(m),
+                                                     static_cast<TS*>(v), sidx, g, count, lr, lr_bf16, bc1, bc2, k,
+                                                     rows, e, c);
+  return cudaGetLastError();
+}
+
+template <typename TT, typename TS>
+int adam_launch(void* table, void* m, void* v, const int64_t* sidx, const float* g, const int64_t* count,
+                const void* lr, int lr_bf16, const float* bc1, const float* bc2, int64_t k, int64_t rows, int e,
+                AdamConsts c, int vec, cudaStream_t s) {
+  return vec == 4 ? adam_launch_one<TT, TS, 4>(table, m, v, sidx, g, count, lr, lr_bf16, bc1, bc2, k, rows, e, c, s)
+                  : adam_launch_one<TT, TS, 1>(table, m, v, sidx, g, count, lr, lr_bf16, bc1, bc2, k, rows, e, c, s);
+}
+
 }  // namespace
 }  // namespace hctr
 
@@ -744,5 +865,40 @@ extern "C" int hctr_ftrl_rows(int table_dtype, int state_dtype, void* table, voi
     return ftrl_launch<float, bf16>(table, z, n, ix, gx, cnt, lr, lr_bf16, k, rows, e, c, vec, s);
   if (table_dtype == hctr::kBF16 && state_dtype == hctr::kBF16)
     return ftrl_launch<bf16, bf16>(table, z, n, ix, gx, cnt, lr, lr_bf16, k, rows, e, c, vec, s);
+  return cudaErrorInvalidValue;
+}
+
+// Adam's update of table [rows, e] and its state m, v [rows, e] (both of
+// `state_dtype`) from the sorted row ids sidx [k] (int64) and the float32
+// segmented sums g [k, e], for the segment tails among the first *count
+// entries: m and v are set, the table adds the delta. lr is a device scalar
+// of `lr_dtype`; bc1 and bc2 the float32 device scalars 1 - beta1^t and
+// 1 - beta2^t; beta1, 1 - beta1, beta2, 1 - beta2 and eps the optimizer's
+// constants. vec 4: e is a multiple of 4 and g, table, m and v start on 4
+// elements; else 1. Returns cudaGetLastError().
+extern "C" int hctr_adam_rows(int table_dtype, int state_dtype, void* table, void* m, void* v, const void* sidx,
+                              const void* g, const void* count, const void* lr, int lr_dtype, const void* bc1,
+                              const void* bc2, int64_t k, int64_t rows, int e, float beta1, float one_minus_beta1,
+                              float beta2, float one_minus_beta2, float eps, int vec, void* stream) {
+  if (k == 0 || e == 0) return cudaSuccess;
+  if (vec != 1 && vec != 4) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* ix = static_cast<const int64_t*>(sidx);
+  const auto* gx = static_cast<const float*>(g);
+  const auto* cnt = static_cast<const int64_t*>(count);
+  const auto* b1 = static_cast<const float*>(bc1);
+  const auto* b2 = static_cast<const float*>(bc2);
+  const int lr_bf16 = lr_dtype == hctr::kBF16;
+  const hctr::AdamConsts c{beta1, one_minus_beta1, beta2, one_minus_beta2, eps};
+  using bf16 = __nv_bfloat16;
+  using hctr::adam_launch;
+  if (table_dtype == hctr::kF32 && state_dtype == hctr::kF32)
+    return adam_launch<float, float>(table, m, v, ix, gx, cnt, lr, lr_bf16, b1, b2, k, rows, e, c, vec, s);
+  if (table_dtype == hctr::kBF16 && state_dtype == hctr::kF32)
+    return adam_launch<bf16, float>(table, m, v, ix, gx, cnt, lr, lr_bf16, b1, b2, k, rows, e, c, vec, s);
+  if (table_dtype == hctr::kF32 && state_dtype == hctr::kBF16)
+    return adam_launch<float, bf16>(table, m, v, ix, gx, cnt, lr, lr_bf16, b1, b2, k, rows, e, c, vec, s);
+  if (table_dtype == hctr::kBF16 && state_dtype == hctr::kBF16)
+    return adam_launch<bf16, bf16>(table, m, v, ix, gx, cnt, lr, lr_bf16, b1, b2, k, rows, e, c, vec, s);
   return cudaErrorInvalidValue;
 }

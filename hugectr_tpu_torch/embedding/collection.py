@@ -1074,7 +1074,7 @@ class EmbeddingCollection:
             vecs = vecs * torch.where(valid, w_loc, 0.0).reshape(-1, 1).to(vecs.dtype)
         return vecs.reshape(keys_loc.shape[0], g.out_width)
 
-    def _mp_bwd_dense(self, gname: str, table, state, lists, keys_loc, d_loc, lr, step: int,
+    def _mp_bwd_dense(self, gname: str, table, state, lists, keys_loc, d_loc, lr, step,
                       w_loc: Optional[torch.Tensor] = None) -> str:
         """The update of this rank's shard by the unique-key exchange
         (`_mp_bwd_dense_local`, collection.py:1121-1175): the rank's block's
@@ -1107,13 +1107,14 @@ class EmbeddingCollection:
         feature_keys: Dict[str, torch.Tensor],
         d_outs: Dict[str, torch.Tensor],
         lr: torch.Tensor,
-        step: int = 1,
+        step=1,
         feature_weights: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[Tables, Dict[str, Dict[str, torch.Tensor]]]:
         """Fused embedding backward + sparse optimizer update, in place
         (collection.py:1567). d_outs: {top_name: [B, out_width]} cotangents
-        from the dense network; `step` is the 1-based global step (Adam's
-        bias corrections); `feature_weights` as for `forward`: a weighted
+        from the dense network; `step` is the 1-based global step or the
+        model's `StepScalars` (Adam's bias corrections as device scalars);
+        `feature_weights` as for `forward`: a weighted
         key's row gradient is its weight times the cotangent. A dynamic
         group inserts the batch's new keys into
         its key store before its rows are updated (`_bwd_single`, :1942).
@@ -1151,7 +1152,7 @@ class EmbeddingCollection:
             self.group_routes[g.name] = route
         return tables, opt_state
 
-    def _rowop_update(self, g: GroupPlan, tables: Tables, state, keys, d_group, lr, step: int,
+    def _rowop_update(self, g: GroupPlan, tables: Tables, state, keys, d_group, lr, step,
                       weights: Optional[torch.Tensor] = None) -> str:
         """The update of a rowop group from the rank's [b, H] keys and [b,
         out_width] cotangents; returns the route. Over W ranks a

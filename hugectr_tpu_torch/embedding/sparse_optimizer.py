@@ -5,7 +5,9 @@ Nesterov, AdaGrad, RowWiseAdaGrad, RMSProp, Adam and FTRL on the update
 routes of one device:
 
 * SGD (`apply_sparse`, sparse_optimizer.py:403-410) is stateless: one
-  masked `index_add_` of -lr x each key's gradient, no sort;
+  drop-mode add of -lr x each key's gradient into the table
+  (`ops/row_scatter.py::scatter_add_rows_`: the whole key list, the
+  sentinel rows skipped, as mode="drop" skips them), no sort;
 * the dense sweep (:428-505): small shards, or (AdaGrad family only) big
   shards whose key count reaches `dense_ratio` x rows, add their row
   gradients into a dense float32 [R, E] buffer with the drop-mode scatter
@@ -18,24 +20,25 @@ routes of one device:
   is touched when a valid key lands on it (the JAX package's ones column,
   :464-504);
 * the sorted route (:506-621): sort (row, grad-source) pairs; invalid
-  keys carry the sentinel row and sort last (:607). For the AdaGrad family
-  and FTRL (`COUNTED`, `_sorted_rows`) the step has a fixed shape and no
+  keys carry the sentinel row and sort last (:607). For the AdaGrad family,
+  FTRL and Adam (`COUNTED`, `_sorted_rows`) the step has a fixed shape and no
   host sync: the count of the valid prefix stays on the device, the
   segscan kernel sums the prefix's gradient rows in float32 (reading them
   through the sorted order itself) and stops at the count, and the
-  drop-mode row update (`adagrad_rows`, `ftrl_rows`) updates each segment
-  tail, the unique rows (`_apply_rows`, :752, :873-891), so the card does
-  the valid keys' work and not the padding's. Momentum, Nesterov, RMSProp
-  and Adam, the packed layouts and the drop mode keep the valid prefix on
-  the host (`dedup_rows` scan contract, :127-149), gather it, sum it and
-  update the tails with `index_add_` / `index_copy_`.
+  drop-mode row update (`adagrad_rows`, `ftrl_rows`, `adam_rows`) updates
+  each segment tail, the unique rows (`_apply_rows`, :752, :855-891), so
+  the card does the valid keys' work and not the padding's. Momentum,
+  Nesterov and RMSProp, the packed layouts and the drop mode keep the valid
+  prefix on the host (`dedup_rows` scan contract, :127-149), gather it,
+  sum it and update the tails with `index_add_` / `index_copy_`.
 
 Tables may be bfloat16 and the state bfloat16: the update math runs in
 float32 and each result is rounded once to its array's type, at the JAX
 package's cast points (`sel(new.astype(old.dtype))`, :272-338; the row
 route adds the delta rounded to the table's type or sets the new value,
 :780-893). Adam's bias corrections are float32 scalars of the global step
-(:311-318).
+(:311-318): the device scalars of the model's `StepScalars`, filled before
+each step (`optim/params.py`), or the float32 values of an int step.
 
 The unique-row windows (sparse_optimizer.py:238-251, :585-621, :645-659):
 the JAX package runs the update on a static prefix of `ucap` unique rows
@@ -70,9 +73,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core.types import Optimizer_t
-from ..ops.row_scatter import adagrad_rows, ftrl_rows, scatter_add_rows
+from ..ops.row_scatter import adagrad_rows, adam_rows, ftrl_rows, scatter_add_rows, scatter_add_rows_
 from ..ops.segscan import segmented_sum_sorted
-from ..optim.params import OptParams, adam_bias_corrections
+from ..optim.params import OptParams, bias_corrections
 
 State = Dict[str, torch.Tensor]
 
@@ -80,7 +83,7 @@ State = Dict[str, torch.Tensor]
 ADAGRAD_FAMILY = (Optimizer_t.AdaGrad, Optimizer_t.RowWiseAdaGrad)
 # the optimizers whose sorted route is counted on the device (a fixed
 # shape, no host sync): a drop-mode row update each
-COUNTED = (*ADAGRAD_FAMILY, Optimizer_t.FTRL)
+COUNTED = (*ADAGRAD_FAMILY, Optimizer_t.FTRL, Optimizer_t.Adam)
 # the routes that sum duplicate rows with `index_add_`, whose atomics on
 # the card sum in an order that differs from run to run; the sorted route
 # is deterministic
@@ -113,12 +116,14 @@ def init_state(
 
 
 def update_math(
-    opt: OptParams, w: torch.Tensor, st: State, g: torch.Tensor, lr: torch.Tensor, step: int
+    opt: OptParams, w: torch.Tensor, st: State, g: torch.Tensor, lr: torch.Tensor, step=1
 ) -> Tuple[str, torch.Tensor, State]:
     """One update of rows `w` with state rows `st` and float32 gradient `g`,
     as the JAX package writes it (sparse_optimizer.py:278-338, :805-891).
-    Returns ("add", delta) or ("set", new value) for the table, and the new
-    state rows; nothing is rounded or written here. bfloat16 state is read
+    `step` gives Adam's bias corrections (`optim.params.bias_corrections`:
+    a `StepScalars`, an int step, or the pair itself). Returns ("add",
+    delta) or ("set", new value) for the table, and the new state rows;
+    nothing is rounded or written here. bfloat16 state is read
     as float32: XLA computes a bfloat16 product such as beta1 * m in float32
     without rounding it (excess precision), and so does this."""
     kind = opt.optimizer
@@ -141,7 +146,7 @@ def update_math(
         v = opt.beta * st["v"] + (1.0 - opt.beta) * g * g
         return "add", -lr * g / (torch.sqrt(v) + opt.epsilon), {"v": v}
     if kind == Optimizer_t.Adam:
-        bc1, bc2 = adam_bias_corrections(opt, step)
+        bc1, bc2 = bias_corrections(opt, step)
         m = opt.beta1 * st["m"] + (1.0 - opt.beta1) * g
         v = opt.beta2 * st["v"] + (1.0 - opt.beta2) * g * g
         delta = -lr * (m / bc1) / (torch.sqrt(v / bc2) + opt.epsilon)
@@ -202,7 +207,7 @@ def apply_dense(
     grad: torch.Tensor,
     touched: torch.Tensor,
     lr: torch.Tensor,
-    step: int = 1,
+    step=1,
 ) -> None:
     """Full-table update with lazy-row semantics, in place
     (sparse_optimizer.py:254): untouched rows keep table and state. New
@@ -233,7 +238,7 @@ def _apply_rows(
     lr: torch.Tensor,
     uidx: torch.Tensor,
     g: torch.Tensor,
-    step: int = 1,
+    step=1,
 ) -> None:
     """Per-row update of unique rows `uidx` with float32 summed gradients
     `g`, as the JAX package's unique-row route (sparse_optimizer.py:752-893):
@@ -344,14 +349,15 @@ def bf16_row_sums(idx: torch.Tensor, src: torch.Tensor, vals: torch.Tensor, rows
 
 
 def _sorted_rows(opt: OptParams, table: torch.Tensor, state: State, idx: torch.Tensor, src: torch.Tensor,
-                 dsrc: torch.Tensor, lr: torch.Tensor, k_limit: int = 0) -> None:
+                 dsrc: torch.Tensor, lr: torch.Tensor, k_limit: int = 0, step=1) -> None:
     """The sorted route of a `COUNTED` optimizer at a fixed shape: the
     stable sort of the whole list (cut to `k_limit` entries, a static
     length), the count of its valid prefix kept on the device, the
     segmented sums of the sorted keys' gradient rows over that prefix only
     (segscan reads dsrc[src[perm]] in its loads), and the update of each
     segment tail among them by the drop-mode row update
-    (`ops/row_scatter.py`: `adagrad_rows`, `ftrl_rows`). The work past the
+    (`ops/row_scatter.py`: `adagrad_rows`, `ftrl_rows`, `adam_rows`, the
+    last with `step`'s bias corrections as device scalars). The work past the
     count, the list's padding, is skipped on the card; no shape or host
     value depends on the batch, as in the JAX package's cond over the
     measured valid cap (:596-621), whose branches agree."""
@@ -364,6 +370,10 @@ def _sorted_rows(opt: OptParams, table: torch.Tensor, state: State, idx: torch.T
     summed = segmented_sum_sorted(dsrc.to(table.dtype).contiguous(), head, torch.float32, count, src[perm])
     if opt.optimizer == Optimizer_t.FTRL:
         ftrl_rows(opt, table, state["z"], state["n"], sidx, summed, count, lr)
+    elif opt.optimizer == Optimizer_t.Adam:
+        bc1, bc2 = (torch.as_tensor(b, dtype=torch.float32, device=table.device)
+                    for b in bias_corrections(opt, step))
+        adam_rows(opt, table, state["m"], state["v"], sidx, summed, count, lr, bc1, bc2)
     else:
         adagrad_rows(opt, table, state["accum"], sidx, summed, count, lr)
 
@@ -378,7 +388,7 @@ def apply_sparse(
     lr: torch.Tensor,
     dense_rows: int,
     dense_ratio: float,
-    step: int = 1,
+    step=1,
     k_limit: int = 0,
     grad_dtype: torch.dtype = torch.float32,
     ucap_factor: float = 0.0,
@@ -412,9 +422,8 @@ def apply_sparse(
         perm = torch.sort(idx, stable=True).indices[:k_limit]
         idx, src = idx[perm], src[perm]
     if route == "scatter":
-        valid = idx < rows
-        vidx = idx[valid]
-        table.index_add_(0, vidx, -lr * dsrc.to(table.dtype)[src[valid]])
+        # the drop-mode add of every entry's -lr g into the table (:408)
+        scatter_add_rows_(table, idx, src, -lr * dsrc.to(table.dtype))
         return route
     if route == "dense":
         # the drop-mode scatter skips the sentinel rows (mode="drop", :486)
@@ -434,7 +443,7 @@ def apply_sparse(
         apply_dense(opt, table, state, grad, touched, lr, step)
         return route
     if kind in COUNTED and not packed and not ucap_drop:
-        _sorted_rows(opt, table, state, idx, src, dsrc, lr, k_limit)
+        _sorted_rows(opt, table, state, idx, src, dsrc, lr, k_limit, step)
         return route
     sidx, summed, tail = dedup_rows(idx, src, dsrc.to(table.dtype), rows, k_limit)
     # only tails carry full sums; keeping them makes the rows unique

@@ -16,9 +16,9 @@ batch as a whole. PReLU_Dice and BatchNorm take their mean and variance
 over the global batch, as the JAX mesh does over its sharded batch axis:
 each rank all-reduces its sum, then its sum of squared deviations from the
 global mean (`core/mesh.py::all_reduce_autograd`, whose backward
-all-reduces the gradient, so the backward is global too). Dropout draws
-the mask of the global batch on every rank from a generator seeded alike
-everywhere and keeps its block, so W ranks drop what one device drops.
+all-reduces the gradient, so the backward is global too). Dropout's mask
+is a function of the layer's key, the global step and each element's
+index in the global batch, so W ranks drop what one device drops.
 Gather picks rows of the global batch: each rank puts its rows into a
 zero [W n, ...] tensor, all-reduces it and keeps its block of the picked
 rows, so rank r holds rows [r K / W, (r + 1) K / W) of the JAX package's
@@ -40,6 +40,7 @@ from torch import nn
 from ..core.config import DenseLayer
 from ..core.mesh import all_reduce_autograd, data_rank, data_size
 from ..core.types import Initializer_t
+from ..ops import dropout
 from .base import Layer, make_initializer, register
 
 
@@ -66,7 +67,7 @@ class Softmax(_SameShape):
     def forward(self, ins, compute_dtype):
         x = ins[0]
         if len(ins) > 1:
-            x = torch.where(ins[1] > 0, x, x.new_tensor(-10000.0))
+            x = torch.where(ins[1] > 0, x, -10000.0)
         return [torch.softmax(x, dim=-1)]
 
 
@@ -90,14 +91,27 @@ class PReLUDice(_SameShape):
 @register("Dropout")
 class Dropout(_SameShape):
     """Training only: zero with probability `dropout_rate`, scale the rest
-    by 1 / (1 - rate); identity in eval. The mask comes from a generator of
-    the layer's own, seeded from the model's generator when the layer is
-    built; every rank draws the global batch's mask and keeps its rows."""
+    by 1 / (1 - rate); identity in eval. The mask is a function of the
+    layer's key (drawn from the model's generator when the layer is built)
+    and the global step (`ops/dropout.py`), as the JAX package's is of
+    `fold_in(rng, step)`: the step is the model's device scalar once the
+    model binds it (`bind_step`), which it fills before each step, so a
+    captured step replays with the step it runs; a layer on its own counts
+    its training calls. Each rank draws its rows of the global batch's
+    mask (the elements' global indices), so W ranks drop what one device
+    drops."""
 
     def __init__(self, cfg: DenseLayer, in_shapes, gen: torch.Generator, device):
         super().__init__(cfg, in_shapes, gen, device)
         seed = int(torch.randint(0, 2**62, (1,), generator=gen, device=gen.device))
-        self.generator = torch.Generator(device=gen.device).manual_seed(seed)
+        self.key = dropout.key_of(seed)
+        self.step = torch.zeros((), dtype=torch.int64, device=device)
+        self._own_step = True
+
+    def bind_step(self, step: torch.Tensor) -> None:
+        """Draw the masks of the global step that `step` (a 0-dim int64 on
+        the layer's device) holds."""
+        self.step, self._own_step = step, False
 
     def forward(self, ins, compute_dtype):
         x = ins[0]
@@ -105,9 +119,10 @@ class Dropout(_SameShape):
         if not self.training or rate <= 0.0:
             return [x]
         keep = 1.0 - rate
-        r, w, n = data_rank(), data_size(), x.shape[0]
-        u = torch.rand((w * n, *x.shape[1:]), generator=self.generator, device=x.device)[r * n : (r + 1) * n]
-        return [torch.where(u < keep, x / keep, x.new_zeros(())).to(x.dtype)]
+        if self._own_step:
+            self.step.add_(1)
+        mask = dropout.dropout_mask(self.key, self.step, x.numel(), data_rank() * x.numel(), keep)
+        return [torch.where(mask.view(x.shape), x / keep, x.new_zeros(())).to(x.dtype)]
 
 
 @register("Concat")

@@ -125,7 +125,7 @@ class MultiHeadAttention(Layer):
         qh, kh, vh = split(q, sf), split(k, st), split(v, st)
         scores = torch.matmul(qh, kh.transpose(-1, -2)) * (1.0 / np.sqrt(dk))
         if len(ins) > 3:
-            scores = torch.where(ins[3] > 0, scores, scores.new_tensor(-10000.0))
+            scores = torch.where(ins[3] > 0, scores, -10000.0)
         probs = torch.softmax(scores, dim=-1).to(compute_dtype)
         out = torch.matmul(probs.float(), vh).to(compute_dtype)
         return [out.permute(0, 2, 1, 3).reshape(b, sf, d)]

@@ -102,6 +102,14 @@ class Network(nn.Module):
         self.tensor_shapes = shapes
         self.skip_tops: set = set()
 
+    def bind_step(self, step: torch.Tensor) -> None:
+        """The layers that draw random numbers (Dropout) draw those of the
+        global step that `step` holds (the model's 0-dim int64 device
+        scalar, filled before each step)."""
+        for layer in self.layers.values():
+            if hasattr(layer, "bind_step"):
+                layer.bind_step(step)
+
     def _bottoms(self, cfg: DenseLayer) -> List[str]:
         """The bottoms with aliases resolved; an MLP reads a repeated
         bottom once (network.py:88)."""

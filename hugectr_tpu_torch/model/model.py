@@ -23,8 +23,9 @@ An iteration (`_train_body`):
 4. the fused embedding backward and sparse update, in place (a dynamic
    table's new keys are inserted into its key store first).
 
-Both optimizers get the 1-based global step (Adam's bias corrections) and
-the learning rate as one persistent device scalar, filled before each step.
+Both optimizers get the learning rate and the 1-based global step's
+scalars (Adam's bias corrections; Dropout reads the step itself) as
+persistent device scalars, filled before each step.
 
 The JAX package runs each step as one jitted program (model.py:923) and its
 eval as one scanned dispatch per chunk of batches (`_eval_scanned`,
@@ -52,11 +53,13 @@ way (`embedding/sparse_optimizer.py`; a dynamic table's probe and insert
 are fixed rounds of gathers and scatters); `use_cuda_graph=False` runs it
 eagerly. `step_mode` is "eager: <reason>" for what this does not capture:
 a CPU device, W > 1 ranks, a file feeder (batches not cached on the
-device), dense layers other than `GRAPH_LAYERS` (Dropout draws host
-seeds), weighted lookups, the packed layouts, frozen tables, the drop
-mode, and optimizers other than AdaGrad, RowWiseAdaGrad and FTRL
-(`sparse_optimizer.COUNTED`: Adam's bias corrections come from the host's
-step; the other sparse routes still shape their work by the batch).
+device), dense layers other than `GRAPH_LAYERS`, weighted lookups, the
+packed layouts, frozen tables, the drop mode, and the sparse optimizers
+other than SGD and `sparse_optimizer.COUNTED` (AdaGrad, RowWiseAdaGrad,
+FTRL, Adam): Momentum's, Nesterov's and RMSProp's sorted route still shapes
+its work by the batch. What changes from step to step the step reads from
+device scalars filled before it runs: the learning rate, the global step
+(Dropout's masks) and Adam's bias corrections (`optim.params.StepScalars`).
 Dynamic tables' key stores live in `tables` under `"{group}#keys"`; their
 synthetic keys are drawn below each table's capacity (`_slot_vocabs`).
 
@@ -199,7 +202,7 @@ from ..layers.network import Network
 from ..metrics.metrics import MetricAccumulator
 from ..optim.dense import DenseOptimizer
 from ..optim.lr_schedule import LearningRateScheduler
-from ..optim.params import OptParams
+from ..optim.params import OptParams, StepScalars
 from ..parallel.plan import LookupConfig, ShardingPlan, compile_plan
 from ..utils.diagnose import check_embedding_overflow
 
@@ -207,10 +210,18 @@ from ..utils.diagnose import check_embedding_overflow
 # eager train steps (and eval batches) before a step is captured: the
 # first measures the caps, builds the kernels and fills the one-time caches
 GRAPH_WARMUP = 1
-# the dense layers whose forward and backward capture: no host copy and no
-# random numbers (Dropout draws its masks from a host seed)
-GRAPH_LAYERS = frozenset({Layer_t.MLP, Layer_t.Concat, Layer_t.MultiCross, Layer_t.Reshape, Layer_t.Interaction,
-                          Layer_t.BinaryCrossEntropyLoss})
+# the dense layers whose forward and backward capture: no host read, no
+# copy from the host and no shape that follows the data (each shown so on
+# the CPU by the tests' dispatch mode that refuses such ops); Dropout's
+# masks follow the step the model fills on the device (`ops/dropout.py`).
+# The flagships' and the samples' layers.
+GRAPH_LAYERS = frozenset({
+    Layer_t.MLP, Layer_t.Concat, Layer_t.MultiCross, Layer_t.Reshape, Layer_t.Interaction,
+    Layer_t.BinaryCrossEntropyLoss, Layer_t.InnerProduct, Layer_t.ReLU, Layer_t.Add, Layer_t.Sub,
+    Layer_t.ReduceSum, Layer_t.ReduceMean, Layer_t.Slice, Layer_t.Scale, Layer_t.Softmax,
+    Layer_t.ElementwiseMultiply, Layer_t.WeightMultiply, Layer_t.FmOrder2, Layer_t.FusedReshapeConcat,
+    Layer_t.PReLU_Dice, Layer_t.LayerNorm, Layer_t.MultiHeadAttention, Layer_t.SequenceMask, Layer_t.Dropout,
+})
 
 
 class _Captured:
@@ -350,8 +361,11 @@ class Model:
         # the synchronous uploads (cached batches, a feed without a thread);
         # each feeder gets an uploader of its own
         self._uploader = Uploader(self.device)
-        # the step's learning rate, set by fill_ before each step
+        # the step's learning rate, and its global step with Adam's bias
+        # corrections (Dropout's masks, the optimizers), set by fill_ before
+        # each step
         self._lr_t = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._scalars = StepScalars(self.device)
         self._graphs: Dict[str, _Captured] = {}
         self._graph_pool = None
         self._eager_steps = 0  # this process's eager train steps
@@ -489,6 +503,7 @@ class Model:
             self.dense_layers, input_shapes, gen, self.device, label_weights=inp.label_weights,
             batch_size=s.batchsize,
         )
+        self.network.bind_step(self._scalars.step)
 
         # ---- state (model.py:437-460)
         self.dense_opt = DenseOptimizer(self.opt_params)
@@ -981,30 +996,33 @@ class Model:
             out[user_top] = t
         return out
 
-    def _set_lr(self, step: int) -> None:
-        """The learning rate of `step` into the persistent device scalar:
+    def _set_step(self, step: int) -> None:
+        """The learning rate of `step` and the step's scalars (the step,
+        Adam's bias corrections) into the persistent device scalars:
         set_learning_rate(x >= 0) replaces the schedule (0 freezes the
-        updates). A fill, not a copy from the host."""
+        updates). Fills, not copies from the host."""
         ov = self._lr_override
         self._lr_t.fill_(ov if ov >= 0 else float(self.lr_sch(step)))
+        self._scalars.fill(step)
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One eager iteration on a device batch (the rank's block over W
         ranks); returns the global mean loss as a device tensor without
         waiting for the device (model.py:787-883)."""
         step = self._step + 1
-        self._set_lr(step)
+        self._set_step(step)
         loss = self._train_body(batch)
         self._step = step
         self._eager_steps += 1
         return loss
 
     def _train_body(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The device work of one iteration at the learning rate `_lr_t`:
-        what `train_step` runs eagerly and `_replay` captures."""
+        """The device work of one iteration at the learning rate `_lr_t` and
+        the step of `_scalars`: what `train_step` runs eagerly and `_replay`
+        captures."""
         ec = self.ec
         batch = self._decode_batch(batch)
-        step = self._step + 1
+        step = self._scalars
         lr = self._lr_t
         skip_emb = ec is not None and self._skip_embedding
         emb_update = ec is not None and not (self._emb_frozen or skip_emb or self._skip_emb_update)
@@ -1140,9 +1158,9 @@ class Model:
         if not train:
             return None
         kind = self.opt_params.optimizer
-        if kind == Optimizer_t.Adam or (ec is not None and kind not in COUNTED):
-            # Adam's bias corrections come from the host's step; the other
-            # optimizers' routes still shape their work by the batch
+        if ec is not None and kind not in (*COUNTED, Optimizer_t.SGD):
+            # Momentum's, Nesterov's and RMSProp's sorted route still shapes
+            # its work by the batch (`dedup_rows`)
             return f"the {kind.value} optimizer"
         if ec is not None:
             if ec.frozen_tables or self._emb_frozen:
@@ -1153,11 +1171,13 @@ class Model:
 
     def _graph_tensors(self) -> List[torch.Tensor]:
         """The carried state a captured step reads and writes in place:
-        tables, their optimizer state, the dense parameters and theirs."""
+        tables, their optimizer state, the dense parameters and theirs; and
+        the scalars filled before each step (learning rate, step, Adam's
+        bias corrections)."""
         out = [*self.tables.values(), *(t for st in self.eopt.values() for t in st.values())]
         out += [p for ps in self.network.param_tree().values() for p in ps.values()]
         out += [t for tree in self.dopt.values() for ps in tree.values() for t in ps.values()]
-        return out
+        return out + [self._lr_t, *self._scalars.tensors()]
 
     def _full_batch(self, batch: Dict[str, torch.Tensor], train: bool) -> bool:
         """Whether every tensor of `batch` has the step's rows (the train or
@@ -1169,9 +1189,10 @@ class Model:
     def _graph_key(self, batch: Dict[str, torch.Tensor]) -> tuple:
         """What a capture is good for: the collection (the key holds it, so
         that a new one, such as `grow_dynamic_capacity` returns with its
-        new plan and constants, never passes for it), the carried state's
-        storage and the batch's names, shapes and dtypes (its static
-        buffers)."""
+        new plan and constants, never passes for it), the storage of the
+        carried state and of the step's scalars (a pair of Adam's
+        corrections made after the capture is a new tensor) and the
+        batch's names, shapes and dtypes (its static buffers)."""
         return (self.ec, tuple(t.data_ptr() for t in self._graph_tensors()),
                 tuple((k, tuple(v.shape), v.dtype) for k, v in batch.items()))
 
@@ -1219,7 +1240,7 @@ class Model:
         if (self._eager_steps >= GRAPH_WARMUP and self._graph_refusal(train=True) is None
                 and self._full_batch(batch, True)):
             step = self._step + 1
-            self._set_lr(step)
+            self._set_step(step)
             loss = self._replay("train", self._train_body, batch).clone()
             self._step = step
         else:

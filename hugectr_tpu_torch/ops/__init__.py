@@ -8,9 +8,9 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from . import onehot_matmul, ordered_pool, row_scatter, segscan
+from . import dropout, onehot_matmul, ordered_pool, row_scatter, segscan
 
-_MODULES = (segscan, onehot_matmul, ordered_pool, row_scatter)
+_MODULES = (segscan, onehot_matmul, ordered_pool, row_scatter, dropout)
 
 
 def launch_counts() -> Dict[str, int]:

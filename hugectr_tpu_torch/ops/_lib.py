@@ -66,6 +66,12 @@ _SIGNATURES = {
     # lambda2, vec, stream
     "hctr_ftrl_rows": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I64, _I, ctypes.c_float, ctypes.c_float,
                         ctypes.c_float, _I, _P], _I),
+    # table_dtype, state_dtype, table, m, v, sidx, g, count, lr, lr_dtype, bc1, bc2, k, rows, e, beta1,
+    # 1 - beta1, beta2, 1 - beta2, eps, vec, stream
+    "hctr_adam_rows": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I64, _I64, _I, ctypes.c_float,
+                        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float, _I, _P], _I),
+    # out, step, first, n, k0, k1, thr, stream
+    "hctr_dropout_mask": ([_P, _P, _I64, _I64, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, _P], _I),
     # dtype, table, n_rows, ld, rows, weights (or null), offsets, out, n_slots, e, vec, lanes, per, shift,
     # stream
     "hctr_ordered_pool": ([_I, _P, _I64, _I64, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P], _I),

@@ -12,6 +12,8 @@ for the bound and design):
   of `dtype` (float32 or bfloat16) holding, for every entry with 0 <=
   idx[i] < rows, vals[src[i]] added into row idx[i] (the dense sweep's
   gradient buffer). On the card the adds are atomic, as `index_add_`'s.
+  `scatter_add_rows_(dst, idx, src, vals)` adds the same into `dst` in
+  place (SGD's update of its table, sparse_optimizer.py:408).
 * `adagrad_rows(opt, table, accum, sidx, g, count, lr)`: the AdaGrad or
   RowWiseAdaGrad update, in place, of the rows of a sorted id list sidx [K]
   whose float32 segmented sums are g [K, E]: each segment tail among the
@@ -20,13 +22,18 @@ for the bound and design):
 * `ftrl_rows(opt, table, z, n, sidx, g, count, lr)`: FTRL's update of the
   same tails, in place: each sets its row of the table and of its state z
   and n (the JAX package's `_apply_rows` FTRL, sparse_optimizer.py:873-891).
+* `adam_rows(opt, table, m, v, sidx, g, count, lr, bc1, bc2)`: Adam's
+  update of the same tails, in place, with the bias corrections read from
+  the device scalars bc1, bc2: each sets its rows of m and v and adds its
+  delta to the table (`_apply_rows` Adam, sparse_optimizer.py:855-870).
+  A live tail whose summed gradient is 0 is updated too: its moments decay.
 
 The plain versions beside the kernels serve the CPU and the checks on the
 card; they are written without a host sync or a shape that follows the
-data (a temporary row past the end takes what the kernels drop), and give
-the port's earlier update bitwise: `adagrad_rows_plain` and
-`ftrl_rows_plain` compute every entry with `sparse_optimizer.update_math`
-and keep the tails' results.
+data (a temporary row past the end, or an add of -0.0 into row 0, takes
+what the kernels drop), and give the port's earlier update bitwise:
+`adagrad_rows_plain`, `ftrl_rows_plain` and `adam_rows_plain` compute every
+entry with `sparse_optimizer.update_math` and keep the tails' results.
 """
 from __future__ import annotations
 
@@ -37,8 +44,8 @@ import torch
 from ..core.types import Optimizer_t
 from . import _lib
 
-LAUNCHES = {"row_scatter": 0, "adagrad_rows": 0, "ftrl_rows": 0}  # kernel launches (CUDA tensors)
-PLAIN_CALLS = {"row_scatter": 0, "adagrad_rows": 0, "ftrl_rows": 0}  # plain-version calls (CPU tensors)
+LAUNCHES = {"row_scatter": 0, "adagrad_rows": 0, "ftrl_rows": 0, "adam_rows": 0}  # kernel launches (CUDA tensors)
+PLAIN_CALLS = {"row_scatter": 0, "adagrad_rows": 0, "ftrl_rows": 0, "adam_rows": 0}  # plain-version calls (CPU)
 
 ROWWISE = {Optimizer_t.AdaGrad: 0, Optimizer_t.RowWiseAdaGrad: 1}
 
@@ -65,19 +72,45 @@ def scatter_add_rows(idx: torch.Tensor, src: torch.Tensor, vals: torch.Tensor, r
     if vals.device.type == "cpu":
         PLAIN_CALLS["row_scatter"] += 1
         return scatter_add_rows_plain(idx, src, vals, rows, dtype)
-    _lib.require(vals.device.type == "cuda", f"unsupported device {vals.device}")
-    vals, idx, src = vals.contiguous(), idx.contiguous(), src.contiguous()
-    e = vals.shape[1]
-    out = torch.zeros((rows, e), dtype=dtype, device=vals.device)
-    lib = _lib.library()
-    with torch.cuda.device(vals.device):
-        rc = lib.hctr_scatter_add_rows(
-            _lib.DTYPE_CODE[vals.dtype], _lib.DTYPE_CODE[dtype], vals.data_ptr(), idx.data_ptr(), src.data_ptr(),
-            out.data_ptr(), idx.shape[0], rows, e, _lib.stream_of(vals),
-        )
-    _lib.check(rc, "scatter_add_rows")
-    LAUNCHES["row_scatter"] += 1
+    out = torch.zeros((rows, vals.shape[1]), dtype=dtype, device=vals.device)
+    scatter_add_rows_(out, idx, src, vals)
     return out
+
+
+def scatter_add_rows_into_plain(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
+                                vals: torch.Tensor) -> None:
+    """`index_add_` into dst of every entry's row, the entries outside [0,
+    rows) as -0.0 into row 0, which changes no bit (+0.0 would turn a -0.0
+    into +0.0)."""
+    rows = dst.shape[0]
+    live = ((idx >= 0) & (idx < rows)).unsqueeze(1)
+    neg0 = torch.full((), -0.0, dtype=dst.dtype, device=dst.device)
+    dst.index_add_(0, torch.where(live.squeeze(1), idx, 0), torch.where(live, vals[src].to(dst.dtype), neg0))
+
+
+def scatter_add_rows_(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor, vals: torch.Tensor) -> None:
+    """dst [rows, E] (float32 or bfloat16) += vals[src[i]] ([S, E], float32
+    or bfloat16, each cast to dst's type) at row idx[i], in place, over the
+    entries with idx in [0, rows); idx and src are [K] int64."""
+    _lib.require(vals.dim() == 2 and dst.dim() == 2 and vals.shape[1] == dst.shape[1] and idx.dim() == 1
+                 and src.shape == idx.shape, "scatter_add_rows_: dst [R, E], vals [S, E], idx and src [K]")
+    _lib.require(vals.dtype in _lib.DTYPE_CODE and dst.dtype in _lib.DTYPE_CODE, "scatter_add_rows_: f32/bf16 only")
+    _lib.require(idx.dtype == torch.int64 and src.dtype == torch.int64, "scatter_add_rows_: int64 indices")
+    if dst.device.type == "cpu":
+        PLAIN_CALLS["row_scatter"] += 1
+        scatter_add_rows_into_plain(dst, idx, src, vals)
+        return
+    _lib.require(dst.device.type == "cuda", f"unsupported device {dst.device}")
+    _lib.require(dst.is_contiguous(), "scatter_add_rows_: dst must be contiguous")
+    vals, idx, src = vals.contiguous(), idx.contiguous(), src.contiguous()
+    lib = _lib.library()
+    with torch.cuda.device(dst.device):
+        rc = lib.hctr_scatter_add_rows(
+            _lib.DTYPE_CODE[vals.dtype], _lib.DTYPE_CODE[dst.dtype], vals.data_ptr(), idx.data_ptr(), src.data_ptr(),
+            dst.data_ptr(), idx.shape[0], dst.shape[0], dst.shape[1], _lib.stream_of(dst),
+        )
+    _lib.check(rc, "scatter_add_rows_")
+    LAUNCHES["row_scatter"] += 1
 
 
 def _drop_copy_(a: torch.Tensor, tgt: torch.Tensor, vals: torch.Tensor) -> None:
@@ -203,3 +236,71 @@ def ftrl_rows(opt, table: torch.Tensor, z: torch.Tensor, n: torch.Tensor, sidx: 
         )
     _lib.check(rc, "ftrl_rows")
     LAUNCHES["ftrl_rows"] += 1
+
+
+def adam_rows_plain(opt, table: torch.Tensor, m: torch.Tensor, v: torch.Tensor, sidx: torch.Tensor, g: torch.Tensor,
+                    count: torch.Tensor, lr: torch.Tensor, bc1: torch.Tensor, bc2: torch.Tensor) -> None:
+    """The tails among the first `count` entries take `update_math`'s Adam
+    rows: the table adds the delta rounded to its type (an entry that is not
+    taken adds -0.0, which changes no bit), m and v are set through a spare
+    row."""
+    from ..embedding.sparse_optimizer import update_math
+
+    rows = table.shape[0]
+    live = _live_tails(sidx, count, rows)
+    safe, tgt = torch.where(live, sidx, 0), torch.where(live, sidx, rows)
+    gl = torch.where(live.unsqueeze(1), g, 0.0)
+    _op, val, new = update_math(opt, table, {"m": m[safe], "v": v[safe]}, gl, lr, (bc1, bc2))
+    neg0 = torch.full((), -0.0, dtype=table.dtype, device=table.device)
+    table.index_add_(0, safe, torch.where(live.unsqueeze(1), val.to(table.dtype), neg0))
+    _drop_copy_(m, tgt, new["m"])
+    _drop_copy_(v, tgt, new["v"])
+
+
+def adam_rows(opt, table: torch.Tensor, m: torch.Tensor, v: torch.Tensor, sidx: torch.Tensor, g: torch.Tensor,
+              count: torch.Tensor, lr: torch.Tensor, bc1: torch.Tensor, bc2: torch.Tensor) -> None:
+    """Adam on table [R, E] and its state m, v [R, E] (float32 or bfloat16,
+    the two of one type), in place, from sorted int64 row ids sidx [K] (the
+    padding's ids at least R, last), their float32 inclusive segmented sums
+    g [K, E] and `count`, the 0-dim int64 count of sidx's valid prefix on
+    the device; lr is a 0-dim float32 or bfloat16 device tensor, bc1 and bc2
+    the 0-dim float32 device scalars 1 - beta1^t and 1 - beta2^t. On the
+    card, a lane takes 4 columns in one access where E and the rows allow
+    (`_lib.vec_width`), else one."""
+    _lib.require(opt.optimizer == Optimizer_t.Adam, f"adam_rows: {opt.optimizer} is not Adam")
+    _lib.require(table.dim() == 2 and g.shape == (sidx.shape[0], table.shape[1]) and g.dtype == torch.float32,
+                 "adam_rows: table [R, E], g float32 [K, E]")
+    _lib.require(m.shape == v.shape == table.shape and m.dtype == v.dtype, "adam_rows: m and v [R, E] of one type")
+    _lib.require(count.dim() == 0 and count.dtype == torch.int64, "adam_rows: count is a 0-dim int64")
+    _lib.require(all(b.dim() == 0 and b.dtype == torch.float32 for b in (bc1, bc2)),
+                 "adam_rows: bc1 and bc2 are 0-dim float32")
+    if table.device.type == "cpu":
+        PLAIN_CALLS["adam_rows"] += 1
+        adam_rows_plain(opt, table, m, v, sidx, g, count, lr, bc1, bc2)
+        return
+    _lib.require(table.device.type == "cuda", f"unsupported device {table.device}")
+    for what, t in (("table", table), ("m", m), ("v", v), ("sidx", sidx), ("g", g)):
+        _lib.require(t.is_contiguous(), f"adam_rows: {what} must be contiguous")
+    _lib.require(table.dtype in _lib.DTYPE_CODE and m.dtype in _lib.DTYPE_CODE, "adam_rows: f32/bf16 only")
+    for what, t in (("lr", lr), ("bc1", bc1), ("bc2", bc2)):
+        _lib.require(t.device == table.device, f"adam_rows: {what} on the card")
+    _lib.require(lr.dtype in _lib.DTYPE_CODE, "adam_rows: lr is float32 or bfloat16")
+    e = table.shape[1]
+    vec = _lib.vec_width(e, table, g, m, v)
+    lib = _lib.library()
+    with torch.cuda.device(table.device):
+        rc = lib.hctr_adam_rows(
+            _lib.DTYPE_CODE[table.dtype], _lib.DTYPE_CODE[m.dtype], table.data_ptr(), m.data_ptr(), v.data_ptr(),
+            sidx.data_ptr(), g.data_ptr(), count.data_ptr(), lr.data_ptr(), _lib.DTYPE_CODE[lr.dtype],
+            bc1.data_ptr(), bc2.data_ptr(), sidx.shape[0], table.shape[0], e, *adam_consts(opt), vec,
+            _lib.stream_of(table),
+        )
+    _lib.check(rc, "adam_rows")
+    LAUNCHES["adam_rows"] += 1
+
+
+def adam_consts(opt):
+    """beta1, 1 - beta1, beta2, 1 - beta2 and epsilon as the kernel takes
+    them: float32 roundings of the Python floats torch rounds, 1 - beta
+    taken in double first, as Python takes it."""
+    return tuple(ctypes.c_float(x) for x in (opt.beta1, 1.0 - opt.beta1, opt.beta2, 1.0 - opt.beta2, opt.epsilon))

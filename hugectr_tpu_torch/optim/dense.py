@@ -55,11 +55,12 @@ class DenseOptimizer:
 
     @torch.no_grad()
     def update(
-        self, params: ParamTree, state: Dict[str, ParamTree], lr: torch.Tensor, step: int = 1
+        self, params: ParamTree, state: Dict[str, ParamTree], lr: torch.Tensor, step=1
     ) -> None:
         """One step of every parameter with a gradient (dense.py:56-181), by
-        the element-wise rules the sparse optimizers use; `step` is the
-        1-based global step of Adam's bias corrections."""
+        the element-wise rules the sparse optimizers use; `step` gives
+        Adam's bias corrections: the model's `StepScalars` (device scalars
+        of the 1-based global step) or an int step."""
         keys = STATE_KEYS[self.opt.optimizer]
         for layer, ps in params.items():
             for k, p in ps.items():

@@ -39,6 +39,8 @@ KERNEL_NAMES = {
     "row_scatter": ("scatter_add_rows",),
     "adagrad_rows": ("adagrad_rows",),
     "ftrl_rows": ("ftrl_rows",),
+    "adam_rows": ("adam_rows",),
+    "dropout_mask": ("dropout_mask",),
 }
 
 # the kernel names of each measurement that fell back to CUDA events

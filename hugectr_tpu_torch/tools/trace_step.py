@@ -16,7 +16,8 @@ there: 0 turns the caps off) or, with `--model dlrm_ftrl`, DLRM with FTRL
 (`build_dlrm_ftrl`, 26 tables capped at 400,000 rows, hotness 1; with
 `--dynamic`, exact dynamic tables of 4,096 rows each) or a sample's graph
 (`GRAPH`: a name of `tools/samples.py::GRAPHS`, e.g. `bst` or `neumf`, at
-its own sizes; `--batch 2048` is the samples' batch), runs 2 warm-up steps,
+its own sizes; `--batch 2048` is the samples' batch; its step and eval
+capture as the flagships' do), runs 2 warm-up steps,
 times `--steps` training steps one by one (each synchronised, no profiler),
 then traces `--steps` more (with `--eval`: eval batches, the forward of
 `Model.eval`) with `torch.profiler`. The steps are the model's default
@@ -67,6 +68,8 @@ CATEGORIES = (
     ("row_scatter", KERNEL_NAMES["row_scatter"]),
     ("adagrad_rows", KERNEL_NAMES["adagrad_rows"]),
     ("ftrl_rows", KERNEL_NAMES["ftrl_rows"]),
+    ("adam_rows", KERNEL_NAMES["adam_rows"]),
+    ("dropout_mask", KERNEL_NAMES["dropout_mask"]),
     ("gemm", ("gemm", "sm90", "sm80", "cutlass", "cublas", "splitk", "xmma", "nvjet")),
     ("sort", ("sort", "radix")),
     ("index", ("index", "scatter", "gather", "embedding")),

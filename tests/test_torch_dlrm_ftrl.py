@@ -112,7 +112,7 @@ def test_dlrm_ftrl_three_steps_match_jax(monkeypatch, dynamic):
     assert ops.plain_counts() == {"segscan": 3 * n_sorted, "onehot_fwd": 3 * (n_onehot > 0),
                                   "onehot_bwd": 3 * (n_onehot > 0), "ordered_pool": 0,
                                   "row_scatter": 3 * n_dense, "adagrad_rows": 0,
-                                  "ftrl_rows": 3 * n_sorted}
+                                  "ftrl_rows": 3 * n_sorted, "adam_rows": 0, "dropout_mask": 0}
     assert set(ops.launch_counts().values()) == {0}
 
     state = jax.device_get(jm.state)

@@ -12,11 +12,13 @@ sums of values exact in d's type within 1e-4 in either type. Touch counts
 are exact, and the segmented scan and the backward's counts matmul are
 bitwise the same from run to run. The sorted route's row update
 (`adagrad_rows`) is bitwise its plain version for AdaGrad and within its
-row sum's spread for RowWiseAdaGrad; FTRL's (`ftrl_rows`) is bitwise. The
-tiny DLRM-FTRL's captured steps agree with its eager ones within rtol 1e-4
-/ atol 1e-5 (atomic sums), its replayed eval bitwise. The last tests run
-the embedding collection and train the tiny model on 2 spawned ranks
-against one card.
+row sum's spread for RowWiseAdaGrad; FTRL's (`ftrl_rows`) and Adam's
+(`adam_rows`) are bitwise. The tiny DLRM-FTRL's captured steps agree with
+its eager ones within rtol 1e-4 / atol 1e-5 (atomic sums), its replayed
+eval bitwise; so do a tiny WDL's (Dropout 0.5) and MMoE's (SGD). Dropout's
+mask kernel is bitwise its plain version, and two consecutive replays of a
+captured draw give two masks. The last tests run the embedding collection
+and train the tiny model on 2 spawned ranks against one card.
 """
 import functools
 import importlib.util
@@ -917,3 +919,132 @@ def test_weighted_onehot_bwd_in_sample_cancel_leaves_row_untouched(cuda, b, v, h
     assert torch.equal(c > 0, wc > 0)
     assert float(((c - wc).abs() / wc.clamp(min=1e-30)).max()) <= 1e-4
     assert _scaled(g, wg, sg) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdt,sdt", [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)], ids=["f32", "bf16_table", "bf16_state"])
+def test_adam_rows_bitwise_and_captured(cuda, tdt, sdt):
+    """Adam's row update against its plain version at the design's edges:
+    E 1, 11, 16, 18, 128, and 128 on rows that start off 4 elements (one
+    column a lane); counts 0, 31, 32, 33, 64, 65, 224 (inside a run over
+    220-230) and K; a bfloat16 or float32 lr; a negative id and the
+    sentinels; every fifth entry's summed gradient 0 (a live tail still
+    decays its moments). Bitwise in every case (the arithmetic is torch's
+    op by op), two runs bitwise; a captured launch replayed after the bias
+    corrections' scalars were filled for another step bitwise the eager
+    launch at that step."""
+    from hugectr_tpu_torch.core.types import Optimizer_t
+    from hugectr_tpu_torch.ops import row_scatter as rs
+    from hugectr_tpu_torch.optim.params import OptParams, StepScalars
+
+    rng = np.random.default_rng(23)
+    opt = OptParams(optimizer=Optimizer_t.Adam, beta1=0.9, beta2=0.999, epsilon=1e-7)
+    k, rows = 1000, 3000
+    sidx = torch.from_numpy(_row_update_edges(rng, k, rows, 100)).to(cuda)
+    scalars = StepScalars(cuda)
+    for i, (e, shift) in enumerate(((1, 0), (11, 0), (16, 0), (18, 0), (128, 0), (128, 1))):
+        w0, m0 = (torch.from_numpy(rng.normal(size=(rows, e)).astype(np.float32) * s).to(cuda) for s in (0.05, 0.01))
+        v0 = torch.from_numpy(rng.random((rows, e), dtype=np.float32) * 1e-3).to(cuda)
+        g = torch.from_numpy(rng.normal(size=(k, e)).astype(np.float32) * 0.05).to(cuda)
+        g[::5] = 0.0
+        lr = torch.tensor(0.01, device=cuda).to(tdt if i % 2 else torch.float32)
+        scalars.fill(2)
+        bc = scalars.corrections(opt)
+
+        def copy():  # the table's copy `shift` elements past an aligned start
+            t = torch.empty(rows * e + shift, device=cuda, dtype=tdt)[shift:].view(rows, e)
+            return t.copy_(w0), m0.to(sdt, copy=True), v0.to(sdt, copy=True)
+
+        for n in (0, 31, 32, 33, 64, 65, 224, k):
+            count = torch.tensor(n, device=cuda)
+            got, again, want = copy(), copy(), copy()
+            rs.adam_rows(opt, *got, sidx, g, count, lr, *bc)
+            rs.adam_rows(opt, *again, sidx, g, count, lr, *bc)
+            rs.adam_rows_plain(opt, *want, sidx, g, count, lr, *bc)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (e, shift, n)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), (e, shift, n)
+            assert (n == 0) == torch.equal(got[1], copy()[1]), (e, shift, n)
+        replayed, at3 = copy(), copy()
+        before = rs.LAUNCHES["adam_rows"]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            rs.adam_rows(opt, *replayed, sidx, g, count, lr, *bc)
+        scalars.fill(3)
+        rs.adam_rows(opt, *at3, sidx, g, count, lr, *bc)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(replayed, at3)), (e, shift)
+        assert not torch.equal(replayed[0], got[0]), (e, shift)  # step 3's corrections, not step 2's
+        assert rs.LAUNCHES["adam_rows"] == before + 2
+
+
+@pytest.mark.gpu
+def test_dropout_mask_kernel_and_consecutive_replays(cuda):
+    """Dropout's mask kernel bitwise its plain version (WDL's [2,048, 1,024]
+    layer, keep 0.5; a rank's block); then a captured draw replayed at two
+    consecutive steps gives two different masks, each the eager draw at
+    its step."""
+    from hugectr_tpu_torch.ops import dropout as dr
+
+    key, n = dr.key_of(987654321987), 2048 * 1024
+    step = torch.tensor(11, device=cuda)
+    got = dr.dropout_mask(key, step, n, 0, 0.5)
+    assert torch.equal(got, dr.dropout_mask_plain(key, step, n, 0, 0.5))
+    assert torch.equal(dr.dropout_mask(key, step, n // 2, n // 2, 0.5), got[n // 2:])
+    out = torch.empty(n, dtype=torch.bool, device=cuda)
+    before = dr.LAUNCHES["dropout_mask"]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(dr.dropout_mask(key, step, n, 0, 0.5))
+    replays = []
+    for s in (12, 13):
+        step.fill_(s)
+        graph.replay()
+        replays.append(out.clone())
+        assert torch.equal(out, dr.dropout_mask(key, step, n, 0, 0.5)), s
+    assert not torch.equal(replays[0], replays[1])
+    assert dr.LAUNCHES["dropout_mask"] == before + 3  # the capture and the two eager draws
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,variant", [("wdl", None), ("mmoe", "mmoe")])
+def test_tiny_sample_captured_steps_and_eval_equal_the_eager_ones(cuda, name, variant):
+    """A tiny sample (WDL at Dropout 0.5: Adam, two Dropout layers; MMoE
+    at a one-hot vocabulary of 64: SGD's scatter) from one seed, eager and
+    captured, 4 steps: the losses within rtol 1e-4 and every array within
+    rtol 1e-4 / atol 1e-5 (atomic sums); the masks and bias corrections
+    follow the step in both, so the steps agree; then the eval forward of
+    the same weights bitwise the eager one."""
+    from hugectr_tpu_torch.core.mesh import ResourceManager
+    from hugectr_tpu_torch.tools.samples import build_tiny_sample
+
+    kw = dict(dropout_rate=0.5) if name == "wdl" else dict(onehot_vocab=64)
+    eager, graph = (build_tiny_sample(name, ResourceManager.create(device="cuda"), variant=variant,
+                                      use_cuda_graph=g, **kw) for g in (False, True))
+    assert eager.step_mode == "eager: use_cuda_graph=False" and graph.step_mode == "graph"
+    se, sg = _ftrl_state(eager), _ftrl_state(graph)
+    assert all(torch.equal(se[k], sg[k]) for k in se)
+    le = [float(eager.train_async()) for _ in range(4)]
+    ops.reset_counts()
+    lg = [float(graph.train_async()) for _ in range(4)]
+    assert "train" in graph._graphs
+    counts = ops.launch_counts()
+    if name == "wdl":
+        assert counts["dropout_mask"] == 4 * 2
+    else:
+        assert counts["row_scatter"] >= 4 * list(graph.ec.group_routes.values()).count("scatter") > 0
+    np.testing.assert_allclose(lg, le, rtol=1e-4)
+    se, sg = _ftrl_state(eager), _ftrl_state(graph)
+    for k in se:
+        np.testing.assert_allclose(sg[k].float().cpu(), se[k].float().cpu(), rtol=1e-4, atol=1e-5, err_msg=k)
+    for m in (eager, graph):  # the same weights for both evals
+        for n, t in m.tables.items():
+            t.copy_(se[f"t/{n}"])
+        for lay, ps in m.network.param_tree().items():
+            for n, p in ps.items():
+                p.data.copy_(se[f"p/{lay}/{n}"])
+    ve, vg = eager.eval(), graph.eval()
+    assert "eval" in graph._graphs
+    assert torch.equal(graph.metrics._preds, eager.metrics._preds) and ve == vg

@@ -221,10 +221,11 @@ def test_model_replicas_bitwise_equal(port_w2):
         np.testing.assert_array_equal(b["replicated"][k], v, err_msg=k)
     for res in (a, b):
         assert res["plain_calls"] == {"segscan": 3, "onehot_fwd": 3, "onehot_bwd": 3, "ordered_pool": 3,
-                                      "row_scatter": 0, "adagrad_rows": 3, "ftrl_rows": 0}
+                                      "row_scatter": 0, "adagrad_rows": 3, "ftrl_rows": 0, "adam_rows": 0,
+                                      "dropout_mask": 0}
         assert res["eval_counts"]["plain_calls"] == {"segscan": 0, "onehot_fwd": 8, "onehot_bwd": 0,
                                                      "ordered_pool": 8, "row_scatter": 0, "adagrad_rows": 0,
-                                                     "ftrl_rows": 0}
+                                                     "ftrl_rows": 0, "adam_rows": 0, "dropout_mask": 0}
 
 
 def test_model_two_ranks_match_one(port_w2):

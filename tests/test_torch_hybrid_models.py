@@ -161,7 +161,7 @@ def test_bench_model_on_two_ranks_matches_jax(port_w2, jax_models):
         assert res["plain_calls"] == {"onehot_fwd": 3, "onehot_bwd": 3,
                                       "segscan": 3 * n_sorted, "ordered_pool": 0,
                                       "row_scatter": 3 * n_dense, "adagrad_rows": 3 * n_sorted,
-                                      "ftrl_rows": 0}
+                                      "ftrl_rows": 0, "adam_rows": 0, "dropout_mask": 0}
         assert res["collective_bytes"]["reduce_scatter"] % 2 == 0
 
 

@@ -61,7 +61,8 @@ def test_tiny_dlrm_three_steps_match_jax(models):
     # the one-hot forward and backward are one call each per group and step
     # and the sorted group's update one drop-mode row update a step
     assert n_onehot > 1 and counts == {"segscan": 3, "onehot_fwd": 3, "onehot_bwd": 3, "ordered_pool": 0,
-                                       "row_scatter": 0, "adagrad_rows": 3, "ftrl_rows": 0}
+                                       "row_scatter": 0, "adagrad_rows": 3, "ftrl_rows": 0, "adam_rows": 0,
+                                       "dropout_mask": 0}
     assert set(ops.launch_counts().values()) == {0}
     state = jax.device_get(jm.state)
     params = tm.network.param_tree()

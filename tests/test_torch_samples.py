@@ -7,7 +7,11 @@ patches EmbeddingTableConfig) and its Dropout at rate 0
 set in its environment. The port's side is
 `tools/samples.py::build_tiny_sample` on the CPU, carried from the JAX
 model's state. Both train 3 steps on the same synthetic batches, then
-evaluate.
+evaluate. The port's steps and its eval forward run under
+tests/test_torch_graph_step.py's `_Refuse` (no `.item()`, nonzero,
+masked_select, unique or boolean index): the code its captured step runs
+on the card (tests/test_torch_graph_samples.py holds it bitwise against
+the earlier host-counted routes).
 
 Tolerances: loss rtol 1e-4 per step; every table, the sparse optimizer
 state, the dense parameters and the dense optimizer state rtol 1e-4 /
@@ -49,6 +53,8 @@ from hugectr_tpu_torch.core.types import Optimizer_t
 from hugectr_tpu_torch.model.model import Model as TModel
 from hugectr_tpu_torch.tools.carry import load_jax_state
 from hugectr_tpu_torch.tools.samples import GRAPHS, TINY_SAMPLE, build_tiny_sample
+
+from test_torch_graph_step import _Refuse
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -164,20 +170,25 @@ def check_sample(monkeypatch, tmp_path, name, variant):
     load_jax_state(tm, host_state(jm))
     ops.reset_counts()
     for step in range(3):
-        jl, tl = jm.train(), tm.train()
-        np.testing.assert_allclose(tl, jl, rtol=1e-4, err_msg=f"{name} loss at step {step + 1}")
+        jl = jm.train()
+        with _Refuse():  # the port's step as it is captured: no host read, no data-sized op
+            tl = tm.train_async()
+        np.testing.assert_allclose(float(tl), jl, rtol=1e-4, err_msg=f"{name} loss at step {step + 1}")
     assert set(ops.launch_counts().values()) == {0}
     onehot = [g for g in tm.ec.plan.groups if g.compute_kind == "onehot"]
     routes = list(tm.ec.group_routes.values())
     n_sorted = routes.count("sorted")
-    # the dense sweep sums by the drop-mode scatter; the AdaGrad family's
-    # and FTRL's sorted route updates by the drop-mode row update
+    # the dense sweep and SGD sum by the drop-mode scatter; the AdaGrad
+    # family's, FTRL's and Adam's sorted route updates by the drop-mode row
+    # update; no Dropout draws at rate 0
     ada = tm.opt_params.optimizer in (Optimizer_t.AdaGrad, Optimizer_t.RowWiseAdaGrad)
     ftrl = tm.opt_params.optimizer == Optimizer_t.FTRL
+    adam = tm.opt_params.optimizer == Optimizer_t.Adam
     assert ops.plain_counts() == {"segscan": 3 * n_sorted, "onehot_fwd": 3 * len(onehot),
                                   "onehot_bwd": 3 * len(onehot), "ordered_pool": 0,
-                                  "row_scatter": 3 * routes.count("dense"), "adagrad_rows": 3 * n_sorted * ada,
-                                  "ftrl_rows": 3 * n_sorted * ftrl}
+                                  "row_scatter": 3 * (routes.count("dense") + routes.count("scatter")),
+                                  "adagrad_rows": 3 * n_sorted * ada, "ftrl_rows": 3 * n_sorted * ftrl,
+                                  "adam_rows": 3 * n_sorted * adam, "dropout_mask": 0}
     state = host_state(jm)
     params = tm.network.param_tree()
     assert_state_close(
@@ -186,6 +197,10 @@ def check_sample(monkeypatch, tmp_path, name, variant):
         {layer: {k: p.detach().numpy() for k, p in ps.items()} for layer, ps in params.items()},
         {kind: {layer: {k: t.numpy() for k, t in ps.items()} for layer, ps in tree.items()}
          for kind, tree in tm.dopt.items()}, tm.solver.lr, name)
+    source, _feeder, _fed = tm._eval_batches()
+    with _Refuse():  # the eval forward as it is captured
+        for b in source:
+            tm._eval_step(b)
     assert_eval_close(tm.eval(), jm.eval())
 
 
