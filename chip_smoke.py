@@ -144,7 +144,8 @@ Each phase prints one JSON line with its own seconds:
    over gloo: the owner-partitioned forward of the tiny bench model against
    the masked one within per-key rounding, the ordered pool bitwise
    against its plain version on each rank's inputs, the unique-key dense
-   exchange's two branches (lists of 64 and of 2 rows) against one card,
+   exchange's two branches (lists of 64 and of 2 rows; both run in each
+   pass, the device-side flag selects) against one card,
    a capacity factor that drops nothing against none, bitwise.
 9. "hybrid_path": the full-width flagship (f32, global batch 16,384)
    trained hybrid-parallel on W = max(2, cards) ranks, at most 8, at the
@@ -172,6 +173,20 @@ Each phase prints one JSON line with its own seconds:
    tables: segscan and the ordered pool at E 64 on every rank). The
    kernel phase adds both at E 64 at rank 0's shapes
    (`column_kernel_checks`).
+   Over NCCL (a card per rank, as on a machine of four cards) each rank
+   captures its whole step and eval forward, collectives inside, as on one
+   card: "hybrid_path", "hybrid_bench_path", "hybrid_ftrl_dynamic_path",
+   "hybrid_hier_path" and "hybrid_column_path" each require `step_mode`
+   "graph" on every rank and end with a `graph_ab` over the ranks
+   (`hybrid_graph_ab`: "<phase>_graph_ab", rank 0's record, and
+   "<phase>_graph_ab_ranks": every rank's losses bitwise over the four
+   turns, the storage groups' rule, replicas bitwise across the ranks after
+   each turn, collectives a step equal in both modes, graph device-busy
+   ms at most 1.1 x eager's, the replays free of host syncs; ms/step,
+   idle share and NCCL device ms per rank and mode). On one card the ranks
+   share it over gloo, whose collectives go through the host: the phases
+   print "<phase>_graph_ab" with `captured` false and the reason, and
+   require "eager: the gloo backend" on every rank.
 
 10. The samples (`hugectr_tpu_torch/tools/samples.py`, the graphs of the
    JAX package's samples/*.py): "sample_kernels" holds each kernel against
@@ -2540,226 +2555,45 @@ def main_path(torch):
     return launches, rec
 
 
-GRAPH_AB_STEPS = 5  # timed train steps in each turn of the graph-against-eager run
-GRAPH_AB_TURNS = ("eager", "graph", "graph", "eager")
-
-
-TRACE_TAKES = 4  # traces of one mode at most, until two in a row agree
-# the relative spread two traces of one mode may have in events and in
-# device-busy ms: their events have agreed exactly, their busy ms within 2.9%
-# (a 3-batch eval trace), where the lost records took 53% of the busy ms
-TRACE_AGREE = 0.05
-
-
-def whole_trace(take):
-    """The last of the traces `take()` returns (`profile_steps` records)
-    once two in a row agree within TRACE_AGREE on device events and on
-    device-busy ms a step, else None; with every trace's (events, busy ms).
-    The profiler now and then loses device records: one eager trace of the
-    dynamic FTRL step read 6.86 device-busy ms a step where the traces
-    around it, before and after, read 14.4-14.5. One mode's traces repeat
-    the same kernels, so a trace that lost records disagrees with the next."""
-    takes, last = [], None
-    for _ in range(TRACE_TAKES):
-        r = take()
-        now = (r["device_events_per_step"], r["device_busy_ms_per_step"])
-        takes.append(now)
-        if last is not None and all(abs(a - b) <= TRACE_AGREE * max(a, b) for a, b in zip(now, last)):
-            return r, takes
-        last = now
-    return None, takes
-
-
-def state_arrays(model) -> dict:
-    """The carried state by name: tables, their optimizer state, the dense
-    parameters and their optimizer state (the tensors themselves)."""
-    out = {f"table/{k}": v for k, v in model.tables.items()}
-    out.update({f"eopt/{g}/{k}": v for g, st in model.eopt.items() for k, v in st.items()})
-    out.update({f"param/{lay}/{k}": p.data for lay, ps in model.network.param_tree().items() for k, p in ps.items()})
-    out.update({f"dopt/{s}/{lay}/{k}": t for s, tree in model.dopt.items() for lay, ps in tree.items()
-                for k, t in ps.items()})
-    return out
-
-
 def max_abs_diff(torch, a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
-
-
-def ulp(torch, t) -> float:
-    """The spacing of t's floating type at t's largest magnitude (0 for an
-    integer, empty or all-zero t)."""
-    m = float(t.abs().max()) if t.is_floating_point() and t.numel() else 0.0
-    return math.ldexp(torch.finfo(t.dtype).eps, math.frexp(m)[1] - 1) if m > 0 else 0.0
 
 
 def graph_ab(torch, model, label: str) -> dict:
     """The default step (a captured step replayed, `Model.step_mode`
     "graph") against the eager one (`use_cuda_graph` False, the same
     fixed-shape code), from the same state, in turns: eager, graph, graph,
-    eager. Prints and returns one record:
+    eager (`tools/graph_ab.py::run`: agreement of the loss and of every
+    table, state and parameter, ms/step with the replays under
+    `torch.cuda.set_sync_debug_mode("error")`, the collectives a step, the
+    eval eager against replayed, confirmed traces of each mode). Prints the
+    record and raises on any of `graph_ab.failures`; returns the record."""
+    from hugectr_tpu_torch.tools import graph_ab as gab
 
-    * agreement: each turn's one step from the saved state on one batch.
-      The loss is bitwise the same in all four (the forward of one state).
-      Each table and state array is held against the first eager turn's:
-      in a storage group (a table and its state; the dense network) whose
-      arrays agree bitwise between the two eager turns and between the two
-      graph turns, the graph turns must equal the eager ones bitwise;
-      elsewhere (the dense sweep's and the one-hot backward's atomic adds)
-      within 4 x the larger of the two eager turns' and the two graph turns'
-      spreads, both measured and printed, and of one step of the array's
-      type at its largest value (`ulp`): each mode repeats its own order of
-      atomic adds from turn to turn, so both spreads can read 0 while the
-      two orders differ in the last bit;
-    * ms/step and ex/s of GRAPH_AB_STEPS `train_async` steps a turn (host
-      clock to a synchronisation), the graph turns' replays under
-      `torch.cuda.set_sync_debug_mode("error")`: no host sync inside them;
-    * eval: eager and replayed (`Model.eval`), predictions bitwise equal
-      and AUCs equal, then ms a batch and ex/s in turns;
-    * from `tools/trace_step.py::profile_steps` in each mode, train and
-      eval: device-busy ms, idle share, host operators and waits per step,
-      each from a trace that the next one of the same mode confirms
-      (`whole_trace`).
-
-    The state is restored to the saved one at the end."""
-    from hugectr_tpu_torch.tools.trace_step import profile_steps
-
-    t0 = time.perf_counter()
-    arrays = state_arrays(model)
-    saved = {k: v.clone() for k, v in arrays.items()}
-    step0 = model._step
-
-    def restore(graph: bool):
-        for k, v in arrays.items():
-            v.copy_(saved[k])
-        model._step = step0
-        model.solver.use_cuda_graph = graph
-
-    batch = model._next_train_batch()
-    first, first_graph, losses, diffs = None, None, [], []
-    for turn in GRAPH_AB_TURNS:
-        restore(turn == "graph")
-        model._staged_train_batch = batch
-        losses.append(float(model.train_async()))
-        if first is None:
-            first = {k: v.clone() for k, v in arrays.items()}
-            continue
-        diffs.append({k: (bool(torch.equal(v, first[k])), max_abs_diff(torch, v, first[k]))
-                      for k, v in arrays.items()})
-        if turn == "graph" and first_graph is None:
-            first_graph = {k: v.clone() for k, v in arrays.items()}
-        elif turn == "graph":
-            graph_spread = {k: max_abs_diff(torch, v, first_graph[k]) for k, v in arrays.items()}
-            first_graph = None
-    g1, g2, e2 = diffs
-
-    def group(k):  # a storage group's table and state, or the dense network
-        return k.split("/")[1] if k.startswith(("table/", "eopt/")) else "dense"
-
-    # a group is atomic where any of its arrays differs between the two
-    # eager turns or the two graph turns
-    spread_groups = {group(k) for k in arrays if not e2[k][0] or graph_spread[k] > 0}
-    breaches, atomic, floor = [], [], {}
-    for k in arrays:
-        eager_spread = e2[k][1]
-        if group(k) not in spread_groups:
-            if not (g1[k][0] and g2[k][0]):
-                breaches.append((k, "eager and graph each bitwise, not with each other", g1[k][1], g2[k][1]))
-            continue
-        atomic.append(k)
-        floor[k] = ulp(torch, first[k])
-        lim = 4 * max(eager_spread, graph_spread[k], floor[k])
-        if max(g1[k][1], g2[k][1]) > lim:
-            breaches.append((k, "past 4 x the spread", g1[k][1], g2[k][1], eager_spread, graph_spread[k]))
-    del first
-    # ms/step in turns
-    timing = []
-    for turn in GRAPH_AB_TURNS:
-        restore(turn == "graph")
-        model.train_async()  # the turn's first step outside the clock
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        if turn == "graph":
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            for _ in range(GRAPH_AB_STEPS):
-                model.train_async()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        timing.append(dict(turn=turn, ms_per_step=dt / GRAPH_AB_STEPS * 1e3,
-                           examples_per_s=GRAPH_AB_STEPS * model.solver.batchsize / dt))
-    # eval: eager against replayed, then in turns
-    restore(False)
-    n_eval = model.solver.max_eval_batches * model.solver.batchsize_eval
-    ve = model.eval()
-    pe = model.metrics._preds.clone()
-    model.solver.use_cuda_graph = True
-    vg = model.eval()
-    eval_bitwise = bool(torch.equal(model.metrics._preds, pe))
-    del pe
-    eval_timing = []
-    for turn in GRAPH_AB_TURNS:
-        model.solver.use_cuda_graph = turn == "graph"
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        model.eval()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        eval_timing.append(dict(turn=turn, ms_per_batch=dt / model.solver.max_eval_batches * 1e3,
-                                examples_per_s=n_eval / dt))
-    traces, trace_takes = {}, {}
-    for turn in ("eager", "graph"):
-        for what in ("train", "eval"):
-            def take():
-                restore(turn == "graph")
-                return profile_steps(model, 3, eval_batches=what == "eval")
-            r, takes = whole_trace(take)
-            trace_takes[f"{turn}_{what}"] = takes
-            if r is None:
-                raise AssertionError(f"{label}: no two {turn} {what} traces in a row agree: {takes}")
-            traces[f"{turn}_{what}"] = {k: r[k] for k in (
-                "step_mode", "ms_per_step", "device_busy_ms_per_step", "device_idle_share", "host_ops_per_step",
-                "host_syncs_per_step", "device_events_per_step", "by_category_ms", "launches_per_step")}
-    restore(True)
-    del saved
-    busy_e, busy_g = traces["eager_train"]["device_busy_ms_per_step"], traces["graph_train"]["device_busy_ms_per_step"]
-    rec = dict(
-        phase=f"{label}_graph_ab", step_mode=model.step_mode, turns=list(GRAPH_AB_TURNS), losses=losses,
-        losses_bitwise=len(set(losses)) == 1, arrays=len(arrays), atomic_arrays=len(atomic),
-        bitwise_arrays=len(arrays) - len(atomic),
-        eager_spread_max={k: e2[k][1] for k in atomic}, graph_spread_max={k: graph_spread[k] for k in atomic},
-        graph_minus_eager_max={k: max(g1[k][1], g2[k][1]) for k in atomic}, ulp_floor=floor, breaches=breaches,
-        train=timing, eval_bitwise=eval_bitwise, auc_eager=ve.get("auc"), auc_graph=vg.get("auc"),
-        eval=eval_timing, traces=traces, trace_takes=trace_takes, device_busy_graph_over_eager=busy_g / busy_e,
-        seconds=time.perf_counter() - t0,
-    )
+    rec = gab.run(model, label)
     emit(rec)
-    if model.step_mode != "graph" or traces["graph_train"]["step_mode"] != "graph":
-        raise AssertionError(f"{label}: step mode {model.step_mode}")
-    if not rec["losses_bitwise"] or breaches:
-        raise AssertionError(f"{label}: graph and eager disagree: losses {losses}, breaches {breaches}")
-    if not (eval_bitwise and ve == vg):
-        raise AssertionError(f"{label}: replayed eval differs from per-batch eval: {ve} / {vg}")
-    if busy_g > 1.1 * busy_e:
-        raise AssertionError(f"{label}: device-busy ms {busy_g} under the graph, {busy_e} eager")
+    fails = gab.failures(rec)
+    if fails:
+        raise AssertionError(f"{label}: " + "; ".join(fails))
     return rec
 
 
 def mode_turns(model, run) -> list:
     """ms/step of the eager step (`use_cuda_graph` False) and the default
-    captured one in turns (GRAPH_AB_TURNS) in one process, from `run()`
-    (a dict with "sec_per_iter"), the state carried on from turn to turn;
-    the model is left on its default step."""
+    captured one in turns (`tools/graph_ab.py::TURNS`) in one process, from
+    `run()` (a dict with "sec_per_iter"), the state carried on from turn to
+    turn; the model is left on its default step."""
+    from hugectr_tpu_torch.tools.graph_ab import TURNS
+
     turns = []
     try:
-        for turn in GRAPH_AB_TURNS:
+        for turn in TURNS:
             model.solver.use_cuda_graph = turn == "graph"
             r = run()
             turns.append(dict(turn=turn, step_mode=model.step_mode, ms_per_step=r["sec_per_iter"] * 1e3))
     finally:
         model.solver.use_cuda_graph = True
-    if [x["step_mode"] == "graph" for x in turns] != [t == "graph" for t in GRAPH_AB_TURNS]:
+    if [x["step_mode"] == "graph" for x in turns] != [t == "graph" for t in TURNS]:
         raise AssertionError(f"the turns did not run the step they name: {turns}")
     return turns
 
@@ -3471,9 +3305,11 @@ def hybrid_exchange_parity(torch):
     tiers, S the same forward of |tables|. (2) Each kernel against its plain
     version on each rank's inputs, the ordered pool bitwise. (3) The
     unique-key dense exchange (tests/test_dense_exchange.py's concat tables,
-    AdaGrad) with lists of 64 rows (the compressed branch: one all_to_all in
-    the forward and one in the backward) and of 2 (the overflow branch: no
-    all_to_all) against one card from the same tables and batch: outputs
+    AdaGrad) with lists of 64 rows (the compressed branch taken) and of 2
+    (the overflow branch taken), both branches run in each pass and the
+    overflow flag selecting on the device (one all_to_all in the forward and
+    one in the backward either way), against one card from the same tables
+    and batch: outputs
     bitwise (each is one row), tables after one update rtol 1e-4 / atol
     1e-5 (float32 sums in another order). (4) Capacity factor 1.25, which
     drops nothing at W 2 on uniform keys, against no factor: outputs and
@@ -3517,7 +3353,7 @@ def hybrid_exchange_parity(torch):
     for r, p in enumerate(parity):
         if not (p.get("ordered_pool", {}).get("shapes") and all(p[k]["scaled_err"] <= RANK_TOL[k] for k in p)):
             raise AssertionError(f"a kernel disagrees with its plain version on rank {r}: {p}")
-    if not (dx[64]["all_to_all_calls"] == [2, 2] and dx[2]["all_to_all_calls"] == [0, 0]
+    if not (dx[64]["all_to_all_calls"] == [2, 2] and dx[2]["all_to_all_calls"] == [2, 2]
             and all(d["forward_bitwise"] and d["tables_worst_excess"] <= 0 for d in dx.values())):
         raise AssertionError(f"the dense exchange differs from one card: {dx}")
     if not cap_same:
@@ -3530,12 +3366,15 @@ def hybrid_world(torch) -> int:
     return min(8, max(2, torch.cuda.device_count()))
 
 
-def hybrid_run(torch, model: str, dynamic: bool = False, world: int = 0, lay=None, **extra):
+def hybrid_run(torch, model: str, dynamic: bool = False, world: int = 0, lay=None, ab: str = "", **extra):
     """A full-width model (`tools/hybrid.py::full_width_config`) trained on
     W = `world` ranks (default `hybrid_world`), on the mesh and with the
     settings of `lay` (`hybrid.layout`): 6 steps and a 20-batch eval over
-    NCCL with a card per rank; over gloo, W ranks sharing the card(s), 4
-    steps and 4 eval batches, since every collective is staged through the
+    NCCL with a card per rank, each rank's step captured after the first
+    and replayed (`Model.step_mode` "graph"), then with `ab` (a label) the
+    captured step against the eager one on every rank
+    (`tools/graph_ab.py`); over gloo, W ranks sharing the card(s), 4 steps
+    and 4 eval batches, eager, since every collective is staged through the
     host (its ms/step is then no speed number). Counters are set to 0 on
     every rank just before the steps and read just after, and again around
     the eval. Returns (the phase's record, the ranks' results)."""
@@ -3544,11 +3383,62 @@ def hybrid_run(torch, model: str, dynamic: bool = False, world: int = 0, lay=Non
     t0 = time.perf_counter()
     w = world or hybrid_world(torch)
     backend = hybrid.default_backend(w)
+    if ab and backend == "nccl":
+        extra["graph_ab"] = ab
     cfg = dict(hybrid.full_width_config(model, backend == "gloo", B, dynamic, lay), **extra)
     ranks = hybrid.run(hybrid.train_model, w, {"config": json.dumps(cfg)}, backend=backend, timeout=900.0)
     rec = dict(backend=backend, device_count=torch.cuda.device_count(), staged_through_host=backend == "gloo",
                **hybrid.path_summary(ranks, cfg), seconds=time.perf_counter() - t0)
     return rec, ranks
+
+
+def hybrid_graph_ab(rec, ranks) -> None:
+    """The step mode of a hybrid phase on every rank, and its captured step
+    against the eager one. Over NCCL every rank must replay its captured
+    step ("graph"), and its `graph_ab` run (`hybrid_run`'s `ab`) must hold
+    on every rank (`tools/graph_ab.py::failures`: bitwise losses, the
+    storage groups' rule, collectives a step equal in both modes, graph
+    device-busy ms at most 1.1 x eager's, replays free of host syncs), with
+    every array the ranks hold alike bitwise equal across the ranks after
+    each turn. Prints rank 0's record and one line over the ranks. Over
+    gloo every rank must run "eager: the gloo backend", printed as the
+    reason the phase did not capture."""
+    from hugectr_tpu_torch.tools import graph_ab as gab
+
+    phase, modes = rec["phase"], rec["step_modes"]
+    if rec["backend"] != "nccl":
+        emit(dict(phase=f"{phase}_graph_ab", captured=False, step_modes=modes,
+                  reason="gloo stages every collective through the host: the steps stay eager"))
+        if any(m != "eager: the gloo backend" for m in modes):
+            raise AssertionError(f"{phase}: step modes over gloo {modes}")
+        return
+    recs = [json.loads(r["graph_ab"]) for r in ranks]
+    emit(recs[0])
+    fails = {r: gab.failures(x) for r, x in enumerate(recs)}
+    turns = len(recs[0]["replica_digests"])
+    replicas_equal = all(x["replica_digests"][t] == recs[0]["replica_digests"][t] for x in recs for t in range(turns))
+
+    def per_rank(key):
+        return [x["traces"][key] for x in recs]
+
+    emit(dict(
+        phase=f"{phase}_graph_ab_ranks", card=card_line(), world=len(recs), step_modes=modes,
+        losses=[x["losses"] for x in recs], losses_bitwise=[x["losses_bitwise"] for x in recs],
+        breaches=[x["breaches"] for x in recs], replicas_equal_across_ranks=replicas_equal,
+        ms_per_step={m: [[t["ms_per_step"] for t in x["train"] if t["turn"] == m] for x in recs]
+                     for m in ("eager", "graph")},
+        collective_calls_per_step=recs[0]["train"][0]["collective_calls_per_step"],
+        collective_bytes_per_step=recs[0]["train"][0]["collective_bytes_per_step"],
+        **{f"{k}_{m}": [t[k] for t in per_rank(f"{m}_train")] for m in ("eager", "graph")
+           for k in ("device_busy_ms_per_step", "compute_busy_ms_per_step", "device_idle_share", "nccl_ms_per_step",
+                     "ms_per_step")},
+        device_busy_graph_over_eager=[x["device_busy_graph_over_eager"] for x in recs],
+        eval_ms_per_batch={m: [[t["ms_per_batch"] for t in x["eval"] if t["turn"] == m] for x in recs]
+                           for m in ("eager", "graph")},
+        failures=fails, seconds=max(x["seconds"] for x in recs)))
+    if any(m != "graph" for m in modes) or any(fails.values()) or not replicas_equal:
+        raise AssertionError(f"{phase}: the captured step over the ranks: modes {modes}, failures {fails}, "
+                             f"replicas equal {replicas_equal}")
 
 
 def mp_groups(rec) -> int:
@@ -3582,7 +3472,7 @@ def hybrid_path(torch):
     eval batch, the ordered pool once a model-parallel group and forward,
     `onehot_bwd` and `segscan` in the steps; losses finite; every
     replicated array bitwise equal across the ranks (SHA-256)."""
-    rec, _ranks = hybrid_run(torch, "dlrm_dcnv2")
+    rec, ranks = hybrid_run(torch, "dlrm_dcnv2", ab="hybrid_path")
     rec = dict(phase="hybrid_path", **rec)
     emit(rec)
     if not rec["finite"]:
@@ -3590,6 +3480,7 @@ def hybrid_path(torch):
     check_path_launches(rec, {"onehot_bwd": 1, "segscan": None})
     if not rec["replicas_equal"]:
         raise AssertionError("replicated arrays differ across the ranks of the hybrid path")
+    hybrid_graph_ab(rec, ranks)
     return [{k: tl[k] + el[k] for k in tl} for tl, el in zip(rec["launches"], rec["eval_launches"])], rec
 
 
@@ -3625,7 +3516,7 @@ def hybrid_hier_path(torch, flat_rec):
     from hugectr_tpu_torch.tools import hybrid
 
     lay = hybrid.layout(num_slices=2, comm_strategy="hierarchical")
-    rec, ranks = hybrid_run(torch, "dlrm_dcnv2", world=4, lay=lay, kernel_check=True)
+    rec, ranks = hybrid_run(torch, "dlrm_dcnv2", world=4, lay=lay, ab="hybrid_hier_path", kernel_check=True)
     hier, flat = rec["collective_bytes_per_step"], flat_rec["collective_bytes_per_step"]["reduce_scatter"]
     rec = dict(phase="hybrid_hier_path", mesh="(dcn, ici) = (2, 2)", comm_strategy="hierarchical", **rec,
                flat_reduce_scatter_bytes_per_step=flat, dcn_over_flat=hier.get("reduce_scatter_dcn", 0) / flat)
@@ -3634,6 +3525,7 @@ def hybrid_hier_path(torch, flat_rec):
     if not (hier.get("reduce_scatter_dcn", 0) * 2 == flat == hier.get("reduce_scatter_ici")
             and "reduce_scatter" not in hier):
         raise AssertionError(f"the two-level exchange's bytes: {hier}, flat {flat}")
+    hybrid_graph_ab(rec, ranks)
     return [{k: tl[k] + el[k] for k in tl} for tl, el in zip(rec["launches"], rec["eval_launches"])]
 
 
@@ -3646,7 +3538,8 @@ def hybrid_column_path(torch):
     bitwise."""
     from hugectr_tpu_torch.tools import hybrid
 
-    rec, ranks = hybrid_run(torch, "dlrm_dcnv2", lay=hybrid.layout(column_factor=2), kernel_check=True)
+    rec, ranks = hybrid_run(torch, "dlrm_dcnv2", lay=hybrid.layout(column_factor=2), ab="hybrid_column_path",
+                            kernel_check=True)
     rec = dict(phase="hybrid_column_path", column_factors={t: 2 for t in hybrid.SORTED_TABLES}, **rec)
     rec["kernel_parity"] = check_mesh_path(rec, ranks)
     emit(rec)
@@ -3655,6 +3548,7 @@ def hybrid_column_path(torch):
     if not (len(split) == 2 * len(hybrid.SORTED_TABLES) and set(split.values()) == {"sorted"}
             and E // 2 in widths):
         raise AssertionError(f"column-split groups and routes: {rec['routes']}, segscan shapes {widths}")
+    hybrid_graph_ab(rec, ranks)
     return [{k: tl[k] + el[k] for k in tl} for tl, el in zip(rec["launches"], rec["eval_launches"])]
 
 
@@ -3766,7 +3660,7 @@ def hybrid_bench_path(torch):
     the binned AUC of the eval's buffers within 1e-4 of the exact one."""
     from hugectr_tpu_torch.tools import hybrid
 
-    rec, ranks = hybrid_run(torch, "bench", kernel_check=True, auc_both=True)
+    rec, ranks = hybrid_run(torch, "bench", ab="hybrid_bench_path", kernel_check=True, auc_both=True)
     parity = [hybrid.jsonable(r["kernel_parity"]) for r in ranks]
     caps = [hybrid.jsonable(r["caps"]) for r in ranks]
     rec = dict(phase="hybrid_bench_path", **rec, auc_binned=ranks[0]["auc_binned"], auc_exact=ranks[0]["auc_exact"],
@@ -3784,6 +3678,7 @@ def hybrid_bench_path(torch):
             raise AssertionError(f"a kernel disagrees with its plain version on rank {r}: {p}")
     if not abs(rec["auc_binned"] - rec["auc_exact"]) <= 1e-4:
         raise AssertionError(f"binned AUC {rec['auc_binned']} vs exact {rec['auc_exact']}")
+    hybrid_graph_ab(rec, ranks)
     return [{k: tl[k] + el[k] for k in tl} for tl, el in zip(rec["launches"], rec["eval_launches"])]
 
 
@@ -3797,7 +3692,7 @@ def hybrid_ftrl_dynamic_path(torch):
     forward (no table takes the one-hot engine)."""
     import numpy as np
 
-    rec, ranks = hybrid_run(torch, "dlrm_ftrl", dynamic=True)
+    rec, ranks = hybrid_run(torch, "dlrm_ftrl", dynamic=True, ab="hybrid_ftrl_dynamic_path")
     again, again_ranks = hybrid_run(torch, "dlrm_ftrl", dynamic=True)
     stores = [r["key_stores"]["mp_ev128#keys"] for r in ranks]
     overlap = 0
@@ -3819,6 +3714,7 @@ def hybrid_ftrl_dynamic_path(torch):
     if not (overlap == 0 and rec["key_store_repeat_equal"] and rec["replicas_equal"]
             and min(f["mp_ev128"][-1] for f in rec["store_fill"]) > 0):
         raise AssertionError(f"hybrid dynamic FTRL key stores: {rec}")
+    hybrid_graph_ab(rec, ranks)
 
 
 def dir_bytes(path: str) -> int:

@@ -23,7 +23,12 @@ ev x 2 bytes, unique path 2 (W - 1) / W x W x C x ev x 2 bytes. The
 formula counts the update's gradients at 2 bytes; both packages send them
 as float32 (hugectr_tpu/embedding/collection.py:1148-1156), so the
 measured unique bytes are the formula's forward half plus twice its update
-half.
+half. The port runs the overflow branch in every pass too, and the
+all-reduced overflow flag selects on the device (the JAX package's
+`lax.cond` takes one branch), so that no host read decides: the line's
+`measured_select_ring_bytes` are that branch's collectives, the masked
+forward's reduce_scatter of the pools and the update's all_gather of the
+cotangents.
 
     python -m hugectr_tpu_torch.benchmarks.dense_exchange_bytes [--batch 512 --caps 64,64,64]
 """
@@ -132,6 +137,9 @@ def run_case(name: str, hot: int, vocab: int, batch: int, world: int, cap: int =
                 collective_bytes_rank0=per_rank[0], all_ranks_alike=all(r == per_rank[0] for r in per_rank),
                 measured_fwd_ring_bytes=ring * fwd_a2a, measured_bwd_ring_bytes=ring * bwd_a2a,
                 measured_unique_bytes=ring * (fwd_a2a + bwd_a2a), formula_unique_bytes=f["unique"],
+                measured_select_ring_bytes=ring * max(
+                    r["fwd"].get("reduce_scatter", 0) + r["bwd"].get("all_gather", 0) - r["fwd"].get("all_gather", 0)
+                    for r in per_rank),
                 formula_psum_bytes=f["psum"], psum_over_unique_formula=f["psum"] / f["unique"],
                 psum_over_unique_measured=f["psum"] / (ring * (fwd_a2a + bwd_a2a)))
 

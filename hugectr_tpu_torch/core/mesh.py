@@ -47,7 +47,10 @@ own 16-bit reduction rounds after every add, in an order of its own.
 Every collective takes float32, bfloat16 and integer tensors alike,
 through NCCL and through gloo. gloo is a host backend: a CUDA tensor under
 gloo goes through an explicit host copy here (W ranks sharing one card);
-NCCL never stages, and a CPU tensor under NCCL raises. `COLLECTIVE_CALLS`
+NCCL never stages, and a CPU tensor under NCCL raises. Under NCCL every
+collective is one fixed-shape device op, so a step's collectives capture
+into its CUDA graph (`Model._replay`); `gather_ints` is the uncounted
+all-gather the ranks agree by outside a step. `COLLECTIVE_CALLS`
 counts each collective's calls and `COLLECTIVE_BYTES` adds up the bytes of
 the whole buffer it covers on this rank (the all-gathered output, the
 reduce-scattered input, the all-to-all's input, the all-reduced or
@@ -112,18 +115,24 @@ def init_distributed(
     `env://`). The backend is NCCL where CUDA is available and gloo on the
     CPU; gloo with CUDA runs ranks that share cards (their collectives are
     staged through the host). With CUDA the rank's card is
-    `torch.cuda.set_device(LOCAL_RANK)` (under gloo, modulo the cards)."""
+    `torch.cuda.set_device(LOCAL_RANK)` (under gloo, modulo the cards).
+    An NCCL group is bound to that card (`device_id`): its communicator,
+    and each sub-group's made from it by `create`, exists from the start,
+    never first made inside a captured step."""
     global _DATA_GROUP
     rank = int(os.environ.get("RANK", 0)) if rank is None else rank
     world_size = int(os.environ.get("WORLD_SIZE", 1)) if world_size is None else world_size
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
     backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
+    bound = {}
     if torch.cuda.is_available():
         n = torch.cuda.device_count()
         torch.cuda.set_device(local_rank if backend == "nccl" else local_rank % n)
+        if backend == "nccl":
+            bound["device_id"] = torch.device("cuda", local_rank)
     dist.init_process_group(
         backend, init_method=init_method or "env://", rank=rank, world_size=world_size,
-        timeout=datetime.timedelta(minutes=10),
+        timeout=datetime.timedelta(minutes=10), **bound,
     )
     _PROCESS_GROUPS.clear()  # sub-groups of an earlier group are gone
     _DATA_GROUP = None
@@ -193,6 +202,19 @@ def data_size() -> int:
 def data_rank() -> int:
     """This rank's batch block."""
     return max(data_group().index, 0)
+
+
+def gather_ints(value: int) -> list:
+    """`value` of every rank of the process group, in rank order, by one
+    all-gather that the counters leave out (on the rank's card under NCCL):
+    what the ranks agree on outside a step, such as a capture's shapes."""
+    if group_size() == 1:
+        return [int(value)]
+    dev = torch.device("cuda", torch.cuda.current_device()) if backend() == "nccl" else torch.device("cpu")
+    t = torch.tensor([int(value)], dtype=torch.int64, device=dev)
+    out = t.new_empty(group_size())
+    _ALL_GATHER(out, t)
+    return out.cpu().tolist()
 
 
 def _count(name: str, nbytes: int) -> None:

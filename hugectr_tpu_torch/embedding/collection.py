@@ -749,12 +749,16 @@ class EmbeddingCollection:
                 store = tables.get(f"{g.name}#keys")
                 table = self._weights(g.name, tables[g.name])
                 dense_ex = self._dense_exchange_ok(g)
-                lists = self._dense_lists(g.name, keys) if dense_ex else None
-                if lists is not None:
-                    go = self._mp_fwd_dense(g.name, table, lists, keys_loc, w_loc)
-                elif self.fwd_partition and not dense_ex:
+                if dense_ex:
+                    # both branches, the overflow's (the masked gather) taken
+                    # where a list overflowed on any rank (jax.lax.cond on the
+                    # psummed flag, collection.py:1068-1116)
+                    lists, over = self._dense_lists(g.name, keys)
+                    go = torch.where(over, self._scatter(self._dp_fwd(g.name, table, keys, store, weights)),
+                                     self._mp_fwd_dense(g.name, table, lists, keys_loc, w_loc))
+                elif self.fwd_partition:
                     go = self._scatter(self._mp_fwd_partitioned(g.name, table, keys, store, weights))
-                else:  # the masked gather; the dense exchange's overflow branch too
+                else:  # the masked gather
                     go = self._scatter(self._dp_fwd(g.name, table, keys, store, weights))
             else:
                 keys = self._group_keys(g, feature_keys)
@@ -958,10 +962,10 @@ class EmbeddingCollection:
         rows, the same order)."""
         g = self._meta[gname].plan
         rows, offsets, w = self._pool_segments(gname, keys, table.shape[0], key_store, weights, cut)
-        # the slots of the uncut layout have the plan's columns (a capacity
-        # cut regroups the rows by the data)
-        fixed = None if cut and self.capacity_factor > 0 else self._meta[gname].max_slot
-        pooled = ordered_pool(table, rows, offsets, w, fixed).reshape(keys.shape[0], g.grad_src_slots, g.ev_size)
+        # a slot holds at most the plan's longest slot of rows, whether or
+        # not a capacity cut dropped some of them
+        pooled = ordered_pool(table, rows, offsets, w, self._meta[gname].max_slot).reshape(
+            keys.shape[0], g.grad_src_slots, g.ev_size)
         return self._mean_scaled(g, pooled, keys != INVALID_KEY, weights)
 
     def _mean_scaled(self, g: GroupPlan, pooled: torch.Tensor, raw_valid: torch.Tensor,
@@ -1011,13 +1015,15 @@ class EmbeddingCollection:
         (collection.py:981-984)."""
         return self.dense_exchange_cap or self.dense_exchange_caps.get(gname, 0)
 
-    def _dense_lists(self, gname: str, keys: torch.Tensor) -> Optional[torch.Tensor]:
-        """[W, f, C] sorted-unique local-row lists per (batch block, owner
+    def _dense_lists(self, gname: str, keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """([W, f, C] sorted-unique local-row lists per (batch block, owner
         shard) of the gathered keys, sentinel R past each list's end, the
-        same on every rank (`_dense_lists`, collection.py:1001-1049); None
-        when a list holds more than C rows on any rank. The overflow flag is
-        summed over the ranks before the branch, so every rank takes the
-        same one: one host sync per group and pass."""
+        same on every rank (`_dense_lists`, collection.py:1001-1049); the
+        0-d bool overflow flag: whether a list holds more than C rows on
+        any rank, its lists then cut at C). The flag is summed over the
+        ranks and stays on the device: each pass computes both branches and
+        selects by it, so every rank takes the same one without a host
+        read."""
         meta = self._meta[gname]
         g = meta.plan
         f, cap, n = meta.num_shards, self._dense_exchange_cap(gname), self.world
@@ -1040,9 +1046,7 @@ class EmbeddingCollection:
         lists = torch.full((n, f * cap + 1), r, dtype=torch.int64, device=keys.device)
         lists.scatter_(1, dest, sr)
         over = self._all_reduce((cnt > cap).any().to(torch.int32).reshape(1))
-        if int(over.item()) > 0:
-            return None
-        return lists[:, : f * cap].reshape(n, f, cap)
+        return lists[:, : f * cap].reshape(n, f, cap), over[0] > 0
 
     def _dense_positions(self, gname: str, my_lists: torch.Tensor, keys_loc: torch.Tensor):
         """(flat index into the received [f x C] rows, valid) of each of the
@@ -1074,14 +1078,16 @@ class EmbeddingCollection:
             vecs = vecs * torch.where(valid, w_loc, 0.0).reshape(-1, 1).to(vecs.dtype)
         return vecs.reshape(keys_loc.shape[0], g.out_width)
 
-    def _mp_bwd_dense(self, gname: str, table, state, lists, keys_loc, d_loc, lr, step,
+    def _mp_bwd_dense(self, gname: str, table, state, lists, over, keys_loc, d_loc, lr, step,
                       w_loc: Optional[torch.Tensor] = None) -> str:
         """The update of this rank's shard by the unique-key exchange
         (`_mp_bwd_dense_local`, collection.py:1121-1175): the rank's block's
         float32 gradient sums per list entry (each key's cotangent times its
         weight in the table's type, :1145-1147), `all_to_all` to the owners,
         rounded to the table's type, then `apply_sparse` over the [W x C]
-        list with the key-ratio rule off. Returns the route."""
+        list with the key-ratio rule off; where `over` (the lists
+        overflowed) every entry is the sentinel: no row is touched. Returns
+        the route."""
         g = self._meta[gname].plan
         f, cap = self._meta[gname].num_shards, self._dense_exchange_cap(gname)
         flat, valid = self._dense_positions(gname, lists[self.rank], keys_loc)
@@ -1092,7 +1098,7 @@ class EmbeddingCollection:
         gbuf = torch.zeros((f * cap + 1, g.ev_size), dtype=torch.float32, device=self.device)
         gbuf.index_add_(0, torch.where(valid.reshape(-1), flat, f * cap), dk)
         recv = self._all_to_all(gbuf[:-1])  # block d's sums for this rank's lists
-        idx = lists[:, self.rank].reshape(-1)
+        idx = torch.where(over, g.total_local_rows, lists[:, self.rank].reshape(-1))
         src = torch.arange(idx.numel(), device=self.device)
         return sparse_optimizer.apply_sparse(
             self.group_opt[gname], table, state, idx, src, recv.to(self.dtype), lr,
@@ -1170,14 +1176,15 @@ class EmbeddingCollection:
         opt = self.group_opt[g.name]
         meta = self._meta[g.name]
         key_store = tables.get(f"{g.name}#keys")
-        k_limit = 0
+        k_limit, over = 0, None
         if self.world > 1:
             gkeys = self._all_gather(keys)
             if self._dense_exchange_ok(g):
-                lists = self._dense_lists(g.name, gkeys)
-                if lists is not None:
-                    return self._mp_bwd_dense(g.name, tables[g.name], state, lists, keys, d_group, lr, step,
-                                              weights)
+                # both branches, each a no-op where the other is taken
+                # (jax.lax.cond on the psummed flag, collection.py:1121-1195):
+                # the unique-key update, then the full one below
+                lists, over = self._dense_lists(g.name, gkeys)
+                self._mp_bwd_dense(g.name, tables[g.name], state, lists, over, keys, d_group, lr, step, weights)
             elif meta.num_shards > 1 and self.capacity_factor > 0:
                 k_limit = capacity(gkeys.numel(), self.capacity_factor, meta.num_shards)
             keys, d_group = gkeys, self._gather_rows(d_group)
@@ -1186,6 +1193,8 @@ class EmbeddingCollection:
         if key_store is not None:
             self._dynamic_insert(meta, key_store, keys)
         idx, src, dsrc = self._row_grads(g.name, keys, d_group, key_store, weights)
+        if over is not None:
+            idx = torch.where(over, idx, g.total_local_rows)
         route = sparse_optimizer.apply_sparse(
             opt, tables[g.name], state, idx, src, dsrc, lr, step=step, k_limit=k_limit, stats=self.ucap_stats,
             **self._opt_knobs(g),

@@ -156,6 +156,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import itertools
 import json
 import os
@@ -167,6 +168,7 @@ import numpy as np
 import torch
 
 from .. import ops
+from ..core import mesh
 from ..core.config import (
     PORT_SOLVER_SETTINGS,
     DataReaderParams,
@@ -368,6 +370,7 @@ class Model:
         self._scalars = StepScalars(self.device)
         self._graphs: Dict[str, _Captured] = {}
         self._graph_pool = None
+        self._captures = 0  # captures made, the same count on every rank
         self._eager_steps = 0  # this process's eager train steps
         self._eager_evals = 0  # and eager eval batches
         self.lr_sch = LearningRateScheduler(
@@ -1137,13 +1140,17 @@ class Model:
     def _graph_refusal(self, train: bool) -> Optional[str]:
         """Why the train step (or the eval forward) is not captured, or
         None: the configurations whose step is one fixed-shape, sync-free
-        program on one card."""
+        program on a card, on one or on each of W NCCL ranks (their
+        collectives inside the graph, as the JAX package jits its
+        shard_map step). Every answer follows from the configuration alone,
+        the same on every rank."""
         if not self.solver.use_cuda_graph:
             return "use_cuda_graph=False"
         if self.device.type != "cuda":
             return f"the {self.device.type} device"
-        if self.rm.num_devices > 1:
-            return "W > 1 ranks"
+        if self.rm.num_devices > 1 and mesh.backend() != "nccl":
+            # gloo's collectives are staged through the host
+            return "the gloo backend"
         if not self._cached(train):
             return "a file feeder"
         layer = next((d.layer_type for d in self.dense_layers if d.layer_type not in GRAPH_LAYERS), None)
@@ -1196,19 +1203,51 @@ class Model:
         return (self.ec, tuple(t.data_ptr() for t in self._graph_tensors()),
                 tuple((k, tuple(v.shape), v.dtype) for k, v in batch.items()))
 
+    def _capture_digest(self, name: str, batch: Dict[str, torch.Tensor]) -> int:
+        """What every rank's capture must agree on, as 63 bits: the step's
+        name, this model's count of captures, the batch's names, shapes and
+        dtypes, and the carried state's count and dtypes (the rank-free
+        part of `_graph_key`)."""
+        what = (name, self._captures, tuple((k, tuple(v.shape), str(v.dtype)) for k, v in batch.items()),
+                tuple(str(t.dtype) for t in self._graph_tensors()))
+        return int.from_bytes(hashlib.sha256(repr(what).encode()).digest()[:8], "little") >> 1
+
+    def _agree(self, value: int, what: str) -> None:
+        """Raise on every rank unless all ranks pass the same `value` (one
+        eager all-gather, uncounted)."""
+        got = mesh.gather_ints(value)
+        if len(set(got)) > 1:
+            raise RuntimeError(f"{what}: the ranks differ ({got})")
+
     def _replay(self, name: str, fn, batch):
         """Replay the captured `fn` on `batch`; (re)capture it first when
         there is none, the state's storage moved (a load that replaced a
         tensor) or the batch's shapes differ from the static buffers'. The
         capture copies the batch into static buffers, runs `fn` once into
         the graph (not on the card), restores the host's counts and keeps
-        what one replay adds to them. A capture that fails raises."""
+        what one replay adds to them: the launches, routes and caps' stats,
+        and the collectives' calls and bytes. A capture that fails raises.
+
+        Over W ranks each rank captures its own graph, its collectives
+        inside it, and every rank must (re)capture at the same call, since
+        a rank that captures while another replays waits in NCCL for ever:
+        the key changes only with what every rank does together (a load,
+        `grow_dynamic_capacity`, `_build_steps`). At a capture, and only
+        there, the ranks check eagerly that they agree on the key's shapes
+        and dtypes (`_capture_digest`) and, after it, that each captured;
+        either raises on every rank. Eager collectives between replays
+        (the eval's AUC, snapshots, the caps' gather) go through the same
+        communicators on the same streams, in program order."""
         key = self._graph_key(batch)
         cap = self._graphs.get(name)
         if cap is None or cap.key != key:
             self._graphs.pop(name, None)
+            ranks = self.rm.num_devices > 1
+            if ranks:
+                self._agree(self._capture_digest(name, batch), f"the {name} step's capture")
             static = {k: v.clone() for k, v in batch.items()}
-            counters = ops.counters() + ([self.ec.route_counts, self.ec.ucap_stats] if self.ec is not None else [])
+            counters = ops.counters() + [mesh.COLLECTIVE_CALLS, mesh.COLLECTIVE_BYTES] + (
+                [self.ec.route_counts, self.ec.ucap_stats] if self.ec is not None else [])
             before = [dict(d) for d in counters]
             if not self._graphs:
                 # one memory pool for the model's live graphs; once they are
@@ -1217,8 +1256,22 @@ class Model:
                 # stream) keep the old pool, which takes no new capture
                 self._graph_pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._graph_pool):
-                out = fn(static)
+            self._captures += 1
+            failed = None
+            try:
+                # the context waits for the card first: no eager work, NCCL's
+                # included, is in flight while the stream captures
+                with torch.cuda.graph(graph, pool=self._graph_pool):
+                    out = fn(static)
+            except Exception as e:  # noqa: BLE001 - raised again below, on every rank
+                failed = e
+            if ranks:
+                ok = mesh.gather_ints(int(failed is None))
+                if failed is None and not all(ok):
+                    raise RuntimeError(f"the {name} step's capture failed on rank(s) "
+                                       f"{[r for r, x in enumerate(ok) if not x]}")
+            if failed is not None:
+                raise failed
             delta = [{k: v - b.get(k, 0) for k, v in d.items() if v != b.get(k, 0)} for d, b in zip(counters, before)]
             for d, b in zip(counters, before):
                 d.clear()

@@ -52,6 +52,10 @@ mesh_parity) trains the tiny model on one device, on 4 ranks flat,
 hierarchical and ("data", "ev"), and on 2 ranks, all on the global batches
 of 2 hosts.
 
+With `graph_ab` in a `train_model` config, every rank then runs the
+captured step against the eager one (`tools/graph_ab.py`; the steps
+capture over NCCL, never over gloo).
+
 `exchange_checks` is the rank function of the exchanges' checks on the
 card (`chip_smoke.py`'s hybrid_exchange_parity): the owner-partitioned
 forward against the masked gather, the kernels on each rank's inputs, and
@@ -116,12 +120,14 @@ def _rank_main(rank: int, fn: Callable, world: int, backend: str, device: str, t
     if local_world_size:  # ranks as on world / local_world_size hosts
         os.environ["LOCAL_WORLD_SIZE"] = str(local_world_size)
     init_distributed(backend, rank, world, init_method=f"file://{os.path.join(tmp, 'store')}")
-    try:
-        rm = ResourceManager.create(device=device)
-        out = fn(rm, load_tree(os.path.join(tmp, "inputs.npz")))
-        save_tree(os.path.join(tmp, f"result_{rank}.npz"), out or {})
-    finally:
-        dist.destroy_process_group()
+    rm = ResourceManager.create(device=device)
+    out = fn(rm, load_tree(os.path.join(tmp, "inputs.npz")))
+    save_tree(os.path.join(tmp, f"result_{rank}.npz"), out or {})
+    # only after a rank function that returned: one that raised may leave
+    # its peers inside a collective (and NCCL work, captured in a graph,
+    # that the traceback keeps alive), where tearing the group down waits
+    # for ever; the raising rank's process exits and `run` stops the others
+    dist.destroy_process_group()
 
 
 def default_backend(world: int, device: str = "cuda") -> str:
@@ -247,7 +253,10 @@ def train_model(rm, inputs: Tree) -> Tree:
     `kernel_check`, each kernel held against its plain version at this
     rank's shapes after the run (`kernel_parity`); with `auc_both`, the
     binned and the exact AUC of the eval's buffers; with `carry_out`, the
-    trained state (`export_state`, `final_state`); given
+    trained state (`export_state`, `final_state`); the step mode
+    (`step_mode`) and the captured steps (`captured`); with `graph_ab` (a
+    label), the captured step against the eager one from the trained state
+    (`tools/graph_ab.py::run`, its record as JSON); given
     `inputs["eval_state"]` (a state of `eval_state_shards` ranks), the eval
     of those weights last (`eval_carried`); with i64 keys, the exact fold's
     maps (`i64_fold_maps`). `shards` holds this rank's
@@ -311,7 +320,8 @@ def train_model(rm, inputs: Tree) -> Tree:
 
     stats: List[Dict] = []
     (losses, secs), counts = counted(steps)
-    out: Tree = {"losses": np.asarray(losses), "step_seconds": np.asarray(secs), **counts}
+    out: Tree = {"losses": np.asarray(losses), "step_seconds": np.asarray(secs), **counts,
+                 "step_mode": model.step_mode, "captured": ",".join(sorted(model._graphs))}
     if cfg.get("batch_out"):
         out["first_batch"] = {k: v.cpu().numpy() for k, v in batches[0].items()}
     if cfg.get("time_forward"):
@@ -352,6 +362,10 @@ def train_model(rm, inputs: Tree) -> Tree:
         out["i64_fold_maps"] = model._i64_fold_maps_arrays()
     if cfg.get("carry_out"):
         out["final_state"] = export_state(model)
+    if cfg.get("graph_ab"):  # the captured step against the eager one, every rank in turn
+        from . import graph_ab
+
+        out["graph_ab"] = json.dumps(graph_ab.run(model, cfg["graph_ab"]))
     if "eval_state" in inputs:  # another run's weights, evaluated here
         load_jax_state(model, inputs["eval_state"], cfg.get("eval_state_shards", 0))
         out["eval_carried"] = model.eval()
@@ -797,8 +811,8 @@ def full_width_config(model: str, staged: bool, batch: int = 16384, dynamic: boo
 def path_summary(ranks: List[Tree], cfg: Tree) -> Tree:
     """What a full-width run over W ranks shows (`full_width_config`):
     rank 0's losses, step times (median of steps 2 on), eval; each rank's
-    peak memory, launches in the steps and in the eval; the collectives'
-    calls and bytes a step and an eval batch (rank 0); whether every
+    peak memory, step mode, launches in the steps and in the eval; the
+    collectives' calls and bytes a step and an eval batch (rank 0); whether every
     replicated array has the same digest on every rank; for dynamic
     tables, each rank's store fill and dropped keys a step."""
     import statistics
@@ -814,6 +828,7 @@ def path_summary(ranks: List[Tree], cfg: Tree) -> Tree:
         step_ms=[x * 1e3 for x in secs], median_ms_per_step=steady * 1e3, examples_per_s=batch / steady,
         eval_seconds=r0["eval_seconds"], eval_examples_per_s=eval_batches * batch / r0["eval_seconds"],
         eval=r0["eval"], max_memory_allocated=[r.get("max_memory_allocated") for r in ranks],
+        step_modes=[str(r["step_mode"]) for r in ranks],
         routes=r0["routes"], launches=[r["launches"] for r in ranks],
         eval_launches=[r["eval_counts"]["launches"] for r in ranks],
         collective_calls_per_step={k: v / steps for k, v in r0["collective_calls"].items()},

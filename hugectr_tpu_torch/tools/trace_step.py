@@ -3,7 +3,7 @@
 Usage (on a machine with a card, from the repo root):
 
     python -m hugectr_tpu_torch.tools.trace_step [--model dlrm_dcnv2 | dlrm_ftrl | GRAPH] [--dynamic]
-        [--batch 16384] [--steps 3] [--bench] [--ucap auto | FACTOR] [--eval] [--graph 1 | 0] [--world W]
+        [--batch 16384] [--steps 3] [--bench] [--ucap auto | FACTOR] [--eval] [--graph 1 | 0 | 1,0] [--world W]
         [--out DIR]
 
 Builds the full-width DLRM-DCNv2 (`build_dlrm_dcnv2`, 26 tables, ev 128,
@@ -23,12 +23,14 @@ then traces `--steps` more (with `--eval`: eval batches, the forward of
 `Model.eval`) with `torch.profiler`. The steps are the model's default
 ones (`--graph 1`): where `Model.step_mode` is "graph", the captured step
 replayed (and the captured eval forward); `--graph 0` sets
-`use_cuda_graph` False, the eager step on the same code. A step is
+`use_cuda_graph` False, the eager step on the same code; `--graph 1,0`
+traces both on one built model, the captured step first. A step is
 `train_async`, so the traced steps wait for the card once, at their end.
-Prints one JSON line: the step mode, the untraced
+Prints one JSON line a mode: the step mode, the untraced
 steps' host ms and their median, ms per traced step (host clock around the
 traced steps), device busy ms per step (sum of kernel and copy
-times), the device idle share, device events (kernels, copies, memsets)
+times), the device idle share, the busy ms outside NCCL's kernels (whose time
+includes their wait for the slowest rank), device events (kernels, copies, memsets)
 in all and per step, device ms per step by category and by kernel name
 (top 25), the host's operators and waits for the card per step (the 25
 commonest operators apart), the kernels' launches per traced step, and the
@@ -40,7 +42,10 @@ With `--world W` the model trains hybrid-parallel on W spawned ranks
 (`tools/hybrid.py`; NCCL where there is a card per rank, else gloo with the
 ranks sharing the cards and the collectives staged through the host);
 `--batch` stays the global batch, every rank runs the steps and rank 0 is
-traced. NCCL's kernels count as the category "collective".
+traced. Over NCCL each rank replays its captured step, collectives inside
+(`--graph 0`: the eager step); over gloo the steps stay eager. NCCL's
+kernels count as the category "collective", and the line gives their
+device ms a step (`nccl_ms_per_step`).
 """
 from __future__ import annotations
 
@@ -107,14 +112,17 @@ def trace(rm, inputs) -> dict:
         if args.ucap is not None:
             kw["unique_cap_factor"] = args.ucap if args.ucap == "auto" else float(args.ucap)
         model = build_dlrm_dcnv2(rm, **dict(kw, **n))
-    model.solver.use_cuda_graph = bool(args.graph)
+    modes = [bool(int(m)) for m in str(args.graph).split(",")]
+    model.solver.use_cuda_graph = modes[0]
     for _ in range(2):
         model.train()
-    out = profile_steps(model, args.steps, args.eval, rm.is_master_process(), args.out)
-    if out is None:
-        return {}
-    out.update(model=args.model, dynamic=args.dynamic, bench=args.bench)
-    return {"summary": json.dumps(out)}  # kernel names may hold any character
+    outs = []
+    for graph in modes:
+        model.solver.use_cuda_graph = graph
+        out = profile_steps(model, args.steps, args.eval, rm.is_master_process(), args.out)
+        if out is not None:
+            outs.append(dict(out, model=args.model, dynamic=args.dynamic, bench=args.bench))
+    return {"summary": json.dumps(outs)} if outs else {}  # kernel names may hold any character
 
 
 def profile_steps(model, steps: int, eval_batches: bool = False, profile: bool = True, out_dir: str = ""):
@@ -195,7 +203,8 @@ def profile_steps(model, steps: int, eval_batches: bool = False, profile: bool =
         device_idle_share=max(0.0, 1.0 - busy / wall_ms),
         host_ops_per_step=sum(host_ops.values()), host_syncs_per_step=host_syncs / steps,
         top_host_ops=dict(host_ops.most_common(25)),
-        by_category_ms=dict(cats.most_common()),
+        by_category_ms=dict(cats.most_common()), nccl_ms_per_step=cats.get("collective", 0.0),
+        compute_busy_ms_per_step=busy - cats.get("collective", 0.0),
         top_kernels_ms=dict(kernels.most_common(25)),
         launches_per_step={k: v / steps for k, v in launches.items()},
         valid_caps=dict(model.ec.valid_caps),
@@ -216,8 +225,9 @@ def main() -> None:
     ap.add_argument("--ucap", default=None,
                     help="the DLRM-DCNv2's unique_cap_factor: auto or a number, 0 for the caps off")
     ap.add_argument("--eval", action="store_true", help="trace eval batches instead of training steps")
-    ap.add_argument("--graph", type=int, choices=(0, 1), default=1,
-                    help="1: the default step (captured where Model.step_mode is graph); 0: the eager step")
+    ap.add_argument("--graph", choices=("1", "0", "1,0"), default="1",
+                    help="1: the default step (captured where Model.step_mode is graph); 0: the eager step; "
+                         "1,0: both, in that order")
     ap.add_argument("--model", choices=("dlrm_dcnv2", "dlrm_ftrl", *SAMPLE_GRAPHS), default="dlrm_dcnv2")
     ap.add_argument("--dynamic", action="store_true", help="dlrm_ftrl with exact dynamic tables")
     ap.add_argument("--world", type=int, default=1, help="ranks (one process each); rank 0 is traced")
@@ -239,11 +249,12 @@ def main() -> None:
         res = hybrid.run(trace, args.world, inputs, timeout=1800.0)[0]
     else:
         res = trace(ResourceManager.create(), inputs)
-    out = json.loads(res["summary"])
-    print(json.dumps(out), flush=True)
+    outs = json.loads(res["summary"])
+    for out in outs:
+        print(json.dumps(out), flush=True)
     if args.out:
         with open(os.path.join(args.out, "trace_step_summary.json"), "w") as f:
-            json.dump(out, f, indent=1)
+            json.dump(outs[0] if len(outs) == 1 else outs, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -38,9 +38,10 @@ reads its block of the global batch; two steps each.
 * The unique-key dense exchange (`Solver.dense_exchange_cap`, JAX's
   HCTR_TPU_DENSE_EXCHANGE_CAP) on tests/test_dense_exchange.py's concat
   tables, SGD and AdaGrad, lists of 64 rows (the compressed branch over
-  `all_to_all`, counted) and of 2 (every list overflows: the masked forward
-  and the full update, no `all_to_all`): step 1's outputs bitwise (each
-  output is one row), updates as above. Its gate refuses a frozen table.
+  `all_to_all` taken) and of 2 (every list overflows: the masked forward
+  and the full update taken); both branches run in each pass, the flag
+  selects on the device (counted): step 1's outputs bitwise (each output
+  is one row), updates as above. Its gate refuses a frozen table.
 Step 2's outputs read the updated tables and are held at the update's
 tolerance.
 """
@@ -281,20 +282,26 @@ def test_capacity_factor_drops_only_what_overflows(port_w2):
 
 
 def test_dense_exchange_branches_and_counts(port_w2, port_w4):
-    """Lists of 64 rows take the compressed branch: one all_to_all in each
-    forward and backward, the rows in the table's type and the gradient sums
-    in float32, W x 64 rows a rank and call; lists of 2 overflow on every
-    step: no all_to_all, the overflow flag's all_reduce in each pass."""
+    """Each pass runs both branches and the overflow flag, all-reduced over
+    the ranks, selects one on the device (JAX's `lax.cond`), so that no
+    host read decides and the step captures: one all_to_all in each forward
+    and backward, the rows in the table's type and the gradient sums in
+    float32, W x C rows a rank and call (C 64: no list overflows, the
+    compressed branch taken; C 2: every step overflows, the masked
+    forward's and the full update's results taken), beside the masked
+    forward's reduce_scatter and the full update's all_gathers, the same
+    calls for both C; the flag's all_reduce in each pass."""
     for ranks, world in ((port_w2, 2), (port_w4, 4)):
         for res in (r["ec"] for r in ranks):
-            for name in (f"w{world}_dx64_adagrad", f"w{world}_dx2_adagrad"):
-                calls, nbytes = res[name]["collective_calls"], res[name]["collective_bytes"]
-                if "dx64" in name:
-                    assert calls["all_to_all"] == 2 * STEPS
-                    assert nbytes["all_to_all"] == 2 * STEPS * world * 64 * 8 * 4
-                else:
-                    assert "all_to_all" not in calls
-                assert calls["all_reduce"] >= 2 * STEPS
+            calls = {}
+            for cap in (64, 2):
+                name = f"w{world}_dx{cap}_adagrad"
+                calls[cap], nbytes = res[name]["collective_calls"], res[name]["collective_bytes"]
+                assert calls[cap]["all_to_all"] == 2 * STEPS
+                assert nbytes["all_to_all"] == 2 * STEPS * world * cap * 8 * 4
+                assert calls[cap]["reduce_scatter"] == STEPS
+                assert calls[cap]["all_reduce"] >= 2 * STEPS
+            assert calls[64] == calls[2]
 
 
 def test_dense_exchange_gate_refuses_a_frozen_table():

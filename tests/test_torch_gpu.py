@@ -18,10 +18,13 @@ its eager ones within rtol 1e-4 / atol 1e-5 (atomic sums), its replayed
 eval bitwise; so do a tiny WDL's (Dropout 0.5) and MMoE's (SGD). Dropout's
 mask kernel is bitwise its plain version, and two consecutive replays of a
 captured draw give two masks. The last tests run the embedding collection
-and train the tiny model on 2 spawned ranks against one card.
+and train the tiny model on 2 spawned ranks against one card; with 2 cards,
+the tiny model and the dense exchange captured on 2 NCCL ranks against
+their eager steps.
 """
 import functools
 import importlib.util
+import json
 from pathlib import Path
 
 import numpy as np
@@ -767,6 +770,84 @@ def test_collection_replicas_bitwise_on_two_ranks(cuda, backend):
     for res in ranks:
         for t, want in one["tables"].items():
             np.testing.assert_allclose(res["tables"][t], want, rtol=1e-4, atol=1e-5, err_msg=t)
+
+
+# lists of 8 rows: the dense exchange's keys folded into rows 0-2 fit them,
+# the full keys of `torch_rank_fns.CASES["dx64"]` at batch 64 overflow them
+DX_CAP = 8
+
+
+@pytest.fixture(scope="module")
+def nccl_ranks(tmp_path_factory):
+    """`torch_rank_fns.captured_ranks` on 2 NCCL ranks, a card each: the
+    tiny model's graph-against-eager run, the dense exchange captured once
+    and replayed on lists that fit and on lists that overflow, and a
+    snapshot loaded between replays."""
+    import torch_rank_fns as fns
+    from hugectr_tpu_torch.tools import hybrid
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip(f"NCCL over 2 ranks needs 2 cards; this machine has "
+                    f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
+    inputs = {"dx": fns.ec_inputs("adagrad", 64, 1, 0.3, "dx64"), "dx_cap": DX_CAP,
+              "path": np.frombuffer(str(tmp_path_factory.mktemp("snap")).encode(), np.uint8)}
+    return hybrid.run(fns.captured_ranks, 2, inputs, backend="nccl", timeout=900.0)
+
+
+@pytest.mark.gpu
+def test_tiny_model_captured_on_nccl_ranks_equals_eager(nccl_ranks):
+    """The tiny DLRM-DCNv2 on 2 NCCL ranks, each rank's step and eval
+    forward captured, collectives inside (`tools/graph_ab.py`: eager,
+    graph, graph, eager from one state): on every rank the losses bitwise,
+    every storage group bitwise where each mode repeats itself bitwise (else
+    within its spread), the replayed eval bitwise, the collectives a step the
+    same in both modes, the replays free of host syncs; the arrays the
+    ranks hold alike bitwise across the ranks after each turn."""
+    from hugectr_tpu_torch.tools import graph_ab
+
+    recs = [json.loads(r["ab"]) for r in nccl_ranks]
+    for rank, rec in enumerate(recs):
+        assert rec["step_mode"] == "graph" and not graph_ab.failures(rec), (rank, graph_ab.failures(rec))
+        assert rec["train"][1]["collective_calls_per_step"].get("all_reduce", 0) > 0
+    assert recs[0]["replica_digests"] == recs[1]["replica_digests"]
+    assert recs[0]["losses"] == recs[1]["losses"]
+
+
+@pytest.mark.gpu
+def test_dense_exchange_overflow_branch_taken_inside_a_replay(nccl_ranks):
+    """One capture of the dense exchange's forward and update (lists of
+    DX_CAP rows), replayed on keys whose lists fit and then on keys whose
+    lists overflow: the flag, all-reduced on the device, takes the masked
+    gather and the full update in the second replay, as the eager passes
+    do. Step 1's outputs bitwise (one row each), step 2's outputs (read
+    after an update) and the tables rtol 1e-4 / atol 1e-5 (the dense
+    sweep's atomic sums)."""
+    for rank, res in enumerate(r["dx"] for r in nccl_ranks):
+        assert res["over"].tolist() == [False, True]
+        eager, graph = res["eager"], res["graph"]
+        for top, want in eager["fwd"]["0"].items():
+            np.testing.assert_array_equal(graph["fwd"]["0"][top], want, err_msg=f"rank {rank} step 1 {top}")
+        for top, want in eager["fwd"]["1"].items():
+            np.testing.assert_allclose(graph["fwd"]["1"][top], want, rtol=1e-4, atol=1e-5,
+                                       err_msg=f"rank {rank} step 2 {top}")
+        for t, want in eager["tables"].items():
+            np.testing.assert_allclose(graph["tables"][t], want, rtol=1e-4, atol=1e-5, err_msg=f"rank {rank} {t}")
+
+
+@pytest.mark.gpu
+def test_replays_and_a_recapture_after_a_load_on_both_ranks(nccl_ranks):
+    """A snapshot loaded on both ranks between replays: the captured step
+    reads the loaded state in place (the same 3 batches give the losses of
+    the first pass, rtol 1e-4: atomic sums); after `_build_steps` on both
+    ranks each captures anew at the same call (2 captures) and agrees
+    again; the losses (the global batch's mean) equal on both ranks."""
+    runs = [r["load"] for r in nccl_ranks]
+    for rank, run in enumerate(runs):
+        assert run["step_mode"] == "graph" and run["captures"] == 2, (rank, run)
+        np.testing.assert_allclose(run["again"], run["first"], rtol=1e-4, err_msg=f"rank {rank}")
+        np.testing.assert_allclose(run["rebuilt"], run["first"], rtol=1e-4, err_msg=f"rank {rank}")
+    for key in ("first", "again", "rebuilt"):
+        np.testing.assert_array_equal(runs[1][key], runs[0][key])
 
 
 @pytest.mark.gpu

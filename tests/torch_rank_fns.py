@@ -5,6 +5,7 @@ Each spawned rank imports this module, so it imports no JAX (the test files
 that compare with the JAX package do). Inputs and results are numpy trees.
 """
 import json
+import os
 
 import numpy as np
 import torch
@@ -349,7 +350,7 @@ def several(rm, inputs):
     under key."""
     calls = json.loads(inputs["calls"])
     fns = dict(collection_cases=collection_cases, bf16_sum=bf16_sum, train_model=hybrid.train_model,
-               snapshot_round_trip=hybrid.snapshot_round_trip)
+               snapshot_round_trip=hybrid.snapshot_round_trip, replay_counts=replay_counts)
     return {key: fns[name](rm, inputs[key]) for key, name in calls.items()}
 
 
@@ -460,4 +461,190 @@ def graph_layers_ranks(rm, inputs):
             out[f"net_state:{layer}.{k}"] = t.numpy()
     for g, t in model.tables.items():
         out[f"table:{g}"] = t.numpy()
+    return out
+
+
+# ---------------------------------------- the captured step's body over ranks
+# tests/test_torch_graph_ranks.py: what a captured W-rank step runs, on the
+# CPU, under tests/test_torch_graph_step.py's `_Refuse`, the dispatch mode
+# that raises where the step would read the card on the host or size a
+# result by the data
+REFUSED_CALLS: dict = {}
+
+
+def _refusing(cls, name):
+    from test_torch_graph_step import _Refuse  # imports no JAX
+
+    fn = getattr(cls, name)
+
+    def wrapped(*args, **kwargs):
+        REFUSED_CALLS[name] = REFUSED_CALLS.get(name, 0) + 1
+        with _Refuse():
+            return fn(*args, **kwargs)
+
+    setattr(cls, name, wrapped)
+
+
+def refused_ranks(rm, inputs):
+    """`several`, with what a captured step runs under `_Refuse`: the
+    model's step body and eval forward (`Model._train_body`,
+    `Model._eval_step`) and the collection's passes (`forward`,
+    `backward_and_update`). Adds each one's calls under "refused"."""
+    from hugectr_tpu_torch.model.model import Model
+
+    for cls, names in ((Model, ("_train_body", "_eval_step")),
+                       (EmbeddingCollection, ("forward", "backward_and_update"))):
+        for name in names:
+            _refusing(cls, name)
+    out = several(rm, inputs)
+    out["refused"] = dict(REFUSED_CALLS)
+    return out
+
+
+class _Graph:
+    """A stand-in for `torch.cuda.CUDAGraph` on the CPU: the capture runs the
+    step once, as a capture records it, and a replay runs nothing."""
+
+    def replay(self):
+        pass
+
+
+def replay_counts(rm, inputs):
+    """The collectives' calls and bytes a replay adds, against the eager
+    step's, on the tiny model over the ranks (`Model._replay` with the CUDA
+    graph stood in for on the CPU): (the eager step's, the first replay's,
+    which captures, and three more replays')."""
+    import contextlib
+
+    from hugectr_tpu_torch.tools import flagship
+
+    torch.cuda.CUDAGraph = _Graph
+    torch.cuda.graph = lambda *a, **k: contextlib.nullcontext()
+    torch.cuda.graph_pool_handle = lambda: None
+    model = flagship.build_tiny_dlrm(rm, batchsize=64)
+    model.start_data_reading()
+    batch = model._next_train_batch()
+    out = {}
+    for what, run, n in (("eager", model._train_body, 1), ("capture", None, 1), ("replays", None, 3)):
+        mesh.COLLECTIVE_CALLS.clear()
+        mesh.COLLECTIVE_BYTES.clear()
+        for _ in range(n):
+            if run is not None:
+                run(batch)
+            else:
+                model._replay("train", model._train_body, batch)
+        out[what] = {"calls": dict(mesh.COLLECTIVE_CALLS), "bytes": dict(mesh.COLLECTIVE_BYTES)}
+    out["captures"] = model._captures
+    return out
+
+
+# the tiny DLRM-DCNv2 of the parity checks (`hybrid.TINY_PARITY`)
+TINY_KW = dict(batchsize=64, onehot_vocab=100, dense_update_rows=0, dense_key_ratio=0.0)
+
+
+def _dx_collection(rm, inputs, cap):
+    """CASES["dx64"]'s collection (AdaGrad, the dense sweep) with lists of
+    `cap` rows, the tables of `inputs` imported: (collection, tables,
+    state)."""
+    case = CASES["dx64"]
+    eng = dict(case["engine"], dense_exchange_cap=cap)
+    plan = tplan.compile_plan(ec_lookups(tplan, Combiner_t, "dx64"), tplan.ShardingPlan(case["strategy"]),
+                              rm.data_parallel_size, onehot_vocab=0, split_vocab=0)
+    ec = EmbeddingCollection(plan, rm, OptParams(Optimizer_t.AdaGrad, **OPT_HYPER), dense_update_rows=1000,
+                             dense_key_ratio=0.0, dense_exchange_cap=cap)
+    tables = ec.init(rm.generator(0))
+    for name, values in inputs["tables"].items():
+        ec.import_table(tables, name, values)
+    return ec, tables, ec.init_optimizer(tables)
+
+
+def captured_ranks(rm, inputs):
+    """The card tests of the captured step over NCCL ranks
+    (tests/test_torch_gpu.py), in one group:
+
+    * "ab": the tiny model trained 2 steps, then `tools/graph_ab.py::run`
+      (eager against captured from one state, in turns), as JSON;
+    * "dx": the dense exchange's passes captured once on a batch whose
+      lists fit (keys folded into a few rows) and replayed on one whose
+      lists overflow, against the same two steps eager from the same
+      tables: each step's overflow flag, outputs and the tables after;
+    * "load": the tiny model captured, a snapshot written at step 2 under
+      inputs["path"], 3 replayed steps on fixed batches, the snapshot
+      loaded and the same 3 batches replayed again, then `_build_steps`
+      (every rank drops its graphs), the snapshot loaded and the 3 batches
+      again, captured anew: the losses of each pass and the captures
+      made."""
+    from hugectr_tpu_torch.tools import flagship, graph_ab
+
+    out = {}
+    model = flagship.build_tiny_dlrm(rm, **TINY_KW)
+    for _ in range(2):
+        model.train()
+    out["ab"] = json.dumps(graph_ab.run(model, "tiny_ranks"))
+
+    # the dense exchange: one capture, its branch taken by the data
+    w, r = rm.data_parallel_size, rm.data_index
+    cap = int(inputs["dx_cap"])
+    keys = {f: block(k, r, w) for f, k in inputs["dx"]["keys"].items()}
+    batches = [{f: torch.from_numpy(np.where(k != -1, np.abs(k) % 3, -1)).to(rm.device) for f, k in keys.items()},
+               {f: torch.from_numpy(k).to(rm.device) for f, k in keys.items()}]
+    d = {k: torch.from_numpy(block(v, r, w)).to(rm.device) for k, v in inputs["dx"]["d"]["1"].items()}
+    lr = torch.tensor(0.3, device=rm.device)
+    res = {}
+    for mode in ("eager", "graph"):
+        ec, tables, state = _dx_collection(rm, inputs["dx"], cap)
+
+        def step(feats):
+            outs = ec.forward(tables, feats)
+            ec.backward_and_update(tables, state, feats, d, lr, 1)
+            return outs
+
+        if mode == "eager":
+            outs = [step(b) for b in batches]
+            g = ec.plan.groups[0]
+            res["over"] = np.asarray([bool(ec._dense_lists(g.name, ec._all_gather(ec._group_keys(g, b)))[1])
+                                      for b in batches])
+        else:
+            kept = [t.clone() for t in (*tables.values(), *(a for st in state.values() for a in st.values()))]
+            step(batches[0])  # warm-up, eager, on a state then put back
+            for t, k in zip((*tables.values(), *(a for st in state.values() for a in st.values())), kept):
+                t.copy_(k)
+            static = {f: t.clone() for f, t in batches[0].items()}
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = step(static)
+            outs = []
+            for b in batches:
+                for f, t in static.items():
+                    t.copy_(b[f])
+                graph.replay()
+                outs.append({k: v.clone() for k, v in captured.items()})
+        res[mode] = {"fwd": {str(i): {k: v.float().cpu().numpy() for k, v in o.items()} for i, o in enumerate(outs)},
+                     "tables": {t: ec.export_table(tables, t) for t in sorted(inputs["dx"]["tables"])}}
+    out["dx"] = res
+
+    # a snapshot loaded between replays, then every rank's graphs dropped
+    model = flagship.build_tiny_dlrm(rm, **TINY_KW)
+    model.start_data_reading()
+    fixed = [model._next_train_batch() for _ in range(3)]
+
+    def three():
+        losses = []
+        for b in fixed:
+            model._staged_train_batch = b
+            losses.append(float(model.train_async()))
+        return np.asarray(losses)
+
+    model.train()
+    model.train()
+    prefix = os.path.join(bytes(inputs["path"]).decode(), "snap")
+    model.save_params_to_files(prefix, 2)  # rank 0 writes, every rank returns once it is written
+    first = three()
+    model.load_params_from_files(f"{prefix}_iter2")
+    again = three()
+    model._build_steps()
+    model.load_params_from_files(f"{prefix}_iter2")
+    rebuilt = three()
+    out["load"] = {"first": first, "again": again, "rebuilt": rebuilt, "captures": model._captures,
+                   "step_mode": model.step_mode}
     return out
